@@ -4,31 +4,49 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero and no phase carries on past an
-error:
+error (no phase catches its own failure):
 
 1. card:    print the card's name and power limit (nvidia-smi) and
             torch.cuda.get_device_name(0); fail when no card is found;
 2. build:   build the hand-written kernels from ops/csrc (nvcc, one process
             per source, all started together) and print the build seconds;
-3. kernels: at the slice's shapes (N = 2^23 rows, cap = 16384 segments,
-            P = 15 sum planes; Q = 1 for K2; int64 for K3, min and max) run
-            each kernel on inputs built from the generated table and require
-            bit-identical output against its plain PyTorch version; time the
-            kernel, the plain version, one PyTorch library call computing the
-            same function, and print the memory bound;
-4. slice:   generate TPC-H lineitem at SF1 (about 6.0 M rows, numpy, fixed
-            seed) and run the per-supplier shipment summary through the port
+   data:    generate TPC-H lineitem (about 6.0 M rows) and orders (1.5 M
+            rows) at SF1 with numpy from a fixed seed, in the value domains
+            of benchmarking/tpch/datagen.py (string columns as codes mapped
+            through a small object array);
+3. kernels: at the slices' shapes run each kernel on inputs built from the
+            generated tables and require the same output as its plain
+            PyTorch version; time the kernel, the plain version, one PyTorch
+            library call computing the same function where there is one, and
+            print the bound. Segment kernels at the supplier query's shapes
+            (N = 2^23 rows, cap = 16384, P = 15; Q = 1 for K2; int64 min and
+            max for K3) and K1 (P = 5) and K2 (Q = 1) again at q12's cap
+            8; K4 at q12's
+            (orders' 1.5 M keys into a 2^22-slot table, 2^23 lineitem keys
+            probed). K4's build is compared as the sorted set of its (key,
+            row) entries: where a key lands depends on the order the
+            threads claim their slots;
+4. slice:   the per-supplier shipment summary over lineitem through the port
             with device="cuda", device_mode="on"; the counters are zeroed
             just before that run and read just after it. The result must equal
-            the port's host path and an independent numpy oracle exactly, each
-            kernel must show launches, and no stage may fall back. Then the
+            the port's host path and an independent numpy oracle exactly,
+            K1-K3 must show launches, and no stage may fall back. Then the
             warm query time (median of 3) and peak device memory;
-5. profile: one more warm query under torch.profiler, for the device's
-            busy time and idle share and its longest device activities;
-6. print the {"kernels": [...]} line, the card line, and last the
+5. profile: one more warm supplier query under torch.profiler, for the
+            device's busy time and idle share and its longest activities;
+6. q12:     TPC-H q12 (lineitem joined to orders, grouped by ship mode)
+            through the port with device="cuda", the counters zeroed just
+            before the cold run and read just after it: K4 (build and
+            probe), K1 and K2 must show launches, with at least one device
+            join batch and no fallback, and the result must equal the host
+            path and a numpy oracle exactly. Then the warm query (median of
+            3, which must launch K4 zero times: its index plane is resident),
+            peak device memory, and one warm query under torch.profiler;
+7. print the {"kernels": [...]} line, the card line, and last the
    {"ok": true, "device": {...}} line.
 
-It imports torch, numpy and the port; nothing of JAX, pyarrow or daft_tpu.
+Both queries run at SF1: nothing is cut. It imports torch, numpy and the
+port; nothing of JAX, pyarrow or daft_tpu.
 """
 
 from __future__ import annotations
@@ -48,16 +66,24 @@ SF1_ORDERS = 1_500_000
 SF1_SUPPLIERS = 10_000
 BUCKET = 1 << 23          # 6.0 M rows pad to this bucket
 CAP = 16384               # 10,000 suppliers pad to this group capacity
+Q12_CAP = 8               # 7 ship modes pad to this group capacity
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 EPOCH = datetime.date(1970, 1, 1)
 D_1992 = (datetime.date(1992, 1, 1) - EPOCH).days
 D_1998 = (datetime.date(1998, 12, 1) - EPOCH).days
 CUTOFF = datetime.date(1998, 9, 2)  # TPC-H Q1's ship-date predicate
-KERNEL_SOURCE = "daft_tpu_torch/ops/csrc/segment_reduce.cu"
-REPLACES = {
-    "segment_sum_planes": "daft_tpu/ops/pallas_kernels.py:129",
-    "segment_extreme_planes": "daft_tpu/ops/pallas_kernels.py:184",
-    "segment_extreme_int64": "daft_tpu/ops/pallas_kernels.py:248",
+Q12_FROM, Q12_TO = datetime.date(1994, 1, 1), datetime.date(1995, 1, 1)
+# benchmarking/tpch/datagen.py:36-37
+PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
+SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
+SEGMENT_SOURCE = "daft_tpu_torch/ops/csrc/segment_reduce.cu"
+PROBE_SOURCE = "daft_tpu_torch/ops/csrc/hash_probe.cu"
+KERNELS = {  # name -> (source, the TPU kernel or host function it replaces)
+    "segment_sum_planes": (SEGMENT_SOURCE, "daft_tpu/ops/pallas_kernels.py:129"),
+    "segment_extreme_planes": (SEGMENT_SOURCE, "daft_tpu/ops/pallas_kernels.py:184"),
+    "segment_extreme_int64": (SEGMENT_SOURCE, "daft_tpu/ops/pallas_kernels.py:248"),
+    "hash_probe_build": (PROBE_SOURCE, "daft_tpu/ops/pallas_kernels.py:310"),
+    "hash_probe_index": (PROBE_SOURCE, "daft_tpu/ops/pallas_kernels.py:369"),
 }
 
 
@@ -77,9 +103,11 @@ def phase(name: str) -> None:
 # ---- data ----------------------------------------------------------------------
 
 
-def lineitem_sf1(seed: int):
-    """The lineitem columns of the query, with the value domains of the
-    repo's TPC-H generator (benchmarking/tpch/datagen.py:168-190)."""
+def tpch_sf1(seed: int):
+    """(lineitem columns, orders columns) of both queries, with the value
+    domains of the repo's TPC-H generator (benchmarking/tpch/datagen.py:
+    36-37, 160-190). Dates are int32 days; ``l_shipmode`` and
+    ``o_orderpriority`` are int8 codes into SHIPMODES and PRIORITIES."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -87,15 +115,23 @@ def lineitem_sf1(seed: int):
     lines_per_order = rng.integers(1, 8, SF1_ORDERS)
     n_line = int(lines_per_order.sum())
     starts = np.cumsum(lines_per_order) - lines_per_order
-    return {
+    l_orderdate = np.repeat(o_orderdate, lines_per_order)
+    lineitem = {
         "l_orderkey": np.repeat(np.arange(1, SF1_ORDERS + 1, dtype=np.int64),
                                 lines_per_order),
         "l_suppkey": rng.integers(1, SF1_SUPPLIERS + 1, n_line).astype(np.int64),
         "l_linenumber": (np.arange(n_line) - np.repeat(starts, lines_per_order)
                          + 1).astype(np.int32),
-        "l_shipdate": (np.repeat(o_orderdate, lines_per_order)
-                       + rng.integers(1, 122, n_line)).astype(np.int32),
+        "l_shipdate": (l_orderdate + rng.integers(1, 122, n_line)).astype(np.int32),
     }
+    lineitem["l_commitdate"] = (l_orderdate + rng.integers(30, 91, n_line)).astype(np.int32)
+    lineitem["l_receiptdate"] = (lineitem["l_shipdate"]
+                                 + rng.integers(1, 31, n_line)).astype(np.int32)
+    lineitem["l_shipmode"] = rng.integers(0, len(SHIPMODES), n_line).astype(np.int8)
+    orders = {"o_orderkey": np.arange(1, SF1_ORDERS + 1, dtype=np.int64),
+              "o_orderpriority": rng.integers(0, len(PRIORITIES),
+                                              SF1_ORDERS).astype(np.int8)}
+    return lineitem, orders
 
 
 def supplier_query(df):
@@ -145,6 +181,76 @@ def numpy_oracle(cols) -> dict:
     }
 
 
+def q12_frames(lineitem, orders):
+    """The port's DataFrames of q12: string columns as object arrays."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+
+    modes = np.array(SHIPMODES, dtype=object)
+    prios = np.array(PRIORITIES, dtype=object)
+    dates = {c: lineitem[c].astype("datetime64[D]")
+             for c in ("l_shipdate", "l_commitdate", "l_receiptdate")}
+    df_l = dt.from_pydict({"l_orderkey": lineitem["l_orderkey"],
+                           "l_shipmode": modes[lineitem["l_shipmode"]], **dates})
+    df_o = dt.from_pydict({"o_orderkey": orders["o_orderkey"],
+                           "o_orderpriority": prios[orders["o_orderpriority"]]})
+    return df_l, df_o
+
+
+def q12_query(df_l, df_o):
+    """TPC-H q12 as benchmarking/tpch/queries.py:220-237 writes it."""
+    from daft_tpu_torch import col, lit
+
+    high = col("o_orderpriority").is_in(["1-URGENT", "2-HIGH"])
+    return (df_l.where(col("l_shipmode").is_in(["MAIL", "SHIP"])
+                       & (col("l_commitdate") < col("l_receiptdate"))
+                       & (col("l_shipdate") < col("l_commitdate"))
+                       & (col("l_receiptdate") >= lit(Q12_FROM))
+                       & (col("l_receiptdate") < lit(Q12_TO)))
+            .join(df_o, left_on="l_orderkey", right_on="o_orderkey")
+            .with_column("high_line", high.if_else(lit(1), lit(0)))
+            .with_column("low_line", (~high).if_else(lit(1), lit(0)))
+            .groupby("l_shipmode")
+            .agg(col("high_line").sum().alias("high_line_count"),
+                 col("low_line").sum().alias("low_line_count"))
+            .sort("l_shipmode"))
+
+
+def q12_keep(lineitem):
+    """q12's lineitem predicate in numpy."""
+    import numpy as np
+
+    mode = np.array(SHIPMODES)[lineitem["l_shipmode"]]
+    receipt = lineitem["l_receiptdate"]
+    return (np.isin(mode, ["MAIL", "SHIP"])
+            & (lineitem["l_commitdate"] < receipt)
+            & (lineitem["l_shipdate"] < lineitem["l_commitdate"])
+            & (receipt >= (Q12_FROM - EPOCH).days) & (receipt < (Q12_TO - EPOCH).days))
+
+
+def q12_high(lineitem, orders):
+    """Per lineitem row: its order's priority is 1-URGENT or 2-HIGH
+    (o_orderkey is 1..SF1_ORDERS, so the join is an index)."""
+    return orders["o_orderpriority"][lineitem["l_orderkey"] - 1] <= 1
+
+
+def q12_oracle(lineitem, orders) -> dict:
+    """q12's answer computed with numpy alone."""
+    import numpy as np
+
+    keep = q12_keep(lineitem)
+    high = q12_high(lineitem, orders)[keep]
+    mode = lineitem["l_shipmode"][keep]
+    present = sorted({SHIPMODES[m] for m in np.unique(mode)})
+    out = {"l_shipmode": present, "high_line_count": [], "low_line_count": []}
+    for name in present:
+        rows = mode == SHIPMODES.index(name)
+        out["high_line_count"].append(int(np.count_nonzero(high[rows])))
+        out["low_line_count"].append(int(np.count_nonzero(~high[rows])))
+    return out
+
+
 # ---- timing --------------------------------------------------------------------
 
 
@@ -168,6 +274,19 @@ def time_ms(fn, iters: int) -> float:
 
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def time_s(fn, runs: int = 3):
+    """Host-clock seconds of ``runs`` calls, each ending in a synchronize."""
+    import torch
+
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
 
 
 def max_abs_err(a, b) -> float:
@@ -201,12 +320,13 @@ def phase_card():
 
 
 def phase_build(card: str) -> None:
-    from daft_tpu_torch.ops import _build, segment_kernels
+    from daft_tpu_torch.ops import _build, probe_kernels, segment_kernels
 
     phase("build")
     t0 = time.perf_counter()
     _build.build_all()
     segment_kernels.build()
+    probe_kernels.build()
     wall = time.perf_counter() - t0
     for source, info in sorted(_build.BUILD_INFO.items()):
         print(f"built {source}: nvcc {info['seconds']:.2f} s")
@@ -247,9 +367,11 @@ def slice_inputs(cols, device):
             "first": first[:, None].contiguous().to(device), "ints": ints}
 
 
-def phase_kernels(cols, card: str):
+def phase_kernels(cols, orders, card: str):
+    import numpy as np
     import torch
 
+    from daft_tpu_torch.ops import probe_kernels as pk
     from daft_tpu_torch.ops import segment_kernels as sk
 
     phase("kernels")
@@ -314,13 +436,114 @@ def phase_kernels(cols, card: str):
             lambda: lib_table3.scatter_reduce_(0, trash_idx, lib_vals, "amin"), 20),
         "bound_ms": bound_ms(n * 8 + n * 1 + n * 4 + CAP * 8 + CAP * 1),
     }
-    for name, r in results.items():
-        print(f"{name}: bit-identical to plain (max_abs_err {r['max_abs_err']}); "
-              f"kernel_ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, "
-              f"library_ms {r['library_ms']:.4f}, bound_ms {r['bound_ms']:.4f} "
-              f"(bytes at 3.35 TB/s) [{card}]", flush=True)
-    del x
+    del x, lib_table, lib_table2, lib_table3, lib_vals, trash_idx, idx2
     torch.cuda.empty_cache()
+
+    # K1 at q12's shapes: 7 ship modes in cap 8, P = 5 planes (kept rows, and
+    # the valid count and one digit plane of each CASE-WHEN sum)
+    n = len(cols["l_orderkey"])
+    keep_np = q12_keep(cols)
+    high_np = q12_high(cols, orders)
+    codes8 = torch.full((BUCKET,), Q12_CAP, dtype=torch.int32)
+    codes8[:n] = torch.from_numpy(np.where(keep_np, cols["l_shipmode"], Q12_CAP)
+                                  .astype(np.int32))
+    kf = torch.zeros(BUCKET)
+    kf[:n] = torch.from_numpy(keep_np.astype(np.float32))
+    hf = torch.zeros(BUCKET)
+    hf[:n] = torch.from_numpy(high_np.astype(np.float32))
+    planes8 = torch.stack([kf, kf, kf * hf, kf, kf * (1 - hf)], dim=-1).contiguous().to(dev)
+    codes8 = codes8.to(dev)
+    got = sk.segment_sum_planes(planes8, codes8, Q12_CAP)
+    want = sk.segment_sum_planes_plain(planes8, codes8, Q12_CAP)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "K1 at cap 8 differs from its plain version")
+    idx8 = torch.where(codes8 < Q12_CAP, codes8, Q12_CAP).long()
+    lib8 = torch.zeros((Q12_CAP + 1, 5), dtype=torch.float32, device=dev)
+    results["segment_sum_planes"]["at_q12_cap8"] = {
+        "max_abs_err": max_abs_err(got, want),
+        "ms": time_ms(lambda: sk.segment_sum_planes(planes8, codes8, Q12_CAP), 20),
+        "plain_ms": time_ms(lambda: sk.segment_sum_planes_plain(planes8, codes8, Q12_CAP), 5),
+        "library_ms": time_ms(lambda: lib8.index_add_(0, idx8, planes8), 20),
+        "bound_ms": bound_ms(BUCKET * 5 * 4 + BUCKET * 4 + Q12_CAP * 5 * 8),
+    }
+    # K2 at q12's shapes: the first-row-index plane over the same codes, Q = 1
+    first8 = torch.where(torch.from_numpy(np.pad(keep_np, (0, BUCKET - n))),
+                         torch.arange(BUCKET, dtype=torch.float32),
+                         torch.tensor(float("inf")))[:, None].contiguous().to(dev)
+    got = sk.segment_extreme_planes(first8, codes8, Q12_CAP, "min")
+    want = sk.segment_extreme_planes_plain(first8, codes8, Q12_CAP, "min")
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "K2 at cap 8 differs from its plain version")
+    lib8_2 = torch.full((Q12_CAP + 1, 1), float("inf"), device=dev)
+    idx8_2 = idx8[:, None]
+    results["segment_extreme_planes"]["at_q12_cap8"] = {
+        "max_abs_err": max_abs_err(got, want),
+        "ms": time_ms(lambda: sk.segment_extreme_planes(first8, codes8, Q12_CAP, "min"), 20),
+        "plain_ms": time_ms(
+            lambda: sk.segment_extreme_planes_plain(first8, codes8, Q12_CAP, "min"), 20),
+        "library_ms": time_ms(
+            lambda: lib8_2.scatter_reduce_(0, idx8_2, first8, "amin"), 20),
+        "bound_ms": bound_ms(BUCKET * 4 + BUCKET * 4 + Q12_CAP * 4),
+    }
+    del planes8, codes8, idx8, lib8, first8, lib8_2, idx8_2
+
+    # K4: orders' keys into the table, every lineitem key probed
+    dim_keys = torch.from_numpy(orders["o_orderkey"]).to(dev)
+    dim_valid = torch.ones(SF1_ORDERS, dtype=torch.bool, device=dev)
+    slots = pk.probe_table_slots(SF1_ORDERS)
+    table = pk.build_probe_table(dim_keys, dim_valid, slots)
+    plain_table = pk.build_probe_table_plain(dim_keys, dim_valid, slots)
+    torch.cuda.synchronize()
+
+    def entries(slot_keys, slot_rows):
+        occupied = slot_keys != pk.EMPTY_KEY
+        k, order = torch.sort(slot_keys[occupied])
+        return k, slot_rows[occupied][order]
+
+    (gk, gr), (wk, wr) = entries(*table), entries(*plain_table)
+    check(torch.equal(gk, wk) and torch.equal(gr, wr),
+          "K4 build: the table's (key, row) entries differ from the plain build's")
+    results["hash_probe_build"] = {
+        "max_abs_err": max(max_abs_err(gk, wk), max_abs_err(gr, wr)),
+        "ms": time_ms(lambda: pk.build_probe_table(dim_keys, dim_valid, slots), 20),
+        "plain_ms": time_ms(lambda: pk.build_probe_table_plain(dim_keys, dim_valid, slots), 2),
+        "library_ms": None,
+        "bound_ms": bound_ms(SF1_ORDERS * 9 + slots * 12),
+    }
+    fact_keys = torch.zeros(BUCKET, dtype=torch.int64)
+    fact_keys[:n] = torch.from_numpy(cols["l_orderkey"])
+    fact_valid = torch.zeros(BUCKET, dtype=torch.bool)
+    fact_valid[:n] = True
+    fact_keys, fact_valid = fact_keys.to(dev), fact_valid.to(dev)
+    got = pk.hash_probe_index(fact_keys, fact_valid, *table)
+    want = pk.hash_probe_index_plain(fact_keys, fact_valid, *table)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "K4 probe differs from its plain version")
+    check(torch.equal(got[:n].cpu(), torch.from_numpy(cols["l_orderkey"] - 1).int()),
+          "K4 probe: a lineitem row does not find its order")
+    sorted_keys = torch.sort(dim_keys)[0]
+    results["hash_probe_index"] = {
+        "max_abs_err": max_abs_err(got, want),
+        "ms": time_ms(lambda: pk.hash_probe_index(fact_keys, fact_valid, *table), 20),
+        "plain_ms": time_ms(
+            lambda: pk.hash_probe_index_plain(fact_keys, fact_valid, *table), 5),
+        "library_ms": time_ms(lambda: torch.searchsorted(sorted_keys, fact_keys), 20),
+        "bound_ms": bound_ms(BUCKET * 8 + BUCKET + slots * 12 + BUCKET * 4),
+    }
+    del table, plain_table, fact_keys, fact_valid, got, want, sorted_keys
+    torch.cuda.empty_cache()
+
+    def fmt(v):
+        return "null" if v is None else f"{v:.4f}"
+
+    rows = list(results.items()) + [
+        (f"{k} at q12 cap 8", results[k]["at_q12_cap8"])
+        for k in ("segment_sum_planes", "segment_extreme_planes")]
+    for name, r in rows:
+        print(f"{name}: identical to plain (max_abs_err {r['max_abs_err']}); "
+              f"kernel_ms {fmt(r['ms'])}, plain_ms {fmt(r['plain_ms'])}, "
+              f"library_ms {fmt(r['library_ms'])}, bound_ms {fmt(r['bound_ms'])} "
+              f"(bytes at 3.35 TB/s) [{card}]", flush=True)
     return results
 
 
@@ -332,7 +555,7 @@ def phase_slice(cols, card: str):
     from daft_tpu_torch.ops import counters
 
     phase("slice")
-    data = dict(cols)
+    data = {k: cols[k] for k in ("l_orderkey", "l_suppkey", "l_linenumber")}
     data["l_shipdate"] = cols["l_shipdate"].astype("datetime64[D]")
     df = dt.from_pydict(data)
     print(f"lineitem SF1: {len(cols['l_suppkey'])} rows, seed {SEED}", flush=True)
@@ -346,18 +569,13 @@ def phase_slice(cols, card: str):
         cold_s = time.perf_counter() - t0
         snap = counters.snapshot()
         launches = {k: snap[f"launches_{k}"] for k in counters.KERNEL_NAMES}
-        warm = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            supplier_query(df).to_pydict()
-            torch.cuda.synchronize()
-            warm.append(time.perf_counter() - t0)
+        warm = time_s(lambda: supplier_query(df).to_pydict())
         peak = torch.cuda.max_memory_allocated()
     print(f"device run counters: {json.dumps(snap, sort_keys=True)}")
     check(snap["device_grouped_batches"] >= 1, "no device grouped batch in the query")
     check(snap["device_fallbacks"] == 0, "the device stage fell back to the host")
-    for k, c in launches.items():
-        check(c > 0, f"kernel {k} was not launched by the query")
+    for k in counters.SEGMENT_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched by the query")
 
     with dt.execution_config_ctx(device_mode="off"):
         t0 = time.perf_counter()
@@ -378,7 +596,7 @@ def phase_slice(cols, card: str):
     return df, launches
 
 
-def phase_profile(df, card: str) -> None:
+def phase_profile(query, card: str, name: str = "profile") -> None:
     """One warm device query under torch.profiler: device busy time (the sum
     of the device activities' own times), the query's wall time under the
     profiler, the idle share, and the device activities that took longest."""
@@ -387,11 +605,11 @@ def phase_profile(df, card: str) -> None:
 
     import daft_tpu_torch as dt
 
-    phase("profile")
+    phase(name)
     with dt.execution_config_ctx(device="cuda", device_mode="on", kernel_mode="on"):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            supplier_query(df).to_pydict()
+            query().to_pydict()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side activities only (kernels, copies): the CPU op that launched
@@ -408,6 +626,67 @@ def phase_profile(df, card: str) -> None:
     sys.stdout.flush()
 
 
+def phase_q12(lineitem, orders, card: str):
+    """TPC-H q12 at SF1 on the card: the cold run (counted), the host path,
+    the numpy oracle, the warm runs, peak memory. Returns (the query as a
+    callable, the cold run's launches)."""
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ops import counters
+
+    phase("q12")
+    t0 = time.perf_counter()
+    df_l, df_o = q12_frames(lineitem, orders)
+    print(f"lineitem {len(lineitem['l_orderkey'])} rows, orders {SF1_ORDERS} rows: "
+          f"frames {time.perf_counter() - t0:.2f} s", flush=True)
+
+    def query():
+        return q12_query(df_l, df_o)
+
+    with dt.execution_config_ctx(device="cuda", device_mode="on", kernel_mode="on"):
+        torch.cuda.reset_peak_memory_stats()
+        counters.reset()
+        t0 = time.perf_counter()
+        got = query().to_pydict()
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        snap = counters.snapshot()
+        launches = {k: snap[f"launches_{k}"] for k in counters.KERNEL_NAMES}
+        counters.reset()
+        warm = time_s(lambda: query().to_pydict())
+        warm_snap = counters.snapshot()
+        peak = torch.cuda.max_memory_allocated()
+    print(f"cold run counters: {json.dumps(snap, sort_keys=True)}")
+    print(f"warm runs counters (3 runs): {json.dumps(warm_snap, sort_keys=True)}")
+    check(snap["device_join_batches"] >= 1, "no device join batch in q12")
+    check(snap["device_fallbacks"] == 0, "the join stage fell back to the host")
+    for k in ("hash_probe_build", "hash_probe_index", "segment_sum_planes",
+              "segment_extreme_planes"):
+        check(launches[k] > 0, f"kernel {k} was not launched by q12")
+    check(warm_snap["device_join_batches"] == 3 and warm_snap["device_fallbacks"] == 0,
+          "a warm q12 run left the device join path")
+    check(warm_snap["launches_hash_probe_index"] == 0
+          and warm_snap["launches_hash_probe_build"] == 0,
+          "a warm q12 run probed again: the index plane is not resident")
+
+    with dt.execution_config_ctx(device_mode="off"):
+        t0 = time.perf_counter()
+        host = query().to_pydict()
+        host_s = time.perf_counter() - t0
+    oracle = q12_oracle(lineitem, orders)
+    check(got == host, "q12 on the card differs from the port's host path")
+    check(got == oracle, "q12 on the card differs from the numpy oracle")
+    check(got["l_shipmode"] == ["MAIL", "SHIP"], f"q12 groups {got['l_shipmode']}")
+    check(all(isinstance(v, int) for v in got["high_line_count"] + got["low_line_count"]),
+          "q12 counts are not ints")
+    print(f"result: {json.dumps(got)}, equal to the host path and the numpy oracle")
+    print(f"q12 cold {cold_s:.3f} s; warm median {statistics.median(warm):.4f} s "
+          f"(runs {', '.join(f'{w:.4f}' for w in warm)}); host path {host_s:.3f} s; "
+          f"max_memory_allocated {peak} bytes [{card}]", flush=True)
+    return query, launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "daft_tpu_torch")):
         print("chip_smoke.py: the daft_tpu_torch package is not beside this script; "
@@ -418,11 +697,13 @@ def main() -> int:
         card, name = phase_card()
         phase_build(card)
         t0 = time.perf_counter()
-        cols = lineitem_sf1(SEED)
+        lineitem, orders = tpch_sf1(SEED)
         print(f"datagen {time.perf_counter() - t0:.2f} s", flush=True)
-        kernel_results = phase_kernels(cols, card)
-        df, launches = phase_slice(cols, card)
-        phase_profile(df, card)
+        kernel_results = phase_kernels(lineitem, orders, card)
+        df, supplier_launches = phase_slice(lineitem, card)
+        phase_profile(lambda: supplier_query(df), card)
+        q12, q12_launches = phase_q12(lineitem, orders, card)
+        phase_profile(q12, card, "q12 profile")
     except SmokeFailure as exc:
         print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -430,11 +711,16 @@ def main() -> int:
 
     kernels = []
     for kname, r in kernel_results.items():
-        kernels.append({"name": kname, "route": "cuda", "source": KERNEL_SOURCE,
-                        "replaces": REPLACES[kname], "launches": launches[kname],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": "bytes", "library_ms": r["library_ms"]})
+        source, replaces = KERNELS[kname]
+        by_path = {"supplier": supplier_launches[kname], "q12": q12_launches[kname]}
+        entry = {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": sum(by_path.values()), "launches_by_path": by_path,
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": "bytes", "library_ms": r["library_ms"]}
+        if "at_q12_cap8" in r:
+            entry["at_q12_cap8"] = r["at_q12_cap8"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

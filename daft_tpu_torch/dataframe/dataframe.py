@@ -1,7 +1,7 @@
 """DataFrame: the lazy user-facing API (counterpart of
-daft_tpu/dataframe/dataframe.py, the subset the grouped-aggregation slice
-needs): ``where``, ``select``, ``groupby(...).agg(...)``, ``sort``,
-``collect`` and ``to_pydict``.
+daft_tpu/dataframe/dataframe.py, the subset the grouped-aggregation and join
+slices need): ``where``, ``select``, ``with_column``, ``join`` (inner),
+``groupby(...).agg(...)``, ``sort``, ``collect`` and ``to_pydict``.
 
 Every method appends a logical node; ``collect`` translates the plan under
 the current execution config and runs it, caching the result partitions.
@@ -62,6 +62,29 @@ class DataFrame:
 
     def select(self, *columns: ColumnInput) -> "DataFrame":
         return DataFrame(lp.Project(self._plan, _to_exprs(columns)))
+
+    def with_column(self, name: str, expr: ColumnInput) -> "DataFrame":
+        """Add (or replace) column ``name``: the other columns keep their
+        order and the new one comes last, as in the reference."""
+        keep = [col(n) for n in self.column_names if n != name]
+        return DataFrame(lp.Project(self._plan, keep + [_to_expr(expr).alias(name)]))
+
+    def join(self, other: "DataFrame",
+             on: Optional[Union[ColumnInput, List[ColumnInput]]] = None,
+             left_on: Optional[Union[ColumnInput, List[ColumnInput]]] = None,
+             right_on: Optional[Union[ColumnInput, List[ColumnInput]]] = None,
+             how: str = "inner") -> "DataFrame":
+        """Inner equi-join on ``on`` (same names both sides) or on
+        ``left_on`` / ``right_on``."""
+        if how != "inner":
+            raise NotImplementedError(f"{how!r} joins are not ported yet; only inner")
+        if on is not None:
+            left_on = right_on = on
+        if left_on is None or right_on is None:
+            raise ValueError("join requires `on` or both `left_on` and `right_on`")
+        lo = _to_exprs(left_on if isinstance(left_on, list) else [left_on])
+        ro = _to_exprs(right_on if isinstance(right_on, list) else [right_on])
+        return DataFrame(lp.Join(self._plan, other._plan, lo, ro))
 
     def sort(self, by: Union[ColumnInput, List[ColumnInput]],
              desc: Union[bool, List[bool]] = False,

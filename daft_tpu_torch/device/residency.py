@@ -1,12 +1,19 @@
 """Device residency manager (counterpart of daft_tpu/device/residency.py, the
-subset the grouped-aggregation slice needs).
+subset the grouped-aggregation and join slices need).
 
-A process-wide registry of device tensors built from host objects (column
-planes, dictionary-code planes), keyed by (anchor identity, slot key):
-repeated queries over a table reuse its planes instead of re-uploading them.
-Entries die with their anchor (weakref), are evicted least-recently-used
-first when the device bytes pass ``budget_bytes``, and are never evicted
-while pinned by a running query (``pin_scope``).
+A process-wide registry of values built from host objects (column planes,
+dictionary-code planes, join index planes, probe tables, synthetic dim
+columns), keyed by (anchor identity, slot key): repeated queries over a
+table reuse them instead of rebuilding and re-uploading. An entry is a hit
+only while every object in its ``deps`` is the identical object (strong
+references held in the entry, so a freed object can never alias a new one)
+and its ``literals`` compare equal; a miss rebuilds the slot in place, so
+queries that differ only in predicate literals reuse one slot per query
+shape (``expr_structure``). Entries die with their anchor (weakref), are
+evicted least-recently-used first when the device bytes pass
+``budget_bytes``, and are never evicted while pinned by a running query
+(``pin_scope``). The reference also weights eviction by each entry's
+rebuild cost; the port's eviction is plain LRU.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ import itertools
 import threading
 import weakref
 from collections import OrderedDict
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Iterable, Tuple
 
 _TOKENS = itertools.count(1)
 _TOKEN_LOCK = threading.Lock()
@@ -53,14 +60,37 @@ def device_nbytes(value) -> int:
     return total
 
 
-class _Entry:
-    __slots__ = ("value", "nbytes", "pins", "anchor_ref")
+def expr_structure(expr) -> Tuple[str, tuple]:
+    """(skeleton, literals) of one expression: the repr with every literal
+    masked, and the literals as (dtype repr, value) pairs in walk order. Two
+    predicates that differ only in literal values share a skeleton."""
+    from ..expressions.expressions import Literal
 
-    def __init__(self, value, nbytes: int):
+    lits = tuple((repr(n.dtype), n.value) for n in expr.walk() if isinstance(n, Literal))
+    masked = expr.transform(lambda n: Literal("?") if isinstance(n, Literal) else None)
+    return repr(masked), lits
+
+
+def exprs_structure(exprs: Iterable) -> Tuple[tuple, tuple]:
+    """(skeletons, literals) over a sequence of expressions (concatenated)."""
+    skels, lits = [], []
+    for e in exprs:
+        s, lit = expr_structure(e)
+        skels.append(s)
+        lits.extend(lit)
+    return tuple(skels), tuple(lits)
+
+
+class _Entry:
+    __slots__ = ("value", "nbytes", "pins", "anchor_ref", "deps", "literals")
+
+    def __init__(self, value, nbytes: int, deps: tuple, literals):
         self.value = value
         self.nbytes = nbytes
         self.pins = 0
         self.anchor_ref = None
+        self.deps = deps
+        self.literals = literals
 
 
 class ResidencyManager:
@@ -74,20 +104,26 @@ class ResidencyManager:
         self._dead: list = []
         self._tl = threading.local()
 
-    def get_or_build(self, anchor, key: tuple, build: Callable[[], Any]):
-        """The cached value for (anchor, key), built by ``build()`` when absent."""
+    def get_or_build(self, anchor, key: tuple, build: Callable[[], Any], deps: tuple = (),
+                     literals=None):
+        """The cached value for (anchor, key), built by ``build()`` when
+        absent, or rebuilt in place when a dep is not the identical object
+        or the literals differ."""
         full_key = (identity_token(anchor), key)
+        deps = tuple(deps)
         with self._lock:
             self._sweep_dead()
             e = self._entries.get(full_key)
-            if e is not None:
+            if e is not None and len(e.deps) == len(deps) \
+                    and all(a is b for a, b in zip(e.deps, deps)) \
+                    and e.literals == literals:
                 self._entries.move_to_end(full_key)
                 self._pin(full_key, e)
                 return e.value
         value = build()  # outside the lock: a build may re-enter the manager
         with self._lock:
             old = self._entries.pop(full_key, None)
-            e = _Entry(value, device_nbytes(value))
+            e = _Entry(value, device_nbytes(value), deps, literals)
             if old is not None:
                 self._bytes -= old.nbytes
                 e.pins = old.pins
@@ -177,6 +213,14 @@ class ResidencyManager:
         with self._lock:
             self._sweep_dead()
             return len(self._entries)
+
+    def clear(self) -> None:
+        """Drop every unpinned entry (pinned ones belong to a running query)."""
+        with self._lock:
+            for k, e in list(self._entries.items()):
+                if e.pins == 0:
+                    self._entries.pop(k)
+                    self._bytes -= e.nbytes
 
     def stats(self) -> Dict[str, int]:
         with self._lock:

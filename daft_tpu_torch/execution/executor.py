@@ -1,6 +1,6 @@
 """Streaming interpreter of the physical plan (counterpart of
-daft_tpu/execution/executor.py, the subset the grouped-aggregation slice
-needs).
+daft_tpu/execution/executor.py, the subset the grouped-aggregation and join
+slices need).
 
 ``execute_plan`` streams MicroPartitions. Host operators run in numpy. A
 ``DeviceGroupedAgg`` runs its stage on the configured device (the reference's
@@ -8,8 +8,10 @@ device agg branch, executor.py:580-733, without the mesh, UDF, cost-model and
 coalescer arms): each batch is fed as it arrives and buffered, and when the
 stage raises ``DeviceFallback`` (its group count outgrew the kernels'
 envelope, detected before any launch) the whole buffered stream reruns on
-the host. Any other error, a kernel that fails to build or launch included,
-propagates: no device failure turns into a host result.
+the host. A ``DeviceJoinAgg`` runs the star-join stage the same way
+(``_exec_device_join_agg``), and a ``HashJoin`` joins on the host. Any other
+error, a kernel that fails to build or launch included, propagates: no
+device failure turns into a host result.
 """
 
 from __future__ import annotations
@@ -66,6 +68,17 @@ def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
         yield _exec_device_agg(node)
         return
 
+    if isinstance(node, pp.HashJoin):
+        right = _concat_parts(list(_exec(node.right)), node.right.schema)
+        for part in _exec(node.left):
+            yield MicroPartition(node.schema, [_hash_join_batch(node, b, right)
+                                               for b in part.batches])
+        return
+
+    if isinstance(node, pp.DeviceJoinAgg):
+        yield _exec_device_join_agg(node)
+        return
+
     raise NotImplementedError(f"no executor for {node.name()}")
 
 
@@ -114,6 +127,65 @@ def _exec_device_agg(node: pp.DeviceGroupedAgg) -> MicroPartition:
         counters.reject("grouped agg", f"device fallback: {type(exc).__name__}")
         return _host_agg(itertools.chain(buffered, stream))
     return _grouped_output(node.schema, node.groupby, node.aggregations,
+                           key_rows, results)
+
+
+def _hash_join_batch(node: pp.HashJoin, left: RecordBatch,
+                     right: RecordBatch) -> RecordBatch:
+    """One left batch inner-joined to the materialized right side."""
+    from ..core.kernels.join import inner_join_indices
+
+    def keys(batch, exprs):
+        return [_full_length(eval_expression(batch, e), batch.num_rows) for e in exprs]
+
+    li, ri = inner_join_indices(keys(left, node.left_on), keys(right, node.right_on))
+    cols = [s.take(li) for s in left.columns()]
+    cols += [s.take(ri).rename(node.right_rename.get(s.name, s.name))
+             for s in right.columns() if s.name not in node.merged_keys]
+    return RecordBatch(node.schema, cols, len(li))
+
+
+def _exec_device_join_agg(node: pp.DeviceJoinAgg) -> MicroPartition:
+    """Run a DeviceJoinAgg (the reference's _run_device_join without its cost
+    model, mesh and coalescer): the host plan under device_mode="off";
+    otherwise materialize the dims, build the join context, feed every fact
+    batch through the join run under one pin scope and finalize. A
+    DeviceFallback (non-unique or non-integer dim keys, a dim key equal to
+    the probe table's empty marker, too many groups: all decided before any
+    launch) records its reason and runs the host plan. Any other error, a
+    kernel failure included, propagates."""
+    from ..config import execution_config
+    from ..device.residency import manager as _residency
+    from ..ops import counters
+    from ..ops.device_join import DeviceJoinGroupedRun, _JoinContext, build_join_stage
+    from ..ops.grouped_stage import DeviceFallback
+    from ..utils.torch_setup import resolve_device
+
+    def host() -> MicroPartition:
+        return MicroPartition(node.schema, [_concat_parts(list(_exec(node.host_plan)),
+                                                          node.schema)])
+
+    cfg = execution_config()
+    if cfg.device_mode == "off":
+        return host()
+    device = resolve_device(cfg.device)
+    stage = build_join_stage(node.spec)
+    if stage is None:
+        return host()  # the config changed since planning (kernel_mode="off")
+    dims = {name: _concat_parts(list(_exec(plan)), plan.schema)
+            for name, plan in node.dim_plans}
+    try:
+        with _residency().pin_scope():
+            run = DeviceJoinGroupedRun(stage, _JoinContext(node.spec, dims, device))
+            for part in _exec(node.fact):
+                for b in part.batches:
+                    run.feed_batch(b)
+            key_rows, results = run.finalize()
+    except DeviceFallback as exc:
+        counters.bump("device_fallbacks")
+        counters.reject("join agg", f"device fallback: {exc}")
+        return host()
+    return _grouped_output(node.schema, node.spec.groupby, node.spec.aggregations,
                            key_rows, results)
 
 

@@ -6,6 +6,7 @@ from .expressions import (  # noqa: F401
     ColumnRef,
     Expression,
     IfElse,
+    IsIn,
     Literal,
     UnaryOp,
     col,

@@ -5,7 +5,9 @@ Returns Series; literals evaluate to length-1 Series that broadcast through
 the kernels and expand at projection boundaries. Null semantics follow the
 reference's Arrow kernels: validity propagates through arithmetic and
 comparisons, division by zero is null, and/or are Kleene, and a null
-IfElse predicate gives null.
+IfElse predicate gives null. ``is_in`` is never null: a null row is true
+only when the item values hold a null (Arrow's ``is_in`` followed by
+``fill_null(False)``, as the reference evaluates it).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from .expressions import (
     ColumnRef,
     Expression,
     IfElse,
+    IsIn,
     Literal,
     UnaryOp,
 )
@@ -72,10 +75,40 @@ def eval_expression(batch, expr: Expression) -> Series:
         val = np.where(cond, _values_as(t, out_dt), _values_as(f, out_dt))
         valid = p.validity_numpy() & np.where(cond, t.validity_numpy(), f.validity_numpy())
         return _make(expr.name(), out_dt, val, valid)
+    if isinstance(expr, IsIn):
+        return _is_in(eval_expression(batch, expr.child),
+                      [eval_expression(batch, i) for i in expr.items])
     if isinstance(expr, AggExpr):
         raise ValueError(f"aggregation expression {expr!r} cannot be evaluated in a "
                          "projection context; use .agg()/groupby")
     raise ValueError(f"cannot evaluate expression node {type(expr).__name__}")
+
+
+def _is_in(s: Series, items: List[Series]) -> Series:
+    """Membership of each row of ``s`` in the values of ``items``. A string
+    column goes through its cached dictionary codes (one lookup table over
+    the distinct values), so a repeated predicate over a resident column
+    costs one gather."""
+    targets = set()
+    has_null = False
+    for it in items:
+        for v, ok in zip(it.to_numpy().tolist(), it.validity_numpy().tolist()):
+            if ok:
+                targets.add(v)
+            else:
+                has_null = True
+    valid = s.validity_numpy()
+    if s.dtype.is_string():
+        codes, vocab, _k = s.dict_codes()
+        lut = np.array([(v in targets) if v is not None else has_null for v in vocab],
+                       dtype=bool)
+        hit = lut[codes] if len(codes) else np.zeros(0, dtype=bool)
+    else:
+        vals = s.to_numpy()
+        hit = np.isin(vals, np.asarray(list(targets))) \
+            if targets and not s.dtype.is_null() else np.zeros(len(s), dtype=bool)
+        hit = np.where(valid, hit, has_null)
+    return _make(s.name, DataType.bool(), hit, np.ones(len(s), dtype=bool))
 
 
 def _values_as(s: Series, dtype: DataType) -> np.ndarray:

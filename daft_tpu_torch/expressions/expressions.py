@@ -1,8 +1,10 @@
 """Expression IR (counterpart of daft_tpu/expressions/expressions.py, the
-subset the grouped-aggregation slice needs): ``col``, ``lit`` (with
-``datetime.date``), ``Alias``, ``Cast``, arithmetic, comparisons, ``&``,
-``|``, ``~``, null tests, ``IfElse`` and ``AggExpr`` with sum, count, mean,
-min and max.
+subset the grouped-aggregation and join slices need): ``col``, ``lit``
+(with ``datetime.date``), ``Alias``, ``Cast``, arithmetic, comparisons,
+``&``, ``|``, ``~``, null tests, ``IfElse``, ``IsIn`` and ``AggExpr`` with
+sum, count, mean, min and max. ``transform`` rewrites a tree bottom-up (the
+join capture substitutes projections and hoists dim-only subexpressions
+with it).
 
 One class hierarchy is both the user-facing Expression and the plan IR. Host
 evaluation lives in expressions/eval.py, device (torch) evaluation in
@@ -12,7 +14,7 @@ ops/device_eval.py; both dispatch over these node types.
 from __future__ import annotations
 
 import datetime
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -35,6 +37,20 @@ class Expression:
     # ---- structure ----------------------------------------------------------------
     def children(self) -> List["Expression"]:
         return []
+
+    def with_children(self, children: List["Expression"]) -> "Expression":
+        if children:
+            raise ValueError(f"{type(self).__name__} takes no children")
+        return self
+
+    def transform(self, fn: Callable[["Expression"], Optional["Expression"]]) -> "Expression":
+        """Bottom-up rewrite: ``fn`` returns a replacement or None to keep."""
+        old = self.children()
+        new = [c.transform(fn) for c in old]
+        node = self.with_children(new) if any(a is not b for a, b in zip(new, old)) \
+            else self
+        out = fn(node)
+        return out if out is not None else node
 
     def walk(self):
         yield self
@@ -136,6 +152,13 @@ class Expression:
     def if_else(self, if_true, if_false) -> "Expression":
         return IfElse(self, self._other(if_true), self._other(if_false))
 
+    def is_in(self, values) -> "Expression":
+        if isinstance(values, Expression):
+            items = [values]
+        else:
+            items = [v if isinstance(v, Expression) else lit(v) for v in values]
+        return IsIn(self, items)
+
     # ---- aggregation sugar ----------------------------------------------------------
     def sum(self):
         return AggExpr("sum", self)
@@ -200,6 +223,9 @@ class Alias(Expression):
     def children(self):
         return [self.child]
 
+    def with_children(self, children):
+        return Alias(children[0], self._alias)
+
     def to_field(self, schema: Schema) -> Field:
         return Field(self._alias, self.child.to_field(schema).dtype)
 
@@ -217,6 +243,9 @@ class Cast(Expression):
 
     def children(self):
         return [self.child]
+
+    def with_children(self, children):
+        return Cast(children[0], self.dtype)
 
     def to_field(self, schema: Schema) -> Field:
         return Field(self.child.to_field(schema).name, self.dtype)
@@ -241,6 +270,9 @@ class BinaryOp(Expression):
 
     def children(self):
         return [self.left, self.right]
+
+    def with_children(self, children):
+        return BinaryOp(self.op, children[0], children[1])
 
     def to_field(self, schema: Schema) -> Field:
         lf = self.left.to_field(schema)
@@ -278,6 +310,9 @@ class UnaryOp(Expression):
     def children(self):
         return [self.child]
 
+    def with_children(self, children):
+        return UnaryOp(self.op, children[0])
+
     def to_field(self, schema: Schema) -> Field:
         f = self.child.to_field(schema)
         if self.op in ("is_null", "not_null", "not"):
@@ -304,6 +339,9 @@ class IfElse(Expression):
     def children(self):
         return [self.predicate, self.if_true, self.if_false]
 
+    def with_children(self, children):
+        return IfElse(children[0], children[1], children[2])
+
     def to_field(self, schema: Schema) -> Field:
         t = self.if_true.to_field(schema)
         f = self.if_false.to_field(schema)
@@ -311,6 +349,31 @@ class IfElse(Expression):
 
     def __repr__(self):
         return f"{self.predicate!r}.if_else({self.if_true!r}, {self.if_false!r})"
+
+
+class IsIn(Expression):
+    """Membership of ``child`` in the values of ``items``. A null row is
+    true only when the items hold a null, else false (never null), as the
+    reference's Arrow ``is_in`` + ``fill_null(False)`` gives it."""
+
+    def __init__(self, child: Expression, items: List[Expression]):
+        self.child = child
+        self.items = items
+
+    def name(self) -> str:
+        return self.child.name()
+
+    def children(self):
+        return [self.child] + self.items
+
+    def with_children(self, children):
+        return IsIn(children[0], children[1:])
+
+    def to_field(self, schema: Schema) -> Field:
+        return Field(self.child.to_field(schema).name, DataType.bool())
+
+    def __repr__(self):
+        return f"{self.child!r}.is_in({self.items!r})"
 
 
 AGG_OPS = ("sum", "mean", "min", "max", "count")
@@ -329,6 +392,9 @@ class AggExpr(Expression):
 
     def children(self):
         return [self.child]
+
+    def with_children(self, children):
+        return AggExpr(self.op, children[0], dict(self.params))
 
     def to_field(self, schema: Schema) -> Field:
         from ..core.kernels.groupby import agg_output_dtype

@@ -3,12 +3,15 @@
 Bumped where device work actually happens, so tests and chip_smoke.py can
 show which path a query took:
 
-- ``device_grouped_batches``: batches fed through a device grouped stage;
+- ``device_grouped_batches``: batches fed through a device grouped stage
+  (a star-join run's batches included);
+- ``device_join_batches``: fact batches fed through a device star-join run;
 - ``device_stage_runs``: device stage runs finalized;
 - ``device_fallbacks``: device runs that raised DeviceFallback and reran on
   the host;
 - ``launches_<kernel>``: one per launch of a hand-written kernel, bumped by
-  its wrapper in ops/segment_kernels.py where it launches and nowhere else;
+  its wrapper (ops/segment_kernels.py, ops/probe_kernels.py) where it
+  launches and nowhere else;
 - ``plain_<kernel>``: one per wrapper call routed to the plain PyTorch
   version (a CPU tensor), so a CPU run can show the path went through the
   wrapper without counting a launch.
@@ -22,9 +25,11 @@ from __future__ import annotations
 import threading
 from typing import Dict
 
-KERNEL_NAMES = ("segment_sum_planes", "segment_extreme_planes",
-                "segment_extreme_int64")
-COUNTER_NAMES = ("device_grouped_batches", "device_stage_runs",
+SEGMENT_KERNELS = ("segment_sum_planes", "segment_extreme_planes",
+                   "segment_extreme_int64")
+# K4 has two entry points: the table build and the probe
+KERNEL_NAMES = SEGMENT_KERNELS + ("hash_probe_build", "hash_probe_index")
+COUNTER_NAMES = ("device_grouped_batches", "device_join_batches", "device_stage_runs",
                  "device_fallbacks") + tuple(
     f"{kind}_{k}" for kind in ("launches", "plain") for k in KERNEL_NAMES)
 

@@ -1,0 +1,830 @@
+"""Star join + grouped aggregate on the device (counterpart of
+daft_tpu/ops/device_join.py, its grouped single-device path).
+
+For the analytics shape -- one large fact relation inner-joined to smaller
+dims on unique keys, then aggregated -- the join never materializes. Each
+dim adjacent to the fact becomes an int32 index plane over the fact rows
+(the dim row whose key equals the fact row's key, -1 on a miss), probed on
+the card by the hash-probe kernel K4 (ops/probe_kernels.py) against a hash
+table of the dim's keys. Every dim column the query touches is then one
+device gather through that plane, and the aggregation runs on the grouped
+stage's kernels (ops/grouped_stage.py) with ``__join_ok__`` (every adjacent
+dim matched and passed its filters) folded into the predicate.
+
+Capture (``try_capture_join_agg``, called by plan/physical.py):
+    Aggregate <- [Project]* <- [Filter]* <- inner-join tree
+flattened to relations and equality conditions; the largest relation is the
+fact, the others must connect to it as a tree of dims (leftover equality
+edges become device predicates). Dim-only subexpressions the device cannot
+evaluate (strings, ``is_in``) are hoisted into synthetic dim columns that
+the host evaluates once per dim; a fact string ``==`` / ``is_in`` against
+literals becomes a membership plane over the column's dictionary codes.
+
+Chained dims (joined to another dim, not to the fact) never probe per fact
+row: their planes are composed into their adjacent root's row space through
+a host index (``dim_space_idx``), so each fact batch pays one K4 probe and
+one gather per plane of each adjacent dim. As in the reference, only
+adjacent dims probe in-kernel.
+
+Everything expensive is cached in the residency manager, keyed on the
+identity of the column Series it was built from: the probe table (built
+once per dim key Series), the index plane (once per fact key Series), the
+dim-space planes, the synthetic columns, the visibility and membership
+planes. A warm query launches K4 zero times and pays the gathers and the
+stage's kernels.
+
+The port gathers each dim plane in its own dtype (int64 dim values stay
+exact without the reference's f32 digit split, which its TPU needed for lane
+padding and index-count-bound gathers). Dim filters are evaluated on the
+host (dims are small) and uploaded once per query shape. Left out: the
+group-sorted (``perm``) and local-dense branches, the TopN run, the
+ungrouped run and the cost-model arm.
+
+Fallback: a shape this module cannot prove safe returns None at capture;
+at run time non-unique or non-integer dim keys, a dim key equal to the probe
+table's empty marker, and a group count over the run's ceiling raise
+``DeviceFallback`` before any launch, and the executor runs the host plan.
+A kernel failure raises: nothing replays it on the host.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.kernels.encoding import _common_key_dtype, canonical_key_values
+from ..datatype import DataType, Field
+from ..device.residency import exprs_structure, expr_structure, manager
+from ..expressions.expressions import (AggExpr, Alias, BinaryOp, ColumnRef, Expression,
+                                       IsIn, Literal)
+from ..schema import Schema
+from . import counters
+from . import device_eval as dev
+from . import probe_kernels as pk
+from .grouped_stage import (DeviceFallback, GroupedAggRun, GroupedAggStage, _Decode,
+                            _pad_groups, cached_dict_code_plane,
+                            try_build_grouped_agg_stage)
+from .stage import device_row_mask, pad_bucket
+
+
+# ======================================================================================
+# capture: logical plan -> JoinAggSpec
+# ======================================================================================
+
+
+@dataclass
+class DimSpec:
+    base: object                     # logical plan of the dim without trailing filters
+    filters: List[Expression]        # dim-local filters (host-evaluated)
+    key_col: str                     # dim-side unique join key column
+    parent: Tuple[str, str]          # ("fact" | dim name, column) giving probe values
+    name: str                        # dim identifier (caches, debug)
+    synthetic: List[Tuple[str, Expression]] = field(default_factory=list)
+
+
+@dataclass
+class JoinAggSpec:
+    fact: object                     # logical plan of the fact side (filters stripped)
+    dims: List[DimSpec]              # parents first
+    schema: Schema                   # joined schema: fact + dim (+ synthetic) columns
+    col_side: Dict[str, str]         # column -> "fact" | dim name
+    predicate: Optional[Expression]
+    groupby: List[Expression]
+    aggregations: List[Expression]
+    # fact string membership lowered to dictionary codes: synthetic name ->
+    # (fact column, match values, three_valued). ``==`` is three-valued (a
+    # null row is null); ``is_in`` is not (a null row matches a null item).
+    fact_synthetic: Dict[str, Tuple[str, tuple, bool]] = field(default_factory=dict)
+
+
+def _split_conjuncts(e: Expression) -> List[Expression]:
+    if isinstance(e, BinaryOp) and e.op == "and":
+        return _split_conjuncts(e.left) + _split_conjuncts(e.right)
+    return [e]
+
+
+def _flatten_joins(node) -> Optional[Tuple[list, list]]:
+    """A tree of inner equi-joins as (relations, [(left col, right col)]).
+    None on merged or renamed output columns, non-column keys, or a column
+    name that two relations share (provenance would be ambiguous)."""
+    from ..plan import logical as lp
+
+    rels: list = []
+    conds: list = []
+
+    def walk(n) -> bool:
+        if not isinstance(n, lp.Join):
+            rels.append(n)
+            return True
+        merged, rename = n.output_naming()
+        if merged or rename:
+            return False
+        pairs = []
+        for le, re_ in zip(n.left_on, n.right_on):
+            le = le.child if isinstance(le, Alias) else le
+            re_ = re_.child if isinstance(re_, Alias) else re_
+            if not (isinstance(le, ColumnRef) and isinstance(re_, ColumnRef)):
+                return False
+            pairs.append((le._name, re_._name))
+        if not walk(n.left):
+            return False
+        conds.extend(pairs)
+        return walk(n.right)
+
+    if not walk(node):
+        return None
+    names: set = set()
+    for r in rels:
+        cols = set(r.schema.column_names())
+        if names & cols:
+            return None
+        names |= cols
+    return rels, conds
+
+
+def _strip_filters(n) -> Tuple[object, List[Expression]]:
+    from ..plan import logical as lp
+
+    fs: List[Expression] = []
+    while isinstance(n, lp.Filter):
+        fs.extend(_split_conjuncts(n.predicate))
+        n = n.input
+    return n, fs
+
+
+def try_capture_join_agg(agg_plan) -> Optional[JoinAggSpec]:
+    """Match Aggregate <- [Project]* <- [Filter]* <- inner-join tree into a
+    JoinAggSpec, or None when the shape is not provably safe or the joined
+    stage is outside the kernel tier."""
+    from ..plan import logical as lp
+    from ..plan.stats import estimate_rows
+
+    groupby = list(agg_plan.groupby)
+    aggs = list(agg_plan.aggregations)
+    conjuncts: List[Expression] = []
+    src = agg_plan.input
+
+    def substitute(exprs: List[Expression], proj: List[Expression]) -> List[Expression]:
+        mapping = {p.name(): (p.child if isinstance(p, Alias) else p) for p in proj}
+        out = []
+        for e in exprs:
+            ne = e.transform(lambda n: mapping.get(n._name)
+                             if isinstance(n, ColumnRef) else None)
+            out.append(ne if ne.name() == e.name() else ne.alias(e.name()))
+        return out
+
+    while isinstance(src, (lp.Project, lp.Filter)):
+        if isinstance(src, lp.Project):
+            new = substitute(groupby + aggs + conjuncts, src.projection)
+            groupby, aggs = new[:len(groupby)], new[len(groupby):len(groupby) + len(aggs)]
+            conjuncts = new[len(groupby) + len(aggs):]
+        else:
+            conjuncts.extend(_split_conjuncts(src.predicate))
+        src = src.input
+
+    flat = _flatten_joins(src)
+    if flat is None:
+        return None
+    rels, conds = flat
+    if len(rels) < 2:
+        return None
+
+    # the fact is the largest relation by unfiltered base size: it streams
+    # through the program, and the dims must carry unique keys
+    sizes = [estimate_rows(_strip_filters(r)[0]) for r in rels]
+    if any(s is None for s in sizes):
+        return None
+    fact_i = int(np.argmax(sizes))
+    fact_base, fact_filters = _strip_filters(rels[fact_i])
+    conjuncts.extend(fact_filters)
+
+    col_side: Dict[str, str] = {c: "fact" for c in fact_base.schema.column_names()}
+    available = dict(col_side)
+
+    # grow the dim tree from the fact over equality edges
+    pending = [r for i, r in enumerate(rels) if i != fact_i]
+    remaining = list(conds)
+    dims: List[DimSpec] = []
+    progress = True
+    while pending and progress:
+        progress = False
+        for pi, rel in enumerate(pending):
+            base, filters = _strip_filters(rel)
+            rel_cols = set(base.schema.column_names())
+            edge = None
+            for ci, (a, b) in enumerate(remaining):
+                if a in available and b in rel_cols:
+                    edge = (ci, a, b)
+                    break
+                if b in available and a in rel_cols:
+                    edge = (ci, b, a)
+                    break
+            if edge is None:
+                continue
+            ci, avail_col, dim_key = edge
+            remaining.pop(ci)
+            name = f"d{len(dims)}"
+            dims.append(DimSpec(base=base, filters=filters, key_col=dim_key,
+                                parent=(available[avail_col], avail_col), name=name))
+            for c in base.schema.column_names():
+                col_side[c] = available[c] = name
+            pending.pop(pi)
+            progress = True
+            break
+    if pending:
+        return None
+
+    fields: List[Field] = list(fact_base.schema)
+    for i, r in enumerate(rels):
+        if i != fact_i:
+            fields.extend(_strip_filters(r)[0].schema)
+    schema = Schema(fields)
+
+    # leftover equality edges become device predicates, integer-like columns
+    # only (the device compares float planes in f32)
+    for a, b in remaining:
+        if not all(schema[c].dtype.is_integer() or schema[c].dtype.is_temporal()
+                   or schema[c].dtype.is_boolean() for c in (a, b)):
+            return None
+        conjuncts.append(BinaryOp("eq", ColumnRef(a), ColumnRef(b)))
+
+    # hoist maximal single-dim subexpressions the device cannot evaluate into
+    # synthetic host-evaluated dim columns; lower fact string membership
+    dim_by_name = {d.name: d for d in dims}
+    counter = [0]
+    fact_synthetic: Dict[str, Tuple[str, tuple, bool]] = {}
+
+    def fact_string_membership(node) -> Optional[Tuple[str, tuple, bool]]:
+        if isinstance(node, IsIn) and isinstance(node.child, ColumnRef):
+            cn = node.child._name
+            if col_side.get(cn) == "fact" and schema[cn].dtype.is_string() \
+                    and all(isinstance(it, Literal) for it in node.items):
+                return cn, tuple(it.value for it in node.items), False
+        if isinstance(node, BinaryOp) and node.op == "eq":
+            for a, b in ((node.left, node.right), (node.right, node.left)):
+                if isinstance(a, ColumnRef) and isinstance(b, Literal) \
+                        and col_side.get(a._name) == "fact" \
+                        and schema[a._name].dtype.is_string() and isinstance(b.value, str):
+                    return a._name, (b.value,), True
+        return None
+
+    def hoist(e: Expression) -> Expression:
+        def rw(node):
+            if isinstance(node, (ColumnRef, Alias, AggExpr)):
+                return None
+            sides = {col_side.get(c) for c in node.referenced_columns()} - {None}
+            side = next(iter(sides)) if len(sides) == 1 else None
+            if side is None or side == "fact":
+                fsm = fact_string_membership(node)
+                if fsm is None:
+                    return None
+                syn = f"__fsyn_{counter[0]}__"
+                counter[0] += 1
+                fact_synthetic[syn] = fsm
+                return ColumnRef(syn)
+            if dev.is_device_evaluable(node, schema):
+                return None  # numeric dim math gathers its leaves directly
+            try:
+                node.to_field(dim_by_name[side].base.schema)
+            except (KeyError, ValueError, TypeError):
+                return None
+            syn = f"__syn_{side}_{counter[0]}__"
+            counter[0] += 1
+            dim_by_name[side].synthetic.append((syn, node))
+            return ColumnRef(syn)
+
+        return e.transform(rw)
+
+    def hoist_named(e: Expression) -> Expression:
+        out = hoist(e)
+        return out if out.name() == e.name() else out.alias(e.name())
+
+    groupby = [hoist_named(g) for g in groupby]
+    aggs = [hoist_named(a) for a in aggs]
+    conjuncts = [hoist(c) for c in conjuncts]
+    for d in dims:
+        for syn, expr in d.synthetic:
+            fields.append(Field(syn, expr.to_field(d.base.schema).dtype))
+            col_side[syn] = d.name
+    for syn in fact_synthetic:
+        fields.append(Field(syn, DataType.bool()))
+        col_side[syn] = "fact"
+    schema = Schema(fields)
+
+    # eligibility over the joined schema
+    for g in groupby:
+        if not isinstance(g.child if isinstance(g, Alias) else g, ColumnRef):
+            return None
+    predicate = None
+    for c in conjuncts:
+        if not dev.is_device_evaluable(c, schema):
+            return None
+        predicate = c if predicate is None else (predicate & c)
+    for d in dims:
+        kdt = d.base.schema[d.key_col].dtype
+        if not (kdt.is_numeric() or kdt.is_temporal()):
+            return None
+    spec = JoinAggSpec(fact=fact_base, dims=dims, schema=schema, col_side=col_side,
+                       predicate=predicate, groupby=groupby, aggregations=aggs,
+                       fact_synthetic=fact_synthetic)
+    return spec if build_join_stage(spec) is not None else None
+
+
+def build_join_stage(spec: JoinAggSpec) -> Optional[GroupedAggStage]:
+    """The grouped stage over the joined schema, with ``__join_ok__`` folded
+    into the predicate, or None (reason in ``counters.rejections``)."""
+    schema = Schema(list(spec.schema) + [Field("__join_ok__", DataType.bool())])
+    ok = ColumnRef("__join_ok__")
+    predicate = ok if spec.predicate is None else (spec.predicate & ok)
+    return try_build_grouped_agg_stage(schema, predicate, spec.groupby, spec.aggregations)
+
+
+# ======================================================================================
+# runtime: join indices, probe tables and gathered device columns
+# ======================================================================================
+
+
+def unique_key_index(dim_key_series, probe_vals: np.ndarray, probe_valid: np.ndarray,
+                     target_dtype) -> np.ndarray:
+    """Host index: idx[i] = dim row whose key equals probe value i, else -1.
+    Raises DeviceFallback when the dim keys are not unique (the join would
+    multiply rows) or not integer-like."""
+    s = dim_key_series
+    if s.dtype != target_dtype:
+        s = s.cast(target_dtype)
+    kind, vals, valid = canonical_key_values(s)
+    if kind != "num":
+        raise DeviceFallback(f"dim key {s.name!r} is not an integer-like key")
+    vv = vals[valid]
+    if len(np.unique(vv)) != len(vv):
+        raise DeviceFallback(f"dim key {s.name!r} is not unique")
+    pv = probe_vals.astype(np.int64, copy=False)
+    rows = np.flatnonzero(valid)
+    lo = int(vv.min()) if len(vv) else 0
+    hi = int(vv.max()) if len(vv) else -1
+    domain = hi - lo + 1
+    if 0 < domain <= max(4096, 8 * max(len(vv), 1)):
+        table = np.full(domain, -1, dtype=np.int64)
+        table[vv - lo] = rows
+        with np.errstate(over="ignore"):
+            safe = np.clip(pv - lo, 0, domain - 1)
+        idx = np.where((pv >= lo) & (pv <= hi), table[safe], -1)
+    elif len(vv):
+        order = np.argsort(vv, kind="stable")
+        su = vv[order]
+        pos = np.minimum(np.searchsorted(su, pv), len(su) - 1)
+        idx = np.where(su[pos] == pv, rows[order][pos], -1)
+    else:
+        idx = np.full(len(pv), -1, dtype=np.int64)
+    return np.where(probe_valid, idx, -1).astype(np.int32)
+
+
+def _gather(plane: Tuple[torch.Tensor, torch.Tensor], idx: torch.Tensor,
+            safe: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, validity) of ``plane`` at index plane ``idx``; a miss (-1)
+    reads row 0 and comes back invalid."""
+    v, m = plane
+    return v[safe], m[safe] & (idx >= 0)
+
+
+class _JoinContext:
+    """Materialized dims and the per-fact-batch index and gather work for
+    one run of a DeviceJoinAgg."""
+
+    def __init__(self, spec: JoinAggSpec, dim_batches: Dict[str, object],
+                 device: torch.device):
+        self.spec = spec
+        self.dims = spec.dims
+        self.batches = dim_batches              # dim name -> RecordBatch (base rows)
+        self.device = device
+        self.syn_series: Dict[str, Dict[str, object]] = {
+            d.name: {name: self._cached_syn(dim_batches[d.name], name, expr)
+                     for name, expr in d.synthetic}
+            for d in self.dims}
+        # every dim's keys are checked before anything launches: an adjacent
+        # dim's for its probe table, a chained dim's by its host index
+        for d in self.dims:
+            if d.parent[0] == "fact":
+                self._table_keys(d)
+            else:
+                self.dim_space_idx(d)
+
+    # ---- dim-side host state ---------------------------------------------------------
+
+    def _cached_syn(self, dim_batch, name: str, expr: Expression):
+        """A synthetic dim column, evaluated once per (expression shape,
+        referenced Series); the literals live in the slot."""
+        from ..expressions.eval import eval_expression
+
+        refs = expr.referenced_columns()
+        deps = tuple(dim_batch.get_column(c) for c in refs)
+        skel, lits = expr_structure(expr)
+        return manager().get_or_build(deps[0], ("syn", skel, name),
+                                      lambda: eval_expression(dim_batch, expr).rename(name),
+                                      deps, lits)
+
+    def vis_plane(self, d: DimSpec, cap_d: int) -> Optional[torch.Tensor]:
+        """bool[cap_d] device plane: the dim row passes every filter of the
+        dim (None = no filters). The filters run on the host (dims are
+        small), once per (filter shapes, referenced Series); the literals
+        live in the slot."""
+        if not d.filters:
+            return None
+        from ..expressions.eval import eval_expression
+
+        b = self.batches[d.name]
+        deps = tuple(b.get_column(c) for f in d.filters for c in f.referenced_columns())
+
+        def build():
+            vis = np.zeros(cap_d, dtype=bool)
+            vis[:b.num_rows] = True
+            for f in d.filters:
+                m = eval_expression(b, f)
+                vis[:b.num_rows] &= np.asarray(m.to_numpy(), dtype=bool) & m.validity_numpy()
+            return torch.from_numpy(vis).to(self.device)
+
+        skels, lits = exprs_structure(d.filters)
+        return manager().get_or_build(b.get_column(d.key_col),
+                                      ("visplane", cap_d, str(self.device)) + skels,
+                                      build, deps, lits)
+
+    def _dim_source(self, dname: str, colname: str):
+        if colname.startswith("__syn_"):
+            return self.syn_series[dname][colname]
+        return self.batches[dname].get_column(colname)
+
+    def dim_space_idx(self, child: DimSpec) -> np.ndarray:
+        """Host index from parent-dim rows to child rows (-1 = miss)."""
+        pname, pcol = child.parent
+        probe = self.batches[pname].get_column(pcol)
+        key_series = self.batches[child.name].get_column(child.key_col)
+        kdt = _common_key_dtype(probe.dtype, key_series.dtype)
+
+        def build():
+            p = probe if probe.dtype == kdt else probe.cast(kdt)
+            kind, vals, valid = canonical_key_values(p)
+            if kind != "num":
+                raise DeviceFallback(f"chain key {pcol!r} is not integer-like")
+            return unique_key_index(key_series, vals, valid, kdt)
+
+        return manager().get_or_build(probe, ("dsidx", child.key_col, repr(kdt)), build,
+                                      (key_series,))
+
+    # ---- fact -> dim indices ---------------------------------------------------------
+
+    def _adjacent(self) -> List[DimSpec]:
+        return [d for d in self.dims if d.parent[0] == "fact"]
+
+    def _root_of(self, dname: str) -> str:
+        d = next(dd for dd in self.dims if dd.name == dname)
+        while d.parent[0] != "fact":
+            d = next(dd for dd in self.dims if dd.name == d.parent[0])
+        return d.name
+
+    def _key_dtype(self, d: DimSpec):
+        side, colname = d.parent
+        probe_dt = (self.spec.schema[colname].dtype if side == "fact"
+                    else self.batches[side].schema[colname].dtype)
+        return _common_key_dtype(probe_dt, self.batches[d.name].schema[d.key_col].dtype)
+
+    def _probe_values(self, batch, d: DimSpec, idx_so_far: Dict[str, np.ndarray],
+                      kdt) -> Tuple[np.ndarray, np.ndarray]:
+        """Canonical int64 probe values of dim ``d`` per fact row: the fact
+        column, or (chained) the parent dim's column gathered through the
+        parent's host index."""
+        side, colname = d.parent
+        s = batch.get_column(colname) if side == "fact" \
+            else self.batches[side].get_column(colname)
+        s = s if s.dtype == kdt else s.cast(kdt)
+        kind, vals, valid = canonical_key_values(s)
+        if kind != "num":
+            raise DeviceFallback(f"join key {colname!r} is not integer-like")
+        if side == "fact":
+            return vals, valid
+        pidx = idx_so_far[side]
+        if len(vals) == 0:  # empty parent dim: nothing chains through it
+            return np.zeros(len(pidx), dtype=np.int64), np.zeros(len(pidx), dtype=bool)
+        safe = np.clip(pidx, 0, len(vals) - 1)
+        return vals[safe], (pidx >= 0) & valid[safe]
+
+    def indices_for(self, batch) -> Dict[str, np.ndarray]:
+        """Host per-fact-row index of every dim (the host-factorized group
+        codes need them), cached on the probe Series; a chained dim also
+        depends on its parent's index array."""
+        out: Dict[str, np.ndarray] = {}
+        for d in self.dims:
+            key_series = self.batches[d.name].get_column(d.key_col)
+            kdt = self._key_dtype(d)
+            side, colname = d.parent
+            anchor = batch.get_column(colname) if side == "fact" \
+                else self.batches[side].get_column(colname)
+            deps: tuple = (key_series,) if side == "fact" else (key_series, out[side])
+
+            def build(d=d, kdt=kdt, key_series=key_series, so_far=dict(out)):
+                vals, valid = self._probe_values(batch, d, so_far, kdt)
+                return unique_key_index(key_series, vals, valid, kdt)
+
+            key = ("uki", d.key_col, d.parent, repr(kdt), batch.num_rows)
+            out[d.name] = manager().get_or_build(anchor, key, build, deps)
+        return out
+
+    def _table_keys(self, d: DimSpec) -> Tuple[np.ndarray, np.ndarray]:
+        """Canonical int64 keys and validity of an adjacent dim, checked for
+        the probe table: raises DeviceFallback (before any launch) on
+        non-integer, non-unique or empty-marker keys."""
+        key_series = self.batches[d.name].get_column(d.key_col)
+        kdt = self._key_dtype(d)
+
+        def build():
+            s = key_series if key_series.dtype == kdt else key_series.cast(kdt)
+            kind, vals, valid = canonical_key_values(s)
+            if kind != "num":
+                raise DeviceFallback(f"dim key {d.key_col!r} is not an integer-like key")
+            why = pk.probe_key_refusal(vals, valid)
+            if why is not None:
+                raise DeviceFallback(f"dim key {d.key_col!r}: {why}")
+            return vals, valid
+
+        return manager().get_or_build(key_series, ("pkeys", d.key_col, repr(kdt)), build)
+
+    def probe_table(self, d: DimSpec) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The K4 hash table of an adjacent dim's keys on the device, built
+        once per dim key Series."""
+        key_series = self.batches[d.name].get_column(d.key_col)
+        vals, valid = self._table_keys(d)
+
+        def build():
+            keys = torch.tensor(vals, device=self.device)
+            ok = torch.tensor(valid, device=self.device)
+            return pk.build_probe_table(keys, ok, pk.probe_table_slots(len(vals)))
+
+        key = ("ptable", d.key_col, repr(self._key_dtype(d)), str(self.device))
+        return manager().get_or_build(key_series, key, build, (vals,))
+
+    def dev_idx(self, batch, d: DimSpec, bucket: int) -> torch.Tensor:
+        """int32[bucket] index plane of an adjacent dim, probed by K4 and
+        cached on the fact key Series: a warm query probes nothing."""
+        table = self.probe_table(d)
+        anchor = batch.get_column(d.parent[1])
+        n = batch.num_rows
+
+        def build():
+            vals, valid = self._probe_values(batch, d, {}, self._key_dtype(d))
+            pv = np.zeros(bucket, dtype=np.int64)
+            pm = np.zeros(bucket, dtype=bool)
+            pv[:n] = vals
+            pm[:n] = valid
+            return pk.hash_probe_index(torch.from_numpy(pv).to(self.device),
+                                       torch.from_numpy(pm).to(self.device), *table)
+
+        key = ("pdidx", d.key_col, d.parent, bucket, str(self.device))
+        return manager().get_or_build(anchor, key, build, (table,))
+
+    # ---- dim planes in their adjacent root's row space -----------------------------
+
+    def _build_space(self, d: DimSpec, vals: Dict[str, List[str]],
+                     codes: Dict[str, List[str]]):
+        """(value planes, code planes, ok plane or None) of d's subtree, in
+        d's row space on the device."""
+        b = self.batches[d.name]
+        cap_d = pad_bucket(b.num_rows)
+        planes = {c: self._dim_source(d.name, c).to_device_cached(
+                      cap_d, f32=True, device=self.device) for c in vals[d.name]}
+        code_planes = {}
+        for c in codes[d.name]:
+            src = self._dim_source(d.name, c)
+            cds, _values, _k = src.dict_codes()
+            code_planes[c] = cached_dict_code_plane(src, cds, b.num_rows, cap_d, self.device)
+        ok = self.vis_plane(d, cap_d)
+        for child in (c for c in self.dims if c.parent[0] == d.name):
+            cplanes, ccodes, cok = self._build_space(child, vals, codes)
+            padded = np.full(cap_d, -1, dtype=np.int32)
+            padded[:b.num_rows] = self.dim_space_idx(child)
+            didx = torch.from_numpy(padded).to(self.device)
+            safe = didx.clamp(min=0).long()
+            for c, plane in cplanes.items():
+                planes[c] = _gather(plane, didx, safe)
+            for c, cp in ccodes.items():
+                code_planes[c] = cp[safe]
+            child_ok = didx >= 0
+            if cok is not None:
+                child_ok = child_ok & cok[safe]
+            ok = child_ok if ok is None else ok & child_ok
+        return planes, code_planes, ok
+
+    def dim_space(self, adj: DimSpec, needed: Sequence[str], groupby_cols: Sequence[str]):
+        """(value planes, code planes, ok plane or None) of the adjacency
+        subtree rooted at ``adj``, cached per query shape: the key holds the
+        column lists, the chain's shape and the filters' structure, the
+        deps every Series read, the literals the filters' values."""
+        spec = self.spec
+        vals = {d.name: [] for d in self.dims}
+        codes = {d.name: [] for d in self.dims}
+        for c in needed:
+            if spec.col_side.get(c) in vals:
+                vals[spec.col_side[c]].append(c)
+        for c in groupby_cols:
+            if spec.col_side.get(c) in codes:
+                codes[spec.col_side[c]].append(c)
+        sub = [d for d in self.dims if self._root_of(d.name) == adj.name]
+        my_vals = [c for d in sub for c in vals[d.name]]
+        my_codes = [c for d in sub for c in codes[d.name]]
+        deps = tuple(self._dim_source(spec.col_side[c], c) for c in my_vals + my_codes)
+        deps += tuple(self.batches[d.name].get_column(d.key_col) for d in sub)
+        deps += tuple(self.batches[d.parent[0]].get_column(d.parent[1])
+                      for d in sub if d.parent[0] != "fact")
+        skels, lits = exprs_structure([f for d in sub for f in d.filters])
+        key = ("space", tuple(my_vals), tuple(my_codes),
+               tuple((d.key_col,) + d.parent for d in sub), skels, str(self.device))
+        return manager().get_or_build(self.batches[adj.name].get_column(adj.key_col), key,
+                                      lambda: self._build_space(adj, vals, codes),
+                                      deps, lits)
+
+    def _fact_membership_plane(self, batch, bucket: int, syn: str):
+        """(values, validity) of a fact string membership: the column's
+        resident dictionary codes looked up in a table over its distinct
+        values. One slot per (column, synthetic name, bucket); the match
+        values are the slot's literals."""
+        colname, values, three_valued = self.spec.fact_synthetic[syn]
+        s = batch.get_column(colname)
+
+        def build():
+            cds, vocab, _k = s.dict_codes()
+            null_hit = any(v is None for v in values)
+            hit = [(v in values) if v is not None else null_hit for v in vocab]
+            ok = [v is not None or not three_valued for v in vocab]
+            codes = cached_dict_code_plane(s, cds, batch.num_rows, bucket, self.device).long()
+            lut = torch.tensor(hit or [False], dtype=torch.bool, device=self.device)
+            lut_ok = torch.tensor(ok or [True], dtype=torch.bool, device=self.device)
+            return lut[codes], lut_ok[codes]
+
+        return manager().get_or_build(s, ("fmem", syn, bucket, str(self.device)), build,
+                                      literals=(values, three_valued))
+
+    def provision(self, batch, bucket: int, needed: Sequence[str],
+                  groupby_cols: Sequence[str] = ()):
+        """Every device column of one fact batch: fact planes resident, one
+        K4 index plane and one gather per plane of each adjacent dim, and
+        ``__join_ok__``. Returns (columns, dim group-key code planes)."""
+        spec = self.spec
+        dcols: Dict[str, dev.DCol] = {}
+        code_out: Dict[str, torch.Tensor] = {}
+        ok_total = None
+        for adj in self._adjacent():
+            didx = self.dev_idx(batch, adj, bucket)
+            safe = didx.clamp(min=0).long()
+            planes, code_planes, ok = self.dim_space(adj, needed, groupby_cols)
+            for c, plane in planes.items():
+                dcols[c] = _gather(plane, didx, safe)
+            for c, cp in code_planes.items():
+                code_out[c] = cp[safe]
+            aok = didx >= 0
+            if ok is not None:
+                aok = aok & ok[safe]
+            ok_total = aok if ok_total is None else ok_total & aok
+        for name in needed:
+            if spec.col_side.get(name) != "fact":
+                continue
+            if name in spec.fact_synthetic:
+                dcols[name] = self._fact_membership_plane(batch, bucket, name)
+            else:
+                dcols[name] = batch.get_column(name).to_device_cached(
+                    bucket, f32=True, device=self.device)
+        dcols["__join_ok__"] = (ok_total, torch.ones_like(ok_total))
+        return dcols, code_out
+
+
+# ======================================================================================
+# the grouped run
+# ======================================================================================
+
+
+class DeviceJoinGroupedRun(GroupedAggRun):
+    """GroupedAggRun over gather-joined columns: the same stage programs and
+    finalize; only column provisioning and group codes differ."""
+
+    # group-count ceiling: the full cap-sized table is fetched at finalize
+    max_segments = 1 << 16
+
+    def __init__(self, stage: GroupedAggStage, ctx: _JoinContext):
+        super().__init__(stage, ctx.device)
+        self.ctx = ctx
+
+    def feed_batch(self, batch) -> None:
+        """One fact batch through the stage. Group codes: the per-column
+        dictionary codes radix-combined on the device while their product
+        stays under the ceiling, else a host factorize of the joined key
+        rows (its true group count)."""
+        stage = self.stage
+        n = batch.num_rows
+        if n == 0:
+            return
+        bucket = pad_bucket(n)
+        gb_cols = [(g.child if isinstance(g, Alias) else g)._name for g in stage.groupby]
+        if self._dict_product(batch, gb_cols) <= self.max_segments:
+            dcols, code_planes = self.ctx.provision(batch, bucket, stage._input_cols,
+                                                    gb_cols)
+            decode = self._dict_combined_codes(batch, n, bucket, gb_cols, code_planes)
+        else:
+            decode = self._host_factorized_codes(batch, n, bucket)
+            dcols, _ = self.ctx.provision(batch, bucket, stage._input_cols)
+        out = stage._program_for(decode.cap)(
+            dcols, decode.dcodes, device_row_mask(n, bucket, self.device), self._row_offset)
+        self._row_offset += n
+        self._pending.append((out, decode))
+        counters.bump("device_grouped_batches")
+        counters.bump("device_join_batches")
+
+    def _group_source(self, batch, name: str):
+        side = self.ctx.spec.col_side.get(name)
+        return batch.get_column(name) if side == "fact" else self.ctx._dim_source(side, name)
+
+    def _dict_product(self, batch, gb_cols) -> int:
+        total = 1
+        for name in gb_cols:
+            total *= max(self._group_source(batch, name).dict_codes()[2], 1)
+        return total
+
+    def _dict_combined_codes(self, batch, n: int, bucket: int, gb_cols,
+                             code_planes: Dict[str, torch.Tensor]) -> _Decode:
+        """Radix-combine per-column dictionary codes on the device (fact
+        codes resident per Series, dim codes gathered through the index
+        planes). A join-miss row may carry any code; it is masked, and the
+        codes are clipped into the table."""
+        encoded = []
+        for name in gb_cols:
+            src = self._group_source(batch, name)
+            codes, values, k = src.dict_codes()
+            if self.ctx.spec.col_side.get(name) == "fact":
+                plane = cached_dict_code_plane(src, codes, n, bucket, self.device)
+            else:
+                plane = code_planes[name]
+            encoded.append((plane, values, k))
+        total = 1
+        for _, _, k in encoded:
+            total *= max(k, 1)
+        cap = _pad_groups(total)
+        radices, mult = [], 1
+        for _, _, k in reversed(encoded):
+            radices.append(mult)
+            mult *= max(k, 1)
+        radices.reverse()
+        combined = encoded[0][0] * radices[0]
+        for (plane, _, _), r in zip(encoded[1:], radices[1:]):
+            combined = combined + plane * r
+        combined = combined.clamp(0, cap - 1).to(torch.int32)
+        return _Decode(cap=cap, dcodes=combined, dicts=[(v, k) for _, v, k in encoded],
+                       radices=radices, key_rows=None)
+
+    def _host_factorized_codes(self, batch, n: int, bucket: int) -> _Decode:
+        """Joined-key group codes by a host factorize over the host join
+        indices (cached). Join-miss rows form their own groups, which keep
+        no kept rows and drop at finalize. Raises DeviceFallback when the
+        group count passes ``max_segments``."""
+        from ..core.kernels.groupby import make_groups
+        from ..core.series import Series
+
+        ctx = self.ctx
+        idxs = ctx.indices_for(batch)
+        key_cols = []
+        for g in self.stage.groupby:
+            name = (g.child if isinstance(g, Alias) else g)._name
+            side = ctx.spec.col_side.get(name)
+            key_cols.append((side, self._group_source(batch, name)))
+        deps = tuple(s for _side, s in key_cols) + tuple(
+            idxs[side] for side, _s in key_cols if side != "fact")
+
+        def build():
+            series, misses = [], []
+            for side, s in key_cols:
+                if side == "fact":
+                    series.append(s)
+                    continue
+                idx = idxs[side]
+                if len(s) == 0:
+                    series.append(Series.full_null(s.name, s.dtype, n))
+                else:
+                    series.append(s.take(np.clip(idx, 0, len(s) - 1)))
+                misses.append(idx < 0)
+            if misses:
+                series.append(Series.from_numpy(
+                    np.logical_or.reduce(misses).astype(np.int8), "__miss__"))
+            first_idx, group_ids, _ = make_groups(series)
+            cap = _pad_groups(max(len(first_idx), 1))
+            key_rows = list(zip(*[s.take(first_idx).to_pylist()
+                                  for s in series[:len(key_cols)]]))
+            if cap > self.max_segments:
+                return cap, None, None
+            codes = np.full(bucket, cap, dtype=np.int32)
+            codes[:n] = group_ids
+            return cap, torch.from_numpy(codes).to(self.device), key_rows
+
+        key = ("jfact", bucket, str(self.device)) + tuple(repr(g) for g in self.stage.groupby)
+        cap, dcodes, key_rows = manager().get_or_build(key_cols[0][1], key, build, deps)
+        if cap > self.max_segments:
+            raise DeviceFallback(f"joined group count {cap} exceeds the ceiling "
+                                 f"{self.max_segments}")
+        return _Decode(cap=cap, dcodes=dcodes, dicts=None, radices=None, key_rows=key_rows)

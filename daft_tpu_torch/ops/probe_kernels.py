@@ -1,0 +1,184 @@
+"""Hash-probe join kernel K4 (counterpart of daft_tpu/ops/pallas_kernels.py
+``hash_probe_index``, with its host ``build_probe_table`` and
+``probe_key_digits``).
+
+A dim's unique join keys go into an open-addressed hash table on the device
+(``build_probe_table``), and every fact key is probed against it
+(``hash_probe_index``): the int32 row of the equal dim key, or -1 when the
+fact key is null or unmatched. Null dim keys never enter the table. The
+CUDA source (ops/csrc/hash_probe.cu) gives the layout, the hash, the bound
+and the design.
+
+Both entry points are wrappers in the style of ops/segment_kernels.py: they
+check device, dtype, shape and contiguity, allocate the outputs, and then
+run the plain PyTorch version beside them (a tensor on the CPU, counted as
+``plain_<name>``) or launch the kernel on the current CUDA stream (counted as
+``launches_<name>``). For a CUDA tensor they launch or raise: nothing falls
+back to the plain version.
+
+The table's preconditions are checked on the host before any launch
+(``probe_key_refusal``): valid keys must be unique and none may equal
+``EMPTY_KEY`` (int64 min), which marks an empty slot. The join runtime
+turns a refusal into ``DeviceFallback``.
+
+Where a key lands depends on the order the build's threads claim their
+slots, so two builds may lay out the same keys differently; the set of
+(key, row) entries and every probe's answer do not change. The plain build
+packs the same entries into the first slots, with no hashing: the plain
+probe searches the sorted occupied slots and needs no hash layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import counters
+from .segment_kernels import _check, _launched, _route, _stream
+
+_SOURCE = "hash_probe.cu"
+EMPTY_KEY = -(1 << 63)
+_MIN_SLOTS = 16
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from ._build import library
+
+        lib = library(_SOURCE)
+        vp, ll = ctypes.c_void_p, ctypes.c_longlong
+        lib.daft_hash_probe_build.argtypes = [vp, vp, vp, vp, ll, ll, vp]
+        lib.daft_hash_probe_index.argtypes = [vp, vp, vp, vp, vp, ll, ll, vp]
+        lib.daft_hash_probe_build.restype = ctypes.c_int
+        lib.daft_hash_probe_index.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def build() -> None:
+    """Build (or load) the kernel library now; raises when the build fails."""
+    _library()
+
+
+def probe_table_slots(n_rows: int) -> int:
+    """Slot count for a dim of ``n_rows`` keys (nulls included): a power of
+    two >= 2 * n_rows, so the table's load stays <= 0.5."""
+    s = _MIN_SLOTS
+    while s < 2 * n_rows:
+        s <<= 1
+    return s
+
+
+def probe_key_refusal(keys: np.ndarray, valid: np.ndarray) -> Optional[str]:
+    """Why these dim keys cannot go into a probe table, or None."""
+    vk = np.asarray(keys, dtype=np.int64)[np.asarray(valid, dtype=bool)]
+    if np.any(vk == EMPTY_KEY):
+        return "a dim key equals the probe table's empty marker (int64 min)"
+    if len(np.unique(vk)) != len(vk):
+        return "dim keys are not unique"
+    return None
+
+
+def _check_keys(keys: torch.Tensor, valid: torch.Tensor) -> None:
+    _check(keys, "keys", torch.int64, 1)
+    _check(valid, "valid", torch.bool, 1)
+    if valid.shape[0] != keys.shape[0]:
+        raise ValueError(f"keys has {keys.shape[0]} rows, valid {valid.shape[0]}")
+
+
+def _check_table(slot_keys: torch.Tensor, slot_rows: torch.Tensor) -> int:
+    _check(slot_keys, "slot_keys", torch.int64, 1)
+    _check(slot_rows, "slot_rows", torch.int32, 1)
+    s = slot_keys.shape[0]
+    if s < 1 or s & (s - 1) or slot_rows.shape[0] != s:
+        raise ValueError(f"probe table needs a power-of-two slot count on both "
+                         f"planes, got {s} and {slot_rows.shape[0]}")
+    return s
+
+
+# ---- build ---------------------------------------------------------------------------
+
+
+def build_probe_table(keys: torch.Tensor, valid: torch.Tensor,
+                      slots: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(slot_keys int64[slots], slot_rows int32[slots]) holding every valid
+    (key, row); empty slots hold ``EMPTY_KEY`` and row -1. ``slots`` comes
+    from ``probe_table_slots`` and the keys must pass ``probe_key_refusal``.
+    A table under twice the rows is refused: a full table would never let
+    the kernels' probe loops end."""
+    _check_keys(keys, valid)
+    if slots < 1 or slots & (slots - 1):
+        raise ValueError(f"slots must be a power of two, got {slots}")
+    if slots < 2 * keys.shape[0]:
+        raise ValueError(f"{slots} slots for {keys.shape[0]} keys: the table needs at "
+                         f"least twice the keys (probe_table_slots)")
+    if not _route(keys, valid):
+        counters.bump("plain_hash_probe_build")
+        return build_probe_table_plain(keys, valid, slots)
+    slot_keys = torch.full((slots,), EMPTY_KEY, dtype=torch.int64, device=keys.device)
+    slot_rows = torch.full((slots,), -1, dtype=torch.int32, device=keys.device)
+    if keys.shape[0] == 0:
+        return slot_keys, slot_rows  # nothing to place: no launch
+    with torch.cuda.device(keys.device):
+        rc = _library().daft_hash_probe_build(
+            keys.data_ptr(), valid.data_ptr(), slot_keys.data_ptr(),
+            slot_rows.data_ptr(), keys.shape[0], slots, _stream(keys))
+    _launched(rc, "hash_probe_build")
+    return slot_keys, slot_rows
+
+
+def build_probe_table_plain(keys: torch.Tensor, valid: torch.Tensor,
+                            slots: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain build: the valid (key, row) pairs in row order in the first
+    slots, the rest empty. No hash layout: only the plain probe reads it."""
+    slot_keys = torch.full((slots,), EMPTY_KEY, dtype=torch.int64, device=keys.device)
+    slot_rows = torch.full((slots,), -1, dtype=torch.int32, device=keys.device)
+    rows = torch.nonzero(valid).flatten()
+    slot_keys[:rows.numel()] = keys[rows]
+    slot_rows[:rows.numel()] = rows.to(torch.int32)
+    return slot_keys, slot_rows
+
+
+# ---- probe ---------------------------------------------------------------------------
+
+
+def hash_probe_index(keys: torch.Tensor, valid: torch.Tensor, slot_keys: torch.Tensor,
+                     slot_rows: torch.Tensor) -> torch.Tensor:
+    """int32[N]: the dim row whose key equals ``keys[i]``, or -1 when
+    ``valid[i]`` is false or no dim key equals it."""
+    _check_keys(keys, valid)
+    slots = _check_table(slot_keys, slot_rows)
+    if not _route(keys, valid, slot_keys, slot_rows):
+        counters.bump("plain_hash_probe_index")
+        return hash_probe_index_plain(keys, valid, slot_keys, slot_rows)
+    out = torch.empty(keys.shape[0], dtype=torch.int32, device=keys.device)
+    if keys.shape[0] == 0:
+        return out  # nothing to probe: no launch
+    with torch.cuda.device(keys.device):
+        rc = _library().daft_hash_probe_index(
+            keys.data_ptr(), valid.data_ptr(), slot_keys.data_ptr(),
+            slot_rows.data_ptr(), out.data_ptr(), keys.shape[0], slots,
+            _stream(keys))
+    _launched(rc, "hash_probe_index")
+    return out
+
+
+def hash_probe_index_plain(keys: torch.Tensor, valid: torch.Tensor,
+                           slot_keys: torch.Tensor,
+                           slot_rows: torch.Tensor) -> torch.Tensor:
+    """Plain probe: sort the occupied slots by key, ``searchsorted`` each
+    fact key and keep the row where the key found is equal."""
+    occupied = slot_keys != EMPTY_KEY
+    table_keys, order = torch.sort(slot_keys[occupied])
+    table_rows = slot_rows[occupied][order]
+    if table_keys.numel() == 0:
+        return torch.full(keys.shape, -1, dtype=torch.int32, device=keys.device)
+    pos = torch.searchsorted(table_keys, keys).clamp_(max=table_keys.numel() - 1)
+    hit = valid & (table_keys[pos] == keys) & (keys != EMPTY_KEY)
+    return torch.where(hit, table_rows[pos], -1).to(torch.int32)

@@ -1,7 +1,8 @@
 """Logical plan nodes (counterpart of daft_tpu/plan/logical.py, the subset the
-grouped-aggregation slice needs): an in-memory source, Filter, Project,
-Aggregate and Sort. Each node computes its output schema on construction,
-so a type error surfaces where the DataFrame method is called.
+grouped-aggregation and join slices need): an in-memory source, Filter,
+Project, Aggregate, Sort and the inner equi-Join. Each node computes its
+output schema on construction, so a type error surfaces where the DataFrame
+method is called.
 """
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 from typing import Any, List, Optional
 
 from ..expressions.expressions import Expression
+from ..datatype import Field
 from ..schema import Schema
 
 
@@ -75,3 +77,36 @@ class Sort(LogicalPlan):
 
     def children(self):
         return [self.input]
+
+
+class Join(LogicalPlan):
+    """Inner equi-join (counterpart of daft_tpu/plan/logical.py Join, inner
+    joins only). Join keys of the same name merge into the left's column;
+    other right columns whose names clash with the left are renamed
+    ``right.<name>``."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 left_on: List[Expression], right_on: List[Expression]):
+        if len(left_on) != len(right_on) or not left_on:
+            raise ValueError("join needs the same number (>= 1) of left and right keys")
+        self.left = left
+        self.right = right
+        self.left_on = list(left_on)
+        self.right_on = list(right_on)
+        merged, rename = self.output_naming()
+        fields = list(left.schema) + [
+            Field(rename.get(f.name, f.name), f.dtype)
+            for f in right.schema if f.name not in merged]
+        super().__init__(Schema(fields))
+
+    def output_naming(self):
+        """(merged_keys, right_rename) as the reference names join outputs."""
+        left_names = set(self.left.schema.column_names())
+        merged = {ro.name() for lo, ro in zip(self.left_on, self.right_on)
+                  if lo.name() == ro.name()}
+        rename = {f.name: f"right.{f.name}" for f in self.right.schema
+                  if f.name not in merged and f.name in left_names}
+        return merged, rename
+
+    def children(self):
+        return [self.left, self.right]

@@ -1,13 +1,20 @@
 """Physical plan and logical -> physical translation (counterpart of
-daft_tpu/plan/physical.py, the subset the grouped-aggregation slice needs).
+daft_tpu/plan/physical.py, the subset the grouped-aggregation and join
+slices need).
 
 ``translate`` lowers each logical node to the node the executor interprets.
-The one device decision made here is the reference's grouped-aggregation
-capture (physical.py:557-632) with its single-Filter peel: an Aggregate with
-group keys, optionally over one Filter, becomes a ``DeviceGroupedAgg`` when
-``try_build_grouped_agg_stage`` accepts the (predicate, keys, aggregations);
-otherwise it stays a host ``HashAggregate`` over the translated input. The
-join captures and fused-region capture are not ported yet.
+The device decisions made here are the reference's Aggregate captures
+(physical.py:557-632), in its order:
+
+1. the star join: an Aggregate over [Project]* <- [Filter]* <- an inner-join
+   tree that ``try_capture_join_agg`` accepts becomes a ``DeviceJoinAgg``,
+   which carries the untouched host translation of the same subtree;
+2. the single-Filter peel: an Aggregate with group keys, optionally over one
+   Filter, becomes a ``DeviceGroupedAgg`` when ``try_build_grouped_agg_stage``
+   accepts the (predicate, keys, aggregations).
+
+Otherwise it stays a host ``HashAggregate`` over the translated input. The
+join TopN and fused-region captures are not ported yet.
 """
 
 from __future__ import annotations
@@ -92,6 +99,44 @@ class DeviceGroupedAgg(_Unary):
         self.aggregations = aggregations
 
 
+class HashJoin(PhysicalPlan):
+    """Host inner equi-join (core/kernels/join.py); the right side is
+    materialized, the left streams."""
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan, left_on, right_on,
+                 merged_keys, right_rename, schema: Schema):
+        self.left = left
+        self.right = right
+        self.left_on = left_on
+        self.right_on = right_on
+        self.merged_keys = merged_keys
+        self.right_rename = right_rename
+        self.schema = schema
+
+    def children(self):
+        return [self.left, self.right]
+
+
+class DeviceJoinAgg(PhysicalPlan):
+    """Star join + grouped aggregate fused for the device
+    (ops/device_join.py): the fact streams, each dim materializes once per
+    run and joins as a device gather through its index plane, and the
+    aggregation runs on the grouped stage's kernels. ``host_plan`` is the
+    host translation of the same subtree: the executor runs it under
+    device_mode="off" and after a DeviceFallback."""
+
+    def __init__(self, fact: PhysicalPlan, dim_plans, spec, host_plan: PhysicalPlan,
+                 schema: Schema):
+        self.fact = fact
+        self.dim_plans = dim_plans  # [(dim name, PhysicalPlan)], parents first
+        self.spec = spec            # ops.device_join.JoinAggSpec
+        self.host_plan = host_plan
+        self.schema = schema
+
+    def children(self):
+        return [self.fact] + [p for _n, p in self.dim_plans]
+
+
 def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
     """The physical plan of ``plan`` under the current execution config."""
     from ..config import execution_config
@@ -106,12 +151,25 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
     if isinstance(plan, lp.Sort):
         return PhysSort(translate(plan.input), plan.sort_by, plan.descending,
                         plan.nulls_first, plan.schema)
+    if isinstance(plan, lp.Join):
+        merged, rename = plan.output_naming()
+        return HashJoin(translate(plan.left), translate(plan.right), plan.left_on,
+                        plan.right_on, merged, rename, plan.schema)
     if isinstance(plan, lp.Aggregate):
         if not plan.groupby:
             raise NotImplementedError(
                 "ungrouped aggregation is not ported yet; group by a key")
         if cfg.device_mode != "off":
+            from ..ops.device_join import try_capture_join_agg
             from ..ops.grouped_stage import try_build_grouped_agg_stage
+
+            spec = try_capture_join_agg(plan)
+            if spec is not None:
+                host = HashAggregate(translate(plan.input), plan.groupby,
+                                     plan.aggregations, plan.schema)
+                return DeviceJoinAgg(translate(spec.fact),
+                                     [(d.name, translate(d.base)) for d in spec.dims],
+                                     spec, host, plan.schema)
 
             # the reference's single-Filter peel
             src, predicate = plan.input, None

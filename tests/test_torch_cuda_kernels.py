@@ -1,6 +1,6 @@
-"""The hand-written CUDA segment kernels (K1-K3) against their plain PyTorch
-versions, and one grouped query through them against the host path, on the
-card. Marked ``cuda``: skipped where no card is present.
+"""The hand-written CUDA kernels (K1-K3 segment reduce, K4 hash probe)
+against their plain PyTorch versions, and one grouped query and one star
+join query through them against the host path, on the card. Marked ``cuda``: skipped where no card is present.
 
 Run on a machine with the card (tests/conftest.py imports JAX, which that
 machine lacks, so it is skipped):
@@ -8,7 +8,9 @@ machine lacks, so it is skipped):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 
 Every comparison is bit for bit: K1 sums integer-valued planes (exact in f64
-whatever the atomic order), K2/K3 are order-independent extremes.
+whatever the atomic order), K2/K3 are order-independent extremes, and K4's
+probe answers do not depend on where its build placed each key (the table's
+(key, row) entries are compared as a sorted set).
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from daft_tpu_torch.ops import counters
+from daft_tpu_torch.ops import probe_kernels as pk
 from daft_tpu_torch.ops import segment_kernels as sk
 
 pytestmark = pytest.mark.cuda
@@ -131,7 +134,83 @@ def test_grouped_query_on_card_launches_kernels_and_matches_host(cuda):
     with dt.execution_config_ctx(device="cuda", device_mode="on"):
         got = query()
     snap = counters.snapshot()
-    assert all(snap[f"launches_{k}"] > 0 for k in counters.KERNEL_NAMES), snap
+    assert all(snap[f"launches_{k}"] > 0 for k in counters.SEGMENT_KERNELS), snap
     assert snap["device_fallbacks"] == 0
+    with dt.execution_config_ctx(device_mode="off"):
+        assert got == query()
+
+
+def _entries(slot_keys, slot_rows):
+    occ = slot_keys != pk.EMPTY_KEY
+    k, order = torch.sort(slot_keys[occ])
+    return k, slot_rows[occ][order]
+
+
+@pytest.mark.parametrize("n_dim,n_fact", [(300, 4096), (1 << 20, 1 << 22)])
+def test_hash_probe_kernels_match_plain(cuda, n_dim, n_fact):
+    rng = np.random.default_rng(n_dim)
+    dim_keys = rng.choice(np.int64(1) << 60, n_dim, replace=False).astype(np.int64)
+    dim_keys[:3] = [(1 << 53) + 11, -(1 << 62), 0]
+    dim_valid = rng.random(n_dim) > 0.05
+    fact_keys = dim_keys[rng.integers(0, n_dim, n_fact)].copy()
+    fact_keys[::7] += 1
+    fact_keys[::1001] = pk.EMPTY_KEY
+    fact_valid = rng.random(n_fact) > 0.1
+    dk, dv = torch.from_numpy(dim_keys).to(cuda), torch.from_numpy(dim_valid).to(cuda)
+    fk, fv = torch.from_numpy(fact_keys).to(cuda), torch.from_numpy(fact_valid).to(cuda)
+    slots = pk.probe_table_slots(n_dim)
+    before = counters.snapshot()
+    table = pk.build_probe_table(dk, dv, slots)
+    got = pk.hash_probe_index(fk, fv, *table)
+    torch.cuda.synchronize()
+    after = counters.snapshot()
+    assert after["launches_hash_probe_build"] == before["launches_hash_probe_build"] + 1
+    assert after["launches_hash_probe_index"] == before["launches_hash_probe_index"] + 1
+    plain_table = pk.build_probe_table_plain(dk, dv, slots)
+    for a, b in zip(_entries(*table), _entries(*plain_table)):
+        assert torch.equal(a, b)
+    want = pk.hash_probe_index_plain(fk, fv, *table)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(pk.hash_probe_index_plain(fk, fv, *plain_table), want)
+    lut = {int(k): i for i, (k, v) in enumerate(zip(dim_keys, dim_valid)) if v}
+    sample = rng.integers(0, n_fact, 2000)
+    assert [got[i].item() for i in sample] == [
+        lut.get(int(fact_keys[i]), -1) if fact_valid[i] else -1 for i in sample]
+
+
+def test_star_join_query_on_card_launches_kernels_and_matches_host(cuda):
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col
+
+    rng = np.random.default_rng(6)
+    n, n_dim = 200_000, 30_000
+    fact = dt.from_pydict({
+        "f_k": rng.integers(0, n_dim + 500, n),
+        "f_tag": np.array(["aa", "bb", "cc"], dtype=object)[rng.integers(0, 3, n)],
+        "f_q": rng.integers(1, 50, n).astype(np.int32),
+    })
+    dim = dt.from_pydict({
+        "d_k": rng.permutation(n_dim),
+        "d_grp": np.array([f"g{i}" for i in range(9)], dtype=object)[
+            rng.integers(0, 9, n_dim)],
+        "d_big": (1 << 60) + rng.integers(0, 1 << 40, n_dim),
+    })
+
+    def query():
+        return (fact.where(col("f_tag").is_in(["aa", "cc"]))
+                .join(dim, left_on="f_k", right_on="d_k")
+                .groupby("d_grp")
+                .agg(col("f_q").sum().alias("s"), col("f_q").count().alias("n"),
+                     col("d_big").max().alias("b"))
+                .sort("d_grp").to_pydict())
+
+    counters.reset()
+    with dt.execution_config_ctx(device="cuda", device_mode="on"):
+        got = query()
+    snap = counters.snapshot()
+    for k in ("hash_probe_build", "hash_probe_index", "segment_sum_planes",
+              "segment_extreme_planes", "segment_extreme_int64"):
+        assert snap[f"launches_{k}"] > 0, snap
+    assert snap["device_join_batches"] == 1 and snap["device_fallbacks"] == 0
     with dt.execution_config_ctx(device_mode="off"):
         assert got == query()

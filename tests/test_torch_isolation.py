@@ -1,8 +1,8 @@
 """The port stands alone and never hides a device failure:
 
-- a port query imports neither JAX, nor pyarrow, nor anything of daft_tpu
-  (checked in a fresh interpreter: tests/conftest.py imports JAX into this
-  one);
+- a port query, the grouped one and the TPC-H q12 star join alike, imports
+  neither JAX, nor pyarrow, nor anything of daft_tpu (checked in a fresh
+  interpreter: tests/conftest.py imports JAX into this one);
 - with no card, a query left at the default device ("cuda") raises;
 - a kernel wrapper that raises makes the query raise: no host result;
 - ``from_numpy_columns`` reproduces the reference's columns.
@@ -47,6 +47,47 @@ print("FORBIDDEN", bad)
 """
 
 
+_JOIN_QUERY = """
+import datetime, sys
+import numpy as np
+sys.path.insert(0, {repo!r})
+import daft_tpu_torch as dt
+from daft_tpu_torch import col, lit
+rng = np.random.default_rng(0)
+modes = np.array(["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"], dtype=object)
+prios = np.array(["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"], dtype=object)
+orders = dt.from_pydict({{"o_orderkey": np.arange(1, 301),
+                          "o_orderpriority": prios[rng.integers(0, 5, 300)]}})
+ship = rng.integers(8766, 9131, 2000)
+lineitem = dt.from_pydict({{
+    "l_orderkey": rng.integers(1, 301, 2000),
+    "l_shipmode": modes[rng.integers(0, 7, 2000)],
+    "l_shipdate": ship.astype("datetime64[D]"),
+    "l_commitdate": (ship + rng.integers(-20, 40, 2000)).astype("datetime64[D]"),
+    "l_receiptdate": (ship + rng.integers(1, 31, 2000)).astype("datetime64[D]")}})
+high = col("o_orderpriority").is_in(["1-URGENT", "2-HIGH"])
+with dt.execution_config_ctx(device="cpu", device_mode="on"):
+    out = (lineitem.where(col("l_shipmode").is_in(["MAIL", "SHIP"])
+                          & (col("l_commitdate") < col("l_receiptdate"))
+                          & (col("l_shipdate") < col("l_commitdate"))
+                          & (col("l_receiptdate") >= lit(datetime.date(1994, 1, 1)))
+                          & (col("l_receiptdate") < lit(datetime.date(1995, 1, 1))))
+           .join(orders, left_on="l_orderkey", right_on="o_orderkey")
+           .with_column("high_line", high.if_else(lit(1), lit(0)))
+           .with_column("low_line", (~high).if_else(lit(1), lit(0)))
+           .groupby("l_shipmode")
+           .agg(col("high_line").sum().alias("high"), col("low_line").sum().alias("low"))
+           .sort("l_shipmode").to_pydict())
+from daft_tpu_torch.ops import counters
+assert out["l_shipmode"] == ["MAIL", "SHIP"], out
+assert counters.device_join_batches == 1, counters.snapshot()
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             or m == "daft_tpu")
+print("FORBIDDEN", bad)
+"""
+
+
 def _small_query(df):
     return (df.where(col("d") <= lit(datetime.date(1970, 3, 1))).groupby("k")
             .agg(col("v").sum().alias("s"), col("v").max().alias("m")).sort("k"))
@@ -60,6 +101,13 @@ def _small_df():
 
 def test_port_query_imports_no_jax_pyarrow_or_reference():
     proc = subprocess.run([sys.executable, "-c", _QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+def test_port_join_query_imports_no_jax_pyarrow_or_reference():
+    proc = subprocess.run([sys.executable, "-c", _JOIN_QUERY.format(repo=REPO)],
                           capture_output=True, text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "FORBIDDEN []" in proc.stdout, proc.stdout

@@ -1,0 +1,196 @@
+"""The hash-probe kernel K4 (daft_tpu_torch/ops/probe_kernels.py) on the CPU,
+where its wrappers run the plain PyTorch versions, held bit for bit against:
+
+- the reference's ``hash_probe_index`` in Pallas interpret mode, fed with
+  its own ``build_probe_table`` and ``probe_key_digits``;
+- the reference's ``unique_key_index`` (and the port's numpy copy of it);
+- a Python dict.
+
+Keys past 2^53, keys near -2^62, nulls on both sides, misses and an empty
+dim are covered, and so are the table's refusals (duplicate keys, a key
+equal to the empty-slot marker). The CUDA kernels themselves are held
+against the plain versions by the ``cuda``-marked tests of
+tests/test_torch_cuda_kernels.py, which skip without a card.
+"""
+
+import numpy as np
+import pyarrow as pa
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from daft_tpu.core.series import Series as RefSeries
+from daft_tpu.datatype import DataType as RefDataType
+from daft_tpu.ops import pallas_kernels as ref_pk
+from daft_tpu.ops.device_join import unique_key_index as ref_unique_key_index
+from daft_tpu_torch.core.series import Series
+from daft_tpu_torch.datatype import DataType
+from daft_tpu_torch.ops import counters
+from daft_tpu_torch.ops import probe_kernels as pk
+from daft_tpu_torch.ops.device_join import unique_key_index
+
+BIG = (1 << 53) + 11          # past f64's exact-integer range
+N_FACT = 4096
+
+
+def _case(seed: int, n_dim: int = 300):
+    """Dim keys (small, past 2^53, near -2^62) with nulls; fact keys drawn
+    from them with misses and nulls."""
+    rng = np.random.default_rng(seed)
+    third = n_dim // 3
+    dim_keys = np.concatenate([
+        rng.choice(10_000, n_dim - 2 * third, replace=False).astype(np.int64),
+        BIG + rng.choice(1_000_000, third, replace=False).astype(np.int64),
+        -(1 << 62) - np.arange(third, dtype=np.int64),
+    ])
+    rng.shuffle(dim_keys)
+    dim_valid = rng.random(n_dim) > 0.05
+    fact_keys = dim_keys[rng.integers(0, n_dim, N_FACT)].copy()
+    fact_keys[::7] += 1_000_003            # misses
+    fact_valid = rng.random(N_FACT) > 0.1  # null fact keys
+    return dim_keys, dim_valid, fact_keys, fact_valid
+
+
+def _dict_probe(fact_keys, fact_valid, dim_keys, dim_valid):
+    lut = {int(k): i for i, (k, v) in enumerate(zip(dim_keys, dim_valid)) if v}
+    return np.array([lut.get(int(k), -1) if v else -1
+                     for k, v in zip(fact_keys, fact_valid)], dtype=np.int32)
+
+
+def _port_probe(fact_keys, fact_valid, dim_keys, dim_valid):
+    """Table build + probe through the wrappers (CPU: the plain versions)."""
+    slots = pk.probe_table_slots(len(dim_keys))
+    table = pk.build_probe_table(torch.from_numpy(dim_keys), torch.from_numpy(dim_valid),
+                                 slots)
+    return pk.hash_probe_index(torch.from_numpy(fact_keys), torch.from_numpy(fact_valid),
+                               *table).numpy()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_probe_matches_reference_pallas_kernel(seed):
+    dim_keys, dim_valid, fact_keys, fact_valid = _case(seed)
+    tbl = ref_pk.build_probe_table(dim_keys, dim_valid)
+    assert tbl[0].shape[1] <= 512
+    fh, fl = ref_pk.probe_key_digits(jnp.asarray(fact_keys), jnp.asarray(fact_valid))
+    want = np.asarray(ref_pk.hash_probe_index(
+        fh, fl, jnp.asarray(tbl[0]), jnp.asarray(tbl[1]), jnp.asarray(tbl[2]),
+        interpret=True))
+    got = _port_probe(fact_keys, fact_valid, dim_keys, dim_valid)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _dict_probe(fact_keys, fact_valid, dim_keys,
+                                                   dim_valid))
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_probe_matches_unique_key_index(seed):
+    dim_keys, dim_valid, fact_keys, fact_valid = _case(seed, n_dim=3000)
+    ref_series = RefSeries.from_arrow(pa.array(dim_keys, pa.int64(), mask=~dim_valid),
+                                      "k")
+    want = ref_unique_key_index(ref_series, fact_keys, fact_valid, RefDataType.int64())
+    port_series = Series.from_numpy(dim_keys, "k", validity=dim_valid)
+    np.testing.assert_array_equal(
+        unique_key_index(port_series, fact_keys, fact_valid, DataType.int64()), want)
+    np.testing.assert_array_equal(_port_probe(fact_keys, fact_valid, dim_keys, dim_valid),
+                                  want)
+
+
+def test_probe_small_dense_domain_matches_unique_key_index():
+    """unique_key_index's dense-table branch (a small key domain)."""
+    rng = np.random.default_rng(5)
+    dim_keys = rng.permutation(np.arange(-50, 250, dtype=np.int64))
+    dim_valid = rng.random(300) > 0.1
+    fact_keys = rng.integers(-80, 300, N_FACT).astype(np.int64)
+    fact_valid = rng.random(N_FACT) > 0.1
+    port_series = Series.from_numpy(dim_keys, "k", validity=dim_valid)
+    want = _dict_probe(fact_keys, fact_valid, dim_keys, dim_valid)
+    np.testing.assert_array_equal(
+        unique_key_index(port_series, fact_keys, fact_valid, DataType.int64()), want)
+    np.testing.assert_array_equal(_port_probe(fact_keys, fact_valid, dim_keys, dim_valid),
+                                  want)
+
+
+def test_empty_dim_and_all_null_dim_match_nothing():
+    rng = np.random.default_rng(6)
+    fact_keys = rng.integers(-5, 5, N_FACT).astype(np.int64)
+    fact_valid = np.ones(N_FACT, dtype=bool)
+    for dim_keys, dim_valid in ((np.empty(0, np.int64), np.empty(0, bool)),
+                                (np.arange(8, dtype=np.int64), np.zeros(8, bool))):
+        got = _port_probe(fact_keys, fact_valid, dim_keys, dim_valid)
+        assert (got == -1).all()
+
+
+def test_fact_key_equal_to_the_empty_marker_never_matches():
+    dim_keys = np.array([1, 2, 3], dtype=np.int64)
+    fact_keys = np.array([pk.EMPTY_KEY, 2, pk.EMPTY_KEY, 7], dtype=np.int64)
+    got = _port_probe(fact_keys, np.ones(4, bool), dim_keys, np.ones(3, bool))
+    np.testing.assert_array_equal(got, [-1, 1, -1, -1])
+
+
+def test_table_refusals():
+    assert pk.probe_key_refusal(np.array([3, 7, 3]), np.ones(3, bool)) \
+        == "dim keys are not unique"
+    assert "empty marker" in pk.probe_key_refusal(np.array([1, pk.EMPTY_KEY]),
+                                                  np.ones(2, bool))
+    # a duplicate or a marker hidden behind a null is fine: nulls never match
+    assert pk.probe_key_refusal(np.array([3, 7, 3, pk.EMPTY_KEY]),
+                                np.array([True, True, False, False])) is None
+    # the reference refuses the same keys
+    with pytest.raises(ValueError, match="not unique"):
+        ref_pk.build_probe_table(np.array([3, 7, 3], dtype=np.int64))
+    with pytest.raises(ValueError, match="sentinel"):
+        ref_pk.build_probe_table(np.array([1, ref_pk.PROBE_SENTINEL], dtype=np.int64))
+    assert ref_pk.PROBE_SENTINEL == pk.EMPTY_KEY
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_plain_build_places_every_key_on_its_probe_sequence(seed):
+    """The plain build holds every valid (key, row) once, and the plain
+    probe finds each dim key's own row (a null dim key finds nothing)."""
+    dim_keys, dim_valid, _fk, _fv = _case(seed)
+    slots = pk.probe_table_slots(len(dim_keys))
+    assert slots >= 2 * len(dim_keys) and slots & (slots - 1) == 0
+    sk_, sr_ = pk.build_probe_table(torch.from_numpy(dim_keys),
+                                    torch.from_numpy(dim_valid), slots)
+    occupied = (sk_ != pk.EMPTY_KEY).numpy()
+    assert occupied.sum() == dim_valid.sum()
+    assert sorted(zip(sk_.numpy()[occupied].tolist(), sr_.numpy()[occupied].tolist())) \
+        == sorted((int(k), i) for i, (k, v) in enumerate(zip(dim_keys, dim_valid)) if v)
+    found = pk.hash_probe_index(torch.from_numpy(dim_keys),
+                                torch.ones(len(dim_keys), dtype=torch.bool), sk_, sr_)
+    np.testing.assert_array_equal(found.numpy(),
+                                  np.where(dim_valid, np.arange(len(dim_keys)), -1))
+
+
+@pytest.mark.parametrize("n_keys,slots", [(8, 8), (9, 16), (1, 1)])
+def test_build_refuses_a_table_under_twice_the_keys(n_keys, slots):
+    """A table that could fill would never let the kernels' probe loops
+    end, so the wrapper refuses it before any launch."""
+    keys = torch.arange(n_keys, dtype=torch.int64)
+    counters.reset()
+    with pytest.raises(ValueError, match="twice the keys"):
+        pk.build_probe_table(keys, torch.ones(n_keys, dtype=torch.bool), slots)
+    assert counters.snapshot()["plain_hash_probe_build"] == 0
+
+
+def test_wrappers_count_plain_calls_and_validate():
+    counters.reset()
+    dim_keys, dim_valid, fact_keys, fact_valid = _case(10)
+    _port_probe(fact_keys, fact_valid, dim_keys, dim_valid)
+    snap = counters.snapshot()
+    assert snap["plain_hash_probe_build"] == 1 and snap["plain_hash_probe_index"] == 1
+    assert snap["launches_hash_probe_build"] == 0 and snap["launches_hash_probe_index"] == 0
+    keys = torch.zeros(8, dtype=torch.int64)
+    valid = torch.ones(8, dtype=torch.bool)
+    with pytest.raises(TypeError):
+        pk.build_probe_table(keys.int(), valid, 16)
+    with pytest.raises(ValueError):
+        pk.build_probe_table(keys, valid[:4], 16)
+    with pytest.raises(ValueError):
+        pk.build_probe_table(keys, valid, 12)
+    table = pk.build_probe_table(keys[:1], valid[:1], 16)
+    with pytest.raises(ValueError):
+        pk.hash_probe_index(keys, valid, table[0][:12], table[1][:12])
+    with pytest.raises(TypeError):
+        pk.hash_probe_index(keys, valid, table[0], table[1].long())

@@ -25,7 +25,7 @@ from daft_tpu_torch.ops import segment_kernels as sk
 from daft_tpu_torch.plan import physical as pp
 
 CUTOFF = datetime.date(1998, 9, 2)
-KERNELS = counters.KERNEL_NAMES
+KERNELS = counters.SEGMENT_KERNELS
 
 
 def _port_df(ref_df):

@@ -67,3 +67,32 @@ def test_entries_die_with_their_anchor():
         del a
         gc.collect()
         assert m.bytes_resident() == 0 and m.entry_count() == 0
+
+
+def test_deps_and_literals_rebuild_one_slot_in_place():
+    """A hit needs identical deps and equal literals; a miss rebuilds the
+    same slot, so a query shape keeps one entry whatever its literals."""
+    from daft_tpu_torch import col, lit
+    from daft_tpu_torch.device.residency import expr_structure
+
+    m = ResidencyManager()
+    anchor, dep_a, dep_b = _Anchor(), _Anchor(), _Anchor()
+    builds = []
+
+    def build(tag):
+        builds.append(tag)
+        return _plane(1000)
+
+    with execution_config_ctx(hbm_budget_bytes=-1):
+        first = m.get_or_build(anchor, ("vis",), lambda: build("a"), (dep_a,), (1,))
+        assert m.get_or_build(anchor, ("vis",), lambda: build("x"), (dep_a,), (1,)) is first
+        m.get_or_build(anchor, ("vis",), lambda: build("b"), (dep_b,), (1,))
+        m.get_or_build(anchor, ("vis",), lambda: build("c"), (dep_b,), (2,))
+        assert builds == ["a", "b", "c"]
+        assert m.stats() == {"bytes_resident": 1000, "entries": 1}
+        m.clear()
+        assert m.stats() == {"bytes_resident": 0, "entries": 0}
+    skel_1, lits_1 = expr_structure((col("x") < lit(3)) & col("y").is_in([1, 2]))
+    skel_2, lits_2 = expr_structure((col("x") < lit(5)) & col("y").is_in([1, 4]))
+    assert skel_1 == skel_2 and lits_1 != lits_2
+    assert [v for _dt, v in lits_2] == [5, 1, 4]
