@@ -20,12 +20,18 @@ error (no phase catches its own failure):
             library call computing the same function where there is one, and
             print the bound. Segment kernels at the supplier query's shapes
             (N = 2^23 rows, cap = 16384, P = 15; Q = 1 for K2; int64 min and
-            max for K3) and K1 (P = 5) and K2 (Q = 1) again at q12's cap
+            max for K3; K1a on K1's planes, also equal to K1's output cast
+            to f32) and K1 (P = 5) and K2 (Q = 1) again at q12's cap
             8; K4 at q12's
             (orders' 1.5 M keys into a 2^22-slot table, 2^23 lineitem keys
             probed). K4's build is compared as the sorted set of its (key,
             row) entries: where a key lands depends on the order the
-            threads claim their slots;
+            threads claim their slots. K5 at q12's shapes on K4's table
+            (lineitem's keys, q12's ship-mode codes, orders' high/low
+            priority planes), also equal to q12's oracle for MAIL and SHIP;
+            K6 at the repartition cell's shapes (8 x 8 blocks of
+            23 x 2^20 + 4 words). K1a and K5 have no engine caller, in the
+            port or in the reference: they are held here alone;
 4. slice:   the per-supplier shipment summary over lineitem through the port
             with device="cuda", device_mode="on"; the counters are zeroed
             just before that run and read just after it. The result must equal
@@ -42,10 +48,20 @@ error (no phase catches its own failure):
             path and a numpy oracle exactly. Then the warm query (median of
             3, which must launch K4 zero times: its index plane is resident),
             peak device memory, and one warm query under torch.profiler;
-7. print the {"kernels": [...]} line, the card line, and last the
+7. repartition: lineitem's eight numeric columns at SF1 (about 6.0 M rows)
+            repartitioned by ``l_orderkey`` into 8 partitions over a mesh of
+            8 shard slots on the card (mesh_devices=8), the counters zeroed
+            just before the run and read just after it: K6 must launch once,
+            with no all_to_all dispatch. Every partition must equal the
+            port's host path and a numpy oracle (splitmix64 of the key bits
+            mod 8, rows in input order), rows in order; then the
+            kernel_mode="off" tier (all_to_all) must give the same
+            partitions. Then the wall time (median of 3), peak device memory
+            and one run under torch.profiler;
+8. print the {"kernels": [...]} line, the card line, and last the
    {"ok": true, "device": {...}} line.
 
-Both queries run at SF1: nothing is cut. It imports torch, numpy and the
+Every cell runs at SF1: nothing is cut. It imports torch, numpy and the
 port; nothing of JAX, pyarrow or daft_tpu.
 """
 
@@ -76,15 +92,24 @@ Q12_FROM, Q12_TO = datetime.date(1994, 1, 1), datetime.date(1995, 1, 1)
 # benchmarking/tpch/datagen.py:36-37
 PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
 SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
+SF1_PARTS = 200_000
+MESH = 8                  # the repartition cell's partitions and shard slots
 SEGMENT_SOURCE = "daft_tpu_torch/ops/csrc/segment_reduce.cu"
 PROBE_SOURCE = "daft_tpu_torch/ops/csrc/hash_probe.cu"
+PERMUTE_SOURCE = "daft_tpu_torch/ops/csrc/ring_permute.cu"
 KERNELS = {  # name -> (source, the TPU kernel or host function it replaces)
     "segment_sum_planes": (SEGMENT_SOURCE, "daft_tpu/ops/pallas_kernels.py:129"),
     "segment_extreme_planes": (SEGMENT_SOURCE, "daft_tpu/ops/pallas_kernels.py:184"),
     "segment_extreme_int64": (SEGMENT_SOURCE, "daft_tpu/ops/pallas_kernels.py:248"),
     "hash_probe_build": (PROBE_SOURCE, "daft_tpu/ops/pallas_kernels.py:310"),
     "hash_probe_index": (PROBE_SOURCE, "daft_tpu/ops/pallas_kernels.py:369"),
+    "segment_sum_planes_f32": (SEGMENT_SOURCE, "daft_tpu/ops/pallas_kernels.py:82"),
+    "hash_probe_segment_sum": (PROBE_SOURCE, "daft_tpu/ops/pallas_kernels.py:421"),
+    "ring_permute_words": (PERMUTE_SOURCE, "daft_tpu/ops/pallas_kernels.py:515"),
 }
+# the repartition cell's columns: lineitem's numeric ones
+REPART_COLUMNS = ("l_orderkey", "l_partkey", "l_suppkey", "l_linenumber", "l_quantity",
+                  "l_extendedprice", "l_discount", "l_tax")
 
 
 class SmokeFailure(Exception):
@@ -104,10 +129,12 @@ def phase(name: str) -> None:
 
 
 def tpch_sf1(seed: int):
-    """(lineitem columns, orders columns) of both queries, with the value
+    """(lineitem columns, orders columns) of every cell, with the value
     domains of the repo's TPC-H generator (benchmarking/tpch/datagen.py:
     36-37, 160-190). Dates are int32 days; ``l_shipmode`` and
-    ``o_orderpriority`` are int8 codes into SHIPMODES and PRIORITIES."""
+    ``o_orderpriority`` are int8 codes into SHIPMODES and PRIORITIES. The
+    repartition cell's columns are drawn last, so the earlier cells' data
+    does not depend on them."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -131,6 +158,12 @@ def tpch_sf1(seed: int):
     orders = {"o_orderkey": np.arange(1, SF1_ORDERS + 1, dtype=np.int64),
               "o_orderpriority": rng.integers(0, len(PRIORITIES),
                                               SF1_ORDERS).astype(np.int8)}
+    lineitem["l_partkey"] = rng.integers(1, SF1_PARTS + 1, n_line).astype(np.int64)
+    quantity = rng.integers(1, 51, n_line).astype(np.float64)
+    lineitem["l_quantity"] = quantity
+    lineitem["l_extendedprice"] = np.round(quantity * rng.uniform(900, 2000, n_line) / 10, 2)
+    lineitem["l_discount"] = np.round(rng.uniform(0.0, 0.10, n_line), 2)
+    lineitem["l_tax"] = np.round(rng.uniform(0.0, 0.08, n_line), 2)
     return lineitem, orders
 
 
@@ -320,13 +353,14 @@ def phase_card():
 
 
 def phase_build(card: str) -> None:
-    from daft_tpu_torch.ops import _build, probe_kernels, segment_kernels
+    from daft_tpu_torch.ops import _build, permute_kernels, probe_kernels, segment_kernels
 
     phase("build")
     t0 = time.perf_counter()
     _build.build_all()
     segment_kernels.build()
     probe_kernels.build()
+    permute_kernels.build()
     wall = time.perf_counter() - t0
     for source, info in sorted(_build.BUILD_INFO.items()):
         print(f"built {source}: nvcc {info['seconds']:.2f} s")
@@ -371,6 +405,7 @@ def phase_kernels(cols, orders, card: str):
     import numpy as np
     import torch
 
+    from daft_tpu_torch.ops import permute_kernels as rk
     from daft_tpu_torch.ops import probe_kernels as pk
     from daft_tpu_torch.ops import segment_kernels as sk
 
@@ -436,6 +471,23 @@ def phase_kernels(cols, orders, card: str):
             lambda: lib_table3.scatter_reduce_(0, trash_idx, lib_vals, "amin"), 20),
         "bound_ms": bound_ms(n * 8 + n * 1 + n * 4 + CAP * 8 + CAP * 1),
     }
+
+    # K1a: K1's planes and codes in one f32 window
+    got = sk.segment_sum_planes_f32(x["planes"], codes, CAP)
+    want = sk.segment_sum_planes_f32_plain(x["planes"], codes, CAP)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "K1a segment_sum_planes_f32 differs from its plain version")
+    check(torch.equal(got, sk.segment_sum_planes(x["planes"], codes, CAP).float()),
+          "K1a segment_sum_planes_f32 differs from K1's output cast to f32")
+    lib_table.zero_()
+    results["segment_sum_planes_f32"] = {
+        "max_abs_err": max_abs_err(got, want),
+        "ms": time_ms(lambda: sk.segment_sum_planes_f32(x["planes"], codes, CAP), 20),
+        "plain_ms": time_ms(lambda: sk.segment_sum_planes_f32_plain(x["planes"], codes, CAP),
+                            5),
+        "library_ms": time_ms(lambda: lib_table.index_add_(0, trash_idx, x["planes"]), 20),
+        "bound_ms": bound_ms(n * p * 4 + n * 4 + CAP * p * 4),
+    }
     del x, lib_table, lib_table2, lib_table3, lib_vals, trash_idx, idx2
     torch.cuda.empty_cache()
 
@@ -485,7 +537,7 @@ def phase_kernels(cols, orders, card: str):
             lambda: lib8_2.scatter_reduce_(0, idx8_2, first8, "amin"), 20),
         "bound_ms": bound_ms(BUCKET * 4 + BUCKET * 4 + Q12_CAP * 4),
     }
-    del planes8, codes8, idx8, lib8, first8, lib8_2, idx8_2
+    del planes8, idx8, lib8, first8, lib8_2, idx8_2
 
     # K4: orders' keys into the table, every lineitem key probed
     dim_keys = torch.from_numpy(orders["o_orderkey"]).to(dev)
@@ -530,7 +582,66 @@ def phase_kernels(cols, orders, card: str):
         "library_ms": time_ms(lambda: torch.searchsorted(sorted_keys, fact_keys), 20),
         "bound_ms": bound_ms(BUCKET * 8 + BUCKET + slots * 12 + BUCKET * 4),
     }
-    del table, plain_table, fact_keys, fact_valid, got, want, sorted_keys
+    del plain_table, got, want, sorted_keys
+
+    # K5 on K4's table: lineitem's keys, q12's ship-mode codes (trash where
+    # its predicate drops the row), orders' high/low priority planes
+    high_o = orders["o_orderpriority"] <= 1
+    dim_planes = torch.from_numpy(np.stack([high_o, ~high_o], axis=1)
+                                  .astype(np.float32)).to(dev)
+    got_s, got_c = pk.hash_probe_segment_sum(fact_keys, fact_valid, codes8, *table,
+                                             dim_planes, Q12_CAP)
+    want_s, want_c = pk.hash_probe_segment_sum_plain(fact_keys, fact_valid, codes8, *table,
+                                                     dim_planes, Q12_CAP)
+    torch.cuda.synchronize()
+    check(torch.equal(got_s, want_s) and torch.equal(got_c, want_c),
+          "K5 hash_probe_segment_sum differs from its plain version")
+    oracle = q12_oracle(cols, orders)
+    for i, mode in enumerate(oracle["l_shipmode"]):
+        code = SHIPMODES.index(mode)
+        high, low = oracle["high_line_count"][i], oracle["low_line_count"][i]
+        check(got_s[code].tolist() == [high, low] and got_c[code].item() == high + low,
+              f"K5 {mode}: {got_s[code].tolist()} / {got_c[code].item()}, "
+              f"q12's oracle {high} / {low}")
+    print(f"K5 sums equal q12's oracle: "
+          f"{ {m: got_s[SHIPMODES.index(m)].tolist() for m in oracle['l_shipmode']} }")
+    kept = int(keep_np.sum())
+    results["hash_probe_segment_sum"] = {
+        "max_abs_err": max(max_abs_err(got_s, want_s), max_abs_err(got_c, want_c)),
+        "ms": time_ms(lambda: pk.hash_probe_segment_sum(fact_keys, fact_valid, codes8, *table,
+                                                        dim_planes, Q12_CAP), 20),
+        "plain_ms": time_ms(lambda: pk.hash_probe_segment_sum_plain(
+            fact_keys, fact_valid, codes8, *table, dim_planes, Q12_CAP), 5),
+        "library_ms": None,
+        # every code is read; only the kept rows read their key, validity
+        # and one 12-byte slot, and their matched dim row's 2 planes
+        "bound_ms": bound_ms(BUCKET * 4 + kept * (8 + 1 + 12 + 2 * 4)
+                             + Q12_CAP * 2 * 8 + Q12_CAP * 8),
+    }
+    del table, fact_keys, fact_valid, codes8, dim_planes, got_s, got_c, want_s, want_c
+    torch.cuda.empty_cache()
+
+    # K6 at the repartition cell's shapes: 8 x 8 blocks of 23 x 2^20 + 4
+    # words (7 eight-byte planes, 1 four-byte plane, 8 validity planes, the
+    # counts and the alignment pad)
+    w = 23 * (1 << 20) + 4
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    send = torch.randint(-2**31, 2**31 - 1, (MESH, MESH, w), dtype=torch.int32,
+                         device=dev, generator=gen)
+    got = rk.ring_permute_words(send)
+    want = rk.ring_permute_words_plain(send)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "K6 ring_permute_words differs from its plain version")
+    del got, want
+    results["ring_permute_words"] = {
+        "max_abs_err": 0.0,
+        "ms": time_ms(lambda: rk.ring_permute_words(send), 20),
+        "plain_ms": time_ms(lambda: rk.ring_permute_words_plain(send), 5),
+        "library_ms": time_ms(lambda: send.transpose(0, 1).contiguous(), 20),
+        "bound_ms": bound_ms(2 * send.numel() * 4),
+    }
+    del send
     torch.cuda.empty_cache()
 
     def fmt(v):
@@ -596,20 +707,21 @@ def phase_slice(cols, card: str):
     return df, launches
 
 
-def phase_profile(query, card: str, name: str = "profile") -> None:
-    """One warm device query under torch.profiler: device busy time (the sum
-    of the device activities' own times), the query's wall time under the
-    profiler, the idle share, and the device activities that took longest."""
+def phase_profile(run, card: str, name: str = "profile", **cfg) -> None:
+    """One warm device run of ``run()`` under torch.profiler: device busy
+    time (the sum of the device activities' own times), the run's wall time
+    under the profiler, the idle share, and the device activities that took
+    longest. ``cfg`` adds to the execution config."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import daft_tpu_torch as dt
 
     phase(name)
-    with dt.execution_config_ctx(device="cuda", device_mode="on", kernel_mode="on"):
+    with dt.execution_config_ctx(device="cuda", device_mode="on", kernel_mode="on", **cfg):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            query().to_pydict()
+            run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side activities only (kernels, copies): the CPU op that launched
@@ -619,7 +731,7 @@ def phase_profile(query, card: str, name: str = "profile") -> None:
               and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     check(busy_ms > 0, "the profiled query shows no device time")
-    print(f"warm query under the profiler: wall {wall_ms:.3f} ms, device busy "
+    print(f"warm run under the profiler: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f} [{card}]")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  device {e.self_device_time_total / 1e3:.4f} ms x{e.count}: {e.key[:90]}")
@@ -687,6 +799,126 @@ def phase_q12(lineitem, orders, card: str):
     return query, launches
 
 
+def splitmix64_np(x):
+    """splitmix64's finalizer over uint64, written out here so the oracle
+    does not lean on the port's hashing module."""
+    import numpy as np
+
+    with np.errstate(over="ignore"):
+        x = x + np.uint64(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return x ^ (x >> np.uint64(31))
+
+
+def partition_arrays(part, names):
+    """{column: (values, validity)} of one result partition."""
+    batch = part.concat_or_empty()
+    return {c: (batch.get_column(c).to_numpy(), batch.get_column(c).validity_numpy())
+            for c in names}
+
+
+def same_partitions(a, b, names) -> bool:
+    """Partition for partition, column for column: equal bits and validity,
+    rows in order."""
+    import numpy as np
+
+    if len(a) != len(b):
+        return False
+    for pa_, pb_ in zip(a, b):
+        x, y = partition_arrays(pa_, names), partition_arrays(pb_, names)
+        for c in names:
+            (xv, xm), (yv, ym) = x[c], y[c]
+            if xv.dtype != yv.dtype or not np.array_equal(xm, ym) \
+                    or not np.array_equal(xv.view(f"u{xv.itemsize}"),
+                                          yv.view(f"u{yv.itemsize}")):
+                return False
+    return True
+
+
+def phase_repartition(lineitem, card: str):
+    """The mesh hash repartition of SF1 lineitem's numeric columns over 8
+    shard slots on the card. Returns (the run as a callable, the run's
+    launches)."""
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    import daft_tpu_torch.device.residency  # noqa: F401
+    from daft_tpu_torch import col
+    from daft_tpu_torch.ops import counters
+
+    phase("repartition")
+    # the earlier cells' resident planes stay out of this cell's peak memory
+    dt.device.residency.manager().clear()
+    torch.cuda.empty_cache()
+    cols = {c: lineitem[c] for c in REPART_COLUMNS}
+    rows = len(cols["l_orderkey"])
+    df = dt.from_pydict(cols)
+    mesh_cfg = {"device": "cuda", "device_mode": "on", "mesh_devices": MESH}
+
+    def run():
+        return df.repartition(MESH, col("l_orderkey")).collect()._result
+
+    with dt.execution_config_ctx(kernel_mode="on", **mesh_cfg):
+        torch.cuda.reset_peak_memory_stats()
+        counters.reset()
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        snap = counters.snapshot()
+        launches = {k: snap[f"launches_{k}"] for k in counters.KERNEL_NAMES}
+        peak = torch.cuda.max_memory_allocated()
+        warm = time_s(run)
+    print(f"run counters: {json.dumps(snap, sort_keys=True)}")
+    check(not counters.rejections, f"the repartition was refused: {counters.rejections}")
+    check(launches["ring_permute_words"] == 1,
+          f"K6 launched {launches['ring_permute_words']} times, expected once")
+    check(snap["mesh_fused_permute_dispatches"] >= 1, "no fused-permute exchange")
+    check(snap["mesh_alltoall_dispatches"] == 0, "the all_to_all tier ran")
+    check(snap["mesh_alltoall_rows"] == rows, "the exchange did not carry every row")
+
+    with dt.execution_config_ctx(device_mode="off"):
+        t0 = time.perf_counter()
+        host = df.repartition(MESH, col("l_orderkey")).collect()._result
+        host_s = time.perf_counter() - t0
+    check(same_partitions(got, host, REPART_COLUMNS),
+          "a partition differs from the port's host path")
+    dest = splitmix64_np(cols["l_orderkey"].view(np.uint64)) % np.uint64(MESH)
+    sizes = []
+    for d, part in enumerate(got):
+        arrays = partition_arrays(part, REPART_COLUMNS)
+        mine = dest == d
+        sizes.append(int(mine.sum()))
+        for c in REPART_COLUMNS:
+            values, valid = arrays[c]
+            check(valid.all() and np.array_equal(values, cols[c][mine]),
+                  f"partition {d}, column {c} differs from the numpy oracle")
+    check(sum(sizes) == rows, "the partitions do not cover the rows")
+
+    with dt.execution_config_ctx(kernel_mode="off", **mesh_cfg):
+        counters.reset()
+        t0 = time.perf_counter()
+        off = run()
+        torch.cuda.synchronize()
+        off_s = time.perf_counter() - t0
+        off_snap = counters.snapshot()
+    check(off_snap["mesh_alltoall_dispatches"] == 1
+          and off_snap["launches_ring_permute_words"] == 0,
+          "kernel_mode='off' did not take the all_to_all tier")
+    check(same_partitions(off, got, REPART_COLUMNS),
+          "the all_to_all tier's partitions differ from the K6 tier's")
+    print(f"lineitem SF1 {rows} rows, {len(REPART_COLUMNS)} columns by l_orderkey into "
+          f"{MESH} partitions {sizes}: equal to the host path and the numpy oracle, "
+          f"and the all_to_all tier equal to the K6 tier")
+    print(f"repartition first {first_s:.3f} s; warm median {statistics.median(warm):.3f} s "
+          f"(runs {', '.join(f'{w:.3f}' for w in warm)}); all_to_all tier {off_s:.3f} s; "
+          f"host path {host_s:.3f} s; exchange {snap['mesh_exchange_bytes']} bytes; "
+          f"max_memory_allocated {peak} bytes [{card}]", flush=True)
+    return run, launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "daft_tpu_torch")):
         print("chip_smoke.py: the daft_tpu_torch package is not beside this script; "
@@ -701,9 +933,12 @@ def main() -> int:
         print(f"datagen {time.perf_counter() - t0:.2f} s", flush=True)
         kernel_results = phase_kernels(lineitem, orders, card)
         df, supplier_launches = phase_slice(lineitem, card)
-        phase_profile(lambda: supplier_query(df), card)
+        phase_profile(lambda: supplier_query(df).to_pydict(), card)
         q12, q12_launches = phase_q12(lineitem, orders, card)
-        phase_profile(q12, card, "q12 profile")
+        phase_profile(lambda: q12().to_pydict(), card, "q12 profile")
+        del df, q12
+        repart, repart_launches = phase_repartition(lineitem, card)
+        phase_profile(repart, card, "repartition profile", mesh_devices=MESH)
     except SmokeFailure as exc:
         print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -712,7 +947,8 @@ def main() -> int:
     kernels = []
     for kname, r in kernel_results.items():
         source, replaces = KERNELS[kname]
-        by_path = {"supplier": supplier_launches[kname], "q12": q12_launches[kname]}
+        by_path = {"supplier": supplier_launches[kname], "q12": q12_launches[kname],
+                   "repartition": repart_launches[kname]}
         entry = {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": sum(by_path.values()), "launches_by_path": by_path,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],

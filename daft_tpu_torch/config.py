@@ -1,5 +1,5 @@
 """Execution configuration (counterpart of daft_tpu/config.py, the subset the
-grouped-aggregation slice reads).
+port's slices read).
 
 Frozen dataclass snapshot; ``set_execution_config`` replaces the process
 default and ``execution_config_ctx`` scopes an override.
@@ -10,11 +10,18 @@ default and ``execution_config_ctx`` scopes an override.
 - ``device_mode``: "on" (default) runs qualifying stages as device stages,
   "off" runs everything on the host. The reference's cost-model "auto" is
   not ported yet.
-- ``kernel_mode``: "on" (default) lets a device grouped stage run its
-  hand-written kernel tier (the reference's ``pallas_mode``); "off" plans
-  every grouped aggregation to the host, since the port has no other device
-  tier yet.
+- ``kernel_mode``: "on" (default) lets device stages run their
+  hand-written kernel tier (the reference's ``pallas_mode``). "off" plans
+  every grouped aggregation to the host, since the port has no other grouped
+  device tier yet, and makes the mesh repartition's exchange take its
+  all_to_all tier (one block copy per source and destination) instead of
+  the ring-permute kernel K6.
 - ``morsel_size_rows``: morsel size of the host aggregation.
+- ``mesh_devices``: 0 or 1 = no mesh; N >= 2 = a forced mesh of N shard
+  slots on ``device`` for qualifying stages (today the hash repartition into
+  N partitions). The port has no cost model, so no "auto" width.
+- ``device_min_rows``: inputs under this many rows stay on the host (the
+  mesh repartition's gate reads it).
 - ``hbm_budget_bytes``: device residency budget (device/residency.py);
   positive = bytes, 0 = auto (3/4 of the card's memory), negative =
   unbounded.
@@ -34,6 +41,8 @@ class ExecutionConfig:
     kernel_mode: str = "on"
     morsel_size_rows: int = 128 * 1024
     hbm_budget_bytes: int = 0
+    mesh_devices: int = 0
+    device_min_rows: int = 65_536
 
     def __post_init__(self) -> None:
         if self.device_mode not in ("on", "off"):
@@ -42,6 +51,8 @@ class ExecutionConfig:
             raise ValueError(f"kernel_mode must be 'on' or 'off', got {self.kernel_mode!r}")
         if self.morsel_size_rows < 1:
             raise ValueError(f"morsel_size_rows must be >= 1, got {self.morsel_size_rows!r}")
+        if self.mesh_devices < 0:
+            raise ValueError(f"mesh_devices must be >= 0, got {self.mesh_devices!r}")
 
 
 _default: Optional[ExecutionConfig] = None

@@ -120,3 +120,27 @@ class RecordBatch:
         from .kernels.sort import multi_argsort
 
         return self.take(multi_argsort(key_series, descending, nulls_first))
+
+    def partition_by_hash(self, key_series: List[Series],
+                          num_partitions: int) -> List["RecordBatch"]:
+        """Split rows by ``combine_hashes`` of the keys mod ``num_partitions``;
+        each piece keeps the rows' input order."""
+        from .kernels.hashing import combine_hashes
+
+        if self._num_rows == 0:
+            return [self.slice(0, 0) for _ in range(num_partitions)]
+        hashes = combine_hashes([s.hash().to_numpy() for s in key_series])
+        part_ids = (hashes % np.uint64(num_partitions)).astype(np.int64)
+        return self._split_by_partition_ids(part_ids, num_partitions)
+
+    def partition_by_random(self, num_partitions: int, seed: int) -> List["RecordBatch"]:
+        """Split rows by numpy's ``default_rng(seed)`` draws, as the reference."""
+        rng = np.random.default_rng(seed)
+        part_ids = rng.integers(0, num_partitions, size=self._num_rows)
+        return self._split_by_partition_ids(part_ids.astype(np.int64), num_partitions)
+
+    def _split_by_partition_ids(self, part_ids: np.ndarray,
+                                num_partitions: int) -> List["RecordBatch"]:
+        order = np.argsort(part_ids, kind="stable")
+        bounds = np.searchsorted(part_ids[order], np.arange(num_partitions + 1))
+        return [self.take(order[bounds[p]:bounds[p + 1]]) for p in range(num_partitions)]

@@ -222,6 +222,14 @@ class Series:
         self._dict_codes = (group_ids.astype(np.int32), values, len(values))
         return self._dict_codes
 
+    def hash(self, seed: Optional["Series"] = None) -> "Series":
+        """Deterministic 64-bit hash per row, as a uint64 Series (nulls hash
+        to a fixed value); bit-identical to the reference's (see
+        core/kernels/hashing.py)."""
+        from .kernels.hashing import hash_series
+
+        return hash_series(self, seed)
+
     # ---- selection ----------------------------------------------------------------
     def slice(self, start: int, end: int) -> "Series":
         return Series(self._name, self._dtype, self._values[start:end],

@@ -1,6 +1,6 @@
 """DataFrame: the lazy user-facing API (counterpart of
-daft_tpu/dataframe/dataframe.py, the subset the grouped-aggregation and join
-slices need): ``where``, ``select``, ``with_column``, ``join`` (inner),
+daft_tpu/dataframe/dataframe.py, the subset the port's slices need):
+``where``, ``select``, ``with_column``, ``join`` (inner), ``repartition``,
 ``groupby(...).agg(...)``, ``sort``, ``collect`` and ``to_pydict``.
 
 Every method appends a logical node; ``collect`` translates the plan under
@@ -94,6 +94,13 @@ class DataFrame:
         if isinstance(nulls_first, bool):
             nulls_first = [nulls_first] * len(exprs)
         return DataFrame(lp.Sort(self._plan, exprs, descending, nulls_first))
+
+    def repartition(self, num: Optional[int], *partition_by: ColumnInput) -> "DataFrame":
+        """``num`` partitions by the hash of ``partition_by``, or at random
+        when no key is given."""
+        if partition_by:
+            return DataFrame(lp.Repartition(self._plan, num, "hash", _to_exprs(partition_by)))
+        return DataFrame(lp.Repartition(self._plan, num, "random"))
 
     def groupby(self, *group_by: ColumnInput) -> "GroupedDataFrame":
         return GroupedDataFrame(self, _to_exprs(group_by))

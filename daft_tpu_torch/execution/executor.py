@@ -1,6 +1,6 @@
 """Streaming interpreter of the physical plan (counterpart of
-daft_tpu/execution/executor.py, the subset the grouped-aggregation and join
-slices need).
+daft_tpu/execution/executor.py, the subset the grouped-aggregation, join and
+repartition slices need).
 
 ``execute_plan`` streams MicroPartitions. Host operators run in numpy. A
 ``DeviceGroupedAgg`` runs its stage on the configured device (the reference's
@@ -9,9 +9,12 @@ coalescer arms): each batch is fed as it arrives and buffered, and when the
 stage raises ``DeviceFallback`` (its group count outgrew the kernels'
 envelope, detected before any launch) the whole buffered stream reruns on
 the host. A ``DeviceJoinAgg`` runs the star-join stage the same way
-(``_exec_device_join_agg``), and a ``HashJoin`` joins on the host. Any other
-error, a kernel that fails to build or launch included, propagates: no
-device failure turns into a host result.
+(``_exec_device_join_agg``), and a ``HashJoin`` joins on the host. A
+``PhysRepartition`` splits on the host by the rows' hash (or at random), or,
+for a hash repartition into ``mesh_devices`` partitions, runs the mesh
+exchange on the device (``_mesh_repartition``). Any other error, a kernel
+that fails to build or launch included, propagates: no device failure turns
+into a host result.
 """
 
 from __future__ import annotations
@@ -77,6 +80,10 @@ def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
 
     if isinstance(node, pp.DeviceJoinAgg):
         yield _exec_device_join_agg(node)
+        return
+
+    if isinstance(node, pp.PhysRepartition):
+        yield from _repartition(node)
         return
 
     raise NotImplementedError(f"no executor for {node.name()}")
@@ -187,6 +194,131 @@ def _exec_device_join_agg(node: pp.DeviceJoinAgg) -> MicroPartition:
         return host()
     return _grouped_output(node.schema, node.spec.groupby, node.spec.aggregations,
                            key_rows, results)
+
+
+def _repartition(node: pp.PhysRepartition) -> Iterator[MicroPartition]:
+    """n output partitions, in partition order; the rows of each keep their
+    input order. ``random`` draws each input partition's ids from numpy's
+    ``default_rng(partition index)``, as the reference."""
+    n = node.num_partitions or 1
+    if node.scheme == "hash" and _mesh_repart_eligible(node, n):
+        yield from _mesh_repartition(node, n)
+        return
+    yield from _host_repartition(node, _exec(node.input), n)
+
+
+def _host_repartition(node: pp.PhysRepartition, stream, n: int) -> List[MicroPartition]:
+    """The host split of ``stream`` into n partitions by ``node.scheme``."""
+    buckets: List[List[RecordBatch]] = [[] for _ in range(n)]
+    for i, part in enumerate(stream):
+        for b in part.batches:
+            if b.num_rows == 0:
+                continue
+            if node.scheme == "hash":
+                keys = [_full_length(eval_expression(b, e), b.num_rows) for e in node.by]
+                pieces = b.partition_by_hash(keys, n)
+            else:
+                pieces = b.partition_by_random(n, seed=i)
+            for j, piece in enumerate(pieces):
+                if piece.num_rows:
+                    buckets[j].append(piece)
+    return [MicroPartition(node.schema, bs) for bs in buckets]
+
+
+def _mesh_repart_eligible(node: pp.PhysRepartition, n: int) -> bool:
+    """The static gate of the mesh repartition: a forced mesh of n shards,
+    keys, and only numeric or boolean columns (strings and dates stay on the
+    host, as in the reference). Decided before the input is read or anything
+    is uploaded; every refusal but device_mode="off" is recorded."""
+    from ..config import execution_config
+    from ..ops import counters
+
+    cfg = execution_config()
+    if cfg.device_mode == "off":
+        return False
+    site = "repartition"
+    if cfg.mesh_devices < 2:
+        counters.reject(site, "mesh_devices < 2: no mesh")
+        return False
+    if n != cfg.mesh_devices:
+        counters.reject(site, "partition count differs from mesh_devices")
+        return False
+    if not node.by:
+        counters.reject(site, "no partition keys")
+        return False
+    if not all(f.dtype.is_numeric() or f.dtype.is_boolean() for f in node.schema):
+        counters.reject(site, "a column is neither numeric nor boolean")
+        return False
+    return True
+
+
+def _mesh_repartition(node: pp.PhysRepartition, n: int) -> List[MicroPartition]:
+    """The hash repartition as one mesh exchange on the configured device;
+    input under ``device_min_rows`` rows is split on the host. The partitions
+    equal the host path's, rows in order. There is no host rerun: a failure
+    of the exchange (a kernel that fails to build or launch) raises."""
+    from ..config import execution_config
+    from ..ops import counters
+
+    batches = [b for p in _exec(node.input) for b in p.batches if b.num_rows > 0]
+    rows = sum(b.num_rows for b in batches)
+    if rows < max(execution_config().device_min_rows, 1):
+        counters.reject("repartition", "fewer rows than device_min_rows")
+        return _host_repartition(node, [MicroPartition(node.schema, batches)], n)
+    return _mesh_repartition_exchange(node, batches, rows, n)
+
+
+def _mesh_repartition_exchange(node: pp.PhysRepartition, batches: List[RecordBatch],
+                               rows: int, n: int) -> List[MicroPartition]:
+    """Destinations hashed on the host with the host path's function; every
+    column's values and validity sharded over the mesh; one exchange (the
+    K6 tier, or the all_to_all tier under kernel_mode="off"); then each
+    block's live rows, and only those, back to the host, in (destination,
+    source shard, row) order."""
+    import torch
+
+    from ..config import execution_config
+    from ..core.kernels.hashing import combine_hashes
+    from ..ops import counters
+    from ..ops.mesh_stage import _shard_np, mesh_row_mask, mesh_total
+    from ..parallel.distributed import (default_mesh, sharded_alltoall_repartition_step,
+                                        sharded_ring_repartition_step)
+    from ..utils.torch_setup import resolve_device
+
+    cfg = execution_config()
+    big = batches[0] if len(batches) == 1 else RecordBatch.concat(batches)
+    keys = [_full_length(eval_expression(big, e), rows) for e in node.by]
+    dest = (combine_hashes([s.hash().to_numpy() for s in keys])
+            % np.uint64(n)).astype(np.int64)
+    mesh = default_mesh(n, resolve_device(cfg.device))
+    total = mesh_total(rows, n)
+    S = total // n
+    planes, np_dtypes = [], []
+    for c in big.columns():
+        planes += [_shard_np(mesh, c.to_numpy(), total),
+                   _shard_np(mesh, c.validity_numpy(), total)]
+        np_dtypes.append(c.to_numpy().dtype)
+    args = (_shard_np(mesh, dest, total), mesh_row_mask(mesh, rows, total), *planes)
+    if cfg.kernel_mode == "on":
+        counts, out = sharded_ring_repartition_step(mesh, *args)
+        counters.bump("mesh_fused_permute_dispatches")
+    else:
+        counts, out = sharded_alltoall_repartition_step(mesh, *args)
+        counters.bump("mesh_alltoall_dispatches")
+    counters.bump("mesh_alltoall_rows", rows)
+    del args, planes
+    live = torch.arange(S, device=mesh.device) < counts.view(n * n, 1)
+    host = [p[live].cpu().numpy() for p in out]
+    del out
+    bounds = np.concatenate([[0], np.cumsum(counts.cpu().numpy().reshape(n, n).sum(axis=1))])
+    parts = []
+    for d in range(n):
+        lo, hi = int(bounds[d]), int(bounds[d + 1])
+        cols = [Series.from_numpy(host[2 * i][lo:hi].view(np_dtypes[i]), f.name,
+                                  dtype=f.dtype, validity=host[2 * i + 1][lo:hi])
+                for i, f in enumerate(node.schema)]
+        parts.append(MicroPartition(node.schema, [RecordBatch(node.schema, cols, hi - lo)]))
+    return parts
 
 
 def _grouped_output(schema, groupby, aggregations, key_rows, results) -> MicroPartition:

@@ -9,9 +9,16 @@ show which path a query took:
 - ``device_stage_runs``: device stage runs finalized;
 - ``device_fallbacks``: device runs that raised DeviceFallback and reran on
   the host;
+- ``mesh_fused_permute_dispatches`` / ``mesh_alltoall_dispatches``: mesh
+  repartition exchanges run by the kernel tier (one K6 launch) / by the
+  all_to_all tier (kernel_mode="off");
+- ``mesh_alltoall_rows``: rows sent through a mesh exchange;
+- ``mesh_exchange_bytes``: bytes the exchanges moved (the packed word
+  buffer, or the bins and counts of the all_to_all tier; the reference's
+  ``mesh_alltoall_ici_bytes``);
 - ``launches_<kernel>``: one per launch of a hand-written kernel, bumped by
-  its wrapper (ops/segment_kernels.py, ops/probe_kernels.py) where it
-  launches and nowhere else;
+  its wrapper (ops/segment_kernels.py, ops/probe_kernels.py,
+  ops/permute_kernels.py) where it launches and nowhere else;
 - ``plain_<kernel>``: one per wrapper call routed to the plain PyTorch
   version (a CPU tensor), so a CPU run can show the path went through the
   wrapper without counting a launch.
@@ -27,10 +34,15 @@ from typing import Dict
 
 SEGMENT_KERNELS = ("segment_sum_planes", "segment_extreme_planes",
                    "segment_extreme_int64")
-# K4 has two entry points: the table build and the probe
-KERNEL_NAMES = SEGMENT_KERNELS + ("hash_probe_build", "hash_probe_index")
+# K4 has two entry points: the table build and the probe; K1a and K5 have no
+# engine caller (nor in the reference), K6 runs the mesh repartition
+KERNEL_NAMES = SEGMENT_KERNELS + ("hash_probe_build", "hash_probe_index",
+                                  "segment_sum_planes_f32", "hash_probe_segment_sum",
+                                  "ring_permute_words")
 COUNTER_NAMES = ("device_grouped_batches", "device_join_batches", "device_stage_runs",
-                 "device_fallbacks") + tuple(
+                 "device_fallbacks", "mesh_alltoall_dispatches",
+                 "mesh_fused_permute_dispatches", "mesh_alltoall_rows",
+                 "mesh_exchange_bytes") + tuple(
     f"{kind}_{k}" for kind in ("launches", "plain") for k in KERNEL_NAMES)
 
 _LOCK = threading.Lock()

@@ -1,4 +1,5 @@
-// Segment-reduce kernels of the grouped-aggregation kernel tier (K1-K3),
+// Segment-reduce kernels of the grouped-aggregation kernel tier (K1-K3, and
+// the standalone K1a),
 // written by hand for Hopper (sm_90a).
 //
 // Each kernel sits behind a plain `extern "C"` launcher that takes raw device
@@ -23,6 +24,16 @@
 //   table of cap*P*8 bytes (2 MB at cap 16384, P 15, so it lives in the 50 MB
 //   L2); zero values skip the atomic. Left for later: privatising the table in
 //   shared memory where cap*P fits and warp-aggregated atomics for skewed keys.
+//
+// K1a daft_segment_sum_planes_f32
+//   Replaces pallas_kernels.py segment_sum_planes (the single-window parity
+//   anchor; no engine code calls it, in the port or in the reference).
+//   K1's one-window case with an f32 table, as the TPU kernel's output: f32
+//   atomics into (cap x P), codes outside [0, cap) dropped. Exact for
+//   integer-valued planes whose segment totals stay below 2^24; otherwise
+//   the atomic order decides the last bits.
+//   Bound: memory, as K1 (one f32 read per element, a 4-byte table entry
+//   per atomic). Left for later: the same privatisation as K1.
 //
 // K2 daft_segment_extreme_planes
 //   Replaces pallas_kernels.py segment_extreme_planes.
@@ -87,6 +98,24 @@ __global__ void segment_sum_kernel(const float* __restrict__ planes,
     if (code >= 0 && code < cap && v != 0.0f) {
       atomicAdd(out + static_cast<long long>(code) * p + col,
                 static_cast<double>(v));
+    }
+  }
+}
+
+__global__ void segment_sum_f32_kernel(const float* __restrict__ planes,
+                                       const int32_t* __restrict__ codes,
+                                       float* __restrict__ out,
+                                       long long n, int p, int cap) {
+  const long long total = n * static_cast<long long>(p);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < total; i += stride) {
+    const long long row = i / p;
+    const int col = static_cast<int>(i - row * p);
+    const int code = __ldg(codes + row);
+    const float v = __ldg(planes + i);
+    if (code >= 0 && code < cap && v != 0.0f) {
+      atomicAdd(out + static_cast<long long>(code) * p + col, v);
     }
   }
 }
@@ -167,6 +196,19 @@ int daft_segment_sum_planes(const void* planes, const void* codes, void* out,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(planes), static_cast<const int32_t*>(codes),
         static_cast<double*>(out), n, p, cap);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1a: out (cap x P, f32) must be zero-filled by the caller.
+int daft_segment_sum_planes_f32(const void* planes, const void* codes, void* out,
+                                long long n, int p, int cap, void* stream) {
+  const long long total = n * static_cast<long long>(p);
+  if (total > 0) {
+    segment_sum_f32_kernel<<<grid_for(total), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(planes), static_cast<const int32_t*>(codes),
+        static_cast<float*>(out), n, p, cap);
   }
   return static_cast<int>(cudaGetLastError());
 }

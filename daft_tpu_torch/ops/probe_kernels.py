@@ -1,6 +1,7 @@
-"""Hash-probe join kernel K4 (counterpart of daft_tpu/ops/pallas_kernels.py
-``hash_probe_index``, with its host ``build_probe_table`` and
-``probe_key_digits``).
+"""Hash-probe join kernels K4 and K5 (counterparts of
+daft_tpu/ops/pallas_kernels.py ``hash_probe_index``, with its host
+``build_probe_table`` and ``probe_key_digits``, and
+``hash_probe_segment_sum``).
 
 A dim's unique join keys go into an open-addressed hash table on the device
 (``build_probe_table``), and every fact key is probed against it
@@ -9,7 +10,11 @@ fact key is null or unmatched. Null dim keys never enter the table. The
 CUDA source (ops/csrc/hash_probe.cu) gives the layout, the hash, the bound
 and the design.
 
-Both entry points are wrappers in the style of ops/segment_kernels.py: they
+``hash_probe_segment_sum`` (K5) fuses K4's probe with a segment sum of the
+matched dim row's planes, writing no index plane. No engine code calls it,
+in the port or in the reference: it is a standalone kernel on K4's table.
+
+The entry points are wrappers in the style of ops/segment_kernels.py: they
 check device, dtype, shape and contiguity, allocate the outputs, and then
 run the plain PyTorch version beside them (a tensor on the CPU, counted as
 ``plain_<name>``) or launch the kernel on the current CUDA stream (counted as
@@ -55,8 +60,11 @@ def _library():
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
         lib.daft_hash_probe_build.argtypes = [vp, vp, vp, vp, ll, ll, vp]
         lib.daft_hash_probe_index.argtypes = [vp, vp, vp, vp, vp, ll, ll, vp]
-        lib.daft_hash_probe_build.restype = ctypes.c_int
-        lib.daft_hash_probe_index.restype = ctypes.c_int
+        lib.daft_hash_probe_segment_sum.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ll,
+                                                    ctypes.c_int, ctypes.c_int, ll, vp]
+        for fn in (lib.daft_hash_probe_build, lib.daft_hash_probe_index,
+                   lib.daft_hash_probe_segment_sum):
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -182,3 +190,65 @@ def hash_probe_index_plain(keys: torch.Tensor, valid: torch.Tensor,
     pos = torch.searchsorted(table_keys, keys).clamp_(max=table_keys.numel() - 1)
     hit = valid & (table_keys[pos] == keys) & (keys != EMPTY_KEY)
     return torch.where(hit, table_rows[pos], -1).to(torch.int32)
+
+
+# ---- K5: probe + segment sum ----------------------------------------------------------
+
+
+def hash_probe_segment_sum(keys: torch.Tensor, valid: torch.Tensor, codes: torch.Tensor,
+                           slot_keys: torch.Tensor, slot_rows: torch.Tensor,
+                           planes: torch.Tensor,
+                           cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sums (cap, P) f64, counts (cap,) int64): for every fact row whose
+    key finds a dim row in the table and whose code lies in [0, cap), that
+    dim row's planes (``planes[row]``, (D, P) f32, one row per key the table
+    was built from) are added into the code's segment and 1 into its count.
+    A null fact key never matches.
+
+    The reference returns f32 sums and counts; these are widened as K1's
+    are, and equal the reference's wherever its f32 sums are exact
+    (integer-valued planes under 2^24 a segment). The kernel adds in f64
+    atomics in no fixed order, so a float plane with fractions may differ
+    from the plain version in the last bits."""
+    _check_keys(keys, valid)
+    _check(codes, "codes", torch.int32, 1)
+    _check(planes, "planes", torch.float32, 2)
+    slots = _check_table(slot_keys, slot_rows)
+    n, p = keys.shape[0], planes.shape[1]
+    if codes.shape[0] != n:
+        raise ValueError(f"codes has {codes.shape[0]} rows, keys {n}")
+    if slots < 2 * planes.shape[0]:
+        raise ValueError(f"{slots} slots cannot hold a table of {planes.shape[0]} dim rows")
+    if not _route(keys, valid, codes, slot_keys, slot_rows, planes):
+        counters.bump("plain_hash_probe_segment_sum")
+        return hash_probe_segment_sum_plain(keys, valid, codes, slot_keys, slot_rows,
+                                            planes, cap)
+    sums = torch.zeros((cap, p), dtype=torch.float64, device=keys.device)
+    counts = torch.zeros(cap, dtype=torch.int64, device=keys.device)
+    if n == 0:
+        return sums, counts  # nothing to probe: no launch
+    with torch.cuda.device(keys.device):
+        rc = _library().daft_hash_probe_segment_sum(
+            keys.data_ptr(), valid.data_ptr(), codes.data_ptr(), slot_keys.data_ptr(),
+            slot_rows.data_ptr(), planes.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+            n, p, cap, slots, _stream(keys))
+    _launched(rc, "hash_probe_segment_sum")
+    return sums, counts
+
+
+def hash_probe_segment_sum_plain(keys: torch.Tensor, valid: torch.Tensor,
+                                 codes: torch.Tensor, slot_keys: torch.Tensor,
+                                 slot_rows: torch.Tensor, planes: torch.Tensor,
+                                 cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K5: the plain probe, then ``index_add_`` of the gathered dim
+    planes (f64) and of ones (int64) into tables with a trash row."""
+    idx = hash_probe_index_plain(keys, valid, slot_keys, slot_rows)
+    hit = (idx >= 0) & (codes >= 0) & (codes < cap)
+    seg = torch.where(hit, codes, cap).long()
+    p = planes.shape[1]
+    sums = torch.zeros((cap + 1, p), dtype=torch.float64, device=keys.device)
+    counts = torch.zeros(cap + 1, dtype=torch.int64, device=keys.device)
+    if planes.shape[0]:
+        sums.index_add_(0, seg, planes[idx.clamp(min=0).long()].double())
+    counts.index_add_(0, seg, torch.ones_like(seg))
+    return sums[:cap].contiguous(), counts[:cap].contiguous()

@@ -9,6 +9,9 @@ Each entry point is a wrapper around a CUDA kernel written for Hopper
 bound and design) and has a plain PyTorch version beside it:
 
 - ``segment_sum_planes`` (K1, replaces ``segment_sum_planes_windowed``);
+- ``segment_sum_planes_f32`` (K1a, replaces ``segment_sum_planes``, the
+  one-window f32 case; no engine code calls it, in the port or in the
+  reference);
 - ``segment_extreme_planes`` (K2, replaces ``segment_extreme_planes``);
 - ``segment_extreme_int64`` (K3, replaces ``segment_extreme_int64``).
 
@@ -57,11 +60,13 @@ def _library():
         lib = library(_SOURCE)
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.daft_segment_sum_planes.argtypes = [vp, vp, vp, ll, i32, i32, vp]
+        lib.daft_segment_sum_planes_f32.argtypes = [vp, vp, vp, ll, i32, i32, vp]
         lib.daft_segment_extreme_planes.argtypes = [vp, vp, vp, vp, ll, i32, i32,
                                                     i32, vp]
         lib.daft_segment_extreme_int64.argtypes = [vp, vp, vp, vp, vp, vp, ll, i32,
                                                    i32, vp]
-        for fn in (lib.daft_segment_sum_planes, lib.daft_segment_extreme_planes,
+        for fn in (lib.daft_segment_sum_planes, lib.daft_segment_sum_planes_f32,
+                   lib.daft_segment_extreme_planes,
                    lib.daft_segment_extreme_int64):
             fn.restype = ctypes.c_int
         _lib = lib
@@ -144,6 +149,47 @@ def segment_sum_planes_plain(planes: torch.Tensor, codes: torch.Tensor,
         part.index_add_(0, safe[s:s + win], planes[s:s + win])
         out += part[:cap].double()
     return out
+
+
+# ---- K1a ---------------------------------------------------------------------------
+
+
+def segment_sum_planes_f32(planes: torch.Tensor, codes: torch.Tensor,
+                           cap: int) -> torch.Tensor:
+    """Sum planes (N x P, f32) into segments (cap x P, f32) by codes (N, i32)
+    in one f32 accumulation, codes outside [0, cap) dropped.
+
+    Exact for integer-valued planes whose segment totals stay below 2^24;
+    otherwise the kernel's atomic order decides the last bits, as the
+    reference's single-window kernel is exact only there."""
+    _check(planes, "planes", torch.float32, 2)
+    _check(codes, "codes", torch.int32, 1)
+    n, p = planes.shape
+    if codes.shape[0] != n:
+        raise ValueError(f"codes has {codes.shape[0]} rows, planes {n}")
+    if not _route(planes, codes):
+        counters.bump("plain_segment_sum_planes_f32")
+        return segment_sum_planes_f32_plain(planes, codes, cap)
+    out = torch.zeros((cap, p), dtype=torch.float32, device=planes.device)
+    if n * p == 0:
+        return out  # nothing to sum: no launch
+    with torch.cuda.device(planes.device):
+        rc = _library().daft_segment_sum_planes_f32(
+            planes.data_ptr(), codes.data_ptr(), out.data_ptr(), n, p, cap,
+            _stream(planes))
+    _launched(rc, "segment_sum_planes_f32")
+    return out
+
+
+def segment_sum_planes_f32_plain(planes: torch.Tensor, codes: torch.Tensor,
+                                 cap: int) -> torch.Tensor:
+    """Plain K1a: one f32 ``index_add_`` into a table with a trash row."""
+    inside = (codes >= 0) & (codes < cap)
+    safe = torch.where(inside, codes, cap).long()
+    out = torch.zeros((cap + 1, planes.shape[1]), dtype=torch.float32,
+                      device=planes.device)
+    out.index_add_(0, safe, planes)
+    return out[:cap].contiguous()
 
 
 # ---- K2 ----------------------------------------------------------------------------

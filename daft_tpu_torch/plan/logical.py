@@ -1,6 +1,6 @@
 """Logical plan nodes (counterpart of daft_tpu/plan/logical.py, the subset the
-grouped-aggregation and join slices need): an in-memory source, Filter,
-Project, Aggregate, Sort and the inner equi-Join. Each node computes its
+grouped-aggregation, join and repartition slices need): an in-memory source,
+Filter, Project, Aggregate, Sort, the inner equi-Join and Repartition. Each node computes its
 output schema on construction, so a type error surfaces where the DataFrame
 method is called.
 """
@@ -110,3 +110,24 @@ class Join(LogicalPlan):
 
     def children(self):
         return [self.left, self.right]
+
+
+class Repartition(LogicalPlan):
+    """Hash or random repartition into ``num_partitions`` (counterpart of
+    daft_tpu/plan/logical.py Repartition; the ``range`` and ``into`` schemes
+    are not ported yet)."""
+
+    def __init__(self, input: LogicalPlan, num_partitions: Optional[int], scheme: str,
+                 by: Optional[List[Expression]] = None):
+        if scheme not in ("hash", "random"):
+            raise NotImplementedError(f"repartition scheme {scheme!r} is not ported yet")
+        if scheme == "hash" and not by:
+            raise ValueError("a hash repartition needs at least one key")
+        super().__init__(input.schema)
+        self.input = input
+        self.num_partitions = num_partitions
+        self.scheme = scheme
+        self.by = list(by) if by else []
+
+    def children(self):
+        return [self.input]

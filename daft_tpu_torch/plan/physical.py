@@ -117,6 +117,18 @@ class HashJoin(PhysicalPlan):
         return [self.left, self.right]
 
 
+class PhysRepartition(_Unary):
+    """Hash or random repartition (execution/executor.py ``_repartition``);
+    a hash repartition into ``mesh_devices`` partitions may run as the mesh
+    exchange on the device."""
+
+    def __init__(self, input: PhysicalPlan, num_partitions, scheme, by, schema: Schema):
+        super().__init__(input, schema)
+        self.num_partitions = num_partitions
+        self.scheme = scheme
+        self.by = by
+
+
 class DeviceJoinAgg(PhysicalPlan):
     """Star join + grouped aggregate fused for the device
     (ops/device_join.py): the fact streams, each dim materializes once per
@@ -151,6 +163,9 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
     if isinstance(plan, lp.Sort):
         return PhysSort(translate(plan.input), plan.sort_by, plan.descending,
                         plan.nulls_first, plan.schema)
+    if isinstance(plan, lp.Repartition):
+        return PhysRepartition(translate(plan.input), plan.num_partitions, plan.scheme,
+                               plan.by, plan.schema)
     if isinstance(plan, lp.Join):
         merged, rename = plan.output_naming()
         return HashJoin(translate(plan.left), translate(plan.right), plan.left_on,

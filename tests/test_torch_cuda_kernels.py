@@ -1,16 +1,19 @@
-"""The hand-written CUDA kernels (K1-K3 segment reduce, K4 hash probe)
-against their plain PyTorch versions, and one grouped query and one star
-join query through them against the host path, on the card. Marked ``cuda``: skipped where no card is present.
+"""The hand-written CUDA kernels (K1-K3 and K1a segment reduce, K4 and K5 hash
+probe, K6 mesh exchange) against their plain PyTorch versions, and one
+grouped query, one star join query and one mesh repartition through them
+against the host path, on the card. Marked ``cuda``: skipped where no card
+is present.
 
 Run on a machine with the card (tests/conftest.py imports JAX, which that
 machine lacks, so it is skipped):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 
-Every comparison is bit for bit: K1 sums integer-valued planes (exact in f64
-whatever the atomic order), K2/K3 are order-independent extremes, and K4's
-probe answers do not depend on where its build placed each key (the table's
-(key, row) entries are compared as a sorted set).
+Every comparison is bit for bit: K1, K1a and K5 sum integer-valued planes
+(exact whatever the atomic order: in f64, and in f32 below 2^24), K2/K3 are
+order-independent extremes, K4's probe answers do not depend on where its
+build placed each key (the table's (key, row) entries are compared as a
+sorted set), and K6 only moves words.
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ import pytest
 import torch
 
 from daft_tpu_torch.ops import counters
+from daft_tpu_torch.ops import permute_kernels as rk
 from daft_tpu_torch.ops import probe_kernels as pk
 from daft_tpu_torch.ops import segment_kernels as sk
 
@@ -214,3 +218,87 @@ def test_star_join_query_on_card_launches_kernels_and_matches_host(cuda):
     assert snap["device_join_batches"] == 1 and snap["device_fallbacks"] == 0
     with dt.execution_config_ctx(device_mode="off"):
         assert got == query()
+
+
+@pytest.mark.parametrize("n,cap,p", [(1 << 20, 16384, 15), (4096, 8, 2)])
+def test_segment_sum_planes_f32_matches_plain(cuda, n, cap, p):
+    rng = np.random.default_rng(n + p)
+    planes = rng.integers(0, 256, (n, p)).astype(np.float32)
+    planes[rng.random((n, p)) < 0.3] = 0.0
+    codes = _codes(rng, n, cap)
+    tp, tc = torch.from_numpy(planes).to(cuda), torch.from_numpy(codes).to(cuda)
+    before = counters.snapshot()["launches_segment_sum_planes_f32"]
+    got = sk.segment_sum_planes_f32(tp, tc, cap)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["launches_segment_sum_planes_f32"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (cap, p)
+    assert torch.equal(got, sk.segment_sum_planes_f32_plain(tp, tc, cap))
+    assert torch.equal(got, sk.segment_sum_planes(tp, tc, cap).float())
+
+
+@pytest.mark.parametrize("n_dim,n_fact,cap,p", [(300, 4096, 16, 3), (1 << 20, 1 << 22, 8, 2)])
+def test_hash_probe_segment_sum_matches_plain(cuda, n_dim, n_fact, cap, p):
+    rng = np.random.default_rng(n_fact)
+    dim_keys = rng.choice(np.int64(1) << 60, n_dim, replace=False).astype(np.int64)
+    dim_keys[:2] = [(1 << 53) + 11, -(1 << 62)]
+    dim_valid = rng.random(n_dim) > 0.05
+    planes = rng.integers(0, 3, (n_dim, p)).astype(np.float32)
+    fact_keys = dim_keys[rng.integers(0, n_dim, n_fact)].copy()
+    fact_keys[::7] += 1
+    fact_valid = rng.random(n_fact) > 0.1
+    codes = _codes(rng, n_fact, cap)
+    dk, dv = torch.from_numpy(dim_keys).to(cuda), torch.from_numpy(dim_valid).to(cuda)
+    args = [torch.from_numpy(a).to(cuda) for a in (fact_keys, fact_valid, codes)]
+    table = pk.build_probe_table(dk, dv, pk.probe_table_slots(n_dim))
+    tp = torch.from_numpy(planes).to(cuda)
+    before = counters.snapshot()["launches_hash_probe_segment_sum"]
+    sums, counts = pk.hash_probe_segment_sum(*args, *table, tp, cap)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["launches_hash_probe_segment_sum"] == before + 1
+    want_sums, want_counts = pk.hash_probe_segment_sum_plain(*args, *table, tp, cap)
+    assert sums.dtype == torch.float64 and counts.dtype == torch.int64
+    assert torch.equal(sums, want_sums) and torch.equal(counts, want_counts)
+    assert counts.sum().item() > 0
+
+
+@pytest.mark.parametrize("n,w", [(8, 23 * 4096 + 4), (8, 23 * 4096 + 2), (3, 5), (1, 64)])
+def test_ring_permute_words_matches_plain(cuda, n, w):
+    rng = np.random.default_rng(n * w)
+    send = torch.from_numpy(rng.integers(-2**31, 2**31, (n, n, w), dtype=np.int64)
+                            .astype(np.int32)).to(cuda)
+    before = counters.snapshot()["launches_ring_permute_words"]
+    got = rk.ring_permute_words(send)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["launches_ring_permute_words"] == before + 1
+    assert torch.equal(got, rk.ring_permute_words_plain(send))
+    assert torch.equal(got, send.transpose(0, 1).contiguous())
+    # a misaligned view takes the word path
+    odd = send.view(-1)[1:1 + n * n * (w - 1)].view(n, n, w - 1)
+    assert torch.equal(rk.ring_permute_words(odd), odd.transpose(0, 1).contiguous())
+
+
+def test_mesh_repartition_on_card_matches_host(cuda):
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col
+
+    rng = np.random.default_rng(8)
+    n = 100_000
+    df = dt.from_pydict({
+        "k": rng.integers(0, 997, n),
+        "v": rng.standard_normal(n),
+        "w": dt.Series.from_numpy(rng.integers(0, 31, n).astype(np.int32),
+                                  validity=rng.random(n) > 0.05),
+        "big": (1 << 53) + rng.integers(0, 1000, n),
+        "b": rng.random(n) < 0.5,
+    })
+    with dt.execution_config_ctx(device_mode="off"):
+        host = [p.to_pydict() for p in df.repartition(8, col("k")).collect()._result]
+    for kernel_mode, launches in (("on", 1), ("off", 0)):
+        counters.reset()
+        with dt.execution_config_ctx(device="cuda", mesh_devices=8, device_min_rows=1,
+                                     kernel_mode=kernel_mode):
+            got = [p.to_pydict() for p in df.repartition(8, col("k")).collect()._result]
+        snap = counters.snapshot()
+        assert snap["launches_ring_permute_words"] == launches, snap
+        assert snap["mesh_alltoall_dispatches"] == 1 - launches, snap
+        assert got == host

@@ -1,10 +1,12 @@
 """The port stands alone and never hides a device failure:
 
-- a port query, the grouped one and the TPC-H q12 star join alike, imports
-  neither JAX, nor pyarrow, nor anything of daft_tpu (checked in a fresh
-  interpreter: tests/conftest.py imports JAX into this one);
+- a port query, the grouped one, the TPC-H q12 star join and the mesh
+  repartition alike, imports neither JAX, nor pyarrow, nor anything of
+  daft_tpu (checked in a fresh interpreter: tests/conftest.py imports JAX
+  into this one);
 - with no card, a query left at the default device ("cuda") raises;
-- a kernel wrapper that raises makes the query raise: no host result;
+- a kernel wrapper that raises makes the query raise: no host result (the
+  grouped stage's K1, the repartition's K6);
 - ``from_numpy_columns`` reproduces the reference's columns.
 """
 
@@ -88,6 +90,28 @@ print("FORBIDDEN", bad)
 """
 
 
+_REPARTITION_QUERY = """
+import sys
+import numpy as np
+sys.path.insert(0, {repo!r})
+import daft_tpu_torch as dt
+from daft_tpu_torch import col
+from daft_tpu_torch.ops import counters
+rng = np.random.default_rng(0)
+df = dt.from_pydict({{"k": rng.integers(0, 97, 5000), "v": rng.random(5000),
+                      "b": rng.random(5000) < 0.5}})
+with dt.execution_config_ctx(device="cpu", mesh_devices=8, device_min_rows=1):
+    parts = df.repartition(8, col("k")).collect()._result
+assert len(parts) == 8 and sum(len(p) for p in parts) == 5000
+assert counters.mesh_fused_permute_dispatches == 1, counters.snapshot()
+assert counters.plain_ring_permute_words == 1, counters.snapshot()
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             or m == "daft_tpu")
+print("FORBIDDEN", bad)
+"""
+
+
 def _small_query(df):
     return (df.where(col("d") <= lit(datetime.date(1970, 3, 1))).groupby("k")
             .agg(col("v").sum().alias("s"), col("v").max().alias("m")).sort("k"))
@@ -108,6 +132,13 @@ def test_port_query_imports_no_jax_pyarrow_or_reference():
 
 def test_port_join_query_imports_no_jax_pyarrow_or_reference():
     proc = subprocess.run([sys.executable, "-c", _JOIN_QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+def test_port_repartition_imports_no_jax_pyarrow_or_reference():
+    proc = subprocess.run([sys.executable, "-c", _REPARTITION_QUERY.format(repo=REPO)],
                           capture_output=True, text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
@@ -137,6 +168,25 @@ def test_failing_kernel_raises_instead_of_falling_back(monkeypatch):
             df.to_pydict()
     assert df._result is None
     assert counters.snapshot()["device_fallbacks"] == 0
+
+
+def test_failing_exchange_kernel_raises_instead_of_falling_back(monkeypatch):
+    from daft_tpu_torch.ops import permute_kernels
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("ring_permute_words: CUDA launch failed with error 98")
+
+    monkeypatch.setattr(permute_kernels, "ring_permute_words", broken)
+    counters.reset()
+    df = daft_tpu_torch.from_pydict({"k": np.arange(64) % 5,
+                                     "v": np.arange(64.0)}).repartition(8, col("k"))
+    with daft_tpu_torch.execution_config_ctx(device="cpu", mesh_devices=8,
+                                             device_min_rows=1):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            df.collect()
+    assert df._result is None
+    assert not counters.rejections
+    assert counters.snapshot()["mesh_fused_permute_dispatches"] == 0
 
 
 def test_from_numpy_columns_reproduces_reference_columns():

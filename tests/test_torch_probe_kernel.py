@@ -1,5 +1,7 @@
-"""The hash-probe kernel K4 (daft_tpu_torch/ops/probe_kernels.py) on the CPU,
-where its wrappers run the plain PyTorch versions, held bit for bit against:
+"""The hash-probe kernels K4 and K5 (daft_tpu_torch/ops/probe_kernels.py) on the
+CPU, where their wrappers run the plain PyTorch versions. K5's sums and
+counts equal the reference's ``hash_probe_segment_sum`` in Pallas interpret
+mode exactly (integer-valued planes). K4 is held bit for bit against:
 
 - the reference's ``hash_probe_index`` in Pallas interpret mode, fed with
   its own ``build_probe_table`` and ``probe_key_digits``;
@@ -194,3 +196,72 @@ def test_wrappers_count_plain_calls_and_validate():
         pk.hash_probe_index(keys, valid, table[0][:12], table[1][:12])
     with pytest.raises(TypeError):
         pk.hash_probe_index(keys, valid, table[0], table[1].long())
+
+
+# ---- K5: probe + segment sum ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed,cap,p", [(1, 64, 3), (2, 8, 2)])
+def test_probe_segment_sum_matches_reference_pallas_kernel(seed, cap, p):
+    """The setup of the reference's own test (tests/test_pallas_join.py), with
+    null dim keys, misses, null fact keys, keys past 2^53 and codes outside
+    [0, cap) added."""
+    rng = np.random.default_rng(seed)
+    n_dim, n = 200, N_FACT
+    dim_keys = np.concatenate([
+        rng.choice(5_000, n_dim - 40, replace=False).astype(np.int64),
+        BIG + np.arange(40, dtype=np.int64)])
+    dim_valid = rng.random(n_dim) > 0.05
+    planes = rng.integers(0, 100, (n_dim, p)).astype(np.float32)
+    fact_keys = dim_keys[rng.integers(0, n_dim, n)].copy()
+    fact_keys[::5] = -9                   # misses
+    fact_valid = rng.random(n) > 0.15     # null fact keys
+    codes = rng.integers(-2, cap + 2, n).astype(np.int32)
+    tbl = ref_pk.build_probe_table(dim_keys, dim_valid)
+    tp = np.zeros((tbl[0].shape[1], p), dtype=np.float32)
+    tp[:n_dim] = planes                   # the reference's slots are dim rows
+    fh, fl = ref_pk.probe_key_digits(jnp.asarray(fact_keys), jnp.asarray(fact_valid))
+    want_sums, want_counts = ref_pk.hash_probe_segment_sum(
+        fh, fl, jnp.asarray(codes), jnp.asarray(tbl[0]), jnp.asarray(tbl[1]),
+        jnp.asarray(tbl[2]), jnp.asarray(tp), cap, interpret=True)
+
+    slots = pk.probe_table_slots(n_dim)
+    table = pk.build_probe_table(torch.from_numpy(dim_keys), torch.from_numpy(dim_valid),
+                                 slots)
+    counters.reset()
+    sums, counts = pk.hash_probe_segment_sum(
+        torch.from_numpy(fact_keys), torch.from_numpy(fact_valid), torch.from_numpy(codes),
+        *table, torch.from_numpy(planes), cap)
+    snap = counters.snapshot()
+    assert snap["plain_hash_probe_segment_sum"] == 1
+    assert snap["launches_hash_probe_segment_sum"] == 0
+    assert sums.dtype == torch.float64 and sums.shape == (cap, p)
+    assert counts.dtype == torch.int64 and counts.shape == (cap,)
+    np.testing.assert_array_equal(sums.numpy(), np.asarray(want_sums).astype(np.float64))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(want_counts).astype(np.int64))
+    # and against a dict probe in numpy
+    idx = _dict_probe(fact_keys, fact_valid, dim_keys, dim_valid)
+    hit = (idx >= 0) & (codes >= 0) & (codes < cap)
+    exp = np.zeros((cap, p))
+    np.add.at(exp, codes[hit], planes[idx[hit]].astype(np.float64))
+    np.testing.assert_array_equal(sums.numpy(), exp)
+    np.testing.assert_array_equal(counts.numpy(), np.bincount(codes[hit], minlength=cap))
+    assert counts.sum().item() > 0
+
+
+def test_probe_segment_sum_empty_dim_and_validation():
+    keys = torch.arange(16, dtype=torch.int64)
+    valid = torch.ones(16, dtype=torch.bool)
+    codes = torch.zeros(16, dtype=torch.int32)
+    table = pk.build_probe_table(keys[:0], valid[:0], 16)
+    sums, counts = pk.hash_probe_segment_sum(keys, valid, codes, *table,
+                                             torch.zeros((0, 2)), 4)
+    assert (sums == 0).all() and (counts == 0).all()
+    table = pk.build_probe_table(keys[:4], valid[:4], 16)
+    planes = torch.ones((4, 2))
+    with pytest.raises(ValueError):
+        pk.hash_probe_segment_sum(keys, valid, codes[:8], *table, planes, 4)
+    with pytest.raises(TypeError):
+        pk.hash_probe_segment_sum(keys, valid, codes, *table, planes.double(), 4)
+    with pytest.raises(ValueError, match="cannot hold"):
+        pk.hash_probe_segment_sum(keys, valid, codes, *table, torch.ones((9, 2)), 4)

@@ -1,9 +1,12 @@
-"""The port's segment kernels K1-K3 (daft_tpu_torch/ops/segment_kernels.py) on
-CPU tensors, where each wrapper runs its plain PyTorch version, against the
-reference's Pallas kernels (daft_tpu/ops/pallas_kernels.py) in interpret
-mode on the same numpy inputs. Every comparison is bit for bit: the sum
+"""The port's segment kernels K1-K3 and K1a (daft_tpu_torch/ops/segment_kernels.py)
+on CPU tensors, where each wrapper runs its plain PyTorch version, against
+the reference's Pallas kernels (daft_tpu/ops/pallas_kernels.py) in interpret
+mode on the same numpy inputs. Every comparison is bit for bit where the
 planes are integer-valued (exact in f32 per 32K-row window and in f64 across
-windows), and extremes do not depend on order.
+windows; K1a in one f32 window below 2^24), and extremes do not depend on
+order. K1a over normal (non-integer) planes keeps the reference's own
+tolerance, atol 1e-3 (tests/test_pallas.py), since f32 sums in another
+order differ in the last bits.
 """
 
 import jax.numpy as jnp
@@ -52,6 +55,48 @@ def test_segment_sum_planes_two_windows_exceed_f32_window():
     got = sk.segment_sum_planes(torch.from_numpy(planes), torch.from_numpy(codes), cap)
     np.testing.assert_array_equal(got.numpy(), want)
     assert got[0, 0].item() == 255.0 * n
+
+
+@pytest.mark.parametrize("n,cap,p", [(8192, 16, 6), (65536, 256, 5), (2048, 2048, 3)])
+def test_segment_sum_planes_f32_matches_pallas_on_integer_planes(n, cap, p):
+    rng = np.random.default_rng(n + p)
+    planes = rng.integers(0, 256, (n, p)).astype(np.float32)
+    planes[rng.random((n, p)) < 0.25] = 0.0
+    codes = _codes(rng, n, cap)
+    want = np.asarray(pk.segment_sum_planes(jnp.asarray(planes), jnp.asarray(codes), cap,
+                                            interpret=True))
+    before = counters.snapshot()
+    got = sk.segment_sum_planes_f32(torch.from_numpy(planes), torch.from_numpy(codes), cap)
+    after = counters.snapshot()
+    assert got.dtype == torch.float32 and tuple(got.shape) == (cap, p)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # K1's f64 output over the same planes, cast to f32
+    np.testing.assert_array_equal(
+        sk.segment_sum_planes(torch.from_numpy(planes), torch.from_numpy(codes),
+                              cap).float().numpy(), want)
+    assert after["plain_segment_sum_planes_f32"] == before["plain_segment_sum_planes_f32"] + 1
+    assert after["launches_segment_sum_planes_f32"] == before["launches_segment_sum_planes_f32"]
+
+
+def test_segment_sum_planes_f32_matches_pallas_on_normal_planes():
+    rng = np.random.default_rng(0)
+    n, p, cap = 8192, 6, 16
+    planes = rng.standard_normal((n, p)).astype(np.float32)
+    codes = rng.integers(0, cap + 1, n).astype(np.int32)  # cap = trash (dropped)
+    want = np.asarray(pk.segment_sum_planes(jnp.asarray(planes), jnp.asarray(codes), cap,
+                                            interpret=True))
+    got = sk.segment_sum_planes_f32(torch.from_numpy(planes), torch.from_numpy(codes), cap)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3)
+
+
+def test_segment_sum_planes_f32_single_block_and_empty_segments():
+    planes = np.ones((1024, 2), np.float32)
+    codes = np.zeros(1024, np.int32)
+    want = np.asarray(pk.segment_sum_planes(jnp.asarray(planes), jnp.asarray(codes), 8,
+                                            interpret=True))
+    got = sk.segment_sum_planes_f32(torch.from_numpy(planes), torch.from_numpy(codes), 8)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[0, 0].item() == 1024.0 and (got[1:] == 0).all()
 
 
 @pytest.mark.parametrize("op", ["min", "max"])
@@ -126,6 +171,10 @@ def test_wrappers_validate_inputs():
         sk.segment_sum_planes(planes, codes.long(), 4)
     with pytest.raises(ValueError):
         sk.segment_sum_planes(planes, codes[:8], 4)
+    with pytest.raises(TypeError):
+        sk.segment_sum_planes_f32(planes.double(), codes, 4)
+    with pytest.raises(ValueError):
+        sk.segment_sum_planes_f32(planes, codes[:8], 4)
     with pytest.raises(ValueError):
         sk.segment_extreme_planes(planes.t(), codes, 4, "min")
     with pytest.raises(ValueError):
