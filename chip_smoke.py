@@ -19,10 +19,12 @@ error (no phase catches its own failure):
             PyTorch version; time the kernel, the plain version, one PyTorch
             library call computing the same function where there is one, and
             print the bound. Segment kernels at the supplier query's shapes
-            (N = 2^23 rows, cap = 16384, P = 15; Q = 1 for K2; int64 min and
-            max for K3; K1a on K1's planes, also equal to K1's output cast
-            to f32) and K1 (P = 5) and K2 (Q = 1) again at q12's cap
-            8; K4 at q12's
+            (N = 2^23 rows, cap = 16384, P = 15; Q = 1 for K2; K3's four
+            launches, int64 min and max of l_shipdate and l_orderkey; K1a
+            on K1's planes, also equal to K1's output cast to f32), K1
+            (P = 5) and K2 (Q = 1) again at q12's cap 8, and K3 again at
+            cap 8 (every kept row on l_shipmode's 7 codes) and at cap 2^17
+            (l_partkey folded into 2^17 groups); K4 at q12's
             (orders' 1.5 M keys into a 2^22-slot table, 2^23 lineitem keys
             probed). K4's build is compared as the sorted set of its (key,
             row) entries: where a key lands depends on the order the
@@ -63,6 +65,12 @@ error (no phase catches its own failure):
 
 Every cell runs at SF1: nothing is cut. It imports torch, numpy and the
 port; nothing of JAX, pyarrow or daft_tpu.
+
+    python3 chip_smoke.py --kernels-only [--root DIR]
+
+runs phases 1-3 alone, on the daft_tpu_torch of the checkout at DIR (by
+default the one beside this script): to time an unpacked parent commit's
+kernels and this tree's in one call, on one card, in turns.
 """
 
 from __future__ import annotations
@@ -83,6 +91,8 @@ SF1_SUPPLIERS = 10_000
 BUCKET = 1 << 23          # 6.0 M rows pad to this bucket
 CAP = 16384               # 10,000 suppliers pad to this group capacity
 Q12_CAP = 8               # 7 ship modes pad to this group capacity
+K3_SMALL_CAP = 8          # K3 with every kept row on l_shipmode's 7 codes
+K3_LARGE_CAP = 1 << 17    # K3 at the kernel tier's segment ceiling
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 EPOCH = datetime.date(1970, 1, 1)
 D_1992 = (datetime.date(1992, 1, 1) - EPOCH).days
@@ -305,6 +315,26 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """Mean device time of one call: the device activities' own times under
+    torch.profiler over ``iters`` calls after a warm-up. Unlike time_ms it
+    leaves out the gaps where the card waits for the host to launch: for a
+    call whose kernels take less time than its Python wrapper, time_ms
+    measures the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / iters / 1e3
+
+
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
@@ -320,6 +350,40 @@ def time_s(fn, runs: int = 3):
         torch.cuda.synchronize()
         out.append(time.perf_counter() - t0)
     return out
+
+
+def k3_case(sk, v, keep, codes, cap: int, op: str) -> dict:
+    """K3 at one shape: equal to its plain version bit for bit, then the
+    kernel's, the plain version's and ``scatter_reduce_``'s times and the
+    bound (13 bytes read per row, 9 written per segment)."""
+    import torch
+
+    gv, gn = sk.segment_extreme_int64(v, keep, codes, cap, op)
+    wv, wn = sk.segment_extreme_int64_plain(v, keep, codes, cap, op)
+    torch.cuda.synchronize()
+    check(torch.equal(gv, wv) and torch.equal(gn, wn),
+          f"K3 segment_extreme_int64 ({op}, cap {cap}) differs from its plain version")
+    info = torch.iinfo(torch.int64)
+    ident = info.max if op == "min" else info.min
+    lib_vals = torch.where(keep, v, ident)
+    lib_idx = torch.where((codes >= 0) & (codes < cap), codes, cap).long()
+    lib_table = torch.full((cap + 1,), ident, dtype=torch.int64, device=v.device)
+    reduce = "amin" if op == "min" else "amax"
+    n = v.numel()
+    # a checkout from before K3's tiers (--root) has no tier function
+    tier = getattr(sk, "segment_extreme_int64_tier", None)
+    return {
+        "cap": cap,
+        "tier": list(tier(cap)) if tier else None,
+        "max_abs_err": max_abs_err(gv, wv),
+        "ms": time_ms(lambda: sk.segment_extreme_int64(v, keep, codes, cap, op), 20),
+        "device_ms": device_ms(lambda: sk.segment_extreme_int64(v, keep, codes, cap, op), 20),
+        "plain_ms": time_ms(
+            lambda: sk.segment_extreme_int64_plain(v, keep, codes, cap, op), 20),
+        "library_ms": time_ms(
+            lambda: lib_table.scatter_reduce_(0, lib_idx, lib_vals, reduce), 20),
+        "bound_ms": bound_ms(n * 8 + n * 1 + n * 4 + cap * 8 + cap * 1),
+    }
 
 
 def max_abs_err(a, b) -> float:
@@ -448,29 +512,27 @@ def phase_kernels(cols, orders, card: str):
         "bound_ms": bound_ms(n * 4 + n * 4 + CAP * 4),
     }
 
-    # K3: both int64 columns, both ops; timed on l_orderkey min
-    err = 0.0
-    for name, v in x["ints"].items():
-        for op in ("min", "max"):
-            gv, gn = sk.segment_extreme_int64(v, keep, codes, CAP, op)
-            wv, wn = sk.segment_extreme_int64_plain(v, keep, codes, CAP, op)
-            torch.cuda.synchronize()
-            check(torch.equal(gv, wv) and torch.equal(gn, wn),
-                  f"K3 segment_extreme_int64 ({name}, {op}) differs from its plain version")
-            err = max(err, max_abs_err(gv, wv))
-    v = x["ints"]["l_orderkey"]
-    lib_vals = torch.where(keep, v, torch.iinfo(torch.int64).max)
-    lib_table3 = torch.full((CAP + 1,), torch.iinfo(torch.int64).max,
-                            dtype=torch.int64, device=dev)
+    # K3: the supplier's four launches (both int64 columns, both ops); the
+    # top-level numbers are l_orderkey min's. Then cap 8 (l_shipmode's 7
+    # codes: every kept row on 7 addresses) and cap 2^17 (l_partkey folded
+    # into 2^17 groups: past one block's shared memory), l_orderkey min.
+    cases = {f"{name} {op}": k3_case(sk, v, keep, codes, CAP, op)
+             for name, v in x["ints"].items() for op in ("min", "max")}
+    orderkey = x["ints"]["l_orderkey"]
     results["segment_extreme_int64"] = {
-        "max_abs_err": err,
-        "ms": time_ms(lambda: sk.segment_extreme_int64(v, keep, codes, CAP, "min"), 20),
-        "plain_ms": time_ms(
-            lambda: sk.segment_extreme_int64_plain(v, keep, codes, CAP, "min"), 20),
-        "library_ms": time_ms(
-            lambda: lib_table3.scatter_reduce_(0, trash_idx, lib_vals, "amin"), 20),
-        "bound_ms": bound_ms(n * 8 + n * 1 + n * 4 + CAP * 8 + CAP * 1),
-    }
+        **cases["l_orderkey min"],
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "by_column_op": cases}
+    rows = len(cols["l_suppkey"])
+    for label, group_np, groups in (
+            ("at_cap8", cols["l_shipmode"], K3_SMALL_CAP),
+            ("at_cap131072", (cols["l_partkey"] - 1) % K3_LARGE_CAP, K3_LARGE_CAP)):
+        group = torch.full((BUCKET,), groups, dtype=torch.int32)
+        group[:rows] = torch.from_numpy(group_np.astype(np.int32))
+        codes_k = torch.where(keep, group.to(dev), groups)
+        results["segment_extreme_int64"][label] = k3_case(sk, orderkey, keep, codes_k, groups,
+                                                          "min")
+        del group, codes_k
 
     # K1a: K1's planes and codes in one f32 window
     got = sk.segment_sum_planes_f32(x["planes"], codes, CAP)
@@ -488,7 +550,7 @@ def phase_kernels(cols, orders, card: str):
         "library_ms": time_ms(lambda: lib_table.index_add_(0, trash_idx, x["planes"]), 20),
         "bound_ms": bound_ms(n * p * 4 + n * 4 + CAP * p * 4),
     }
-    del x, lib_table, lib_table2, lib_table3, lib_vals, trash_idx, idx2
+    del x, lib_table, lib_table2, orderkey, trash_idx, idx2
     torch.cuda.empty_cache()
 
     # K1 at q12's shapes: 7 ship modes in cap 8, P = 5 planes (kept rows, and
@@ -637,24 +699,35 @@ def phase_kernels(cols, orders, card: str):
     results["ring_permute_words"] = {
         "max_abs_err": 0.0,
         "ms": time_ms(lambda: rk.ring_permute_words(send), 20),
+        "device_ms": device_ms(lambda: rk.ring_permute_words(send), 5),
         "plain_ms": time_ms(lambda: rk.ring_permute_words_plain(send), 5),
         "library_ms": time_ms(lambda: send.transpose(0, 1).contiguous(), 20),
         "bound_ms": bound_ms(2 * send.numel() * 4),
     }
+    k6 = results["ring_permute_words"]
+    k6["share_of_memory_rate"] = k6["bound_ms"] / k6["ms"]
     del send
     torch.cuda.empty_cache()
 
     def fmt(v):
         return "null" if v is None else f"{v:.4f}"
 
+    k3 = results["segment_extreme_int64"]
     rows = list(results.items()) + [
         (f"{k} at q12 cap 8", results[k]["at_q12_cap8"])
-        for k in ("segment_sum_planes", "segment_extreme_planes")]
+        for k in ("segment_sum_planes", "segment_extreme_planes")] + [
+        (f"segment_extreme_int64 {case} at cap {CAP}", r)
+        for case, r in k3["by_column_op"].items()] + [
+        (f"segment_extreme_int64 l_orderkey min at cap {k3[label]['cap']}", k3[label])
+        for label in ("at_cap8", "at_cap131072")]
     for name, r in rows:
-        print(f"{name}: identical to plain (max_abs_err {r['max_abs_err']}); "
-              f"kernel_ms {fmt(r['ms'])}, plain_ms {fmt(r['plain_ms'])}, "
+        tier = f" tier {r['tier']}" if r.get("tier") else ""
+        dev = f" (device {fmt(r['device_ms'])})" if "device_ms" in r else ""
+        print(f"{name}:{tier} identical to plain (max_abs_err {r['max_abs_err']}); "
+              f"kernel_ms {fmt(r['ms'])}{dev}, plain_ms {fmt(r['plain_ms'])}, "
               f"library_ms {fmt(r['library_ms'])}, bound_ms {fmt(r['bound_ms'])} "
-              f"(bytes at 3.35 TB/s) [{card}]", flush=True)
+              f"(bytes at 3.35 TB/s; kernel at {r['bound_ms'] / r['ms']:.1%} of it) "
+              f"[{card}]", flush=True)
     return results
 
 
@@ -919,26 +992,42 @@ def phase_repartition(lineitem, card: str):
     return run, launches
 
 
-def main() -> int:
-    if not os.path.isdir(os.path.join(HERE, "daft_tpu_torch")):
-        print("chip_smoke.py: the daft_tpu_torch package is not beside this script; "
-              "run it from a checkout of the repository", file=sys.stderr)
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="run the card, build, data and kernels phases only: the "
+                             "kernels against their plain versions, with their times "
+                             "(no main path runs, so no launches are counted)")
+    parser.add_argument("--root", default=HERE,
+                        help="the checkout whose daft_tpu_torch is driven (default: the "
+                             "one beside this script), e.g. an unpacked parent commit to "
+                             "time its kernels on the same card")
+    args = parser.parse_args(argv)
+    root = os.path.abspath(args.root)
+    if not os.path.isdir(os.path.join(root, "daft_tpu_torch")):
+        print(f"chip_smoke.py: no daft_tpu_torch package in {root}; run it from a "
+              "checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, root)
     try:
         card, name = phase_card()
+        print(f"package: {os.path.join(root, 'daft_tpu_torch')}", flush=True)
         phase_build(card)
         t0 = time.perf_counter()
         lineitem, orders = tpch_sf1(SEED)
         print(f"datagen {time.perf_counter() - t0:.2f} s", flush=True)
         kernel_results = phase_kernels(lineitem, orders, card)
-        df, supplier_launches = phase_slice(lineitem, card)
-        phase_profile(lambda: supplier_query(df).to_pydict(), card)
-        q12, q12_launches = phase_q12(lineitem, orders, card)
-        phase_profile(lambda: q12().to_pydict(), card, "q12 profile")
-        del df, q12
-        repart, repart_launches = phase_repartition(lineitem, card)
-        phase_profile(repart, card, "repartition profile", mesh_devices=MESH)
+        paths = {}
+        if not args.kernels_only:
+            df, paths["supplier"] = phase_slice(lineitem, card)
+            phase_profile(lambda: supplier_query(df).to_pydict(), card)
+            q12, paths["q12"] = phase_q12(lineitem, orders, card)
+            phase_profile(lambda: q12().to_pydict(), card, "q12 profile")
+            del df, q12
+            repart, paths["repartition"] = phase_repartition(lineitem, card)
+            phase_profile(repart, card, "repartition profile", mesh_devices=MESH)
     except SmokeFailure as exc:
         print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -947,15 +1036,17 @@ def main() -> int:
     kernels = []
     for kname, r in kernel_results.items():
         source, replaces = KERNELS[kname]
-        by_path = {"supplier": supplier_launches[kname], "q12": q12_launches[kname],
-                   "repartition": repart_launches[kname]}
+        by_path = {path: launches[kname] for path, launches in paths.items()}
         entry = {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": sum(by_path.values()), "launches_by_path": by_path,
+                 "launches": sum(by_path.values()) if by_path else None,
+                 "launches_by_path": by_path,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": "bytes", "library_ms": r["library_ms"]}
-        if "at_q12_cap8" in r:
-            entry["at_q12_cap8"] = r["at_q12_cap8"]
+        for extra in ("device_ms", "at_q12_cap8", "by_column_op", "at_cap8", "at_cap131072",
+                      "share_of_memory_rate"):
+            if extra in r:
+                entry[extra] = r[extra]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,7 +8,10 @@ shard d, and returns the (n_dst, n_src, W) receive words:
 blocks to its peers over the interconnect; the port's mesh is n shard slots
 on one card, so the exchange is a block transpose in device memory, done by
 ONE launch of a hand-written CUDA kernel (ops/csrc/ring_permute.cu, whose
-source note gives the bound and the design). A mesh over several cards
+source note gives the bound and the design): bulk asynchronous copies
+through shared memory when W is a multiple of four words and both buffers
+are 16-byte aligned, as the repartition step makes them, a word copy
+otherwise. A mesh over several cards
 (peer copies over NVLink) is not ported yet: the send words are one tensor,
 so every shard lies on one device.
 
@@ -29,8 +32,8 @@ from . import counters
 from .segment_kernels import _check, _launched, _route, _stream
 
 _SOURCE = "ring_permute.cu"
-# the kernel's grid puts the n^2 (source, destination) pairs on its second
-# dimension, which CUDA caps at 65535
+# the word path's grid (unaligned shapes) puts the n^2 (source, destination)
+# pairs on its second dimension, which CUDA caps at 65535
 MAX_SHARDS = 255
 
 _lib = None

@@ -26,7 +26,7 @@ nothing falls back to the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -63,10 +63,13 @@ def _library():
         lib.daft_segment_sum_planes_f32.argtypes = [vp, vp, vp, ll, i32, i32, vp]
         lib.daft_segment_extreme_planes.argtypes = [vp, vp, vp, vp, ll, i32, i32,
                                                     i32, vp]
-        lib.daft_segment_extreme_int64.argtypes = [vp, vp, vp, vp, vp, vp, ll, i32,
-                                                   i32, vp]
+        lib.daft_segment_extreme_int64_parts.argtypes = [i32, i32, i32,
+                                                         ctypes.POINTER(i32)]
+        lib.daft_segment_extreme_int64.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, i32,
+                                                   i32, i32, i32, i32, i32, vp]
         for fn in (lib.daft_segment_sum_planes, lib.daft_segment_sum_planes_f32,
                    lib.daft_segment_extreme_planes,
+                   lib.daft_segment_extreme_int64_parts,
                    lib.daft_segment_extreme_int64):
             fn.restype = ctypes.c_int
         _lib = lib
@@ -238,6 +241,55 @@ def segment_extreme_planes_plain(planes: torch.Tensor, codes: torch.Tensor,
 # ---- K3 ----------------------------------------------------------------------------
 
 
+class K3Tier(NamedTuple):
+    """How K3 lays out its shared-memory table (ops/csrc/segment_reduce.cu)."""
+
+    cluster: int     # blocks that share one table (a thread block cluster)
+    slice: int       # table entries each block holds
+    warp_agg: bool   # lanes with equal codes reduce in the warp first
+
+
+# entries one block's shared memory holds: 8-byte keys plus a bitmap, 195 KB
+# of a block's 227 KB
+K3_BLOCK_SLICE_MAX = 24576
+# entries per block when a cluster of 2, 4 or 8 blocks splits the table
+K3_CLUSTER_SLICE = 16384
+# caps this small put every warp's rows on a few addresses: pre-aggregate
+K3_WARP_AGG_MAX_CAP = 16
+
+_k3_parts: Dict[Tuple[int, K3Tier], int] = {}
+
+
+def segment_extreme_int64_tier(cap: int) -> K3Tier:
+    """K3's tier at ``cap``: one table per block while a block's shared
+    memory holds cap entries, else one table split across a cluster of the
+    fewest blocks (2, 4 or 8) that hold it; warp pre-aggregation for caps up
+    to K3_WARP_AGG_MAX_CAP."""
+    if not 0 < cap <= KERNEL_MAX_SEGMENTS:
+        raise ValueError(f"K3 takes 1 to {KERNEL_MAX_SEGMENTS} segments, got {cap}")
+    if cap <= K3_BLOCK_SLICE_MAX:
+        return K3Tier(1, -(-cap // 32) * 32, cap <= K3_WARP_AGG_MAX_CAP)
+    cluster = 2
+    while cluster * K3_CLUSTER_SLICE < cap:
+        cluster *= 2
+    return K3Tier(cluster, K3_CLUSTER_SLICE, False)
+
+
+def _k3_partial_tables(device: torch.device, tier: K3Tier) -> int:
+    """How many partial tables K3's first launch writes at ``tier`` (as many
+    blocks or clusters as fit on the card at once), cached per device."""
+    key = (device.index, tier)
+    if key not in _k3_parts:
+        parts = ctypes.c_int(0)
+        rc = _library().daft_segment_extreme_int64_parts(
+            tier.cluster, tier.slice, int(tier.warp_agg), ctypes.byref(parts))
+        if rc != 0:
+            raise RuntimeError(f"segment_extreme_int64: no launch fits tier {tier} "
+                               f"(CUDA error {rc})")
+        _k3_parts[key] = parts.value
+    return _k3_parts[key]
+
+
 def segment_extreme_int64(vals: torch.Tensor, mask: torch.Tensor,
                           codes: torch.Tensor, cap: int,
                           op: str) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -257,15 +309,21 @@ def segment_extreme_int64(vals: torch.Tensor, mask: torch.Tensor,
     if not _route(vals, mask, codes):
         counters.bump("plain_segment_extreme_int64")
         return segment_extreme_int64_plain(vals, mask, codes, cap, op)
-    # encoded identity: all ones decodes to INT64_MAX, zero to INT64_MIN
-    table = torch.full((cap,), -1 if op == "min" else 0, dtype=torch.int64,
-                       device=vals.device)
-    nonempty = torch.zeros((cap,), dtype=torch.bool, device=vals.device)
-    out = torch.empty((cap,), dtype=torch.int64, device=vals.device)
-    with torch.cuda.device(vals.device):
+    dev = vals.device
+    out = torch.empty((cap,), dtype=torch.int64, device=dev)
+    nonempty = torch.empty((cap,), dtype=torch.bool, device=dev)
+    if cap == 0:
+        return out, nonempty  # no segment: no launch
+    tier = segment_extreme_int64_tier(cap)
+    with torch.cuda.device(dev):
+        parts = _k3_partial_tables(dev, tier)
+        entries = parts * tier.cluster * tier.slice
+        part_keys = torch.empty((entries,), dtype=torch.int64, device=dev)
+        part_bits = torch.empty((entries // 32,), dtype=torch.int32, device=dev)
         rc = _library().daft_segment_extreme_int64(
-            vals.data_ptr(), mask.data_ptr(), codes.data_ptr(), table.data_ptr(),
-            nonempty.data_ptr(), out.data_ptr(), n, cap, int(op == "min"),
+            vals.data_ptr(), mask.data_ptr(), codes.data_ptr(), part_keys.data_ptr(),
+            part_bits.data_ptr(), out.data_ptr(), nonempty.data_ptr(), n, cap,
+            tier.cluster, tier.slice, int(tier.warp_agg), parts, int(op == "min"),
             _stream(vals))
     _launched(rc, "segment_extreme_int64")
     return out, nonempty

@@ -80,15 +80,24 @@ def test_segment_extreme_planes_matches_plain(cuda, op, n, cap, q):
 
 
 @pytest.mark.parametrize("op", ["min", "max"])
-@pytest.mark.parametrize("n,cap", [(1 << 20, 16384), (8192, 64)])
-def test_segment_extreme_int64_matches_plain(cuda, op, n, cap):
-    rng = np.random.default_rng(cap)
+@pytest.mark.parametrize("n,cap,keep", [
+    (1 << 20, 16384, 0.6), (8192, 64, 0.6),
+    (1 << 22, 8, 0.98),            # every kept row on 8 addresses: warp pre-aggregation
+    (1 << 20, 1 << 17, 0.6),       # past one block's shared memory: a cluster of 8
+    (1 << 18, 40000, 0.6),         # a cluster of 4, the last block's slice part used
+    (4099, 256, 0.0),              # every row masked out
+    (1, 16, 1.0), (4099, 8, 0.6), (4099, 24576, 0.6),  # n not a multiple of 4
+])
+def test_segment_extreme_int64_matches_plain(cuda, op, n, cap, keep):
+    rng = np.random.default_rng(cap + n)
+    special = [I64_MIN, I64_MAX, 2**53 + 1, -(2**53) - 1, 0, -1, 2**62 + 7, -5]
+    k = min(n, len(special))
     vals = rng.integers(I64_MIN, I64_MAX, n, dtype=np.int64, endpoint=True)
-    vals[:8] = [I64_MIN, I64_MAX, 2**53 + 1, -(2**53) - 1, 0, -1, 2**62 + 7, -5]
-    mask = rng.random(n) < 0.6
-    codes = _codes(rng, n, cap)
-    codes[:8] = np.arange(8) % cap
-    mask[:8] = True
+    vals[:k] = special[:k]
+    mask = rng.random(n) < keep
+    codes = _codes(rng, n, cap)  # codes below 0 and at or above cap: dropped
+    codes[:k] = np.arange(k) % cap
+    mask[:k] = keep > 0
     tv, tm, tc = (torch.from_numpy(a).to(cuda) for a in (vals, mask, codes))
     before = counters.snapshot()["launches_segment_extreme_int64"]
     got, got_ne = sk.segment_extreme_int64(tv, tm, tc, cap, op)
@@ -96,6 +105,13 @@ def test_segment_extreme_int64_matches_plain(cuda, op, n, cap):
     assert counters.snapshot()["launches_segment_extreme_int64"] == before + 1
     want, want_ne = sk.segment_extreme_int64_plain(tv, tm, tc, cap, op)
     assert torch.equal(got, want) and torch.equal(got_ne, want_ne)
+    assert got_ne.any().item() == (keep > 0)
+    # views one row in: vals and codes off their 16-byte alignment take the
+    # single-row path
+    if n > 1:
+        got, got_ne = sk.segment_extreme_int64(tv[1:], tm[1:], tc[1:], cap, op)
+        want, want_ne = sk.segment_extreme_int64_plain(tv[1:], tm[1:], tc[1:], cap, op)
+        assert torch.equal(got, want) and torch.equal(got_ne, want_ne)
 
 
 def test_empty_segments_keep_identity(cuda):
@@ -261,7 +277,13 @@ def test_hash_probe_segment_sum_matches_plain(cuda, n_dim, n_fact, cap, p):
     assert counts.sum().item() > 0
 
 
-@pytest.mark.parametrize("n,w", [(8, 23 * 4096 + 4), (8, 23 * 4096 + 2), (3, 5), (1, 64)])
+@pytest.mark.parametrize("n,w", [
+    (8, 23 * 4096 + 4), (8, 23 * 4096 + 2), (3, 5), (1, 64),
+    (8, 4),                # one 16-byte bulk copy per block
+    (16, 1028),            # 256 blocks
+    (4, 8192 + 4),         # 32 KB + 16 B per block: a short last chunk
+    (2, 3 * 8192),         # blocks of exactly three chunks
+])
 def test_ring_permute_words_matches_plain(cuda, n, w):
     rng = np.random.default_rng(n * w)
     send = torch.from_numpy(rng.integers(-2**31, 2**31, (n, n, w), dtype=np.int64)
@@ -273,8 +295,15 @@ def test_ring_permute_words_matches_plain(cuda, n, w):
     assert torch.equal(got, rk.ring_permute_words_plain(send))
     assert torch.equal(got, send.transpose(0, 1).contiguous())
     # a misaligned view takes the word path
-    odd = send.view(-1)[1:1 + n * n * (w - 1)].view(n, n, w - 1)
-    assert torch.equal(rk.ring_permute_words(odd), odd.transpose(0, 1).contiguous())
+    if w > 1:
+        odd = send.view(-1)[1:1 + n * n * (w - 1)].view(n, n, w - 1)
+        assert torch.equal(rk.ring_permute_words(odd), odd.transpose(0, 1).contiguous())
+    # so does the same words at a 4-byte offset, whatever W is
+    buf = torch.empty(n * n * w + 1, dtype=torch.int32, device=cuda)
+    buf[1:] = send.view(-1)
+    shifted = buf[1:].view(n, n, w)
+    assert shifted.data_ptr() % 16 == 4
+    assert torch.equal(rk.ring_permute_words(shifted), got)
 
 
 def test_mesh_repartition_on_card_matches_host(cuda):

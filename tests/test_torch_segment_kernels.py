@@ -132,18 +132,22 @@ def test_segment_extreme_planes_empty_segments_keep_identity():
 
 
 @pytest.mark.parametrize("op", ["min", "max"])
-def test_segment_extreme_int64_matches_pallas(op):
-    n, cap = 8192, 64
+@pytest.mark.parametrize("n,cap,keep", [
+    (8192, 64, 0.6),
+    (1 << 15, 8, 0.98),  # heavy contention: every kept row on 8 segments
+])
+def test_segment_extreme_int64_matches_pallas(op, n, cap, keep):
     rng = np.random.default_rng(7)
     vals = rng.integers(I64_MIN, I64_MAX, n, dtype=np.int64, endpoint=True)
     special = [I64_MIN, I64_MAX, 2**53 + 1, -(2**53) - 1, 2**53, 0, -1, 2**62 + 7, -5]
     vals[:len(special)] = special
-    mask = rng.random(n) < 0.6
+    mask = rng.random(n) < keep
     codes = _codes(rng, n, cap)
-    codes[:len(special)] = np.arange(len(special))
+    codes[:len(special)] = np.arange(len(special)) % cap
     mask[:len(special)] = True
-    codes[codes == 40] = 41          # segment 40: empty
-    mask[codes == 50] = False        # segment 50: every row masked out
+    if cap > 50:
+        codes[codes == 40] = 41          # segment 40: empty
+        mask[codes == 50] = False        # segment 50: every row masked out
     want_v, want_ne = pk.segment_extreme_int64(
         jnp.asarray(vals), jnp.asarray(mask), jnp.asarray(codes), cap, op,
         interpret=True)
@@ -152,14 +156,36 @@ def test_segment_extreme_int64_matches_pallas(op):
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
     np.testing.assert_array_equal(got_ne.numpy(), np.asarray(want_ne))
     ident = I64_MAX if op == "min" else I64_MIN
-    assert not got_ne[40] and not got_ne[50]
-    assert got_v[40].item() == ident and got_v[50].item() == ident
-    # each special value sits alone in its segment's first row: it must be
-    # the extreme exactly when it beats the rest of that segment
-    for seg, v in enumerate(special):
+    if cap > 50:
+        assert not got_ne[40] and not got_ne[50]
+        assert got_v[40].item() == ident and got_v[50].item() == ident
+    # each special value sits in its segment's first rows: it must be the
+    # extreme exactly when it beats the rest of that segment
+    for seg in range(min(cap, len(special))):
         rows = (codes == seg) & mask
         expect = vals[rows].min() if op == "min" else vals[rows].max()
         assert got_v[seg].item() == int(expect)
+
+
+@pytest.mark.parametrize("cap,tier", [
+    (1, (1, 32, True)), (8, (1, 32, True)), (16, (1, 32, True)), (17, (1, 32, False)),
+    (100, (1, 128, False)), (16384, (1, 16384, False)), (24576, (1, 24576, False)),
+    (24577, (2, 16384, False)), (32768, (2, 16384, False)), (40000, (4, 16384, False)),
+    (65537, (8, 16384, False)), (1 << 17, (8, 16384, False)),
+])
+def test_segment_extreme_int64_tier(cap, tier):
+    got = sk.segment_extreme_int64_tier(cap)
+    assert tuple(got) == tier
+    # the table covers the caps, in whole bitmap words, within a block's 227 KB
+    # of shared memory; a cluster's blocks split it on a power of two
+    assert got.cluster * got.slice >= cap and got.slice % 32 == 0
+    assert got.slice * 8 + got.slice // 32 * 4 <= 232448
+    assert got.cluster in (1, 2, 4, 8)
+    if got.cluster > 1:
+        assert got.slice & (got.slice - 1) == 0 and not got.warp_agg
+    for bad in (0, -1, sk.KERNEL_MAX_SEGMENTS + 1):
+        with pytest.raises(ValueError):
+            sk.segment_extreme_int64_tier(bad)
 
 
 def test_wrappers_validate_inputs():
