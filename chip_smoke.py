@@ -19,12 +19,17 @@ error (no phase catches its own failure):
             PyTorch version; time the kernel, the plain version, one PyTorch
             library call computing the same function where there is one, and
             print the bound. Segment kernels at the supplier query's shapes
-            (N = 2^23 rows, cap = 16384, P = 15; Q = 1 for K2; K3's four
-            launches, int64 min and max of l_shipdate and l_orderkey; K1a
-            on K1's planes, also equal to K1's output cast to f32), K1
-            (P = 5) and K2 (Q = 1) again at q12's cap 8, and K3 again at
-            cap 8 (every kept row on l_shipmode's 7 codes) and at cap 2^17
-            (l_partkey folded into 2^17 groups); K4 at q12's
+            (N = 2^23 rows, cap = 16384, P = 15 separate planes, as the
+            stage passes them; Q = 1 for K2; K3's four launches, int64 min
+            and max of l_shipdate and l_orderkey; K1a on the (N, 15) stack
+            of K1's planes, also equal to K1's output cast to f32), K1
+            (P = 5) and K2 (Q = 1) again at q12's cap 8, K1, K2 and K3 again
+            at cap 2^17 (l_partkey folded into 2^17 groups) and at cap 8
+            (every kept row on l_shipmode's 7 codes), and K1 on 73 planes
+            at cap 4096 (past one 64-plane chunk); K1, K2, K3 and K6 also
+            by their device time under torch.profiler. K1's and K2's bound
+            counts the bytes the function needs (a trash row's plane values
+            are not), beside every input read once; K4 at q12's
             (orders' 1.5 M keys into a 2^22-slot table, 2^23 lineitem keys
             probed). K4's build is compared as the sorted set of its (key,
             row) entries: where a key lands depends on the order the
@@ -70,7 +75,8 @@ port; nothing of JAX, pyarrow or daft_tpu.
 
 runs phases 1-3 alone, on the daft_tpu_torch of the checkout at DIR (by
 default the one beside this script): to time an unpacked parent commit's
-kernels and this tree's in one call, on one card, in turns.
+kernels and this tree's in one call, on one card, in turns. A checkout whose
+K1 and K2 take one (N, P) tensor gets the stack of the same planes.
 """
 
 from __future__ import annotations
@@ -92,7 +98,8 @@ BUCKET = 1 << 23          # 6.0 M rows pad to this bucket
 CAP = 16384               # 10,000 suppliers pad to this group capacity
 Q12_CAP = 8               # 7 ship modes pad to this group capacity
 K3_SMALL_CAP = 8          # K3 with every kept row on l_shipmode's 7 codes
-K3_LARGE_CAP = 1 << 17    # K3 at the kernel tier's segment ceiling
+K3_LARGE_CAP = 1 << 17    # K3 (and K1, K2) at the kernel tier's segment ceiling
+WIDE_CAP, WIDE_PLANES = 4096, 73  # K1 past one 64-plane chunk
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 EPOCH = datetime.date(1970, 1, 1)
 D_1992 = (datetime.date(1992, 1, 1) - EPOCH).days
@@ -315,24 +322,38 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int, label: str = "") -> float | None:
     """Mean device time of one call: the device activities' own times under
     torch.profiler over ``iters`` calls after a warm-up. Unlike time_ms it
     leaves out the gaps where the card waits for the host to launch: for a
     call whose kernels take less time than its Python wrapper, time_ms
-    measures the host."""
+    measures the host. The profiler on the card has been seen to drop a
+    call's activities: a capture where some activity did not run a whole
+    number of times per call, or none ran, is taken again, up to three
+    times; then the time is None, not measured. With a ``label``, print
+    each activity's count and mean time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total_us / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events and all(e.count % iters == 0 for e in events):
+            break
+    else:
+        print(f"  {label}: torch.profiler lost device activities three times: not measured")
+        return None
+    if label:
+        print(f"  {label} device activities over {iters} calls: " + "; ".join(
+            f"{e.key[:60]} x{e.count} {e.self_device_time_total / max(e.count, 1):.2f} us"
+            for e in events))
+    return sum(e.self_device_time_total for e in events) / iters / 1e3
 
 
 def bound_ms(nbytes: int) -> float:
@@ -350,6 +371,78 @@ def time_s(fn, runs: int = 3):
         torch.cuda.synchronize()
         out.append(time.perf_counter() - t0)
     return out
+
+
+def plane_arg(sk, planes):
+    """K1's and K2's planes as the package under test takes them: the list,
+    or its (N, P) stack for a checkout from before the list contract
+    (--root), which has no segment_planes_tier."""
+    import torch
+
+    return planes if hasattr(sk, "segment_planes_tier") else torch.stack(planes, dim=1)
+
+
+def plane_case(sk, op: str, planes, codes, cap: int, plain_iters: int = 5) -> dict:
+    """K1 (op "sum") or K2 (op "min") on a list of planes at one shape: equal
+    to its plain version bit for bit, then the kernel's time by CUDA events
+    and on the device (torch.profiler), the plain version's, one library
+    call's on the (N, P) stack of the same planes (``index_add_`` or
+    ``scatter_reduce_`` into a table with a trash row, which the port never
+    calls), and two bounds: ``bound_ms``, what the function needs (the codes,
+    the 32-byte sectors of the kept rows' planes, the output: a trash row's
+    plane values are never needed), and ``bound_read_once_ms``, every input
+    read once and the output written once."""
+    import torch
+
+    arg = plane_arg(sk, planes)
+    if op == "sum":
+        def call():
+            return sk.segment_sum_planes(arg, codes, cap)
+
+        def plain():
+            return sk.segment_sum_planes_plain(arg, codes, cap)
+    else:
+        def call():
+            return sk.segment_extreme_planes(arg, codes, cap, op)
+
+        def plain():
+            return sk.segment_extreme_planes_plain(arg, codes, cap, op)
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    n, p = codes.numel(), len(planes)
+    kernel = "K1 segment_sum_planes" if op == "sum" else "K2 segment_extreme_planes"
+    check(torch.equal(got, want), f"{kernel} at cap {cap}, P {p} differs from its plain "
+                                  "version")
+    stack = torch.stack(planes, dim=1)
+    idx = torch.where((codes >= 0) & (codes < cap), codes, cap).long()
+    if op == "sum":
+        table = torch.zeros((cap + 1, p), device=codes.device)
+
+        def library():
+            return table.index_add_(0, idx, stack)
+        out_bytes = cap * p * 8
+    else:
+        table = torch.full((cap + 1, p), float("inf"), device=codes.device)
+        idx = idx[:, None].expand(n, p)
+
+        def library():
+            return table.scatter_reduce_(0, idx, stack, "amin")
+        out_bytes = cap * p * 4
+    kept = (codes >= 0) & (codes < cap)
+    sectors = int(kept.view(-1, 8).any(dim=1).sum())  # n is a multiple of 8 here
+    tier = getattr(sk, "segment_planes_tier", None)
+    result = {
+        "cap": cap, "planes": p, "tier": list(tier(cap, min(p, 64))) if tier else None,
+        "kept_share": float(kept.float().mean()),
+        "max_abs_err": max_abs_err(got, want),
+        "ms": time_ms(call, 20),
+        "device_ms": device_ms(call, 20, f"{kernel} cap {cap} P {p}"),
+        "plain_ms": time_ms(plain, plain_iters), "library_ms": time_ms(library, 20),
+        "bound_ms": bound_ms(n * 4 + sectors * 32 * p + out_bytes),
+        "bound_read_once_ms": bound_ms(n * p * 4 + n * 4 + out_bytes),
+    }
+    del got, want, stack, table, idx, kept, arg
+    return result
 
 
 def k3_case(sk, v, keep, codes, cap: int, op: str) -> dict:
@@ -437,8 +530,9 @@ def phase_build(card: str) -> None:
 def slice_inputs(cols, device):
     """The kernels' inputs at the query's shapes and values: codes with
     filtered and padding rows in the trash segment, the 15 sum planes (rows,
-    6 counts, 8 digits of l_linenumber), the first-row-index plane, and the
-    int64 value columns with their keep mask."""
+    6 counts, 8 digits of l_linenumber) as separate tensors, as the stage
+    builds them, and their (N, 15) stack for K1a, the first-row-index plane,
+    and the int64 value columns with their keep mask."""
     import numpy as np
     import torch
 
@@ -451,8 +545,8 @@ def slice_inputs(cols, device):
                                  .astype(np.int32))
     line = torch.zeros(BUCKET, dtype=torch.int64)
     line[:n] = torch.from_numpy(cols["l_linenumber"].astype(np.int64))
-    planes = [keep.float()] * 7 + [((line >> (8 * k)) & 255).float() * keep
-                                   for k in range(8)]
+    planes = [keep.float() for _ in range(7)] + [((line >> (8 * k)) & 255).float() * keep
+                                                 for k in range(8)]
     first = torch.where(keep, torch.arange(BUCKET, dtype=torch.float32),
                         torch.tensor(float("inf")))
     ints = {}
@@ -460,9 +554,10 @@ def slice_inputs(cols, device):
         v = torch.zeros(BUCKET, dtype=torch.int64)
         v[:n] = torch.from_numpy(cols[name].astype(np.int64))
         ints[name] = v.to(device)
-    return {"codes": codes.to(device), "keep": keep.to(device),
-            "planes": torch.stack(planes, dim=-1).contiguous().to(device),
-            "first": first[:, None].contiguous().to(device), "ints": ints}
+    planes = [t.to(device) for t in planes]
+    return {"codes": codes.to(device), "keep": keep.to(device), "planes": planes,
+            "stack": torch.stack(planes, dim=-1), "first": [first.to(device)],
+            "ints": ints}
 
 
 def phase_kernels(cols, orders, card: str):
@@ -477,45 +572,21 @@ def phase_kernels(cols, orders, card: str):
     dev = torch.device("cuda")
     x = slice_inputs(cols, dev)
     codes, keep = x["codes"], x["keep"]
-    n, p = x["planes"].shape
+    n, p = x["stack"].shape
     trash_idx = torch.where((codes >= 0) & (codes < CAP), codes, CAP).long()
     results = {}
 
-    # K1
-    got = sk.segment_sum_planes(x["planes"], codes, CAP)
-    want = sk.segment_sum_planes_plain(x["planes"], codes, CAP)
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "K1 segment_sum_planes differs from its plain version")
-    lib_table = torch.zeros((CAP + 1, p), dtype=torch.float32, device=dev)
-    results["segment_sum_planes"] = {
-        "max_abs_err": max_abs_err(got, want),
-        "ms": time_ms(lambda: sk.segment_sum_planes(x["planes"], codes, CAP), 20),
-        "plain_ms": time_ms(lambda: sk.segment_sum_planes_plain(x["planes"], codes, CAP), 5),
-        "library_ms": time_ms(lambda: lib_table.index_add_(0, trash_idx, x["planes"]), 20),
-        "bound_ms": bound_ms(n * p * 4 + n * 4 + CAP * p * 8),
-    }
-
-    # K2: the first-row-index plane, min
-    got = sk.segment_extreme_planes(x["first"], codes, CAP, "min")
-    want = sk.segment_extreme_planes_plain(x["first"], codes, CAP, "min")
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "K2 segment_extreme_planes differs from its plain version")
-    lib_table2 = torch.full((CAP + 1, 1), float("inf"), device=dev)
-    idx2 = trash_idx[:, None]
-    results["segment_extreme_planes"] = {
-        "max_abs_err": max_abs_err(got, want),
-        "ms": time_ms(lambda: sk.segment_extreme_planes(x["first"], codes, CAP, "min"), 20),
-        "plain_ms": time_ms(
-            lambda: sk.segment_extreme_planes_plain(x["first"], codes, CAP, "min"), 20),
-        "library_ms": time_ms(
-            lambda: lib_table2.scatter_reduce_(0, idx2, x["first"], "amin"), 20),
-        "bound_ms": bound_ms(n * 4 + n * 4 + CAP * 4),
-    }
+    # K1 over the 15 planes; K2 over the first-row-index plane, min
+    results["segment_sum_planes"] = plane_case(sk, "sum", x["planes"], codes, CAP)
+    results["segment_extreme_planes"] = plane_case(sk, "min", x["first"], codes, CAP)
 
     # K3: the supplier's four launches (both int64 columns, both ops); the
     # top-level numbers are l_orderkey min's. Then cap 8 (l_shipmode's 7
     # codes: every kept row on 7 addresses) and cap 2^17 (l_partkey folded
     # into 2^17 groups: past one block's shared memory), l_orderkey min.
+    # K1 and K2 at both too (cap 8 with 98 % of rows kept, as in TPC-H q1's
+    # few groups; cap 2^17 their global tier), and K1 on 73 planes at cap
+    # 4096 (l_suppkey folded): past one 64-plane chunk
     cases = {f"{name} {op}": k3_case(sk, v, keep, codes, CAP, op)
              for name, v in x["ints"].items() for op in ("min", "max")}
     orderkey = x["ints"]["l_orderkey"]
@@ -526,35 +597,51 @@ def phase_kernels(cols, orders, card: str):
     rows = len(cols["l_suppkey"])
     for label, group_np, groups in (
             ("at_cap8", cols["l_shipmode"], K3_SMALL_CAP),
-            ("at_cap131072", (cols["l_partkey"] - 1) % K3_LARGE_CAP, K3_LARGE_CAP)):
+            ("at_cap131072", (cols["l_partkey"] - 1) % K3_LARGE_CAP, K3_LARGE_CAP),
+            ("at_cap4096_p73", (cols["l_suppkey"] - 1) % WIDE_CAP, WIDE_CAP)):
         group = torch.full((BUCKET,), groups, dtype=torch.int32)
         group[:rows] = torch.from_numpy(group_np.astype(np.int32))
         codes_k = torch.where(keep, group.to(dev), groups)
-        results["segment_extreme_int64"][label] = k3_case(sk, orderkey, keep, codes_k, groups,
-                                                          "min")
+        if label == "at_cap4096_p73":
+            # 73 distinct planes (copies of the 15): planes that alias would
+            # be read from L2, under the bound's bytes
+            wide = [x["planes"][j % p].clone() for j in range(WIDE_PLANES)]
+            results["segment_sum_planes"][label] = plane_case(sk, "sum", wide, codes_k,
+                                                              groups, 2)
+            del wide
+        else:
+            results["segment_extreme_int64"][label] = k3_case(sk, orderkey, keep, codes_k,
+                                                              groups, "min")
+        if label in ("at_cap8", "at_cap131072"):
+            results["segment_sum_planes"][label] = plane_case(sk, "sum", x["planes"], codes_k,
+                                                              groups)
+            results["segment_extreme_planes"][label] = plane_case(sk, "min", x["first"],
+                                                                  codes_k, groups)
         del group, codes_k
 
-    # K1a: K1's planes and codes in one f32 window
-    got = sk.segment_sum_planes_f32(x["planes"], codes, CAP)
-    want = sk.segment_sum_planes_f32_plain(x["planes"], codes, CAP)
+    # K1a: K1's planes, stacked to (N, 15), and codes in one f32 window
+    got = sk.segment_sum_planes_f32(x["stack"], codes, CAP)
+    want = sk.segment_sum_planes_f32_plain(x["stack"], codes, CAP)
     torch.cuda.synchronize()
     check(torch.equal(got, want), "K1a segment_sum_planes_f32 differs from its plain version")
-    check(torch.equal(got, sk.segment_sum_planes(x["planes"], codes, CAP).float()),
+    check(torch.equal(got, sk.segment_sum_planes(plane_arg(sk, x["planes"]), codes,
+                                                 CAP).float()),
           "K1a segment_sum_planes_f32 differs from K1's output cast to f32")
-    lib_table.zero_()
+    lib_table = torch.zeros((CAP + 1, p), dtype=torch.float32, device=dev)
     results["segment_sum_planes_f32"] = {
         "max_abs_err": max_abs_err(got, want),
-        "ms": time_ms(lambda: sk.segment_sum_planes_f32(x["planes"], codes, CAP), 20),
-        "plain_ms": time_ms(lambda: sk.segment_sum_planes_f32_plain(x["planes"], codes, CAP),
+        "ms": time_ms(lambda: sk.segment_sum_planes_f32(x["stack"], codes, CAP), 20),
+        "plain_ms": time_ms(lambda: sk.segment_sum_planes_f32_plain(x["stack"], codes, CAP),
                             5),
-        "library_ms": time_ms(lambda: lib_table.index_add_(0, trash_idx, x["planes"]), 20),
+        "library_ms": time_ms(lambda: lib_table.index_add_(0, trash_idx, x["stack"]), 20),
         "bound_ms": bound_ms(n * p * 4 + n * 4 + CAP * p * 4),
     }
-    del x, lib_table, lib_table2, orderkey, trash_idx, idx2
+    del x, lib_table, orderkey, trash_idx
     torch.cuda.empty_cache()
 
     # K1 at q12's shapes: 7 ship modes in cap 8, P = 5 planes (kept rows, and
-    # the valid count and one digit plane of each CASE-WHEN sum)
+    # the valid count and one digit plane of each CASE-WHEN sum); K2 over the
+    # first-row-index plane and the same codes, Q = 1
     n = len(cols["l_orderkey"])
     keep_np = q12_keep(cols)
     high_np = q12_high(cols, orders)
@@ -565,41 +652,16 @@ def phase_kernels(cols, orders, card: str):
     kf[:n] = torch.from_numpy(keep_np.astype(np.float32))
     hf = torch.zeros(BUCKET)
     hf[:n] = torch.from_numpy(high_np.astype(np.float32))
-    planes8 = torch.stack([kf, kf, kf * hf, kf, kf * (1 - hf)], dim=-1).contiguous().to(dev)
+    planes8 = [t.to(dev) for t in (kf, kf, kf * hf, kf, kf * (1 - hf))]
     codes8 = codes8.to(dev)
-    got = sk.segment_sum_planes(planes8, codes8, Q12_CAP)
-    want = sk.segment_sum_planes_plain(planes8, codes8, Q12_CAP)
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "K1 at cap 8 differs from its plain version")
-    idx8 = torch.where(codes8 < Q12_CAP, codes8, Q12_CAP).long()
-    lib8 = torch.zeros((Q12_CAP + 1, 5), dtype=torch.float32, device=dev)
-    results["segment_sum_planes"]["at_q12_cap8"] = {
-        "max_abs_err": max_abs_err(got, want),
-        "ms": time_ms(lambda: sk.segment_sum_planes(planes8, codes8, Q12_CAP), 20),
-        "plain_ms": time_ms(lambda: sk.segment_sum_planes_plain(planes8, codes8, Q12_CAP), 5),
-        "library_ms": time_ms(lambda: lib8.index_add_(0, idx8, planes8), 20),
-        "bound_ms": bound_ms(BUCKET * 5 * 4 + BUCKET * 4 + Q12_CAP * 5 * 8),
-    }
-    # K2 at q12's shapes: the first-row-index plane over the same codes, Q = 1
     first8 = torch.where(torch.from_numpy(np.pad(keep_np, (0, BUCKET - n))),
                          torch.arange(BUCKET, dtype=torch.float32),
-                         torch.tensor(float("inf")))[:, None].contiguous().to(dev)
-    got = sk.segment_extreme_planes(first8, codes8, Q12_CAP, "min")
-    want = sk.segment_extreme_planes_plain(first8, codes8, Q12_CAP, "min")
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "K2 at cap 8 differs from its plain version")
-    lib8_2 = torch.full((Q12_CAP + 1, 1), float("inf"), device=dev)
-    idx8_2 = idx8[:, None]
-    results["segment_extreme_planes"]["at_q12_cap8"] = {
-        "max_abs_err": max_abs_err(got, want),
-        "ms": time_ms(lambda: sk.segment_extreme_planes(first8, codes8, Q12_CAP, "min"), 20),
-        "plain_ms": time_ms(
-            lambda: sk.segment_extreme_planes_plain(first8, codes8, Q12_CAP, "min"), 20),
-        "library_ms": time_ms(
-            lambda: lib8_2.scatter_reduce_(0, idx8_2, first8, "amin"), 20),
-        "bound_ms": bound_ms(BUCKET * 4 + BUCKET * 4 + Q12_CAP * 4),
-    }
-    del planes8, idx8, lib8, first8, lib8_2, idx8_2
+                         torch.tensor(float("inf"))).to(dev)
+    results["segment_sum_planes"]["at_q12_cap8"] = plane_case(sk, "sum", planes8, codes8,
+                                                              Q12_CAP)
+    results["segment_extreme_planes"]["at_q12_cap8"] = plane_case(sk, "min", [first8], codes8,
+                                                                  Q12_CAP, 20)
+    del planes8, first8
 
     # K4: orders' keys into the table, every lineitem key probed
     dim_keys = torch.from_numpy(orders["o_orderkey"]).to(dev)
@@ -712,21 +774,30 @@ def phase_kernels(cols, orders, card: str):
     def fmt(v):
         return "null" if v is None else f"{v:.4f}"
 
-    k3 = results["segment_extreme_int64"]
-    rows = list(results.items()) + [
-        (f"{k} at q12 cap 8", results[k]["at_q12_cap8"])
-        for k in ("segment_sum_planes", "segment_extreme_planes")] + [
-        (f"segment_extreme_int64 {case} at cap {CAP}", r)
-        for case, r in k3["by_column_op"].items()] + [
-        (f"segment_extreme_int64 l_orderkey min at cap {k3[label]['cap']}", k3[label])
-        for label in ("at_cap8", "at_cap131072")]
+    # every case: the top-level one of each kernel, then its other shapes
+    rows = []
+    for kname, r in results.items():
+        rows.append((kname, r))
+        for label, sub in r.items():
+            if label == "by_column_op":
+                rows += [(f"{kname} {case}", c) for case, c in sub.items()]
+            elif isinstance(sub, dict):
+                rows.append((f"{kname} {label}", sub))
     for name, r in rows:
+        shape = f" cap {r['cap']}" if "cap" in r else ""
+        shape += f" P {r['planes']}" if "planes" in r else ""
         tier = f" tier {r['tier']}" if r.get("tier") else ""
         dev = f" (device {fmt(r['device_ms'])})" if "device_ms" in r else ""
-        print(f"{name}:{tier} identical to plain (max_abs_err {r['max_abs_err']}); "
+        once = (f", bound_read_once_ms {fmt(r['bound_read_once_ms'])}"
+                if "bound_read_once_ms" in r else "")
+        # the share against the kernel's own device time where it was taken:
+        # the events also hold the wrapper's host time
+        held, by = ((r["device_ms"], "device") if r.get("device_ms")
+                    else (r["ms"], "kernel_ms"))
+        print(f"{name}:{shape}{tier} identical to plain (max_abs_err {r['max_abs_err']}); "
               f"kernel_ms {fmt(r['ms'])}{dev}, plain_ms {fmt(r['plain_ms'])}, "
-              f"library_ms {fmt(r['library_ms'])}, bound_ms {fmt(r['bound_ms'])} "
-              f"(bytes at 3.35 TB/s; kernel at {r['bound_ms'] / r['ms']:.1%} of it) "
+              f"library_ms {fmt(r['library_ms'])}, bound_ms {fmt(r['bound_ms'])}{once} "
+              f"(bytes at 3.35 TB/s; {by} at {r['bound_ms'] / held:.1%} of bound_ms) "
               f"[{card}]", flush=True)
     return results
 
@@ -1043,10 +1114,8 @@ def main(argv=None) -> int:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": "bytes", "library_ms": r["library_ms"]}
-        for extra in ("device_ms", "at_q12_cap8", "by_column_op", "at_cap8", "at_cap131072",
-                      "share_of_memory_rate"):
-            if extra in r:
-                entry[extra] = r[extra]
+        # the rest: device_ms, the read-once bound, tiers, the other shapes
+        entry.update({k: v for k, v in r.items() if k not in entry})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)

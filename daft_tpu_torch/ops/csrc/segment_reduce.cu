@@ -8,22 +8,69 @@
 // refused launch is seen by the Python wrapper (daft_tpu_torch/ops/
 // segment_kernels.py), which allocates every output and scratch buffer.
 //
-// K1 daft_segment_sum_planes
-//   Replaces daft_tpu/ops/pallas_kernels.py segment_sum_planes_windowed.
-//   Sums value planes (N x P, f32) into a (cap x P, f64) segment table by
-//   int32 codes; codes outside [0, cap) are dropped (the trash segment of
-//   filtered and padding rows).
-//   Contract: the grouped stage feeds K1 only INTEGER-valued planes (the kept
-//   row count, per-aggregation valid counts, and 8-bit digits below 256), and
-//   every segment total stays below 2^53. Every partial sum is then an exact
-//   f64 integer, so f64 atomics give the same bits in any order, and the same
-//   bits as the TPU kernel's f32-per-32K-window / f64-across-windows combine.
-//   A float plane would make the result depend on the atomic order; the tier
-//   never feeds one (GroupedAggStage._kernel_eligible).
-//   Bound: memory. Per element one f32 read and at most one f64 atomic into a
-//   table of cap*P*8 bytes (2 MB at cap 16384, P 15, so it lives in the 50 MB
-//   L2); zero values skip the atomic. Left for later: privatising the table in
-//   shared memory where cap*P fits and warp-aggregated atomics for skewed keys.
+// K1 and K2 daft_segment_planes (op 0: K1 sum; op 1, 2: K2 min, max)
+//   K1 replaces daft_tpu/ops/pallas_kernels.py segment_sum_planes_windowed:
+//   P value planes (each N f32) summed into a (cap x P, f64) segment table.
+//   K2 replaces pallas_kernels.py segment_extreme_planes: the per-segment
+//   min or max of Q identity-filled f32 planes into (cap x Q, f32); an empty
+//   segment keeps the identity (+inf for min, -inf for max).
+//   Both group rows by int32 codes and drop codes outside [0, cap) (the
+//   trash segment of filtered and padding rows). The planes come as P
+//   separate pointers, passed by value in the kernel's parameters (chunks of
+//   up to 64 planes, one launch pair per chunk, each writing its own columns
+//   of the output): the TPU kernels' (N, P) block layout made the caller
+//   stack its planes, a strided copy that took longer than every kernel of
+//   the query together.
+//   K1's contract: every plane value is an integer in [0, 255] (the kept-row
+//   plane, valid counts and 8-bit digits: all the grouped stage feeds it),
+//   and N < 2^24 (MAX_KERNEL_BUCKET, which the wrapper checks). A table
+//   entry then stays below 255 x 2^24 < 2^32, so K1 adds in uint32 exactly,
+//   in any order, and gives the TPU kernel's f32-window / f64 bits. A value
+//   outside the contract gives a wrong sum: the wrapper cannot check values
+//   without a device-to-host sync.
+//   K2 reduces an order-preserving uint32 key of each f32 (the complement of
+//   the key for min, so both ops take the max); key 0 marks an empty entry.
+//   NaN is outside the contract, and -0.0 orders below +0.0.
+//   Bound: memory, what the function needs: the codes (4 bytes a row), the
+//   32-byte sectors of the kept rows' planes (a trash row's plane values are
+//   never needed) and the output: 0.118 ms for K1 at the supplier query's
+//   N = 2^23, cap 16,384, P 15 (70 % of rows kept), 0.011 ms at q12's cap 8,
+//   P 5 (0.5 % kept), and 0.017 and 0.010 ms for K2 there (Q 1), at 3.35
+//   TB/s. Every input read once would take 0.161, 0.060, 0.020 and 0.020 ms.
+//   Design: a persistent grid of 1024-thread blocks, each holding a uint32
+//   table in shared memory. Rows come 4 per thread as 16-byte vectors (codes
+//   and every plane 16-byte aligned; otherwise one row per thread); a row
+//   whose value adds nothing (0 for K1, the identity for K2) does no atomic.
+//   Tiers, chosen by cap and P in the wrapper (segment_kernels.py
+//   segment_planes_tier) and checked here:
+//   - block: the planes are split into groups of G, the most whose cap x G
+//     x 4 bytes fit in a block's shared memory (G = 3 at cap 16,384, so 5
+//     groups for P 15); each group gets an equal share of the grid, and a
+//     block reads the codes and its group's planes only, with shared-memory
+//     atomicAdd (K1) or atomicMax (K2, after reading the entry: most rows
+//     lose to it);
+//   - global: caps past one plane's table in a block (cap x 4 > 227 KB, up
+//     to 2^17): uint32 atomics on one code-major table in device memory,
+//     the lanes of a warp on (row, plane) pairs, plane fastest, so that one
+//     warp instruction's atomics fall on a few adjacent entries.
+//   Each block then writes its table as one partial table, and a second
+//   launch combines the partials per entry (in uint64 for K1) and writes the
+//   f64 sums or the decoded f32 extremes straight into the output. Every
+//   first pass loads the next step's codes while this step's planes load.
+//   Measured (chip_smoke.py on an H100 80GB HBM3 at 700.00 W, N = 2^23,
+//   device time under torch.profiler, the first design's in brackets: one
+//   global atomic per kept element over an (N, P) stack): K1 0.168-0.170 ms
+//   at the supplier's cap 16,384 and 15 planes (0.363), 0.022 at q12's cap
+//   8 and 5 planes (0.110), 0.130-0.131 at cap 8 with 98 % of rows kept
+//   (10.96), 0.417 at cap 2^17 (0.389: the global tier is the slower) and
+//   0.685 on 73 planes at cap 4096 (1.693); K2 0.029 at cap 16,384 (0.150),
+//   0.014 at q12's cap 8 (0.041), 0.018 at cap 8 with 98 % kept (1.06), 0.071
+//   at cap 2^17 (0.092). The wrapper's Python takes 0.05-0.08 ms a call,
+//   more than the kernels at q12's shapes. A warp pre-aggregation tier for
+//   caps up to 16 (__match_any_sync, one __reduce_add/max_sync per code) was
+//   slower than these tables at every shape tried and was dropped: K1 0.030
+//   and 0.61-0.62 ms, K2 0.016 and 0.067; the global tier with one row per
+//   lane took 0.48 ms for K1 at cap 2^17, its atomics uncoalesced.
 //
 // K1a daft_segment_sum_planes_f32
 //   Replaces pallas_kernels.py segment_sum_planes (the single-window parity
@@ -32,19 +79,10 @@
 //   atomics into (cap x P), codes outside [0, cap) dropped. Exact for
 //   integer-valued planes whose segment totals stay below 2^24; otherwise
 //   the atomic order decides the last bits.
-//   Bound: memory, as K1 (one f32 read per element, a 4-byte table entry
-//   per atomic). Left for later: the same privatisation as K1.
-//
-// K2 daft_segment_extreme_planes
-//   Replaces pallas_kernels.py segment_extreme_planes.
-//   Per-segment min or max of identity-filled f32 planes (N x Q) into
-//   (cap x Q, f32); an empty segment keeps the identity (+inf for min, -inf
-//   for max). atomicMin/atomicMax run on an order-preserving uint32 encoding
-//   of f32, so negatives and +-inf order correctly; a second pass decodes the
-//   table. NaN is outside the contract (the tier never feeds it), and -0.0
-//   orders below +0.0.
-//   Bound: memory (one f32 and one code read per element; identity rows skip
-//   the atomic). Left for later: shared-memory privatisation of the table.
+//   It keeps K1's first design and the (N x P) layout: one f32 read per
+//   element and one global f32 atomic per nonzero element, grid-stride.
+//   Bound: memory (one f32 read per element, a 4-byte table entry per
+//   atomic). Left for later: K1's shared-memory tables.
 //
 // K3 daft_segment_extreme_int64
 //   Replaces pallas_kernels.py segment_extreme_int64 (three chained K2
@@ -88,6 +126,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -111,25 +151,6 @@ __device__ __forceinline__ float f32_from_order_key(unsigned int k) {
   return __uint_as_float(u);
 }
 
-__global__ void segment_sum_kernel(const float* __restrict__ planes,
-                                   const int32_t* __restrict__ codes,
-                                   double* __restrict__ out,
-                                   long long n, int p, int cap) {
-  const long long total = n * static_cast<long long>(p);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    const long long row = i / p;
-    const int col = static_cast<int>(i - row * p);
-    const int code = __ldg(codes + row);
-    const float v = __ldg(planes + i);
-    if (code >= 0 && code < cap && v != 0.0f) {
-      atomicAdd(out + static_cast<long long>(code) * p + col,
-                static_cast<double>(v));
-    }
-  }
-}
-
 __global__ void segment_sum_f32_kernel(const float* __restrict__ planes,
                                        const int32_t* __restrict__ codes,
                                        float* __restrict__ out,
@@ -145,38 +166,6 @@ __global__ void segment_sum_f32_kernel(const float* __restrict__ planes,
     if (code >= 0 && code < cap && v != 0.0f) {
       atomicAdd(out + static_cast<long long>(code) * p + col, v);
     }
-  }
-}
-
-__global__ void segment_extreme_kernel(const float* __restrict__ planes,
-                                       const int32_t* __restrict__ codes,
-                                       unsigned int* __restrict__ table,
-                                       long long n, int q, int cap, int is_min) {
-  const long long total = n * static_cast<long long>(q);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const float ident = is_min ? __int_as_float(0x7f800000) : __int_as_float(0xff800000);
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    const long long row = i / q;
-    const int col = static_cast<int>(i - row * q);
-    const int code = __ldg(codes + row);
-    const float v = __ldg(planes + i);
-    if (code < 0 || code >= cap || v == ident) continue;
-    unsigned int* slot = table + static_cast<long long>(code) * q + col;
-    if (is_min) {
-      atomicMin(slot, f32_order_key(v));
-    } else {
-      atomicMax(slot, f32_order_key(v));
-    }
-  }
-}
-
-__global__ void decode_f32_kernel(const unsigned int* __restrict__ table,
-                                  float* __restrict__ out, long long m) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < m; i += stride) {
-    out[i] = f32_from_order_key(table[i]);
   }
 }
 
@@ -473,19 +462,399 @@ cudaLaunchConfig_t k3_config(int cluster, int grid, size_t smem, cudaStream_t st
   return cfg;
 }
 
+// ---- K1 and K2 -----------------------------------------------------------------
+
+constexpr int kPlaneChunk = 64;  // planes per launch pair
+constexpr int kPlaneThreads = 1024;
+constexpr int kPlaneBatch = 4;   // planes whose loads a thread has in flight at once
+constexpr int kPlaneReduceWarps = 8;
+// most shared memory a block may take (H100: 227 KB)
+constexpr size_t kPlaneMaxSmem = 232448;
+constexpr int kOpSum = 0, kOpMin = 1, kOpMax = 2;
+constexpr int kTierBlock = 0, kTierGlobal = 1;
+
+// The planes of one chunk, by value in the kernel's parameters.
+struct PlanePtrs {
+  const float* p[kPlaneChunk];
+};
+
+// What a plane value adds to its entry: the value itself for a sum (an
+// integer in [0, 255] by K1's contract), the order key for a max, its
+// complement for a min. 0 adds nothing: a zero, or the identity.
+template <int kOp>
+__device__ __forceinline__ unsigned plane_word(float v) {
+  if constexpr (kOp == kOpSum) {
+    return static_cast<unsigned>(v);
+  } else {
+    const unsigned k = f32_order_key(v);
+    if constexpr (kOp == kOpMin) {
+      return k == 0xff800000u ? 0u : ~k;  // +inf
+    } else {
+      return k == 0x007fffffu ? 0u : k;   // -inf
+    }
+  }
+}
+
+// An extreme's f32 from its table word (0: an empty segment, the identity).
+template <int kOp>
+__device__ __forceinline__ float plane_extreme(unsigned w) {
+  if (w == 0u) return __int_as_float(kOp == kOpMin ? 0x7f800000 : 0xff800000);
+  return f32_from_order_key(kOp == kOpMin ? ~w : w);
+}
+
+template <int kOp>
+__device__ __forceinline__ void plane_table_add(unsigned* slot, unsigned w) {
+  if constexpr (kOp == kOpSum) {
+    atomicAdd(slot, w);
+  } else if (w > *reinterpret_cast<volatile unsigned*>(slot)) {
+    atomicMax(slot, w);  // most rows lose to the entry: read before the atomic
+  }
+}
+
+// Reduce R consecutive rows from row0 (R = 4: one 16-byte vector per plane,
+// R = 1: one row) into planes [j0, j0 + gp) of the table, entry j * cap +
+// code. A row whose code lies outside [0, cap) loads no plane value.
+template <int kOp, int R>
+__device__ __forceinline__ void plane_rows(unsigned* tab, const PlanePtrs& planes, int j0,
+                                           int gp, int cap, const int (&code)[R],
+                                           long long row0) {
+  bool ok[R];
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    ok[r] = static_cast<unsigned>(code[r]) < static_cast<unsigned>(cap);
+    any = any || ok[r];
+  }
+  if (!any) return;
+  for (int j = 0; j < gp; j += kPlaneBatch) {
+    float v[kPlaneBatch][R];
+#pragma unroll
+    for (int u = 0; u < kPlaneBatch; ++u) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[u][r] = 0.0f;
+      if (j + u >= gp) continue;
+      const float* plane = planes.p[j0 + j + u] + row0;
+      if constexpr (R == 4) {
+        const float4 x = __ldcs(reinterpret_cast<const float4*>(plane));
+        v[u][0] = x.x;
+        v[u][1] = x.y;
+        v[u][2] = x.z;
+        v[u][3] = x.w;
+      } else {
+        v[u][0] = __ldcs(plane);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPlaneBatch; ++u) {
+      if (j + u >= gp) break;
+      unsigned* col = tab + (j + u) * cap;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const unsigned w = ok[r] ? plane_word<kOp>(v[u][r]) : 0u;
+        if (w != 0u) plane_table_add<kOp>(col + code[r], w);
+      }
+    }
+  }
+}
+
+// The first pass of the block tier: block b works for plane group b /
+// per_group (planes [g * group, g * group + gp)) on its share of the rows,
+// reduces them into a table in shared memory and writes it as partial table
+// b (group x cap words, plane-major). kRows = 4 reads 16-byte vectors (codes
+// and planes 16-byte aligned), kRows = 1 single rows.
+template <int kOp, int kRows>
+__global__ void __launch_bounds__(kPlaneThreads)
+plane_partial_kernel(const __grid_constant__ PlanePtrs planes,
+                     const int32_t* __restrict__ codes, unsigned* __restrict__ part,
+                     long long n, int cap, int nplanes, int group, int per_group) {
+  extern __shared__ __align__(16) unsigned plane_smem[];
+  const int g = blockIdx.x / per_group;
+  const int share = blockIdx.x - g * per_group;
+  const int j0 = g * group;
+  const int gp = min(group, nplanes - j0);
+  const int entries = gp * cap;
+  unsigned* tab = plane_smem;
+  for (int i = threadIdx.x; i < entries; i += blockDim.x) tab[i] = 0u;
+  __syncthreads();
+
+  const long long nthreads = static_cast<long long>(per_group) * blockDim.x;
+  const long long tid = static_cast<long long>(share) * blockDim.x + threadIdx.x;
+  // The next step's codes load while this step's planes do.
+  if constexpr (kRows == 4) {
+    const long long nq = n >> 2;
+    const int4* quads = reinterpret_cast<const int4*>(codes);
+    const int4 none = make_int4(-1, -1, -1, -1);
+    long long q = tid;
+    int4 c = q < nq ? __ldg(quads + q) : none;
+    for (; q < nq; q += nthreads) {
+      const int4 next = q + nthreads < nq ? __ldg(quads + q + nthreads) : none;
+      const int code[4] = {c.x, c.y, c.z, c.w};
+      plane_rows<kOp, 4>(tab, planes, j0, gp, cap, code, q << 2);
+      c = next;
+    }
+    // the last n % 4 rows: the group's first threads
+    if (tid < (n & 3)) {
+      const long long r = (nq << 2) + tid;
+      const int code[1] = {__ldg(codes + r)};
+      plane_rows<kOp, 1>(tab, planes, j0, gp, cap, code, r);
+    }
+  } else {
+    long long r = tid;
+    int c = r < n ? __ldg(codes + r) : -1;
+    for (; r < n; r += nthreads) {
+      const int next = r + nthreads < n ? __ldg(codes + r + nthreads) : -1;
+      const int code[1] = {c};
+      plane_rows<kOp, 1>(tab, planes, j0, gp, cap, code, r);
+      c = next;
+    }
+  }
+
+  __syncthreads();
+  unsigned* out = part + static_cast<long long>(blockIdx.x) * group * cap;
+  for (int i = threadIdx.x; i < entries; i += blockDim.x) out[i] = tab[i];
+}
+
+// The first pass of the global tier: one code-major table (entry code *
+// nplanes + j) in device memory, zeroed by the launcher. Lanes cover (row,
+// plane) pairs, plane fastest, so the atomics of one warp instruction fall
+// on a few rows' adjacent entries and coalesce; lanes on one row share its
+// code's load. The pairs advance by the grid's width with a carry, not a
+// division.
+template <int kOp>
+__global__ void __launch_bounds__(kPlaneThreads)
+plane_global_kernel(const __grid_constant__ PlanePtrs planes,
+                    const int32_t* __restrict__ codes, unsigned* __restrict__ table,
+                    long long n, int cap, int nplanes) {
+  // the pointers in shared memory: the lanes of a warp read different ones
+  __shared__ const float* ptrs[kPlaneChunk];
+  if (threadIdx.x < nplanes) ptrs[threadIdx.x] = planes.p[threadIdx.x];
+  __syncthreads();
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long step_rows = stride / nplanes;
+  const int step_j = static_cast<int>(stride - step_rows * nplanes);
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  long long row = first / nplanes;
+  int j = static_cast<int>(first - row * nplanes);
+  while (row < n) {
+    const int code = __ldg(codes + row);
+    if (static_cast<unsigned>(code) < static_cast<unsigned>(cap)) {
+      const unsigned w = plane_word<kOp>(__ldg(ptrs[j] + row));
+      if (w != 0u) plane_table_add<kOp>(table + static_cast<long long>(code) * nplanes + j, w);
+    }
+    row += step_rows;
+    j += step_j;
+    if (j >= nplanes) {
+      j -= nplanes;
+      ++row;
+    }
+  }
+}
+
+// An entry's result into out: an f64 sum, or a decoded f32 extreme.
+template <int kOp, typename Acc>
+__device__ __forceinline__ void plane_store(void* out, long long at, Acc acc) {
+  if constexpr (kOp == kOpSum) {
+    static_cast<double*>(out)[at] = static_cast<double>(acc);
+  } else {
+    static_cast<float*>(out)[at] = plane_extreme<kOp>(acc);
+  }
+}
+
+// The global tier's second pass: its one table into out, one thread per
+// entry e = c * nplanes + j, written to out[c * out_stride + out_col + j].
+template <int kOp>
+__global__ void plane_finish_kernel(const unsigned* __restrict__ table, int cap, int nplanes,
+                                    void* __restrict__ out, int out_stride, int out_col) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= static_cast<long long>(cap) * nplanes) return;
+  const int c = static_cast<int>(e / nplanes);
+  const int j = static_cast<int>(e - static_cast<long long>(c) * nplanes);
+  plane_store<kOp>(out, static_cast<long long>(c) * out_stride + out_col + j, table[e]);
+}
+
+// The block tier's second pass: entry e = j * cap + c of the chunk
+// (plane j, segment c), combined over the per_group partial tables of plane
+// j's group, written to out[c * out_stride + out_col + j]. A block takes 32
+// entries; its warps split the partial tables.
+template <int kOp>
+__global__ void __launch_bounds__(32 * kPlaneReduceWarps)
+plane_merge_kernel(const unsigned* __restrict__ part, int cap, int nplanes, int group,
+                   int per_group, void* __restrict__ out, int out_stride, int out_col) {
+  using Acc = typename std::conditional<kOp == kOpSum, unsigned long long, unsigned>::type;
+  __shared__ Acc acc_s[kPlaneReduceWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long e = static_cast<long long>(blockIdx.x) * 32 + lane;
+  const bool in = e < static_cast<long long>(nplanes) * cap;
+  const int j = in ? static_cast<int>(e / cap) : 0;
+  const int c = static_cast<int>(e - static_cast<long long>(j) * cap);
+  Acc acc = 0;
+  if (in) {
+    const int g = j / group;
+    const unsigned* src =
+        part + (static_cast<long long>(g) * per_group * group + (j - g * group)) * cap + c;
+    const long long table = static_cast<long long>(group) * cap;
+#pragma unroll 4
+    for (int p = warp; p < per_group; p += kPlaneReduceWarps) {
+      const unsigned w = src[p * table];
+      acc = kOp == kOpSum ? acc + w : (w > acc ? w : acc);
+    }
+  }
+  acc_s[warp][lane] = acc;
+  __syncthreads();
+  if (warp != 0 || !in) return;
+  for (int w = 1; w < kPlaneReduceWarps; ++w) {
+    const Acc o = acc_s[w][lane];
+    acc = kOp == kOpSum ? acc + o : (o > acc ? o : acc);
+  }
+  plane_store<kOp>(out, static_cast<long long>(c) * out_stride + out_col + j, acc);
+}
+
+using PlaneKernel = void (*)(PlanePtrs, const int32_t*, unsigned*, long long, int, int, int,
+                             int);
+using PlaneGlobalKernel = void (*)(PlanePtrs, const int32_t*, unsigned*, long long, int, int);
+
+template <int kOp>
+PlaneKernel plane_variant(bool vec) {
+  return vec ? plane_partial_kernel<kOp, 4> : plane_partial_kernel<kOp, 1>;
+}
+
+// The first pass's kernel of the block tier (null for the global tier),
+// with its shared memory size.
+PlaneKernel plane_kernel(int op, int tier, int cap, int group, bool vec, size_t* smem) {
+  *smem = static_cast<size_t>(group) * cap * 4;
+  switch (tier == kTierGlobal ? -1 : op) {
+    case kOpSum:
+      return plane_variant<kOpSum>(vec);
+    case kOpMin:
+      return plane_variant<kOpMin>(vec);
+    case kOpMax:
+      return plane_variant<kOpMax>(vec);
+    default:
+      return nullptr;
+  }
+}
+
+PlaneGlobalKernel plane_global_kernel_for(int op) {
+  return op == kOpSum ? plane_global_kernel<kOpSum>
+                      : op == kOpMin ? plane_global_kernel<kOpMin> : plane_global_kernel<kOpMax>;
+}
+
+// True for a tier this file takes: an op and tier in range, 1 to 64 planes,
+// a group of 1 to nplanes planes, a global table of one group of every
+// plane, a shared table within a block's shared memory.
+bool plane_tier_ok(int op, int tier, int cap, int nplanes, int group) {
+  if (op < kOpSum || op > kOpMax || tier < kTierBlock || tier > kTierGlobal || cap <= 0 ||
+      nplanes <= 0 || nplanes > kPlaneChunk || group <= 0 || group > nplanes) {
+    return false;
+  }
+  if (tier == kTierGlobal) return group == nplanes;
+  return static_cast<size_t>(group) * cap * 4 <= kPlaneMaxSmem;
+}
+
+template <typename Kernel>
+cudaError_t plane_occupancy(Kernel kernel, size_t smem, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kPlaneThreads,
+                                                           smem)) != cudaSuccess) {
+    return err;
+  }
+  *blocks = per_sm * sms;
+  return *blocks > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
 }  // namespace
 
 extern "C" {
 
-// K1: out (cap x P, f64) must be zero-filled by the caller.
-int daft_segment_sum_planes(const void* planes, const void* codes, void* out,
-                            long long n, int p, int cap, void* stream) {
-  const long long total = n * static_cast<long long>(p);
-  if (total > 0) {
-    segment_sum_kernel<<<grid_for(total), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(planes), static_cast<const int32_t*>(codes),
-        static_cast<double*>(out), n, p, cap);
+// K1 and K2's first-pass blocks that fit on the current device at once at a
+// tier (op 0 sum, 1 min, 2 max; tier 0 block, 1 global), for a
+// chunk of nplanes planes in tables of `group` planes.
+int daft_segment_planes_blocks(int op, int tier, int cap, int nplanes, int group,
+                               int* blocks) {
+  if (!plane_tier_ok(op, tier, cap, nplanes, group)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (tier == kTierGlobal) {
+    return static_cast<int>(plane_occupancy(plane_global_kernel_for(op), 0, blocks));
+  }
+  size_t smem = 0;
+  const PlaneKernel kernel = plane_kernel(op, tier, cap, group, true, &smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(plane_occupancy(kernel, smem, blocks));
+}
+
+// K1 (op 0) and K2 (op 1 min, 2 max) over one chunk of nplanes <= 64 planes
+// (`planes`: a host array of device pointers, copied into the kernel's
+// parameters): out (cap x out_stride; f64 for K1, f32 for K2) gets columns
+// [out_col, out_col + nplanes). `blocks` first-pass blocks: block tier,
+// ceil(nplanes / group) groups of equally many blocks, each writing
+// a partial table of group x cap words into `part`; global tier, a grid of
+// `blocks` on one table of cap x nplanes words in `part`. Two launches: the
+// tables, then their combination into out.
+int daft_segment_planes(int op, const void* const* planes, int nplanes, const void* codes,
+                        void* part, void* out, long long n, int cap, int tier, int group,
+                        int blocks, int out_stride, int out_col, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!plane_tier_ok(op, tier, cap, nplanes, group) || blocks <= 0 || out_col < 0 ||
+      out_col + nplanes > out_stride) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PlanePtrs ptrs = {};
+  bool vec = (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
+  for (int j = 0; j < nplanes; ++j) {
+    ptrs.p[j] = static_cast<const float*>(planes[j]);
+    vec = vec && (reinterpret_cast<uintptr_t>(planes[j]) & 15) == 0;
+  }
+  const int32_t* c = static_cast<const int32_t*>(codes);
+  unsigned* p = static_cast<unsigned*>(part);
+  const long long entries = static_cast<long long>(nplanes) * cap;
+  cudaError_t err;
+  if (tier == kTierGlobal) {
+    err = cudaMemsetAsync(part, 0, static_cast<size_t>(entries) * 4, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const PlaneGlobalKernel kernel = plane_global_kernel_for(op);
+    kernel<<<blocks, kPlaneThreads, 0, s>>>(ptrs, c, p, n, cap, nplanes);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    const int finish_blocks = static_cast<int>((entries + kThreads - 1) / kThreads);
+    if (op == kOpSum) {
+      plane_finish_kernel<kOpSum><<<finish_blocks, kThreads, 0, s>>>(p, cap, nplanes, out,
+                                                                     out_stride, out_col);
+    } else if (op == kOpMin) {
+      plane_finish_kernel<kOpMin><<<finish_blocks, kThreads, 0, s>>>(p, cap, nplanes, out,
+                                                                     out_stride, out_col);
+    } else {
+      plane_finish_kernel<kOpMax><<<finish_blocks, kThreads, 0, s>>>(p, cap, nplanes, out,
+                                                                     out_stride, out_col);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int groups = (nplanes + group - 1) / group;
+  if (blocks % groups != 0) return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem = 0;
+  const PlaneKernel kernel = plane_kernel(op, tier, cap, group, vec, &smem);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tables = blocks / groups;
+  kernel<<<blocks, kPlaneThreads, smem, s>>>(ptrs, c, p, n, cap, nplanes, group, tables);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int merge_blocks = static_cast<int>((entries + 31) / 32);
+  if (op == kOpSum) {
+    plane_merge_kernel<kOpSum><<<merge_blocks, 32 * kPlaneReduceWarps, 0, s>>>(
+        p, cap, nplanes, group, tables, out, out_stride, out_col);
+  } else if (op == kOpMin) {
+    plane_merge_kernel<kOpMin><<<merge_blocks, 32 * kPlaneReduceWarps, 0, s>>>(
+        p, cap, nplanes, group, tables, out, out_stride, out_col);
+  } else {
+    plane_merge_kernel<kOpMax><<<merge_blocks, 32 * kPlaneReduceWarps, 0, s>>>(
+        p, cap, nplanes, group, tables, out, out_stride, out_col);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -499,26 +868,6 @@ int daft_segment_sum_planes_f32(const void* planes, const void* codes, void* out
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(planes), static_cast<const int32_t*>(codes),
         static_cast<float*>(out), n, p, cap);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K2: table (cap x Q, uint32) must be filled with the encoded identity
-// (0xff800000 for min, 0x007fffff for max); out (cap x Q, f32) is written.
-int daft_segment_extreme_planes(const void* planes, const void* codes,
-                                void* table, void* out, long long n, int q,
-                                int cap, int is_min, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = n * static_cast<long long>(q);
-  if (total > 0) {
-    segment_extreme_kernel<<<grid_for(total), kThreads, 0, s>>>(
-        static_cast<const float*>(planes), static_cast<const int32_t*>(codes),
-        static_cast<unsigned int*>(table), n, q, cap, is_min);
-  }
-  const long long m = static_cast<long long>(cap) * q;
-  if (m > 0) {
-    decode_f32_kernel<<<grid_for(m), kThreads, 0, s>>>(
-        static_cast<const unsigned int*>(table), static_cast<float*>(out), m);
   }
   return static_cast<int>(cudaGetLastError());
 }

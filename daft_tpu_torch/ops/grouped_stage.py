@@ -11,6 +11,7 @@ reduced by the segment kernels of ops/segment_kernels.py:
   integer sums (``_isum_digit``; the host recombines them in uint64);
 - K2 ``segment_extreme_planes`` takes the per-group minimum of the local
   first-row index (group order = first occurrence, as on the host);
+  both take their planes as a list, so no (N, P) stack is built;
 - K3 ``segment_extreme_int64`` takes exact integer and date minima/maxima.
 
 The output contract is the reference's ``{"mm", "ext", "sct"}`` dict, so
@@ -347,14 +348,14 @@ class GroupedAggStage:
                     max_slots.append(slot)
                     max_planes.append(plane)
 
-            acc_mm = sk.segment_sum_planes(
-                torch.stack(planes, dim=-1).contiguous(), seg, cap)
+            # every plane above is a fresh full-length tensor (an elementwise
+            # result, never a broadcast view): the kernels read them in place
+            acc_mm = sk.segment_sum_planes(planes, seg, cap)
             ext_out: List = [None] * len(ext_specs)
             for op, slots_, planes_ in (("min", min_slots, min_planes),
                                         ("max", max_slots, max_planes)):
                 if planes_:
-                    red = sk.segment_extreme_planes(
-                        torch.stack(planes_, dim=-1).contiguous(), seg, cap, op)
+                    red = sk.segment_extreme_planes(planes_, seg, cap, op)
                     for j, slot in enumerate(slots_):
                         ext_out[slot] = red[:, j]
             # slot 0 back to the global f64 index contract (+inf = empty group)

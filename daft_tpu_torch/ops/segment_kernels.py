@@ -15,18 +15,25 @@ bound and design) and has a plain PyTorch version beside it:
 - ``segment_extreme_planes`` (K2, replaces ``segment_extreme_planes``);
 - ``segment_extreme_int64`` (K3, replaces ``segment_extreme_int64``).
 
+K1 and K2 take their planes as a list of 1-D tensors (the rows of a (P, N)
+tensor qualify), so the caller never stacks them; K1a keeps the reference's
+(N, P) layout. Their plain versions stack the list and compute as the
+reference does.
+
 A wrapper checks device, dtype, shape and contiguity, allocates the outputs,
 and then either calls the plain version (a tensor on the CPU) or launches the
 kernel on the current CUDA stream and counts the launch
-(ops/counters.py ``launches_<name>``; a call routed to the plain version
-counts ``plain_<name>`` instead). For a CUDA tensor it launches or raises:
+(ops/counters.py ``launches_<name>``: one per launch of the kernel, its
+first pass and the merge of its partial tables; K1 and K2 launch once per
+chunk of 64 planes; a call routed to the plain version counts
+``plain_<name>`` instead). For a CUDA tensor it launches or raises:
 nothing falls back to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -44,9 +51,6 @@ MAX_KERNEL_BUCKET = 1 << 24
 
 _I64_MIN = -(1 << 63)
 _I64_MAX = (1 << 63) - 1
-# order-preserving uint32 keys of +inf / -inf, stored in an int32 table
-_F32_MIN_IDENT_KEY = 0xFF800000 - (1 << 32)
-_F32_MAX_IDENT_KEY = 0x007FFFFF
 
 _lib = None
 
@@ -59,16 +63,17 @@ def _library():
 
         lib = library(_SOURCE)
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.daft_segment_sum_planes.argtypes = [vp, vp, vp, ll, i32, i32, vp]
+        lib.daft_segment_planes_blocks.argtypes = [i32, i32, i32, i32, i32,
+                                                   ctypes.POINTER(i32)]
+        lib.daft_segment_planes.argtypes = [i32, ctypes.POINTER(vp), i32, vp, vp, vp, ll,
+                                            i32, i32, i32, i32, i32, i32, vp]
         lib.daft_segment_sum_planes_f32.argtypes = [vp, vp, vp, ll, i32, i32, vp]
-        lib.daft_segment_extreme_planes.argtypes = [vp, vp, vp, vp, ll, i32, i32,
-                                                    i32, vp]
         lib.daft_segment_extreme_int64_parts.argtypes = [i32, i32, i32,
                                                          ctypes.POINTER(i32)]
         lib.daft_segment_extreme_int64.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, i32,
                                                    i32, i32, i32, i32, i32, vp]
-        for fn in (lib.daft_segment_sum_planes, lib.daft_segment_sum_planes_f32,
-                   lib.daft_segment_extreme_planes,
+        for fn in (lib.daft_segment_planes_blocks, lib.daft_segment_planes,
+                   lib.daft_segment_sum_planes_f32,
                    lib.daft_segment_extreme_int64_parts,
                    lib.daft_segment_extreme_int64):
             fn.restype = ctypes.c_int
@@ -112,36 +117,160 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# ---- K1 and K2: planes by pointer ---------------------------------------------------
+
+
+class PlaneTier(NamedTuple):
+    """How K1 and K2 lay out their tables for one chunk of planes
+    (ops/csrc/segment_reduce.cu)."""
+
+    kind: str    # "block" (shared-memory tables) or "global"
+    group: int   # planes per table; the global tier's one table holds all
+
+
+# planes per launch pair: their pointers ride in the kernel's parameters
+PLANE_CHUNK = 64
+# shared memory one block may take (H100: 227 KB)
+PLANE_SMEM_MAX = 232448
+_PLANE_TIER_IDS = {"block": 0, "global": 1}
+_PLANE_OP_IDS = {"sum": 0, "min": 1, "max": 2}
+
+
+class _PlaneChunk(NamedTuple):
+    """One launch pair of K1 or K2: planes [col, col + planes) of the call."""
+
+    col: int
+    planes: int
+    tier: int     # _PLANE_TIER_IDS
+    group: int
+    blocks: int   # the first pass's grid
+    words: int    # uint32 scratch: the partial tables, or the global table
+
+
+# (device, op, cap, planes) -> (the call's chunks, scratch words)
+_plane_plans: Dict[Tuple[int, int, int, int], Tuple[Tuple[_PlaneChunk, ...], int]] = {}
+
+
+def segment_planes_tier(cap: int, nplanes: int) -> PlaneTier:
+    """K1's and K2's tier for a chunk of ``nplanes`` planes at ``cap``: uint32
+    tables of ``group`` planes in a block's shared memory (the most planes
+    whose cap x group x 4 bytes fit); one table in device memory when a
+    single plane's does not fit."""
+    if not 0 < cap <= KERNEL_MAX_SEGMENTS:
+        raise ValueError(f"K1/K2 take 1 to {KERNEL_MAX_SEGMENTS} segments, got {cap}")
+    if not 0 < nplanes <= PLANE_CHUNK:
+        raise ValueError(f"a chunk holds 1 to {PLANE_CHUNK} planes, got {nplanes}")
+    fit = PLANE_SMEM_MAX // (cap * 4)
+    if fit == 0:
+        return PlaneTier("global", nplanes)
+    return PlaneTier("block", min(nplanes, fit))
+
+
+def _plane_plan(device: int, op: int, cap: int,
+                p: int) -> Tuple[Tuple[_PlaneChunk, ...], int]:
+    """The launch pairs of a call on ``p`` planes, one per chunk of
+    PLANE_CHUNK: each chunk's tier and first-pass grid (as many blocks as fit
+    on the current device at once, in equal shares per plane group, at least
+    one each), and the scratch the largest needs; cached per shape."""
+    key = (device, op, cap, p)
+    plan = _plane_plans.get(key)
+    if plan is None:
+        chunks = []
+        for col in range(0, p, PLANE_CHUNK):
+            k = min(PLANE_CHUNK, p - col)
+            tier = segment_planes_tier(cap, k)
+            tier_id = _PLANE_TIER_IDS[tier.kind]
+            fit = ctypes.c_int(0)
+            rc = _library().daft_segment_planes_blocks(op, tier_id, cap, k, tier.group,
+                                                       ctypes.byref(fit))
+            if rc != 0:
+                raise RuntimeError(f"segment planes: no launch fits tier {tier} at cap "
+                                   f"{cap} (CUDA error {rc})")
+            if tier.kind == "global":
+                blocks, words = fit.value, k * cap
+            else:
+                groups = -(-k // tier.group)
+                blocks = groups * max(1, fit.value // groups)
+                words = blocks * tier.group * cap
+            chunks.append(_PlaneChunk(col, k, tier_id, tier.group, blocks, words))
+        plan = _plane_plans[key] = (tuple(chunks), max(c.words for c in chunks))
+    return plan
+
+
+def _check_planes(planes, codes: torch.Tensor, name: str) -> int:
+    """Check a plane list against the codes (each plane 1-D, f32,
+    contiguous, as long as the codes and on their device); returns the row
+    count. The loop reads only cheap attributes: at q12's shapes the
+    wrapper's host time is about the kernels' own."""
+    if not isinstance(planes, (list, tuple)):
+        raise TypeError(f"{name}: planes must be a list or tuple of 1-D tensors, "
+                        f"got {type(planes).__name__}")
+    if not planes:
+        raise ValueError(f"{name}: no planes")
+    _check(codes, "codes", torch.int32, 1)
+    n, dev, f32 = codes.shape[0], codes.device, torch.float32
+    for j, t in enumerate(planes):
+        if (t.dtype is not f32 or t.ndim != 1 or t.numel() != n or t.device != dev
+                or not t.is_contiguous()):
+            _check(t, f"plane {j}", f32, 1)
+            if t.device != dev:
+                raise ValueError(f"{name}: plane {j} on {t.device}, codes on {dev}")
+            raise ValueError(f"{name}: plane {j} has {t.shape[0]} rows, codes {n}")
+    return n
+
+
+def _launch_planes(op: str, planes, codes: torch.Tensor, cap: int, out: torch.Tensor,
+                   name: str) -> None:
+    """K1 or K2 on the card: one launch pair per chunk of PLANE_CHUNK planes,
+    each writing its columns of ``out`` and counted once in
+    ``launches_<name>``; the chunks share one scratch buffer in stream
+    order."""
+    lib = _library()
+    dev = codes.device
+    op_id = _PLANE_OP_IDS[op]
+    n, p = codes.shape[0], len(planes)
+    ptrs = [t.data_ptr() for t in planes]
+    with torch.cuda.device(dev):
+        chunks, words = _plane_plan(dev.index, op_id, cap, p)
+        part = torch.empty((words,), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for c in chunks:
+            rc = lib.daft_segment_planes(
+                op_id, (ctypes.c_void_p * c.planes)(*ptrs[c.col:c.col + c.planes]), c.planes,
+                codes.data_ptr(), part.data_ptr(), out.data_ptr(), n, cap, c.tier, c.group,
+                c.blocks, p, c.col, stream)
+            _launched(rc, name)
+
+
 # ---- K1 ----------------------------------------------------------------------------
 
 
-def segment_sum_planes(planes: torch.Tensor, codes: torch.Tensor,
+def segment_sum_planes(planes: Sequence[torch.Tensor], codes: torch.Tensor,
                        cap: int) -> torch.Tensor:
-    """Sum planes (N x P, f32) into segments (cap x P, f64) by codes (N, i32).
+    """Sum P planes (each N f32, contiguous) into segments (cap x P, f64) by
+    codes (N, i32); codes outside [0, cap) are dropped.
 
-    Exact only for integer-valued planes whose segment totals stay below
-    2^53 (rows, counts, 8-bit digits): the kernel adds in f64 atomics in no
-    fixed order."""
-    _check(planes, "planes", torch.float32, 2)
-    _check(codes, "codes", torch.int32, 1)
-    n, p = planes.shape
-    if codes.shape[0] != n:
-        raise ValueError(f"codes has {codes.shape[0]} rows, planes {n}")
-    if not _route(planes, codes):
+    The contract (ops/csrc/segment_reduce.cu): every plane value is an
+    integer in [0, 255] (rows, counts, 8-bit digits), and N < 2^24, which is
+    checked here. The kernel adds in uint32 then, exactly in any order."""
+    n = _check_planes(planes, codes, "segment_sum_planes")
+    if n >= MAX_KERNEL_BUCKET:
+        raise ValueError(f"segment_sum_planes: {n} rows, the contract takes fewer than "
+                         f"{MAX_KERNEL_BUCKET}")
+    if not _route(codes):
         counters.bump("plain_segment_sum_planes")
         return segment_sum_planes_plain(planes, codes, cap)
-    out = torch.zeros((cap, p), dtype=torch.float64, device=planes.device)
-    with torch.cuda.device(planes.device):
-        rc = _library().daft_segment_sum_planes(
-            planes.data_ptr(), codes.data_ptr(), out.data_ptr(), n, p, cap,
-            _stream(planes))
-    _launched(rc, "segment_sum_planes")
+    out = torch.empty((cap, len(planes)), dtype=torch.float64, device=codes.device)
+    if cap:
+        _launch_planes("sum", planes, codes, cap, out, "segment_sum_planes")
     return out
 
 
-def segment_sum_planes_plain(planes: torch.Tensor, codes: torch.Tensor,
+def segment_sum_planes_plain(planes: Sequence[torch.Tensor], codes: torch.Tensor,
                              cap: int) -> torch.Tensor:
-    """Plain K1: per-window ``index_add_`` in f32, windows summed in f64."""
+    """Plain K1: the planes stacked to (N x P), per-window ``index_add_`` in
+    f32, windows summed in f64."""
+    planes = torch.stack(list(planes), dim=1)
     n, p = planes.shape
     inside = (codes >= 0) & (codes < cap)
     safe = torch.where(inside, codes, cap).long()
@@ -198,36 +327,30 @@ def segment_sum_planes_f32_plain(planes: torch.Tensor, codes: torch.Tensor,
 # ---- K2 ----------------------------------------------------------------------------
 
 
-def segment_extreme_planes(planes: torch.Tensor, codes: torch.Tensor, cap: int,
+def segment_extreme_planes(planes: Sequence[torch.Tensor], codes: torch.Tensor, cap: int,
                            op: str) -> torch.Tensor:
-    """min/max planes (N x Q, f32, identity-filled) into (cap x Q, f32).
+    """min/max of Q planes (each N f32, contiguous, identity-filled) by codes
+    (N, i32) into (cap x Q, f32); codes outside [0, cap) are dropped.
 
     Masked-out rows must already carry the identity (+inf for min, -inf for
     max); an empty segment keeps the identity. NaN is outside the contract."""
     if op not in ("min", "max"):
         raise ValueError(op)
-    _check(planes, "planes", torch.float32, 2)
-    _check(codes, "codes", torch.int32, 1)
-    n, q = planes.shape
-    if codes.shape[0] != n:
-        raise ValueError(f"codes has {codes.shape[0]} rows, planes {n}")
-    if not _route(planes, codes):
+    _check_planes(planes, codes, "segment_extreme_planes")
+    if not _route(codes):
         counters.bump("plain_segment_extreme_planes")
         return segment_extreme_planes_plain(planes, codes, cap, op)
-    ident_key = _F32_MIN_IDENT_KEY if op == "min" else _F32_MAX_IDENT_KEY
-    table = torch.full((cap, q), ident_key, dtype=torch.int32, device=planes.device)
-    out = torch.empty((cap, q), dtype=torch.float32, device=planes.device)
-    with torch.cuda.device(planes.device):
-        rc = _library().daft_segment_extreme_planes(
-            planes.data_ptr(), codes.data_ptr(), table.data_ptr(), out.data_ptr(),
-            n, q, cap, int(op == "min"), _stream(planes))
-    _launched(rc, "segment_extreme_planes")
+    out = torch.empty((cap, len(planes)), dtype=torch.float32, device=codes.device)
+    if cap:
+        _launch_planes(op, planes, codes, cap, out, "segment_extreme_planes")
     return out
 
 
-def segment_extreme_planes_plain(planes: torch.Tensor, codes: torch.Tensor,
+def segment_extreme_planes_plain(planes: Sequence[torch.Tensor], codes: torch.Tensor,
                                  cap: int, op: str) -> torch.Tensor:
-    """Plain K2: ``scatter_reduce_`` (amin/amax) into an identity-filled table."""
+    """Plain K2: the planes stacked to (N x Q), ``scatter_reduce_``
+    (amin/amax) into an identity-filled table."""
+    planes = torch.stack(list(planes), dim=1)
     n, q = planes.shape
     ident = float("inf") if op == "min" else float("-inf")
     inside = (codes >= 0) & (codes < cap)

@@ -42,41 +42,92 @@ def _codes(rng, n, cap):
     return rng.integers(-2, cap + 3, n).astype(np.int32)
 
 
-@pytest.mark.parametrize("n,cap,p", [(65536, 256, 15), (1 << 20, 16384, 15),
-                                     (4096, 8, 1)])
-def test_segment_sum_planes_matches_plain(cuda, n, cap, p):
-    rng = np.random.default_rng(n + cap)
-    planes = rng.integers(0, 256, (n, p)).astype(np.float32)
-    planes[rng.random((n, p)) < 0.3] = 0.0
-    codes = _codes(rng, n, cap)
+def _kept_codes(rng, n, cap, keep):
+    # a `keep` share of rows in [0, cap), the rest trashed below 0 or at and
+    # above cap
+    trash = rng.choice(np.array([-2, -1, cap, cap + 7], dtype=np.int64), n)
+    return np.where(rng.random(n) < keep, rng.integers(0, cap, n), trash).astype(np.int32)
+
+
+# K1 and K2 by tier (segment_kernels.segment_planes_tier): block tables of
+# plane groups (also at cap 8 with nearly every row kept on 8 entries), one
+# table in device memory at cap 2^17, a list past one 64-plane chunk; n not
+# a multiple of 4 in each tier, and every row trashed
+PLANE_CASES = [
+    (65536, 256, 15, 0.7), (1 << 20, 16384, 15, 0.98), (1 << 22, 8, 5, 0.98),
+    (1 << 20, 1 << 17, 4, 0.7), (1 << 18, 4096, 73, 0.7),
+    (4099, 256, 3, 0.7), (4099, 8, 3, 0.7), (4099, 1 << 17, 2, 0.7),
+    (4096, 256, 3, 0.0), (4096, 8, 3, 0.0), (4096, 1 << 17, 3, 0.0),
+    (4096, 8, 1, 1.0), (1, 16, 1, 1.0),
+]
+
+
+@pytest.mark.parametrize("n,cap,p,keep", PLANE_CASES)
+def test_segment_sum_planes_matches_plain(cuda, n, cap, p, keep):
+    rng = np.random.default_rng(n + cap + p)
+    planes = rng.integers(0, 256, (p, n)).astype(np.float32)
+    planes[rng.random((p, n)) < 0.3] = 0.0
+    codes = _kept_codes(rng, n, cap, keep)
+    # the rows of one (P, N) tensor: 16-byte aligned planes when n % 4 == 0
     tp, tc = torch.from_numpy(planes).to(cuda), torch.from_numpy(codes).to(cuda)
     before = counters.snapshot()["launches_segment_sum_planes"]
-    got = sk.segment_sum_planes(tp, tc, cap)
+    got = sk.segment_sum_planes(list(tp), tc, cap)
     torch.cuda.synchronize()
-    assert counters.snapshot()["launches_segment_sum_planes"] == before + 1
-    want = sk.segment_sum_planes_plain(tp, tc, cap)
+    # one launch per chunk of PLANE_CHUNK planes
+    chunks = -(-p // sk.PLANE_CHUNK)
+    assert counters.snapshot()["launches_segment_sum_planes"] == before + chunks
+    want = sk.segment_sum_planes_plain(list(tp), tc, cap)
     assert got.dtype == torch.float64 and got.shape == (cap, p)
     assert torch.equal(got, want)
-    cpu = sk.segment_sum_planes(torch.from_numpy(planes), torch.from_numpy(codes), cap)
+    cpu = sk.segment_sum_planes(list(torch.from_numpy(planes)), torch.from_numpy(codes), cap)
     assert torch.equal(got.cpu(), cpu)
+    if keep == 0:
+        assert not got.any()
+    # views one row in: off their 16-byte alignment, the single-row path
+    if n > 1:
+        got = sk.segment_sum_planes([t[1:] for t in tp], tc[1:], cap)
+        assert torch.equal(got, sk.segment_sum_planes_plain([t[1:] for t in tp], tc[1:], cap))
+
+
+@pytest.mark.parametrize("cap", [1, 256, 1 << 17])
+def test_segment_sum_planes_exact_at_the_contract_edge(cuda, cap):
+    # 2^23 rows of 255 in one segment: 2,139,095,040, past f32's exact
+    # integers and near uint32's end, must come out exact in every tier
+    n = 1 << 23
+    planes = [torch.full((n,), 255.0, device=cuda), torch.ones(n, device=cuda)]
+    codes = torch.zeros(n, dtype=torch.int32, device=cuda)
+    got = sk.segment_sum_planes(planes, codes, cap)
+    assert got[0].tolist() == [2_139_095_040.0, float(n)]
+    assert torch.equal(got, sk.segment_sum_planes_plain(planes, codes, cap))
+    assert not got[1:].any()
 
 
 @pytest.mark.parametrize("op", ["min", "max"])
-@pytest.mark.parametrize("n,cap,q", [(1 << 20, 16384, 1), (65536, 256, 3)])
-def test_segment_extreme_planes_matches_plain(cuda, op, n, cap, q):
+@pytest.mark.parametrize("n,cap,q,keep", PLANE_CASES)
+def test_segment_extreme_planes_matches_plain(cuda, op, n, cap, q, keep):
     rng = np.random.default_rng(n + q)
     ident = np.inf if op == "min" else -np.inf
-    planes = (rng.standard_normal((n, q)) * 1e6).astype(np.float32)
-    planes[rng.random((n, q)) < 0.4] = ident
-    planes[:4, 0] = [np.inf, -np.inf, -1.5, 3.0]
-    codes = _codes(rng, n, cap)
+    planes = (rng.standard_normal((q, n)) * 1e6).astype(np.float32)
+    planes[rng.random((q, n)) < 0.4] = ident
+    codes = _kept_codes(rng, n, cap, keep)
+    k = min(n, 4)
+    planes[0, :k] = [np.inf, -np.inf, -1.5, 3.0][:k]
+    codes[:k] = np.where(keep > 0, [0, 0, 1 % cap, 1 % cap], cap)[:k]
     tp, tc = torch.from_numpy(planes).to(cuda), torch.from_numpy(codes).to(cuda)
     before = counters.snapshot()["launches_segment_extreme_planes"]
-    got = sk.segment_extreme_planes(tp, tc, cap, op)
+    got = sk.segment_extreme_planes(list(tp), tc, cap, op)
     torch.cuda.synchronize()
-    assert counters.snapshot()["launches_segment_extreme_planes"] == before + 1
-    want = sk.segment_extreme_planes_plain(tp, tc, cap, op)
+    chunks = -(-q // sk.PLANE_CHUNK)
+    assert counters.snapshot()["launches_segment_extreme_planes"] == before + chunks
+    want = sk.segment_extreme_planes_plain(list(tp), tc, cap, op)
+    assert got.dtype == torch.float32 and got.shape == (cap, q)
     assert torch.equal(got, want)
+    if keep == 0:
+        assert (got == ident).all()
+    if n > 1:
+        got = sk.segment_extreme_planes([t[1:] for t in tp], tc[1:], cap, op)
+        want = sk.segment_extreme_planes_plain([t[1:] for t in tp], tc[1:], cap, op)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("op", ["min", "max"])
@@ -124,7 +175,7 @@ def test_empty_segments_keep_identity(cuda):
     assert ne.cpu().tolist() == [i == 7 for i in range(16)]
     assert mn[7].item() == 3 and mx[7].item() == 3
     assert mn[0].item() == I64_MAX and mx[0].item() == I64_MIN
-    planes = torch.full((1024, 1), float("inf"), device=cuda)
+    planes = [torch.full((1024,), float("inf"), device=cuda)]
     out = sk.segment_extreme_planes(planes, codes, 16, "min")
     assert torch.isinf(out).all()
 
@@ -249,7 +300,7 @@ def test_segment_sum_planes_f32_matches_plain(cuda, n, cap, p):
     assert counters.snapshot()["launches_segment_sum_planes_f32"] == before + 1
     assert got.dtype == torch.float32 and got.shape == (cap, p)
     assert torch.equal(got, sk.segment_sum_planes_f32_plain(tp, tc, cap))
-    assert torch.equal(got, sk.segment_sum_planes(tp, tc, cap).float())
+    assert torch.equal(got, sk.segment_sum_planes(list(tp.t().contiguous()), tc, cap).float())
 
 
 @pytest.mark.parametrize("n_dim,n_fact,cap,p", [(300, 4096, 16, 3), (1 << 20, 1 << 22, 8, 2)])

@@ -53,10 +53,15 @@ def _stage_exprs(m, case):
         aggs = [col("a").sum().alias("s"), col("a").mean().alias("m"),
                 col("a").count().alias("c"), col("a").min().alias("a0"),
                 col("b").max().alias("b1"), lit(1).count("all").alias("all")]
-    else:  # "bounds": a CASE-of-literals sum needs one digit plane
+    elif case == "bounds":  # a CASE-of-literals sum needs one digit plane
         pred = None
         aggs = [(col("a") > 0).if_else(lit(1), lit(0)).sum().alias("pos"),
                 (col("a") * 3 - 7).sum().alias("lin")]
+    else:  # "wide": 8 int64 sums of 9 planes each, past one 64-plane K1 chunk,
+        # and two aggregations of a literal child, which broadcasts
+        pred = col("d") <= lit(CUTOFF)
+        aggs = [(col("b") + lit(i)).sum().alias(f"s{i}") for i in range(8)]
+        aggs += [lit(7).sum().alias("seven"), lit(1).count("all").alias("all")]
     return pred, [col("k")], aggs
 
 
@@ -84,6 +89,31 @@ def _both_stages(tbl, case):
 
 @pytest.mark.parametrize("case", ["slice", "nulls", "bounds"])
 def test_build_kernel_matches_build_pallas(case):
+    _compare_stage_tables(case)
+
+
+def test_stage_passes_contiguous_planes_past_one_chunk(monkeypatch):
+    # K1 and K2 get lists of full-length stride-1 planes (a broadcast child's
+    # planes included), 76 sum planes in all, and still match the reference
+    from daft_tpu_torch.ops import segment_kernels as sk
+
+    seen = []
+
+    def spy(fn):
+        def call(planes, codes, *args):
+            seen.append([(tuple(p.shape), p.stride(), p.is_contiguous()) for p in planes])
+            return fn(planes, codes, *args)
+        return call
+
+    monkeypatch.setattr(sk, "segment_sum_planes", spy(sk.segment_sum_planes))
+    monkeypatch.setattr(sk, "segment_extreme_planes", spy(sk.segment_extreme_planes))
+    _compare_stage_tables("wide")
+    assert [len(s) for s in seen] == [1 + 8 * 9 + 2 + 1, 1]
+    assert all(shape == (4096,) and stride == (1,) and contiguous
+               for s in seen for shape, stride, contiguous in s)
+
+
+def _compare_stage_tables(case):
     n, cap, offset = 3000, 64, 12345
     tbl = _table(n, seed=len(case))
     ref, port, ref_batch, port_batch = _both_stages(tbl, case)

@@ -1,12 +1,13 @@
 """The port's segment kernels K1-K3 and K1a (daft_tpu_torch/ops/segment_kernels.py)
 on CPU tensors, where each wrapper runs its plain PyTorch version, against
 the reference's Pallas kernels (daft_tpu/ops/pallas_kernels.py) in interpret
-mode on the same numpy inputs. Every comparison is bit for bit where the
-planes are integer-valued (exact in f32 per 32K-row window and in f64 across
-windows; K1a in one f32 window below 2^24), and extremes do not depend on
-order. K1a over normal (non-integer) planes keeps the reference's own
-tolerance, atol 1e-3 (tests/test_pallas.py), since f32 sums in another
-order differ in the last bits.
+mode on the same numpy inputs. K1 and K2 take a list of planes, the
+reference its (N, P) stack of the same planes. Every comparison is bit for
+bit where the planes are integer-valued (exact in f32 per 32K-row window and
+in f64 across windows; K1a in one f32 window below 2^24), and extremes do
+not depend on order. K1a over normal (non-integer) planes keeps the
+reference's own tolerance, atol 1e-3 (tests/test_pallas.py), since f32 sums
+in another order differ in the last bits.
 """
 
 import jax.numpy as jnp
@@ -26,7 +27,14 @@ def _codes(rng, n, cap):
     return rng.integers(-3, cap + 3, n).astype(np.int32)
 
 
-@pytest.mark.parametrize("n,cap,p", [(65536, 256, 5), (4096, 8, 1), (2048, 2048, 3)])
+def _columns(planes: np.ndarray):
+    """The columns of an (N, P) array as a list of P contiguous tensors."""
+    return [torch.from_numpy(np.ascontiguousarray(planes[:, j]))
+            for j in range(planes.shape[1])]
+
+
+@pytest.mark.parametrize("n,cap,p", [(65536, 256, 5), (4096, 8, 1), (2048, 2048, 3),
+                                     (8192, 16384, 15), (4096, 64, 73)])
 def test_segment_sum_planes_matches_pallas(n, cap, p):
     rng = np.random.default_rng(n + cap + p)
     planes = rng.integers(0, 256, (n, p)).astype(np.float32)
@@ -35,13 +43,33 @@ def test_segment_sum_planes_matches_pallas(n, cap, p):
     want = np.asarray(pk.segment_sum_planes_windowed(
         jnp.asarray(planes), jnp.asarray(codes), cap, interpret=True))
     before = counters.snapshot()
-    got = sk.segment_sum_planes(torch.from_numpy(planes), torch.from_numpy(codes), cap)
+    got = sk.segment_sum_planes(_columns(planes), torch.from_numpy(codes), cap)
     after = counters.snapshot()
     assert got.dtype == torch.float64 and tuple(got.shape) == (cap, p)
     np.testing.assert_array_equal(got.numpy(), want)
     # a CPU tensor takes the plain version: counted as such, never as a launch
     assert after["plain_segment_sum_planes"] == before["plain_segment_sum_planes"] + 1
     assert after["launches_segment_sum_planes"] == before["launches_segment_sum_planes"]
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_planes_as_rows_of_a_p_by_n_tensor(op):
+    # the rows of one (P, N) tensor are contiguous planes: no stack needed
+    rng = np.random.default_rng(11)
+    n, cap, p = 4096, 96, 6
+    rows = rng.integers(0, 256, (p, n)).astype(np.float32)
+    codes = _codes(rng, n, cap)
+    codes[:3] = [-1, cap, cap + 100]
+    t = torch.from_numpy(rows)
+    if op == "sum":
+        want = np.asarray(pk.segment_sum_planes_windowed(
+            jnp.asarray(rows.T.copy()), jnp.asarray(codes), cap, interpret=True))
+        got = sk.segment_sum_planes(list(t), torch.from_numpy(codes), cap)
+    else:
+        want = np.asarray(pk.segment_extreme_planes(
+            jnp.asarray(rows.T.copy()), jnp.asarray(codes), cap, op, interpret=True))
+        got = sk.segment_extreme_planes(list(t.unbind(0)), torch.from_numpy(codes), cap, op)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_segment_sum_planes_two_windows_exceed_f32_window():
@@ -52,7 +80,7 @@ def test_segment_sum_planes_two_windows_exceed_f32_window():
     codes = np.zeros(n, dtype=np.int32)
     want = np.asarray(pk.segment_sum_planes_windowed(
         jnp.asarray(planes), jnp.asarray(codes), cap, interpret=True))
-    got = sk.segment_sum_planes(torch.from_numpy(planes), torch.from_numpy(codes), cap)
+    got = sk.segment_sum_planes(_columns(planes), torch.from_numpy(codes), cap)
     np.testing.assert_array_equal(got.numpy(), want)
     assert got[0, 0].item() == 255.0 * n
 
@@ -72,7 +100,7 @@ def test_segment_sum_planes_f32_matches_pallas_on_integer_planes(n, cap, p):
     np.testing.assert_array_equal(got.numpy(), want)
     # K1's f64 output over the same planes, cast to f32
     np.testing.assert_array_equal(
-        sk.segment_sum_planes(torch.from_numpy(planes), torch.from_numpy(codes),
+        sk.segment_sum_planes(_columns(planes), torch.from_numpy(codes),
                               cap).float().numpy(), want)
     assert after["plain_segment_sum_planes_f32"] == before["plain_segment_sum_planes_f32"] + 1
     assert after["launches_segment_sum_planes_f32"] == before["launches_segment_sum_planes_f32"]
@@ -100,7 +128,8 @@ def test_segment_sum_planes_f32_single_block_and_empty_segments():
 
 
 @pytest.mark.parametrize("op", ["min", "max"])
-@pytest.mark.parametrize("n,cap,q", [(8192, 256, 2), (2048, 16, 1)])
+@pytest.mark.parametrize("n,cap,q", [(8192, 256, 2), (2048, 16, 1), (4096, 64, 15),
+                                     (2048, 32, 73)])
 def test_segment_extreme_planes_matches_pallas(op, n, cap, q):
     rng = np.random.default_rng(cap + q)
     ident = np.inf if op == "min" else -np.inf
@@ -112,8 +141,7 @@ def test_segment_extreme_planes_matches_pallas(op, n, cap, q):
     codes[:4] = [0, 0, 1, 1]
     want = np.asarray(pk.segment_extreme_planes(
         jnp.asarray(planes), jnp.asarray(codes), cap, op, interpret=True))
-    got = sk.segment_extreme_planes(torch.from_numpy(planes), torch.from_numpy(codes),
-                                    cap, op)
+    got = sk.segment_extreme_planes(_columns(planes), torch.from_numpy(codes), cap, op)
     assert got.dtype == torch.float32 and tuple(got.shape) == (cap, q)
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -125,7 +153,7 @@ def test_segment_extreme_planes_empty_segments_keep_identity():
     for op, ident in (("min", np.inf), ("max", -np.inf)):
         want = np.asarray(pk.segment_extreme_planes(
             jnp.asarray(planes), jnp.asarray(codes), cap, op, interpret=True))
-        got = sk.segment_extreme_planes(torch.from_numpy(planes),
+        got = sk.segment_extreme_planes(_columns(planes),
                                         torch.from_numpy(codes), cap, op).numpy()
         np.testing.assert_array_equal(got, want)
         assert np.all(got[np.arange(cap) != 5] == ident)
@@ -190,21 +218,78 @@ def test_segment_extreme_int64_tier(cap, tier):
 
 def test_wrappers_validate_inputs():
     planes = torch.zeros((16, 2), dtype=torch.float32)
+    cols = [torch.zeros(16), torch.zeros(16)]
     codes = torch.zeros(16, dtype=torch.int32)
     with pytest.raises(TypeError):
-        sk.segment_sum_planes(planes.double(), codes, 4)
+        sk.segment_sum_planes([c.double() for c in cols], codes, 4)
     with pytest.raises(TypeError):
-        sk.segment_sum_planes(planes, codes.long(), 4)
+        sk.segment_sum_planes(cols, codes.long(), 4)
     with pytest.raises(ValueError):
-        sk.segment_sum_planes(planes, codes[:8], 4)
+        sk.segment_sum_planes(cols, codes[:8], 4)
     with pytest.raises(TypeError):
         sk.segment_sum_planes_f32(planes.double(), codes, 4)
     with pytest.raises(ValueError):
         sk.segment_sum_planes_f32(planes, codes[:8], 4)
     with pytest.raises(ValueError):
-        sk.segment_extreme_planes(planes.t(), codes, 4, "min")
+        sk.segment_extreme_planes([planes[:, 0]], codes, 4, "min")  # stride 2
     with pytest.raises(ValueError):
-        sk.segment_extreme_planes(planes, codes, 4, "median")
+        sk.segment_extreme_planes(cols, codes, 4, "median")
     with pytest.raises(TypeError):
         sk.segment_extreme_int64(torch.zeros(16, dtype=torch.int32),
                                  torch.ones(16, dtype=torch.bool), codes, 4, "min")
+
+
+@pytest.mark.parametrize("fn", ["sum", "min"])
+def test_plane_wrappers_refuse_what_the_kernels_do_not_take(fn):
+    codes = torch.zeros(16, dtype=torch.int32)
+    good = torch.zeros(16)
+
+    def call(planes, c=codes):
+        if fn == "sum":
+            return sk.segment_sum_planes(planes, c, 4)
+        return sk.segment_extreme_planes(planes, c, 4, "min")
+
+    call([good, good])  # the accepted form
+    with pytest.raises(ValueError):   # a broadcast: stride 0
+        call([good, torch.zeros(1).expand(16)])
+    with pytest.raises(ValueError):   # a strided view
+        call([torch.zeros(32)[::2]])
+    with pytest.raises(ValueError):   # planes of unequal length
+        call([good, torch.zeros(15)])
+    with pytest.raises(ValueError):   # a 2-D plane
+        call([torch.zeros(16, 1)])
+    with pytest.raises(ValueError):   # planes on two devices
+        call([good, torch.zeros(16, device="meta")])
+    with pytest.raises(ValueError):   # no planes
+        call([])
+    with pytest.raises(TypeError):    # one stacked tensor, not a list of planes
+        call(torch.zeros(2, 16))
+    if fn == "sum":
+        # K1's contract: fewer than 2^24 rows
+        big = torch.zeros(sk.MAX_KERNEL_BUCKET, dtype=torch.int32)
+        with pytest.raises(ValueError):
+            call([torch.zeros(sk.MAX_KERNEL_BUCKET)], big)
+
+
+@pytest.mark.parametrize("cap,nplanes,tier", [
+    (8, 5, ("block", 5)), (16, 64, ("block", 64)), (17, 15, ("block", 15)),
+    (4096, 73 - 64, ("block", 9)), (4096, 64, ("block", 14)),
+    (16384, 15, ("block", 3)), (16384, 1, ("block", 1)), (32768, 15, ("block", 1)),
+    (58112, 2, ("block", 1)), (58113, 2, ("global", 2)), (65536, 15, ("global", 15)),
+    (1 << 17, 64, ("global", 64)),
+])
+def test_segment_planes_tier(cap, nplanes, tier):
+    got = sk.segment_planes_tier(cap, nplanes)
+    assert tuple(got) == tier
+    if got.kind == "global":
+        # one table of every plane, in device memory: no block holds one plane
+        assert got.group == nplanes and cap * 4 > sk.PLANE_SMEM_MAX
+    else:
+        # the most planes whose table fits a block's 227 KB of shared memory
+        assert got.group * cap * 4 <= sk.PLANE_SMEM_MAX
+        assert got.kind == "block"
+        assert got.group == nplanes or (got.group + 1) * cap * 4 > sk.PLANE_SMEM_MAX
+    for bad_cap, bad_planes in ((0, 1), (-1, 1), (sk.KERNEL_MAX_SEGMENTS + 1, 1),
+                                (8, 0), (8, sk.PLANE_CHUNK + 1)):
+        with pytest.raises(ValueError):
+            sk.segment_planes_tier(bad_cap, bad_planes)
