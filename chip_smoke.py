@@ -26,19 +26,22 @@ error (no phase catches its own failure):
             (P = 5) and K2 (Q = 1) again at q12's cap 8, K1, K2 and K3 again
             at cap 2^17 (l_partkey folded into 2^17 groups) and at cap 8
             (every kept row on l_shipmode's 7 codes), and K1 on 73 planes
-            at cap 4096 (past one 64-plane chunk); K1, K2, K3 and K6 also
-            by their device time under torch.profiler. K1's and K2's bound
+            at cap 4096 (past one 64-plane chunk). K1's and K2's bound
             counts the bytes the function needs (a trash row's plane values
             are not), beside every input read once; K4 at q12's
             (orders' 1.5 M keys into a 2^22-slot table, 2^23 lineitem keys
-            probed). K4's build is compared as the sorted set of its (key,
-            row) entries: where a key lands depends on the order the
-            threads claim their slots. K5 at q12's shapes on K4's table
-            (lineitem's keys, q12's ship-mode codes, orders' high/low
-            priority planes), also equal to q12's oracle for MAIL and SHIP;
-            K6 at the repartition cell's shapes (8 x 8 blocks of
-            23 x 2^20 + 4 words). K1a and K5 have no engine caller, in the
-            port or in the reference: they are held here alone;
+            probed, then the same keys shifted past the largest order key:
+            every probe misses and walks to an empty slot). K4's build is
+            compared as the
+            sorted set of its (key, row) entries: where a key lands depends
+            on the order the threads claim their slots. K5 at q12's shapes on
+            K4's table (lineitem's keys, q12's ship-mode codes, orders'
+            high/low priority planes), also equal to q12's oracle for MAIL
+            and SHIP; K6 at the repartition cell's shapes (8 x 8 blocks of
+            23 x 2^20 + 4 words). Every kernel also by its device time under
+            torch.profiler (K4's build with the table's clearing, where it
+            has one). K1a and K5 have no engine caller, in the port or in
+            the reference: they are held here alone;
 4. slice:   the per-supplier shipment summary over lineitem through the port
             with device="cuda", device_mode="on"; the counters are zeroed
             just before that run and read just after it. The result must equal
@@ -75,8 +78,9 @@ port; nothing of JAX, pyarrow or daft_tpu.
 
 runs phases 1-3 alone, on the daft_tpu_torch of the checkout at DIR (by
 default the one beside this script): to time an unpacked parent commit's
-kernels and this tree's in one call, on one card, in turns. A checkout whose
-K1 and K2 take one (N, P) tensor gets the stack of the same planes.
+kernels and this tree's in one call, on one card, in turns. The checkout
+must take the same kernel arguments as this script's package: an older
+parent is driven by its own unpacked chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -373,15 +377,6 @@ def time_s(fn, runs: int = 3):
     return out
 
 
-def plane_arg(sk, planes):
-    """K1's and K2's planes as the package under test takes them: the list,
-    or its (N, P) stack for a checkout from before the list contract
-    (--root), which has no segment_planes_tier."""
-    import torch
-
-    return planes if hasattr(sk, "segment_planes_tier") else torch.stack(planes, dim=1)
-
-
 def plane_case(sk, op: str, planes, codes, cap: int, plain_iters: int = 5) -> dict:
     """K1 (op "sum") or K2 (op "min") on a list of planes at one shape: equal
     to its plain version bit for bit, then the kernel's time by CUDA events
@@ -394,19 +389,18 @@ def plane_case(sk, op: str, planes, codes, cap: int, plain_iters: int = 5) -> di
     read once and the output written once."""
     import torch
 
-    arg = plane_arg(sk, planes)
     if op == "sum":
         def call():
-            return sk.segment_sum_planes(arg, codes, cap)
+            return sk.segment_sum_planes(planes, codes, cap)
 
         def plain():
-            return sk.segment_sum_planes_plain(arg, codes, cap)
+            return sk.segment_sum_planes_plain(planes, codes, cap)
     else:
         def call():
-            return sk.segment_extreme_planes(arg, codes, cap, op)
+            return sk.segment_extreme_planes(planes, codes, cap, op)
 
         def plain():
-            return sk.segment_extreme_planes_plain(arg, codes, cap, op)
+            return sk.segment_extreme_planes_plain(planes, codes, cap, op)
     got, want = call(), plain()
     torch.cuda.synchronize()
     n, p = codes.numel(), len(planes)
@@ -430,9 +424,8 @@ def plane_case(sk, op: str, planes, codes, cap: int, plain_iters: int = 5) -> di
         out_bytes = cap * p * 4
     kept = (codes >= 0) & (codes < cap)
     sectors = int(kept.view(-1, 8).any(dim=1).sum())  # n is a multiple of 8 here
-    tier = getattr(sk, "segment_planes_tier", None)
     result = {
-        "cap": cap, "planes": p, "tier": list(tier(cap, min(p, 64))) if tier else None,
+        "cap": cap, "planes": p, "tier": list(sk.segment_planes_tier(cap, min(p, 64))),
         "kept_share": float(kept.float().mean()),
         "max_abs_err": max_abs_err(got, want),
         "ms": time_ms(call, 20),
@@ -441,7 +434,7 @@ def plane_case(sk, op: str, planes, codes, cap: int, plain_iters: int = 5) -> di
         "bound_ms": bound_ms(n * 4 + sectors * 32 * p + out_bytes),
         "bound_read_once_ms": bound_ms(n * p * 4 + n * 4 + out_bytes),
     }
-    del got, want, stack, table, idx, kept, arg
+    del got, want, stack, table, idx, kept
     return result
 
 
@@ -463,11 +456,9 @@ def k3_case(sk, v, keep, codes, cap: int, op: str) -> dict:
     lib_table = torch.full((cap + 1,), ident, dtype=torch.int64, device=v.device)
     reduce = "amin" if op == "min" else "amax"
     n = v.numel()
-    # a checkout from before K3's tiers (--root) has no tier function
-    tier = getattr(sk, "segment_extreme_int64_tier", None)
     return {
         "cap": cap,
-        "tier": list(tier(cap)) if tier else None,
+        "tier": list(sk.segment_extreme_int64_tier(cap)),
         "max_abs_err": max_abs_err(gv, wv),
         "ms": time_ms(lambda: sk.segment_extreme_int64(v, keep, codes, cap, op), 20),
         "device_ms": device_ms(lambda: sk.segment_extreme_int64(v, keep, codes, cap, op), 20),
@@ -560,6 +551,131 @@ def slice_inputs(cols, device):
             "ints": ints}
 
 
+def q12_codes(cols, dev):
+    """(q12's lineitem predicate in numpy, the int32[BUCKET] ship-mode codes
+    on ``dev`` with dropped and padding rows in the trash segment Q12_CAP)."""
+    import numpy as np
+    import torch
+
+    n = len(cols["l_orderkey"])
+    keep_np = q12_keep(cols)
+    codes8 = torch.full((BUCKET,), Q12_CAP, dtype=torch.int32)
+    codes8[:n] = torch.from_numpy(np.where(keep_np, cols["l_shipmode"], Q12_CAP)
+                                  .astype(np.int32))
+    return keep_np, codes8.to(dev)
+
+
+def probe_cases(pk, cols, orders, codes8, keep_np, dev, results: dict) -> None:
+    """K4's build and probe and K5 at q12's shapes, into ``results``: each
+    equal to its plain version (the build as the sorted set of its (key,
+    row) entries), timed by events and on the device, beside its bound."""
+    import numpy as np
+    import torch
+
+    n = len(cols["l_orderkey"])
+    # K4: orders' keys into the table (its clearing is part of the build),
+    # every lineitem key probed; then every lineitem key shifted past the
+    # largest order key, so that every probe walks to an empty slot
+    dim_keys = torch.from_numpy(orders["o_orderkey"]).to(dev)
+    dim_valid = torch.ones(SF1_ORDERS, dtype=torch.bool, device=dev)
+    slots = pk.probe_table_slots(SF1_ORDERS)
+    table = pk.build_probe_table(dim_keys, dim_valid, slots)
+    plain_table = pk.build_probe_table_plain(dim_keys, dim_valid, slots)
+    torch.cuda.synchronize()
+    (gk, gr), (wk, wr) = pk.table_entries(table), pk.table_entries(plain_table)
+    check(torch.equal(gk, wk) and torch.equal(gr, wr),
+          "K4 build: the table's (key, row) entries differ from the plain build's")
+    print(f"K4 table: {slots} slots, load {SF1_ORDERS / slots:.3f}, "
+          f"{table.numel() * table.element_size()} bytes")
+
+    def build():
+        return pk.build_probe_table(dim_keys, dim_valid, slots)
+    results["hash_probe_build"] = {
+        "max_abs_err": max(max_abs_err(gk, wk), max_abs_err(gr, wr)),
+        "ms": time_ms(build, 20),
+        "device_ms": device_ms(build, 20, "K4 build"),
+        "plain_ms": time_ms(lambda: pk.build_probe_table_plain(dim_keys, dim_valid, slots), 2),
+        "library_ms": None,
+        "bound_ms": bound_ms(SF1_ORDERS * 9 + slots * 12),
+        "slots": slots,
+    }
+    fact_keys = torch.zeros(BUCKET, dtype=torch.int64)
+    fact_keys[:n] = torch.from_numpy(cols["l_orderkey"])
+    fact_valid = torch.zeros(BUCKET, dtype=torch.bool)
+    fact_valid[:n] = True
+    fact_keys, fact_valid = fact_keys.to(dev), fact_valid.to(dev)
+    sorted_keys = torch.sort(dim_keys)[0]
+    probe_bound = bound_ms(BUCKET * 8 + BUCKET + slots * 12 + BUCKET * 4)
+    for label, keys in (("hits", fact_keys), ("all_miss", fact_keys + SF1_ORDERS)):
+        got = pk.hash_probe_index(keys, fact_valid, table)
+        want = pk.hash_probe_index_plain(keys, fact_valid, table)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K4 probe ({label}) differs from its plain version")
+        if label == "hits":
+            check(torch.equal(got[:n].cpu(), torch.from_numpy(cols["l_orderkey"] - 1).int()),
+                  "K4 probe: a lineitem row does not find its order")
+        else:
+            check(bool((got == -1).all()), "K4 probe (all_miss): a shifted key found a row")
+
+        def probe(keys=keys):
+            return pk.hash_probe_index(keys, fact_valid, table)
+        case = {
+            "max_abs_err": max_abs_err(got, want),
+            "ms": time_ms(probe, 20),
+            "device_ms": device_ms(probe, 20, f"K4 probe {label}"),
+            "plain_ms": time_ms(
+                lambda keys=keys: pk.hash_probe_index_plain(keys, fact_valid, table), 5),
+            "library_ms": time_ms(lambda keys=keys: torch.searchsorted(sorted_keys, keys), 20),
+            "bound_ms": probe_bound,
+        }
+        if label == "hits":
+            results["hash_probe_index"] = case
+        else:
+            results["hash_probe_index"][label] = case
+        del got, want, keys
+    del plain_table, sorted_keys
+
+    # K5 on K4's table: lineitem's keys, q12's ship-mode codes (trash where
+    # its predicate drops the row), orders' high/low priority planes
+    high_o = orders["o_orderpriority"] <= 1
+    dim_planes = torch.from_numpy(np.stack([high_o, ~high_o], axis=1)
+                                  .astype(np.float32)).to(dev)
+
+    def k5():
+        return pk.hash_probe_segment_sum(fact_keys, fact_valid, codes8, table, dim_planes,
+                                         Q12_CAP)
+    got_s, got_c = k5()
+    want_s, want_c = pk.hash_probe_segment_sum_plain(fact_keys, fact_valid, codes8, table,
+                                                     dim_planes, Q12_CAP)
+    torch.cuda.synchronize()
+    check(torch.equal(got_s, want_s) and torch.equal(got_c, want_c),
+          "K5 hash_probe_segment_sum differs from its plain version")
+    oracle = q12_oracle(cols, orders)
+    for i, mode in enumerate(oracle["l_shipmode"]):
+        code = SHIPMODES.index(mode)
+        high, low = oracle["high_line_count"][i], oracle["low_line_count"][i]
+        check(got_s[code].tolist() == [high, low] and got_c[code].item() == high + low,
+              f"K5 {mode}: {got_s[code].tolist()} / {got_c[code].item()}, "
+              f"q12's oracle {high} / {low}")
+    print(f"K5 sums equal q12's oracle: "
+          f"{ {m: got_s[SHIPMODES.index(m)].tolist() for m in oracle['l_shipmode']} }")
+    kept = int(keep_np.sum())
+    results["hash_probe_segment_sum"] = {
+        "max_abs_err": max(max_abs_err(got_s, want_s), max_abs_err(got_c, want_c)),
+        "ms": time_ms(k5, 20),
+        "device_ms": device_ms(k5, 20, "K5"),
+        "plain_ms": time_ms(lambda: pk.hash_probe_segment_sum_plain(
+            fact_keys, fact_valid, codes8, table, dim_planes, Q12_CAP), 5),
+        "library_ms": None,
+        # every code is read; only the kept rows read their key, validity
+        # and one 12-byte slot, and their matched dim row's 2 planes
+        "bound_ms": bound_ms(BUCKET * 4 + kept * (8 + 1 + 12 + 2 * 4)
+                             + Q12_CAP * 2 * 8 + Q12_CAP * 8),
+    }
+    del table, fact_keys, fact_valid, dim_planes, got_s, got_c, want_s, want_c
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(cols, orders, card: str):
     import numpy as np
     import torch
@@ -624,13 +740,17 @@ def phase_kernels(cols, orders, card: str):
     want = sk.segment_sum_planes_f32_plain(x["stack"], codes, CAP)
     torch.cuda.synchronize()
     check(torch.equal(got, want), "K1a segment_sum_planes_f32 differs from its plain version")
-    check(torch.equal(got, sk.segment_sum_planes(plane_arg(sk, x["planes"]), codes,
+    check(torch.equal(got, sk.segment_sum_planes(x["planes"], codes,
                                                  CAP).float()),
           "K1a segment_sum_planes_f32 differs from K1's output cast to f32")
     lib_table = torch.zeros((CAP + 1, p), dtype=torch.float32, device=dev)
+
+    def k1a():
+        return sk.segment_sum_planes_f32(x["stack"], codes, CAP)
     results["segment_sum_planes_f32"] = {
         "max_abs_err": max_abs_err(got, want),
-        "ms": time_ms(lambda: sk.segment_sum_planes_f32(x["stack"], codes, CAP), 20),
+        "ms": time_ms(k1a, 20),
+        "device_ms": device_ms(k1a, 20, "K1a"),
         "plain_ms": time_ms(lambda: sk.segment_sum_planes_f32_plain(x["stack"], codes, CAP),
                             5),
         "library_ms": time_ms(lambda: lib_table.index_add_(0, trash_idx, x["stack"]), 20),
@@ -643,17 +763,13 @@ def phase_kernels(cols, orders, card: str):
     # the valid count and one digit plane of each CASE-WHEN sum); K2 over the
     # first-row-index plane and the same codes, Q = 1
     n = len(cols["l_orderkey"])
-    keep_np = q12_keep(cols)
+    keep_np, codes8 = q12_codes(cols, dev)
     high_np = q12_high(cols, orders)
-    codes8 = torch.full((BUCKET,), Q12_CAP, dtype=torch.int32)
-    codes8[:n] = torch.from_numpy(np.where(keep_np, cols["l_shipmode"], Q12_CAP)
-                                  .astype(np.int32))
     kf = torch.zeros(BUCKET)
     kf[:n] = torch.from_numpy(keep_np.astype(np.float32))
     hf = torch.zeros(BUCKET)
     hf[:n] = torch.from_numpy(high_np.astype(np.float32))
     planes8 = [t.to(dev) for t in (kf, kf, kf * hf, kf, kf * (1 - hf))]
-    codes8 = codes8.to(dev)
     first8 = torch.where(torch.from_numpy(np.pad(keep_np, (0, BUCKET - n))),
                          torch.arange(BUCKET, dtype=torch.float32),
                          torch.tensor(float("inf"))).to(dev)
@@ -663,87 +779,8 @@ def phase_kernels(cols, orders, card: str):
                                                                   Q12_CAP, 20)
     del planes8, first8
 
-    # K4: orders' keys into the table, every lineitem key probed
-    dim_keys = torch.from_numpy(orders["o_orderkey"]).to(dev)
-    dim_valid = torch.ones(SF1_ORDERS, dtype=torch.bool, device=dev)
-    slots = pk.probe_table_slots(SF1_ORDERS)
-    table = pk.build_probe_table(dim_keys, dim_valid, slots)
-    plain_table = pk.build_probe_table_plain(dim_keys, dim_valid, slots)
-    torch.cuda.synchronize()
-
-    def entries(slot_keys, slot_rows):
-        occupied = slot_keys != pk.EMPTY_KEY
-        k, order = torch.sort(slot_keys[occupied])
-        return k, slot_rows[occupied][order]
-
-    (gk, gr), (wk, wr) = entries(*table), entries(*plain_table)
-    check(torch.equal(gk, wk) and torch.equal(gr, wr),
-          "K4 build: the table's (key, row) entries differ from the plain build's")
-    results["hash_probe_build"] = {
-        "max_abs_err": max(max_abs_err(gk, wk), max_abs_err(gr, wr)),
-        "ms": time_ms(lambda: pk.build_probe_table(dim_keys, dim_valid, slots), 20),
-        "plain_ms": time_ms(lambda: pk.build_probe_table_plain(dim_keys, dim_valid, slots), 2),
-        "library_ms": None,
-        "bound_ms": bound_ms(SF1_ORDERS * 9 + slots * 12),
-    }
-    fact_keys = torch.zeros(BUCKET, dtype=torch.int64)
-    fact_keys[:n] = torch.from_numpy(cols["l_orderkey"])
-    fact_valid = torch.zeros(BUCKET, dtype=torch.bool)
-    fact_valid[:n] = True
-    fact_keys, fact_valid = fact_keys.to(dev), fact_valid.to(dev)
-    got = pk.hash_probe_index(fact_keys, fact_valid, *table)
-    want = pk.hash_probe_index_plain(fact_keys, fact_valid, *table)
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "K4 probe differs from its plain version")
-    check(torch.equal(got[:n].cpu(), torch.from_numpy(cols["l_orderkey"] - 1).int()),
-          "K4 probe: a lineitem row does not find its order")
-    sorted_keys = torch.sort(dim_keys)[0]
-    results["hash_probe_index"] = {
-        "max_abs_err": max_abs_err(got, want),
-        "ms": time_ms(lambda: pk.hash_probe_index(fact_keys, fact_valid, *table), 20),
-        "plain_ms": time_ms(
-            lambda: pk.hash_probe_index_plain(fact_keys, fact_valid, *table), 5),
-        "library_ms": time_ms(lambda: torch.searchsorted(sorted_keys, fact_keys), 20),
-        "bound_ms": bound_ms(BUCKET * 8 + BUCKET + slots * 12 + BUCKET * 4),
-    }
-    del plain_table, got, want, sorted_keys
-
-    # K5 on K4's table: lineitem's keys, q12's ship-mode codes (trash where
-    # its predicate drops the row), orders' high/low priority planes
-    high_o = orders["o_orderpriority"] <= 1
-    dim_planes = torch.from_numpy(np.stack([high_o, ~high_o], axis=1)
-                                  .astype(np.float32)).to(dev)
-    got_s, got_c = pk.hash_probe_segment_sum(fact_keys, fact_valid, codes8, *table,
-                                             dim_planes, Q12_CAP)
-    want_s, want_c = pk.hash_probe_segment_sum_plain(fact_keys, fact_valid, codes8, *table,
-                                                     dim_planes, Q12_CAP)
-    torch.cuda.synchronize()
-    check(torch.equal(got_s, want_s) and torch.equal(got_c, want_c),
-          "K5 hash_probe_segment_sum differs from its plain version")
-    oracle = q12_oracle(cols, orders)
-    for i, mode in enumerate(oracle["l_shipmode"]):
-        code = SHIPMODES.index(mode)
-        high, low = oracle["high_line_count"][i], oracle["low_line_count"][i]
-        check(got_s[code].tolist() == [high, low] and got_c[code].item() == high + low,
-              f"K5 {mode}: {got_s[code].tolist()} / {got_c[code].item()}, "
-              f"q12's oracle {high} / {low}")
-    print(f"K5 sums equal q12's oracle: "
-          f"{ {m: got_s[SHIPMODES.index(m)].tolist() for m in oracle['l_shipmode']} }")
-    kept = int(keep_np.sum())
-    results["hash_probe_segment_sum"] = {
-        "max_abs_err": max(max_abs_err(got_s, want_s), max_abs_err(got_c, want_c)),
-        "ms": time_ms(lambda: pk.hash_probe_segment_sum(fact_keys, fact_valid, codes8, *table,
-                                                        dim_planes, Q12_CAP), 20),
-        "plain_ms": time_ms(lambda: pk.hash_probe_segment_sum_plain(
-            fact_keys, fact_valid, codes8, *table, dim_planes, Q12_CAP), 5),
-        "library_ms": None,
-        # every code is read; only the kept rows read their key, validity
-        # and one 12-byte slot, and their matched dim row's 2 planes
-        "bound_ms": bound_ms(BUCKET * 4 + kept * (8 + 1 + 12 + 2 * 4)
-                             + Q12_CAP * 2 * 8 + Q12_CAP * 8),
-    }
-    del table, fact_keys, fact_valid, codes8, dim_planes, got_s, got_c, want_s, want_c
-    torch.cuda.empty_cache()
+    probe_cases(pk, cols, orders, codes8, keep_np, dev, results)
+    del codes8
 
     # K6 at the repartition cell's shapes: 8 x 8 blocks of 23 x 2^20 + 4
     # words (7 eight-byte planes, 1 four-byte plane, 8 validity planes, the
@@ -771,10 +808,16 @@ def phase_kernels(cols, orders, card: str):
     del send
     torch.cuda.empty_cache()
 
+    print_cases(results, card)
+    return results
+
+
+def print_cases(results: dict, card: str) -> None:
+    """One line per case: the top-level one of each kernel, then its other
+    shapes."""
     def fmt(v):
         return "null" if v is None else f"{v:.4f}"
 
-    # every case: the top-level one of each kernel, then its other shapes
     rows = []
     for kname, r in results.items():
         rows.append((kname, r))
@@ -799,7 +842,6 @@ def phase_kernels(cols, orders, card: str):
               f"library_ms {fmt(r['library_ms'])}, bound_ms {fmt(r['bound_ms'])}{once} "
               f"(bytes at 3.35 TB/s; {by} at {r['bound_ms'] / held:.1%} of bound_ms) "
               f"[{card}]", flush=True)
-    return results
 
 
 def phase_slice(cols, card: str):

@@ -550,9 +550,9 @@ class _JoinContext:
 
         return manager().get_or_build(key_series, ("pkeys", d.key_col, repr(kdt)), build)
 
-    def probe_table(self, d: DimSpec) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The K4 hash table of an adjacent dim's keys on the device, built
-        once per dim key Series."""
+    def probe_table(self, d: DimSpec) -> torch.Tensor:
+        """The K4 hash table (one (S, 2) int64 tensor of 16-byte slots) of an
+        adjacent dim's keys on the device, built once per dim key Series."""
         key_series = self.batches[d.name].get_column(d.key_col)
         vals, valid = self._table_keys(d)
 
@@ -578,7 +578,7 @@ class _JoinContext:
             pv[:n] = vals
             pm[:n] = valid
             return pk.hash_probe_index(torch.from_numpy(pv).to(self.device),
-                                       torch.from_numpy(pm).to(self.device), *table)
+                                       torch.from_numpy(pm).to(self.device), table)
 
         key = ("pdidx", d.key_col, d.parent, bucket, str(self.device))
         return manager().get_or_build(anchor, key, build, (table,))

@@ -6,9 +6,15 @@ daft_tpu/ops/pallas_kernels.py ``hash_probe_index``, with its host
 A dim's unique join keys go into an open-addressed hash table on the device
 (``build_probe_table``), and every fact key is probed against it
 (``hash_probe_index``): the int32 row of the equal dim key, or -1 when the
-fact key is null or unmatched. Null dim keys never enter the table. The
-CUDA source (ops/csrc/hash_probe.cu) gives the layout, the hash, the bound
-and the design.
+fact key is null or unmatched. Null dim keys never enter the table.
+
+The table is one contiguous int64 tensor of shape (S, 2), S a power of two:
+row h is slot h, 16 bytes, ``[key ^ EMPTY_KEY, dim row]``. A stored word of
+0 marks an empty slot, so a zero-filled tensor is an empty table; the row
+word holds the non-negative int32 row zero-extended. The CUDA source
+(ops/csrc/hash_probe.cu) gives the hash, the bound and the design: the
+build places each 4096-slot region of the table in shared memory, the probe
+reads one 16-byte slot a step.
 
 ``hash_probe_segment_sum`` (K5) fuses K4's probe with a segment sum of the
 matched dim row's planes, writing no index plane. No engine code calls it,
@@ -23,14 +29,18 @@ back to the plain version.
 
 The table's preconditions are checked on the host before any launch
 (``probe_key_refusal``): valid keys must be unique and none may equal
-``EMPTY_KEY`` (int64 min), which marks an empty slot. The join runtime
-turns a refusal into ``DeviceFallback``.
+``EMPTY_KEY`` (int64 min), the one key whose stored word is 0. The join
+runtime turns a refusal into ``DeviceFallback``.
 
 Where a key lands depends on the order the build's threads claim their
 slots, so two builds may lay out the same keys differently; the set of
 (key, row) entries and every probe's answer do not change. The plain build
-packs the same entries into the first slots, with no hashing: the plain
-probe searches the sorted occupied slots and needs no hash layout.
+packs the same entries, in the same slot layout, into the first slots with
+no hashing: the plain probe searches the sorted occupied slots and needs no
+hash layout.
+
+Left for later: a bucketed or cuckoo layout that bounds a miss's walk, and
+warp-aggregated atomics in K5.
 """
 
 from __future__ import annotations
@@ -57,11 +67,13 @@ def _library():
         from ._build import library
 
         lib = library(_SOURCE)
-        vp, ll = ctypes.c_void_p, ctypes.c_longlong
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.daft_hash_probe_build_scratch.argtypes = [ll, ll]
+        lib.daft_hash_probe_build_scratch.restype = ll
         lib.daft_hash_probe_build.argtypes = [vp, vp, vp, vp, ll, ll, vp]
-        lib.daft_hash_probe_index.argtypes = [vp, vp, vp, vp, vp, ll, ll, vp]
-        lib.daft_hash_probe_segment_sum.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ll,
-                                                    ctypes.c_int, ctypes.c_int, ll, vp]
+        lib.daft_hash_probe_index.argtypes = [vp, vp, vp, vp, ll, ll, vp]
+        lib.daft_hash_probe_segment_sum.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, i, i,
+                                                    ll, vp]
         for fn in (lib.daft_hash_probe_build, lib.daft_hash_probe_index,
                    lib.daft_hash_probe_segment_sum):
             fn.restype = ctypes.c_int
@@ -100,26 +112,33 @@ def _check_keys(keys: torch.Tensor, valid: torch.Tensor) -> None:
         raise ValueError(f"keys has {keys.shape[0]} rows, valid {valid.shape[0]}")
 
 
-def _check_table(slot_keys: torch.Tensor, slot_rows: torch.Tensor) -> int:
-    _check(slot_keys, "slot_keys", torch.int64, 1)
-    _check(slot_rows, "slot_rows", torch.int32, 1)
-    s = slot_keys.shape[0]
-    if s < 1 or s & (s - 1) or slot_rows.shape[0] != s:
-        raise ValueError(f"probe table needs a power-of-two slot count on both "
-                         f"planes, got {s} and {slot_rows.shape[0]}")
+def _check_table(table: torch.Tensor) -> int:
+    _check(table, "table", torch.int64, 2)
+    s = table.shape[0]
+    if table.shape[1] != 2 or s < 1 or s & (s - 1):
+        raise ValueError(f"probe table must be (S, 2) with S a power of two, got "
+                         f"{tuple(table.shape)}")
+    if table.data_ptr() % 16:
+        raise ValueError("probe table must be 16-byte aligned")
     return s
+
+
+def table_entries(table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(keys int64, rows int32) of the table's occupied slots, sorted by key:
+    the set of entries, whatever the layout."""
+    occupied = table[:, 0] != 0
+    keys, order = torch.sort(table[occupied, 0] ^ EMPTY_KEY)
+    return keys, table[occupied, 1][order].to(torch.int32)
 
 
 # ---- build ---------------------------------------------------------------------------
 
 
-def build_probe_table(keys: torch.Tensor, valid: torch.Tensor,
-                      slots: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(slot_keys int64[slots], slot_rows int32[slots]) holding every valid
-    (key, row); empty slots hold ``EMPTY_KEY`` and row -1. ``slots`` comes
-    from ``probe_table_slots`` and the keys must pass ``probe_key_refusal``.
-    A table under twice the rows is refused: a full table would never let
-    the kernels' probe loops end."""
+def build_probe_table(keys: torch.Tensor, valid: torch.Tensor, slots: int) -> torch.Tensor:
+    """The (slots, 2) int64 table holding every valid (key, row); empty
+    slots are zero. ``slots`` comes from ``probe_table_slots`` and the keys
+    must pass ``probe_key_refusal``. A table over the load limit is refused:
+    a full table would never let the kernels' probe loops end."""
     _check_keys(keys, valid)
     if slots < 1 or slots & (slots - 1):
         raise ValueError(f"slots must be a power of two, got {slots}")
@@ -129,62 +148,62 @@ def build_probe_table(keys: torch.Tensor, valid: torch.Tensor,
     if not _route(keys, valid):
         counters.bump("plain_hash_probe_build")
         return build_probe_table_plain(keys, valid, slots)
-    slot_keys = torch.full((slots,), EMPTY_KEY, dtype=torch.int64, device=keys.device)
-    slot_rows = torch.full((slots,), -1, dtype=torch.int32, device=keys.device)
-    if keys.shape[0] == 0:
-        return slot_keys, slot_rows  # nothing to place: no launch
+    if keys.shape[0] == 0:  # nothing to place: no launch
+        return torch.zeros((slots, 2), dtype=torch.int64, device=keys.device)
+    lib = _library()
+    table = torch.empty((slots, 2), dtype=torch.int64, device=keys.device)
+    # the build's region counts and overflow list, apart from the table so
+    # that a resident table holds no scratch
+    scratch = torch.empty(lib.daft_hash_probe_build_scratch(keys.shape[0], slots),
+                          dtype=torch.int32, device=keys.device)
     with torch.cuda.device(keys.device):
-        rc = _library().daft_hash_probe_build(
-            keys.data_ptr(), valid.data_ptr(), slot_keys.data_ptr(),
-            slot_rows.data_ptr(), keys.shape[0], slots, _stream(keys))
+        rc = lib.daft_hash_probe_build(
+            keys.data_ptr(), valid.data_ptr(), table.data_ptr(), scratch.data_ptr(),
+            keys.shape[0], slots, _stream(keys))
     _launched(rc, "hash_probe_build")
-    return slot_keys, slot_rows
+    return table
 
 
 def build_probe_table_plain(keys: torch.Tensor, valid: torch.Tensor,
-                            slots: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                            slots: int) -> torch.Tensor:
     """Plain build: the valid (key, row) pairs in row order in the first
-    slots, the rest empty. No hash layout: only the plain probe reads it."""
-    slot_keys = torch.full((slots,), EMPTY_KEY, dtype=torch.int64, device=keys.device)
-    slot_rows = torch.full((slots,), -1, dtype=torch.int32, device=keys.device)
+    slots, in the kernel's slot layout, the rest empty. No hash layout: only
+    the plain probe reads it."""
+    table = torch.zeros((slots, 2), dtype=torch.int64, device=keys.device)
     rows = torch.nonzero(valid).flatten()
-    slot_keys[:rows.numel()] = keys[rows]
-    slot_rows[:rows.numel()] = rows.to(torch.int32)
-    return slot_keys, slot_rows
+    table[:rows.numel(), 0] = keys[rows] ^ EMPTY_KEY
+    table[:rows.numel(), 1] = rows
+    return table
 
 
 # ---- probe ---------------------------------------------------------------------------
 
 
-def hash_probe_index(keys: torch.Tensor, valid: torch.Tensor, slot_keys: torch.Tensor,
-                     slot_rows: torch.Tensor) -> torch.Tensor:
+def hash_probe_index(keys: torch.Tensor, valid: torch.Tensor,
+                     table: torch.Tensor) -> torch.Tensor:
     """int32[N]: the dim row whose key equals ``keys[i]``, or -1 when
     ``valid[i]`` is false or no dim key equals it."""
     _check_keys(keys, valid)
-    slots = _check_table(slot_keys, slot_rows)
-    if not _route(keys, valid, slot_keys, slot_rows):
+    slots = _check_table(table)
+    if not _route(keys, valid, table):
         counters.bump("plain_hash_probe_index")
-        return hash_probe_index_plain(keys, valid, slot_keys, slot_rows)
+        return hash_probe_index_plain(keys, valid, table)
     out = torch.empty(keys.shape[0], dtype=torch.int32, device=keys.device)
     if keys.shape[0] == 0:
         return out  # nothing to probe: no launch
     with torch.cuda.device(keys.device):
         rc = _library().daft_hash_probe_index(
-            keys.data_ptr(), valid.data_ptr(), slot_keys.data_ptr(),
-            slot_rows.data_ptr(), out.data_ptr(), keys.shape[0], slots,
-            _stream(keys))
+            keys.data_ptr(), valid.data_ptr(), table.data_ptr(), out.data_ptr(),
+            keys.shape[0], slots, _stream(keys))
     _launched(rc, "hash_probe_index")
     return out
 
 
 def hash_probe_index_plain(keys: torch.Tensor, valid: torch.Tensor,
-                           slot_keys: torch.Tensor,
-                           slot_rows: torch.Tensor) -> torch.Tensor:
+                           table: torch.Tensor) -> torch.Tensor:
     """Plain probe: sort the occupied slots by key, ``searchsorted`` each
     fact key and keep the row where the key found is equal."""
-    occupied = slot_keys != EMPTY_KEY
-    table_keys, order = torch.sort(slot_keys[occupied])
-    table_rows = slot_rows[occupied][order]
+    table_keys, table_rows = table_entries(table)
     if table_keys.numel() == 0:
         return torch.full(keys.shape, -1, dtype=torch.int32, device=keys.device)
     pos = torch.searchsorted(table_keys, keys).clamp_(max=table_keys.numel() - 1)
@@ -196,8 +215,7 @@ def hash_probe_index_plain(keys: torch.Tensor, valid: torch.Tensor,
 
 
 def hash_probe_segment_sum(keys: torch.Tensor, valid: torch.Tensor, codes: torch.Tensor,
-                           slot_keys: torch.Tensor, slot_rows: torch.Tensor,
-                           planes: torch.Tensor,
+                           table: torch.Tensor, planes: torch.Tensor,
                            cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sums (cap, P) f64, counts (cap,) int64): for every fact row whose
     key finds a dim row in the table and whose code lies in [0, cap), that
@@ -213,36 +231,35 @@ def hash_probe_segment_sum(keys: torch.Tensor, valid: torch.Tensor, codes: torch
     _check_keys(keys, valid)
     _check(codes, "codes", torch.int32, 1)
     _check(planes, "planes", torch.float32, 2)
-    slots = _check_table(slot_keys, slot_rows)
+    slots = _check_table(table)
     n, p = keys.shape[0], planes.shape[1]
     if codes.shape[0] != n:
         raise ValueError(f"codes has {codes.shape[0]} rows, keys {n}")
     if slots < 2 * planes.shape[0]:
         raise ValueError(f"{slots} slots cannot hold a table of {planes.shape[0]} dim rows")
-    if not _route(keys, valid, codes, slot_keys, slot_rows, planes):
+    if not _route(keys, valid, codes, table, planes):
         counters.bump("plain_hash_probe_segment_sum")
-        return hash_probe_segment_sum_plain(keys, valid, codes, slot_keys, slot_rows,
-                                            planes, cap)
+        return hash_probe_segment_sum_plain(keys, valid, codes, table, planes, cap)
     sums = torch.zeros((cap, p), dtype=torch.float64, device=keys.device)
     counts = torch.zeros(cap, dtype=torch.int64, device=keys.device)
     if n == 0:
         return sums, counts  # nothing to probe: no launch
     with torch.cuda.device(keys.device):
         rc = _library().daft_hash_probe_segment_sum(
-            keys.data_ptr(), valid.data_ptr(), codes.data_ptr(), slot_keys.data_ptr(),
-            slot_rows.data_ptr(), planes.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-            n, p, cap, slots, _stream(keys))
+            keys.data_ptr(), valid.data_ptr(), codes.data_ptr(), table.data_ptr(),
+            planes.data_ptr(), sums.data_ptr(), counts.data_ptr(), n, p, cap, slots,
+            _stream(keys))
     _launched(rc, "hash_probe_segment_sum")
     return sums, counts
 
 
 def hash_probe_segment_sum_plain(keys: torch.Tensor, valid: torch.Tensor,
-                                 codes: torch.Tensor, slot_keys: torch.Tensor,
-                                 slot_rows: torch.Tensor, planes: torch.Tensor,
+                                 codes: torch.Tensor, table: torch.Tensor,
+                                 planes: torch.Tensor,
                                  cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain K5: the plain probe, then ``index_add_`` of the gathered dim
     planes (f64) and of ones (int64) into tables with a trash row."""
-    idx = hash_probe_index_plain(keys, valid, slot_keys, slot_rows)
+    idx = hash_probe_index_plain(keys, valid, table)
     hit = (idx >= 0) & (codes >= 0) & (codes < cap)
     seg = torch.where(hit, codes, cap).long()
     p = planes.shape[1]

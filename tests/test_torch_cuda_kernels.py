@@ -13,7 +13,12 @@ Every comparison is bit for bit: K1, K1a and K5 sum integer-valued planes
 (exact whatever the atomic order: in f64, and in f32 below 2^24), K2/K3 are
 order-independent extremes, K4's probe answers do not depend on where its
 build placed each key (the table's (key, row) entries are compared as a
-sorted set), and K6 only moves words.
+sorted set), and K6 only moves words. K4's and K5's cases include keys
+chosen on the host to share one home slot (chains of 1,500 slots, one of
+them wrapping past the last slot), a 4096-slot region of the partitioned
+build given more keys than slots, a table past 2^25 slots (the CAS tier),
+facts that all miss, and every row count modulo the probe's rows per
+thread.
 """
 
 import numpy as np
@@ -211,12 +216,6 @@ def test_grouped_query_on_card_launches_kernels_and_matches_host(cuda):
         assert got == query()
 
 
-def _entries(slot_keys, slot_rows):
-    occ = slot_keys != pk.EMPTY_KEY
-    k, order = torch.sort(slot_keys[occ])
-    return k, slot_rows[occ][order]
-
-
 @pytest.mark.parametrize("n_dim,n_fact", [(300, 4096), (1 << 20, 1 << 22)])
 def test_hash_probe_kernels_match_plain(cuda, n_dim, n_fact):
     rng = np.random.default_rng(n_dim)
@@ -232,17 +231,17 @@ def test_hash_probe_kernels_match_plain(cuda, n_dim, n_fact):
     slots = pk.probe_table_slots(n_dim)
     before = counters.snapshot()
     table = pk.build_probe_table(dk, dv, slots)
-    got = pk.hash_probe_index(fk, fv, *table)
+    got = pk.hash_probe_index(fk, fv, table)
     torch.cuda.synchronize()
     after = counters.snapshot()
     assert after["launches_hash_probe_build"] == before["launches_hash_probe_build"] + 1
     assert after["launches_hash_probe_index"] == before["launches_hash_probe_index"] + 1
     plain_table = pk.build_probe_table_plain(dk, dv, slots)
-    for a, b in zip(_entries(*table), _entries(*plain_table)):
+    for a, b in zip(pk.table_entries(table), pk.table_entries(plain_table)):
         assert torch.equal(a, b)
-    want = pk.hash_probe_index_plain(fk, fv, *table)
+    want = pk.hash_probe_index_plain(fk, fv, table)
     assert got.dtype == torch.int32 and torch.equal(got, want)
-    assert torch.equal(pk.hash_probe_index_plain(fk, fv, *plain_table), want)
+    assert torch.equal(pk.hash_probe_index_plain(fk, fv, plain_table), want)
     lut = {int(k): i for i, (k, v) in enumerate(zip(dim_keys, dim_valid)) if v}
     sample = rng.integers(0, n_fact, 2000)
     assert [got[i].item() for i in sample] == [
@@ -319,13 +318,188 @@ def test_hash_probe_segment_sum_matches_plain(cuda, n_dim, n_fact, cap, p):
     table = pk.build_probe_table(dk, dv, pk.probe_table_slots(n_dim))
     tp = torch.from_numpy(planes).to(cuda)
     before = counters.snapshot()["launches_hash_probe_segment_sum"]
-    sums, counts = pk.hash_probe_segment_sum(*args, *table, tp, cap)
+    sums, counts = pk.hash_probe_segment_sum(*args, table, tp, cap)
     torch.cuda.synchronize()
     assert counters.snapshot()["launches_hash_probe_segment_sum"] == before + 1
-    want_sums, want_counts = pk.hash_probe_segment_sum_plain(*args, *table, tp, cap)
+    want_sums, want_counts = pk.hash_probe_segment_sum_plain(*args, table, tp, cap)
     assert sums.dtype == torch.float64 and counts.dtype == torch.int64
     assert torch.equal(sums, want_sums) and torch.equal(counts, want_counts)
     assert counts.sum().item() > 0
+
+
+def _home_slots(keys: np.ndarray, slots: int) -> np.ndarray:
+    """Each key's first slot in K4's table: splitmix64's finalizer of the
+    key bits, masked (ops/csrc/hash_probe.cu mix64)."""
+    x = keys.view(np.uint64).copy()
+    with np.errstate(over="ignore"):
+        x ^= x >> np.uint64(30)
+        x *= np.uint64(0xBF58476D1CE4E5B9)
+        x ^= x >> np.uint64(27)
+        x *= np.uint64(0x94D049BB133111EB)
+        x ^= x >> np.uint64(31)
+    return (x & np.uint64(slots - 1)).astype(np.int64)
+
+
+def _chain_case(home: int, seed: int):
+    """1,500 dim keys that all start at slot ``home`` of a 4096-slot table
+    (a chain of 1,500 slots; past the last slot when home + 1500 > 4096),
+    500 others, 5 % null; 4099 facts: the dim keys, misses that start at
+    the same slot (they walk the whole chain to an empty slot), other misses,
+    nulls and one int64 min."""
+    rng = np.random.default_rng(seed)
+    slots = 4096
+    cand = rng.permutation(np.arange(8_000_000, dtype=np.int64) - (1 << 49))
+    same = cand[_home_slots(cand, slots) == home]
+    assert len(same) >= 1600
+    rest = cand[_home_slots(cand, slots) != home]
+    dim_keys = np.concatenate([same[:1500], rest[:500]])
+    rng.shuffle(dim_keys)
+    dim_valid = rng.random(len(dim_keys)) > 0.05
+    fact_keys = np.concatenate([dim_keys, dim_keys, same[1500:1600], rest[500:1399]])
+    fact_keys = rng.permutation(fact_keys)[:4099]
+    fact_keys[17] = pk.EMPTY_KEY
+    fact_valid = rng.random(len(fact_keys)) > 0.05
+    assert pk.probe_table_slots(len(dim_keys)) == slots
+    return dim_keys, dim_valid, fact_keys, fact_valid, slots
+
+
+@pytest.mark.parametrize("home", [100, 4096 - 300])
+def test_hash_probe_long_chains_match_plain(cuda, home):
+    dim_keys, dim_valid, fact_keys, fact_valid, slots = _chain_case(home, home)
+    dk, dv = torch.from_numpy(dim_keys).to(cuda), torch.from_numpy(dim_valid).to(cuda)
+    fk, fv = torch.from_numpy(fact_keys).to(cuda), torch.from_numpy(fact_valid).to(cuda)
+    table = pk.build_probe_table(dk, dv, slots)
+    got = pk.hash_probe_index(fk, fv, table)
+    torch.cuda.synchronize()
+    for a, b in zip(pk.table_entries(table), pk.table_entries(
+            pk.build_probe_table_plain(dk, dv, slots))):
+        assert torch.equal(a, b)
+    # the chain is contiguous from its home slot, wrapping past S - 1
+    occupied = (table[:, 0] != 0).cpu().numpy()
+    chain = (home + np.arange(1500)) % slots
+    assert occupied[chain].all()
+    assert torch.equal(got, pk.hash_probe_index_plain(fk, fv, table))
+    lut = {int(k): i for i, (k, v) in enumerate(zip(dim_keys, dim_valid)) if v}
+    assert got.cpu().tolist() == [lut.get(int(k), -1) if v else -1
+                                  for k, v in zip(fact_keys, fact_valid)]
+    assert (got >= 0).sum().item() > 1000 and (got < 0).sum().item() > 500
+
+
+@pytest.mark.parametrize("n_dim,n_fact", [(1 << 20, 1 << 22), (3000, 4099)])
+def test_hash_probe_all_miss_matches_plain(cuda, n_dim, n_fact):
+    """Every fact key valid and absent: every probe walks to an empty slot."""
+    rng = np.random.default_rng(n_fact)
+    dim_keys = rng.choice(np.int64(1) << 40, n_dim, replace=False).astype(np.int64)
+    fact_keys = dim_keys[rng.integers(0, n_dim, n_fact)] + (np.int64(1) << 41)
+    dk = torch.from_numpy(dim_keys).to(cuda)
+    table = pk.build_probe_table(dk, torch.ones_like(dk, dtype=torch.bool),
+                                 pk.probe_table_slots(n_dim))
+    fk = torch.from_numpy(fact_keys).to(cuda)
+    fv = torch.ones_like(fk, dtype=torch.bool)
+    got = pk.hash_probe_index(fk, fv, table)
+    assert torch.equal(got, pk.hash_probe_index_plain(fk, fv, table))
+    assert (got == -1).all()
+
+
+@pytest.mark.parametrize("n", [1, 3, 1027, 4097])
+def test_hash_probe_rows_per_thread_any_row_count(cuda, n):
+    """The probe's 2 rows per thread at row counts that are not a multiple
+    of 2 or of a block's 2 x 256 rows."""
+    dim_keys, dim_valid, fact_keys, fact_valid, slots = _chain_case(100, 7)
+    table = pk.build_probe_table(torch.from_numpy(dim_keys).to(cuda),
+                                 torch.from_numpy(dim_valid).to(cuda), slots)
+    # views one row in: the fact columns need no alignment
+    fk = torch.from_numpy(fact_keys).to(cuda)[1:n + 1]
+    fv = torch.from_numpy(fact_valid).to(cuda)[1:n + 1]
+    before = counters.snapshot()["launches_hash_probe_index"]
+    got = pk.hash_probe_index(fk, fv, table)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["launches_hash_probe_index"] == before + 1
+    assert got.shape == (n,) and torch.equal(got, pk.hash_probe_index_plain(fk, fv, table))
+
+
+def test_hash_probe_build_over_full_region_matches_plain(cuda):
+    """5,000 of 8,000 dim keys start in the first 4096-slot region of a
+    16,384-slot table: the partitioned build places 4096 of them in that
+    region's shared memory and the rest through its overflow pass."""
+    rng = np.random.default_rng(21)
+    slots = 1 << 14
+    cand = rng.permutation(np.arange(200_000, dtype=np.int64) + (1 << 40))
+    homes = _home_slots(cand, slots)
+    dim_keys = rng.permutation(np.concatenate([cand[homes < 4096][:5000],
+                                               cand[homes >= 4096][:3000]]))
+    assert len(dim_keys) == 8000 and pk.probe_table_slots(len(dim_keys)) == slots
+    dk = torch.from_numpy(dim_keys).to(cuda)
+    dv = torch.ones_like(dk, dtype=torch.bool)
+    table = pk.build_probe_table(dk, dv, slots)
+    for a, b in zip(pk.table_entries(table),
+                    pk.table_entries(pk.build_probe_table_plain(dk, dv, slots))):
+        assert torch.equal(a, b)
+    fk = torch.cat([dk, dk + 1, dk[:100] - 1])
+    fv = torch.ones_like(fk, dtype=torch.bool)
+    got = pk.hash_probe_index(fk, fv, table)
+    assert torch.equal(got, pk.hash_probe_index_plain(fk, fv, table))
+    assert torch.equal(got[:8000].cpu(), torch.arange(8000, dtype=torch.int32))
+
+
+def test_hash_probe_build_cas_tier_matches_plain(cuda):
+    """Over 2^24 dim keys make a table past 2^25 slots, past the partitioned
+    build's regions: the CAS tier builds it."""
+    n_dim = (1 << 24) + 1
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    # distinct keys 3 apart, so a key + 1 is no key
+    dim_keys = torch.randperm(1 << 26, device=cuda, generator=gen)[:n_dim] * 3 - (1 << 40)
+    dim_valid = torch.rand(n_dim, device=cuda, generator=gen) > 0.05
+    slots = pk.probe_table_slots(n_dim)
+    assert slots == 1 << 26
+    table = pk.build_probe_table(dim_keys, dim_valid, slots)
+    for a, b in zip(pk.table_entries(table),
+                    pk.table_entries(pk.build_probe_table_plain(dim_keys, dim_valid, slots))):
+        assert torch.equal(a, b)
+    pick = torch.randint(0, n_dim, (1 << 22,), device=cuda, generator=gen)
+    fk = dim_keys[pick] + (torch.rand(1 << 22, device=cuda, generator=gen) < 0.1)
+    fv = torch.ones_like(fk, dtype=torch.bool)
+    got = pk.hash_probe_index(fk, fv, table)
+    assert torch.equal(got, pk.hash_probe_index_plain(fk, fv, table))
+    assert (got >= 0).sum().item() > 3_000_000
+
+
+def test_hash_probe_refused_launch_raises(cuda, monkeypatch):
+    """A launch the library refuses (a nonzero CUDA error) raises and is
+    not counted: nothing falls back."""
+    keys = torch.arange(8, dtype=torch.int64, device=cuda)
+    valid = torch.ones(8, dtype=torch.bool, device=cuda)
+    table = pk.build_probe_table(keys, valid, 16)
+
+    class Refusing:
+        @staticmethod
+        def daft_hash_probe_index(*args):
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(pk, "_library", Refusing)
+    before = counters.snapshot()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pk.hash_probe_index(keys, valid, table)
+    after = counters.snapshot()
+    assert after["launches_hash_probe_index"] == before["launches_hash_probe_index"]
+    assert after["plain_hash_probe_index"] == before["plain_hash_probe_index"]
+
+
+@pytest.mark.parametrize("home", [100, 4096 - 300])
+def test_hash_probe_segment_sum_long_chains_match_plain(cuda, home):
+    dim_keys, dim_valid, fact_keys, fact_valid, slots = _chain_case(home, home + 1)
+    rng = np.random.default_rng(home)
+    planes = rng.integers(0, 5, (len(dim_keys), 3)).astype(np.float32)
+    codes = _codes(rng, len(fact_keys), 16)
+    args = [torch.from_numpy(a).to(cuda) for a in (fact_keys, fact_valid, codes)]
+    table = pk.build_probe_table(torch.from_numpy(dim_keys).to(cuda),
+                                 torch.from_numpy(dim_valid).to(cuda), slots)
+    tp = torch.from_numpy(planes).to(cuda)
+    sums, counts = pk.hash_probe_segment_sum(*args, table, tp, 16)
+    want_sums, want_counts = pk.hash_probe_segment_sum_plain(*args, table, tp, 16)
+    assert torch.equal(sums, want_sums) and torch.equal(counts, want_counts)
+    assert counts.sum().item() > 500
 
 
 @pytest.mark.parametrize("n,w", [

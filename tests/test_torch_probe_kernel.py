@@ -8,11 +8,13 @@ mode exactly (integer-valued planes). K4 is held bit for bit against:
 - the reference's ``unique_key_index`` (and the port's numpy copy of it);
 - a Python dict.
 
-Keys past 2^53, keys near -2^62, nulls on both sides, misses and an empty
-dim are covered, and so are the table's refusals (duplicate keys, a key
-equal to the empty-slot marker). The CUDA kernels themselves are held
-against the plain versions by the ``cuda``-marked tests of
-tests/test_torch_cuda_kernels.py, which skip without a card.
+Keys past 2^53, keys near -2^62, the keys at the empty-slot encoding's
+edges (0, -1, int64 max), nulls on both sides, misses and an empty dim are
+covered, and so are the table's refusals (duplicate keys, a key equal to
+the empty-slot marker) and its layout: one (S, 2) int64 tensor of 16-byte
+slots, ``[key ^ int64 min, row]``, zero where empty. The CUDA kernels
+themselves are held against the plain versions by the ``cuda``-marked tests
+of tests/test_torch_cuda_kernels.py, which skip without a card.
 """
 
 import numpy as np
@@ -66,7 +68,7 @@ def _port_probe(fact_keys, fact_valid, dim_keys, dim_valid):
     table = pk.build_probe_table(torch.from_numpy(dim_keys), torch.from_numpy(dim_valid),
                                  slots)
     return pk.hash_probe_index(torch.from_numpy(fact_keys), torch.from_numpy(fact_valid),
-                               *table).numpy()
+                               table).numpy()
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -153,14 +155,16 @@ def test_plain_build_places_every_key_on_its_probe_sequence(seed):
     dim_keys, dim_valid, _fk, _fv = _case(seed)
     slots = pk.probe_table_slots(len(dim_keys))
     assert slots >= 2 * len(dim_keys) and slots & (slots - 1) == 0
-    sk_, sr_ = pk.build_probe_table(torch.from_numpy(dim_keys),
-                                    torch.from_numpy(dim_valid), slots)
-    occupied = (sk_ != pk.EMPTY_KEY).numpy()
+    table = pk.build_probe_table(torch.from_numpy(dim_keys), torch.from_numpy(dim_valid),
+                                 slots)
+    words = table.numpy()
+    occupied = words[:, 0] != 0
     assert occupied.sum() == dim_valid.sum()
-    assert sorted(zip(sk_.numpy()[occupied].tolist(), sr_.numpy()[occupied].tolist())) \
+    assert sorted(zip((words[occupied, 0] ^ pk.EMPTY_KEY).tolist(),
+                      words[occupied, 1].tolist())) \
         == sorted((int(k), i) for i, (k, v) in enumerate(zip(dim_keys, dim_valid)) if v)
     found = pk.hash_probe_index(torch.from_numpy(dim_keys),
-                                torch.ones(len(dim_keys), dtype=torch.bool), sk_, sr_)
+                                torch.ones(len(dim_keys), dtype=torch.bool), table)
     np.testing.assert_array_equal(found.numpy(),
                                   np.where(dim_valid, np.arange(len(dim_keys)), -1))
 
@@ -193,9 +197,92 @@ def test_wrappers_count_plain_calls_and_validate():
         pk.build_probe_table(keys, valid, 12)
     table = pk.build_probe_table(keys[:1], valid[:1], 16)
     with pytest.raises(ValueError):
-        pk.hash_probe_index(keys, valid, table[0][:12], table[1][:12])
+        pk.hash_probe_index(keys, valid, table[:12])
     with pytest.raises(TypeError):
-        pk.hash_probe_index(keys, valid, table[0], table[1].long())
+        pk.hash_probe_index(keys, valid, table.int())
+    with pytest.raises(ValueError):
+        pk.hash_probe_index(keys, valid, table[:, 0].contiguous())
+
+
+I64_MAX = (1 << 63) - 1
+
+
+def test_keys_at_the_empty_encodings_edges_are_stored_and_found():
+    """0, -1 and int64 max store as int64 min, int64 max and -1: none is the
+    empty word 0, so each is placed and found. Held against the reference's
+    interpret-mode kernel and unique_key_index."""
+    dim_keys = np.array([7, 0, -1, I64_MAX, pk.EMPTY_KEY + 1, 1 << 62], dtype=np.int64)
+    dim_valid = np.ones(len(dim_keys), dtype=bool)
+    table = pk.build_probe_table(torch.from_numpy(dim_keys), torch.from_numpy(dim_valid),
+                                 pk.probe_table_slots(len(dim_keys)))
+    stored = table[:len(dim_keys), 0].tolist()
+    assert stored[1:4] == [pk.EMPTY_KEY, I64_MAX, -1] and 0 not in stored
+    keys, rows = pk.table_entries(table)
+    assert keys.tolist() == sorted(dim_keys.tolist())
+    assert rows.tolist() == np.argsort(dim_keys).tolist()
+    fact_keys = np.concatenate([dim_keys, [1, -2, I64_MAX - 1, pk.EMPTY_KEY]]).astype(np.int64)
+    fact_valid = np.ones(len(fact_keys), dtype=bool)
+    got = _port_probe(fact_keys, fact_valid, dim_keys, dim_valid)
+    np.testing.assert_array_equal(got, [0, 1, 2, 3, 4, 5, -1, -1, -1, -1])
+    tbl = ref_pk.build_probe_table(dim_keys, dim_valid)
+    fh, fl = ref_pk.probe_key_digits(jnp.asarray(fact_keys), jnp.asarray(fact_valid))
+    want = np.asarray(ref_pk.hash_probe_index(
+        fh, fl, jnp.asarray(tbl[0]), jnp.asarray(tbl[1]), jnp.asarray(tbl[2]),
+        interpret=True))
+    np.testing.assert_array_equal(got, want)
+    ref_series = RefSeries.from_arrow(pa.array(dim_keys, pa.int64()), "k")
+    np.testing.assert_array_equal(
+        got, ref_unique_key_index(ref_series, fact_keys, fact_valid, RefDataType.int64()))
+
+
+def test_the_key_whose_stored_word_is_empty_is_still_refused():
+    """int64 min XOR int64 min is 0, the empty slot: such a dim key is
+    refused on the host, and a fact key equal to it never matches, even in
+    a table whose empty slots it would equal."""
+    assert "empty marker" in pk.probe_key_refusal(
+        np.array([0, -1, I64_MAX, pk.EMPTY_KEY]), np.ones(4, bool))
+    assert pk.probe_key_refusal(np.array([0, -1, I64_MAX]), np.ones(3, bool)) is None
+    empty = pk.build_probe_table(torch.zeros(0, dtype=torch.int64),
+                                 torch.zeros(0, dtype=torch.bool), 16)
+    assert not empty.any()
+    got = pk.hash_probe_index(torch.tensor([pk.EMPTY_KEY, 0]), torch.ones(2, dtype=torch.bool),
+                              empty)
+    assert got.tolist() == [-1, -1]
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_table_holds_every_valid_entry_once_in_16_byte_slots(seed):
+    """The layout itself: (S, 2) int64, 16 bytes a slot, the stored key in
+    bytes 0-7, the int32 row in bytes 8-11 (little-endian), 4 zero bytes of
+    padding; every valid (key, row) in exactly one slot, every other slot
+    all zero."""
+    dim_keys, dim_valid, _fk, _fv = _case(seed, n_dim=900)
+    slots = pk.probe_table_slots(len(dim_keys))
+    table = pk.build_probe_table(torch.from_numpy(dim_keys), torch.from_numpy(dim_valid),
+                                 slots)
+    assert table.shape == (slots, 2) and table.dtype == torch.int64 and table.is_contiguous()
+    raw = table.numpy().view(np.uint8).reshape(slots, 16)
+    stored = raw[:, :8].copy().view("<i8").ravel()
+    rows = raw[:, 8:12].copy().view("<i4").ravel()
+    assert not raw[:, 12:].any()
+    occupied = stored != 0
+    assert not raw[~occupied].any()
+    entries = sorted(zip((stored[occupied] ^ pk.EMPTY_KEY).tolist(), rows[occupied].tolist()))
+    want = sorted((int(k), i) for i, (k, v) in enumerate(zip(dim_keys, dim_valid)) if v)
+    assert entries == want
+    assert len({k for k, _ in entries}) == len(entries) == int(dim_valid.sum())
+    keys, rows_t = pk.table_entries(table)
+    assert list(zip(keys.tolist(), rows_t.tolist())) == want
+
+
+def test_table_must_be_16_byte_aligned():
+    table = pk.build_probe_table(torch.arange(4, dtype=torch.int64),
+                                 torch.ones(4, dtype=torch.bool), 16)
+    shifted = torch.zeros(2 * 16 + 1, dtype=torch.int64)[1:].view(16, 2)
+    shifted.copy_(table)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pk.hash_probe_index(torch.arange(4, dtype=torch.int64),
+                            torch.ones(4, dtype=torch.bool), shifted)
 
 
 # ---- K5: probe + segment sum ----------------------------------------------------------
@@ -231,7 +318,7 @@ def test_probe_segment_sum_matches_reference_pallas_kernel(seed, cap, p):
     counters.reset()
     sums, counts = pk.hash_probe_segment_sum(
         torch.from_numpy(fact_keys), torch.from_numpy(fact_valid), torch.from_numpy(codes),
-        *table, torch.from_numpy(planes), cap)
+        table, torch.from_numpy(planes), cap)
     snap = counters.snapshot()
     assert snap["plain_hash_probe_segment_sum"] == 1
     assert snap["launches_hash_probe_segment_sum"] == 0
@@ -254,14 +341,14 @@ def test_probe_segment_sum_empty_dim_and_validation():
     valid = torch.ones(16, dtype=torch.bool)
     codes = torch.zeros(16, dtype=torch.int32)
     table = pk.build_probe_table(keys[:0], valid[:0], 16)
-    sums, counts = pk.hash_probe_segment_sum(keys, valid, codes, *table,
+    sums, counts = pk.hash_probe_segment_sum(keys, valid, codes, table,
                                              torch.zeros((0, 2)), 4)
     assert (sums == 0).all() and (counts == 0).all()
     table = pk.build_probe_table(keys[:4], valid[:4], 16)
     planes = torch.ones((4, 2))
     with pytest.raises(ValueError):
-        pk.hash_probe_segment_sum(keys, valid, codes[:8], *table, planes, 4)
+        pk.hash_probe_segment_sum(keys, valid, codes[:8], table, planes, 4)
     with pytest.raises(TypeError):
-        pk.hash_probe_segment_sum(keys, valid, codes, *table, planes.double(), 4)
+        pk.hash_probe_segment_sum(keys, valid, codes, table, planes.double(), 4)
     with pytest.raises(ValueError, match="cannot hold"):
-        pk.hash_probe_segment_sum(keys, valid, codes, *table, torch.ones((9, 2)), 4)
+        pk.hash_probe_segment_sum(keys, valid, codes, table, torch.ones((9, 2)), 4)
