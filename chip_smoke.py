@@ -23,21 +23,24 @@ error (no phase catches its own failure):
             stage passes them; Q = 1 for K2; K3's four launches, int64 min
             and max of l_shipdate and l_orderkey; K1a on the (N, 15) stack
             of K1's planes, also equal to K1's output cast to f32), K1
-            (P = 5) and K2 (Q = 1) again at q12's cap 8, K1, K2 and K3 again
-            at cap 2^17 (l_partkey folded into 2^17 groups) and at cap 8
-            (every kept row on l_shipmode's 7 codes), and K1 on 73 planes
-            at cap 4096 (past one 64-plane chunk). K1's and K2's bound
-            counts the bytes the function needs (a trash row's plane values
-            are not), beside every input read once; K4 at q12's
+            (P = 5) and K2 (Q = 1) again at q12's cap 8, K1, K2, K3 and K1a
+            again at cap 2^17 (l_partkey folded into 2^17 groups) and at
+            cap 8 (every kept row on l_shipmode's 7 codes), and K1 on 73
+            planes at cap 4096 (past one 64-plane chunk). K1's, K2's and
+            K1a's bound counts the bytes the function needs (a trash row's
+            plane values are not), beside every input read once; K4 at q12's
             (orders' 1.5 M keys into a 2^22-slot table, 2^23 lineitem keys
             probed, then the same keys shifted past the largest order key:
             every probe misses and walks to an empty slot). K4's build is
-            compared as the
-            sorted set of its (key, row) entries: where a key lands depends
-            on the order the threads claim their slots. K5 at q12's shapes on
-            K4's table (lineitem's keys, q12's ship-mode codes, orders'
-            high/low priority planes), also equal to q12's oracle for MAIL
-            and SHIP; K6 at the repartition cell's shapes (8 x 8 blocks of
+            compared as the sorted set of its (key, row) entries: where a
+            key lands depends on the order the threads claim their slots.
+            K5 on K4's table (lineitem's keys, orders' high/low priority
+            planes) at q12's shapes (q12's ship-mode codes), equal to q12's
+            oracle for MAIL and SHIP, and with every real row kept on its
+            ship mode (about 6.0 M probes that hit), equal to a per-mode
+            numpy count; its bound reads each distinct kept key's slot and
+            each matched dim row's planes once; probe_timings.py times K5
+            through the same functions. K6 at the repartition cell's shapes (8 x 8 blocks of
             23 x 2^20 + 4 words). Every kernel also by its device time under
             torch.profiler (K4's build with the table's clearing, where it
             has one). K1a and K5 have no engine caller, in the port or in
@@ -470,6 +473,135 @@ def k3_case(sk, v, keep, codes, cap: int, op: str) -> dict:
     }
 
 
+def k1a_case(sk, stack, codes, cap: int) -> dict:
+    """K1a on the (N, P) stack at one shape: equal to its plain version bit
+    for bit (integer-valued planes, segment totals below 2^24), then the
+    kernel's, the plain version's and ``index_add_``'s times (into a table
+    with a trash row, which the port never calls) and two bounds, as
+    plane_case's: ``bound_ms``, what the function needs (the codes, the
+    32-byte sectors of the stack that the kept rows' floats lie in, the f32
+    output), and ``bound_read_once_ms``, every input read once."""
+    import torch
+
+    def call():
+        return sk.segment_sum_planes_f32(stack, codes, cap)
+    got = call()
+    want = sk.segment_sum_planes_f32_plain(stack, codes, cap)
+    torch.cuda.synchronize()
+    n, p = stack.shape
+    check(torch.equal(got, want), f"K1a segment_sum_planes_f32 at cap {cap}, P {p} differs "
+                                  "from its plain version")
+    idx = torch.where((codes >= 0) & (codes < cap), codes, cap).long()
+    table = torch.zeros((cap + 1, p), dtype=torch.float32, device=codes.device)
+    # the kept rows' byte ranges [r * 4P, (r + 1) * 4P) in 32-byte sectors;
+    # two adjacent kept rows may share one
+    rows = torch.nonzero((codes >= 0) & (codes < cap)).squeeze(1)
+    first, last = (rows * (4 * p)) >> 5, (rows * (4 * p) + 4 * p - 1) >> 5
+    sectors = int((last - first + 1).sum()) - int((first[1:] == last[:-1]).sum())
+    result = {
+        "cap": cap, "planes": p, "kept_share": rows.numel() / n,
+        "max_abs_err": max_abs_err(got, want),
+        "ms": time_ms(call, 20),
+        "device_ms": device_ms(call, 20, f"K1a cap {cap} P {p}"),
+        "plain_ms": time_ms(lambda: sk.segment_sum_planes_f32_plain(stack, codes, cap), 5),
+        "library_ms": time_ms(lambda: table.index_add_(0, idx, stack), 20),
+        "bound_ms": bound_ms(n * 4 + sectors * 32 + cap * p * 4),
+        "bound_read_once_ms": bound_ms(n * p * 4 + n * 4 + cap * p * 4),
+    }
+    del got, want, idx, table, rows, first, last
+    return result
+
+
+def k5_inputs(cols, orders, table, dev) -> dict:
+    """K5's inputs on K4's table of orders: lineitem's keys padded to the
+    bucket (padding rows invalid), orders' high/low priority planes, and two
+    code columns: q12's ship-mode codes (trash where its predicate drops the
+    row: 31,585 rows kept) and every real row coded by its ship mode
+    (``all_kept``: q12's date and mode predicates dropped, about 6.0 M
+    probes that all hit, padding in the trash). The one input function of
+    chip_smoke.py and probe_timings.py."""
+    import numpy as np
+    import torch
+
+    n = len(cols["l_orderkey"])
+    keys = torch.zeros(BUCKET, dtype=torch.int64)
+    keys[:n] = torch.from_numpy(cols["l_orderkey"])
+    valid = torch.zeros(BUCKET, dtype=torch.bool)
+    valid[:n] = True
+    high = orders["o_orderpriority"] <= 1
+    planes = torch.from_numpy(np.stack([high, ~high], axis=1).astype(np.float32))
+    keep_np, q12 = q12_codes(cols, dev)
+    every = torch.full((BUCKET,), Q12_CAP, dtype=torch.int32)
+    every[:n] = torch.from_numpy(cols["l_shipmode"].astype(np.int32))
+    return {"keys": keys.to(dev), "valid": valid.to(dev), "planes": planes.to(dev),
+            "table": table, "codes": {"q12": q12, "all_kept": every.to(dev)},
+            "kept": {"q12": int(keep_np.sum()), "all_kept": n}}
+
+
+def k5_case(pk, inputs: dict, shape: str, cols, orders) -> dict:
+    """K5 at one of k5_inputs' shapes, the one timing of K5 both scripts
+    use: equal to its plain version bit for bit (integer-valued planes) and
+    to a numpy oracle (q12's for MAIL and SHIP; per ship mode for all_kept),
+    then its time by CUDA events and on the device (torch.profiler), each
+    over 20 calls after a warm-up, the plain version's, and the bound: every
+    code read, each kept row's key and validity byte, each distinct kept
+    key's 16-byte slot and each distinct matched dim row's P planes (rows
+    sorted by order key share them), then the outputs written."""
+    import numpy as np
+    import torch
+
+    keys, valid, table = inputs["keys"], inputs["valid"], inputs["table"]
+    planes, codes = inputs["planes"], inputs["codes"][shape]
+
+    def call():
+        return pk.hash_probe_segment_sum(keys, valid, codes, table, planes, Q12_CAP)
+    got_s, got_c = call()
+    want_s, want_c = pk.hash_probe_segment_sum_plain(keys, valid, codes, table, planes,
+                                                     Q12_CAP)
+    torch.cuda.synchronize()
+    check(torch.equal(got_s, want_s) and torch.equal(got_c, want_c),
+          f"K5 hash_probe_segment_sum ({shape}) differs from its plain version")
+    high = q12_high(cols, orders)
+    if shape == "q12":
+        oracle = q12_oracle(cols, orders)
+        modes = oracle["l_shipmode"]
+        want = {m: (h, lo) for m, h, lo in zip(modes, oracle["high_line_count"],
+                                                oracle["low_line_count"])}
+    else:
+        mode = cols["l_shipmode"]
+        modes = SHIPMODES
+        want = {m: (int(np.count_nonzero(high[mode == i])),
+                    int(np.count_nonzero(~high[mode == i]))) for i, m in enumerate(modes)}
+    for m in modes:
+        code = SHIPMODES.index(m)
+        h, lo = want[m]
+        check(got_s[code].tolist() == [h, lo] and got_c[code].item() == h + lo,
+              f"K5 ({shape}) {m}: {got_s[code].tolist()} / {got_c[code].item()}, "
+              f"the oracle's {h} / {lo}")
+    print(f"K5 ({shape}) sums equal the numpy oracle: "
+          f"{ {m: got_s[SHIPMODES.index(m)].tolist() for m in modes} }")
+    kept, p = inputs["kept"][shape], planes.shape[1]
+    inside = (codes >= 0) & (codes < Q12_CAP)
+    dim_row = pk.hash_probe_index_plain(keys, valid, table)
+    slots = torch.unique(keys[inside & valid]).numel()
+    matched = torch.unique(dim_row[inside & (dim_row >= 0)]).numel()
+    del inside, dim_row
+    result = {
+        "cap": Q12_CAP, "planes": p, "kept_rows": kept, "distinct_keys": slots,
+        "matched_dim_rows": matched,
+        "max_abs_err": max(max_abs_err(got_s, want_s), max_abs_err(got_c, want_c)),
+        "ms": time_ms(call, 20),
+        "device_ms": device_ms(call, 20, f"K5 {shape}"),
+        "plain_ms": time_ms(lambda: pk.hash_probe_segment_sum_plain(
+            keys, valid, codes, table, planes, Q12_CAP), 5),
+        "library_ms": None,
+        "bound_ms": bound_ms(BUCKET * 4 + kept * (8 + 1) + slots * 16 + matched * p * 4
+                             + Q12_CAP * p * 8 + Q12_CAP * 8),
+    }
+    del got_s, got_c, want_s, want_c
+    return result
+
+
 def max_abs_err(a, b) -> float:
     """Largest |a - b| over the entries; equal entries (infinities
     included) count 0."""
@@ -565,7 +697,7 @@ def q12_codes(cols, dev):
     return keep_np, codes8.to(dev)
 
 
-def probe_cases(pk, cols, orders, codes8, keep_np, dev, results: dict) -> None:
+def probe_cases(pk, cols, orders, dev, results: dict) -> None:
     """K4's build and probe and K5 at q12's shapes, into ``results``: each
     equal to its plain version (the build as the sorted set of its (key,
     row) entries), timed by events and on the device, beside its bound."""
@@ -635,44 +767,12 @@ def probe_cases(pk, cols, orders, codes8, keep_np, dev, results: dict) -> None:
         del got, want, keys
     del plain_table, sorted_keys
 
-    # K5 on K4's table: lineitem's keys, q12's ship-mode codes (trash where
-    # its predicate drops the row), orders' high/low priority planes
-    high_o = orders["o_orderpriority"] <= 1
-    dim_planes = torch.from_numpy(np.stack([high_o, ~high_o], axis=1)
-                                  .astype(np.float32)).to(dev)
-
-    def k5():
-        return pk.hash_probe_segment_sum(fact_keys, fact_valid, codes8, table, dim_planes,
-                                         Q12_CAP)
-    got_s, got_c = k5()
-    want_s, want_c = pk.hash_probe_segment_sum_plain(fact_keys, fact_valid, codes8, table,
-                                                     dim_planes, Q12_CAP)
-    torch.cuda.synchronize()
-    check(torch.equal(got_s, want_s) and torch.equal(got_c, want_c),
-          "K5 hash_probe_segment_sum differs from its plain version")
-    oracle = q12_oracle(cols, orders)
-    for i, mode in enumerate(oracle["l_shipmode"]):
-        code = SHIPMODES.index(mode)
-        high, low = oracle["high_line_count"][i], oracle["low_line_count"][i]
-        check(got_s[code].tolist() == [high, low] and got_c[code].item() == high + low,
-              f"K5 {mode}: {got_s[code].tolist()} / {got_c[code].item()}, "
-              f"q12's oracle {high} / {low}")
-    print(f"K5 sums equal q12's oracle: "
-          f"{ {m: got_s[SHIPMODES.index(m)].tolist() for m in oracle['l_shipmode']} }")
-    kept = int(keep_np.sum())
-    results["hash_probe_segment_sum"] = {
-        "max_abs_err": max(max_abs_err(got_s, want_s), max_abs_err(got_c, want_c)),
-        "ms": time_ms(k5, 20),
-        "device_ms": device_ms(k5, 20, "K5"),
-        "plain_ms": time_ms(lambda: pk.hash_probe_segment_sum_plain(
-            fact_keys, fact_valid, codes8, table, dim_planes, Q12_CAP), 5),
-        "library_ms": None,
-        # every code is read; only the kept rows read their key, validity
-        # and one 12-byte slot, and their matched dim row's 2 planes
-        "bound_ms": bound_ms(BUCKET * 4 + kept * (8 + 1 + 12 + 2 * 4)
-                             + Q12_CAP * 2 * 8 + Q12_CAP * 8),
-    }
-    del table, fact_keys, fact_valid, dim_planes, got_s, got_c, want_s, want_c
+    # K5 on K4's table at q12's shapes, then with every real row kept
+    del fact_keys, fact_valid
+    k5 = k5_inputs(cols, orders, table, dev)
+    results["hash_probe_segment_sum"] = k5_case(pk, k5, "q12", cols, orders)
+    results["hash_probe_segment_sum"]["all_kept"] = k5_case(pk, k5, "all_kept", cols, orders)
+    del table, k5
     torch.cuda.empty_cache()
 
 
@@ -688,8 +788,7 @@ def phase_kernels(cols, orders, card: str):
     dev = torch.device("cuda")
     x = slice_inputs(cols, dev)
     codes, keep = x["codes"], x["keep"]
-    n, p = x["stack"].shape
-    trash_idx = torch.where((codes >= 0) & (codes < CAP), codes, CAP).long()
+    p = x["stack"].shape[1]
     results = {}
 
     # K1 over the 15 planes; K2 over the first-row-index plane, min
@@ -711,6 +810,7 @@ def phase_kernels(cols, orders, card: str):
         "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
         "by_column_op": cases}
     rows = len(cols["l_suppkey"])
+    k1a_at = {}
     for label, group_np, groups in (
             ("at_cap8", cols["l_shipmode"], K3_SMALL_CAP),
             ("at_cap131072", (cols["l_partkey"] - 1) % K3_LARGE_CAP, K3_LARGE_CAP),
@@ -733,30 +833,17 @@ def phase_kernels(cols, orders, card: str):
                                                               groups)
             results["segment_extreme_planes"][label] = plane_case(sk, "min", x["first"],
                                                                   codes_k, groups)
+            k1a_at[label] = k1a_case(sk, x["stack"], codes_k, groups)
         del group, codes_k
 
-    # K1a: K1's planes, stacked to (N, 15), and codes in one f32 window
-    got = sk.segment_sum_planes_f32(x["stack"], codes, CAP)
-    want = sk.segment_sum_planes_f32_plain(x["stack"], codes, CAP)
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "K1a segment_sum_planes_f32 differs from its plain version")
-    check(torch.equal(got, sk.segment_sum_planes(x["planes"], codes,
-                                                 CAP).float()),
+    # K1a: K1's planes, stacked to (N, 15), and codes in one f32 window; the
+    # same at cap 8 and cap 2^17 (above)
+    results["segment_sum_planes_f32"] = k1a_case(sk, x["stack"], codes, CAP)
+    results["segment_sum_planes_f32"].update(k1a_at)
+    check(torch.equal(sk.segment_sum_planes_f32(x["stack"], codes, CAP),
+                      sk.segment_sum_planes(x["planes"], codes, CAP).float()),
           "K1a segment_sum_planes_f32 differs from K1's output cast to f32")
-    lib_table = torch.zeros((CAP + 1, p), dtype=torch.float32, device=dev)
-
-    def k1a():
-        return sk.segment_sum_planes_f32(x["stack"], codes, CAP)
-    results["segment_sum_planes_f32"] = {
-        "max_abs_err": max_abs_err(got, want),
-        "ms": time_ms(k1a, 20),
-        "device_ms": device_ms(k1a, 20, "K1a"),
-        "plain_ms": time_ms(lambda: sk.segment_sum_planes_f32_plain(x["stack"], codes, CAP),
-                            5),
-        "library_ms": time_ms(lambda: lib_table.index_add_(0, trash_idx, x["stack"]), 20),
-        "bound_ms": bound_ms(n * p * 4 + n * 4 + CAP * p * 4),
-    }
-    del x, lib_table, orderkey, trash_idx
+    del x, orderkey
     torch.cuda.empty_cache()
 
     # K1 at q12's shapes: 7 ship modes in cap 8, P = 5 planes (kept rows, and
@@ -779,8 +866,8 @@ def phase_kernels(cols, orders, card: str):
                                                                   Q12_CAP, 20)
     del planes8, first8
 
-    probe_cases(pk, cols, orders, codes8, keep_np, dev, results)
     del codes8
+    probe_cases(pk, cols, orders, dev, results)
 
     # K6 at the repartition cell's shapes: 8 x 8 blocks of 23 x 2^20 + 4
     # words (7 eight-byte planes, 1 four-byte plane, 8 validity planes, the

@@ -82,19 +82,61 @@
 // K5 daft_hash_probe_segment_sum replaces pallas_kernels.py
 //   hash_probe_segment_sum: probe + membership + segment sum in one kernel,
 //   on K4's table. No engine code calls it, in the port or in the reference.
-//   One thread per fact row: a row whose code lies in [0, cap) and whose key
-//   is valid walks K4's probe sequence (the device function shared with the
-//   probe kernel); on a hit it adds the matched dim row's P planes (f32,
-//   indexed by dim row) into the code's segment with f64 atomics and 1 into
-//   the code's match count with a 64-bit atomic. No index plane is written.
-//   The TPU kernel accumulates in f32; the port widens to f64 sums and int64
-//   counts, as K1 does, so the values equal the reference's wherever its f32
-//   sums are exact (integer-valued planes under 2^24 a segment).
-//   Bound: memory. Every fact row's code is read; only rows with a code in
-//   range read their key and probe (q12 keeps 0.4 % of lineitem), and only
-//   hits read P planes of their dim row. It reads the 16-byte slots and is
-//   otherwise the first design. Left for later: warp-aggregated atomics,
-//   since few segments take every hit.
+//   A fact row whose code lies in [0, cap) and whose key is valid (and not
+//   INT64_MIN) walks K4's probe sequence (the device function `walk` shared
+//   with the probe kernel); on a hit it adds the matched dim row's P planes
+//   (f32, indexed by dim row) into the code's segment in f64 and 1 into the
+//   code's match count. No index plane is written. The TPU kernel
+//   accumulates in f32; the port widens to f64 sums and int64 counts, as K1
+//   does, so the values equal the reference's wherever its f32 sums are
+//   exact (integer-valued planes under 2^24 a segment).
+//   Bound: memory. Every fact row's code is read; a kept row (a code in
+//   range) reads its key and validity byte, each distinct kept key one
+//   16-byte slot, each matched dim row its P planes; then the outputs:
+//   0.0103 ms at TPC-H SF1 q12's shapes (2^23 rows, 31,585 kept, 29,673
+//   distinct keys, cap 8, P 2), nearly all the codes' 33.5 MB, and 0.0369
+//   ms with every real row kept (6.0 M hits on 1.5 M orders) at 3.35 TB/s.
+//   Design: a persistent grid of 512-thread blocks, two an SM. A block
+//   steps through its chunks of the codes, 2 16-byte vectors of 4 codes a
+//   lane (single codes where the codes are not 16-byte aligned), the next
+//   chunk's loads in flight while this chunk's kept rows are queued in
+//   shared memory (a warp's prefix sum, one shared atomic a warp). A chunk
+//   with no kept row costs its loads alone. After each chunk every thread
+//   reads the queue's count between two barriers, so no warp queues the
+//   next chunk before the block has decided on one count. When the
+//   8192-row queue may not hold another chunk, and at the end, the whole
+//   block probes the queue, 2
+//   rows a thread with both first slots loaded before either walk, so the
+//   walks of a thousand rows are in flight at once. Hits are aggregated in
+//   the warp: __match_any_sync groups the lanes by code, every lane of a
+//   group gathers its members' values by shuffles in lane order, and the
+//   group's first lane adds the f64 sums and the group's size. Tiers, by
+//   cap x (P + 1) in the wrapper (probe_kernels.py
+//   hash_probe_segment_sum_tier) and checked here:
+//   - shared, while a table of cap x (P + 1) 8-byte entries fits in 32 KB:
+//     one table in the block's shared memory, added into the output with
+//     one global atomic per nonzero entry when the block ends;
+//   - global, past that: the groups' sums go to the output as global
+//     atomics.
+//   The 64-bit adds in shared memory (the f64 sums, the u64 counts) compile
+//   to a compare-and-swap loop on sm_90a (ATOMS.CAST.SPIN.64 in the SASS);
+//   the global ones are REDG.E.ADD.F64 and REDG.E.ADD.64.
+//   Measured (chip_smoke.py and probe_timings.py on an H100 80GB HBM3 at
+//   700.00 W, device time under torch.profiler, the wrapper's one zero-fill
+//   of the outputs included; the first design in brackets, timed in the
+//   same call: one thread per row, f64 and u64 global atomics per hit):
+//   0.018-0.019 ms at q12's shapes (0.046 or 0.071 by where the outputs
+//   lie), 0.173-0.177 ms with every row kept (6.09). The first design's two
+//   times are its 95 K atomics on two 128-byte lines: its time followed
+//   where the allocator put the sums and the counts (PERF.md, section 7).
+//   Designs that lost, at q12's shapes: warp aggregation straight
+//   off a persistent scan, each warp probing its own kept rows as it met
+//   them (0.048-0.050 ms with one vector a lane and 79 registers, 0.078
+//   with 4 vectors and 64): each warp waited out its few rows' dependent
+//   key, slot and plane loads in turn. A table per warp in turn (as far as
+//   32 KB holds them) took 0.1744-0.1748 ms with every row kept against
+//   0.1755-0.1773 for one table a block, and the same at q12's shapes
+//   (0.0186-0.0188 against 0.0179-0.0185): one table is kept.
 //
 // Each launcher takes raw device pointers and the caller's stream, launches
 // on that stream, never synchronises, allocates nothing (the wrapper in
@@ -103,6 +145,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -149,13 +193,6 @@ __device__ __forceinline__ int walk(unsigned long long stored, unsigned long lon
     h = (h + 1) & mask;
     cur = __ldg(slots + h);
   }
-}
-
-__device__ __forceinline__ int probe_row(unsigned long long key,
-                                         const ulonglong2* __restrict__ slots,
-                                         unsigned long long mask) {
-  const unsigned long long h = mix64(key) & mask;
-  return walk(key ^ kSign, h, __ldg(slots + h), slots, mask);
 }
 
 // the CAS tier (tables past kMaxRegions regions): one thread per dim row on
@@ -394,30 +431,250 @@ probe_index_kernel(const long long* __restrict__ keys, const unsigned char* __re
   }
 }
 
-__global__ void probe_segment_sum_kernel(const long long* __restrict__ keys,
-                                         const unsigned char* __restrict__ valid,
-                                         const int* __restrict__ codes,
-                                         const ulonglong2* __restrict__ slots,
-                                         const float* __restrict__ planes,
-                                         double* __restrict__ sums,
-                                         unsigned long long* __restrict__ counts,
-                                         long long n, int p, int cap,
-                                         unsigned long long mask) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int code = __ldg(codes + i);
-  if (code < 0 || code >= cap || !__ldg(valid + i)) return;
-  const unsigned long long key = static_cast<unsigned long long>(__ldg(keys + i));
-  if (key == kSign) return;
-  const int row = probe_row(key, slots, mask);
-  if (row < 0) return;
-  const float* src = planes + static_cast<long long>(row) * p;
-  double* dst = sums + static_cast<long long>(code) * p;
-  for (int c = 0; c < p; ++c) {
-    const float v = __ldg(src + c);
-    if (v != 0.0f) atomicAdd(dst + c, static_cast<double>(v));
+// ---- K5 ------------------------------------------------------------------------
+
+constexpr int kSumThreads = 512;
+constexpr int kSumVectors = 2;     // code vectors (4 codes, or 1) a lane loads a step
+constexpr int kSumQueue = 8192;    // kept rows a block queues before it probes them
+constexpr int kSumProbeRows = 2;   // queued rows a thread probes at once
+constexpr int kSumPlaneChunk = 4;  // planes a lane loads and sums at once
+constexpr int kSumTierShared = 0, kSumTierGlobal = 1;
+// a block's table of cap x (P + 1) 8-byte entries
+constexpr int kSumTableBytes = 32768;
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// One row slot of every lane of the warp (called by all 32 lanes together):
+// lanes whose row hit dim row `row` add its P planes into segment `code`,
+// aggregated in the warp first. __match_any_sync groups the lanes by code;
+// every lane of a group gathers the group's values by shuffles from each of
+// its members in lane order (so the order of the f64 additions is fixed),
+// and the group's first lane adds the sums and the group's size into the
+// table (shared memory, or the output in device memory).
+__device__ __forceinline__ void sum_hits(bool hit, int code, int row,
+                                         const float* __restrict__ planes, int p,
+                                         double* sums, unsigned long long* counts) {
+  if (!__any_sync(kFullWarp, hit)) return;
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(kFullWarp, hit ? code : -1);
+  const unsigned group = hit ? peers : 0u;
+  const bool lead = hit && __ffs(peers) - 1 == lane;
+  if (lead) atomicAdd(counts + code, static_cast<unsigned long long>(__popc(peers)));
+  const float* src = planes + static_cast<long long>(hit ? row : 0) * p;
+  for (int j0 = 0; j0 < p; j0 += kSumPlaneChunk) {
+    float v[kSumPlaneChunk];
+#pragma unroll
+    for (int u = 0; u < kSumPlaneChunk; ++u) {
+      v[u] = hit && j0 + u < p ? __ldg(src + j0 + u) : 0.0f;
+    }
+    double acc[kSumPlaneChunk] = {};
+    unsigned rest = group;
+    while (__any_sync(kFullWarp, rest != 0u)) {
+      const int from = rest ? __ffs(rest) - 1 : lane;
+#pragma unroll
+      for (int u = 0; u < kSumPlaneChunk; ++u) {
+        const float x = __shfl_sync(kFullWarp, v[u], from);
+        if (rest) acc[u] += static_cast<double>(x);
+      }
+      rest &= rest - 1;
+    }
+    if (lead) {
+#pragma unroll
+      for (int u = 0; u < kSumPlaneChunk; ++u) {
+        // a zero sum adds nothing to the zero-filled output
+        if (j0 + u < p && acc[u] != 0.0) atomicAdd(sums + code * p + j0 + u, acc[u]);
+      }
+    }
   }
-  atomicAdd(counts + code, 1ull);
+}
+
+// Queue the rows [row0, row0 + R) of every lane whose code lies in
+// [0, cap) (called by all 32 lanes together): one shared atomic per warp
+// reserves the warp's run, each lane writes its rows at its prefix.
+template <int R>
+__device__ __forceinline__ void queue_rows(const int (&code)[R], long long row0, unsigned cap,
+                                           int* queue, int* count) {
+  const int lane = threadIdx.x & 31;
+  int mine = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) mine += static_cast<unsigned>(code[r]) < cap;
+  int at = mine;  // inclusive prefix over the lanes
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFullWarp, at, d);
+    if (lane >= d) at += y;
+  }
+  const int total = __shfl_sync(kFullWarp, at, 31);
+  if (total == 0) return;
+  int base = 0;
+  if (lane == 31) base = atomicAdd(count, total);
+  at += __shfl_sync(kFullWarp, base, 31) - mine;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (static_cast<unsigned>(code[r]) < cap) queue[at++] = static_cast<int>(row0 + r);
+  }
+}
+
+// Probe the block's `count` queued rows and sum their hits (called by
+// every thread of the block): each thread takes kSumProbeRows rows a round,
+// reads their codes, validity and keys, loads every live row's first slot
+// before it walks any, and each row slot is summed by sum_hits.
+__device__ __forceinline__ void probe_queue(const int* queue, int count,
+                                            const long long* __restrict__ keys,
+                                            const unsigned char* __restrict__ valid,
+                                            const int* __restrict__ codes,
+                                            const ulonglong2* __restrict__ slots,
+                                            unsigned long long mask,
+                                            const float* __restrict__ planes, int p,
+                                            double* sums, unsigned long long* counts) {
+  constexpr int R = kSumProbeRows;
+  for (int q0 = 0; q0 < count; q0 += kSumThreads * R) {
+    int code[R];
+    bool live[R];
+    unsigned long long stored[R], h[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = q0 + r * kSumThreads + static_cast<int>(threadIdx.x);
+      live[r] = i < count;
+      code[r] = 0;
+      if (live[r]) {
+        const int row = queue[i];
+        const unsigned long long key = static_cast<unsigned long long>(__ldg(keys + row));
+        code[r] = __ldg(codes + row);
+        live[r] = __ldg(valid + row) && key != kSign;
+        stored[r] = key ^ kSign;
+        h[r] = mix64(key) & mask;
+      }
+    }
+    ulonglong2 first[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (live[r]) first[r] = __ldg(slots + h[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = live[r] ? walk(stored[r], h[r], first[r], slots, mask) : -1;
+      sum_hits(row >= 0, code[r], row, planes, p, sums, counts);
+    }
+  }
+}
+
+// K5: a persistent grid. Each block steps through its chunks of the codes,
+// kSumVectors vectors a lane (4 codes each, kRows = 4, codes 16-byte
+// aligned; or single codes, kRows = 1), the next chunk's loads in flight
+// while this chunk's kept rows (a code in [0, cap)) are queued in shared
+// memory. A chunk where no code is kept costs its loads alone. When the
+// queue may not hold another chunk, and at the end, the whole block probes
+// the queue (probe_queue): the walks of many rows are in flight at once,
+// not one warp's few. The shared tier sums into a table of cap x (P + 1)
+// entries in the block's shared memory (the counts, then the P sums of each
+// code) and at the end adds each nonzero entry into the output with one
+// global atomic; the global tier adds the warps' aggregates into the output
+// directly.
+template <int kTier, int kRows>
+__global__ void __launch_bounds__(kSumThreads, 2)
+probe_sum_kernel(const long long* __restrict__ keys, const unsigned char* __restrict__ valid,
+                 const int* __restrict__ codes, const ulonglong2* __restrict__ slots,
+                 const float* __restrict__ planes, double* __restrict__ sums,
+                 unsigned long long* __restrict__ counts, long long n, int p, int cap,
+                 unsigned long long mask) {
+  extern __shared__ __align__(16) unsigned char sum_smem[];
+  __shared__ int queue[kSumQueue];
+  __shared__ int queued;
+  using Vec = typename std::conditional<kRows == 4, int4, int>::type;
+  const int entries = cap * (p + 1);
+  double* tsum = sums;
+  unsigned long long* tcnt = counts;
+  if constexpr (kTier == kSumTierShared) {
+    tcnt = reinterpret_cast<unsigned long long*>(sum_smem);
+    tsum = reinterpret_cast<double*>(tcnt + cap);
+    for (int i = threadIdx.x; i < entries; i += kSumThreads) tcnt[i] = 0ull;
+  }
+  if (threadIdx.x == 0) queued = 0;
+  __syncthreads();
+  const unsigned ucap = static_cast<unsigned>(cap);
+  const long long vecs = kRows == 4 ? n >> 2 : n;  // code vectors
+  constexpr int kChunk = kSumThreads * kSumVectors;  // vectors a block step
+  const long long stride = static_cast<long long>(gridDim.x) * kChunk;
+  Vec c[kSumVectors], next[kSumVectors];
+  auto load = [&](long long chunk, Vec (&v)[kSumVectors]) {
+#pragma unroll
+    for (int u = 0; u < kSumVectors; ++u) {
+      const long long s = chunk + u * kSumThreads + threadIdx.x;
+      if constexpr (kRows == 4) {
+        v[u] = s < vecs ? __ldcs(reinterpret_cast<const int4*>(codes) + s)
+                        : make_int4(-1, -1, -1, -1);
+      } else {
+        v[u] = s < vecs ? __ldcs(codes + s) : -1;
+      }
+    }
+  };
+  long long chunk = static_cast<long long>(blockIdx.x) * kChunk;
+  if (chunk < vecs) load(chunk, c);
+  for (; chunk < vecs; chunk += stride) {  // block-uniform
+    if (chunk + stride < vecs) load(chunk + stride, next);
+#pragma unroll
+    for (int u = 0; u < kSumVectors; ++u) {
+      const long long s = chunk + u * kSumThreads + threadIdx.x;
+      if constexpr (kRows == 4) {
+        const int code[4] = {c[u].x, c[u].y, c[u].z, c[u].w};
+        queue_rows<4>(code, s << 2, ucap, queue, &queued);
+      } else {
+        const int code[1] = {c[u]};
+        queue_rows<1>(code, s, ucap, queue, &queued);
+      }
+    }
+    __syncthreads();
+    const int count = queued;
+    // every thread has read the count before any warp queues the next
+    // chunk's rows: the flush is decided by one count, block-wide
+    __syncthreads();
+    if (count > kSumQueue - kChunk * kRows) {
+      probe_queue(queue, count, keys, valid, codes, slots, mask, planes, p, tsum, tcnt);
+      __syncthreads();
+      if (threadIdx.x == 0) queued = 0;
+      __syncthreads();
+    }
+#pragma unroll
+    for (int u = 0; u < kSumVectors; ++u) c[u] = next[u];
+  }
+  if constexpr (kRows == 4) {
+    // the last n % 4 rows: block 0's first warp, after every thread has
+    // read the last chunk's count (the barrier above)
+    if (blockIdx.x == 0 && threadIdx.x < 32) {
+      const long long r = (vecs << 2) + threadIdx.x;
+      const int code[1] = {r < n ? codes[r] : -1};
+      queue_rows<1>(code, r, ucap, queue, &queued);
+    }
+  }
+  __syncthreads();
+  probe_queue(queue, queued, keys, valid, codes, slots, mask, planes, p, tsum, tcnt);
+  if constexpr (kTier == kSumTierShared) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < cap; i += kSumThreads) {
+      if (tcnt[i]) atomicAdd(counts + i, tcnt[i]);
+    }
+    for (int i = threadIdx.x; i < cap * p; i += kSumThreads) {
+      if (tsum[i] != 0.0) atomicAdd(sums + i, tsum[i]);
+    }
+  }
+}
+
+using SumKernel = void (*)(const long long*, const unsigned char*, const int*,
+                           const ulonglong2*, const float*, double*, unsigned long long*,
+                           long long, int, int, unsigned long long);
+
+// K5's kernel for a tier with its shared memory, or null for a tier this
+// file does not take (a shared table past kSumTableBytes).
+SumKernel sum_kernel(int tier, int cap, int p, bool vec, int* smem) {
+  *smem = 0;
+  if (cap <= 0 || p < 0) return nullptr;
+  if (tier == kSumTierGlobal) {
+    return vec ? probe_sum_kernel<kSumTierGlobal, 4> : probe_sum_kernel<kSumTierGlobal, 1>;
+  }
+  const long long bytes = static_cast<long long>(cap) * (p + 1) * 8;
+  if (tier != kSumTierShared || bytes > kSumTableBytes) return nullptr;
+  *smem = static_cast<int>(bytes);
+  return vec ? probe_sum_kernel<kSumTierShared, 4> : probe_sum_kernel<kSumTierShared, 1>;
 }
 
 // regions of the partitioned build for a table of n_slots slots; 0: past
@@ -443,6 +700,25 @@ cudaError_t allow_build_smem() {
   rc = cudaFuncSetAttribute(build_place_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                             kRegion * 12);
   if (rc == cudaSuccess && dev < kMaxDevices) build_ready[dev] = true;
+  return rc;
+}
+
+// K5's shared tier: its tables come beside the static queue, past 48 KB
+// together only by this opt-in, allowed at their largest once per device
+bool sum_ready[kMaxDevices];
+
+cudaError_t allow_sum_smem() {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < kMaxDevices && sum_ready[dev]) return cudaSuccess;
+  for (const SumKernel kernel : {probe_sum_kernel<kSumTierShared, 4>,
+                                 probe_sum_kernel<kSumTierShared, 1>}) {
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kSumTableBytes);
+    if (rc != cudaSuccess) return rc;
+  }
+  if (dev < kMaxDevices) sum_ready[dev] = true;
   return rc;
 }
 
@@ -513,19 +789,46 @@ int daft_hash_probe_index(const void* keys, const void* valid, const void* slots
   return static_cast<int>(cudaGetLastError());
 }
 
+// K5's grid for a tier (0 shared, 1 global) on the current device: as many
+// blocks as fit on the card at once.
+int daft_hash_probe_segment_sum_blocks(int tier, int cap, int p, int* blocks) {
+  int smem = 0;
+  const SumKernel kernel = sum_kernel(tier, cap, p, true, &smem);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = allow_sum_smem()) != cudaSuccess || (err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSumThreads,
+                                                           smem)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  *blocks = per_sm * sms;
+  return static_cast<int>(*blocks > 0 ? cudaSuccess : cudaErrorInvalidConfiguration);
+}
+
 // K5: sums (cap x P, f64) and counts (cap, int64) must be zero-filled;
-// planes (D x P, f32) hold one row per key the table was built from.
+// planes (D x P, f32) hold one row per key the table was built from. A grid
+// of `blocks` (daft_hash_probe_segment_sum_blocks for the same tier, cap
+// and P on this device, which also allows the shared tables there).
 int daft_hash_probe_segment_sum(const void* keys, const void* valid, const void* codes,
                                 const void* slots, const void* planes, void* sums,
                                 void* counts, long long n, int p, int cap, long long n_slots,
-                                void* stream) {
+                                int tier, int blocks, void* stream) {
+  const bool vec = (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
+  int smem = 0;
+  const SumKernel kernel = sum_kernel(tier, cap, p, vec, &smem);
+  // the queue holds int32 rows
+  if (kernel == nullptr || blocks <= 0 || n > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n > 0) {
-    probe_segment_sum_kernel<<<blocks_for(n, kThreads), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const long long*>(keys),
-        static_cast<const unsigned char*>(valid), static_cast<const int*>(codes),
-        static_cast<const ulonglong2*>(slots), static_cast<const float*>(planes),
-        static_cast<double*>(sums), static_cast<unsigned long long*>(counts), n, p, cap,
+    kernel<<<blocks, kSumThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const long long*>(keys), static_cast<const unsigned char*>(valid),
+        static_cast<const int*>(codes), static_cast<const ulonglong2*>(slots),
+        static_cast<const float*>(planes), static_cast<double*>(sums),
+        static_cast<unsigned long long*>(counts), n, p, cap,
         static_cast<unsigned long long>(n_slots - 1));
   }
   return static_cast<int>(cudaGetLastError());

@@ -75,14 +75,70 @@
 // K1a daft_segment_sum_planes_f32
 //   Replaces pallas_kernels.py segment_sum_planes (the single-window parity
 //   anchor; no engine code calls it, in the port or in the reference).
-//   K1's one-window case with an f32 table, as the TPU kernel's output: f32
-//   atomics into (cap x P), codes outside [0, cap) dropped. Exact for
-//   integer-valued planes whose segment totals stay below 2^24; otherwise
-//   the atomic order decides the last bits.
-//   It keeps K1's first design and the (N x P) layout: one f32 read per
-//   element and one global f32 atomic per nonzero element, grid-stride.
-//   Bound: memory (one f32 read per element, a 4-byte table entry per
-//   atomic). Left for later: K1's shared-memory tables.
+//   Contract: an (N x P) row-major f32 stack and N int32 codes into a
+//   (cap x P) f32 table, one f32 accumulation, codes outside [0, cap)
+//   dropped; exact where segment totals are integers below 2^24, otherwise
+//   the order of the adds decides the last bits.
+//   Bound: memory, the bytes the function needs at 3.35 TB/s: every code,
+//   the 32-byte sectors of the stack that the kept rows' floats lie in (a
+//   trash row's values are never needed), the output once: 0.117 ms at
+//   the supplier query's N = 2^23, P 15, cap 16,384, where the last 28 %
+//   of the rows are padding (every input read once: 0.161).
+//   Design: a persistent grid of 1024-thread blocks reads the stack once as
+//   16-byte vectors, from the start rounded down to 16 bytes (the 0-3
+//   floats before it, and those past the end in the last vector, fall on
+//   rows outside [0, N) and are dropped), in tiles of 4096 rows (1024 x P
+//   vectors) round robin over the grid. A tile's codes are staged in
+//   shared memory once per row, by cp.async while the block adds the tile
+//   before; a tile none of whose codes lies in [0, cap) loads no vector
+//   (the padding, a filtered run). Each warp turns its 32 loaded vectors
+//   lane-consecutive through shared memory, so the adds of one warp
+//   instruction fall on one or two rows' adjacent entries, and takes each
+//   float's (row, column) from counters, not a division. Tiers, chosen by
+//   cap x P in the wrapper (segment_kernels.py segment_sum_f32_tier) and
+//   checked here:
+//   - block, while the cap x P table fits in a block's shared memory beside
+//     the staged codes and vectors (45,816 entries: every cap up to 3,054 at
+//     P 15): each block sums into its own table (one copy per warp in turn,
+//     up to 32, as far as two blocks an SM would still fit), writes it as a
+//     partial table, and a second launch adds the partial tables per entry
+//     in a fixed order. Warps that share a copy add in the order they run,
+//     so fractional planes may differ in their last bits from run to run
+//     below 32 copies; integer-valued planes (totals below 2^24) are exact;
+//   - global, past that: f32 atomics on one table in device memory, which
+//     the wrapper zero-fills.
+//   Shared-memory f32 atomicAdd (and red.shared.add.f32) compiles to a
+//   compare-and-swap loop on sm_90a (ATOMS.CAST.SPIN in the SASS); the
+//   global adds are REDG.E.ADD.F32.
+//   Measured (chip_smoke.py on an H100 80GB HBM3 at 700.00 W, device time
+//   under torch.profiler; the first design in brackets, timed in the same
+//   call: one global atomic per nonzero element, grid-stride): 0.233-0.238
+//   ms at the supplier's cap 16,384 (0.331), 0.198-0.201 at cap 8 with 98 %
+//   of rows kept (5.56), 0.225-0.239 at cap 2^17 (0.342). At the supplier's
+//   shape that is half the 0.117 ms bound: the adds, not the reads, take
+//   the rest (the block tier at cap 8, with the same reads, reaches 59 %).
+//   Skipping the trash tiles took 13-14 % off each shape.
+//   Designs that lost, at the supplier's shape, each timed in one call
+//   against the design it was then compared with: the table split by code
+//   range over a thread block cluster of 8 blocks, with fire-and-forget f32
+//   adds on the owner's shared memory (red.shared::cluster.add.f32), took
+//   1.47 ms with each lane adding its own vector's floats and 0.633 ms
+//   lane-consecutive, against 0.293 for the global tier; tiles of 2048 rows
+//   0.294-0.295 (a barrier per tile) against 0.275 for 4096, and 8192 rows
+//   0.275-0.280 against 0.275-0.276; 2 or 8 vectors in flight a thread
+//   (2048-row tiles, reloaded a chunk at a time) 0.340 and 0.298 against
+//   0.294; reloading a chunk at a time, not a slab, 0.271-0.275 against
+//   0.270-0.275 (0.243 against 0.232 at cap 8). With the tile skip, two
+//   more lost at every shape: carrying the block's next tile's first
+//   chunk across the tile barrier (each vector loaded where its rows'
+//   codes, read from global memory, are kept), and, in the global tier,
+//   one 16-byte f32 atomic (atomicAdd on a float4) per row and group of 4
+//   columns into a table padded to whole groups, in place of 4 scalar
+//   atomics, much slower at both global-tier shapes; tiles of 2048 or 3072
+//   rows were no clear gain either way. Not built: the cluster's
+//   blocks sharing one row tile through a TMA multicast, each adding only
+//   the codes it owns: each block would scan the whole tile, 8 times the
+//   shared-memory reads of a float that the global tier makes.
 //
 // K3 daft_segment_extreme_int64
 //   Replaces pallas_kernels.py segment_extreme_int64 (three chained K2
@@ -130,16 +186,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-// grid-stride launches: enough blocks to fill 132 SMs many times over
-constexpr long long kMaxBlocks = 132LL * 32;
-
-inline int grid_for(long long work) {
-  long long blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  if (blocks < 1) blocks = 1;
-  return static_cast<int>(blocks);
-}
+constexpr int kThreads = 256;  // K1 and K2's global-tier finish
 
 __device__ __forceinline__ unsigned int f32_order_key(float f) {
   const unsigned int u = __float_as_uint(f);
@@ -151,22 +198,228 @@ __device__ __forceinline__ float f32_from_order_key(unsigned int k) {
   return __uint_as_float(u);
 }
 
-__global__ void segment_sum_f32_kernel(const float* __restrict__ planes,
-                                       const int32_t* __restrict__ codes,
-                                       float* __restrict__ out,
-                                       long long n, int p, int cap) {
-  const long long total = n * static_cast<long long>(p);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    const long long row = i / p;
-    const int col = static_cast<int>(i - row * p);
-    const int code = __ldg(codes + row);
-    const float v = __ldg(planes + i);
-    if (code >= 0 && code < cap && v != 0.0f) {
-      atomicAdd(out + static_cast<long long>(code) * p + col, v);
+// ---- K1a -----------------------------------------------------------------------
+
+constexpr int kF32Threads = 1024;
+// a tile is 4096 rows of the stack: 1024 x P 16-byte vectors
+constexpr int kF32TileRows = 4096;
+// code slots per tile: its rows, one more for a tile that starts mid-row,
+// and the rows a start off 16-byte alignment reaches back to
+constexpr int kF32CodeSlots = kF32TileRows + 4;
+constexpr int kF32Chunk = 4;  // vectors whose loads a thread has in flight
+constexpr int kF32MergeWarps = 8;
+constexpr int kF32TierBlock = 0, kF32TierGlobal = 1;
+// shared memory beside the table: the codes of two tiles, and each warp's
+// 32 vectors while it turns them lane-consecutive
+constexpr size_t kF32CodeBytes = 2 * kF32CodeSlots * 4;
+constexpr size_t kF32TurnBytes = kF32Threads * 16;
+constexpr size_t kF32MaxSmem = 232448;
+
+__device__ __forceinline__ void red_shared_f32(const float* p, float v) {
+  asm volatile("red.shared.add.f32 [%0], %1;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(p))),
+               "f"(v)
+               : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously (cp.async)
+__device__ __forceinline__ void cp_async4(int* dst, const int32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// this thread's cp.async copies have landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Add v into entry (code, col): the block tier into the warp's copy of the
+// table in shared memory, the global tier into out.
+template <int kTier>
+__device__ __forceinline__ void f32_add(float* tab, float* out, int code, int col, int p,
+                                        float v) {
+  if constexpr (kTier == kF32TierBlock) {
+    red_shared_f32(tab + code * p + col, v);
+  } else {
+    atomicAdd(out + static_cast<long long>(code) * p + col, v);
+  }
+}
+
+// (row, col) += `step` floats, with the step split as rows and cols of P
+__device__ __forceinline__ void f32_advance(int& row, int& col, int step_rows, int step_cols,
+                                            int p) {
+  row += step_rows;
+  col += step_cols;
+  if (col >= p) {
+    col -= p;
+    ++row;
+  }
+}
+
+// The first pass. The (N x P) stack is read as 16-byte vectors from `base`,
+// its start rounded down to 16 bytes (`lead` floats before the first
+// element, 0-3: the same vector path for a view off its alignment), tile by
+// tile: tile k is vectors [k * 512P, (k + 1) * 512P), tiles round robin over
+// the grid. A tile's codes are staged
+// in shared memory once per row, rows outside [0, n) as -1 (the floats
+// before the start and past the end of the stack that its first and last
+// vector hold are dropped as trash), by cp.async while the block adds the
+// tile before it (two buffers, one barrier a tile). That barrier also
+// tells the block whether any of the tile's codes lies in [0, cap); a tile
+// with none (padding, a filtered run) loads no vector. Warp w
+// takes the tile's 32-vector slabs w, w + 32, ..., with kF32Chunk slabs'
+// loads in flight (a slab's register reloads with the next chunk's slab as
+// soon as it is staged), and turns each slab lane-consecutive through
+// shared memory: in round k lane l adds the slab's float 32k + l, so the adds of
+// one warp instruction fall on one or two rows' adjacent entries (adjacent
+// banks, a few lines of the global table). Each float's (row, column) comes
+// from counters stepped by 32 floats a round, not a division per element.
+// Then the block tier folds its copies into partial table blockIdx.x; the
+// global tier has added into out.
+template <int kTier>
+__global__ void __launch_bounds__(kF32Threads, 1)
+f32_partial_kernel(const float4* __restrict__ base, int lead, const int32_t* __restrict__ codes,
+                   float* __restrict__ dst, long long n, int p, int cap, int copies) {
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  int* scodes = reinterpret_cast<int*>(f32_smem);
+  float4* turn = reinterpret_cast<float4*>(f32_smem + kF32CodeBytes);
+  float* tab = reinterpret_cast<float*>(f32_smem + kF32CodeBytes + kF32TurnBytes);
+  const int entries = cap * p;
+  if constexpr (kTier == kF32TierBlock) {
+    for (int i = threadIdx.x; i < entries * copies; i += kF32Threads) tab[i] = 0.0f;
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* mine = tab + warp % copies * entries;
+  float4* my_turn = turn + warp * 32;
+  const float* turned = reinterpret_cast<const float*>(my_turn);
+
+  const long long vectors = (n * p + lead + 3) >> 2;
+  const long long tile_vectors = static_cast<long long>(kF32TileRows / 4) * p;
+  const long long tiles = (vectors + tile_vectors - 1) / tile_vectors;
+  const int back = (lead + p - 1) / p;  // rows before a tile's first full row
+  const int off0 = back * p - lead;     // the first vector's first float in row r0
+  // a round: 32 floats; the rest of a step of 1024 vectors after 4 rounds
+  const int round_rows = 32 / p, round_cols = 32 - round_rows * p;
+  const int rest = 4 * kF32Threads - 128;
+  const int rest_rows = rest / p, rest_cols = rest - rest_rows * p;
+  const unsigned ucap = static_cast<unsigned>(cap);
+  // tile k's codes into buffer b; a thread's slots are its own until the
+  // tile's barrier
+  auto stage = [&](long long k, int b) {
+    const long long r0 = k * kF32TileRows - back;
+    int* sc = scodes + b * kF32CodeSlots;
+    for (int i = threadIdx.x; i < kF32CodeSlots; i += kF32Threads) {
+      const long long r = r0 + i;
+      if (r >= 0 && r < n) {
+        cp_async4(sc + i, codes + r);
+      } else {
+        sc[i] = -1;
+      }
+    }
+  };
+  int buf = 0;
+  if (blockIdx.x < tiles) stage(blockIdx.x, 0);
+  for (long long k = blockIdx.x; k < tiles; k += gridDim.x, buf ^= 1) {
+    int* sc = scodes + buf * kF32CodeSlots;
+    cp_async_wait_all();
+    int kept = 0;
+    for (int i = threadIdx.x; i < kF32CodeSlots; i += kF32Threads) {
+      kept |= static_cast<unsigned>(sc[i]) < ucap;
+    }
+    // every warp is done with the other buffer, and this one is whole
+    kept = __syncthreads_or(kept);
+    if (k + gridDim.x < tiles) stage(k + gridDim.x, buf ^ 1);
+    if (!kept) continue;  // block-uniform
+    const long long first = k * tile_vectors;
+    const int len = static_cast<int>(min(tile_vectors, vectors - first));
+    const float4* tile = base + first;
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 v[kF32Chunk];
+#pragma unroll
+    for (int u = 0; u < kF32Chunk; ++u) {
+      const int j = threadIdx.x + u * kF32Threads;
+      v[u] = j < len ? __ldcs(tile + j) : zero;
+    }
+    // lane l's float of round 0 of the warp's first slab
+    const int le = off0 + 128 * warp + lane;
+    int row = le / p, col = le - row * p;
+    for (int j0 = 0; j0 < len; j0 += kF32Chunk * kF32Threads) {
+#pragma unroll
+      for (int u = 0; u < kF32Chunk; ++u) {
+        __syncwarp();
+        my_turn[lane] = v[u];
+        __syncwarp();
+        // the next chunk's vector u loads while this one is added
+        const int j = j0 + kF32Chunk * kF32Threads + threadIdx.x + u * kF32Threads;
+        v[u] = j < len ? __ldcs(tile + j) : zero;
+#pragma unroll
+        for (int rd = 0; rd < 4; ++rd) {
+          // a float past the tile's vectors is a zero: it reads no code
+          const float x = turned[32 * rd + lane];
+          if (x != 0.0f) {
+            const int code = sc[row];
+            if (static_cast<unsigned>(code) < ucap) {
+              f32_add<kTier>(mine, dst, code, col, p, x);
+            }
+          }
+          f32_advance(row, col, round_rows, round_cols, p);
+        }
+        f32_advance(row, col, rest_rows, rest_cols, p);
+      }
     }
   }
+
+  if constexpr (kTier == kF32TierBlock) {
+    __syncthreads();
+    float* out = dst + static_cast<long long>(blockIdx.x) * entries;
+    for (int i = threadIdx.x; i < entries; i += kF32Threads) {
+      float s = tab[i];
+      for (int c = 1; c < copies; ++c) s += tab[c * entries + i];
+      out[i] = s;
+    }
+  }
+}
+
+// The second pass: entry e of out, the sum of the `parts` partial tables'
+// entry e in a fixed order (warp w takes tables w, w + 8, ... in turn, then
+// warp 0 adds the warps' sums in turn), so the result is the same on every
+// run over the same partials. A block takes 32 entries.
+__global__ void __launch_bounds__(32 * kF32MergeWarps)
+f32_merge_kernel(const float* __restrict__ part, int parts, long long entries,
+                 float* __restrict__ out) {
+  __shared__ float acc_s[kF32MergeWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long e = static_cast<long long>(blockIdx.x) * 32 + lane;
+  float acc = 0.0f;
+  if (e < entries) {
+    for (int q = warp; q < parts; q += kF32MergeWarps) acc += part[q * entries + e];
+  }
+  acc_s[warp][lane] = acc;
+  __syncthreads();
+  if (warp != 0 || e >= entries) return;
+  for (int w = 1; w < kF32MergeWarps; ++w) acc += acc_s[w][lane];
+  out[e] = acc;
+}
+
+using F32Kernel = void (*)(const float4*, int, const int32_t*, float*, long long, int, int,
+                           int);
+
+// The first pass's kernel of a tier with its shared memory, or null for a
+// tier this file does not take: a block tier whose copies of the cap x P
+// table do not fit in a block's shared memory beside the staged codes and
+// vectors.
+F32Kernel f32_kernel(int tier, int cap, int p, int copies, size_t* smem) {
+  if (cap <= 0 || p <= 0) return nullptr;
+  *smem = kF32CodeBytes + kF32TurnBytes;
+  if (tier == kF32TierGlobal) return f32_partial_kernel<kF32TierGlobal>;
+  if (tier != kF32TierBlock || copies < 1) return nullptr;
+  *smem += static_cast<size_t>(cap) * p * copies * 4;
+  return *smem <= kF32MaxSmem ? f32_partial_kernel<kF32TierBlock> : nullptr;
 }
 
 // ---- K3 ----------------------------------------------------------------------
@@ -767,6 +1020,30 @@ cudaError_t plane_occupancy(Kernel kernel, size_t smem, int* blocks) {
   return *blocks > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
+// K1a's grid comes from plane_occupancy, for 1024-thread blocks
+static_assert(kF32Threads == kPlaneThreads, "K1a sizes its grid by plane_occupancy");
+
+// K1a's first pass takes more than 48 KB of shared memory in both tiers
+// (the staged codes and vectors), only by this opt-in, allowed at the
+// most a block holds once per device
+constexpr int kF32MaxDevices = 64;
+bool f32_ready[kF32MaxDevices];
+
+cudaError_t allow_f32_smem() {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < kF32MaxDevices && f32_ready[dev]) return cudaSuccess;
+  for (const F32Kernel kernel : {f32_partial_kernel<kF32TierBlock>,
+                                 f32_partial_kernel<kF32TierGlobal>}) {
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(kF32MaxSmem));
+    if (rc != cudaSuccess) return rc;
+  }
+  if (dev < kF32MaxDevices) f32_ready[dev] = true;
+  return rc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -859,16 +1136,48 @@ int daft_segment_planes(int op, const void* const* planes, int nplanes, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1a: out (cap x P, f32) must be zero-filled by the caller.
-int daft_segment_sum_planes_f32(const void* planes, const void* codes, void* out,
-                                long long n, int p, int cap, void* stream) {
-  const long long total = n * static_cast<long long>(p);
-  if (total > 0) {
-    segment_sum_f32_kernel<<<grid_for(total), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(planes), static_cast<const int32_t*>(codes),
-        static_cast<float*>(out), n, p, cap);
+// K1a's first-pass grid for a tier (0 block, 1 global) on the current
+// device: as many blocks as fit on the card at once. The block tier writes
+// that many partial tables of cap x P floats.
+int daft_segment_sum_planes_f32_parts(int tier, int cap, int p, int copies, int* parts) {
+  size_t smem = 0;
+  const F32Kernel kernel = f32_kernel(tier, cap, p, copies, &smem);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_f32_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(plane_occupancy(kernel, smem, parts));
+}
+
+// K1a: planes (n x P f32, row-major, 4-byte aligned), codes (n int32), out
+// (cap x P f32). The block tier writes `parts` partial tables of cap x P
+// floats into `part` and combines them into out in a second launch; the
+// global tier adds into out, which the caller zero-fills (part unused).
+// `parts` comes from daft_segment_sum_planes_f32_parts for the same tier,
+// cap, P and copies on this device, which also allows the shared memory
+// there.
+int daft_segment_sum_planes_f32(const void* planes, const void* codes, void* part, void* out,
+                                long long n, int p, int cap, int tier, int copies, int parts,
+                                void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  size_t smem = 0;
+  const F32Kernel kernel = f32_kernel(tier, cap, p, copies, &smem);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(planes);
+  if (kernel == nullptr || parts <= 0 || n <= 0 || (addr & 3) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaError_t err;
+  const float4* base = reinterpret_cast<const float4*>(addr & ~static_cast<uintptr_t>(15));
+  const int lead = static_cast<int>((addr & 15) >> 2);
+  kernel<<<parts, kF32Threads, smem, s>>>(base, lead, static_cast<const int32_t*>(codes),
+                                          static_cast<float*>(tier == kF32TierGlobal ? out
+                                                                                     : part),
+                                          n, p, cap, copies);
+  if ((err = cudaGetLastError()) != cudaSuccess || tier == kF32TierGlobal) {
+    return static_cast<int>(err);
+  }
+  const long long entries = static_cast<long long>(cap) * p;
+  f32_merge_kernel<<<static_cast<int>((entries + 31) / 32), 32 * kF32MergeWarps, 0, s>>>(
+      static_cast<const float*>(part), parts, entries, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

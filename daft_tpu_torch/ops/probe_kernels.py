@@ -39,14 +39,13 @@ packs the same entries, in the same slot layout, into the first slots with
 no hashing: the plain probe searches the sorted occupied slots and needs no
 hash layout.
 
-Left for later: a bucketed or cuckoo layout that bounds a miss's walk, and
-warp-aggregated atomics in K5.
+Left for later: a bucketed or cuckoo layout that bounds a miss's walk.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,10 +71,11 @@ def _library():
         lib.daft_hash_probe_build_scratch.restype = ll
         lib.daft_hash_probe_build.argtypes = [vp, vp, vp, vp, ll, ll, vp]
         lib.daft_hash_probe_index.argtypes = [vp, vp, vp, vp, ll, ll, vp]
+        lib.daft_hash_probe_segment_sum_blocks.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.daft_hash_probe_segment_sum.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, i, i,
-                                                    ll, vp]
+                                                    ll, i, i, vp]
         for fn in (lib.daft_hash_probe_build, lib.daft_hash_probe_index,
-                   lib.daft_hash_probe_segment_sum):
+                   lib.daft_hash_probe_segment_sum_blocks, lib.daft_hash_probe_segment_sum):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -213,6 +213,38 @@ def hash_probe_index_plain(keys: torch.Tensor, valid: torch.Tensor,
 
 # ---- K5: probe + segment sum ----------------------------------------------------------
 
+# bytes of K5's per-block table of cap x (P + 1) 8-byte entries (the counts
+# and the f64 sums), beside the block's 32 KB queue of kept rows
+SUM_TABLE_BYTES = 32768
+_SUM_TIER_IDS = {"shared": 0, "global": 1}
+_sum_blocks: Dict[Tuple[int, int, int, str], int] = {}
+
+
+def hash_probe_segment_sum_tier(cap: int, p: int) -> str:
+    """K5's tier at ``cap`` segments of ``p`` planes: "shared" (a table per
+    block in shared memory, one global atomic per block per nonzero entry at
+    the end) while cap x (P + 1) 8-byte entries fit in SUM_TABLE_BYTES, else
+    "global" (the warps' aggregates go to the output by global atomics)."""
+    if cap <= 0 or p < 0:
+        raise ValueError(f"K5 takes at least one segment, got {cap} x {p}")
+    return "shared" if cap * (p + 1) * 8 <= SUM_TABLE_BYTES else "global"
+
+
+def _k5_blocks(device: torch.device, cap: int, p: int, tier: str) -> int:
+    """K5's grid: as many blocks as fit on the card at once; cached per
+    device and shape (the first query on a device also allows the shared
+    tier its tables there)."""
+    key = (device.index, cap, p, tier)
+    if key not in _sum_blocks:
+        blocks = ctypes.c_int(0)
+        rc = _library().daft_hash_probe_segment_sum_blocks(_SUM_TIER_IDS[tier], cap, p,
+                                                           ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"hash_probe_segment_sum: no launch fits tier {tier} at "
+                               f"cap {cap}, P {p} (CUDA error {rc})")
+        _sum_blocks[key] = blocks.value
+    return _sum_blocks[key]
+
 
 def hash_probe_segment_sum(keys: torch.Tensor, valid: torch.Tensor, codes: torch.Tensor,
                            table: torch.Tensor, planes: torch.Tensor,
@@ -225,9 +257,9 @@ def hash_probe_segment_sum(keys: torch.Tensor, valid: torch.Tensor, codes: torch
 
     The reference returns f32 sums and counts; these are widened as K1's
     are, and equal the reference's wherever its f32 sums are exact
-    (integer-valued planes under 2^24 a segment). The kernel adds in f64
-    atomics in no fixed order, so a float plane with fractions may differ
-    from the plain version in the last bits."""
+    (integer-valued planes under 2^24 a segment). The kernel adds in f64 in
+    an order that depends on the grid, so a float plane with fractions may
+    differ from the plain version in the last bits; counts are exact."""
     _check_keys(keys, valid)
     _check(codes, "codes", torch.int32, 1)
     _check(planes, "planes", torch.float32, 2)
@@ -240,15 +272,19 @@ def hash_probe_segment_sum(keys: torch.Tensor, valid: torch.Tensor, codes: torch
     if not _route(keys, valid, codes, table, planes):
         counters.bump("plain_hash_probe_segment_sum")
         return hash_probe_segment_sum_plain(keys, valid, codes, table, planes, cap)
-    sums = torch.zeros((cap, p), dtype=torch.float64, device=keys.device)
-    counts = torch.zeros(cap, dtype=torch.int64, device=keys.device)
-    if n == 0:
+    # both outputs in one zero-filled allocation: one fill, not two
+    out = torch.zeros(cap * (p + 1), dtype=torch.int64, device=keys.device)
+    sums = out[:cap * p].view(torch.float64).view(cap, p)
+    counts = out[cap * p:]
+    if n == 0 or cap == 0:
         return sums, counts  # nothing to probe: no launch
+    tier = hash_probe_segment_sum_tier(cap, p)
     with torch.cuda.device(keys.device):
+        blocks = _k5_blocks(keys.device, cap, p, tier)
         rc = _library().daft_hash_probe_segment_sum(
             keys.data_ptr(), valid.data_ptr(), codes.data_ptr(), table.data_ptr(),
             planes.data_ptr(), sums.data_ptr(), counts.data_ptr(), n, p, cap, slots,
-            _stream(keys))
+            _SUM_TIER_IDS[tier], blocks, _stream(keys))
     _launched(rc, "hash_probe_segment_sum")
     return sums, counts
 

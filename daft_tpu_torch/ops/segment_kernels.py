@@ -67,13 +67,16 @@ def _library():
                                                    ctypes.POINTER(i32)]
         lib.daft_segment_planes.argtypes = [i32, ctypes.POINTER(vp), i32, vp, vp, vp, ll,
                                             i32, i32, i32, i32, i32, i32, vp]
-        lib.daft_segment_sum_planes_f32.argtypes = [vp, vp, vp, ll, i32, i32, vp]
+        lib.daft_segment_sum_planes_f32_parts.argtypes = [i32, i32, i32, i32,
+                                                          ctypes.POINTER(i32)]
+        lib.daft_segment_sum_planes_f32.argtypes = [vp, vp, vp, vp, ll, i32, i32, i32, i32,
+                                                    i32, vp]
         lib.daft_segment_extreme_int64_parts.argtypes = [i32, i32, i32,
                                                          ctypes.POINTER(i32)]
         lib.daft_segment_extreme_int64.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, i32,
                                                    i32, i32, i32, i32, i32, vp]
         for fn in (lib.daft_segment_planes_blocks, lib.daft_segment_planes,
-                   lib.daft_segment_sum_planes_f32,
+                   lib.daft_segment_sum_planes_f32_parts, lib.daft_segment_sum_planes_f32,
                    lib.daft_segment_extreme_int64_parts,
                    lib.daft_segment_extreme_int64):
             fn.restype = ctypes.c_int
@@ -286,14 +289,65 @@ def segment_sum_planes_plain(planes: Sequence[torch.Tensor], codes: torch.Tensor
 # ---- K1a ---------------------------------------------------------------------------
 
 
+class F32Tier(NamedTuple):
+    """How K1a lays out its f32 table (ops/csrc/segment_reduce.cu)."""
+
+    kind: str     # "block" (a table per block in shared memory) or "global"
+    copies: int   # copies of the table in a block, one per warp in turn (block tier)
+
+
+# shared memory beside K1a's table: the codes of two 4096-row tiles and
+# each warp's 32 vectors
+_F32_STAGE_BYTES = 2 * (4096 + 4) * 4 + 1024 * 16
+# shared memory one block's table may take: a block's 227 KB less the stage
+F32_TABLE_BYTES = 232448 - _F32_STAGE_BYTES
+# table copies per block: at most one per warp, and only while two blocks
+# of 1024 threads would still fit on an SM
+F32_MAX_COPIES = 32
+F32_COPIES_BYTES = 232448 // 2 - _F32_STAGE_BYTES
+_F32_TIER_IDS = {"block": 0, "global": 1}
+
+_f32_parts: Dict[Tuple[int, int, int, F32Tier], int] = {}
+
+
+def segment_sum_f32_tier(cap: int, p: int) -> F32Tier:
+    """K1a's tier at ``cap`` segments of ``p`` planes: the whole cap x P f32
+    table in each block's shared memory while it fits (in as many copies as
+    would keep two blocks an SM, up to one per warp); else one table in
+    device memory, which the warps' adds reach as global atomics on a
+    row's adjacent entries."""
+    if cap <= 0 or p <= 0:
+        raise ValueError(f"K1a takes at least one segment and one plane, got {cap} x {p}")
+    table = cap * p * 4
+    if table <= F32_TABLE_BYTES:
+        return F32Tier("block", max(1, min(F32_MAX_COPIES, F32_COPIES_BYTES // table)))
+    return F32Tier("global", 1)
+
+
+def _f32_partial_tables(device: torch.device, cap: int, p: int, tier: F32Tier) -> int:
+    """K1a's first-pass blocks that fit on the card at once, one partial
+    table each in the block tier; cached per device and shape (the first
+    query on a device also allows the kernel its shared memory there)."""
+    key = (device.index, cap, p, tier)
+    if key not in _f32_parts:
+        parts = ctypes.c_int(0)
+        rc = _library().daft_segment_sum_planes_f32_parts(_F32_TIER_IDS[tier.kind], cap, p,
+                                                          tier.copies, ctypes.byref(parts))
+        if rc != 0:
+            raise RuntimeError(f"segment_sum_planes_f32: no launch fits tier {tier} "
+                               f"(CUDA error {rc})")
+        _f32_parts[key] = parts.value
+    return _f32_parts[key]
+
+
 def segment_sum_planes_f32(planes: torch.Tensor, codes: torch.Tensor,
                            cap: int) -> torch.Tensor:
     """Sum planes (N x P, f32) into segments (cap x P, f32) by codes (N, i32)
     in one f32 accumulation, codes outside [0, cap) dropped.
 
     Exact for integer-valued planes whose segment totals stay below 2^24;
-    otherwise the kernel's atomic order decides the last bits, as the
-    reference's single-window kernel is exact only there."""
+    otherwise the order of the kernel's atomic adds decides the last bits,
+    as the reference's single-window kernel is exact only there."""
     _check(planes, "planes", torch.float32, 2)
     _check(codes, "codes", torch.int32, 1)
     n, p = planes.shape
@@ -302,13 +356,21 @@ def segment_sum_planes_f32(planes: torch.Tensor, codes: torch.Tensor,
     if not _route(planes, codes):
         counters.bump("plain_segment_sum_planes_f32")
         return segment_sum_planes_f32_plain(planes, codes, cap)
-    out = torch.zeros((cap, p), dtype=torch.float32, device=planes.device)
-    if n * p == 0:
-        return out  # nothing to sum: no launch
-    with torch.cuda.device(planes.device):
+    dev = planes.device
+    if n * p == 0 or cap == 0:
+        return torch.zeros((cap, p), dtype=torch.float32, device=dev)  # no launch
+    tier = segment_sum_f32_tier(cap, p)
+    with torch.cuda.device(dev):
+        parts = _f32_partial_tables(dev, cap, p, tier)
+        if tier.kind == "global":
+            out = torch.zeros((cap, p), dtype=torch.float32, device=dev)
+            part = out
+        else:
+            out = torch.empty((cap, p), dtype=torch.float32, device=dev)
+            part = torch.empty((parts, cap, p), dtype=torch.float32, device=dev)
         rc = _library().daft_segment_sum_planes_f32(
-            planes.data_ptr(), codes.data_ptr(), out.data_ptr(), n, p, cap,
-            _stream(planes))
+            planes.data_ptr(), codes.data_ptr(), part.data_ptr(), out.data_ptr(), n, p, cap,
+            _F32_TIER_IDS[tier.kind], tier.copies, parts, _stream(planes))
     _launched(rc, "segment_sum_planes_f32")
     return out
 

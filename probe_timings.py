@@ -9,16 +9,17 @@ lineitem's keys (padded to 2^23 rows, as the join stage pads them) are
 probed with the keys of a seeded share of orders shifted past the largest
 order key, as if the dim had been filtered: 100, 50, 10 and 0 % of the
 lineitem rows find their order. K5 probes every lineitem key and sums
-orders' high and low priority planes by q12's ship-mode codes. Every probe
-and K5 must equal their plain versions. Prints each kernel's device ms
+orders' high and low priority planes by q12's ship-mode codes, then by
+every row's ship mode. Every probe and K5 must equal their plain versions. Prints each kernel's device ms
 (torch.profiler) and CUDA events ms, with the card's name and power limit,
 then one JSON line. A variant of the kernels (a copy of daft_tpu_torch with
 one constant changed) is timed the same way, through ``--root``.
 
 ``--root`` drives the daft_tpu_torch of another checkout, for example an
 unpacked parent commit, so that two versions are timed on one card in turns.
-A checkout from before the 16-byte slots builds a (slot_keys, slot_rows)
-pair, which its probe takes as two arguments.
+
+K5 is timed by chip_smoke.py's ``k5_inputs`` and ``k5_case``, the one way
+both scripts time it, at q12's shapes and with every real row kept.
 """
 
 from __future__ import annotations
@@ -69,7 +70,6 @@ def run(card: str) -> dict:
     dim_valid = torch.ones(cs.SF1_ORDERS, dtype=torch.bool, device=dev)
     slots = pk.probe_table_slots(cs.SF1_ORDERS)
     table = pk.build_probe_table(dim_keys, dim_valid, slots)
-    table_args = table if isinstance(table, tuple) else (table,)
 
     def build():
         return pk.build_probe_table(dim_keys, dim_valid, slots)
@@ -89,36 +89,26 @@ def run(card: str) -> dict:
         dropped = (order_draw >= share)[line_keys - 1]
         keys = torch.zeros(cs.BUCKET, dtype=torch.int64, device=dev)
         keys[:n] = torch.where(dropped, line_keys + cs.SF1_ORDERS, line_keys)
-        got = pk.hash_probe_index(keys, valid, *table_args)
-        want = pk.hash_probe_index_plain(keys, valid, *table_args)
+        got = pk.hash_probe_index(keys, valid, table)
+        want = pk.hash_probe_index_plain(keys, valid, table)
         cs.check(torch.equal(got, want), f"K4 probe at {share:.0%} hits differs from its "
                                          "plain version")
         hits = int((got >= 0).sum())
 
         def probe(keys=keys):
-            return pk.hash_probe_index(keys, valid, *table_args)
+            return pk.hash_probe_index(keys, valid, table)
         case = {"hit_rows": hits, "hit_share": hits / n, "ms": cs.time_ms(probe, 20),
                 "device_ms": cs.device_ms(probe, 20, f"K4 probe {share:.0%}")}
         result[f"probe_{round(share * 100)}"] = case
         print(f"K4 probe at {share:.0%} of orders kept: {case} [{card}]", flush=True)
         del got, want, keys, dropped
 
-    # K5: every lineitem key, q12's ship-mode codes (trash where its
-    # predicate drops the row), orders' high/low priority planes
-    keys = torch.zeros(cs.BUCKET, dtype=torch.int64, device=dev)
-    keys[:n] = line_keys
-    _, codes = cs.q12_codes(lineitem, dev)
-    high = orders["o_orderpriority"] <= 1
-    planes = torch.from_numpy(np.stack([high, ~high], axis=1).astype(np.float32)).to(dev)
-
-    def k5():
-        return pk.hash_probe_segment_sum(keys, valid, codes, *table_args, planes, cs.Q12_CAP)
-    got, want = k5(), pk.hash_probe_segment_sum_plain(keys, valid, codes, *table_args,
-                                                      planes, cs.Q12_CAP)
-    cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
-             "K5 differs from its plain version")
-    result["k5"] = {"ms": cs.time_ms(k5, 20), "device_ms": cs.device_ms(k5, 20, "K5")}
-    print(f"K5: {result['k5']} [{card}]", flush=True)
+    # K5 through chip_smoke.py's own input and timing functions, at both its shapes
+    del line_keys, valid, order_draw
+    k5 = cs.k5_inputs(lineitem, orders, table, dev)
+    for shape in ("q12", "all_kept"):
+        result[f"k5_{shape}"] = cs.k5_case(pk, k5, shape, lineitem, orders)
+        print(f"K5 ({shape}): {result[f'k5_{shape}']} [{card}]", flush=True)
     return result
 
 

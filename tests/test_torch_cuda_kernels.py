@@ -9,11 +9,13 @@ machine lacks, so it is skipped):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 
-Every comparison is bit for bit: K1, K1a and K5 sum integer-valued planes
-(exact whatever the atomic order: in f64, and in f32 below 2^24), K2/K3 are
+Every comparison is bit for bit but two: K1, K1a and K5 sum integer-valued
+planes (exact whatever the atomic order: in f64, and in f32 below 2^24), K2/K3 are
 order-independent extremes, K4's probe answers do not depend on where its
 build placed each key (the table's (key, row) entries are compared as a
-sorted set), and K6 only moves words. K4's and K5's cases include keys
+sorted set), and K6 only moves words. K1a and K5 are also held on
+fractional planes within the worst case of f32 (K1a) or f64 (K5) summation
+in another order, each test stating its bound. K4's and K5's cases include keys
 chosen on the host to share one home slot (chains of 1,500 slots, one of
 them wrapping past the last slot), a 4096-slot region of the partitioned
 build given more keys than slots, a table past 2^25 slots (the CAS tier),
@@ -300,6 +302,198 @@ def test_segment_sum_planes_f32_matches_plain(cuda, n, cap, p):
     assert got.dtype == torch.float32 and got.shape == (cap, p)
     assert torch.equal(got, sk.segment_sum_planes_f32_plain(tp, tc, cap))
     assert torch.equal(got, sk.segment_sum_planes(list(tp.t().contiguous()), tc, cap).float())
+
+
+# K1a by tier (segment_kernels.segment_sum_f32_tier): block tables (one
+# copy at cap 3000, two at cap 400, one per warp at cap 8 with nearly
+# every row kept), the global table (the supplier's cap 16,384 and cap
+# 2^17); n not a multiple of 4, P of 1-3 (a stack start 4, 8 or 12 bytes
+# off 16-byte alignment when a view begins one row in), and n across
+# several 2048-row tiles
+F32_CASES = [
+    (1 << 20, 16384, 15, 0.7, ("global", 1)), (1 << 20, 3000, 15, 0.7, ("block", 1)),
+    (100_003, 400, 15, 0.9, ("block", 2)), (1 << 20, 8, 15, 0.98, ("block", 32)),
+    (100_003, 1 << 17, 4, 0.7, ("global", 1)), (100_003, 20_000, 15, 0.7, ("global", 1)),
+    (4099, 8, 1, 0.9, ("block", 32)), (4099, 100, 3, 0.9, ("block", 32)),
+    (5001, 300, 2, 0.9, ("block", 27)), (70_001, 1 << 17, 1, 0.9, ("global", 1)),
+    (4096, 8, 15, 0.0, ("block", 32)),
+]
+
+
+@pytest.mark.parametrize("n,cap,p,keep,tier", F32_CASES)
+def test_segment_sum_planes_f32_tiers_match_plain(cuda, n, cap, p, keep, tier):
+    assert tuple(sk.segment_sum_f32_tier(cap, p)) == tier
+    rng = np.random.default_rng(n + cap + p)
+    planes = rng.integers(0, 256, (n, p)).astype(np.float32)
+    planes[rng.random((n, p)) < 0.3] = 0.0
+    codes = _kept_codes(rng, n, cap, keep)
+    tp, tc = torch.from_numpy(planes).to(cuda), torch.from_numpy(codes).to(cuda)
+    before = counters.snapshot()["launches_segment_sum_planes_f32"]
+    got = sk.segment_sum_planes_f32(tp, tc, cap)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["launches_segment_sum_planes_f32"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (cap, p)
+    assert torch.equal(got, sk.segment_sum_planes_f32_plain(tp, tc, cap))
+    if keep == 0:
+        assert not got.any()
+    # a view one row in: its first float 4p bytes past the tensor's start
+    got = sk.segment_sum_planes_f32(tp[1:], tc[1:], cap)
+    assert torch.equal(got, sk.segment_sum_planes_f32_plain(tp[1:], tc[1:], cap))
+
+
+@pytest.mark.parametrize("cap,p", [(3000, 15), (16384, 15), (8, 3)])
+def test_segment_sum_planes_f32_skips_trash_tiles(cuda, cap, p):
+    """Runs of trashed rows as long as a 4096-row tile or longer, at and off
+    tile boundaries, between kept rows, and a trashed tail as padding: a
+    tile whose codes are all outside [0, cap) loads no vector, and a kept
+    row just before or after such a run still counts. Its planes hold
+    nonzero values, so a skipped tile that should have counted shows."""
+    n = 9 * 4096 + 5
+    rng = np.random.default_rng(cap + p)
+    planes = rng.integers(1, 256, (n, p)).astype(np.float32)
+    codes = _kept_codes(rng, n, cap, 0.9)
+    for lo, hi in ((4096, 2 * 4096), (3 * 4096 - 1, 5 * 4096 + 1), (6 * 4096 + 7, n)):
+        codes[lo:hi] = cap + 1
+    codes[6 * 4096 + 6] = 0
+    tp, tc = torch.from_numpy(planes).to(cuda), torch.from_numpy(codes).to(cuda)
+    for start in (0, 1):  # a view one row in moves every tile boundary
+        got = sk.segment_sum_planes_f32(tp[start:], tc[start:], cap)
+        assert torch.equal(got, sk.segment_sum_planes_f32_plain(tp[start:], tc[start:], cap))
+
+
+@pytest.mark.parametrize("n,cap,p", [(1 << 20, 16384, 15), (1 << 20, 8, 15),
+                                     (100_003, 1 << 17, 4), (100_003, 3000, 15)])
+def test_segment_sum_planes_f32_fractions_within_f32_order_bound(cuda, n, cap, p):
+    """Fractional planes of both signs against an f64 sum of the same f32
+    values. Each of a segment's n_seg additions in f32 rounds by at most
+    2^-24 of a partial sum, and no partial sum exceeds the sum of |v|, so
+    any order of f32 additions lies within n_seg * 2^-24 * sum|v| of the
+    exact sum: the worst case of f32 summation in another order."""
+    rng = np.random.default_rng(cap + p)
+    planes = rng.normal(0.0, 100.0, (n, p)).astype(np.float32)
+    codes = _kept_codes(rng, n, cap, 0.8)
+    tp, tc = torch.from_numpy(planes).to(cuda), torch.from_numpy(codes).to(cuda)
+    got = sk.segment_sum_planes_f32(tp, tc, cap).double()
+    inside = (tc >= 0) & (tc < cap)
+    idx = torch.where(inside, tc, cap).long()
+    exact = torch.zeros((cap + 1, p), dtype=torch.float64, device=cuda)
+    exact.index_add_(0, idx, tp.double())
+    mags = torch.zeros((cap + 1, p), dtype=torch.float64, device=cuda)
+    mags.index_add_(0, idx, tp.double().abs())
+    n_seg = torch.bincount(idx, minlength=cap + 1).double()[:, None]
+    bound = n_seg * 2.0 ** -24 * mags
+    assert bool(((got - exact[:cap]).abs() <= bound[:cap]).all())
+    assert bool((got != 0).any())
+
+
+def _k5_case(rng, n_dim, n_fact, cap, p, keep, fractions=False):
+    """Dim keys (the first two: a key past 2^53 and a negative one) with 5 %
+    null, facts drawing dim keys with every 7th shifted to a miss, 10 %
+    null, an INT64_MIN key, and a `keep` share of codes in [0, cap)."""
+    dim_keys = rng.choice(np.int64(1) << 60, n_dim, replace=False).astype(np.int64)
+    dim_keys[:2] = [(1 << 53) + 11, -(1 << 62)]
+    dim_valid = rng.random(n_dim) > 0.05
+    if fractions:
+        planes = rng.normal(0.0, 10.0, (n_dim, p)).astype(np.float32)
+    else:
+        planes = rng.integers(0, 3, (n_dim, p)).astype(np.float32)
+    fact_keys = dim_keys[rng.integers(0, n_dim, n_fact)].copy()
+    fact_keys[::7] += 1
+    fact_keys[5] = I64_MIN
+    fact_valid = rng.random(n_fact) > 0.1
+    fact_valid[5] = True
+    codes = _kept_codes(rng, n_fact, cap, keep)
+    return dim_keys, dim_valid, planes, fact_keys, fact_valid, codes
+
+
+# K5 by tier (probe_kernels.hash_probe_segment_sum_tier): the shared table,
+# with every row kept on 3 or 7 segments (the warps' groups are large) and
+# with few rows kept; a cap whose table overflows the shared tier; fact
+# counts not a multiple of 4
+K5_CASES = [
+    (300, 1 << 20, 3, 2, 1.0, "shared"), (1 << 16, 1 << 20, 7, 2, 1.0, "shared"),
+    (1 << 16, 1 << 20, 8, 2, 0.004, "shared"), (1 << 16, 100_003, 2000, 2, 0.9, "global"),
+    (5000, 4099, 16, 5, 0.9, "shared"), (5000, 4099, 5000, 1, 0.9, "global"),
+]
+
+
+@pytest.mark.parametrize("n_dim,n_fact,cap,p,keep,tier", K5_CASES)
+def test_hash_probe_segment_sum_tiers_match_plain(cuda, n_dim, n_fact, cap, p, keep, tier):
+    assert pk.hash_probe_segment_sum_tier(cap, p) == tier
+    rng = np.random.default_rng(n_fact + cap)
+    dim_keys, dim_valid, planes, fact_keys, fact_valid, codes = _k5_case(
+        rng, n_dim, n_fact, cap, p, keep)
+    table = pk.build_probe_table(torch.from_numpy(dim_keys).to(cuda),
+                                 torch.from_numpy(dim_valid).to(cuda),
+                                 pk.probe_table_slots(n_dim))
+    args = [torch.from_numpy(a).to(cuda) for a in (fact_keys, fact_valid, codes)]
+    tp = torch.from_numpy(planes).to(cuda)
+    before = counters.snapshot()["launches_hash_probe_segment_sum"]
+    sums, counts = pk.hash_probe_segment_sum(*args, table, tp, cap)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["launches_hash_probe_segment_sum"] == before + 1
+    want_sums, want_counts = pk.hash_probe_segment_sum_plain(*args, table, tp, cap)
+    assert torch.equal(sums, want_sums) and torch.equal(counts, want_counts)
+    assert counts.sum().item() > 0
+    # the rows one in: codes off 16-byte alignment, one row a lane
+    view = [a[1:] for a in args]
+    sums, counts = pk.hash_probe_segment_sum(*view, table, tp, cap)
+    want_sums, want_counts = pk.hash_probe_segment_sum_plain(*view, table, tp, cap)
+    assert torch.equal(sums, want_sums) and torch.equal(counts, want_counts)
+
+
+@pytest.mark.parametrize("n_fact", [1 << 20, (1 << 20) + 3])
+def test_hash_probe_segment_sum_full_queue_repeats_match_plain(cuda, n_fact):
+    """Every fact row kept, so each of a block's 4096-row chunks queues
+    exactly 4096 rows and every other flush decision falls on the queue's
+    limit: a warp that queues the next chunk before another warp has read
+    the count would split the block's decision. Twenty runs, each equal to
+    the plain version."""
+    rng = np.random.default_rng(n_fact)
+    dim_keys, dim_valid, planes, fact_keys, fact_valid, _ = _k5_case(
+        rng, 1 << 16, n_fact, 7, 2, 1.0)
+    dim_valid[:] = True
+    fact_keys = dim_keys[rng.integers(0, len(dim_keys), n_fact)]
+    fact_valid[:] = True
+    codes = rng.integers(0, 7, n_fact).astype(np.int32)
+    table = pk.build_probe_table(torch.from_numpy(dim_keys).to(cuda),
+                                 torch.from_numpy(dim_valid).to(cuda),
+                                 pk.probe_table_slots(len(dim_keys)))
+    args = [torch.from_numpy(a).to(cuda) for a in (fact_keys, fact_valid, codes)]
+    tp = torch.from_numpy(planes).to(cuda)
+    want_sums, want_counts = pk.hash_probe_segment_sum_plain(*args, table, tp, 7)
+    assert want_counts.sum().item() == n_fact
+    for _ in range(20):
+        sums, counts = pk.hash_probe_segment_sum(*args, table, tp, 7)
+        assert torch.equal(sums, want_sums) and torch.equal(counts, want_counts)
+
+
+@pytest.mark.parametrize("cap,keep", [(7, 1.0), (2000, 0.9)])
+def test_hash_probe_segment_sum_fractions_within_f64_order_bound(cuda, cap, keep):
+    """Fractional f32 planes: the kernel adds in f64 in another order than
+    the plain version. Each of a segment's n_seg f64 additions rounds by at
+    most 2^-53 of a partial sum, bounded by the sum of |v|, so the two lie
+    within 2 * n_seg * 2^-53 * sum|v| of each other (each within half of
+    it of the exact sum). Counts stay exact."""
+    rng = np.random.default_rng(cap)
+    dim_keys, dim_valid, planes, fact_keys, fact_valid, codes = _k5_case(
+        rng, 1 << 16, 1 << 20, cap, 3, keep, fractions=True)
+    table = pk.build_probe_table(torch.from_numpy(dim_keys).to(cuda),
+                                 torch.from_numpy(dim_valid).to(cuda),
+                                 pk.probe_table_slots(len(dim_keys)))
+    args = [torch.from_numpy(a).to(cuda) for a in (fact_keys, fact_valid, codes)]
+    tp = torch.from_numpy(planes).to(cuda)
+    sums, counts = pk.hash_probe_segment_sum(*args, table, tp, cap)
+    want_sums, want_counts = pk.hash_probe_segment_sum_plain(*args, table, tp, cap)
+    assert torch.equal(counts, want_counts)
+    idx = pk.hash_probe_index_plain(args[0], args[1], table)
+    hit = (idx >= 0) & (args[2] >= 0) & (args[2] < cap)
+    seg = torch.where(hit, args[2], cap).long()
+    mags = torch.zeros((cap + 1, 3), dtype=torch.float64, device=cuda)
+    mags.index_add_(0, seg, tp[idx.clamp(min=0).long()].double().abs())
+    bound = 2 * want_counts.double()[:, None] * 2.0 ** -53 * mags[:cap]
+    assert bool(((sums - want_sums).abs() <= bound).all())
+    assert bool((sums != 0).any())
 
 
 @pytest.mark.parametrize("n_dim,n_fact,cap,p", [(300, 4096, 16, 3), (1 << 20, 1 << 22, 8, 2)])

@@ -352,3 +352,19 @@ def test_probe_segment_sum_empty_dim_and_validation():
         pk.hash_probe_segment_sum(keys, valid, codes, table, planes.double(), 4)
     with pytest.raises(ValueError, match="cannot hold"):
         pk.hash_probe_segment_sum(keys, valid, codes, table, torch.ones((9, 2)), 4)
+
+
+# K5's tier at the shared table's limit: cap x (P + 1) 8-byte entries in
+# SUM_TABLE_BYTES (4096 entries)
+@pytest.mark.parametrize("cap,p,tier", [
+    (8, 2, "shared"), (1365, 2, "shared"), (1366, 2, "global"), (4096, 0, "shared"),
+    (4097, 0, "shared" if 4097 * 8 <= pk.SUM_TABLE_BYTES else "global"),
+    (2048, 1, "shared"), (2049, 1, "global"), (1, 4095, "shared"), (1, 4096, "global"),
+    (1 << 17, 2, "global"),
+])
+def test_hash_probe_segment_sum_tier(cap, p, tier):
+    assert pk.hash_probe_segment_sum_tier(cap, p) == tier
+    assert (cap * (p + 1) * 8 <= pk.SUM_TABLE_BYTES) == (tier == "shared")
+    for bad_cap, bad_p in ((0, 1), (-1, 1), (8, -1)):
+        with pytest.raises(ValueError):
+            pk.hash_probe_segment_sum_tier(bad_cap, bad_p)

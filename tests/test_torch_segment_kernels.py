@@ -293,3 +293,31 @@ def test_segment_planes_tier(cap, nplanes, tier):
                                 (8, 0), (8, sk.PLANE_CHUNK + 1)):
         with pytest.raises(ValueError):
             sk.segment_planes_tier(bad_cap, bad_planes)
+
+
+# K1a's tiers at the cap x P boundaries: the block tier's last table that
+# fits beside the staged codes and vectors (45,816 entries), its copies, and
+# the global tier past it
+@pytest.mark.parametrize("cap,p,tier", [
+    (8, 15, ("block", 32)), (1, 1, ("block", 32)),
+    (279, 15, ("block", 4)), (280, 15, ("block", 3)),
+    (558, 15, ("block", 2)), (559, 15, ("block", 1)),
+    (3054, 15, ("block", 1)), (3055, 15, ("global", 1)),
+    (45816, 1, ("block", 1)), (45817, 1, ("global", 1)),
+    (16384, 15, ("global", 1)), (1 << 17, 15, ("global", 1)), (1 << 17, 1, ("global", 1)),
+])
+def test_segment_sum_f32_tier(cap, p, tier):
+    got = sk.segment_sum_f32_tier(cap, p)
+    assert tuple(got) == tier
+    table = cap * p * 4
+    if got.kind == "block":
+        # the whole table, in as many copies as two blocks an SM leave room
+        # for (one at least, one a warp at most)
+        assert table <= sk.F32_TABLE_BYTES
+        assert got.copies == 1 or got.copies * table <= sk.F32_COPIES_BYTES
+        assert got.copies == sk.F32_MAX_COPIES or (got.copies + 1) * table > sk.F32_COPIES_BYTES
+    else:
+        assert table > sk.F32_TABLE_BYTES and got.copies == 1
+    for bad_cap, bad_p in ((0, 1), (-1, 1), (8, 0)):
+        with pytest.raises(ValueError):
+            sk.segment_sum_f32_tier(bad_cap, bad_p)
