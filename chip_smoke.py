@@ -41,7 +41,15 @@ error (no phase catches its own failure):
             numpy count; its bound reads each distinct kept key's slot and
             each matched dim row's planes once; probe_timings.py times K5
             through the same functions. K6 at the repartition cell's shapes (8 x 8 blocks of
-            23 x 2^20 + 4 words). Every kernel also by its device time under
+            23 x 2^20 + 4 words). K7 at q1's shapes (cap 8, its seven
+            f32 sum planes, about 98 % of the real rows kept), the same in
+            f64, at the supplier's cap with lineitem's four float columns,
+            and at cap 2^20 (l_orderkey folded), within twice the worst
+            case of f64 summation of its plain version; K1, K2 and K3 at
+            cap 2^20 too; K1, K2, K3 and K7 at the partkey cell's own inputs
+            (cap 2^18, parts numbered by first row, K7 on
+            l_extendedprice in f64, K3 on l_quantity's order-preserving
+            key). Every kernel also by its device time under
             torch.profiler (K4's build with the table's clearing, where it
             has one). K1a and K5 have no engine caller, in the port or in
             the reference: they are held here alone;
@@ -61,7 +69,22 @@ error (no phase catches its own failure):
             path and a numpy oracle exactly. Then the warm query (median of
             3, which must launch K4 zero times: its index plane is resident),
             peak device memory, and one warm query under torch.profiler;
-7. repartition: lineitem's eight numeric columns at SF1 (about 6.0 M rows)
+7. q1:      TPC-H q1 at SF1 (float sums and means by return flag and line
+            status) with device="cuda", the counters zeroed just before the
+            cold run and read just after it: K7, K1 and K2 must launch, with
+            a device grouped batch, no fallback and no refusal, and the
+            result must equal the host path and a numpy oracle (floats at
+            rtol 1e-5, the rest exactly); then q1 with l_extendedprice's min
+            and max, a stage in f64, counted the same way: K3 must launch
+            too and the extremes equal bit for bit. Cold time, warm median
+            of 3, peak device memory, and one warm q1 under torch.profiler;
+8. partkey: groupby(l_partkey) over lineitem (200,000 groups, cap 2^18)
+            with sum(l_extendedprice), count and max(l_quantity), counted
+            and checked the same way, with the time of one warm run's
+            finalize against the whole, and a profile;
+9. q6:      TPC-H q6 at SF1 through the ungrouped device stage, counted and
+            checked the same way (device_stage_batches), and a profile;
+10. repartition: lineitem's eight numeric columns at SF1 (about 6.0 M rows)
             repartitioned by ``l_orderkey`` into 8 partitions over a mesh of
             8 shard slots on the card (mesh_devices=8), the counters zeroed
             just before the run and read just after it: K6 must launch once,
@@ -71,7 +94,7 @@ error (no phase catches its own failure):
             kernel_mode="off" tier (all_to_all) must give the same
             partitions. Then the wall time (median of 3), peak device memory
             and one run under torch.profiler;
-8. print the {"kernels": [...]} line, the card line, and last the
+11. print the {"kernels": [...]} line, the card line, and last the
    {"ok": true, "device": {...}} line.
 
 Every cell runs at SF1: nothing is cut. It imports torch, numpy and the
@@ -105,7 +128,8 @@ BUCKET = 1 << 23          # 6.0 M rows pad to this bucket
 CAP = 16384               # 10,000 suppliers pad to this group capacity
 Q12_CAP = 8               # 7 ship modes pad to this group capacity
 K3_SMALL_CAP = 8          # K3 with every kept row on l_shipmode's 7 codes
-K3_LARGE_CAP = 1 << 17    # K3 (and K1, K2) at the kernel tier's segment ceiling
+K3_LARGE_CAP = 1 << 17    # K3 (and K1, K2) at their global tiers' start
+MAX_CAP = 1 << 20         # the grouped stage's segment ceiling (MAX_SORT_SEGMENTS)
 WIDE_CAP, WIDE_PLANES = 4096, 73  # K1 past one 64-plane chunk
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 EPOCH = datetime.date(1970, 1, 1)
@@ -116,7 +140,13 @@ Q12_FROM, Q12_TO = datetime.date(1994, 1, 1), datetime.date(1995, 1, 1)
 # benchmarking/tpch/datagen.py:36-37
 PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
 SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
+# benchmarking/tpch/datagen.py:188-189
+RETURNFLAGS = ["R", "A", "N"]
+LINESTATUS = ["O", "F"]
+Q1_CAP = 8                # q1's 3 x 2 flag and status codes pad to this capacity
+Q6_FROM, Q6_TO = datetime.date(1994, 1, 1), datetime.date(1995, 1, 1)
 SF1_PARTS = 200_000
+PARTKEY_CAP = 1 << 18     # 200,000 parts pad to this group capacity
 MESH = 8                  # the repartition cell's partitions and shard slots
 SEGMENT_SOURCE = "daft_tpu_torch/ops/csrc/segment_reduce.cu"
 PROBE_SOURCE = "daft_tpu_torch/ops/csrc/hash_probe.cu"
@@ -130,6 +160,8 @@ KERNELS = {  # name -> (source, the TPU kernel or host function it replaces)
     "segment_sum_planes_f32": (SEGMENT_SOURCE, "daft_tpu/ops/pallas_kernels.py:82"),
     "hash_probe_segment_sum": (PROBE_SOURCE, "daft_tpu/ops/pallas_kernels.py:421"),
     "ring_permute_words": (PERMUTE_SOURCE, "daft_tpu/ops/pallas_kernels.py:515"),
+    # no Pallas kernel: the reference's XLA reduction of float "sum" planes
+    "segment_sum_float_planes": (SEGMENT_SOURCE, "daft_tpu/ops/grouped_stage.py:393"),
 }
 # the repartition cell's columns: lineitem's numeric ones
 REPART_COLUMNS = ("l_orderkey", "l_partkey", "l_suppkey", "l_linenumber", "l_quantity",
@@ -155,10 +187,11 @@ def phase(name: str) -> None:
 def tpch_sf1(seed: int):
     """(lineitem columns, orders columns) of every cell, with the value
     domains of the repo's TPC-H generator (benchmarking/tpch/datagen.py:
-    36-37, 160-190). Dates are int32 days; ``l_shipmode`` and
-    ``o_orderpriority`` are int8 codes into SHIPMODES and PRIORITIES. The
-    repartition cell's columns are drawn last, so the earlier cells' data
-    does not depend on them."""
+    36-37, 160-190). Dates are int32 days; ``l_shipmode``,
+    ``o_orderpriority``, ``l_returnflag`` and ``l_linestatus`` are int8 codes
+    into SHIPMODES, PRIORITIES, RETURNFLAGS and LINESTATUS. The repartition
+    cell's columns are drawn after the first cells', and q1's flags last, so
+    the earlier cells' data does not depend on the later ones."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -188,6 +221,8 @@ def tpch_sf1(seed: int):
     lineitem["l_extendedprice"] = np.round(quantity * rng.uniform(900, 2000, n_line) / 10, 2)
     lineitem["l_discount"] = np.round(rng.uniform(0.0, 0.10, n_line), 2)
     lineitem["l_tax"] = np.round(rng.uniform(0.0, 0.08, n_line), 2)
+    lineitem["l_returnflag"] = rng.integers(0, len(RETURNFLAGS), n_line).astype(np.int8)
+    lineitem["l_linestatus"] = rng.integers(0, len(LINESTATUS), n_line).astype(np.int8)
     return lineitem, orders
 
 
@@ -512,6 +547,129 @@ def k1a_case(sk, stack, codes, cap: int) -> dict:
     return result
 
 
+def f64_order_bound(planes, codes, cap: int):
+    """Per entry, the worst case of f64 summation in any order: each of a
+    segment's n_seg additions rounds by at most 2^-53 of a partial sum, and
+    no partial sum exceeds the sum of |v|."""
+    import torch
+
+    idx = torch.where((codes >= 0) & (codes < cap), codes, cap).long()
+    mags = torch.zeros((cap + 1, len(planes)), dtype=torch.float64, device=codes.device)
+    for j, t in enumerate(planes):
+        mags[:, j].index_add_(0, idx, t.double().abs())
+    n_seg = torch.bincount(idx, minlength=cap + 1).double()[:, None]
+    return (n_seg * 2.0 ** -53 * mags)[:cap]
+
+
+def k7_case(sk, planes, codes, cap: int, label: str) -> dict:
+    """K7 on a list of float planes at one shape: within twice the worst
+    case of f64 summation of its plain version (both add in an order of
+    their own: the plain version by ``index_add_``'s atomics), then the
+    kernel's time by CUDA events and on the device, the plain version's,
+    ``index_add_``'s on the (N, P) f64 stack (into a table with a trash row;
+    the port never calls it), and the bound: what the function needs (the
+    codes, the kept rows' 32-byte sectors of each plane, the f64 output)."""
+    import torch
+
+    def call():
+        return sk.segment_sum_float_planes(planes, codes, cap)
+
+    def plain():
+        return sk.segment_sum_float_planes_plain(planes, codes, cap)
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    n, p = codes.numel(), len(planes)
+    err = (got - want).abs()
+    check(bool((err <= 2 * f64_order_bound(planes, codes, cap)).all()),
+          f"K7 segment_sum_float_planes ({label}) differs from its plain version past the "
+          "f64 order bound")
+    stack = torch.stack([t.double() for t in planes], dim=1)
+    idx = torch.where((codes >= 0) & (codes < cap), codes, cap).long()
+    table = torch.zeros((cap + 1, p), dtype=torch.float64, device=codes.device)
+    kept = (codes >= 0) & (codes < cap)
+    per_sector = 32 // planes[0].element_size()
+    sectors = int(kept.view(-1, per_sector).any(dim=1).sum())  # n is a multiple of 8
+    result = {
+        "cap": cap, "planes": p, "dtype": str(planes[0].dtype).replace("torch.", ""),
+        "held": "within twice the f64 order bound of plain",
+        "tier": list(sk.segment_sum_float_tier(cap, min(p, sk.PLANE_CHUNK))),
+        "kept_share": float(kept.float().mean()),
+        "max_abs_err": float(err.max()),
+        "ms": time_ms(call, 20),
+        "device_ms": device_ms(call, 20, f"K7 {label}"),
+        "plain_ms": time_ms(plain, 5),
+        "library_ms": time_ms(lambda: table.index_add_(0, idx, stack), 20),
+        "bound_ms": bound_ms(n * 4 + sectors * 32 * p + cap * p * 8),
+        "bound_read_once_ms": bound_ms(n * 4 + n * p * planes[0].element_size() + cap * p * 8),
+    }
+    del got, want, err, stack, idx, table, kept
+    return result
+
+
+def q1_inputs(cols, dev, dtype):
+    """q1's codes on ``dev`` (flag x 2 + status where the ship date passes
+    q1's predicate, about 98 % of the real rows; trash Q1_CAP elsewhere) and
+    its seven sum planes as the stage builds them in ``dtype`` (quantity,
+    price, discounted price, charge, and the three means' quantity, price,
+    discount), zero on dropped rows."""
+    import numpy as np
+    import torch
+
+    n = len(cols["l_orderkey"])
+    keep = cols["l_shipdate"] <= (CUTOFF - EPOCH).days
+    codes = torch.full((BUCKET,), Q1_CAP, dtype=torch.int32)
+    codes[:n] = torch.from_numpy(np.where(
+        keep, cols["l_returnflag"].astype(np.int32) * 2 + cols["l_linestatus"], Q1_CAP)
+        .astype(np.int32))
+
+    def plane(values):
+        out = torch.zeros(BUCKET, dtype=dtype)
+        out[:n] = torch.from_numpy(np.where(keep, values, 0.0)).to(dtype)
+        return out.to(dev)
+
+    qty, price = cols["l_quantity"], cols["l_extendedprice"]
+    disc, tax = cols["l_discount"], cols["l_tax"]
+    disc_price = price * (1 - disc)
+    values = [qty, price, disc_price, disc_price * (1 + tax), qty, price, disc]
+    return codes.to(dev), [plane(v) for v in values]
+
+
+def partkey_inputs(cols, dev) -> dict:
+    """The kernels' inputs in the partkey cell, as its f64 stage builds them
+    (ops/grouped_stage.py): codes numbering the parts in the order of their
+    first row (the stage's host factorize of an int64 key) at cap 2^18,
+    padding rows in the trash segment; K1's rows plane and the three
+    aggregations' valid-count planes;
+    K2's first-row-index plane; K7's l_extendedprice plane in f64; K3's two
+    launches for max(l_quantity): the order-preserving int64 key of its f64
+    bits (``_float_extreme``, every real row kept), and the row index over
+    the zero rows (none here), whose first row gives a zero result its
+    sign."""
+    import numpy as np
+    import torch
+
+    n = len(cols["l_partkey"])
+    keep = torch.zeros(BUCKET, dtype=torch.bool)
+    keep[:n] = True
+    codes = torch.full((BUCKET,), PARTKEY_CAP, dtype=torch.int32)
+    _keys, first, inv = np.unique(cols["l_partkey"], return_index=True, return_inverse=True)
+    rank = np.empty(len(first), dtype=np.int32)
+    rank[np.argsort(first, kind="stable")] = np.arange(len(first), dtype=np.int32)
+    codes[:n] = torch.from_numpy(rank[inv.reshape(-1)])
+    price = torch.zeros(BUCKET, dtype=torch.float64)
+    price[:n] = torch.from_numpy(cols["l_extendedprice"])
+    qty = torch.zeros(BUCKET, dtype=torch.float64)
+    qty[:n] = torch.from_numpy(cols["l_quantity"])
+    bits = (qty + 0.0).view(torch.int64)
+    rows = torch.arange(BUCKET, dtype=torch.int64)
+    return {"codes": codes.to(dev), "keep": keep.to(dev),
+            "planes": [keep.float().to(dev) for _ in range(4)],
+            "first": [torch.where(keep, rows.float(), float("inf")).to(dev)],
+            "price": [price.to(dev)],
+            "qty_key": (bits ^ ((bits >> 63) & 0x7FFF_FFFF_FFFF_FFFF)).to(dev),
+            "rows": rows.to(dev), "zero": (keep & (qty == 0)).to(dev)}
+
+
 def k5_inputs(cols, orders, table, dev) -> dict:
     """K5's inputs on K4's table of orders: lineitem's keys padded to the
     bucket (padding rows invalid), orders' high/low priority planes, and two
@@ -780,6 +938,7 @@ def phase_kernels(cols, orders, card: str):
     import numpy as np
     import torch
 
+    from daft_tpu_torch.ops import grouped_stage
     from daft_tpu_torch.ops import permute_kernels as rk
     from daft_tpu_torch.ops import probe_kernels as pk
     from daft_tpu_torch.ops import segment_kernels as sk
@@ -843,7 +1002,53 @@ def phase_kernels(cols, orders, card: str):
     check(torch.equal(sk.segment_sum_planes_f32(x["stack"], codes, CAP),
                       sk.segment_sum_planes(x["planes"], codes, CAP).float()),
           "K1a segment_sum_planes_f32 differs from K1's output cast to f32")
-    del x, orderkey
+
+    # K7: q1's seven f32 planes at cap 8 (about 98 % of real rows kept), the
+    # same planes in f64, the supplier's cap with lineitem's four float
+    # columns, and cap 2^20 (l_orderkey folded, the stage's ceiling) with
+    # K1, K2 and K3 there too
+    q1_codes, q1_planes = q1_inputs(cols, dev, torch.float32)
+    k7 = results["segment_sum_float_planes"] = k7_case(sk, q1_planes, q1_codes, Q1_CAP,
+                                                        "q1 cap 8 f32")
+    q1_codes, q1_planes = q1_inputs(cols, dev, torch.float64)
+    k7["at_q1_cap8_f64"] = k7_case(sk, q1_planes, q1_codes, Q1_CAP, "q1 cap 8 f64")
+    del q1_planes, q1_codes
+    floats = []
+    for name in ("l_quantity", "l_extendedprice", "l_discount", "l_tax"):
+        t = torch.zeros(BUCKET, dtype=torch.float32)
+        t[:rows] = torch.from_numpy(cols[name].astype(np.float32))
+        floats.append(torch.where(keep, t.to(dev), 0.0))
+    k7["at_supplier_cap16384"] = k7_case(sk, floats, codes, CAP, "supplier cap 16384")
+    folded = torch.full((BUCKET,), MAX_CAP, dtype=torch.int32)
+    folded[:rows] = torch.from_numpy(((cols["l_orderkey"] - 1) % MAX_CAP).astype(np.int32))
+    codes_max = torch.where(keep, folded.to(dev), MAX_CAP)
+    k7["at_cap1048576"] = k7_case(sk, floats[:2], codes_max, MAX_CAP, "cap 2^20")
+    results["segment_sum_planes"]["at_cap1048576"] = plane_case(sk, "sum", x["planes"],
+                                                                codes_max, MAX_CAP, 2)
+    results["segment_extreme_planes"]["at_cap1048576"] = plane_case(sk, "min", x["first"],
+                                                                    codes_max, MAX_CAP, 2)
+    results["segment_extreme_int64"]["at_cap1048576"] = k3_case(sk, orderkey, keep,
+                                                                codes_max, MAX_CAP, "min")
+    del x, orderkey, floats, folded, codes_max
+    torch.cuda.empty_cache()
+
+    # the partkey cell's launches at its own inputs (cap 2^18, an f64 stage)
+    check(grouped_stage._pad_groups(SF1_PARTS) == PARTKEY_CAP,
+          f"the partkey stage pads {SF1_PARTS} groups to {grouped_stage._pad_groups(SF1_PARTS)}, "
+          f"not {PARTKEY_CAP}")
+    pk_in = partkey_inputs(cols, dev)
+    pk_codes = pk_in["codes"]
+    results["segment_sum_planes"]["at_partkey_cap262144"] = plane_case(
+        sk, "sum", pk_in["planes"], pk_codes, PARTKEY_CAP, 2)
+    results["segment_extreme_planes"]["at_partkey_cap262144"] = plane_case(
+        sk, "min", pk_in["first"], pk_codes, PARTKEY_CAP, 2)
+    k7["at_partkey_cap262144_f64"] = k7_case(sk, pk_in["price"], pk_codes, PARTKEY_CAP,
+                                             "partkey cap 2^18 f64")
+    results["segment_extreme_int64"]["at_partkey_cap262144_max"] = k3_case(
+        sk, pk_in["qty_key"], pk_in["keep"], pk_codes, PARTKEY_CAP, "max")
+    results["segment_extreme_int64"]["at_partkey_cap262144_zero_rows"] = k3_case(
+        sk, pk_in["rows"], pk_in["zero"], pk_codes, PARTKEY_CAP, "min")
+    del pk_in, pk_codes
     torch.cuda.empty_cache()
 
     # K1 at q12's shapes: 7 ship modes in cap 8, P = 5 planes (kept rows, and
@@ -924,7 +1129,8 @@ def print_cases(results: dict, card: str) -> None:
         # the events also hold the wrapper's host time
         held, by = ((r["device_ms"], "device") if r.get("device_ms")
                     else (r["ms"], "kernel_ms"))
-        print(f"{name}:{shape}{tier} identical to plain (max_abs_err {r['max_abs_err']}); "
+        against = r.get("held", "identical to plain")
+        print(f"{name}:{shape}{tier} {against} (max_abs_err {r['max_abs_err']}); "
               f"kernel_ms {fmt(r['ms'])}{dev}, plain_ms {fmt(r['plain_ms'])}, "
               f"library_ms {fmt(r['library_ms'])}, bound_ms {fmt(r['bound_ms'])}{once} "
               f"(bytes at 3.35 TB/s; {by} at {r['bound_ms'] / held:.1%} of bound_ms) "
@@ -1070,6 +1276,272 @@ def phase_q12(lineitem, orders, card: str):
           f"(runs {', '.join(f'{w:.4f}' for w in warm)}); host path {host_s:.3f} s; "
           f"max_memory_allocated {peak} bytes [{card}]", flush=True)
     return query, launches
+
+
+def clear_residency() -> None:
+    """Drop the earlier cells' resident planes, so that a cell's peak
+    memory is its own."""
+    import torch
+
+    import daft_tpu_torch.device.residency as residency
+
+    residency.manager().clear()
+    torch.cuda.empty_cache()
+
+
+def q1_frame(lineitem):
+    """The port's DataFrame of q1's columns: flags and statuses as object
+    arrays of strings, dates as days."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+
+    return dt.from_pydict({
+        "l_returnflag": np.array(RETURNFLAGS, dtype=object)[lineitem["l_returnflag"]],
+        "l_linestatus": np.array(LINESTATUS, dtype=object)[lineitem["l_linestatus"]],
+        **{c: lineitem[c] for c in ("l_quantity", "l_extendedprice", "l_discount", "l_tax")},
+        "l_shipdate": lineitem["l_shipdate"].astype("datetime64[D]"),
+    })
+
+
+def q1_query(df, extremes: bool = False):
+    """TPC-H q1 as benchmarking/tpch/queries.py:19-35 writes it; with
+    ``extremes``, l_extendedprice's min and max too (a stage in f64)."""
+    from daft_tpu_torch import col, lit
+
+    disc_price = col("l_extendedprice") * (1 - col("l_discount"))
+    aggs = [col("l_quantity").sum().alias("sum_qty"),
+            col("l_extendedprice").sum().alias("sum_base_price"),
+            disc_price.sum().alias("sum_disc_price"),
+            (disc_price * (1 + col("l_tax"))).sum().alias("sum_charge"),
+            col("l_quantity").mean().alias("avg_qty"),
+            col("l_extendedprice").mean().alias("avg_price"),
+            col("l_discount").mean().alias("avg_disc"),
+            col("l_quantity").count().alias("count_order")]
+    if extremes:
+        aggs += [col("l_extendedprice").min().alias("min_price"),
+                 col("l_extendedprice").max().alias("max_price")]
+    return (df.where(col("l_shipdate") <= lit(CUTOFF))
+            .groupby("l_returnflag", "l_linestatus").agg(*aggs)
+            .sort(["l_returnflag", "l_linestatus"]))
+
+
+Q1_FLOATS = ("sum_qty", "sum_base_price", "sum_disc_price", "sum_charge", "avg_qty",
+             "avg_price", "avg_disc")
+
+
+def q1_oracle(cols, extremes: bool = False) -> dict:
+    """q1's answer computed with numpy alone, in f64."""
+    import numpy as np
+
+    keep = cols["l_shipdate"] <= (CUTOFF - EPOCH).days
+    code = cols["l_returnflag"][keep].astype(np.int64) * 2 + cols["l_linestatus"][keep]
+    qty, price = cols["l_quantity"][keep], cols["l_extendedprice"][keep]
+    disc, tax = cols["l_discount"][keep], cols["l_tax"][keep]
+    disc_price = price * (1 - disc)
+    charge = disc_price * (1 + tax)
+    groups = sorted((RETURNFLAGS[c // 2], LINESTATUS[c % 2]) for c in np.unique(code))
+    out = {k: [] for k in ("l_returnflag", "l_linestatus") + Q1_FLOATS + ("count_order",)}
+    if extremes:
+        out["min_price"], out["max_price"] = [], []
+    for rf, ls in groups:
+        rows = code == RETURNFLAGS.index(rf) * 2 + LINESTATUS.index(ls)
+        n = int(rows.sum())
+        out["l_returnflag"].append(rf)
+        out["l_linestatus"].append(ls)
+        for name, v in (("sum_qty", qty), ("sum_base_price", price),
+                        ("sum_disc_price", disc_price), ("sum_charge", charge)):
+            out[name].append(float(v[rows].sum()))
+        for name, v in (("avg_qty", qty), ("avg_price", price), ("avg_disc", disc)):
+            out[name].append(float(v[rows].sum()) / n)
+        out["count_order"].append(n)
+        if extremes:
+            out["min_price"].append(float(price[rows].min()))
+            out["max_price"].append(float(price[rows].max()))
+    return out
+
+
+def same_result(got: dict, want: dict, floats=()) -> bool:
+    """Equal column for column: ``floats`` within rtol 1e-5 (the reference's
+    own device-vs-host tolerance, tests/test_device_path.py), the rest
+    exactly (floats bit for bit)."""
+    import numpy as np
+
+    if list(got) != list(want) or any(len(got[c]) != len(want[c]) for c in got):
+        return False
+    for c in got:
+        if c in floats:
+            if not np.allclose(np.array(got[c], dtype=float), np.array(want[c], dtype=float),
+                               rtol=1e-5, atol=0.0):
+                return False
+        elif [np.float64(v).tobytes() if isinstance(v, float) else v for v in got[c]] != \
+                [np.float64(v).tobytes() if isinstance(v, float) else v for v in want[c]]:
+            return False
+    return True
+
+
+def run_cell(label: str, query, kernels, card: str, floats=(), oracle=None,
+             counter: str = "device_grouped_batches"):
+    """One query cell on the card: the counters zeroed just before the cold
+    run and read just after it, then the warm runs (median of 3), peak
+    device memory, the host path, and the checks: ``kernels`` launched,
+    ``counter`` above 0, no fallback, no rejection, the result equal to the
+    host path and ``oracle``. Returns the cold run's launches."""
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ops import counters
+
+    with dt.execution_config_ctx(device="cuda", device_mode="on", kernel_mode="on"):
+        torch.cuda.reset_peak_memory_stats()
+        counters.reset()
+        t0 = time.perf_counter()
+        got = query().to_pydict()
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        snap = counters.snapshot()
+        rejected = dict(counters.rejections)
+        launches = {k: snap[f"launches_{k}"] for k in counters.KERNEL_NAMES}
+        warm = time_s(lambda: query().to_pydict())
+        peak = torch.cuda.max_memory_allocated()
+    print(f"{label} cold run counters: {json.dumps(snap, sort_keys=True)}")
+    check(snap[counter] >= 1, f"{label}: no {counter} in the cold run")
+    check(snap["device_fallbacks"] == 0, f"{label}: the stage fell back to the host")
+    check(not rejected, f"{label}: a stage was refused: {rejected}")
+    for k in kernels:
+        check(launches[k] > 0, f"{label}: kernel {k} was not launched")
+    with dt.execution_config_ctx(device_mode="off"):
+        t0 = time.perf_counter()
+        host = query().to_pydict()
+        host_s = time.perf_counter() - t0
+    check(same_result(got, host, floats), f"{label} on the card differs from the host path")
+    if oracle is not None:
+        check(same_result(got, oracle, floats), f"{label} on the card differs from the numpy "
+                                                "oracle")
+    rows = len(next(iter(got.values())))
+    print(f"{label}: {rows} result rows, equal to the host path and the numpy oracle")
+    print(f"{label} cold {cold_s:.3f} s; warm median {statistics.median(warm):.4f} s "
+          f"(runs {', '.join(f'{w:.4f}' for w in warm)}); host path {host_s:.3f} s; "
+          f"max_memory_allocated {peak} bytes [{card}]", flush=True)
+    return got, launches
+
+
+def phase_q1(lineitem, card: str):
+    """TPC-H q1 at SF1 on the card (K7, K1, K2), then q1 with
+    l_extendedprice's min and max (an f64 stage: K3 too), each its own
+    counted cold run. Returns (the query as a callable, the two runs'
+    launches)."""
+    phase("q1")
+    clear_residency()
+    t0 = time.perf_counter()
+    df = q1_frame(lineitem)
+    print(f"q1 frame {time.perf_counter() - t0:.2f} s", flush=True)
+    _got, launches = run_cell(
+        "q1", lambda: q1_query(df), ("segment_sum_float_planes", "segment_sum_planes",
+                                     "segment_extreme_planes"),
+        card, Q1_FLOATS, q1_oracle(lineitem))
+    got, launches_f64 = run_cell(
+        "q1 with min/max", lambda: q1_query(df, extremes=True),
+        ("segment_sum_float_planes", "segment_sum_planes", "segment_extreme_planes",
+         "segment_extreme_int64"), card, Q1_FLOATS, q1_oracle(lineitem, extremes=True))
+    print(f"q1 result: {json.dumps(got)}")
+    return (lambda: q1_query(df).to_pydict()), launches, launches_f64
+
+
+def phase_partkey(lineitem, card: str):
+    """groupby(l_partkey) over SF1 lineitem: 200,000 groups at cap 2^18,
+    past the kernels' former ceiling of 2^17, in an f64 stage (a float
+    max). Also the run's split: the finalize (the one device-to-host copy
+    and the host merge of 200,000 groups) against the rest. Returns (the
+    query as a callable, the run's launches)."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col
+    from daft_tpu_torch.ops import grouped_stage
+
+    phase("partkey")
+    clear_residency()
+    df = dt.from_pydict({c: lineitem[c] for c in ("l_partkey", "l_extendedprice",
+                                                   "l_quantity")})
+
+    def query():
+        return (df.groupby("l_partkey")
+                .agg(col("l_extendedprice").sum().alias("revenue"),
+                     col("l_partkey").count().alias("lines"),
+                     col("l_quantity").max().alias("top_qty"))
+                .sort("l_partkey"))
+
+    keys, inv = np.unique(lineitem["l_partkey"], return_inverse=True)
+    top = np.full(len(keys), -np.inf)
+    np.maximum.at(top, inv, lineitem["l_quantity"])
+    oracle = {"l_partkey": keys.tolist(),
+              "revenue": np.bincount(inv, weights=lineitem["l_extendedprice"]).tolist(),
+              "lines": np.bincount(inv).tolist(), "top_qty": top.tolist()}
+    check(len(keys) == SF1_PARTS, f"{len(keys)} parts, expected {SF1_PARTS}")
+    _got, launches = run_cell("partkey", query, ("segment_sum_float_planes",
+                                                 "segment_sum_planes", "segment_extreme_planes",
+                                                 "segment_extreme_int64"),
+                              card, ("revenue",), oracle)
+    # the split of one warm run: time in finalize against the whole
+    spent = []
+    finalize = grouped_stage.GroupedAggRun.finalize
+
+    def timed(self):
+        t0 = time.perf_counter()
+        try:
+            return finalize(self)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    grouped_stage.GroupedAggRun.finalize = timed
+    try:
+        with dt.execution_config_ctx(device="cuda", device_mode="on"):
+            wall = time_s(lambda: query().to_pydict(), 1)[0]
+    finally:
+        grouped_stage.GroupedAggRun.finalize = finalize
+    print(f"partkey warm run {wall:.4f} s: finalize (device-to-host copy and host merge of "
+          f"{SF1_PARTS} groups) {spent[0]:.4f} s, the rest {wall - spent[0]:.4f} s [{card}]",
+          flush=True)
+    return (lambda: query().to_pydict()), launches
+
+
+def phase_q6(lineitem, card: str):
+    """TPC-H q6 at SF1 through the ungrouped device stage (DeviceFilterAgg).
+    Returns (the query as a callable, the run's launches)."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col, lit
+    from daft_tpu_torch.plan import physical as pp
+
+    phase("q6")
+    clear_residency()
+    df = dt.from_pydict({**{c: lineitem[c] for c in ("l_quantity", "l_extendedprice",
+                                                      "l_discount")},
+                         "l_shipdate": lineitem["l_shipdate"].astype("datetime64[D]")})
+
+    def query():
+        """q6 as benchmarking/tpch/queries.py:104-113 writes it."""
+        return (df.where((col("l_shipdate") >= lit(Q6_FROM)) & (col("l_shipdate") < lit(Q6_TO))
+                         & (col("l_discount") >= 0.05) & (col("l_discount") <= 0.07)
+                         & (col("l_quantity") < 24))
+                .agg((col("l_extendedprice") * col("l_discount")).sum().alias("revenue")))
+
+    with dt.execution_config_ctx(device="cuda", device_mode="on"):
+        plan = pp.translate(query()._plan)
+    check(any(isinstance(n, pp.DeviceFilterAgg) for n in plan.walk()),
+          "q6 did not plan to the ungrouped device stage")
+    ship = lineitem["l_shipdate"]
+    keep = ((ship >= (Q6_FROM - EPOCH).days) & (ship < (Q6_TO - EPOCH).days)
+            & (lineitem["l_discount"] >= 0.05) & (lineitem["l_discount"] <= 0.07)
+            & (lineitem["l_quantity"] < 24))
+    oracle = {"revenue": [float((lineitem["l_extendedprice"][keep]
+                                 * lineitem["l_discount"][keep]).sum())]}
+    got, launches = run_cell("q6", query, (), card, ("revenue",), oracle,
+                             counter="device_stage_batches")
+    print(f"q6 result: {json.dumps(got)} over {int(keep.sum())} kept rows")
+    return (lambda: query().to_pydict()), launches
 
 
 def splitmix64_np(x):
@@ -1226,6 +1698,13 @@ def main(argv=None) -> int:
             q12, paths["q12"] = phase_q12(lineitem, orders, card)
             phase_profile(lambda: q12().to_pydict(), card, "q12 profile")
             del df, q12
+            q1, paths["q1"], paths["q1_f64"] = phase_q1(lineitem, card)
+            phase_profile(q1, card, "q1 profile")
+            partkey, paths["partkey"] = phase_partkey(lineitem, card)
+            phase_profile(partkey, card, "partkey profile")
+            q6, paths["q6"] = phase_q6(lineitem, card)
+            phase_profile(q6, card, "q6 profile")
+            del q1, partkey, q6
             repart, paths["repartition"] = phase_repartition(lineitem, card)
             phase_profile(repart, card, "repartition profile", mesh_devices=MESH)
     except SmokeFailure as exc:

@@ -6,6 +6,8 @@ daft_tpu/core/relational.py).
 into group ids ordered by first occurrence, with numpy alone.
 ``grouped_reduce`` aggregates one column by group ids with ufunc.at
 scatters: O(rows), no per-group Python loop, so it serves a 6M-row table.
+``grouped_agg`` and ``ungrouped_agg`` aggregate a batch by key expressions,
+or to one row.
 """
 
 from __future__ import annotations
@@ -76,7 +78,8 @@ def grouped_reduce(op: str, values: np.ndarray, valid: np.ndarray,
 
     Integer sums/min/max run in int64 (sum wraps mod 2^64 like the reference's
     int64 kernels), unsigned in uint64, floats and means in float64. Sums add
-    in row order."""
+    in row order. Float min/max take the reference's host terms
+    (``_float_extreme``)."""
     g = num_groups
     if op == "count":
         rows = group_ids if mode == "all" else group_ids[valid]
@@ -105,9 +108,8 @@ def grouped_reduce(op: str, values: np.ndarray, valid: np.ndarray,
     if op in ("min", "max"):
         uf = np.minimum if op == "min" else np.maximum
         if vals.dtype.kind == "f":
-            work = vals.astype(np.float64)
-            acc = np.full(g, np.inf if op == "min" else -np.inf)
-        elif vals.dtype == bool:
+            return _float_extreme(op, vals.astype(np.float64), gids, g), has
+        if vals.dtype == bool:
             work = vals.astype(np.int8)
             acc = np.full(g, 1 if op == "min" else 0, dtype=np.int8)
         else:
@@ -119,15 +121,83 @@ def grouped_reduce(op: str, values: np.ndarray, valid: np.ndarray,
     raise ValueError(f"no host grouped aggregation for {op!r}")
 
 
+def _float_extreme(op: str, vals: np.ndarray, gids: np.ndarray, g: int) -> np.ndarray:
+    """Per-group f64 min/max as the reference's host kernel computes it, a
+    strict compare per row in row order (native/src/kernels.cpp
+    grouped_minmax_f64): NaN never wins, so a group of NaN alone keeps the
+    identity (+inf for min, -inf for max), and of equal values (0.0 and
+    -0.0) the group's first row stays."""
+    ok = ~np.isnan(vals)
+    acc = np.full(g, np.inf if op == "min" else -np.inf)
+    (np.minimum if op == "min" else np.maximum).at(acc, gids[ok], vals[ok])
+    # the value itself from the group's first row that equals it
+    hit = np.flatnonzero(ok & (vals == acc[gids]))
+    first = np.full(g, len(vals), dtype=np.int64)
+    np.minimum.at(first, gids[hit], hit)
+    found = first < len(vals)
+    acc[found] = vals[first[found]]
+    return acc
+
+
+def extreme_replaces(op: str, new, cur):
+    """Whether a later partial extreme ``new`` replaces ``cur`` when partials
+    of one group merge in row order, on ``_float_extreme``'s terms: only if
+    strictly smaller (min) or larger (max), so NaN never wins and of equal
+    values (0.0 and -0.0) the earlier stays. Scalars or arrays (elementwise)."""
+    return new < cur if op == "min" else new > cur
+
+
+def _agg_columns(batch, aggs, group_ids: np.ndarray, g: int, ungrouped: bool = False):
+    """One output Series per aggregation over ``g`` groups. Ungrouped, a
+    float min/max over valid values that are all NaN is NaN (the
+    reference's pyarrow min/max), where a group keeps the identity."""
+    from ...expressions.eval import eval_expression
+    from ...expressions.expressions import AggExpr, Alias
+    from ..series import Series
+
+    n = batch.num_rows
+    out = []
+    for e in aggs:
+        inner = e
+        while isinstance(inner, Alias):
+            inner = inner.child
+        if not isinstance(inner, AggExpr):
+            raise ValueError(f"expected an aggregation, got {e!r}")
+        s = eval_expression(batch, inner.child)
+        s = s.broadcast(n) if len(s) == 1 and n != 1 else s
+        out_dt = e.to_field(batch.schema).dtype
+        values, validity = s.to_numpy(), s.validity_numpy()
+        vals, valid = grouped_reduce(inner.op, values, validity, group_ids, g,
+                                     inner.params.get("mode", "valid"))
+        if ungrouped and inner.op in ("min", "max") and values.dtype.kind == "f":
+            kept = values[validity]
+            if len(kept) and np.isnan(kept).all():
+                vals = np.full(1, np.nan)
+        vals = np.where(valid, vals, vals.dtype.type(0))
+        out.append(Series.from_numpy(vals.astype(out_dt.to_numpy()), e.name(),
+                                     dtype=out_dt, validity=valid))
+    return out
+
+
+def ungrouped_agg(batch, aggs):
+    """Aggregate the whole batch to one row: every row in one group
+    (counterpart of daft_tpu/core/relational.py ungrouped_agg). With no
+    rows, count is 0 and every other aggregation null."""
+    from ...schema import Schema
+    from ..recordbatch import RecordBatch
+
+    out = _agg_columns(batch, aggs, np.zeros(batch.num_rows, dtype=np.int64), 1,
+                       ungrouped=True)
+    return RecordBatch(Schema([s.field() for s in out]), out, 1)
+
+
 def grouped_agg(batch, groupby, aggs):
     """Group ``batch`` by the ``groupby`` expressions and aggregate: output
     columns are the keys then the aggregations, groups in first-occurrence
     order (counterpart of daft_tpu/core/relational.py grouped_agg)."""
     from ...expressions.eval import eval_expression
-    from ...expressions.expressions import AggExpr, Alias
     from ...schema import Schema
     from ..recordbatch import RecordBatch
-    from ..series import Series
 
     n = batch.num_rows
 
@@ -137,20 +207,7 @@ def grouped_agg(batch, groupby, aggs):
     key_series = [full(eval_expression(batch, e)).rename(e.name()) for e in groupby]
     first_idx, group_ids, _ = make_groups(key_series)
     g = len(first_idx)
-    out = [s.take(first_idx) for s in key_series]
-    for e in aggs:
-        inner = e
-        while isinstance(inner, Alias):
-            inner = inner.child
-        if not isinstance(inner, AggExpr):
-            raise ValueError(f"expected an aggregation, got {e!r}")
-        s = full(eval_expression(batch, inner.child))
-        out_dt = e.to_field(batch.schema).dtype
-        vals, valid = grouped_reduce(inner.op, s.to_numpy(), s.validity_numpy(),
-                                     group_ids, g, inner.params.get("mode", "valid"))
-        vals = np.where(valid, vals, vals.dtype.type(0))
-        out.append(Series.from_numpy(vals.astype(out_dt.to_numpy()), e.name(),
-                                     dtype=out_dt, validity=valid))
+    out = [s.take(first_idx) for s in key_series] + _agg_columns(batch, aggs, group_ids, g)
     return RecordBatch(Schema([s.field() for s in out]), out, g)
 
 

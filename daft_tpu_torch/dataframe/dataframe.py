@@ -1,7 +1,8 @@
 """DataFrame: the lazy user-facing API (counterpart of
 daft_tpu/dataframe/dataframe.py, the subset the port's slices need):
 ``where``, ``select``, ``with_column``, ``join`` (inner), ``repartition``,
-``groupby(...).agg(...)``, ``sort``, ``collect`` and ``to_pydict``.
+``groupby(...).agg(...)``, the ungrouped ``agg`` (and ``sum``, ``mean``,
+``min``, ``max``, ``count``), ``sort``, ``collect`` and ``to_pydict``.
 
 Every method appends a logical node; ``collect`` translates the plan under
 the current execution config and runs it, caching the result partitions.
@@ -106,6 +107,28 @@ class DataFrame:
         return GroupedDataFrame(self, _to_exprs(group_by))
 
     group_by = groupby
+
+    def agg(self, *aggs: Expression) -> "DataFrame":
+        """Aggregate every row into one."""
+        return DataFrame(lp.Aggregate(self._plan, [], _to_exprs(aggs)))
+
+    def sum(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).sum() for c in cols])
+
+    def mean(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).mean() for c in cols])
+
+    def min(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).min() for c in cols])
+
+    def max(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).max() for c in cols])
+
+    def count(self, *cols: ColumnInput) -> "DataFrame":
+        """The row count as column ``count``, or each column's valid count."""
+        if not cols:
+            return self.agg(lit(1).count("all").alias("count"))
+        return self.agg(*[_to_expr(c).count() for c in cols])
 
     def _materialize(self) -> List[MicroPartition]:
         if self._result is None:

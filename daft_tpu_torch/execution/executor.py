@@ -3,7 +3,9 @@ daft_tpu/execution/executor.py, the subset the grouped-aggregation, join and
 repartition slices need).
 
 ``execute_plan`` streams MicroPartitions. Host operators run in numpy. A
-``DeviceGroupedAgg`` runs its stage on the configured device (the reference's
+``DeviceFilterAgg`` runs its ungrouped stage on the configured device
+(``_exec_device_filter_agg``). A ``DeviceGroupedAgg`` runs its stage on the
+configured device (the reference's
 device agg branch, executor.py:580-733, without the mesh, UDF, cost-model and
 coalescer arms): each batch is fed as it arrives and buffered, and when the
 stage raises ``DeviceFallback`` (its group count outgrew the kernels'
@@ -62,9 +64,16 @@ def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
         return
 
     if isinstance(node, pp.HashAggregate):
-        out = _two_phase_agg(_exec(node.input), node.groupby, node.aggregations,
-                             node.input.schema)
+        if node.groupby:
+            out = _two_phase_agg(_exec(node.input), node.groupby, node.aggregations,
+                                 node.input.schema)
+        else:
+            out = _ungrouped_agg(_exec(node.input), node.aggregations, node.input.schema)
         yield MicroPartition(node.schema, [out.cast_to_schema(node.schema)])
+        return
+
+    if isinstance(node, pp.DeviceFilterAgg):
+        yield _exec_device_filter_agg(node)
         return
 
     if isinstance(node, pp.DeviceGroupedAgg):
@@ -137,6 +146,43 @@ def _exec_device_agg(node: pp.DeviceGroupedAgg) -> MicroPartition:
                            key_rows, results)
 
 
+def _exec_device_filter_agg(node: pp.DeviceFilterAgg) -> MicroPartition:
+    """Run a DeviceFilterAgg: the ungrouped device stage over every batch
+    of the input, or the host under device_mode="off". A failure on the
+    device raises: nothing reruns on the host."""
+    from ..config import execution_config
+    from ..device.residency import manager as _residency
+    from ..ops.stage import try_build_filter_agg_stage
+    from ..utils.torch_setup import resolve_device
+
+    cfg = execution_config()
+    stream = _exec(node.input)
+    if cfg.device_mode == "off":
+        if node.predicate is not None:
+            stream = (_filter_part(p, node.predicate) for p in stream)
+        out = _ungrouped_agg(stream, node.aggregations, node.input.schema)
+        return MicroPartition(node.schema, [out.cast_to_schema(node.schema)])
+    device = resolve_device(cfg.device)
+    stage = try_build_filter_agg_stage(node.input.schema, node.predicate, node.aggregations)
+    if stage is None:
+        raise RuntimeError("planner emitted DeviceFilterAgg for a stage the device does "
+                           "not accept")
+    run = stage.start_run(device)
+    with _residency().pin_scope():
+        for part in stream:
+            for b in part.batches:
+                run.feed_batch(b)
+        final = run.finalize()
+    cols = []
+    for name, _agg in stage.aggs:
+        f = node.schema[name]
+        value = final[name]
+        if value is not None and f.dtype.is_boolean():
+            value = bool(value)
+        cols.append(Series.from_pylist([value], f.name, dtype=f.dtype))
+    return MicroPartition(node.schema, [RecordBatch(node.schema, cols, 1)])
+
+
 def _hash_join_batch(node: pp.HashJoin, left: RecordBatch,
                      right: RecordBatch) -> RecordBatch:
     """One left batch inner-joined to the materialized right side."""
@@ -183,7 +229,8 @@ def _exec_device_join_agg(node: pp.DeviceJoinAgg) -> MicroPartition:
             for name, plan in node.dim_plans}
     try:
         with _residency().pin_scope():
-            run = DeviceJoinGroupedRun(stage, _JoinContext(node.spec, dims, device))
+            run = DeviceJoinGroupedRun(stage, _JoinContext(node.spec, dims, device,
+                                                           f32=not stage._use_f64))
             for part in _exec(node.fact):
                 for b in part.batches:
                     run.feed_batch(b)
@@ -385,6 +432,17 @@ def _two_phase_agg(stream, groupby, aggs, in_schema) -> RecordBatch:
     keys = [col(e.name()) for e in groupby]
     combined = grouped_agg(RecordBatch.concat(partials), keys, final)
     return eval_projection(combined, keys + projection)
+
+
+def _ungrouped_agg(stream, aggs, in_schema) -> RecordBatch:
+    """Host ungrouped aggregation of every batch of ``stream`` into one row."""
+    from ..core.kernels.groupby import ungrouped_agg
+
+    batches = [b for part in stream for b in part.batches if b.num_rows > 0]
+    if not batches:
+        return ungrouped_agg(RecordBatch.empty(in_schema), aggs)
+    return ungrouped_agg(batches[0] if len(batches) == 1 else RecordBatch.concat(batches),
+                         aggs)
 
 
 def _full_length(s: Series, n: int) -> Series:

@@ -5,6 +5,8 @@ show which path a query took:
 
 - ``device_grouped_batches``: batches fed through a device grouped stage
   (a star-join run's batches included);
+- ``device_stage_batches``: batches fed through a device ungrouped
+  (filter + aggregate) stage;
 - ``device_join_batches``: fact batches fed through a device star-join run;
 - ``device_stage_runs``: device stage runs finalized;
 - ``device_fallbacks``: device runs that raised DeviceFallback and reran on
@@ -35,11 +37,13 @@ from typing import Dict
 SEGMENT_KERNELS = ("segment_sum_planes", "segment_extreme_planes",
                    "segment_extreme_int64")
 # K4 has two entry points: the table build and the probe; K1a and K5 have no
-# engine caller (nor in the reference), K6 runs the mesh repartition
+# engine caller (nor in the reference), K6 runs the mesh repartition, K7 the
+# grouped stages' float and bool sums
 KERNEL_NAMES = SEGMENT_KERNELS + ("hash_probe_build", "hash_probe_index",
                                   "segment_sum_planes_f32", "hash_probe_segment_sum",
-                                  "ring_permute_words")
-COUNTER_NAMES = ("device_grouped_batches", "device_join_batches", "device_stage_runs",
+                                  "ring_permute_words", "segment_sum_float_planes")
+COUNTER_NAMES = ("device_grouped_batches", "device_stage_batches", "device_join_batches",
+                 "device_stage_runs",
                  "device_fallbacks", "mesh_alltoall_dispatches",
                  "mesh_fused_permute_dispatches", "mesh_alltoall_rows",
                  "mesh_exchange_bytes") + tuple(

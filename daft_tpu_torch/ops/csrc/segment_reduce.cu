@@ -1,5 +1,5 @@
-// Segment-reduce kernels of the grouped-aggregation kernel tier (K1-K3, and
-// the standalone K1a),
+// Segment-reduce kernels of the grouped-aggregation kernel tier (K1-K3, K7,
+// and the standalone K1a),
 // written by hand for Hopper (sm_90a).
 //
 // Each kernel sits behind a plain `extern "C"` launcher that takes raw device
@@ -50,9 +50,11 @@
 //     atomicAdd (K1) or atomicMax (K2, after reading the entry: most rows
 //     lose to it);
 //   - global: caps past one plane's table in a block (cap x 4 > 227 KB, up
-//     to 2^17): uint32 atomics on one code-major table in device memory,
+//     to 2^20): uint32 atomics on one code-major table in device memory,
 //     the lanes of a warp on (row, plane) pairs, plane fastest, so that one
-//     warp instruction's atomics fall on a few adjacent entries.
+//     warp instruction's atomics fall on a few adjacent entries (0.515 ms
+//     for K1's 15 planes and 0.050 for K2 at cap 2^20, chip_smoke.py, same
+//     card).
 //   Each block then writes its table as one partial table, and a second
 //   launch combines the partials per entry (in uint64 for K1) and writes the
 //   f64 sums or the decoded f32 extremes straight into the output. Every
@@ -177,6 +179,54 @@
 //   global atomics was slower than the partial tables (0.080-0.100 ms at cap
 //   16,384 by CUDA events). The cluster tier stays at 14 % of the bound: its
 //   64-bit compare-and-swap on another SM's shared memory costs a round trip.
+//   Past a cluster's tables (cap > 2^17, up to 2^20) the global tier keeps
+//   one table and bitmap in device memory, filled with the identity and
+//   zeros by the launcher, and reduces into them with native 64-bit
+//   atomicMin/Max and 32-bit atomicOr; the second pass decodes it as the one
+//   partial table: 0.111 ms at cap 2^20 (chip_smoke.py, same card; 32 % of
+//   the bound), faster than the cluster tier's 0.225 at 2^17.
+//
+// K7 daft_segment_sum_float_planes
+//   Replaces no Pallas kernel: the reference sums its float "sum" planes
+//   with XLA (daft_tpu/ops/grouped_stage.py: _build's one-hot matmul scan,
+//   f32 chunk products combined in f64; _build_sorted's f64 segmented scan;
+//   _build_local_dense's chunk matmul). A one-hot product at the supplier's
+//   cap would cost 2 x 2^23 x 16,385 x P flops, so the port scatters.
+//   Contract: P planes (each N f32, or each N f64 in a stage that computes
+//   in f64) and N int32 codes into a (cap x P, f64) table, cap <= 2^20,
+//   codes outside [0, cap) dropped. Every value is widened to f64 on load
+//   and added in f64, at least as precise as the reference's f32 chunks;
+//   the order of the adds decides the last bits (the thread tier's are
+//   fixed), so results are held to a summation bound, not bit for bit.
+//   Bound: memory, what the function needs: the codes (4 bytes a row), the
+//   32-byte sectors of the kept rows' planes, the output, at 3.35 TB/s.
+//   Design: the planes by pointer as in K1 (chunks of 64, one launch pair
+//   per chunk), rows as 16-byte vectors (4 floats or 2 doubles) when the
+//   codes and every plane are 16-byte aligned, else one row a thread; a
+//   step whose codes all lie outside [0, cap) loads no plane value (the
+//   padding), and a zero makes no add. Tiers by cap (segment_kernels.py
+//   segment_sum_float_tier), checked here:
+//   - thread, cap <= 32 (TPC-H q1's 4 to 6 groups): 256-thread blocks, each
+//     thread with its own copy of its group's table in shared memory
+//     (entry-major, thread fastest), added to with plain loads and stores:
+//     no atomic, and no two lanes on one word however few the codes. The
+//     block adds its threads' copies in a fixed order. Shared-memory f64
+//     atomicAdd is a compare-and-swap loop on sm_90a, which a few hot
+//     entries would serialise;
+//   - block, while cap x group x 8 bytes fit a block's shared memory (up to
+//     cap 29,056 for one plane): 1024-thread blocks with shared-memory f64
+//     atomics on one table each; at these caps few lanes meet on an entry;
+//   - global, past that (up to 2^20): native f64 atomicAdd straight into
+//     the output, which the wrapper zero-fills.
+//   The thread and block tiers write one partial table per block, and a
+//   second launch adds them per entry in a fixed order into the output.
+//   Measured (chip_smoke.py on an H100 80GB HBM3 at 700.00 W, N = 2^23,
+//   device time under torch.profiler, the share of the bound in brackets):
+//   0.091 ms at q1's cap 8 with 7 f32 planes (66 %; index_add_ 16.3 ms),
+//   0.133 with the same planes in f64 (83 %), 0.124 at the supplier's cap
+//   16,384 with 4 f32 planes (32 %: the codes are read once per plane, and
+//   the shared adds are compare-and-swap loops), 0.123 at cap 2^20 with 2
+//   planes (24 %: global atomics).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -526,31 +576,18 @@ __device__ __forceinline__ void k3_add(unsigned long long* keys, unsigned int* b
   }
 }
 
-// The first pass: every block (CS == 1) or cluster of CS blocks holds one
-// table of `slice` (x CS) entries in shared memory, reduces its share of the
-// rows into it, and writes it out as partial table blockIdx.x / CS. kRows = 4
-// reads 16-byte vectors (vals and codes 16-byte aligned, mask 4-byte
-// aligned), kRows = 1 single rows.
+// Reduce rows [0, n) into a table of encoded keys and a nonempty bitmap:
+// the block's (CS == 1) or its cluster's (CS > 1) in shared memory, or, for
+// the global tier, one table in device memory (CS == 1 again: the same
+// atomics reach it through generic pointers). The grid's threads take the
+// rows in turn. kRows = 4 reads 16-byte vectors (vals and codes 16-byte
+// aligned, mask 4-byte aligned), kRows = 1 single rows.
 template <int CS, bool kMin, bool kWarpAgg, int kRows>
-__global__ void __launch_bounds__(kK3Threads, 1)
-k3_partial_kernel(const long long* __restrict__ vals, const unsigned char* __restrict__ mask,
-                  const int32_t* __restrict__ codes,
-                  unsigned long long* __restrict__ part_keys,
-                  unsigned int* __restrict__ part_bits, long long n, int cap, int slice,
-                  int shift) {
-  extern __shared__ __align__(16) unsigned char k3_smem[];
-  unsigned long long* keys = reinterpret_cast<unsigned long long*>(k3_smem);
-  unsigned int* bits = reinterpret_cast<unsigned int*>(keys + slice);
-  const int words = slice >> 5;
-  const unsigned long long ident = kMin ? ~0ull : 0ull;
-  for (int i = threadIdx.x; i < slice; i += blockDim.x) keys[i] = ident;
-  for (int i = threadIdx.x; i < words; i += blockDim.x) bits[i] = 0u;
-  if constexpr (CS == 1) {
-    __syncthreads();
-  } else {
-    cg::this_cluster().sync();  // every block's table is ready for remote atomics
-  }
-
+__device__ __forceinline__ void k3_scan(unsigned long long* keys, unsigned int* bits, int shift,
+                                        const long long* __restrict__ vals,
+                                        const unsigned char* __restrict__ mask,
+                                        const int32_t* __restrict__ codes, long long n,
+                                        int cap) {
   const int lane = threadIdx.x & 31;
   const long long nthreads = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -603,6 +640,32 @@ k3_partial_kernel(const long long* __restrict__ vals, const unsigned char* __res
                                     : 0ull);
     }
   }
+}
+
+// The first pass: every block (CS == 1) or cluster of CS blocks holds one
+// table of `slice` (x CS) entries in shared memory, reduces its share of the
+// rows into it, and writes it out as partial table blockIdx.x / CS.
+template <int CS, bool kMin, bool kWarpAgg, int kRows>
+__global__ void __launch_bounds__(kK3Threads, 1)
+k3_partial_kernel(const long long* __restrict__ vals, const unsigned char* __restrict__ mask,
+                  const int32_t* __restrict__ codes,
+                  unsigned long long* __restrict__ part_keys,
+                  unsigned int* __restrict__ part_bits, long long n, int cap, int slice,
+                  int shift) {
+  extern __shared__ __align__(16) unsigned char k3_smem[];
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(k3_smem);
+  unsigned int* bits = reinterpret_cast<unsigned int*>(keys + slice);
+  const int words = slice >> 5;
+  const unsigned long long ident = kMin ? ~0ull : 0ull;
+  for (int i = threadIdx.x; i < slice; i += blockDim.x) keys[i] = ident;
+  for (int i = threadIdx.x; i < words; i += blockDim.x) bits[i] = 0u;
+  if constexpr (CS == 1) {
+    __syncthreads();
+  } else {
+    cg::this_cluster().sync();  // every block's table is ready for remote atomics
+  }
+
+  k3_scan<CS, kMin, kWarpAgg, kRows>(keys, bits, shift, vals, mask, codes, n, cap);
 
   if constexpr (CS == 1) {
     __syncthreads();
@@ -616,6 +679,18 @@ k3_partial_kernel(const long long* __restrict__ vals, const unsigned char* __res
   for (int i = threadIdx.x; i < slice; i += blockDim.x) pk[i] = keys[i];
   unsigned int* pb = part_bits + part * (cap_pad >> 5) + static_cast<long long>(rank) * words;
   for (int i = threadIdx.x; i < words; i += blockDim.x) pb[i] = bits[i];
+}
+
+// The global tier's first pass (caps past a cluster's tables, up to 2^20):
+// 64-bit min/max and 32-bit or atomics on one table and bitmap in device
+// memory, which the launcher fills with the identity and zeros; the second
+// pass reads it as the one partial table.
+template <bool kMin, int kRows>
+__global__ void __launch_bounds__(kK3Threads)
+k3_global_kernel(const long long* __restrict__ vals, const unsigned char* __restrict__ mask,
+                 const int32_t* __restrict__ codes, unsigned long long* __restrict__ keys,
+                 unsigned int* __restrict__ bits, long long n, int cap) {
+  k3_scan<1, kMin, false, kRows>(keys, bits, 0, vals, mask, codes, n, cap);
 }
 
 // The second pass: per segment, the extreme over every partial table and
@@ -1005,14 +1080,16 @@ bool plane_tier_ok(int op, int tier, int cap, int nplanes, int group) {
   return static_cast<size_t>(group) * cap * 4 <= kPlaneMaxSmem;
 }
 
+// As many blocks of `threads` threads as fit on the current device at once.
 template <typename Kernel>
-cudaError_t plane_occupancy(Kernel kernel, size_t smem, int* blocks) {
+cudaError_t plane_occupancy(Kernel kernel, size_t smem, int* blocks,
+                            int threads = kPlaneThreads) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
           cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kPlaneThreads,
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
                                                            smem)) != cudaSuccess) {
     return err;
   }
@@ -1042,6 +1119,235 @@ cudaError_t allow_f32_smem() {
   }
   if (dev < kF32MaxDevices) f32_ready[dev] = true;
   return rc;
+}
+
+
+// ---- K7 ------------------------------------------------------------------------
+
+constexpr int kK7Threads = 1024;       // the block and global tiers
+constexpr int kK7ThreadTierThreads = 256;  // the thread tier: a table per thread
+constexpr int kK7TierThread = 0, kK7TierBlock = 1, kK7TierGlobal = 2;
+constexpr size_t kK7MaxSmem = 232448;
+
+// The planes of one chunk (f32 or f64), by value in the kernel's parameters.
+struct K7Ptrs {
+  const void* p[kPlaneChunk];
+};
+
+// R consecutive values of a plane from p (R = 1, or one 16-byte vector: 4
+// floats or 2 doubles), widened to f64.
+template <typename T, int R>
+__device__ __forceinline__ void k7_values(const T* p, double (&v)[R]) {
+  if constexpr (R == 1) {
+    v[0] = static_cast<double>(__ldcs(p));
+  } else if constexpr (sizeof(T) == 4) {
+    const float4 x = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+    const double2 x = __ldcs(reinterpret_cast<const double2*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+  }
+}
+
+// The codes of R consecutive rows (R = 4, 2: one 16- or 8-byte load).
+template <int R>
+__device__ __forceinline__ void k7_codes(const int32_t* c, int (&code)[R]) {
+  if constexpr (R == 4) {
+    const int4 x = __ldg(reinterpret_cast<const int4*>(c));
+    code[0] = x.x;
+    code[1] = x.y;
+    code[2] = x.z;
+    code[3] = x.w;
+  } else if constexpr (R == 2) {
+    const int2 x = __ldg(reinterpret_cast<const int2*>(c));
+    code[0] = x.x;
+    code[1] = x.y;
+  } else {
+    code[0] = __ldg(c);
+  }
+}
+
+// v into entry (plane j of the block's group, code): the thread tier into
+// this thread's own table (entry-major, thread fastest: no two threads
+// share a word, so a plain add), the block tier into the block's table by a
+// shared-memory atomic, the global tier into out by a device-memory atomic
+// (the global tier's group is the whole chunk: j is the chunk's plane).
+template <int kTier>
+__device__ __forceinline__ void k7_add(double* tab, double* out, int j, int code, int cap,
+                                       int out_stride, int out_col, double v) {
+  if constexpr (kTier == kK7TierThread) {
+    tab[(static_cast<long long>(j) * cap + code) * kK7ThreadTierThreads + threadIdx.x] += v;
+  } else if constexpr (kTier == kK7TierBlock) {
+    atomicAdd(tab + j * cap + code, v);
+  } else {
+    atomicAdd(out + static_cast<long long>(code) * out_stride + out_col + j, v);
+  }
+}
+
+// Rows [row0, row0 + R) into planes [j0, j0 + gp): the codes first, and no
+// plane value is loaded when every code lies outside [0, cap) (padding and
+// filtered rows); a zero adds nothing and makes no add.
+template <typename T, int R, int kTier>
+__device__ __forceinline__ void k7_rows(double* tab, double* out, const K7Ptrs& planes, int j0,
+                                        int gp, int cap, int out_stride, int out_col,
+                                        const int32_t* __restrict__ codes, long long row0) {
+  int code[R];
+  k7_codes<R>(codes + row0, code);
+  bool ok[R];
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    ok[r] = static_cast<unsigned>(code[r]) < static_cast<unsigned>(cap);
+    any = any || ok[r];
+  }
+  if (!any) return;
+  for (int j = 0; j < gp; j += kPlaneBatch) {
+    double v[kPlaneBatch][R];
+#pragma unroll
+    for (int u = 0; u < kPlaneBatch; ++u) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[u][r] = 0.0;
+      if (j + u < gp) k7_values<T, R>(static_cast<const T*>(planes.p[j0 + j + u]) + row0, v[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kPlaneBatch; ++u) {
+      if (j + u >= gp) break;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (ok[r] && v[u][r] != 0.0) {
+          k7_add<kTier>(tab, out, j + u, code[r], cap, out_stride, out_col, v[u][r]);
+        }
+      }
+    }
+  }
+}
+
+// The first pass. Block b works for plane group b / per_group (planes
+// [g * group, g * group + gp)) on its share of the rows, R rows a thread a
+// step (R = 16 bytes of a plane when the codes and every plane are 16-byte
+// aligned, else 1). The thread and block tiers then write the block's table
+// as partial table b (group x cap doubles, plane-major); the thread tier
+// first adds its threads' copies of each entry in a fixed order. The global
+// tier has added into out.
+template <typename T, int R, int kTier>
+__global__ void __launch_bounds__(kK7Threads)
+k7_partial_kernel(const __grid_constant__ K7Ptrs planes, const int32_t* __restrict__ codes,
+                  double* __restrict__ part, double* __restrict__ out, long long n, int cap,
+                  int nplanes, int group, int per_group, int out_stride, int out_col) {
+  extern __shared__ __align__(16) double k7_smem[];
+  const int g = blockIdx.x / per_group;
+  const int share = blockIdx.x - g * per_group;
+  const int j0 = g * group;
+  const int gp = min(group, nplanes - j0);
+  const int entries = gp * cap;
+  if constexpr (kTier != kK7TierGlobal) {
+    const int words = kTier == kK7TierThread ? entries * kK7ThreadTierThreads : entries;
+    for (int i = threadIdx.x; i < words; i += blockDim.x) k7_smem[i] = 0.0;
+    __syncthreads();
+  }
+  const long long nthreads = static_cast<long long>(per_group) * blockDim.x;
+  const long long tid = static_cast<long long>(share) * blockDim.x + threadIdx.x;
+  const long long nv = n / R;
+  for (long long q = tid; q < nv; q += nthreads) {
+    k7_rows<T, R, kTier>(k7_smem, out, planes, j0, gp, cap, out_stride, out_col, codes, q * R);
+  }
+  // the last n % R rows: the group's first threads
+  if (tid < n - nv * R) {
+    k7_rows<T, 1, kTier>(k7_smem, out, planes, j0, gp, cap, out_stride, out_col, codes,
+                         nv * R + tid);
+  }
+  if constexpr (kTier != kK7TierGlobal) {
+    __syncthreads();
+    double* dst = part + static_cast<long long>(blockIdx.x) * group * cap;
+    if constexpr (kTier == kK7TierBlock) {
+      for (int i = threadIdx.x; i < entries; i += blockDim.x) dst[i] = k7_smem[i];
+    } else {
+      // warp w takes entries w, w + warps, ...: lane l adds copies l, l +
+      // 32, ..., then the lanes combine in a fixed tree
+      const int lane = threadIdx.x & 31;
+      const int warps = blockDim.x >> 5;
+      for (int i = threadIdx.x >> 5; i < entries; i += warps) {
+        const double* copies = k7_smem + static_cast<long long>(i) * kK7ThreadTierThreads;
+        double s = 0.0;
+        for (int t = lane; t < kK7ThreadTierThreads; t += 32) s += copies[t];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(kFullWarp, s, o);
+        if (lane == 0) dst[i] = s;
+      }
+    }
+  }
+}
+
+// The second pass of the thread and block tiers: entry e = j * cap + c of
+// the chunk (plane j, segment c), the sum of the per_group partial tables of
+// plane j's group in a fixed order (warp w takes tables w, w + 8, ..., then
+// warp 0 adds the warps' sums in turn), written to out[c * out_stride +
+// out_col + j]. A block takes 32 entries.
+__global__ void __launch_bounds__(32 * kPlaneReduceWarps)
+k7_merge_kernel(const double* __restrict__ part, int cap, int nplanes, int group, int per_group,
+                double* __restrict__ out, int out_stride, int out_col) {
+  __shared__ double acc_s[kPlaneReduceWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long e = static_cast<long long>(blockIdx.x) * 32 + lane;
+  const bool in = e < static_cast<long long>(nplanes) * cap;
+  const int j = in ? static_cast<int>(e / cap) : 0;
+  const int c = static_cast<int>(e - static_cast<long long>(j) * cap);
+  double acc = 0.0;
+  if (in) {
+    const int g = j / group;
+    const double* src =
+        part + (static_cast<long long>(g) * per_group * group + (j - g * group)) * cap + c;
+    const long long table = static_cast<long long>(group) * cap;
+    for (int p = warp; p < per_group; p += kPlaneReduceWarps) acc += src[p * table];
+  }
+  acc_s[warp][lane] = acc;
+  __syncthreads();
+  if (warp != 0 || !in) return;
+  for (int w = 1; w < kPlaneReduceWarps; ++w) acc += acc_s[w][lane];
+  out[static_cast<long long>(c) * out_stride + out_col + j] = acc;
+}
+
+using K7Kernel = void (*)(K7Ptrs, const int32_t*, double*, double*, long long, int, int, int,
+                          int, int, int);
+
+template <typename T, int R>
+K7Kernel k7_variant(int tier) {
+  if (tier == kK7TierThread) return k7_partial_kernel<T, R, kK7TierThread>;
+  if (tier == kK7TierBlock) return k7_partial_kernel<T, R, kK7TierBlock>;
+  return k7_partial_kernel<T, R, kK7TierGlobal>;
+}
+
+// The first pass's kernel: f64 or f32 planes, 16-byte vectors or single rows.
+K7Kernel k7_kernel(int f64, int tier, bool vec) {
+  if (f64) return vec ? k7_variant<double, 2>(tier) : k7_variant<double, 1>(tier);
+  return vec ? k7_variant<float, 4>(tier) : k7_variant<float, 1>(tier);
+}
+
+int k7_threads(int tier) { return tier == kK7TierThread ? kK7ThreadTierThreads : kK7Threads; }
+
+// A block's shared memory at a tier: its table, one copy per thread in the
+// thread tier, none in the global tier.
+size_t k7_smem_bytes(int tier, int cap, int group) {
+  if (tier == kK7TierGlobal) return 0;
+  const size_t table = static_cast<size_t>(group) * cap * 8;
+  return tier == kK7TierThread ? table * kK7ThreadTierThreads : table;
+}
+
+// True for a tier this file takes: a tier in range, 1 to 64 planes, a group
+// of 1 to nplanes planes, the global tier's one group of every plane, the
+// other tiers' tables within a block's shared memory.
+bool k7_tier_ok(int tier, int cap, int nplanes, int group) {
+  if (tier < kK7TierThread || tier > kK7TierGlobal || cap <= 0 || nplanes <= 0 ||
+      nplanes > kPlaneChunk || group <= 0 || group > nplanes) {
+    return false;
+  }
+  if (tier == kK7TierGlobal) return group == nplanes;
+  return k7_smem_bytes(tier, cap, group) <= kK7MaxSmem;
 }
 
 }  // namespace
@@ -1256,6 +1562,117 @@ int daft_segment_extreme_int64(const void* vals, const void* mask, const void* c
         static_cast<const unsigned int*>(part_bits), parts, cap, cap_pad,
         static_cast<long long*>(out), static_cast<unsigned char*>(nonempty));
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3's global tier (caps past a cluster's tables): the grid of its first
+// pass on the current device, as many 1024-thread blocks as fit at once.
+int daft_segment_extreme_int64_global_blocks(int* blocks) {
+  return static_cast<int>(plane_occupancy(k3_global_kernel<true, 4>, 0, blocks, kK3Threads));
+}
+
+// K3's global tier: keys (cap_pad uint64) and bits (cap_pad / 32 uint32) are
+// scratch, filled here with the identity and zeros; out (cap, int64) and
+// nonempty (cap, uint8) are written. Three steps on the stream: the fills,
+// the atomics of `blocks` blocks, then the decode (K3's second pass over
+// one partial table).
+int daft_segment_extreme_int64_global(const void* vals, const void* mask, const void* codes,
+                                      void* keys, void* bits, void* out, void* nonempty,
+                                      long long n, int cap, int cap_pad, int blocks,
+                                      int is_min, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cap <= 0 || cap_pad < cap || cap_pad % 32 != 0 || blocks <= 0 || n < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec = (reinterpret_cast<uintptr_t>(vals) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(codes) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(mask) & 3) == 0;
+  cudaError_t err = cudaMemsetAsync(keys, is_min ? 0xff : 0, static_cast<size_t>(cap_pad) * 8, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(bits, 0, static_cast<size_t>(cap_pad) / 8, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long* v = static_cast<const long long*>(vals);
+  const unsigned char* m = static_cast<const unsigned char*>(mask);
+  const int32_t* c = static_cast<const int32_t*>(codes);
+  unsigned long long* k = static_cast<unsigned long long*>(keys);
+  unsigned int* b = static_cast<unsigned int*>(bits);
+  using K3GlobalKernel = void (*)(const long long*, const unsigned char*, const int32_t*,
+                                  unsigned long long*, unsigned int*, long long, int);
+  const K3GlobalKernel kernel =
+      is_min ? (vec ? k3_global_kernel<true, 4> : k3_global_kernel<true, 1>)
+             : (vec ? k3_global_kernel<false, 4> : k3_global_kernel<false, 1>);
+  kernel<<<blocks, kK3Threads, 0, s>>>(v, m, c, k, b, n, cap);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int reduce_blocks = (cap + 31) / 32;
+  if (is_min) {
+    k3_reduce_kernel<true><<<reduce_blocks, 32 * kK3ReduceWarps, 0, s>>>(
+        k, b, 1, cap, cap_pad, static_cast<long long*>(out),
+        static_cast<unsigned char*>(nonempty));
+  } else {
+    k3_reduce_kernel<false><<<reduce_blocks, 32 * kK3ReduceWarps, 0, s>>>(
+        k, b, 1, cap, cap_pad, static_cast<long long*>(out),
+        static_cast<unsigned char*>(nonempty));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7's first-pass blocks that fit on the current device at once at a tier
+// (0 thread, 1 block, 2 global), for a chunk of nplanes planes (f64 != 0:
+// f64 planes, else f32) in tables of `group` planes; allows the kernel its
+// shared memory there.
+int daft_segment_sum_float_planes_blocks(int f64, int tier, int cap, int nplanes, int group,
+                                         int* blocks) {
+  if (!k7_tier_ok(tier, cap, nplanes, group)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = k7_smem_bytes(tier, cap, group);
+  const K7Kernel kernel = k7_kernel(f64, tier, true);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(plane_occupancy(kernel, smem, blocks, k7_threads(tier)));
+}
+
+// K7 over one chunk of nplanes <= 64 planes (`planes`: a host array of
+// device pointers to n values each, f64 or f32 by `f64`, copied into the
+// kernel's parameters): out (cap x out_stride, f64) gets columns [out_col,
+// out_col + nplanes). `blocks` first-pass blocks in ceil(nplanes / group)
+// groups of equally many. The thread and block tiers write a partial table
+// of group x cap doubles per block into `part` and combine them into out in
+// a second launch; the global tier adds into out, which the caller
+// zero-fills (part unused).
+int daft_segment_sum_float_planes(int f64, const void* const* planes, int nplanes,
+                                  const void* codes, void* part, void* out, long long n, int cap,
+                                  int tier, int group, int blocks, int out_stride, int out_col,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!k7_tier_ok(tier, cap, nplanes, group) || blocks <= 0 || n < 0 || out_col < 0 ||
+      out_col + nplanes > out_stride) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int groups = (nplanes + group - 1) / group;
+  if (blocks % groups != 0) return static_cast<int>(cudaErrorInvalidValue);
+  K7Ptrs ptrs = {};
+  bool vec = (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
+  for (int j = 0; j < nplanes; ++j) {
+    ptrs.p[j] = planes[j];
+    vec = vec && (reinterpret_cast<uintptr_t>(planes[j]) & 15) == 0;
+  }
+  const size_t smem = k7_smem_bytes(tier, cap, group);
+  const K7Kernel kernel = k7_kernel(f64, tier, vec);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per_group = blocks / groups;
+  kernel<<<blocks, k7_threads(tier), smem, s>>>(ptrs, static_cast<const int32_t*>(codes),
+                                                static_cast<double*>(part),
+                                                static_cast<double*>(out), n, cap, nplanes,
+                                                group, per_group, out_stride, out_col);
+  if ((err = cudaGetLastError()) != cudaSuccess || tier == kK7TierGlobal) {
+    return static_cast<int>(err);
+  }
+  const long long entries = static_cast<long long>(nplanes) * cap;
+  k7_merge_kernel<<<static_cast<int>((entries + 31) / 32), 32 * kPlaneReduceWarps, 0, s>>>(
+      static_cast<const double*>(part), cap, nplanes, group, per_group,
+      static_cast<double*>(out), out_stride, out_col);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -211,3 +211,52 @@ def _binop(op: str, lv, lm, rv, rm, fdt=torch.float64) -> DCol:
         valid = (lm & rm) | (lm & lb) | (rm & rb)
         return val, _broadcast_valid(val, valid)
     raise ValueError(f"unsupported device binop {op!r}")
+
+
+# ---- whole-column (ungrouped) aggregation on the device -----------------------------
+
+
+def device_agg(op: str, v: torch.Tensor, m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Aggregate a masked column to one value: (value, valid) 0-d tensors
+    (counterpart of the reference's ``device_agg``, whose XLA reductions
+    become torch's). ``m`` has the values' shape.
+
+    count is int64; a sum accumulates floats in f64 (an f32 stage's values
+    widened) and bools and integers in int64, which wraps mod 2^64 as the
+    reference's does; a mean is the f64 sum over the count. A float min/max
+    takes the host path's terms (``_float_extreme_all``)."""
+    count = m.sum()
+    if op == "count":
+        return count, torch.ones((), dtype=torch.bool, device=v.device)
+    valid = count > 0
+    if op == "sum":
+        if v.dtype.is_floating_point:
+            return torch.where(m, v.to(torch.float64), 0.0).sum(), valid
+        return torch.where(m, v.to(torch.int64), 0).sum(), valid
+    if op == "mean":
+        s = torch.where(m, v.to(torch.float64), 0.0).sum()
+        return s / count.clamp(min=1), valid
+    if op in ("min", "max"):
+        if v.dtype.is_floating_point:
+            return _float_extreme_all(op, v.to(torch.float64), m), valid
+        info = torch.iinfo(torch.int64)
+        w = torch.where(m, v.to(torch.int64), info.max if op == "min" else info.min)
+        return (w.amin() if op == "min" else w.amax()), valid
+    raise ValueError(f"no device agg {op!r}")
+
+
+def _float_extreme_all(op: str, v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """The f64 min/max of the valid values on the host path's terms
+    (core/kernels/groupby.py ``_float_extreme``, and ``_agg_columns`` for
+    the ungrouped all-NaN case): NaN left out of the reduction, then the
+    sign of the first zero row put on a zero result."""
+    ok = m & ~torch.isnan(v)
+    big = float("inf") if op == "min" else float("-inf")
+    w = torch.where(ok, v, big)
+    val = w.amin() if op == "min" else w.amax()
+    zero = ok & (v == 0)
+    rows = torch.arange(v.shape[0], device=v.device)
+    first = torch.where(zero, rows, v.shape[0]).amin().clamp(max=v.shape[0] - 1)
+    val = torch.where((val == 0) & zero.any(), torch.copysign(torch.zeros_like(val), v[first]),
+                      val)
+    return torch.where(m.any() & ~ok.any(), float("nan"), val)

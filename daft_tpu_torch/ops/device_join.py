@@ -37,8 +37,11 @@ The port gathers each dim plane in its own dtype (int64 dim values stay
 exact without the reference's f32 digit split, which its TPU needed for lane
 padding and index-count-bound gathers). Dim filters are evaluated on the
 host (dims are small) and uploaded once per query shape. Left out: the
-group-sorted (``perm``) and local-dense branches, the TopN run, the
-ungrouped run and the cost-model arm.
+group-sorted (``perm``) and local-dense branches (the reference keeps its
+one-hot matmuls narrow with them; the port's kernels take the group codes in
+place at every cap up to ``max_segments``), the TopN run, the ungrouped run
+and the cost-model arm. A stage with a float min/max computes in f64: its
+fact and dim float columns upload, and gather, in f64.
 
 Fallback: a shape this module cannot prove safe returns None at capture;
 at run time non-unique or non-integer dim keys, a dim key equal to the probe
@@ -395,11 +398,14 @@ class _JoinContext:
     one run of a DeviceJoinAgg."""
 
     def __init__(self, spec: JoinAggSpec, dim_batches: Dict[str, object],
-                 device: torch.device):
+                 device: torch.device, f32: bool):
         self.spec = spec
         self.dims = spec.dims
         self.batches = dim_batches              # dim name -> RecordBatch (base rows)
         self.device = device
+        # float columns upload as f32, or as f64 for a stage computed in f64
+        # (a float min/max); dim planes gather in the dtype they upload in
+        self.f32 = f32
         self.syn_series: Dict[str, Dict[str, object]] = {
             d.name: {name: self._cached_syn(dim_batches[d.name], name, expr)
                      for name, expr in d.synthetic}
@@ -592,7 +598,7 @@ class _JoinContext:
         b = self.batches[d.name]
         cap_d = pad_bucket(b.num_rows)
         planes = {c: self._dim_source(d.name, c).to_device_cached(
-                      cap_d, f32=True, device=self.device) for c in vals[d.name]}
+                      cap_d, f32=self.f32, device=self.device) for c in vals[d.name]}
         code_planes = {}
         for c in codes[d.name]:
             src = self._dim_source(d.name, c)
@@ -638,7 +644,8 @@ class _JoinContext:
                       for d in sub if d.parent[0] != "fact")
         skels, lits = exprs_structure([f for d in sub for f in d.filters])
         key = ("space", tuple(my_vals), tuple(my_codes),
-               tuple((d.key_col,) + d.parent for d in sub), skels, str(self.device))
+               tuple((d.key_col,) + d.parent for d in sub), skels, self.f32,
+               str(self.device))
         return manager().get_or_build(self.batches[adj.name].get_column(adj.key_col), key,
                                       lambda: self._build_space(adj, vals, codes),
                                       deps, lits)
@@ -692,7 +699,7 @@ class _JoinContext:
                 dcols[name] = self._fact_membership_plane(batch, bucket, name)
             else:
                 dcols[name] = batch.get_column(name).to_device_cached(
-                    bucket, f32=True, device=self.device)
+                    bucket, f32=self.f32, device=self.device)
         dcols["__join_ok__"] = (ok_total, torch.ones_like(ok_total))
         return dcols, code_out
 

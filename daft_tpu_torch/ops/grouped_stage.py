@@ -9,21 +9,28 @@ reduced by the segment kernels of ops/segment_kernels.py:
 - K1 ``segment_sum_planes`` sums the integer-valued planes: the kept-row
   count, one valid-count plane per aggregation, and 8-bit digit planes of
   integer sums (``_isum_digit``; the host recombines them in uint64);
+- K7 ``segment_sum_float_planes`` sums the float and bool "sum" planes
+  (and, in a stage computed in f64, every sum) in f64;
 - K2 ``segment_extreme_planes`` takes the per-group minimum of the local
   first-row index (group order = first occurrence, as on the host);
-  both take their planes as a list, so no (N, P) stack is built;
-- K3 ``segment_extreme_int64`` takes exact integer and date minima/maxima.
+  all three take their planes as a list, so no (N, P) stack is built;
+- K3 ``segment_extreme_int64`` takes exact integer and date minima/maxima,
+  and float ones on an order-preserving int64 key of the f64 bits
+  (``_float_extreme``).
 
 The output contract is the reference's ``{"mm", "ext", "sct"}`` dict, so
 ``finalize`` and ``results_from_tables`` merge exactly as the reference does.
 
-The port has only this tier so far (the matmul, sort and local-dense tiers
-are later work): a stage that ``_kernel_eligible`` refuses, or any stage under
-``kernel_mode="off"``, is not built (``try_build_grouped_agg_stage`` returns
-None and records why), so it plans to the host. A kernel that fails to build
-or launch raises; nothing falls back behind the caller's back. A run whose
-group count outgrows the kernels' segment ceiling raises ``DeviceFallback``
-before any launch, and the executor reruns the stage on the host.
+A stage with a float min/max computes in f64, as the reference's does, so
+its extremes are exact; the others compute in f32 and sum in f64. The
+kernels take group codes in place up to ``MAX_SORT_SEGMENTS`` (2^20)
+groups, where the reference switches from one-hot matmuls to a sort: the
+port has no matmul, sort or local-dense tier. Under ``kernel_mode="off"``
+no stage is built (``try_build_grouped_agg_stage`` returns None and records
+why), so the aggregation plans to the host. A kernel that fails to build or
+launch raises; nothing falls back behind the caller's back. A run whose
+group count outgrows the ceiling raises ``DeviceFallback`` before any
+launch, and the executor reruns the stage on the host.
 
 Like the reference, the stage (immutable, cached by structure) is separate
 from per-run state (``GroupedAggRun``), so a failed run cannot leak into the
@@ -38,6 +45,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.kernels.groupby import extreme_replaces
 from ..expressions.expressions import AggExpr, Alias, ColumnRef, Expression
 from ..schema import Schema
 from . import counters
@@ -46,6 +54,12 @@ from . import segment_kernels as sk
 from .stage import device_row_mask, pad_bucket
 
 _MIN_GROUP_CAP = 8
+# the grouped stage's group ceiling: the reference's sort tier's, which the
+# port's kernels reach with their tables in device memory
+MAX_SORT_SEGMENTS = sk.KERNEL_MAX_SEGMENTS
+# the low 63 bits of an int64: flipped on negative f64 bits for an
+# order-preserving key
+_F64_LOW63 = 0x7FFF_FFFF_FFFF_FFFF
 
 
 class DeviceFallback(Exception):
@@ -128,6 +142,32 @@ def _isum_digit(v: torch.Tensor, kind: str) -> torch.Tensor:
     return ((u >> (8 * k)) & 255).to(torch.float32)
 
 
+def _f64_order_key(bits: torch.Tensor) -> torch.Tensor:
+    """The int64 key of f64 bits (viewed as int64) whose signed order is the
+    floats' order: a negative float's low 63 bits flipped. Its own inverse."""
+    return bits ^ ((bits >> 63) & _F64_LOW63)
+
+
+def _float_extreme(v: torch.Tensor, mask: torch.Tensor, seg: torch.Tensor, cap: int,
+                   op: str) -> torch.Tensor:
+    """Exact f64 min/max of a float plane per segment through K3, on the
+    host path's terms (core/kernels/groupby.py ``_float_extreme``): NaN rows
+    are left out of K3's mask, -0.0 folds into +0.0 for the key, and a
+    second K3 launch finds each segment's first zero row, whose sign a zero
+    result takes."""
+    v = v.to(torch.float64)
+    folded = v + 0.0
+    ok = mask & ~torch.isnan(v)
+    key = _f64_order_key(folded.view(torch.int64))
+    kv, nonempty = sk.segment_extreme_int64(key.contiguous(), ok.contiguous(), seg, cap, op)
+    val = _f64_order_key(kv).view(torch.float64)
+    val = torch.where(nonempty, val, float("inf") if op == "min" else float("-inf"))
+    rows = torch.arange(v.shape[0], dtype=torch.int64, device=v.device)
+    first, has_zero = sk.segment_extreme_int64(rows, ok & (folded == 0), seg, cap, "min")
+    zero_sign = torch.copysign(torch.zeros_like(val), v[first.clamp(0, v.shape[0] - 1)])
+    return torch.where((val == 0) & has_zero, zero_sign, val)
+
+
 def cached_dict_code_plane(src, codes: np.ndarray, rows: int, bucket: int,
                            device: torch.device) -> torch.Tensor:
     """Device plane of dictionary codes padded to ``bucket`` (padding rows
@@ -177,8 +217,8 @@ class GroupedAggStage:
         self.dict_keys = all(isinstance(g, ColumnRef) or
                              (isinstance(g, Alias) and isinstance(g.child, ColumnRef))
                              for g in groupby)
-        # float min/max must be exact: the reference runs such stages wholly
-        # in f64 on its XLA tiers, which the kernel tier does not serve
+        # float min/max must be exact: the stage runs wholly in f64, as the
+        # reference's does
         self._use_f64 = any(
             agg.op in ("min", "max")
             and agg.child.to_field(schema).dtype.is_floating()
@@ -191,15 +231,17 @@ class GroupedAggStage:
         mm plane 0 is always the kept-row count ("rows"): it decides group
         existence and serves count(mode=all). Every agg also gets a
         valid-count plane (validity of the result = count > 0). Integer sums
-        become 8-bit digit planes ("isum"); float and bool sums a raw "sum"
-        plane (which the kernel tier refuses). Extremes of <= 32-bit ints,
-        dates and floats are "ext" slots, 64-bit integer extremes "sct"
-        slots; ext slot 0 is the first-row index.
+        become 8-bit digit planes ("isum") for K1; float and bool sums
+        (every sum in an f64 stage) a raw "sum" plane for K7. Extremes of
+        <= 32-bit ints, dates and floats are "ext" slots (the float ones
+        listed in ``_float_ext``), 64-bit integer extremes "sct" slots; ext
+        slot 0 is the first-row index.
         """
         self._mm_specs: List[Tuple[int, str]] = [(-1, "rows")]
         self._ext_specs: List[Tuple[int, str, bool]] = [(-1, "min", True)]  # first-row idx
         self._sct_specs: List[Tuple[int, str]] = []
         self._agg_slots: List[Dict[str, tuple]] = []
+        self._float_ext: List[int] = []
         for i, (_name, agg) in enumerate(self.aggs):
             child_dt = agg.child.to_field(self.schema).dtype
             is_float = child_dt.is_floating()
@@ -225,6 +267,8 @@ class GroupedAggStage:
                         [(i, f"isum{k}:{lo}") for k in range(nd)])
             elif agg.op in ("min", "max"):
                 if is_float or _f64_exact_dtype(child_dt):
+                    if is_float:
+                        self._float_ext.append(len(self._ext_specs))
                     slots[agg.op] = ("ext", len(self._ext_specs))
                     self._ext_specs.append((i, agg.op,
                                             self._use_f64 or not is_float))
@@ -247,20 +291,13 @@ class GroupedAggStage:
     def start_run(self, device: torch.device) -> "GroupedAggRun":
         return GroupedAggRun(self, device)
 
-    def _kernel_eligible(self) -> bool:
-        """Exactness contract of the kernel tier: K1 is exact only for
-        integer-valued planes (rows, counts, digits), so raw float or bool
-        sums and f64 stages (float min/max) are refused. Integer extremes, ext
-        planes and int64 scatter slots alike, are exact through K3."""
-        if self._use_f64:
-            return False
-        for _idx, kind in self._mm_specs:
-            if not (kind in ("rows", "count") or kind.startswith("isum")):
-                return False
-        for _idx, kind in self._sct_specs:
-            if kind not in ("min", "max"):
-                return False
-        return True
+    def sum_routes(self) -> Tuple[List[int], List[int]]:
+        """The mm planes by kernel: (K1's, K7's) indices into ``_mm_specs``.
+        K1 takes the integer-valued planes (rows, counts, digits), which it
+        sums exactly in uint32; K7 the raw "sum" planes in f64."""
+        k1 = [j for j, (_i, kind) in enumerate(self._mm_specs) if kind != "sum"]
+        k7 = [j for j, (_i, kind) in enumerate(self._mm_specs) if kind == "sum"]
+        return k1, k7
 
     def _program_for(self, cap: int) -> Callable:
         with self._lock:
@@ -270,14 +307,13 @@ class GroupedAggStage:
         return prog
 
     def _build_kernel(self, cap: int) -> Callable:
-        """The kernel tier: same output contract as the reference's
-        ``_build_pallas`` ({"mm","ext","sct"}), compute routed through
-        ops/segment_kernels.py. Only built for stages that pass
-        ``_kernel_eligible``, so every K1 plane is integer-valued, and the
-        first-row index rides an f32 plane (exact while bucket < 2^24,
-        checked per call)."""
+        """The stage's program at ``cap``: the output contract of the
+        reference's tiers ({"mm","ext","sct"}), compute routed through
+        ops/segment_kernels.py. Every K1 plane is integer-valued
+        (``sum_routes``), and the first-row index rides an f32 plane (exact
+        while bucket < 2^24, checked per call)."""
         schema = self.schema
-        fdt = torch.float32
+        fdt = torch.float64 if self._use_f64 else torch.float32
         pred_fn = (dev.build_device_expr(self.predicate, schema, float_dtype=fdt)
                    if self.predicate is not None else None)
         child_fns = []
@@ -287,6 +323,8 @@ class GroupedAggStage:
                               count_all))
         mm_specs, ext_specs = self._mm_specs, self._ext_specs
         sct_specs = self._sct_specs
+        k1_cols, k7_cols = self.sum_routes()
+        float_ext = set(self._float_ext)
 
         def stage(cols: Dict[str, dev.DCol], codes: torch.Tensor,
                   row_mask: torch.Tensor, row_offset: int) -> dict:
@@ -312,66 +350,51 @@ class GroupedAggStage:
                 mask = keep if count_all else dev._broadcast_valid(v, m) & keep
                 evaluated.append((v, mask))
 
-            planes = []
+            planes, float_planes = [], []
             for agg_idx, kind in mm_specs:
                 if kind == "rows":
                     planes.append(keep.to(torch.float32))
                 elif kind == "count":
                     planes.append(evaluated[agg_idx][1].to(torch.float32))
-                else:  # isum digit: _kernel_eligible admits nothing else
+                elif kind == "sum":  # float or bool, or any sum of an f64 stage
+                    v, mask = evaluated[agg_idx]
+                    float_planes.append(torch.where(mask, v.to(fdt), 0.0))
+                else:  # isum digit
                     v, mask = evaluated[agg_idx]
                     planes.append(torch.where(mask, _isum_digit(v, kind), 0.0))
-
-            # extreme planes grouped by op for one K2 launch each; the
-            # first-row index (slot 0) rides the min family as a LOCAL f32
-            # arange, and row_offset folds back in f64 after the kernel
-            min_slots, max_slots = [], []
-            min_planes, max_planes = [], []
-            int_ext = []    # (slot, agg_idx, op): exact-int64 extreme family
-            for slot, (agg_idx, op, use_f64) in enumerate(ext_specs):
-                if agg_idx < 0:
-                    v = torch.arange(bucket, dtype=torch.float32, device=device)
-                    mask = keep
-                elif use_f64:
-                    # integer/date extreme: exact through K3
-                    int_ext.append((slot, agg_idx, op))
-                    continue
-                else:
-                    v, mask = evaluated[agg_idx]
-                    v = v.to(torch.float32)
-                big = float("inf") if op == "min" else float("-inf")
-                plane = torch.where(mask, v, big)
-                if op == "min":
-                    min_slots.append(slot)
-                    min_planes.append(plane)
-                else:
-                    max_slots.append(slot)
-                    max_planes.append(plane)
 
             # every plane above is a fresh full-length tensor (an elementwise
             # result, never a broadcast view): the kernels read them in place
             acc_mm = sk.segment_sum_planes(planes, seg, cap)
-            ext_out: List = [None] * len(ext_specs)
-            for op, slots_, planes_ in (("min", min_slots, min_planes),
-                                        ("max", max_slots, max_planes)):
-                if planes_:
-                    red = sk.segment_extreme_planes(planes_, seg, cap, op)
-                    for j, slot in enumerate(slots_):
-                        ext_out[slot] = red[:, j]
-            # slot 0 back to the global f64 index contract (+inf = empty group)
-            r0 = ext_out[0]
-            ext_out[0] = torch.where(torch.isfinite(r0),
-                                     r0.to(torch.float64) + float(row_offset),
-                                     float("inf"))
-            # integer ext planes decode back to the f64 plane contract
-            # (+-inf = empty group); int64 scatter slots keep their native
-            # int64 identity fill
-            for slot, agg_idx, op in int_ext:
+            if float_planes:
+                sums = sk.segment_sum_float_planes(float_planes, seg, cap)
+                table = torch.empty((cap, len(mm_specs)), dtype=torch.float64, device=device)
+                table[:, k1_cols] = acc_mm
+                table[:, k7_cols] = sums
+                acc_mm = table
+
+            # ext slot 0, the first-row index, is K2's min over a LOCAL f32
+            # arange; row_offset folds back in f64 after the kernel (+inf =
+            # empty group)
+            first = torch.where(keep, torch.arange(bucket, dtype=torch.float32, device=device),
+                                float("inf"))
+            r0 = sk.segment_extreme_planes([first], seg, cap, "min")[:, 0]
+            ext_out: List = [torch.where(torch.isfinite(r0),
+                                         r0.to(torch.float64) + float(row_offset),
+                                         float("inf"))]
+            # the other ext slots are exact through K3 and decode to the f64
+            # plane contract (+-inf = empty group): integers and dates as they
+            # are, floats (in the f64 stage) on an order-preserving key
+            for slot, (agg_idx, op, _exact) in enumerate(ext_specs[1:], start=1):
                 v, mask = evaluated[agg_idx]
+                if slot in float_ext:
+                    ext_out.append(_float_extreme(v, mask, seg, cap, op))
+                    continue
                 vals, nonempty = sk.segment_extreme_int64(
                     v.to(torch.int64).contiguous(), mask.contiguous(), seg, cap, op)
                 big = float("inf") if op == "min" else float("-inf")
-                ext_out[slot] = torch.where(nonempty, vals.to(torch.float64), big)
+                ext_out.append(torch.where(nonempty, vals.to(torch.float64), big))
+            # int64 scatter slots keep their native int64 identity fill
             scts = []
             for agg_idx, kind in sct_specs:
                 v, mask = evaluated[agg_idx]
@@ -402,7 +425,7 @@ class GroupedAggRun:
         decode = self._codes_for(batch, n, bucket)
         prog = stage._program_for(decode.cap)
         dcols = {name: batch.get_column(name).to_device_cached(
-                     bucket, f32=True, device=self.device)
+                     bucket, f32=not stage._use_f64, device=self.device)
                  for name in stage._input_cols}
         out = prog(dcols, decode.dcodes, device_row_mask(n, bucket, self.device),
                    self._row_offset)
@@ -426,7 +449,7 @@ class GroupedAggRun:
             total = 1
             for _, _, k in encoded:
                 total *= max(k, 1)
-            if 0 < total <= sk.KERNEL_MAX_SEGMENTS:
+            if 0 < total <= MAX_SORT_SEGMENTS:
                 cap = _pad_groups(total)
                 dcode_cols = [cached_dict_code_plane(s, codes, n, bucket, self.device)
                               for s, (codes, _, _) in zip(key_series, encoded)]
@@ -458,10 +481,10 @@ class GroupedAggRun:
                 if num_groups else []
             cache[gb_key] = (group_ids, num_groups, key_rows)
         cap = _pad_groups(max(num_groups, 1))
-        if cap > sk.KERNEL_MAX_SEGMENTS:
+        if cap > MAX_SORT_SEGMENTS:
             raise DeviceFallback(
-                f"grouped stage has {num_groups} groups > {sk.KERNEL_MAX_SEGMENTS} "
-                "kernel segment ceiling")
+                f"grouped stage has {num_groups} groups > {MAX_SORT_SEGMENTS} "
+                "segment ceiling")
         codes = np.full(bucket, cap, dtype=np.int32)
         codes[:n] = group_ids
         return _Decode(cap=cap, dcodes=torch.from_numpy(codes).to(self.device),
@@ -526,6 +549,11 @@ class GroupedAggRun:
         for slots, mm, exts, scts in zip(slot_maps, mm_parts, ext_parts, sct_parts):
             np.add.at(mm_acc, slots, mm)
             for k, (spec, e) in enumerate(zip(stage._ext_specs, exts)):
+                if k in stage._float_ext:
+                    # a batch's slots are distinct, and batches come in row order
+                    win = extreme_replaces(spec[1], e, ext_acc[k][slots])
+                    ext_acc[k][slots[win]] = e[win]
+                    continue
                 uf = np.minimum if spec[1] == "min" else np.maximum
                 uf.at(ext_acc[k], slots, e.astype(np.float64))
             for k, ((_idx, kind), s) in enumerate(zip(stage._sct_specs, scts)):
@@ -611,7 +639,7 @@ def try_build_grouped_agg_stage(schema: Schema, predicate: Optional[Expression],
                                 groupby: Sequence[Expression],
                                 agg_exprs: Sequence[Expression]) -> Optional[GroupedAggStage]:
     """A device grouped-agg stage when the predicate and every aggregation
-    qualify for the kernel tier, else None (with the reason recorded in
+    are device-evaluable, else None (with the reason recorded in
     ``counters.rejections``), so the aggregation plans to the host.
 
     Group keys are unconstrained beyond being non-aggregate expressions: they
@@ -657,10 +685,6 @@ def try_build_grouped_agg_stage(schema: Schema, predicate: Optional[Expression],
             counters.reject(site, "group key holds an aggregation")
             return None
     stage = GroupedAggStage(schema, predicate, groupby, aggs)
-    if not stage._kernel_eligible():
-        counters.reject(site, "float/bool sum or float min/max: outside the "
-                              "kernel tier's exactness contract")
-        return None
     with _CACHE_LOCK:
         _STAGE_CACHE[key] = stage
     return stage

@@ -1,4 +1,5 @@
-"""Segment-reduce kernels K1-K3 (counterpart of daft_tpu/ops/pallas_kernels.py).
+"""Segment-reduce kernels K1-K3 and K7 (counterpart of
+daft_tpu/ops/pallas_kernels.py, and of the reference's XLA float sums).
 
 The grouped-aggregation inner loop: accumulate value planes into a
 (segments x planes) table keyed by per-row int32 segment codes, with codes
@@ -13,9 +14,12 @@ bound and design) and has a plain PyTorch version beside it:
   one-window f32 case; no engine code calls it, in the port or in the
   reference);
 - ``segment_extreme_planes`` (K2, replaces ``segment_extreme_planes``);
-- ``segment_extreme_int64`` (K3, replaces ``segment_extreme_int64``).
+- ``segment_extreme_int64`` (K3, replaces ``segment_extreme_int64``);
+- ``segment_sum_float_planes`` (K7, replaces the reference's XLA reduction
+  of float "sum" planes in daft_tpu/ops/grouped_stage.py: f32 or f64 planes
+  summed in f64).
 
-K1 and K2 take their planes as a list of 1-D tensors (the rows of a (P, N)
+K1, K2 and K7 take their planes as a list of 1-D tensors (the rows of a (P, N)
 tensor qualify), so the caller never stacks them; K1a keeps the reference's
 (N, P) layout. Their plain versions stack the list and compute as the
 reference does.
@@ -43,9 +47,9 @@ _SOURCE = "segment_reduce.cu"
 # the reference's f32 accumulation window (32 blocks of 1024 rows): the plain
 # K1 sums each window in f32 and combines windows in f64, as the TPU kernel did
 WINDOW_ROWS = 32 * 1024
-# ceiling of the kernel tier's segment count (the reference's
-# PALLAS_MAX_SEGMENTS)
-KERNEL_MAX_SEGMENTS = 1 << 17
+# ceiling of the kernels' segment count: the reference's MAX_SORT_SEGMENTS,
+# reached by K1's, K2's, K3's and K7's tables in device memory
+KERNEL_MAX_SEGMENTS = 1 << 20
 # first-row indices ride an f32 plane: exact only below 2^24 rows per bucket
 MAX_KERNEL_BUCKET = 1 << 24
 
@@ -75,10 +79,22 @@ def _library():
                                                          ctypes.POINTER(i32)]
         lib.daft_segment_extreme_int64.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, i32,
                                                    i32, i32, i32, i32, i32, vp]
+        lib.daft_segment_extreme_int64_global_blocks.argtypes = [ctypes.POINTER(i32)]
+        lib.daft_segment_extreme_int64_global.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, i32,
+                                                          i32, i32, i32, vp]
+        lib.daft_segment_sum_float_planes_blocks.argtypes = [i32, i32, i32, i32, i32,
+                                                             ctypes.POINTER(i32)]
+        lib.daft_segment_sum_float_planes.argtypes = [i32, ctypes.POINTER(vp), i32, vp, vp,
+                                                      vp, ll, i32, i32, i32, i32, i32, i32,
+                                                      vp]
         for fn in (lib.daft_segment_planes_blocks, lib.daft_segment_planes,
                    lib.daft_segment_sum_planes_f32_parts, lib.daft_segment_sum_planes_f32,
                    lib.daft_segment_extreme_int64_parts,
-                   lib.daft_segment_extreme_int64):
+                   lib.daft_segment_extreme_int64,
+                   lib.daft_segment_extreme_int64_global_blocks,
+                   lib.daft_segment_extreme_int64_global,
+                   lib.daft_segment_sum_float_planes_blocks,
+                   lib.daft_segment_sum_float_planes):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -200,8 +216,9 @@ def _plane_plan(device: int, op: int, cap: int,
     return plan
 
 
-def _check_planes(planes, codes: torch.Tensor, name: str) -> int:
-    """Check a plane list against the codes (each plane 1-D, f32,
+def _check_planes(planes, codes: torch.Tensor, name: str,
+                  dtype: torch.dtype = torch.float32) -> int:
+    """Check a plane list against the codes (each plane 1-D, of ``dtype``,
     contiguous, as long as the codes and on their device); returns the row
     count. The loop reads only cheap attributes: at q12's shapes the
     wrapper's host time is about the kernels' own."""
@@ -211,11 +228,11 @@ def _check_planes(planes, codes: torch.Tensor, name: str) -> int:
     if not planes:
         raise ValueError(f"{name}: no planes")
     _check(codes, "codes", torch.int32, 1)
-    n, dev, f32 = codes.shape[0], codes.device, torch.float32
+    n, dev = codes.shape[0], codes.device
     for j, t in enumerate(planes):
-        if (t.dtype is not f32 or t.ndim != 1 or t.numel() != n or t.device != dev
+        if (t.dtype is not dtype or t.ndim != 1 or t.numel() != n or t.device != dev
                 or not t.is_contiguous()):
-            _check(t, f"plane {j}", f32, 1)
+            _check(t, f"plane {j}", dtype, 1)
             if t.device != dev:
                 raise ValueError(f"{name}: plane {j} on {t.device}, codes on {dev}")
             raise ValueError(f"{name}: plane {j} has {t.shape[0]} rows, codes {n}")
@@ -427,10 +444,12 @@ def segment_extreme_planes_plain(planes: Sequence[torch.Tensor], codes: torch.Te
 
 
 class K3Tier(NamedTuple):
-    """How K3 lays out its shared-memory table (ops/csrc/segment_reduce.cu)."""
+    """How K3 lays out its table (ops/csrc/segment_reduce.cu)."""
 
-    cluster: int     # blocks that share one table (a thread block cluster)
-    slice: int       # table entries each block holds
+    cluster: int     # blocks that share one shared-memory table (a thread
+                     # block cluster); 0: the global tier, one table in
+                     # device memory
+    slice: int       # table entries each block holds (global tier: all)
     warp_agg: bool   # lanes with equal codes reduce in the warp first
 
 
@@ -441,6 +460,8 @@ K3_BLOCK_SLICE_MAX = 24576
 K3_CLUSTER_SLICE = 16384
 # caps this small put every warp's rows on a few addresses: pre-aggregate
 K3_WARP_AGG_MAX_CAP = 16
+# the largest cluster; past its tables the global tier takes over
+K3_MAX_CLUSTER = 8
 
 _k3_parts: Dict[Tuple[int, K3Tier], int] = {}
 
@@ -448,12 +469,15 @@ _k3_parts: Dict[Tuple[int, K3Tier], int] = {}
 def segment_extreme_int64_tier(cap: int) -> K3Tier:
     """K3's tier at ``cap``: one table per block while a block's shared
     memory holds cap entries, else one table split across a cluster of the
-    fewest blocks (2, 4 or 8) that hold it; warp pre-aggregation for caps up
-    to K3_WARP_AGG_MAX_CAP."""
+    fewest blocks (2, 4 or 8) that hold it, else (cap > 2^17) one table in
+    device memory (cluster 0); warp pre-aggregation for caps up to
+    K3_WARP_AGG_MAX_CAP."""
     if not 0 < cap <= KERNEL_MAX_SEGMENTS:
         raise ValueError(f"K3 takes 1 to {KERNEL_MAX_SEGMENTS} segments, got {cap}")
     if cap <= K3_BLOCK_SLICE_MAX:
         return K3Tier(1, -(-cap // 32) * 32, cap <= K3_WARP_AGG_MAX_CAP)
+    if cap > K3_MAX_CLUSTER * K3_CLUSTER_SLICE:
+        return K3Tier(0, -(-cap // 32) * 32, False)
     cluster = 2
     while cluster * K3_CLUSTER_SLICE < cap:
         cluster *= 2
@@ -462,12 +486,16 @@ def segment_extreme_int64_tier(cap: int) -> K3Tier:
 
 def _k3_partial_tables(device: torch.device, tier: K3Tier) -> int:
     """How many partial tables K3's first launch writes at ``tier`` (as many
-    blocks or clusters as fit on the card at once), cached per device."""
-    key = (device.index, tier)
+    blocks or clusters as fit on the card at once; the global tier's grid,
+    which writes one table), cached per device."""
+    key = (device.index, tier if tier.cluster else None)
     if key not in _k3_parts:
         parts = ctypes.c_int(0)
-        rc = _library().daft_segment_extreme_int64_parts(
-            tier.cluster, tier.slice, int(tier.warp_agg), ctypes.byref(parts))
+        if tier.cluster == 0:
+            rc = _library().daft_segment_extreme_int64_global_blocks(ctypes.byref(parts))
+        else:
+            rc = _library().daft_segment_extreme_int64_parts(
+                tier.cluster, tier.slice, int(tier.warp_agg), ctypes.byref(parts))
         if rc != 0:
             raise RuntimeError(f"segment_extreme_int64: no launch fits tier {tier} "
                                f"(CUDA error {rc})")
@@ -502,6 +530,15 @@ def segment_extreme_int64(vals: torch.Tensor, mask: torch.Tensor,
     tier = segment_extreme_int64_tier(cap)
     with torch.cuda.device(dev):
         parts = _k3_partial_tables(dev, tier)
+        if tier.cluster == 0:
+            keys = torch.empty((tier.slice,), dtype=torch.int64, device=dev)
+            bits = torch.empty((tier.slice // 32,), dtype=torch.int32, device=dev)
+            rc = _library().daft_segment_extreme_int64_global(
+                vals.data_ptr(), mask.data_ptr(), codes.data_ptr(), keys.data_ptr(),
+                bits.data_ptr(), out.data_ptr(), nonempty.data_ptr(), n, cap, tier.slice,
+                parts, int(op == "min"), _stream(vals))
+            _launched(rc, "segment_extreme_int64")
+            return out, nonempty
         entries = parts * tier.cluster * tier.slice
         part_keys = torch.empty((entries,), dtype=torch.int64, device=dev)
         part_bits = torch.empty((entries // 32,), dtype=torch.int32, device=dev)
@@ -526,3 +563,125 @@ def segment_extreme_int64_plain(vals: torch.Tensor, mask: torch.Tensor,
     nonempty = torch.zeros((cap + 1,), dtype=torch.bool, device=vals.device)
     nonempty[safe[use]] = True
     return out[:cap].contiguous(), nonempty[:cap].contiguous()
+
+
+# ---- K7 ----------------------------------------------------------------------------
+
+
+class FloatTier(NamedTuple):
+    """How K7 lays out its f64 tables for one chunk of planes
+    (ops/csrc/segment_reduce.cu)."""
+
+    kind: str    # "thread" (a table per thread), "block" (a table per block)
+                 # or "global" (one table in device memory: the output)
+    group: int   # planes per table; the global tier's one table holds all
+
+
+# the thread tier's block: each of its threads keeps its own table
+K7_THREAD_TIER_THREADS = 256
+# caps up to this take the thread tier: few entries, every lane on them
+K7_THREAD_MAX_CAP = 32
+_FLOAT_TIER_IDS = {"thread": 0, "block": 1, "global": 2}
+
+# (device, f64, cap, planes) -> (the call's chunks, scratch doubles)
+_float_plans: Dict[Tuple[int, bool, int, int], Tuple[Tuple[_PlaneChunk, ...], int]] = {}
+
+
+def segment_sum_float_tier(cap: int, nplanes: int) -> FloatTier:
+    """K7's tier for a chunk of ``nplanes`` planes at ``cap``: for caps up to
+    K7_THREAD_MAX_CAP, a table per thread of ``group`` planes (the most whose
+    256 copies fit a block's shared memory); else f64 tables of ``group``
+    planes in a block's shared memory (the most whose cap x group x 8 bytes
+    fit); one table in device memory when a single plane's does not fit."""
+    if not 0 < cap <= KERNEL_MAX_SEGMENTS:
+        raise ValueError(f"K7 takes 1 to {KERNEL_MAX_SEGMENTS} segments, got {cap}")
+    if not 0 < nplanes <= PLANE_CHUNK:
+        raise ValueError(f"a chunk holds 1 to {PLANE_CHUNK} planes, got {nplanes}")
+    if cap <= K7_THREAD_MAX_CAP:
+        per_plane = cap * K7_THREAD_TIER_THREADS * 8
+        return FloatTier("thread", min(nplanes, PLANE_SMEM_MAX // per_plane))
+    fit = PLANE_SMEM_MAX // (cap * 8)
+    if fit == 0:
+        return FloatTier("global", nplanes)
+    return FloatTier("block", min(nplanes, fit))
+
+
+def _float_plan(device: int, f64: bool, cap: int,
+                p: int) -> Tuple[Tuple[_PlaneChunk, ...], int]:
+    """K7's launch pairs for a call on ``p`` planes, one per chunk of
+    PLANE_CHUNK, as ``_plane_plan`` lays out K1's: each chunk's tier and
+    first-pass grid, and the scratch (f64 partial tables) the largest needs;
+    cached per shape."""
+    key = (device, f64, cap, p)
+    plan = _float_plans.get(key)
+    if plan is None:
+        chunks = []
+        for col in range(0, p, PLANE_CHUNK):
+            k = min(PLANE_CHUNK, p - col)
+            tier = segment_sum_float_tier(cap, k)
+            tier_id = _FLOAT_TIER_IDS[tier.kind]
+            fit = ctypes.c_int(0)
+            rc = _library().daft_segment_sum_float_planes_blocks(
+                int(f64), tier_id, cap, k, tier.group, ctypes.byref(fit))
+            if rc != 0:
+                raise RuntimeError(f"segment_sum_float_planes: no launch fits tier {tier} at "
+                                   f"cap {cap} (CUDA error {rc})")
+            groups = -(-k // tier.group)
+            blocks = groups * max(1, fit.value // groups)
+            words = 0 if tier.kind == "global" else blocks * tier.group * cap
+            chunks.append(_PlaneChunk(col, k, tier_id, tier.group, blocks, words))
+        plan = _float_plans[key] = (tuple(chunks), max(c.words for c in chunks))
+    return plan
+
+
+def segment_sum_float_planes(planes: Sequence[torch.Tensor], codes: torch.Tensor,
+                             cap: int) -> torch.Tensor:
+    """Sum P float planes (each N f32, or each N f64; contiguous, one dtype)
+    into segments (cap x P, f64) by codes (N, i32); codes outside [0, cap)
+    are dropped.
+
+    Every value is widened to f64 and added in f64 (ops/csrc/
+    segment_reduce.cu K7). The order of the adds decides the last bits, so
+    a result is held to the worst case of f64 summation, not bit for bit."""
+    dtype = (planes[0].dtype if isinstance(planes, (list, tuple)) and planes
+             else torch.float32)
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"segment_sum_float_planes: planes must be float32 or float64, "
+                        f"got {dtype}")
+    n = _check_planes(planes, codes, "segment_sum_float_planes", dtype)
+    if not _route(codes):
+        counters.bump("plain_segment_sum_float_planes")
+        return segment_sum_float_planes_plain(planes, codes, cap)
+    p, dev = len(planes), codes.device
+    if cap == 0:
+        return torch.empty((0, p), dtype=torch.float64, device=dev)  # no launch
+    f64 = dtype is torch.float64
+    lib = _library()
+    ptrs = [t.data_ptr() for t in planes]
+    with torch.cuda.device(dev):
+        chunks, words = _float_plan(dev.index, f64, cap, p)
+        if chunks[0].tier == _FLOAT_TIER_IDS["global"]:
+            out = torch.zeros((cap, p), dtype=torch.float64, device=dev)
+        else:
+            out = torch.empty((cap, p), dtype=torch.float64, device=dev)
+        part = torch.empty((max(words, 1),), dtype=torch.float64, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for c in chunks:
+            rc = lib.daft_segment_sum_float_planes(
+                int(f64), (ctypes.c_void_p * c.planes)(*ptrs[c.col:c.col + c.planes]),
+                c.planes, codes.data_ptr(), part.data_ptr(), out.data_ptr(), n, cap, c.tier,
+                c.group, c.blocks, p, c.col, stream)
+            _launched(rc, "segment_sum_float_planes")
+    return out
+
+
+def segment_sum_float_planes_plain(planes: Sequence[torch.Tensor], codes: torch.Tensor,
+                                   cap: int) -> torch.Tensor:
+    """Plain K7: the planes stacked to (N x P) in f64, one ``index_add_``
+    into a table with a trash row."""
+    stack = torch.stack([t.double() for t in planes], dim=1)
+    inside = (codes >= 0) & (codes < cap)
+    safe = torch.where(inside, codes, cap).long()
+    out = torch.zeros((cap + 1, stack.shape[1]), dtype=torch.float64, device=stack.device)
+    out.index_add_(0, safe, stack)
+    return out[:cap].contiguous()

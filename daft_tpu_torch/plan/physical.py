@@ -9,12 +9,15 @@ The device decisions made here are the reference's Aggregate captures
 1. the star join: an Aggregate over [Project]* <- [Filter]* <- an inner-join
    tree that ``try_capture_join_agg`` accepts becomes a ``DeviceJoinAgg``,
    which carries the untouched host translation of the same subtree;
-2. the single-Filter peel: an Aggregate with group keys, optionally over one
-   Filter, becomes a ``DeviceGroupedAgg`` when ``try_build_grouped_agg_stage``
-   accepts the (predicate, keys, aggregations).
+2. the single-Filter peel: an Aggregate optionally over one Filter becomes
+   a ``DeviceGroupedAgg`` (with group keys) when ``try_build_grouped_agg_stage``
+   accepts the (predicate, keys, aggregations), or a ``DeviceFilterAgg``
+   (without) when ``try_build_filter_agg_stage`` accepts the (predicate,
+   aggregations).
 
-Otherwise it stays a host ``HashAggregate`` over the translated input. The
-join TopN and fused-region captures are not ported yet.
+Otherwise it stays a host ``HashAggregate`` over the translated input (with
+no group keys, the ungrouped aggregation: one row). The join TopN and
+fused-region captures are not ported yet.
 """
 
 from __future__ import annotations
@@ -78,6 +81,9 @@ class PhysSort(_Unary):
 
 
 class HashAggregate(_Unary):
+    """Host aggregation: grouped by ``groupby``, or, with no keys, ungrouped
+    into one row."""
+
     def __init__(self, input: PhysicalPlan, groupby: List[Expression],
                  aggregations: List[Expression], schema: Schema):
         super().__init__(input, schema)
@@ -96,6 +102,18 @@ class DeviceGroupedAgg(_Unary):
         super().__init__(input, schema)
         self.predicate = predicate
         self.groupby = groupby
+        self.aggregations = aggregations
+
+
+class DeviceFilterAgg(_Unary):
+    """Filter (optional) + ungrouped aggregation as one device stage
+    (ops/stage.py ``FilterAggStage``); the executor runs it on the device,
+    or on the host under device_mode="off"."""
+
+    def __init__(self, input: PhysicalPlan, predicate: Optional[Expression],
+                 aggregations: List[Expression], schema: Schema):
+        super().__init__(input, schema)
+        self.predicate = predicate
         self.aggregations = aggregations
 
 
@@ -171,14 +189,12 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
         return HashJoin(translate(plan.left), translate(plan.right), plan.left_on,
                         plan.right_on, merged, rename, plan.schema)
     if isinstance(plan, lp.Aggregate):
-        if not plan.groupby:
-            raise NotImplementedError(
-                "ungrouped aggregation is not ported yet; group by a key")
         if cfg.device_mode != "off":
             from ..ops.device_join import try_capture_join_agg
             from ..ops.grouped_stage import try_build_grouped_agg_stage
+            from ..ops.stage import try_build_filter_agg_stage
 
-            spec = try_capture_join_agg(plan)
+            spec = try_capture_join_agg(plan) if plan.groupby else None
             if spec is not None:
                 host = HashAggregate(translate(plan.input), plan.groupby,
                                      plan.aggregations, plan.schema)
@@ -190,8 +206,13 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
             src, predicate = plan.input, None
             if isinstance(src, lp.Filter):
                 src, predicate = src.input, src.predicate
-            if try_build_grouped_agg_stage(src.schema, predicate, plan.groupby,
-                                           plan.aggregations) is not None:
+            if not plan.groupby:
+                if try_build_filter_agg_stage(src.schema, predicate,
+                                              plan.aggregations) is not None:
+                    return DeviceFilterAgg(translate(src), predicate, plan.aggregations,
+                                           plan.schema)
+            elif try_build_grouped_agg_stage(src.schema, predicate, plan.groupby,
+                                             plan.aggregations) is not None:
                 return DeviceGroupedAgg(translate(src), predicate, plan.groupby,
                                         plan.aggregations, plan.schema)
         return HashAggregate(translate(plan.input), plan.groupby,

@@ -32,3 +32,58 @@ def test_chip_smoke_alone_fails(tmp_path):
     proc = _run(tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_partkey_kernel_cases_get_the_stages_inputs(monkeypatch):
+    """chip_smoke.py's kernel cases at the partkey cell's shapes feed K1, K2,
+    K3 and K7 what the grouped stage itself passes them for that query (on
+    the CPU, at a small size: 3,000 rows of 200 parts, bucket 4096, cap
+    256), tensor for tensor."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col
+    from daft_tpu_torch.device.residency import manager
+    from daft_tpu_torch.ops import segment_kernels as sk
+
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    n, parts = 3000, 200
+    rng = np.random.default_rng(7)
+    cols = {"l_partkey": rng.permutation(np.arange(n) % parts + 1).astype(np.int64),
+            "l_extendedprice": np.round(rng.uniform(900, 100_000, n), 2),
+            "l_quantity": rng.integers(1, 51, n).astype(np.float64)}
+    seen = {}
+    for name in ("segment_sum_planes", "segment_extreme_planes", "segment_sum_float_planes",
+                 "segment_extreme_int64"):
+        def record(*args, _name=name, _fn=getattr(sk, name)):
+            seen.setdefault(_name, []).append(args)
+            return _fn(*args)
+        monkeypatch.setattr(sk, name, record)
+    manager().clear()
+    df = dt.from_pydict(cols)
+    with dt.execution_config_ctx(device="cpu", device_mode="on"):
+        (df.groupby("l_partkey")
+         .agg(col("l_extendedprice").sum().alias("revenue"),
+              col("l_partkey").count().alias("lines"),
+              col("l_quantity").max().alias("top_qty"))
+         .to_pydict())
+    monkeypatch.setattr(cs, "BUCKET", 4096)
+    monkeypatch.setattr(cs, "PARTKEY_CAP", 256)
+    want = cs.partkey_inputs(cols, torch.device("cpu"))
+
+    def same(a, b):
+        return len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                        for x, y in zip(a, b))
+    ((k1_planes, k1_codes, k1_cap),) = seen["segment_sum_planes"]
+    assert k1_cap == 256 and torch.equal(k1_codes, want["codes"])
+    assert same(k1_planes, want["planes"])
+    ((k2_planes, _c, _cap, k2_op),) = seen["segment_extreme_planes"]
+    assert k2_op == "min" and same(k2_planes, want["first"])
+    ((k7_planes, _c, _cap),) = seen["segment_sum_float_planes"]
+    assert same(k7_planes, want["price"])
+    (key, keep, _c, _cap, op), (rows, zero, _c2, _cap2, op2) = seen["segment_extreme_int64"]
+    assert op == "max" and op2 == "min"
+    assert same([key, keep, rows, zero],
+                [want["qty_key"], want["keep"], want["rows"], want["zero"]])

@@ -1,7 +1,8 @@
-"""The hand-written CUDA kernels (K1-K3 and K1a segment reduce, K4 and K5 hash
-probe, K6 mesh exchange) against their plain PyTorch versions, and one
-grouped query, one star join query and one mesh repartition through them
-against the host path, on the card. Marked ``cuda``: skipped where no card
+"""The hand-written CUDA kernels (K1-K3, K7 and K1a segment reduce, K4 and K5
+hash probe, K6 mesh exchange) against their plain PyTorch versions, and
+grouped queries (integer, float, f64 and 150,000 groups), an ungrouped
+query, one star join query and one mesh repartition through them against
+the host path, on the card. Marked ``cuda``: skipped where no card
 is present.
 
 Run on a machine with the card (tests/conftest.py imports JAX, which that
@@ -13,9 +14,10 @@ Every comparison is bit for bit but two: K1, K1a and K5 sum integer-valued
 planes (exact whatever the atomic order: in f64, and in f32 below 2^24), K2/K3 are
 order-independent extremes, K4's probe answers do not depend on where its
 build placed each key (the table's (key, row) entries are compared as a
-sorted set), and K6 only moves words. K1a and K5 are also held on
-fractional planes within the worst case of f32 (K1a) or f64 (K5) summation
-in another order, each test stating its bound. K4's and K5's cases include keys
+sorted set), and K6 only moves words. K1a, K5 and K7 are also held on
+fractional planes within the worst case of f32 (K1a) or f64 (K5, K7)
+summation in another order, each test stating its bound; K7 on
+integer-valued planes is exact. K4's and K5's cases include keys
 chosen on the host to share one home slot (chains of 1,500 slots, one of
 them wrapping past the last slot), a 4096-slot region of the partitioned
 build given more keys than slots, a table past 2^25 slots (the CAS tier),
@@ -66,6 +68,8 @@ PLANE_CASES = [
     (4099, 256, 3, 0.7), (4099, 8, 3, 0.7), (4099, 1 << 17, 2, 0.7),
     (4096, 256, 3, 0.0), (4096, 8, 3, 0.0), (4096, 1 << 17, 3, 0.0),
     (4096, 8, 1, 1.0), (1, 16, 1, 1.0),
+    # the global table at the segment ceiling, 2^20
+    (1 << 21, 1 << 20, 3, 0.7), (4099, 1 << 20, 2, 0.7),
 ]
 
 
@@ -96,7 +100,7 @@ def test_segment_sum_planes_matches_plain(cuda, n, cap, p, keep):
         assert torch.equal(got, sk.segment_sum_planes_plain([t[1:] for t in tp], tc[1:], cap))
 
 
-@pytest.mark.parametrize("cap", [1, 256, 1 << 17])
+@pytest.mark.parametrize("cap", [1, 256, 1 << 17, 1 << 20])
 def test_segment_sum_planes_exact_at_the_contract_edge(cuda, cap):
     # 2^23 rows of 255 in one segment: 2,139,095,040, past f32's exact
     # integers and near uint32's end, must come out exact in every tier
@@ -145,6 +149,8 @@ def test_segment_extreme_planes_matches_plain(cuda, op, n, cap, q, keep):
     (1 << 18, 40000, 0.6),         # a cluster of 4, the last block's slice part used
     (4099, 256, 0.0),              # every row masked out
     (1, 16, 1.0), (4099, 8, 0.6), (4099, 24576, 0.6),  # n not a multiple of 4
+    (1 << 22, 1 << 20, 0.6),       # past a cluster's tables: the global tier
+    (4099, (1 << 17) + 1, 0.6), (4096, 1 << 20, 0.0),
 ])
 def test_segment_extreme_int64_matches_plain(cuda, op, n, cap, keep):
     rng = np.random.default_rng(cap + n)
@@ -750,3 +756,167 @@ def test_mesh_repartition_on_card_matches_host(cuda):
         assert snap["launches_ring_permute_words"] == launches, snap
         assert snap["mesh_alltoall_dispatches"] == 1 - launches, snap
         assert got == host
+
+
+# K7 by tier (segment_kernels.segment_sum_float_tier): a table per thread at
+# cap 8 with nearly every row kept (TPC-H q1's shape), block tables at the
+# supplier's cap 16,384, the global table at 2^20; f32 and f64 planes; past
+# one 64-plane chunk; n not a multiple of the rows a vector holds; every row
+# trashed
+K7_CASES = [
+    (1 << 22, 8, 7, 0.98, "thread"), (1 << 20, 16384, 4, 0.7, "block"),
+    (1 << 21, 1 << 20, 3, 0.7, "global"), (1 << 18, 32, 70, 0.7, "thread"),
+    (4099, 8, 3, 0.9, "thread"), (4099, 3000, 3, 0.9, "block"),
+    (4099, 1 << 20, 2, 0.9, "global"), (4096, 8, 3, 0.0, "thread"),
+    (4096, 16384, 2, 0.0, "block"), (4096, 1 << 20, 2, 0.0, "global"), (1, 8, 1, 1.0, "thread"),
+]
+
+
+def _f64_order_bound(planes, codes, cap):
+    """The worst case of f64 summation in any order, per entry: each of a
+    segment's n_seg additions rounds by at most 2^-53 of a partial sum, and
+    no partial sum exceeds the sum of |v|."""
+    inside = (codes >= 0) & (codes < cap)
+    idx = torch.where(inside, codes, cap).long()
+    stack = torch.stack([t.double() for t in planes], dim=1)
+    mags = torch.zeros((cap + 1, stack.shape[1]), dtype=torch.float64, device=codes.device)
+    mags.index_add_(0, idx, stack.abs())
+    n_seg = torch.bincount(idx, minlength=cap + 1).double()[:, None]
+    return (n_seg * 2.0 ** -53 * mags)[:cap]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,cap,p,keep,tier", K7_CASES)
+def test_segment_sum_float_planes_tiers_match_plain(cuda, dtype, n, cap, p, keep, tier):
+    assert sk.segment_sum_float_tier(cap, min(p, sk.PLANE_CHUNK)).kind == tier
+    rng = np.random.default_rng(n + cap + p)
+    codes = _kept_codes(rng, n, cap, keep)
+    tc = torch.from_numpy(codes).to(cuda)
+    # integer-valued planes: exact in f64 in any order, so bit for bit
+    ints = torch.from_numpy(rng.integers(-50, 50, (p, n)).astype(np.float64)).to(dtype).to(cuda)
+    before = counters.snapshot()["launches_segment_sum_float_planes"]
+    got = sk.segment_sum_float_planes(list(ints), tc, cap)
+    torch.cuda.synchronize()
+    chunks = -(-p // sk.PLANE_CHUNK)
+    assert counters.snapshot()["launches_segment_sum_float_planes"] == before + chunks
+    assert got.dtype == torch.float64 and got.shape == (cap, p)
+    assert torch.equal(got, sk.segment_sum_float_planes_plain(list(ints), tc, cap))
+    if keep == 0:
+        assert not got.any()
+    # fractional planes of both signs, within the f64 order bound
+    fr = torch.from_numpy(rng.normal(0.0, 100.0, (p, n))).to(dtype).to(cuda)
+    got = sk.segment_sum_float_planes(list(fr), tc, cap)
+    want = sk.segment_sum_float_planes_plain(list(fr), tc, cap)
+    assert bool(((got - want).abs() <= 2 * _f64_order_bound(list(fr), tc, cap)).all())
+    # views one row in: off their 16-byte alignment, the single-row path
+    if n > 1:
+        views = [t[1:] for t in fr]
+        got = sk.segment_sum_float_planes(views, tc[1:], cap)
+        want = sk.segment_sum_float_planes_plain(views, tc[1:], cap)
+        assert bool(((got - want).abs() <= 2 * _f64_order_bound(views, tc[1:], cap)).all())
+
+
+def test_segment_sum_float_planes_refused_launch_raises(cuda, monkeypatch):
+    """A launch the library refuses (a nonzero CUDA error) raises and is
+    not counted: nothing falls back."""
+    planes = [torch.ones(64, device=cuda)]
+    codes = torch.zeros(64, dtype=torch.int32, device=cuda)
+
+    class Refusing:
+        @staticmethod
+        def daft_segment_sum_float_planes_blocks(f64, tier, cap, nplanes, group, blocks):
+            blocks._obj.value = 4
+            return 0
+
+        @staticmethod
+        def daft_segment_sum_float_planes(*args):
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(sk, "_library", Refusing)
+    monkeypatch.setattr(sk, "_float_plans", {})
+    before = counters.snapshot()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sk.segment_sum_float_planes(planes, codes, 5)
+    after = counters.snapshot()
+    assert after["launches_segment_sum_float_planes"] == \
+        before["launches_segment_sum_float_planes"]
+    assert after["plain_segment_sum_float_planes"] == before["plain_segment_sum_float_planes"]
+
+
+def _float_frame(n, groups, seed):
+    import daft_tpu_torch as dt
+
+    rng = np.random.default_rng(seed)
+    x = np.round(rng.uniform(-100, 100, n), 2)
+    x[:6] = [0.0, -0.0, np.nan, -0.0, 0.0, np.nan]
+    return dt.from_pydict({
+        "k": np.concatenate([np.arange(6) % 3, rng.integers(0, groups, n - 6)]),
+        "x": x, "y": rng.uniform(0, 1, n).astype(np.float32),
+        "f": rng.random(n) < 0.4,
+    })
+
+
+@pytest.mark.parametrize("groups", [6, 150_000])
+def test_float_grouped_query_on_card_matches_host(cuda, groups):
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col
+
+    df = _float_frame(400_000, groups, seed=groups)
+
+    def sums():
+        return (df.groupby("k").agg(col("x").sum().alias("sx"), col("y").mean().alias("my"),
+                                    col("f").sum().alias("nf"), col("x").count().alias("n"))
+                .sort("k").to_pydict())
+
+    def extremes():
+        return (df.groupby("k").agg(col("x").min().alias("lo"), col("x").max().alias("hi"),
+                                    col("y").sum().alias("sy"))
+                .sort("k").to_pydict())
+
+    for query, floats, kernels in ((sums, ("sx", "my"), ("segment_sum_float_planes",)),
+                                   (extremes, ("sy",), ("segment_sum_float_planes",
+                                                        "segment_extreme_int64"))):
+        counters.reset()
+        with dt.execution_config_ctx(device="cuda", device_mode="on"):
+            got = query()
+        snap = counters.snapshot()
+        assert all(snap[f"launches_{k}"] > 0 for k in kernels), snap
+        assert snap["device_fallbacks"] == 0
+        with dt.execution_config_ctx(device_mode="off"):
+            want = query()
+        for c in got:
+            if c in floats:
+                # the stage computes in f32 (F3): each value of |x| <= 100 is
+                # off by up to 2^-24 x 100 before the f64 sum, so a group
+                # whose few values cancel to near 0 is held absolutely
+                np.testing.assert_allclose(got[c], want[c], rtol=1e-5, atol=1e-4)
+            elif c in ("lo", "hi"):
+                assert [np.float64(v).tobytes() for v in got[c]] == \
+                       [np.float64(v).tobytes() for v in want[c]], c
+            else:
+                assert got[c] == want[c], c
+
+
+def test_ungrouped_query_on_card_matches_host(cuda):
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col
+
+    df = _float_frame(300_000, 10, seed=3)
+
+    def query():
+        return (df.where(col("y") < 0.5)
+                .agg((col("x") * col("y")).sum().alias("s"), col("x").min().alias("lo"),
+                     col("x").max().alias("hi"), col("f").sum().alias("nf"),
+                     col("x").count().alias("n"))
+                .to_pydict())
+
+    counters.reset()
+    with dt.execution_config_ctx(device="cuda", device_mode="on"):
+        got = query()
+    assert counters.snapshot()["device_stage_batches"] == 1
+    with dt.execution_config_ctx(device_mode="off"):
+        want = query()
+    np.testing.assert_allclose(got["s"], want["s"], rtol=1e-9)
+    assert [np.float64(v).tobytes() for v in got["lo"] + got["hi"]] == \
+           [np.float64(v).tobytes() for v in want["lo"] + want["hi"]]
+    assert got["nf"] == want["nf"] and got["n"] == want["n"]

@@ -76,7 +76,9 @@ def _both_stages(tbl, case):
     with daft_tpu_torch.execution_config_ctx(device="cpu", kernel_mode="on"):
         port = port_gs.try_build_grouped_agg_stage(port_schema, pred, keys, aggs)
     assert ref is not None and port is not None
-    assert ref._pallas_eligible() and port._kernel_eligible()
+    # the reference's Pallas tier serves these stages, and the port sums
+    # every one of their planes in K1, none in K7
+    assert ref._pallas_eligible() and not port.sum_routes()[1]
     assert port._mm_specs == ref._mm_specs
     assert port._ext_specs == ref._ext_specs and port._sct_specs == ref._sct_specs
     batch = ref_df.collect()._result[0].concat_or_empty()
@@ -140,6 +142,9 @@ def _compare_stage_tables(case):
 
 
 def test_kernel_tier_refuses_float_sums_and_float_extremes():
+    # the kernels serve float sums (K7) and float extremes (K3 on an f64
+    # key, in a stage computed in f64); only kernel_mode="off" refuses them,
+    # as it refuses every stage
     schema = daft_tpu_torch.Schema.from_pydict(
         {"k": daft_tpu_torch.DataType.int64(), "x": daft_tpu_torch.DataType.float64()})
     col = daft_tpu_torch.col
@@ -147,13 +152,17 @@ def test_kernel_tier_refuses_float_sums_and_float_extremes():
 
     counters.reset()
     with daft_tpu_torch.execution_config_ctx(device="cpu"):
-        assert port_gs.try_build_grouped_agg_stage(
-            schema, None, [col("k")], [col("x").sum()]) is None
-        assert port_gs.try_build_grouped_agg_stage(
-            schema, None, [col("k")], [col("x").max()]) is None
+        sums = port_gs.try_build_grouped_agg_stage(schema, None, [col("k")],
+                                                   [col("x").sum()])
+        assert sums.sum_routes() == ([0, 1], [2]) and not sums._use_f64
+        top = port_gs.try_build_grouped_agg_stage(schema, None, [col("k")],
+                                                  [col("x").max()])
+        assert top._use_f64 and top._float_ext == [1]
         assert port_gs.try_build_grouped_agg_stage(
             schema, None, [col("k")], [col("x").count()]) is not None
+    assert not counters.rejections
     with daft_tpu_torch.execution_config_ctx(device="cpu", kernel_mode="off"):
-        assert port_gs.try_build_grouped_agg_stage(
-            schema, None, [col("k")], [col("x").count()]) is None
+        for agg in (col("x").sum(), col("x").max(), col("x").count()):
+            assert port_gs.try_build_grouped_agg_stage(schema, None, [col("k")],
+                                                       [agg]) is None
     assert sum(counters.rejections.values()) == 3

@@ -317,24 +317,36 @@ def test_refused_dim_keys_take_the_host_plan(star, keys, why, chained):
 
 
 def test_float_sum_plans_to_the_host_with_the_reason(star):
+    # a float sum over the join runs on the device (K7) and equals the
+    # reference's device join at its tolerance; only under kernel_mode="off"
+    # does it plan to the host, with the reason recorded
     def q(dt, t):
         col = dt.col
         return (t["fact"].join(t["d1"], left_on="f_k1", right_on="d1_k")
                 .groupby("d1_grp").agg(col("f_v").sum().alias("sv")).sort("d1_grp"))
 
     counters.reset()
-    with daft_tpu_torch.execution_config_ctx(device="cpu"):
+    with daft_tpu_torch.execution_config_ctx(device="cpu", kernel_mode="off"):
         plan = pp.translate(q(daft_tpu_torch, star[1])._plan)
     assert [n.name() for n in plan.walk()].count("HashJoin") == 1
     assert not any(isinstance(n, (pp.DeviceJoinAgg, pp.DeviceGroupedAgg))
                    for n in plan.walk())
-    assert any("float/bool sum" in r for r in counters.rejections), counters.rejections
-    with ref_ctx(device_mode="off"):
-        want = q(daft_tpu, star[0]).to_pydict()
+    assert any("kernel_mode is off" in r for r in counters.rejections), counters.rejections
+    with daft_tpu_torch.execution_config_ctx(device="cpu"):
+        plan = pp.translate(q(daft_tpu_torch, star[1])._plan)
+    assert [n.name() for n in plan.walk()].count("DeviceJoinAgg") == 1
+    want = _ref_run(q, star[0])
+    manager().clear()
+    counters.reset()
     got = _port_run(q, star[1])
+    snap = counters.snapshot()
+    assert snap["device_join_batches"] >= 1 and snap["device_fallbacks"] == 0
+    assert snap["plain_segment_sum_float_planes"] >= 1
     assert got["d1_grp"] == want["d1_grp"]
-    np.testing.assert_allclose(got["sv"], want["sv"], rtol=1e-12)
-    assert counters.snapshot()["device_join_batches"] == 0
+    np.testing.assert_allclose(got["sv"], want["sv"], rtol=1e-5)
+    with ref_ctx(device_mode="off"):
+        host = q(daft_tpu, star[0]).to_pydict()
+    np.testing.assert_allclose(got["sv"], host["sv"], rtol=1e-5)
 
 
 def test_host_join_output_matches_reference(star):
@@ -409,3 +421,118 @@ def test_multi_key_join_with_string_and_null_keys_matches_reference(star):
         want = q(daft_tpu, tables[0]).to_pydict()
     assert len(want["f_id"]) > 0
     assert _port_run(q, tables[1], device=False) == want
+
+
+# ---- float sums and f64 stages over the join ----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def wide_star():
+    """A fact joined to a dim of 6,000 rows whose group column has 5,000
+    values: past the reference's 4096-group matmul ceiling, where its join
+    takes the group-sorted local-dense branch."""
+    rng = np.random.default_rng(21)
+    n_fact, n_dim = 30_000, 6_000
+    fk = rng.integers(0, n_dim + 200, n_fact)             # some keys miss
+    fact = pa.table({
+        "f_k": pa.array(fk, pa.int64(), mask=fk % 53 == 0),
+        "f_v": pa.array(np.round(rng.uniform(0, 100, n_fact), 2), mask=rng.random(n_fact) < 0.05),
+        "f_q": pa.array(rng.integers(1, 50, n_fact), pa.int32()),
+    })
+    dim = pa.table({
+        "d_k": pa.array(rng.permutation(n_dim), pa.int64()),
+        "d_grp": pa.array(rng.permutation(n_dim) % 5_000, pa.int64()),
+        "d_w": rng.uniform(-5, 5, n_dim),
+    })
+    return _tables({"fact": fact, "dim": dim})
+
+
+def _check_floats(query, ref_tables, port_tables, floats, exact=(), atol=None):
+    """The port's device join against the reference's device run: keys,
+    counts and ``exact`` columns bit for bit, ``floats`` at the reference's
+    device-vs-host tolerance (rtol 1e-5, plus ``atol[c]`` where a column's
+    terms cancel); and against the port's host path."""
+    atol = atol or {}
+    want = _ref_run(query, ref_tables)
+    manager().clear()
+    counters.reset()
+    got = _port_run(query, port_tables)
+    snap = counters.snapshot()
+    assert snap["device_join_batches"] >= 1 and snap["device_fallbacks"] == 0, \
+        (snap, counters.rejections)
+    assert snap["plain_segment_sum_float_planes"] >= 1
+    host = _port_run(query, port_tables, device=False)
+    for other in (want, host):
+        assert list(got) == list(other)
+        for c in got:
+            if c in floats:
+                np.testing.assert_allclose(np.array(got[c], dtype=float),
+                                           np.array(other[c], dtype=float), rtol=1e-5,
+                                           atol=atol.get(c, 0.0))
+            else:
+                assert got[c] == other[c], c
+    for c in exact:
+        assert [np.float64(v).tobytes() for v in got[c]] == \
+               [np.float64(v).tobytes() for v in want[c]]
+    return got, snap
+
+
+def test_float_sums_past_4096_joined_groups_match_reference(wide_star):
+    def q(dt, t):
+        col = dt.col
+        return (t["fact"].where(col("f_q") < 40)
+                .join(t["dim"], left_on="f_k", right_on="d_k")
+                .groupby("d_grp")
+                .agg(col("f_v").sum().alias("sv"), col("d_w").sum().alias("sw"),
+                     (col("f_v") * col("d_w")).sum().alias("svw"),
+                     col("f_v").mean().alias("mv"), col("f_q").sum().alias("sq"),
+                     col("f_v").count().alias("n"))
+                .sort("d_grp"))
+
+    # f_v * d_w has terms of both signs: an f32 stage rounds each product
+    # (and each input) to f32, about 2e-7 of a term of up to 500, and a
+    # group sums a handful of them, so a total near 0 is held to 1e-3
+    got, _snap = _check_floats(q, *wide_star, floats=("sv", "sw", "svw", "mv"),
+                               atol={"svw": 1e-3})
+    assert len(got["d_grp"]) > 4096
+
+
+def test_f64_join_stage_past_4096_groups_runs_on_the_device(wide_star):
+    # a float max makes the stage f64: the reference's local-dense branch
+    # refuses it (its device run falls back to its host), the port serves it
+    def q(dt, t):
+        col = dt.col
+        return (t["fact"].join(t["dim"], left_on="f_k", right_on="d_k")
+                .groupby("d_grp")
+                .agg(col("f_v").max().alias("top"), col("d_w").min().alias("low"),
+                     col("f_v").sum().alias("sv"))
+                .sort("d_grp"))
+
+    got, snap = _check_floats(q, *wide_star, floats=("sv",), exact=("top", "low"))
+    assert len(got["d_grp"]) > 4096 and snap["plain_segment_extreme_int64"] >= 2
+
+
+def test_float_sum_and_extreme_over_the_q12_join(tpch):
+    # TPC-H's float lineitem columns through the q12 join: an f32 stage for
+    # the sums, then an f64 one with extremes
+    def sums(dt, t):
+        col = dt.col
+        return (t["lineitem"].join(t["orders"], left_on="l_orderkey", right_on="o_orderkey")
+                .groupby("o_orderpriority")
+                .agg(col("l_extendedprice").sum().alias("price"),
+                     (col("l_extendedprice") * (1 - col("l_discount"))).sum().alias("disc"),
+                     col("o_totalprice").sum().alias("total"),
+                     col("l_quantity").count().alias("n"))
+                .sort("o_orderpriority"))
+
+    def extremes(dt, t):
+        col = dt.col
+        return (t["lineitem"].join(t["orders"], left_on="l_orderkey", right_on="o_orderkey")
+                .groupby("o_orderpriority")
+                .agg(col("l_extendedprice").max().alias("top"),
+                     col("o_totalprice").min().alias("low"),
+                     col("l_tax").sum().alias("tax"))
+                .sort("o_orderpriority"))
+
+    _check_floats(sums, *tpch, floats=("price", "disc", "total"))
+    _check_floats(extremes, *tpch, floats=("tax",), exact=("top", "low"))

@@ -21,7 +21,7 @@ from daft_tpu.config import execution_config_ctx as ref_ctx
 from daft_tpu.ops import counters as ref_counters
 from daft_tpu_torch.interop import from_numpy_columns
 from daft_tpu_torch.ops import counters
-from daft_tpu_torch.ops import segment_kernels as sk
+from daft_tpu_torch.ops import grouped_stage as port_gs
 from daft_tpu_torch.plan import physical as pp
 
 CUTOFF = datetime.date(1998, 9, 2)
@@ -171,6 +171,8 @@ def test_projection_under_the_aggregate_matches_reference():
 
 
 def test_float_sum_plans_to_host_and_matches_reference_host():
+    # a float sum runs on the device (K7) by default; under kernel_mode="off"
+    # the port has no device tier for it, so it plans to the host
     def query(m, df):
         col = m.col
         return df.groupby("k").agg(col("x").sum().alias("sx"),
@@ -180,10 +182,13 @@ def test_float_sum_plans_to_host_and_matches_reference_host():
     port_df = _port_df(ref_df)
     counters.reset()
     with daft_tpu_torch.execution_config_ctx(device="cpu", device_mode="on"):
-        plan = pp.translate(query(daft_tpu_torch, port_df)._plan)
-    assert not any(isinstance(n, pp.DeviceGroupedAgg) for n in plan.walk())
-    assert counters.rejections
-    got = _port_run(query, port_df, device=True)
+        assert any(isinstance(n, pp.DeviceGroupedAgg)
+                   for n in pp.translate(query(daft_tpu_torch, port_df)._plan).walk())
+        with daft_tpu_torch.execution_config_ctx(kernel_mode="off"):
+            plan = pp.translate(query(daft_tpu_torch, port_df)._plan)
+            assert not any(isinstance(n, pp.DeviceGroupedAgg) for n in plan.walk())
+            assert counters.rejections
+            got = query(daft_tpu_torch, port_df).to_pydict()
     assert counters.snapshot()["device_grouped_batches"] == 0
     want = _ref_run(query, ref_df, device=False)
     assert got["k"] == want["k"] and got["n"] == want["n"]
@@ -192,8 +197,8 @@ def test_float_sum_plans_to_host_and_matches_reference_host():
 
 
 def test_group_count_past_kernel_ceiling_reruns_on_host(monkeypatch):
-    # a ceiling of 64 segments stands in for 2^17: ~100 groups exceed it
-    monkeypatch.setattr(sk, "KERNEL_MAX_SEGMENTS", 64)
+    # a ceiling of 64 segments stands in for 2^20: ~100 groups exceed it
+    monkeypatch.setattr(port_gs, "MAX_SORT_SEGMENTS", 64)
     tbl = _lineitem(1200, 100, seed=5)
     ref_df = daft_tpu.from_arrow(tbl)
     port_df = _port_df(ref_df)

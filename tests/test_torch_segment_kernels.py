@@ -321,3 +321,55 @@ def test_segment_sum_f32_tier(cap, p, tier):
     for bad_cap, bad_p in ((0, 1), (-1, 1), (8, 0)):
         with pytest.raises(ValueError):
             sk.segment_sum_f32_tier(bad_cap, bad_p)
+
+
+@pytest.mark.parametrize("cap", [(1 << 17) + 1, 200_000, 1 << 18, 1 << 20])
+def test_segment_extreme_int64_global_tier(cap):
+    # past a cluster of 8 tables of 16,384 entries: one table in device
+    # memory, in whole bitmap words
+    got = sk.segment_extreme_int64_tier(cap)
+    assert got.cluster == 0 and not got.warp_agg
+    assert cap <= got.slice < cap + 32 and got.slice % 32 == 0
+    assert cap > sk.K3_MAX_CLUSTER * sk.K3_CLUSTER_SLICE
+
+
+@pytest.mark.parametrize("cap,nplanes,tier", [
+    (1, 7, ("thread", 7)), (8, 7, ("thread", 7)), (8, 64, ("thread", 14)),
+    (32, 7, ("thread", 3)), (33, 7, ("block", 7)), (4096, 4, ("block", 4)),
+    (16384, 4, ("block", 1)), (29056, 1, ("block", 1)), (29057, 1, ("global", 1)),
+    (1 << 18, 3, ("global", 3)), (1 << 20, 64, ("global", 64)),
+])
+def test_segment_sum_float_tier(cap, nplanes, tier):
+    got = sk.segment_sum_float_tier(cap, nplanes)
+    assert tuple(got) == tier
+    if got.kind == "thread":
+        # every thread of the block keeps its own copy of the group's table
+        per_plane = cap * sk.K7_THREAD_TIER_THREADS * 8
+        assert cap <= sk.K7_THREAD_MAX_CAP and got.group * per_plane <= sk.PLANE_SMEM_MAX
+        assert got.group == nplanes or (got.group + 1) * per_plane > sk.PLANE_SMEM_MAX
+    elif got.kind == "block":
+        assert got.group * cap * 8 <= sk.PLANE_SMEM_MAX
+        assert got.group == nplanes or (got.group + 1) * cap * 8 > sk.PLANE_SMEM_MAX
+    else:
+        assert got.group == nplanes and cap * 8 > sk.PLANE_SMEM_MAX
+    for bad_cap, bad_planes in ((0, 1), (sk.KERNEL_MAX_SEGMENTS + 1, 1), (8, 0),
+                                (8, sk.PLANE_CHUNK + 1)):
+        with pytest.raises(ValueError):
+            sk.segment_sum_float_tier(bad_cap, bad_planes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segment_sum_float_planes_plain_counts_and_drops_trash(dtype):
+    rng = np.random.default_rng(12)
+    n, cap = 4099, 40
+    codes = _codes(rng, n, cap)
+    planes = [torch.from_numpy(rng.uniform(-1, 1, n)).to(dtype) for _ in range(5)]
+    before = counters.snapshot()
+    got = sk.segment_sum_float_planes(planes, torch.from_numpy(codes), cap)
+    after = counters.snapshot()
+    assert after["plain_segment_sum_float_planes"] == before["plain_segment_sum_float_planes"] + 1
+    assert after["launches_segment_sum_float_planes"] == before["launches_segment_sum_float_planes"]
+    inside = (codes >= 0) & (codes < cap)
+    for j, p in enumerate(planes):
+        want = np.bincount(codes[inside], weights=p.double().numpy()[inside], minlength=cap)
+        np.testing.assert_allclose(got[:, j].numpy(), want, rtol=1e-12, atol=1e-12)
