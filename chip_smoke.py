@@ -9,7 +9,8 @@ error (no phase catches its own failure):
 1. card:    print the card's name and power limit (nvidia-smi) and
             torch.cuda.get_device_name(0); fail when no card is found;
 2. build:   build the hand-written kernels from ops/csrc (nvcc, one process
-            per source, all started together) and print the build seconds;
+            per source, all started together, with measure/k7_leads.cu, the
+            kernels that only measure) and print the build seconds;
    data:    generate TPC-H lineitem (about 6.0 M rows) and orders (1.5 M
             rows) at SF1 with numpy from a fixed seed, in the value domains
             of benchmarking/tpch/datagen.py (string columns as codes mapped
@@ -43,9 +44,14 @@ error (no phase catches its own failure):
             through the same functions. K6 at the repartition cell's shapes (8 x 8 blocks of
             23 x 2^20 + 4 words). K7 at q1's shapes (cap 8, its seven
             f32 sum planes, about 98 % of the real rows kept), the same in
-            f64, at the supplier's cap with lineitem's four float columns,
-            and at cap 2^20 (l_orderkey folded), within twice the worst
-            case of f64 summation of its plain version; K1, K2 and K3 at
+            f64, at the supplier's cap with lineitem's four float columns
+            (and the same columns by l_suppkey folded into caps 64 and
+            1024: the warp tier and the block tier's one table), and at cap
+            2^20 (l_orderkey folded), within twice the worst case of f64
+            summation of its plain version, its block- and global-tier
+            cases with an atomics floor (their adds at the card's f64
+            atomic rate at the same shape, measured by k7_atomic_rate: the
+            floor of adding each value by an atomic); K1, K2 and K3 at
             cap 2^20 too; K1, K2, K3 and K7 at the partkey cell's own inputs
             (cap 2^18, parts numbered by first row, K7 on
             l_extendedprice in f64, K3 on l_quantity's order-preserving
@@ -60,7 +66,10 @@ error (no phase catches its own failure):
             K1-K3 must show launches, and no stage may fall back. Then the
             warm query time (median of 3) and peak device memory;
 5. profile: one more warm supplier query under torch.profiler, for the
-            device's busy time and idle share and its longest activities;
+            device's busy time and idle share and its longest activities
+            (a capture holding fewer kernel activities than the run counted
+            launches is taken again, up to three times, then reported as
+            not measured; so for every profile below);
 6. q12:     TPC-H q12 (lineitem joined to orders, grouped by ship mode)
             through the port with device="cuda", the counters zeroed just
             before the cold run and read just after it: K4 (build and
@@ -147,10 +156,14 @@ Q1_CAP = 8                # q1's 3 x 2 flag and status codes pad to this capacit
 Q6_FROM, Q6_TO = datetime.date(1994, 1, 1), datetime.date(1995, 1, 1)
 SF1_PARTS = 200_000
 PARTKEY_CAP = 1 << 18     # 200,000 parts pad to this group capacity
+K7_SMALL_CAPS = (64, 1024)  # K7 on the supplier's float columns, l_suppkey folded
 MESH = 8                  # the repartition cell's partitions and shard slots
 SEGMENT_SOURCE = "daft_tpu_torch/ops/csrc/segment_reduce.cu"
 PROBE_SOURCE = "daft_tpu_torch/ops/csrc/hash_probe.cu"
 PERMUTE_SOURCE = "daft_tpu_torch/ops/csrc/ring_permute.cu"
+# kernels that only measure (the card's f64 atomic rate, K7's cluster
+# designs): built from this checkout whatever package --root names
+MEASURE_SOURCE = "measure/k7_leads.cu"
 KERNELS = {  # name -> (source, the TPU kernel or host function it replaces)
     "segment_sum_planes": (SEGMENT_SOURCE, "daft_tpu/ops/pallas_kernels.py:129"),
     "segment_extreme_planes": (SEGMENT_SOURCE, "daft_tpu/ops/pallas_kernels.py:184"),
@@ -561,6 +574,38 @@ def f64_order_bound(planes, codes, cap: int):
     return (n_seg * 2.0 ** -53 * mags)[:cap]
 
 
+K7_RATE_REPS = 8  # adds per code read when the atomic rate is measured
+
+
+def k7_atomic_rate(codes, cap: int, nplanes: int, reps: int = K7_RATE_REPS,
+                   shared: bool = False) -> dict:
+    """The card's rate of f64 atomic adds at one shape (measure/k7_leads.cu
+    ``k7_atomic_rate_kernel``): every code in [0, cap) adds 1.0 to its
+    row's ``nplanes`` entries of a (cap x nplanes) f64 table, ``reps``
+    times (at the code, then at the code shifted by a fixed stride), so the
+    adds spread over a table of K7's size as the codes do while each code is
+    read once: native reductions into device memory (K7's global tier), or
+    with ``shared`` compare-and-swap loops on a table in each block's shared
+    memory (K7's block tier). Device ms under torch.profiler, and adds per
+    second."""
+    import torch
+
+    fn = measure_library().daft_k7_atomic_rate
+    out = torch.zeros(cap * nplanes, dtype=torch.float64, device=codes.device)
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    n = codes.numel()
+
+    def call():
+        rc = fn(codes.data_ptr(), out.data_ptr(), n, cap, nplanes, reps, int(shared), stream)
+        check(rc == 0, f"the atomic rate kernel failed to launch (CUDA error {rc})")
+    kept = int(((codes >= 0) & (codes < cap)).sum())
+    where = "shared" if shared else "device"
+    ms = device_ms(call, 10, f"f64 atomics ({where} memory) cap {cap} P {nplanes} x{reps}")
+    adds = kept * nplanes * reps
+    return {"cap": cap, "planes": nplanes, "reps": reps, "memory": where, "adds": adds,
+            "device_ms": ms, "adds_per_s": None if not ms else adds / (ms / 1e3)}
+
+
 def k7_case(sk, planes, codes, cap: int, label: str) -> dict:
     """K7 on a list of float planes at one shape: within twice the worst
     case of f64 summation of its plain version (both add in an order of
@@ -568,7 +613,11 @@ def k7_case(sk, planes, codes, cap: int, label: str) -> dict:
     kernel's time by CUDA events and on the device, the plain version's,
     ``index_add_``'s on the (N, P) f64 stack (into a table with a trash row;
     the port never calls it), and the bound: what the function needs (the
-    codes, the kept rows' 32-byte sectors of each plane, the f64 output)."""
+    codes, the kept rows' 32-byte sectors of each plane, the f64 output).
+    In the global and block tiers also ``bound_atomics_ms``: the call's
+    nonzero adds at the card's rate of f64 atomics measured at the same
+    shape (k7_atomic_rate), the floor of a design that adds each value by
+    an atomic (not of the function)."""
     import torch
 
     def call():
@@ -602,6 +651,19 @@ def k7_case(sk, planes, codes, cap: int, label: str) -> dict:
         "bound_ms": bound_ms(n * 4 + sectors * 32 * p + cap * p * 8),
         "bound_read_once_ms": bound_ms(n * 4 + n * p * planes[0].element_size() + cap * p * 8),
     }
+    kind, group = result["tier"]
+    if kind in ("global", "block"):
+        # the call's nonzero adds at the card's atomic rate at this shape:
+        # the global tier's into device memory, the block tier's into a
+        # table of its group's planes in shared memory (compare-and-swap
+        # loops). A floor of a design that adds each value by an atomic, not
+        # a bound of the function
+        adds = sum(int((kept & (t != 0)).sum()) for t in planes)
+        rate = k7_atomic_rate(codes, cap, group if kind == "block" else p,
+                              shared=kind == "block")
+        result["atomic_rate"] = rate
+        result["bound_atomics_ms"] = (adds / rate["adds_per_s"] * 1e3 if rate["adds_per_s"]
+                                      else None)
     del got, want, err, stack, idx, table, kept
     return result
 
@@ -790,12 +852,70 @@ def phase_card():
     return card, name
 
 
+_MEASURE = {}
+
+
+def measure_library():
+    """The library of MEASURE_SOURCE (kernels that only measure; no query
+    loads them), built at first use with the package's nvcc flags into
+    measure/_kbuild/ (listed in .gitignore) and loaded. Raises when the
+    build fails."""
+    import ctypes
+    import hashlib
+
+    from daft_tpu_torch.ops import _build
+
+    if "lib" in _MEASURE:
+        return _MEASURE["lib"]
+    src = os.path.join(HERE, MEASURE_SOURCE)
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()
+    out = os.path.join(HERE, "measure", "_kbuild", f"libk7_leads_{digest[:12]}.so")
+    if not os.path.exists(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        check(proc.returncode == 0, f"nvcc failed for {MEASURE_SOURCE}: {proc.stderr}")
+        os.replace(tmp, out)
+        print(f"built {MEASURE_SOURCE}: nvcc {time.perf_counter() - t0:.2f} s")
+    lib = ctypes.CDLL(out)
+    vp, i32, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.daft_k7_atomic_rate.argtypes = [vp, vp, ll, i32, i32, i32, i32, vp]
+    lib.daft_k7_cluster_shape.argtypes = [i32, i32, i32, ctypes.POINTER(i32),
+                                          ctypes.POINTER(i32), ctypes.POINTER(ll)]
+    lib.daft_k7_cluster.argtypes = [i32, ctypes.POINTER(vp), i32, vp, vp, vp, ll, i32, i32, vp]
+    lib.daft_k7_split_blocks.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.daft_k7_split.argtypes = [ctypes.POINTER(vp), i32, vp, vp, vp, ll, i32, i32, i32, i32,
+                                  vp]
+    for fn in (lib.daft_k7_atomic_rate, lib.daft_k7_cluster_shape, lib.daft_k7_cluster,
+               lib.daft_k7_split_blocks, lib.daft_k7_split):
+        fn.restype = i32
+    _MEASURE["lib"] = lib
+    return lib
+
+
 def phase_build(card: str) -> None:
+    import threading
+
     from daft_tpu_torch.ops import _build, permute_kernels, probe_kernels, segment_kernels
 
     phase("build")
     t0 = time.perf_counter()
+    failed = []
+
+    def build_measure():
+        try:
+            measure_library()
+        except (SmokeFailure, RuntimeError, OSError) as exc:  # raised below, on this thread
+            failed.append(exc)
+    side = threading.Thread(target=build_measure)
+    side.start()
     _build.build_all()
+    side.join()
+    if failed:
+        raise failed[0]
     segment_kernels.build()
     probe_kernels.build()
     permute_kernels.build()
@@ -1019,6 +1139,12 @@ def phase_kernels(cols, orders, card: str):
         t[:rows] = torch.from_numpy(cols[name].astype(np.float32))
         floats.append(torch.where(keep, t.to(dev), 0.0))
     k7["at_supplier_cap16384"] = k7_case(sk, floats, codes, CAP, "supplier cap 16384")
+    for small in K7_SMALL_CAPS:  # the warp tier's and the block tier's one-table shapes
+        folded = torch.full((BUCKET,), small, dtype=torch.int32)
+        folded[:rows] = torch.from_numpy(((cols["l_suppkey"] - 1) % small).astype(np.int32))
+        codes_s = torch.where(keep, folded.to(dev), small)
+        k7[f"at_cap{small}"] = k7_case(sk, floats, codes_s, small, f"cap {small}")
+        del folded, codes_s
     folded = torch.full((BUCKET,), MAX_CAP, dtype=torch.int32)
     folded[:rows] = torch.from_numpy(((cols["l_orderkey"] - 1) % MAX_CAP).astype(np.int32))
     codes_max = torch.where(keep, folded.to(dev), MAX_CAP)
@@ -1116,7 +1242,7 @@ def print_cases(results: dict, card: str) -> None:
         for label, sub in r.items():
             if label == "by_column_op":
                 rows += [(f"{kname} {case}", c) for case, c in sub.items()]
-            elif isinstance(sub, dict):
+            elif isinstance(sub, dict) and "max_abs_err" in sub:
                 rows.append((f"{kname} {label}", sub))
     for name, r in rows:
         shape = f" cap {r['cap']}" if "cap" in r else ""
@@ -1130,6 +1256,11 @@ def print_cases(results: dict, card: str) -> None:
         held, by = ((r["device_ms"], "device") if r.get("device_ms")
                     else (r["ms"], "kernel_ms"))
         against = r.get("held", "identical to plain")
+        if r.get("atomic_rate"):
+            rate = r["atomic_rate"]
+            once += (f", bound_atomics_ms {fmt(r['bound_atomics_ms'])} ({rate['adds']} f64 "
+                     f"atomics in {rate['memory']} memory in {fmt(rate['device_ms'])} ms: the "
+                     "floor of adding each value by an atomic)")
         print(f"{name}:{shape}{tier} {against} (max_abs_err {r['max_abs_err']}); "
               f"kernel_ms {fmt(r['ms'])}{dev}, plain_ms {fmt(r['plain_ms'])}, "
               f"library_ms {fmt(r['library_ms'])}, bound_ms {fmt(r['bound_ms'])}{once} "
@@ -1186,32 +1317,79 @@ def phase_slice(cols, card: str):
     return df, launches
 
 
+def port_kernel_names() -> tuple:
+    """The names of the port's own CUDA kernels: every ``__global__``
+    function in the csrc/*.cu of the daft_tpu_torch imported."""
+    import glob
+    import re
+
+    from daft_tpu_torch.ops import _build
+
+    names = set()
+    for path in glob.glob(os.path.join(_build.CSRC, "*.cu")):
+        with open(path) as f:
+            text = re.sub(r"__launch_bounds__\s*\((?:[^()]|\([^()]*\))*\)", "", f.read())
+        names.update(re.findall(r"__global__\s+void\s+(\w+)\s*\(", text))
+    return tuple(sorted(names))
+
+
+def own_activities(events, names) -> int:
+    """How many of the profiler's device activities ran one of ``names``
+    (a demangled key holds the name followed by its template or argument
+    list)."""
+    import re
+
+    pattern = re.compile(r"\b(?:" + "|".join(map(re.escape, names)) + r")[<(]")
+    return sum(e.count for e in events if pattern.search(e.key))
+
+
 def phase_profile(run, card: str, name: str = "profile", **cfg) -> None:
     """One warm device run of ``run()`` under torch.profiler: device busy
     time (the sum of the device activities' own times), the run's wall time
     under the profiler, the idle share, and the device activities that took
-    longest. ``cfg`` adds to the execution config."""
+    longest. ``cfg`` adds to the execution config. The profiler on the card
+    has been seen to lose a run's activities: each kernel launch the run
+    counted (ops/counters.py) makes at least one activity of the port's own
+    kernels (port_kernel_names), so a capture that holds fewer of those is
+    taken again, up to three times; then the phase prints "not measured" in
+    place of a busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import daft_tpu_torch as dt
+    from daft_tpu_torch.ops import counters
 
     phase(name)
-    with dt.execution_config_ctx(device="cuda", device_mode="on", kernel_mode="on", **cfg):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side activities only (kernels, copies): the CPU op that launched
-    # a kernel carries the same device time again
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    check(busy_ms > 0, "the profiled query shows no device time")
+    names = port_kernel_names()
+    for attempt in range(1, 4):
+        with dt.execution_config_ctx(device="cuda", device_mode="on", kernel_mode="on", **cfg):
+            counters.reset()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            snap = counters.snapshot()
+        launches = sum(snap[f"launches_{k}"] for k in counters.KERNEL_NAMES)
+        # device-side activities only (kernels, copies): the CPU op that
+        # launched a kernel carries the same device time again
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        own = own_activities(events, names)
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        if busy_ms > 0 and own >= launches:
+            break
+        print(f"  capture {attempt}: {own} activities of the port's kernels for {launches} "
+              f"counted launches: taken again")
+    else:
+        print(f"warm run under the profiler: wall {wall_ms:.3f} ms, device busy not measured "
+              f"(torch.profiler lost the run's activities three times) [{card}]")
+        sys.stdout.flush()
+        return
     print(f"warm run under the profiler: wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f} [{card}]")
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}; {own} activities of "
+          f"the port's kernels, {launches} counted launches [{card}]")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  device {e.self_device_time_total / 1e3:.4f} ms x{e.count}: {e.key[:90]}")
     sys.stdout.flush()

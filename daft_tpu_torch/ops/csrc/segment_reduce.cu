@@ -196,37 +196,74 @@
 //   in f64) and N int32 codes into a (cap x P, f64) table, cap <= 2^20,
 //   codes outside [0, cap) dropped. Every value is widened to f64 on load
 //   and added in f64, at least as precise as the reference's f32 chunks;
-//   the order of the adds decides the last bits (the thread tier's are
-//   fixed), so results are held to a summation bound, not bit for bit.
-//   Bound: memory, what the function needs: the codes (4 bytes a row), the
-//   32-byte sectors of the kept rows' planes, the output, at 3.35 TB/s.
+//   the order of the adds decides the last bits (the thread and warp tiers'
+//   are fixed), so results are held to a summation bound, not bit for bit.
+//   Bound: memory, what the function needs (the codes, 4 bytes a row; the
+//   32-byte sectors of the kept rows' planes; the output) at 3.35 TB/s. The
+//   tiers that add by atomics also meet a floor of their own: their adds at
+//   the card's rate of f64 atomics at the same shape (measured by
+//   measure/k7_leads.cu, through chip_smoke.py's k7_atomic_rate): about
+//   1.95e11 a second into a shared-memory table at the supplier's spread
+//   (compare-and-swap loops: ATOMS.CAST.SPIN.64 in the SASS), 8.8e10 into
+//   device memory at the partkey cell's 2^18 and 1.07e11 at 2^20 (native
+//   REDG.E.ADD.F64). That floor holds any design that adds each value by
+//   such an atomic, not the function.
 //   Design: the planes by pointer as in K1 (chunks of 64, one launch pair
-//   per chunk), rows as 16-byte vectors (4 floats or 2 doubles) when the
-//   codes and every plane are 16-byte aligned, else one row a thread; a
-//   step whose codes all lie outside [0, cap) loads no plane value (the
-//   padding), and a zero makes no add. Tiers by cap (segment_kernels.py
-//   segment_sum_float_tier), checked here:
-//   - thread, cap <= 32 (TPC-H q1's 4 to 6 groups): 256-thread blocks, each
-//     thread with its own copy of its group's table in shared memory
-//     (entry-major, thread fastest), added to with plain loads and stores:
-//     no atomic, and no two lanes on one word however few the codes. The
-//     block adds its threads' copies in a fixed order. Shared-memory f64
-//     atomicAdd is a compare-and-swap loop on sm_90a, which a few hot
-//     entries would serialise;
-//   - block, while cap x group x 8 bytes fit a block's shared memory (up to
-//     cap 29,056 for one plane): 1024-thread blocks with shared-memory f64
-//     atomics on one table each; at these caps few lanes meet on an entry;
+//   per chunk); a step whose codes all lie outside [0, cap) loads no plane
+//   value (the padding), and a zero makes no add. Tiers by cap and planes
+//   (segment_kernels.py segment_sum_float_tier), checked here:
+//   - thread, cap <= 32 (TPC-H q1's 4 to 6 groups): 256-thread blocks, rows
+//     as 16-byte vectors (4 floats or 2 doubles) when every array is
+//     16-byte aligned, else one row a thread; each thread adds into its own
+//     copy of its group's table in shared memory (entry-major, thread
+//     fastest) with plain loads and stores, and the block adds its copies
+//     in a fixed order;
+//   - warp, while 16 tables of every plane fit beside the smallest ring
+//     (cap <= 131 for 4 planes, 1295 for one): a block per SM of two loader
+//     warps and 16 consumer warps, each consumer with its own table. Tiles
+//     of 2048 rows go through shared memory by cp.async.bulk into rings of
+//     stages that complete on mbarriers: warp 0 keeps the codes of up to 8
+//     tiles in flight, warp 1 reads each tile's codes and loads only the
+//     256-row runs of each plane that hold a kept row into up to 4 plane
+//     stages. A consumer lane takes 4 rows a step; for each of them the
+//     lanes with one code (__match_any_sync) send their values to the
+//     lowest such lane by shuffles, in lane order, and it adds them with
+//     plain loads and stores: no atomic, no compare-and-swap, and a fixed
+//     order;
+//   - block (up to cap 29,056 for one plane): 1024-thread blocks, rows as in
+//     the thread tier, shared-memory f64 atomics on a table of `group`
+//     planes a block (the most whose cap x group x 8 bytes fit), each plane
+//     group's blocks reading every code;
 //   - global, past that (up to 2^20): native f64 atomicAdd straight into
 //     the output, which the wrapper zero-fills.
-//   The thread and block tiers write one partial table per block, and a
-//   second launch adds them per entry in a fixed order into the output.
-//   Measured (chip_smoke.py on an H100 80GB HBM3 at 700.00 W, N = 2^23,
-//   device time under torch.profiler, the share of the bound in brackets):
-//   0.091 ms at q1's cap 8 with 7 f32 planes (66 %; index_add_ 16.3 ms),
-//   0.133 with the same planes in f64 (83 %), 0.124 at the supplier's cap
-//   16,384 with 4 f32 planes (32 %: the codes are read once per plane, and
-//   the shared adds are compare-and-swap loops), 0.123 at cap 2^20 with 2
-//   planes (24 %: global atomics).
+//   The thread, warp and block tiers write one partial table per block, and
+//   a second launch adds them per entry in a fixed order into the output.
+//   Measured (chip_smoke.py and tier_timings.py on an H100 80GB HBM3 at
+//   700.00 W, N = 2^23, device time under torch.profiler; the first design,
+//   timed in the same call, in brackets): 0.092 ms at q1's cap 8 with 7 f32
+//   planes (0.094-0.095; 65 % of the bytes bound), 0.135 with the same
+//   planes in f64 (0.134-0.135); 0.102-0.103 at cap 64 with lineitem's 4
+//   f32 planes in the warp tier (0.157 in the block tier; 38 % of the
+//   bytes bound, under the 0.126 that its adds would take at the shared
+//   atomic rate); the block tier 0.099 at cap 1024 and 0.122 at the
+//   supplier's cap 16,384, at its atomics floor there (0.119) and at 32 %
+//   of the bytes bound; the global tier 0.085-0.088 at the partkey cell's
+//   2^18 with one f64 plane (78-80 % of its floor of 0.068), 0.124-0.125 at
+//   2^20 with 2 planes (88 % of 0.111). Tried and dropped, each slower
+//   where it would serve (tier_timings.py; the two cluster designs and the
+//   split design are in measure/k7_leads.cu): a cluster of a block per
+//   plane group fed by one multicast bulk copy of each tile of codes
+//   (0.116 at cap 1024, 0.173-0.181 at 16,384), the same with each block
+//   holding a code range of every plane, entry-major (0.237-0.240,
+//   0.395-0.399); the block tier with the codes past a split adding into
+//   device memory beside the shared-memory adds (0.113 at best at 16,384,
+//   with two planes a table, and 0.36 at 1024); a partitioned global tier
+//   (records by code range, then a block a range: 0.323 and 0.229 ms at
+//   2^18 and 2^20); the block tier fed by the bulk-copy rings (with shared
+//   atomics, with the lanes of a code combined first, or with rows handed
+//   through per-warp queues to the warp owning their code), 128-bit
+//   compare-and-swap on pairs of planes, and the warp tier with 8, 24 or 30
+//   tables, two blocks an SM, or each code's lanes adding in rounds.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -1173,9 +1210,9 @@ __device__ __forceinline__ void k7_codes(const int32_t* c, int (&code)[R]) {
 
 // v into entry (plane j of the block's group, code): the thread tier into
 // this thread's own table (entry-major, thread fastest: no two threads
-// share a word, so a plain add), the block tier into the block's table by a
-// shared-memory atomic, the global tier into out by a device-memory atomic
-// (the global tier's group is the whole chunk: j is the chunk's plane).
+// share a word, so a plain add); the block tier into the block's table by a
+// shared-memory atomic; the global tier into out by a device-memory atomic.
+// out_col is the group's first column.
 template <int kTier>
 __device__ __forceinline__ void k7_add(double* tab, double* out, int j, int code, int cap,
                                        int out_stride, int out_col, double v) {
@@ -1194,7 +1231,8 @@ __device__ __forceinline__ void k7_add(double* tab, double* out, int j, int code
 template <typename T, int R, int kTier>
 __device__ __forceinline__ void k7_rows(double* tab, double* out, const K7Ptrs& planes, int j0,
                                         int gp, int cap, int out_stride, int out_col,
-                                        const int32_t* __restrict__ codes, long long row0) {
+                                        const int32_t* __restrict__ codes,
+                                        long long row0) {
   int code[R];
   k7_codes<R>(codes + row0, code);
   bool ok[R];
@@ -1219,20 +1257,21 @@ __device__ __forceinline__ void k7_rows(double* tab, double* out, const K7Ptrs& 
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (ok[r] && v[u][r] != 0.0) {
-          k7_add<kTier>(tab, out, j + u, code[r], cap, out_stride, out_col, v[u][r]);
+          k7_add<kTier>(tab, out, j + u, code[r], cap, out_stride, out_col + j0, v[u][r]);
         }
       }
     }
   }
 }
 
-// The first pass. Block b works for plane group b / per_group (planes
-// [g * group, g * group + gp)) on its share of the rows, R rows a thread a
-// step (R = 16 bytes of a plane when the codes and every plane are 16-byte
-// aligned, else 1). The thread and block tiers then write the block's table
-// as partial table b (group x cap doubles, plane-major); the thread tier
-// first adds its threads' copies of each entry in a fixed order. The global
-// tier has added into out.
+// The first pass of the thread, block and global tiers. Block b works for
+// plane group b / per_group (planes [g * group, g * group + gp)) on its
+// share of the rows, R rows a thread a step (R = 16 bytes of a plane when
+// the codes and every plane are 16-byte aligned, else 1). The thread and
+// block tiers keep a table of cap entries a plane (the thread tier one copy
+// per thread) and write it as partial table b (group x cap doubles,
+// plane-major); the thread tier first adds its threads' copies of each
+// entry in a fixed order. The global tier adds into out.
 template <typename T, int R, int kTier>
 __global__ void __launch_bounds__(kK7Threads)
 k7_partial_kernel(const __grid_constant__ K7Ptrs planes, const int32_t* __restrict__ codes,
@@ -1312,8 +1351,388 @@ k7_merge_kernel(const double* __restrict__ part, int cap, int nplanes, int group
   out[static_cast<long long>(c) * out_stride + out_col + j] = acc;
 }
 
+// ---- K7's warp tier: rings of tiles filled by bulk copies ---------------------
+
+// Every row of a tile goes through shared memory. Warp 0 keeps the codes of
+// the block's tiles in flight, by cp.async.bulk into a ring of code stages;
+// warp 1 reads each tile's codes once they land and loads only the runs of
+// kK7RunRows rows of each plane that hold a row with a code in [0, cap)
+// into a ring of plane stages (a tile of padding or of filtered rows loads
+// no plane value); the consumer warps add the tiles whose planes have
+// landed, each into its own table. Every stage completes on an mbarrier,
+// and the consumers free it on another.
+constexpr int kK7TierWarp = 3;
+constexpr int kK7WarpCopies = 16;    // the consumer warps, a table each
+constexpr int kK7Loaders = 2;        // the codes' loader and the planes' loader
+constexpr int kK7Tile = 2048;        // rows a stage holds
+constexpr int kK7MaxStages = 4;      // plane stages; code stages are twice as many
+constexpr int kK7RunShift = 8;       // the runs whose plane values load together:
+constexpr int kK7RunRows = 1 << kK7RunShift;  // 256 rows, 8 a tile
+constexpr size_t kK7Reserve = 1024;  // shared memory kept for the barriers
+
+__device__ __forceinline__ unsigned k7_smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void k7_bar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(k7_smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void k7_bar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   k7_smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void k7_bar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(k7_smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void k7_bar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(k7_smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void k7_bulk_load(void* dst, uintptr_t src, unsigned bytes,
+                                             unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(k7_smem_addr(dst)), "l"(src), "r"(bytes), "r"(k7_smem_addr(bar))
+      : "memory");
+}
+
+// Bytes of one code stage and of one plane stage (`group` planes), each
+// array with 16 bytes of room for a start off 16-byte alignment.
+__host__ __device__ __forceinline__ size_t k7_code_stage_bytes(int tile) {
+  return static_cast<size_t>(tile) * 4 + 16;
+}
+
+__host__ __device__ __forceinline__ size_t k7_plane_stage_bytes(int tile, int group,
+                                                                int esize) {
+  return static_cast<size_t>(group) * (static_cast<size_t>(tile) * esize + 16);
+}
+
+// The 16-byte aligned byte range that holds elements [r0, r1) of an array
+// at `base` with `esize`-byte elements: loads never leave the 16-byte
+// blocks that hold an element of the array.
+__device__ __forceinline__ void k7_span(uintptr_t base, long long r0, long long r1, int esize,
+                                        uintptr_t* a0, unsigned* bytes) {
+  const uintptr_t lo = (base + static_cast<uintptr_t>(r0) * esize) & ~static_cast<uintptr_t>(15);
+  const uintptr_t hi = (base + static_cast<uintptr_t>(r1) * esize + 15) &
+                       ~static_cast<uintptr_t>(15);
+  *a0 = lo;
+  *bytes = static_cast<unsigned>(hi - lo);
+}
+
+// Row `r` of a lane's values of planes [jb, jb + left) (up to B of them)
+// added into `row` (entry (jb, code), planes cap entries apart): the old
+// entries are all loaded before any is stored, and a zero makes no store.
+template <int B, int R>
+__device__ __forceinline__ void k7_row_add(double* row, int cap, int left,
+                                           const double (&v)[B][R], int r) {
+  double old[B];
+#pragma unroll
+  for (int u = 0; u < B; ++u) old[u] = u < left ? row[u * cap] : 0.0;
+#pragma unroll
+  for (int u = 0; u < B; ++u) {
+    if (u < left && v[u][r] != 0.0) row[u * cap] = old[u] + v[u][r];
+  }
+}
+
+// Run [q0, q1) of `runs` (the lowest stretch of set bits), cleared from it.
+__device__ __forceinline__ void k7_next_run(unsigned* runs, int* q0, int* q1) {
+  *q0 = __ffs(*runs) - 1;
+  const unsigned above = ~*runs & ~((1u << *q0) - 1);
+  *q1 = __ffs(above) - 1;  // runs hold kK7Tile / kK7RunRows bits: bit 31 of above is set
+  *runs &= ~((1u << *q1) - 1);
+}
+
+// R consecutive values from a stage (R = 4: one 16-byte load of floats, or
+// two of doubles), widened to f64.
+template <typename T, int R>
+__device__ __forceinline__ void k7_stage_values(const unsigned char* p, double (&v)[R]) {
+  if constexpr (R == 1) {
+    v[0] = static_cast<double>(*reinterpret_cast<const T*>(p));
+  } else if constexpr (sizeof(T) == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+    const double2 x = *reinterpret_cast<const double2*>(p);
+    const double2 y = *reinterpret_cast<const double2*>(p + 16);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = y.x;
+    v[3] = y.y;
+  }
+}
+
+// The first pass of the warp tier. Block b works for plane group b /
+// per_group on tiles share, share + per_group, ... of kK7Tile rows. Each
+// consumer lane takes R consecutive rows of a tile a step (R = 4 when the
+// codes and every plane of the chunk start on a 16-byte boundary, else 1).
+// The shared memory holds a table per consumer warp, then `2 x
+// plane_stages` code stages and `plane_stages` plane stages. The block then
+// adds its warps' tables in a fixed order into partial table b.
+template <typename T, int R>
+__global__ void __launch_bounds__(32 * (kK7WarpCopies + kK7Loaders), 1)
+k7_warp_kernel(const __grid_constant__ K7Ptrs planes, const int32_t* __restrict__ codes,
+               double* __restrict__ part, long long n, int cap, int nplanes, int group,
+               int per_group, int plane_stages) {
+  constexpr int tile = kK7Tile;
+  extern __shared__ __align__(128) unsigned char k7_warp_smem[];
+  __shared__ __align__(8) unsigned long long code_full[2 * kK7MaxStages];
+  __shared__ __align__(8) unsigned long long code_free[2 * kK7MaxStages];
+  __shared__ __align__(8) unsigned long long plane_full[kK7MaxStages];
+  __shared__ __align__(8) unsigned long long plane_free[kK7MaxStages];
+  constexpr int esize = sizeof(T);
+  const int code_stages = 2 * plane_stages;
+  const int consumers = blockDim.x / 32 - kK7Loaders;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = blockIdx.x / per_group;
+  const int share = blockIdx.x - g * per_group;
+  const int j0 = g * group;
+  const int gp = min(group, nplanes - j0);
+  const int copies = consumers;
+  const int entries = gp * cap;
+  double* tab = reinterpret_cast<double*>(k7_warp_smem);
+  const size_t table_bytes =
+      (static_cast<size_t>(copies) * group * cap * 8 + 127) & ~static_cast<size_t>(127);
+  unsigned char* code_ring = k7_warp_smem + table_bytes;
+  const size_t code_bytes = k7_code_stage_bytes(tile);
+  unsigned char* plane_ring = code_ring + code_stages * code_bytes;
+  const size_t plane_bytes = static_cast<size_t>(tile) * esize + 16;  // one plane
+  const size_t stage_bytes = k7_plane_stage_bytes(tile, group, esize);
+  const uintptr_t cbase = reinterpret_cast<uintptr_t>(codes);
+  const int clead = static_cast<int>(cbase & 15);
+
+  for (int i = threadIdx.x; i < copies * entries; i += blockDim.x) tab[i] = 0.0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < code_stages; ++s) {
+      k7_bar_init(&code_full[s], 1);
+      k7_bar_init(&code_free[s], consumers);
+    }
+    for (int s = 0; s < plane_stages; ++s) {
+      k7_bar_init(&plane_full[s], 1);
+      k7_bar_init(&plane_free[s], consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const long long ntiles = (n + tile - 1) / tile;
+  const long long count = ntiles > share ? (ntiles - share + per_group - 1) / per_group : 0;
+  if (warp == 0) {
+    // the codes' loader: tile k into code stage k % code_stages
+    if (lane == 0) {
+      for (long long k = 0; k < count; ++k) {
+        const int s = static_cast<int>(k % code_stages);
+        if (k >= code_stages) {
+          k7_bar_wait(&code_free[s], static_cast<unsigned>((k / code_stages - 1) & 1));
+        }
+        const long long r0 = (share + k * per_group) * tile;
+        uintptr_t a0;
+        unsigned bytes;
+        k7_span(cbase, r0, min(r0 + tile, n), 4, &a0, &bytes);
+        k7_bar_expect(&code_full[s], bytes);
+        k7_bulk_load(code_ring + s * code_bytes, a0, bytes, &code_full[s]);
+      }
+    }
+  } else if (warp == 1) {
+    // the planes' loader: 256-row runs only when every plane starts on a
+    // 16-byte boundary (a run's range then never shares a 16-byte block
+    // with the next run's); else the tile's one run
+    bool aligned = true;
+    for (int j = 0; j < gp; ++j) {
+      aligned = aligned && (reinterpret_cast<uintptr_t>(planes.p[j0 + j]) & 15) == 0;
+    }
+    const int shift = aligned ? kK7RunShift : 31 - __clz(tile);
+    for (long long k = 0; k < count; ++k) {
+      const int cs = static_cast<int>(k % code_stages);
+      const int ps = static_cast<int>(k % plane_stages);
+      const long long r0 = (share + k * per_group) * tile;
+      const int rows = static_cast<int>(min(static_cast<long long>(tile), n - r0));
+      k7_bar_wait(&code_full[cs], static_cast<unsigned>((k / code_stages) & 1));
+      const unsigned char* cst = code_ring + cs * code_bytes + clead;
+      unsigned runs = 0;  // bit q: run q holds a kept row
+      if (clead == 0) {
+        for (int i0 = 0; i0 < rows; i0 += 128) {
+          const int i = i0 + lane * 4;
+          const int4 c = *reinterpret_cast<const int4*>(cst + i * 4);
+          const unsigned u = static_cast<unsigned>(cap);
+          const bool kept = (i < rows && static_cast<unsigned>(c.x) < u) ||
+                            (i + 1 < rows && static_cast<unsigned>(c.y) < u) ||
+                            (i + 2 < rows && static_cast<unsigned>(c.z) < u) ||
+                            (i + 3 < rows && static_cast<unsigned>(c.w) < u);
+          if (__any_sync(kFullWarp, kept)) runs |= 1u << (i0 >> shift);
+        }
+      } else {
+        for (int i0 = 0; i0 < rows; i0 += 32) {
+          const int i = i0 + lane;
+          const bool kept = i < rows && static_cast<unsigned>(reinterpret_cast<const int*>(
+                                            cst)[i]) < static_cast<unsigned>(cap);
+          if (__any_sync(kFullWarp, kept)) runs |= 1u << (i0 >> shift);
+        }
+      }
+      if (k >= plane_stages) {
+        k7_bar_wait(&plane_free[ps], static_cast<unsigned>((k / plane_stages - 1) & 1));
+      }
+      // each stretch of kept runs loads as one copy per plane, lane j
+      // issuing plane j's
+      unsigned total = 0;
+      for (int j = lane; j < gp; j += 32) {
+        const uintptr_t base = reinterpret_cast<uintptr_t>(planes.p[j0 + j]);
+        for (unsigned left = runs; left;) {
+          int q0, q1;
+          k7_next_run(&left, &q0, &q1);
+          uintptr_t a0;
+          unsigned bytes;
+          k7_span(base, r0 + (q0 << shift), min(r0 + (static_cast<long long>(q1) << shift),
+                                                r0 + rows), esize, &a0, &bytes);
+          total += bytes;
+        }
+      }
+      total = __reduce_add_sync(kFullWarp, total);
+      if (lane == 0) k7_bar_expect(&plane_full[ps], total);
+      __syncwarp();
+      unsigned char* pst = plane_ring + ps * stage_bytes;
+      for (int j = lane; j < gp; j += 32) {
+        const uintptr_t base = reinterpret_cast<uintptr_t>(planes.p[j0 + j]);
+        const uintptr_t lo0 =
+            (base + static_cast<uintptr_t>(r0) * esize) & ~static_cast<uintptr_t>(15);
+        for (unsigned left = runs; left;) {
+          int q0, q1;
+          k7_next_run(&left, &q0, &q1);
+          uintptr_t a0;
+          unsigned bytes;
+          k7_span(base, r0 + (q0 << shift), min(r0 + (static_cast<long long>(q1) << shift),
+                                                r0 + rows), esize, &a0, &bytes);
+          k7_bulk_load(pst + j * plane_bytes + (a0 - lo0), a0, bytes, &plane_full[ps]);
+        }
+      }
+    }
+  } else {
+    const int c = warp - kK7Loaders;
+    const unsigned below = (1u << lane) - 1;
+    double* mine = tab + static_cast<long long>(c) * entries;
+    for (long long k = 0; k < count; ++k) {
+      const int cs = static_cast<int>(k % code_stages);
+      const int ps = static_cast<int>(k % plane_stages);
+      k7_bar_wait(&code_full[cs], static_cast<unsigned>((k / code_stages) & 1));
+      k7_bar_wait(&plane_full[ps], static_cast<unsigned>((k / plane_stages) & 1));
+      const long long r0 = (share + k * per_group) * tile;
+      const int rows = static_cast<int>(min(static_cast<long long>(tile), n - r0));
+      const unsigned char* cst = code_ring + cs * code_bytes + clead;
+      const unsigned char* pst = plane_ring + ps * stage_bytes;
+      for (int i0 = c * 32 * R; i0 < rows; i0 += consumers * 32 * R) {
+        const int i = i0 + lane * R;
+        int code[R];
+        bool ok[R];
+        bool any = false;
+        if constexpr (R == 4) {
+          const int4 x = *reinterpret_cast<const int4*>(cst + i * 4);
+          code[0] = x.x;
+          code[1] = x.y;
+          code[2] = x.z;
+          code[3] = x.w;
+        } else {
+          code[0] = reinterpret_cast<const int*>(cst)[i];
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          ok[r] = i + r < rows && static_cast<unsigned>(code[r]) < static_cast<unsigned>(cap);
+          any = any || ok[r];
+        }
+        if (!__any_sync(kFullWarp, any)) continue;
+        // each of the lane's rows in turn: the lanes with one code, rank 0
+        // the lowest lane; most < 0 where no lane keeps its row
+        unsigned peers[R];
+        int rank[R], most[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          most[r] = -1;
+          rank[r] = 0;
+          if (__any_sync(kFullWarp, ok[r])) {
+            peers[r] = __match_any_sync(kFullWarp, ok[r] ? code[r] : -1);
+            rank[r] = __popc(peers[r] & below);
+            most[r] = __reduce_max_sync(kFullWarp, ok[r] ? rank[r] : 0);
+          }
+        }
+        // no other warp writes this table: the lanes of one code add in rank
+        // order, a round each, with plain loads and stores, kPlaneBatch
+        // planes at a time (their values read only where a row of the lane
+        // is kept: else their run may not have been loaded)
+        for (int jb = 0; jb < gp; jb += kPlaneBatch) {
+          double v[kPlaneBatch][R];
+#pragma unroll
+          for (int u = 0; u < kPlaneBatch; ++u) {
+#pragma unroll
+            for (int r = 0; r < R; ++r) v[u][r] = 0.0;
+            if (any && jb + u < gp) {
+              const uintptr_t base = reinterpret_cast<uintptr_t>(planes.p[j0 + jb + u]);
+              k7_stage_values<T, R>(pst + (jb + u) * plane_bytes + (base & 15) + i * esize,
+                                    v[u]);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            if (most[r] < 0) continue;
+            // the lowest lane of each code sums its lanes' values in lane order
+            unsigned rest = peers[r] & ~(1u << lane);
+            double w[kPlaneBatch][1];
+#pragma unroll
+            for (int u = 0; u < kPlaneBatch; ++u) w[u][0] = v[u][r];
+            for (int q = 0; q < most[r]; ++q) {
+              const bool take = rank[r] == 0 && rest != 0;
+              const int src = take ? __ffs(rest) - 1 : lane;
+#pragma unroll
+              for (int u = 0; u < kPlaneBatch; ++u) {
+                const double x = __shfl_sync(kFullWarp, v[u][r], src);
+                if (take) w[u][0] += x;
+              }
+              if (take) rest &= rest - 1;
+            }
+            if (ok[r] && rank[r] == 0) {
+              k7_row_add<kPlaneBatch, 1>(mine + jb * cap + code[r], cap, gp - jb, w, 0);
+            }
+            __syncwarp();
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) {
+        k7_bar_arrive(&code_free[cs]);
+        k7_bar_arrive(&plane_free[ps]);
+      }
+    }
+  }
+  __syncthreads();
+  // partial table b: the block's copies added in a fixed order
+  double* dst = part + static_cast<long long>(blockIdx.x) * group * cap;
+  for (int i = threadIdx.x; i < entries; i += blockDim.x) {
+    double sum = 0.0;
+    for (int t = 0; t < copies; ++t) sum += tab[static_cast<long long>(t) * entries + i];
+    dst[i] = sum;
+  }
+}
+
 using K7Kernel = void (*)(K7Ptrs, const int32_t*, double*, double*, long long, int, int, int,
                           int, int, int);
+using K7WarpKernel = void (*)(K7Ptrs, const int32_t*, double*, long long, int, int, int, int,
+                              int);
 
 template <typename T, int R>
 K7Kernel k7_variant(int tier) {
@@ -1322,32 +1741,70 @@ K7Kernel k7_variant(int tier) {
   return k7_partial_kernel<T, R, kK7TierGlobal>;
 }
 
-// The first pass's kernel: f64 or f32 planes, 16-byte vectors or single rows.
+// The thread, block and global tiers' first pass: f64 or f32 planes,
+// 16-byte vectors or single rows.
 K7Kernel k7_kernel(int f64, int tier, bool vec) {
   if (f64) return vec ? k7_variant<double, 2>(tier) : k7_variant<double, 1>(tier);
   return vec ? k7_variant<float, 4>(tier) : k7_variant<float, 1>(tier);
 }
 
-int k7_threads(int tier) { return tier == kK7TierThread ? kK7ThreadTierThreads : kK7Threads; }
+// The warp tier's first pass: f64 or f32 planes, 4 rows a lane (every
+// array 16-byte aligned) or one.
+K7WarpKernel k7_warp_kernel_for(int f64, bool vec) {
+  if (f64) return vec ? k7_warp_kernel<double, 4> : k7_warp_kernel<double, 1>;
+  return vec ? k7_warp_kernel<float, 4> : k7_warp_kernel<float, 1>;
+}
 
-// A block's shared memory at a tier: its table, one copy per thread in the
-// thread tier, none in the global tier.
+int k7_threads(int tier) {
+  if (tier == kK7TierThread) return kK7ThreadTierThreads;
+  if (tier == kK7TierWarp) return 32 * (kK7WarpCopies + kK7Loaders);
+  return kK7Threads;
+}
+
+// The warp tier's launch shape: its tables, then the most plane stages (4
+// down to 2, with twice as many code stages) that fit beside them.
+struct K7Ring {
+  size_t smem;
+  int plane_stages;
+};
+
+bool k7_warp_plan(int cap, int group, int esize, K7Ring* plan) {
+  const size_t table =
+      (static_cast<size_t>(kK7WarpCopies) * group * cap * 8 + 127) & ~static_cast<size_t>(127);
+  for (int stages = kK7MaxStages; stages >= 2; --stages) {
+    const size_t smem = table + 2 * stages * k7_code_stage_bytes(kK7Tile) +
+                        stages * k7_plane_stage_bytes(kK7Tile, group, esize);
+    if (smem + kK7Reserve <= kK7MaxSmem) {
+      *plan = {smem, stages};
+      return true;
+    }
+  }
+  return false;
+}
+
+// A block's shared memory at the thread or block tier: one copy of its
+// table per thread, or one table.
 size_t k7_smem_bytes(int tier, int cap, int group) {
-  if (tier == kK7TierGlobal) return 0;
-  const size_t table = static_cast<size_t>(group) * cap * 8;
-  return tier == kK7TierThread ? table * kK7ThreadTierThreads : table;
+  if (tier == kK7TierThread) return static_cast<size_t>(group) * cap * 8 * kK7ThreadTierThreads;
+  if (tier == kK7TierBlock) return static_cast<size_t>(group) * cap * 8;
+  return 0;
 }
 
 // True for a tier this file takes: a tier in range, 1 to 64 planes, a group
 // of 1 to nplanes planes, the global tier's one group of every plane, the
-// other tiers' tables within a block's shared memory.
-bool k7_tier_ok(int tier, int cap, int nplanes, int group) {
-  if (tier < kK7TierThread || tier > kK7TierGlobal || cap <= 0 || nplanes <= 0 ||
+// thread and block tiers' tables within a block's shared memory, the warp
+// tier's tables and smallest ring too.
+bool k7_tier_ok(int tier, int cap, int nplanes, int group, int esize) {
+  if (tier < kK7TierThread || tier > kK7TierWarp || cap <= 0 || nplanes <= 0 ||
       nplanes > kPlaneChunk || group <= 0 || group > nplanes) {
     return false;
   }
   if (tier == kK7TierGlobal) return group == nplanes;
-  return k7_smem_bytes(tier, cap, group) <= kK7MaxSmem;
+  if (tier == kK7TierThread || tier == kK7TierBlock) {
+    return k7_smem_bytes(tier, cap, group) <= kK7MaxSmem;
+  }
+  K7Ring plan;
+  return k7_warp_plan(cap, group, esize, &plan);
 }
 
 }  // namespace
@@ -1617,16 +2074,29 @@ int daft_segment_extreme_int64_global(const void* vals, const void* mask, const 
 }
 
 // K7's first-pass blocks that fit on the current device at once at a tier
-// (0 thread, 1 block, 2 global), for a chunk of nplanes planes (f64 != 0:
-// f64 planes, else f32) in tables of `group` planes; allows the kernel its
-// shared memory there.
+// (0 thread, 1 block, 2 global, 3 warp), for a chunk of nplanes planes
+// (f64 != 0: f64 planes, else f32) in tables of `group` planes; allows the
+// kernel its shared memory there.
 int daft_segment_sum_float_planes_blocks(int f64, int tier, int cap, int nplanes, int group,
                                          int* blocks) {
-  if (!k7_tier_ok(tier, cap, nplanes, group)) return static_cast<int>(cudaErrorInvalidValue);
+  const int esize = f64 ? 8 : 4;
+  if (!k7_tier_ok(tier, cap, nplanes, group, esize)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err;
+  if (tier == kK7TierWarp) {
+    K7Ring plan;
+    k7_warp_plan(cap, group, esize, &plan);
+    const K7WarpKernel kernel = k7_warp_kernel_for(f64, true);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(plan.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(plane_occupancy(kernel, plan.smem, blocks, k7_threads(tier)));
+  }
   const size_t smem = k7_smem_bytes(tier, cap, group);
   const K7Kernel kernel = k7_kernel(f64, tier, true);
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(plane_occupancy(kernel, smem, blocks, k7_threads(tier)));
 }
@@ -1635,16 +2105,17 @@ int daft_segment_sum_float_planes_blocks(int f64, int tier, int cap, int nplanes
 // device pointers to n values each, f64 or f32 by `f64`, copied into the
 // kernel's parameters): out (cap x out_stride, f64) gets columns [out_col,
 // out_col + nplanes). `blocks` first-pass blocks in ceil(nplanes / group)
-// groups of equally many. The thread and block tiers write a partial table
-// of group x cap doubles per block into `part` and combine them into out in
-// a second launch; the global tier adds into out, which the caller
-// zero-fills (part unused).
+// groups of equally many. The thread, warp and block tiers write a partial
+// table of group x cap doubles per block into `part` and combine them into
+// out in a second launch; the global tier adds into out, which the caller
+// zero-fills.
 int daft_segment_sum_float_planes(int f64, const void* const* planes, int nplanes,
                                   const void* codes, void* part, void* out, long long n, int cap,
                                   int tier, int group, int blocks, int out_stride, int out_col,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!k7_tier_ok(tier, cap, nplanes, group) || blocks <= 0 || n < 0 || out_col < 0 ||
+  const int esize = f64 ? 8 : 4;
+  if (!k7_tier_ok(tier, cap, nplanes, group, esize) || blocks <= 0 || n < 0 || out_col < 0 ||
       out_col + nplanes > out_stride) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1656,16 +2127,29 @@ int daft_segment_sum_float_planes(int f64, const void* const* planes, int nplane
     ptrs.p[j] = planes[j];
     vec = vec && (reinterpret_cast<uintptr_t>(planes[j]) & 15) == 0;
   }
-  const size_t smem = k7_smem_bytes(tier, cap, group);
-  const K7Kernel kernel = k7_kernel(f64, tier, vec);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int per_group = blocks / groups;
-  kernel<<<blocks, k7_threads(tier), smem, s>>>(ptrs, static_cast<const int32_t*>(codes),
-                                                static_cast<double*>(part),
-                                                static_cast<double*>(out), n, cap, nplanes,
-                                                group, per_group, out_stride, out_col);
+  const int32_t* c = static_cast<const int32_t*>(codes);
+  cudaError_t err;
+  if (tier == kK7TierWarp) {
+    K7Ring plan;
+    k7_warp_plan(cap, group, esize, &plan);
+    const K7WarpKernel kernel = k7_warp_kernel_for(f64, vec);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(plan.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<blocks, k7_threads(tier), plan.smem, s>>>(ptrs, c, static_cast<double*>(part), n,
+                                                      cap, nplanes, group, per_group,
+                                                      plan.plane_stages);
+  } else {
+    const size_t smem = k7_smem_bytes(tier, cap, group);
+    const K7Kernel kernel = k7_kernel(f64, tier, vec);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<blocks, k7_threads(tier), smem, s>>>(ptrs, c, static_cast<double*>(part),
+                                                  static_cast<double*>(out), n, cap, nplanes,
+                                                  group, per_group, out_stride, out_col);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess || tier == kK7TierGlobal) {
     return static_cast<int>(err);
   }

@@ -572,8 +572,9 @@ class FloatTier(NamedTuple):
     """How K7 lays out its f64 tables for one chunk of planes
     (ops/csrc/segment_reduce.cu)."""
 
-    kind: str    # "thread" (a table per thread), "block" (a table per block)
-                 # or "global" (one table in device memory: the output)
+    kind: str    # "thread" (a table per thread), "warp" (a table per
+                 # consumer warp), "block" (a table per block) or "global"
+                 # (one table in device memory: the output)
     group: int   # planes per table; the global tier's one table holds all
 
 
@@ -581,7 +582,24 @@ class FloatTier(NamedTuple):
 K7_THREAD_TIER_THREADS = 256
 # caps up to this take the thread tier: few entries, every lane on them
 K7_THREAD_MAX_CAP = 32
-_FLOAT_TIER_IDS = {"thread": 0, "block": 1, "global": 2}
+# the warp tier's consumer warps, each with its own table
+K7_WARP_COPIES = 16
+# rows of a stage of the warp tier's rings
+K7_TILE = 2048
+# shared memory the warp tier keeps beside its tables for the barriers
+K7_RESERVE = 1024
+_FLOAT_TIER_IDS = {"thread": 0, "block": 1, "global": 2, "warp": 3}
+
+
+def k7_warp_bytes(cap: int, group: int) -> int:
+    """The warp tier's shared memory at its smallest ring, for f64 planes
+    (f32 planes take less): a table per consumer warp, rounded up to 128
+    bytes; two plane stages and four code stages of K7_TILE rows, each
+    array with 16 bytes of room for a start off 16-byte alignment; the
+    barriers."""
+    tables = -(-K7_WARP_COPIES * group * cap * 8 // 128) * 128
+    return (tables + 2 * group * (K7_TILE * 8 + 16) + 4 * (K7_TILE * 4 + 16) + K7_RESERVE)
+
 
 # (device, f64, cap, planes) -> (the call's chunks, scratch doubles)
 _float_plans: Dict[Tuple[int, bool, int, int], Tuple[Tuple[_PlaneChunk, ...], int]] = {}
@@ -590,7 +608,9 @@ _float_plans: Dict[Tuple[int, bool, int, int], Tuple[Tuple[_PlaneChunk, ...], in
 def segment_sum_float_tier(cap: int, nplanes: int) -> FloatTier:
     """K7's tier for a chunk of ``nplanes`` planes at ``cap``: for caps up to
     K7_THREAD_MAX_CAP, a table per thread of ``group`` planes (the most whose
-    256 copies fit a block's shared memory); else f64 tables of ``group``
+    256 copies fit a block's shared memory); past that, a table per consumer
+    warp (K7_WARP_COPIES of them, tiles staged in shared memory by bulk
+    copies) while all the chunk's planes fit; else f64 tables of ``group``
     planes in a block's shared memory (the most whose cap x group x 8 bytes
     fit); one table in device memory when a single plane's does not fit."""
     if not 0 < cap <= KERNEL_MAX_SEGMENTS:
@@ -600,6 +620,8 @@ def segment_sum_float_tier(cap: int, nplanes: int) -> FloatTier:
     if cap <= K7_THREAD_MAX_CAP:
         per_plane = cap * K7_THREAD_TIER_THREADS * 8
         return FloatTier("thread", min(nplanes, PLANE_SMEM_MAX // per_plane))
+    if k7_warp_bytes(cap, nplanes) <= PLANE_SMEM_MAX:
+        return FloatTier("warp", nplanes)
     fit = PLANE_SMEM_MAX // (cap * 8)
     if fit == 0:
         return FloatTier("global", nplanes)

@@ -87,3 +87,34 @@ def test_partkey_kernel_cases_get_the_stages_inputs(monkeypatch):
     assert op == "max" and op2 == "min"
     assert same([key, keep, rows, zero],
                 [want["qty_key"], want["keep"], want["rows"], want["zero"]])
+
+
+def test_profile_counts_the_ports_own_kernel_activities(monkeypatch):
+    """phase_profile holds a capture against the run's counted launches
+    with the activities of the port's own kernels only: every __global__
+    function of the package's csrc, the warp tier's (nested parentheses in
+    its launch bounds) too; torch's elementwise kernels and copies do not
+    count, nor a name that only ends in a kernel's name."""
+    import re
+
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    names = cs.port_kernel_names()
+    csrc = os.path.join(REPO, "daft_tpu_torch", "ops", "csrc")
+    declared = sum(len(re.findall(r"__global__", open(os.path.join(csrc, f)).read()))
+                   for f in os.listdir(csrc) if f.endswith(".cu"))
+    assert len(names) == declared
+    assert {"k7_warp_kernel", "k7_partial_kernel", "k7_merge_kernel", "plane_partial_kernel",
+            "k3_partial_kernel", "probe_index_kernel", "bulk_transpose_kernel"} <= set(names)
+
+    class Event:
+        def __init__(self, key, count):
+            self.key, self.count = key, count
+
+    events = [Event("void (anonymous namespace)::k7_partial_kernel<float, 4, 2>((anonymous", 3),
+              Event("(anonymous namespace)::k7_merge_kernel(double const*, int, int)", 3),
+              Event("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor", 40),
+              Event("Memcpy HtoD (Pageable -> Device)", 7),
+              Event("void other::my_k7_partial_kernel<float>(float*)", 5)]
+    assert cs.own_activities(events, names) == 6

@@ -759,16 +759,28 @@ def test_mesh_repartition_on_card_matches_host(cuda):
 
 
 # K7 by tier (segment_kernels.segment_sum_float_tier): a table per thread at
-# cap 8 with nearly every row kept (TPC-H q1's shape), block tables at the
-# supplier's cap 16,384, the global table at 2^20; f32 and f64 planes; past
-# one 64-plane chunk; n not a multiple of the rows a vector holds; every row
-# trashed
+# cap 8 with nearly every row kept (TPC-H q1's shape), warp tables from cap
+# 33 to the largest cap whose 16 tables hold every plane, block tables at the
+# supplier's cap 16,384 (four groups of one plane) and up to cap 29,056 for
+# one plane, the global table past that and at 2^20; each tier's
+# boundary from both sides; f32 and f64 planes; past one 64-plane chunk; n
+# not a multiple of the rows a vector holds; every row trashed
+K7_WARP_MAX_CAP = max(c for c in range(33, 4096)
+                      if sk.segment_sum_float_tier(c, 4).kind == "warp")
 K7_CASES = [
     (1 << 22, 8, 7, 0.98, "thread"), (1 << 20, 16384, 4, 0.7, "block"),
     (1 << 21, 1 << 20, 3, 0.7, "global"), (1 << 18, 32, 70, 0.7, "thread"),
     (4099, 8, 3, 0.9, "thread"), (4099, 3000, 3, 0.9, "block"),
     (4099, 1 << 20, 2, 0.9, "global"), (4096, 8, 3, 0.0, "thread"),
     (4096, 16384, 2, 0.0, "block"), (4096, 1 << 20, 2, 0.0, "global"), (1, 8, 1, 1.0, "thread"),
+    (1 << 20, 32, 4, 0.7, "thread"), (1 << 20, 33, 4, 0.7, "warp"),
+    (1 << 20, 64, 4, 0.98, "warp"), (1 << 20, K7_WARP_MAX_CAP, 4, 0.7, "warp"),
+    (1 << 20, K7_WARP_MAX_CAP + 1, 4, 0.7, "block"), (1 << 20, 29056, 1, 0.7, "block"),
+    (1 << 20, 29057, 1, 0.7, "global"), (1 << 20, 1 << 20, 1, 0.7, "global"),
+    (4099, 33, 3, 0.9, "warp"), (4099, K7_WARP_MAX_CAP, 4, 0.9, "warp"),
+    (4099, 16384, 2, 0.9, "block"), (4099, 29057, 1, 0.9, "global"),
+    (4096, 33, 3, 0.0, "warp"), (4096, 29056, 1, 0.0, "block"),
+    (1 << 18, 33, 70, 0.7, "block"), (1 << 18, 1 << 20, 70, 0.7, "global"),
 ]
 
 
@@ -783,6 +795,15 @@ def _f64_order_bound(planes, codes, cap):
     mags.index_add_(0, idx, stack.abs())
     n_seg = torch.bincount(idx, minlength=cap + 1).double()[:, None]
     return (n_seg * 2.0 ** -53 * mags)[:cap]
+
+
+def _k7_holds(planes, codes, cap):
+    """K7 on ``planes`` within twice the f64 order bound of its plain
+    version; returns the kernel's table."""
+    got = sk.segment_sum_float_planes(planes, codes, cap)
+    want = sk.segment_sum_float_planes_plain(planes, codes, cap)
+    assert bool(((got - want).abs() <= 2 * _f64_order_bound(planes, codes, cap)).all())
+    return got
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -803,29 +824,30 @@ def test_segment_sum_float_planes_tiers_match_plain(cuda, dtype, n, cap, p, keep
     assert torch.equal(got, sk.segment_sum_float_planes_plain(list(ints), tc, cap))
     if keep == 0:
         assert not got.any()
-    # fractional planes of both signs, within the f64 order bound
-    fr = torch.from_numpy(rng.normal(0.0, 100.0, (p, n))).to(dtype).to(cuda)
-    got = sk.segment_sum_float_planes(list(fr), tc, cap)
-    want = sk.segment_sum_float_planes_plain(list(fr), tc, cap)
-    assert bool(((got - want).abs() <= 2 * _f64_order_bound(list(fr), tc, cap)).all())
+    # fractional planes of both signs, within the f64 order bound; the
+    # thread and warp tiers add in a fixed order: two runs agree bit for bit
+    fr = list(torch.from_numpy(rng.normal(0.0, 100.0, (p, n))).to(dtype).to(cuda))
+    got = _k7_holds(fr, tc, cap)
+    if tier in ("thread", "warp"):
+        assert torch.equal(got, sk.segment_sum_float_planes(fr, tc, cap))
     # views one row in: off their 16-byte alignment, the single-row path
     if n > 1:
-        views = [t[1:] for t in fr]
-        got = sk.segment_sum_float_planes(views, tc[1:], cap)
-        want = sk.segment_sum_float_planes_plain(views, tc[1:], cap)
-        assert bool(((got - want).abs() <= 2 * _f64_order_bound(views, tc[1:], cap)).all())
+        _k7_holds([t[1:] for t in fr], tc[1:], cap)
 
 
-def test_segment_sum_float_planes_refused_launch_raises(cuda, monkeypatch):
+@pytest.mark.parametrize("cap,p,kind", [(5, 1, "thread"), (64, 4, "warp"), (16384, 4, "block"),
+                                        (1 << 18, 1, "global")])
+def test_segment_sum_float_planes_refused_launch_raises(cuda, monkeypatch, cap, p, kind):
     """A launch the library refuses (a nonzero CUDA error) raises and is
-    not counted: nothing falls back."""
-    planes = [torch.ones(64, device=cuda)]
+    not counted, in every tier: nothing falls back."""
+    assert sk.segment_sum_float_tier(cap, p).kind == kind
+    planes = [torch.ones(64, device=cuda) for _ in range(p)]
     codes = torch.zeros(64, dtype=torch.int32, device=cuda)
 
     class Refusing:
         @staticmethod
-        def daft_segment_sum_float_planes_blocks(f64, tier, cap, nplanes, group, blocks):
-            blocks._obj.value = 4
+        def daft_segment_sum_float_planes_blocks(*args):
+            args[-1]._obj.value = 4
             return 0
 
         @staticmethod
@@ -836,7 +858,7 @@ def test_segment_sum_float_planes_refused_launch_raises(cuda, monkeypatch):
     monkeypatch.setattr(sk, "_float_plans", {})
     before = counters.snapshot()
     with pytest.raises(RuntimeError, match="launch failed"):
-        sk.segment_sum_float_planes(planes, codes, 5)
+        sk.segment_sum_float_planes(planes, codes, cap)
     after = counters.snapshot()
     assert after["launches_segment_sum_float_planes"] == \
         before["launches_segment_sum_float_planes"]

@@ -335,9 +335,13 @@ def test_segment_extreme_int64_global_tier(cap):
 
 @pytest.mark.parametrize("cap,nplanes,tier", [
     (1, 7, ("thread", 7)), (8, 7, ("thread", 7)), (8, 64, ("thread", 14)),
-    (32, 7, ("thread", 3)), (33, 7, ("block", 7)), (4096, 4, ("block", 4)),
-    (16384, 4, ("block", 1)), (29056, 1, ("block", 1)), (29057, 1, ("global", 1)),
-    (1 << 18, 3, ("global", 3)), (1 << 20, 64, ("global", 64)),
+    (32, 7, ("thread", 3)), (33, 7, ("block", 7)), (33, 4, ("warp", 4)),
+    (131, 4, ("warp", 4)), (132, 4, ("block", 4)), (1295, 1, ("warp", 1)),
+    (1296, 1, ("block", 1)), (33, 64, ("block", 64)), (4096, 4, ("block", 4)),
+    (4096, 15, ("block", 7)), (16384, 4, ("block", 1)),
+    (16384, 1, ("block", 1)), (29056, 1, ("block", 1)),
+    (29057, 1, ("global", 1)), (1 << 18, 3, ("global", 3)),
+    (1 << 20, 64, ("global", 64)),
 ])
 def test_segment_sum_float_tier(cap, nplanes, tier):
     got = sk.segment_sum_float_tier(cap, nplanes)
@@ -347,7 +351,12 @@ def test_segment_sum_float_tier(cap, nplanes, tier):
         per_plane = cap * sk.K7_THREAD_TIER_THREADS * 8
         assert cap <= sk.K7_THREAD_MAX_CAP and got.group * per_plane <= sk.PLANE_SMEM_MAX
         assert got.group == nplanes or (got.group + 1) * per_plane > sk.PLANE_SMEM_MAX
+    elif got.kind == "warp":
+        # every consumer warp keeps a table of every plane beside the ring
+        assert cap > sk.K7_THREAD_MAX_CAP and got.group == nplanes
+        assert sk.k7_warp_bytes(cap, nplanes) <= sk.PLANE_SMEM_MAX
     elif got.kind == "block":
+        assert sk.k7_warp_bytes(cap, nplanes) > sk.PLANE_SMEM_MAX
         assert got.group * cap * 8 <= sk.PLANE_SMEM_MAX
         assert got.group == nplanes or (got.group + 1) * cap * 8 > sk.PLANE_SMEM_MAX
     else:
@@ -356,6 +365,15 @@ def test_segment_sum_float_tier(cap, nplanes, tier):
                                 (8, sk.PLANE_CHUNK + 1)):
         with pytest.raises(ValueError):
             sk.segment_sum_float_tier(bad_cap, bad_planes)
+
+
+def test_k7_warp_bytes_counts_tables_and_the_smallest_ring():
+    # 16 tables of every plane (128-byte rounded), two f64 plane stages and
+    # four code stages of a 2048-row tile with 16 bytes of slack each, and
+    # the barriers' reserve: 131 caps of 4 planes fit, 132 do not
+    assert sk.k7_warp_bytes(131, 4) == 67072 + 2 * 4 * 16400 + 4 * 8208 + 1024
+    assert sk.k7_warp_bytes(131, 4) <= sk.PLANE_SMEM_MAX < sk.k7_warp_bytes(132, 4)
+    assert sk.k7_warp_bytes(1295, 1) <= sk.PLANE_SMEM_MAX < sk.k7_warp_bytes(1296, 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
