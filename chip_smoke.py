@@ -11,10 +11,11 @@ error (no phase catches its own failure):
 2. build:   build the hand-written kernels from ops/csrc (nvcc, one process
             per source, all started together, with measure/k7_leads.cu, the
             kernels that only measure) and print the build seconds;
-   data:    generate TPC-H lineitem (about 6.0 M rows) and orders (1.5 M
-            rows) at SF1 with numpy from a fixed seed, in the value domains
-            of benchmarking/tpch/datagen.py (string columns as codes mapped
-            through a small object array);
+   data:    generate TPC-H lineitem (about 6.0 M rows), orders (1.5 M
+            rows), part (200,000), customer (150,000) and nation (25) at SF1
+            with numpy from a fixed seed, in the value domains of
+            benchmarking/tpch/datagen.py (string columns as codes mapped
+            through a small object array, or unique strings);
 3. kernels: at the slices' shapes run each kernel on inputs built from the
             generated tables and require the same output as its plain
             PyTorch version; time the kernel, the plain version, one PyTorch
@@ -55,7 +56,12 @@ error (no phase catches its own failure):
             cap 2^20 too; K1, K2, K3 and K7 at the partkey cell's own inputs
             (cap 2^18, parts numbered by first row, K7 on
             l_extendedprice in f64, K3 on l_quantity's order-preserving
-            key). Every kernel also by its device time under
+            key); K1, K2 and K7 at the join TopN's shapes, q3's own inputs
+            at its cap 2^21 (its rows and revenue-count planes, first-row
+            index, f32 revenue) and the same planes at the kernels' ceiling
+            2^22 (K3 there too); K4 at q14's and q19's shapes (part's
+            200,000 keys, lineitem's l_partkey probed). Every kernel also by
+            its device time under
             torch.profiler (K4's build with the table's clearing, where it
             has one). K1a and K5 have no engine caller, in the port or in
             the reference: they are held here alone;
@@ -93,7 +99,22 @@ error (no phase catches its own failure):
             finalize against the whole, and a profile;
 9. q6:      TPC-H q6 at SF1 through the ungrouped device stage, counted and
             checked the same way (device_stage_batches), and a profile;
-10. repartition: lineitem's eight numeric columns at SF1 (about 6.0 M rows)
+10. q14, q19, q3, q10: the join tails at SF1 (lineitem the fact; part the
+            dim of q14 and q19, orders of q3 and q10 with customer and
+            nation chained) through the port with device="cuda": the
+            counters zeroed just before the cold run and read just after
+            it: a device join batch, no fallback, one device TopN run for
+            q3 and q10, K4's build and probe once (one adjacent dim) and on
+            the three warm runs never; the result equal to the host path
+            and a numpy oracle (row order, integers, strings and dates
+            exactly, float sums at rtol 1e-5), q3's and q10's oracle margin
+            at the limit and their cold host factorize time printed; cold
+            time, warm median of 3, peak memory and a profile each;
+11. coalesce: q6 over lineitem cut into morsels of 16,384 rows through
+            the dispatch coalescer: fewer dispatches than morsels, buckets
+            at least half full, the result equal to the one-batch run's and
+            the oracle's, and a profile;
+12. repartition: lineitem's eight numeric columns at SF1 (about 6.0 M rows)
             repartitioned by ``l_orderkey`` into 8 partitions over a mesh of
             8 shard slots on the card (mesh_devices=8), the counters zeroed
             just before the run and read just after it: K6 must launch once,
@@ -103,7 +124,7 @@ error (no phase catches its own failure):
             kernel_mode="off" tier (all_to_all) must give the same
             partitions. Then the wall time (median of 3), peak device memory
             and one run under torch.profiler;
-11. print the {"kernels": [...]} line, the card line, and last the
+13. print the {"kernels": [...]} line, the card line, and last the
    {"ok": true, "device": {...}} line.
 
 Every cell runs at SF1: nothing is cut. It imports torch, numpy and the
@@ -139,6 +160,8 @@ Q12_CAP = 8               # 7 ship modes pad to this group capacity
 K3_SMALL_CAP = 8          # K3 with every kept row on l_shipmode's 7 codes
 K3_LARGE_CAP = 1 << 17    # K3 (and K1, K2) at their global tiers' start
 MAX_CAP = 1 << 20         # the grouped stage's segment ceiling (MAX_SORT_SEGMENTS)
+Q3_CAP = 1 << 21          # q3's 1.5 M orders (its TopN run's groups) pad to this capacity
+TOPN_CAP = 1 << 22        # the kernels' ceiling (the join TopN's TOPN_MAX_SEGMENTS)
 WIDE_CAP, WIDE_PLANES = 4096, 73  # K1 past one 64-plane chunk
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 EPOCH = datetime.date(1970, 1, 1)
@@ -155,6 +178,22 @@ LINESTATUS = ["O", "F"]
 Q1_CAP = 8                # q1's 3 x 2 flag and status codes pad to this capacity
 Q6_FROM, Q6_TO = datetime.date(1994, 1, 1), datetime.date(1995, 1, 1)
 SF1_PARTS = 200_000
+SF1_CUSTOMERS = 150_000
+# benchmarking/tpch/datagen.py:26-47
+NATIONS = ["ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA", "FRANCE",
+           "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ", "JAPAN", "JORDAN", "KENYA",
+           "MOROCCO", "MOZAMBIQUE", "PERU", "CHINA", "ROMANIA", "SAUDI ARABIA", "VIETNAM",
+           "RUSSIA", "UNITED KINGDOM", "UNITED STATES"]
+SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
+INSTRUCTIONS = ["DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN"]
+TYPES_P1 = ["STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"]
+TYPES_P2 = ["ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"]
+TYPES_P3 = ["TIN", "NICKEL", "BRASS", "STEEL", "COPPER"]
+CONTAINERS_P1 = ["SM", "LG", "MED", "JUMBO", "WRAP"]
+CONTAINERS_P2 = ["CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM"]
+P_TYPES = [f"{a} {b} {c}" for a in TYPES_P1 for b in TYPES_P2 for c in TYPES_P3]
+P_BRANDS = [f"Brand#{m}{n}" for m in range(1, 6) for n in range(1, 6)]
+P_CONTAINERS = [f"{a} {b}" for a in CONTAINERS_P1 for b in CONTAINERS_P2]
 PARTKEY_CAP = 1 << 18     # 200,000 parts pad to this group capacity
 K7_SMALL_CAPS = (64, 1024)  # K7 on the supplier's float columns, l_suppkey folded
 MESH = 8                  # the repartition cell's partitions and shard slots
@@ -197,24 +236,30 @@ def phase(name: str) -> None:
 # ---- data ----------------------------------------------------------------------
 
 
-def tpch_sf1(seed: int):
-    """(lineitem columns, orders columns) of every cell, with the value
-    domains of the repo's TPC-H generator (benchmarking/tpch/datagen.py:
-    36-37, 160-190). Dates are int32 days; ``l_shipmode``,
-    ``o_orderpriority``, ``l_returnflag`` and ``l_linestatus`` are int8 codes
-    into SHIPMODES, PRIORITIES, RETURNFLAGS and LINESTATUS. The repartition
-    cell's columns are drawn after the first cells', and q1's flags last, so
-    the earlier cells' data does not depend on the later ones."""
+def tpch_sf1(seed: int, n_orders: int = SF1_ORDERS, n_parts: int = SF1_PARTS,
+             n_customers: int = SF1_CUSTOMERS):
+    """(lineitem columns, orders columns, {"part", "customer", "nation"}
+    columns) of every cell, with the value domains of the repo's TPC-H
+    generator (benchmarking/tpch/datagen.py: 36-37, 90-113, 143-190). Dates
+    are int32 days; ``l_shipmode``, ``o_orderpriority``, ``l_returnflag``,
+    ``l_linestatus``, ``l_shipinstruct``, ``c_mktsegment``, ``p_type``,
+    ``p_brand``, ``p_container`` and ``c_nationkey`` are codes into
+    SHIPMODES, PRIORITIES, RETURNFLAGS, LINESTATUS, INSTRUCTIONS, SEGMENTS,
+    P_TYPES, P_BRANDS, P_CONTAINERS and NATIONS. Each cell's columns are
+    drawn after the earlier cells' (the repartition cell's after the first
+    cells', then q1's flags, then the join tails' columns and tables), so
+    the earlier cells' data does not depend on the later ones. The sizes
+    are SF1's unless a test asks for fewer rows."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    o_orderdate = rng.integers(D_1992, D_1998 - 151, SF1_ORDERS).astype(np.int32)
-    lines_per_order = rng.integers(1, 8, SF1_ORDERS)
+    o_orderdate = rng.integers(D_1992, D_1998 - 151, n_orders).astype(np.int32)
+    lines_per_order = rng.integers(1, 8, n_orders)
     n_line = int(lines_per_order.sum())
     starts = np.cumsum(lines_per_order) - lines_per_order
     l_orderdate = np.repeat(o_orderdate, lines_per_order)
     lineitem = {
-        "l_orderkey": np.repeat(np.arange(1, SF1_ORDERS + 1, dtype=np.int64),
+        "l_orderkey": np.repeat(np.arange(1, n_orders + 1, dtype=np.int64),
                                 lines_per_order),
         "l_suppkey": rng.integers(1, SF1_SUPPLIERS + 1, n_line).astype(np.int64),
         "l_linenumber": (np.arange(n_line) - np.repeat(starts, lines_per_order)
@@ -225,10 +270,10 @@ def tpch_sf1(seed: int):
     lineitem["l_receiptdate"] = (lineitem["l_shipdate"]
                                  + rng.integers(1, 31, n_line)).astype(np.int32)
     lineitem["l_shipmode"] = rng.integers(0, len(SHIPMODES), n_line).astype(np.int8)
-    orders = {"o_orderkey": np.arange(1, SF1_ORDERS + 1, dtype=np.int64),
+    orders = {"o_orderkey": np.arange(1, n_orders + 1, dtype=np.int64),
               "o_orderpriority": rng.integers(0, len(PRIORITIES),
-                                              SF1_ORDERS).astype(np.int8)}
-    lineitem["l_partkey"] = rng.integers(1, SF1_PARTS + 1, n_line).astype(np.int64)
+                                              n_orders).astype(np.int8)}
+    lineitem["l_partkey"] = rng.integers(1, n_parts + 1, n_line).astype(np.int64)
     quantity = rng.integers(1, 51, n_line).astype(np.float64)
     lineitem["l_quantity"] = quantity
     lineitem["l_extendedprice"] = np.round(quantity * rng.uniform(900, 2000, n_line) / 10, 2)
@@ -236,7 +281,38 @@ def tpch_sf1(seed: int):
     lineitem["l_tax"] = np.round(rng.uniform(0.0, 0.08, n_line), 2)
     lineitem["l_returnflag"] = rng.integers(0, len(RETURNFLAGS), n_line).astype(np.int8)
     lineitem["l_linestatus"] = rng.integers(0, len(LINESTATUS), n_line).astype(np.int8)
-    return lineitem, orders
+    # the join tails' (q3, q10, q14, q19): datagen.py:97-113, 143-163, 193
+    orders["o_orderdate"] = o_orderdate
+    orders["o_custkey"] = rng.integers(1, n_customers + 1, n_orders).astype(np.int64)
+    orders["o_shippriority"] = np.zeros(n_orders, dtype=np.int32)
+    lineitem["l_shipinstruct"] = rng.integers(0, len(INSTRUCTIONS), n_line).astype(np.int8)
+    p_type = (rng.integers(0, len(TYPES_P1), n_parts) * len(TYPES_P2)
+              + rng.integers(0, len(TYPES_P2), n_parts)) * len(TYPES_P3) \
+        + rng.integers(0, len(TYPES_P3), n_parts)
+    part = {"p_partkey": np.arange(1, n_parts + 1, dtype=np.int64),
+            "p_type": p_type.astype(np.int16),
+            "p_brand": (rng.integers(0, 5, n_parts) * 5
+                        + rng.integers(0, 5, n_parts)).astype(np.int8),
+            "p_size": rng.integers(1, 51, n_parts).astype(np.int32),
+            "p_container": (rng.integers(0, len(CONTAINERS_P1), n_parts) * len(CONTAINERS_P2)
+                            + rng.integers(0, len(CONTAINERS_P2), n_parts)).astype(np.int8)}
+    ids = np.arange(1, n_customers + 1)
+    phone = [rng.integers(lo, hi, n_customers) for lo, hi in
+             ((10, 35), (100, 1000), (100, 1000), (1000, 10000))]
+    customer = {
+        "c_custkey": ids.astype(np.int64),
+        "c_name": np.array([f"Customer#{i:09d}" for i in ids.tolist()], dtype=object),
+        "c_address": np.array([f"caddr {i}" for i in range(n_customers)], dtype=object),
+        "c_nationkey": rng.integers(0, len(NATIONS), n_customers).astype(np.int64),
+        "c_phone": np.array(["-".join(map(str, p)) for p in zip(*(a.tolist() for a in phone))],
+                            dtype=object),
+        "c_acctbal": np.round(rng.uniform(-999.99, 9999.99, n_customers), 2),
+        "c_mktsegment": rng.integers(0, len(SEGMENTS), n_customers).astype(np.int8),
+        "c_comment": np.array([f"customer comment {i}" for i in range(n_customers)],
+                              dtype=object)}
+    nation = {"n_nationkey": np.arange(len(NATIONS), dtype=np.int64),
+              "n_name": np.array(NATIONS, dtype=object)}
+    return lineitem, orders, {"part": part, "customer": customer, "nation": nation}
 
 
 def supplier_query(df):
@@ -975,78 +1051,100 @@ def q12_codes(cols, dev):
     return keep_np, codes8.to(dev)
 
 
-def probe_cases(pk, cols, orders, dev, results: dict) -> None:
-    """K4's build and probe and K5 at q12's shapes, into ``results``: each
-    equal to its plain version (the build as the sorted set of its (key,
-    row) entries), timed by events and on the device, beside its bound."""
-    import numpy as np
+def k4_build_case(pk, dim_keys, label: str):
+    """K4's build over ``dim_keys`` (all valid): the table and its case,
+    equal to the plain build as the sorted set of its (key, row) entries,
+    timed by events (its clearing is part of the build) and on the device,
+    beside its bound."""
     import torch
 
-    n = len(cols["l_orderkey"])
-    # K4: orders' keys into the table (its clearing is part of the build),
-    # every lineitem key probed; then every lineitem key shifted past the
-    # largest order key, so that every probe walks to an empty slot
-    dim_keys = torch.from_numpy(orders["o_orderkey"]).to(dev)
-    dim_valid = torch.ones(SF1_ORDERS, dtype=torch.bool, device=dev)
-    slots = pk.probe_table_slots(SF1_ORDERS)
+    n = dim_keys.numel()
+    dim_valid = torch.ones(n, dtype=torch.bool, device=dim_keys.device)
+    slots = pk.probe_table_slots(n)
     table = pk.build_probe_table(dim_keys, dim_valid, slots)
     plain_table = pk.build_probe_table_plain(dim_keys, dim_valid, slots)
     torch.cuda.synchronize()
     (gk, gr), (wk, wr) = pk.table_entries(table), pk.table_entries(plain_table)
     check(torch.equal(gk, wk) and torch.equal(gr, wr),
-          "K4 build: the table's (key, row) entries differ from the plain build's")
-    print(f"K4 table: {slots} slots, load {SF1_ORDERS / slots:.3f}, "
+          f"K4 build ({label}): the table's (key, row) entries differ from the plain build's")
+    print(f"K4 table ({label}): {n} keys, {slots} slots, load {n / slots:.3f}, "
           f"{table.numel() * table.element_size()} bytes")
 
     def build():
         return pk.build_probe_table(dim_keys, dim_valid, slots)
-    results["hash_probe_build"] = {
+    case = {
         "max_abs_err": max(max_abs_err(gk, wk), max_abs_err(gr, wr)),
         "ms": time_ms(build, 20),
-        "device_ms": device_ms(build, 20, "K4 build"),
+        "device_ms": device_ms(build, 20, f"K4 build {label}"),
         "plain_ms": time_ms(lambda: pk.build_probe_table_plain(dim_keys, dim_valid, slots), 2),
         "library_ms": None,
-        "bound_ms": bound_ms(SF1_ORDERS * 9 + slots * 12),
-        "slots": slots,
+        "bound_ms": bound_ms(n * 9 + slots * 12),
+        "keys": n, "slots": slots,
     }
-    fact_keys = torch.zeros(BUCKET, dtype=torch.int64)
-    fact_keys[:n] = torch.from_numpy(cols["l_orderkey"])
-    fact_valid = torch.zeros(BUCKET, dtype=torch.bool)
-    fact_valid[:n] = True
-    fact_keys, fact_valid = fact_keys.to(dev), fact_valid.to(dev)
-    sorted_keys = torch.sort(dim_keys)[0]
-    probe_bound = bound_ms(BUCKET * 8 + BUCKET + slots * 12 + BUCKET * 4)
-    for label, keys in (("hits", fact_keys), ("all_miss", fact_keys + SF1_ORDERS)):
-        got = pk.hash_probe_index(keys, fact_valid, table)
-        want = pk.hash_probe_index_plain(keys, fact_valid, table)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"K4 probe ({label}) differs from its plain version")
-        if label == "hits":
-            check(torch.equal(got[:n].cpu(), torch.from_numpy(cols["l_orderkey"] - 1).int()),
-                  "K4 probe: a lineitem row does not find its order")
-        else:
-            check(bool((got == -1).all()), "K4 probe (all_miss): a shifted key found a row")
+    return table, case
 
-        def probe(keys=keys):
-            return pk.hash_probe_index(keys, fact_valid, table)
-        case = {
-            "max_abs_err": max_abs_err(got, want),
-            "ms": time_ms(probe, 20),
-            "device_ms": device_ms(probe, 20, f"K4 probe {label}"),
-            "plain_ms": time_ms(
-                lambda keys=keys: pk.hash_probe_index_plain(keys, fact_valid, table), 5),
-            "library_ms": time_ms(lambda keys=keys: torch.searchsorted(sorted_keys, keys), 20),
-            "bound_ms": probe_bound,
-        }
-        if label == "hits":
-            results["hash_probe_index"] = case
-        else:
-            results["hash_probe_index"][label] = case
-        del got, want, keys
-    del plain_table, sorted_keys
+
+def k4_probe_case(pk, keys, valid, table, sorted_keys, label: str):
+    """K4's probe of ``keys`` into ``table``: the index and its case, equal
+    to the plain probe, timed by events and on the device, beside its bound
+    and ``searchsorted``'s time over the sorted dim keys."""
+    import torch
+
+    got = pk.hash_probe_index(keys, valid, table)
+    want = pk.hash_probe_index_plain(keys, valid, table)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"K4 probe ({label}) differs from its plain version")
+    n, slots = keys.numel(), table.shape[0]
+
+    def probe():
+        return pk.hash_probe_index(keys, valid, table)
+    case = {
+        "max_abs_err": max_abs_err(got, want),
+        "ms": time_ms(probe, 20),
+        "device_ms": device_ms(probe, 20, f"K4 probe {label}"),
+        "plain_ms": time_ms(lambda: pk.hash_probe_index_plain(keys, valid, table), 5),
+        "library_ms": time_ms(lambda: torch.searchsorted(sorted_keys, keys), 20),
+        "bound_ms": bound_ms(n * 8 + n + slots * 12 + n * 4),
+    }
+    del want
+    return got, case
+
+
+def fact_keys_on(cols, name: str, dev):
+    """(int64[BUCKET] keys, bool[BUCKET] valid) of a lineitem key column on
+    ``dev``, the padding rows invalid."""
+    import torch
+
+    n = len(cols[name])
+    keys = torch.zeros(BUCKET, dtype=torch.int64)
+    keys[:n] = torch.from_numpy(cols[name])
+    valid = torch.zeros(BUCKET, dtype=torch.bool)
+    valid[:n] = True
+    return keys.to(dev), valid.to(dev)
+
+
+def probe_cases(pk, cols, orders, dev, results: dict) -> None:
+    """K4's build and probe and K5 at q12's shapes, into ``results``: K4
+    over orders' keys, every lineitem key probed, then every lineitem key
+    shifted past the largest order key, so that every probe walks to an
+    empty slot; K5 on K4's table."""
+    import torch
+
+    n = len(cols["l_orderkey"])
+    dim_keys = torch.from_numpy(orders["o_orderkey"]).to(dev)
+    table, results["hash_probe_build"] = k4_build_case(pk, dim_keys, "orders")
+    fact_keys, fact_valid = fact_keys_on(cols, "l_orderkey", dev)
+    sorted_keys = torch.sort(dim_keys)[0]
+    got, results["hash_probe_index"] = k4_probe_case(pk, fact_keys, fact_valid, table,
+                                                     sorted_keys, "hits")
+    check(torch.equal(got[:n].cpu(), torch.from_numpy(cols["l_orderkey"] - 1).int()),
+          "K4 probe: a lineitem row does not find its order")
+    got, results["hash_probe_index"]["all_miss"] = k4_probe_case(
+        pk, fact_keys + SF1_ORDERS, fact_valid, table, sorted_keys, "all_miss")
+    check(bool((got == -1).all()), "K4 probe (all_miss): a shifted key found a row")
+    del got, sorted_keys, fact_keys, fact_valid
 
     # K5 on K4's table at q12's shapes, then with every real row kept
-    del fact_keys, fact_valid
     k5 = k5_inputs(cols, orders, table, dev)
     results["hash_probe_segment_sum"] = k5_case(pk, k5, "q12", cols, orders)
     results["hash_probe_segment_sum"]["all_kept"] = k5_case(pk, k5, "all_kept", cols, orders)
@@ -1054,7 +1152,62 @@ def probe_cases(pk, cols, orders, dev, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_kernels(cols, orders, card: str):
+def part_probe_cases(pk, cols, dims, dev, results: dict) -> None:
+    """K4 at q14's and q19's shapes: the build over part's keys and the probe
+    of lineitem's l_partkey (every row finds its part)."""
+    import torch
+
+    n = len(cols["l_partkey"])
+    dim_keys = torch.from_numpy(dims["part"]["p_partkey"]).to(dev)
+    table, results["hash_probe_build"]["at_part"] = k4_build_case(pk, dim_keys, "part")
+    keys, valid = fact_keys_on(cols, "l_partkey", dev)
+    got, results["hash_probe_index"]["at_l_partkey"] = k4_probe_case(
+        pk, keys, valid, table, torch.sort(dim_keys)[0], "l_partkey")
+    check(torch.equal(got[:n].cpu(), torch.from_numpy(cols["l_partkey"] - 1).int()),
+          "K4 probe: a lineitem row does not find its part")
+    del table, keys, valid, got
+    torch.cuda.empty_cache()
+
+
+def topn_inputs(cols, orders, dims, dev) -> dict:
+    """The join TopN's kernel inputs for q3 at SF1, as the stage builds them:
+    the codes (each row's order, q3's groups in first-occurrence order, where
+    q3's predicate keeps the row; trash Q3_CAP elsewhere), K1's rows and
+    revenue-count planes, K2's first-row-index plane and K7's f32 revenue
+    plane; and at the kernels' ceiling 2^22 the same planes over every real
+    row, each order's lines spread over four codes."""
+    import numpy as np
+    import torch
+
+    n = len(cols["l_orderkey"])
+    customer = dims["customer"]
+    cust_ok = customer["c_mktsegment"] == SEGMENTS.index("BUILDING")
+    order_ok = cust_ok[orders["o_custkey"] - 1] & (orders["o_orderdate"] < days(Q3_DATE))
+    okey = cols["l_orderkey"] - 1
+    out = {}
+    for label, cap, keep_np, group in (
+            ("q3", Q3_CAP, order_ok[okey] & (cols["l_shipdate"] > days(Q3_DATE)), okey),
+            ("max", TOPN_CAP, np.ones(n, dtype=bool),
+             (okey * 4 + (cols["l_linenumber"] - 1) % 4) % TOPN_CAP)):
+        keep = torch.zeros(BUCKET, dtype=torch.bool)
+        keep[:n] = torch.from_numpy(keep_np)
+        codes = torch.full((BUCKET,), cap, dtype=torch.int32)
+        codes[:n] = torch.from_numpy(np.where(keep_np, group, cap).astype(np.int32))
+        price = torch.zeros(BUCKET, dtype=torch.float32)
+        price[:n] = torch.from_numpy(cols["l_extendedprice"].astype(np.float32))
+        disc = torch.zeros(BUCKET, dtype=torch.float32)
+        disc[:n] = torch.from_numpy(cols["l_discount"].astype(np.float32))
+        kf = keep.float().to(dev)
+        out[label] = {
+            "cap": cap, "codes": codes.to(dev), "planes": [kf, kf.clone()],
+            "first": [torch.where(keep, torch.arange(BUCKET, dtype=torch.float32),
+                                  torch.tensor(float("inf"))).to(dev)],
+            "revenue": [torch.where(keep, price * (1 - disc), 0.0).to(dev)],
+            "keep": keep.to(dev)}
+    return out
+
+
+def phase_kernels(cols, orders, dims, card: str):
     import numpy as np
     import torch
 
@@ -1177,6 +1330,27 @@ def phase_kernels(cols, orders, card: str):
     del pk_in, pk_codes
     torch.cuda.empty_cache()
 
+    # the join TopN's launches: q3's own inputs at its cap 2^21 (the global
+    # tiers), and the kernels' ceiling 2^22 (K3 too)
+    check(grouped_stage._pad_groups(SF1_ORDERS) == Q3_CAP,
+          f"q3's {SF1_ORDERS} orders pad to {grouped_stage._pad_groups(SF1_ORDERS)}, "
+          f"not {Q3_CAP}")
+    for label, t in topn_inputs(cols, orders, dims, dev).items():
+        cap, tcodes = t["cap"], t["codes"]
+        at = f"at_{label}_cap{cap}"
+        results["segment_sum_planes"][at] = plane_case(sk, "sum", t["planes"], tcodes, cap, 2)
+        results["segment_extreme_planes"][at] = plane_case(sk, "min", t["first"], tcodes, cap,
+                                                           2)
+        k7[at] = k7_case(sk, t["revenue"], tcodes, cap, f"{label} cap {cap}")
+        if label == "max":
+            okey = torch.zeros(BUCKET, dtype=torch.int64)
+            okey[:rows] = torch.from_numpy(cols["l_orderkey"])
+            results["segment_extreme_int64"][at] = k3_case(sk, okey.to(dev), t["keep"], tcodes,
+                                                           cap, "min")
+            del okey
+        del t, tcodes
+    torch.cuda.empty_cache()
+
     # K1 at q12's shapes: 7 ship modes in cap 8, P = 5 planes (kept rows, and
     # the valid count and one digit plane of each CASE-WHEN sum); K2 over the
     # first-row-index plane and the same codes, Q = 1
@@ -1199,6 +1373,7 @@ def phase_kernels(cols, orders, card: str):
 
     del codes8
     probe_cases(pk, cols, orders, dev, results)
+    part_probe_cases(pk, cols, dims, dev, results)
 
     # K6 at the repartition cell's shapes: 8 x 8 blocks of 23 x 2^20 + 4
     # words (7 eight-byte planes, 1 four-byte plane, 8 validity planes, the
@@ -1541,16 +1716,18 @@ def q1_oracle(cols, extremes: bool = False) -> dict:
 
 def same_result(got: dict, want: dict, floats=()) -> bool:
     """Equal column for column: ``floats`` within rtol 1e-5 (the reference's
-    own device-vs-host tolerance, tests/test_device_path.py), the rest
-    exactly (floats bit for bit)."""
+    own device-vs-host tolerance, tests/test_device_path.py; nulls in the
+    same places), the rest exactly (floats bit for bit)."""
     import numpy as np
 
     if list(got) != list(want) or any(len(got[c]) != len(want[c]) for c in got):
         return False
     for c in got:
         if c in floats:
-            if not np.allclose(np.array(got[c], dtype=float), np.array(want[c], dtype=float),
-                               rtol=1e-5, atol=0.0):
+            g, w = ([np.nan if v is None else v for v in x[c]] for x in (got, want))
+            if [v is None for v in got[c]] != [v is None for v in want[c]] or \
+                    not np.allclose(np.array(g, dtype=float), np.array(w, dtype=float),
+                                    rtol=1e-5, atol=0.0, equal_nan=True):
                 return False
         elif [np.float64(v).tobytes() if isinstance(v, float) else v for v in got[c]] != \
                 [np.float64(v).tobytes() if isinstance(v, float) else v for v in want[c]]:
@@ -1559,11 +1736,12 @@ def same_result(got: dict, want: dict, floats=()) -> bool:
 
 
 def run_cell(label: str, query, kernels, card: str, floats=(), oracle=None,
-             counter: str = "device_grouped_batches"):
+             counter: str = "device_grouped_batches", extra_checks=None):
     """One query cell on the card: the counters zeroed just before the cold
-    run and read just after it, then the warm runs (median of 3), peak
-    device memory, the host path, and the checks: ``kernels`` launched,
-    ``counter`` above 0, no fallback, no rejection, the result equal to the
+    run and read just after it, then the warm runs (median of 3, counted
+    apart), peak device memory, the host path, and the checks: ``kernels``
+    launched, ``counter`` above 0, no fallback, no rejection,
+    ``extra_checks(cold counters, warm counters)``, the result equal to the
     host path and ``oracle``. Returns the cold run's launches."""
     import torch
 
@@ -1580,7 +1758,9 @@ def run_cell(label: str, query, kernels, card: str, floats=(), oracle=None,
         snap = counters.snapshot()
         rejected = dict(counters.rejections)
         launches = {k: snap[f"launches_{k}"] for k in counters.KERNEL_NAMES}
+        counters.reset()
         warm = time_s(lambda: query().to_pydict())
+        warm_snap = counters.snapshot()
         peak = torch.cuda.max_memory_allocated()
     print(f"{label} cold run counters: {json.dumps(snap, sort_keys=True)}")
     check(snap[counter] >= 1, f"{label}: no {counter} in the cold run")
@@ -1588,6 +1768,9 @@ def run_cell(label: str, query, kernels, card: str, floats=(), oracle=None,
     check(not rejected, f"{label}: a stage was refused: {rejected}")
     for k in kernels:
         check(launches[k] > 0, f"{label}: kernel {k} was not launched")
+    if extra_checks is not None:
+        print(f"{label} warm runs counters (3 runs): {json.dumps(warm_snap, sort_keys=True)}")
+        extra_checks(snap, warm_snap)
     with dt.execution_config_ctx(device_mode="off"):
         t0 = time.perf_counter()
         host = query().to_pydict()
@@ -1720,6 +1903,358 @@ def phase_q6(lineitem, card: str):
                              counter="device_stage_batches")
     print(f"q6 result: {json.dumps(got)} over {int(keep.sum())} kept rows")
     return (lambda: query().to_pydict()), launches
+
+
+# ---- the join tails: TPC-H q14, q19, q3, q10 -------------------------------------
+
+
+Q3_DATE = datetime.date(1995, 3, 15)
+Q10_FROM, Q10_TO = datetime.date(1993, 10, 1), datetime.date(1994, 1, 1)
+Q14_FROM, Q14_TO = datetime.date(1995, 9, 1), datetime.date(1995, 10, 1)
+Q19_BRANCHES = (  # (brand, containers, quantity from, quantity to, largest size)
+    ("Brand#12", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"), 1, 11, 5),
+    ("Brand#23", ("MED BAG", "MED BOX", "MED PKG", "MED PACK"), 10, 20, 10),
+    ("Brand#34", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"), 20, 30, 15))
+
+
+def days(d: datetime.date) -> int:
+    return (d - EPOCH).days
+
+
+def tails_frames(lineitem, orders, dims) -> dict:
+    """The port's DataFrames of the join tails' tables: string columns as
+    object arrays, dates as days."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+
+    def strings(vocab, codes):
+        return np.array(vocab, dtype=object)[codes]
+
+    part, customer, nation = dims["part"], dims["customer"], dims["nation"]
+    return {
+        "lineitem": dt.from_pydict({
+            **{c: lineitem[c] for c in ("l_orderkey", "l_partkey", "l_quantity",
+                                        "l_extendedprice", "l_discount")},
+            "l_returnflag": strings(RETURNFLAGS, lineitem["l_returnflag"]),
+            "l_shipdate": lineitem["l_shipdate"].astype("datetime64[D]"),
+            "l_shipinstruct": strings(INSTRUCTIONS, lineitem["l_shipinstruct"]),
+            "l_shipmode": strings(SHIPMODES, lineitem["l_shipmode"])}),
+        "orders": dt.from_pydict({
+            "o_orderkey": orders["o_orderkey"], "o_custkey": orders["o_custkey"],
+            "o_orderdate": orders["o_orderdate"].astype("datetime64[D]"),
+            "o_shippriority": orders["o_shippriority"]}),
+        "part": dt.from_pydict({
+            "p_partkey": part["p_partkey"], "p_type": strings(P_TYPES, part["p_type"]),
+            "p_brand": strings(P_BRANDS, part["p_brand"]), "p_size": part["p_size"],
+            "p_container": strings(P_CONTAINERS, part["p_container"])}),
+        "customer": dt.from_pydict({
+            **customer, "c_mktsegment": strings(SEGMENTS, customer["c_mktsegment"])}),
+        "nation": dt.from_pydict(nation),
+    }
+
+
+def q14_query(t):
+    """TPC-H q14 as benchmarking/tpch/queries.py:255-264 writes it."""
+    from daft_tpu_torch import col, lit
+
+    return (t["lineitem"].where((col("l_shipdate") >= lit(Q14_FROM))
+                                & (col("l_shipdate") < lit(Q14_TO)))
+            .join(t["part"], left_on="l_partkey", right_on="p_partkey")
+            .with_column("revenue", col("l_extendedprice") * (1 - col("l_discount")))
+            .with_column("promo", col("p_type").str.startswith("PROMO")
+                         .if_else(col("revenue"), lit(0.0)))
+            .agg(col("promo").sum().alias("promo_sum"), col("revenue").sum().alias("total_sum"))
+            .select((lit(100.0) * col("promo_sum") / col("total_sum")).alias("promo_revenue")))
+
+
+def q19_query(t):
+    """TPC-H q19 as benchmarking/tpch/queries.py:337-355 writes it."""
+    from daft_tpu_torch import col
+
+    joined = (t["lineitem"].where(col("l_shipmode").is_in(["AIR", "REG AIR"])
+                                  & (col("l_shipinstruct") == "DELIVER IN PERSON"))
+              .join(t["part"], left_on="l_partkey", right_on="p_partkey"))
+    sm, med, lg = [(col("p_brand") == brand) & col("p_container").is_in(list(containers))
+                   & (col("l_quantity") >= lo) & (col("l_quantity") <= hi)
+                   & (col("p_size") <= size)
+                   for brand, containers, lo, hi, size in Q19_BRANCHES]
+    return (joined.where((col("p_size") >= 1) & (sm | med | lg))
+            .agg((col("l_extendedprice") * (1 - col("l_discount"))).sum().alias("revenue")))
+
+
+def q3_query(t):
+    """TPC-H q3 as benchmarking/tpch/queries.py:59-72 writes it."""
+    from daft_tpu_torch import col, lit
+
+    return (t["customer"].where(col("c_mktsegment") == "BUILDING")
+            .join(t["orders"], left_on="c_custkey", right_on="o_custkey")
+            .where(col("o_orderdate") < lit(Q3_DATE))
+            .join(t["lineitem"], left_on="o_orderkey", right_on="l_orderkey")
+            .where(col("l_shipdate") > lit(Q3_DATE))
+            .groupby(col("o_orderkey").alias("l_orderkey"), "o_orderdate", "o_shippriority")
+            .agg((col("l_extendedprice") * (1 - col("l_discount"))).sum().alias("revenue"))
+            .select("l_orderkey", "revenue", "o_orderdate", "o_shippriority")
+            .sort(["revenue", "o_orderdate"], desc=[True, False])
+            .limit(10))
+
+
+def q10_query(t):
+    """TPC-H q10 as benchmarking/tpch/queries.py:185-199 writes it."""
+    from daft_tpu_torch import col, lit
+
+    return (t["orders"].where((col("o_orderdate") >= lit(Q10_FROM))
+                              & (col("o_orderdate") < lit(Q10_TO)))
+            .join(t["lineitem"].where(col("l_returnflag") == "R"), left_on="o_orderkey",
+                  right_on="l_orderkey")
+            .join(t["customer"], left_on="o_custkey", right_on="c_custkey")
+            .join(t["nation"], left_on="c_nationkey", right_on="n_nationkey")
+            .groupby(col("o_custkey").alias("c_custkey"), "c_name", "c_acctbal", "c_phone",
+                     "n_name", "c_address", "c_comment")
+            .agg((col("l_extendedprice") * (1 - col("l_discount"))).sum().alias("revenue"))
+            .select("c_custkey", "c_name", "revenue", "c_acctbal", "n_name", "c_address",
+                    "c_phone", "c_comment")
+            .sort(["revenue", "c_custkey"], desc=[True, False])
+            .limit(20))
+
+
+def revenue(lineitem):
+    return lineitem["l_extendedprice"] * (1 - lineitem["l_discount"])
+
+
+def q14_oracle(lineitem, orders, dims) -> dict:
+    """q14's answer with numpy alone, in f64 (p_partkey is 1..parts, so the
+    join is an index)."""
+    import numpy as np
+
+    ship = lineitem["l_shipdate"]
+    keep = (ship >= days(Q14_FROM)) & (ship < days(Q14_TO))
+    promo = np.array([t.startswith("PROMO") for t in P_TYPES])[
+        dims["part"]["p_type"][lineitem["l_partkey"][keep] - 1]]
+    rev = revenue(lineitem)[keep]
+    return {"promo_revenue": [float(100.0 * rev[promo].sum() / rev.sum())]}
+
+
+def q19_oracle(lineitem, orders, dims) -> dict:
+    """q19's answer with numpy alone, in f64 (None where no row is kept)."""
+    import numpy as np
+
+    part = dims["part"]
+    rows = lineitem["l_partkey"] - 1
+    brand = np.array(P_BRANDS, dtype=object)[part["p_brand"]][rows]
+    container = np.array(P_CONTAINERS, dtype=object)[part["p_container"]][rows]
+    size, qty = part["p_size"][rows], lineitem["l_quantity"]
+    mode = lineitem["l_shipmode"]
+    keep = ((mode == SHIPMODES.index("AIR")) | (mode == SHIPMODES.index("REG AIR"))) \
+        & (lineitem["l_shipinstruct"] == INSTRUCTIONS.index("DELIVER IN PERSON")) & (size >= 1)
+    any_branch = np.zeros(len(rows), dtype=bool)
+    for b, containers, lo, hi, largest in Q19_BRANCHES:
+        any_branch |= ((brand == b) & np.isin(container, containers) & (qty >= lo)
+                       & (qty <= hi) & (size <= largest))
+    keep &= any_branch
+    return {"revenue": [float(revenue(lineitem)[keep].sum()) if keep.any() else None]}
+
+
+def top_groups(sums, present, tie, k: int):
+    """The k groups of largest sum, ties by ascending ``tie``, and the
+    relative margin between the k-th and the next sum (None when there is
+    no next one)."""
+    import numpy as np
+
+    live = np.flatnonzero(present)
+    order = live[np.lexsort((tie[live], -sums[live]))]
+    top = order[:k]
+    margin = (float((sums[order[k - 1]] - sums[order[k]]) / sums[order[k - 1]])
+              if len(order) > k else None)
+    return top, margin
+
+
+def q3_oracle(lineitem, orders, dims) -> dict:
+    """q3's answer with numpy alone, in f64, and the margin at its limit
+    (o_orderkey and c_custkey are 1..n: the joins are indices)."""
+    import numpy as np
+
+    customer = dims["customer"]
+    cust_ok = customer["c_mktsegment"] == SEGMENTS.index("BUILDING")
+    order_ok = cust_ok[orders["o_custkey"] - 1] & (orders["o_orderdate"] < days(Q3_DATE))
+    okey = lineitem["l_orderkey"] - 1
+    keep = order_ok[okey] & (lineitem["l_shipdate"] > days(Q3_DATE))
+    n = len(orders["o_orderkey"])
+    sums = np.bincount(okey[keep], weights=revenue(lineitem)[keep], minlength=n)
+    present = np.bincount(okey[keep], minlength=n) > 0
+    top, margin = top_groups(sums, present, orders["o_orderdate"], 10)
+    return {"l_orderkey": orders["o_orderkey"][top].tolist(),
+            "revenue": sums[top].tolist(),
+            "o_orderdate": [EPOCH + datetime.timedelta(days=int(d))
+                            for d in orders["o_orderdate"][top]],
+            "o_shippriority": orders["o_shippriority"][top].tolist()}, margin
+
+
+def q10_oracle(lineitem, orders, dims) -> dict:
+    """q10's answer with numpy alone, in f64, and the margin at its limit."""
+    import numpy as np
+
+    customer = dims["customer"]
+    date = orders["o_orderdate"]
+    order_ok = (date >= days(Q10_FROM)) & (date < days(Q10_TO))
+    okey = lineitem["l_orderkey"] - 1
+    keep = order_ok[okey] & (lineitem["l_returnflag"] == RETURNFLAGS.index("R"))
+    cust = orders["o_custkey"][okey[keep]] - 1
+    n = len(customer["c_custkey"])
+    sums = np.bincount(cust, weights=revenue(lineitem)[keep], minlength=n)
+    present = np.bincount(cust, minlength=n) > 0
+    top, margin = top_groups(sums, present, customer["c_custkey"], 20)
+    names = np.array(NATIONS, dtype=object)[customer["c_nationkey"][top]]
+    return {"c_custkey": customer["c_custkey"][top].tolist(),
+            "c_name": customer["c_name"][top].tolist(),
+            "revenue": sums[top].tolist(),
+            "c_acctbal": customer["c_acctbal"][top].tolist(),
+            "n_name": names.tolist(),
+            "c_address": customer["c_address"][top].tolist(),
+            "c_phone": customer["c_phone"][top].tolist(),
+            "c_comment": customer["c_comment"][top].tolist()}, margin
+
+
+# (query, oracle, float columns, a TopN run, the adjacent dim's probe)
+TAILS = {"q14": (q14_query, q14_oracle, ("promo_revenue",), False),
+         "q19": (q19_query, q19_oracle, ("revenue",), False),
+         "q3": (q3_query, q3_oracle, ("revenue",), True),
+         "q10": (q10_query, q10_oracle, ("revenue",), True)}
+
+
+def phase_tail(name: str, frames: dict, lineitem, orders, dims, card: str):
+    """One join tail at SF1 on the card: the cold run (counters zeroed just
+    before it and read just after), the warm runs, the host path and the
+    numpy oracle, with the counters' checks: a device join batch, no
+    fallback, one TopN run for q3 and q10, K4's build and probe once on the
+    cold run (one adjacent dim each) and never on the warm runs. Returns
+    (the query as a callable, the cold run's launches)."""
+    from daft_tpu_torch.ops import device_join as dj
+
+    phase(name)
+    clear_residency()
+    query, oracle, floats, topn = TAILS[name]
+    t0 = time.perf_counter()
+    want = oracle(lineitem, orders, dims)
+    if topn:
+        want, margin = want
+        print(f"{name} oracle: relative margin between the limit's last revenue and the next "
+              f"{margin!r} (the device's f32 products summed in f64 stay within 1e-6 of the "
+              "oracle's f64)")
+        check(margin is not None and margin > 1e-5,
+              f"{name}: the oracle's revenues at the limit are too close to order")
+    print(f"{name} oracle {time.perf_counter() - t0:.2f} s", flush=True)
+
+    spent = []
+    build = dj._FactorizedCodes.__init__
+
+    def timed(self, *args, **kwargs):
+        t1 = time.perf_counter()
+        try:
+            return build(self, *args, **kwargs)
+        finally:
+            spent.append(time.perf_counter() - t1)
+
+    def checks(snap, warm):
+        check(snap["device_join_batches"] >= 1, f"{name}: no device join batch")
+        check(snap["device_topn_runs"] == (1 if topn else 0),
+              f"{name}: {snap['device_topn_runs']} device TopN runs")
+        for k in ("hash_probe_build", "hash_probe_index"):
+            check(snap[f"launches_{k}"] == 1,
+                  f"{name}: K4 {k} launched {snap[f'launches_{k}']} times on the cold run, "
+                  "expected once (one adjacent dim)")
+            check(warm[f"launches_{k}"] == 0, f"{name}: a warm run launched K4 {k}")
+        check(warm["device_fallbacks"] == 0 and warm["device_join_batches"] == 3,
+              f"{name}: a warm run left the device join path")
+        check(warm["device_topn_runs"] == (3 if topn else 0),
+              f"{name}: a warm run left the device TopN")
+
+    kernels = ("hash_probe_build", "hash_probe_index")
+    if topn:
+        kernels += ("segment_sum_planes", "segment_extreme_planes", "segment_sum_float_planes")
+    dj._FactorizedCodes.__init__ = timed
+    try:
+        got, launches = run_cell(name, lambda: query(frames), kernels, card, floats, want,
+                                 counter="device_join_batches", extra_checks=checks)
+    finally:
+        dj._FactorizedCodes.__init__ = build
+    if topn:
+        check(len(spent) == 1, f"{name}: {len(spent)} host factorizes over the runs, "
+                               "expected one (cached)")
+        print(f"{name} cold host factorize of the group keys over "
+              f"{len(lineitem['l_orderkey'])} fact rows: {spent[0]:.3f} s [{card}]", flush=True)
+    print(f"{name} result: {json.dumps(got, default=str)}")
+    return (lambda: query(frames).to_pydict()), launches
+
+
+COALESCE_MORSEL_ROWS = 1 << 14  # an eighth of the default morsel_size_rows
+
+
+def phase_coalesce(lineitem, card: str):
+    """q6 over lineitem cut into morsels of COALESCE_MORSEL_ROWS rows, the
+    dispatch coalescer on (its default target, half the bucket at
+    morsel_size_rows): the counters zeroed just before the run and read just
+    after it show fewer dispatches than morsels with buckets at least half
+    full, and the result equals the one-batch run's and the oracle's.
+    Returns (the run as a callable, its launches)."""
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col, lit
+    from daft_tpu_torch.ops import counters
+    from daft_tpu_torch.plan import logical as lp
+
+    phase("coalesce")
+    clear_residency()
+    part = dt.MicroPartition.from_pydict({
+        **{c: lineitem[c] for c in ("l_quantity", "l_extendedprice", "l_discount")},
+        "l_shipdate": lineitem["l_shipdate"].astype("datetime64[D]")})
+    batch = part.concat_or_empty()
+    morsels = [batch.slice(s, s + COALESCE_MORSEL_ROWS)
+               for s in range(0, batch.num_rows, COALESCE_MORSEL_ROWS)]
+    whole = dt.DataFrame(lp.InMemorySource(part.schema, [part]))
+    cut = dt.DataFrame(lp.InMemorySource(part.schema, [dt.MicroPartition(part.schema,
+                                                                         morsels)]))
+
+    def q6(df):
+        return (df.where((col("l_shipdate") >= lit(Q6_FROM)) & (col("l_shipdate") < lit(Q6_TO))
+                         & (col("l_discount") >= 0.05) & (col("l_discount") <= 0.07)
+                         & (col("l_quantity") < 24))
+                .agg((col("l_extendedprice") * col("l_discount")).sum().alias("revenue")))
+
+    with dt.execution_config_ctx(device="cuda", device_mode="on"):
+        one = q6(whole).to_pydict()
+        counters.reset()
+        t0 = time.perf_counter()
+        got = q6(cut).to_pydict()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snap = counters.snapshot()
+        launches = {k: snap[f"launches_{k}"] for k in counters.KERNEL_NAMES}
+        cfg = dt.execution_config()
+    print(f"coalesce run counters: {json.dumps(snap, sort_keys=True)}")
+    fill = snap["bucket_fill_rows"] / max(snap["bucket_capacity_rows"], 1)
+    check(snap["coalesce_morsels_in"] == len(morsels),
+          f"{snap['coalesce_morsels_in']} morsels reached the coalescer, not {len(morsels)}")
+    check(snap["coalesce_morsels_in"] > snap["dispatch_coalesced"],
+          "the coalescer fed as many batches as it took morsels")
+    check(snap["device_stage_batches"] == snap["dispatch_coalesced"],
+          "a stage batch did not come from the coalescer")
+    check(fill >= 0.5, f"bucket fill {fill:.4f} is under 0.5")
+    ship = lineitem["l_shipdate"]
+    keep = ((ship >= days(Q6_FROM)) & (ship < days(Q6_TO))
+            & (lineitem["l_discount"] >= 0.05) & (lineitem["l_discount"] <= 0.07)
+            & (lineitem["l_quantity"] < 24))
+    oracle = {"revenue": [float((lineitem["l_extendedprice"][keep]
+                                 * lineitem["l_discount"][keep]).sum())]}
+    check(same_result(got, one, ("revenue",)), "the coalesced run differs from the one-batch run")
+    check(same_result(got, oracle, ("revenue",)), "the coalesced run differs from the oracle")
+    print(f"coalesce: {len(morsels)} morsels of {COALESCE_MORSEL_ROWS} rows into "
+          f"{snap['dispatch_coalesced']} dispatches (target {int(cfg.batch_fill_target * 100)} % "
+          f"of the {cfg.morsel_size_rows}-row bucket), fill {fill:.4f}; run {wall:.3f} s; "
+          f"result {json.dumps(got)} equal to the one-batch run {json.dumps(one)} and the "
+          f"oracle [{card}]", flush=True)
+    return (lambda: q6(cut).to_pydict()), launches
 
 
 def splitmix64_np(x):
@@ -1862,13 +2397,13 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, root)
     try:
-        card, name = phase_card()
+        card, device_name = phase_card()
         print(f"package: {os.path.join(root, 'daft_tpu_torch')}", flush=True)
         phase_build(card)
         t0 = time.perf_counter()
-        lineitem, orders = tpch_sf1(SEED)
+        lineitem, orders, dims = tpch_sf1(SEED)
         print(f"datagen {time.perf_counter() - t0:.2f} s", flush=True)
-        kernel_results = phase_kernels(lineitem, orders, card)
+        kernel_results = phase_kernels(lineitem, orders, dims, card)
         paths = {}
         if not args.kernels_only:
             df, paths["supplier"] = phase_slice(lineitem, card)
@@ -1883,6 +2418,16 @@ def main(argv=None) -> int:
             q6, paths["q6"] = phase_q6(lineitem, card)
             phase_profile(q6, card, "q6 profile")
             del q1, partkey, q6
+            t0 = time.perf_counter()
+            frames = tails_frames(lineitem, orders, dims)
+            print(f"join tails' frames {time.perf_counter() - t0:.2f} s", flush=True)
+            for cell in TAILS:
+                tail, paths[cell] = phase_tail(cell, frames, lineitem, orders, dims, card)
+                phase_profile(tail, card, f"{cell} profile")
+            del frames, tail
+            coalesce, paths["coalesce"] = phase_coalesce(lineitem, card)
+            phase_profile(coalesce, card, "coalesce profile")
+            del coalesce
             repart, paths["repartition"] = phase_repartition(lineitem, card)
             phase_profile(repart, card, "repartition profile", mesh_devices=MESH)
     except SmokeFailure as exc:
@@ -1905,7 +2450,7 @@ def main(argv=None) -> int:
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}))
     return 0
 

@@ -16,7 +16,16 @@ default and ``execution_config_ctx`` scopes an override.
   device tier yet, and makes the mesh repartition's exchange take its
   all_to_all tier (one block copy per source and destination) instead of
   the ring-permute kernel K6.
-- ``morsel_size_rows``: morsel size of the host aggregation.
+- ``morsel_size_rows``: morsel size of the host aggregation, and the size
+  the dispatch coalescer's bucket is taken at.
+- ``batch_fill_target``: the device dispatch coalescer (ops/stage.py
+  ``DispatchCoalescer``) feeds its stage once the pending morsels' rows
+  reach this share of the power-of-two bucket at ``morsel_size_rows``
+  (execution/batching.py ``coalesce_target_rows``); in [0, 1], 0 turns
+  coalescing off (every morsel is fed alone).
+- ``batch_latency_ms``: a morsel arriving after the oldest pending one has
+  waited this long flushes the pending ones (checked at each arrival, no
+  timer thread); must be > 0.
 - ``mesh_devices``: 0 or 1 = no mesh; N >= 2 = a forced mesh of N shard
   slots on ``device`` for qualifying stages (today the hash repartition into
   N partitions). The port has no cost model, so no "auto" width.
@@ -40,6 +49,8 @@ class ExecutionConfig:
     device_mode: str = "on"
     kernel_mode: str = "on"
     morsel_size_rows: int = 128 * 1024
+    batch_fill_target: float = 0.5
+    batch_latency_ms: float = 50.0
     hbm_budget_bytes: int = 0
     mesh_devices: int = 0
     device_min_rows: int = 65_536
@@ -51,6 +62,12 @@ class ExecutionConfig:
             raise ValueError(f"kernel_mode must be 'on' or 'off', got {self.kernel_mode!r}")
         if self.morsel_size_rows < 1:
             raise ValueError(f"morsel_size_rows must be >= 1, got {self.morsel_size_rows!r}")
+        if not 0.0 <= self.batch_fill_target <= 1.0:
+            raise ValueError(f"batch_fill_target must be in [0, 1] (0 turns coalescing "
+                             f"off), got {self.batch_fill_target!r}")
+        if self.batch_latency_ms <= 0:
+            raise ValueError(f"batch_latency_ms must be positive, got "
+                             f"{self.batch_latency_ms!r}")
         if self.mesh_devices < 0:
             raise ValueError(f"mesh_devices must be >= 0, got {self.mesh_devices!r}")
 

@@ -2,7 +2,8 @@
 daft_tpu/dataframe/dataframe.py, the subset the port's slices need):
 ``where``, ``select``, ``with_column``, ``join`` (inner), ``repartition``,
 ``groupby(...).agg(...)``, the ungrouped ``agg`` (and ``sum``, ``mean``,
-``min``, ``max``, ``count``), ``sort``, ``collect`` and ``to_pydict``.
+``min``, ``max``, ``count``), ``sort``, ``limit``, ``offset``, ``collect``
+and ``to_pydict``.
 
 Every method appends a logical node; ``collect`` translates the plan under
 the current execution config and runs it, caching the result partitions.
@@ -95,6 +96,14 @@ class DataFrame:
         if isinstance(nulls_first, bool):
             nulls_first = [nulls_first] * len(exprs)
         return DataFrame(lp.Sort(self._plan, exprs, descending, nulls_first))
+
+    def limit(self, n: int) -> "DataFrame":
+        """The first ``n`` rows (after a sort: its top ``n``)."""
+        return DataFrame(lp.Limit(self._plan, n))
+
+    def offset(self, n: int) -> "DataFrame":
+        """Every row after the first ``n``."""
+        return DataFrame(lp.Offset(self._plan, n))
 
     def repartition(self, num: Optional[int], *partition_by: ColumnInput) -> "DataFrame":
         """``num`` partitions by the hash of ``partition_by``, or at random

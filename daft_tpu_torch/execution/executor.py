@@ -2,16 +2,20 @@
 daft_tpu/execution/executor.py, the subset the grouped-aggregation, join and
 repartition slices need).
 
-``execute_plan`` streams MicroPartitions. Host operators run in numpy. A
+``execute_plan`` streams MicroPartitions. Host operators run in numpy
+(``PhysLimit`` and ``PhysTopN`` included: a stable sort, then a slice). A
 ``DeviceFilterAgg`` runs its ungrouped stage on the configured device
 (``_exec_device_filter_agg``). A ``DeviceGroupedAgg`` runs its stage on the
-configured device (the reference's
-device agg branch, executor.py:580-733, without the mesh, UDF, cost-model and
-coalescer arms): each batch is fed as it arrives and buffered, and when the
-stage raises ``DeviceFallback`` (its group count outgrew the kernels'
-envelope, detected before any launch) the whole buffered stream reruns on
-the host. A ``DeviceJoinAgg`` runs the star-join stage the same way
-(``_exec_device_join_agg``), and a ``HashJoin`` joins on the host. A
+configured device (the reference's device agg branch, executor.py:580-733,
+without the mesh, UDF and cost-model arms): each batch is buffered, and
+when the stage raises ``DeviceFallback`` (its group count outgrew the
+kernels' envelope, detected before any launch) the whole buffered stream
+reruns on the host. Both stages, and the join runs but the TopN, take
+their morsels through a ``DispatchCoalescer`` (``_make_coalescer``), which
+is closed before the run finalizes. A ``DeviceJoinAgg`` runs the star-join
+stage, grouped or ungrouped, the same way (``_exec_device_join_agg``), a
+``DeviceJoinTopN`` its TopN run over one fact batch
+(``_exec_device_join_topn``), and a ``HashJoin`` joins on the host. A
 ``PhysRepartition`` splits on the host by the rows' hash (or at random), or,
 for a hash repartition into ``mesh_devices`` partitions, runs the mesh
 exchange on the device (``_mesh_repartition``). Any other error, a kernel
@@ -63,6 +67,22 @@ def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
                              [batch.sort(keys, node.descending, node.nulls_first)])
         return
 
+    if isinstance(node, pp.PhysLimit):
+        yield from _limit(node)
+        return
+
+    if isinstance(node, pp.PhysTopN):
+        batch = _concat_parts(list(_exec(node.input)), node.schema)
+        keys = [_full_length(eval_expression(batch, e), batch.num_rows)
+                for e in node.sort_by]
+        top = batch.sort(keys, node.descending, node.nulls_first)
+        yield MicroPartition(node.schema, [top.slice(node.offset, node.offset + node.limit)])
+        return
+
+    if isinstance(node, pp.DeviceJoinTopN):
+        yield _exec_device_join_topn(node)
+        return
+
     if isinstance(node, pp.HashAggregate):
         if node.groupby:
             out = _two_phase_agg(_exec(node.input), node.groupby, node.aggregations,
@@ -98,6 +118,59 @@ def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
     raise NotImplementedError(f"no executor for {node.name()}")
 
 
+def _limit(node: pp.PhysLimit) -> Iterator[MicroPartition]:
+    """Skip ``offset`` rows of the stream, then pass ``limit`` rows on (every
+    row when limit is -1); stops reading the input once the limit is met."""
+    to_skip = node.offset
+    remaining = node.limit if node.limit >= 0 else None
+    if remaining == 0:
+        return
+    for part in _exec(node.input):
+        batches = []
+        for b in part.batches:
+            if to_skip >= b.num_rows:
+                to_skip -= b.num_rows
+                continue
+            b = b.slice(to_skip, b.num_rows)
+            to_skip = 0
+            if remaining is not None:
+                b = b.head(remaining)
+                remaining -= b.num_rows
+            batches.append(b)
+            if remaining == 0:
+                break
+        if batches:
+            yield MicroPartition(node.schema, batches)
+        if remaining == 0:
+            return
+
+
+def _make_coalescer(feed, cfg):
+    """A DispatchCoalescer (ops/stage.py) feeding ``feed``, or None when
+    coalescing is off (batch_fill_target == 0): each morsel is then fed
+    alone. The flush threshold is batching.coalesce_target_rows."""
+    from ..ops.stage import DispatchCoalescer
+    from .batching import coalesce_target_rows
+
+    target = coalesce_target_rows(cfg)
+    if target <= 0:
+        return None
+    return DispatchCoalescer(feed, target_rows=target, latency_s=cfg.batch_latency_ms / 1e3)
+
+
+def _feed_stream(stream, feed, cfg) -> None:
+    """Every batch of ``stream`` through ``feed``, by way of a coalescer when
+    coalescing is on; the coalescer is closed (its pending batches fed)
+    before the caller finalizes."""
+    coalescer = _make_coalescer(feed, cfg)
+    add = coalescer.add if coalescer is not None else feed
+    for part in stream:
+        for b in part.batches:
+            add(b)
+    if coalescer is not None:
+        coalescer.close()
+
+
 def _exec_device_agg(node: pp.DeviceGroupedAgg) -> MicroPartition:
     """Run a DeviceGroupedAgg: the device stage, or the host under
     device_mode="off" and after a DeviceFallback."""
@@ -127,14 +200,17 @@ def _exec_device_agg(node: pp.DeviceGroupedAgg) -> MicroPartition:
                            "kernel tier does not accept under the current config")
     run = stage.start_run(device)
     buffered: List[MicroPartition] = []
+
+    def buffering():
+        for part in stream:
+            buffered.append(part)
+            yield part
+
     try:
         # pin the query's resident planes so a tight budget cannot evict
         # buffers this run still reads; released at scope exit
         with _residency().pin_scope():
-            for part in stream:
-                buffered.append(part)
-                for b in part.batches:
-                    run.feed_batch(b)
+            _feed_stream(buffering(), run.feed_batch, cfg)
             key_rows, results = run.finalize()
     except DeviceFallback as exc:
         # raised before any launch for the offending batch: rerun the whole
@@ -169,18 +245,23 @@ def _exec_device_filter_agg(node: pp.DeviceFilterAgg) -> MicroPartition:
                            "not accept")
     run = stage.start_run(device)
     with _residency().pin_scope():
-        for part in stream:
-            for b in part.batches:
-                run.feed_batch(b)
+        _feed_stream(stream, run.feed_batch, cfg)
         final = run.finalize()
+    return _ungrouped_output(node.schema, stage, final)
+
+
+def _ungrouped_output(schema, stage, final) -> MicroPartition:
+    """The one-row result of an ungrouped device stage from its finalized
+    {aggregation name: value}; a boolean result (a min or max of a bool
+    column comes back as a number) is cast back to bool."""
     cols = []
     for name, _agg in stage.aggs:
-        f = node.schema[name]
+        f = schema[name]
         value = final[name]
         if value is not None and f.dtype.is_boolean():
             value = bool(value)
         cols.append(Series.from_pylist([value], f.name, dtype=f.dtype))
-    return MicroPartition(node.schema, [RecordBatch(node.schema, cols, 1)])
+    return MicroPartition(schema, [RecordBatch(schema, cols, 1)])
 
 
 def _hash_join_batch(node: pp.HashJoin, left: RecordBatch,
@@ -199,18 +280,72 @@ def _hash_join_batch(node: pp.HashJoin, left: RecordBatch,
 
 
 def _exec_device_join_agg(node: pp.DeviceJoinAgg) -> MicroPartition:
-    """Run a DeviceJoinAgg (the reference's _run_device_join without its cost
-    model, mesh and coalescer): the host plan under device_mode="off";
-    otherwise materialize the dims, build the join context, feed every fact
-    batch through the join run under one pin scope and finalize. A
+    """Run a DeviceJoinAgg: the grouped join run (group keys) or the
+    ungrouped one (none), the fact's morsels fed through the dispatch
+    coalescer."""
+    from ..ops.device_join import DeviceJoinGroupedRun, DeviceJoinUngroupedRun
+
+    def make_run(stage, grouped, ctx):
+        return DeviceJoinGroupedRun(stage, ctx) if grouped \
+            else DeviceJoinUngroupedRun(stage, ctx)
+
+    def feed(run, stream, cfg):
+        _feed_stream(stream, run.feed_batch, cfg)
+
+    def assemble(run, stage, grouped):
+        if grouped:
+            key_rows, results = run.finalize()
+            return _grouped_output(node.schema, node.spec.groupby, node.spec.aggregations,
+                                   key_rows, results)
+        return _ungrouped_output(node.schema, stage, run.finalize())
+
+    return _run_device_join(node, "join agg", make_run, feed, assemble)
+
+
+def _exec_device_join_topn(node: pp.DeviceJoinTopN) -> MicroPartition:
+    """Run a DeviceJoinTopN: the TopN join run over one fact batch (a
+    second batch is a DeviceFallback, raised before anything is fed), the
+    K winners assembled in the TopN's column order."""
+    from ..ops.device_join import DeviceJoinTopNRun
+    from ..ops.grouped_stage import DeviceFallback
+
+    def make_run(stage, _grouped, ctx):
+        return DeviceJoinTopNRun(stage, ctx, node.topn)
+
+    def feed(run, stream, _cfg):
+        batches = [b for part in stream for b in part.batches if b.num_rows > 0]
+        if len(batches) > 1:
+            raise DeviceFallback("device TopN path requires a single fact batch")
+        for b in batches:
+            run.feed_batch(b)
+
+    def assemble(run, _stage, _grouped):
+        key_rows, results = run.finalize_topn()
+        cols = []
+        for f, (kind, idx) in zip(node.schema, node.out_map):
+            if kind == "group":
+                cols.append(Series.from_pylist([k[idx] for k in key_rows], f.name,
+                                               dtype=f.dtype))
+            else:
+                cols.append(_agg_series(f, *results[idx]))
+        return MicroPartition(node.schema, [RecordBatch(node.schema, cols, len(key_rows))])
+
+    return _run_device_join(node, "join topn", make_run, feed, assemble)
+
+
+def _run_device_join(node, label: str, make_run, feed, assemble) -> MicroPartition:
+    """What the device join nodes share (the reference's _run_device_join
+    without its cost model and mesh): the host plan under device_mode="off";
+    otherwise materialize the dims, build the join context, and feed the
+    fact stream through the run under one pin scope, then assemble. A
     DeviceFallback (non-unique or non-integer dim keys, a dim key equal to
-    the probe table's empty marker, too many groups: all decided before any
-    launch) records its reason and runs the host plan. Any other error, a
-    kernel failure included, propagates."""
+    the probe table's empty marker, too many groups, a TopN's second fact
+    batch: all decided before any launch) records its reason and runs the
+    host plan. Any other error, a kernel failure included, propagates."""
     from ..config import execution_config
     from ..device.residency import manager as _residency
     from ..ops import counters
-    from ..ops.device_join import DeviceJoinGroupedRun, _JoinContext, build_join_stage
+    from ..ops.device_join import _JoinContext, build_join_stage
     from ..ops.grouped_stage import DeviceFallback
     from ..utils.torch_setup import resolve_device
 
@@ -222,25 +357,21 @@ def _exec_device_join_agg(node: pp.DeviceJoinAgg) -> MicroPartition:
     if cfg.device_mode == "off":
         return host()
     device = resolve_device(cfg.device)
-    stage = build_join_stage(node.spec)
+    stage, grouped = build_join_stage(node.spec)
     if stage is None:
         return host()  # the config changed since planning (kernel_mode="off")
     dims = {name: _concat_parts(list(_exec(plan)), plan.schema)
             for name, plan in node.dim_plans}
     try:
         with _residency().pin_scope():
-            run = DeviceJoinGroupedRun(stage, _JoinContext(node.spec, dims, device,
-                                                           f32=not stage._use_f64))
-            for part in _exec(node.fact):
-                for b in part.batches:
-                    run.feed_batch(b)
-            key_rows, results = run.finalize()
+            run = make_run(stage, grouped, _JoinContext(node.spec, dims, device,
+                                                        f32=not stage._use_f64))
+            feed(run, _exec(node.fact), cfg)
+            return assemble(run, stage, grouped)
     except DeviceFallback as exc:
         counters.bump("device_fallbacks")
-        counters.reject("join agg", f"device fallback: {exc}")
+        counters.reject(label, f"device fallback: {exc}")
         return host()
-    return _grouped_output(node.schema, node.spec.groupby, node.spec.aggregations,
-                           key_rows, results)
 
 
 def _repartition(node: pp.PhysRepartition) -> Iterator[MicroPartition]:
@@ -370,19 +501,24 @@ def _mesh_repartition_exchange(node: pp.PhysRepartition, batches: List[RecordBat
 
 def _grouped_output(schema, groupby, aggregations, key_rows, results) -> MicroPartition:
     """A grouped-agg result batch from key tuples and per-agg (values, valid)
-    arrays. Invalid slots are zeroed before the cast to the output type, so
-    an empty group's +-inf extreme never reaches an integer cast."""
+    arrays."""
     cols = []
     for i, g in enumerate(groupby):
         f = schema[g.name()]
         cols.append(Series.from_pylist([k[i] for k in key_rows], f.name, dtype=f.dtype))
     for e, (vals, valid) in zip(aggregations, results):
-        f = schema[e.name()]
-        vals = np.where(valid, vals, vals.dtype.type(0))
-        cols.append(Series.from_numpy(vals.astype(f.dtype.to_numpy()), f.name,
-                                      dtype=f.dtype, validity=valid))
+        cols.append(_agg_series(schema[e.name()], vals, valid))
     out = RecordBatch(schema, cols, len(key_rows))
     return MicroPartition(schema, [out])
+
+
+def _agg_series(f, vals: np.ndarray, valid: np.ndarray) -> Series:
+    """One aggregation's result column of field ``f``. Invalid slots are
+    zeroed before the cast to the output type, so an empty group's +-inf
+    extreme never reaches an integer cast."""
+    vals = np.where(valid, vals, vals.dtype.type(0))
+    return Series.from_numpy(vals.astype(f.dtype.to_numpy()), f.name, dtype=f.dtype,
+                             validity=valid)
 
 
 def _split_aggs(aggs: List[Expression]):

@@ -7,7 +7,8 @@ reference's Arrow kernels: validity propagates through arithmetic and
 comparisons, division by zero is null, and/or are Kleene, and a null
 IfElse predicate gives null. ``is_in`` is never null: a null row is true
 only when the item values hold a null (Arrow's ``is_in`` followed by
-``fill_null(False)``, as the reference evaluates it).
+``fill_null(False)``, as the reference evaluates it). ``str.startswith``
+is null on a null row, as Arrow's ``starts_with``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from .expressions import (
     Cast,
     ColumnRef,
     Expression,
+    Function,
     IfElse,
     IsIn,
     Literal,
@@ -78,6 +80,8 @@ def eval_expression(batch, expr: Expression) -> Series:
     if isinstance(expr, IsIn):
         return _is_in(eval_expression(batch, expr.child),
                       [eval_expression(batch, i) for i in expr.items])
+    if isinstance(expr, Function):
+        return _function(expr, eval_expression(batch, expr.args[0]))
     if isinstance(expr, AggExpr):
         raise ValueError(f"aggregation expression {expr!r} cannot be evaluated in a "
                          "projection context; use .agg()/groupby")
@@ -109,6 +113,16 @@ def _is_in(s: Series, items: List[Series]) -> Series:
             if targets and not s.dtype.is_null() else np.zeros(len(s), dtype=bool)
         hit = np.where(valid, hit, has_null)
     return _make(s.name, DataType.bool(), hit, np.ones(len(s), dtype=bool))
+
+
+def _function(expr: Function, s: Series) -> Series:
+    """A scalar function over a string column (``utf8_startswith``), through
+    the column's cached dictionary codes; a null row gives null."""
+    pat = expr.args[1].value
+    codes, vocab, _k = s.dict_codes()
+    lut = np.array([v is not None and v.startswith(pat) for v in vocab], dtype=bool)
+    hit = lut[codes] if len(codes) else np.zeros(0, dtype=bool)
+    return _make(s.name, DataType.bool(), hit, s.validity_numpy())
 
 
 def _values_as(s: Series, dtype: DataType) -> np.ndarray:

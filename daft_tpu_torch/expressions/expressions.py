@@ -1,8 +1,8 @@
 """Expression IR (counterpart of daft_tpu/expressions/expressions.py, the
 subset the grouped-aggregation and join slices need): ``col``, ``lit``
 (with ``datetime.date``), ``Alias``, ``Cast``, arithmetic, comparisons,
-``&``, ``|``, ``~``, null tests, ``IfElse``, ``IsIn`` and ``AggExpr`` with
-sum, count, mean, min and max. ``transform`` rewrites a tree bottom-up (the
+``&``, ``|``, ``~``, null tests, ``IfElse``, ``IsIn``, ``AggExpr`` with
+sum, count, mean, min and max, and ``.str.startswith`` (a ``Function``). ``transform`` rewrites a tree bottom-up (the
 join capture substitutes projections and hoists dim-only subexpressions
 with it).
 
@@ -158,6 +158,10 @@ class Expression:
         else:
             items = [v if isinstance(v, Expression) else lit(v) for v in values]
         return IsIn(self, items)
+
+    @property
+    def str(self) -> "StringNamespace":
+        return StringNamespace(self)
 
     # ---- aggregation sugar ----------------------------------------------------------
     def sum(self):
@@ -374,6 +378,56 @@ class IsIn(Expression):
 
     def __repr__(self):
         return f"{self.child!r}.is_in({self.items!r})"
+
+
+# the scalar functions the port evaluates (on the host only): name -> the
+# argument kinds after the first (a string column)
+FUNCTIONS = {"utf8_startswith": ("string literal",)}
+
+
+class Function(Expression):
+    """A scalar function call (counterpart of the reference's ``Function``
+    over its registry, holding only what the port's queries call:
+    ``utf8_startswith``). Evaluated on the host (expressions/eval.py); the
+    device never takes it (ops/device_eval.py), so a join capture hoists it
+    into a host-evaluated dim column."""
+
+    def __init__(self, fname: str, args: List[Expression]):
+        if fname not in FUNCTIONS:
+            raise ValueError(f"function {fname!r} is not ported")
+        self.fname = fname
+        self.args = args
+
+    def name(self) -> str:
+        return self.args[0].name()
+
+    def children(self):
+        return list(self.args)
+
+    def with_children(self, children):
+        return Function(self.fname, children)
+
+    def to_field(self, schema: Schema) -> Field:
+        arg = self.args[0].to_field(schema)
+        if not arg.dtype.is_string():
+            raise ValueError(f"{self.fname} takes a string column, got {arg.dtype}")
+        pat = self.args[1]
+        if not (isinstance(pat, Literal) and isinstance(pat.value, str)):
+            raise ValueError(f"{self.fname} takes a string literal pattern, got {pat!r}")
+        return Field(arg.name, DataType.bool())
+
+    def __repr__(self):
+        return f"{self.fname}({', '.join(repr(a) for a in self.args)})"
+
+
+class StringNamespace:
+    """``expr.str``: the string functions the port has."""
+
+    def __init__(self, expr: Expression):
+        self._e = expr
+
+    def startswith(self, pat) -> Expression:
+        return Function("utf8_startswith", [self._e, lit(pat)])
 
 
 AGG_OPS = ("sum", "mean", "min", "max", "count")

@@ -9,8 +9,15 @@ show which path a query took:
   (filter + aggregate) stage;
 - ``device_join_batches``: fact batches fed through a device star-join run;
 - ``device_stage_runs``: device stage runs finalized;
+- ``device_topn_runs``: star-join TopN runs finalized on the device (only
+  the K winners' rows copied back);
 - ``device_fallbacks``: device runs that raised DeviceFallback and reran on
   the host;
+- ``coalesce_morsels_in`` / ``dispatch_coalesced``: morsels handed to a
+  dispatch coalescer (ops/stage.py ``DispatchCoalescer``) and the batches it
+  fed on (their ratio is the amortization factor);
+- ``bucket_fill_rows`` / ``bucket_capacity_rows``: the rows of those batches
+  and the power-of-two buckets they pad to (their ratio is the fill);
 - ``mesh_fused_permute_dispatches`` / ``mesh_alltoall_dispatches``: mesh
   repartition exchanges run by the kernel tier (one K6 launch) / by the
   all_to_all tier (kernel_mode="off");
@@ -43,8 +50,9 @@ KERNEL_NAMES = SEGMENT_KERNELS + ("hash_probe_build", "hash_probe_index",
                                   "segment_sum_planes_f32", "hash_probe_segment_sum",
                                   "ring_permute_words", "segment_sum_float_planes")
 COUNTER_NAMES = ("device_grouped_batches", "device_stage_batches", "device_join_batches",
-                 "device_stage_runs",
-                 "device_fallbacks", "mesh_alltoall_dispatches",
+                 "device_stage_runs", "device_topn_runs",
+                 "device_fallbacks", "coalesce_morsels_in", "dispatch_coalesced",
+                 "bucket_fill_rows", "bucket_capacity_rows", "mesh_alltoall_dispatches",
                  "mesh_fused_permute_dispatches", "mesh_alltoall_rows",
                  "mesh_exchange_bytes") + tuple(
     f"{kind}_{k}" for kind in ("launches", "plain") for k in KERNEL_NAMES)

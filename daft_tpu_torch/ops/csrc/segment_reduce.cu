@@ -50,7 +50,7 @@
 //     atomicAdd (K1) or atomicMax (K2, after reading the entry: most rows
 //     lose to it);
 //   - global: caps past one plane's table in a block (cap x 4 > 227 KB, up
-//     to 2^20): uint32 atomics on one code-major table in device memory,
+//     to 2^22): uint32 atomics on one code-major table in device memory,
 //     the lanes of a warp on (row, plane) pairs, plane fastest, so that one
 //     warp instruction's atomics fall on a few adjacent entries (0.515 ms
 //     for K1's 15 planes and 0.050 for K2 at cap 2^20, chip_smoke.py, same
@@ -179,7 +179,7 @@
 //   global atomics was slower than the partial tables (0.080-0.100 ms at cap
 //   16,384 by CUDA events). The cluster tier stays at 14 % of the bound: its
 //   64-bit compare-and-swap on another SM's shared memory costs a round trip.
-//   Past a cluster's tables (cap > 2^17, up to 2^20) the global tier keeps
+//   Past a cluster's tables (cap > 2^17, up to 2^22) the global tier keeps
 //   one table and bitmap in device memory, filled with the identity and
 //   zeros by the launcher, and reduces into them with native 64-bit
 //   atomicMin/Max and 32-bit atomicOr; the second pass decodes it as the one
@@ -193,7 +193,7 @@
 //   _build_local_dense's chunk matmul). A one-hot product at the supplier's
 //   cap would cost 2 x 2^23 x 16,385 x P flops, so the port scatters.
 //   Contract: P planes (each N f32, or each N f64 in a stage that computes
-//   in f64) and N int32 codes into a (cap x P, f64) table, cap <= 2^20,
+//   in f64) and N int32 codes into a (cap x P, f64) table, cap <= 2^22,
 //   codes outside [0, cap) dropped. Every value is widened to f64 on load
 //   and added in f64, at least as precise as the reference's f32 chunks;
 //   the order of the adds decides the last bits (the thread and warp tiers'
@@ -234,7 +234,7 @@
 //     the thread tier, shared-memory f64 atomics on a table of `group`
 //     planes a block (the most whose cap x group x 8 bytes fit), each plane
 //     group's blocks reading every code;
-//   - global, past that (up to 2^20): native f64 atomicAdd straight into
+//   - global, past that (up to 2^22): native f64 atomicAdd straight into
 //     the output, which the wrapper zero-fills.
 //   The thread, warp and block tiers write one partial table per block, and
 //   a second launch adds them per entry in a fixed order into the output.
@@ -718,7 +718,7 @@ k3_partial_kernel(const long long* __restrict__ vals, const unsigned char* __res
   for (int i = threadIdx.x; i < words; i += blockDim.x) pb[i] = bits[i];
 }
 
-// The global tier's first pass (caps past a cluster's tables, up to 2^20):
+// The global tier's first pass (caps past a cluster's tables, up to 2^22):
 // 64-bit min/max and 32-bit or atomics on one table and bitmap in device
 // memory, which the launcher fills with the identity and zeros; the second
 // pass reads it as the one partial table.

@@ -1,5 +1,6 @@
-"""Star join + grouped aggregate on the device (counterpart of
-daft_tpu/ops/device_join.py, its grouped single-device path).
+"""Star join + aggregate on the device (counterpart of
+daft_tpu/ops/device_join.py, its single-device path: the grouped, the
+ungrouped and the TopN runs).
 
 For the analytics shape -- one large fact relation inner-joined to smaller
 dims on unique keys, then aggregated -- the join never materializes. Each
@@ -15,7 +16,8 @@ Capture (``try_capture_join_agg``, called by plan/physical.py):
     Aggregate <- [Project]* <- [Filter]* <- inner-join tree
 flattened to relations and equality conditions; the largest relation is the
 fact, the others must connect to it as a tree of dims (leftover equality
-edges become device predicates). Dim-only subexpressions the device cannot
+edges become device predicates; a filter over a join inside the tree is
+lifted into the predicate). Dim-only subexpressions the device cannot
 evaluate (strings, ``is_in``) are hoisted into synthetic dim columns that
 the host evaluates once per dim; a fact string ``==`` / ``is_in`` against
 literals becomes a membership plane over the column's dictionary codes.
@@ -30,8 +32,14 @@ Everything expensive is cached in the residency manager, keyed on the
 identity of the column Series it was built from: the probe table (built
 once per dim key Series), the index plane (once per fact key Series), the
 dim-space planes, the synthetic columns, the visibility and membership
-planes. A warm query launches K4 zero times and pays the gathers and the
-stage's kernels.
+planes, a host factorize of the joined group keys. A warm query launches
+K4 zero times and pays the gathers and the stage's kernels.
+
+Runs: ``DeviceJoinGroupedRun`` (the grouped stage; every group's table
+comes back at finalize, so at most 2^16 groups), ``DeviceJoinTopNRun``
+(an ORDER BY + LIMIT over it: the tables stay on the card, a device sort
+picks the K winners, up to ``TOPN_MAX_SEGMENTS`` groups, one fact batch)
+and ``DeviceJoinUngroupedRun`` (the ungrouped ``FilterAggStage``).
 
 The port gathers each dim plane in its own dtype (int64 dim values stay
 exact without the reference's f32 digit split, which its TPU needed for lane
@@ -39,15 +47,16 @@ padding and index-count-bound gathers). Dim filters are evaluated on the
 host (dims are small) and uploaded once per query shape. Left out: the
 group-sorted (``perm``) and local-dense branches (the reference keeps its
 one-hot matmuls narrow with them; the port's kernels take the group codes in
-place at every cap up to ``max_segments``), the TopN run, the ungrouped run
-and the cost-model arm. A stage with a float min/max computes in f64: its
-fact and dim float columns upload, and gather, in f64.
+place at every cap up to ``max_segments``) and the cost-model arm. A stage
+with a float min/max computes in f64: its fact and dim float columns
+upload, and gather, in f64.
 
 Fallback: a shape this module cannot prove safe returns None at capture;
 at run time non-unique or non-integer dim keys, a dim key equal to the probe
-table's empty marker, and a group count over the run's ceiling raise
-``DeviceFallback`` before any launch, and the executor runs the host plan.
-A kernel failure raises: nothing replays it on the host.
+table's empty marker, a group count over the run's ceiling and a TopN's
+second fact batch raise ``DeviceFallback`` before any launch, and the
+executor runs the host plan. A kernel failure raises: nothing replays it
+on the host.
 """
 
 from __future__ import annotations
@@ -68,9 +77,9 @@ from . import counters
 from . import device_eval as dev
 from . import probe_kernels as pk
 from .grouped_stage import (DeviceFallback, GroupedAggRun, GroupedAggStage, _Decode,
-                            _pad_groups, cached_dict_code_plane,
+                            _pad_groups, cached_dict_code_plane, results_from_tables,
                             try_build_grouped_agg_stage)
-from .stage import device_row_mask, pad_bucket
+from .stage import FilterAggRun, device_row_mask, pad_bucket, try_build_filter_agg_stage
 
 
 # ======================================================================================
@@ -109,16 +118,26 @@ def _split_conjuncts(e: Expression) -> List[Expression]:
     return [e]
 
 
-def _flatten_joins(node) -> Optional[Tuple[list, list]]:
-    """A tree of inner equi-joins as (relations, [(left col, right col)]).
-    None on merged or renamed output columns, non-column keys, or a column
-    name that two relations share (provenance would be ambiguous)."""
+def _flatten_joins(node) -> Optional[Tuple[list, list, List[Expression]]]:
+    """A tree of inner equi-joins as (relations, [(left col, right col)],
+    lifted conjuncts). A Filter over a join inside the tree is lifted: its
+    conjuncts hold over the joined rows, and an inner join commutes with a
+    filter (the reference's optimizer pushes such a filter down before its
+    capture; the port has no optimizer). None on merged or renamed output
+    columns, non-column keys, or a column name that two relations share
+    (provenance would be ambiguous)."""
     from ..plan import logical as lp
 
     rels: list = []
     conds: list = []
+    lifted: List[Expression] = []
 
     def walk(n) -> bool:
+        if isinstance(n, lp.Filter):
+            base, fs = _strip_filters(n)
+            if isinstance(base, lp.Join):
+                lifted.extend(fs)
+                return walk(base)
         if not isinstance(n, lp.Join):
             rels.append(n)
             return True
@@ -145,7 +164,7 @@ def _flatten_joins(node) -> Optional[Tuple[list, list]]:
         if names & cols:
             return None
         names |= cols
-    return rels, conds
+    return rels, conds, lifted
 
 
 def _strip_filters(n) -> Tuple[object, List[Expression]]:
@@ -159,9 +178,9 @@ def _strip_filters(n) -> Tuple[object, List[Expression]]:
 
 
 def try_capture_join_agg(agg_plan) -> Optional[JoinAggSpec]:
-    """Match Aggregate <- [Project]* <- [Filter]* <- inner-join tree into a
-    JoinAggSpec, or None when the shape is not provably safe or the joined
-    stage is outside the kernel tier."""
+    """Match Aggregate (grouped or not) <- [Project]* <- [Filter]* <-
+    inner-join tree into a JoinAggSpec, or None when the shape is not
+    provably safe or the joined stage is outside the device tier."""
     from ..plan import logical as lp
     from ..plan.stats import estimate_rows
 
@@ -191,7 +210,8 @@ def try_capture_join_agg(agg_plan) -> Optional[JoinAggSpec]:
     flat = _flatten_joins(src)
     if flat is None:
         return None
-    rels, conds = flat
+    rels, conds, lifted = flat
+    conjuncts.extend(lifted)
     if len(rels) < 2:
         return None
 
@@ -333,16 +353,21 @@ def try_capture_join_agg(agg_plan) -> Optional[JoinAggSpec]:
     spec = JoinAggSpec(fact=fact_base, dims=dims, schema=schema, col_side=col_side,
                        predicate=predicate, groupby=groupby, aggregations=aggs,
                        fact_synthetic=fact_synthetic)
-    return spec if build_join_stage(spec) is not None else None
+    return spec if build_join_stage(spec)[0] is not None else None
 
 
-def build_join_stage(spec: JoinAggSpec) -> Optional[GroupedAggStage]:
-    """The grouped stage over the joined schema, with ``__join_ok__`` folded
-    into the predicate, or None (reason in ``counters.rejections``)."""
+def build_join_stage(spec: JoinAggSpec):
+    """(stage, grouped): the grouped stage (with group keys) or the ungrouped
+    ``FilterAggStage`` (without) over the joined schema, with
+    ``__join_ok__`` folded into the predicate; the stage is None when it is
+    refused (reason in ``counters.rejections``)."""
     schema = Schema(list(spec.schema) + [Field("__join_ok__", DataType.bool())])
     ok = ColumnRef("__join_ok__")
     predicate = ok if spec.predicate is None else (spec.predicate & ok)
-    return try_build_grouped_agg_stage(schema, predicate, spec.groupby, spec.aggregations)
+    if spec.groupby:
+        return try_build_grouped_agg_stage(schema, predicate, spec.groupby,
+                                           spec.aggregations), True
+    return try_build_filter_agg_stage(schema, predicate, spec.aggregations), False
 
 
 # ======================================================================================
@@ -705,8 +730,127 @@ class _JoinContext:
 
 
 # ======================================================================================
-# the grouped run
+# the runs: grouped, TopN and ungrouped over joined columns
 # ======================================================================================
+
+
+class _FactorizedCodes:
+    """The cached host factorize of the joined group keys of one fact batch:
+    dense group ids in first-occurrence order and each group's first fact
+    row. Key tuples and sort-rank planes are built lazily, for the groups
+    asked for: a TopN run needs the K winners' rows of possibly millions of
+    groups.
+
+    Each key column is (source Series, index): a fact column with no index,
+    or a dim column with the dim row of every fact row (-1 on a miss). Codes
+    are the sources' dictionary codes (cached on each Series; equal values
+    share one). The key columns of one dim (one index) are combined over the
+    dim's rows first and gathered once, so a dim's string columns are
+    factorized over the dim's rows, never over the fact's. Join-miss rows
+    form their own groups: they keep no kept row and drop at finalize."""
+
+    def __init__(self, key_cols: List[Tuple[object, Optional[np.ndarray]]], n: int,
+                 bucket: int, device: torch.device):
+        self.key_cols = key_cols
+        self.n = n
+        self.bucket = bucket
+        self.device = device
+        codes = []
+        by_index: Dict[int, Tuple[np.ndarray, list]] = {}
+        for s, idx in key_cols:
+            c = s.dict_codes()[0].astype(np.int64)
+            if idx is None:
+                codes.append(c)
+            else:
+                by_index.setdefault(id(idx), (idx, []))[1].append(c)
+        for idx, dim_codes in by_index.values():
+            rows = len(dim_codes[0])
+            if rows:
+                dim_ids = _first_occurrence_groups(dim_codes, rows)[1]
+                codes.append(dim_ids[np.clip(idx, 0, rows - 1)])
+            else:
+                codes.append(np.zeros(n, dtype=np.int64))
+        if by_index:
+            misses = [idx < 0 for idx, _c in by_index.values()]
+            codes.append(np.logical_or.reduce(misses).astype(np.int64))
+        self.first_idx, self.group_ids = _first_occurrence_groups(codes, n)
+        self.cap = _pad_groups(max(len(self.first_idx), 1))
+
+    @property
+    def num_groups(self) -> int:
+        return len(self.first_idx)
+
+    @property
+    def dcodes(self) -> torch.Tensor:
+        """int32[bucket] codes plane on the device (padding rows on code
+        cap), held by the residency manager beside this object."""
+        def build():
+            codes = np.full(self.bucket, self.cap, dtype=np.int32)
+            codes[:self.n] = self.group_ids
+            return torch.from_numpy(codes).to(self.device)
+
+        return manager().get_or_build(self, ("dcodes", str(self.device)), build)
+
+    def _key_rows_of(self, j: int, gids: np.ndarray):
+        """Series of key column j at the first rows of groups ``gids``."""
+        s, idx = self.key_cols[j]
+        rows = self.first_idx[gids]
+        if idx is not None:
+            rows = idx[rows]
+        if len(s) == 0:
+            return type(s).full_null(s.name, s.dtype, len(gids))
+        return s.take(np.clip(rows, 0, len(s) - 1))
+
+    def rows_for(self, gids) -> List[tuple]:
+        """Key tuples of the groups ``gids``."""
+        gids = np.asarray(gids, dtype=np.int64)
+        if not len(gids):
+            return []
+        return list(zip(*[self._key_rows_of(j, gids).to_pylist()
+                          for j in range(len(self.key_cols))]))
+
+    def rank_plane(self, j: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(f64[cap] ranks, bool[cap] validity) of key column j on the
+        device: each group's dense rank in the column's ascending order
+        (equal values share a rank, so ties reach the next sort key),
+        computed on the host where every dtype sorts exactly; a null key is
+        invalid. Cached beside this object."""
+        def build():
+            s = self._key_rows_of(j, np.arange(self.num_groups))
+            valid = s.validity_numpy()
+            rank = np.zeros(self.cap, dtype=np.float64)
+            if valid.any():
+                rank[:self.num_groups][valid] = np.unique(
+                    s.to_numpy()[valid], return_inverse=True)[1].reshape(-1)
+            ok = np.zeros(self.cap, dtype=bool)
+            ok[:self.num_groups] = valid
+            return (torch.from_numpy(rank).to(self.device),
+                    torch.from_numpy(ok).to(self.device))
+
+        return manager().get_or_build(self, ("rank", j, str(self.device)), build)
+
+
+def _first_occurrence_groups(codes: List[np.ndarray], n: int) -> Tuple[np.ndarray,
+                                                                        np.ndarray]:
+    """(first row of each group, group id of each row) over the combined
+    code columns (each in [0, k)), ids in first-occurrence order, as
+    core/kernels/groupby.py ``make_groups`` numbers them. The columns are
+    radix-combined in int64 and re-densified only when the next radix would
+    overflow."""
+    combined = np.zeros(n, dtype=np.int64)
+    width = 1
+    for c in codes:
+        k = int(c.max()) + 1 if len(c) else 1
+        if width * k >= 1 << 62:
+            combined = np.unique(combined, return_inverse=True)[1].reshape(n)
+            width = int(combined.max()) + 1
+        combined = combined * k + c
+        width *= k
+    _vals, first, inverse = np.unique(combined, return_index=True, return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(len(order), dtype=np.int64)
+    rank[order] = np.arange(len(order), dtype=np.int64)
+    return first[order].astype(np.int64), rank[inverse.reshape(n)]
 
 
 class DeviceJoinGroupedRun(GroupedAggRun):
@@ -715,6 +859,9 @@ class DeviceJoinGroupedRun(GroupedAggRun):
 
     # group-count ceiling: the full cap-sized table is fetched at finalize
     max_segments = 1 << 16
+    # a TopN run always takes the host factorize: its dense first-occurrence
+    # ids are the sort's last tie-break and feed the rank planes
+    force_host_codes = False
 
     def __init__(self, stage: GroupedAggStage, ctx: _JoinContext):
         super().__init__(stage, ctx.device)
@@ -731,7 +878,8 @@ class DeviceJoinGroupedRun(GroupedAggRun):
             return
         bucket = pad_bucket(n)
         gb_cols = [(g.child if isinstance(g, Alias) else g)._name for g in stage.groupby]
-        if self._dict_product(batch, gb_cols) <= self.max_segments:
+        if not self.force_host_codes and \
+                self._dict_product(batch, gb_cols) <= self.max_segments:
             dcols, code_planes = self.ctx.provision(batch, bucket, stage._input_cols,
                                                     gb_cols)
             decode = self._dict_combined_codes(batch, n, bucket, gb_cols, code_planes)
@@ -788,50 +936,213 @@ class DeviceJoinGroupedRun(GroupedAggRun):
 
     def _host_factorized_codes(self, batch, n: int, bucket: int) -> _Decode:
         """Joined-key group codes by a host factorize over the host join
-        indices (cached). Join-miss rows form their own groups, which keep
-        no kept rows and drop at finalize. Raises DeviceFallback when the
-        group count passes ``max_segments``."""
-        from ..core.kernels.groupby import make_groups
-        from ..core.series import Series
-
+        indices, cached per fact batch (``_FactorizedCodes``). Raises
+        DeviceFallback, before any launch, when the group count passes
+        ``max_segments``."""
         ctx = self.ctx
         idxs = ctx.indices_for(batch)
         key_cols = []
         for g in self.stage.groupby:
             name = (g.child if isinstance(g, Alias) else g)._name
             side = ctx.spec.col_side.get(name)
-            key_cols.append((side, self._group_source(batch, name)))
-        deps = tuple(s for _side, s in key_cols) + tuple(
-            idxs[side] for side, _s in key_cols if side != "fact")
-
-        def build():
-            series, misses = [], []
-            for side, s in key_cols:
-                if side == "fact":
-                    series.append(s)
-                    continue
-                idx = idxs[side]
-                if len(s) == 0:
-                    series.append(Series.full_null(s.name, s.dtype, n))
-                else:
-                    series.append(s.take(np.clip(idx, 0, len(s) - 1)))
-                misses.append(idx < 0)
-            if misses:
-                series.append(Series.from_numpy(
-                    np.logical_or.reduce(misses).astype(np.int8), "__miss__"))
-            first_idx, group_ids, _ = make_groups(series)
-            cap = _pad_groups(max(len(first_idx), 1))
-            key_rows = list(zip(*[s.take(first_idx).to_pylist()
-                                  for s in series[:len(key_cols)]]))
-            if cap > self.max_segments:
-                return cap, None, None
-            codes = np.full(bucket, cap, dtype=np.int32)
-            codes[:n] = group_ids
-            return cap, torch.from_numpy(codes).to(self.device), key_rows
-
+            key_cols.append((self._group_source(batch, name),
+                             None if side == "fact" else idxs[side]))
+        deps = tuple(s for s, _idx in key_cols) + tuple(
+            idx for _s, idx in key_cols if idx is not None)
         key = ("jfact", bucket, str(self.device)) + tuple(repr(g) for g in self.stage.groupby)
-        cap, dcodes, key_rows = manager().get_or_build(key_cols[0][1], key, build, deps)
-        if cap > self.max_segments:
-            raise DeviceFallback(f"joined group count {cap} exceeds the ceiling "
-                                 f"{self.max_segments}")
-        return _Decode(cap=cap, dcodes=dcodes, dicts=None, radices=None, key_rows=key_rows)
+        fc = manager().get_or_build(key_cols[0][0], key,
+                                    lambda: _FactorizedCodes(key_cols, n, bucket, self.device),
+                                    deps)
+        if fc.cap > self.max_segments:
+            raise DeviceFallback(f"joined group count {fc.num_groups} (cap {fc.cap}) exceeds "
+                                 f"the ceiling {self.max_segments} of {type(self).__name__}")
+        return _Decode(cap=fc.cap, dcodes=fc.dcodes, dicts=None, radices=None, key_rows=None,
+                       fact_codes=fc)
+
+
+# segment ceiling of a TopN run: it copies back K rows whatever the group
+# count, so the cap is bounded by the tables and the sort in device memory
+TOPN_MAX_SEGMENTS = 1 << 22
+
+
+@dataclass
+class TopNSpec:
+    """ORDER BY ... LIMIT lowered onto a grouped join run.
+
+    keys: (kind, index, descending, nulls_first) per sort column: kind "agg"
+    indexes spec.aggregations (its plane comes from the group tables on the
+    device), kind "group" spec.groupby (a host-computed order rank, exact
+    for any dtype, strings included)."""
+    keys: List[Tuple[str, int, bool, bool]]
+    limit: int
+    offset: int
+
+
+def _agg_sort_plane(stage: GroupedAggStage, out: dict,
+                    agg_idx: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(f64[cap] values, bool[cap] valid) ordering plane of one aggregation,
+    on the device from the group tables (as ``results_from_tables`` reads
+    them; f64 is ample for ordering)."""
+    slots = stage._agg_slots[agg_idx]
+    _name, agg = stage.aggs[agg_idx]
+    mm = out["mm"]
+    count_all = agg.op == "count" and agg.params.get("mode", "valid") == "all"
+    cnt = mm[:, 0] if count_all else mm[:, slots["count"][1]]
+    if agg.op == "count":
+        return cnt, torch.ones_like(cnt, dtype=torch.bool)
+    valid = cnt > 0
+    if agg.op in ("sum", "mean"):
+        sl = slots["sum"]
+        if sl[0] == "imm":
+            _k, base, nd, lo = sl
+            s = float(lo) * cnt
+            for k in range(nd):
+                s = s + mm[:, base + k] * float(1 << (8 * k))
+        else:
+            s = mm[:, sl[1]]
+        return (s / cnt.clamp(min=1.0) if agg.op == "mean" else s), valid
+    kind, idx = slots[agg.op]
+    plane = out["ext"][idx] if kind == "ext" else out["sct"][idx]
+    return plane.to(torch.float64), valid
+
+
+class DeviceJoinTopNRun(DeviceJoinGroupedRun):
+    """Join + grouped aggregate + ORDER BY + LIMIT on the device: the group
+    tables never leave the card; stable sorts over the cap-length planes
+    pick the K winners and only their rows are copied back. That is what
+    makes groupbys of an order key's cardinality (TPC-H q3, q10: up to
+    millions of groups) a device run: the full-table copy that rules out the
+    plain grouped path shrinks to K rows.
+
+    The sort is the reference's ``jax.lax.sort`` over (present, keys...,
+    gid), which is XLA's, not a Pallas kernel: here stable ``torch.sort``
+    passes from the last key to the first over a permutation that starts as
+    ``arange(cap)``, so the dense first-occurrence group id breaks ties, as
+    the host's stable sort over first-occurrence groups does. One fact batch
+    only: a second raises DeviceFallback before it launches anything."""
+
+    max_segments = TOPN_MAX_SEGMENTS
+    force_host_codes = True
+
+    def __init__(self, stage: GroupedAggStage, ctx: _JoinContext, topn: TopNSpec):
+        super().__init__(stage, ctx)
+        self.topn = topn
+
+    def feed_batch(self, batch) -> None:
+        if self._pending and batch.num_rows:
+            raise DeviceFallback("device TopN path requires a single fact batch")
+        super().feed_batch(batch)
+
+    def finalize_topn(self):
+        """(key_rows, agg_results) of the K winners, in output order."""
+        stage = self.stage
+        pending, self._pending = self._pending, []
+        self._row_offset = 0
+        counters.bump("device_stage_runs")
+        if not pending:
+            return [], [(np.empty(0), np.empty(0, dtype=bool)) for _ in stage.aggs]
+        (out, decode), = pending
+        fc, cap = decode.fact_codes, decode.cap
+        k_eff = min(self.topn.offset + self.topn.limit, cap)
+        mm = out["mm"]
+        present = mm[:, 0] > 0
+        terms = [(~present).to(torch.float64)]
+        for kind, idx, desc, nulls_first in self.topn.keys:
+            v, valid = _agg_sort_plane(stage, out, idx) if kind == "agg" \
+                else fc.rank_plane(idx)
+            if desc:
+                v = -v
+            terms.append(torch.where(valid, v, float("-inf") if nulls_first else float("inf")))
+        perm = torch.arange(cap, device=mm.device)
+        for t in reversed(terms):
+            perm = perm[torch.sort(t[perm], stable=True).indices]
+        top = perm[:k_eff]
+        # the winners' rows in one copy: every column as f64, the int64 ones
+        # (ids, int64 extremes) by their bits
+        cols = [top.view(torch.float64), present[top].to(torch.float64)]
+        cols += [mm[top, j] for j in range(mm.shape[1])]
+        cols += [e[top] for e in out["ext"]]
+        cols += [sct[top].view(torch.float64) for sct in out["sct"]]
+        host = torch.stack(cols, dim=1).cpu().numpy()
+        counters.bump("device_topn_runs")
+        rows = host[self.topn.offset:]
+        rows = rows[rows[:, 1] > 0]
+        gids = np.ascontiguousarray(rows[:, 0]).view(np.int64)
+        n_mm, n_ext = mm.shape[1], len(out["ext"])
+        mm_rows = rows[:, 2:2 + n_mm]
+        ext_rows = [rows[:, 2 + n_mm + j] for j in range(n_ext)]
+        sct_rows = [np.ascontiguousarray(rows[:, 2 + n_mm + n_ext + j]).view(np.int64)
+                    for j in range(len(out["sct"]))]
+        return fc.rows_for(gids), results_from_tables(stage, mm_rows, ext_rows, sct_rows)
+
+
+def try_capture_join_topn(plan):
+    """Match TopN <- [column Project]* <- grouped Aggregate <- star-join
+    tree into (JoinAggSpec, TopNSpec, out_map), or None; out_map gives each
+    output column of the TopN as ("agg" | "group", index)."""
+    from ..plan import logical as lp
+
+    projections: List[Dict[str, str]] = []
+    src = plan.input
+    while isinstance(src, lp.Project):
+        mapping: Dict[str, str] = {}
+        for p in src.projection:
+            inner = p.child if isinstance(p, Alias) else p
+            if not isinstance(inner, ColumnRef):
+                return None
+            mapping[p.name()] = inner._name
+        projections.append(mapping)
+        src = src.input
+    if not isinstance(src, lp.Aggregate) or not src.groupby:
+        return None
+    jspec = try_capture_join_agg(src)
+    if jspec is None:
+        return None
+
+    def resolve(name: str) -> str:
+        for m in projections:  # outermost first
+            name = m.get(name, name)
+        return name
+
+    def place(name: str) -> Optional[Tuple[str, int]]:
+        nm = resolve(name)
+        if nm in agg_names:
+            return "agg", agg_names.index(nm)
+        if nm in gb_names:
+            return "group", gb_names.index(nm)
+        return None
+
+    agg_names = [a.name() for a in jspec.aggregations]
+    gb_names = [g.name() for g in jspec.groupby]
+    keys: List[Tuple[str, int, bool, bool]] = []
+    for e, desc, nf in zip(plan.sort_by, plan.descending, plan.nulls_first):
+        node = e.child if isinstance(e, Alias) else e
+        where = place(node._name) if isinstance(node, ColumnRef) else None
+        if where is None:
+            return None
+        keys.append(where + (bool(desc), bool(nf)))
+    if plan.limit + plan.offset > 4096:
+        return None
+    out_map = [place(f.name) for f in plan.schema]
+    if any(m is None for m in out_map):
+        return None
+    return jspec, TopNSpec(keys, plan.limit, plan.offset), out_map
+
+
+class DeviceJoinUngroupedRun(FilterAggRun):
+    """FilterAggRun over gather-joined columns (TPC-H q14, q19): the same
+    stage program and finalize; only column provisioning differs."""
+
+    def __init__(self, stage, ctx: _JoinContext):
+        super().__init__(stage, ctx.device)
+        self.ctx = ctx
+
+    def feed_batch(self, batch) -> None:
+        n = batch.num_rows
+        if n == 0:
+            return
+        bucket = pad_bucket(n)
+        dcols, _codes = self.ctx.provision(batch, bucket,
+                                           list(self.stage._input_cols) + ["__join_ok__"])
+        self._run(dcols, n, bucket)
+        counters.bump("device_join_batches")

@@ -54,9 +54,11 @@ from . import segment_kernels as sk
 from .stage import device_row_mask, pad_bucket
 
 _MIN_GROUP_CAP = 8
-# the grouped stage's group ceiling: the reference's sort tier's, which the
-# port's kernels reach with their tables in device memory
-MAX_SORT_SEGMENTS = sk.KERNEL_MAX_SEGMENTS
+# the grouped stage's group ceiling: the reference's sort tier's
+# (daft_tpu/ops/grouped_stage.py MAX_SORT_SEGMENTS), which the port's kernels
+# reach with their tables in device memory; the kernels themselves take up to
+# sk.KERNEL_MAX_SEGMENTS, for the join TopN run (ops/device_join.py)
+MAX_SORT_SEGMENTS = 1 << 20
 # the low 63 bits of an int64: flipped on negative f64 bits for an
 # order-preserving key
 _F64_LOW63 = 0x7FFF_FFFF_FFFF_FFFF
@@ -518,10 +520,7 @@ class GroupedAggRun:
         for out, decode in zip(fetched, (d for _, d in pending)):
             mm = out["mm"]
             present = np.flatnonzero(mm[:, 0] > 0)
-            if decode.key_rows is None:
-                keys = decode.decode_keys(present)
-            else:
-                keys = [decode.key_rows[g] for g in present]
+            keys = decode.keys_for(present)
             firsts = out["ext"][0][present]
             slots = np.empty(len(present), dtype=np.int64)
             for j, key in enumerate(keys):
@@ -614,12 +613,23 @@ def results_from_tables(stage: GroupedAggStage, mm_acc, ext_acc, sct_acc):
 class _Decode:
     """How to map a segment id back to its key tuple for one batch."""
 
-    def __init__(self, cap: int, dcodes, dicts, radices, key_rows):
+    def __init__(self, cap: int, dcodes, dicts, radices, key_rows, fact_codes=None):
         self.cap = cap
         self.dcodes = dcodes
         self.dicts = dicts          # [(values, K)] per key column (dict mode)
         self.radices = radices
         self.key_rows = key_rows    # first-occurrence key tuples (host mode)
+        # a join run's host factorize (ops/device_join.py _FactorizedCodes),
+        # which builds the key tuples of the groups asked for
+        self.fact_codes = fact_codes
+
+    def keys_for(self, segs: np.ndarray) -> List[tuple]:
+        """Key tuples of the segments ``segs``, in any mode."""
+        if self.fact_codes is not None:
+            return self.fact_codes.rows_for(segs)
+        if self.key_rows is not None:
+            return [self.key_rows[g] for g in segs]
+        return self.decode_keys(segs)
 
     def decode_keys(self, segs: np.ndarray) -> List[tuple]:
         """Key tuples of the segments ``segs`` (dict mode)."""

@@ -47,9 +47,11 @@ _SOURCE = "segment_reduce.cu"
 # the reference's f32 accumulation window (32 blocks of 1024 rows): the plain
 # K1 sums each window in f32 and combines windows in f64, as the TPU kernel did
 WINDOW_ROWS = 32 * 1024
-# ceiling of the kernels' segment count: the reference's MAX_SORT_SEGMENTS,
-# reached by K1's, K2's, K3's and K7's tables in device memory
-KERNEL_MAX_SEGMENTS = 1 << 20
+# ceiling of the kernels' segment count: the reference's TOPN_MAX_SEGMENTS
+# (daft_tpu/ops/device_join.py), which a star-join TopN run reaches; K1's,
+# K2's, K3's and K7's global tiers hold such tables in device memory. The
+# grouped stage keeps the reference's lower MAX_SORT_SEGMENTS of 2^20
+KERNEL_MAX_SEGMENTS = 1 << 22
 # first-row indices ride an f32 plane: exact only below 2^24 rows per bucket
 MAX_KERNEL_BUCKET = 1 << 24
 

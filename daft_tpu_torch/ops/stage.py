@@ -8,6 +8,8 @@ aggregation's partials reduced with torch's masked reductions
 (``device_agg``), the counterpart of the reference's XLA reductions: no
 Pallas kernel served this stage there. Per-run state lives in
 ``FilterAggRun``, so a failed run cannot leak into the next.
+``DispatchCoalescer`` folds a stream of small morsels into fewer, fuller
+batches before a device stage run takes them.
 
 Batches pad to power-of-two row buckets (padding rows ride along invalid),
 so a stage sees O(log rows) distinct shapes; the reference needs this for
@@ -18,7 +20,8 @@ planes keep the reference's layout and bounds.
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..core.kernels.groupby import extreme_replaces
 from ..expressions.expressions import AggExpr, Alias, Expression
@@ -188,6 +191,13 @@ class FilterAggRun:
         self.device = device
         self._partials: List[Dict[tuple, tuple]] = []
 
+    def _run(self, dcols: Dict[str, dev.DCol], n: int, bucket: int) -> None:
+        """The stage over one batch's device columns; its partials stay on
+        the device until finalize."""
+        self._partials.append(self.stage.program()(dcols,
+                                                   device_row_mask(n, bucket, self.device)))
+        counters.bump("device_stage_batches")
+
     def feed_batch(self, batch) -> None:
         """One host RecordBatch through the stage (its referenced columns
         uploaded, cached in the residency manager)."""
@@ -199,9 +209,7 @@ class FilterAggRun:
         dcols = {name: batch.get_column(name).to_device_cached(bucket, f32=f32,
                                                                device=self.device)
                  for name in self.stage._input_cols}
-        self._partials.append(self.stage.program()(dcols,
-                                                   device_row_mask(n, bucket, self.device)))
-        counters.bump("device_stage_batches")
+        self._run(dcols, n, bucket)
 
     def finalize(self) -> Dict[str, object]:
         """{aggregation name: its value} (None where no row was valid)."""
@@ -229,6 +237,73 @@ class FilterAggRun:
             else:
                 out[name] = _combine_partials(agg.op, per_batch, name)
         return out
+
+
+class DispatchCoalescer:
+    """Morsel -> super-batch accumulator for one device stage run.
+
+    Every stage call pads its rows to a power-of-two bucket and pays a fixed
+    host cost, so a stream of small morsels pays that cost per morsel and
+    uploads mostly padding. The coalescer keeps the incoming host
+    RecordBatches and feeds ONE concatenated batch when either
+
+    - the pending rows reach ``target_rows`` (``batch_fill_target`` of the
+      bucket at the configured morsel size), so the bucket the batch pads to
+      is at least that full, or
+    - a morsel ARRIVES after the oldest pending one has waited past the
+      latency bound. The coalescer is pull-driven: the deadline is checked
+      at each ``add()``, never by a timer thread, so a stalled upstream
+      flushes on the next arrival or at ``close()``.
+
+    A flush of one pending batch hands the ORIGINAL batch on: the residency
+    caches are keyed on the identity of each column Series
+    (device/residency.py), so a concat there would rebuild every resident
+    plane on every warm run.
+
+    Counters, once per flush: ``coalesce_morsels_in`` / ``dispatch_coalesced``
+    give the amortization factor, ``bucket_fill_rows`` /
+    ``bucket_capacity_rows`` the padding efficiency.
+    """
+
+    def __init__(self, feed: Callable, target_rows: int, latency_s: float):
+        self._feed = feed
+        self._target = max(int(target_rows), 1)
+        self._latency = max(float(latency_s), 0.0)
+        self._pending: List = []
+        self._rows = 0
+        self._oldest: Optional[float] = None
+
+    def add(self, batch) -> None:
+        if batch.num_rows == 0:
+            return
+        counters.bump("coalesce_morsels_in")
+        self._pending.append(batch)
+        self._rows += batch.num_rows
+        now = time.perf_counter()
+        if self._oldest is None:
+            self._oldest = now
+        if self._rows >= self._target or now - self._oldest >= self._latency:
+            self.flush()
+
+    def flush(self) -> None:
+        if not self._pending:
+            return
+        if len(self._pending) == 1:
+            batch = self._pending[0]  # identity kept: the resident planes hit
+        else:
+            from ..core.recordbatch import RecordBatch
+
+            batch = RecordBatch.concat(self._pending)
+        self._pending = []
+        self._rows = 0
+        self._oldest = None
+        self._feed(batch)
+        counters.bump("dispatch_coalesced")
+        counters.bump("bucket_fill_rows", batch.num_rows)
+        counters.bump("bucket_capacity_rows", pad_bucket(batch.num_rows))
+
+    # the stream is exhausted: feed whatever is still pending
+    close = flush
 
 
 _FILTER_AGG_CACHE: Dict[tuple, FilterAggStage] = {}

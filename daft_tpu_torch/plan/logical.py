@@ -1,6 +1,8 @@
 """Logical plan nodes (counterpart of daft_tpu/plan/logical.py, the subset the
 grouped-aggregation, join and repartition slices need): an in-memory source,
-Filter, Project, Aggregate, Sort, the inner equi-Join and Repartition. Each node computes its
+Filter, Project, Aggregate, Sort, Limit, Offset, TopN (a Sort with a Limit,
+made by plan/optimizer.py ``rule_detect_topn``), the inner equi-Join and
+Repartition. Each node computes its
 output schema on construction, so a type error surfaces where the DataFrame
 method is called.
 """
@@ -74,6 +76,51 @@ class Sort(LogicalPlan):
         self.descending = list(descending)
         self.nulls_first = (list(nulls_first) if nulls_first is not None
                             else list(self.descending))
+
+    def children(self):
+        return [self.input]
+
+
+class Limit(LogicalPlan):
+    """The first ``limit`` rows."""
+
+    def __init__(self, input: LogicalPlan, limit: int):
+        if limit < 0:
+            raise ValueError(f"limit must be >= 0, got {limit}")
+        super().__init__(input.schema)
+        self.input = input
+        self.limit = limit
+
+    def children(self):
+        return [self.input]
+
+
+class Offset(LogicalPlan):
+    """Every row after the first ``offset``."""
+
+    def __init__(self, input: LogicalPlan, offset: int):
+        if offset < 0:
+            raise ValueError(f"offset must be >= 0, got {offset}")
+        super().__init__(input.schema)
+        self.input = input
+        self.offset = offset
+
+    def children(self):
+        return [self.input]
+
+
+class TopN(LogicalPlan):
+    """Sort, then rows [offset, offset + limit)."""
+
+    def __init__(self, input: LogicalPlan, sort_by: List[Expression], descending: List[bool],
+                 nulls_first: List[bool], limit: int, offset: int = 0):
+        super().__init__(input.schema)
+        self.input = input
+        self.sort_by = list(sort_by)
+        self.descending = list(descending)
+        self.nulls_first = list(nulls_first)
+        self.limit = limit
+        self.offset = offset
 
     def children(self):
         return [self.input]

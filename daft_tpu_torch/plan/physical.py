@@ -6,9 +6,10 @@ slices need).
 The device decisions made here are the reference's Aggregate captures
 (physical.py:557-632), in its order:
 
-1. the star join: an Aggregate over [Project]* <- [Filter]* <- an inner-join
-   tree that ``try_capture_join_agg`` accepts becomes a ``DeviceJoinAgg``,
-   which carries the untouched host translation of the same subtree;
+1. the star join: an Aggregate (grouped or not) over [Project]* <-
+   [Filter]* <- an inner-join tree that ``try_capture_join_agg`` accepts
+   becomes a ``DeviceJoinAgg``, which carries the untouched host
+   translation of the same subtree;
 2. the single-Filter peel: an Aggregate optionally over one Filter becomes
    a ``DeviceGroupedAgg`` (with group keys) when ``try_build_grouped_agg_stage``
    accepts the (predicate, keys, aggregations), or a ``DeviceFilterAgg``
@@ -16,8 +17,14 @@ The device decisions made here are the reference's Aggregate captures
    aggregations).
 
 Otherwise it stays a host ``HashAggregate`` over the translated input (with
-no group keys, the ungrouped aggregation: one row). The join TopN and
-fused-region captures are not ported yet.
+no group keys, the ungrouped aggregation: one row).
+
+A Limit over a Sort (or over an Offset over a Sort) becomes a TopN
+(plan/optimizer.py ``rule_detect_topn``). A TopN over [column Project]* <-
+a grouped star-join Aggregate that ``try_capture_join_topn`` accepts becomes
+a ``DeviceJoinTopN`` (the reference's capture, physical.py:530-555, whose
+capture errors raise here instead of being caught); any other TopN is a
+host ``PhysTopN``. The fused-region capture is not ported yet.
 """
 
 from __future__ import annotations
@@ -78,6 +85,30 @@ class PhysSort(_Unary):
         self.sort_by = sort_by
         self.descending = descending
         self.nulls_first = nulls_first
+
+
+class PhysLimit(_Unary):
+    """Rows [offset, offset + limit) of the input's stream; limit -1: every
+    row after the offset."""
+
+    def __init__(self, input: PhysicalPlan, limit: int, offset: int, schema: Schema):
+        super().__init__(input, schema)
+        self.limit = limit
+        self.offset = offset
+
+
+class PhysTopN(_Unary):
+    """A stable sort of the whole input, then rows [offset, offset + limit)."""
+
+    def __init__(self, input: PhysicalPlan, sort_by: List[Expression],
+                 descending: List[bool], nulls_first: List[bool], limit: int, offset: int,
+                 schema: Schema):
+        super().__init__(input, schema)
+        self.sort_by = sort_by
+        self.descending = descending
+        self.nulls_first = nulls_first
+        self.limit = limit
+        self.offset = offset
 
 
 class HashAggregate(_Unary):
@@ -148,10 +179,10 @@ class PhysRepartition(_Unary):
 
 
 class DeviceJoinAgg(PhysicalPlan):
-    """Star join + grouped aggregate fused for the device
-    (ops/device_join.py): the fact streams, each dim materializes once per
-    run and joins as a device gather through its index plane, and the
-    aggregation runs on the grouped stage's kernels. ``host_plan`` is the
+    """Star join + aggregate fused for the device (ops/device_join.py): the
+    fact streams, each dim materializes once per run and joins as a device
+    gather through its index plane, and the aggregation runs on the grouped
+    stage's kernels (with group keys) or the ungrouped stage (without). ``host_plan`` is the
     host translation of the same subtree: the executor runs it under
     device_mode="off" and after a DeviceFallback."""
 
@@ -160,6 +191,26 @@ class DeviceJoinAgg(PhysicalPlan):
         self.fact = fact
         self.dim_plans = dim_plans  # [(dim name, PhysicalPlan)], parents first
         self.spec = spec            # ops.device_join.JoinAggSpec
+        self.host_plan = host_plan
+        self.schema = schema
+
+    def children(self):
+        return [self.fact] + [p for _n, p in self.dim_plans]
+
+
+class DeviceJoinTopN(PhysicalPlan):
+    """Star join + grouped aggregate + ORDER BY + LIMIT fused for the device
+    (ops/device_join.py ``DeviceJoinTopNRun``): the group tables stay on the
+    device, a device sort picks the K winners and only their rows come
+    back. ``host_plan`` is the host translation of the same TopN subtree."""
+
+    def __init__(self, fact: PhysicalPlan, dim_plans, spec, topn, out_map,
+                 host_plan: PhysicalPlan, schema: Schema):
+        self.fact = fact
+        self.dim_plans = dim_plans
+        self.spec = spec            # ops.device_join.JoinAggSpec
+        self.topn = topn            # ops.device_join.TopNSpec
+        self.out_map = out_map      # [("agg" | "group", index)] per output column
         self.host_plan = host_plan
         self.schema = schema
 
@@ -181,6 +232,29 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
     if isinstance(plan, lp.Sort):
         return PhysSort(translate(plan.input), plan.sort_by, plan.descending,
                         plan.nulls_first, plan.schema)
+    if isinstance(plan, lp.Limit):
+        from .optimizer import rule_detect_topn
+
+        topn = rule_detect_topn(plan)
+        if topn is not None:
+            return translate(topn)
+        return PhysLimit(translate(plan.input), plan.limit, 0, plan.schema)
+    if isinstance(plan, lp.Offset):
+        return PhysLimit(translate(plan.input), -1, plan.offset, plan.schema)
+    if isinstance(plan, lp.TopN):
+        host_input = translate(plan.input)
+        host = PhysTopN(host_input, plan.sort_by, plan.descending, plan.nulls_first,
+                        plan.limit, plan.offset, plan.schema)
+        if cfg.device_mode != "off":
+            from ..ops.device_join import try_capture_join_topn
+
+            captured = try_capture_join_topn(plan)
+            if captured is not None:
+                jspec, topn, out_map = captured
+                return DeviceJoinTopN(translate(jspec.fact),
+                                      [(d.name, translate(d.base)) for d in jspec.dims],
+                                      jspec, topn, out_map, host, plan.schema)
+        return host
     if isinstance(plan, lp.Repartition):
         return PhysRepartition(translate(plan.input), plan.num_partitions, plan.scheme,
                                plan.by, plan.schema)
@@ -194,7 +268,7 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
             from ..ops.grouped_stage import try_build_grouped_agg_stage
             from ..ops.stage import try_build_filter_agg_stage
 
-            spec = try_capture_join_agg(plan) if plan.groupby else None
+            spec = try_capture_join_agg(plan)
             if spec is not None:
                 host = HashAggregate(translate(plan.input), plan.groupby,
                                      plan.aggregations, plan.schema)

@@ -64,7 +64,7 @@ def run(card: str) -> dict:
     from daft_tpu_torch.ops import probe_kernels as pk
 
     pk.build()
-    lineitem, orders = cs.tpch_sf1(cs.SEED)
+    lineitem, orders, _dims = cs.tpch_sf1(cs.SEED)
     dev = torch.device("cuda")
     dim_keys = torch.from_numpy(orders["o_orderkey"]).to(dev)
     dim_valid = torch.ones(cs.SF1_ORDERS, dtype=torch.bool, device=dev)

@@ -118,3 +118,80 @@ def test_profile_counts_the_ports_own_kernel_activities(monkeypatch):
               Event("Memcpy HtoD (Pageable -> Device)", 7),
               Event("void other::my_k7_partial_kernel<float>(float*)", 5)]
     assert cs.own_activities(events, names) == 6
+
+
+def _small_tpch(cs):
+    """chip_smoke.py's tables at a small size: 40,000 orders (about 160,000
+    lineitem rows, enough for q19 to keep a few), 2,000 parts, 4,000
+    customers."""
+    return cs.tpch_sf1(11, n_orders=40_000, n_parts=2_000, n_customers=4_000)
+
+
+@pytest.mark.parametrize("name", ["q14", "q19", "q3", "q10"])
+def test_join_tail_oracles_match_the_port(monkeypatch, name):
+    """chip_smoke.py's numpy oracles of the join tails equal the port's host
+    path and its device path on the CPU (the one TopN run for q3 and q10)
+    at a small size."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ops import counters
+
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    lineitem, orders, dims = _small_tpch(cs)
+    frames = cs.tails_frames(lineitem, orders, dims)
+    query, oracle, floats, topn = cs.TAILS[name]
+    want = oracle(lineitem, orders, dims)
+    if topn:
+        want, margin = want
+        assert margin is not None and margin > 0
+    with dt.execution_config_ctx(device="cpu", device_mode="off"):
+        assert cs.same_result(query(frames).to_pydict(), want, floats)
+    counters.reset()
+    with dt.execution_config_ctx(device="cpu"):
+        assert cs.same_result(query(frames).to_pydict(), want, floats)
+    snap = counters.snapshot()
+    assert snap["device_join_batches"] == 1 and snap["device_fallbacks"] == 0
+    assert snap["device_topn_runs"] == int(topn)
+
+
+def test_topn_kernel_cases_get_the_runs_inputs(monkeypatch):
+    """chip_smoke.py's kernel cases at q3's shapes feed K1, K2 and K7 what
+    q3's TopN run itself passes them (on the CPU, at a small size), tensor
+    for tensor."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.device.residency import manager
+    from daft_tpu_torch.ops import grouped_stage
+    from daft_tpu_torch.ops import segment_kernels as sk
+    from daft_tpu_torch.ops.stage import pad_bucket
+
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    lineitem, orders, dims = _small_tpch(cs)
+    frames = cs.tails_frames(lineitem, orders, dims)
+    seen = {}
+    for name in ("segment_sum_planes", "segment_extreme_planes", "segment_sum_float_planes"):
+        def record(*args, _name=name, _fn=getattr(sk, name)):
+            seen.setdefault(_name, []).append(args)
+            return _fn(*args)
+        monkeypatch.setattr(sk, name, record)
+    manager().clear()
+    with dt.execution_config_ctx(device="cpu"):
+        cs.q3_query(frames).to_pydict()
+    bucket = pad_bucket(len(lineitem["l_orderkey"]))
+    cap = grouped_stage._pad_groups(len(orders["o_orderkey"]))
+    monkeypatch.setattr(cs, "BUCKET", bucket)
+    monkeypatch.setattr(cs, "Q3_CAP", cap)
+    want = cs.topn_inputs(lineitem, orders, dims, torch.device("cpu"))["q3"]
+
+    def same(a, b):
+        return len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                        for x, y in zip(a, b))
+    ((k1_planes, k1_codes, k1_cap),) = seen["segment_sum_planes"]
+    assert k1_cap == cap and torch.equal(k1_codes, want["codes"])
+    assert same(k1_planes, want["planes"])
+    ((k2_planes, _c, _cap, k2_op),) = seen["segment_extreme_planes"]
+    assert k2_op == "min" and same(k2_planes, want["first"])
+    ((k7_planes, _c, _cap),) = seen["segment_sum_float_planes"]
+    assert same(k7_planes, want["revenue"])

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import daft_tpu_torch
 from daft_tpu_torch.ops import counters
 from daft_tpu_torch.ops import permute_kernels as rk
 from daft_tpu_torch.ops import probe_kernels as pk
@@ -68,8 +69,10 @@ PLANE_CASES = [
     (4099, 256, 3, 0.7), (4099, 8, 3, 0.7), (4099, 1 << 17, 2, 0.7),
     (4096, 256, 3, 0.0), (4096, 8, 3, 0.0), (4096, 1 << 17, 3, 0.0),
     (4096, 8, 1, 1.0), (1, 16, 1, 1.0),
-    # the global table at the segment ceiling, 2^20
+    # the global table at the grouped stage's ceiling, 2^20
     (1 << 21, 1 << 20, 3, 0.7), (4099, 1 << 20, 2, 0.7),
+    # the join TopN's caps: TPC-H q3's 2^21 and the kernels' ceiling 2^22
+    (1 << 22, 1 << 21, 2, 0.7), (1 << 22, 1 << 22, 3, 0.7), (4099, 1 << 22, 2, 0.7),
 ]
 
 
@@ -151,6 +154,7 @@ def test_segment_extreme_planes_matches_plain(cuda, op, n, cap, q, keep):
     (1, 16, 1.0), (4099, 8, 0.6), (4099, 24576, 0.6),  # n not a multiple of 4
     (1 << 22, 1 << 20, 0.6),       # past a cluster's tables: the global tier
     (4099, (1 << 17) + 1, 0.6), (4096, 1 << 20, 0.0),
+    (1 << 22, 1 << 22, 0.6),       # the kernels' ceiling (the join TopN's)
 ])
 def test_segment_extreme_int64_matches_plain(cuda, op, n, cap, keep):
     rng = np.random.default_rng(cap + n)
@@ -781,6 +785,8 @@ K7_CASES = [
     (4099, 16384, 2, 0.9, "block"), (4099, 29057, 1, 0.9, "global"),
     (4096, 33, 3, 0.0, "warp"), (4096, 29056, 1, 0.0, "block"),
     (1 << 18, 33, 70, 0.7, "block"), (1 << 18, 1 << 20, 70, 0.7, "global"),
+    # the join TopN's caps: TPC-H q3's 2^21 and the kernels' ceiling 2^22
+    (1 << 22, 1 << 21, 1, 0.7, "global"), (1 << 22, 1 << 22, 2, 0.7, "global"),
 ]
 
 
@@ -942,3 +948,74 @@ def test_ungrouped_query_on_card_matches_host(cuda):
     assert [np.float64(v).tobytes() for v in got["lo"] + got["hi"]] == \
            [np.float64(v).tobytes() for v in want["lo"] + want["hi"]]
     assert got["nf"] == want["nf"] and got["n"] == want["n"]
+
+
+def _tails_tables(seed=3):
+    """A small star: 20,000 fact rows on 3,000 orders-like dim rows (one
+    group per dim row) and a 40-row chained dim."""
+    rng = np.random.default_rng(seed)
+    n = 20_000
+    fact = daft_tpu_torch.from_pydict({
+        "f_k": rng.integers(1, 3001, n), "f_v": np.round(rng.uniform(1, 1000, n), 2),
+        "f_d": np.round(rng.uniform(0, 0.1, n), 2), "f_q": rng.integers(1, 51, n)})
+    dim = daft_tpu_torch.from_pydict({
+        "d_k": np.arange(1, 3001), "d_c": rng.integers(0, 40, 3000),
+        "d_date": rng.integers(8000, 9000, 3000).astype("datetime64[D]")})
+    chained = daft_tpu_torch.from_pydict({
+        "c_k": np.arange(40), "c_seg": np.array(["A", "B", "C", "D"], dtype=object)[
+            np.arange(40) % 4]})
+    return fact, dim, chained
+
+
+def test_join_topn_on_card_matches_host(cuda):
+    """q3's shape on the card: a chained dim filter, groups by a dim key and
+    date, the top 10 by a float sum: one TopN run, K4 and K1, K2, K7
+    launched, equal to the host path (floats at rtol 1e-5)."""
+    col = daft_tpu_torch.col
+    fact, dim, chained = _tails_tables()
+
+    def q():
+        return (chained.where(col("c_seg") == "B")
+                .join(dim, left_on="c_k", right_on="d_c")
+                .join(fact, left_on="d_k", right_on="f_k")
+                .groupby("d_k", "d_date")
+                .agg((col("f_v") * (1 - col("f_d"))).sum().alias("rev"))
+                .sort(["rev", "d_date"], desc=[True, False]).limit(10))
+
+    with daft_tpu_torch.execution_config_ctx(device_mode="off"):
+        want = q().to_pydict()
+    counters.reset()
+    with daft_tpu_torch.execution_config_ctx(device="cuda"):
+        got = q().to_pydict()
+    snap = counters.snapshot()
+    assert snap["device_topn_runs"] == 1 and snap["device_fallbacks"] == 0
+    for k in ("hash_probe_build", "hash_probe_index", "segment_sum_planes",
+              "segment_extreme_planes", "segment_sum_float_planes"):
+        assert snap[f"launches_{k}"] >= 1, k
+    assert got["d_k"] == want["d_k"] and got["d_date"] == want["d_date"]
+    np.testing.assert_allclose(got["rev"], want["rev"], rtol=1e-5)
+
+
+def test_ungrouped_join_on_card_matches_host(cuda):
+    """q14's shape on the card: startswith hoisted to the dim, an ungrouped
+    sum over the join; K4 launched, equal to the host path."""
+    col, lit = daft_tpu_torch.col, daft_tpu_torch.lit
+    fact, dim, chained = _tails_tables()
+
+    def q():
+        return (fact.join(dim, left_on="f_k", right_on="d_k")
+                .join(chained, left_on="d_c", right_on="c_k")
+                .with_column("promo", col("c_seg").str.startswith("B")
+                             .if_else(col("f_v"), lit(0.0)))
+                .agg(col("promo").sum().alias("p"), col("f_q").sum().alias("q")))
+
+    with daft_tpu_torch.execution_config_ctx(device_mode="off"):
+        want = q().to_pydict()
+    counters.reset()
+    with daft_tpu_torch.execution_config_ctx(device="cuda"):
+        got = q().to_pydict()
+    snap = counters.snapshot()
+    assert snap["device_join_batches"] == 1 and snap["device_fallbacks"] == 0
+    assert snap["launches_hash_probe_build"] == 1 and snap["launches_hash_probe_index"] == 1
+    assert got["q"] == want["q"]
+    np.testing.assert_allclose(got["p"], want["p"], rtol=1e-5)

@@ -282,7 +282,9 @@ def test_f64_stage_over_several_batches_keeps_the_first_zero():
             daft_tpu_torch.from_pydict(parts[0]).schema,
             [daft_tpu_torch.from_pydict(p).collect()._result[0] for p in parts]))
     counters.reset()
-    got = _port(query, port_df, device=True)
+    # coalescing off: each partition is its own batch, merged at finalize
+    with daft_tpu_torch.execution_config_ctx(batch_fill_target=0):
+        got = _port(query, port_df, device=True)
     assert counters.snapshot()["device_grouped_batches"] == 2
     assert _bits(got["lo"]) == _bits(want["lo"]) and _bits(got["hi"]) == _bits(want["hi"])
     assert _bits(_port(query, port_df, device=False)["lo"]) == _bits(want["lo"])

@@ -1,7 +1,7 @@
 """The port stands alone and never hides a device failure:
 
-- a port query, the grouped one, the TPC-H q12 star join and the mesh
-  repartition alike, imports neither JAX, nor pyarrow, nor anything of
+- a port query, the grouped one, the TPC-H q12 and q14 star joins and the
+  mesh repartition alike, imports neither JAX, nor pyarrow, nor anything of
   daft_tpu (checked in a fresh interpreter: tests/conftest.py imports JAX
   into this one);
 - with no card, a query left at the default device ("cuda") raises;
@@ -90,6 +90,42 @@ print("FORBIDDEN", bad)
 """
 
 
+_Q14_QUERY = """
+import datetime, sys
+import numpy as np
+sys.path.insert(0, {repo!r})
+import daft_tpu_torch as dt
+from daft_tpu_torch import col, lit
+rng = np.random.default_rng(0)
+types = np.array(["PROMO BRUSHED TIN", "STANDARD PLATED COPPER", "PROMO POLISHED NICKEL",
+                  "SMALL ANODIZED STEEL"], dtype=object)
+part = dt.from_pydict({{"p_partkey": np.arange(1, 201), "p_type": types[rng.integers(0, 4, 200)]}})
+ship = rng.integers(9300, 9400, 3000)
+lineitem = dt.from_pydict({{
+    "l_partkey": rng.integers(1, 201, 3000), "l_extendedprice": rng.uniform(900, 2000, 3000),
+    "l_discount": np.round(rng.uniform(0, 0.1, 3000), 2),
+    "l_shipdate": ship.astype("datetime64[D]")}})
+with dt.execution_config_ctx(device="cpu", device_mode="on"):
+    out = (lineitem.where((col("l_shipdate") >= lit(datetime.date(1995, 9, 1)))
+                          & (col("l_shipdate") < lit(datetime.date(1995, 10, 1))))
+           .join(part, left_on="l_partkey", right_on="p_partkey")
+           .with_column("revenue", col("l_extendedprice") * (1 - col("l_discount")))
+           .with_column("promo", col("p_type").str.startswith("PROMO")
+                        .if_else(col("revenue"), lit(0.0)))
+           .agg(col("promo").sum().alias("promo_sum"), col("revenue").sum().alias("total_sum"))
+           .select((lit(100.0) * col("promo_sum") / col("total_sum")).alias("promo_revenue"))
+           .to_pydict())
+from daft_tpu_torch.ops import counters
+assert 0 < out["promo_revenue"][0] < 100, out
+assert counters.device_join_batches == 1 and counters.device_stage_batches == 1, \
+    counters.snapshot()
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             or m == "daft_tpu")
+print("FORBIDDEN", bad)
+"""
+
+
 _REPARTITION_QUERY = """
 import sys
 import numpy as np
@@ -132,6 +168,15 @@ def test_port_query_imports_no_jax_pyarrow_or_reference():
 
 def test_port_join_query_imports_no_jax_pyarrow_or_reference():
     proc = subprocess.run([sys.executable, "-c", _JOIN_QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+def test_port_q14_imports_no_jax_pyarrow_or_reference():
+    """TPC-H q14 (the ungrouped star join, startswith hoisted to the part
+    dim) in a fresh interpreter."""
+    proc = subprocess.run([sys.executable, "-c", _Q14_QUERY.format(repo=REPO)],
                           capture_output=True, text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "FORBIDDEN []" in proc.stdout, proc.stdout

@@ -253,7 +253,7 @@ def run(card: str, k7_only: bool = False) -> dict:
     from daft_tpu_torch.ops import segment_kernels as sk
 
     sk.build()
-    lineitem, _orders = cs.tpch_sf1(cs.SEED)
+    lineitem, _orders, _dims = cs.tpch_sf1(cs.SEED)
     dev = torch.device("cuda")
     x = cs.slice_inputs(lineitem, dev)
     keep = x["keep"]
