@@ -12,7 +12,8 @@ error (no phase catches its own failure):
             per source, all started together, with measure/k7_leads.cu, the
             kernels that only measure) and print the build seconds;
    data:    generate TPC-H lineitem (about 6.0 M rows), orders (1.5 M
-            rows), part (200,000), customer (150,000) and nation (25) at SF1
+            rows), part (200,000), customer (150,000), supplier (10,000),
+            nation (25) and region (5) at SF1
             with numpy from a fixed seed, in the value domains of
             benchmarking/tpch/datagen.py (string columns as codes mapped
             through a small object array, or unique strings);
@@ -110,11 +111,33 @@ error (no phase catches its own failure):
             exactly, float sums at rtol 1e-5), q3's and q10's oracle margin
             at the limit and their cold host factorize time printed; cold
             time, warm median of 3, peak memory and a profile each;
-11. coalesce: q6 over lineitem cut into morsels of 16,384 rows through
+11. q1 chain, q6 chain: q1 and q6 written with their derived columns
+            as ``with_column`` (q1: two, then ``where`` and ``groupby``;
+            q6: ``where``, one, ``agg``) at SF1: each must plan as one
+            device node over the scan (the fused region, ops/region.py) with
+            no host Project or Filter, count one region dispatch per run
+            with its ops (4 and 3), upload nothing on a warm run, and equal
+            the host path, the numpy oracle and its plain cell's result
+            (q1's bit for bit); the device time of one evaluation of the
+            projected disc_price, which the composed q1 evaluates twice, is
+            printed; counted, timed and profiled as the cells above;
+12. q5:     TPC-H q5 at SF1 (lineitem the fact; orders and supplier
+            adjacent; customer, nation and region chained behind orders):
+            counted from zero as above, no rejection and no fallback, K4 on
+            the cold run (launches printed) and never warm, equal to the
+            host path and a numpy oracle; cold, warm, peak memory, profile;
+13. topn order: the join TopN's row order on the card against the host
+            path: 4,000 rows of negative int64 sums, sums past 2^53 that tie
+            in f64, and float sums with +inf, NaN and a null group, each in
+            the four (desc x nulls_first) settings; then lineitem joined to
+            orders by customer at SF1, a signed int64 sum in eight digit
+            planes, counted, descending against the host path and a numpy
+            oracle, ascending against the oracle; profiled;
+14. coalesce: q6 over lineitem cut into morsels of 16,384 rows through
             the dispatch coalescer: fewer dispatches than morsels, buckets
             at least half full, the result equal to the one-batch run's and
             the oracle's, and a profile;
-12. repartition: lineitem's eight numeric columns at SF1 (about 6.0 M rows)
+15. repartition: lineitem's eight numeric columns at SF1 (about 6.0 M rows)
             repartitioned by ``l_orderkey`` into 8 partitions over a mesh of
             8 shard slots on the card (mesh_devices=8), the counters zeroed
             just before the run and read just after it: K6 must launch once,
@@ -124,7 +147,8 @@ error (no phase catches its own failure):
             kernel_mode="off" tier (all_to_all) must give the same
             partitions. Then the wall time (median of 3), peak device memory
             and one run under torch.profiler;
-13. print the {"kernels": [...]} line, the card line, and last the
+16. print the {"kernels": [...]} line (each kernel's launches by path:
+   every cell's counted run), the card line, and last the
    {"ok": true, "device": {...}} line.
 
 Every cell runs at SF1: nothing is cut. It imports torch, numpy and the
@@ -162,6 +186,8 @@ K3_LARGE_CAP = 1 << 17    # K3 (and K1, K2) at their global tiers' start
 MAX_CAP = 1 << 20         # the grouped stage's segment ceiling (MAX_SORT_SEGMENTS)
 Q3_CAP = 1 << 21          # q3's 1.5 M orders (its TopN run's groups) pad to this capacity
 TOPN_CAP = 1 << 22        # the kernels' ceiling (the join TopN's TOPN_MAX_SEGMENTS)
+Q5_CAP = 32               # q5's groups, the 25 nations' names, pad to this capacity
+TOPN_SF1_CAP = 1 << 18    # the TopN order cell's ~150,000 customers pad to this capacity
 WIDE_CAP, WIDE_PLANES = 4096, 73  # K1 past one 64-plane chunk
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 EPOCH = datetime.date(1970, 1, 1)
@@ -184,6 +210,9 @@ NATIONS = ["ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA", "FRA
            "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ", "JAPAN", "JORDAN", "KENYA",
            "MOROCCO", "MOZAMBIQUE", "PERU", "CHINA", "ROMANIA", "SAUDI ARABIA", "VIETNAM",
            "RUSSIA", "UNITED KINGDOM", "UNITED STATES"]
+# each nation's region key, and the regions (benchmarking/tpch/datagen.py:26-33)
+NATION_REGIONS = [0, 1, 1, 1, 4, 0, 3, 3, 2, 2, 4, 4, 2, 4, 0, 0, 0, 1, 2, 3, 4, 2, 3, 3, 1]
+REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
 SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
 INSTRUCTIONS = ["DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN"]
 TYPES_P1 = ["STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"]
@@ -238,17 +267,19 @@ def phase(name: str) -> None:
 
 def tpch_sf1(seed: int, n_orders: int = SF1_ORDERS, n_parts: int = SF1_PARTS,
              n_customers: int = SF1_CUSTOMERS):
-    """(lineitem columns, orders columns, {"part", "customer", "nation"}
-    columns) of every cell, with the value domains of the repo's TPC-H
-    generator (benchmarking/tpch/datagen.py: 36-37, 90-113, 143-190). Dates
+    """(lineitem columns, orders columns, {"part", "customer", "nation",
+    "region", "supplier"} columns) of every cell, with the value domains of
+    the repo's TPC-H generator (benchmarking/tpch/datagen.py: 26-37,
+    90-125, 143-190). Dates
     are int32 days; ``l_shipmode``, ``o_orderpriority``, ``l_returnflag``,
     ``l_linestatus``, ``l_shipinstruct``, ``c_mktsegment``, ``p_type``,
     ``p_brand``, ``p_container`` and ``c_nationkey`` are codes into
     SHIPMODES, PRIORITIES, RETURNFLAGS, LINESTATUS, INSTRUCTIONS, SEGMENTS,
     P_TYPES, P_BRANDS, P_CONTAINERS and NATIONS. Each cell's columns are
     drawn after the earlier cells' (the repartition cell's after the first
-    cells', then q1's flags, then the join tails' columns and tables), so
-    the earlier cells' data does not depend on the later ones. The sizes
+    cells', then q1's flags, then the join tails' columns and tables, then
+    q5's supplier nations), so the earlier cells' data does not depend on
+    the later ones. The sizes
     are SF1's unless a test asks for fewer rows."""
     import numpy as np
 
@@ -311,8 +342,15 @@ def tpch_sf1(seed: int, n_orders: int = SF1_ORDERS, n_parts: int = SF1_PARTS,
         "c_comment": np.array([f"customer comment {i}" for i in range(n_customers)],
                               dtype=object)}
     nation = {"n_nationkey": np.arange(len(NATIONS), dtype=np.int64),
-              "n_name": np.array(NATIONS, dtype=object)}
-    return lineitem, orders, {"part": part, "customer": customer, "nation": nation}
+              "n_name": np.array(NATIONS, dtype=object),
+              "n_regionkey": np.array(NATION_REGIONS, dtype=np.int64)}
+    # q5's (datagen.py:115-125): drawn after every earlier cell's columns
+    region = {"r_regionkey": np.arange(len(REGIONS), dtype=np.int64),
+              "r_name": np.array(REGIONS, dtype=object)}
+    supplier = {"s_suppkey": np.arange(1, SF1_SUPPLIERS + 1, dtype=np.int64),
+                "s_nationkey": rng.integers(0, len(NATIONS), SF1_SUPPLIERS).astype(np.int64)}
+    return lineitem, orders, {"part": part, "customer": customer, "nation": nation,
+                              "region": region, "supplier": supplier}
 
 
 def supplier_query(df):
@@ -478,13 +516,38 @@ def device_ms(fn, iters: int, label: str = "") -> float | None:
         if events and all(e.count % iters == 0 for e in events):
             break
     else:
-        print(f"  {label}: torch.profiler lost device activities three times: not measured")
+        print(f"  {label}: torch.profiler lost device activities three times: not measured "
+              "(last capture: " + "; ".join(f"{e.key[:50]} x{e.count}" for e in events) + ")")
         return None
     if label:
         print(f"  {label} device activities over {iters} calls: " + "; ".join(
             f"{e.key[:60]} x{e.count} {e.self_device_time_total / max(e.count, 1):.2f} us"
             for e in events))
     return sum(e.self_device_time_total for e in events) / iters / 1e3
+
+
+def activity_ms(fn, iters: int) -> float | None:
+    """Device time of one call of ``fn``: each device activity's mean time
+    over the calls it was seen in, summed, under torch.profiler over
+    ``iters`` calls after a warm-up. Where the profiler drops a call's
+    activities (it has dropped the first call's of a capture), the means
+    still hold; None when it saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+    print("  activities over " f"{iters} calls: " + "; ".join(
+        f"{e.key[:50]} x{e.count} {e.self_device_time_total / e.count:.2f} us" for e in events))
+    if not events:
+        return None
+    return sum(e.self_device_time_total / e.count for e in events) / 1e3
 
 
 def bound_ms(nbytes: int) -> float:
@@ -1207,6 +1270,89 @@ def topn_inputs(cols, orders, dims, dev) -> dict:
     return out
 
 
+def q5_inputs(cols, orders, dims, dev) -> dict:
+    """q5's kernel inputs at SF1, as its device join run builds them: the
+    codes (each row's nation, the dictionary code of n_name, where q5 keeps
+    the row: its order in 1994, its customer's nation in ASIA and its
+    supplier of that nation; trash Q5_CAP elsewhere), K1's rows and
+    revenue-count planes, K2's first-row-index plane and K7's f32 revenue
+    plane."""
+    import numpy as np
+    import torch
+
+    n = len(cols["l_orderkey"])
+    date = orders["o_orderdate"]
+    okey = cols["l_orderkey"] - 1
+    nat = dims["customer"]["c_nationkey"][orders["o_custkey"] - 1][okey]
+    supp_nat = dims["supplier"]["s_nationkey"][cols["l_suppkey"] - 1]
+    keep_np = (((date >= days(Q5_FROM)) & (date < days(Q5_TO)))[okey]
+               & (np.array(NATION_REGIONS)[nat] == REGIONS.index("ASIA")) & (supp_nat == nat))
+    keep = torch.zeros(BUCKET, dtype=torch.bool)
+    keep[:n] = torch.from_numpy(keep_np)
+    codes = torch.full((BUCKET,), Q5_CAP, dtype=torch.int32)
+    codes[:n] = torch.from_numpy(np.where(keep_np, nat, Q5_CAP).astype(np.int32))
+    price = torch.zeros(BUCKET, dtype=torch.float32)
+    price[:n] = torch.from_numpy(cols["l_extendedprice"].astype(np.float32))
+    disc = torch.zeros(BUCKET, dtype=torch.float32)
+    disc[:n] = torch.from_numpy(cols["l_discount"].astype(np.float32))
+    kf = keep.float().to(dev)
+    return {"cap": Q5_CAP, "codes": codes.to(dev), "planes": [kf, kf.clone()],
+            "first": [torch.where(keep, torch.arange(BUCKET, dtype=torch.float32),
+                                  torch.tensor(float("inf"))).to(dev)],
+            "revenue": [torch.where(keep, price * (1 - disc), 0.0).to(dev)]}
+
+
+def topn_sf1_inputs(cols, orders, dev) -> dict:
+    """The TopN order cell's kernel inputs at SF1 (topn_sf1_query), as its
+    TopN run builds them: the codes (each row's customer, numbered in first
+    occurrence over lineitem; every real row is kept), K1's eleven planes
+    (rows, the valid count of the int64 sum, its eight two's-complement
+    digit planes, the valid count of the quantity sum), K2's
+    first-row-index plane and K7's f32 quantity plane."""
+    import numpy as np
+    import torch
+
+    n = len(cols["l_orderkey"])
+    cust = orders["o_custkey"][cols["l_orderkey"] - 1]
+    _u, first, inverse = np.unique(cust, return_index=True, return_inverse=True)
+    rank = np.empty(len(first), dtype=np.int64)
+    rank[np.argsort(first, kind="stable")] = np.arange(len(first))
+    codes = torch.full((BUCKET,), TOPN_SF1_CAP, dtype=torch.int32)
+    codes[:n] = torch.from_numpy(rank[inverse.reshape(n)].astype(np.int32))
+    keep = torch.zeros(BUCKET, dtype=torch.bool)
+    keep[:n] = True
+    s = torch.zeros(BUCKET, dtype=torch.int64)
+    s[:n] = torch.from_numpy(cols["l_partkey"] - 100_000)
+    digits = [torch.where(keep, ((s >> (8 * k)) & 255).to(torch.float32), 0.0)
+              for k in range(8)]
+    kf = keep.float()
+    qty = torch.zeros(BUCKET, dtype=torch.float32)
+    qty[:n] = torch.from_numpy(cols["l_quantity"].astype(np.float32))
+    return {"cap": TOPN_SF1_CAP, "codes": codes.to(dev),
+            "planes": [t.to(dev) for t in [kf, kf] + digits + [kf]],
+            "first": [torch.where(keep, torch.arange(BUCKET, dtype=torch.float32),
+                                  torch.tensor(float("inf"))).to(dev)],
+            "qty": [qty.to(dev)], "groups": len(first)}
+
+
+def supplier_probe_cases(pk, cols, dims, dev, results: dict) -> None:
+    """K4 at q5's supplier shapes: the build over supplier's 10,000 keys and
+    the probe of lineitem's l_suppkey (every row finds its supplier)."""
+    import torch
+
+    n = len(cols["l_suppkey"])
+    dim_keys = torch.from_numpy(dims["supplier"]["s_suppkey"]).to(dev)
+    table, results["hash_probe_build"]["at_supplier"] = k4_build_case(pk, dim_keys,
+                                                                      "supplier")
+    keys, valid = fact_keys_on(cols, "l_suppkey", dev)
+    got, results["hash_probe_index"]["at_l_suppkey"] = k4_probe_case(
+        pk, keys, valid, table, torch.sort(dim_keys)[0], "l_suppkey")
+    check(torch.equal(got[:n].cpu(), torch.from_numpy(cols["l_suppkey"] - 1).int()),
+          "K4 probe: a lineitem row does not find its supplier")
+    del table, keys, valid, got
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(cols, orders, dims, card: str):
     import numpy as np
     import torch
@@ -1351,6 +1497,31 @@ def phase_kernels(cols, orders, dims, card: str):
         del t, tcodes
     torch.cuda.empty_cache()
 
+    # q5's launches at its own inputs (25 nations in cap 32: K7's thread
+    # tier), and the TopN order cell's (eight int64 digit planes among K1's
+    # eleven at cap 2^18, K7 on the quantity plane)
+    check(grouped_stage._pad_groups(len(NATIONS)) == Q5_CAP,
+          f"q5's {len(NATIONS)} nations pad to {grouped_stage._pad_groups(len(NATIONS))}, "
+          f"not {Q5_CAP}")
+    t = q5_inputs(cols, orders, dims, dev)
+    at = f"at_q5_cap{Q5_CAP}"
+    results["segment_sum_planes"][at] = plane_case(sk, "sum", t["planes"], t["codes"], Q5_CAP)
+    results["segment_extreme_planes"][at] = plane_case(sk, "min", t["first"], t["codes"],
+                                                       Q5_CAP)
+    k7[at] = k7_case(sk, t["revenue"], t["codes"], Q5_CAP, f"q5 cap {Q5_CAP}")
+    t = topn_sf1_inputs(cols, orders, dev)
+    check(grouped_stage._pad_groups(t["groups"]) == TOPN_SF1_CAP,
+          f"the TopN order cell's {t['groups']} customers pad to "
+          f"{grouped_stage._pad_groups(t['groups'])}, not {TOPN_SF1_CAP}")
+    at = f"at_topn_order_cap{TOPN_SF1_CAP}"
+    results["segment_sum_planes"][at] = plane_case(sk, "sum", t["planes"], t["codes"],
+                                                   TOPN_SF1_CAP, 2)
+    results["segment_extreme_planes"][at] = plane_case(sk, "min", t["first"], t["codes"],
+                                                       TOPN_SF1_CAP, 2)
+    k7[at] = k7_case(sk, t["qty"], t["codes"], TOPN_SF1_CAP, f"topn order cap {TOPN_SF1_CAP}")
+    del t
+    torch.cuda.empty_cache()
+
     # K1 at q12's shapes: 7 ship modes in cap 8, P = 5 planes (kept rows, and
     # the valid count and one digit plane of each CASE-WHEN sum); K2 over the
     # first-row-index plane and the same codes, Q = 1
@@ -1374,6 +1545,7 @@ def phase_kernels(cols, orders, dims, card: str):
     del codes8
     probe_cases(pk, cols, orders, dev, results)
     part_probe_cases(pk, cols, dims, dev, results)
+    supplier_probe_cases(pk, cols, dims, dev, results)
 
     # K6 at the repartition cell's shapes: 8 x 8 blocks of 23 x 2^20 + 4
     # words (7 eight-byte planes, 1 four-byte plane, 8 validity planes, the
@@ -1867,13 +2039,22 @@ def phase_partkey(lineitem, card: str):
     return (lambda: query().to_pydict()), launches
 
 
+def q6_query(df):
+    """q6 as benchmarking/tpch/queries.py:104-113 writes it."""
+    from daft_tpu_torch import col, lit
+
+    return (df.where((col("l_shipdate") >= lit(Q6_FROM)) & (col("l_shipdate") < lit(Q6_TO))
+                     & (col("l_discount") >= 0.05) & (col("l_discount") <= 0.07)
+                     & (col("l_quantity") < 24))
+            .agg((col("l_extendedprice") * col("l_discount")).sum().alias("revenue")))
+
+
 def phase_q6(lineitem, card: str):
     """TPC-H q6 at SF1 through the ungrouped device stage (DeviceFilterAgg).
     Returns (the query as a callable, the run's launches)."""
     import numpy as np
 
     import daft_tpu_torch as dt
-    from daft_tpu_torch import col, lit
     from daft_tpu_torch.plan import physical as pp
 
     phase("q6")
@@ -1883,11 +2064,7 @@ def phase_q6(lineitem, card: str):
                          "l_shipdate": lineitem["l_shipdate"].astype("datetime64[D]")})
 
     def query():
-        """q6 as benchmarking/tpch/queries.py:104-113 writes it."""
-        return (df.where((col("l_shipdate") >= lit(Q6_FROM)) & (col("l_shipdate") < lit(Q6_TO))
-                         & (col("l_discount") >= 0.05) & (col("l_discount") <= 0.07)
-                         & (col("l_quantity") < 24))
-                .agg((col("l_extendedprice") * col("l_discount")).sum().alias("revenue")))
+        return q6_query(df)
 
     with dt.execution_config_ctx(device="cuda", device_mode="on"):
         plan = pp.translate(query()._plan)
@@ -2187,6 +2364,450 @@ def phase_tail(name: str, frames: dict, lineitem, orders, dims, card: str):
     return (lambda: query(frames).to_pydict()), launches
 
 
+# ---- fused regions: q1 and q6 written as chains of derived columns --------------
+
+
+def q1_chain_query(df):
+    """TPC-H q1 as dataframe users write an aggregate: the derived columns
+    first (``with_column``), then the filter, then ``groupby``. Composed
+    over the scan, its expressions are q1's own."""
+    from daft_tpu_torch import col, lit
+
+    return (df.with_column("disc_price", col("l_extendedprice") * (1 - col("l_discount")))
+            .with_column("charge", col("disc_price") * (1 + col("l_tax")))
+            .where(col("l_shipdate") <= lit(CUTOFF))
+            .groupby("l_returnflag", "l_linestatus")
+            .agg(col("l_quantity").sum().alias("sum_qty"),
+                 col("l_extendedprice").sum().alias("sum_base_price"),
+                 col("disc_price").sum().alias("sum_disc_price"),
+                 col("charge").sum().alias("sum_charge"),
+                 col("l_quantity").mean().alias("avg_qty"),
+                 col("l_extendedprice").mean().alias("avg_price"),
+                 col("l_discount").mean().alias("avg_disc"),
+                 col("l_quantity").count().alias("count_order"))
+            .sort(["l_returnflag", "l_linestatus"]))
+
+
+def q6_chain_query(df):
+    """TPC-H q6 with its product written as a column after the filter:
+    ``where``, ``with_column("rev", ...)``, ``agg(sum)``."""
+    from daft_tpu_torch import col, lit
+
+    return (df.where((col("l_shipdate") >= lit(Q6_FROM)) & (col("l_shipdate") < lit(Q6_TO))
+                     & (col("l_discount") >= 0.05) & (col("l_discount") <= 0.07)
+                     & (col("l_quantity") < 24))
+            .with_column("rev", col("l_extendedprice") * col("l_discount"))
+            .agg(col("rev").sum().alias("revenue")))
+
+
+def q6_oracle(cols) -> dict:
+    ship = cols["l_shipdate"]
+    keep = ((ship >= days(Q6_FROM)) & (ship < days(Q6_TO))
+            & (cols["l_discount"] >= 0.05) & (cols["l_discount"] <= 0.07)
+            & (cols["l_quantity"] < 24))
+    return {"revenue": [float((cols["l_extendedprice"][keep] * cols["l_discount"][keep]).sum())]}
+
+
+def region_plan_check(label: str, plan, node_type, ops) -> None:
+    """The chain planned as one device node of ``node_type`` directly over
+    the scan, fusing ``ops``; no host Project or Filter left."""
+    from daft_tpu_torch.plan import physical as pp
+
+    nodes = [n for n in plan.walk() if isinstance(n, (pp.DeviceGroupedAgg, pp.DeviceFilterAgg))]
+    check(len(nodes) == 1 and isinstance(nodes[0], node_type),
+          f"{label}: planned {[type(n).__name__ for n in nodes]}, not one {node_type.__name__}")
+    check(isinstance(nodes[0].input, pp.InMemoryScan), f"{label}: the device node is not "
+                                                       "over the scan")
+    check(not any(isinstance(n, (pp.Project, pp.PhysFilter)) for n in plan.walk()),
+          f"{label}: a host Project or Filter is left in the plan")
+    check(tuple(nodes[0].region_ops) == ops,
+          f"{label}: fused {nodes[0].region_ops}, expected {ops}")
+    print(f"{label} plan: one {node_type.__name__} over the scan, fused region "
+          f"{'→'.join(ops)}", flush=True)
+
+
+def count_uploads(run) -> int:
+    """The column uploads (``Series.to_device``: a residency miss) one call
+    of ``run`` makes."""
+    from daft_tpu_torch.core.series import Series
+
+    calls = []
+    real = Series.to_device
+
+    def counting(self, *args, **kwargs):
+        calls.append(self.name)
+        return real(self, *args, **kwargs)
+
+    Series.to_device = counting
+    try:
+        run()
+    finally:
+        Series.to_device = real
+    return len(calls)
+
+
+def region_counter_checks(label: str, counter: str, n_ops: int):
+    def checks(snap, warm):
+        for s, runs in ((snap, 1), (warm, 3)):
+            check(s["device_region_dispatches"] == s[counter] == runs,
+                  f"{label}: {s['device_region_dispatches']} region dispatches for "
+                  f"{s[counter]} {counter}, expected {runs}")
+            check(s["device_region_ops_fused"] == n_ops * runs,
+                  f"{label}: {s['device_region_ops_fused']} ops fused, expected "
+                  f"{n_ops * runs}")
+    return checks
+
+
+CHAIN_ROUNDS = 7  # interleaved rounds of the chain cells' warm comparison
+PLANS = 20        # translate() calls timed per query
+
+
+def chain_gap(label: str, df, chain, plain, card: str) -> dict:
+    """The chain's warm cost beside its plain query's, both over ``df`` in
+    one phase: CHAIN_ROUNDS interleaved rounds of (the plain query, the
+    fused chain, the chain under region_mode="off", whose Projects and
+    deeper Filters run as host operators in front of the device stage),
+    each run ending in a synchronize; then, on the host's clock, the median
+    of building each query's DataFrame and of translate() over it (PLANS
+    calls each). Returns the medians in ms."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.plan import physical as pp
+
+    runs = {"plain": [], "fused": [], "unfused": []}
+    with dt.execution_config_ctx(device="cuda", device_mode="on", kernel_mode="on"):
+        for _ in range(CHAIN_ROUNDS):
+            for name, q, mode in (("plain", plain, "on"), ("fused", chain, "on"),
+                                  ("unfused", chain, "off")):
+                with dt.execution_config_ctx(region_mode=mode):
+                    runs[name] += time_s(lambda q=q: q(df).to_pydict(), 1)
+        out = {f"{k}_warm_ms": statistics.median(v) * 1e3 for k, v in runs.items()}
+        for name, q in (("plain", plain), ("fused", chain)):
+            build, plan = [], []
+            for _ in range(PLANS):
+                t0 = time.perf_counter()
+                frame = q(df)
+                t1 = time.perf_counter()
+                pp.translate(frame._plan)
+                plan.append(time.perf_counter() - t1)
+                build.append(t1 - t0)
+            out[f"{name}_build_ms"] = statistics.median(build) * 1e3
+            out[f"{name}_translate_ms"] = statistics.median(plan) * 1e3
+    print(f"{label} beside its plain query ({CHAIN_ROUNDS} interleaved rounds, medians): "
+          f"warm plain {out['plain_warm_ms']:.4f} ms, fused chain {out['fused_warm_ms']:.4f} "
+          f"ms, unfused chain (region_mode=\"off\") {out['unfused_warm_ms']:.4f} ms; "
+          f"DataFrame build plain {out['plain_build_ms']:.4f} ms, chain "
+          f"{out['fused_build_ms']:.4f} ms; translate() plain {out['plain_translate_ms']:.4f} "
+          f"ms, chain {out['fused_translate_ms']:.4f} ms (host clock) [{card}]", flush=True)
+    return out
+
+
+def phase_q1_chain(lineitem, q1_result: dict, card: str):
+    """q1 written as a chain (q1_chain_query) at SF1: planned as one
+    DeviceGroupedAgg over the scan fusing project, project, filter and agg;
+    the region counters of the cold and warm runs; a warm run uploads
+    nothing; the result equal, bit for bit, to the q1 cell's. Also the
+    device time of one evaluation of the projected ``disc_price``, which
+    the composed program evaluates twice (under sum_disc_price and inside
+    charge), as q1's own expressions do: what a CSE would save. Returns (the
+    query as a callable, the cold run's launches)."""
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ops import device_eval
+    from daft_tpu_torch.plan import physical as pp
+    from daft_tpu_torch.utils.torch_setup import resolve_device
+
+    phase("q1 chain")
+    clear_residency()
+    df = q1_frame(lineitem)
+    with dt.execution_config_ctx(device="cuda", device_mode="on"):
+        plan = pp.translate(q1_chain_query(df)._plan)
+    region_plan_check("q1 chain", plan, pp.DeviceGroupedAgg,
+                      ("project", "project", "filter", "agg"))
+    node = next(n for n in plan.walk() if isinstance(n, pp.DeviceGroupedAgg))
+    got, launches = run_cell(
+        "q1 chain", lambda: q1_chain_query(df),
+        ("segment_sum_float_planes", "segment_sum_planes", "segment_extreme_planes"), card,
+        Q1_FLOATS, q1_oracle(lineitem),
+        extra_checks=region_counter_checks("q1 chain", "device_grouped_batches", 4))
+    check(same_result(got, q1_result), "q1 chain differs from the q1 cell's result")
+    print("q1 chain: equal bit for bit to the q1 cell's result")
+    with dt.execution_config_ctx(device="cuda", device_mode="on"):
+        uploads = count_uploads(lambda: q1_chain_query(df).to_pydict())
+    check(uploads == 0, f"q1 chain: a warm run uploaded {uploads} columns")
+    print("q1 chain warm run: 0 column uploads (every plane resident)")
+    chain_gap("q1 chain", df, q1_chain_query, q1_query, card)
+
+    # the projected expression the substitution copies
+    disc = next(e for e in node.aggregations if e.name() == "sum_disc_price").child.child
+    copies = sum(repr(sub) == repr(disc) for e in node.aggregations for sub in e.walk())
+    batch = df._plan.partitions[0].batches[0]
+    with dt_ctx():
+        dev = resolve_device(dt.execution_config().device)
+    cols = {c: batch.get_column(c).to_device_cached(BUCKET, f32=True, device=dev)
+            for c in disc.referenced_columns()}
+    fn = device_eval.build_device_expr(disc, df.schema, float_dtype=torch.float32)
+    one = activity_ms(lambda: fn(cols, dev), 20)
+    events_ms = time_ms(lambda: fn(cols, dev), 20)
+    print(f"q1 chain: the composed program evaluates {disc!r} {copies} times (q1's own "
+          f"expressions too); one evaluation over the {BUCKET}-row bucket takes "
+          f"{'not measured' if one is None else f'{one:.4f} ms'} on the device (each "
+          f"activity's mean, summed), {events_ms:.4f} ms by CUDA events (host launch "
+          f"gaps included): what a CSE would save a run [{card}]", flush=True)
+    return (lambda: q1_chain_query(df).to_pydict()), launches
+
+
+def phase_q6_chain(lineitem, q6_result: dict, card: str):
+    """q6 written as a chain (q6_chain_query) at SF1: one DeviceFilterAgg
+    over the scan fusing filter, project and agg; its region counters; the
+    result equal to the q6 cell's (rtol 1e-5) and the oracle. Returns (the
+    query as a callable, the cold run's launches)."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.plan import physical as pp
+
+    phase("q6 chain")
+    clear_residency()
+    df = dt.from_pydict({**{c: lineitem[c] for c in ("l_quantity", "l_extendedprice",
+                                                      "l_discount")},
+                         "l_shipdate": lineitem["l_shipdate"].astype("datetime64[D]")})
+    with dt.execution_config_ctx(device="cuda", device_mode="on"):
+        plan = pp.translate(q6_chain_query(df)._plan)
+    region_plan_check("q6 chain", plan, pp.DeviceFilterAgg, ("filter", "project", "agg"))
+    got, launches = run_cell(
+        "q6 chain", lambda: q6_chain_query(df), (), card, ("revenue",), q6_oracle(lineitem),
+        counter="device_stage_batches",
+        extra_checks=region_counter_checks("q6 chain", "device_stage_batches", 3))
+    check(same_result(got, q6_result, ("revenue",)), "q6 chain differs from the q6 cell's result")
+    print(f"q6 chain result: {json.dumps(got)}, the q6 cell's {json.dumps(q6_result)}")
+    chain_gap("q6 chain", df, q6_chain_query, q6_query, card)
+    return (lambda: q6_chain_query(df).to_pydict()), launches
+
+
+# ---- TPC-H q5: a star of six tables --------------------------------------------
+
+
+Q5_FROM, Q5_TO = datetime.date(1994, 1, 1), datetime.date(1995, 1, 1)
+
+
+def q5_frames(lineitem, orders, dims) -> dict:
+    import daft_tpu_torch as dt
+
+    return {
+        "lineitem": dt.from_pydict({c: lineitem[c] for c in (
+            "l_orderkey", "l_suppkey", "l_extendedprice", "l_discount")}),
+        "orders": dt.from_pydict({"o_orderkey": orders["o_orderkey"],
+                                  "o_custkey": orders["o_custkey"],
+                                  "o_orderdate": orders["o_orderdate"].astype("datetime64[D]")}),
+        "customer": dt.from_pydict({c: dims["customer"][c] for c in ("c_custkey",
+                                                                     "c_nationkey")}),
+        "supplier": dt.from_pydict(dims["supplier"]),
+        "nation": dt.from_pydict(dims["nation"]),
+        "region": dt.from_pydict(dims["region"]),
+    }
+
+
+def q5_query(t):
+    """TPC-H q5 as benchmarking/tpch/queries.py:87-101 writes it."""
+    from daft_tpu_torch import col, lit
+
+    return (t["region"].where(col("r_name") == "ASIA")
+            .join(t["nation"], left_on="r_regionkey", right_on="n_regionkey")
+            .join(t["customer"], left_on="n_nationkey", right_on="c_nationkey")
+            .join(t["orders"], left_on="c_custkey", right_on="o_custkey")
+            .where((col("o_orderdate") >= lit(Q5_FROM)) & (col("o_orderdate") < lit(Q5_TO)))
+            .join(t["lineitem"], left_on="o_orderkey", right_on="l_orderkey")
+            .join(t["supplier"], left_on=["l_suppkey", "n_nationkey"],
+                  right_on=["s_suppkey", "s_nationkey"])
+            .groupby("n_name")
+            .agg((col("l_extendedprice") * (1 - col("l_discount"))).sum().alias("revenue"))
+            .sort("revenue", desc=True))
+
+
+def q5_oracle(lineitem, orders, dims) -> dict:
+    """q5's answer with numpy alone, in f64 (every key is 1..n or 0..24:
+    the joins are indices)."""
+    import numpy as np
+
+    date = orders["o_orderdate"]
+    order_ok = (date >= days(Q5_FROM)) & (date < days(Q5_TO))
+    okey = lineitem["l_orderkey"] - 1
+    nat = dims["customer"]["c_nationkey"][orders["o_custkey"] - 1][okey]
+    asia = np.array(NATION_REGIONS)[nat] == REGIONS.index("ASIA")
+    supp_nat = dims["supplier"]["s_nationkey"][lineitem["l_suppkey"] - 1]
+    keep = order_ok[okey] & asia & (supp_nat == nat)
+    sums = np.bincount(nat[keep], weights=revenue(lineitem)[keep], minlength=len(NATIONS))
+    live = np.flatnonzero(np.bincount(nat[keep], minlength=len(NATIONS)) > 0)
+    order = live[np.argsort(-sums[live], kind="stable")]
+    return {"n_name": [NATIONS[i] for i in order], "revenue": sums[order].tolist()}
+
+
+def phase_q5(lineitem, orders, dims, card: str):
+    """TPC-H q5 at SF1 on the card: lineitem the fact, orders and supplier
+    adjacent, customer, nation and region chained behind orders, the second
+    supplier key a predicate over two dims. The counters zeroed just before
+    the cold run and read just after it: a device join batch, no rejection,
+    no fallback, K4 on the cold run (its launches printed) and never on the
+    warm runs; the result equal to the host path and the numpy oracle.
+    Returns (the query as a callable, the cold run's launches)."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.plan import physical as pp
+
+    phase("q5")
+    clear_residency()
+    frames = q5_frames(lineitem, orders, dims)
+    with dt.execution_config_ctx(device="cuda", device_mode="on"):
+        plan = pp.translate(q5_query(frames)._plan)
+    node = next((n for n in plan.walk() if isinstance(n, pp.DeviceJoinAgg)), None)
+    check(node is not None and not any(isinstance(n, pp.HashJoin) for n in plan.walk()),
+          "q5 did not plan as one device join")
+    print("q5 plan: dims " + ", ".join(f"{d.key_col} <- {d.parent[0]}.{d.parent[1]}"
+                                       for d in node.spec.dims)
+          + f"; predicate {node.spec.predicate!r}", flush=True)
+    want = q5_oracle(lineitem, orders, dims)
+
+    def checks(snap, warm):
+        print(f"q5 cold K4 launches: build {snap['launches_hash_probe_build']}, probe "
+              f"{snap['launches_hash_probe_index']} (adjacent dims: orders, supplier)")
+        for k in ("hash_probe_build", "hash_probe_index"):
+            check(warm[f"launches_{k}"] == 0, f"q5: a warm run launched K4 {k}")
+        check(warm["device_fallbacks"] == 0 and warm["device_join_batches"] == 3,
+              "q5: a warm run left the device join path")
+
+    got, launches = run_cell(
+        "q5", lambda: q5_query(frames),
+        ("hash_probe_build", "hash_probe_index", "segment_sum_planes", "segment_extreme_planes",
+         "segment_sum_float_planes"), card, ("revenue",), want,
+        counter="device_join_batches", extra_checks=checks)
+    check(len(got["n_name"]) == 5, f"q5: {len(got['n_name'])} nations, expected ASIA's 5")
+    print(f"q5 result: {json.dumps(got)}")
+    return (lambda: q5_query(frames).to_pydict()), launches
+
+
+# ---- the join TopN's row order (negative and wide integer sums, NaN, inf, null) --
+
+
+def topn_order_inputs() -> dict:
+    """The join TopN's order cases: name -> (fact, dim, limit). "negative":
+    4,000 rows, 50 groups of int64 sums, group 7 far below zero; "wide":
+    80 rows of 2^55 plus a small offset in each of 50 groups (sums past 2^53
+    that tie in f64); "special": 12 groups of float sums, one +inf, one NaN,
+    one null (its rows all null)."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    fk = rng.integers(0, 50, 4000)
+    v = rng.integers(-1000, 1000, 4000)
+    v[fk == 7] = -100_000
+    dim50 = {"k": np.arange(50, dtype=np.int64)}
+    out = {"negative": ({"fk": fk.astype(np.int64), "v": v.astype(np.int64)}, dim50, 5)}
+    fk = np.arange(4000) % 50
+    out["wide"] = ({"fk": fk.astype(np.int64),
+                    "v": ((1 << 55) + (fk * 7919) % 97 - 48).astype(np.int64)}, dim50, 12)
+    rng = np.random.default_rng(3)
+    fk = np.arange(600) % 12
+    v = rng.uniform(-50, 50, 600)
+    v[np.flatnonzero(fk == 3)[0]] = np.inf
+    v[np.flatnonzero(fk == 5)[1]] = np.nan
+    values = [None if k == 8 else x for k, x in zip(fk.tolist(), v.tolist())]
+    out["special"] = ({"fk": fk.astype(np.int64), "v": values},
+                      {"k": np.arange(12, dtype=np.int64)}, 12)
+    return out
+
+
+def topn_order_query(fact, dim, desc: bool, nulls_first: bool, limit: int):
+    from daft_tpu_torch import col
+
+    return (fact.join(dim, left_on="fk", right_on="k")
+            .groupby("k").agg(col("v").sum().alias("s"), col("v").count().alias("n"))
+            .sort("s", desc=desc, nulls_first=nulls_first).limit(limit))
+
+
+def topn_sf1_query(t, desc: bool = True):
+    """lineitem joined to orders, grouped by o_custkey (about 150,000
+    groups): a signed int64 sum (l_partkey - 100,000: eight digit planes)
+    ordered by the join TopN."""
+    from daft_tpu_torch import col
+
+    return (t["lineitem"].join(t["orders"], left_on="l_orderkey", right_on="o_orderkey")
+            .groupby("o_custkey")
+            .agg((col("l_partkey") - 100_000).sum().alias("s"),
+                 col("l_quantity").sum().alias("qty"))
+            .sort("s", desc=desc).limit(10))
+
+
+def topn_sf1_oracle(lineitem, orders, desc: bool = True) -> dict:
+    import numpy as np
+
+    cust = orders["o_custkey"][lineitem["l_orderkey"] - 1]
+    n = int(cust.max()) + 1
+    s = np.zeros(n, dtype=np.int64)
+    np.add.at(s, cust, lineitem["l_partkey"] - 100_000)
+    qty = np.bincount(cust, weights=lineitem["l_quantity"], minlength=n)
+    live = np.flatnonzero(np.bincount(cust, minlength=n) > 0)
+    # ties by first occurrence in lineitem's order
+    first = np.full(n, len(cust), dtype=np.int64)
+    np.minimum.at(first, cust, np.arange(len(cust)))
+    key = np.bitwise_not(s[live]) if desc else s[live]
+    top = live[np.lexsort((first[live], key))][:10]
+    return {"o_custkey": top.tolist(), "s": s[top].tolist(), "qty": qty[top].tolist()}
+
+
+def phase_topn_order(lineitem, orders, card: str):
+    """The join TopN's row order on the card against the host path: the
+    small order cases (topn_order_inputs) in the four (desc x nulls_first)
+    settings, each one device TopN run; then at SF1 the signed int64 sum
+    by customer (topn_sf1_query), counted, descending against the host
+    path and the numpy oracle, and ascending against the oracle. Returns
+    (the SF1 query as a callable, its cold run's launches)."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ops import counters
+
+    phase("topn order")
+    clear_residency()
+    for name, (fact, dim, limit) in topn_order_inputs().items():
+        f, d = dt.from_pydict(fact), dt.from_pydict(dim)
+        for desc in (True, False):
+            for nulls_first in (True, False):
+                query = lambda: topn_order_query(f, d, desc, nulls_first, limit)  # noqa: E731
+                with dt.execution_config_ctx(device="cuda", device_mode="on"):
+                    counters.reset()
+                    got = query().to_pydict()
+                    runs = counters.device_topn_runs
+                with dt.execution_config_ctx(device_mode="off"):
+                    host = query().to_pydict()
+                label = f"topn order {name} desc={desc} nulls_first={nulls_first}"
+                check(runs == 1, f"{label}: {runs} device TopN runs")
+                check(same_result(got, host, ("s",) if name == "special" else ()),
+                      f"{label}: the card's order {got['k']} differs from the host's "
+                      f"{host['k']}")
+                if name == "special":
+                    check((got["k"][0] == 8) == nulls_first and
+                          (got["k"][-1] == 8) == (not nulls_first),
+                          f"{label}: the null group is not placed by nulls_first")
+                print(f"{label}: k {got['k']} equal to the host path")
+    t = {"lineitem": dt.from_pydict({c: lineitem[c] for c in ("l_orderkey", "l_partkey",
+                                                               "l_quantity")}),
+         "orders": dt.from_pydict({c: orders[c] for c in ("o_orderkey", "o_custkey")})}
+
+    def checks(snap, warm):
+        check(snap["device_topn_runs"] == 1 and warm["device_topn_runs"] == 3,
+              "topn order SF1: a run left the device TopN")
+
+    got, launches = run_cell(
+        "topn order SF1", lambda: topn_sf1_query(t), ("segment_sum_planes",
+                                                      "segment_extreme_planes"),
+        card, ("qty",), topn_sf1_oracle(lineitem, orders), counter="device_join_batches",
+        extra_checks=checks)
+    with dt.execution_config_ctx(device="cuda", device_mode="on"):
+        asc = topn_sf1_query(t, desc=False).to_pydict()
+    check(same_result(asc, topn_sf1_oracle(lineitem, orders, desc=False), ("qty",)),
+          "topn order SF1 ascending differs from the numpy oracle")
+    check(all(v < 0 for v in asc["s"]), "topn order SF1: the smallest sums are not negative")
+    print(f"topn order SF1: descending {json.dumps(got)}; ascending sums {asc['s']} "
+          "(negative: eight two's-complement digit planes, rebuilt signed)", flush=True)
+    return (lambda: topn_sf1_query(t).to_pydict()), launches
+
+
 COALESCE_MORSEL_ROWS = 1 << 14  # an eighth of the default morsel_size_rows
 
 
@@ -2377,6 +2998,13 @@ def phase_repartition(lineitem, card: str):
     return run, launches
 
 
+def dt_ctx():
+    """The execution config every cell's device run takes."""
+    import daft_tpu_torch as dt
+
+    return dt.execution_config_ctx(device="cuda", device_mode="on", kernel_mode="on")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2413,10 +3041,14 @@ def main(argv=None) -> int:
             del df, q12
             q1, paths["q1"], paths["q1_f64"] = phase_q1(lineitem, card)
             phase_profile(q1, card, "q1 profile")
+            with dt_ctx():
+                q1_result = q1()
             partkey, paths["partkey"] = phase_partkey(lineitem, card)
             phase_profile(partkey, card, "partkey profile")
             q6, paths["q6"] = phase_q6(lineitem, card)
             phase_profile(q6, card, "q6 profile")
+            with dt_ctx():
+                q6_result = q6()
             del q1, partkey, q6
             t0 = time.perf_counter()
             frames = tails_frames(lineitem, orders, dims)
@@ -2425,6 +3057,15 @@ def main(argv=None) -> int:
                 tail, paths[cell] = phase_tail(cell, frames, lineitem, orders, dims, card)
                 phase_profile(tail, card, f"{cell} profile")
             del frames, tail
+            chain, paths["q1_chain"] = phase_q1_chain(lineitem, q1_result, card)
+            phase_profile(chain, card, "q1 chain profile")
+            chain, paths["q6_chain"] = phase_q6_chain(lineitem, q6_result, card)
+            phase_profile(chain, card, "q6 chain profile")
+            q5, paths["q5"] = phase_q5(lineitem, orders, dims, card)
+            phase_profile(q5, card, "q5 profile")
+            topn, paths["topn_order"] = phase_topn_order(lineitem, orders, card)
+            phase_profile(topn, card, "topn order profile")
+            del chain, q5, topn
             coalesce, paths["coalesce"] = phase_coalesce(lineitem, card)
             phase_profile(coalesce, card, "coalesce profile")
             del coalesce

@@ -10,6 +10,9 @@ default and ``execution_config_ctx`` scopes an override.
 - ``device_mode``: "on" (default) runs qualifying stages as device stages,
   "off" runs everything on the host. The reference's cost-model "auto" is
   not ported yet.
+- ``region_mode``: "on" (default) lets the planner fuse the chain of
+  Filters and Projects under an aggregate into the aggregate's device stage
+  (ops/region.py); "off" peels at most the one Filter directly under it.
 - ``kernel_mode``: "on" (default) lets device stages run their
   hand-written kernel tier (the reference's ``pallas_mode``). "off" plans
   every grouped aggregation to the host, since the port has no other grouped
@@ -47,6 +50,7 @@ from typing import Iterator, Optional
 class ExecutionConfig:
     device: str = "cuda"
     device_mode: str = "on"
+    region_mode: str = "on"
     kernel_mode: str = "on"
     morsel_size_rows: int = 128 * 1024
     batch_fill_target: float = 0.5
@@ -58,6 +62,9 @@ class ExecutionConfig:
     def __post_init__(self) -> None:
         if self.device_mode not in ("on", "off"):
             raise ValueError(f"device_mode must be 'on' or 'off', got {self.device_mode!r}")
+        if self.region_mode not in ("on", "off"):
+            raise ValueError(f"region_mode must be one of 'on'/'off', got "
+                             f"{self.region_mode!r}")
         if self.kernel_mode not in ("on", "off"):
             raise ValueError(f"kernel_mode must be 'on' or 'off', got {self.kernel_mode!r}")
         if self.morsel_size_rows < 1:

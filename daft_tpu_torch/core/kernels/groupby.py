@@ -5,7 +5,8 @@ daft_tpu/core/relational.py).
 ``make_groups`` factorizes multi-column keys (nulls form their own group)
 into group ids ordered by first occurrence, with numpy alone.
 ``grouped_reduce`` aggregates one column by group ids with ufunc.at
-scatters: O(rows), no per-group Python loop, so it serves a 6M-row table.
+scatters: O(rows), no per-group Python loop, so it serves a 6M-row table
+(``count_distinct`` counts the distinct (group, equality code) pairs).
 ``grouped_agg`` and ``ungrouped_agg`` aggregate a batch by key expressions,
 or to one row.
 """
@@ -91,6 +92,13 @@ def grouped_reduce(op: str, values: np.ndarray, valid: np.ndarray,
     vals = values[valid]
     cnt = np.bincount(gids, minlength=g)
     has = cnt > 0
+    if op == "count_distinct":
+        # ``values`` are equality codes (>= 0 on valid rows): count the
+        # distinct (group, code) pairs
+        width = int(vals.max(initial=0)) + 1
+        pairs = np.unique(gids.astype(np.int64) * width + vals)
+        return (np.bincount(pairs // width, minlength=g).astype(np.uint64),
+                np.ones(g, dtype=bool))
     if op in ("sum", "mean"):
         if vals.dtype.kind == "f" or op == "mean" and vals.dtype.kind not in "iub":
             acc = np.zeros(g, dtype=np.float64)
@@ -167,6 +175,8 @@ def _agg_columns(batch, aggs, group_ids: np.ndarray, g: int, ungrouped: bool = F
         s = s.broadcast(n) if len(s) == 1 and n != 1 else s
         out_dt = e.to_field(batch.schema).dtype
         values, validity = s.to_numpy(), s.validity_numpy()
+        if inner.op == "count_distinct":
+            values = equality_codes(s)
         vals, valid = grouped_reduce(inner.op, values, validity, group_ids, g,
                                      inner.params.get("mode", "valid"))
         if ungrouped and inner.op in ("min", "max") and values.dtype.kind == "f":
@@ -225,7 +235,7 @@ def agg_output_dtype(op: str, child: DataType) -> DataType:
         raise ValueError(f"cannot sum dtype {child}")
     if op == "mean":
         return DataType.float64()
-    if op == "count":
+    if op in ("count", "count_distinct"):
         return DataType.uint64()
     if op in ("min", "max"):
         return child

@@ -55,6 +55,11 @@ class MicroPartition:
         self._batches = [combined]
         return combined
 
+    def select_columns(self, names: List[str]) -> "MicroPartition":
+        """The columns ``names`` of every batch (the same Series)."""
+        batches = [b.select_columns(names) for b in self.batches]
+        return MicroPartition(Schema([self.schema[n] for n in names]), batches)
+
     def cast_to_schema(self, schema: Schema) -> "MicroPartition":
         return MicroPartition(schema, [b.cast_to_schema(schema) for b in self._batches])
 

@@ -85,6 +85,11 @@ class RecordBatch:
                 cols.append(Series.full_null(f.name, f.dtype, self._num_rows))
         return RecordBatch(schema, cols, self._num_rows)
 
+    def select_columns(self, names: List[str]) -> "RecordBatch":
+        """The columns ``names`` (the same Series), in that order."""
+        return RecordBatch(Schema([self._schema[n] for n in names]),
+                           [self.get_column(n) for n in names], self._num_rows)
+
     def slice(self, start: int, end: int) -> "RecordBatch":
         start = max(0, min(start, self._num_rows))
         end = max(start, min(end, self._num_rows))

@@ -242,6 +242,20 @@ class Series:
         idx = np.asarray(indices, dtype=np.int64)
         return Series(self._name, self._dtype, self._values[idx], self._validity[idx])
 
+    def take_or_null(self, indices) -> "Series":
+        """``take`` where an index of -1 gives a null row (the right
+        columns of a left join's unmatched rows)."""
+        idx = np.asarray(indices, dtype=np.int64)
+        miss = idx < 0
+        if not miss.any():
+            return self.take(idx)
+        if len(self) == 0:
+            return Series.full_null(self._name, self._dtype, len(idx))
+        safe = np.where(miss, 0, idx)
+        values = self._values[safe]  # a fresh copy: fancy indexing
+        values[miss] = _null_fill(self._dtype)
+        return Series(self._name, self._dtype, values, self._validity[safe] & ~miss)
+
     def broadcast(self, n: int) -> "Series":
         """A length-1 Series repeated to ``n`` rows."""
         return Series(self._name, self._dtype, np.repeat(self._values, n),

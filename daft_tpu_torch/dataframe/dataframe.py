@@ -1,6 +1,7 @@
 """DataFrame: the lazy user-facing API (counterpart of
 daft_tpu/dataframe/dataframe.py, the subset the port's slices need):
-``where``, ``select``, ``with_column``, ``join`` (inner), ``repartition``,
+``where``, ``select``, ``with_column``, ``join`` (inner, left, semi, anti,
+cross), ``distinct``, ``repartition``,
 ``groupby(...).agg(...)``, the ungrouped ``agg`` (and ``sum``, ``mean``,
 ``min``, ``max``, ``count``), ``sort``, ``limit``, ``offset``, ``collect``
 and ``to_pydict``.
@@ -76,17 +77,23 @@ class DataFrame:
              left_on: Optional[Union[ColumnInput, List[ColumnInput]]] = None,
              right_on: Optional[Union[ColumnInput, List[ColumnInput]]] = None,
              how: str = "inner") -> "DataFrame":
-        """Inner equi-join on ``on`` (same names both sides) or on
-        ``left_on`` / ``right_on``."""
-        if how != "inner":
-            raise NotImplementedError(f"{how!r} joins are not ported yet; only inner")
+        """Equi-join on ``on`` (same names both sides) or on ``left_on`` /
+        ``right_on``; ``how`` is "inner", "left", "semi", "anti" or "cross"
+        (no keys)."""
         if on is not None:
             left_on = right_on = on
+        if how == "cross":
+            return DataFrame(lp.Join(self._plan, other._plan, [], [], "cross"))
         if left_on is None or right_on is None:
             raise ValueError("join requires `on` or both `left_on` and `right_on`")
         lo = _to_exprs(left_on if isinstance(left_on, list) else [left_on])
         ro = _to_exprs(right_on if isinstance(right_on, list) else [right_on])
-        return DataFrame(lp.Join(self._plan, other._plan, lo, ro))
+        return DataFrame(lp.Join(self._plan, other._plan, lo, ro, how))
+
+    def distinct(self, *on: ColumnInput) -> "DataFrame":
+        """The first row of each distinct value of ``on`` (of every column
+        when none is given), in input order."""
+        return DataFrame(lp.Distinct(self._plan, _to_exprs(on) if on else None))
 
     def sort(self, by: Union[ColumnInput, List[ColumnInput]],
              desc: Union[bool, List[bool]] = False,

@@ -15,7 +15,8 @@ their morsels through a ``DispatchCoalescer`` (``_make_coalescer``), which
 is closed before the run finalizes. A ``DeviceJoinAgg`` runs the star-join
 stage, grouped or ungrouped, the same way (``_exec_device_join_agg``), a
 ``DeviceJoinTopN`` its TopN run over one fact batch
-(``_exec_device_join_topn``), and a ``HashJoin`` joins on the host. A
+(``_exec_device_join_topn``), and a ``HashJoin`` (inner, left, semi,
+anti), a ``CrossJoin`` and a ``Dedup`` (distinct) run on the host. A
 ``PhysRepartition`` splits on the host by the rows' hash (or at random), or,
 for a hash repartition into ``mesh_devices`` partitions, runs the mesh
 exchange on the device (``_mesh_repartition``). Any other error, a kernel
@@ -26,7 +27,7 @@ into a host result.
 from __future__ import annotations
 
 import itertools
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import numpy as np
 
@@ -100,11 +101,22 @@ def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
         yield _exec_device_agg(node)
         return
 
-    if isinstance(node, pp.HashJoin):
+    if isinstance(node, (pp.HashJoin, pp.CrossJoin)):
         right = _concat_parts(list(_exec(node.right)), node.right.schema)
+        join = _hash_join_batch if isinstance(node, pp.HashJoin) else _cross_join_batch
         for part in _exec(node.left):
-            yield MicroPartition(node.schema, [_hash_join_batch(node, b, right)
-                                               for b in part.batches])
+            yield MicroPartition(node.schema, [join(node, b, right) for b in part.batches])
+        return
+
+    if isinstance(node, pp.Dedup):
+        batch = _concat_parts(list(_exec(node.input)), node.schema)
+        if batch.num_rows:
+            from ..core.kernels.groupby import make_groups
+
+            keys = batch.columns() if node.on is None else \
+                [_full_length(eval_expression(batch, e), batch.num_rows) for e in node.on]
+            batch = batch.take(np.sort(make_groups(keys)[0]))
+        yield MicroPartition(node.schema, [batch])
         return
 
     if isinstance(node, pp.DeviceJoinAgg):
@@ -171,17 +183,55 @@ def _feed_stream(stream, feed, cfg) -> None:
         coalescer.close()
 
 
+def _region_keep_columns(node) -> Optional[List[str]]:
+    """The input columns a device aggregate node reads, in input order, or
+    None when it reads (nearly) its whole input. A fused region that
+    absorbed a Project sits on the chain's full base width: the host path
+    and the fallback's rerun buffer narrow to these before they filter,
+    buffer or concatenate anything (the device stage uploads only what it
+    reads)."""
+    from ..ops.region import referenced_columns
+
+    need = referenced_columns(node.predicate, getattr(node, "groupby", []),
+                              node.aggregations)
+    have = node.input.schema.column_names()
+    if not need or need >= set(have):
+        return None
+    return [c for c in have if c in need]
+
+
+def _narrowed(stream, keep: Optional[List[str]]):
+    return stream if keep is None else (p.select_columns(keep) for p in stream)
+
+
+def _note_region(node, region_ops, dispatches: int) -> None:
+    """Count one finished fused-region run: each of its device dispatches
+    covered len(region_ops) operators. Only regions of at least 2 ops
+    count, so the ratio measures fusion, not bare aggregates."""
+    if dispatches <= 0 or len(region_ops) < 2:
+        return
+    from ..ops import counters
+
+    counters.bump("device_region_dispatches", dispatches)
+    counters.bump("device_region_ops_fused", dispatches * len(region_ops))
+
+
 def _exec_device_agg(node: pp.DeviceGroupedAgg) -> MicroPartition:
     """Run a DeviceGroupedAgg: the device stage, or the host under
-    device_mode="off" and after a DeviceFallback."""
+    device_mode="off" and after a DeviceFallback. The host path and the
+    rerun buffer read the node's input narrowed to its referenced columns;
+    the device stage reads the input batches themselves, so their cached
+    planes and group codes still hit."""
     from ..config import execution_config
     from ..device.residency import manager as _residency
     from ..ops import counters
     from ..ops.grouped_stage import DeviceFallback, try_build_grouped_agg_stage
+    from ..ops.region import node_region_ops
     from ..utils.torch_setup import resolve_device
 
     cfg = execution_config()
     stream = _exec(node.input)
+    keep = _region_keep_columns(node)
 
     def _host_agg(s):
         if node.predicate is not None:
@@ -190,7 +240,7 @@ def _exec_device_agg(node: pp.DeviceGroupedAgg) -> MicroPartition:
         return MicroPartition(node.schema, [out.cast_to_schema(node.schema)])
 
     if cfg.device_mode == "off":
-        return _host_agg(stream)
+        return _host_agg(_narrowed(stream, keep))
 
     device = resolve_device(cfg.device)
     stage = try_build_grouped_agg_stage(node.input.schema, node.predicate,
@@ -203,9 +253,10 @@ def _exec_device_agg(node: pp.DeviceGroupedAgg) -> MicroPartition:
 
     def buffering():
         for part in stream:
-            buffered.append(part)
+            buffered.append(part if keep is None else part.select_columns(keep))
             yield part
 
+    d0 = counters.device_grouped_batches
     try:
         # pin the query's resident planes so a tight budget cannot evict
         # buffers this run still reads; released at scope exit
@@ -214,26 +265,32 @@ def _exec_device_agg(node: pp.DeviceGroupedAgg) -> MicroPartition:
             key_rows, results = run.finalize()
     except DeviceFallback as exc:
         # raised before any launch for the offending batch: rerun the whole
-        # buffered stream on the host
+        # buffered region on the host (the composed expressions evaluate
+        # compositionally, so the result is the fused program's)
         counters.bump("device_fallbacks")
         counters.reject("grouped agg", f"device fallback: {type(exc).__name__}")
-        return _host_agg(itertools.chain(buffered, stream))
+        return _host_agg(itertools.chain(buffered, _narrowed(stream, keep)))
+    _note_region(node, node_region_ops(node), counters.device_grouped_batches - d0)
     return _grouped_output(node.schema, node.groupby, node.aggregations,
                            key_rows, results)
 
 
 def _exec_device_filter_agg(node: pp.DeviceFilterAgg) -> MicroPartition:
     """Run a DeviceFilterAgg: the ungrouped device stage over every batch
-    of the input, or the host under device_mode="off". A failure on the
-    device raises: nothing reruns on the host."""
+    of the input, or the host (over the input narrowed to its referenced
+    columns) under device_mode="off". A failure on the device raises:
+    nothing reruns on the host."""
     from ..config import execution_config
     from ..device.residency import manager as _residency
+    from ..ops import counters
+    from ..ops.region import node_region_ops
     from ..ops.stage import try_build_filter_agg_stage
     from ..utils.torch_setup import resolve_device
 
     cfg = execution_config()
     stream = _exec(node.input)
     if cfg.device_mode == "off":
+        stream = _narrowed(stream, _region_keep_columns(node))
         if node.predicate is not None:
             stream = (_filter_part(p, node.predicate) for p in stream)
         out = _ungrouped_agg(stream, node.aggregations, node.input.schema)
@@ -244,9 +301,11 @@ def _exec_device_filter_agg(node: pp.DeviceFilterAgg) -> MicroPartition:
         raise RuntimeError("planner emitted DeviceFilterAgg for a stage the device does "
                            "not accept")
     run = stage.start_run(device)
+    d0 = counters.device_stage_batches
     with _residency().pin_scope():
         _feed_stream(stream, run.feed_batch, cfg)
         final = run.finalize()
+    _note_region(node, node_region_ops(node), counters.device_stage_batches - d0)
     return _ungrouped_output(node.schema, stage, final)
 
 
@@ -266,16 +325,31 @@ def _ungrouped_output(schema, stage, final) -> MicroPartition:
 
 def _hash_join_batch(node: pp.HashJoin, left: RecordBatch,
                      right: RecordBatch) -> RecordBatch:
-    """One left batch inner-joined to the materialized right side."""
-    from ..core.kernels.join import inner_join_indices
+    """One left batch joined to the materialized right side (``node.how``);
+    a left join's unmatched rows get null right columns, a semi or anti
+    join keeps the left's columns only."""
+    from ..core.kernels.join import join_indices
 
     def keys(batch, exprs):
         return [_full_length(eval_expression(batch, e), batch.num_rows) for e in exprs]
 
-    li, ri = inner_join_indices(keys(left, node.left_on), keys(right, node.right_on))
+    li, ri = join_indices(keys(left, node.left_on), keys(right, node.right_on), node.how)
+    cols = [s.take(li) for s in left.columns()]
+    if node.how not in ("semi", "anti"):
+        cols += [s.take_or_null(ri).rename(node.right_rename.get(s.name, s.name))
+                 for s in right.columns() if s.name not in node.merged_keys]
+    return RecordBatch(node.schema, cols, len(li))
+
+
+def _cross_join_batch(node: pp.CrossJoin, left: RecordBatch,
+                      right: RecordBatch) -> RecordBatch:
+    """One left batch with every right row, left-major."""
+    from ..core.kernels.join import cross_join_indices
+
+    li, ri = cross_join_indices(left.num_rows, right.num_rows)
     cols = [s.take(li) for s in left.columns()]
     cols += [s.take(ri).rename(node.right_rename.get(s.name, s.name))
-             for s in right.columns() if s.name not in node.merged_keys]
+             for s in right.columns()]
     return RecordBatch(node.schema, cols, len(li))
 
 
@@ -341,7 +415,9 @@ def _run_device_join(node, label: str, make_run, feed, assemble) -> MicroPartiti
     DeviceFallback (non-unique or non-integer dim keys, a dim key equal to
     the probe table's empty marker, too many groups, a TopN's second fact
     batch: all decided before any launch) records its reason and runs the
-    host plan. Any other error, a kernel failure included, propagates."""
+    host plan. Any other error, a kernel failure included, propagates. A
+    finished run counts as a fused region of ("join", "agg"), or ("join",
+    "agg", "topn"), over its join batches."""
     from ..config import execution_config
     from ..device.residency import manager as _residency
     from ..ops import counters
@@ -362,12 +438,17 @@ def _run_device_join(node, label: str, make_run, feed, assemble) -> MicroPartiti
         return host()  # the config changed since planning (kernel_mode="off")
     dims = {name: _concat_parts(list(_exec(plan)), plan.schema)
             for name, plan in node.dim_plans}
+    region_ops = ("join", "agg", "topn") if isinstance(node, pp.DeviceJoinTopN) \
+        else ("join", "agg")
+    d0 = counters.device_join_batches
     try:
         with _residency().pin_scope():
             run = make_run(stage, grouped, _JoinContext(node.spec, dims, device,
                                                         f32=not stage._use_f64))
             feed(run, _exec(node.fact), cfg)
-            return assemble(run, stage, grouped)
+            out = assemble(run, stage, grouped)
+        _note_region(node, region_ops, counters.device_join_batches - d0)
+        return out
     except DeviceFallback as exc:
         counters.bump("device_fallbacks")
         counters.reject(label, f"device fallback: {exc}")
@@ -521,6 +602,12 @@ def _agg_series(f, vals: np.ndarray, valid: np.ndarray) -> Series:
                              validity=valid)
 
 
+def _agg_op(e: Expression) -> str:
+    while isinstance(e, Alias):
+        e = e.child
+    return e.op if isinstance(e, AggExpr) else ""
+
+
 def _split_aggs(aggs: List[Expression]):
     """(partial, final, projection) expressions of a two-phase aggregation:
     partials per morsel, finals over the concatenated partials, and the
@@ -558,7 +645,8 @@ def _two_phase_agg(stream, groupby, aggs, in_schema) -> RecordBatch:
     batches = [b for part in stream for b in part.batches if b.num_rows > 0]
     total = sum(b.num_rows for b in batches)
     morsel = execution_config().morsel_size_rows
-    if total <= morsel:
+    # count_distinct needs each group's whole value set: one phase
+    if total <= morsel or any(_agg_op(e) == "count_distinct" for e in aggs):
         big = RecordBatch.concat(batches) if batches else RecordBatch.empty(in_schema)
         return grouped_agg(big, groupby, aggs)
     morsels = [b.slice(s, s + morsel) for b in batches

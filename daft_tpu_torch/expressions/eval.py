@@ -7,8 +7,8 @@ reference's Arrow kernels: validity propagates through arithmetic and
 comparisons, division by zero is null, and/or are Kleene, and a null
 IfElse predicate gives null. ``is_in`` is never null: a null row is true
 only when the item values hold a null (Arrow's ``is_in`` followed by
-``fill_null(False)``, as the reference evaluates it). ``str.startswith``
-is null on a null row, as Arrow's ``starts_with``.
+``fill_null(False)``, as the reference evaluates it). The string and date
+functions are null on a null row, as Arrow's kernels.
 """
 
 from __future__ import annotations
@@ -116,11 +116,23 @@ def _is_in(s: Series, items: List[Series]) -> Series:
 
 
 def _function(expr: Function, s: Series) -> Series:
-    """A scalar function over a string column (``utf8_startswith``), through
-    the column's cached dictionary codes; a null row gives null."""
-    pat = expr.args[1].value
+    """A scalar function; a null row gives null. The string functions map
+    the column's cached dictionary (one call per distinct value) and gather
+    through its codes; ``dt_year`` reads the days as numpy dates."""
+    if expr.fname == "dt_year":
+        years = s.to_numpy().astype("datetime64[D]").astype("datetime64[Y]")
+        return _make(s.name, DataType.int32(), years.astype(np.int32) + 1970,
+                     s.validity_numpy())
+    arg = expr.args[1].value
     codes, vocab, _k = s.dict_codes()
-    lut = np.array([v is not None and v.startswith(pat) for v in vocab], dtype=bool)
+    if expr.fname == "utf8_left":
+        mapped = np.empty(len(vocab), dtype=object)
+        mapped[:] = [v[:max(arg, 0)] if v is not None else None for v in vocab]
+        out = mapped[codes] if len(codes) else np.empty(0, dtype=object)
+        return _make(s.name, DataType.string(), out, s.validity_numpy())
+    test = {"utf8_startswith": str.startswith, "utf8_endswith": str.endswith,
+            "utf8_contains": str.__contains__}[expr.fname]
+    lut = np.array([v is not None and test(v, arg) for v in vocab], dtype=bool)
     hit = lut[codes] if len(codes) else np.zeros(0, dtype=bool)
     return _make(s.name, DataType.bool(), hit, s.validity_numpy())
 

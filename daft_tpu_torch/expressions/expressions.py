@@ -2,7 +2,9 @@
 subset the grouped-aggregation and join slices need): ``col``, ``lit``
 (with ``datetime.date``), ``Alias``, ``Cast``, arithmetic, comparisons,
 ``&``, ``|``, ``~``, null tests, ``IfElse``, ``IsIn``, ``AggExpr`` with
-sum, count, mean, min and max, and ``.str.startswith`` (a ``Function``). ``transform`` rewrites a tree bottom-up (the
+sum, count, mean, min, max and count_distinct, and the ``Function`` calls
+``.str.startswith``, ``.str.endswith``, ``.str.contains``, ``.str.left``
+and ``.dt.year``. ``transform`` rewrites a tree bottom-up (the
 join capture substitutes projections and hoists dim-only subexpressions
 with it).
 
@@ -163,6 +165,10 @@ class Expression:
     def str(self) -> "StringNamespace":
         return StringNamespace(self)
 
+    @property
+    def dt(self) -> "DateNamespace":
+        return DateNamespace(self)
+
     # ---- aggregation sugar ----------------------------------------------------------
     def sum(self):
         return AggExpr("sum", self)
@@ -178,6 +184,10 @@ class Expression:
 
     def count(self, mode: str = "valid"):
         return AggExpr("count", self, {"mode": mode})
+
+    def count_distinct(self):
+        """The number of distinct valid values (nulls are not counted)."""
+        return AggExpr("count_distinct", self)
 
 
 class ColumnRef(Expression):
@@ -380,17 +390,26 @@ class IsIn(Expression):
         return f"{self.child!r}.is_in({self.items!r})"
 
 
-# the scalar functions the port evaluates (on the host only): name -> the
-# argument kinds after the first (a string column)
-FUNCTIONS = {"utf8_startswith": ("string literal",)}
+# the scalar functions the port evaluates (on the host only): name ->
+# (the first argument's kind, the kind of the one literal argument after it
+# or None, the result type)
+FUNCTIONS = {
+    "utf8_startswith": ("string", str, "bool"),
+    "utf8_endswith": ("string", str, "bool"),
+    "utf8_contains": ("string", str, "bool"),
+    "utf8_left": ("string", int, "string"),
+    "dt_year": ("date", None, "int32"),
+}
 
 
 class Function(Expression):
     """A scalar function call (counterpart of the reference's ``Function``
-    over its registry, holding only what the port's queries call:
-    ``utf8_startswith``). Evaluated on the host (expressions/eval.py); the
-    device never takes it (ops/device_eval.py), so a join capture hoists it
-    into a host-evaluated dim column."""
+    over its registry, holding only what the TPC-H queries call: the string
+    tests ``utf8_startswith``, ``utf8_endswith`` and ``utf8_contains`` (a
+    substring, not a pattern), ``utf8_left`` (the first n characters) and
+    ``dt_year``). Evaluated on the host (expressions/eval.py); the device
+    never takes it (ops/device_eval.py), so a join capture hoists it into a
+    host-evaluated dim column."""
 
     def __init__(self, fname: str, args: List[Expression]):
         if fname not in FUNCTIONS:
@@ -408,13 +427,17 @@ class Function(Expression):
         return Function(self.fname, children)
 
     def to_field(self, schema: Schema) -> Field:
+        kind, lit_type, out = FUNCTIONS[self.fname]
         arg = self.args[0].to_field(schema)
-        if not arg.dtype.is_string():
-            raise ValueError(f"{self.fname} takes a string column, got {arg.dtype}")
-        pat = self.args[1]
-        if not (isinstance(pat, Literal) and isinstance(pat.value, str)):
-            raise ValueError(f"{self.fname} takes a string literal pattern, got {pat!r}")
-        return Field(arg.name, DataType.bool())
+        if not (arg.dtype.is_string() if kind == "string" else arg.dtype.kind == "date"):
+            raise ValueError(f"{self.fname} takes a {kind} column, got {arg.dtype}")
+        if lit_type is not None:
+            a = self.args[1] if len(self.args) == 2 else None
+            if not (isinstance(a, Literal) and isinstance(a.value, lit_type)
+                    and not isinstance(a.value, bool)):
+                raise ValueError(f"{self.fname} takes a {lit_type.__name__} literal, "
+                                 f"got {a!r}")
+        return Field(arg.name, getattr(DataType, out)())
 
     def __repr__(self):
         return f"{self.fname}({', '.join(repr(a) for a in self.args)})"
@@ -429,8 +452,27 @@ class StringNamespace:
     def startswith(self, pat) -> Expression:
         return Function("utf8_startswith", [self._e, lit(pat)])
 
+    def endswith(self, pat) -> Expression:
+        return Function("utf8_endswith", [self._e, lit(pat)])
 
-AGG_OPS = ("sum", "mean", "min", "max", "count")
+    def contains(self, pat) -> Expression:
+        return Function("utf8_contains", [self._e, lit(pat)])
+
+    def left(self, n) -> Expression:
+        return Function("utf8_left", [self._e, lit(n)])
+
+
+class DateNamespace:
+    """``expr.dt``: the date functions the port has."""
+
+    def __init__(self, expr: Expression):
+        self._e = expr
+
+    def year(self) -> Expression:
+        return Function("dt_year", [self._e])
+
+
+AGG_OPS = ("sum", "mean", "min", "max", "count", "count_distinct")
 
 
 class AggExpr(Expression):

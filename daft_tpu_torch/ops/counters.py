@@ -11,6 +11,10 @@ show which path a query took:
 - ``device_stage_runs``: device stage runs finalized;
 - ``device_topn_runs``: star-join TopN runs finalized on the device (only
   the K winners' rows copied back);
+- ``device_region_dispatches`` / ``device_region_ops_fused``: the device
+  dispatches of finished fused-region runs of at least 2 operators (a
+  Filter/Project chain fused into its aggregate, a join run), and those
+  dispatches times the run's operator count (ops/region.py);
 - ``device_fallbacks``: device runs that raised DeviceFallback and reran on
   the host;
 - ``coalesce_morsels_in`` / ``dispatch_coalesced``: morsels handed to a
@@ -51,6 +55,7 @@ KERNEL_NAMES = SEGMENT_KERNELS + ("hash_probe_build", "hash_probe_index",
                                   "ring_permute_words", "segment_sum_float_planes")
 COUNTER_NAMES = ("device_grouped_batches", "device_stage_batches", "device_join_batches",
                  "device_stage_runs", "device_topn_runs",
+                 "device_region_dispatches", "device_region_ops_fused",
                  "device_fallbacks", "coalesce_morsels_in", "dispatch_coalesced",
                  "bucket_fill_rows", "bucket_capacity_rows", "mesh_alltoall_dispatches",
                  "mesh_fused_permute_dispatches", "mesh_alltoall_rows",

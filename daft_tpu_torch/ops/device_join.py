@@ -120,7 +120,8 @@ def _split_conjuncts(e: Expression) -> List[Expression]:
 
 def _flatten_joins(node) -> Optional[Tuple[list, list, List[Expression]]]:
     """A tree of inner equi-joins as (relations, [(left col, right col)],
-    lifted conjuncts). A Filter over a join inside the tree is lifted: its
+    lifted conjuncts), or None when the tree holds a join of another type.
+    A Filter over a join inside the tree is lifted: its
     conjuncts hold over the joined rows, and an inner join commutes with a
     filter (the reference's optimizer pushes such a filter down before its
     capture; the port has no optimizer). None on merged or renamed output
@@ -141,6 +142,10 @@ def _flatten_joins(node) -> Optional[Tuple[list, list, List[Expression]]]:
         if not isinstance(n, lp.Join):
             rels.append(n)
             return True
+        if n.how != "inner":
+            # a semi, anti, left or cross join flattened as an inner one
+            # would give wrong rows with no error
+            return False
         merged, rename = n.output_naming()
         if merged or rename:
             return False
@@ -178,34 +183,19 @@ def _strip_filters(n) -> Tuple[object, List[Expression]]:
 
 
 def try_capture_join_agg(agg_plan) -> Optional[JoinAggSpec]:
-    """Match Aggregate (grouped or not) <- [Project]* <- [Filter]* <-
-    inner-join tree into a JoinAggSpec, or None when the shape is not
+    """Match Aggregate (grouped or not) <- a Filter/Project chain (composed
+    by ops/region.py) <- inner-join tree into a JoinAggSpec, or None when the shape is not
     provably safe or the joined stage is outside the device tier."""
-    from ..plan import logical as lp
     from ..plan.stats import estimate_rows
+    from .region import agg_region_candidates
 
-    groupby = list(agg_plan.groupby)
-    aggs = list(agg_plan.aggregations)
-    conjuncts: List[Expression] = []
-    src = agg_plan.input
-
-    def substitute(exprs: List[Expression], proj: List[Expression]) -> List[Expression]:
-        mapping = {p.name(): (p.child if isinstance(p, Alias) else p) for p in proj}
-        out = []
-        for e in exprs:
-            ne = e.transform(lambda n: mapping.get(n._name)
-                             if isinstance(n, ColumnRef) else None)
-            out.append(ne if ne.name() == e.name() else ne.alias(e.name()))
-        return out
-
-    while isinstance(src, (lp.Project, lp.Filter)):
-        if isinstance(src, lp.Project):
-            new = substitute(groupby + aggs + conjuncts, src.projection)
-            groupby, aggs = new[:len(groupby)], new[len(groupby):len(groupby) + len(aggs)]
-            conjuncts = new[len(groupby) + len(aggs):]
-        else:
-            conjuncts.extend(_split_conjuncts(src.predicate))
-        src = src.input
+    # the Project/Filter chain under the aggregate composed over its base
+    # (the most absorbed region candidate); the joins sit under that base
+    cand = next(agg_region_candidates(agg_plan), None)
+    if cand is None:
+        return None
+    groupby, aggs, src = list(cand.groupby), list(cand.aggregations), cand.source
+    conjuncts = _split_conjuncts(cand.predicate) if cand.predicate is not None else []
 
     flat = _flatten_joins(src)
     if flat is None:
@@ -980,9 +970,11 @@ class TopNSpec:
 
 def _agg_sort_plane(stage: GroupedAggStage, out: dict,
                     agg_idx: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(f64[cap] values, bool[cap] valid) ordering plane of one aggregation,
-    on the device from the group tables (as ``results_from_tables`` reads
-    them; f64 is ample for ordering)."""
+    """(values[cap], bool[cap] valid) ordering plane of one aggregation, on
+    the device from the group tables, in the dtype that orders it exactly:
+    an integer sum (and the int64 extremes) as int64, rebuilt from its digit
+    planes with the wrap mod 2^64 of ``results_from_tables``; a count, a
+    float sum, a mean and the other extremes as f64."""
     slots = stage._agg_slots[agg_idx]
     _name, agg = stage.aggs[agg_idx]
     mm = out["mm"]
@@ -994,16 +986,41 @@ def _agg_sort_plane(stage: GroupedAggStage, out: dict,
     if agg.op in ("sum", "mean"):
         sl = slots["sum"]
         if sl[0] == "imm":
+            # each digit total is an exact integer in the f64 table; the
+            # int64 shifts and adds wrap mod 2^64, so the 8-digit
+            # two's-complement sum comes back signed
             _k, base, nd, lo = sl
-            s = float(lo) * cnt
+            s = cnt.to(torch.int64) * lo
             for k in range(nd):
-                s = s + mm[:, base + k] * float(1 << (8 * k))
-        else:
-            s = mm[:, sl[1]]
+                s = s + (mm[:, base + k].to(torch.int64) << (8 * k))
+            if agg.op == "mean":
+                return s.to(torch.float64) / cnt.clamp(min=1.0), valid
+            return s, valid
+        s = mm[:, sl[1]]
         return (s / cnt.clamp(min=1.0) if agg.op == "mean" else s), valid
     kind, idx = slots[agg.op]
-    plane = out["ext"][idx] if kind == "ext" else out["sct"][idx]
-    return plane.to(torch.float64), valid
+    if kind == "sct":
+        return out["sct"][idx], valid
+    return out["ext"][idx].to(torch.float64), valid
+
+
+def _sort_passes(v: torch.Tensor, valid: torch.Tensor, desc: bool,
+                 nulls_first: bool) -> List[torch.Tensor]:
+    """[value key, validity key] of one sort column, as the host's
+    ``_column_keys`` (core/kernels/sort.py) builds them: NaN counts as +inf
+    and -0.0 as 0.0, a descending key is negated (an integer one
+    bit-inverted, which cannot overflow at the minimum), a null's value is
+    0, and the validity key (more significant) places nulls by
+    ``nulls_first``."""
+    if v.is_floating_point():
+        v = torch.where(torch.isnan(v), float("inf"), v) + 0.0
+        if desc:
+            v = -v
+    elif desc:
+        v = torch.bitwise_not(v)
+    v = torch.where(valid, v, torch.zeros((), dtype=v.dtype, device=v.device))
+    null_key = torch.where(valid, 0, -1 if nulls_first else 1).to(torch.int8)
+    return [v, null_key]
 
 
 class DeviceJoinTopNRun(DeviceJoinGroupedRun):
@@ -1018,7 +1035,9 @@ class DeviceJoinTopNRun(DeviceJoinGroupedRun):
     gid), which is XLA's, not a Pallas kernel: here stable ``torch.sort``
     passes from the last key to the first over a permutation that starts as
     ``arange(cap)``, so the dense first-occurrence group id breaks ties, as
-    the host's stable sort over first-occurrence groups does. One fact batch
+    the host's stable sort over first-occurrence groups does. Each key takes
+    two passes in the host's terms (``_sort_passes``): its value, in the
+    dtype that orders it exactly, then its validity. One fact batch
     only: a second raises DeviceFallback before it launches anything."""
 
     max_segments = TOPN_MAX_SEGMENTS
@@ -1046,13 +1065,14 @@ class DeviceJoinTopNRun(DeviceJoinGroupedRun):
         k_eff = min(self.topn.offset + self.topn.limit, cap)
         mm = out["mm"]
         present = mm[:, 0] > 0
-        terms = [(~present).to(torch.float64)]
+        # sort keys from the most significant: present, then per column its
+        # validity before its value
+        terms = [(~present).to(torch.int8)]
         for kind, idx, desc, nulls_first in self.topn.keys:
             v, valid = _agg_sort_plane(stage, out, idx) if kind == "agg" \
                 else fc.rank_plane(idx)
-            if desc:
-                v = -v
-            terms.append(torch.where(valid, v, float("-inf") if nulls_first else float("inf")))
+            value_key, null_key = _sort_passes(v, valid, desc, nulls_first)
+            terms += [null_key, value_key]
         perm = torch.arange(cap, device=mm.device)
         for t in reversed(terms):
             perm = perm[torch.sort(t[perm], stable=True).indices]

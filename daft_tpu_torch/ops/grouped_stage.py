@@ -680,8 +680,9 @@ def try_build_grouped_agg_stage(schema: Schema, predicate: Optional[Expression],
         inner = e
         while isinstance(inner, Alias):
             inner = inner.child
-        if not isinstance(inner, AggExpr):
-            counters.reject(site, "aggregation is not a bare AggExpr")
+        if not isinstance(inner, AggExpr) or inner.op not in ("sum", "mean", "min", "max",
+                                                              "count"):
+            counters.reject(site, "aggregation is not a bare sum/mean/min/max/count")
             return None
         if inner.op == "count" and inner.params.get("mode", "valid") == "null":
             counters.reject(site, "count(mode=null)")

@@ -1,8 +1,8 @@
 """Logical plan nodes (counterpart of daft_tpu/plan/logical.py, the subset the
 grouped-aggregation, join and repartition slices need): an in-memory source,
 Filter, Project, Aggregate, Sort, Limit, Offset, TopN (a Sort with a Limit,
-made by plan/optimizer.py ``rule_detect_topn``), the inner equi-Join and
-Repartition. Each node computes its
+made by plan/optimizer.py ``rule_detect_topn``), Join (inner, left, semi,
+anti and cross), Distinct and Repartition. Each node computes its
 output schema on construction, so a type error surfaces where the DataFrame
 method is called.
 """
@@ -127,19 +127,32 @@ class TopN(LogicalPlan):
 
 
 class Join(LogicalPlan):
-    """Inner equi-join (counterpart of daft_tpu/plan/logical.py Join, inner
-    joins only). Join keys of the same name merge into the left's column;
-    other right columns whose names clash with the left are renamed
-    ``right.<name>``."""
+    """Equi-join or cross join (counterpart of daft_tpu/plan/logical.py
+    Join, its ``inner``, ``left``, ``semi``, ``anti`` and ``cross`` types).
+    Join keys of the same name merge into the left's column; other right
+    columns whose names clash with the left are renamed ``right.<name>``. A
+    semi or anti join keeps the left's columns only; a cross join has no
+    keys."""
+
+    JOIN_TYPES = ("inner", "left", "semi", "anti", "cross")
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
-                 left_on: List[Expression], right_on: List[Expression]):
-        if len(left_on) != len(right_on) or not left_on:
+                 left_on: List[Expression], right_on: List[Expression], how: str = "inner"):
+        if how not in self.JOIN_TYPES:
+            raise ValueError(f"unknown or unported join type {how!r}")
+        if how == "cross":
+            if left_on or right_on:
+                raise ValueError("a cross join takes no keys")
+        elif len(left_on) != len(right_on) or not left_on:
             raise ValueError("join needs the same number (>= 1) of left and right keys")
         self.left = left
         self.right = right
         self.left_on = list(left_on)
         self.right_on = list(right_on)
+        self.how = how
+        if how in ("semi", "anti"):
+            super().__init__(left.schema)
+            return
         merged, rename = self.output_naming()
         fields = list(left.schema) + [
             Field(rename.get(f.name, f.name), f.dtype)
@@ -157,6 +170,19 @@ class Join(LogicalPlan):
 
     def children(self):
         return [self.left, self.right]
+
+
+class Distinct(LogicalPlan):
+    """The first row of each distinct value of ``on`` (every column when
+    None), in input order."""
+
+    def __init__(self, input: LogicalPlan, on: Optional[List[Expression]] = None):
+        super().__init__(input.schema)
+        self.input = input
+        self.on = list(on) if on else None
+
+    def children(self):
+        return [self.input]
 
 
 class Repartition(LogicalPlan):

@@ -10,11 +10,14 @@ The device decisions made here are the reference's Aggregate captures
    [Filter]* <- an inner-join tree that ``try_capture_join_agg`` accepts
    becomes a ``DeviceJoinAgg``, which carries the untouched host
    translation of the same subtree;
-2. the single-Filter peel: an Aggregate optionally over one Filter becomes
-   a ``DeviceGroupedAgg`` (with group keys) when ``try_build_grouped_agg_stage``
-   accepts the (predicate, keys, aggregations), or a ``DeviceFilterAgg``
-   (without) when ``try_build_filter_agg_stage`` accepts the (predicate,
-   aggregations).
+2. the fused region (ops/region.py, under region_mode="on"): the chain of
+   up to 8 Filters and Projects under the Aggregate is composed into one
+   (predicate, keys, aggregations) over the chain's base; the candidates,
+   most absorbed first down to the single Filter directly under the
+   aggregate (the only candidate under region_mode="off"), are tried in
+   turn, and the first that ``try_build_grouped_agg_stage`` (with group
+   keys) or ``try_build_filter_agg_stage`` (without) accepts becomes a
+   ``DeviceGroupedAgg`` or ``DeviceFilterAgg`` over the base.
 
 Otherwise it stays a host ``HashAggregate`` over the translated input (with
 no group keys, the ungrouped aggregation: one row).
@@ -24,12 +27,12 @@ A Limit over a Sort (or over an Offset over a Sort) becomes a TopN
 a grouped star-join Aggregate that ``try_capture_join_topn`` accepts becomes
 a ``DeviceJoinTopN`` (the reference's capture, physical.py:530-555, whose
 capture errors raise here instead of being caught); any other TopN is a
-host ``PhysTopN``. The fused-region capture is not ported yet.
+host ``PhysTopN``.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 from ..expressions.expressions import Expression
 from ..schema import Schema
@@ -125,35 +128,39 @@ class HashAggregate(_Unary):
 class DeviceGroupedAgg(_Unary):
     """Filter (optional) + grouped aggregation as one device stage
     (ops/grouped_stage.py); the executor runs it on the device, or on the
-    host under device_mode="off" or after a DeviceFallback."""
+    host under device_mode="off" or after a DeviceFallback. ``region_ops``
+    names the fused operators, source first (ops/region.py)."""
 
     def __init__(self, input: PhysicalPlan, predicate: Optional[Expression],
                  groupby: List[Expression], aggregations: List[Expression],
-                 schema: Schema):
+                 schema: Schema, region_ops: Tuple[str, ...] = ()):
         super().__init__(input, schema)
         self.predicate = predicate
         self.groupby = groupby
         self.aggregations = aggregations
+        self.region_ops = region_ops
 
 
 class DeviceFilterAgg(_Unary):
     """Filter (optional) + ungrouped aggregation as one device stage
     (ops/stage.py ``FilterAggStage``); the executor runs it on the device,
-    or on the host under device_mode="off"."""
+    or on the host under device_mode="off". ``region_ops`` as above."""
 
     def __init__(self, input: PhysicalPlan, predicate: Optional[Expression],
-                 aggregations: List[Expression], schema: Schema):
+                 aggregations: List[Expression], schema: Schema,
+                 region_ops: Tuple[str, ...] = ()):
         super().__init__(input, schema)
         self.predicate = predicate
         self.aggregations = aggregations
+        self.region_ops = region_ops
 
 
 class HashJoin(PhysicalPlan):
-    """Host inner equi-join (core/kernels/join.py); the right side is
-    materialized, the left streams."""
+    """Host equi-join, inner, left, semi or anti (core/kernels/join.py); the
+    right side is materialized, the left streams."""
 
     def __init__(self, left: PhysicalPlan, right: PhysicalPlan, left_on, right_on,
-                 merged_keys, right_rename, schema: Schema):
+                 merged_keys, right_rename, schema: Schema, how: str = "inner"):
         self.left = left
         self.right = right
         self.left_on = left_on
@@ -161,9 +168,34 @@ class HashJoin(PhysicalPlan):
         self.merged_keys = merged_keys
         self.right_rename = right_rename
         self.schema = schema
+        self.how = how
 
     def children(self):
         return [self.left, self.right]
+
+
+class CrossJoin(PhysicalPlan):
+    """Host cross join: every left row with every row of the materialized
+    right side, left-major."""
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan, right_rename,
+                 schema: Schema):
+        self.left = left
+        self.right = right
+        self.right_rename = right_rename
+        self.schema = schema
+
+    def children(self):
+        return [self.left, self.right]
+
+
+class Dedup(_Unary):
+    """Host distinct: the first row of each distinct ``on`` value (every
+    column when None), in input order."""
+
+    def __init__(self, input: PhysicalPlan, on, schema: Schema):
+        super().__init__(input, schema)
+        self.on = on
 
 
 class PhysRepartition(_Unary):
@@ -260,8 +292,13 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
                                plan.by, plan.schema)
     if isinstance(plan, lp.Join):
         merged, rename = plan.output_naming()
+        if plan.how == "cross":
+            return CrossJoin(translate(plan.left), translate(plan.right), rename,
+                             plan.schema)
         return HashJoin(translate(plan.left), translate(plan.right), plan.left_on,
-                        plan.right_on, merged, rename, plan.schema)
+                        plan.right_on, merged, rename, plan.schema, plan.how)
+    if isinstance(plan, lp.Distinct):
+        return Dedup(translate(plan.input), plan.on, plan.schema)
     if isinstance(plan, lp.Aggregate):
         if cfg.device_mode != "off":
             from ..ops.device_join import try_capture_join_agg
@@ -276,19 +313,26 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
                                      [(d.name, translate(d.base)) for d in spec.dims],
                                      spec, host, plan.schema)
 
-            # the reference's single-Filter peel
-            src, predicate = plan.input, None
-            if isinstance(src, lp.Filter):
-                src, predicate = src.input, src.predicate
-            if not plan.groupby:
-                if try_build_filter_agg_stage(src.schema, predicate,
-                                              plan.aggregations) is not None:
-                    return DeviceFilterAgg(translate(src), predicate, plan.aggregations,
-                                           plan.schema)
-            elif try_build_grouped_agg_stage(src.schema, predicate, plan.groupby,
-                                             plan.aggregations) is not None:
-                return DeviceGroupedAgg(translate(src), predicate, plan.groupby,
-                                        plan.aggregations, plan.schema)
+            # the fused-region capture: the Filter/Project chain under the
+            # aggregate composed over the chain's base, candidates most
+            # absorbed first; the last is the single-Filter peel, so nothing
+            # that planned on the card without regions stops doing so
+            from ..ops.region import agg_region_candidates, single_filter_peel
+
+            cands = agg_region_candidates(plan) if cfg.region_mode == "on" \
+                else [single_filter_peel(plan)]
+            for cand in cands:
+                if not plan.groupby:
+                    if try_build_filter_agg_stage(cand.source.schema, cand.predicate,
+                                                  cand.aggregations) is not None:
+                        return DeviceFilterAgg(translate(cand.source), cand.predicate,
+                                               cand.aggregations, plan.schema, cand.ops)
+                elif try_build_grouped_agg_stage(cand.source.schema, cand.predicate,
+                                                 cand.groupby,
+                                                 cand.aggregations) is not None:
+                    return DeviceGroupedAgg(translate(cand.source), cand.predicate,
+                                            cand.groupby, cand.aggregations, plan.schema,
+                                            cand.ops)
         return HashAggregate(translate(plan.input), plan.groupby,
                              plan.aggregations, plan.schema)
     raise NotImplementedError(f"no physical translation for {type(plan).__name__}")

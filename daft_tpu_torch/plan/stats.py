@@ -2,8 +2,9 @@
 ``estimate_rows`` subset the join capture needs to pick its fact).
 
 Approximations only: correctness never depends on them. A Filter keeps a
-fixed fraction of its input per predicate shape, an inner join is as large
-as its larger side (the foreign-key assumption), and a Project keeps its
+fixed fraction of its input per predicate shape, an inner or left join is
+as large as its larger side (the foreign-key assumption), a semi or anti
+join as its left, a cross join as the product, and a Project keeps its
 input's count; any other node is unknown.
 """
 
@@ -53,7 +54,9 @@ def estimate_rows(plan: lp.LogicalPlan) -> Optional[float]:
         left, right = estimate_rows(plan.left), estimate_rows(plan.right)
         if left is None or right is None:
             return None
-        return max(left, right)
+        if plan.how in ("semi", "anti"):
+            return left
+        return left * right if plan.how == "cross" else max(left, right)
     if isinstance(plan, lp.Project):
         return estimate_rows(plan.input)
     return None

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels (K1-K3, K7 and K1a segment reduce, K4 and K5
 hash probe, K6 mesh exchange) against their plain PyTorch versions, and
 grouped queries (integer, float, f64 and 150,000 groups), an ungrouped
-query, one star join query and one mesh repartition through them against
-the host path, on the card. Marked ``cuda``: skipped where no card
+query, star join queries (the join TopN's row order among them), a fused
+region and one mesh repartition through them against the host path, on
+the card. Marked ``cuda``: skipped where no card
 is present.
 
 Run on a machine with the card (tests/conftest.py imports JAX, which that
@@ -1019,3 +1020,79 @@ def test_ungrouped_join_on_card_matches_host(cuda):
     assert snap["launches_hash_probe_build"] == 1 and snap["launches_hash_probe_index"] == 1
     assert got["q"] == want["q"]
     np.testing.assert_allclose(got["p"], want["p"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("desc", [True, False])
+@pytest.mark.parametrize("nulls_first", [True, False])
+def test_join_topn_order_on_card_matches_host(cuda, desc, nulls_first):
+    """The join TopN's order on the card (P2, P3): negative int64 sums, sums
+    past 2^53 that tie in f64, and float sums with +inf, NaN and a null
+    group, each one TopN run giving the host's rows."""
+    col = daft_tpu_torch.col
+    rng = np.random.default_rng(2)
+    fk = rng.integers(0, 50, 4000)
+    v = rng.integers(-1000, 1000, 4000)
+    v[fk == 7] = -100_000
+    wide_fk = np.arange(4000) % 50
+    floats = rng.uniform(-50, 50, 600)
+    floats[3], floats[17] = np.inf, np.nan  # groups 3 and 5 of 12
+    cases = [({"fk": fk, "v": v}, 50, False),
+             ({"fk": wide_fk, "v": (1 << 55) + (wide_fk * 7919) % 97 - 48}, 50, False),
+             ({"fk": np.arange(600) % 12,
+               "v": [None if k == 8 else x for k, x in zip((np.arange(600) % 12).tolist(),
+                                                          floats.tolist())]}, 12, True)]
+    for fact, groups, is_float in cases:
+        f = daft_tpu_torch.from_pydict(fact)
+        d = daft_tpu_torch.from_pydict({"k": np.arange(groups)})
+
+        def q():
+            return (f.join(d, left_on="fk", right_on="k").groupby("k")
+                    .agg(col("v").sum().alias("s"))
+                    .sort("s", desc=desc, nulls_first=nulls_first).limit(12))
+
+        with daft_tpu_torch.execution_config_ctx(device_mode="off"):
+            want = q().to_pydict()
+        counters.reset()
+        with daft_tpu_torch.execution_config_ctx(device="cuda"):
+            got = q().to_pydict()
+        assert counters.snapshot()["device_topn_runs"] == 1
+        assert got["k"] == want["k"]
+        if is_float:
+            np.testing.assert_allclose([np.nan if x is None else x for x in got["s"]],
+                                       [np.nan if x is None else x for x in want["s"]],
+                                       rtol=1e-5)
+        else:
+            assert got["s"] == want["s"]
+
+
+def test_fused_region_on_card_matches_host(cuda):
+    """A Project, a Filter and a Project under a grouped aggregate fuse into
+    one device stage over the scan on the card: one region dispatch of 4
+    ops, equal to region_mode="off" and to the host path."""
+    col = daft_tpu_torch.col
+    rng = np.random.default_rng(4)
+    n = 50_000
+    df = daft_tpu_torch.from_pydict({"k": rng.integers(0, 300, n),
+                                     "v": rng.integers(-1000, 1000, n),
+                                     "x": rng.uniform(0, 10, n)})
+
+    def q():
+        return (df.with_column("w", col("v") * 3 + 1).where(col("w") > -1500)
+                .with_column("y", col("x") * col("w"))
+                .groupby("k").agg(col("w").sum().alias("s"), col("y").sum().alias("t"),
+                                  col("v").min().alias("lo"))
+                .sort("k"))
+
+    with daft_tpu_torch.execution_config_ctx(device_mode="off"):
+        want = q().to_pydict()
+    with daft_tpu_torch.execution_config_ctx(device="cuda", region_mode="off"):
+        unfused = q().to_pydict()
+    counters.reset()
+    with daft_tpu_torch.execution_config_ctx(device="cuda"):
+        got = q().to_pydict()
+    snap = counters.snapshot()
+    assert snap["device_region_dispatches"] == 1 and snap["device_region_ops_fused"] == 4
+    assert snap["launches_segment_sum_planes"] >= 1
+    for other in (want, unfused):
+        assert got["k"] == other["k"] and got["s"] == other["s"] and got["lo"] == other["lo"]
+        np.testing.assert_allclose(got["t"], other["t"], rtol=1e-5)

@@ -1,7 +1,8 @@
 """The port stands alone and never hides a device failure:
 
-- a port query, the grouped one, the TPC-H q12 and q14 star joins and the
-  mesh repartition alike, imports neither JAX, nor pyarrow, nor anything of
+- a port query, the grouped one, the TPC-H q12 and q14 star joins, a fused
+  region over a semi join and the mesh repartition alike, imports neither
+  JAX, nor pyarrow, nor anything of
   daft_tpu (checked in a fresh interpreter: tests/conftest.py imports JAX
   into this one);
 - with no card, a query left at the default device ("cuda") raises;
@@ -148,6 +149,33 @@ print("FORBIDDEN", bad)
 """
 
 
+_REGION_SEMI_QUERY = """
+import sys
+import numpy as np
+sys.path.insert(0, {repo!r})
+import daft_tpu_torch as dt
+from daft_tpu_torch import col
+from daft_tpu_torch.ops import counters
+rng = np.random.default_rng(0)
+df = dt.from_pydict({{"k": rng.integers(0, 9, 3000), "v": rng.integers(-50, 50, 3000),
+                      "w": rng.random(3000)}})
+keys = dt.from_pydict({{"k": np.array([1, 3, 5])}})
+with dt.execution_config_ctx(device="cpu", device_mode="on"):
+    fused = (df.with_column("x", col("v") * 2 + col("w")).where(col("x") > 0)
+             .join(keys, on="k", how="semi")
+             .with_column("y", col("x") * 3).where(col("v") < 40)
+             .groupby("k").agg(col("y").sum().alias("s"), col("v").count().alias("c"))
+             .sort("k").to_pydict())
+assert fused["k"] == [1, 3, 5], fused
+assert counters.device_region_dispatches == 1, counters.snapshot()
+assert counters.device_region_ops_fused == 3, counters.snapshot()
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             or m == "daft_tpu")
+print("FORBIDDEN", bad)
+"""
+
+
 def _small_query(df):
     return (df.where(col("d") <= lit(datetime.date(1970, 3, 1))).groupby("k")
             .agg(col("v").sum().alias("s"), col("v").max().alias("m")).sort("k"))
@@ -184,6 +212,15 @@ def test_port_q14_imports_no_jax_pyarrow_or_reference():
 
 def test_port_repartition_imports_no_jax_pyarrow_or_reference():
     proc = subprocess.run([sys.executable, "-c", _REPARTITION_QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+def test_port_region_and_semi_join_import_no_jax_pyarrow_or_reference():
+    """A fused region (project, filter, agg) over a host semi join, itself
+    over a host project and filter, in a fresh interpreter."""
+    proc = subprocess.run([sys.executable, "-c", _REGION_SEMI_QUERY.format(repo=REPO)],
                           capture_output=True, text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
