@@ -126,6 +126,16 @@ error (no phase catches its own failure):
             counted from zero as above, no rejection and no fallback, K4 on
             the cold run (launches printed) and never warm, equal to the
             host path and a numpy oracle; cold, warm, peak memory, profile;
+    sql:    TPC-H q1, q6, q3, q5, q12, q14 and q19 in SQL (``TPCH_SQL``,
+            the texts tests/test_torch_sql.py holds against the reference)
+            over the tables their DataFrame cells ran over, bound by name:
+            for each, parse + plan, optimize() and translate() times; the
+            DataFrame form's run and the SQL form's first run, each counted
+            from zero, count the same device stages and kernel launches, and
+            the three warm SQL runs three times as many; the results are
+            equal (floats within rtol 1e-5, the rest exactly); first-run and
+            warm median-of-3 wall time; a warm SQL run uploads nothing where
+            the DataFrame form's does not;
 13. topn order: the join TopN's row order on the card against the host
             path: 4,000 rows of negative int64 sums, sums past 2^53 that tie
             in f64, and float sums with +inf, NaN and a null group, each in
@@ -148,8 +158,13 @@ error (no phase catches its own failure):
             partitions. Then the wall time (median of 3), peak device memory
             and one run under torch.profiler;
 16. print the {"kernels": [...]} line (each kernel's launches by path:
-   every cell's counted run), the card line, and last the
-   {"ok": true, "device": {...}} line.
+   every cell's counted run, and the sql phase's SQL first runs, summed,
+   under "sql"), the card line, and last the {"ok": true, "device":
+   {...}} line.
+
+Every DataFrame runs through ``collect``, which optimizes its plan
+(daft_tpu_torch/plan/optimizer.py) before translating it; each cell prints
+one "optimize ms / translate ms" line (host clock, medians of PLANS calls).
 
 Every cell runs at SF1: nothing is cut. It imports torch, numpy and the
 port; nothing of JAX, pyarrow or daft_tpu.
@@ -247,6 +262,246 @@ KERNELS = {  # name -> (source, the TPU kernel or host function it replaces)
 # the repartition cell's columns: lineitem's numeric ones
 REPART_COLUMNS = ("l_orderkey", "l_partkey", "l_suppkey", "l_linenumber", "l_quantity",
                   "l_extendedprice", "l_discount", "l_tax")
+
+# TPC-H's 22 queries in SQL, from the public TPC-H specification (2.4-2.25) with
+# the validation parameters substituted, calendar intervals written as explicit
+# DATE bounds and q15's view as a CTE. Three departures, each so that the text
+# computes what the spec means over the generated data: q6's discount bounds
+# are written as 0.05 and 0.07 (0.06 - 0.01 and 0.06 + 0.01 fold to floats just
+# inside them); q19 takes the join equality that its three OR groups share out
+# of the OR (inside it no equi-join can be recovered, and the comma list would
+# stay a cross join) and its ship mode is 'REG AIR', dbgen's value (the spec's
+# text reads 'AIR REG', which no row holds); q22 calls SUBSTRING(c_phone, 1, 2)
+# (the parser has no FROM/FOR form). The card run and tests/test_torch_sql.py
+# read these texts. q11 (a scalar subquery in HAVING), q13 (a LEFT JOIN with a
+# residual ON predicate) and q21 (a correlated <> predicate) are refused by the
+# reference's planner, and so by the port's.
+TPCH_SQL = {
+    1: """
+select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
+       sum(l_extendedprice) as sum_base_price,
+       sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
+       sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
+       avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price,
+       avg(l_discount) as avg_disc, count(*) as count_order
+from lineitem
+where l_shipdate <= date '1998-09-02'
+group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus""",
+    2: """
+select s_acctbal, s_name, n_name, p_partkey, p_mfgr, s_address, s_phone, s_comment
+from part, supplier, partsupp, nation, region
+where p_partkey = ps_partkey and s_suppkey = ps_suppkey and p_size = 15
+  and p_type like '%BRASS' and s_nationkey = n_nationkey and n_regionkey = r_regionkey
+  and r_name = 'EUROPE'
+  and ps_supplycost = (select min(ps_supplycost) from partsupp, supplier, nation, region
+                       where p_partkey = ps_partkey and s_suppkey = ps_suppkey
+                         and s_nationkey = n_nationkey and n_regionkey = r_regionkey
+                         and r_name = 'EUROPE')
+order by s_acctbal desc, n_name, s_name, p_partkey
+limit 100""",
+    3: """
+select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue, o_orderdate,
+       o_shippriority
+from customer, orders, lineitem
+where c_mktsegment = 'BUILDING' and c_custkey = o_custkey and l_orderkey = o_orderkey
+  and o_orderdate < date '1995-03-15' and l_shipdate > date '1995-03-15'
+group by l_orderkey, o_orderdate, o_shippriority
+order by revenue desc, o_orderdate
+limit 10""",
+    4: """
+select o_orderpriority, count(*) as order_count
+from orders
+where o_orderdate >= date '1993-07-01' and o_orderdate < date '1993-10-01'
+  and exists (select * from lineitem
+              where l_orderkey = o_orderkey and l_commitdate < l_receiptdate)
+group by o_orderpriority
+order by o_orderpriority""",
+    5: """
+select n_name, sum(l_extendedprice * (1 - l_discount)) as revenue
+from customer, orders, lineitem, supplier, nation, region
+where c_custkey = o_custkey and l_orderkey = o_orderkey and l_suppkey = s_suppkey
+  and c_nationkey = s_nationkey and s_nationkey = n_nationkey
+  and n_regionkey = r_regionkey and r_name = 'ASIA'
+  and o_orderdate >= date '1994-01-01' and o_orderdate < date '1995-01-01'
+group by n_name
+order by revenue desc""",
+    6: """
+select sum(l_extendedprice * l_discount) as revenue
+from lineitem
+where l_shipdate >= date '1994-01-01' and l_shipdate < date '1995-01-01'
+  and l_discount between 0.05 and 0.07 and l_quantity < 24""",
+    7: """
+select supp_nation, cust_nation, l_year, sum(volume) as revenue
+from (select n1.n_name as supp_nation, n2.n_name as cust_nation,
+             extract(year from l_shipdate) as l_year,
+             l_extendedprice * (1 - l_discount) as volume
+      from supplier, lineitem, orders, customer, nation n1, nation n2
+      where s_suppkey = l_suppkey and o_orderkey = l_orderkey and c_custkey = o_custkey
+        and s_nationkey = n1.n_nationkey and c_nationkey = n2.n_nationkey
+        and ((n1.n_name = 'FRANCE' and n2.n_name = 'GERMANY')
+             or (n1.n_name = 'GERMANY' and n2.n_name = 'FRANCE'))
+        and l_shipdate between date '1995-01-01' and date '1996-12-31') as shipping
+group by supp_nation, cust_nation, l_year
+order by supp_nation, cust_nation, l_year""",
+    8: """
+select o_year, sum(case when nation = 'BRAZIL' then volume else 0 end) / sum(volume)
+       as mkt_share
+from (select extract(year from o_orderdate) as o_year,
+             l_extendedprice * (1 - l_discount) as volume, n2.n_name as nation
+      from part, supplier, lineitem, orders, customer, nation n1, nation n2, region
+      where p_partkey = l_partkey and s_suppkey = l_suppkey and l_orderkey = o_orderkey
+        and o_custkey = c_custkey and c_nationkey = n1.n_nationkey
+        and n1.n_regionkey = r_regionkey and r_name = 'AMERICA'
+        and s_nationkey = n2.n_nationkey
+        and o_orderdate between date '1995-01-01' and date '1996-12-31'
+        and p_type = 'ECONOMY ANODIZED STEEL') as all_nations
+group by o_year
+order by o_year""",
+    9: """
+select nation, o_year, sum(amount) as sum_profit
+from (select n_name as nation, extract(year from o_orderdate) as o_year,
+             l_extendedprice * (1 - l_discount) - ps_supplycost * l_quantity as amount
+      from part, supplier, lineitem, partsupp, orders, nation
+      where s_suppkey = l_suppkey and ps_suppkey = l_suppkey and ps_partkey = l_partkey
+        and p_partkey = l_partkey and o_orderkey = l_orderkey and s_nationkey = n_nationkey
+        and p_name like '%green%') as profit
+group by nation, o_year
+order by nation, o_year desc""",
+    10: """
+select c_custkey, c_name, sum(l_extendedprice * (1 - l_discount)) as revenue, c_acctbal,
+       n_name, c_address, c_phone, c_comment
+from customer, orders, lineitem, nation
+where c_custkey = o_custkey and l_orderkey = o_orderkey
+  and o_orderdate >= date '1993-10-01' and o_orderdate < date '1994-01-01'
+  and l_returnflag = 'R' and c_nationkey = n_nationkey
+group by c_custkey, c_name, c_acctbal, c_phone, n_name, c_address, c_comment
+order by revenue desc
+limit 20""",
+    11: """
+select ps_partkey, sum(ps_supplycost * ps_availqty) as value
+from partsupp, supplier, nation
+where ps_suppkey = s_suppkey and s_nationkey = n_nationkey and n_name = 'GERMANY'
+group by ps_partkey
+having sum(ps_supplycost * ps_availqty) > (
+    select sum(ps_supplycost * ps_availqty) * 0.0001
+    from partsupp, supplier, nation
+    where ps_suppkey = s_suppkey and s_nationkey = n_nationkey and n_name = 'GERMANY')
+order by value desc""",
+    12: """
+select l_shipmode,
+       sum(case when o_orderpriority = '1-URGENT' or o_orderpriority = '2-HIGH'
+                then 1 else 0 end) as high_line_count,
+       sum(case when o_orderpriority <> '1-URGENT' and o_orderpriority <> '2-HIGH'
+                then 1 else 0 end) as low_line_count
+from orders, lineitem
+where o_orderkey = l_orderkey and l_shipmode in ('MAIL', 'SHIP')
+  and l_commitdate < l_receiptdate and l_shipdate < l_commitdate
+  and l_receiptdate >= date '1994-01-01' and l_receiptdate < date '1995-01-01'
+group by l_shipmode
+order by l_shipmode""",
+    13: """
+select c_count, count(*) as custdist
+from (select c_custkey, count(o_orderkey)
+      from customer left outer join orders
+        on c_custkey = o_custkey and o_comment not like '%special%requests%'
+      group by c_custkey) as c_orders (c_custkey, c_count)
+group by c_count
+order by custdist desc, c_count desc""",
+    14: """
+select 100.00 * sum(case when p_type like 'PROMO%'
+                         then l_extendedprice * (1 - l_discount) else 0 end)
+       / sum(l_extendedprice * (1 - l_discount)) as promo_revenue
+from lineitem, part
+where l_partkey = p_partkey
+  and l_shipdate >= date '1995-09-01' and l_shipdate < date '1995-10-01'""",
+    15: """
+with revenue0 as (
+    select l_suppkey as supplier_no, sum(l_extendedprice * (1 - l_discount)) as total_revenue
+    from lineitem
+    where l_shipdate >= date '1996-01-01' and l_shipdate < date '1996-04-01'
+    group by l_suppkey)
+select s_suppkey, s_name, s_address, s_phone, total_revenue
+from supplier, revenue0
+where s_suppkey = supplier_no
+  and total_revenue = (select max(total_revenue) from revenue0)
+order by s_suppkey""",
+    16: """
+select p_brand, p_type, p_size, count(distinct ps_suppkey) as supplier_cnt
+from partsupp, part
+where p_partkey = ps_partkey and p_brand <> 'Brand#45'
+  and p_type not like 'MEDIUM POLISHED%' and p_size in (49, 14, 23, 45, 19, 3, 36, 9)
+  and ps_suppkey not in (select s_suppkey from supplier
+                         where s_comment like '%Customer%Complaints%')
+group by p_brand, p_type, p_size
+order by supplier_cnt desc, p_brand, p_type, p_size""",
+    17: """
+select sum(l_extendedprice) / 7.0 as avg_yearly
+from lineitem, part
+where p_partkey = l_partkey and p_brand = 'Brand#23' and p_container = 'MED BOX'
+  and l_quantity < (select 0.2 * avg(l_quantity) from lineitem
+                    where l_partkey = p_partkey)""",
+    18: """
+select c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice, sum(l_quantity)
+from customer, orders, lineitem
+where o_orderkey in (select l_orderkey from lineitem group by l_orderkey
+                     having sum(l_quantity) > 300)
+  and c_custkey = o_custkey and o_orderkey = l_orderkey
+group by c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
+order by o_totalprice desc, o_orderdate
+limit 100""",
+    19: """
+select sum(l_extendedprice * (1 - l_discount)) as revenue
+from lineitem, part
+where p_partkey = l_partkey
+  and ((p_brand = 'Brand#12' and p_container in ('SM CASE', 'SM BOX', 'SM PACK', 'SM PKG')
+        and l_quantity >= 1 and l_quantity <= 1 + 10 and p_size between 1 and 5
+        and l_shipmode in ('AIR', 'REG AIR') and l_shipinstruct = 'DELIVER IN PERSON')
+    or (p_brand = 'Brand#23' and p_container in ('MED BAG', 'MED BOX', 'MED PKG', 'MED PACK')
+        and l_quantity >= 10 and l_quantity <= 10 + 10 and p_size between 1 and 10
+        and l_shipmode in ('AIR', 'REG AIR') and l_shipinstruct = 'DELIVER IN PERSON')
+    or (p_brand = 'Brand#34' and p_container in ('LG CASE', 'LG BOX', 'LG PACK', 'LG PKG')
+        and l_quantity >= 20 and l_quantity <= 20 + 10 and p_size between 1 and 15
+        and l_shipmode in ('AIR', 'REG AIR') and l_shipinstruct = 'DELIVER IN PERSON'))""",
+    20: """
+select s_name, s_address
+from supplier, nation
+where s_suppkey in (
+    select ps_suppkey from partsupp
+    where ps_partkey in (select p_partkey from part where p_name like 'forest%')
+      and ps_availqty > (select 0.5 * sum(l_quantity) from lineitem
+                         where l_partkey = ps_partkey and l_suppkey = ps_suppkey
+                           and l_shipdate >= date '1994-01-01'
+                           and l_shipdate < date '1995-01-01'))
+  and s_nationkey = n_nationkey and n_name = 'CANADA'
+order by s_name""",
+    21: """
+select s_name, count(*) as numwait
+from supplier, lineitem l1, orders, nation
+where s_suppkey = l1.l_suppkey and o_orderkey = l1.l_orderkey and o_orderstatus = 'F'
+  and l1.l_receiptdate > l1.l_commitdate
+  and exists (select * from lineitem l2
+              where l2.l_orderkey = l1.l_orderkey and l2.l_suppkey <> l1.l_suppkey)
+  and not exists (select * from lineitem l3
+                  where l3.l_orderkey = l1.l_orderkey and l3.l_suppkey <> l1.l_suppkey
+                    and l3.l_receiptdate > l3.l_commitdate)
+  and s_nationkey = n_nationkey and n_name = 'SAUDI ARABIA'
+group by s_name
+order by numwait desc, s_name
+limit 100""",
+    22: """
+select cntrycode, count(*) as numcust, sum(c_acctbal) as totacctbal
+from (select substring(c_phone, 1, 2) as cntrycode, c_acctbal
+      from customer
+      where substring(c_phone, 1, 2) in ('13', '31', '23', '29', '30', '18', '17')
+        and c_acctbal > (select avg(c_acctbal) from customer
+                         where c_acctbal > 0.00
+                           and substring(c_phone, 1, 2)
+                               in ('13', '31', '23', '29', '30', '18', '17'))
+        and not exists (select * from orders where o_custkey = c_custkey)) as custsale
+group by cntrycode
+order by cntrycode""",
+}
 
 
 class SmokeFailure(Exception):
@@ -1661,6 +1916,7 @@ def phase_slice(cols, card: str):
     print(f"query cold {cold_s:.3f} s; warm median {statistics.median(warm):.3f} s "
           f"(runs {', '.join(f'{w:.3f}' for w in warm)}); host path {host_s:.3f} s; "
           f"max_memory_allocated {peak} bytes [{card}]", flush=True)
+    plan_ms("supplier", lambda: supplier_query(df), card)
     return df, launches
 
 
@@ -1742,10 +1998,11 @@ def phase_profile(run, card: str, name: str = "profile", **cfg) -> None:
     sys.stdout.flush()
 
 
-def phase_q12(lineitem, orders, card: str):
+def phase_q12(lineitem, orders, card: str, sql_tables: dict):
     """TPC-H q12 at SF1 on the card: the cold run (counted), the host path,
     the numpy oracle, the warm runs, peak memory. Returns (the query as a
-    callable, the cold run's launches)."""
+    callable, the cold run's launches); its tables go into ``sql_tables``
+    (so for the q1, q6 and q5 phases)."""
     import torch
 
     import daft_tpu_torch as dt
@@ -1800,6 +2057,8 @@ def phase_q12(lineitem, orders, card: str):
     print(f"q12 cold {cold_s:.3f} s; warm median {statistics.median(warm):.4f} s "
           f"(runs {', '.join(f'{w:.4f}' for w in warm)}); host path {host_s:.3f} s; "
           f"max_memory_allocated {peak} bytes [{card}]", flush=True)
+    plan_ms("q12", query, card)
+    sql_tables["q12"] = {"lineitem": df_l, "orders": df_o}
     return query, launches
 
 
@@ -1907,6 +2166,27 @@ def same_result(got: dict, want: dict, floats=()) -> bool:
     return True
 
 
+def plan_ms(label: str, query, card: str):
+    """optimize() and translate() of one cell's query under the cells'
+    config, on the host's clock: the medians of PLANS calls, in ms."""
+    from daft_tpu_torch.plan import physical as pp
+
+    opt, tr = [], []
+    with dt_ctx():
+        frame = query()
+        for _ in range(PLANS):
+            t0 = time.perf_counter()
+            plan = frame.optimized_plan()
+            t1 = time.perf_counter()
+            pp.translate(plan)
+            opt.append(t1 - t0)
+            tr.append(time.perf_counter() - t1)
+    out = statistics.median(opt) * 1e3, statistics.median(tr) * 1e3
+    print(f"{label}: optimize {out[0]:.4f} ms / translate {out[1]:.4f} ms (host clock, "
+          f"medians of {PLANS}) [{card}]", flush=True)
+    return out
+
+
 def run_cell(label: str, query, kernels, card: str, floats=(), oracle=None,
              counter: str = "device_grouped_batches", extra_checks=None):
     """One query cell on the card: the counters zeroed just before the cold
@@ -1953,13 +2233,14 @@ def run_cell(label: str, query, kernels, card: str, floats=(), oracle=None,
                                                 "oracle")
     rows = len(next(iter(got.values())))
     print(f"{label}: {rows} result rows, equal to the host path and the numpy oracle")
+    plan_ms(label, query, card)
     print(f"{label} cold {cold_s:.3f} s; warm median {statistics.median(warm):.4f} s "
           f"(runs {', '.join(f'{w:.4f}' for w in warm)}); host path {host_s:.3f} s; "
           f"max_memory_allocated {peak} bytes [{card}]", flush=True)
     return got, launches
 
 
-def phase_q1(lineitem, card: str):
+def phase_q1(lineitem, card: str, sql_tables: dict):
     """TPC-H q1 at SF1 on the card (K7, K1, K2), then q1 with
     l_extendedprice's min and max (an f64 stage: K3 too), each its own
     counted cold run. Returns (the query as a callable, the two runs'
@@ -1978,6 +2259,7 @@ def phase_q1(lineitem, card: str):
         ("segment_sum_float_planes", "segment_sum_planes", "segment_extreme_planes",
          "segment_extreme_int64"), card, Q1_FLOATS, q1_oracle(lineitem, extremes=True))
     print(f"q1 result: {json.dumps(got)}")
+    sql_tables["q1"] = {"lineitem": df}
     return (lambda: q1_query(df).to_pydict()), launches, launches_f64
 
 
@@ -2049,7 +2331,7 @@ def q6_query(df):
             .agg((col("l_extendedprice") * col("l_discount")).sum().alias("revenue")))
 
 
-def phase_q6(lineitem, card: str):
+def phase_q6(lineitem, card: str, sql_tables: dict):
     """TPC-H q6 at SF1 through the ungrouped device stage (DeviceFilterAgg).
     Returns (the query as a callable, the run's launches)."""
     import numpy as np
@@ -2067,7 +2349,7 @@ def phase_q6(lineitem, card: str):
         return q6_query(df)
 
     with dt.execution_config_ctx(device="cuda", device_mode="on"):
-        plan = pp.translate(query()._plan)
+        plan = pp.translate(query().optimized_plan())
     check(any(isinstance(n, pp.DeviceFilterAgg) for n in plan.walk()),
           "q6 did not plan to the ungrouped device stage")
     ship = lineitem["l_shipdate"]
@@ -2079,6 +2361,7 @@ def phase_q6(lineitem, card: str):
     got, launches = run_cell("q6", query, (), card, ("revenue",), oracle,
                              counter="device_stage_batches")
     print(f"q6 result: {json.dumps(got)} over {int(keep.sum())} kept rows")
+    sql_tables["q6"] = {"lineitem": df}
     return (lambda: query().to_pydict()), launches
 
 
@@ -2487,7 +2770,7 @@ def chain_gap(label: str, df, chain, plain, card: str) -> dict:
                 t0 = time.perf_counter()
                 frame = q(df)
                 t1 = time.perf_counter()
-                pp.translate(frame._plan)
+                pp.translate(frame.optimized_plan())
                 plan.append(time.perf_counter() - t1)
                 build.append(t1 - t0)
             out[f"{name}_build_ms"] = statistics.median(build) * 1e3
@@ -2503,7 +2786,8 @@ def chain_gap(label: str, df, chain, plain, card: str) -> dict:
 
 def phase_q1_chain(lineitem, q1_result: dict, card: str):
     """q1 written as a chain (q1_chain_query) at SF1: planned as one
-    DeviceGroupedAgg over the scan fusing project, project, filter and agg;
+    DeviceGroupedAgg over the scan fusing filter, project, project and agg
+    (the optimizer moves the Filter under the Projects);
     the region counters of the cold and warm runs; a warm run uploads
     nothing; the result equal, bit for bit, to the q1 cell's. Also the
     device time of one evaluation of the projected ``disc_price``, which
@@ -2521,9 +2805,9 @@ def phase_q1_chain(lineitem, q1_result: dict, card: str):
     clear_residency()
     df = q1_frame(lineitem)
     with dt.execution_config_ctx(device="cuda", device_mode="on"):
-        plan = pp.translate(q1_chain_query(df)._plan)
+        plan = pp.translate(q1_chain_query(df).optimized_plan())
     region_plan_check("q1 chain", plan, pp.DeviceGroupedAgg,
-                      ("project", "project", "filter", "agg"))
+                      ("filter", "project", "project", "agg"))
     node = next(n for n in plan.walk() if isinstance(n, pp.DeviceGroupedAgg))
     got, launches = run_cell(
         "q1 chain", lambda: q1_chain_query(df),
@@ -2571,7 +2855,7 @@ def phase_q6_chain(lineitem, q6_result: dict, card: str):
                                                       "l_discount")},
                          "l_shipdate": lineitem["l_shipdate"].astype("datetime64[D]")})
     with dt.execution_config_ctx(device="cuda", device_mode="on"):
-        plan = pp.translate(q6_chain_query(df)._plan)
+        plan = pp.translate(q6_chain_query(df).optimized_plan())
     region_plan_check("q6 chain", plan, pp.DeviceFilterAgg, ("filter", "project", "agg"))
     got, launches = run_cell(
         "q6 chain", lambda: q6_chain_query(df), (), card, ("revenue",), q6_oracle(lineitem),
@@ -2581,6 +2865,123 @@ def phase_q6_chain(lineitem, q6_result: dict, card: str):
     print(f"q6 chain result: {json.dumps(got)}, the q6 cell's {json.dumps(q6_result)}")
     chain_gap("q6 chain", df, q6_chain_query, q6_query, card)
     return (lambda: q6_chain_query(df).to_pydict()), launches
+
+
+# ---- TPC-H in SQL over the DataFrame cells' tables --------------------------------
+
+
+SQL_CELLS = {  # TPC-H query -> (the DataFrame cell's tables, its query, its float columns)
+    1: ("q1", lambda t: q1_query(t["lineitem"]), Q1_FLOATS),
+    6: ("q6", lambda t: q6_query(t["lineitem"]), ("revenue",)),
+    3: ("tails", lambda t: q3_query(t), ("revenue",)),
+    5: ("q5", lambda t: q5_query(t), ("revenue",)),
+    12: ("q12", lambda t: q12_query(t["lineitem"], t["orders"]), ()),
+    14: ("tails", lambda t: q14_query(t), ("promo_revenue",)),
+    19: ("tails", lambda t: q19_query(t), ("revenue",)),
+}
+
+
+def sql_counts(text: str, tables: dict, df_query):
+    """The counted runs of one SQL cell under the current config: one run of
+    the DataFrame form (after one more that warms the shared tables) and the
+    column uploads of one more, then the SQL form's first run, its three warm
+    runs and the uploads of one more, each run counted from zero. Each form's
+    uploads are read straight after its own runs: the two forms' hoisted
+    columns may share a residency slot by name, so a run of one after the
+    other rebuilds them. Returns (the DataFrame form's result, the SQL
+    form's, the DataFrame run's counters, the SQL first run's, the SQL warm
+    runs', the SQL first run's seconds, the warm runs' seconds, the
+    DataFrame form's warm uploads, the SQL form's)."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ops import counters
+
+    want = df_query(tables).to_pydict()
+    counters.reset()
+    df_query(tables).to_pydict()
+    df_snap = counters.snapshot()
+    df_uploads = count_uploads(lambda: df_query(tables).to_pydict())
+    counters.reset()
+    t0 = time.perf_counter()
+    got = dt.sql(text, **tables).to_pydict()
+    _synchronize()
+    first_s = time.perf_counter() - t0
+    snap = counters.snapshot()
+    counters.reset()
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dt.sql(text, **tables).to_pydict()
+        _synchronize()
+        warm.append(time.perf_counter() - t0)
+    warm_snap = counters.snapshot()
+    uploads = count_uploads(lambda: dt.sql(text, **tables).to_pydict())
+    return want, got, df_snap, snap, warm_snap, first_s, warm, df_uploads, uploads
+
+
+def _synchronize() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def phase_sql(sql_tables: dict, card: str) -> dict:
+    """TPC-H q1, q6, q3, q5, q12, q14 and q19 in SQL (TPCH_SQL) at SF1 over
+    the tables their DataFrame cells ran over (``sql_tables``, by cell),
+    bound by name, so the two forms share dictionaries and resident planes. Each: parse + plan (``sql``),
+    optimize() and translate() on the host's clock (medians of PLANS calls);
+    the DataFrame form's run and the SQL form's first run, each counted from
+    zero, must count the same device stages and kernel launches, and the
+    three warm SQL runs three times as many; the results equal (floats within
+    rtol 1e-5, the rest exactly); a warm SQL run uploads nothing where the
+    DataFrame form's warm run uploads nothing. Returns the SQL first runs'
+    launches, summed over the queries."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ops import counters
+    from daft_tpu_torch.plan import physical as pp
+
+    phase("sql")
+    launches = {k: 0 for k in counters.KERNEL_NAMES}
+    for qn, (cell, df_query, floats) in SQL_CELLS.items():
+        label = f"q{qn} sql"
+        tables = sql_tables[cell]
+        text = TPCH_SQL[qn]
+        clear_residency()
+        with dt_ctx():
+            parse, opt, tr = [], [], []
+            for _ in range(PLANS):
+                t0 = time.perf_counter()
+                frame = dt.sql(text, **tables)
+                t1 = time.perf_counter()
+                plan = frame.optimized_plan()
+                t2 = time.perf_counter()
+                pp.translate(plan)
+                parse.append(t1 - t0)
+                opt.append(t2 - t1)
+                tr.append(time.perf_counter() - t2)
+            (want, got, df_snap, snap, warm_snap, first_s, warm, df_uploads,
+             uploads) = sql_counts(text, tables, df_query)
+        print(f"{label} first run counters: {json.dumps(snap, sort_keys=True)}")
+        check(snap == df_snap, f"{label}: the SQL run counts "
+              f"{ {k: v for k, v in snap.items() if v != df_snap[k]} }, the DataFrame form "
+              f"{ {k: v for k, v in df_snap.items() if v != snap[k]} }")
+        check(warm_snap == {k: 3 * v for k, v in df_snap.items()},
+              f"{label}: the warm SQL runs count differently from the DataFrame form")
+        check(not counters.rejections, f"{label}: a stage was refused: {counters.rejections}")
+        check(same_result(got, want, floats), f"{label} differs from its DataFrame cell")
+        check(df_uploads > 0 or uploads == 0,
+              f"{label}: a warm run uploaded {uploads} columns (its DataFrame form none)")
+        for k in counters.KERNEL_NAMES:
+            launches[k] += snap[f"launches_{k}"]
+        print(f"{label}: equal to its DataFrame cell, the same device counters and launches "
+              f"({', '.join(f'{k} {v}' for k, v in snap.items() if k.startswith('launches_') and v)}"
+              f"); parse + plan {statistics.median(parse) * 1e3:.4f} ms, optimize "
+              f"{statistics.median(opt) * 1e3:.4f} ms, translate "
+              f"{statistics.median(tr) * 1e3:.4f} ms (host clock, medians of {PLANS}); first "
+              f"run {first_s:.4f} s; warm median {statistics.median(warm):.4f} s (runs "
+              f"{', '.join(f'{w:.4f}' for w in warm)}); warm uploads {uploads} (the "
+              f"DataFrame form's {df_uploads}) [{card}]", flush=True)
+    return launches
 
 
 # ---- TPC-H q5: a star of six tables --------------------------------------------
@@ -2641,7 +3042,7 @@ def q5_oracle(lineitem, orders, dims) -> dict:
     return {"n_name": [NATIONS[i] for i in order], "revenue": sums[order].tolist()}
 
 
-def phase_q5(lineitem, orders, dims, card: str):
+def phase_q5(lineitem, orders, dims, card: str, sql_tables: dict):
     """TPC-H q5 at SF1 on the card: lineitem the fact, orders and supplier
     adjacent, customer, nation and region chained behind orders, the second
     supplier key a predicate over two dims. The counters zeroed just before
@@ -2656,7 +3057,7 @@ def phase_q5(lineitem, orders, dims, card: str):
     clear_residency()
     frames = q5_frames(lineitem, orders, dims)
     with dt.execution_config_ctx(device="cuda", device_mode="on"):
-        plan = pp.translate(q5_query(frames)._plan)
+        plan = pp.translate(q5_query(frames).optimized_plan())
     node = next((n for n in plan.walk() if isinstance(n, pp.DeviceJoinAgg)), None)
     check(node is not None and not any(isinstance(n, pp.HashJoin) for n in plan.walk()),
           "q5 did not plan as one device join")
@@ -2680,6 +3081,7 @@ def phase_q5(lineitem, orders, dims, card: str):
         counter="device_join_batches", extra_checks=checks)
     check(len(got["n_name"]) == 5, f"q5: {len(got['n_name'])} nations, expected ASIA's 5")
     print(f"q5 result: {json.dumps(got)}")
+    sql_tables["q5"] = frames
     return (lambda: q5_query(frames).to_pydict()), launches
 
 
@@ -2875,6 +3277,7 @@ def phase_coalesce(lineitem, card: str):
           f"of the {cfg.morsel_size_rows}-row bucket), fill {fill:.4f}; run {wall:.3f} s; "
           f"result {json.dumps(got)} equal to the one-batch run {json.dumps(one)} and the "
           f"oracle [{card}]", flush=True)
+    plan_ms("coalesce", lambda: q6(cut), card)
     return (lambda: q6(cut).to_pydict()), launches
 
 
@@ -2995,6 +3398,7 @@ def phase_repartition(lineitem, card: str):
           f"(runs {', '.join(f'{w:.3f}' for w in warm)}); all_to_all tier {off_s:.3f} s; "
           f"host path {host_s:.3f} s; exchange {snap['mesh_exchange_bytes']} bytes; "
           f"max_memory_allocated {peak} bytes [{card}]", flush=True)
+    plan_ms("repartition", lambda: df.repartition(MESH, col("l_orderkey")), card)
     return run, launches
 
 
@@ -3036,16 +3440,17 @@ def main(argv=None) -> int:
         if not args.kernels_only:
             df, paths["supplier"] = phase_slice(lineitem, card)
             phase_profile(lambda: supplier_query(df).to_pydict(), card)
-            q12, paths["q12"] = phase_q12(lineitem, orders, card)
+            sql_tables = {}
+            q12, paths["q12"] = phase_q12(lineitem, orders, card, sql_tables)
             phase_profile(lambda: q12().to_pydict(), card, "q12 profile")
             del df, q12
-            q1, paths["q1"], paths["q1_f64"] = phase_q1(lineitem, card)
+            q1, paths["q1"], paths["q1_f64"] = phase_q1(lineitem, card, sql_tables)
             phase_profile(q1, card, "q1 profile")
             with dt_ctx():
                 q1_result = q1()
             partkey, paths["partkey"] = phase_partkey(lineitem, card)
             phase_profile(partkey, card, "partkey profile")
-            q6, paths["q6"] = phase_q6(lineitem, card)
+            q6, paths["q6"] = phase_q6(lineitem, card, sql_tables)
             phase_profile(q6, card, "q6 profile")
             with dt_ctx():
                 q6_result = q6()
@@ -3056,13 +3461,16 @@ def main(argv=None) -> int:
             for cell in TAILS:
                 tail, paths[cell] = phase_tail(cell, frames, lineitem, orders, dims, card)
                 phase_profile(tail, card, f"{cell} profile")
+            sql_tables["tails"] = frames
             del frames, tail
             chain, paths["q1_chain"] = phase_q1_chain(lineitem, q1_result, card)
             phase_profile(chain, card, "q1 chain profile")
             chain, paths["q6_chain"] = phase_q6_chain(lineitem, q6_result, card)
             phase_profile(chain, card, "q6 chain profile")
-            q5, paths["q5"] = phase_q5(lineitem, orders, dims, card)
+            q5, paths["q5"] = phase_q5(lineitem, orders, dims, card, sql_tables)
             phase_profile(q5, card, "q5 profile")
+            paths["sql"] = phase_sql(sql_tables, card)
+            del sql_tables
             topn, paths["topn_order"] = phase_topn_order(lineitem, orders, card)
             phase_profile(topn, card, "topn order profile")
             del chain, q5, topn

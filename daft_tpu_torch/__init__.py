@@ -10,6 +10,7 @@ aggregation's segment reductions in hand-written CUDA kernels
     import daft_tpu_torch as dt
     df = dt.from_pydict({"k": [1, 2, 1], "v": [10, 20, 30]})
     df.groupby("k").agg(dt.col("v").sum()).sort("k").to_pydict()
+    dt.sql("SELECT k, SUM(v) AS s FROM t GROUP BY k ORDER BY k", t=df).to_pydict()
 """
 
 from .config import ExecutionConfig, execution_config, execution_config_ctx, \
@@ -23,6 +24,8 @@ from .expressions.expressions import Expression, col, lit
 from .interop import from_numpy_columns
 from .plan import logical as _lp
 from .schema import Schema
+from . import sql  # noqa: E402  (the callable SQL module: dt.sql("SELECT ...", t=df))
+from .sql import sql_expr
 from .utils import torch_setup as _torch_setup  # noqa: F401  (fixes TF32 off)
 
 
@@ -37,5 +40,5 @@ __all__ = [
     "DataFrame", "DataType", "ExecutionConfig", "Expression", "Field",
     "GroupedDataFrame", "MicroPartition", "RecordBatch", "Schema", "Series",
     "col", "execution_config", "execution_config_ctx", "from_numpy_columns",
-    "from_pydict", "lit", "set_execution_config",
+    "from_pydict", "lit", "set_execution_config", "sql", "sql_expr",
 ]

@@ -61,7 +61,7 @@ def _null_fill(dtype: DataType):
 
 class Series:
     __slots__ = ("_name", "_dtype", "_values", "_validity", "_dict_codes",
-                 "__weakref__")
+                 "_distinct_est", "__weakref__")
 
     def __init__(self, name: str, dtype: DataType, values: np.ndarray,
                  validity: np.ndarray):
@@ -73,6 +73,7 @@ class Series:
         self._values = values
         self._validity = validity
         self._dict_codes = None
+        self._distinct_est = None  # plan/stats.py estimate_distinct's cache
 
     # ---- constructors -------------------------------------------------------------
     @classmethod

@@ -3,11 +3,13 @@ daft_tpu/dataframe/dataframe.py, the subset the port's slices need):
 ``where``, ``select``, ``with_column``, ``join`` (inner, left, semi, anti,
 cross), ``distinct``, ``repartition``,
 ``groupby(...).agg(...)``, the ungrouped ``agg`` (and ``sum``, ``mean``,
-``min``, ``max``, ``count``), ``sort``, ``limit``, ``offset``, ``collect``
-and ``to_pydict``.
+``min``, ``max``, ``count``), ``sort``, ``limit``, ``offset``, ``exclude``,
+``collect`` and ``to_pydict``.
 
-Every method appends a logical node; ``collect`` translates the plan under
-the current execution config and runs it, caching the result partitions.
+Every method appends a logical node; ``collect`` optimizes the plan
+(plan/optimizer.py, as the reference's ``collect`` does), translates it
+under the current execution config and runs it, caching the result
+partitions.
 With ``device_mode="on"`` the configured device is resolved first, so a
 query asked to run on a missing card raises instead of running on the CPU.
 """
@@ -90,6 +92,10 @@ class DataFrame:
         ro = _to_exprs(right_on if isinstance(right_on, list) else [right_on])
         return DataFrame(lp.Join(self._plan, other._plan, lo, ro, how))
 
+    def exclude(self, *names: str) -> "DataFrame":
+        """Every column but ``names``."""
+        return self.select(*[col(n) for n in self.column_names if n not in names])
+
     def distinct(self, *on: ColumnInput) -> "DataFrame":
         """The first row of each distinct value of ``on`` (of every column
         when none is given), in input order."""
@@ -155,8 +161,14 @@ class DataFrame:
 
             if execution_config().device_mode == "on":
                 resolve_device(execution_config().device)
-            self._result = list(execute_plan(translate(self._plan)))
+            self._result = list(execute_plan(translate(self.optimized_plan())))
         return self._result
+
+    def optimized_plan(self) -> lp.LogicalPlan:
+        """The logical plan as ``collect`` runs it."""
+        from ..plan.optimizer import Optimizer
+
+        return Optimizer().optimize(self._plan)
 
     def collect(self) -> "DataFrame":
         parts = self._materialize()

@@ -37,6 +37,7 @@ from ..core.series import Series
 from ..expressions.eval import eval_expression, eval_projection
 from ..expressions.expressions import AggExpr, Alias, Expression, col
 from ..plan import physical as pp
+from ..schema import Schema
 
 
 def execute_plan(plan: pp.PhysicalPlan) -> Iterator[MicroPartition]:
@@ -57,7 +58,7 @@ def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
 
     if isinstance(node, pp.PhysFilter):
         for part in _exec(node.input):
-            yield _filter_part(part, node.predicate)
+            yield _filter_part(part, node.predicate, node.keep)
         return
 
     if isinstance(node, pp.PhysSort):
@@ -673,16 +674,25 @@ def _full_length(s: Series, n: int) -> Series:
     return s.broadcast(n) if len(s) == 1 and n != 1 else s
 
 
-def _filter_part(part: MicroPartition, predicate: Expression) -> MicroPartition:
+def _filter_part(part: MicroPartition, predicate: Expression,
+                 keep: Optional[List[str]] = None) -> MicroPartition:
+    """The rows of ``part`` where ``predicate`` is true; with ``keep``, only
+    those columns are gathered."""
     batches = []
+    schema = part.schema
     for b in part.batches:
         mask = eval_expression(b, predicate)
+        if keep is not None:
+            b = b.select_columns(keep)
+            schema = b.schema
         if len(mask) == 1 and b.num_rows != 1:
-            keep = bool(mask.validity_numpy()[0] and mask.to_numpy()[0])
-            batches.append(b if keep else b.head(0))
+            hit = bool(mask.validity_numpy()[0] and mask.to_numpy()[0])
+            batches.append(b if hit else b.head(0))
         else:
             batches.append(b.filter_by_mask(mask))
-    return MicroPartition(part.schema, batches or [RecordBatch.empty(part.schema)])
+    if keep is not None and not part.batches:
+        schema = Schema([part.schema[c] for c in keep])
+    return MicroPartition(schema, batches or [RecordBatch.empty(schema)])
 
 
 def _concat_parts(parts: List[MicroPartition], schema) -> RecordBatch:

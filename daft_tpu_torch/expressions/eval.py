@@ -13,6 +13,7 @@ functions are null on a null row, as Arrow's kernels.
 
 from __future__ import annotations
 
+import re
 from typing import List
 
 import numpy as np
@@ -25,6 +26,7 @@ from .expressions import (
     COMPARISON_OPS,
     AggExpr,
     Alias,
+    Between,
     BinaryOp,
     Cast,
     ColumnRef,
@@ -77,6 +79,8 @@ def eval_expression(batch, expr: Expression) -> Series:
         val = np.where(cond, _values_as(t, out_dt), _values_as(f, out_dt))
         valid = p.validity_numpy() & np.where(cond, t.validity_numpy(), f.validity_numpy())
         return _make(expr.name(), out_dt, val, valid)
+    if isinstance(expr, Between):
+        return eval_expression(batch, expr.as_comparisons()).rename(expr.name())
     if isinstance(expr, IsIn):
         return _is_in(eval_expression(batch, expr.child),
                       [eval_expression(batch, i) for i in expr.items])
@@ -125,16 +129,32 @@ def _function(expr: Function, s: Series) -> Series:
                      s.validity_numpy())
     arg = expr.args[1].value
     codes, vocab, _k = s.dict_codes()
-    if expr.fname == "utf8_left":
+    if expr.fname in ("utf8_left", "utf8_substr"):
+        if expr.fname == "utf8_left":
+            cut = slice(0, max(arg, 0))
+        else:  # Arrow's utf8_slice_codeunits(start, start + length)
+            length = expr.args[2].value if len(expr.args) > 2 else None
+            cut = slice(arg, None if length is None else arg + length)
         mapped = np.empty(len(vocab), dtype=object)
-        mapped[:] = [v[:max(arg, 0)] if v is not None else None for v in vocab]
+        mapped[:] = [v[cut] if v is not None else None for v in vocab]
         out = mapped[codes] if len(codes) else np.empty(0, dtype=object)
         return _make(s.name, DataType.string(), out, s.validity_numpy())
-    test = {"utf8_startswith": str.startswith, "utf8_endswith": str.endswith,
-            "utf8_contains": str.__contains__}[expr.fname]
+    if expr.fname == "utf8_like":
+        rx = _like_regex(arg)
+        test = lambda v, _pat: rx.match(v) is not None  # noqa: E731
+    else:
+        test = {"utf8_startswith": str.startswith, "utf8_endswith": str.endswith,
+                "utf8_contains": str.__contains__}[expr.fname]
     lut = np.array([v is not None and test(v, arg) for v in vocab], dtype=bool)
     hit = lut[codes] if len(codes) else np.zeros(0, dtype=bool)
     return _make(s.name, DataType.bool(), hit, s.validity_numpy())
+
+
+def _like_regex(pattern: str):
+    """SQL LIKE as an anchored regex: ``%`` any run, ``_`` one character,
+    everything else literal."""
+    parts = [".*" if ch == "%" else "." if ch == "_" else re.escape(ch) for ch in pattern]
+    return re.compile("^" + "".join(parts) + "$")
 
 
 def _values_as(s: Series, dtype: DataType) -> np.ndarray:

@@ -2,9 +2,9 @@
 subset the grouped-aggregation and join slices need): ``col``, ``lit``
 (with ``datetime.date``), ``Alias``, ``Cast``, arithmetic, comparisons,
 ``&``, ``|``, ``~``, null tests, ``IfElse``, ``IsIn``, ``AggExpr`` with
-sum, count, mean, min, max and count_distinct, and the ``Function`` calls
-``.str.startswith``, ``.str.endswith``, ``.str.contains``, ``.str.left``
-and ``.dt.year``. ``transform`` rewrites a tree bottom-up (the
+sum, count, mean, min, max and count_distinct, ``Between``, and the
+``Function`` calls ``.str.startswith``, ``.str.endswith``, ``.str.contains``,
+``.str.left``, ``.str.like``, ``.str.substr`` and ``.dt.year``. ``transform`` rewrites a tree bottom-up (the
 join capture substitutes projections and hoists dim-only subexpressions
 with it).
 
@@ -68,6 +68,9 @@ class Expression:
 
     def has_agg(self) -> bool:
         return any(isinstance(n, AggExpr) for n in self.walk())
+
+    def is_literal_true(self) -> bool:
+        return isinstance(self, Literal) and self.value is True
 
     # ---- typing -------------------------------------------------------------------
     def to_field(self, schema: Schema) -> Field:
@@ -153,6 +156,10 @@ class Expression:
 
     def if_else(self, if_true, if_false) -> "Expression":
         return IfElse(self, self._other(if_true), self._other(if_false))
+
+    def between(self, lower, upper) -> "Expression":
+        """lower <= self <= upper (both bounds inclusive)."""
+        return Between(self, self._other(lower), self._other(upper))
 
     def is_in(self, values) -> "Expression":
         if isinstance(values, Expression):
@@ -390,15 +397,47 @@ class IsIn(Expression):
         return f"{self.child!r}.is_in({self.items!r})"
 
 
+class Between(Expression):
+    """lower <= child <= upper: ``(child >= lower) & (child <= upper)``
+    under Kleene logic, as the reference's ``Series.between`` computes it."""
+
+    def __init__(self, child: Expression, lower: Expression, upper: Expression):
+        self.child = child
+        self.lower = lower
+        self.upper = upper
+
+    def name(self) -> str:
+        return self.child.name()
+
+    def children(self):
+        return [self.child, self.lower, self.upper]
+
+    def with_children(self, children):
+        return Between(children[0], children[1], children[2])
+
+    def as_comparisons(self) -> Expression:
+        return BinaryOp("and", BinaryOp("ge", self.child, self.lower),
+                        BinaryOp("le", self.child, self.upper))
+
+    def to_field(self, schema: Schema) -> Field:
+        self.as_comparisons().to_field(schema)
+        return Field(self.child.to_field(schema).name, DataType.bool())
+
+    def __repr__(self):
+        return f"{self.child!r}.between({self.lower!r}, {self.upper!r})"
+
+
 # the scalar functions the port evaluates (on the host only): name ->
-# (the first argument's kind, the kind of the one literal argument after it
-# or None, the result type)
+# (the first argument's kind, the types of the literal arguments after it,
+# how many of them may be left out from the end, the result type)
 FUNCTIONS = {
-    "utf8_startswith": ("string", str, "bool"),
-    "utf8_endswith": ("string", str, "bool"),
-    "utf8_contains": ("string", str, "bool"),
-    "utf8_left": ("string", int, "string"),
-    "dt_year": ("date", None, "int32"),
+    "utf8_startswith": ("string", (str,), 0, "bool"),
+    "utf8_endswith": ("string", (str,), 0, "bool"),
+    "utf8_contains": ("string", (str,), 0, "bool"),
+    "utf8_like": ("string", (str,), 0, "bool"),
+    "utf8_left": ("string", (int,), 0, "string"),
+    "utf8_substr": ("string", (int, int), 1, "string"),
+    "dt_year": ("date", (), 0, "int32"),
 }
 
 
@@ -406,10 +445,12 @@ class Function(Expression):
     """A scalar function call (counterpart of the reference's ``Function``
     over its registry, holding only what the TPC-H queries call: the string
     tests ``utf8_startswith``, ``utf8_endswith`` and ``utf8_contains`` (a
-    substring, not a pattern), ``utf8_left`` (the first n characters) and
-    ``dt_year``). Evaluated on the host (expressions/eval.py); the device
-    never takes it (ops/device_eval.py), so a join capture hoists it into a
-    host-evaluated dim column."""
+    substring, not a pattern), ``utf8_like`` (SQL LIKE: ``%`` any run, ``_``
+    one character), ``utf8_left`` (the first n characters), ``utf8_substr``
+    (from a 0-based start, optionally n characters) and ``dt_year``).
+    Evaluated on the host (expressions/eval.py); the device never takes it
+    (ops/device_eval.py), so a join capture hoists it into a host-evaluated
+    dim column."""
 
     def __init__(self, fname: str, args: List[Expression]):
         if fname not in FUNCTIONS:
@@ -427,16 +468,18 @@ class Function(Expression):
         return Function(self.fname, children)
 
     def to_field(self, schema: Schema) -> Field:
-        kind, lit_type, out = FUNCTIONS[self.fname]
+        kind, lit_types, optional, out = FUNCTIONS[self.fname]
         arg = self.args[0].to_field(schema)
         if not (arg.dtype.is_string() if kind == "string" else arg.dtype.kind == "date"):
             raise ValueError(f"{self.fname} takes a {kind} column, got {arg.dtype}")
-        if lit_type is not None:
-            a = self.args[1] if len(self.args) == 2 else None
-            if not (isinstance(a, Literal) and isinstance(a.value, lit_type)
+        lits = self.args[1:]
+        if not len(lit_types) - optional <= len(lits) <= len(lit_types):
+            raise ValueError(f"{self.fname} takes {len(lit_types)} literal arguments, "
+                             f"got {len(lits)}")
+        for a, t in zip(lits, lit_types):
+            if not (isinstance(a, Literal) and isinstance(a.value, t)
                     and not isinstance(a.value, bool)):
-                raise ValueError(f"{self.fname} takes a {lit_type.__name__} literal, "
-                                 f"got {a!r}")
+                raise ValueError(f"{self.fname} takes a {t.__name__} literal, got {a!r}")
         return Field(arg.name, getattr(DataType, out)())
 
     def __repr__(self):
@@ -460,6 +503,13 @@ class StringNamespace:
 
     def left(self, n) -> Expression:
         return Function("utf8_left", [self._e, lit(n)])
+
+    def like(self, pattern) -> Expression:
+        return Function("utf8_like", [self._e, lit(pattern)])
+
+    def substr(self, start, length=None) -> Expression:
+        args = [self._e, lit(start)] + ([] if length is None else [lit(length)])
+        return Function("utf8_substr", args)
 
 
 class DateNamespace:

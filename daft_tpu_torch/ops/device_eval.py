@@ -29,6 +29,7 @@ from ..datatype import DataType
 from ..expressions.expressions import (
     AggExpr,
     Alias,
+    Between,
     BinaryOp,
     Cast,
     ColumnRef,
@@ -68,6 +69,9 @@ def is_device_evaluable(expr: Expression, schema: Schema) -> bool:
                 return False
         elif isinstance(node, (Alias, IfElse)):
             pass
+        elif isinstance(node, Between):
+            if not _temporal_operands_aligned([node.child, node.lower, node.upper], schema):
+                return False
         elif isinstance(node, Cast):
             if not _dtype_on_device(node.dtype):
                 return False
@@ -154,6 +158,9 @@ def build_device_expr(expr: Expression, schema: Schema,
             lv, lm = ev(node.left, cols, device)
             rv, rm = ev(node.right, cols, device)
             return _binop(node.op, lv, lm, rv, rm, fdt)
+        if isinstance(node, Between):
+            # the host's Kleene (child >= lower) & (child <= upper)
+            return ev(node.as_comparisons(), cols, device)
         if isinstance(node, IfElse):
             pv, pm = ev(node.predicate, cols, device)
             tv, tm = ev(node.if_true, cols, device)

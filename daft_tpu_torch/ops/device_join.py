@@ -12,12 +12,15 @@ device gather through that plane, and the aggregation runs on the grouped
 stage's kernels (ops/grouped_stage.py) with ``__join_ok__`` (every adjacent
 dim matched and passed its filters) folded into the predicate.
 
-Capture (``try_capture_join_agg``, called by plan/physical.py):
+Capture (``try_capture_join_agg``, called by plan/physical.py over the
+optimized plan):
     Aggregate <- [Project]* <- [Filter]* <- inner-join tree
-flattened to relations and equality conditions; the largest relation is the
-fact, the others must connect to it as a tree of dims (leftover equality
-edges become device predicates; a filter over a join inside the tree is
-lifted into the predicate). Dim-only subexpressions the device cannot
+flattened to relations and equality conditions; each relation's filters
+(pushed down by the optimizer) are stripped, the relation with the largest
+unfiltered base is the fact, and the others must connect to it as a tree of
+dims over equality edges (leftover edges become device predicates; the
+fact's filters join the predicate, each dim's filter its own host-evaluated
+visibility). Dim-only subexpressions the device cannot
 evaluate (strings, ``is_in``) are hoisted into synthetic dim columns that
 the host evaluates once per dim; a fact string ``==`` / ``is_in`` against
 literals becomes a membership plane over the column's dictionary codes.
@@ -118,34 +121,24 @@ def _split_conjuncts(e: Expression) -> List[Expression]:
     return [e]
 
 
-def _flatten_joins(node) -> Optional[Tuple[list, list, List[Expression]]]:
-    """A tree of inner equi-joins as (relations, [(left col, right col)],
-    lifted conjuncts), or None when the tree holds a join of another type.
-    A Filter over a join inside the tree is lifted: its
-    conjuncts hold over the joined rows, and an inner join commutes with a
-    filter (the reference's optimizer pushes such a filter down before its
-    capture; the port has no optimizer). None on merged or renamed output
-    columns, non-column keys, or a column name that two relations share
-    (provenance would be ambiguous)."""
+def _flatten_joins(node) -> Optional[Tuple[list, list]]:
+    """A tree of plain inner equi-joins (no strategy, no null-matching keys)
+    as (relations, [(left col, right col)]); any other node, a Filter over a
+    join or a join of another type included, is a relation of its own, which
+    the host runs (the optimizer has pushed every one-sided filter into its
+    relation). None on merged or renamed output columns, non-column keys, or
+    a column name that two relations share (provenance would be
+    ambiguous)."""
     from ..plan import logical as lp
 
     rels: list = []
     conds: list = []
-    lifted: List[Expression] = []
 
     def walk(n) -> bool:
-        if isinstance(n, lp.Filter):
-            base, fs = _strip_filters(n)
-            if isinstance(base, lp.Join):
-                lifted.extend(fs)
-                return walk(base)
-        if not isinstance(n, lp.Join):
+        if not (isinstance(n, lp.Join) and n.how == "inner" and n.strategy is None
+                and not n.null_equals_null):
             rels.append(n)
             return True
-        if n.how != "inner":
-            # a semi, anti, left or cross join flattened as an inner one
-            # would give wrong rows with no error
-            return False
         merged, rename = n.output_naming()
         if merged or rename:
             return False
@@ -169,7 +162,7 @@ def _flatten_joins(node) -> Optional[Tuple[list, list, List[Expression]]]:
         if names & cols:
             return None
         names |= cols
-    return rels, conds, lifted
+    return rels, conds
 
 
 def _strip_filters(n) -> Tuple[object, List[Expression]]:
@@ -200,8 +193,7 @@ def try_capture_join_agg(agg_plan) -> Optional[JoinAggSpec]:
     flat = _flatten_joins(src)
     if flat is None:
         return None
-    rels, conds, lifted = flat
-    conjuncts.extend(lifted)
+    rels, conds = flat
     if len(rels) < 2:
         return None
 

@@ -37,9 +37,8 @@ the device evaluates each copy (the reference leaves the duplicates to
 XLA's CSE, which the port's eager torch program does not have), and so does
 the host path.
 
-The port's ``lp.Filter`` has no ``keep`` column set (it has no pruning
-pass), so a Filter never narrows the mapping here; the reference's branch
-for it comes with the optimizer.
+A Filter with the pruning pass's ``keep`` narrows the mapping to those
+columns, so a consumer above it cannot read a column it dropped.
 
 Only the device_mode != "off" branch of the planner and the device nodes'
 executor reach this module: a host-only query never imports it.
@@ -141,6 +140,8 @@ def _compose(plan, chain: List, k: int) -> Optional[RegionCapture]:
             if isinstance(node, lp.Filter):
                 p = _substitute(node.predicate, mapping)
                 predicate = p if predicate is None else BinaryOp("and", predicate, p)
+                if node.keep is not None:
+                    mapping = {c: mapping[c] for c in node.keep}
                 labels.append("filter")
             else:
                 mapping = {e.name(): _substitute(_strip_alias(e), mapping)

@@ -1,10 +1,14 @@
 """Logical plan nodes (counterpart of daft_tpu/plan/logical.py, the subset the
-grouped-aggregation, join and repartition slices need): an in-memory source,
-Filter, Project, Aggregate, Sort, Limit, Offset, TopN (a Sort with a Limit,
-made by plan/optimizer.py ``rule_detect_topn``), Join (inner, left, semi,
-anti and cross), Distinct and Repartition. Each node computes its
+port's slices need): an in-memory source, Filter (with the pruning pass's
+``keep``), Project, Aggregate, Sort, Limit, Offset, TopN (a Sort with a
+Limit, made by plan/optimizer.py ``rule_detect_topn``), Join (inner, left,
+semi, anti and cross), Distinct and Repartition. Each node computes its
 output schema on construction, so a type error surfaces where the DataFrame
 method is called.
+
+The optimizer's rules rewrite the tree through ``with_children`` and
+``transform_up``; ``describe`` and ``display`` print a node and a tree as
+the reference prints them.
 """
 
 from __future__ import annotations
@@ -23,37 +27,95 @@ class LogicalPlan:
     def children(self) -> List["LogicalPlan"]:
         return []
 
+    def with_children(self, children: List["LogicalPlan"]) -> "LogicalPlan":
+        """The same node over ``children``."""
+        if children:
+            raise ValueError(f"{type(self).__name__} takes no children")
+        return self
+
+    def name(self) -> str:
+        return type(self).__name__
+
+    def transform_up(self, fn) -> "LogicalPlan":
+        """Bottom-up rewrite: ``fn(node)`` returns a replacement or None to
+        keep the node."""
+        old = self.children()
+        new = [c.transform_up(fn) for c in old]
+        node = self.with_children(new) if any(a is not b for a, b in zip(new, old)) \
+            else self
+        out = fn(node)
+        return out if out is not None else node
+
+    def describe(self) -> str:
+        return self.name()
+
+    def display(self) -> str:
+        lines: List[str] = []
+
+        def rec(node: "LogicalPlan", depth: int) -> None:
+            lines.append("  " * depth + "* " + node.describe())
+            for c in node.children():
+                rec(c, depth + 1)
+
+        rec(self, 0)
+        return "\n".join(lines)
+
+    def __repr__(self) -> str:
+        return self.display()
+
+
+class _Unary(LogicalPlan):
+    def children(self):
+        return [self.input]
+
 
 class InMemorySource(LogicalPlan):
     def __init__(self, schema: Schema, partitions: List[Any]):
         super().__init__(schema)
         self.partitions = list(partitions)
 
+    def describe(self) -> str:
+        cols = ", ".join(f"{f.name}: {f.dtype}" for f in self.schema)
+        return f"InMemorySource[{len(self.partitions)} partitions, {cols}]"
 
-class Filter(LogicalPlan):
-    def __init__(self, input: LogicalPlan, predicate: Expression):
+
+class Filter(_Unary):
+    """Rows where ``predicate`` is true. ``keep`` (set by the optimizer's
+    column pruning when the consumers need fewer columns than the predicate
+    reads) narrows the output to those columns."""
+
+    def __init__(self, input: LogicalPlan, predicate: Expression,
+                 keep: Optional[List[str]] = None):
         dt = predicate.to_field(input.schema).dtype
         if not (dt.is_boolean() or dt.is_null()):
             raise ValueError(f"filter predicate must be boolean, got {dt}")
-        super().__init__(input.schema)
+        super().__init__(input.schema if keep is None
+                         else Schema([input.schema[c] for c in keep]))
         self.input = input
         self.predicate = predicate
+        self.keep = list(keep) if keep is not None else None
 
-    def children(self):
-        return [self.input]
+    def with_children(self, children):
+        return Filter(children[0], self.predicate, self.keep)
+
+    def describe(self) -> str:
+        return f"Filter[{self.predicate!r}]"
 
 
-class Project(LogicalPlan):
+class Project(_Unary):
     def __init__(self, input: LogicalPlan, projection: List[Expression]):
         super().__init__(Schema([e.to_field(input.schema) for e in projection]))
         self.input = input
         self.projection = list(projection)
 
-    def children(self):
-        return [self.input]
+    def with_children(self, children):
+        return Project(children[0], self.projection)
+
+    def describe(self) -> str:
+        return f"Project[{', '.join(e.name() for e in self.projection)}]"
 
 
-class Aggregate(LogicalPlan):
+class Aggregate(_Unary):
     def __init__(self, input: LogicalPlan, groupby: List[Expression],
                  aggregations: List[Expression]):
         fields = [e.to_field(input.schema) for e in groupby]
@@ -63,11 +125,16 @@ class Aggregate(LogicalPlan):
         self.groupby = list(groupby)
         self.aggregations = list(aggregations)
 
-    def children(self):
-        return [self.input]
+    def with_children(self, children):
+        return Aggregate(children[0], self.groupby, self.aggregations)
+
+    def describe(self) -> str:
+        g = ", ".join(e.name() for e in self.groupby)
+        a = ", ".join(e.name() for e in self.aggregations)
+        return f"Aggregate[groupby=({g}) aggs=({a})]"
 
 
-class Sort(LogicalPlan):
+class Sort(_Unary):
     def __init__(self, input: LogicalPlan, sort_by: List[Expression],
                  descending: List[bool], nulls_first: Optional[List[bool]] = None):
         super().__init__(input.schema)
@@ -77,11 +144,16 @@ class Sort(LogicalPlan):
         self.nulls_first = (list(nulls_first) if nulls_first is not None
                             else list(self.descending))
 
-    def children(self):
-        return [self.input]
+    def with_children(self, children):
+        return Sort(children[0], self.sort_by, self.descending, self.nulls_first)
+
+    def describe(self) -> str:
+        keys = ", ".join(f"{e.name()} {'desc' if d else 'asc'}"
+                         for e, d in zip(self.sort_by, self.descending))
+        return f"Sort[{keys}]"
 
 
-class Limit(LogicalPlan):
+class Limit(_Unary):
     """The first ``limit`` rows."""
 
     def __init__(self, input: LogicalPlan, limit: int):
@@ -91,11 +163,14 @@ class Limit(LogicalPlan):
         self.input = input
         self.limit = limit
 
-    def children(self):
-        return [self.input]
+    def with_children(self, children):
+        return Limit(children[0], self.limit)
+
+    def describe(self) -> str:
+        return f"Limit[{self.limit}]"
 
 
-class Offset(LogicalPlan):
+class Offset(_Unary):
     """Every row after the first ``offset``."""
 
     def __init__(self, input: LogicalPlan, offset: int):
@@ -105,11 +180,11 @@ class Offset(LogicalPlan):
         self.input = input
         self.offset = offset
 
-    def children(self):
-        return [self.input]
+    def with_children(self, children):
+        return Offset(children[0], self.offset)
 
 
-class TopN(LogicalPlan):
+class TopN(_Unary):
     """Sort, then rows [offset, offset + limit)."""
 
     def __init__(self, input: LogicalPlan, sort_by: List[Expression], descending: List[bool],
@@ -122,22 +197,31 @@ class TopN(LogicalPlan):
         self.limit = limit
         self.offset = offset
 
-    def children(self):
-        return [self.input]
+    def with_children(self, children):
+        return TopN(children[0], self.sort_by, self.descending, self.nulls_first,
+                    self.limit, self.offset)
+
+    def describe(self) -> str:
+        return f"TopN[{self.limit}]"
 
 
 class Join(LogicalPlan):
     """Equi-join or cross join (counterpart of daft_tpu/plan/logical.py
     Join, its ``inner``, ``left``, ``semi``, ``anti`` and ``cross`` types).
     Join keys of the same name merge into the left's column; other right
-    columns whose names clash with the left are renamed ``right.<name>``. A
-    semi or anti join keeps the left's columns only; a cross join has no
-    keys."""
+    columns whose names clash with the left are renamed
+    ``<prefix><name><suffix>`` when either is given, else ``right.<name>``.
+    A semi or anti join keeps the left's columns only; a cross join has no
+    keys. ``strategy`` and ``null_equals_null`` are the reference's fields
+    (the optimizer's join reorder leaves a join that sets them alone); the
+    port's host join is a hash join and never matches null keys."""
 
     JOIN_TYPES = ("inner", "left", "semi", "anti", "cross")
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
-                 left_on: List[Expression], right_on: List[Expression], how: str = "inner"):
+                 left_on: List[Expression], right_on: List[Expression], how: str = "inner",
+                 prefix: Optional[str] = None, suffix: Optional[str] = None,
+                 strategy: Optional[str] = None, null_equals_null: bool = False):
         if how not in self.JOIN_TYPES:
             raise ValueError(f"unknown or unported join type {how!r}")
         if how == "cross":
@@ -145,11 +229,18 @@ class Join(LogicalPlan):
                 raise ValueError("a cross join takes no keys")
         elif len(left_on) != len(right_on) or not left_on:
             raise ValueError("join needs the same number (>= 1) of left and right keys")
+        if null_equals_null:
+            raise NotImplementedError("a join matching null keys (the SQL set operations) "
+                                      "is not ported yet")
         self.left = left
         self.right = right
         self.left_on = list(left_on)
         self.right_on = list(right_on)
         self.how = how
+        self.prefix = prefix
+        self.suffix = suffix
+        self.strategy = strategy
+        self.null_equals_null = null_equals_null
         if how in ("semi", "anti"):
             super().__init__(left.schema)
             return
@@ -164,15 +255,29 @@ class Join(LogicalPlan):
         left_names = set(self.left.schema.column_names())
         merged = {ro.name() for lo, ro in zip(self.left_on, self.right_on)
                   if lo.name() == ro.name()}
-        rename = {f.name: f"right.{f.name}" for f in self.right.schema
-                  if f.name not in merged and f.name in left_names}
+        rename = {}
+        for f in self.right.schema:
+            if f.name in merged or f.name not in left_names:
+                continue
+            if self.prefix is not None or self.suffix is not None:
+                rename[f.name] = f"{self.prefix or ''}{f.name}{self.suffix or ''}"
+            else:
+                rename[f.name] = f"right.{f.name}"
         return merged, rename
 
     def children(self):
         return [self.left, self.right]
 
+    def with_children(self, children):
+        return Join(children[0], children[1], self.left_on, self.right_on, self.how,
+                    self.prefix, self.suffix, self.strategy, self.null_equals_null)
 
-class Distinct(LogicalPlan):
+    def describe(self) -> str:
+        keys = ", ".join(f"{l.name()}={r.name()}" for l, r in zip(self.left_on, self.right_on))
+        return f"Join[{self.how} on ({keys}) strategy={self.strategy or 'auto'}]"
+
+
+class Distinct(_Unary):
     """The first row of each distinct value of ``on`` (every column when
     None), in input order."""
 
@@ -181,11 +286,11 @@ class Distinct(LogicalPlan):
         self.input = input
         self.on = list(on) if on else None
 
-    def children(self):
-        return [self.input]
+    def with_children(self, children):
+        return Distinct(children[0], self.on)
 
 
-class Repartition(LogicalPlan):
+class Repartition(_Unary):
     """Hash or random repartition into ``num_partitions`` (counterpart of
     daft_tpu/plan/logical.py Repartition; the ``range`` and ``into`` schemes
     are not ported yet)."""
@@ -202,5 +307,8 @@ class Repartition(LogicalPlan):
         self.scheme = scheme
         self.by = list(by) if by else []
 
-    def children(self):
-        return [self.input]
+    def with_children(self, children):
+        return Repartition(children[0], self.num_partitions, self.scheme, self.by)
+
+    def describe(self) -> str:
+        return f"Repartition[{self.scheme} n={self.num_partitions}]"

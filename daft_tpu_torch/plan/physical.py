@@ -22,12 +22,16 @@ The device decisions made here are the reference's Aggregate captures
 Otherwise it stays a host ``HashAggregate`` over the translated input (with
 no group keys, the ungrouped aggregation: one row).
 
-A Limit over a Sort (or over an Offset over a Sort) becomes a TopN
-(plan/optimizer.py ``rule_detect_topn``). A TopN over [column Project]* <-
-a grouped star-join Aggregate that ``try_capture_join_topn`` accepts becomes
-a ``DeviceJoinTopN`` (the reference's capture, physical.py:530-555, whose
-capture errors raise here instead of being caught); any other TopN is a
-host ``PhysTopN``.
+``translate`` takes the optimized plan (plan/optimizer.py), whose
+``rule_detect_topn`` has made each Limit over a Sort a TopN. A TopN over
+[column Project]* <- a grouped star-join Aggregate that
+``try_capture_join_topn`` accepts becomes a ``DeviceJoinTopN`` (the
+reference's capture, physical.py:530-555, whose capture errors raise here
+instead of being caught); any other TopN is a host ``PhysTopN``. A Filter
+with the pruning pass's ``keep`` narrows its output to those columns. An
+inner join whose left side is estimated under half the right's bytes
+builds on the left (the reference's swap, physical.py:664-690) under a
+Project that restores the column order.
 """
 
 from __future__ import annotations
@@ -76,9 +80,14 @@ class Project(_Unary):
 
 
 class PhysFilter(_Unary):
-    def __init__(self, input: PhysicalPlan, predicate: Expression, schema: Schema):
+    """Rows where ``predicate`` is true; ``keep`` (the pruning pass's)
+    narrows the output to those columns."""
+
+    def __init__(self, input: PhysicalPlan, predicate: Expression, schema: Schema,
+                 keep: Optional[List[str]] = None):
         super().__init__(input, schema)
         self.predicate = predicate
+        self.keep = keep
 
 
 class PhysSort(_Unary):
@@ -251,7 +260,8 @@ class DeviceJoinTopN(PhysicalPlan):
 
 
 def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
-    """The physical plan of ``plan`` under the current execution config."""
+    """The physical plan of an optimized ``plan`` under the current
+    execution config."""
     from ..config import execution_config
 
     cfg = execution_config()
@@ -260,16 +270,11 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
     if isinstance(plan, lp.Project):
         return Project(translate(plan.input), plan.projection, plan.schema)
     if isinstance(plan, lp.Filter):
-        return PhysFilter(translate(plan.input), plan.predicate, plan.schema)
+        return PhysFilter(translate(plan.input), plan.predicate, plan.schema, plan.keep)
     if isinstance(plan, lp.Sort):
         return PhysSort(translate(plan.input), plan.sort_by, plan.descending,
                         plan.nulls_first, plan.schema)
     if isinstance(plan, lp.Limit):
-        from .optimizer import rule_detect_topn
-
-        topn = rule_detect_topn(plan)
-        if topn is not None:
-            return translate(topn)
         return PhysLimit(translate(plan.input), plan.limit, 0, plan.schema)
     if isinstance(plan, lp.Offset):
         return PhysLimit(translate(plan.input), -1, plan.offset, plan.schema)
@@ -295,6 +300,9 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
         if plan.how == "cross":
             return CrossJoin(translate(plan.left), translate(plan.right), rename,
                              plan.schema)
+        swapped = _build_on_left(plan)
+        if swapped is not None:
+            return swapped
         return HashJoin(translate(plan.left), translate(plan.right), plan.left_on,
                         plan.right_on, merged, rename, plan.schema, plan.how)
     if isinstance(plan, lp.Distinct):
@@ -336,3 +344,26 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
         return HashAggregate(translate(plan.input), plan.groupby,
                              plan.aggregations, plan.schema)
     raise NotImplementedError(f"no physical translation for {type(plan).__name__}")
+
+
+def _build_on_left(plan: lp.Join) -> Optional[PhysicalPlan]:
+    """The reference's build-side swap: the host join materializes its right
+    side, so an inner join whose left is estimated under half the right's
+    bytes joins the other way round, under a Project that restores the
+    column order; None when the estimates do not say so or the swap would
+    rename a column."""
+    from ..expressions.expressions import col
+    from .stats import estimate_bytes
+
+    if plan.how != "inner" or plan.strategy is not None or plan.output_naming()[1]:
+        return None
+    lb, rb = estimate_bytes(plan.left), estimate_bytes(plan.right)
+    if lb is None or rb is None or not lb < rb / 2:
+        return None
+    swapped = lp.Join(plan.right, plan.left, plan.right_on, plan.left_on, "inner")
+    s_merged, s_rename = swapped.output_naming()
+    if s_rename or set(swapped.schema.column_names()) != set(plan.schema.column_names()):
+        return None
+    hj = HashJoin(translate(plan.right), translate(plan.left), plan.right_on, plan.left_on,
+                  s_merged, s_rename, swapped.schema)
+    return Project(hj, [col(f.name) for f in plan.schema], plan.schema)

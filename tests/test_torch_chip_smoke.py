@@ -339,7 +339,7 @@ def test_chain_cells_fuse_and_match(monkeypatch, name):
         df = cs.q1_frame(lineitem)
         chain, plain, floats = cs.q1_chain_query, cs.q1_query, cs.Q1_FLOATS
         oracle, node, ops = cs.q1_oracle(lineitem), pp.DeviceGroupedAgg, \
-            ("project", "project", "filter", "agg")
+            ("filter", "project", "project", "agg")
     else:
         df = dt.from_pydict({**{c: lineitem[c] for c in ("l_quantity", "l_extendedprice",
                                                          "l_discount")},
@@ -348,7 +348,7 @@ def test_chain_cells_fuse_and_match(monkeypatch, name):
         oracle, node, ops = cs.q6_oracle(lineitem), pp.DeviceFilterAgg, \
             ("filter", "project", "agg")
     with dt.execution_config_ctx(device="cpu"):
-        cs.region_plan_check(name, pp.translate(chain(df)._plan), node, ops)
+        cs.region_plan_check(name, pp.translate(chain(df).optimized_plan()), node, ops)
         counters.reset()
         got = chain(df).to_pydict()
         assert counters.device_region_ops_fused == len(ops) * counters.device_region_dispatches
@@ -387,3 +387,45 @@ def test_topn_order_cells_match(monkeypatch, desc):
             with dt.execution_config_ctx(device_mode="off"):
                 host = cs.topn_order_query(f, d, desc, nulls_first, limit).to_pydict()
             assert cs.same_result(dev, host, ("s",) if name == "special" else ()), name
+
+
+def _sql_tables(cs, dt, lineitem, orders, dims):
+    """The tables of each DataFrame cell, built as chip_smoke.py's phases
+    build them."""
+    df_l, df_o = cs.q12_frames(lineitem, orders)
+    q6 = dt.from_pydict({**{c: lineitem[c] for c in ("l_quantity", "l_extendedprice",
+                                                     "l_discount")},
+                         "l_shipdate": lineitem["l_shipdate"].astype("datetime64[D]")})
+    return {"q1": {"lineitem": cs.q1_frame(lineitem)}, "q6": {"lineitem": q6},
+            "q12": {"lineitem": df_l, "orders": df_o},
+            "tails": cs.tails_frames(lineitem, orders, dims),
+            "q5": cs.q5_frames(lineitem, orders, dims)}
+
+
+@pytest.mark.parametrize("qn", [1, 6, 3, 5, 12, 14, 19])
+def test_sql_cells_count_as_their_dataframe_cells(monkeypatch, qn):
+    """The sql phase's checks on the CPU at a small size: the SQL form's
+    first run over its DataFrame cell's tables counts what the DataFrame
+    form's run counts (the kernels' plain versions), its three warm runs
+    three times as much, the results are equal, and a warm run uploads
+    nothing."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.device.residency import manager
+
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    lineitem, orders, dims = _small_tpch(cs)
+    cell, df_query, floats = cs.SQL_CELLS[qn]
+    tables = _sql_tables(cs, dt, lineitem, orders, dims)[cell]
+    manager().clear()
+    with dt.execution_config_ctx(device="cpu"):
+        want, got, df_snap, snap, warm, _first, _warm, df_uploads, uploads = cs.sql_counts(
+            cs.TPCH_SQL[qn], tables, df_query)
+    assert snap == df_snap
+    assert warm == {k: 3 * v for k, v in df_snap.items()}
+    assert snap["device_grouped_batches"] + snap["device_stage_batches"] \
+        + snap["device_join_batches"] >= 1, snap
+    assert cs.same_result(got, want, floats)
+    assert len(next(iter(got.values()))) > 0
+    assert df_uploads == uploads == 0

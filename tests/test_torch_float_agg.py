@@ -148,7 +148,7 @@ def test_q1_shape_matches_reference_device_and_host():
     assert snap["plain_segment_sum_planes"] == 1 and snap["plain_segment_extreme_planes"] == 1
     assert snap["plain_segment_extreme_int64"] == 0
     with daft_tpu_torch.execution_config_ctx(device="cpu"):
-        plan = pp.translate(q1(daft_tpu_torch, port_df)._plan)
+        plan = pp.translate(q1(daft_tpu_torch, port_df).optimized_plan())
     assert any(isinstance(n, pp.DeviceGroupedAgg) for n in plan.walk())
     _same(got, _ref(q1, ref_df, device=False), Q1_FLOATS)
 
@@ -431,7 +431,7 @@ def q6(m, df):
 def test_q6_runs_on_the_device_and_matches_reference():
     ref_df, port_df = _frames(_q6_table(10_000, seed=0))
     with daft_tpu_torch.execution_config_ctx(device="cpu"):
-        plan = pp.translate(q6(daft_tpu_torch, port_df)._plan)
+        plan = pp.translate(q6(daft_tpu_torch, port_df).optimized_plan())
     assert any(isinstance(n, pp.DeviceFilterAgg) for n in plan.walk())
     counters.reset()
     got = _port(q6, port_df, device=True)
@@ -441,7 +441,7 @@ def test_q6_runs_on_the_device_and_matches_reference():
                  _port(q6, port_df, device=False)):
         _same(got, want, ("revenue",))
     with daft_tpu_torch.execution_config_ctx(device="cpu", device_mode="off"):
-        plan = pp.translate(q6(daft_tpu_torch, port_df)._plan)
+        plan = pp.translate(q6(daft_tpu_torch, port_df).optimized_plan())
     assert not any(isinstance(n, pp.DeviceFilterAgg) for n in plan.walk())
 
 
@@ -511,7 +511,7 @@ def test_abandoned_ungrouped_run_does_not_corrupt_the_next():
         return d.agg(daft_tpu_torch.col("v").sum().alias("s"))
 
     with daft_tpu_torch.execution_config_ctx(device="cpu"):
-        plan = pp.translate(query(df)._plan)
+        plan = pp.translate(query(df).optimized_plan())
         node = next(n for n in plan.walk() if isinstance(n, pp.DeviceFilterAgg))
         stage = port_stage.try_build_filter_agg_stage(node.input.schema, node.predicate,
                                                       node.aggregations)

@@ -1,7 +1,8 @@
 """The port stands alone and never hides a device failure:
 
 - a port query, the grouped one, the TPC-H q12 and q14 star joins, a fused
-  region over a semi join and the mesh repartition alike, imports neither
+  region over a semi join, the mesh repartition and TPC-H q12 in SQL
+  (``daft_tpu_torch.sql``) alike, imports neither
   JAX, nor pyarrow, nor anything of
   daft_tpu (checked in a fresh interpreter: tests/conftest.py imports JAX
   into this one);
@@ -168,7 +169,38 @@ with dt.execution_config_ctx(device="cpu", device_mode="on"):
              .sort("k").to_pydict())
 assert fused["k"] == [1, 3, 5], fused
 assert counters.device_region_dispatches == 1, counters.snapshot()
-assert counters.device_region_ops_fused == 3, counters.snapshot()
+# the optimizer pushes v < 40 below the semi join: the region is project + agg
+assert counters.device_region_ops_fused == 2, counters.snapshot()
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             or m == "daft_tpu")
+print("FORBIDDEN", bad)
+"""
+
+
+_SQL_QUERY = """
+import sys
+import numpy as np
+sys.path.insert(0, {repo!r})
+import chip_smoke
+import daft_tpu_torch as dt
+from daft_tpu_torch.ops import counters
+rng = np.random.default_rng(0)
+modes = np.array(["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"], dtype=object)
+prios = np.array(["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"], dtype=object)
+orders = dt.from_pydict({{"o_orderkey": np.arange(1, 301),
+                          "o_orderpriority": prios[rng.integers(0, 5, 300)]}})
+ship = rng.integers(8766, 9131, 2000)
+lineitem = dt.from_pydict({{
+    "l_orderkey": rng.integers(1, 301, 2000),
+    "l_shipmode": modes[rng.integers(0, 7, 2000)],
+    "l_shipdate": ship.astype("datetime64[D]"),
+    "l_commitdate": (ship + rng.integers(-20, 40, 2000)).astype("datetime64[D]"),
+    "l_receiptdate": (ship + rng.integers(1, 31, 2000)).astype("datetime64[D]")}})
+with dt.execution_config_ctx(device="cpu", device_mode="on"):
+    out = dt.sql(chip_smoke.TPCH_SQL[12], orders=orders, lineitem=lineitem).to_pydict()
+assert out["l_shipmode"] == ["MAIL", "SHIP"], out
+assert counters.device_join_batches == 1, counters.snapshot()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
              or m == "daft_tpu")
@@ -297,3 +329,12 @@ def test_from_numpy_columns_reproduces_reference_columns():
         np.testing.assert_array_equal(p.validity_numpy(), s.validity_numpy())
         valid = s.validity_numpy()
         np.testing.assert_array_equal(p.to_numpy()[valid], s.to_numpy()[valid])
+
+
+def test_port_sql_query_imports_no_jax_pyarrow_or_reference():
+    """TPC-H q12 in SQL (parsed, planned, optimized and run on the device
+    join's plain kernels) in a fresh interpreter."""
+    proc = subprocess.run([sys.executable, "-c", _SQL_QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout

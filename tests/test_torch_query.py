@@ -183,9 +183,9 @@ def test_float_sum_plans_to_host_and_matches_reference_host():
     counters.reset()
     with daft_tpu_torch.execution_config_ctx(device="cpu", device_mode="on"):
         assert any(isinstance(n, pp.DeviceGroupedAgg)
-                   for n in pp.translate(query(daft_tpu_torch, port_df)._plan).walk())
+                   for n in pp.translate(query(daft_tpu_torch, port_df).optimized_plan()).walk())
         with daft_tpu_torch.execution_config_ctx(kernel_mode="off"):
-            plan = pp.translate(query(daft_tpu_torch, port_df)._plan)
+            plan = pp.translate(query(daft_tpu_torch, port_df).optimized_plan())
             assert not any(isinstance(n, pp.DeviceGroupedAgg) for n in plan.walk())
             assert counters.rejections
             got = query(daft_tpu_torch, port_df).to_pydict()

@@ -70,7 +70,7 @@ def _ref(query, data):
 
 def _plan(query, df, **cfg):
     with daft_tpu_torch.execution_config_ctx(device="cpu", **cfg):
-        return pp.translate(query(daft_tpu_torch, df)._plan)
+        return pp.translate(query(daft_tpu_torch, df).optimized_plan())
 
 
 @pytest.mark.parametrize("null_keys", [False, True])
@@ -177,9 +177,9 @@ def test_region_host_path_narrows_to_referenced_columns(monkeypatch):
     seen = []
     real_filter = ex._filter_part
 
-    def spying(part, predicate):
+    def spying(part, predicate, keep=None):
         seen.append(part.schema.column_names())
-        return real_filter(part, predicate)
+        return real_filter(part, predicate, keep)
 
     monkeypatch.setattr(ex, "_filter_part", spying)
     with daft_tpu_torch.execution_config_ctx(device="cpu", device_mode="off"):
@@ -219,28 +219,32 @@ def test_ungrouped_region_host_path_narrows():
     data = _wide_data()
     plan = _plan(q, daft_tpu_torch.from_pydict(data))
     node = next(nd for nd in plan.walk() if isinstance(nd, pp.DeviceFilterAgg))
-    assert node.region_ops == ("project", "filter", "agg")
+    # the optimizer's pruning Project over the source (pad dropped) fuses too
+    assert node.region_ops == ("project", "project", "filter", "agg")
     assert ex._region_keep_columns(node) == ["v"]
     counters.reset()
     fused = _port(q, data)
-    assert counters.device_region_ops_fused == 3 * counters.device_region_dispatches == 3
+    assert counters.device_region_ops_fused == 4 * counters.device_region_dispatches == 4
     assert fused == _port(q, data, device_mode="off") == _ref(q, data)
 
 
 def test_region_caps_at_eight_ops():
-    """A chain of ten Filters absorbs the eight nearest the aggregate; the
-    other two run as host filters under the device node."""
+    """A chain of ten operators (five Projects, each under a Filter on what
+    it computed, so the optimizer neither merges nor moves them) absorbs the
+    eight nearest the aggregate; the other two run as host operators under
+    the device node."""
     def q(dt, d):
         col = dt.col
-        for i in range(10):
-            d = d.where(col("v") > -1000 + i)
+        for i in range(5):
+            d = d.with_column("v", col("v") + 1).where(col("v") > -1000 + i)
         return d.groupby("k").agg(col("v").sum().alias("s")).sort("k")
 
     data = _data()
     plan = _plan(q, daft_tpu_torch.from_pydict(data))
     node = next(nd for nd in plan.walk() if isinstance(nd, pp.DeviceGroupedAgg))
     assert len(node.region_ops) == region.REGION_MAX_OPS + 1
-    assert sum(isinstance(n, pp.PhysFilter) for n in plan.walk()) == 2
+    assert [type(n) for n in plan.walk()][-3:] == [pp.PhysFilter, pp.Project,
+                                                   pp.InMemoryScan]
     assert _port(q, data) == _port(q, data, device_mode="off") == _ref(q, data)
 
 
@@ -302,12 +306,14 @@ def test_join_capture_composes_the_chain_over_the_join():
     def run(dt, **cfg):
         t = {"fact": dt.from_pydict(fact), "dim": dt.from_pydict(dim)}
         with daft_tpu_torch.execution_config_ctx(device="cpu", **cfg):
-            plan = pp.translate(_join_chain_query(dt, t)._plan)
+            plan = pp.translate(_join_chain_query(dt, t).optimized_plan())
             return plan, _join_chain_query(dt, t).to_pydict()
 
     plan, got = run(daft_tpu_torch)
     node = next(n for n in plan.walk() if isinstance(n, pp.DeviceJoinAgg))
-    assert "g" in repr(node.spec.predicate)
+    # the optimizer pushed the dim-only filter into the dim's relation
+    (dim_spec,) = node.spec.dims
+    assert [f.referenced_columns() for f in dim_spec.filters] == [["g"]]
     assert not any(isinstance(n, (pp.Project, pp.PhysFilter, pp.HashJoin))
                    for n in plan.walk())
     _plan_off, host = run(daft_tpu_torch, device_mode="off")
@@ -394,8 +400,11 @@ def test_tpch_chain_plans_one_device_node_over_the_scan(lineitem, name, node_typ
     assert len(nodes) == 1 and isinstance(nodes[0], node_type)
     assert isinstance(nodes[0].input, pp.InMemoryScan)
     assert not any(isinstance(n, (pp.Project, pp.PhysFilter)) for n in plan.walk())
-    assert nodes[0].region_ops == {"q1": ("project", "project", "filter", "agg"),
-                                   "q6": ("filter", "project", "agg")}[name]
+    # the optimizer moved each Filter under the Projects and put its pruning
+    # Project over the scan; the region fuses them all, as the reference's
+    assert nodes[0].region_ops == {
+        "q1": ("project", "filter", "project", "project", "agg"),
+        "q6": ("project", "filter", "project", "agg")}[name]
     # under region_mode="off" the Project stays a host operator
     off = _plan(lambda dt, d: query(dt, d), lineitem[1], region_mode="off")
     assert any(isinstance(n, pp.Project) for n in off.walk())
@@ -415,7 +424,7 @@ def test_q1_chain_is_q1(lineitem):
     with ref_ctx(device_mode="off"):
         plain = queries.q1({"lineitem": ref}).to_pydict()
     assert chain == q1
-    assert snap["device_region_ops_fused"] == 4 * snap["device_region_dispatches"] == 4
+    assert snap["device_region_ops_fused"] == 5 * snap["device_region_dispatches"] == 5
     _close(chain, plain, Q1_AGGS[:7])
     with ref_ctx(device_mode="on", pallas_mode="on", mesh_devices=1):
         _close(chain, q1_chain(daft_tpu, ref).to_pydict(), Q1_AGGS[:7])
@@ -451,8 +460,9 @@ def test_q6_chain_matches_host_and_reference(lineitem):
 
 def test_warm_chain_run_uploads_nothing_new(lineitem, monkeypatch):
     """The fused stage reads the scan's own Series, so a warm run finds
-    every plane resident; unfused, the host Project makes new Series on
-    every run, and each run uploads them again."""
+    every plane resident; unfused, the host Filter (which the optimizer put
+    under the Projects) and the Projects make new Series on every run, and
+    each run uploads the five the stage reads again."""
     from daft_tpu_torch.core.series import Series
     from daft_tpu_torch.device.residency import manager
 
@@ -465,14 +475,15 @@ def test_warm_chain_run_uploads_nothing_new(lineitem, monkeypatch):
         return real(self, *args, **kwargs)
 
     monkeypatch.setattr(Series, "to_device", counting)
-    for mode, warm_uploads in (("on", 0), ("off", 2)):
+    for mode, warm_uploads in (("on", 0), ("off", 5)):
         manager().clear()
         with daft_tpu_torch.execution_config_ctx(device="cpu", region_mode=mode):
             q1_chain(daft_tpu_torch, port).to_pydict()
             uploads.clear()
             q1_chain(daft_tpu_torch, port).to_pydict()
-        assert sorted(uploads) == (["charge", "disc_price"] if warm_uploads else []), \
-            (mode, uploads)
+        assert sorted(uploads) == (sorted(["charge", "disc_price", "l_discount",
+                                           "l_extendedprice", "l_quantity"])
+                                   if warm_uploads else []), (mode, uploads)
 
 
 _OFF_QUERY = """

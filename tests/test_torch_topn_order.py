@@ -67,7 +67,7 @@ def _run_all(tables, desc, nulls_first, limit):
     with daft_tpu_torch.execution_config_ctx(device="cpu"):
         df = _query(daft_tpu_torch, port, desc, nulls_first, limit)
         assert any(isinstance(n, pp.DeviceJoinTopN)
-                   for n in pp.translate(df._plan).walk())
+                   for n in pp.translate(df.optimized_plan()).walk())
         got = df.to_pydict()
     snap = counters.snapshot()
     assert snap["device_topn_runs"] == 1 and snap["device_fallbacks"] == 0, \

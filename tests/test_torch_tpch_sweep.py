@@ -8,8 +8,16 @@ SF 0.01 tables (``generate(0.01, 0)``) carried across column for column.
 Each query runs through the port with device_mode on (device="cpu": the
 kernels' plain versions) and off, and both equal the reference's host
 result: rows in order, floats within rtol 1e-5 (the reference's
-device-vs-host tolerance), everything else exactly. The star joins of q3,
-q5, q10, q12, q14 and q19 ride the device join.
+device-vs-host tolerance), everything else exactly. Both packages
+optimize every query before translating it.
+
+Which queries ride the device join is computed here for both packages: the
+reference's set from its own counters with device_mode="on" (as
+tests/test_device_join.py ``test_tpch_device_join_sweep`` reads them), the
+port's from its counters. The port's set holds the reference's and the
+queries it rode before the optimizer came (q3, q5, q8, q10, q12, q14,
+q19); a query only the port rides is one of ``PORT_ONLY``, the deliberate
+difference ROADMAP.md lists.
 """
 
 import types
@@ -26,7 +34,11 @@ from daft_tpu_torch.ops import counters
 from daft_tpu_torch.plan import physical as pp
 
 RTOL = 1e-5
-DEVICE_JOIN_QUERIES = {3, 5, 10, 12, 14, 19}
+# the queries the port rode on the device join before the optimizer
+RODE_BEFORE = {3, 5, 8, 10, 12, 14, 19}
+# q2 takes a float min (ps_supplycost) through its star join: the port's join
+# stage runs it in f64, the reference's capture refuses a float min/max
+PORT_ONLY = {2}
 
 
 def _carry(ref_df):
@@ -72,8 +84,25 @@ def _same(got, want):
             assert g == w, c
 
 
+@pytest.fixture(scope="module")
+def ref_device_join_set(tpch):
+    """The queries whose reference run (device_mode="on") counts a device
+    join batch."""
+    from daft_tpu.ops import counters as ref_counters
+
+    ref, _port, ref_queries, _pq = tpch
+    rode = set()
+    for qn in range(1, 23):
+        ref_counters.reset()
+        with ref_ctx(device_mode="on"):
+            ref_queries[qn](ref).to_pydict()
+        if ref_counters.device_join_batches:
+            rode.add(qn)
+    return rode
+
+
 @pytest.mark.parametrize("qn", range(1, 23))
-def test_tpch_query_matches_reference_host(tpch, qn):
+def test_tpch_query_matches_reference_host(tpch, ref_device_join_set, qn):
     ref, port, ref_queries, port_queries = tpch
     with ref_ctx(device_mode="off"):
         want = ref_queries[qn](ref).to_pydict()
@@ -87,10 +116,66 @@ def test_tpch_query_matches_reference_host(tpch, qn):
     _same(dev, want)
     snap = counters.snapshot()
     assert all(snap[f"launches_{k}"] == 0 for k in counters.KERNEL_NAMES)
-    if qn in DEVICE_JOIN_QUERIES:
-        assert snap["device_join_batches"] >= 1 and snap["device_fallbacks"] == 0, \
-            (qn, snap, counters.rejections)
-        assert snap["device_region_dispatches"] == snap["device_join_batches"]
+    rides = snap["device_join_batches"] >= 1
+    if qn in ref_device_join_set | RODE_BEFORE:
+        assert rides and snap["device_fallbacks"] == 0, (qn, snap, counters.rejections)
+        # every join batch is a fused region; q11, q17 and q18 also run a
+        # grouped stage of their own
+        assert snap["device_region_dispatches"] >= snap["device_join_batches"]
+        if qn in RODE_BEFORE:
+            assert snap["device_region_dispatches"] == snap["device_join_batches"]
+    assert rides == (qn in ref_device_join_set | RODE_BEFORE | PORT_ONLY), \
+        (qn, snap, counters.rejections)
+
+
+def test_device_join_sets(ref_device_join_set):
+    """The reference's set as its run counts it: with the optimizer, every
+    query the port rode before is in it, and no query of PORT_ONLY is."""
+    assert ref_device_join_set == {3, 5, 8, 10, 11, 12, 14, 17, 18, 19}
+    assert RODE_BEFORE <= ref_device_join_set
+    assert not PORT_ONLY & ref_device_join_set
+
+
+def _aggregates(node, cls):
+    out = [node] if isinstance(node, cls) else []
+    for c in node.children():
+        out += _aggregates(c, cls)
+    return out
+
+
+def _capture_form(spec):
+    """A join capture's fact columns and its dims: name, key, parent and the
+    column sets of their filters; None when refused."""
+    if spec is None:
+        return None
+    return (tuple(spec.fact.schema.column_names()),
+            tuple((d.name, d.key_col, d.parent,
+                   tuple(sorted(tuple(sorted(f.referenced_columns())) for f in d.filters)))
+                  for d in spec.dims))
+
+
+@pytest.mark.parametrize("qn", range(1, 23))
+def test_join_capture_matches_reference(tpch, qn):
+    """Over each aggregate of the optimized plan, the port's join capture
+    picks the reference's fact and grows its dim tree, dim for dim, with the
+    same filters stripped onto each relation (q2: the reference refuses its
+    float min, PORT_ONLY)."""
+    from daft_tpu.ops.device_join import try_capture_join_agg as ref_capture
+    from daft_tpu.plan import logical as rlp
+    from daft_tpu_torch.ops.device_join import try_capture_join_agg
+    from daft_tpu_torch.plan import logical as plp
+
+    ref, port, ref_queries, port_queries = tpch
+    with ref_ctx(device_mode="on"):
+        want = [_capture_form(ref_capture(a)) for a in _aggregates(
+            ref_queries[qn](ref)._builder.optimize().plan, rlp.Aggregate)]
+    with daft_tpu_torch.execution_config_ctx(device="cpu"):
+        got = [_capture_form(try_capture_join_agg(a)) for a in _aggregates(
+            port_queries[qn](port).optimized_plan(), plp.Aggregate)]
+    if qn in PORT_ONLY:
+        assert want == [None] and got[0] is not None
+    else:
+        assert got == want
 
 
 def test_q5_plans_one_device_join(tpch):
@@ -99,7 +184,7 @@ def test_q5_plans_one_device_join(tpch):
     its own rows), and the second supplier key a predicate over two dims."""
     _ref, port, _rq, port_queries = tpch
     with daft_tpu_torch.execution_config_ctx(device="cpu"):
-        plan = pp.translate(port_queries[5](port)._plan)
+        plan = pp.translate(port_queries[5](port).optimized_plan())
     nodes = [n for n in plan.walk() if isinstance(n, pp.DeviceJoinAgg)]
     assert len(nodes) == 1 and not any(isinstance(n, pp.HashJoin) for n in plan.walk())
     spec = nodes[0].spec
@@ -116,7 +201,8 @@ def test_q5_plans_one_device_join(tpch):
         ("n_nationkey", "n_regionkey")
     assert [repr(f) for f in dims["r_regionkey"].filters] == ["(col(r_name) == lit('ASIA'))"]
     assert "(col(n_nationkey) == col(s_nationkey))" in repr(spec.predicate)
-    assert "o_orderdate" in repr(spec.predicate)
+    # the optimizer pushed the orders filter into orders' relation
+    assert "o_orderdate" in repr(dims["o_orderkey"].filters)
 
 
 # ---- the host operators the sweep needs, one by one ------------------------------
