@@ -11,6 +11,10 @@ aggregation's segment reductions in hand-written CUDA kernels
     df = dt.from_pydict({"k": [1, 2, 1], "v": [10, 20, 30]})
     df.groupby("k").agg(dt.col("v").sum()).sort("k").to_pydict()
     dt.sql("SELECT k, SUM(v) AS s FROM t GROUP BY k ORDER BY k", t=df).to_pydict()
+
+Files (io/, no pyarrow): ``df.write_parquet(dir)``, ``dt.read_parquet(dir)``,
+``df.write_csv(dir)``, ``dt.read_csv(dir)``; SQL resolves unbound table
+names through ``dt.current_session()``.
 """
 
 from .config import ExecutionConfig, execution_config, execution_config_ctx, \
@@ -18,12 +22,13 @@ from .config import ExecutionConfig, execution_config, execution_config_ctx, \
 from .core.micropartition import MicroPartition
 from .core.recordbatch import RecordBatch
 from .core.series import Series
-from .dataframe.dataframe import DataFrame, GroupedDataFrame
+from .dataframe.dataframe import DataFrame, GroupedDataFrame, read_csv, read_parquet
 from .datatype import DataType, Field
 from .expressions.expressions import Expression, col, lit
 from .interop import from_numpy_columns
 from .plan import logical as _lp
 from .schema import Schema
+from .session import Session, current_session
 from . import sql  # noqa: E402  (the callable SQL module: dt.sql("SELECT ...", t=df))
 from .sql import sql_expr
 from .utils import torch_setup as _torch_setup  # noqa: F401  (fixes TF32 off)
@@ -33,12 +38,14 @@ def from_pydict(data) -> DataFrame:
     """A DataFrame over one in-memory partition; values are Python lists,
     numpy arrays or Series."""
     part = MicroPartition.from_pydict(data)
+    part.hold()
     return DataFrame(_lp.InMemorySource(part.schema, [part]))
 
 
 __all__ = [
     "DataFrame", "DataType", "ExecutionConfig", "Expression", "Field",
-    "GroupedDataFrame", "MicroPartition", "RecordBatch", "Schema", "Series",
-    "col", "execution_config", "execution_config_ctx", "from_numpy_columns",
-    "from_pydict", "lit", "set_execution_config", "sql", "sql_expr",
+    "GroupedDataFrame", "MicroPartition", "RecordBatch", "Schema", "Series", "Session",
+    "col", "current_session", "execution_config", "execution_config_ctx",
+    "from_numpy_columns", "from_pydict", "lit", "read_csv", "read_parquet",
+    "set_execution_config", "sql", "sql_expr",
 ]

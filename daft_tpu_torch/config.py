@@ -34,6 +34,10 @@ default and ``execution_config_ctx`` scopes an override.
   N partitions). The port has no cost model, so no "auto" width.
 - ``device_min_rows``: inputs under this many rows stay on the host (the
   mesh repartition's gate reads it).
+- ``scan_split_bytes``: a Parquet file past this many bytes splits into
+  scan tasks of whole row groups of about this many on-disk bytes each,
+  and adjacent smaller tasks merge toward it; 0 turns both off (the
+  reference's default, 128 MiB).
 - ``hbm_budget_bytes``: device residency budget (device/residency.py);
   positive = bytes, 0 = auto (3/4 of the card's memory), negative =
   unbounded.
@@ -56,6 +60,7 @@ class ExecutionConfig:
     batch_fill_target: float = 0.5
     batch_latency_ms: float = 50.0
     hbm_budget_bytes: int = 0
+    scan_split_bytes: int = 128 * 1024 * 1024
     mesh_devices: int = 0
     device_min_rows: int = 65_536
 
@@ -75,6 +80,8 @@ class ExecutionConfig:
         if self.batch_latency_ms <= 0:
             raise ValueError(f"batch_latency_ms must be positive, got "
                              f"{self.batch_latency_ms!r}")
+        if self.scan_split_bytes < 0:
+            raise ValueError(f"scan_split_bytes must be >= 0, got {self.scan_split_bytes!r}")
         if self.mesh_devices < 0:
             raise ValueError(f"mesh_devices must be >= 0, got {self.mesh_devices!r}")
 

@@ -55,6 +55,12 @@ class MicroPartition:
         self._batches = [combined]
         return combined
 
+    def hold(self) -> None:
+        """Mark every column as held by the caller (``Series.held``)."""
+        for b in self._batches:
+            for s in b.columns():
+                s.held = True
+
     def select_columns(self, names: List[str]) -> "MicroPartition":
         """The columns ``names`` of every batch (the same Series)."""
         batches = [b.select_columns(names) for b in self.batches]

@@ -4,7 +4,9 @@ daft_tpu/dataframe/dataframe.py, the subset the port's slices need):
 cross), ``distinct``, ``repartition``,
 ``groupby(...).agg(...)``, the ungrouped ``agg`` (and ``sum``, ``mean``,
 ``min``, ``max``, ``count``), ``sort``, ``limit``, ``offset``, ``exclude``,
-``collect`` and ``to_pydict``.
+``collect``, ``to_pydict``, ``write_parquet`` and ``write_csv``; the
+readers (``read_parquet``, ``read_csv``) make a DataFrame over a scan
+(``from_scan``).
 
 Every method appends a logical node; ``collect`` optimizes the plan
 (plan/optimizer.py, as the reference's ``collect`` does), translates it
@@ -152,6 +154,30 @@ class DataFrame:
             return self.agg(lit(1).count("all").alias("count"))
         return self.agg(*[_to_expr(c).count() for c in cols])
 
+    def write_parquet(self, root_dir: str, compression: str = "snappy",
+                      partition_cols: Optional[List[ColumnInput]] = None,
+                      write_mode: str = "append") -> "DataFrame":
+        """Write the rows as Parquet files under ``root_dir`` (hive-style
+        directories by ``partition_cols``; ``write_mode`` "append" or
+        "overwrite"); returns the collected frame of written paths."""
+        from ..io.writers import WriteInfo
+
+        return self._write(WriteInfo("parquet", root_dir, {"compression": compression},
+                                     _to_exprs(partition_cols) if partition_cols else None,
+                                     write_mode))
+
+    def write_csv(self, root_dir: str, partition_cols: Optional[List[ColumnInput]] = None,
+                  write_mode: str = "append") -> "DataFrame":
+        """Write the rows as CSV files under ``root_dir``, as write_parquet."""
+        from ..io.writers import WriteInfo
+
+        return self._write(WriteInfo("csv", root_dir, {},
+                                     _to_exprs(partition_cols) if partition_cols else None,
+                                     write_mode))
+
+    def _write(self, info) -> "DataFrame":
+        return DataFrame(lp.Sink(self._plan, info)).collect()
+
     def _materialize(self) -> List[MicroPartition]:
         if self._result is None:
             from ..config import execution_config
@@ -172,6 +198,8 @@ class DataFrame:
 
     def collect(self) -> "DataFrame":
         parts = self._materialize()
+        for p in parts:
+            p.hold()
         out = DataFrame(lp.InMemorySource(self.schema, parts))
         out._result = parts
         return out
@@ -181,6 +209,27 @@ class DataFrame:
         if not parts:
             return {name: [] for name in self.column_names}
         return MicroPartition.concat(parts).to_pydict()
+
+
+def from_scan(scan_op) -> DataFrame:
+    """A DataFrame over a ScanOperator (io/scan.py)."""
+    return DataFrame(lp.ScanSource(scan_op))
+
+
+def read_parquet(path, **options) -> DataFrame:
+    """A DataFrame over Parquet files: a path, a directory, a glob or a
+    list of them (``schema=``, ``row_groups_per_task=``)."""
+    from ..io.parquet import ParquetScanOperator
+
+    return from_scan(ParquetScanOperator(path, **options))
+
+
+def read_csv(path, **options) -> DataFrame:
+    """A DataFrame over CSV files (``has_headers=``, ``delimiter=``,
+    ``schema=``)."""
+    from ..io.csv import CsvScanOperator
+
+    return from_scan(CsvScanOperator(path, **options))
 
 
 class GroupedDataFrame:

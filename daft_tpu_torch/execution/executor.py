@@ -19,8 +19,10 @@ stage, grouped or ungrouped, the same way (``_exec_device_join_agg``), a
 anti), a ``CrossJoin`` and a ``Dedup`` (distinct) run on the host. A
 ``PhysRepartition`` splits on the host by the rows' hash (or at random), or,
 for a hash repartition into ``mesh_devices`` partitions, runs the mesh
-exchange on the device (``_mesh_repartition``). Any other error, a kernel
-that fails to build or launch included, propagates: no device failure turns
+exchange on the device (``_mesh_repartition``). A ``StreamingScan`` reads
+its scan tasks in turn (``_streaming_scan``) and a ``PhysWrite`` hands its
+input stream to the writer (io/writers.py). Any other error, a kernel that
+fails to build or launch included, propagates: no device failure turns
 into a host result.
 """
 
@@ -48,6 +50,14 @@ def execute_plan(plan: pp.PhysicalPlan) -> Iterator[MicroPartition]:
 def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
     if isinstance(node, pp.InMemoryScan):
         yield from node.partitions
+        return
+
+    if isinstance(node, pp.StreamingScan):
+        yield from _streaming_scan(node)
+        return
+
+    if isinstance(node, pp.PhysWrite):
+        yield from node.info.execute_write(_exec(node.input), node.input.schema)
         return
 
     if isinstance(node, pp.Project):
@@ -129,6 +139,61 @@ def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
         return
 
     raise NotImplementedError(f"no executor for {node.name()}")
+
+
+def _streaming_scan(node: pp.StreamingScan) -> Iterator[MicroPartition]:
+    """A StreamingScan's tasks one after another, one morsel at a time (the
+    reference's fully streaming branch, executor.py:438-549): each task's
+    morsels filtered by ``post_filter`` when the task did not apply it, the
+    stream cut at ``post_limit`` rows. Counts ``scan_tasks`` (tasks
+    started), ``scan_batches`` and ``scan_rows`` (what was yielded, an
+    early close included). Not ported here: the reference's IO-parallel
+    window of tasks on its compute pool, and the host memory budget's
+    backpressure (``wait_for_headroom``), which come with the streaming
+    executor and the memory budget (ROADMAP Queue 1 item 4)."""
+    from ..ops import counters
+
+    remaining = node.post_limit
+    batches = rows = 0
+    try:
+        for task in node.tasks:
+            counters.bump("scan_tasks")
+            for part in task.read():
+                if node.post_filter is not None and not task.filters_applied:
+                    part = _timed_filter(part, node.post_filter)
+                if remaining is not None:
+                    if remaining <= 0:
+                        return
+                    if part.num_rows > remaining:
+                        part = MicroPartition(part.schema,
+                                              [part.concat_or_empty().head(remaining)])
+                    remaining -= part.num_rows
+                batches += 1
+                rows += part.num_rows
+                yield part
+    finally:
+        counters.bump("scan_batches", batches)
+        counters.bump("scan_rows", rows)
+
+
+def _timed_filter(part: MicroPartition, predicate: Expression) -> MicroPartition:
+    """``_filter_part`` of a scan's pushed predicate, its host time counted
+    in ``scan_filter_ms``."""
+    import time
+
+    from ..ops import counters
+
+    t0 = time.perf_counter()
+    out = _filter_part(part, predicate, None)
+    counters.bump("scan_filter_ms", (time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def filter_batch(batch: RecordBatch, predicate: Expression) -> RecordBatch:
+    """The rows of ``batch`` where ``predicate`` is true (null drops), as a
+    reader applies a pushed predicate (timed in ``scan_filter_ms``)."""
+    part = _timed_filter(MicroPartition(batch.schema, [batch]), predicate)
+    return part.batches[0] if part.batches else RecordBatch.empty(batch.schema)
 
 
 def _limit(node: pp.PhysLimit) -> Iterator[MicroPartition]:
@@ -388,11 +453,20 @@ def _exec_device_join_topn(node: pp.DeviceJoinTopN) -> MicroPartition:
         return DeviceJoinTopNRun(stage, ctx, node.topn)
 
     def feed(run, stream, _cfg):
-        batches = [b for part in stream for b in part.batches if b.num_rows > 0]
-        if len(batches) > 1:
-            raise DeviceFallback("device TopN path requires a single fact batch")
-        for b in batches:
-            run.feed_batch(b)
+        # bail on sighting a second batch, before any device work and
+        # without draining the stream (a scan stops reading), as the
+        # reference does
+        first = None
+        for part in stream:
+            for b in part.batches:
+                if b.num_rows == 0:
+                    continue
+                if first is not None:
+                    stream.close()
+                    raise DeviceFallback("device TopN path requires a single fact batch")
+                first = b
+        if first is not None:
+            run.feed_batch(first)
 
     def assemble(run, _stage, _grouped):
         key_rows, results = run.finalize_topn()

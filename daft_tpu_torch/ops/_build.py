@@ -8,6 +8,11 @@ half-written file (the build writes a temporary name, then renames).
 ``build_all`` starts one ``nvcc`` per source, all at once. Nothing here runs
 at import time: the CPU tests import every module of the package on
 machines without ``nvcc``.
+
+``host_library`` does the same for host C++ (the snappy codec,
+io/csrc/snappy.cpp): the host compiler (``$CXX``, else ``c++``) with
+``HOST_FLAGS``, into the same build directory, at first use; a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_kbuild")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -101,3 +108,37 @@ def build_all() -> None:
         _compile([s for s in sources if s not in _LIBS])
     for source in sources:
         library(source)
+
+
+def _host_target(path: str) -> str:
+    with open(path, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(HOST_FLAGS).encode()).hexdigest()[:12]
+    stem = os.path.splitext(os.path.basename(path))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_host_{digest}.so")
+
+
+def host_library(path: str) -> ctypes.CDLL:
+    """The loaded shared library of the host C++ source at ``path``, built
+    with the host compiler if needed. Raises when the build fails."""
+    with _LOCK:
+        lib = _LIBS.get(path)
+        if lib is not None:
+            return lib
+        out = _host_target(path)
+        if not os.path.exists(out):
+            cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+            if not cxx:
+                raise RuntimeError(f"no host C++ compiler found to build {path}")
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            t0 = time.perf_counter()
+            proc = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp, path],
+                                  capture_output=True, text=True)
+            BUILD_INFO[os.path.basename(path)] = {"seconds": time.perf_counter() - t0,
+                                                  "ptxas": "", "path": out}
+            if proc.returncode != 0:
+                raise RuntimeError(f"{cxx} failed for {path} (rc {proc.returncode}):\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+            os.replace(tmp, out)
+        lib = _LIBS[path] = ctypes.CDLL(out)
+        return lib

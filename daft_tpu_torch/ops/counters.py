@@ -29,6 +29,21 @@ show which path a query took:
 - ``mesh_exchange_bytes``: bytes the exchanges moved (the packed word
   buffer, or the bins and counts of the all_to_all tier; the reference's
   ``mesh_alltoall_ici_bytes``);
+- ``scan_tasks``: scan tasks a streaming scan ran (after the split and the
+  merge); ``scan_tasks_split`` / ``scan_tasks_merged``: tasks made by
+  splitting a file at row groups, and small tasks absorbed by merging;
+  ``scan_batches`` / ``scan_rows``: morsels and rows the scans yielded;
+  ``scan_row_groups`` / ``scan_row_groups_pruned`` / ``scan_files_pruned``:
+  Parquet row groups read, and row groups and whole files that zone maps
+  excluded (io/parquet.py); ``scan_decode_ms``: host
+  milliseconds spent reading and decoding Parquet column chunks, and
+  ``scan_filter_ms`` those spent applying a pushed predicate on the host,
+  in a reader or after the scan (floats);
+- ``hbm_cache_hits`` / ``hbm_cache_misses``: residency lookups that found
+  their slot (a rebind included) / built it (device/residency.py);
+  ``hbm_stable_rehits``: hits through a content key, the slot rebound to a
+  new Series of equal content; ``fingerprint_ms``: host milliseconds spent
+  computing content fingerprints (``Series.content_fingerprint``, a float);
 - ``launches_<kernel>``: one per launch of a hand-written kernel, bumped by
   its wrapper (ops/segment_kernels.py, ops/probe_kernels.py,
   ops/permute_kernels.py) where it launches and nowhere else;
@@ -59,11 +74,18 @@ COUNTER_NAMES = ("device_grouped_batches", "device_stage_batches", "device_join_
                  "device_fallbacks", "coalesce_morsels_in", "dispatch_coalesced",
                  "bucket_fill_rows", "bucket_capacity_rows", "mesh_alltoall_dispatches",
                  "mesh_fused_permute_dispatches", "mesh_alltoall_rows",
-                 "mesh_exchange_bytes") + tuple(
+                 "mesh_exchange_bytes", "scan_tasks", "scan_tasks_split",
+                 "scan_tasks_merged", "scan_batches", "scan_rows", "scan_row_groups",
+                 "scan_row_groups_pruned",
+                 "scan_files_pruned", "scan_decode_ms", "scan_filter_ms", "hbm_cache_hits",
+                 "hbm_cache_misses", "hbm_stable_rehits", "fingerprint_ms") + tuple(
     f"{kind}_{k}" for kind in ("launches", "plain") for k in KERNEL_NAMES)
 
 _LOCK = threading.Lock()
-_COUNTS: Dict[str, int] = {name: 0 for name in COUNTER_NAMES}
+# the counters that add host milliseconds; every other counts events
+FLOAT_COUNTERS = ("scan_decode_ms", "scan_filter_ms", "fingerprint_ms")
+_COUNTS: Dict[str, float] = {name: 0.0 if name in FLOAT_COUNTERS else 0
+                             for name in COUNTER_NAMES}
 rejections: Dict[str, int] = {}
 
 
@@ -73,7 +95,7 @@ def __getattr__(name: str) -> int:
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-def bump(name: str, n: int = 1) -> None:
+def bump(name: str, n: float = 1) -> None:
     with _LOCK:
         _COUNTS[name] += n
 
@@ -94,5 +116,5 @@ def reset() -> None:
     """Zero every counter and the rejection record."""
     with _LOCK:
         for name in _COUNTS:
-            _COUNTS[name] = 0
+            _COUNTS[name] = 0.0 if name in FLOAT_COUNTERS else 0
         rejections.clear()

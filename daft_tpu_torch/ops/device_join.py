@@ -574,8 +574,10 @@ class _JoinContext:
             ok = torch.tensor(valid, device=self.device)
             return pk.build_probe_table(keys, ok, pk.probe_table_slots(len(vals)))
 
+        # deps-free, as the reference's: the table is a function of the key
+        # Series' content, so a re-read dim's equal keys rebind it
         key = ("ptable", d.key_col, repr(self._key_dtype(d)), str(self.device))
-        return manager().get_or_build(key_series, key, build, (vals,))
+        return manager().get_or_build(key_series, key, build)
 
     def dev_idx(self, batch, d: DimSpec, bucket: int) -> torch.Tensor:
         """int32[bucket] index plane of an adjacent dim, probed by K4 and

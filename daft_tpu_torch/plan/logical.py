@@ -1,5 +1,7 @@
 """Logical plan nodes (counterpart of daft_tpu/plan/logical.py, the subset the
-port's slices need): an in-memory source, Filter (with the pruning pass's
+port's slices need): an in-memory source, a scan over files (``ScanSource``,
+whose pushdowns the optimizer's scan rules attach), a write (``Sink``),
+Filter (with the pruning pass's
 ``keep``), Project, Aggregate, Sort, Limit, Offset, TopN (a Sort with a
 Limit, made by plan/optimizer.py ``rule_detect_topn``), Join (inner, left,
 semi, anti and cross), Distinct and Repartition. Each node computes its
@@ -77,6 +79,40 @@ class InMemorySource(LogicalPlan):
     def describe(self) -> str:
         cols = ", ".join(f"{f.name}: {f.dtype}" for f in self.schema)
         return f"InMemorySource[{len(self.partitions)} partitions, {cols}]"
+
+
+class ScanSource(LogicalPlan):
+    """A scan over external storage through a ScanOperator (io/scan.py).
+    The optimizer attaches pushdowns (columns, filters, limit); translation
+    asks the operator for its ScanTasks."""
+
+    def __init__(self, scan_op: Any, pushdowns: Optional[Any] = None):
+        from ..io.scan import Pushdowns
+
+        self.scan_op = scan_op
+        self.pushdowns = pushdowns if pushdowns is not None else Pushdowns()
+        base = scan_op.schema()
+        super().__init__(base if self.pushdowns.columns is None
+                         else Schema([base[c] for c in self.pushdowns.columns]))
+
+    def describe(self) -> str:
+        return f"ScanSource[{self.scan_op.name()}, pushdowns={self.pushdowns}]"
+
+
+class Sink(_Unary):
+    """A write of the input (io/writers.py ``WriteInfo``); the output is the
+    written files' manifest (a ``path`` column)."""
+
+    def __init__(self, input: LogicalPlan, info: Any):
+        super().__init__(info.result_schema())
+        self.input = input
+        self.info = info
+
+    def with_children(self, children):
+        return Sink(children[0], self.info)
+
+    def describe(self) -> str:
+        return f"Sink[{self.info}]"
 
 
 class Filter(_Unary):

@@ -20,13 +20,13 @@ the batch's pass limit is reached:
 ``DataFrame.collect`` optimizes every plan before ``translate``, as the
 reference's does; nothing is cached between collects.
 
-Left for the modules that bring them (the rules do not fire on an
-in-memory plan without windows or UDFs, so no TPC-H plan differs from the
-reference's for their absence): ``rule_push_filter_into_scan``,
-``rule_push_limit_into_scan`` and ``rule_column_pruning`` read a
-``ScanSource``'s pushdowns and come with IO (ROADMAP Queue 1 item 2);
-``rule_extract_windows`` with windows (item 4); ``rule_split_udfs`` with the
-UDF tier (item 5).
+The scan rules (``rule_push_filter_into_scan``, which keeps the Filter
+above the scan; ``rule_push_limit_into_scan``; ``rule_column_pruning``)
+and ``_prune``'s ScanSource branch attach a ``ScanSource``'s pushdowns.
+Left for the modules that bring them (the rules do not fire on a plan
+without windows or UDFs, so no TPC-H plan differs from the reference's for
+their absence): ``rule_extract_windows`` with windows (ROADMAP Queue 1
+item 4); ``rule_split_udfs`` with the UDF tier (item 5).
 """
 
 from __future__ import annotations
@@ -235,6 +235,70 @@ def rule_merge_limits(node: lp.LogicalPlan) -> Optional[lp.LogicalPlan]:
     if isinstance(node, lp.Limit) and isinstance(node.input, lp.Limit):
         return lp.Limit(node.input.input, min(node.limit, node.input.limit))
     return None
+
+
+def rule_push_filter_into_scan(node: lp.LogicalPlan) -> Optional[lp.LogicalPlan]:
+    """A Filter over a ScanSource that absorbs filters: the predicate joins
+    the scan's pushdowns. The Filter stays above the scan (a scan may apply
+    its pushed filter only approximately, as zone maps do; translate reads
+    each task's ``filters_applied``), so an idempotence check stops the
+    rule once the predicate is pushed."""
+    if not (isinstance(node, lp.Filter) and isinstance(node.input, lp.ScanSource)):
+        return None
+    scan = node.input
+    if not scan.scan_op.can_absorb_filter():
+        return None
+    pd = scan.pushdowns
+    if pd.filters is not None and repr(pd.filters) == repr(node.predicate):
+        return None
+    from ..io.scan import Pushdowns
+
+    new_filters = pd.filters & node.predicate if pd.filters is not None else node.predicate
+    new_scan = lp.ScanSource(scan.scan_op, Pushdowns(pd.columns, new_filters, pd.limit))
+    return lp.Filter(new_scan, new_filters)
+
+
+def rule_push_limit_into_scan(node: lp.LogicalPlan) -> Optional[lp.LogicalPlan]:
+    """A Limit over a filterless ScanSource: the limit joins its pushdowns
+    (the Limit stays above it)."""
+    if not (isinstance(node, lp.Limit) and isinstance(node.input, lp.ScanSource)):
+        return None
+    scan = node.input
+    pd = scan.pushdowns
+    if pd.filters is not None:
+        return None  # a limit after a filter cannot go below it
+    if pd.limit is not None and pd.limit <= node.limit:
+        return None
+    from ..io.scan import Pushdowns
+
+    return lp.Limit(lp.ScanSource(scan.scan_op, Pushdowns(pd.columns, pd.filters,
+                                                            node.limit)), node.limit)
+
+
+def rule_column_pruning(node: lp.LogicalPlan) -> Optional[lp.LogicalPlan]:
+    """A Project over a ScanSource that needs fewer columns than the scan
+    yields: the columns it (and the pushed filter) reads become the scan's
+    columns pushdown, in the source's order."""
+    if not (isinstance(node, lp.Project) and isinstance(node.input, lp.ScanSource)):
+        return None
+    scan = node.input
+    needed: List[str] = []
+    exprs = list(node.projection)
+    if scan.pushdowns.filters is not None:
+        exprs.append(scan.pushdowns.filters)
+    for e in exprs:
+        for c in e.referenced_columns():
+            if c not in needed:
+                needed.append(c)
+    wanted = set(needed)
+    needed = [c for c in scan.scan_op.schema().column_names() if c in wanted]
+    if len(needed) >= len(scan.schema.column_names()):
+        return None
+    from ..io.scan import Pushdowns
+
+    pd = scan.pushdowns
+    return lp.Project(lp.ScanSource(scan.scan_op, Pushdowns(needed, pd.filters, pd.limit)),
+                      node.projection)
 
 
 def _split_conjuncts(e: Expression) -> List[Expression]:
@@ -509,6 +573,19 @@ def _prune(node: lp.LogicalPlan, needed: Optional[List[str]]) -> lp.LogicalPlan:
         keep = _restrict(needed, node.schema)
         if keep is not None and len(keep) < len(node.schema.column_names()):
             return lp.Project(node, [col(c) for c in keep])
+        return node
+
+    if isinstance(node, lp.ScanSource):
+        base_cols = node.schema.column_names()
+        pd = node.pushdowns
+        want = _restrict(_ordered_union(needed if needed is not None else base_cols,
+                                        _refs([pd.filters]) if pd.filters is not None
+                                        else []),
+                         node.schema)
+        if needed is not None and want is not None and len(want) < len(base_cols):
+            from ..io.scan import Pushdowns
+
+            return lp.ScanSource(node.scan_op, Pushdowns(want, pd.filters, pd.limit))
         return node
 
     if isinstance(node, lp.Project):
@@ -791,9 +868,10 @@ def default_rule_batches(config=None) -> List[RuleBatch]:
             rule_push_filter_through_join,
             rule_push_filter_through_project,
             rule_merge_filters,
-            # rule_push_filter_into_scan: IO (ROADMAP Queue 1 item 2)
+            rule_push_filter_into_scan,
             rule_push_limit_through,
-            # rule_push_limit_into_scan, rule_column_pruning: IO (item 2)
+            rule_push_limit_into_scan,
+            rule_column_pruning,
         ]),
         RuleBatch("physical-prep", [
             rule_detect_topn,

@@ -2,8 +2,9 @@
 daft_tpu/plan/physical.py, the subset the grouped-aggregation and join
 slices need).
 
-``translate`` lowers each logical node to the node the executor interprets.
-The device decisions made here are the reference's Aggregate captures
+``translate`` lowers each logical node to the node the executor interprets
+(a ScanSource to a ``StreamingScan`` over its operator's tasks, a Sink to a
+``PhysWrite``). The device decisions made here are the reference's Aggregate captures
 (physical.py:557-632), in its order:
 
 1. the star join: an Aggregate (grouped or not) over [Project]* <-
@@ -71,6 +72,27 @@ class InMemoryScan(PhysicalPlan):
     def __init__(self, partitions: List[Any], schema: Schema):
         self.partitions = partitions
         self.schema = schema
+
+
+class StreamingScan(PhysicalPlan):
+    """A scan's tasks read one after another (execution/executor.py
+    ``_streaming_scan``); ``post_filter`` is applied to the morsels of tasks
+    that did not apply the pushed predicate themselves, and ``post_limit``
+    caps the rows."""
+
+    def __init__(self, tasks: List[Any], schema: Schema, post_filter=None, post_limit=None):
+        self.tasks = tasks
+        self.schema = schema
+        self.post_filter = post_filter
+        self.post_limit = post_limit
+
+
+class PhysWrite(_Unary):
+    """Write the input's stream through ``info`` (io/writers.py)."""
+
+    def __init__(self, input: PhysicalPlan, info: Any, schema: Schema):
+        super().__init__(input, schema)
+        self.info = info
 
 
 class Project(_Unary):
@@ -267,6 +289,10 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
     cfg = execution_config()
     if isinstance(plan, lp.InMemorySource):
         return InMemoryScan(plan.partitions, plan.schema)
+    if isinstance(plan, lp.ScanSource):
+        return _translate_scan(plan, cfg)
+    if isinstance(plan, lp.Sink):
+        return PhysWrite(translate(plan.input), plan.info, plan.schema)
     if isinstance(plan, lp.Project):
         return Project(translate(plan.input), plan.projection, plan.schema)
     if isinstance(plan, lp.Filter):
@@ -344,6 +370,22 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
         return HashAggregate(translate(plan.input), plan.groupby,
                              plan.aggregations, plan.schema)
     raise NotImplementedError(f"no physical translation for {type(plan).__name__}")
+
+
+def _translate_scan(plan: lp.ScanSource, cfg) -> "StreamingScan":
+    """The reference's scan translation (physical.py:466-484): the
+    operator's tasks, small ones merged toward ``scan_split_bytes``; the
+    pushed predicate is applied after the scan unless every task applied it,
+    and the pushed limit always caps the rows."""
+    from ..io.scan import merge_small_tasks
+
+    tasks = plan.scan_op.to_scan_tasks(plan.pushdowns)
+    if cfg.scan_split_bytes and len(tasks) > 1:
+        tasks = merge_small_tasks(tasks, cfg.scan_split_bytes)
+    post_filter = None
+    if plan.pushdowns.filters is not None and not all(t.filters_applied for t in tasks):
+        post_filter = plan.pushdowns.filters
+    return StreamingScan(tasks, plan.schema, post_filter, plan.pushdowns.limit)
 
 
 def _build_on_left(plan: lp.Join) -> Optional[PhysicalPlan]:

@@ -67,6 +67,9 @@ def estimate_rows(plan: lp.LogicalPlan) -> Optional[float]:
     """Approximate output row count of a logical plan (None = unknown)."""
     if isinstance(plan, lp.InMemorySource):
         return float(sum(p.num_rows for p in plan.partitions))
+    if isinstance(plan, lp.ScanSource):
+        # the files' footers (the estimate is advisory: None when unknown)
+        return plan.scan_op.approx_num_rows(plan.pushdowns)
     if isinstance(plan, lp.Filter):
         child = estimate_rows(plan.input)
         return None if child is None else child * selectivity(plan.predicate)

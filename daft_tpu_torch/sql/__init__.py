@@ -1,6 +1,6 @@
 """The SQL entry point (counterpart of daft_tpu/sql/): ``sql(query,
-**bindings)`` plans a SELECT over DataFrames bound by name (and its CTEs)
-into a DataFrame, which ``collect`` optimizes and runs like any other;
+**bindings)`` plans a SELECT over DataFrames bound by name (its CTEs, then
+the bindings, then ``current_session()``'s tables) into a DataFrame, which ``collect`` optimizes and runs like any other;
 ``sql_expr(text)`` parses one expression.
 
 The package module is itself callable, so ``daft_tpu_torch.sql("SELECT
@@ -16,12 +16,18 @@ import types
 
 
 def sql(query: str, **bindings):
+    return plan(query, bindings)
+
+
+def plan(query: str, bindings, session=None):
+    """``query`` planned over ``bindings`` and ``session`` (None: the
+    current session)."""
     from .planner import plan_sql
 
     if query.lstrip()[:30].upper().split()[:2] == ["EXPLAIN", "PLACEMENT"]:
         raise NotImplementedError("EXPLAIN PLACEMENT is not ported yet: it reports the cost "
                                   "model's placement decisions (ROADMAP Queue 1 item 1)")
-    return plan_sql(query, bindings)
+    return plan_sql(query, bindings, session)
 
 
 def sql_expr(text: str):

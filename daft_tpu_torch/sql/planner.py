@@ -2,9 +2,9 @@
 daft_tpu/sql/planner.py).
 
 Tables resolve from the query's CTEs, then from the ``**bindings`` (a name
-as written, then lower-cased); the port has no session catalog, so any
-other name raises ``ValueError("unknown table ...")``, as the reference
-does when its session has no such table. Qualified columns resolve through
+as written, then lower-cased), then from the session (the one given, else
+``current_session()``: its temp tables and attached catalogs); any other
+name raises ``ValueError("unknown table ...")``. Qualified columns resolve through
 a scope of table aliases; ON conjunctions split into equi-join keys and a
 residual predicate; aggregates are pulled out of the select list, HAVING
 and ORDER BY; subqueries plan to joins: ``[NOT] IN (SELECT ...)`` to a
@@ -29,8 +29,8 @@ from .parser import (EXPRESSIONS, ExistsSubquery, InSubquery, JoinClause, Scalar
                      Select, SelectItem, TableFactor, parse_select)
 
 
-def plan_sql(query: str, bindings: Dict[str, Any]):
-    return SQLPlanner(bindings).plan(parse_select(query))
+def plan_sql(query: str, bindings: Dict[str, Any], session: Any = None):
+    return SQLPlanner(bindings, session=session).plan(parse_select(query))
 
 
 class Scope:
@@ -79,14 +79,17 @@ def _contains_agg(e: Expression) -> bool:
 
 
 class SQLPlanner:
-    def __init__(self, bindings: Dict[str, Any], ctes: Optional[Dict[str, Any]] = None):
+    def __init__(self, bindings: Dict[str, Any], ctes: Optional[Dict[str, Any]] = None,
+                 session: Any = None):
         self.bindings = bindings
         self.cte_frames: Dict[str, Any] = dict(ctes or {})
+        self.session = session
         self._scalar_counter = 0
 
     def _sub(self) -> "SQLPlanner":
-        """A planner for a nested select: the same bindings and CTEs."""
-        return SQLPlanner(self.bindings, self.cte_frames)
+        """A planner for a nested select: the same bindings, CTEs and
+        session."""
+        return SQLPlanner(self.bindings, self.cte_frames, self.session)
 
     # ---- table resolution ---------------------------------------------------------
     def _resolve_table(self, name: str):
@@ -97,6 +100,12 @@ class SQLPlanner:
             return self.bindings[name]
         if key in self.bindings:
             return self.bindings[key]
+        from ..session import current_session
+
+        sess = self.session if self.session is not None else current_session()
+        t = sess.get_table(name)
+        if t is not None:
+            return t
         raise ValueError(f"unknown table {name!r}")
 
     def _plan_factor(self, f: TableFactor, scope: Scope):

@@ -304,9 +304,12 @@ def test_q5_oracle_matches_the_port(monkeypatch):
     monkeypatch.syspath_prepend(REPO)
     import chip_smoke as cs
 
+    from daft_tpu_torch.device.residency import manager
+
     lineitem, orders, dims = _small_tpch(cs)
     frames = cs.q5_frames(lineitem, orders, dims)
     want = cs.q5_oracle(lineitem, orders, dims)
+    manager().clear()  # another test's tables of equal content would rebind
     assert len(want["n_name"]) == 5
     assert set(want["n_name"]) == {n for n, r in zip(cs.NATIONS, cs.NATION_REGIONS)
                                    if cs.REGIONS[r] == "ASIA"}
@@ -429,3 +432,199 @@ def test_sql_cells_count_as_their_dataframe_cells(monkeypatch, qn):
     assert cs.same_result(got, want, floats)
     assert len(next(iter(got.values()))) > 0
     assert df_uploads == uploads == 0
+
+
+@pytest.fixture(scope="module")
+def scan_files(tmp_path_factory):
+    """The scan phase's tables at the small size, written and read back by
+    chip_smoke.py's own functions on the CPU (row groups of 16,384 rows, so
+    the zone maps have something to prune)."""
+    import contextlib
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.io import _parquet_format as pf
+
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+
+    @contextlib.contextmanager
+    def cpu_ctx():
+        with dt.execution_config_ctx(device="cpu", device_mode="on") as cfg:
+            yield cfg
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(cs, "dt_ctx", cpu_ctx)
+    mp.setattr(pf, "ROW_GROUP_ROWS", 1 << 14)
+    tables = _small_tpch(cs)
+    frames = cs.scan_tables(*tables)
+    root = str(tmp_path_factory.mktemp("scan_phase"))
+    dirs = cs.scan_write(frames, root, "cpu")
+    cs.scan_read_back(frames, dirs, "cpu")
+    cs.scan_codec_check(dirs)
+    yield cs, tables, frames, dirs
+    mp.undo()
+
+
+def test_scan_tables_hold_every_column_the_cells_read(scan_files):
+    """scan_tables keeps every column tpch_sf1 draws, the code columns as
+    the strings the cells' own frames hold and dates as dates: each cell's
+    in-memory frame is a column subset of the scan phase's tables, value
+    for value."""
+    import daft_tpu_torch as dt
+
+    cs, (lineitem, orders, dims), frames, _dirs = scan_files
+    assert set(frames["lineitem"].column_names) == set(lineitem)
+    assert set(frames["orders"].column_names) == set(orders)
+    for name in ("part", "customer", "supplier", "nation", "region"):
+        assert set(frames[name].column_names) == set(dims[name]), name
+    df_l, df_o = cs.q12_frames(lineitem, orders)
+    tails = cs.tails_frames(lineitem, orders, dims)
+    q5 = cs.q5_frames(lineitem, orders, dims)
+    cells = [(cs.q1_frame(lineitem), "lineitem"), (df_l, "lineitem"), (df_o, "orders"),
+             (q5["orders"], "orders"), (q5["supplier"], "supplier")] + \
+        [(tails[t], t) for t in ("lineitem", "orders", "part", "customer", "nation")]
+    for df, name in cells:
+        cell = cs._frame_batch(df)
+        table = cs._frame_batch(frames[name])
+        for c in cell.column_names():
+            assert cs._same_series(cell.get_column(c), table.get_column(c)), (name, c)
+    assert isinstance(frames["lineitem"], dt.DataFrame)
+
+
+def _cell_results(cs, dt, lineitem, orders, dims):
+    """Each cell's in-memory result on the CPU, as main() collects them."""
+    df_l, df_o = cs.q12_frames(lineitem, orders)
+    tails = cs.tails_frames(lineitem, orders, dims)
+    q6 = dt.from_pydict({**{c: lineitem[c] for c in ("l_quantity", "l_extendedprice",
+                                                     "l_discount")},
+                         "l_shipdate": lineitem["l_shipdate"].astype("datetime64[D]")})
+    with dt.execution_config_ctx(device="cpu"):
+        return {"q1": cs.q1_query(cs.q1_frame(lineitem)).to_pydict(),
+                "q6": cs.q6_query(q6).to_pydict(),
+                "q12": cs.q12_query(df_l, df_o).to_pydict(),
+                "q14": cs.q14_query(tails).to_pydict(),
+                "q3": cs.q3_query(tails).to_pydict(),
+                "q5": cs.q5_query(cs.q5_frames(lineitem, orders, dims)).to_pydict()}
+
+
+def test_scan_cells_equal_their_in_memory_cells(scan_files):
+    """The scan phase's queries over the written files (q5 in SQL through
+    current_session() with its dims from CSV) equal the in-memory cells'
+    results on the CPU; a second run rebinds every plane and uploads
+    nothing; over morsels of 4,096 rows q3's join TopN takes the host plan
+    with the single-fact-batch reason; q6 over the copy sorted by
+    l_shipdate prunes row groups."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.device.residency import manager
+    from daft_tpu_torch.ops import counters
+    from daft_tpu_torch.plan import logical as lp
+
+    cs, (lineitem, orders, dims), frames, dirs = scan_files
+    cells = _cell_results(cs, dt, lineitem, orders, dims)
+
+    def pq(name):
+        return dt.read_parquet(dirs[name])
+
+    sess = dt.current_session()
+    for name in cs.SCAN_CSV:
+        sess.create_temp_table(name, dt.read_csv(dirs[f"{name}_csv"]))
+    sess.create_temp_table("lineitem", pq("lineitem"))
+    sess.create_temp_table("orders", pq("orders"))
+    queries = {
+        "q1": (lambda: cs.q1_query(pq("lineitem")), cs.Q1_FLOATS),
+        "q6": (lambda: cs.q6_query(pq("lineitem")), ("revenue",)),
+        "q12": (lambda: cs.q12_query(pq("lineitem"), pq("orders")), ()),
+        "q14": (lambda: cs.q14_query({"lineitem": pq("lineitem"), "part": pq("part")}),
+                ("promo_revenue",)),
+        "q5": (lambda: dt.sql(cs.TPCH_SQL[5]), ("revenue",)),
+    }
+    try:
+        with dt.execution_config_ctx(device="cpu", morsel_size_rows=4096,
+                                     batch_latency_ms=cs.SCAN_FLUSH_MS):
+            for name, (query, floats) in queries.items():
+                manager().clear()
+                counters.reset()
+                got = query().to_pydict()
+                assert counters.scan_tasks >= 1 and counters.device_fallbacks == 0, name
+                assert cs.same_result(got, cells[name], floats), name
+                counters.reset()
+                assert cs.count_uploads(lambda: query().to_pydict()) == 0, name
+                assert counters.hbm_stable_rehits > 0, name
+            counters.reset()
+            got = cs.q3_query({"lineitem": pq("lineitem"), "orders": pq("orders"),
+                               "customer": pq("customer")}).to_pydict()
+            assert counters.device_fallbacks == 1 and counters.device_topn_runs == 0
+            assert any("single fact batch" in r for r in counters.rejections)
+            assert cs.same_result(got, cells["q3"], ("revenue",))
+            batch = cs._frame_batch(frames["lineitem"])
+            order = np.argsort(lineitem["l_shipdate"], kind="stable")
+            path = dt.DataFrame(lp.InMemorySource(batch.schema, [dt.MicroPartition(
+                batch.schema, [batch.take(order)])])).write_parquet(
+                os.path.join(os.path.dirname(dirs["lineitem"]), "sorted")).to_pydict()["path"][0]
+            counters.reset()
+            got = cs.q6_query(dt.read_parquet(path)).to_pydict()
+            assert counters.scan_row_groups_pruned > 0
+            assert cs.same_result(got, cells["q6"], ("revenue",))
+    finally:
+        for name in ("lineitem", "orders") + cs.SCAN_CSV:
+            sess.drop_temp_table(name)
+
+
+@pytest.mark.parametrize("cell", ["q1", "q3"])
+def test_scan_kernel_cases_get_the_runs_inputs(scan_files, monkeypatch, cell):
+    """chip_smoke.py's kernel cases at the file-fed cells' shapes feed the
+    kernels what the first morsel's dispatch passes them: scan q1's K1, K2
+    and K7 at cap 8, and scan q3's fallback's K4 build over the orders
+    before its date, K4 probe of the morsel's keys, K1, K2 and K7 (on the
+    CPU, at a small size: morsels of 4,096 rows), tensor for tensor."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.device.residency import manager
+    from daft_tpu_torch.ops import probe_kernels as pk
+    from daft_tpu_torch.ops import segment_kernels as sk
+
+    cs, (lineitem, orders, dims), _frames, dirs = scan_files
+    seen = {}
+    for mod, names in ((sk, ("segment_sum_planes", "segment_extreme_planes",
+                             "segment_sum_float_planes")),
+                       (pk, ("build_probe_table", "hash_probe_index"))):
+        for name in names:
+            def record(*args, _name=name, _fn=getattr(mod, name)):
+                seen.setdefault(_name, []).append(args)
+                return _fn(*args)
+            monkeypatch.setattr(mod, name, record)
+    manager().clear()
+    with dt.execution_config_ctx(device="cpu", morsel_size_rows=4096,
+                                 batch_latency_ms=cs.SCAN_FLUSH_MS):
+        if cell == "q1":
+            cs.q1_query(dt.read_parquet(dirs["lineitem"])).to_pydict()
+        else:
+            cs.q3_query({name: dt.read_parquet(dirs[name])
+                         for name in ("lineitem", "orders", "customer")}).to_pydict()
+    monkeypatch.setattr(cs, "SCAN_MORSEL_ROWS", 4096)
+    want = cs.scan_inputs(lineitem, orders, dims, torch.device("cpu"))[cell]
+
+    def same(a, b):
+        return len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                        for x, y in zip(a, b))
+    (k1_planes, k1_codes, k1_cap) = seen["segment_sum_planes"][0]
+    assert k1_cap == want["cap"] and torch.equal(k1_codes, want["codes"])
+    assert same(k1_planes, want["planes"])
+    (k2_planes, k2_codes, _cap, k2_op) = seen["segment_extreme_planes"][0]
+    assert k2_op == "min" and same(k2_planes, want["first"])
+    assert torch.equal(k2_codes, want["codes"])
+    (k7_planes, k7_codes, _cap) = seen["segment_sum_float_planes"][0]
+    assert same(k7_planes, want["floats"]) and torch.equal(k7_codes, want["codes"])
+    if cell == "q1":
+        assert want["cap"] == cs.Q1_CAP
+        assert len(seen["segment_sum_planes"]) > 1  # a dispatch per morsel
+    else:
+        ((keys, valid, slots),) = seen["build_probe_table"]
+        assert torch.equal(keys, want["dim_keys"]) and bool(valid.all())
+        assert slots == pk.probe_table_slots(len(want["dim_keys"]))
+        p_keys, p_valid, table = seen["hash_probe_index"][0]
+        assert torch.equal(p_keys, want["keys"]) and torch.equal(p_valid, want["valid"])
+        got = pk.hash_probe_index_plain(p_keys, p_valid, table)
+        n = want["index"].numel()
+        assert torch.equal(got[:n], want["index"]) and bool((got[n:] == -1).all())

@@ -1,8 +1,9 @@
 """The port stands alone and never hides a device failure:
 
 - a port query, the grouped one, the TPC-H q12 and q14 star joins, a fused
-  region over a semi join, the mesh repartition and TPC-H q12 in SQL
-  (``daft_tpu_torch.sql``) alike, imports neither
+  region over a semi join, the mesh repartition, TPC-H q12 in SQL
+  (``daft_tpu_torch.sql``) and a query that writes and reads Parquet and
+  CSV files alike, imports neither
   JAX, nor pyarrow, nor anything of
   daft_tpu (checked in a fresh interpreter: tests/conftest.py imports JAX
   into this one);
@@ -335,6 +336,51 @@ def test_port_sql_query_imports_no_jax_pyarrow_or_reference():
     """TPC-H q12 in SQL (parsed, planned, optimized and run on the device
     join's plain kernels) in a fresh interpreter."""
     proc = subprocess.run([sys.executable, "-c", _SQL_QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+_FILE_QUERY = """
+import os, sys, tempfile
+import numpy as np
+sys.path.insert(0, {repo!r})
+import daft_tpu_torch as dt
+from daft_tpu_torch import col
+from daft_tpu_torch.ops import counters
+rng = np.random.default_rng(0)
+df = dt.from_pydict({{"k": np.array(["a", "b", "c"], dtype=object)[rng.integers(0, 3, 500)],
+                      "v": rng.random(500), "d": np.arange(500).astype("datetime64[D]")}})
+root = tempfile.mkdtemp()
+with dt.execution_config_ctx(device="cpu", device_mode="on"):
+    pq = df.write_parquet(os.path.join(root, "pq")).to_pydict()["path"]
+    df.write_csv(os.path.join(root, "csv"))
+    out = (dt.read_parquet(os.path.join(root, "pq")).where(col("v") > 0.5).groupby("k")
+           .agg(col("v").count().alias("n")).sort("k").to_pydict())
+    back = dt.read_csv(os.path.join(root, "csv")).to_pydict()
+    dt.current_session().create_temp_table("t", dt.read_parquet(pq))
+    n = dt.sql("SELECT COUNT(*) AS n FROM t").to_pydict()
+with dt.execution_config_ctx(device="cpu", device_mode="on"):
+    want = df.to_pydict()
+assert out["k"] == ["a", "b", "c"], out
+assert sum(out["n"]) == sum(v > 0.5 for v in want["v"]), out
+assert back == want and n == {{"n": [500]}}, n
+assert counters.device_grouped_batches >= 1 and counters.scan_tasks >= 1
+import shutil
+shutil.rmtree(root)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             or m == "daft_tpu")
+print("FORBIDDEN", bad)
+"""
+
+
+def test_port_file_query_imports_no_jax_pyarrow_or_reference():
+    """write_parquet, write_csv, read_parquet into a device grouped stage,
+    read_csv, and SQL over a session table in a fresh interpreter: the
+    Parquet format, the snappy codec and the CSV parser are the port's
+    own."""
+    proc = subprocess.run([sys.executable, "-c", _FILE_QUERY.format(repo=REPO)],
                           capture_output=True, text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "FORBIDDEN []" in proc.stdout, proc.stdout

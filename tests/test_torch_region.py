@@ -461,9 +461,12 @@ def test_q6_chain_matches_host_and_reference(lineitem):
 def test_warm_chain_run_uploads_nothing_new(lineitem, monkeypatch):
     """The fused stage reads the scan's own Series, so a warm run finds
     every plane resident; unfused, the host Filter (which the optimizer put
-    under the Projects) and the Projects make new Series on every run, and
-    each run uploads the five the stage reads again."""
+    under the Projects) and the Projects make new Series on every run:
+    with no orphans kept (``ORPHAN_CAP`` 0, the reference's default outside
+    its workers) each run uploads the five the stage reads again, and by
+    default their planes rebind by content (``hbm_stable_rehits``)."""
     from daft_tpu_torch.core.series import Series
+    from daft_tpu_torch.device import residency
     from daft_tpu_torch.device.residency import manager
 
     port = lineitem[1]
@@ -475,15 +478,19 @@ def test_warm_chain_run_uploads_nothing_new(lineitem, monkeypatch):
         return real(self, *args, **kwargs)
 
     monkeypatch.setattr(Series, "to_device", counting)
-    for mode, warm_uploads in (("on", 0), ("off", 5)):
+    five = sorted(["charge", "disc_price", "l_discount", "l_extendedprice", "l_quantity"])
+    for mode, orphans, warm_uploads in (("on", 0, 0), ("off", 0, 5),
+                                        ("off", residency.ORPHAN_CAP, 0)):
         manager().clear()
+        monkeypatch.setattr(residency, "ORPHAN_CAP", orphans)
         with daft_tpu_torch.execution_config_ctx(device="cpu", region_mode=mode):
             q1_chain(daft_tpu_torch, port).to_pydict()
             uploads.clear()
+            counters.reset()
             q1_chain(daft_tpu_torch, port).to_pydict()
-        assert sorted(uploads) == (sorted(["charge", "disc_price", "l_discount",
-                                           "l_extendedprice", "l_quantity"])
-                                   if warm_uploads else []), (mode, uploads)
+        assert sorted(uploads) == (five if warm_uploads else []), (mode, orphans, uploads)
+        if mode == "off" and orphans:
+            assert counters.hbm_stable_rehits >= 5
 
 
 _OFF_QUERY = """
