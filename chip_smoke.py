@@ -183,7 +183,32 @@ error (no phase catches its own failure):
             and q3 over Parquet, whose join TopN takes the host plan for a
             fact of many morsels (the fallback's reason printed). The scan
             cells' coalescer flushes by size alone (SCAN_FLUSH_MS);
-17. print the {"kernels": [...]} line (each kernel's launches by path:
+17. ai:     the UDF tier (daft_tpu_torch/ops/udf_stage.py) and the torch
+            provider's encoder at sentence-transformers/all-MiniLM-L6-v2's
+            widths (vocab 30,522, hidden 384, 6 layers, 12 heads, FFN
+            1,536, max_len 128), seeded weights (about 90 MB) put in the
+            provider's embedder cache first, as a model load does; a corpus
+            of 65,536 texts (8-64 words drawn Zipf-like from 50,000
+            synthetic words, some null or empty) in morsels of 512 rows.
+            embed (batch_size 1,024): counters from zero, the morsels
+            coalesced into fewer dispatches, cold time, warm median of 3
+            with no weight bytes uploaded, rows/s, peak memory, unit-norm
+            rows and null texts null, one warm run under torch.profiler
+            (host tokenization against device busy time, the encoder's
+            FLOP/s against the 67 TFLOP/s f32 peak), and the first 256
+            rows within 1e-5 of the same query on the CPU. classify ->
+            groupby -> count: equal to the argmax of the embed cell's own
+            embeddings against the label matrix (the rows of a top-two
+            margin under 1e-5 counted), only the label matrix's bytes
+            uploaded, only int32 codes copied back, K1 and K2 launched, its
+            time (the encoder already resident: one run),
+            and both held at the run's own inputs against their plain
+            versions. fused: a scalar device UDF under a sum over SF1
+            lineitem feeds the ungrouped stage in the same dispatch (no
+            DeviceUdfRun finalized, so the UDF plane never comes back; one
+            aggregate finalize), equal to a numpy oracle (rtol 1e-5),
+            uploading nothing warm;
+18. print the {"kernels": [...]} line (each kernel's launches by path:
    every cell's counted run, and the sql phase's SQL first runs, summed,
    under "sql"), the card line, and last the {"ok": true, "device":
    {...}} line.
@@ -192,8 +217,9 @@ Every DataFrame runs through ``collect``, which optimizes its plan
 (daft_tpu_torch/plan/optimizer.py) before translating it; each cell prints
 one "optimize ms / translate ms" line (host clock, medians of PLANS calls).
 
-Every cell runs at SF1: nothing is cut. It imports torch, numpy and the
-port; nothing of JAX, pyarrow or daft_tpu.
+Every relational cell runs at SF1: nothing is cut; the ai cells run the
+model at its published widths with its depth uncut. It imports torch,
+numpy and the port; nothing of JAX, pyarrow or daft_tpu.
 
     python3 chip_smoke.py --kernels-only [--root DIR]
 
@@ -3983,6 +4009,405 @@ def scan_q3(pq, want: dict, card: str) -> dict:
     return launches
 
 
+AI_ROWS = 1 << 16            # texts in the ai cells (the default device_min_rows)
+AI_MORSEL_ROWS = 512         # rows a morsel of the corpus holds (the reference's ai suite)
+AI_BATCH = 1024              # batch_size: the rows of one encoder dispatch
+AI_WORDS = 50_000            # the synthetic vocabulary the texts draw from
+AI_MODEL = "minilm-l6-seeded"
+# sentence-transformers/all-MiniLM-L6-v2's published widths (FFN 4 x 384)
+AI_WIDTHS = {"vocab": 30522, "dim": 384, "layers": 6, "heads": 12, "max_len": 128}
+AI_LABELS = ["billing and payment", "shipping and delivery", "account and login",
+             "product quality"]
+F32_PEAK_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
+
+
+def ai_words(n: int = AI_WORDS):
+    """``n`` distinct synthetic lowercase words (base-26 spellings)."""
+    out = []
+    for i in range(n):
+        v, word = i * 7919 + 26 ** 3, ""
+        while v:
+            v, r = divmod(v, 26)
+            word += chr(ord("a") + r)
+        out.append(word)
+    return out
+
+
+def ai_corpus(seed: int, n: int, words=None):
+    """``n`` texts of 8-64 words drawn Zipf-like (p ~ 1 / rank) from the
+    synthetic vocabulary; about 1 % are null and 0.5 % empty, at seeded
+    rows. A catalog or support-ticket table of the kind users embed or tag
+    in bulk."""
+    import numpy as np
+
+    words = words or ai_words()
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(8, 65, n)
+    p = 1.0 / np.arange(1, len(words) + 1)
+    draws = rng.choice(len(words), int(lens.sum()), p=p / p.sum())
+    vocab = np.array(words, dtype=object)
+    ends = np.cumsum(lens)
+    texts = [" ".join(vocab[draws[e - k:e]]) for e, k in zip(ends.tolist(), lens.tolist())]
+    kind = rng.random(n)
+    for i in np.flatnonzero(kind < 0.015).tolist():
+        texts[i] = None if kind[i] < 0.01 else ""
+    return texts
+
+
+def ai_frame(texts, morsel: int = AI_MORSEL_ROWS):
+    """The corpus as a port DataFrame of (id, text), one partition cut into
+    morsels of ``morsel`` rows (as coalesce_frames cuts lineitem)."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.plan import logical as lp
+
+    part = dt.MicroPartition.from_pydict({
+        "id": np.arange(len(texts), dtype=np.int64),
+        "text": dt.Series.from_pylist(texts, "text", dt.DataType.string())})
+    batch = part.concat_or_empty()
+    morsels = [batch.slice(s, s + morsel) for s in range(0, batch.num_rows, morsel)]
+    return dt.DataFrame(lp.InMemorySource(part.schema, [dt.MicroPartition(part.schema,
+                                                                          morsels)]))
+
+
+def install_ai_model(name: str = AI_MODEL, widths=None):
+    """Seeded weights at ``widths`` (MiniLM-L6's by default) put in the
+    provider's per-process embedder cache under ``name``, as a model load
+    does. Returns the embedder."""
+    from daft_tpu_torch.ai import torch_provider as tp
+
+    weights = tp.TorchEncoderWeights.seeded(name, **(widths or AI_WIDTHS))
+    emb = tp.TorchTextEmbedder(name, weights)
+    with tp._PROVIDER_LOCK:
+        tp._EMBEDDERS[name] = emb
+    return emb
+
+
+def ai_embed_query(df, model: str = AI_MODEL, batch_size: int = AI_BATCH):
+    from daft_tpu_torch import col
+    from daft_tpu_torch.functions.ai import embed_text
+
+    return df.select(col("id"), embed_text(col("text"), provider="torch", model=model,
+                                           batch_size=batch_size).alias("e"))
+
+
+def ai_classify_query(df, model: str = AI_MODEL, batch_size: int = AI_BATCH):
+    """Label counts: each text's label (classify_text), grouped, counted,
+    in label order (the null texts' group last)."""
+    from daft_tpu_torch import col
+    from daft_tpu_torch.functions.ai import classify_text
+
+    return (df.select(col("id"), classify_text(col("text"), AI_LABELS, provider="torch",
+                                               model=model, batch_size=batch_size)
+                      .alias("label"))
+            .groupby("label").agg(col("id").count().alias("n")).sort("label"))
+
+
+def ai_classify_oracle(embeddings, lab):
+    """(label counts in the classify query's form, the labels row by row,
+    the number of rows whose top-two margin is under 1e-5) from the embed
+    cell's own embeddings (None for a null text) and the label matrix."""
+    import numpy as np
+
+    rows = [i for i, e in enumerate(embeddings) if e is not None]
+    scores = np.asarray([embeddings[i] for i in rows], dtype=np.float32) @ lab.T
+    picks = scores.argmax(axis=1)
+    top2 = np.sort(scores, axis=1)[:, -2:]
+    labels = [None] * len(embeddings)
+    for i, k in zip(rows, picks.tolist()):
+        labels[i] = AI_LABELS[k]
+    present = sorted({v for v in labels if v is not None})
+    counts = {"label": present, "n": [labels.count(v) for v in present]}
+    if len(rows) < len(labels):
+        counts["label"].append(None)
+        counts["n"].append(len(labels) - len(rows))
+    return counts, labels, int((top2[:, 1] - top2[:, 0] < 1e-5).sum())
+
+
+def ai_classify_inputs(labels, dev) -> dict:
+    """K1's and K2's inputs in the classify cell's grouped stage, from the
+    run's labels (one batch of len(labels) rows): the label column's codes
+    numbered by first occurrence, a null its own code, at the cap they pad
+    to; K1's two planes, the group's rows and its counted ids (every id is
+    valid: the same plane), and K2's first-row index."""
+    import numpy as np
+    import torch
+
+    from daft_tpu_torch.ops.grouped_stage import _pad_groups
+    from daft_tpu_torch.ops.stage import pad_bucket
+
+    index = {}
+    group = np.array([index.setdefault(v, len(index)) for v in labels], dtype=np.int32)
+    cap = _pad_groups(len(index))
+    n = len(labels)
+    bucket = pad_bucket(n)
+    codes = torch.full((bucket,), cap, dtype=torch.int32)
+    codes[:n] = torch.from_numpy(group)
+    keep = torch.arange(bucket) < n
+    first = torch.where(keep, torch.arange(bucket, dtype=torch.float32),
+                        torch.tensor(float("inf")))
+    kf = keep.float().to(dev)
+    return {"cap": cap, "codes": codes.to(dev), "planes": [kf, kf.clone()],
+            "first": [first.to(dev)], "groups": len(index)}
+
+
+def ai_score_func():
+    """The fused cell's scalar device UDF: x scaled by the sum of eight
+    seeded weights (the reference's stand-in model, tests/test_device_udf.py
+    ``_score_func``). Returns (the Func, the weights)."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+
+    w = np.random.default_rng(3).standard_normal(8).astype(np.float32)
+    score = dt.func(lambda params, x: x * params["w"].sum(), on_device=True,
+                    return_dtype=dt.DataType.float32(), device_params=lambda: {"w": w},
+                    device_key="chip_smoke_score:3")
+    return score, w
+
+
+def ai_fused_query(df, score):
+    from daft_tpu_torch import col
+
+    return df.with_column("s", score(col("l_extendedprice"))).agg(
+        col("s").sum().alias("s"))
+
+
+def ai_fused_oracle(price, w) -> dict:
+    """sum(f32(price * sum(w))) in f64, the fused cell's result."""
+    import numpy as np
+
+    wsum = np.float64(np.float32(w.sum(dtype=np.float32)))
+    return {"s": [float((price * wsum).astype(np.float32).astype(np.float64).sum())]}
+
+
+def ai_profile(run, emb, card: str) -> dict:
+    """One warm embed run under torch.profiler (device activities) with the
+    host tokenization timed: wall, tokenization, device busy (kernels and
+    copies) and the kernels' own time, idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    phase("ai embed profile")
+    spent = [0.0]
+    real = emb.device_prepare
+
+    def timed(texts):
+        t0 = time.perf_counter()
+        out = real(texts)
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    emb.device_prepare = timed
+    try:
+        with dt_ctx(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del emb.device_prepare
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    kernel_ms = sum(e.self_device_time_total for e in events
+                    if not e.key.startswith("Memcpy") and not e.key.startswith("Memset")) / 1e3
+    out = {"wall_ms": wall_ms, "tokenize_ms": spent[0] * 1e3, "busy_ms": busy_ms,
+           "kernel_ms": kernel_ms}
+    print(f"ai embed warm run under the profiler: wall {wall_ms:.3f} ms, host tokenization "
+          f"{spent[0] * 1e3:.3f} ms, device busy {busy_ms:.3f} ms (kernels {kernel_ms:.3f} "
+          f"ms), idle share {1 - busy_ms / wall_ms:.4f} [{card}]")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  device {e.self_device_time_total / 1e3:.4f} ms x{e.count}: {e.key[:90]}")
+    sys.stdout.flush()
+    return out
+
+
+def phase_ai(lineitem, card: str, kernel_results: dict) -> dict:
+    """The UDF tier's cells at MiniLM-L6 widths over AI_ROWS texts, and the
+    fused UDF -> sum over SF1 lineitem. Returns each cell's counted launches;
+    the classify cell's kernel cases go into ``kernel_results``."""
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ai import torch_provider as tp
+    from daft_tpu_torch.ops import counters
+    from daft_tpu_torch.ops import segment_kernels as sk
+    from daft_tpu_torch.ops import udf_stage
+
+    phase("ai")
+    clear_residency()
+    t0 = time.perf_counter()
+    emb = install_ai_model()
+    w_bytes = sum(v.nbytes for v in emb.weights.params.values())
+    d, layers, length = AI_WIDTHS["dim"], AI_WIDTHS["layers"], AI_WIDTHS["max_len"]
+    flops_per_token = 2 * (12 * d * d + 2 * length * d) * layers
+    texts = ai_corpus(SEED, AI_ROWS)
+    df = ai_frame(texts)
+    nulls = sum(t is None for t in texts)
+    print(f"ai model {AI_MODEL}: seeded at {json.dumps(AI_WIDTHS)}, {w_bytes} weight bytes "
+          f"(f32), {flops_per_token / 1e6:.3f} MFLOP per token; corpus {AI_ROWS} texts "
+          f"({nulls} null, {sum(t == '' for t in texts)} empty) in "
+          f"{AI_ROWS // AI_MORSEL_ROWS} morsels, built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    paths = {}
+
+    # ---- ai embed ----
+    with dt_ctx():
+        torch.cuda.reset_peak_memory_stats()
+        counters.reset()
+        t0 = time.perf_counter()
+        out = ai_embed_query(df).to_pydict()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        snap = counters.snapshot()
+        peak = torch.cuda.max_memory_allocated()
+        paths["ai_embed"] = {k: snap[f"launches_{k}"] for k in counters.KERNEL_NAMES}
+        counters.reset()
+        warm = time_s(lambda: ai_embed_query(df).to_pydict())
+        warm_snap = counters.snapshot()
+    print(f"ai embed cold run counters: {json.dumps(snap, sort_keys=True)}")
+    chunks = -(-AI_ROWS // AI_BATCH)
+    check(snap["coalesce_morsels_in"] == AI_ROWS // AI_MORSEL_ROWS,
+          f"ai embed: {snap['coalesce_morsels_in']} morsels reached the coalescer")
+    check(snap["device_udf_dispatches"] == chunks < snap["coalesce_morsels_in"],
+          f"ai embed: {snap['device_udf_dispatches']} dispatches for "
+          f"{snap['coalesce_morsels_in']} morsels, expected {chunks}")
+    check(snap["device_udf_runs"] == 1 and snap["device_udf_rows"] == AI_ROWS,
+          "ai embed: not one run over every row")
+    check(snap["device_udf_weight_h2d_bytes"] == w_bytes,
+          f"ai embed: {snap['device_udf_weight_h2d_bytes']} weight bytes uploaded, not {w_bytes}")
+    check(warm_snap["device_udf_weight_h2d_bytes"] == 0,
+          f"ai embed: the warm runs uploaded {warm_snap['device_udf_weight_h2d_bytes']} weight "
+          "bytes")
+    check([v is None for v in out["e"]] == [t is None for t in texts],
+          "ai embed: a null text did not give a null embedding, or a text gave null")
+    e_valid = np.asarray([v for v in out["e"] if v is not None], dtype=np.float32)
+    norm_err = float(np.abs(np.linalg.norm(e_valid, axis=1) - 1.0).max())
+    check(e_valid.shape == (AI_ROWS - nulls, d) and norm_err <= 1e-5,
+          f"ai embed: shape {e_valid.shape}, unit-norm error {norm_err}")
+    med = statistics.median(warm)
+    print(f"ai embed: cold {cold:.3f} s; warm median {med:.4f} s (runs "
+          f"{', '.join(f'{w:.4f}' for w in warm)}), {AI_ROWS / med:.1f} rows/s; "
+          f"{snap['coalesce_morsels_in']} morsels into {snap['dispatch_coalesced']} coalesced "
+          f"batch(es), {snap['device_udf_dispatches']} dispatches of {AI_BATCH} rows; weights "
+          f"{snap['device_udf_weight_h2d_bytes']} bytes cold, "
+          f"{warm_snap['device_udf_weight_h2d_bytes']} over the 3 warm runs; unit-norm error "
+          f"{norm_err:.3e}; max_memory_allocated {peak} bytes [{card}]", flush=True)
+    prof = ai_profile(lambda: ai_embed_query(df).to_pydict(), emb, card)
+    tokens = chunks * AI_BATCH * length  # padded positions are computed too
+    rate = tokens * flops_per_token / (prof["kernel_ms"] / 1e3)
+    print(f"ai embed encoder: {tokens} token positions x {flops_per_token / 1e6:.3f} MFLOP "
+          f"in {prof['kernel_ms']:.3f} ms of kernels: {rate / 1e12:.3f} TFLOP/s, "
+          f"{rate / F32_PEAK_FLOPS:.4f} of the 67 TFLOP/s f32 peak (outside the tensor "
+          f"cores) [{card}]", flush=True)
+    head = ai_frame(texts[:256], 256)
+    with dt.execution_config_ctx(device_mode="off"):
+        t0 = time.perf_counter()
+        cpu = ai_embed_query(head).to_pydict()
+        cpu_s = time.perf_counter() - t0
+    check([v is None for v in cpu["e"]] == [v is None for v in out["e"][:256]],
+          "ai embed: the CPU path's nulls differ")
+    cpu_err = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                  for a, b in zip(out["e"][:256], cpu["e"]) if a is not None)
+    check(cpu_err <= 1e-5, f"ai embed: the card differs from the CPU by {cpu_err}")
+    print(f"ai embed: the first 256 rows within {cpu_err:.3e} of the same query on the CPU "
+          f"(device_mode=\"off\", {cpu_s:.3f} s) [{card}]", flush=True)
+
+    # ---- ai classify ----
+    seen = []
+    real_finalize = udf_stage.DeviceUdfRun.finalize
+
+    def finalize(run):
+        host, valid = real_finalize(run)
+        seen.append((host.dtype, host.nbytes))
+        return host, valid
+
+    lab = tp.label_matrix(emb, AI_LABELS)
+    udf_stage.DeviceUdfRun.finalize = finalize
+    try:
+        with dt_ctx():
+            counters.reset()
+            t0 = time.perf_counter()
+            got = ai_classify_query(df).to_pydict()
+            torch.cuda.synchronize()
+            cls_s = time.perf_counter() - t0
+            cls_snap = counters.snapshot()
+            paths["ai_classify"] = {k: cls_snap[f"launches_{k}"] for k in counters.KERNEL_NAMES}
+    finally:
+        udf_stage.DeviceUdfRun.finalize = real_finalize
+    print(f"ai classify cold run counters: {json.dumps(cls_snap, sort_keys=True)}")
+    want, labels, close = ai_classify_oracle(out["e"], lab)
+    check(got == want, f"ai classify: {json.dumps(got)} differs from the oracle "
+                       f"{json.dumps(want)}")
+    check(cls_snap["device_udf_weight_h2d_bytes"] == lab.nbytes,
+          f"ai classify: {cls_snap['device_udf_weight_h2d_bytes']} weight bytes uploaded, not "
+          f"the label matrix's {lab.nbytes} (the encoder is embed's entry)")
+    check(seen[0] == (np.dtype(np.int32), AI_ROWS * 4),
+          f"ai classify: the copy back held {seen[0]}, not {AI_ROWS} int32 codes")
+    check(cls_snap["launches_segment_sum_planes"] > 0 and cls_snap["device_grouped_batches"] == 1,
+          "ai classify: the count did not run through the grouped stage's K1")
+    print(f"ai classify: {json.dumps(got)} equal to the oracle (argmax of the embed cell's "
+          f"embeddings against the label matrix; {close} rows with a top-two margin under "
+          f"1e-5); {cls_snap['device_udf_weight_h2d_bytes']} weight bytes uploaded (the label "
+          f"matrix), the copy back {seen[0][1]} bytes of {seen[0][0]}; kernels launched "
+          f"{json.dumps({k: v for k, v in paths['ai_classify'].items() if v})}; the run "
+          f"(the encoder already resident) {cls_s:.3f} s, {AI_ROWS / cls_s:.1f} rows/s "
+          f"[{card}]", flush=True)
+    t = ai_classify_inputs(labels, torch.device("cuda"))
+    at = f"at_ai_classify_cap{t['cap']}"
+    kernel_results["segment_sum_planes"][at] = plane_case(sk, "sum", t["planes"], t["codes"],
+                                                          t["cap"])
+    kernel_results["segment_extreme_planes"][at] = plane_case(sk, "min", t["first"],
+                                                              t["codes"], t["cap"])
+    print_cases({f"{k} {at}": kernel_results[k][at]
+                 for k in ("segment_sum_planes", "segment_extreme_planes")}, card)
+    del out, e_valid, t
+
+    # ---- ai fused ----
+    score, w = ai_score_func()
+    frame = dt.from_pydict({c: lineitem[c] for c in ("l_extendedprice", "l_quantity",
+                                                     "l_discount")})
+    with dt_ctx():
+        counters.reset()
+        t0 = time.perf_counter()
+        fused = ai_fused_query(frame, score).to_pydict()
+        torch.cuda.synchronize()
+        fused_cold = time.perf_counter() - t0
+        f_snap = counters.snapshot()
+        paths["ai_fused"] = {k: f_snap[f"launches_{k}"] for k in counters.KERNEL_NAMES}
+        counters.reset()
+        uploads = count_uploads(lambda: ai_fused_query(frame, score).to_pydict())
+        f_warm_snap = counters.snapshot()
+        fused_warm = time_s(lambda: ai_fused_query(frame, score).to_pydict())
+    print(f"ai fused cold run counters: {json.dumps(f_snap, sort_keys=True)}")
+    # the copies back, counted where they are made: the UDF tier copies only
+    # in DeviceUdfRun.finalize (device_udf_runs), the aggregate only in its
+    # finalize (device_stage_runs); each UDF dispatch fed the aggregate's
+    check(f_snap["device_udf_dispatches"] >= 1 and f_snap["device_stage_batches"] ==
+          f_snap["device_udf_dispatches"] and f_snap["device_udf_runs"] == 0
+          and f_snap["device_stage_runs"] == 1,
+          "ai fused: the UDF did not feed the aggregate's dispatches, or its plane came back")
+    check(f_snap["device_region_dispatches"] == f_snap["device_stage_batches"],
+          "ai fused: the UDF and the aggregate were not counted as one region")
+    check(uploads == 0 and f_warm_snap["device_udf_weight_h2d_bytes"] == 0,
+          f"ai fused: a warm run uploaded {uploads} columns and "
+          f"{f_warm_snap['device_udf_weight_h2d_bytes']} weight bytes")
+    oracle = ai_fused_oracle(lineitem["l_extendedprice"], w)
+    check(same_result(fused, oracle, ("s",)), f"ai fused: {fused} differs from the oracle "
+                                               f"{oracle}")
+    print(f"ai fused: {json.dumps(fused)} equal to the oracle {json.dumps(oracle)} (rtol "
+          f"1e-5); {f_snap['device_udf_dispatches']} dispatches each feeding the aggregate, "
+          f"{f_snap['device_udf_runs']} copies of the UDF plane back and "
+          f"{f_snap['device_stage_runs']} aggregate result fetch, 0 uploads warm; "
+          f"cold {fused_cold:.3f} s, warm median {statistics.median(fused_warm):.4f} s [{card}]",
+          flush=True)
+    return paths
+
+
 def dt_ctx():
     """The execution config every cell's device run takes."""
     import daft_tpu_torch as dt
@@ -4070,6 +4495,8 @@ def main(argv=None) -> int:
             del repart
             cells.update(q1=q1_result, q6=q6_result)
             paths.update(phase_scan(lineitem, orders, dims, cells, card))
+            del cells
+            paths.update(phase_ai(lineitem, card, kernel_results))
     except SmokeFailure as exc:
         print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)
         return 1

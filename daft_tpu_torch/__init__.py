@@ -15,6 +15,13 @@ aggregation's segment reductions in hand-written CUDA kernels
 Files (io/, no pyarrow): ``df.write_parquet(dir)``, ``dt.read_parquet(dir)``,
 ``df.write_csv(dir)``, ``dt.read_csv(dir)``; SQL resolves unbound table
 names through ``dt.current_session()``.
+
+UDFs (udf/): ``@dt.func``, ``@dt.cls`` with ``@dt.method``, the legacy
+``@dt.udf``; ``on_device=True`` puts one on the device-UDF tier
+(ops/udf_stage.py). Text embedding and classification on the card:
+
+    from daft_tpu_torch.functions.ai import classify_text, embed_text
+    df.select(embed_text(dt.col("text"), provider="torch").alias("e"))
 """
 
 from .config import ExecutionConfig, execution_config, execution_config_ctx, \
@@ -29,6 +36,8 @@ from .interop import from_numpy_columns
 from .plan import logical as _lp
 from .schema import Schema
 from .session import Session, current_session
+from . import udf  # noqa: E402  (the callable UDF package: dt.udf(return_dtype=...))
+from .udf import Func, cls, func, method
 from . import sql  # noqa: E402  (the callable SQL module: dt.sql("SELECT ...", t=df))
 from .sql import sql_expr
 from .utils import torch_setup as _torch_setup  # noqa: F401  (fixes TF32 off)
@@ -43,9 +52,9 @@ def from_pydict(data) -> DataFrame:
 
 
 __all__ = [
-    "DataFrame", "DataType", "ExecutionConfig", "Expression", "Field",
+    "DataFrame", "DataType", "ExecutionConfig", "Expression", "Field", "Func",
     "GroupedDataFrame", "MicroPartition", "RecordBatch", "Schema", "Series", "Session",
-    "col", "current_session", "execution_config", "execution_config_ctx",
-    "from_numpy_columns", "from_pydict", "lit", "read_csv", "read_parquet",
-    "set_execution_config", "sql", "sql_expr",
+    "cls", "col", "current_session", "execution_config", "execution_config_ctx",
+    "from_numpy_columns", "from_pydict", "func", "lit", "method", "read_csv",
+    "read_parquet", "set_execution_config", "sql", "sql_expr", "udf",
 ]

@@ -3,7 +3,10 @@
 Host storage is numpy, not Arrow: a values array plus a bool validity mask.
 Strings are object arrays, dates int32 days since 1970-01-01; a null slot
 holds 0 (NaN for floats, None for strings), as the reference's
-``Series.to_numpy()`` fills it. Device storage is a (values, validity) pair
+``Series.to_numpy()`` fills it. A list column (an embedding) is an object
+array of Python lists whose numeric elements are rounded to the element
+type, as Arrow stores them; a ``python`` column holds any objects. Both are
+host only: built, sliced, taken, concatenated and read back, nothing more. Device storage is a (values, validity) pair
 of torch tensors made by ``to_device`` / ``to_device_cached``.
 """
 
@@ -82,9 +85,18 @@ def _infer_dtype(data: Sequence[Any]) -> DataType:
 def _null_fill(dtype: DataType):
     if dtype.is_floating():
         return np.nan
-    if dtype.is_string() or dtype.is_null():
+    if dtype.to_numpy() == object:
         return None
     return 0
+
+
+def _object_array(items: list) -> np.ndarray:
+    """A 1-d object array of ``items`` (element by element: numpy would
+    broadcast a list of equal-length lists into two dimensions)."""
+    out = np.empty(len(items), dtype=object)
+    for i, v in enumerate(items):
+        out[i] = v
+    return out
 
 
 def _first_occurrence_codes(codes: np.ndarray, k: int):
@@ -151,6 +163,17 @@ class Series:
             conv = [fill if v is None else
                     (v.toordinal() - _EPOCH_ORDINAL if isinstance(v, datetime.date) else int(v))
                     for v in data]
+        elif dtype.is_list():
+            inner = dtype.inner
+            if inner.is_numeric() or inner.is_boolean():
+                np_inner = inner.to_numpy()
+                conv = [None if v is None else np.asarray(v, dtype=np_inner).tolist()
+                        for v in data]
+            else:
+                conv = [None if v is None else list(v) for v in data]
+            return cls(name, dtype, _object_array(conv), validity)
+        elif dtype.kind == "python":
+            return cls(name, dtype, _object_array(data), validity)
         else:
             conv = [fill if v is None else v for v in data]
         if dtype.is_string() or dtype.is_null():
@@ -284,6 +307,8 @@ class Series:
         the time spent counts in ``fingerprint_ms``."""
         if self._content_fp is not None:
             return self._content_fp
+        if self._dtype.is_list() or self._dtype.kind == "python":
+            raise TypeError(f"a {self._dtype} column has no content fingerprint")
         import time
 
         from ..ops import counters
@@ -476,7 +501,7 @@ class Series:
             return self
         if self._dtype.is_null():
             return Series.full_null(self._name, dtype, len(self))
-        if dtype.is_string() or self._dtype.is_string():
+        if dtype.to_numpy() == object or self._dtype.to_numpy() == object:
             raise ValueError(f"cast {self._dtype} -> {dtype} is not supported by the port")
         values = self._values.astype(dtype.to_numpy())
         if not self._validity.all():

@@ -1,5 +1,5 @@
 """Logical data types (counterpart of daft_tpu/datatype.py, the integer, float,
-bool, string and date kinds).
+bool, string and date kinds, lists, and ``python`` for arbitrary objects).
 
 The port keeps host columns in numpy, not Arrow: ``to_numpy`` is the host
 storage dtype (dates are int32 days since the epoch, strings are object
@@ -34,6 +34,7 @@ _NUMPY_MAP = {
     "uint8": "uint8", "uint16": "uint16", "uint32": "uint32", "uint64": "uint64",
     "float32": "float32", "float64": "float64",
     "date": "int32", "string": "object", "null": "object",
+    "list": "object", "python": "object",
 }
 
 
@@ -101,6 +102,17 @@ class DataType:
     def date(cls) -> "DataType":
         return cls("date")
 
+    @classmethod
+    def list(cls, inner: "DataType") -> "DataType":
+        """Variable-length lists of ``inner`` (host storage: an object array
+        of Python lists)."""
+        return cls("list", (inner,))
+
+    @classmethod
+    def python(cls) -> "DataType":
+        """Arbitrary Python objects (host only)."""
+        return cls("python")
+
     # ---- predicates ---------------------------------------------------------------
     def is_null(self) -> bool:
         return self.kind == "null"
@@ -128,6 +140,16 @@ class DataType:
 
     def is_string(self) -> bool:
         return self.kind == "string"
+
+    def is_list(self) -> bool:
+        return self.kind == "list"
+
+    @property
+    def inner(self) -> "DataType":
+        """The element type of a list."""
+        if not self.is_list():
+            raise ValueError(f"{self} has no element type")
+        return self.params[0]
 
     # ---- conversion ---------------------------------------------------------------
     @classmethod
@@ -169,4 +191,6 @@ class DataType:
         raise ValueError(f"{self} is not device-compatible")
 
     def __repr__(self) -> str:
+        if self.is_list():
+            return f"List[{self.params[0]!r}]"
         return self.kind.capitalize() if self.kind != "null" else "Null"

@@ -5,9 +5,12 @@ repartition slices need).
 ``execute_plan`` streams MicroPartitions. Host operators run in numpy
 (``PhysLimit`` and ``PhysTopN`` included: a stable sort, then a slice). A
 ``DeviceFilterAgg`` runs its ungrouped stage on the configured device
-(``_exec_device_filter_agg``). A ``DeviceGroupedAgg`` runs its stage on the
-configured device (the reference's device agg branch, executor.py:580-733,
-without the mesh, UDF and cost-model arms): each batch is buffered, and
+(``_exec_device_filter_agg``), fused with a device UDF that feeds it
+(``_try_fused_udf_agg``). A ``UDFProject`` runs its UDF on the host, a
+``DeviceUdfProject`` on the device-UDF tier (``_run_device_udf_stage``). A
+``DeviceGroupedAgg`` runs its stage on the configured device (the
+reference's device agg branch, executor.py:580-733, without the mesh and
+cost-model arms): each batch is buffered, and
 when the stage raises ``DeviceFallback`` (its group count outgrew the
 kernels' envelope, detected before any launch) the whole buffered stream
 reruns on the host. Both stages, and the join runs but the TopN, take
@@ -64,6 +67,15 @@ def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
         for part in _exec(node.input):
             batches = [eval_projection(b, node.projection) for b in part.batches]
             yield MicroPartition(node.schema, batches or [RecordBatch.empty(node.schema)])
+        return
+
+    if isinstance(node, pp.DeviceUdfProject):
+        yield from _exec_device_udf(node)
+        return
+
+    if isinstance(node, pp.UDFProject):
+        # one part at a time: a UDF may hold state that is not thread-safe
+        yield from _udf_host_parts(node, _exec(node.input))
         return
 
     if isinstance(node, pp.PhysFilter):
@@ -354,13 +366,15 @@ def _exec_device_filter_agg(node: pp.DeviceFilterAgg) -> MicroPartition:
     from ..utils.torch_setup import resolve_device
 
     cfg = execution_config()
+    if cfg.device_mode == "on" and cfg.region_mode == "on":
+        # a device UDF feeding the aggregate: its output plane goes into the
+        # aggregate's program with no copy back in between
+        fused = _try_fused_udf_agg(node, cfg)
+        if fused is not None:
+            return fused
     stream = _exec(node.input)
     if cfg.device_mode == "off":
-        stream = _narrowed(stream, _region_keep_columns(node))
-        if node.predicate is not None:
-            stream = (_filter_part(p, node.predicate) for p in stream)
-        out = _ungrouped_agg(stream, node.aggregations, node.input.schema)
-        return MicroPartition(node.schema, [out.cast_to_schema(node.schema)])
+        return _host_filter_agg(node, stream)
     device = resolve_device(cfg.device)
     stage = try_build_filter_agg_stage(node.input.schema, node.predicate, node.aggregations)
     if stage is None:
@@ -373,6 +387,120 @@ def _exec_device_filter_agg(node: pp.DeviceFilterAgg) -> MicroPartition:
         final = run.finalize()
     _note_region(node, node_region_ops(node), counters.device_stage_batches - d0)
     return _ungrouped_output(node.schema, stage, final)
+
+
+def _host_filter_agg(node: pp.DeviceFilterAgg, stream) -> MicroPartition:
+    """A DeviceFilterAgg on the host, over its input narrowed to the columns
+    it reads."""
+    stream = _narrowed(stream, _region_keep_columns(node))
+    if node.predicate is not None:
+        stream = (_filter_part(p, node.predicate) for p in stream)
+    out = _ungrouped_agg(stream, node.aggregations, node.input.schema)
+    return MicroPartition(node.schema, [out.cast_to_schema(node.schema)])
+
+
+def _udf_host_parts(node: pp.UDFProject, stream) -> Iterator[MicroPartition]:
+    """A UDFProject on the host, one part at a time (a device Func through
+    ops/udf_stage.py ``host_eval_device_func``, on the configured device, or
+    on the CPU under device_mode="off")."""
+    exprs = list(node.passthrough) + [node.udf_expr]
+    for part in stream:
+        batches = [eval_projection(b, exprs) for b in part.batches]
+        yield MicroPartition(node.schema, batches or [RecordBatch.empty(node.schema)])
+
+
+def _exec_device_udf(node: pp.DeviceUdfProject) -> Iterator[MicroPartition]:
+    """Run a DeviceUdfProject: the device-UDF stage on the configured device
+    (which must be there), or the host path under device_mode="off" (on the
+    CPU, never touching the card). The reference's cost-model choice
+    ("auto") comes with the cost model."""
+    from ..config import execution_config
+
+    cfg = execution_config()
+    stream = _exec(node.input)
+    if cfg.device_mode == "off":
+        yield from _udf_host_parts(node, stream)
+        return
+    yield _run_device_udf_stage(node, stream, cfg)
+
+
+def _run_device_udf_stage(node: pp.DeviceUdfProject, stream, cfg) -> MicroPartition:
+    """One DeviceUdfProject on the device tier: the input's batches through
+    the dispatch coalescer into the stage, under a pin scope that holds the
+    weights, one copy back at finalize; the output is the passthrough
+    columns and the decoded UDF column. A failure raises: nothing reruns on
+    the host."""
+    from ..device.residency import manager as _residency
+    from ..ops.udf_stage import DeviceUdfStage, finish_series
+    from ..utils.torch_setup import resolve_device
+
+    device = resolve_device(cfg.device)
+    call = pp.device_udf_call(node.udf_expr)
+    out_name = node.udf_expr.name()
+    stage = DeviceUdfStage(call.func, call.args, out_name)
+    parts: List[MicroPartition] = []  # the passthrough columns' source
+
+    def keeping():
+        for part in stream:
+            parts.append(part)
+            yield part
+
+    with _residency().pin_scope():
+        run = stage.start_run(device)
+        _feed_stream(keeping(), run.feed_batch, cfg)
+        out, valid = run.finalize()
+    big = _concat_parts(parts, node.input.schema)
+    udf_col = finish_series(call.func, out, valid, out_name)
+    cols = [_full_length(eval_expression(big, e), big.num_rows) for e in node.passthrough]
+    return MicroPartition(node.schema,
+                          [RecordBatch(node.schema, cols + [udf_col], big.num_rows)])
+
+
+def _try_fused_udf_agg(node: pp.DeviceFilterAgg, cfg) -> Optional[MicroPartition]:
+    """A DeviceUdfProject feeding this DeviceFilterAgg, fused: each
+    (coalesced) batch dispatches the UDF and hands its output plane to the
+    aggregate's program in the same dispatch (ops/udf_stage.py
+    ``FusedUdfAggFeeder``), so the UDF's column never comes back to the
+    host. Only for a UDF of a numeric return dtype that the aggregate reads;
+    every check that fails returns None before any input runs. A failure
+    raises: nothing reruns on the host."""
+    from ..device.residency import manager as _residency
+    from ..ops import counters
+    from ..ops.region import node_region_ops, unwrap_udf_agg_input
+    from ..ops.stage import try_build_filter_agg_stage
+    from ..ops.udf_stage import DeviceUdfStage, FusedUdfAggFeeder
+    from ..utils.torch_setup import resolve_device
+
+    udf_node, rename = unwrap_udf_agg_input(node.input)
+    if udf_node is None:
+        return None
+    call = pp.device_udf_call(udf_node.udf_expr)
+    agg_stage = try_build_filter_agg_stage(node.input.schema, node.predicate,
+                                           node.aggregations)
+    if call is None or agg_stage is None:
+        return None
+    internal = udf_node.udf_expr.name()
+    # the aggregate's columns: the UDF's output plane, and the UDF node's
+    # other inputs under their source names
+    udf_cols = [c for c in agg_stage._input_cols if rename.get(c) == internal]
+    other = {c: rename.get(c, c) for c in agg_stage._input_cols
+             if rename.get(c) != internal}
+    if not udf_cols or not all(node.input.schema[c].dtype.is_numeric() for c in udf_cols):
+        return None
+    if not set(other.values()) <= set(udf_node.input.schema.column_names()):
+        return None
+    device = resolve_device(cfg.device)
+    udf_stage = DeviceUdfStage(call.func, call.args, internal)
+    d0 = counters.device_stage_batches
+    agg_run = agg_stage.start_run(device)
+    with _residency().pin_scope():
+        feeder = FusedUdfAggFeeder(udf_stage.start_run(device), agg_run, udf_cols, other,
+                                   f32=not agg_stage._use_f64)
+        _feed_stream(_exec(udf_node.input), feeder.feed_batch, cfg)
+        final = agg_run.finalize()
+    # the UDF fed the aggregate in the same dispatch: one more fused op
+    _note_region(node, ("udf",) + node_region_ops(node), counters.device_stage_batches - d0)
+    return _ungrouped_output(node.schema, agg_stage, final)
 
 
 def _ungrouped_output(schema, stage, final) -> MicroPartition:

@@ -8,7 +8,8 @@ comparisons, division by zero is null, and/or are Kleene, and a null
 IfElse predicate gives null. ``is_in`` is never null: a null row is true
 only when the item values hold a null (Arrow's ``is_in`` followed by
 ``fill_null(False)``, as the reference evaluates it). The string and date
-functions are null on a null row, as Arrow's kernels.
+functions are null on a null row, as Arrow's kernels. A UDF call runs its
+function on the host (udf/expr.py ``UdfCall.eval_host``).
 """
 
 from __future__ import annotations
@@ -89,6 +90,10 @@ def eval_expression(batch, expr: Expression) -> Series:
     if isinstance(expr, AggExpr):
         raise ValueError(f"aggregation expression {expr!r} cannot be evaluated in a "
                          "projection context; use .agg()/groupby")
+    from ..udf.expr import UdfCall
+
+    if isinstance(expr, UdfCall):
+        return expr.eval_host([eval_expression(batch, a) for a in expr.args], batch.num_rows)
     raise ValueError(f"cannot evaluate expression node {type(expr).__name__}")
 
 

@@ -4,7 +4,9 @@ subset the grouped-aggregation and join slices need): ``col``, ``lit``
 ``&``, ``|``, ``~``, null tests, ``IfElse``, ``IsIn``, ``AggExpr`` with
 sum, count, mean, min, max and count_distinct, ``Between``, and the
 ``Function`` calls ``.str.startswith``, ``.str.endswith``, ``.str.contains``,
-``.str.left``, ``.str.like``, ``.str.substr`` and ``.dt.year``. ``transform`` rewrites a tree bottom-up (the
+``.str.left``, ``.str.like``, ``.str.substr`` and ``.dt.year``, and UDF
+calls (udf/expr.py ``UdfCall``, ``Expression.apply``). ``transform``
+rewrites a tree bottom-up (the
 join capture substitutes projections and hoists dim-only subexpressions
 with it).
 
@@ -68,6 +70,11 @@ class Expression:
 
     def has_agg(self) -> bool:
         return any(isinstance(n, AggExpr) for n in self.walk())
+
+    def has_udf(self) -> bool:
+        from ..udf.expr import UdfCall
+
+        return any(isinstance(n, UdfCall) for n in self.walk())
 
     def is_literal_true(self) -> bool:
         return isinstance(self, Literal) and self.value is True
@@ -167,6 +174,14 @@ class Expression:
         else:
             items = [v if isinstance(v, Expression) else lit(v) for v in values]
         return IsIn(self, items)
+
+    def apply(self, fn: Callable, return_dtype: DataType) -> "Expression":
+        """A row UDF of ``fn`` over this expression."""
+        from ..udf.expr import UdfCall
+        from ..udf.udf import Func
+
+        f = Func(fn=fn, return_dtype=return_dtype, name=getattr(fn, "__name__", "apply"))
+        return UdfCall(f, [self], {})
 
     @property
     def str(self) -> "StringNamespace":

@@ -44,6 +44,12 @@ show which path a query took:
   ``hbm_stable_rehits``: hits through a content key, the slot rebound to a
   new Series of equal content; ``fingerprint_ms``: host milliseconds spent
   computing content fingerprints (``Series.content_fingerprint``, a float);
+- ``device_udf_dispatches`` / ``device_udf_rows``: device-UDF calls (one
+  per chunk of at most ``Func.batch_size`` rows) and their real rows;
+  ``device_udf_runs``: device-UDF runs finalized (one copy back each);
+  ``device_udf_weight_h2d_bytes``:
+  weight bytes put on a stage's device (made into tensors on a CPU device;
+  ops/udf_stage.py);
 - ``launches_<kernel>``: one per launch of a hand-written kernel, bumped by
   its wrapper (ops/segment_kernels.py, ops/probe_kernels.py,
   ops/permute_kernels.py) where it launches and nowhere else;
@@ -78,7 +84,9 @@ COUNTER_NAMES = ("device_grouped_batches", "device_stage_batches", "device_join_
                  "scan_tasks_merged", "scan_batches", "scan_rows", "scan_row_groups",
                  "scan_row_groups_pruned",
                  "scan_files_pruned", "scan_decode_ms", "scan_filter_ms", "hbm_cache_hits",
-                 "hbm_cache_misses", "hbm_stable_rehits", "fingerprint_ms") + tuple(
+                 "hbm_cache_misses", "hbm_stable_rehits", "fingerprint_ms",
+                 "device_udf_dispatches", "device_udf_rows", "device_udf_runs",
+                 "device_udf_weight_h2d_bytes") + tuple(
     f"{kind}_{k}" for kind in ("launches", "plain") for k in KERNEL_NAMES)
 
 _LOCK = threading.Lock()

@@ -20,8 +20,9 @@ identical by construction: host evaluation is compositional, so
 Project(a*b) -> Filter(p) -> Agg(sum) would.
 
 What each candidate must hold:
-- absorbed expressions hold no aggregation (the port has no UDF or window
-  expressions yet; the UDF tier extends ``_expr_absorbable``);
+- absorbed expressions hold no aggregation and no UDF call (a UDF ends the
+  region at its UDFProject; a device UDF's stage then fuses with an
+  ungrouped aggregate at run time, ops/udf_stage.py ``FusedUdfAggFeeder``);
 - successive Filters AND-compose (Kleene: null AND true is null, which
   drops the row, as sequential filtering drops it at the first filter that
   is not true);
@@ -100,8 +101,10 @@ def _substitute(e: Expression, mapping: Dict[str, Expression]) -> Expression:
 
 
 def _expr_absorbable(e: Expression) -> bool:
-    # the UDF tier adds its calls (and the window functions theirs) here
-    return not any(isinstance(n, AggExpr) for n in e.walk())
+    from ..udf.expr import UdfCall
+
+    # the window functions add theirs here (ROADMAP Queue 1 item 4)
+    return not any(isinstance(n, (AggExpr, UdfCall)) for n in e.walk())
 
 
 def _chain_below(agg_input) -> List:
@@ -227,3 +230,24 @@ def node_region_ops(node) -> Tuple[str, ...]:
     if getattr(node, "predicate", None) is not None:
         return ("filter", "agg")
     return ("agg",)
+
+
+def unwrap_udf_agg_input(agg_input):
+    """(udf_node, rename) when ``agg_input`` is a DeviceUdfProject, or a
+    column-only Project over one (the rename ``rule_split_udfs`` leaves; the
+    region capture absorbs it at plan time, so the Project arm serves
+    region_mode="off"). ``rename`` maps each column the aggregate sees to its
+    name in the UDF node's output. (None, None) for any other shape."""
+    from ..plan import physical as pp
+
+    if isinstance(agg_input, pp.DeviceUdfProject):
+        return agg_input, {c: c for c in agg_input.schema.column_names()}
+    if isinstance(agg_input, pp.Project) and isinstance(agg_input.input, pp.DeviceUdfProject):
+        rename = {}
+        for e in agg_input.projection:
+            ref = _strip_alias(e)
+            if not isinstance(ref, ColumnRef):
+                return None, None
+            rename[e.name()] = ref.name()
+        return agg_input.input, rename
+    return None, None

@@ -1,9 +1,10 @@
 """Logical plan nodes (counterpart of daft_tpu/plan/logical.py, the subset the
 port's slices need): an in-memory source, a scan over files (``ScanSource``,
 whose pushdowns the optimizer's scan rules attach), a write (``Sink``),
-Filter (with the pruning pass's
-``keep``), Project, Aggregate, Sort, Limit, Offset, TopN (a Sort with a
-Limit, made by plan/optimizer.py ``rule_detect_topn``), Join (inner, left,
+Filter (with the pruning pass's ``keep``), Project, UDFProject (a
+projection the optimizer's ``rule_split_udfs`` isolated around one UDF),
+Aggregate, Sort, Limit, Offset, TopN (a Sort with a Limit, made by
+plan/optimizer.py ``rule_detect_topn``), Join (inner, left,
 semi, anti and cross), Distinct and Repartition. Each node computes its
 output schema on construction, so a type error surfaces where the DataFrame
 method is called.
@@ -149,6 +150,27 @@ class Project(_Unary):
 
     def describe(self) -> str:
         return f"Project[{', '.join(e.name() for e in self.projection)}]"
+
+
+class UDFProject(_Unary):
+    """A projection isolated because it holds a UDF (the optimizer's
+    ``rule_split_udfs``): the passthrough columns, then the one UDF
+    expression."""
+
+    def __init__(self, input: LogicalPlan, udf_expr: Expression,
+                 passthrough: List[Expression]):
+        fields = [e.to_field(input.schema) for e in passthrough]
+        fields.append(udf_expr.to_field(input.schema))
+        super().__init__(Schema(fields))
+        self.input = input
+        self.udf_expr = udf_expr
+        self.passthrough = list(passthrough)
+
+    def with_children(self, children):
+        return UDFProject(children[0], self.udf_expr, self.passthrough)
+
+    def describe(self) -> str:
+        return f"UDFProject[{self.udf_expr.name()}]"
 
 
 class Aggregate(_Unary):

@@ -15,7 +15,9 @@ the batch's pass limit is reached:
    (``prune_columns``) and the greedy join reorder
    (``reorder_joins_global``);
 3. physical-prep (3 passes): Limit(Sort) and Limit(Offset(Sort)) become a
-   TopN.
+   TopN, and each UDF call in a Project is isolated into a UDFProject of its
+   own (``rule_split_udfs``). A filter conjunct holding a UDF stays above a
+   join and above a Project, and a Limit stays above a Project holding one.
 
 ``DataFrame.collect`` optimizes every plan before ``translate``, as the
 reference's does; nothing is cached between collects.
@@ -23,10 +25,9 @@ reference's does; nothing is cached between collects.
 The scan rules (``rule_push_filter_into_scan``, which keeps the Filter
 above the scan; ``rule_push_limit_into_scan``; ``rule_column_pruning``)
 and ``_prune``'s ScanSource branch attach a ``ScanSource``'s pushdowns.
-Left for the modules that bring them (the rules do not fire on a plan
-without windows or UDFs, so no TPC-H plan differs from the reference's for
-their absence): ``rule_extract_windows`` with windows (ROADMAP Queue 1
-item 4); ``rule_split_udfs`` with the UDF tier (item 5).
+Left for the module that brings it (the rule does not fire on a plan
+without windows, so no TPC-H plan differs from the reference's for its
+absence): ``rule_extract_windows`` with windows (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -419,8 +420,10 @@ def rule_push_filter_through_join(node: lp.LogicalPlan) -> Optional[lp.LogicalPl
     derived_left: List[Expression] = []
     derived_right: List[Expression] = []
 
-    # (the UDF tier adds its "a UDF conjunct stays above" check here)
     for conj in _split_conjuncts(node.predicate):
+        if conj.has_udf():  # a UDF runs above the join, on the rows it gives
+            remaining.append(conj)
+            continue
         refs = set(conj.referenced_columns())
         if refs <= left_cols and push_left:
             left_push.append(conj)
@@ -442,6 +445,8 @@ def rule_push_filter_through_join(node: lp.LogicalPlan) -> Optional[lp.LogicalPl
                 side_parts = []
                 for p in _split_conjuncts(d):
                     prefs = set(p.referenced_columns())
+                    if p.has_udf():
+                        continue
                     if side == "l" and prefs <= left_cols:
                         side_parts.append(p)
                     elif side == "r" and prefs <= right_cols:
@@ -485,6 +490,8 @@ def rule_push_filter_through_project(node: lp.LogicalPlan) -> Optional[lp.Logica
             inner = inner.child
         if isinstance(inner, ColumnRef):
             mapping[e.name()] = inner._name
+    if node.predicate.has_udf():
+        return None
     if not set(node.predicate.referenced_columns()) <= set(mapping):
         return None
     return lp.Project(lp.Filter(proj.input, _rename_refs(node.predicate, mapping)),
@@ -492,10 +499,12 @@ def rule_push_filter_through_project(node: lp.LogicalPlan) -> Optional[lp.Logica
 
 
 def rule_push_limit_through(node: lp.LogicalPlan) -> Optional[lp.LogicalPlan]:
-    """Limit(Project) -> Project(Limit): a Project keeps the row count."""
+    """Limit(Project) -> Project(Limit): a Project keeps the row count (one
+    holding a UDF stays above, as in the reference)."""
     if isinstance(node, lp.Limit) and isinstance(node.input, lp.Project):
         proj = node.input
-        return lp.Project(lp.Limit(proj.input, node.limit), proj.projection)
+        if not any(e.has_udf() for e in proj.projection):
+            return lp.Project(lp.Limit(proj.input, node.limit), proj.projection)
     return None
 
 
@@ -517,6 +526,47 @@ def _projection_is_passthrough(projection: List[Expression], input_schema) -> bo
     if len(projection) != len(names):
         return False
     return all(isinstance(e, ColumnRef) and e._name == n for e, n in zip(projection, names))
+
+
+def _contains_device_udf(expr: Expression) -> bool:
+    """True when a UDF call inside ``expr`` is a device Func (a structural
+    check: it imports nothing of the device tier)."""
+    from ..udf.expr import UdfCall
+
+    return any(isinstance(sub, UdfCall) and sub.func.on_device for sub in expr.walk())
+
+
+def rule_split_udfs(node: lp.LogicalPlan) -> Optional[lp.LogicalPlan]:
+    """Isolate each UDF-bearing expression of a Project into a UDFProject of
+    its own, stacked, so opaque Python never breaks a device stage's fusion.
+    Every UDF is extracted in one application; each output gets an internal
+    name (``__udf__<name>``, prefixed with "_" while taken) that a Project
+    above renames back, so a sibling reading an input of the same name is
+    unaffected. A lone host-UDF projection stays as it is (isolation gains
+    nothing); a lone device-UDF one is split all the same, so the planner
+    can take it to the device tier."""
+    if not isinstance(node, lp.Project):
+        return None
+    udf_exprs = [e for e in node.projection if e.has_udf()]
+    if not udf_exprs:
+        return None
+    if len(node.projection) == len(udf_exprs) == 1 \
+            and not _contains_device_udf(udf_exprs[0]):
+        return None
+    current = node.input
+    projection = list(node.projection)
+    for target in udf_exprs:
+        out_name = target.name()
+        input_cols = current.schema.column_names()
+        taken = set(input_cols) | {e.name() for e in projection}
+        internal = f"__udf__{out_name}"
+        while internal in taken:
+            internal = "_" + internal
+        current = lp.UDFProject(current, target.alias(internal),
+                                [col(c) for c in input_cols])
+        projection = [col(internal).alias(out_name) if e is target else e
+                      for e in projection]
+    return lp.Project(current, projection)
 
 
 def rule_drop_noop_project(node: lp.LogicalPlan) -> Optional[lp.LogicalPlan]:
@@ -593,6 +643,13 @@ def _prune(node: lp.LogicalPlan, needed: Optional[List[str]]) -> lp.LogicalPlan:
         if needed is not None:
             proj = [e for e in proj if e.name() in set(needed)] or node.projection[:1]
         return lp.Project(_prune(node.input, _refs(proj)), proj)
+
+    if isinstance(node, lp.UDFProject):
+        passthrough = node.passthrough
+        if needed is not None:
+            passthrough = [e for e in passthrough if e.name() in set(needed)]
+        child = _prune(node.input, _ordered_union(_refs([node.udf_expr]), _refs(passthrough)))
+        return lp.UDFProject(child, node.udf_expr, passthrough)
 
     if isinstance(node, lp.Filter):
         child = _prune(node.input, None if needed is None
@@ -875,7 +932,7 @@ def default_rule_batches(config=None) -> List[RuleBatch]:
         ]),
         RuleBatch("physical-prep", [
             rule_detect_topn,
-            # rule_extract_windows: windows (item 4)
-            # rule_split_udfs: the UDF tier (item 5)
+            # rule_extract_windows: windows (ROADMAP Queue 1 item 4)
+            rule_split_udfs,
         ], max_passes=3),
     ]

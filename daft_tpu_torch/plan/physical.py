@@ -4,8 +4,10 @@ slices need).
 
 ``translate`` lowers each logical node to the node the executor interprets
 (a ScanSource to a ``StreamingScan`` over its operator's tasks, a Sink to a
-``PhysWrite``). The device decisions made here are the reference's Aggregate captures
-(physical.py:557-632), in its order:
+``PhysWrite``). A UDFProject whose UDF is a device Func becomes a
+``DeviceUdfProject`` unless device_mode is "off". The device decisions made
+for an Aggregate are the reference's captures (physical.py:557-632), in its
+order:
 
 1. the star join: an Aggregate (grouped or not) over [Project]* <-
    [Filter]* <- an inner-join tree that ``try_capture_join_agg`` accepts
@@ -99,6 +101,43 @@ class Project(_Unary):
     def __init__(self, input: PhysicalPlan, projection: List[Expression], schema: Schema):
         super().__init__(input, schema)
         self.projection = projection
+
+
+class UDFProject(_Unary):
+    """The passthrough columns and one UDF column, evaluated on the host."""
+
+    def __init__(self, input: PhysicalPlan, udf_expr: Expression,
+                 passthrough: List[Expression], schema: Schema):
+        super().__init__(input, schema)
+        self.udf_expr = udf_expr
+        self.passthrough = passthrough
+
+
+class DeviceUdfProject(UDFProject):
+    """A UDFProject whose UDF is a device Func (``on_device=True``): the
+    device-UDF tier (ops/udf_stage.py) runs it with its weights resident,
+    morsels coalesced and one copy back per run, or, feeding an ungrouped
+    device aggregate, fused into that stage's dispatches
+    (execution/executor.py ``_try_fused_udf_agg``)."""
+
+    def name(self) -> str:
+        return f"DeviceUdfProject({self.udf_expr.name()})"
+
+
+def device_udf_call(expr: Expression):
+    """The UdfCall at the root of ``expr`` (aliases unwrapped) when it is a
+    device Func call with arguments and no keyword arguments, the shape the
+    device tier runs; else None. Structural only: a plan of host UDFs
+    imports nothing of the tier."""
+    from ..expressions.expressions import Alias
+    from ..udf.expr import UdfCall
+
+    e = expr
+    while isinstance(e, Alias):
+        e = e.child
+    if not isinstance(e, UdfCall) or not e.func.on_device or e.kwargs or not e.args:
+        return None
+    return e
 
 
 class PhysFilter(_Unary):
@@ -295,6 +334,10 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
         return PhysWrite(translate(plan.input), plan.info, plan.schema)
     if isinstance(plan, lp.Project):
         return Project(translate(plan.input), plan.projection, plan.schema)
+    if isinstance(plan, lp.UDFProject):
+        node = DeviceUdfProject if cfg.device_mode != "off" \
+            and device_udf_call(plan.udf_expr) is not None else UDFProject
+        return node(translate(plan.input), plan.udf_expr, plan.passthrough, plan.schema)
     if isinstance(plan, lp.Filter):
         return PhysFilter(translate(plan.input), plan.predicate, plan.schema, plan.keep)
     if isinstance(plan, lp.Sort):

@@ -31,6 +31,8 @@ def _dtype_width(dt) -> int:
         return 1
     if dt.is_string():
         return 24
+    if dt.is_list():
+        return 64
     return 8
 
 

@@ -628,3 +628,105 @@ def test_scan_kernel_cases_get_the_runs_inputs(scan_files, monkeypatch, cell):
         got = pk.hash_probe_index_plain(p_keys, p_valid, table)
         n = want["index"].numel()
         assert torch.equal(got[:n], want["index"]) and bool((got[n:] == -1).all())
+
+
+AI_SMALL = {"vocab": 2048, "dim": 48, "layers": 2, "heads": 4, "max_len": 128}
+
+
+@pytest.fixture
+def ai_small(monkeypatch):
+    """chip_smoke.py's ai cells at a small size on the CPU: 2,048 texts over
+    a 2,000-word vocabulary in morsels of 512, a seeded model of small
+    widths under its own name. Returns (cs, texts, frame, model)."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+    from daft_tpu_torch.device.residency import manager
+
+    model = "chip-smoke-ai-small"
+    cs.install_ai_model(model, AI_SMALL)
+    texts = cs.ai_corpus(cs.SEED, 2048, cs.ai_words(2000))
+    manager().clear()
+    return cs, texts, cs.ai_frame(texts), model
+
+
+def test_ai_corpus_is_seeded_and_shaped(ai_small):
+    cs, texts, frame, _model = ai_small
+    again = cs.ai_corpus(cs.SEED, 2048, cs.ai_words(2000))
+    assert again == texts
+    words = [len(t.split()) for t in texts if t]
+    assert min(words) >= 8 and max(words) <= 64
+    assert 0 < sum(t is None for t in texts) < 60 and 0 < sum(t == "" for t in texts) < 40
+    assert len(set(cs.ai_words())) == cs.AI_WORDS
+    part = frame._plan.partitions[0]
+    assert [b.num_rows for b in part.batches] == [512] * 4
+
+
+def test_ai_cells_match_their_oracles(ai_small):
+    """embed: nulls where the text is null, unit rows; classify's counts
+    equal the oracle's argmax of the embed cell's own embeddings against
+    the label matrix; the fused UDF -> sum equals its oracle and fuses."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ai import torch_provider as tp
+    from daft_tpu_torch.ops import counters
+
+    cs, texts, frame, model = ai_small
+    with dt.execution_config_ctx(device="cpu", device_mode="on"):
+        counters.reset()
+        out = cs.ai_embed_query(frame, model).to_pydict()
+        assert counters.device_udf_dispatches == 2 < counters.coalesce_morsels_in == 4
+        got = cs.ai_classify_query(frame, model).to_pydict()
+    assert [v is None for v in out["e"]] == [t is None for t in texts]
+    e = np.asarray([v for v in out["e"] if v is not None], dtype=np.float32)
+    assert np.abs(np.linalg.norm(e, axis=1) - 1).max() <= 1e-5
+    want, labels, _close = cs.ai_classify_oracle(
+        out["e"], tp.label_matrix(tp.embedder_for(model), cs.AI_LABELS))
+    assert got == want and got["label"][-1] is None
+    assert len(labels) == len(texts)
+
+    rng = np.random.default_rng(5)
+    price = np.round(rng.uniform(900, 100_000, 5000), 2)
+    score, w = cs.ai_score_func()
+    frame = dt.from_pydict({"l_extendedprice": price, "l_quantity": np.ones(5000)})
+    with dt.execution_config_ctx(device="cpu", device_mode="on"):
+        counters.reset()
+        fused = cs.ai_fused_query(frame, score).to_pydict()
+        assert counters.device_udf_runs == 0 and counters.device_stage_batches == 1
+        assert cs.count_uploads(lambda: cs.ai_fused_query(frame, score).to_pydict()) == 0
+    assert cs.same_result(fused, cs.ai_fused_oracle(price, w), ("s",))
+
+
+def test_ai_kernel_cases_get_the_runs_inputs(ai_small, monkeypatch):
+    """chip_smoke.py's kernel cases at the classify cell's inputs feed K1 and
+    K2 what the classify run's grouped stage passes them: its label codes
+    (first occurrence, a null its own code) at its cap, the counted rows'
+    plane and the first-row index, tensor for tensor."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col
+    from daft_tpu_torch.functions.ai import classify_text
+    from daft_tpu_torch.ops import segment_kernels as sk
+
+    cs, texts, frame, model = ai_small
+    seen = {}
+    for name in ("segment_sum_planes", "segment_extreme_planes"):
+        def record(*args, _name=name, _fn=getattr(sk, name)):
+            seen.setdefault(_name, []).append(args)
+            return _fn(*args)
+        monkeypatch.setattr(sk, name, record)
+    with dt.execution_config_ctx(device="cpu", device_mode="on"):
+        cs.ai_classify_query(frame, model).to_pydict()
+        labels = frame.select(classify_text(col("text"), cs.AI_LABELS, provider="torch",
+                                            model=model).alias("l")).to_pydict()["l"]
+    want = cs.ai_classify_inputs(labels, torch.device("cpu"))
+    assert want["groups"] == len(set(labels)) and want["cap"] == 8
+
+    def same(a, b):
+        return len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                        for x, y in zip(a, b))
+    ((k1_planes, k1_codes, k1_cap),) = seen["segment_sum_planes"]
+    assert k1_cap == want["cap"] and torch.equal(k1_codes, want["codes"])
+    assert same(k1_planes, want["planes"])
+    ((k2_planes, k2_codes, _cap, k2_op),) = seen["segment_extreme_planes"]
+    assert k2_op == "min" and same(k2_planes, want["first"])
+    assert torch.equal(k2_codes, want["codes"])

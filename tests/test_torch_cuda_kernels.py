@@ -2,8 +2,8 @@
 hash probe, K6 mesh exchange) against their plain PyTorch versions, and
 grouped queries (integer, float, f64 and 150,000 groups), an ungrouped
 query, star join queries (the join TopN's row order among them), a fused
-region and one mesh repartition through them against the host path, on
-the card. Marked ``cuda``: skipped where no card
+region and one mesh repartition through them against the host path, and
+the text encoder of the device-UDF tier against the CPU, on the card. Marked ``cuda``: skipped where no card
 is present.
 
 Run on a machine with the card (tests/conftest.py imports JAX, which that
@@ -1096,3 +1096,69 @@ def test_fused_region_on_card_matches_host(cuda):
     for other in (want, unfused):
         assert got["k"] == other["k"] and got["s"] == other["s"] and got["lo"] == other["lo"]
         np.testing.assert_allclose(got["t"], other["t"], rtol=1e-5)
+
+
+def test_embed_on_card_matches_cpu(cuda):
+    """embed_text on the device-UDF tier on the card against the same query
+    on the CPU (device_mode="off"): nulls in the same rows, every value
+    within 1e-5; classify -> groupby through the grouped stage's K1 there."""
+    from daft_tpu_torch.functions.ai import classify_text, embed_text
+
+    col = daft_tpu_torch.col
+    rng = np.random.default_rng(8)
+    texts = [" ".join(f"w{j}" for j in rng.integers(0, 500, rng.integers(1, 60)))
+             for _ in range(300)] + [None, ""]
+    df = daft_tpu_torch.from_pydict({"id": list(range(len(texts))), "t": texts})
+
+    def q():
+        return df.select(col("id"), embed_text(col("t"), provider="torch",
+                                                batch_size=128).alias("e")).to_pydict()
+
+    with daft_tpu_torch.execution_config_ctx(device_mode="off"):
+        want = q()
+    counters.reset()
+    with daft_tpu_torch.execution_config_ctx(device="cuda", device_min_rows=1):
+        got = q()
+        assert counters.snapshot()["device_udf_dispatches"] == 3
+        counts = (df.select(col("id"), classify_text(col("t"), ["a", "b", "c"],
+                                                     provider="torch").alias("l"))
+                  .groupby("l").agg(col("id").count().alias("n")).to_pydict())
+    assert sum(counts["n"]) == len(texts)
+    assert counters.snapshot()["launches_segment_sum_planes"] >= 1
+    assert [v is None for v in got["e"]] == [v is None for v in want["e"]]
+    err = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+              for a, b in zip(got["e"], want["e"]) if a is not None)
+    assert err <= 1e-5, err
+
+
+def test_device_udf_off_the_stage_runs_on_the_card(cuda):
+    """A device UDF the planner makes no stage of (inside an expression, a
+    filter, an aggregation) and the eager embedder run on the card under the
+    default device_mode, and on the CPU under device_mode="off", with the
+    same results."""
+    from daft_tpu_torch.ai import get_provider
+
+    col = daft_tpu_torch.col
+    seen = []
+
+    def fn(params, x):
+        seen.append(x.device.type)
+        return x * params["w"]
+
+    f = daft_tpu_torch.func(fn, on_device=True, return_dtype=daft_tpu_torch.DataType.float32(),
+                            device_params=lambda: {"w": np.float32(3.0)})
+    df = daft_tpu_torch.from_pydict({"x": [1.0, 2.0, 3.0, 4.0]})
+    shapes = [lambda: df.select((f(col("x")) * 2).alias("y")),
+              lambda: df.where(f(col("x")) > 7.0),
+              lambda: df.agg(f(col("x")).sum().alias("s"))]
+    texts = ["a b c", "", "d e"]
+    for mode, kind in (("on", "cuda"), ("off", "cpu")):
+        seen.clear()
+        with daft_tpu_torch.execution_config_ctx(device="cuda", device_mode=mode):
+            got = [q().to_pydict() for q in shapes]
+            vecs = np.stack(get_provider("torch").get_text_embedder().embed_text(texts))
+        assert got == [{"y": [6.0, 12.0, 18.0, 24.0]}, {"x": [3.0, 4.0]}, {"s": [30.0]}]
+        assert seen and set(seen) == {kind}, (mode, seen)
+        if mode == "on":
+            on_card = vecs
+    assert float(np.abs(on_card - vecs).max()) <= 1e-5

@@ -2,12 +2,14 @@
 
 - a port query, the grouped one, the TPC-H q12 and q14 star joins, a fused
   region over a semi join, the mesh repartition, TPC-H q12 in SQL
-  (``daft_tpu_torch.sql``) and a query that writes and reads Parquet and
-  CSV files alike, imports neither
+  (``daft_tpu_torch.sql``), a query that writes and reads Parquet and
+  CSV files, and embed, classify and a fused device UDF on the device-UDF
+  tier alike, imports neither
   JAX, nor pyarrow, nor anything of
   daft_tpu (checked in a fresh interpreter: tests/conftest.py imports JAX
   into this one);
-- with no card, a query left at the default device ("cuda") raises;
+- with no card, a query left at the default device ("cuda") raises, an
+  embed query too;
 - a kernel wrapper that raises makes the query raise: no host result (the
   grouped stage's K1, the repartition's K6);
 - ``from_numpy_columns`` reproduces the reference's columns.
@@ -384,3 +386,54 @@ def test_port_file_query_imports_no_jax_pyarrow_or_reference():
                           capture_output=True, text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+_EMBED_QUERY = """
+import sys
+import numpy as np
+sys.path.insert(0, {repo!r})
+import daft_tpu_torch as dt
+from daft_tpu_torch import col
+from daft_tpu_torch.functions.ai import classify_text, embed_text
+df = dt.from_pydict({{"id": list(range(40)), "t": [f"w{{i % 7}} x{{i % 3}}" for i in range(40)]}})
+score = dt.func(lambda params, x: x * params["w"].sum(), on_device=True,
+                return_dtype=dt.DataType.float32(), device_params=lambda: {{"w": np.array([1.0, 2.0], np.float32)}},
+                device_key="isolation_score")
+with dt.execution_config_ctx(device="cpu", device_mode="on", device_min_rows=1):
+    e = df.select(col("id"), embed_text(col("t"), provider="torch").alias("e")).to_pydict()
+    n = (df.select(col("id"), classify_text(col("t"), ["a", "b"], provider="torch").alias("l"))
+         .groupby("l").agg(col("id").count().alias("n")).to_pydict())
+    s = df.select(score(col("id").cast(dt.DataType.float32())).alias("s")).agg(
+        col("s").sum().alias("ss")).to_pydict()
+assert len(e["e"]) == 40 and sum(n["n"]) == 40 and s["ss"] == [2340.0], (n, s)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow", "transformers")
+             or m.startswith(("jax.", "pyarrow.", "daft_tpu.", "transformers."))
+             or m == "daft_tpu")
+print("FORBIDDEN", bad)
+"""
+
+
+def test_port_embed_query_imports_no_jax_pyarrow_or_reference():
+    """embed, classify -> groupby and a fused device UDF -> sum through the
+    device-UDF tier import no JAX, pyarrow, reference (nor transformers: no
+    checkpoint is on disk), in a fresh interpreter."""
+    proc = subprocess.run([sys.executable, "-c", _EMBED_QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+def test_device_udf_query_without_card_raises(monkeypatch):
+    """An embed query left at the default device raises with no card; under
+    device_mode="off" it runs on the CPU."""
+    from daft_tpu_torch.functions.ai import embed_text
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    df = daft_tpu_torch.from_pydict({"t": ["a b", "c"]})
+    q = df.select(embed_text(col("t"), provider="torch").alias("e"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        q.to_pydict()
+    with daft_tpu_torch.execution_config_ctx(device_mode="off"):
+        assert len(df.select(embed_text(col("t"), provider="torch").alias("e"))
+                   .to_pydict()["e"]) == 2
