@@ -183,7 +183,23 @@ error (no phase catches its own failure):
             and q3 over Parquet, whose join TopN takes the host plan for a
             fact of many morsels (the fallback's reason printed). The scan
             cells' coalescer flushes by size alone (SCAN_FLUSH_MS);
-17. ai:     the UDF tier (daft_tpu_torch/ops/udf_stage.py) and the torch
+17. pipeline: the pipelined executor (daft_tpu_torch/execution/pipeline.py;
+            pipeline_mode "on", the default every other phase runs under)
+            against the sequential one ("off"), over the scan phase's files:
+            q1, q6, q12, q14 and q3 over Parquet, q5 in SQL with its dims
+            from CSV, and the in-memory supplier, q1 and q12 cells, each in
+            turns off, on, on, off (two rounds; q3 and q5 one, q5 cold and
+            warm in each mode), counted from zero each run: every run equal
+            to the cell's result (held to its numpy oracle) and to the other
+            mode's, its stage counter above 0, in "on" every kernel call and
+            device feed made from the thread the plan puts it on (a stage
+            thread for a device node under a stage node), and after each
+            run no stage thread alive and no residency pin held; each
+            cell's warm medians in both modes and the scan tasks read at
+            once; the host's cores and the compute pool's width; q5's host
+            joins timed before (the per-batch join) and after the
+            build-once probe; file-fed q1 under "on" in torch.profiler;
+18. ai:     the UDF tier (daft_tpu_torch/ops/udf_stage.py) and the torch
             provider's encoder at sentence-transformers/all-MiniLM-L6-v2's
             widths (vocab 30,522, hidden 384, 6 layers, 12 heads, FFN
             1,536, max_len 128), seeded weights (about 90 MB) put in the
@@ -208,7 +224,7 @@ error (no phase catches its own failure):
             DeviceUdfRun finalized, so the UDF plane never comes back; one
             aggregate finalize), equal to a numpy oracle (rtol 1e-5),
             uploading nothing warm;
-18. print the {"kernels": [...]} line (each kernel's launches by path:
+19. print the {"kernels": [...]} line (each kernel's launches by path:
    every cell's counted run, and the sql phase's SQL first runs, summed,
    under "sql"), the card line, and last the {"ok": true, "device":
    {...}} line.
@@ -235,9 +251,11 @@ from __future__ import annotations
 import datetime
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -3862,19 +3880,17 @@ def fingerprint_vs_upload(label: str, directory: str, columns, card: str) -> Non
           f"and code uploads {codes_ms:.3f} ms [{card}]", flush=True)
 
 
-def phase_scan(lineitem, orders, dims, cells: dict, card: str) -> dict:
+def phase_scan(lineitem, orders, dims, cells: dict, card: str, root: str):
     """The port's file path at SF1 on the card: write every table (Parquet,
-    snappy; the dims as CSV too), read each back equal to its in-memory
-    table, check the codec, then run q1 and q6 over read_parquet(lineitem),
-    q12 and q14 over lineitem with orders / part from Parquet, q5 in SQL
-    through current_session() (lineitem and orders from Parquet, the rest
-    from CSV), q6 over a copy of lineitem sorted by l_shipdate (zone maps
-    prune), and q3 over Parquet (its join TopN takes the host plan: the
-    fact arrives in morsels). Each result equals its in-memory cell
-    (``cells``). Returns {path: the cold run's launches}."""
-    import shutil
-    import tempfile
-
+    snappy; the dims as CSV too) under ``root``, read each back equal to its
+    in-memory table, check the codec, then run q1 and q6 over
+    read_parquet(lineitem), q12 and q14 over lineitem with orders / part
+    from Parquet, q5 in SQL through current_session() (lineitem and orders
+    from Parquet, the rest from CSV), q6 over a copy of lineitem sorted by
+    l_shipdate (zone maps prune), and q3 over Parquet (its join TopN takes
+    the host plan: the fact arrives in morsels). Each result equals its
+    in-memory cell (``cells``). Returns ({path: the cold run's launches},
+    {table: its directory}); the caller removes ``root``."""
     import numpy as np
 
     import daft_tpu_torch as dt
@@ -3882,94 +3898,90 @@ def phase_scan(lineitem, orders, dims, cells: dict, card: str) -> dict:
 
     phase("scan")
     clear_residency()
-    root = tempfile.mkdtemp(prefix="daft_tpu_torch_scan_")
     paths = {}
+    t0 = time.perf_counter()
+    frames = scan_tables(lineitem, orders, dims)
+    print(f"scan tables {time.perf_counter() - t0:.2f} s", flush=True)
+    dirs = scan_write(frames, root, card)
+    scan_read_back(frames, dirs, card)
+    scan_codec_check(dirs)
+    fingerprint_vs_upload("q1", dirs["lineitem"],
+                          ("l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
+                           "l_discount", "l_tax", "l_shipdate"), card)
+
+    def pq(name):
+        return dt.read_parquet(dirs[name])
+
+    clear_residency()
+    paths["scan_q1"] = scan_cell(
+        "scan q1", lambda: q1_query(pq("lineitem")),
+        ("segment_sum_float_planes", "segment_sum_planes", "segment_extreme_planes"),
+        cells["q1"], Q1_FLOATS, card, "device_grouped_batches")
+    clear_residency()
+    paths["scan_q6"] = scan_cell("scan q6", lambda: q6_query(pq("lineitem")), (),
+                                 cells["q6"], ("revenue",), card, "device_stage_batches")
+
+    def warm_k4(label):
+        def extra(snap, warm):
+            print(f"{label} K4 launches: cold build {snap['launches_hash_probe_build']}, "
+                  f"probe {snap['launches_hash_probe_index']}; 3 warm runs build "
+                  f"{warm['launches_hash_probe_build']}, probe "
+                  f"{warm['launches_hash_probe_index']}")
+        return extra
+
+    k4 = ("hash_probe_build", "hash_probe_index")
+    clear_residency()
+    paths["scan_q12"] = scan_cell(
+        "scan q12", lambda: q12_query(pq("lineitem"), pq("orders")),
+        k4 + ("segment_sum_planes", "segment_extreme_planes"), cells["q12"], (), card,
+        "device_join_batches", warm_k4("scan q12"))
+    clear_residency()
+    paths["scan_q14"] = scan_cell(
+        "scan q14", lambda: q14_query({"lineitem": pq("lineitem"), "part": pq("part")}),
+        k4, cells["q14"], ("promo_revenue",), card, "device_join_batches",
+        warm_k4("scan q14"))
+
+    sess = dt.current_session()
+    sess.create_temp_table("lineitem", pq("lineitem"))
+    sess.create_temp_table("orders", pq("orders"))
+    for name in SCAN_CSV:
+        sess.create_temp_table(name, dt.read_csv(dirs[f"{name}_csv"]))
+    clear_residency()
     try:
-        t0 = time.perf_counter()
-        frames = scan_tables(lineitem, orders, dims)
-        print(f"scan tables {time.perf_counter() - t0:.2f} s", flush=True)
-        dirs = scan_write(frames, root, card)
-        scan_read_back(frames, dirs, card)
-        scan_codec_check(dirs)
-        fingerprint_vs_upload("q1", dirs["lineitem"],
-                              ("l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
-                               "l_discount", "l_tax", "l_shipdate"), card)
-
-        def pq(name):
-            return dt.read_parquet(dirs[name])
-
-        clear_residency()
-        paths["scan_q1"] = scan_cell(
-            "scan q1", lambda: q1_query(pq("lineitem")),
-            ("segment_sum_float_planes", "segment_sum_planes", "segment_extreme_planes"),
-            cells["q1"], Q1_FLOATS, card, "device_grouped_batches")
-        clear_residency()
-        paths["scan_q6"] = scan_cell("scan q6", lambda: q6_query(pq("lineitem")), (),
-                                     cells["q6"], ("revenue",), card, "device_stage_batches")
-
-        def warm_k4(label):
-            def extra(snap, warm):
-                print(f"{label} K4 launches: cold build {snap['launches_hash_probe_build']}, "
-                      f"probe {snap['launches_hash_probe_index']}; 3 warm runs build "
-                      f"{warm['launches_hash_probe_build']}, probe "
-                      f"{warm['launches_hash_probe_index']}")
-            return extra
-
-        k4 = ("hash_probe_build", "hash_probe_index")
-        clear_residency()
-        paths["scan_q12"] = scan_cell(
-            "scan q12", lambda: q12_query(pq("lineitem"), pq("orders")),
-            k4 + ("segment_sum_planes", "segment_extreme_planes"), cells["q12"], (), card,
-            "device_join_batches", warm_k4("scan q12"))
-        clear_residency()
-        paths["scan_q14"] = scan_cell(
-            "scan q14", lambda: q14_query({"lineitem": pq("lineitem"), "part": pq("part")}),
-            k4, cells["q14"], ("promo_revenue",), card, "device_join_batches",
-            warm_k4("scan q14"))
-
-        sess = dt.current_session()
-        sess.create_temp_table("lineitem", pq("lineitem"))
-        sess.create_temp_table("orders", pq("orders"))
-        for name in SCAN_CSV:
-            sess.create_temp_table(name, dt.read_csv(dirs[f"{name}_csv"]))
-        clear_residency()
-        try:
-            # the CSV scans report no row estimate, so the join reorder keeps
-            # the comma list's order and the star join capture does not fire,
-            # in the reference as here: host joins into the grouped stage
-            # (profiled by its device activities alone: the host joins take
-            # the run, about 20 s on the card's host)
-            paths["scan_q5_sql"] = scan_cell(
-                "scan q5 sql", lambda: dt.sql(TPCH_SQL[5]),
-                ("segment_sum_planes", "segment_extreme_planes", "segment_sum_float_planes"),
-                cells["q5"], ("revenue",), card, "device_grouped_batches", host_ops=False)
-        finally:
-            for name in ("lineitem", "orders") + SCAN_CSV:
-                sess.drop_temp_table(name)
-
-        # q6 over lineitem sorted by l_shipdate: the zone maps can prune
-        batch = _frame_batch(frames["lineitem"])
-        order = np.argsort(lineitem["l_shipdate"], kind="stable")
-        t0 = time.perf_counter()
-        with dt_ctx():
-            sorted_path = dt.DataFrame(lp.InMemorySource(
-                batch.schema, [dt.MicroPartition(batch.schema, [batch.take(order)])])
-            ).write_parquet(os.path.join(root, "lineitem_sorted")).to_pydict()["path"][0]
-        print(f"write parquet lineitem sorted by l_shipdate: {os.path.getsize(sorted_path)} "
-              f"bytes, {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
-
-        def pruned(snap, _warm):
-            check(snap["scan_row_groups_pruned"] > 0,
-                  "q6 over the sorted lineitem pruned no row group")
-        clear_residency()
-        paths["scan_q6_sorted"] = scan_cell(
-            "scan q6 sorted", lambda: q6_query(dt.read_parquet(sorted_path)), (), cells["q6"],
-            ("revenue",), card, "device_stage_batches", pruned)
-
-        paths["scan_q3"] = scan_q3(pq, cells["q3"], card)
+        # the CSV scans report no row estimate, so the join reorder keeps
+        # the comma list's order and the star join capture does not fire,
+        # in the reference as here: host joins into the grouped stage
+        # (profiled by its device activities alone: the host joins take
+        # the run, about 20 s on the card's host)
+        paths["scan_q5_sql"] = scan_cell(
+            "scan q5 sql", lambda: dt.sql(TPCH_SQL[5]),
+            ("segment_sum_planes", "segment_extreme_planes", "segment_sum_float_planes"),
+            cells["q5"], ("revenue",), card, "device_grouped_batches", host_ops=False)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
-    return paths
+        for name in ("lineitem", "orders") + SCAN_CSV:
+            sess.drop_temp_table(name)
+
+    # q6 over lineitem sorted by l_shipdate: the zone maps can prune
+    batch = _frame_batch(frames["lineitem"])
+    order = np.argsort(lineitem["l_shipdate"], kind="stable")
+    t0 = time.perf_counter()
+    with dt_ctx():
+        sorted_path = dt.DataFrame(lp.InMemorySource(
+            batch.schema, [dt.MicroPartition(batch.schema, [batch.take(order)])])
+        ).write_parquet(os.path.join(root, "lineitem_sorted")).to_pydict()["path"][0]
+    print(f"write parquet lineitem sorted by l_shipdate: {os.path.getsize(sorted_path)} "
+          f"bytes, {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+
+    def pruned(snap, _warm):
+        check(snap["scan_row_groups_pruned"] > 0,
+              "q6 over the sorted lineitem pruned no row group")
+    clear_residency()
+    paths["scan_q6_sorted"] = scan_cell(
+        "scan q6 sorted", lambda: q6_query(dt.read_parquet(sorted_path)), (), cells["q6"],
+        ("revenue",), card, "device_stage_batches", pruned)
+
+    paths["scan_q3"] = scan_q3(pq, cells["q3"], card)
+    return paths, dirs
 
 
 def scan_q3(pq, want: dict, card: str) -> dict:
@@ -4007,6 +4019,322 @@ def scan_q3(pq, want: dict, card: str) -> dict:
           f"[{card}]", flush=True)
     plan_ms("scan q3", query, card)
     return launches
+
+
+PIPELINE_ROUNDS = 2  # rounds of (off, on, on, off) a pipeline cell runs; q3 and q5 one
+PIPELINE_MODES = ("off", "on", "on", "off")
+DEVICE_NODE_NAMES = ("DeviceGroupedAgg", "DeviceFilterAgg", "DeviceJoinAgg", "DeviceJoinTopN")
+# the kernel wrappers the stages call, and the executor's feed of a device
+# stage's batches, by module: a run's calls are recorded with their thread
+# (launch_threads)
+STAGE_WRAPPERS = {"segment_kernels": ("segment_sum_planes", "segment_extreme_planes",
+                                      "segment_extreme_int64", "segment_sum_float_planes"),
+                  "probe_kernels": ("build_probe_table", "hash_probe_index"),
+                  "executor": ("_feed_stream",)}
+
+
+def expected_launch_threads(plan) -> set:
+    """The threads a pipelined run of the physical ``plan`` calls its
+    kernels from: a stage thread for a device node that is a stage node or
+    is pulled by one (its generator runs on that stage's thread), the
+    caller's thread for one the consumer pulls itself (a device join run
+    at the root). A join run's host plan (its fallback) counts too."""
+    import threading
+
+    from daft_tpu_torch.execution.executor import _STAGE_NODES
+    from daft_tpu_torch.execution.pipeline import STAGE_THREAD_NAME
+
+    main = threading.current_thread().name
+    out = set()
+
+    def walk(node, staged):
+        staged = staged or isinstance(node, _STAGE_NODES)
+        if type(node).__name__ in DEVICE_NODE_NAMES:
+            out.add(STAGE_THREAD_NAME if staged else main)
+        for child in node.children():
+            walk(child, staged)
+        if getattr(node, "host_plan", None) is not None:
+            walk(node.host_plan, staged)
+
+    walk(plan, False)
+    return out
+
+
+class launch_threads:
+    """While open, every call of a stage's kernel wrapper or of the
+    executor's device feed (STAGE_WRAPPERS) records its thread's name:
+    ``seen`` is {function: {thread names}}."""
+
+    def __enter__(self):
+        import threading
+
+        from daft_tpu_torch.execution import executor
+        from daft_tpu_torch.ops import probe_kernels, segment_kernels
+
+        self.seen = {}
+        self._saved = []
+        for mod in (segment_kernels, probe_kernels, executor):
+            for name in STAGE_WRAPPERS[mod.__name__.rsplit(".", 1)[-1]]:
+                fn = getattr(mod, name)
+
+                def spy(*args, _fn=fn, _name=name, **kwargs):
+                    self.seen.setdefault(_name, set()).add(threading.current_thread().name)
+                    return _fn(*args, **kwargs)
+
+                self._saved.append((mod, name, fn))
+                setattr(mod, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def stage_threads_alive() -> int:
+    import threading
+
+    from daft_tpu_torch.execution.pipeline import STAGE_THREAD_NAME
+
+    return sum(1 for t in threading.enumerate() if t.name.startswith(STAGE_THREAD_NAME))
+
+
+def host_profile(label: str, run, card: str, top: int = 10) -> None:
+    """One run of ``run()`` under cProfile (on Python 3.12 it sees every
+    thread, the stage threads and the pool's included): the functions that
+    took the most of their own time."""
+    import cProfile
+    import io
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    try:
+        run()
+    finally:
+        prof.disable()
+    wall = time.perf_counter() - t0
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(top)
+    body = out.getvalue()
+    print(f"{label}: one run under cProfile, wall {wall:.3f} s [{card}]; own time by "
+          "function:\n" + body[body.find("ncalls"):].rstrip(), flush=True)
+
+
+def pipeline_cell(label: str, query, want: dict, floats, counter: str, card: str,
+                  rounds: int = PIPELINE_ROUNDS, cold: bool = False,
+                  profile: bool = False) -> dict:
+    """One cell in turns under pipeline_mode "off" and "on" (off, on, on,
+    off, ``rounds`` times) after one untimed run, the coalescer flushing
+    by size alone, the counters zeroed before each run and read after it. Every run equals
+    ``want`` (the cell's result, held to its numpy oracle) and the other
+    mode's first run (``floats`` within rtol 1e-5, the rest exactly);
+    ``counter`` is above 0 in every run; in "on" every kernel call came from
+    the threads ``expected_launch_threads`` names, in "off" from this one;
+    after every run no stage thread is alive and nothing is pinned. With
+    ``cold`` the residency is cleared before each mode's first run, which
+    is then reported apart; with ``profile`` the untimed run is profiled
+    (host_profile). Returns {"off": [s], "on": [s], "cold": {mode:
+    s}, "launches": the first "on" run's, "window": {"tasks", "peak"}}."""
+    import threading
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.device.residency import manager
+    from daft_tpu_torch.execution.executor import _pipeline_on
+    from daft_tpu_torch.ops import counters
+    from daft_tpu_torch.plan import physical as pp
+
+    main = threading.current_thread().name
+    out = {"off": [], "on": [], "cold": {}, "launches": None, "window": {}}
+    first = {}
+    if not cold:
+        with dt_ctx(), dt.execution_config_ctx(batch_latency_ms=SCAN_FLUSH_MS):
+            if profile:
+                host_profile(label, lambda: query().to_pydict(), card)
+            else:
+                query().to_pydict()  # untimed: the frames' dictionaries and planes
+    for mode in PIPELINE_MODES * rounds:
+        is_cold = cold and mode not in out["cold"]
+        if is_cold:
+            clear_residency()
+        with dt_ctx(), dt.execution_config_ctx(pipeline_mode=mode,
+                                               batch_latency_ms=SCAN_FLUSH_MS):
+            expected = expected_launch_threads(pp.translate(query().optimized_plan())) \
+                if _pipeline_on() else {main}
+            counters.reset()
+            with launch_threads() as spy:
+                t0 = time.perf_counter()
+                got = query().to_pydict()
+                _synchronize()
+                secs = time.perf_counter() - t0
+            snap = counters.snapshot()
+        threads = set().union(*spy.seen.values()) if spy.seen else set()
+        check(same_result(got, want, floats), f"{label} ({mode}) differs from its oracle")
+        if mode in first:
+            check(same_result(got, first[mode], floats), f"{label} ({mode}) changed between runs")
+        other = first.get("on" if mode == "off" else "off")
+        check(other is None or same_result(got, other, floats),
+              f"{label}: pipeline_mode off and on differ")
+        first.setdefault(mode, got)
+        check(snap[counter] > 0, f"{label} ({mode}): no {counter}")
+        check(bool(threads) and threads <= expected,
+              f"{label} ({mode}): kernels called from {sorted(threads)}, expected "
+              f"{sorted(expected)}")
+        check(stage_threads_alive() == 0, f"{label} ({mode}): a stage thread outlived the run")
+        check(manager().pinned_count() == 0, f"{label} ({mode}): a pin outlived the run")
+        if is_cold:
+            out["cold"][mode] = secs
+        else:
+            out[mode].append(secs)
+        if mode == "on" and out["launches"] is None:
+            out["launches"] = {k: snap[f"launches_{k}"] for k in counters.KERNEL_NAMES}
+            out["window"] = {"tasks": snap["scan_tasks"],
+                             "windowed": snap["scan_window_tasks"],
+                             "peak": snap["scan_window_peak"]}
+            print(f"{label} (on): kernel calls by thread "
+                  f"{json.dumps({k: sorted(v) for k, v in sorted(spy.seen.items())})}; "
+                  f"scan tasks {snap['scan_tasks']}, read in the window "
+                  f"{snap['scan_window_tasks']}, at most {snap['scan_window_peak']} at once")
+    cold_txt = "".join(f"; cold {m} {s:.4f} s" for m, s in out["cold"].items())
+    med = {m: statistics.median(out[m]) for m in ("off", "on")}
+    print(f"{label}: equal in both modes and to its oracle; warm median off "
+          f"{med['off']:.4f} s (runs {', '.join(f'{w:.4f}' for w in out['off'])}), on "
+          f"{med['on']:.4f} s (runs {', '.join(f'{w:.4f}' for w in out['on'])}); on/off "
+          f"{med['on'] / med['off']:.3f}{cold_txt} [{card}]", flush=True)
+    return out
+
+
+def host_join_times(label: str, query, card: str) -> dict:
+    """Each host join of ``query``'s plan alone, on this thread, its inputs
+    materialized first: the port's per-batch join before the build-once
+    probe (``join_indices`` of each left batch against the whole right
+    side, both coded again every batch) against ``JoinProbe`` (the right
+    side indexed once, each left batch probed). The two give the same row
+    indices. Returns {"joins", "left_batches", "before_s", "after_s"}."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.core.kernels.join import join_indices
+    from daft_tpu_torch.execution import executor as ex
+    from daft_tpu_torch.plan import physical as pp
+
+    out = {"joins": 0, "left_batches": 0, "before_s": 0.0, "after_s": 0.0}
+    with dt_ctx(), dt.execution_config_ctx(pipeline_mode="off"):
+        stack = [pp.translate(query().optimized_plan())]
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children())
+            if not isinstance(node, pp.HashJoin):
+                continue
+            left = [b for p in ex.execute_plan(node.left) for b in p.batches if b.num_rows]
+            right = ex._concat_parts(list(ex.execute_plan(node.right)), node.right.schema)
+            t0 = time.perf_counter()
+            rkeys = ex._keys(right, node.right_on)
+            old = [join_indices(ex._keys(b, node.left_on), rkeys, node.how) for b in left]
+            t1 = time.perf_counter()
+            probe = ex.JoinProbe(node, right)
+            new = [probe.table.probe(ex._keys(b, node.left_on), node.how) for b in left]
+            t2 = time.perf_counter()
+            check(all((a[0] == b[0]).all() and (a[1] == b[1]).all() and len(a[0]) == len(b[0])
+                      for a, b in zip(old, new)),
+                  f"{label}: the build-once probe and the per-batch join differ")
+            out["joins"] += 1
+            out["left_batches"] += len(left)
+            out["before_s"] += t1 - t0
+            out["after_s"] += t2 - t1
+            print(f"{label} host join ({node.how}, {len(left)} left batches of "
+                  f"{sum(b.num_rows for b in left)} rows, right {right.num_rows} rows): per-batch "
+                  f"{t1 - t0:.4f} s, build-once probe {t2 - t1:.4f} s [{card}]", flush=True)
+    print(f"{label}: {out['joins']} host joins: per-batch join {out['before_s']:.4f} s, "
+          f"build-once probe {out['after_s']:.4f} s (host clock, one thread) [{card}]",
+          flush=True)
+    return out
+
+
+def supplier_frame(cols):
+    """The supplier cell's DataFrame (phase_slice's columns)."""
+    import daft_tpu_torch as dt
+
+    data = {k: cols[k] for k in ("l_orderkey", "l_suppkey", "l_linenumber")}
+    data["l_shipdate"] = cols["l_shipdate"].astype("datetime64[D]")
+    return dt.from_pydict(data)
+
+
+def pipeline_cells(lineitem, orders, dirs: dict) -> list:
+    """(label, query, the cells key, float columns, stage counter, rounds,
+    cold) of each pipeline cell: the file-fed q1, q6, q12, q14 and q3 over
+    the scan phase's Parquet files, q5 in SQL with its dims from CSV (the
+    session's tables, registered by the caller), and the in-memory
+    supplier, q1 and q12 cells."""
+    import daft_tpu_torch as dt
+
+    def pq(name):
+        return dt.read_parquet(dirs[name])
+
+    sup = supplier_frame(lineitem)
+    q1_df = q1_frame(lineitem)
+    df_l, df_o = q12_frames(lineitem, orders)
+    return [
+        ("pipeline scan q1", lambda: q1_query(pq("lineitem")), "q1", Q1_FLOATS,
+         "device_grouped_batches", PIPELINE_ROUNDS, False),
+        ("pipeline scan q6", lambda: q6_query(pq("lineitem")), "q6", ("revenue",),
+         "device_stage_batches", PIPELINE_ROUNDS, False),
+        ("pipeline scan q12", lambda: q12_query(pq("lineitem"), pq("orders")), "q12", (),
+         "device_join_batches", PIPELINE_ROUNDS, False),
+        ("pipeline scan q14", lambda: q14_query({"lineitem": pq("lineitem"), "part": pq("part")}),
+         "q14", ("promo_revenue",), "device_join_batches", PIPELINE_ROUNDS, False),
+        ("pipeline scan q3", lambda: q3_query({"lineitem": pq("lineitem"),
+                                               "orders": pq("orders"),
+                                               "customer": pq("customer")}),
+         "q3", ("revenue",), "device_grouped_batches", 1, False),
+        ("pipeline scan q5 sql", lambda: dt.sql(TPCH_SQL[5]), "q5", ("revenue",),
+         "device_grouped_batches", 1, True),
+        ("pipeline supplier", lambda: supplier_query(sup), "supplier", (),
+         "device_grouped_batches", PIPELINE_ROUNDS, False),
+        ("pipeline q1", lambda: q1_query(q1_df), "q1", Q1_FLOATS, "device_grouped_batches",
+         PIPELINE_ROUNDS, False),
+        ("pipeline q12", lambda: q12_query(df_l, df_o), "q12", (), "device_join_batches",
+         PIPELINE_ROUNDS, False),
+    ]
+
+
+def phase_pipeline(lineitem, orders, dirs: dict, cells: dict, card: str) -> dict:
+    """The pipelined executor (pipeline_mode "on", the default) against the
+    sequential one ("off") at SF1, each cell through pipeline_cell; the
+    host's cores and the compute pool's width; q5's host joins before and
+    after the build-once probe (host_join_times); one run of file-fed q1
+    under "on" in torch.profiler (its idle share). Returns {path: the first
+    "on" run's launches}."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.utils.pool import pool_width
+
+    phase("pipeline")
+    print(f"host: os.cpu_count() {os.cpu_count()}, compute pool width {pool_width()} "
+          f"[{card}]", flush=True)
+    sess = dt.current_session()
+    sess.create_temp_table("lineitem", dt.read_parquet(dirs["lineitem"]))
+    sess.create_temp_table("orders", dt.read_parquet(dirs["orders"]))
+    for name in SCAN_CSV:
+        sess.create_temp_table(name, dt.read_csv(dirs[f"{name}_csv"]))
+    paths = {}
+    t0 = time.perf_counter()
+    try:
+        clear_residency()
+        for label, query, key, floats, counter, rounds, cold in \
+                pipeline_cells(lineitem, orders, dirs):
+            # q3's time is not split yet: its untimed run goes under cProfile
+            r = pipeline_cell(label, query, cells[key], floats, counter, card, rounds, cold,
+                              profile=key == "q3")
+            paths[label.replace(" ", "_")] = r["launches"]
+            if key == "q5":
+                host_join_times(label, query, card)
+        phase_profile(lambda: q1_query(dt.read_parquet(dirs["lineitem"])).to_pydict(), card,
+                      "pipeline scan q1 profile (on)", pipeline_mode="on",
+                      batch_latency_ms=SCAN_FLUSH_MS)
+    finally:
+        for name in ("lineitem", "orders") + SCAN_CSV:
+            sess.drop_temp_table(name)
+    print(f"pipeline phase {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return paths
 
 
 AI_ROWS = 1 << 16            # texts in the ai cells (the default device_min_rows)
@@ -4447,7 +4775,9 @@ def main(argv=None) -> int:
             df, paths["supplier"] = phase_slice(lineitem, card)
             phase_profile(lambda: supplier_query(df).to_pydict(), card)
             sql_tables = {}
-            cells = {}  # each cell's in-memory result, for the scan phase
+            cells = {}  # each cell's in-memory result, for the scan and pipeline phases
+            with dt_ctx():
+                cells["supplier"] = supplier_query(df).to_pydict()
             q12, paths["q12"] = phase_q12(lineitem, orders, card, sql_tables)
             phase_profile(lambda: q12().to_pydict(), card, "q12 profile")
             with dt_ctx():
@@ -4494,7 +4824,13 @@ def main(argv=None) -> int:
             phase_profile(repart, card, "repartition profile", mesh_devices=MESH)
             del repart
             cells.update(q1=q1_result, q6=q6_result)
-            paths.update(phase_scan(lineitem, orders, dims, cells, card))
+            root = tempfile.mkdtemp(prefix="daft_tpu_torch_scan_")
+            try:
+                scan_paths, dirs = phase_scan(lineitem, orders, dims, cells, card, root)
+                paths.update(scan_paths)
+                paths.update(phase_pipeline(lineitem, orders, dirs, cells, card))
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
             del cells
             paths.update(phase_ai(lineitem, card, kernel_results))
     except SmokeFailure as exc:

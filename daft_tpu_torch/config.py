@@ -41,12 +41,24 @@ default and ``execution_config_ctx`` scopes an override.
 - ``hbm_budget_bytes``: device residency budget (device/residency.py);
   positive = bytes, 0 = auto (3/4 of the card's memory), negative =
   unbounded.
+- ``pipeline_mode``: "on" (default; ``DAFT_TPU_PIPELINE``) runs the plan's
+  stage nodes each on a stage thread behind a bounded channel, Projects,
+  Filters and host join probes fanned out over the compute pool
+  (execution/pipeline.py), when the pool has more than one thread; "force"
+  does so on a one-thread pool too; "off" runs the plan on the caller's
+  thread, one morsel at a time.
+- ``batching_mode``: how the pipeline cuts a Project's, Filter's or host
+  join probe's input into morsels (execution/batching.py): "static"
+  (default; ``DAFT_TPU_BATCHING``) at ``morsel_size_rows``, "dynamic" by
+  throughput feedback, "latency" so one morsel takes about
+  ``batch_latency_ms``.
 """
 
 from __future__ import annotations
 
 import contextlib
-from dataclasses import dataclass, replace
+import os
+from dataclasses import dataclass, field, replace
 from typing import Iterator, Optional
 
 
@@ -63,6 +75,10 @@ class ExecutionConfig:
     scan_split_bytes: int = 128 * 1024 * 1024
     mesh_devices: int = 0
     device_min_rows: int = 65_536
+    pipeline_mode: str = field(
+        default_factory=lambda: os.environ.get("DAFT_TPU_PIPELINE", "on"))
+    batching_mode: str = field(
+        default_factory=lambda: os.environ.get("DAFT_TPU_BATCHING", "static"))
 
     def __post_init__(self) -> None:
         if self.device_mode not in ("on", "off"):
@@ -72,6 +88,12 @@ class ExecutionConfig:
                              f"{self.region_mode!r}")
         if self.kernel_mode not in ("on", "off"):
             raise ValueError(f"kernel_mode must be 'on' or 'off', got {self.kernel_mode!r}")
+        if self.pipeline_mode not in ("on", "off", "force"):
+            raise ValueError(f"pipeline_mode must be one of 'on'/'off'/'force', got "
+                             f"{self.pipeline_mode!r} (check DAFT_TPU_PIPELINE)")
+        if self.batching_mode not in ("static", "dynamic", "latency"):
+            raise ValueError(f"batching_mode must be one of 'static'/'dynamic'/'latency', "
+                             f"got {self.batching_mode!r} (check DAFT_TPU_BATCHING)")
         if self.morsel_size_rows < 1:
             raise ValueError(f"morsel_size_rows must be >= 1, got {self.morsel_size_rows!r}")
         if not 0.0 <= self.batch_fill_target <= 1.0:

@@ -15,6 +15,10 @@ missing partner:
 
 Null keys never match. Multi-column keys compare column by column after
 each pair is cast to its common key type (encoding.py).
+
+``ProbeTable`` gives the same pairs in the same order with the right side
+indexed once, for a join that probes it with many left batches (the host
+join's ``JoinProbe``, execution/executor.py).
 """
 
 from __future__ import annotations
@@ -102,3 +106,173 @@ def cross_join_indices(n_left: int, n_right: int) -> Tuple[np.ndarray, np.ndarra
     lidx = np.repeat(np.arange(n_left, dtype=np.int64), n_right)
     ridx = np.tile(np.arange(n_right, dtype=np.int64), n_left)
     return lidx, ridx
+
+
+# ---- the build-once probe table ------------------------------------------------------
+
+
+def _expand_ranges(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """The ranges [starts[i], starts[i] + counts[i]) concatenated."""
+    total = int(counts.sum())
+    if total == 0:
+        return np.empty(0, dtype=np.int64)
+    reps = np.repeat(starts - (np.cumsum(counts) - counts), counts)
+    return reps + np.arange(total, dtype=np.int64)
+
+
+def _no_match(n: int) -> np.ndarray:
+    return np.full(n, -1, dtype=np.int64)
+
+
+class ProbeTable:
+    """The right side's keys indexed once, probed by many left batches
+    (counterpart of daft_tpu/core/kernels/join.py ``ProbeTable``, in numpy:
+    the reference's native hash maps and pandas indexes become a dense
+    value range, sorted unique values or a Python dict).
+
+    Build: each key column, cast to the common type of its pair, gets
+    codes: an integer-like column of a dense value range (at most
+    max(4096, 4 x its valid rows) wide) its values less the smallest,
+    another its rank among its sorted unique values, a string column its
+    index in a dict of its distinct values. Several columns fold into one
+    joint code through pairing levels (a pair's sorted unique values),
+    and the rows of each joint code are listed in row order (CSR). A row
+    with a null key never matches. Probe: each left column looked up the
+    same way (a value the right side lacks cannot match), the levels
+    replayed, the CSR ranges expanded. The pairs and their order are
+    ``join_indices``': left-major, right rows in row order within a key;
+    ``left`` adds the unmatched left rows after the pairs."""
+
+    def __init__(self, right_keys: List, left_dtypes: List):
+        self.n_right = len(right_keys[0]) if right_keys else 0
+        self._dtypes = []
+        # per column: ("dense", lo, hi) | ("sorted", uniq) | ("dict", d) | ("null",)
+        self._lookups = []
+        rcols = []
+        rnull = np.zeros(self.n_right, dtype=bool)
+        for rs, ldt in zip(right_keys, left_dtypes):
+            target = _common_key_dtype(ldt, rs.dtype)
+            if rs.dtype != target:
+                rs = rs.cast(target)
+            self._dtypes.append(target)
+            kind, vals, valid = canonical_key_values(rs)
+            if kind == "null":
+                valid = np.zeros(self.n_right, dtype=bool)
+                codes = np.full(self.n_right, -1, dtype=np.int64)
+                self._lookups.append(("null",))
+            elif kind == "num":
+                vv = vals[valid]
+                lo = int(vv.min()) if len(vv) else 0
+                hi = int(vv.max()) if len(vv) else -1
+                if 0 < hi - lo + 1 <= max(4096, 4 * len(vv)):
+                    codes = vals - lo
+                    self._lookups.append(("dense", lo, hi))
+                else:
+                    uniq = np.unique(vv)
+                    codes = np.searchsorted(uniq, vals).astype(np.int64) if len(uniq) \
+                        else np.zeros(self.n_right, dtype=np.int64)
+                    self._lookups.append(("sorted", uniq))
+            else:
+                index: dict = {}
+                codes = np.full(self.n_right, -1, dtype=np.int64)
+                rows = np.flatnonzero(valid)
+                codes[rows] = [index.setdefault(v, len(index)) for v in vals[rows].tolist()]
+                self._lookups.append(("dict", index))
+            codes = np.where(valid, codes, -1).astype(np.int64, copy=False)
+            rcols.append(codes)
+            rnull |= ~valid
+
+        self._levels = []
+        codes = rcols[0] if rcols else np.zeros(0, dtype=np.int64)
+        for c in rcols[1:]:
+            g = int(c.max()) + 1 if len(c) else 1
+            pair = (codes + 1) * (g + 2) + (c + 1)
+            uniq, codes = np.unique(pair, return_inverse=True)
+            codes = codes.reshape(-1).astype(np.int64, copy=False)
+            self._levels.append((uniq, g))
+        codes = np.where(rnull, -1, codes)
+
+        G = int(codes.max(initial=-1)) + 1
+        pos = codes >= 0
+        self._counts = np.bincount(codes[pos], minlength=max(G, 1)).astype(np.int64)
+        self._starts = np.cumsum(self._counts) - self._counts
+        self.max_count = int(self._counts.max(initial=0))
+        self._num_codes = G
+        rows = np.flatnonzero(pos)
+        self._bucket_rows = rows[np.argsort(codes[pos], kind="stable")].astype(np.int64)
+
+    @staticmethod
+    def _lookup_strings(s, index: dict) -> np.ndarray:
+        """Codes of a string column in ``index`` (-2 where absent): through
+        its known dictionary codes when it has them, a lookup per distinct
+        value, else a lookup per row."""
+        raw = s._raw_codes()
+        if raw is not None:
+            rcodes, values = raw
+            lut = np.array([index.get(v, -2) for v in values], dtype=np.int64)
+            return lut[rcodes] if len(lut) else np.full(len(s), -2, dtype=np.int64)
+        return np.array([index.get(v, -2) for v in s.to_numpy().tolist()], dtype=np.int64)
+
+    def probe_codes(self, left_keys: List) -> np.ndarray:
+        """Each left row's joint code on the right side; negative codes never
+        match (-1 a null key)."""
+        n = len(left_keys[0]) if left_keys else 0
+        lcols = []
+        lnull = np.zeros(n, dtype=bool)
+        for ls, target, lookup in zip(left_keys, self._dtypes, self._lookups):
+            if ls.dtype != target:
+                ls = ls.cast(target)
+            kind, vals, valid = canonical_key_values(ls)
+            if lookup[0] == "null" or kind == "null":
+                codes = np.full(n, -2, dtype=np.int64)
+            elif lookup[0] == "dense":
+                lo, hi = lookup[1], lookup[2]
+                codes = np.where((vals < lo) | (vals > hi), -2, vals - lo)
+            elif lookup[0] == "sorted":
+                uniq = lookup[1]
+                if len(uniq):
+                    at = np.minimum(np.searchsorted(uniq, vals), len(uniq) - 1)
+                    codes = np.where(uniq[at] == vals, at, -2)
+                else:
+                    codes = np.full(n, -2, dtype=np.int64)
+            else:
+                codes = self._lookup_strings(ls, lookup[1])
+            codes = np.where(valid, codes, -1).astype(np.int64, copy=False)
+            lcols.append(codes)
+            lnull |= ~valid
+        codes = lcols[0] if lcols else np.zeros(0, dtype=np.int64)
+        for (uniq, g), c in zip(self._levels, lcols[1:]):
+            pair = (codes + 1) * (g + 2) + (c + 1)
+            if len(uniq):
+                at = np.minimum(np.searchsorted(uniq, pair), len(uniq) - 1)
+                codes = np.where((uniq[at] == pair) & (codes >= 0) & (c >= 0), at, -2)
+            else:
+                codes = np.full(n, -2, dtype=np.int64)
+        return np.where(lnull, -1, codes)
+
+    def probe(self, left_keys: List, how: str) -> Tuple[np.ndarray, np.ndarray]:
+        """(left rows, right rows) of a ``how`` join of the left batch whose
+        keys are ``left_keys`` against the right side; -1 = no partner."""
+        if how not in JOIN_TYPES:
+            raise ValueError(f"ProbeTable.probe does not support how={how!r}")
+        lcodes = self.probe_codes(left_keys)
+        nl = len(lcodes)
+        hit = (lcodes >= 0) & (lcodes < self._num_codes)
+        safe = np.where(hit, lcodes, 0)
+        counts = np.where(hit, self._counts[safe], 0)
+        if how in ("semi", "anti"):
+            lidx = np.flatnonzero(counts > 0 if how == "semi" else counts == 0)
+            return lidx.astype(np.int64), _no_match(len(lidx))
+        if self.max_count == 1:
+            # unique right keys: one gather per matched left row
+            matched_l = np.flatnonzero(counts).astype(np.int64)
+            matched_r = self._bucket_rows[self._starts[lcodes[matched_l]]]
+        else:
+            matched_l = np.repeat(np.arange(nl, dtype=np.int64), counts)
+            starts = np.where(hit, self._starts[safe], 0)
+            matched_r = self._bucket_rows[_expand_ranges(starts, counts)]
+        if how == "inner":
+            return matched_l, matched_r
+        unmatched = np.flatnonzero(counts == 0).astype(np.int64)
+        return (np.concatenate([matched_l, unmatched]),
+                np.concatenate([matched_r, _no_match(len(unmatched))]))

@@ -91,6 +91,8 @@ class RecordBatch:
                            [self.get_column(n) for n in names], self._num_rows)
 
     def slice(self, start: int, end: int) -> "RecordBatch":
+        """Rows [start, end): every column's values and validity are views of
+        this batch's numpy planes (no copy), as the pipeline's morsels are."""
         start = max(0, min(start, self._num_rows))
         end = max(start, min(end, self._num_rows))
         return RecordBatch(self._schema, [c.slice(start, end) for c in self._columns],

@@ -338,6 +338,11 @@ class ResidencyManager:
                     self._entries.pop(k)
                     self._drop_accounting(k, e)
 
+    def pinned_count(self) -> int:
+        """Entries a running query's pin scope holds (0 between queries)."""
+        with self._lock:
+            return sum(1 for e in self._entries.values() if e.pins > 0)
+
     def stats(self) -> Dict[str, int]:
         with self._lock:
             self._sweep_dead()

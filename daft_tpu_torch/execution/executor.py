@@ -1,32 +1,40 @@
 """Streaming interpreter of the physical plan (counterpart of
-daft_tpu/execution/executor.py, the subset the grouped-aggregation, join and
-repartition slices need).
+daft_tpu/execution/executor.py, the subset the port's slices need).
 
-``execute_plan`` streams MicroPartitions. Host operators run in numpy
-(``PhysLimit`` and ``PhysTopN`` included: a stable sort, then a slice). A
-``DeviceFilterAgg`` runs its ungrouped stage on the configured device
-(``_exec_device_filter_agg``), fused with a device UDF that feeds it
-(``_try_fused_udf_agg``). A ``UDFProject`` runs its UDF on the host, a
-``DeviceUdfProject`` on the device-UDF tier (``_run_device_udf_stage``). A
-``DeviceGroupedAgg`` runs its stage on the configured device (the
-reference's device agg branch, executor.py:580-733, without the mesh and
-cost-model arms): each batch is buffered, and
-when the stage raises ``DeviceFallback`` (its group count outgrew the
-kernels' envelope, detected before any launch) the whole buffered stream
-reruns on the host. Both stages, and the join runs but the TopN, take
-their morsels through a ``DispatchCoalescer`` (``_make_coalescer``), which
-is closed before the run finalizes. A ``DeviceJoinAgg`` runs the star-join
-stage, grouped or ungrouped, the same way (``_exec_device_join_agg``), a
+``execute_plan`` streams MicroPartitions. With ``pipeline_mode`` "on" (the
+default, on a compute pool of more than one thread) or "force", every stage
+node (``_STAGE_NODES``) runs on a stage thread of its own behind a bounded
+channel (execution/pipeline.py); Projects, Filters and host join probes
+fan their morsels out over the compute pool in order (``_map_op``), a
+multi-task scan reads its tasks in an IO-parallel window
+(``_streaming_scan``), and host aggregations compute their partials on the
+pool. Under "off" the plan runs on the caller's thread, one morsel at a
+time. Either way the rows and their order are the same.
+
+Host operators run in numpy (``PhysLimit`` and ``PhysTopN`` included: a
+stable sort, then a slice). A ``DeviceFilterAgg`` runs its ungrouped stage
+on the configured device (``_exec_device_filter_agg``), fused with a device
+UDF that feeds it (``_try_fused_udf_agg``). A ``UDFProject`` runs its UDF
+on the host, a ``DeviceUdfProject`` on the device-UDF tier
+(``_run_device_udf_stage``). A ``DeviceGroupedAgg`` runs its stage on the
+configured device (the reference's device agg branch, executor.py:580-733,
+without the mesh and cost-model arms): each batch is buffered, and when the
+stage raises ``DeviceFallback`` (its group count outgrew the kernels'
+envelope, detected before any launch) the whole buffered stream reruns on
+the host. Both stages, and the join runs but the TopN, take their morsels
+through a ``DispatchCoalescer`` (``_make_coalescer``), which is closed
+before the run finalizes. A ``DeviceJoinAgg`` runs the star-join stage,
+grouped or ungrouped, the same way (``_exec_device_join_agg``), a
 ``DeviceJoinTopN`` its TopN run over one fact batch
 (``_exec_device_join_topn``), and a ``HashJoin`` (inner, left, semi,
-anti), a ``CrossJoin`` and a ``Dedup`` (distinct) run on the host. A
-``PhysRepartition`` splits on the host by the rows' hash (or at random), or,
-for a hash repartition into ``mesh_devices`` partitions, runs the mesh
-exchange on the device (``_mesh_repartition``). A ``StreamingScan`` reads
-its scan tasks in turn (``_streaming_scan``) and a ``PhysWrite`` hands its
-input stream to the writer (io/writers.py). Any other error, a kernel that
-fails to build or launch included, propagates: no device failure turns
-into a host result.
+anti: a ``JoinProbe`` built once from the right side), a ``CrossJoin`` and
+a ``Dedup`` (distinct) run on the host. A ``PhysRepartition`` splits on the
+host by the rows' hash (or at random), or, for a hash repartition into
+``mesh_devices`` partitions, runs the mesh exchange on the device
+(``_mesh_repartition``). A ``PhysWrite`` hands its input stream to the
+writer (io/writers.py). Any other error, a kernel that fails to build or
+launch included, propagates, from a stage thread through its channel: no
+device failure turns into a host result.
 """
 
 from __future__ import annotations
@@ -50,7 +58,77 @@ def execute_plan(plan: pp.PhysicalPlan) -> Iterator[MicroPartition]:
     return _exec(plan)
 
 
+# The operators that run as a stage of their own when the pipeline is on
+# (the reference's _STAGE_NODES). The rest run on their consumer's thread:
+# InMemoryScan yields references, PhysLimit and PhysTopN are cheap state
+# machines, PhysWrite is a sink its consumer drives, a UDF's concurrency is
+# the UDF tier's, and the device join runs (not stage nodes in the
+# reference either) pull their fact and dims themselves.
+_STAGE_NODES = (pp.StreamingScan, pp.Project, pp.PhysFilter, pp.PhysSort,
+                pp.HashAggregate, pp.DeviceFilterAgg, pp.DeviceGroupedAgg, pp.Dedup,
+                pp.HashJoin, pp.CrossJoin, pp.PhysRepartition)
+
+
 def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
+    """One node's stream: on a stage thread behind a bounded channel when it
+    is a stage node and the pipeline is on (execution/pipeline.py
+    ``spawn_stage``), else the node's generator itself."""
+    gen = _exec_impl(node)
+    if isinstance(node, _STAGE_NODES) and _pipeline_on():
+        from .pipeline import spawn_stage
+
+        gen = spawn_stage(gen)
+    return gen
+
+
+def _pipeline_on() -> bool:
+    """pipeline_mode "force", or "on" with a compute pool of more than one
+    thread (on one core, stage threads and fan-out are overhead alone)."""
+    from ..config import execution_config
+    from ..utils.pool import pool_width
+
+    mode = execution_config().pipeline_mode
+    if mode == "force":
+        return True
+    return mode == "on" and pool_width() > 1
+
+
+def _map_op(stream: Iterator[MicroPartition], fn) -> Iterator[MicroPartition]:
+    """``fn(part, index)`` over a stream, in order. With the pipeline on, the
+    stream is cut into morsels (zero-copy slices) that fan out over the
+    compute pool: at ``morsel_size_rows`` under batching_mode "static", else
+    at the sizes this operator's own strategy picks from the morsels'
+    timings (execution/batching.py). With it off, one part at a time."""
+    if not _pipeline_on():
+        for i, part in enumerate(stream):
+            yield fn(part, i)
+        return
+    from ..config import execution_config
+    from .pipeline import morsel_stream, pmap_stream
+
+    cfg = execution_config()
+    if cfg.batching_mode == "static":
+        yield from pmap_stream(morsel_stream(stream, cfg.morsel_size_rows), fn)
+        return
+    from .batching import adaptive_morsel_stream, make_strategy
+
+    strategy = make_strategy(cfg)
+    yield from pmap_stream(adaptive_morsel_stream(stream, strategy), fn, strategy=strategy)
+
+
+def _columns_only(projection: List[Expression]) -> bool:
+    """Every expression a column reference, renamed or not."""
+    from ..expressions.expressions import ColumnRef
+
+    for e in projection:
+        while isinstance(e, Alias):
+            e = e.child
+        if not isinstance(e, ColumnRef):
+            return False
+    return True
+
+
+def _exec_impl(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
     if isinstance(node, pp.InMemoryScan):
         yield from node.partitions
         return
@@ -64,9 +142,19 @@ def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
         return
 
     if isinstance(node, pp.Project):
-        for part in _exec(node.input):
+        def project(part, _i):
             batches = [eval_projection(b, node.projection) for b in part.batches]
-            yield MicroPartition(node.schema, batches or [RecordBatch.empty(node.schema)])
+            return MicroPartition(node.schema, batches or [RecordBatch.empty(node.schema)])
+
+        if _columns_only(node.projection):
+            # a selection of columns (the optimizer's pruning) has no work to
+            # spread: each batch passes whole, so a held table's columns stay
+            # the Series their resident planes are keyed on, and a one-batch
+            # fact stays one batch (the device join TopN)
+            for i, part in enumerate(_exec(node.input)):
+                yield project(part, i)
+            return
+        yield from _map_op(_exec(node.input), project)
         return
 
     if isinstance(node, pp.DeviceUdfProject):
@@ -79,8 +167,8 @@ def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
         return
 
     if isinstance(node, pp.PhysFilter):
-        for part in _exec(node.input):
-            yield _filter_part(part, node.predicate, node.keep)
+        yield from _map_op(_exec(node.input),
+                           lambda part, _i: _filter_part(part, node.predicate, node.keep))
         return
 
     if isinstance(node, pp.PhysSort):
@@ -124,11 +212,15 @@ def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
         yield _exec_device_agg(node)
         return
 
-    if isinstance(node, (pp.HashJoin, pp.CrossJoin)):
+    if isinstance(node, pp.HashJoin):
+        yield from _hash_join(node)
+        return
+
+    if isinstance(node, pp.CrossJoin):
         right = _concat_parts(list(_exec(node.right)), node.right.schema)
-        join = _hash_join_batch if isinstance(node, pp.HashJoin) else _cross_join_batch
         for part in _exec(node.left):
-            yield MicroPartition(node.schema, [join(node, b, right) for b in part.batches])
+            yield MicroPartition(node.schema,
+                                 [_cross_join_batch(node, b, right) for b in part.batches])
         return
 
     if isinstance(node, pp.Dedup):
@@ -154,38 +246,93 @@ def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
 
 
 def _streaming_scan(node: pp.StreamingScan) -> Iterator[MicroPartition]:
-    """A StreamingScan's tasks one after another, one morsel at a time (the
-    reference's fully streaming branch, executor.py:438-549): each task's
-    morsels filtered by ``post_filter`` when the task did not apply it, the
-    stream cut at ``post_limit`` rows. Counts ``scan_tasks`` (tasks
-    started), ``scan_batches`` and ``scan_rows`` (what was yielded, an
-    early close included). Not ported here: the reference's IO-parallel
-    window of tasks on its compute pool, and the host memory budget's
-    backpressure (``wait_for_headroom``), which come with the streaming
-    executor and the memory budget (ROADMAP Queue 1 item 4)."""
+    """A StreamingScan's morsels in task order (the reference's
+    executor.py:438-549), each task's filtered by ``post_filter`` when the
+    task did not apply it. With a ``post_limit``, one task, or the pipeline
+    off, the tasks run one after another on this thread, one morsel at a
+    time, the stream cut at ``post_limit`` rows. Otherwise they run in an
+    IO-parallel window: up to the compute pool's width of tasks read at
+    once on the pool, each whole into a list, yielded in task order; a
+    closed stream drops the tasks not started and waits for the running
+    ones. Counts ``scan_tasks`` (tasks started), ``scan_batches`` and
+    ``scan_rows`` (what was yielded, an early close included), and for the
+    window ``scan_window_tasks`` and its peak of tasks read at once,
+    ``scan_window_peak``. The host memory budget's backpressure
+    (``wait_for_headroom``) comes with the out-of-core slice (ROADMAP
+    Queue 1 item 4)."""
     from ..ops import counters
+
+    def task_parts(task):
+        for part in task.read():
+            if node.post_filter is not None and not task.filters_applied:
+                part = _timed_filter(part, node.post_filter)
+            yield part
 
     remaining = node.post_limit
     batches = rows = 0
     try:
-        for task in node.tasks:
-            counters.bump("scan_tasks")
-            for part in task.read():
-                if node.post_filter is not None and not task.filters_applied:
-                    part = _timed_filter(part, node.post_filter)
-                if remaining is not None:
-                    if remaining <= 0:
-                        return
-                    if part.num_rows > remaining:
-                        part = MicroPartition(part.schema,
-                                              [part.concat_or_empty().head(remaining)])
-                    remaining -= part.num_rows
-                batches += 1
-                rows += part.num_rows
-                yield part
+        if remaining is not None or len(node.tasks) <= 1 or not _pipeline_on():
+            for task in node.tasks:
+                counters.bump("scan_tasks")
+                for part in task_parts(task):
+                    if remaining is not None:
+                        if remaining <= 0:
+                            return
+                        if part.num_rows > remaining:
+                            part = MicroPartition(part.schema,
+                                                  [part.concat_or_empty().head(remaining)])
+                        remaining -= part.num_rows
+                    batches += 1
+                    rows += part.num_rows
+                    yield part
+            return
+        for part in _scan_window(node.tasks, task_parts):
+            batches += 1
+            rows += part.num_rows
+            yield part
     finally:
         counters.bump("scan_batches", batches)
         counters.bump("scan_rows", rows)
+
+
+def _scan_window(tasks, task_parts) -> Iterator[MicroPartition]:
+    """The scan tasks read on the compute pool, up to its width at once,
+    their morsels yielded in task order."""
+    import threading
+    from collections import deque
+    from concurrent.futures import wait
+
+    from ..ops import counters
+    from ..utils.pool import compute_pool
+
+    pool = compute_pool()
+    window = min(pool._max_workers, len(tasks))
+    lock = threading.Lock()
+    reading = [0, 0]  # tasks reading now, the most at once
+
+    def read_task(task):
+        counters.bump("scan_tasks")
+        counters.bump("scan_window_tasks")
+        with lock:
+            reading[0] += 1
+            reading[1] = max(reading[1], reading[0])
+        try:
+            return list(task_parts(task))
+        finally:
+            with lock:
+                reading[0] -= 1
+
+    futures: deque = deque()
+    ti = 0
+    try:
+        while ti < len(tasks) or futures:
+            while ti < len(tasks) and len(futures) < window:
+                futures.append(pool.submit(read_task, tasks[ti]))
+                ti += 1
+            yield from futures.popleft().result()
+    finally:
+        wait([f for f in futures if not f.cancel()])
+        counters.bump_max("scan_window_peak", reading[1])
 
 
 def _timed_filter(part: MicroPartition, predicate: Expression) -> MicroPartition:
@@ -215,24 +362,28 @@ def _limit(node: pp.PhysLimit) -> Iterator[MicroPartition]:
     remaining = node.limit if node.limit >= 0 else None
     if remaining == 0:
         return
-    for part in _exec(node.input):
-        batches = []
-        for b in part.batches:
-            if to_skip >= b.num_rows:
-                to_skip -= b.num_rows
-                continue
-            b = b.slice(to_skip, b.num_rows)
-            to_skip = 0
-            if remaining is not None:
-                b = b.head(remaining)
-                remaining -= b.num_rows
-            batches.append(b)
+    stream = _exec(node.input)
+    try:
+        for part in stream:
+            batches = []
+            for b in part.batches:
+                if to_skip >= b.num_rows:
+                    to_skip -= b.num_rows
+                    continue
+                b = b.slice(to_skip, b.num_rows)
+                to_skip = 0
+                if remaining is not None:
+                    b = b.head(remaining)
+                    remaining -= b.num_rows
+                batches.append(b)
+                if remaining == 0:
+                    break
+            if batches:
+                yield MicroPartition(node.schema, batches)
             if remaining == 0:
-                break
-        if batches:
-            yield MicroPartition(node.schema, batches)
-        if remaining == 0:
-            return
+                return
+    finally:
+        stream.close()  # stop the input's stages once the limit is met
 
 
 def _make_coalescer(feed, cfg):
@@ -517,22 +668,95 @@ def _ungrouped_output(schema, stage, final) -> MicroPartition:
     return MicroPartition(schema, [RecordBatch(schema, cols, 1)])
 
 
-def _hash_join_batch(node: pp.HashJoin, left: RecordBatch,
-                     right: RecordBatch) -> RecordBatch:
-    """One left batch joined to the materialized right side (``node.how``);
-    a left join's unmatched rows get null right columns, a semi or anti
-    join keeps the left's columns only."""
-    from ..core.kernels.join import join_indices
+class JoinProbe:
+    """The build-once, probe-many host join of inner, left, semi and anti
+    joins (counterpart of daft_tpu/core/relational.py ``JoinProbe``): the
+    right side's keys are indexed once (core/kernels/join.py ``ProbeTable``),
+    and each left batch is a lookup into that index. A probe gives the rows
+    ``join_indices`` gives over the same batch and the whole right side, in
+    the same order. The table is read-only once built, so probes may run on
+    several pool threads at once."""
 
-    def keys(batch, exprs):
-        return [_full_length(eval_expression(batch, e), batch.num_rows) for e in exprs]
+    def __init__(self, node: pp.HashJoin, right: RecordBatch):
+        from ..core.kernels.join import ProbeTable
 
-    li, ri = join_indices(keys(left, node.left_on), keys(right, node.right_on), node.how)
-    cols = [s.take(li) for s in left.columns()]
-    if node.how not in ("semi", "anti"):
-        cols += [s.take_or_null(ri).rename(node.right_rename.get(s.name, s.name))
-                 for s in right.columns() if s.name not in node.merged_keys]
-    return RecordBatch(node.schema, cols, len(li))
+        if node.how not in ("inner", "left", "semi", "anti"):
+            raise ValueError(f"JoinProbe does not support how={node.how!r}")
+        self.node = node
+        self.right = right
+        left_schema = node.left.schema
+        self.table = ProbeTable(_keys(right, node.right_on),
+                                [e.to_field(left_schema).dtype for e in node.left_on])
+
+    def probe(self, left: RecordBatch) -> RecordBatch:
+        """``left`` joined to the right side."""
+        li, ri = self.table.probe(_keys(left, self.node.left_on), self.node.how)
+        return self._assemble(left, li, ri)
+
+    def probe_filtered(self, raw: RecordBatch, sel: np.ndarray) -> RecordBatch:
+        """``probe(raw.take(sel))`` with the filter fused: only the key
+        columns (column references) are gathered through ``sel``; every
+        other column is gathered once, through the composed row indices."""
+        keys = [raw.get_column(e.name()).take(sel) for e in self.node.left_on]
+        li, ri = self.table.probe(keys, self.node.how)
+        # inner, left, semi and anti give every left row a real index
+        return self._assemble(raw, sel[li], ri)
+
+    def _assemble(self, left: RecordBatch, li: np.ndarray, ri: np.ndarray) -> RecordBatch:
+        """The join's output rows: the left's columns at ``li``, then (not for
+        a semi or anti join) the right's at ``ri``, renamed, -1 giving null."""
+        node = self.node
+        cols = [s.take(li) for s in left.columns()]
+        if node.how not in ("semi", "anti"):
+            cols += [s.take_or_null(ri).rename(node.right_rename.get(s.name, s.name))
+                     for s in self.right.columns() if s.name not in node.merged_keys]
+        return RecordBatch(node.schema, cols, len(li))
+
+
+def _keys(batch: RecordBatch, exprs) -> List[Series]:
+    return [_full_length(eval_expression(batch, e), batch.num_rows) for e in exprs]
+
+
+def _selection_vector(batch: RecordBatch, mask: Series) -> np.ndarray:
+    """The rows where ``mask`` is true (a null drops), as ``filter_by_mask``
+    keeps them; a one-row mask broadcasts."""
+    if len(mask) == 1 and batch.num_rows != 1:
+        hit = bool(mask.validity_numpy()[0] and mask.to_numpy()[0])
+        return np.arange(batch.num_rows, dtype=np.int64) if hit \
+            else np.empty(0, dtype=np.int64)
+    return np.flatnonzero(mask.to_numpy().astype(bool) & mask.validity_numpy())
+
+
+def _hash_join(node: pp.HashJoin) -> Iterator[MicroPartition]:
+    """A host join (the reference's executor.py:2870-2928 without its memory
+    budget): the right side materialized and indexed once, the left side
+    streamed through ``_map_op``, each morsel a probe. Where the left side
+    is a Filter and the left keys are column references, the filter fuses
+    into the probe: the raw batches stream, the predicate becomes a
+    selection vector, and the probe gathers the other columns once."""
+    from ..expressions.expressions import ColumnRef
+
+    right = _concat_parts(list(_exec(node.right)), node.right.schema)
+    probe = JoinProbe(node, right)
+    source, predicate, keep = node.left, None, None
+    if isinstance(source, pp.PhysFilter) and \
+            all(isinstance(e, ColumnRef) for e in node.left_on) and \
+            (source.keep is None or all(e.name() in source.keep for e in node.left_on)):
+        source, predicate, keep = source.input, source.predicate, source.keep
+
+    def run(part, _i):
+        outs = []
+        for b in part.batches:
+            if predicate is None:
+                outs.append(probe.probe(b))
+                continue
+            sel = _selection_vector(b, eval_expression(b, predicate))
+            if len(sel):
+                outs.append(probe.probe_filtered(b if keep is None else b.select_columns(keep),
+                                                 sel))
+        return MicroPartition(node.schema, outs or [RecordBatch.empty(node.schema)])
+
+    yield from _map_op(_exec(source), run)
 
 
 def _cross_join_batch(node: pp.CrossJoin, left: RecordBatch,
@@ -838,38 +1062,56 @@ def _split_aggs(aggs: List[Expression]):
     return partial, final, projection
 
 
+def _agg_morsels(stream, aggs):
+    """(the stream's non-empty batches, their morsels of ``morsel_size_rows``
+    rows, or None when the input aggregates in one phase: at most a morsel
+    of rows, or a count_distinct, which needs each group's whole value
+    set)."""
+    from ..config import execution_config
+
+    batches = [b for part in stream for b in part.batches if b.num_rows > 0]
+    morsel = execution_config().morsel_size_rows
+    if sum(b.num_rows for b in batches) <= morsel or \
+            any(_agg_op(e) == "count_distinct" for e in aggs):
+        return batches, None
+    return batches, [b.slice(s, s + morsel) for b in batches
+                     for s in range(0, b.num_rows, morsel)]
+
+
 def _two_phase_agg(stream, groupby, aggs, in_schema) -> RecordBatch:
     """Host grouped aggregation. Input up to ``morsel_size_rows`` rows
     aggregates in one phase; larger input aggregates each morsel into
-    partials, then combines the partials (the reference's two-phase plan)."""
-    from ..config import execution_config
+    partials on the compute pool, then combines the partials (the
+    reference's two-phase plan, executor.py:2240-2283)."""
     from ..core.kernels.groupby import grouped_agg
+    from ..utils.pool import pool_map
 
-    batches = [b for part in stream for b in part.batches if b.num_rows > 0]
-    total = sum(b.num_rows for b in batches)
-    morsel = execution_config().morsel_size_rows
-    # count_distinct needs each group's whole value set: one phase
-    if total <= morsel or any(_agg_op(e) == "count_distinct" for e in aggs):
+    batches, morsels = _agg_morsels(stream, aggs)
+    if morsels is None:
         big = RecordBatch.concat(batches) if batches else RecordBatch.empty(in_schema)
         return grouped_agg(big, groupby, aggs)
-    morsels = [b.slice(s, s + morsel) for b in batches
-               for s in range(0, b.num_rows, morsel)]
     partial, final, projection = _split_aggs(aggs)
-    partials = [grouped_agg(m, groupby, partial) for m in morsels]
+    partials = pool_map(lambda m: grouped_agg(m, groupby, partial), morsels)
     keys = [col(e.name()) for e in groupby]
     combined = grouped_agg(RecordBatch.concat(partials), keys, final)
     return eval_projection(combined, keys + projection)
 
 
 def _ungrouped_agg(stream, aggs, in_schema) -> RecordBatch:
-    """Host ungrouped aggregation of every batch of ``stream`` into one row."""
+    """Host ungrouped aggregation into one row, in two phases as
+    ``_two_phase_agg`` past a morsel of input."""
     from ..core.kernels.groupby import ungrouped_agg
+    from ..utils.pool import pool_map
 
-    batches = [b for part in stream for b in part.batches if b.num_rows > 0]
-    if not batches:
-        return ungrouped_agg(RecordBatch.empty(in_schema), aggs)
-    return ungrouped_agg(batches[0] if len(batches) == 1 else RecordBatch.concat(batches),
-                         aggs)
+    batches, morsels = _agg_morsels(stream, aggs)
+    if morsels is None:
+        if not batches:
+            return ungrouped_agg(RecordBatch.empty(in_schema), aggs)
+        return ungrouped_agg(batches[0] if len(batches) == 1 else RecordBatch.concat(batches),
+                             aggs)
+    partial, final, projection = _split_aggs(aggs)
+    partials = pool_map(lambda m: ungrouped_agg(m, partial), morsels)
+    return eval_projection(ungrouped_agg(RecordBatch.concat(partials), final), projection)
 
 
 def _full_length(s: Series, n: int) -> Series:

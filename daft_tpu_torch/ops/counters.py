@@ -38,7 +38,12 @@ show which path a query took:
   excluded (io/parquet.py); ``scan_decode_ms``: host
   milliseconds spent reading and decoding Parquet column chunks, and
   ``scan_filter_ms`` those spent applying a pushed predicate on the host,
-  in a reader or after the scan (floats);
+  in a reader or after the scan (floats); ``scan_window_tasks``: tasks
+  read through the IO-parallel window (executor.py ``_streaming_scan``),
+  and ``scan_window_peak``: the most of them a scan had reading at once
+  (the largest over the scans since the reset, not a sum);
+- ``morsel_resize``: morsel-size changes of the adaptive batching
+  strategies (execution/batching.py);
 - ``hbm_cache_hits`` / ``hbm_cache_misses``: residency lookups that found
   their slot (a rebind included) / built it (device/residency.py);
   ``hbm_stable_rehits``: hits through a content key, the slot rebound to a
@@ -83,7 +88,8 @@ COUNTER_NAMES = ("device_grouped_batches", "device_stage_batches", "device_join_
                  "mesh_exchange_bytes", "scan_tasks", "scan_tasks_split",
                  "scan_tasks_merged", "scan_batches", "scan_rows", "scan_row_groups",
                  "scan_row_groups_pruned",
-                 "scan_files_pruned", "scan_decode_ms", "scan_filter_ms", "hbm_cache_hits",
+                 "scan_files_pruned", "scan_decode_ms", "scan_filter_ms",
+                 "scan_window_tasks", "scan_window_peak", "morsel_resize", "hbm_cache_hits",
                  "hbm_cache_misses", "hbm_stable_rehits", "fingerprint_ms",
                  "device_udf_dispatches", "device_udf_rows", "device_udf_runs",
                  "device_udf_weight_h2d_bytes") + tuple(
@@ -106,6 +112,13 @@ def __getattr__(name: str) -> int:
 def bump(name: str, n: float = 1) -> None:
     with _LOCK:
         _COUNTS[name] += n
+
+
+def bump_max(name: str, value: float) -> None:
+    """Raise counter ``name`` to ``value`` where that is larger (a peak)."""
+    with _LOCK:
+        if value > _COUNTS[name]:
+            _COUNTS[name] = value
 
 
 def reject(site: str, reason: str) -> None:

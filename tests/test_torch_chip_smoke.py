@@ -730,3 +730,48 @@ def test_ai_kernel_cases_get_the_runs_inputs(ai_small, monkeypatch):
     ((k2_planes, k2_codes, _cap, k2_op),) = seen["segment_extreme_planes"]
     assert k2_op == "min" and same(k2_planes, want["first"])
     assert torch.equal(k2_codes, want["codes"])
+
+
+def test_pipeline_phase_cells_on_the_cpu(scan_files, monkeypatch):
+    """chip_smoke.py's pipeline phase on the CPU at a small size: each cell
+    (file-fed q1, q6, q12, q14, q3, q5 in SQL over CSV dims; in-memory
+    supplier, q1, q12) in turns off, on, on, off through pipeline_cell,
+    equal to its in-memory result in both modes, its kernels and device
+    feeds called from the threads the plan puts them on, no stage thread or
+    pin left after a run; q5's host joins give the same rows per batch and
+    through the build-once probe. Morsels of 4,096 rows, so the files are
+    read as several morsels (q3's TopN takes the host plan)."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.execution.pipeline import STAGE_THREAD_NAME
+    from daft_tpu_torch.plan import physical as pp
+
+    cs, (lineitem, orders, dims), _frames, dirs = scan_files
+    cells = _cell_results(cs, dt, lineitem, orders, dims)
+    with dt.execution_config_ctx(device="cpu"):
+        cells["supplier"] = cs.supplier_query(cs.supplier_frame(lineitem)).to_pydict()
+    monkeypatch.setattr(cs, "PIPELINE_ROUNDS", 1)
+    sess = dt.current_session()
+    sess.create_temp_table("lineitem", dt.read_parquet(dirs["lineitem"]))
+    sess.create_temp_table("orders", dt.read_parquet(dirs["orders"]))
+    for name in cs.SCAN_CSV:
+        sess.create_temp_table(name, dt.read_csv(dirs[f"{name}_csv"]))
+    seen = {}
+    try:
+        with dt.execution_config_ctx(morsel_size_rows=4096, pipeline_mode="force"):
+            for label, query, key, floats, counter, rounds, cold in \
+                    cs.pipeline_cells(lineitem, orders, dirs):
+                out = cs.pipeline_cell(label, query, cells[key], floats, counter, "cpu",
+                                       rounds, cold, profile=key == "q3")
+                assert len(out["off"]) + len(out["cold"]) // 2 == 2 * rounds, label
+                seen[label] = cs.expected_launch_threads(pp.translate(query().optimized_plan()))
+                if key == "q5":
+                    joins = cs.host_join_times(label, query, "cpu")
+                    assert joins["joins"] >= 3 and joins["left_batches"] >= joins["joins"]
+            assert out["launches"] is not None and out["cold"] == {}
+    finally:
+        for name in ("lineitem", "orders") + cs.SCAN_CSV:
+            sess.drop_temp_table(name)
+    assert len(seen) == 9
+    # the in-memory cells' device stages sit under a stage node
+    assert seen["pipeline supplier"] == {STAGE_THREAD_NAME}
+    assert seen["pipeline scan q6"] == {STAGE_THREAD_NAME}

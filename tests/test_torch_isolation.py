@@ -12,7 +12,11 @@
   embed query too;
 - a kernel wrapper that raises makes the query raise: no host result (the
   grouped stage's K1, the repartition's K6);
-- ``from_numpy_columns`` reproduces the reference's columns.
+- ``from_numpy_columns`` reproduces the reference's columns;
+- under ``pipeline_mode="force"`` (stage threads, the IO-parallel scan
+  window, the build-once host join) a file-fed join query imports none of
+  them either, a failing kernel wrapper still raises from ``collect()``,
+  and a device query without a card still raises.
 """
 
 import datetime
@@ -437,3 +441,87 @@ def test_device_udf_query_without_card_raises(monkeypatch):
     with daft_tpu_torch.execution_config_ctx(device_mode="off"):
         assert len(df.select(embed_text(col("t"), provider="torch").alias("e"))
                    .to_pydict()["e"]) == 2
+
+
+_PIPELINE_FILE_JOIN_QUERY = """
+import os, sys, tempfile, threading
+import numpy as np
+sys.path.insert(0, {repo!r})
+import daft_tpu_torch as dt
+from daft_tpu_torch import col
+from daft_tpu_torch.device.residency import manager
+from daft_tpu_torch.ops import counters
+rng = np.random.default_rng(0)
+fact = dt.from_pydict({{"k": rng.integers(0, 50, 6000), "v": rng.random(6000),
+                        "q": rng.integers(0, 9, 6000)}})
+dim = dt.from_pydict({{"dk": np.arange(50), "g": np.arange(50) % 4,
+                       "name": np.array(["a", "b", "c", "d", "e"], dtype=object)[np.arange(50) % 5]}})
+root = tempfile.mkdtemp()
+with dt.execution_config_ctx(device="cpu", device_mode="on", pipeline_mode="force",
+                             scan_split_bytes=4096, morsel_size_rows=1024):
+    for i in range(3):
+        fact.write_parquet(os.path.join(root, "fact"))
+    dim.write_csv(os.path.join(root, "dim"))
+    f = dt.read_parquet(os.path.join(root, "fact"))
+    d = dt.read_csv(os.path.join(root, "dim"))
+    joined = (f.where(col("q") > 2).join(d, left_on="k", right_on="dk")
+              .groupby("name").agg(col("v").sum().alias("s"), col("k").count().alias("n"))
+              .sort("name").to_pydict())
+    on_device = (f.join(dim, left_on="k", right_on="dk").groupby("g")
+                 .agg(col("v").sum().alias("s")).sort("g").to_pydict())
+    kept = 3 * sum(1 for q in fact.to_pydict()["q"] if q > 2)
+assert joined["name"] == ["a", "b", "c", "d", "e"], joined
+assert sum(joined["n"]) == kept, joined
+assert on_device["g"] == [0, 1, 2, 3], on_device
+assert counters.scan_window_tasks >= 2 and counters.device_grouped_batches >= 1, \\
+    counters.snapshot()
+assert not [t for t in threading.enumerate() if t.name.startswith("daft-stage")]
+assert manager().pinned_count() == 0
+import shutil
+shutil.rmtree(root)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             or m == "daft_tpu")
+print("FORBIDDEN", bad)
+"""
+
+
+def test_pipelined_file_join_imports_no_jax_pyarrow_or_reference():
+    """Under pipeline_mode="force": Parquet and CSV scans read in the
+    IO-parallel window, a host join (the build-once probe with the filter
+    fused) into a grouped aggregate, and a device join into the grouped
+    stage, in a fresh interpreter; no stage thread or pin is left."""
+    proc = subprocess.run([sys.executable, "-c",
+                           _PIPELINE_FILE_JOIN_QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+def test_pipelined_failing_kernel_raises_from_collect(monkeypatch):
+    """The kernel's error is raised on a stage thread and reaches collect():
+    no host result, no fallback."""
+    import threading
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("segment_sum_planes: CUDA launch failed with error 98")
+
+    monkeypatch.setattr(sk, "segment_sum_planes", broken)
+    counters.reset()
+    with daft_tpu_torch.execution_config_ctx(device="cpu", device_mode="on",
+                                             pipeline_mode="force"):
+        df = _small_query(_small_df())
+        with pytest.raises(RuntimeError, match="launch failed"):
+            df.collect()
+    assert df._result is None
+    assert counters.snapshot()["device_fallbacks"] == 0
+    assert not [t for t in threading.enumerate() if t.name.startswith("daft-stage")]
+
+
+def test_pipelined_default_device_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with daft_tpu_torch.execution_config_ctx(pipeline_mode="force"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            _small_query(_small_df()).to_pydict()
+        with daft_tpu_torch.execution_config_ctx(device="cpu"):
+            assert _small_query(_small_df()).to_pydict()["k"] == [0, 1, 2, 3, 4]
