@@ -61,7 +61,11 @@ error (no phase catches its own failure):
             at its cap 2^21 (its rows and revenue-count planes, first-row
             index, f32 revenue) and the same planes at the kernels' ceiling
             2^22 (K3 there too); K4 at q14's and q19's shapes (part's
-            200,000 keys, lineitem's l_partkey probed). Every kernel also by
+            200,000 keys, lineitem's l_partkey probed); at the window
+            phase's W2 inputs (w2_inputs): K4's build over part and probe of
+            every l_partkey, K1, K2 and K7 at cap 4096 (25 brands x 150
+            types; the rows of its 30 days kept). The ooc phase's cells run
+            the scan phase's shapes, held above. Every kernel also by
             its device time under
             torch.profiler (K4's build with the table's clearing, where it
             has one). K1a and K5 have no engine caller, in the port or in
@@ -188,7 +192,7 @@ error (no phase catches its own failure):
             against the sequential one ("off"), over the scan phase's files:
             q1, q6, q12, q14 and q3 over Parquet, q5 in SQL with its dims
             from CSV, and the in-memory supplier, q1 and q12 cells, each in
-            turns off, on, on, off (two rounds; q3 and q5 one, q5 cold and
+            turns off, on, on, off (one round; q5 cold and
             warm in each mode), counted from zero each run: every run equal
             to the cell's result (held to its numpy oracle) and to the other
             mode's, its stage counter above 0, in "on" every kernel call and
@@ -199,7 +203,36 @@ error (no phase catches its own failure):
             once; the host's cores and the compute pool's width; q5's host
             joins timed before (the per-batch join) and after the
             build-once probe; file-fed q1 under "on" in torch.profiler;
-18. ai:     the UDF tier (daft_tpu_torch/ops/udf_stage.py) and the torch
+18. ooc:    bench.py:1129-1276's out-of-core capture on the port: TPC-H q1,
+            q3, q4, q5, q6, q10, q12, q14 and q19 (benchmarking/tpch/
+            queries.py, its import rewritten to the port) over the scan
+            phase's Parquet lineitem and the in-memory dims, each (a)
+            device_mode="off" unbudgeted, (b) "off" under B10 (10 % of the
+            SF1 tables' size_bytes) in one query scope, equal to (a)
+            exactly, spill_bytes > 0 over (b), (c) "on" under B10 on the
+            card, equal to (a) by the exactness rule, after the same query
+            unbudgeted on the card: both fall back exactly where
+            OOC_FALLBACKS says (q3's and q10's TopN once, the rest never),
+            and (c)'s device stages feed, dispatch and launch what the
+            unbudgeted run's do, count for count; each run's ms and the
+            spill, scan and ledger counters, the scope's peak and ru_maxrss.
+            Then under B1 (1 %): lineitem's sort keys and l_quantity sorted
+            by (l_extendedprice, l_orderkey, l_linenumber) in a sync and an
+            async leg, each equal to the in-memory sort as arrays; q4 in
+            both device modes (its semi join's build side Grace-partitions)
+            and an inner join of lineitem with orders, each equal to its
+            unbudgeted run. Spill goes to a temporary directory that the
+            phase deletes;
+19. window: W1, six window functions over SF1 lineitem by supplier in
+            ship-date order, unbudgeted and under B1 (the Grace window),
+            equal as rows keyed by (l_orderkey, l_linenumber) and to a numpy
+            oracle; W2, TPC-DS q98's shape on TPC-H tables (30 days of
+            lineitem joined to part, revenue by brand and type, each
+            group's share of its type by a window), as a DataFrame and in
+            SQL through run_cell (the aggregate on the card as the device
+            join stage), equal to each other, the "off" run and a numpy
+            oracle, each with a profile;
+20. ai:     the UDF tier (daft_tpu_torch/ops/udf_stage.py) and the torch
             provider's encoder at sentence-transformers/all-MiniLM-L6-v2's
             widths (vocab 30,522, hidden 384, 6 layers, 12 heads, FFN
             1,536, max_len 128), seeded weights (about 90 MB) put in the
@@ -224,7 +257,7 @@ error (no phase catches its own failure):
             DeviceUdfRun finalized, so the UDF plane never comes back; one
             aggregate finalize), equal to a numpy oracle (rtol 1e-5),
             uploading nothing warm;
-19. print the {"kernels": [...]} line (each kernel's launches by path:
+21. print the {"kernels": [...]} line (each kernel's launches by path:
    every cell's counted run, and the sql phase's SQL first runs, summed,
    under "sql"), the card line, and last the {"ok": true, "device":
    {...}} line.
@@ -236,6 +269,11 @@ one "optimize ms / translate ms" line (host clock, medians of PLANS calls).
 Every relational cell runs at SF1: nothing is cut; the ai cells run the
 model at its published widths with its depth uncut. It imports torch,
 numpy and the port; nothing of JAX, pyarrow or daft_tpu.
+
+    python3 chip_smoke.py --phase ooc|window
+
+runs phases 1-3, then that phase alone (ooc writes lineitem's Parquet files
+itself).
 
     python3 chip_smoke.py --kernels-only [--root DIR]
 
@@ -1956,6 +1994,21 @@ def phase_kernels(cols, orders, dims, card: str):
     del t
     torch.cuda.empty_cache()
 
+    # W2's launches at its own inputs (the window phase's q98-shaped join
+    # aggregate): K4's build over part and probe of every l_partkey, K1, K2
+    # and K7 at the brand x type dictionary product's cap 4096
+    check(grouped_stage._pad_groups(len(P_BRANDS) * len(P_TYPES)) == W2_CAP,
+          f"W2's {len(P_BRANDS)} x {len(P_TYPES)} groups do not pad to {W2_CAP}")
+    t = w2_inputs(cols, dims, dev)
+    at = f"at_w2_cap{W2_CAP}"
+    results["segment_sum_planes"][at] = plane_case(sk, "sum", t["planes"], t["codes"], W2_CAP)
+    results["segment_extreme_planes"][at] = plane_case(sk, "min", t["first"], t["codes"],
+                                                       W2_CAP)
+    k7[at] = k7_case(sk, t["revenue"], t["codes"], W2_CAP, f"w2 cap {W2_CAP}")
+    w2_probe = {k: t[k] for k in ("dim_keys", "keys", "valid")}
+    del t
+    torch.cuda.empty_cache()
+
     # the file-fed cells' launches at the first lineitem morsel's inputs:
     # scan q1's grouped stage at cap 8, and scan q3's fallback (a grouped
     # join batch: K4's build over the orders before Q3_DATE, its probe of
@@ -1997,6 +2050,13 @@ def phase_kernels(cols, orders, dims, card: str):
     del codes8
     probe_cases(pk, cols, orders, dev, results)
     part_probe_cases(pk, cols, dims, dev, results)
+    table, results["hash_probe_build"]["at_w2_part"] = k4_build_case(
+        pk, w2_probe["dim_keys"], "w2 part")
+    _got, results["hash_probe_index"]["at_w2_l_partkey"] = k4_probe_case(
+        pk, w2_probe["keys"], w2_probe["valid"], table, torch.sort(w2_probe["dim_keys"])[0],
+        "w2 l_partkey")
+    del w2_probe, table, _got
+    torch.cuda.empty_cache()
     supplier_probe_cases(pk, cols, dims, dev, results)
     scan_probe_cases(pk, scan_q3, results)
     del scan_q3
@@ -4021,7 +4081,9 @@ def scan_q3(pq, want: dict, card: str) -> dict:
     return launches
 
 
-PIPELINE_ROUNDS = 2  # rounds of (off, on, on, off) a pipeline cell runs; q3 and q5 one
+# rounds of (off, on, on, off) a pipeline cell runs; q3 and q5 one. Two
+# until the ooc and window phases came: one keeps the script under 15 minutes
+PIPELINE_ROUNDS = 1
 PIPELINE_MODES = ("off", "on", "on", "off")
 DEVICE_NODE_NAMES = ("DeviceGroupedAgg", "DeviceFilterAgg", "DeviceJoinAgg", "DeviceJoinTopN")
 # the kernel wrappers the stages call, and the executor's feed of a device
@@ -4736,6 +4798,629 @@ def phase_ai(lineitem, card: str, kernel_results: dict) -> dict:
     return paths
 
 
+# ---- out of core and windows ------------------------------------------------------
+
+OOC_QUERIES = (1, 3, 4, 5, 6, 10, 12, 14, 19)  # bench.py:1129-1226's nine
+OOC_FLOATS = {1: Q1_FLOATS, 3: ("revenue",), 5: ("revenue",), 6: ("revenue",),
+              10: ("revenue",), 14: ("promo_revenue",), 19: ("revenue",)}
+# the device counters each query's card run moves (the scan phase's stage
+# counters; measured on the H100, PERF.md §6), budgeted or not
+OOC_DEVICE = {1: ("device_grouped_batches",),
+              3: ("device_grouped_batches", "device_join_batches"),
+              4: ("device_grouped_batches",),
+              5: ("device_grouped_batches", "device_join_batches"),
+              6: ("device_stage_batches",),
+              10: ("device_grouped_batches", "device_join_batches"),
+              12: ("device_grouped_batches", "device_join_batches"),
+              14: ("device_join_batches", "device_stage_batches"),
+              19: ("device_join_batches", "device_stage_batches")}
+# the one fallback a query's card run takes, budgeted or not: q3's and
+# q10's join TopN over a fact read in morsels takes the host plan (as
+# scan q3); every other query falls back nowhere
+OOC_FALLBACKS = {3: "single fact batch", 10: "single fact batch"}
+# what a card run's device stages did, held equal between the unbudgeted
+# and the budgeted run (the coalescer flushing by size alone, so that no
+# count hangs on timing)
+OOC_STAGE_COUNTERS = ("device_grouped_batches", "device_stage_batches",
+                      "device_join_batches", "device_stage_runs", "device_topn_runs",
+                      "device_fallbacks", "coalesce_morsels_in", "dispatch_coalesced",
+                      "bucket_fill_rows")
+SORT_KEYS = ("l_extendedprice", "l_orderkey", "l_linenumber")
+SORT_COLUMNS = SORT_KEYS + ("l_quantity",)
+W2_FROM, W2_TO = datetime.date(1995, 1, 1), datetime.date(1995, 1, 31)  # 30 days
+W2_CAP = 4096             # W2's 25 brands x 150 types pad to this group capacity
+W1_COLUMNS = ("l_orderkey", "l_linenumber", "l_suppkey", "l_shipdate", "l_quantity",
+              "l_extendedprice")
+DEVICE_COUNTERS = ("device_grouped_batches", "device_stage_batches", "device_join_batches")
+SPILL_PRINT = ("spill_batches", "spill_bytes", "spill_wire_bytes", "spill_files", "spill_runs",
+               "spill_merge_passes", "spill_merge_sort_rows", "spill_write_seconds",
+               "spill_write_wall_seconds", "spill_read_seconds", "spill_read_wall_seconds",
+               "scan_bytes", "scan_backpressure_stalls", "scan_stall_ms",
+               "host_over_budget_events", "host_bytes_high_water")
+
+
+def tpch_port_queries(root: str = HERE) -> dict:
+    """benchmarking/tpch/queries.py's ALL_QUERIES with its import rewritten
+    to the port (nothing of daft_tpu is imported)."""
+    import types
+
+    path = os.path.join(root, "benchmarking", "tpch", "queries.py")
+    src = open(path).read()
+    check("from daft_tpu import col, lit" in src, f"{path}: the import to rewrite moved")
+    mod = types.ModuleType("port_tpch_queries")
+    exec(compile(src.replace("from daft_tpu import", "from daft_tpu_torch import"), path,
+                 "exec"), mod.__dict__)
+    return mod.ALL_QUERIES
+
+
+def frames_bytes(frames: dict) -> int:
+    """``size_bytes`` of the in-memory tables, as bench.py:1145 sums them."""
+    return sum(_frame_batch(df).size_bytes() for df in frames.values())
+
+
+def budget_of(frames: dict, fraction: float) -> int:
+    return max(int(frames_bytes(frames) * fraction), 1 << 20)
+
+
+def ooc_tables(frames: dict, lineitem_dir: str) -> dict:
+    """The OOM capture's tables: lineitem read back from Parquet, the rest
+    in memory."""
+    import daft_tpu_torch as dt
+
+    out = dict(frames)
+    out["lineitem"] = dt.read_parquet(lineitem_dir)
+    return out
+
+
+def spill_counts(snap: dict) -> dict:
+    from daft_tpu_torch.ops import counters
+
+    out = {k: snap[k] for k in SPILL_PRINT}
+    out["spill_io_overlap_seconds"] = counters.spill_overlap_seconds(snap)
+    return out
+
+
+def rss_high_water_bytes() -> int:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def device_counts(snap: dict) -> dict:
+    return {k: snap[k] for k in DEVICE_COUNTERS}
+
+
+def ooc_card_run(query, card_ctx):
+    """One cold run of ``query`` on the card (the resident planes dropped
+    first, the coalescer flushing by size alone): (result, ms, counter
+    snapshot, fallback reasons)."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ops import counters
+
+    clear_residency()
+    counters.reset()
+    with dt_ctx(), dt.execution_config_ctx(batch_latency_ms=SCAN_FLUSH_MS), card_ctx():
+        t0 = time.perf_counter()
+        got = query().to_pydict()
+        _synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    reasons = sorted(r for r, n in dict(counters.rejections).items()
+                     if "device fallback: " in r for _ in range(n))
+    return got, ms, counters.snapshot(), reasons
+
+
+def ooc_check_fallbacks(q: int, snap: dict, reasons: list, label: str) -> None:
+    """The query's card run fell back exactly where OOC_FALLBACKS says."""
+    want = OOC_FALLBACKS.get(q)
+    check(snap["device_fallbacks"] == (1 if want else 0) and len(reasons) == snap[
+        "device_fallbacks"] and all(want in r for r in reasons),
+          f"ooc q{q} ({label}): fallbacks {snap['device_fallbacks']} {reasons}, expected "
+          f"{'one for ' + repr(want) if want else 'none'}")
+    for k in OOC_DEVICE[q]:
+        check(snap[k] > 0, f"ooc q{q} ({label}): {k} did not move on the card")
+
+
+def ooc_queries(queries: dict, tables: dict, card: str, budget: int, spill_dir: str) -> dict:
+    """The nine queries three ways: (a) device_mode="off" unbudgeted, the
+    expected result; (b) "off" under ``budget`` in one query scope, equal to
+    (a) exactly; (c) "on" under ``budget`` on the card, equal to (a) by the
+    exactness rule. Each query also runs on the card unbudgeted just
+    before (c): both runs fall back exactly where OOC_FALLBACKS says, and
+    (c)'s device stages feed, dispatch and launch what the unbudgeted run's
+    do, count for count (OOC_STAGE_COUNTERS and every kernel's launches and
+    plain calls). Returns {"ooc_q<n>": (c)'s launches}."""
+    import contextlib
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.memory import manager, reset_counters
+    from daft_tpu_torch.ops import counters
+
+    expected, paths = {}, {}
+    for q in OOC_QUERIES:
+        with dt.execution_config_ctx(device="cuda", device_mode="off"):
+            t0 = time.perf_counter()
+            expected[q] = queries[q](tables).to_pydict()
+        print(f"ooc q{q} (a) off unbudgeted {(time.perf_counter() - t0) * 1e3:.1f} ms "
+              f"[{card}]", flush=True)
+    counters.reset()
+    reset_counters()
+    manager().clear()
+    with dt.execution_config_ctx(device="cuda", device_mode="off", memory_limit_bytes=budget,
+                                 spill_dir=spill_dir):
+        with manager().query_scope() as scope:
+            for q in OOC_QUERIES:
+                t0 = time.perf_counter()
+                got = queries[q](tables).to_pydict()
+                ms = (time.perf_counter() - t0) * 1e3
+                check(got == expected[q], f"ooc q{q} under the budget (off) differs from its "
+                                          "unbudgeted run")
+                print(f"ooc q{q} (b) off budgeted {ms:.1f} ms, equal [{card}]", flush=True)
+    snap = counters.snapshot()
+    check(snap["spill_bytes"] > 0, "ooc (b): the budget never spilled")
+    check(manager().tracked_bytes() == 0, "ooc (b): the ledger is not back at 0")
+    print(f"ooc (b) counters: {json.dumps(spill_counts(snap), sort_keys=True)}; "
+          f"host_bytes_high_water {manager().high_water_bytes()}, scope peak "
+          f"{scope.peak_bytes()}, ru_maxrss {rss_high_water_bytes()} bytes [{card}]", flush=True)
+    stage_keys = OOC_STAGE_COUNTERS + tuple(
+        f"{kind}_{k}" for kind in ("launches", "plain") for k in counters.KERNEL_NAMES)
+    for q in OOC_QUERIES:
+        floats = OOC_FLOATS.get(q, ())
+
+        def query(q=q):
+            return queries[q](tables)
+
+        got, ms0, snap0, reasons0 = ooc_card_run(query, contextlib.nullcontext)
+        check(same_result(got, expected[q], floats),
+              f"ooc q{q} unbudgeted on the card differs from (a)")
+        ooc_check_fallbacks(q, snap0, reasons0, "unbudgeted on the card")
+        reset_counters()
+        manager().clear()
+        scopes = []
+
+        @contextlib.contextmanager
+        def budgeted():
+            with dt.execution_config_ctx(memory_limit_bytes=budget, spill_dir=spill_dir):
+                with manager().query_scope() as scope:
+                    scopes.append(scope)
+                    yield
+
+        got, ms, snap, reasons = ooc_card_run(query, budgeted)
+        check(same_result(got, expected[q], floats),
+              f"ooc q{q} under the budget on the card differs from (a)")
+        ooc_check_fallbacks(q, snap, reasons, "under the budget on the card")
+        check(reasons == reasons0, f"ooc q{q}: the fallbacks under the budget {reasons} are "
+                                   f"not the unbudgeted run's {reasons0}")
+        moved = {k: (snap0[k], snap[k]) for k in stage_keys if snap0[k] != snap[k]}
+        check(not moved, f"ooc q{q}: under the budget the card's stages did other work "
+                         f"(unbudgeted, budgeted): {moved}")
+        launches = {k: snap[f"launches_{k}"] for k in counters.KERNEL_NAMES}
+        paths[f"ooc_q{q}"] = launches
+        print(f"ooc q{q} (c) on budgeted {ms:.1f} ms (unbudgeted on the card {ms0:.1f} ms), "
+              f"equal by the rule; device stages as unbudgeted "
+              f"{json.dumps({k: snap[k] for k in OOC_STAGE_COUNTERS})}; fallbacks "
+              f"{json.dumps(reasons)}; launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}; "
+              f"{json.dumps(spill_counts(snap), sort_keys=True)}; scope peak "
+              f"{scopes[0].peak_bytes()}, ru_maxrss {rss_high_water_bytes()} [{card}]",
+              flush=True)
+    return paths
+
+
+def sort_columns(parts) -> dict:
+    """{column: numpy array} of a collected result's batches."""
+    import numpy as np
+
+    batches = [b for p in parts for b in p.batches]
+    return {c: np.concatenate([b.get_column(c).to_numpy() for b in batches])
+            for c in batches[0].column_names()} if batches else {}
+
+
+def ooc_sort(lineitem_dir: str, budget: int, card: str, spill_dir: str) -> None:
+    """bench.py:1228-1276's external sort: lineitem (its three sort keys
+    and l_quantity) sorted by (l_extendedprice, l_orderkey, l_linenumber)
+    under ``budget``, a sync leg (spill_io_threads=0,
+    spill_prefetch_batches=0) and an async leg (the defaults); each equal to
+    the in-memory sort as numpy arrays, tie order included."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.memory import manager, reset_counters
+    from daft_tpu_torch.ops import counters
+
+    def q():
+        return dt.read_parquet(lineitem_dir).select(*SORT_COLUMNS).sort(list(SORT_KEYS))
+
+    with dt.execution_config_ctx(device="cuda", device_mode="off"):
+        t0 = time.perf_counter()
+        want = sort_columns(q().collect()._result)
+        mem_s = time.perf_counter() - t0
+    print(f"ooc sort in memory {mem_s:.3f} s, {len(want['l_orderkey'])} rows [{card}]",
+          flush=True)
+    for leg, cfg in (("sync", {"spill_io_threads": 0, "spill_prefetch_batches": 0}),
+                     ("async", {})):
+        counters.reset()
+        reset_counters()
+        manager().clear()
+        with dt.execution_config_ctx(device="cuda", device_mode="off",
+                                     memory_limit_bytes=budget, spill_dir=spill_dir, **cfg):
+            t0 = time.perf_counter()
+            got = sort_columns(q().collect()._result)
+            wall = time.perf_counter() - t0
+        snap = counters.snapshot()
+        for c in SORT_COLUMNS:
+            check(np.array_equal(got[c], want[c]),
+                  f"ooc sort ({leg}): {c} differs from the in-memory sort")
+        check(snap["spill_runs"] >= 2, f"ooc sort ({leg}): {snap['spill_runs']} runs")
+        print(f"ooc sort {leg}: wall {wall:.3f} s, equal to the in-memory sort; "
+              f"{json.dumps(spill_counts(snap), sort_keys=True)} [{card}]", flush=True)
+
+
+def ooc_joins(queries: dict, tables: dict, budget: int, card: str, spill_dir: str) -> dict:
+    """The Grace join under ``budget``: q4 (its semi join's build side, the
+    late lineitem keys, over the budget) in both device modes, and an inner
+    join of lineitem with orders that feeds no aggregate, each equal to its
+    unbudgeted run (the join's rows as a multiset: Grace partitions reorder
+    them). Returns {"ooc_q4_grace": the card run's launches}."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col
+    from daft_tpu_torch.memory import manager, reset_counters
+    from daft_tpu_torch.ops import counters
+
+    paths = {}
+    for mode in ("off", "on"):
+        def mode_ctx():
+            return dt_ctx() if mode == "on" else \
+                dt.execution_config_ctx(device="cuda", device_mode="off")
+
+        with mode_ctx():
+            want = queries[4](tables).to_pydict()
+        counters.reset()
+        reset_counters()
+        manager().clear()
+        with mode_ctx(), dt.execution_config_ctx(memory_limit_bytes=budget,
+                                                 spill_dir=spill_dir):
+            t0 = time.perf_counter()
+            got = queries[4](tables).to_pydict()
+            ms = (time.perf_counter() - t0) * 1e3
+        snap = counters.snapshot()
+        check(got == want, f"ooc q4 under the 1 % budget ({mode}) differs from unbudgeted")
+        check(snap["spill_files"] >= 16, f"ooc q4 ({mode}): the semi join did not "
+                                         f"Grace-partition ({snap['spill_files']} files)")
+        if mode == "on":
+            paths["ooc_q4_grace"] = {k: snap[f"launches_{k}"] for k in counters.KERNEL_NAMES}
+        print(f"ooc q4 grace {mode}: {ms:.1f} ms, equal; spill_files {snap['spill_files']}; "
+              f"{json.dumps(spill_counts(snap), sort_keys=True)} [{card}]", flush=True)
+
+    def inner():
+        L, O = tables["lineitem"], tables["orders"]
+        return (L.select(col("l_orderkey"), col("l_linenumber"), col("l_extendedprice"))
+                .join(O.select(col("o_orderkey"), col("o_orderdate")),
+                      left_on="l_orderkey", right_on="o_orderkey"))
+
+    def keyed(parts):
+        c = sort_columns(parts)
+        order = np.lexsort((c["l_linenumber"], c["l_orderkey"]))
+        return {k: v[order] for k, v in c.items()}
+
+    with dt.execution_config_ctx(device="cuda", device_mode="off"):
+        want = keyed(inner().collect()._result)
+    counters.reset()
+    reset_counters()
+    manager().clear()
+    with dt.execution_config_ctx(device="cuda", device_mode="off", memory_limit_bytes=budget,
+                                 spill_dir=spill_dir):
+        t0 = time.perf_counter()
+        got = keyed(inner().collect()._result)
+        ms = (time.perf_counter() - t0) * 1e3
+    snap = counters.snapshot()
+    check(all(np.array_equal(got[k], want[k]) for k in want),
+          "ooc inner join under the 1 % budget differs from unbudgeted")
+    check(snap["spill_files"] >= 32, f"ooc inner join: {snap['spill_files']} spill files")
+    print(f"ooc inner join: {len(got['l_orderkey'])} rows, {ms:.1f} ms, equal as a multiset; "
+          f"{json.dumps(spill_counts(snap), sort_keys=True)} [{card}]", flush=True)
+    return paths
+
+
+def phase_ooc(frames: dict, lineitem_dir: str, card: str) -> dict:
+    """bench.py's OOM capture on the port (out of core): the nine
+    queries under B10 (10 % of the SF1 tables' size_bytes, at least 1 MiB)
+    with lineitem from the scan phase's Parquet files, the external sort
+    and the Grace joins under B1 (1 %). Spill goes to a temporary directory
+    that the phase deletes. Returns {path: its card run's launches}."""
+    from daft_tpu_torch.memory import manager
+
+    phase("ooc")
+    clear_residency()
+    queries = tpch_port_queries()
+    tables = ooc_tables(frames, lineitem_dir)
+    b10, b1 = budget_of(frames, 0.10), budget_of(frames, 0.01)
+    print(f"ooc tables {frames_bytes(frames)} bytes (size_bytes); B10 {b10}, B1 {b1} bytes "
+          f"[{card}]", flush=True)
+    spill_dir = tempfile.mkdtemp(prefix="daft_tpu_torch_spill_")
+    t0 = time.perf_counter()
+    try:
+        paths = ooc_queries(queries, tables, card, b10, spill_dir)
+        ooc_sort(lineitem_dir, b1, card, spill_dir)
+        paths.update(ooc_joins(queries, tables, b1, card, spill_dir))
+        check(os.listdir(spill_dir) == [], f"ooc: spill files left behind: "
+                                           f"{os.listdir(spill_dir)[:5]}")
+    finally:
+        shutil.rmtree(spill_dir, ignore_errors=True)
+        manager().clear()
+    print(f"ooc phase {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return paths
+
+
+def w1_frame(cols):
+    import daft_tpu_torch as dt
+
+    data = {c: cols[c] for c in W1_COLUMNS}
+    data["l_shipdate"] = cols["l_shipdate"].astype("datetime64[D]")
+    return dt.from_pydict(data)
+
+
+def w1_query(df):
+    """W1: over each supplier's lines (10,000 partitions) in ship-date
+    order, row_number, rank, dense_rank, the running l_quantity sum, the
+    previous line's price and the line's share of its supplier's price
+    sum."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col
+    from daft_tpu_torch.functions import dense_rank, rank, row_number
+
+    w = dt.Window().partition_by("l_suppkey").order_by("l_shipdate", "l_orderkey",
+                                                       "l_linenumber")
+    return df.select(
+        col("l_orderkey"), col("l_linenumber"), col("l_suppkey"),
+        row_number().over(w).alias("rn"), rank().over(w).alias("rk"),
+        dense_rank().over(w).alias("drk"),
+        col("l_quantity").sum().over(w.rows_between(dt.Window.unbounded_preceding,
+                                                    dt.Window.current_row)).alias("run_qty"),
+        col("l_extendedprice").lag(1).over(w).alias("prev_price"),
+        (col("l_extendedprice") / col("l_extendedprice").sum().over(
+            dt.Window().partition_by("l_suppkey"))).alias("share"))
+
+
+def w1_keyed(parts) -> dict:
+    """W1's result as numpy arrays ordered by (l_orderkey, l_linenumber),
+    with prev_price's validity beside it."""
+    import numpy as np
+
+    batches = [b for p in parts for b in p.batches]
+    out = {c: np.concatenate([b.get_column(c).to_numpy() for b in batches])
+           for c in batches[0].column_names()}
+    out["prev_valid"] = np.concatenate([b.get_column("prev_price").validity_numpy()
+                                        for b in batches])
+    order = np.lexsort((out["l_linenumber"], out["l_orderkey"]))
+    return {k: v[order] for k, v in out.items()}
+
+
+def w1_oracle(cols) -> dict:
+    """row_number and the running l_quantity sum by numpy alone (a lexsort
+    and a segmented cumsum), in lineitem's own row order (which is by
+    l_orderkey, l_linenumber)."""
+    import numpy as np
+
+    order = np.lexsort((cols["l_linenumber"], cols["l_orderkey"], cols["l_shipdate"],
+                        cols["l_suppkey"]))
+    supp = cols["l_suppkey"][order]
+    start = np.flatnonzero(np.r_[True, supp[1:] != supp[:-1]])
+    seg = np.repeat(start, np.diff(np.r_[start, len(supp)]))
+    rn = np.arange(len(supp)) - seg + 1
+    csum = np.cumsum(cols["l_quantity"][order])
+    run = csum - np.r_[0.0, csum][seg]
+    out_rn = np.empty_like(rn)
+    out_rn[order] = rn
+    out_run = np.empty_like(run)
+    out_run[order] = run
+    return {"rn": out_rn, "run_qty": out_run}
+
+
+def w2_query(t):
+    """W2, the shape of TPC-DS q98 (benchmarking/tpcds/queries.py:218-259) on
+    TPC-H tables: 30 days of lineitem joined to part, revenue by (p_brand,
+    p_type), each group's share of its type's revenue, sorted, 100 rows."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col, lit
+
+    L, P = t["lineitem"], t["part"]
+    agg = (L.where((col("l_shipdate") >= lit(W2_FROM)) & (col("l_shipdate") < lit(W2_TO)))
+           .join(P, left_on="l_partkey", right_on="p_partkey")
+           .groupby("p_brand", "p_type")
+           .agg((col("l_extendedprice") * (1 - col("l_discount"))).sum().alias("revenue")))
+    return (agg.with_column("revenueratio", col("revenue") * 100 / col("revenue").sum().over(
+                dt.Window().partition_by("p_type")))
+            .sort(["p_type", "p_brand", "revenueratio"]).limit(100))
+
+
+W2_SQL = f"""
+SELECT p_brand, p_type, revenue,
+       revenue * 100 / SUM(revenue) OVER (PARTITION BY p_type) AS revenueratio
+FROM (SELECT p_brand, p_type, SUM(l_extendedprice * (1 - l_discount)) AS revenue
+      FROM lineitem JOIN part ON l_partkey = p_partkey
+      WHERE l_shipdate >= DATE '{W2_FROM}' AND l_shipdate < DATE '{W2_TO}'
+      GROUP BY p_brand, p_type)
+ORDER BY p_type, p_brand, revenueratio
+LIMIT 100
+"""
+W2_FLOATS = ("revenue", "revenueratio")
+
+
+def w2_inputs(cols, dims, dev) -> dict:
+    """W2's kernel inputs at SF1, as its device join run builds them: K4's
+    build over part's keys and its probe of every lineitem row's l_partkey
+    (the date filter is evaluated in the stage), the codes (the row's part's
+    p_brand dictionary code times p_type's 150 plus p_type's code, where
+    the row's ship date is in the 30 days; trash W2_CAP elsewhere), K1's
+    rows and revenue-count planes, K2's first-row-index plane and K7's f32
+    revenue plane."""
+    import numpy as np
+    import torch
+
+    n = len(cols["l_orderkey"])
+    part = dims["part"]
+    brand, _k_brand = first_occurrence_codes(np.asarray(P_BRANDS, dtype=object)[part["p_brand"]])
+    ptype, k_type = first_occurrence_codes(np.asarray(P_TYPES, dtype=object)[part["p_type"]])
+    prow = cols["l_partkey"] - 1
+    ship = cols["l_shipdate"]
+    keep_np = (ship >= days(W2_FROM)) & (ship < days(W2_TO))
+    keep = torch.zeros(BUCKET, dtype=torch.bool)
+    keep[:n] = torch.from_numpy(keep_np)
+    codes = torch.full((BUCKET,), W2_CAP, dtype=torch.int32)
+    codes[:n] = torch.from_numpy(np.where(keep_np, brand[prow] * k_type + ptype[prow],
+                                          W2_CAP).astype(np.int32))
+    price = torch.zeros(BUCKET, dtype=torch.float32)
+    price[:n] = torch.from_numpy(cols["l_extendedprice"].astype(np.float32))
+    disc = torch.zeros(BUCKET, dtype=torch.float32)
+    disc[:n] = torch.from_numpy(cols["l_discount"].astype(np.float32))
+    kf = keep.float().to(dev)
+    keys, valid = fact_keys_on(cols, "l_partkey", dev)
+    return {"cap": W2_CAP, "codes": codes.to(dev), "planes": [kf, kf.clone()],
+            "first": [torch.where(keep, torch.arange(BUCKET, dtype=torch.float32),
+                                  torch.tensor(float("inf"))).to(dev)],
+            "revenue": [torch.where(keep, price * (1 - disc), 0.0).to(dev)],
+            "dim_keys": torch.from_numpy(part["p_partkey"]).to(dev), "keys": keys,
+            "valid": valid, "groups": len(set(zip(brand.tolist(), ptype.tolist())))}
+
+
+def w2_oracle(lineitem, dims) -> dict:
+    """W2's 100 rows by numpy alone (sums in f64)."""
+    import numpy as np
+
+    part = dims["part"]
+    ship = lineitem["l_shipdate"]
+    keep = (ship >= days(W2_FROM)) & (ship < days(W2_TO))
+    prow = lineitem["l_partkey"][keep] - 1
+    rev = (lineitem["l_extendedprice"] * (1 - lineitem["l_discount"]))[keep]
+    sums: dict = {}
+    for b, t, r in zip(part["p_brand"][prow].tolist(), part["p_type"][prow].tolist(),
+                       rev.tolist()):
+        sums[(P_BRANDS[b], P_TYPES[t])] = sums.get((P_BRANDS[b], P_TYPES[t]), 0.0) + r
+    by_type: dict = {}
+    for (b, t), r in sums.items():
+        by_type[t] = by_type.get(t, 0.0) + r
+    rows = sorted((t, b, r, r * 100 / by_type[t]) for (b, t), r in sums.items())
+    rows.sort(key=lambda x: (x[0], x[1], x[3]))
+    rows = rows[:100]
+    return {"p_brand": [r[1] for r in rows], "p_type": [r[0] for r in rows],
+            "revenue": [r[2] for r in rows], "revenueratio": [r[3] for r in rows]}
+
+
+def phase_window(lineitem, dims, frames: dict, card: str) -> dict:
+    """Windows. W1 over SF1 lineitem in memory: unbudgeted and
+    under B1, where the Grace window takes 16 partitions a spec; equal as
+    rows keyed by (l_orderkey, l_linenumber) (ranks, integers and the
+    whole-number running sum exactly, the share within rtol 1e-5), and
+    row_number and the running sum equal to a numpy oracle. W2 (q98's
+    shape) as a DataFrame and in SQL on the card (the aggregate as the
+    device join stage: K4, K1, K2, K7), equal to each other, to the
+    device_mode="off" run and to a numpy oracle; warm medians, launches and
+    a profile each. Returns {path: launches}."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.memory import manager, reset_counters
+    from daft_tpu_torch.ops import counters
+
+    phase("window")
+    clear_residency()
+    start = time.perf_counter()
+    paths = {}
+    b1 = budget_of(frames, 0.01)
+    df = w1_frame(lineitem)
+    with dt_ctx():
+        t0 = time.perf_counter()
+        want = w1_keyed(w1_query(df).collect()._result)
+        mem_s = time.perf_counter() - t0
+    oracle = w1_oracle(lineitem)
+    check(np.array_equal(want["rn"], oracle["rn"]), "W1: row_number differs from numpy")
+    check(np.array_equal(want["run_qty"], oracle["run_qty"]),
+          "W1: the running l_quantity sum differs from numpy")
+    spill_dir = tempfile.mkdtemp(prefix="daft_tpu_torch_spill_")
+    try:
+        counters.reset()
+        reset_counters()
+        manager().clear()
+        with dt_ctx(), dt.execution_config_ctx(memory_limit_bytes=b1, spill_dir=spill_dir):
+            with manager().query_scope() as scope:
+                t0 = time.perf_counter()
+                got = w1_keyed(w1_query(df).collect()._result)
+                b1_s = time.perf_counter() - t0
+        snap = counters.snapshot()
+        check(os.listdir(spill_dir) == [], "W1: spill files left behind")
+    finally:
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    for c in ("l_orderkey", "l_linenumber", "l_suppkey", "rn", "rk", "drk", "run_qty",
+              "prev_valid"):
+        check(np.array_equal(got[c], want[c]), f"W1 under B1: {c} differs from unbudgeted")
+    pv = want["prev_valid"]
+    check(np.array_equal(got["prev_price"][pv], want["prev_price"][pv]),
+          "W1 under B1: prev_price differs")
+    check(np.allclose(got["share"], want["share"], rtol=1e-5, atol=0.0),
+          "W1 under B1: the price share differs past rtol 1e-5")
+    check(snap["spill_files"] >= 32, f"W1 under B1: {snap['spill_files']} spill files, not "
+                                     "16 for each of its two specs")
+    print(f"W1: {len(got['rn'])} rows, {len(np.unique(lineitem['l_suppkey']))} partitions; "
+          f"unbudgeted {mem_s:.3f} s, under B1 ({b1} bytes) {b1_s:.3f} s, equal, row_number "
+          f"and the running sum equal to numpy; {json.dumps(spill_counts(snap), sort_keys=True)};"
+          f" scope peak {scope.peak_bytes()}, ru_maxrss {rss_high_water_bytes()} [{card}]",
+          flush=True)
+    del df, want, got
+
+    t = {"lineitem": frames["lineitem"], "part": frames["part"]}
+    sess = dt.current_session()
+    sess.create_temp_table("lineitem", t["lineitem"])
+    sess.create_temp_table("part", t["part"])
+    try:
+        oracle = w2_oracle(lineitem, dims)
+        with dt.execution_config_ctx(device="cuda", device_mode="off"):
+            host = w2_query(t).to_pydict()
+        check(same_result(host, oracle, W2_FLOATS), "W2 off differs from the numpy oracle")
+        for label, query in (("W2", lambda: w2_query(t)), ("W2 sql", lambda: dt.sql(W2_SQL))):
+            clear_residency()  # each form's cold run builds K4's table itself
+            got, launches = run_cell(label, query, ("hash_probe_build", "hash_probe_index",
+                                                    "segment_sum_planes",
+                                                    "segment_extreme_planes",
+                                                    "segment_sum_float_planes"),
+                                     card, W2_FLOATS, oracle, "device_join_batches")
+            check(same_result(got, host, W2_FLOATS), f"{label} differs from the off run")
+            phase_profile(lambda: query().to_pydict(), card, f"{label} profile")
+            paths[label.replace(" ", "_")] = launches
+            if label == "W2":
+                frame_result = got
+            else:
+                check(same_result(got, frame_result, W2_FLOATS),
+                      "W2 in SQL differs from its DataFrame form")
+    finally:
+        sess.drop_temp_table("lineitem")
+        sess.drop_temp_table("part")
+    print(f"window phase {time.perf_counter() - start:.1f} s [{card}]", flush=True)
+    return paths
+
+
+def phase_alone(name: str, lineitem, orders, dims, card: str) -> dict:
+    """``--phase ooc`` or ``--phase window`` after the kernels phase: the
+    scan phase's tables in memory (and, for ooc, lineitem written to
+    Parquet under a temporary directory, as the scan phase writes it)."""
+    import daft_tpu_torch as dt
+
+    frames = scan_tables(lineitem, orders, dims)
+    if name == "window":
+        return phase_window(lineitem, dims, frames, card)
+    root = tempfile.mkdtemp(prefix="daft_tpu_torch_scan_")
+    try:
+        d = os.path.join(root, "lineitem")
+        t0 = time.perf_counter()
+        with dt_ctx():
+            frames["lineitem"].write_parquet(d)
+        print(f"write parquet lineitem {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+        return phase_ooc(frames, d, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def dt_ctx():
     """The execution config every cell's device run takes."""
     import daft_tpu_torch as dt
@@ -4751,6 +5436,10 @@ def main(argv=None) -> int:
                         help="run the card, build, data and kernels phases only: the "
                              "kernels against their plain versions, with their times "
                              "(no main path runs, so no launches are counted)")
+    parser.add_argument("--phase", choices=("ooc", "window"),
+                        help="run the card, build, data and kernels phases, then this phase "
+                             "alone: ooc (TPC-H under a host memory budget, the external "
+                             "sort, the Grace joins) or window (W1, W2)")
     parser.add_argument("--root", default=HERE,
                         help="the checkout whose daft_tpu_torch is driven (default: the "
                              "one beside this script), e.g. an unpacked parent commit to "
@@ -4762,6 +5451,7 @@ def main(argv=None) -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, root)
+    start = time.perf_counter()
     try:
         card, device_name = phase_card()
         print(f"package: {os.path.join(root, 'daft_tpu_torch')}", flush=True)
@@ -4771,7 +5461,9 @@ def main(argv=None) -> int:
         print(f"datagen {time.perf_counter() - t0:.2f} s", flush=True)
         kernel_results = phase_kernels(lineitem, orders, dims, card)
         paths = {}
-        if not args.kernels_only:
+        if args.phase is not None:
+            paths.update(phase_alone(args.phase, lineitem, orders, dims, card))
+        elif not args.kernels_only:
             df, paths["supplier"] = phase_slice(lineitem, card)
             phase_profile(lambda: supplier_query(df).to_pydict(), card)
             sql_tables = {}
@@ -4829,9 +5521,13 @@ def main(argv=None) -> int:
                 scan_paths, dirs = phase_scan(lineitem, orders, dims, cells, card, root)
                 paths.update(scan_paths)
                 paths.update(phase_pipeline(lineitem, orders, dirs, cells, card))
+                frames = scan_tables(lineitem, orders, dims)
+                paths.update(phase_ooc(frames, dirs["lineitem"], card))
             finally:
                 shutil.rmtree(root, ignore_errors=True)
             del cells
+            paths.update(phase_window(lineitem, dims, frames, card))
+            del frames
             paths.update(phase_ai(lineitem, card, kernel_results))
     except SmokeFailure as exc:
         print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)
@@ -4852,6 +5548,7 @@ def main(argv=None) -> int:
         entry.update({k: v for k, v in r.items() if k not in entry})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
+    print(f"chip_smoke.py took {time.perf_counter() - start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}))

@@ -12,6 +12,11 @@ aggregation's segment reductions in hand-written CUDA kernels
     df.groupby("k").agg(dt.col("v").sum()).sort("k").to_pydict()
     dt.sql("SELECT k, SUM(v) AS s FROM t GROUP BY k ORDER BY k", t=df).to_pydict()
 
+Windows: ``df.select(dt.col("v").sum().over(dt.Window().partition_by("k")))``,
+the ranking functions in ``daft_tpu_torch.functions``, and SQL ``OVER``.
+Out of core: under ``execution_config_ctx(memory_limit_bytes=N)`` the host
+sort, aggregations, join build and windows spill past N bytes (memory/).
+
 Files (io/, no pyarrow): ``df.write_parquet(dir)``, ``dt.read_parquet(dir)``,
 ``df.write_csv(dir)``, ``dt.read_csv(dir)``; SQL resolves unbound table
 names through ``dt.current_session()``.
@@ -36,6 +41,7 @@ from .interop import from_numpy_columns
 from .plan import logical as _lp
 from .schema import Schema
 from .session import Session, current_session
+from .window import Window
 from . import udf  # noqa: E402  (the callable UDF package: dt.udf(return_dtype=...))
 from .udf import Func, cls, func, method
 from . import sql  # noqa: E402  (the callable SQL module: dt.sql("SELECT ...", t=df))
@@ -56,5 +62,5 @@ __all__ = [
     "GroupedDataFrame", "MicroPartition", "RecordBatch", "Schema", "Series", "Session",
     "cls", "col", "current_session", "execution_config", "execution_config_ctx",
     "from_numpy_columns", "from_pydict", "func", "lit", "method", "read_csv",
-    "read_parquet", "set_execution_config", "sql", "sql_expr", "udf",
+    "read_parquet", "set_execution_config", "sql", "sql_expr", "udf", "Window",
 ]

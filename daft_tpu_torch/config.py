@@ -52,6 +52,28 @@ default and ``execution_config_ctx`` scopes an override.
   (default; ``DAFT_TPU_BATCHING``) at ``morsel_size_rows``, "dynamic" by
   throughput feedback, "latency" so one morsel takes about
   ``batch_latency_ms``.
+
+The host memory budget (memory/manager.py; the reference's knobs, defaults
+and environment variables):
+
+- ``memory_limit_bytes`` (``DAFT_TPU_MEMORY_LIMIT``): the process-wide byte
+  ledger every host sort, aggregation, join build and window admits
+  against; positive = bytes, 0 (default) = unbounded and untracked (nothing
+  touches the ledger and every operator runs its in-memory path), negative
+  = ``memory_fraction`` (``DAFT_TPU_MEMORY_FRACTION``, 0.6) of the system's
+  RAM. Device stages take no host budget;
+- ``memory_pressure`` (``DAFT_TPU_MEMORY_PRESSURE``, 0.8): the share of the
+  budget at which streaming scans stall, boundedly, for headroom;
+- ``spill_compression`` (``DAFT_TPU_SPILL_COMPRESSION``): the spill files'
+  body codec (memory/spill.py), "snappy" (default) or "none". The
+  reference's "lz4" and "zstd" are refused: the port has no codec for them;
+- ``spill_dir`` (``DAFT_TPU_SPILL_DIR``; "" = ``<tmp>/daft_tpu_torch_spill``);
+- ``spill_io_threads`` (``DAFT_TPU_SPILL_IO_THREADS``, 2): the spill IO pool
+  that writes and decodes ahead off the operator's thread; 0 = every spill
+  write and read on the caller's thread;
+- ``spill_prefetch_batches`` (``DAFT_TPU_SPILL_PREFETCH_BATCHES``, 2): the
+  read-ahead depth of one spill reader (and of a budgeted Parquet scan's
+  decode-ahead); 0 turns read-ahead off.
 """
 
 from __future__ import annotations
@@ -60,6 +82,20 @@ import contextlib
 import os
 from dataclasses import dataclass, field, replace
 from typing import Iterator, Optional
+
+# the spill codecs the port has (io/codecs.py); the reference also takes
+# "lz4" and "zstd", for which the card's machine has no library
+SPILL_CODECS = ("none", "snappy")
+
+
+def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    return int(v) if v not in (None, "") else default
+
+
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    return float(v) if v not in (None, "") else default
 
 
 @dataclass(frozen=True)
@@ -79,6 +115,19 @@ class ExecutionConfig:
         default_factory=lambda: os.environ.get("DAFT_TPU_PIPELINE", "on"))
     batching_mode: str = field(
         default_factory=lambda: os.environ.get("DAFT_TPU_BATCHING", "static"))
+    memory_limit_bytes: int = field(
+        default_factory=lambda: _env_int("DAFT_TPU_MEMORY_LIMIT", 0))
+    memory_fraction: float = field(
+        default_factory=lambda: _env_float("DAFT_TPU_MEMORY_FRACTION", 0.6))
+    memory_pressure: float = field(
+        default_factory=lambda: _env_float("DAFT_TPU_MEMORY_PRESSURE", 0.8))
+    spill_compression: str = field(
+        default_factory=lambda: os.environ.get("DAFT_TPU_SPILL_COMPRESSION", "snappy"))
+    spill_dir: str = field(default_factory=lambda: os.environ.get("DAFT_TPU_SPILL_DIR", ""))
+    spill_io_threads: int = field(
+        default_factory=lambda: _env_int("DAFT_TPU_SPILL_IO_THREADS", 2))
+    spill_prefetch_batches: int = field(
+        default_factory=lambda: _env_int("DAFT_TPU_SPILL_PREFETCH_BATCHES", 2))
 
     def __post_init__(self) -> None:
         if self.device_mode not in ("on", "off"):
@@ -106,6 +155,23 @@ class ExecutionConfig:
             raise ValueError(f"scan_split_bytes must be >= 0, got {self.scan_split_bytes!r}")
         if self.mesh_devices < 0:
             raise ValueError(f"mesh_devices must be >= 0, got {self.mesh_devices!r}")
+        if not 0.0 < self.memory_fraction <= 1.0:
+            raise ValueError(f"memory_fraction must be in (0, 1], got "
+                             f"{self.memory_fraction!r} (check DAFT_TPU_MEMORY_FRACTION)")
+        if not 0.0 < self.memory_pressure <= 1.0:
+            raise ValueError(f"memory_pressure must be in (0, 1], got "
+                             f"{self.memory_pressure!r} (check DAFT_TPU_MEMORY_PRESSURE)")
+        if self.spill_compression not in SPILL_CODECS:
+            raise ValueError(f"spill_compression must be one of 'none'/'snappy' (the port "
+                             f"has no lz4 or zstd codec), got {self.spill_compression!r} "
+                             f"(check DAFT_TPU_SPILL_COMPRESSION)")
+        if self.spill_io_threads < 0:
+            raise ValueError(f"spill_io_threads must be >= 0 (0 = synchronous spill), got "
+                             f"{self.spill_io_threads!r} (check DAFT_TPU_SPILL_IO_THREADS)")
+        if self.spill_prefetch_batches < 0:
+            raise ValueError(f"spill_prefetch_batches must be >= 0 (0 disables read-ahead), "
+                             f"got {self.spill_prefetch_batches!r} "
+                             f"(check DAFT_TPU_SPILL_PREFETCH_BATCHES)")
 
 
 _default: Optional[ExecutionConfig] = None

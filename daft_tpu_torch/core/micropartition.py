@@ -42,6 +42,9 @@ class MicroPartition:
     def num_rows(self) -> int:
         return len(self)
 
+    def size_bytes(self) -> int:
+        return sum(b.size_bytes() for b in self._batches)
+
     @property
     def batches(self) -> List[RecordBatch]:
         return self._batches

@@ -70,6 +70,11 @@ class RecordBatch:
     def column_names(self) -> List[str]:
         return self._schema.column_names()
 
+    def size_bytes(self) -> int:
+        """Arrow's bytes of the columns (``Series.size_bytes``), as the
+        reference counts a batch against the host memory budget."""
+        return sum(c.size_bytes() for c in self._columns)
+
     def __repr__(self) -> str:
         return f"RecordBatch({self._schema}, rows={self._num_rows})"
 

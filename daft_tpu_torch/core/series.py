@@ -116,6 +116,13 @@ def _first_occurrence_codes(codes: np.ndarray, k: int):
     return remap[codes], order
 
 
+def _utf8_len(v) -> int:
+    """The UTF-8 bytes of a string (0 for None)."""
+    if v is None:
+        return 0
+    return len(v) if v.isascii() else len(v.encode("utf-8", "surrogatepass"))
+
+
 def _concat_codes(raws):
     """The raw codes of Series concatenated, from each one's (codes,
     values): one value list, each part's codes mapped into it."""
@@ -256,6 +263,46 @@ class Series:
 
     def validity_numpy(self) -> np.ndarray:
         return self._validity
+
+    def size_bytes(self) -> int:
+        """The bytes Arrow's ``nbytes`` gives for this column as the
+        reference holds it: the values (booleans bit-packed; a string or
+        list row as an int64 offset plus its UTF-8 bytes or elements), and a
+        validity bitmap where the column has a null; a null column 0, a
+        ``python`` column 64 bytes a row. The host memory budget's spill
+        decisions read it."""
+        n = len(self._values)
+        kind = self._dtype.kind
+        if kind == "python":
+            return 64 * n
+        if kind == "null" or n == 0:
+            return 0
+        bitmap = (n + 7) // 8
+        nulls = bitmap if not self._validity.all() else 0
+        if kind == "bool":
+            return bitmap + nulls
+        if kind == "string":
+            return 8 * n + self._utf8_bytes() + nulls
+        if kind == "list":
+            width = self._dtype.inner.to_numpy().itemsize \
+                if self._dtype.inner.to_numpy() != object else 8
+            elems = sum(len(v) for v in self._values[self._validity].tolist())
+            return 8 * n + width * elems + nulls
+        return self._values.dtype.itemsize * n + nulls
+
+    def _utf8_bytes(self) -> int:
+        """The UTF-8 bytes of the valid rows. Where dictionary codes are
+        known (a Parquet or spill read, and its slices, takes and
+        concatenations) and the dictionary has no more entries than the
+        column has rows, each entry is measured once and the codes gather
+        its length; otherwise the values are joined and measured."""
+        raw = self._raw_codes()
+        if raw is not None and len(raw[1]) <= len(self._values):
+            codes, values = raw
+            lens = np.fromiter((_utf8_len(v) for v in values), dtype=np.int64,
+                               count=len(values))
+            return int(lens[codes[self._validity]].sum())
+        return _utf8_len("".join(self._values[self._validity].tolist()))
 
     def to_pylist(self) -> list:
         valid = self._validity

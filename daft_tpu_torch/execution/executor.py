@@ -31,10 +31,21 @@ anti: a ``JoinProbe`` built once from the right side), a ``CrossJoin`` and
 a ``Dedup`` (distinct) run on the host. A ``PhysRepartition`` splits on the
 host by the rows' hash (or at random), or, for a hash repartition into
 ``mesh_devices`` partitions, runs the mesh exchange on the device
-(``_mesh_repartition``). A ``PhysWrite`` hands its input stream to the
-writer (io/writers.py). Any other error, a kernel that fails to build or
+(``_mesh_repartition``). A ``PhysWindow`` evaluates its window functions on
+the host (execution/window.py). A ``PhysWrite`` hands its input stream to
+the writer (io/writers.py). Any other error, a kernel that fails to build or
 launch included, propagates, from a stage thread through its channel: no
 device failure turns into a host result.
+
+Out of core (``memory_limit_bytes`` > 0; memory/): the host sort, the host
+aggregations, the host join's build side and the window admit each batch
+against the process's byte ledger and, once it is over the budget, switch
+to their spilling strategies: the external sort (sorted runs and a k-way
+merge), Grace aggregation (K = 32), the Grace join and the Grace window
+(K = 16 each); streaming scans pace themselves by the ledger's pressure.
+Device stages take no host budget. With the budget 0 (the default) none
+of this runs: every operator takes its in-memory path and no ledger or
+spill counter moves.
 """
 
 from __future__ import annotations
@@ -66,7 +77,7 @@ def execute_plan(plan: pp.PhysicalPlan) -> Iterator[MicroPartition]:
 # reference either) pull their fact and dims themselves.
 _STAGE_NODES = (pp.StreamingScan, pp.Project, pp.PhysFilter, pp.PhysSort,
                 pp.HashAggregate, pp.DeviceFilterAgg, pp.DeviceGroupedAgg, pp.Dedup,
-                pp.HashJoin, pp.CrossJoin, pp.PhysRepartition)
+                pp.HashJoin, pp.CrossJoin, pp.PhysRepartition, pp.PhysWindow)
 
 
 def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
@@ -172,11 +183,11 @@ def _exec_impl(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
         return
 
     if isinstance(node, pp.PhysSort):
-        batch = _concat_parts(list(_exec(node.input)), node.schema)
-        keys = [_full_length(eval_expression(batch, e), batch.num_rows)
-                for e in node.sort_by]
-        yield MicroPartition(node.schema,
-                             [batch.sort(keys, node.descending, node.nulls_first)])
+        yield from _sort_exec(node)
+        return
+
+    if isinstance(node, pp.PhysWindow):
+        yield from _window_exec(node)
         return
 
     if isinstance(node, pp.PhysLimit):
@@ -257,10 +268,17 @@ def _streaming_scan(node: pp.StreamingScan) -> Iterator[MicroPartition]:
     ones. Counts ``scan_tasks`` (tasks started), ``scan_batches`` and
     ``scan_rows`` (what was yielded, an early close included), and for the
     window ``scan_window_tasks`` and its peak of tasks read at once,
-    ``scan_window_peak``. The host memory budget's backpressure
-    (``wait_for_headroom``) comes with the out-of-core slice (ROADMAP
-    Queue 1 item 4)."""
+    ``scan_window_peak``.
+
+    Under a host memory budget (``memory_limit_bytes`` > 0; the
+    reference's :486-533), the scan paces itself by the ledger: before each
+    task, after each morsel it yields while the ledger is under pressure,
+    and before each task the window starts, it waits for headroom
+    (``wait_for_headroom``: bounded, counted in ``scan_backpressure_stalls``
+    and ``scan_stall_ms``), and it counts the ``size_bytes`` it yielded in
+    ``scan_bytes``. Unbudgeted, none of this runs."""
     from ..ops import counters
+    from .memory import manager
 
     def task_parts(task):
         for part in task.read():
@@ -268,12 +286,16 @@ def _streaming_scan(node: pp.StreamingScan) -> Iterator[MicroPartition]:
                 part = _timed_filter(part, node.post_filter)
             yield part
 
+    mgr = manager()
+    budgeted = mgr.limit_bytes() > 0
     remaining = node.post_limit
-    batches = rows = 0
+    batches = rows = nbytes = 0
     try:
         if remaining is not None or len(node.tasks) <= 1 or not _pipeline_on():
             for task in node.tasks:
                 counters.bump("scan_tasks")
+                if budgeted:
+                    mgr.wait_for_headroom()
                 for part in task_parts(task):
                     if remaining is not None:
                         if remaining <= 0:
@@ -284,20 +306,29 @@ def _streaming_scan(node: pp.StreamingScan) -> Iterator[MicroPartition]:
                         remaining -= part.num_rows
                     batches += 1
                     rows += part.num_rows
+                    if budgeted:
+                        nbytes += part.size_bytes()
                     yield part
+                    if budgeted and mgr.under_pressure():
+                        mgr.wait_for_headroom()
             return
-        for part in _scan_window(node.tasks, task_parts):
+        for part in _scan_window(node.tasks, task_parts, mgr if budgeted else None):
             batches += 1
             rows += part.num_rows
+            if budgeted:
+                nbytes += part.size_bytes()
             yield part
     finally:
         counters.bump("scan_batches", batches)
         counters.bump("scan_rows", rows)
+        if nbytes:
+            counters.bump("scan_bytes", nbytes)
 
 
-def _scan_window(tasks, task_parts) -> Iterator[MicroPartition]:
+def _scan_window(tasks, task_parts, mgr=None) -> Iterator[MicroPartition]:
     """The scan tasks read on the compute pool, up to its width at once,
-    their morsels yielded in task order."""
+    their morsels yielded in task order; with a budget's ``mgr``, a task
+    starts only after a bounded wait for headroom while under pressure."""
     import threading
     from collections import deque
     from concurrent.futures import wait
@@ -327,6 +358,8 @@ def _scan_window(tasks, task_parts) -> Iterator[MicroPartition]:
     try:
         while ti < len(tasks) or futures:
             while ti < len(tasks) and len(futures) < window:
+                if mgr is not None and mgr.under_pressure():
+                    mgr.wait_for_headroom()
                 futures.append(pool.submit(read_task, tasks[ti]))
                 ti += 1
             yield from futures.popleft().result()
@@ -728,15 +761,66 @@ def _selection_vector(batch: RecordBatch, mask: Series) -> np.ndarray:
 
 
 def _hash_join(node: pp.HashJoin) -> Iterator[MicroPartition]:
-    """A host join (the reference's executor.py:2870-2928 without its memory
-    budget): the right side materialized and indexed once, the left side
-    streamed through ``_map_op``, each morsel a probe. Where the left side
-    is a Filter and the left keys are column references, the filter fuses
-    into the probe: the raw batches stream, the predicate becomes a
-    selection vector, and the probe gathers the other columns once."""
+    """A host join (the reference's ``_join_exec``, executor.py:2841-2978):
+    the right side materialized and indexed once, the left side streamed
+    through ``_map_op``, each morsel a probe (``_probe_stream``).
+
+    Under a host memory budget the right side is admitted batch by batch
+    against the ledger. Over it, both sides Grace-partition into K = 16
+    co-partitioned spill files by the join keys' row hash, and each pair of
+    partitions joins through a ``JoinProbe`` of its own: equal keys share a
+    partition, so every join type the port has (inner, left, semi, anti)
+    gives the same rows, grouped by partition. The ledger's bytes go back
+    as the prefix reaches disk and, in a ``finally``, when the join ends."""
+    from .memory import operator_budget
+
+    budget = operator_budget()
+    try:
+        right_it = _batch_iter(_exec(node.right))
+        right_parts, over = _admit_prefix(budget, right_it)
+        if not over:
+            right = RecordBatch.concat(right_parts) if right_parts \
+                else RecordBatch.empty(node.right.schema)
+            yield from _probe_stream(node, right)
+            return
+        yield from _grace_join(node, budget, right_parts, right_it)
+    finally:
+        budget.close()
+
+
+def _grace_join(node: pp.HashJoin, budget, right_parts, right_it) -> Iterator[MicroPartition]:
+    from .memory import SpillPartitions
+
+    K = 16
+    spr = SpillPartitions(node.right.schema, K)
+    spl = SpillPartitions(node.left.schema, K)
+    try:
+        for b in _drain_prefix(budget, right_parts, right_it):
+            spr.append_partitioned(b, node.right_on)
+        for b in _batch_iter(_exec(node.left)):
+            spl.append_partitioned(b, node.left_on)
+        for fl, fr in zip(spl.files, spr.files):
+            lbs = list(fl.read())
+            if not lbs:  # inner, left, semi and anti give no row without a left row
+                continue
+            rbs = list(fr.read())
+            right = RecordBatch.concat(rbs) if rbs else RecordBatch.empty(node.right.schema)
+            out = JoinProbe(node, right).probe(RecordBatch.concat(lbs))
+            if out.num_rows:
+                yield MicroPartition(node.schema, [out])
+    finally:
+        spr.delete()
+        spl.delete()
+
+
+def _probe_stream(node: pp.HashJoin, right: RecordBatch) -> Iterator[MicroPartition]:
+    """The left side's stream, each morsel probed into ``right``'s index.
+    Where the left side is a Filter and the left keys are column
+    references, the filter fuses into the probe: the raw batches stream,
+    the predicate becomes a selection vector, and the probe gathers the
+    other columns once."""
     from ..expressions.expressions import ColumnRef
 
-    right = _concat_parts(list(_exec(node.right)), node.right.schema)
     probe = JoinProbe(node, right)
     source, predicate, keep = node.left, None, None
     if isinstance(source, pp.PhysFilter) and \
@@ -1062,31 +1146,92 @@ def _split_aggs(aggs: List[Expression]):
     return partial, final, projection
 
 
-def _agg_morsels(stream, aggs):
-    """(the stream's non-empty batches, their morsels of ``morsel_size_rows``
-    rows, or None when the input aggregates in one phase: at most a morsel
-    of rows, or a count_distinct, which needs each group's whole value
-    set)."""
+def _agg_morsels(batches, aggs):
+    """The morsels of ``morsel_size_rows`` rows of ``batches`` (non-empty),
+    or None when the input aggregates in one phase: at most a morsel of
+    rows, or a count_distinct, which needs each group's whole value set."""
     from ..config import execution_config
 
-    batches = [b for part in stream for b in part.batches if b.num_rows > 0]
     morsel = execution_config().morsel_size_rows
     if sum(b.num_rows for b in batches) <= morsel or \
             any(_agg_op(e) == "count_distinct" for e in aggs):
-        return batches, None
-    return batches, [b.slice(s, s + morsel) for b in batches
-                     for s in range(0, b.num_rows, morsel)]
+        return None
+    return [m for b in batches for m in _morsels_of(b, morsel)]
+
+
+def _morsels_of(b: RecordBatch, morsel: int) -> List[RecordBatch]:
+    return [b.slice(s, s + morsel) for s in range(0, b.num_rows, morsel)]
+
+
+def _batch_iter(stream) -> Iterator[RecordBatch]:
+    """The non-empty batches of a stream of parts."""
+    for part in stream:
+        for b in part.batches:
+            if b.num_rows > 0:
+                yield b
+
+
+def _admit_prefix(budget, it):
+    """Buffer ``it``'s batches, each admitted against ``budget``, until the
+    ledger goes over it: (the buffered batches, whether it went over). With
+    no budget every batch is buffered and none is measured."""
+    if budget.limit <= 0:
+        return list(it), False
+    batches: List[RecordBatch] = []
+    for b in it:
+        batches.append(b)
+        if not budget.admit(b.size_bytes()):
+            return batches, True
+    return batches, False
+
+
+def _drain_prefix(budget, batches: List[RecordBatch], it) -> Iterator[RecordBatch]:
+    """The buffered over-budget prefix, then the rest of the stream. Each
+    prefix batch's ledger bytes go back only after the consumer has
+    processed it (spilled it, or folded it into a partial), and the list is
+    consumed as it goes, so a released batch can really be dropped: an
+    early release would let another operator admit while the prefix is
+    still in memory."""
+    while batches:
+        b = batches.pop(0)
+        yield b
+        budget.release(b.size_bytes())
+        del b
+    yield from it
 
 
 def _two_phase_agg(stream, groupby, aggs, in_schema) -> RecordBatch:
     """Host grouped aggregation. Input up to ``morsel_size_rows`` rows
     aggregates in one phase; larger input aggregates each morsel into
     partials on the compute pool, then combines the partials (the
-    reference's two-phase plan, executor.py:2240-2283)."""
+    reference's two-phase plan, executor.py:2240-2283).
+
+    Under a host memory budget each batch is admitted against the ledger;
+    over it, the aggregation Grace-partitions into K = 32 spill files by the
+    group keys' row hash: the partials of each morsel when the aggregations
+    split, the raw rows otherwise (a count_distinct), and each partition
+    aggregates alone (its keys are in no other). The reference's
+    ``_two_phase_agg`` (executor.py:2215-2357). Groups then come out by
+    partition; each group's partials combine in the same order as in
+    memory."""
+    from .memory import operator_budget
+
+    budget = operator_budget()
+    try:
+        it = _batch_iter(stream)
+        batches, over = _admit_prefix(budget, it)
+        if not over:
+            return _grouped_in_memory(batches, groupby, aggs, in_schema)
+        return _grace_agg(_drain_prefix(budget, batches, it), groupby, aggs, in_schema)
+    finally:
+        budget.close()
+
+
+def _grouped_in_memory(batches, groupby, aggs, in_schema) -> RecordBatch:
     from ..core.kernels.groupby import grouped_agg
     from ..utils.pool import pool_map
 
-    batches, morsels = _agg_morsels(stream, aggs)
+    morsels = _agg_morsels(batches, aggs)
     if morsels is None:
         big = RecordBatch.concat(batches) if batches else RecordBatch.empty(in_schema)
         return grouped_agg(big, groupby, aggs)
@@ -1097,13 +1242,75 @@ def _two_phase_agg(stream, groupby, aggs, in_schema) -> RecordBatch:
     return eval_projection(combined, keys + projection)
 
 
+def _grace_agg(rest, groupby, aggs, in_schema) -> RecordBatch:
+    from ..config import execution_config
+    from ..core.kernels.groupby import grouped_agg
+    from .memory import SpillPartitions
+
+    K = 32
+    keys = [col(e.name()) for e in groupby]
+    if any(_agg_op(e) == "count_distinct" for e in aggs):
+        # unsplittable: Grace over the raw rows
+        sp = SpillPartitions(in_schema, K)
+        try:
+            for b in rest:
+                sp.append_partitioned(b, groupby)
+            outs = [grouped_agg(RecordBatch.concat(bs), groupby, aggs)
+                    for bs in (list(f.read()) for f in sp.files) if bs]
+        finally:
+            sp.delete()
+    else:
+        partial, final, projection = _split_aggs(aggs)
+        partial_schema = Schema([e.to_field(in_schema) for e in list(groupby) + partial])
+        morsel = execution_config().morsel_size_rows
+        sp = SpillPartitions(partial_schema, K)
+        try:
+            for b in rest:
+                for m in _morsels_of(b, morsel):
+                    sp.append_partitioned(grouped_agg(m, groupby, partial), keys)
+            outs = [eval_projection(grouped_agg(RecordBatch.concat(bs), keys, final),
+                                    keys + projection)
+                    for bs in (list(f.read()) for f in sp.files) if bs]
+        finally:
+            sp.delete()
+    if not outs:
+        return grouped_agg(RecordBatch.empty(in_schema), groupby, aggs)
+    return RecordBatch.concat(outs)
+
+
 def _ungrouped_agg(stream, aggs, in_schema) -> RecordBatch:
     """Host ungrouped aggregation into one row, in two phases as
-    ``_two_phase_agg`` past a morsel of input."""
+    ``_two_phase_agg`` past a morsel of input. Over a host memory budget,
+    the partials stream (one row a morsel) when the aggregations split;
+    otherwise the raw rows spill once and each aggregation reads them back
+    (``_ungrouped_agg_spilled``)."""
+    from .memory import operator_budget
+
+    budget = operator_budget()
+    try:
+        it = _batch_iter(stream)
+        batches, over = _admit_prefix(budget, it)
+        if not over:
+            return _ungrouped_in_memory(batches, aggs, in_schema)
+        rest = _drain_prefix(budget, batches, it)
+        if any(_agg_op(e) == "count_distinct" for e in aggs):
+            return _ungrouped_agg_spilled(rest, aggs, in_schema)
+        from ..config import execution_config
+        from ..core.kernels.groupby import ungrouped_agg
+
+        partial, final, projection = _split_aggs(aggs)
+        morsel = execution_config().morsel_size_rows
+        partials = [ungrouped_agg(m, partial) for b in rest for m in _morsels_of(b, morsel)]
+        return eval_projection(ungrouped_agg(RecordBatch.concat(partials), final), projection)
+    finally:
+        budget.close()
+
+
+def _ungrouped_in_memory(batches, aggs, in_schema) -> RecordBatch:
     from ..core.kernels.groupby import ungrouped_agg
     from ..utils.pool import pool_map
 
-    batches, morsels = _agg_morsels(stream, aggs)
+    morsels = _agg_morsels(batches, aggs)
     if morsels is None:
         if not batches:
             return ungrouped_agg(RecordBatch.empty(in_schema), aggs)
@@ -1112,6 +1319,56 @@ def _ungrouped_agg(stream, aggs, in_schema) -> RecordBatch:
     partial, final, projection = _split_aggs(aggs)
     partials = pool_map(lambda m: ungrouped_agg(m, partial), morsels)
     return eval_projection(ungrouped_agg(RecordBatch.concat(partials), final), projection)
+
+
+def _ungrouped_agg_spilled(stream, aggs, in_schema) -> RecordBatch:
+    """Over budget with a count_distinct: the raw rows spill once; a
+    count_distinct Grace-partitions its own value column (a distinct value
+    lands in one partition, so the partitions' counts add up), and every
+    other aggregation streams its partials from the spill (the reference's
+    ``_ungrouped_agg_spilled``, executor.py:2360-2431)."""
+    from ..core.kernels.groupby import make_groups, ungrouped_agg
+    from .memory import SpillFile, SpillPartitions
+
+    spill = SpillFile(in_schema)
+    try:
+        for b in stream:
+            spill.append(b)
+        cols: List[Series] = []
+        for e in aggs:
+            inner = e
+            while isinstance(inner, Alias):
+                inner = inner.child
+            name = e.name()
+            out_field = e.to_field(in_schema)
+            if inner.op == "count_distinct":
+                val_field = inner.child.to_field(in_schema)
+                vschema = Schema([val_field])
+                sp = SpillPartitions(vschema, 32)
+                try:
+                    for b in spill.read():
+                        v = _full_length(eval_expression(b, inner.child), b.num_rows)
+                        sp.append_partitioned(RecordBatch(vschema, [v.rename(val_field.name)],
+                                                          b.num_rows), [col(val_field.name)])
+                    total = 0
+                    for f in sp.files:
+                        bs = list(f.read())
+                        if bs:
+                            v = RecordBatch.concat(bs).get_column(val_field.name)
+                            first, _ids, _n = make_groups([v])
+                            total += int(v.validity_numpy()[first].sum())
+                finally:
+                    sp.delete()
+                cols.append(Series.from_pylist([total], name, dtype=out_field.dtype))
+                continue
+            partial, final, projection = _split_aggs([e])
+            partials = [ungrouped_agg(b, partial) for b in spill.read()]
+            big = RecordBatch.concat(partials) if partials else \
+                ungrouped_agg(RecordBatch.empty(in_schema), partial)
+            cols.append(eval_projection(ungrouped_agg(big, final), projection).get_column(name))
+        return RecordBatch(Schema([e.to_field(in_schema) for e in aggs]), cols, 1)
+    finally:
+        spill.delete()
 
 
 def _full_length(s: Series, n: int) -> Series:
@@ -1144,3 +1401,350 @@ def _concat_parts(parts: List[MicroPartition], schema) -> RecordBatch:
     if not batches:
         return RecordBatch.empty(schema)
     return RecordBatch.concat(batches)
+
+
+# ---- the external sort ---------------------------------------------------------------
+
+# the merge's fan-in: one k-way merge holds about one batch a run (and the
+# rows it cannot emit yet), so the cap bounds its memory; wider run sets
+# cascade through intermediate runs
+_MERGE_FANIN = 16
+
+
+def _sort_keys(batch: RecordBatch, node) -> List[Series]:
+    return [_full_length(eval_expression(batch, e), batch.num_rows) for e in node.sort_by]
+
+
+def _sort_exec(node: pp.PhysSort) -> Iterator[MicroPartition]:
+    """A host sort (the reference's ``_sort_exec``, executor.py:2433-2508):
+    the whole input sorted at once. Under a host memory budget each batch
+    is admitted against the ledger; over it, the sort turns external: each
+    buffer of about the budget's size sorts (stably) and spills as a sorted
+    run of morsel-sized batches, and the runs stream out through a k-way
+    merge (``_merge_sorted_runs``). The result is the in-memory sort's, tie
+    order included: the runs cut the input in order, each sorts stably, and
+    the merge breaks ties between runs by run index."""
+    from .memory import operator_budget
+
+    budget = operator_budget()
+    try:
+        it = _batch_iter(_exec(node.input))
+        buffered, over = _admit_prefix(budget, it)
+        if not over:
+            batch = RecordBatch.concat(buffered) if buffered \
+                else RecordBatch.empty(node.schema)
+            yield MicroPartition(node.schema,
+                                 [batch.sort(_sort_keys(batch, node), node.descending,
+                                             node.nulls_first)])
+            return
+        yield from _external_sort(node, budget, buffered, it)
+    finally:
+        budget.close()
+
+
+def _external_sort(node: pp.PhysSort, budget, buffered, it) -> Iterator[MicroPartition]:
+    from ..config import execution_config
+    from .memory import SpillFile
+    from ..ops import counters
+
+    runs: List = []
+    step = execution_config().morsel_size_rows
+
+    def flush_run(bufs: List[RecordBatch]) -> None:
+        big = RecordBatch.concat(bufs) if len(bufs) > 1 else bufs[0]
+        srt = big.sort(_sort_keys(big, node), node.descending, node.nulls_first)
+        f = SpillFile(node.schema)
+        for s in range(0, srt.num_rows, step):
+            f.append(srt.slice(s, min(s + step, srt.num_rows)))
+        # publish behind the queued writes: the next run buffers meanwhile
+        f.finish_async()
+        counters.bump("spill_runs")
+        runs.append(f)
+        budget.release_all()  # the buffer is on disk now
+
+    try:
+        flush_run(buffered)
+        buffered = []
+        for b in it:
+            buffered.append(b)
+            if not budget.admit(b.size_bytes()):
+                flush_run(buffered)
+                buffered = []
+        if buffered:
+            flush_run(buffered)
+            buffered = []
+        yield from _merge_sorted_runs(node, runs)
+    finally:
+        for f in runs:
+            f.delete()
+
+
+def _merge_sorted_runs(node: pp.PhysSort, runs) -> Iterator[MicroPartition]:
+    """The sorted runs merged into one sorted stream, through intermediate
+    runs (``spill_merge_passes``) while there are more than
+    ``_MERGE_FANIN``."""
+    from .memory import SpillFile
+    from ..ops import counters
+
+    live = [f for f in runs if f.rows > 0]
+    intermediates: List = []
+    try:
+        while len(live) > _MERGE_FANIN:
+            merged = []
+            for i in range(0, len(live), _MERGE_FANIN):
+                chunk = live[i:i + _MERGE_FANIN]
+                if len(chunk) == 1:
+                    merged.append(chunk[0])
+                    continue
+                f = SpillFile(node.schema)
+                for part in _kway_merge(node, chunk):
+                    for b in part.batches:
+                        f.append(b)  # the merge emits morsel-sized batches already
+                f.finish_async()
+                counters.bump("spill_merge_passes")
+                intermediates.append(f)
+                merged.append(f)
+                for g in chunk:
+                    g.delete()
+            live = merged
+        yield from _kway_merge(node, live)
+    finally:
+        for f in intermediates:
+            f.delete()
+
+
+def _merge_ord_col(series: Series, descending: bool, nulls_first: bool):
+    """(null_key, vals, flip): one sort column's ordering arrays, comparable
+    across batches. null_key decides first (``core/kernels/sort.py``'s
+    encoding); vals carries the value order: numbers, booleans and dates as
+    ``_column_keys`` transforms them (NaN as +inf, descending by negation
+    or bitwise-not), so row comparisons agree with the sort exactly;
+    strings keep their values (the sort's codes are batch-local), and
+    ``flip`` reverses their comparison when descending."""
+    valid = series.validity_numpy()
+    null_key = np.where(valid, np.int8(0), np.int8(-1 if nulls_first else 1))
+    dt = series.dtype
+    if dt.is_string() or dt.is_null():
+        vals = np.where(valid, series.to_numpy(), "")
+        return null_key, vals, descending
+    vals = np.asarray(series.to_numpy())
+    if vals.dtype.kind == "f":
+        nan = np.isnan(vals)
+        if nan.any():
+            vals = np.where(nan, np.inf, vals)
+    if vals.dtype.kind == "b":
+        vals = vals.astype(np.int8)
+    if descending:
+        vals = np.bitwise_not(vals) if vals.dtype.kind in "iu" else -vals
+    vals = np.where(valid, vals, vals.dtype.type(0))
+    return null_key, vals, False
+
+
+def _cmp_rows(a_cols, ai: int, b_cols, bi: int) -> int:
+    """Row ai of one segment against row bi of another in the sort order
+    (-1, 0, 1): null placement first, two nulls tie, values by
+    ``_merge_ord_col``'s arrays, reversed where ``flip``."""
+    for (a_nk, a_v, flip), (b_nk, b_v, _f) in zip(a_cols, b_cols):
+        an, bn = a_nk[ai], b_nk[bi]
+        if an != bn:
+            return -1 if an < bn else 1
+        if an:
+            continue
+        x, y = a_v[ai], b_v[bi]
+        if x < y:
+            return 1 if flip else -1
+        if y < x:
+            return -1 if flip else 1
+    return 0
+
+
+class _MergeSeg:
+    """One sorted batch of a run inside ``_kway_merge``: its sort keys
+    (evaluated once), their ordering arrays, and how far it is consumed."""
+
+    __slots__ = ("run", "batch", "keys", "ords", "pos", "n")
+
+    def __init__(self, run: int, batch: RecordBatch, keys, ords):
+        self.run = run
+        self.batch = batch
+        self.keys = keys
+        self.ords = ords
+        self.pos = 0
+        self.n = batch.num_rows
+
+
+def _kway_merge(node: pp.PhysSort, files) -> Iterator[MicroPartition]:
+    """The reference's streaming k-way merge (executor.py:2611-2770), one
+    batch a run in flight plus the rows not yet emittable. Each round, every
+    live run's newest batch offers its last row as the run's boundary; the
+    horizon is the smallest boundary (the lower run index on a tie). A row
+    is emittable when it sorts before the horizon, or ties with it from a
+    run no later than the horizon's; each batch's emittable prefix is found
+    by binary search, and only the emitted rows are sorted, by the sort
+    keys and then the run index (``spill_merge_sort_rows``), so ties
+    between runs keep stream order. Output goes in batches of
+    ``morsel_size_rows``."""
+    from ..config import execution_config
+    from ..core.kernels.sort import multi_argsort
+    from ..datatype import DataType
+    from ..ops import counters
+
+    if not files:
+        return
+    nkeys = len(node.sort_by)
+    desc = list(node.descending) if node.descending else [False] * nkeys
+    nf = list(node.nulls_first) if node.nulls_first else list(desc)
+    if len(files) == 1:
+        for b in files[0].read():
+            yield MicroPartition(node.schema, [b])
+        return
+
+    step = execution_config().morsel_size_rows
+    its = [f.read() for f in files]
+    need = set(range(len(its)))
+    segs: List[_MergeSeg] = []   # within a run, in stream order
+    bounds: dict = {}            # run -> (its newest batch's ordering arrays, last row)
+    outbuf: List[RecordBatch] = []
+    out_rows = 0
+
+    def sorted_pieces(pieces) -> Optional[RecordBatch]:
+        if not pieces:
+            return None
+        bats = [s.batch.slice(a, b) for s, a, b in pieces]
+        if len(bats) == 1:
+            return bats[0]  # one source: already in order
+        big = RecordBatch.concat(bats)
+        key_cols = [Series.concat([s.keys[k].slice(a, b).rename("k") for s, a, b in pieces])
+                    for k in range(nkeys)]
+        run_ids = np.concatenate([np.full(b - a, s.run, dtype=np.int64)
+                                  for s, a, b in pieces])
+        key_cols.append(Series.from_numpy(run_ids, "__run__", DataType.int64()))
+        idx = multi_argsort(key_cols, desc + [False], nf + [False])
+        counters.bump("spill_merge_sort_rows", len(idx))
+        return big.take(idx)
+
+    def push(batch: RecordBatch) -> Iterator[MicroPartition]:
+        nonlocal out_rows, outbuf
+        outbuf.append(batch)
+        out_rows += batch.num_rows
+        if out_rows < step:
+            return
+        big = RecordBatch.concat(outbuf) if len(outbuf) > 1 else outbuf[0]
+        full = (out_rows // step) * step
+        for s in range(0, full, step):
+            yield MicroPartition(node.schema, [big.slice(s, s + step)])
+        rest = big.slice(full, out_rows)
+        outbuf = [rest] if rest.num_rows else []
+        out_rows = rest.num_rows
+
+    try:
+        while True:
+            for i in sorted(need):
+                b = next(its[i], None)
+                while b is not None and b.num_rows == 0:
+                    b = next(its[i], None)
+                if b is None:
+                    bounds.pop(i, None)  # the run is done: no boundary
+                else:
+                    keys = _sort_keys(b, node)
+                    ords = [_merge_ord_col(k, d, n) for k, d, n in zip(keys, desc, nf)]
+                    segs.append(_MergeSeg(i, b, keys, ords))
+                    bounds[i] = (ords, b.num_rows - 1)
+            need.clear()
+            if not bounds:
+                big = sorted_pieces([(s, s.pos, s.n) for s in segs if s.pos < s.n])
+                if big is not None:
+                    yield from push(big)
+                if outbuf:
+                    yield MicroPartition(node.schema, [RecordBatch.concat(outbuf)])
+                return
+            r = -1
+            for i in sorted(bounds):
+                if r < 0 or _cmp_rows(bounds[i][0], bounds[i][1],
+                                      bounds[r][0], bounds[r][1]) < 0:
+                    r = i
+            b_ord, b_idx = bounds[r]
+            pieces = []
+            for s in segs:
+                lo, hi = s.pos, s.n
+                while lo < hi:
+                    mid = (lo + hi) // 2
+                    c = _cmp_rows(s.ords, mid, b_ord, b_idx)
+                    if c < 0 or (c == 0 and s.run <= r):
+                        lo = mid + 1
+                    else:
+                        hi = mid
+                if lo > s.pos:
+                    pieces.append((s, s.pos, lo))
+                    s.pos = lo
+            segs = [s for s in segs if s.pos < s.n]
+            big = sorted_pieces(pieces)
+            if big is not None:
+                yield from push(big)
+            # the horizon run's rows are all out: pull its next batch
+            need.add(r)
+            del bounds[r]
+    finally:
+        for it in its:
+            it.close()
+
+
+# ---- windows ---------------------------------------------------------------------------
+
+
+def _window_exec(node) -> Iterator[MicroPartition]:
+    """A window node (the reference's ``_window_exec``, executor.py:
+    2773-2839): the input gathered and evaluated at once
+    (execution/window.py ``eval_window``), rows in input order. Under a
+    host memory budget each batch is admitted against the ledger; over it,
+    a window with PARTITION BY Grace-partitions into K = 16 spill files by
+    the partition keys' row hash (a window partition lies in one file), and
+    each file evaluates alone, on the compute pool when the pipeline is on:
+    rows then come out grouped by spill partition. A window with no
+    PARTITION BY needs every row in one frame and gathers."""
+    from .memory import operator_budget
+    from .window import eval_window
+
+    budget = operator_budget()
+    try:
+        it = _batch_iter(_exec(node.input))
+        buffered, over = _admit_prefix(budget, it)
+        if not over or not node.spec.partition_by_exprs:
+            batches = buffered + (list(it) if over else [])
+            batch = RecordBatch.concat(batches) if batches \
+                else RecordBatch.empty(node.input.schema)
+            yield MicroPartition(node.schema,
+                                 [eval_window(batch, node.window_exprs, node.spec,
+                                              node.schema)])
+            return
+        yield from _grace_window(node, budget, buffered, it)
+    finally:
+        budget.close()
+
+
+def _grace_window(node, budget, buffered, it) -> Iterator[MicroPartition]:
+    from .memory import SpillPartitions
+    from .window import eval_window
+
+    K = 16
+    sp = SpillPartitions(node.input.schema, K)
+    try:
+        for b in _drain_prefix(budget, buffered, it):
+            sp.append_partitioned(b, node.spec.partition_by_exprs)
+
+        def eval_file(f, _i):
+            bs = list(f.read())
+            if not bs:
+                return MicroPartition(node.schema, [])
+            return MicroPartition(node.schema, [eval_window(
+                RecordBatch.concat(bs), node.window_exprs, node.spec, node.schema)])
+
+        if _pipeline_on():
+            from .pipeline import pmap_stream
+
+            yield from pmap_stream(iter(sp.files), eval_file)
+        else:
+            for i, f in enumerate(sp.files):
+                yield eval_file(f, i)
+    finally:
+        sp.delete()

@@ -94,6 +94,11 @@ def eval_expression(batch, expr: Expression) -> Series:
 
     if isinstance(expr, UdfCall):
         return expr.eval_host([eval_expression(batch, a) for a in expr.args], batch.num_rows)
+    from .expressions import WindowExpr, _UnboundWindowFn
+
+    if isinstance(expr, (WindowExpr, _UnboundWindowFn)):
+        raise ValueError(f"window expression {expr!r} cannot be evaluated outside a window; "
+                         "bind it with .over(Window(...)) in a select or with_column")
     raise ValueError(f"cannot evaluate expression node {type(expr).__name__}")
 
 

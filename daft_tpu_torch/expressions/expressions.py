@@ -211,6 +211,27 @@ class Expression:
         """The number of distinct valid values (nulls are not counted)."""
         return AggExpr("count_distinct", self)
 
+    # ---- windows --------------------------------------------------------------------
+    def over(self, spec) -> "WindowExpr":
+        """This aggregation over a window (window.py ``Window``)."""
+        if isinstance(self, AggExpr):
+            return WindowExpr(self.op, self.child, spec, self.params)
+        raise ValueError(
+            f"only aggregation expressions support .over(); got {type(self).__name__} "
+            "(use daft_tpu_torch.functions.row_number()/rank()/... for ranking window fns)")
+
+    def lag(self, offset: int = 1, default=None) -> "Expression":
+        return _UnboundWindowFn("lag", self, {"offset": offset, "default": default})
+
+    def lead(self, offset: int = 1, default=None) -> "Expression":
+        return _UnboundWindowFn("lead", self, {"offset": offset, "default": default})
+
+    def first_value(self) -> "Expression":
+        return _UnboundWindowFn("first_value", self, {})
+
+    def last_value(self) -> "Expression":
+        return _UnboundWindowFn("last_value", self, {})
+
 
 class ColumnRef(Expression):
     def __init__(self, name: str):
@@ -565,6 +586,101 @@ class AggExpr(Expression):
 
     def __repr__(self):
         return f"{self.child!r}.{self.op}()"
+
+
+class _UnboundWindowFn(Expression):
+    """A window function (lag, lead, first_value, last_value, row_number,
+    rank, ...) before ``.over()`` binds it to a window."""
+
+    def __init__(self, func: str, child: Optional[Expression], params: Dict[str, Any]):
+        self.func = func
+        self.child = child
+        self.params = params
+
+    def name(self) -> str:
+        return self.child.name() if self.child is not None else self.func
+
+    def children(self):
+        return [self.child] if self.child is not None else []
+
+    def with_children(self, children):
+        return _UnboundWindowFn(self.func, children[0] if children else None, self.params)
+
+    def over(self, spec) -> "WindowExpr":
+        return WindowExpr(self.func, self.child, spec, self.params)
+
+    def to_field(self, schema: Schema) -> Field:
+        raise ValueError(f"{self.func}() must be bound with .over(window)")
+
+    def __repr__(self):
+        return f"{self.child!r}.{self.func}({self.params})"
+
+
+# the ranking functions take no child; the value functions take one
+WINDOW_FNS = ("row_number", "rank", "dense_rank", "percent_rank", "cume_dist", "ntile",
+              "lag", "lead", "first_value", "last_value")
+
+
+class WindowExpr(Expression):
+    """A window function or a windowed aggregation bound to a window spec
+    (the reference's expressions.py:756). ``func`` is one of
+    ``WINDOW_FNS`` or an aggregation op; ``child`` the value expression
+    (None for the ranking functions). Only a window node evaluates it
+    (execution/window.py): the optimizer's ``rule_extract_windows`` moves
+    it out of a projection, and the host evaluator refuses it elsewhere."""
+
+    def __init__(self, func: str, child: Optional[Expression], spec: Any,
+                 params: Optional[Dict[str, Any]] = None, out_name: Optional[str] = None):
+        if func not in WINDOW_FNS and func not in AGG_OPS:
+            raise ValueError(f"unknown window function {func!r}")
+        self.func = func
+        self.child = child
+        self.spec = spec
+        self.params = params or {}
+        self._out_name = out_name
+
+    def name(self) -> str:
+        if self._out_name:
+            return self._out_name
+        return self.child.name() if self.child is not None else self.func
+
+    def alias(self, name: str) -> "WindowExpr":
+        return WindowExpr(self.func, self.child, self.spec, self.params, name)
+
+    def children(self):
+        """The child, then the spec's partition and order expressions, so
+        column analysis (pruning, SQL name resolution) sees them."""
+        out = [self.child] if self.child is not None else []
+        out.extend(self.spec.partition_by_exprs)
+        out.extend(self.spec.order_by_exprs)
+        return out
+
+    def with_children(self, children):
+        i = 0
+        child = None
+        if self.child is not None:
+            child = children[0]
+            i = 1
+        n_part = len(self.spec.partition_by_exprs)
+        n_order = len(self.spec.order_by_exprs)
+        spec = self.spec._copy()
+        spec.partition_by_exprs = list(children[i:i + n_part])
+        spec.order_by_exprs = list(children[i + n_part:i + n_part + n_order])
+        return WindowExpr(self.func, child, spec, self.params, self._out_name)
+
+    def to_field(self, schema: Schema) -> Field:
+        name = self.name()
+        if self.func in ("row_number", "rank", "dense_rank", "ntile"):
+            return Field(name, DataType.uint64())
+        if self.func in ("percent_rank", "cume_dist"):
+            return Field(name, DataType.float64())
+        if self.func in ("lag", "lead", "first_value", "last_value"):
+            return Field(name, self.child.to_field(schema).dtype)
+        return Field(name, AggExpr(self.func, self.child, self.params).to_field(schema).dtype)
+
+    def __repr__(self):
+        base = f"{self.child!r}.{self.func}" if self.child is not None else self.func
+        return f"{base}.over({self.spec!r})"
 
 
 def col(name: str) -> Expression:

@@ -22,11 +22,13 @@ there. Split tasks never filter (the executor does), as in the reference.
 Morsels: a whole-file task yields each row group in slices of
 ``morsel_size_rows`` (read at read time), filtered, empty ones included,
 as pyarrow's scanner yields them; a split task yields ``morsel_size_rows``
-slices across its row groups, as ``ParquetFile.iter_batches`` does. Not
-ported here: the reference's budgeted decode-ahead (``_maybe_prefetch``,
-parquet.py:285-310: a decode loop on the spill IO pool under a host memory
-budget), which comes with the memory budget (ROADMAP Queue 1 item 4), and
-remote paths (the object store).
+slices across its row groups, as ``ParquetFile.iter_batches`` does.
+
+Under a host memory budget, both readers decode ahead on the spill IO pool
+(``_maybe_prefetch``, the reference's parquet.py:285-310): up to
+``spill_prefetch_batches`` morsels queued while the operators consume the
+scan. The budget is read when the task reads, and an unbudgeted read never
+sees the pool. Not ported: remote paths (the object store).
 """
 
 from __future__ import annotations
@@ -107,8 +109,8 @@ class ParquetScanOperator(ScanOperator):
                     tasks.extend(split)
                     continue
             tasks.append(ScanTask(
-                read=_make_reader(path, columns, predicate, conjuncts, pushdowns.limit,
-                                  out_schema),
+                read=_maybe_prefetch(_make_reader(path, columns, predicate, conjuncts,
+                                                  pushdowns.limit, out_schema)),
                 schema=out_schema,
                 size_bytes=size,
                 filters_applied=predicate is not None,
@@ -287,7 +289,8 @@ def _row_group_split_tasks(path: str, md: pf.Footer, columns, out_schema: Schema
 
         return read
 
-    return [ScanTask(read=make_read(g), schema=out_schema, size_bytes=nb, num_rows=nr,
+    return [ScanTask(read=_maybe_prefetch(make_read(g)), schema=out_schema, size_bytes=nb,
+                     num_rows=nr,
                      filters_applied=False, limit_applied=False,
                      source_label=f"{path}[rg{g[0]}..{g[-1]}]")
             for g, nb, nr in zip(groups, sizes, rows)]
@@ -316,6 +319,29 @@ def _read_row_groups(path: str, rg_ids, columns, out_schema: Schema,
             counters.bump("scan_row_groups")
             schema = Schema([Field(s.name, s.dtype) for s in cols])
             yield RecordBatch(schema, cols, int(rg["num_rows"]))
+
+
+def _maybe_prefetch(read_factory):
+    """``read_factory`` decoding ahead on the spill IO pool when the query
+    that reads runs under a host memory budget (and the pool and read-ahead
+    are on): ``spill_prefetch_batches`` morsels queued, decoding overlapping
+    the consumer. Otherwise the factory's own iterator, untouched."""
+
+    def read_prefetched():
+        from ..config import execution_config
+        from ..memory.manager import manager
+
+        cfg = execution_config()
+        if (manager().limit_bytes() > 0 and cfg.spill_io_threads > 0
+                and cfg.spill_prefetch_batches > 0):
+            from ..memory.spill import prefetch_iter
+
+            yield from prefetch_iter(read_factory, cfg.spill_prefetch_batches,
+                                     cfg.spill_io_threads, count=False)
+        else:
+            yield from read_factory()
+
+    return read_prefetched
 
 
 def _make_reader(path: str, columns, predicate, conjuncts, limit, out_schema: Schema):

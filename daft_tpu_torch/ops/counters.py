@@ -55,6 +55,23 @@ show which path a query took:
   ``device_udf_weight_h2d_bytes``:
   weight bytes put on a stage's device (made into tensors on a CPU device;
   ops/udf_stage.py);
+- the host memory budget's (memory/, under ``memory_limit_bytes`` > 0
+  only; the reference's names): ``spill_batches``, ``spill_bytes`` (their
+  ``size_bytes``), ``spill_wire_bytes`` (the bytes the files hold, after the
+  codec), ``spill_files``, ``spill_runs`` (the external sort's sorted
+  runs), ``spill_merge_passes`` (its intermediate merges), ``spill_merge_sort_rows``
+  (rows through the k-way merge's interleave sort), ``spill_dirs_gced``
+  (stale spill artifacts of dead processes removed); the spill IO pool's
+  ``spill_write_seconds`` / ``spill_read_seconds`` (off the caller's
+  thread) beside ``spill_write_wall_seconds`` / ``spill_read_wall_seconds``
+  (what the caller waited), whose differences make
+  ``spill_io_overlap_seconds`` (``spill_overlap_seconds``), and
+  ``spill_prefetch_inflight`` (the deepest read-ahead queue, a peak);
+  ``scan_bytes`` (``size_bytes`` of what budgeted scans yielded),
+  ``scan_backpressure_stalls`` / ``scan_stall_ms`` (a scan's bounded waits
+  for headroom), ``host_over_budget_events`` (operators that crossed the
+  budget and spilled), and the ledger's gauges ``host_bytes_tracked`` and
+  ``host_bytes_high_water``;
 - ``launches_<kernel>``: one per launch of a hand-written kernel, bumped by
   its wrapper (ops/segment_kernels.py, ops/probe_kernels.py,
   ops/permute_kernels.py) where it launches and nowhere else;
@@ -79,6 +96,14 @@ SEGMENT_KERNELS = ("segment_sum_planes", "segment_extreme_planes",
 KERNEL_NAMES = SEGMENT_KERNELS + ("hash_probe_build", "hash_probe_index",
                                   "segment_sum_planes_f32", "hash_probe_segment_sum",
                                   "ring_permute_words", "segment_sum_float_planes")
+SPILL_COUNTER_NAMES = ("spill_batches", "spill_bytes", "spill_wire_bytes", "spill_files",
+                       "spill_runs", "spill_merge_passes", "spill_dirs_gced",
+                       "spill_write_seconds", "spill_write_wall_seconds",
+                       "spill_read_seconds", "spill_read_wall_seconds",
+                       "spill_merge_sort_rows", "spill_prefetch_inflight")
+MEMORY_COUNTER_NAMES = ("scan_bytes", "scan_backpressure_stalls", "scan_stall_ms",
+                        "host_over_budget_events", "host_bytes_tracked",
+                        "host_bytes_high_water")
 COUNTER_NAMES = ("device_grouped_batches", "device_stage_batches", "device_join_batches",
                  "device_stage_runs", "device_topn_runs",
                  "device_region_dispatches", "device_region_ops_fused",
@@ -92,12 +117,15 @@ COUNTER_NAMES = ("device_grouped_batches", "device_stage_batches", "device_join_
                  "scan_window_tasks", "scan_window_peak", "morsel_resize", "hbm_cache_hits",
                  "hbm_cache_misses", "hbm_stable_rehits", "fingerprint_ms",
                  "device_udf_dispatches", "device_udf_rows", "device_udf_runs",
-                 "device_udf_weight_h2d_bytes") + tuple(
+                 "device_udf_weight_h2d_bytes") + SPILL_COUNTER_NAMES + \
+    MEMORY_COUNTER_NAMES + tuple(
     f"{kind}_{k}" for kind in ("launches", "plain") for k in KERNEL_NAMES)
 
 _LOCK = threading.Lock()
 # the counters that add host milliseconds; every other counts events
-FLOAT_COUNTERS = ("scan_decode_ms", "scan_filter_ms", "fingerprint_ms")
+FLOAT_COUNTERS = ("scan_decode_ms", "scan_filter_ms", "fingerprint_ms",
+                  "spill_write_seconds", "spill_write_wall_seconds", "spill_read_seconds",
+                  "spill_read_wall_seconds")
 _COUNTS: Dict[str, float] = {name: 0.0 if name in FLOAT_COUNTERS else 0
                              for name in COUNTER_NAMES}
 rejections: Dict[str, int] = {}
@@ -121,6 +149,19 @@ def bump_max(name: str, value: float) -> None:
             _COUNTS[name] = value
 
 
+def set_value(name: str, value: float) -> None:
+    """Set counter ``name`` (a gauge) to ``value``."""
+    with _LOCK:
+        _COUNTS[name] = value
+
+
+def spill_overlap_seconds(snap: Dict[str, float]) -> float:
+    """``spill_io_overlap_seconds`` of a snapshot: the spill IO pool's
+    seconds the caller did not wait for, writes and reads."""
+    return max(snap["spill_write_seconds"] - snap["spill_write_wall_seconds"], 0.0) + \
+        max(snap["spill_read_seconds"] - snap["spill_read_wall_seconds"], 0.0)
+
+
 def reject(site: str, reason: str) -> None:
     """Record one host-placement decision (`reason` is a static template)."""
     key = f"{site}: {reason}"
@@ -133,9 +174,10 @@ def snapshot() -> Dict[str, int]:
         return dict(_COUNTS)
 
 
-def reset() -> None:
-    """Zero every counter and the rejection record."""
+def reset(names=None) -> None:
+    """Zero every counter and the rejection record, or only ``names``."""
     with _LOCK:
-        for name in _COUNTS:
+        for name in (_COUNTS if names is None else names):
             _COUNTS[name] = 0.0 if name in FLOAT_COUNTERS else 0
-        rejections.clear()
+        if names is None:
+            rejections.clear()

@@ -101,10 +101,10 @@ def _substitute(e: Expression, mapping: Dict[str, Expression]) -> Expression:
 
 
 def _expr_absorbable(e: Expression) -> bool:
+    from ..expressions.expressions import WindowExpr
     from ..udf.expr import UdfCall
 
-    # the window functions add theirs here (ROADMAP Queue 1 item 4)
-    return not any(isinstance(n, (AggExpr, UdfCall)) for n in e.walk())
+    return not any(isinstance(n, (AggExpr, UdfCall, WindowExpr)) for n in e.walk())
 
 
 def _chain_below(agg_input) -> List:

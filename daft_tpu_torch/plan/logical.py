@@ -5,7 +5,9 @@ Filter (with the pruning pass's ``keep``), Project, UDFProject (a
 projection the optimizer's ``rule_split_udfs`` isolated around one UDF),
 Aggregate, Sort, Limit, Offset, TopN (a Sort with a Limit, made by
 plan/optimizer.py ``rule_detect_topn``), Join (inner, left,
-semi, anti and cross), Distinct and Repartition. Each node computes its
+semi, anti and cross), Distinct, Repartition and Window (window
+functions over one window spec, the optimizer's ``rule_extract_windows``
+moving them out of a projection). Each node computes its
 output schema on construction, so a type error surfaces where the DataFrame
 method is called.
 
@@ -370,3 +372,22 @@ class Repartition(_Unary):
 
     def describe(self) -> str:
         return f"Repartition[{self.scheme} n={self.num_partitions}]"
+
+
+class Window(_Unary):
+    """Window functions over one window spec (counterpart of
+    daft_tpu/plan/logical.py Window): the input's columns, then one column
+    per window expression (``WindowExpr``, each named)."""
+
+    def __init__(self, input: LogicalPlan, window_exprs: List[Expression], spec: Any):
+        fields = list(input.schema) + [e.to_field(input.schema) for e in window_exprs]
+        super().__init__(Schema(fields))
+        self.input = input
+        self.window_exprs = list(window_exprs)
+        self.spec = spec
+
+    def with_children(self, children):
+        return Window(children[0], self.window_exprs, self.spec)
+
+    def describe(self) -> str:
+        return f"Window[{', '.join(e.name() for e in self.window_exprs)}]"

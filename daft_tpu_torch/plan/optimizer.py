@@ -15,8 +15,10 @@ the batch's pass limit is reached:
    (``prune_columns``) and the greedy join reorder
    (``reorder_joins_global``);
 3. physical-prep (3 passes): Limit(Sort) and Limit(Offset(Sort)) become a
-   TopN, and each UDF call in a Project is isolated into a UDFProject of its
-   own (``rule_split_udfs``). A filter conjunct holding a UDF stays above a
+   TopN, the window expressions of a Project move into Window nodes below
+   it, one per distinct spec (``rule_extract_windows``), and each UDF call
+   in a Project is isolated into a UDFProject of its own
+   (``rule_split_udfs``). A filter conjunct holding a UDF stays above a
    join and above a Project, and a Limit stays above a Project holding one.
 
 ``DataFrame.collect`` optimizes every plan before ``translate``, as the
@@ -25,9 +27,8 @@ reference's does; nothing is cached between collects.
 The scan rules (``rule_push_filter_into_scan``, which keeps the Filter
 above the scan; ``rule_push_limit_into_scan``; ``rule_column_pruning``)
 and ``_prune``'s ScanSource branch attach a ``ScanSource``'s pushdowns.
-Left for the module that brings it (the rule does not fire on a plan
-without windows, so no TPC-H plan differs from the reference's for its
-absence): ``rule_extract_windows`` with windows (ROADMAP Queue 1 item 4).
+Column pruning passes a Window by (its input keeps every column), as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -901,6 +902,45 @@ def _reorder_join_chain(node: lp.LogicalPlan) -> Optional[lp.LogicalPlan]:
     return lp.Project(cur, [col(f.name) for f in node.schema])
 
 
+def rule_extract_windows(node: lp.LogicalPlan) -> Optional[lp.LogicalPlan]:
+    """Window expressions out of a Project into Window nodes under it (the
+    reference's optimizer.py:762-800): one Window per distinct spec (by its
+    ``repr``), each distinct window computation once, named
+    ``__window_<i>``, and the Project reading those columns under the
+    expressions' names."""
+    if not isinstance(node, lp.Project):
+        return None
+    from ..expressions.expressions import WindowExpr
+
+    found: List = []
+    seen = set()
+    for e in node.projection:
+        for sub in e.walk():
+            if isinstance(sub, WindowExpr) and id(sub) not in seen:
+                seen.add(id(sub))
+                found.append(sub)
+    if not found:
+        return None
+    by_spec: dict = {}
+    replacement: dict = {}
+    for w in found:
+        spec, ws = by_spec.setdefault(repr(w.spec), (w.spec, {}))
+        key = (w.func, repr(w.child), repr(sorted(w.params.items(), key=str)))
+        if key not in ws:
+            ws[key] = (f"__window_{len(replacement)}", w)
+        replacement[id(w)] = ws[key][0]
+    input_node = node.input
+    for spec, ws in by_spec.values():
+        input_node = lp.Window(input_node, [w.alias(name) for name, w in ws.values()], spec)
+
+    def rewrite(e: Expression) -> Optional[Expression]:
+        if id(e) in replacement:
+            return Alias(col(replacement[id(e)]), e.name())
+        return None
+
+    return lp.Project(input_node, [e.transform(rewrite) for e in node.projection])
+
+
 def _plain_inner_join(n) -> bool:
     return (isinstance(n, lp.Join) and n.how == "inner" and n.strategy is None
             and n.prefix is None and n.suffix is None and not n.null_equals_null)
@@ -932,7 +972,7 @@ def default_rule_batches(config=None) -> List[RuleBatch]:
         ]),
         RuleBatch("physical-prep", [
             rule_detect_topn,
-            # rule_extract_windows: windows (ROADMAP Queue 1 item 4)
+            rule_extract_windows,
             rule_split_udfs,
         ], max_passes=3),
     ]

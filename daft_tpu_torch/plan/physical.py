@@ -34,7 +34,8 @@ instead of being caught); any other TopN is a host ``PhysTopN``. A Filter
 with the pruning pass's ``keep`` narrows its output to those columns. An
 inner join whose left side is estimated under half the right's bytes
 builds on the left (the reference's swap, physical.py:664-690) under a
-Project that restores the column order.
+Project that restores the column order. A Window becomes a host
+``PhysWindow``.
 """
 
 from __future__ import annotations
@@ -280,6 +281,16 @@ class PhysRepartition(_Unary):
         self.by = by
 
 
+class PhysWindow(_Unary):
+    """Window functions over one spec on the host (execution/executor.py
+    ``_window_exec``, execution/window.py ``eval_window``)."""
+
+    def __init__(self, input: PhysicalPlan, window_exprs, spec, schema: Schema):
+        super().__init__(input, schema)
+        self.window_exprs = window_exprs
+        self.spec = spec
+
+
 class DeviceJoinAgg(PhysicalPlan):
     """Star join + aggregate fused for the device (ops/device_join.py): the
     fact streams, each dim materializes once per run and joins as a device
@@ -376,6 +387,8 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
                         plan.right_on, merged, rename, plan.schema, plan.how)
     if isinstance(plan, lp.Distinct):
         return Dedup(translate(plan.input), plan.on, plan.schema)
+    if isinstance(plan, lp.Window):
+        return PhysWindow(translate(plan.input), plan.window_exprs, plan.spec, plan.schema)
     if isinstance(plan, lp.Aggregate):
         if cfg.device_mode != "off":
             from ..ops.device_join import try_capture_join_agg

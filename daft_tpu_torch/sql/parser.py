@@ -6,10 +6,17 @@ A Pratt parser builds expressions directly; SELECT structure lands in the
 sql/planner.py plans. The grammar is the reference's; what the port's
 engine cannot evaluate yet raises ``NotImplementedError`` naming the
 ROADMAP item that brings it, where the reference builds an expression:
-window functions (``OVER``, the rank functions, LAG/LEAD; Queue 1 item 4),
 ``%``, ``^``, ``||``, ``ILIKE``, ``IS [NOT] TRUE/FALSE``, ``TIMESTAMP``
 literals, non-day ``INTERVAL`` units, and the aggregates other than SUM,
 AVG, MIN, MAX and COUNT (the expression surface, item 7).
+
+Window functions are the reference's: an aggregate or ROW_NUMBER, RANK,
+DENSE_RANK, PERCENT_RANK, CUME_DIST, NTILE(n), LAG / LEAD (expr[, offset[,
+default]]), FIRST_VALUE, LAST_VALUE, followed by ``OVER ([PARTITION BY
+...] [ORDER BY ... [ASC|DESC] [NULLS FIRST|LAST]] [ROWS|RANGE BETWEEN
+<bound> AND <bound>])``, a bound being ``UNBOUNDED PRECEDING|FOLLOWING``,
+``CURRENT ROW`` or ``n PRECEDING|FOLLOWING``. A ranking or value function
+without ``OVER`` raises.
 
 Dates are the port's int32 days: ``DATE 'yyyy-mm-dd'`` is a date literal,
 and ``INTERVAL 'n' DAY`` added to or subtracted from a date literal folds
@@ -24,12 +31,11 @@ import datetime
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..datatype import DataType, Field
-from ..expressions.expressions import (AggExpr, Between, Cast, Expression, Function, IfElse,
-                                       IsIn, Literal, col, lit)
+from ..expressions.expressions import (AggExpr, Alias, Between, Cast, Expression, Function,
+                                       IfElse, IsIn, Literal, _UnboundWindowFn, col, lit)
 from .tokenizer import Token, tokenize
 
 # what a ROADMAP item brings, named in the NotImplementedError of each
-WINDOWS = "windows (ROADMAP Queue 1 item 4)"
 EXPRESSIONS = "the expression surface (ROADMAP Queue 1 item 7)"
 
 _KEYWORDS_STOP = {
@@ -59,8 +65,8 @@ _AGG_FUNCS = {"SUM": "sum", "AVG": "mean", "MEAN": "mean", "MIN": "min", "MAX": 
 _AGG_FUNCS_NOT_PORTED = {
     "STDDEV", "STDDEV_SAMP", "VAR", "VARIANCE", "ANY_VALUE", "SKEW", "BOOL_AND", "BOOL_OR",
     "APPROX_COUNT_DISTINCT", "LIST_AGG", "ARRAY_AGG"}
-_WINDOW_FUNCS = {"ROW_NUMBER", "RANK", "DENSE_RANK", "PERCENT_RANK", "CUME_DIST", "NTILE",
-                 "LAG", "LEAD", "FIRST_VALUE", "LAST_VALUE"}
+_WINDOW_RANK_FUNCS = {"ROW_NUMBER", "RANK", "DENSE_RANK", "PERCENT_RANK", "CUME_DIST",
+                      "NTILE"}
 
 _TYPE_NAMES = {
     "INT": DataType.int32, "INTEGER": DataType.int32, "INT4": DataType.int32,
@@ -190,8 +196,8 @@ class Select:
     set_ops: List[Tuple[str, "Select"]] = dataclasses.field(default_factory=list)
 
 
-def _not_ported(what: str, item: str = EXPRESSIONS):
-    return NotImplementedError(f"{what} is not ported yet: it comes with {item}")
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet: it comes with {EXPRESSIONS}")
 
 
 class Parser:
@@ -512,9 +518,85 @@ class Parser:
                 args.append(self.parse_expr())
         self.expect("punct", ")")
 
-        if self.at_kw("OVER") or fname in _WINDOW_FUNCS:
-            raise _not_ported(f"the window function {fname}", WINDOWS)
-        return self._build_function(fname, args, star, distinct)
+        expr = self._build_function(fname, args, star, distinct)
+        if self.at_kw("OVER"):
+            self.next()
+            spec = self._parse_window_spec()
+            inner, out_name = expr, None
+            if isinstance(inner, Alias):
+                out_name = inner._alias
+                inner = inner.child
+            if isinstance(inner, (AggExpr, _UnboundWindowFn)):
+                w = inner.over(spec)
+                return w.alias(out_name) if out_name else w
+            raise ValueError(f"{fname} cannot be used as a window function")
+        if isinstance(expr, _UnboundWindowFn):
+            raise ValueError(f"{fname}() requires an OVER clause")
+        return expr
+
+    def _parse_window_spec(self):
+        from ..window import Window
+
+        self.expect("punct", "(")
+        w = Window()
+        if self.eat_kw("PARTITION"):
+            self.expect_kw("BY")
+            parts = [self.parse_expr()]
+            while self.eat("punct", ","):
+                parts.append(self.parse_expr())
+            w = w.partition_by(*parts)
+        if self.eat_kw("ORDER"):
+            self.expect_kw("BY")
+            exprs, descs, nfs = [], [], []
+            while True:
+                e = self.parse_expr()
+                d = False
+                if self.eat_kw("DESC"):
+                    d = True
+                else:
+                    self.eat_kw("ASC")
+                nf = None
+                if self.eat_kw("NULLS"):
+                    if self.eat_kw("FIRST"):
+                        nf = True
+                    else:
+                        self.expect_kw("LAST")
+                        nf = False
+                exprs.append(e)
+                descs.append(d)
+                nfs.append(nf if nf is not None else d)
+                if not self.eat("punct", ","):
+                    break
+            w = w.order_by(*exprs, desc=descs, nulls_first=nfs)
+        if self.at_kw("ROWS", "RANGE"):
+            kind = self.next().upper()
+            lo, hi = self._parse_frame_bounds()
+            w = w.rows_between(lo, hi) if kind == "ROWS" else w.range_between(lo, hi)
+        self.expect("punct", ")")
+        return w
+
+    def _parse_frame_bounds(self):
+        from ..window import Window
+
+        def bound():
+            if self.eat_kw("UNBOUNDED"):
+                if self.eat_kw("PRECEDING"):
+                    return Window.unbounded_preceding
+                self.expect_kw("FOLLOWING")
+                return Window.unbounded_following
+            if self.eat_kw("CURRENT"):
+                self.expect_kw("ROW")
+                return 0
+            n = int(self.expect("number").value)
+            if self.eat_kw("PRECEDING"):
+                return -n
+            self.expect_kw("FOLLOWING")
+            return n
+
+        self.expect_kw("BETWEEN")
+        lo = bound()
+        self.expect_kw("AND")
+        return lo, bound()
 
     def _build_function(self, fname: str, args: List[Expression], star: bool,
                         distinct: bool) -> Expression:
@@ -532,6 +614,23 @@ class Parser:
             return AggExpr(_AGG_FUNCS[fname], args[0])
         if fname in _AGG_FUNCS_NOT_PORTED:
             raise _not_ported(f"the aggregate {fname}")
+        if fname in _WINDOW_RANK_FUNCS:
+            params = {"n": int(args[0].value)} if fname == "NTILE" and args else {}
+            return _UnboundWindowFn(fname.lower(), None, params)
+        if fname in ("LAG", "LEAD"):
+            offset, default = 1, None
+            if len(args) > 1:
+                if not isinstance(args[1], Literal):
+                    raise ValueError(f"{fname} offset must be a literal integer")
+                offset = int(args[1].value)
+            if len(args) > 2:
+                if not isinstance(args[2], Literal):
+                    raise ValueError(f"{fname} default must be a literal")
+                default = args[2].value
+            return _UnboundWindowFn(fname.lower(), args[0], {"offset": offset,
+                                                             "default": default})
+        if fname in ("FIRST_VALUE", "LAST_VALUE"):
+            return _UnboundWindowFn(fname.lower(), args[0], {})
         return build_sql_function(fname, args)
 
     # ---- statements ---------------------------------------------------------------

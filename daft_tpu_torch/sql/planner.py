@@ -24,7 +24,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..expressions.expressions import (AggExpr, BinaryOp, ColumnRef, Expression, Literal,
-                                       UnaryOp, col, lit)
+                                       UnaryOp, WindowExpr, col, lit)
 from .parser import (EXPRESSIONS, ExistsSubquery, InSubquery, JoinClause, ScalarSubquery,
                      Select, SelectItem, TableFactor, parse_select)
 
@@ -75,6 +75,8 @@ def _and_all(exprs: List[Expression]) -> Optional[Expression]:
 
 
 def _contains_agg(e: Expression) -> bool:
+    if isinstance(e, WindowExpr):
+        return False  # a windowed aggregation groups nothing: skip its subtree
     return isinstance(e, AggExpr) or any(_contains_agg(c) for c in e.children())
 
 

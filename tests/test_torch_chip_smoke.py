@@ -775,3 +775,181 @@ def test_pipeline_phase_cells_on_the_cpu(scan_files, monkeypatch):
     # the in-memory cells' device stages sit under a stage node
     assert seen["pipeline supplier"] == {STAGE_THREAD_NAME}
     assert seen["pipeline scan q6"] == {STAGE_THREAD_NAME}
+
+
+def test_ooc_phase_cells_on_the_cpu(scan_files, monkeypatch, tmp_path):
+    """chip_smoke.py's ooc phase on the CPU at a small size: the nine
+    benchmark queries (imports rewritten to the port) over the Parquet
+    lineitem (a), under the budget with device_mode="off" (b, equal to (a)
+    exactly, spilling) and "on" (c, equal by the exactness rule, its device
+    stages doing what the unbudgeted card run's do, its fallbacks q3's and
+    q10's single-fact-batch TopN alone); the external sort's sync and
+    async legs equal to the in-memory sort; q4's semi join and the inner
+    join Grace-partitioned and equal to their unbudgeted runs. The phase's
+    own checks raise on any difference; the spill directory ends empty."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.memory import manager
+    from daft_tpu_torch.ops import counters
+
+    cs, _tables, frames, dirs = scan_files
+    queries = cs.tpch_port_queries()
+    assert sorted(queries) == list(range(1, 23))
+    tables = cs.ooc_tables(frames, dirs["lineitem"])
+    spill_dir = str(tmp_path)
+    with dt.execution_config_ctx(morsel_size_rows=16_384):
+        paths = cs.ooc_queries(queries, tables, "cpu", cs.budget_of(frames, 0.10), spill_dir)
+        assert sorted(paths) == sorted(f"ooc_q{q}" for q in cs.OOC_QUERIES)
+        assert counters.device_join_batches > 0 or counters.device_grouped_batches > 0
+        cs.ooc_sort(dirs["lineitem"], 1 << 20, "cpu", spill_dir)
+        paths = cs.ooc_joins(queries, tables, 200_000, "cpu", spill_dir)
+    assert list(paths) == ["ooc_q4_grace"]
+    assert os.listdir(spill_dir) == [] and manager().tracked_bytes() == 0
+    assert cs.budget_of(frames, 0.01) == max(int(cs.frames_bytes(frames) * 0.01), 1 << 20)
+
+
+@pytest.mark.parametrize("q", [1, 3])
+def test_ooc_phase_fails_when_a_budgeted_stage_gives_way(scan_files, monkeypatch, tmp_path,
+                                                          q):
+    """The ooc phase's (c) check holds each query's card run to its
+    fallbacks: a device stage that feeds one batch and then gives way to
+    the host only under the budget (its result still right, from the host
+    rerun) fails the phase."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.config import execution_config
+    from daft_tpu_torch.execution import executor
+    from daft_tpu_torch.ops.grouped_stage import DeviceFallback
+
+    cs, _tables, frames, dirs = scan_files
+    feed_stream = executor._feed_stream
+
+    def gives_way(stream, feed, cfg):
+        if execution_config().memory_limit_bytes <= 0:
+            return feed_stream(stream, feed, cfg)
+        feed(next(b for p in stream for b in p.batches if b.num_rows))
+        raise DeviceFallback("gave way under the budget")
+
+    monkeypatch.setattr(executor, "_feed_stream", gives_way)
+    monkeypatch.setattr(cs, "OOC_QUERIES", (q,))
+    queries = cs.tpch_port_queries()
+    tables = cs.ooc_tables(frames, dirs["lineitem"])
+    with dt.execution_config_ctx(morsel_size_rows=16_384):
+        with pytest.raises(cs.SmokeFailure, match=f"ooc q{q} \\(under the budget on the "
+                                                  "card\\): fallbacks"):
+            cs.ooc_queries(queries, tables, "cpu", 20_000, str(tmp_path))
+
+
+def test_ooc_fallback_check():
+    """ooc_check_fallbacks: none for q1, exactly one single-fact-batch
+    fallback for q3, and the query's device counters moved."""
+    import chip_smoke as cs
+
+    moved = {"device_grouped_batches": 1, "device_join_batches": 1}
+    cs.ooc_check_fallbacks(1, dict(moved, device_fallbacks=0), [], "t")
+    one = ["join topn: device fallback: device TopN path requires a single fact batch"]
+    cs.ooc_check_fallbacks(3, dict(moved, device_fallbacks=1), one, "t")
+    for q, fb, reasons in ((1, 1, ["grouped agg: device fallback: DeviceFallback"]),
+                           (3, 0, []), (3, 2, one * 2),
+                           (3, 1, ["join topn: device fallback: other"])):
+        with pytest.raises(cs.SmokeFailure, match="fallbacks"):
+            cs.ooc_check_fallbacks(q, dict(moved, device_fallbacks=fb), reasons, "t")
+    with pytest.raises(cs.SmokeFailure, match="did not move"):
+        cs.ooc_check_fallbacks(3, dict(moved, device_fallbacks=1, device_join_batches=0),
+                               one, "t")
+
+
+def test_window_cells_on_the_cpu(scan_files):
+    """chip_smoke.py's window cells on the CPU at a small size: W1 equal
+    to its numpy oracle (row_number, the running sum) and, under a budget
+    that Grace-partitions it, to its unbudgeted run keyed by (l_orderkey,
+    l_linenumber); W2 as a DataFrame and in SQL equal to each other, to the
+    device_mode="off" run and to its numpy oracle, its aggregate on the
+    device join stage."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.memory import manager
+    from daft_tpu_torch.ops import counters
+
+    cs, (lineitem, _orders, dims), frames, _dirs = scan_files
+    df = cs.w1_frame(lineitem)
+    with dt.execution_config_ctx(device="cpu"):
+        want = cs.w1_keyed(cs.w1_query(df).collect()._result)
+        counters.reset()
+        with dt.execution_config_ctx(memory_limit_bytes=1 << 20):
+            got = cs.w1_keyed(cs.w1_query(df).collect()._result)
+    assert counters.spill_files >= 32 and manager().tracked_bytes() == 0
+    oracle = cs.w1_oracle(lineitem)
+    assert np.array_equal(want["rn"], oracle["rn"])
+    assert np.array_equal(want["run_qty"], oracle["run_qty"])
+    for c in ("rn", "rk", "drk", "run_qty", "prev_valid", "l_suppkey"):
+        assert np.array_equal(got[c], want[c]), c
+    np.testing.assert_allclose(got["share"], want["share"], rtol=1e-5)
+    t = {"lineitem": frames["lineitem"], "part": frames["part"]}
+    oracle = cs.w2_oracle(lineitem, dims)
+    sess = dt.current_session()
+    sess.create_temp_table("lineitem", t["lineitem"])
+    sess.create_temp_table("part", t["part"])
+    try:
+        with dt.execution_config_ctx(device="cpu"):
+            counters.reset()
+            frame = cs.w2_query(t).to_pydict()
+            assert counters.device_join_batches == 1
+            sql = dt.sql(cs.W2_SQL).to_pydict()
+            with dt.execution_config_ctx(device_mode="off"):
+                off = cs.w2_query(t).to_pydict()
+    finally:
+        sess.drop_temp_table("lineitem")
+        sess.drop_temp_table("part")
+    assert len(frame["p_type"]) == 100
+    for a, b in ((frame, sql), (frame, off), (frame, oracle)):
+        assert cs.same_result(a, b, cs.W2_FLOATS)
+
+
+def test_w2_kernel_cases_get_the_runs_inputs(monkeypatch):
+    """chip_smoke.py's kernel cases at W2's shapes (``w2_inputs``) feed K4
+    (the build over part's keys, the probe of every l_partkey), K1, K2 and
+    K7 what W2's own device join run passes them (on the CPU, at a small
+    size), tensor for tensor; W2's cap is the brand x type dictionary
+    product's."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.device.residency import manager
+    from daft_tpu_torch.ops import grouped_stage
+    from daft_tpu_torch.ops import probe_kernels as pk
+    from daft_tpu_torch.ops import segment_kernels as sk
+    from daft_tpu_torch.ops.stage import pad_bucket
+
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    lineitem, orders, dims = _small_tpch(cs)
+    frames = cs.scan_tables(lineitem, orders, dims)
+    seen = {}
+    for mod, names in ((sk, ("segment_sum_planes", "segment_extreme_planes",
+                             "segment_sum_float_planes")),
+                       (pk, ("build_probe_table", "hash_probe_index"))):
+        for name in names:
+            def record(*args, _name=name, _fn=getattr(mod, name)):
+                seen.setdefault(_name, []).append(args)
+                return _fn(*args)
+            monkeypatch.setattr(mod, name, record)
+    manager().clear()
+    with dt.execution_config_ctx(device="cpu"):
+        cs.w2_query({"lineitem": frames["lineitem"], "part": frames["part"]}).to_pydict()
+    monkeypatch.setattr(cs, "BUCKET", pad_bucket(len(lineitem["l_orderkey"])))
+    want = cs.w2_inputs(lineitem, dims, torch.device("cpu"))
+
+    def same(a, b):
+        return len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                        for x, y in zip(a, b))
+    ((k1_planes, k1_codes, k1_cap),) = seen["segment_sum_planes"]
+    assert k1_cap == cs.W2_CAP == grouped_stage._pad_groups(len(cs.P_BRANDS) * len(cs.P_TYPES))
+    assert torch.equal(k1_codes, want["codes"]) and same(k1_planes, want["planes"])
+    ((k2_planes, _c, _cap, k2_op),) = seen["segment_extreme_planes"]
+    assert k2_op == "min" and same(k2_planes, want["first"])
+    ((k7_planes, _c, _cap),) = seen["segment_sum_float_planes"]
+    assert same(k7_planes, want["revenue"])
+    ((keys, valid, slots),) = seen["build_probe_table"]
+    assert torch.equal(keys, want["dim_keys"]) and bool(valid.all())
+    assert slots == pk.probe_table_slots(len(want["dim_keys"]))
+    ((p_keys, p_valid, _table),) = seen["hash_probe_index"]
+    assert torch.equal(p_keys, want["keys"]) and torch.equal(p_valid, want["valid"])

@@ -16,7 +16,9 @@
 - under ``pipeline_mode="force"`` (stage threads, the IO-parallel scan
   window, the build-once host join) a file-fed join query imports none of
   them either, a failing kernel wrapper still raises from ``collect()``,
-  and a device query without a card still raises.
+  and a device query without a card still raises;
+- a window query under a host memory budget, spilling its Grace
+  partitions and sorted runs, imports none of them either.
 """
 
 import datetime
@@ -525,3 +527,49 @@ def test_pipelined_default_device_without_card_raises(monkeypatch):
             _small_query(_small_df()).to_pydict()
         with daft_tpu_torch.execution_config_ctx(device="cpu"):
             assert _small_query(_small_df()).to_pydict()["k"] == [0, 1, 2, 3, 4]
+
+
+_SPILLING_WINDOW_QUERY = """
+import os, sys, tempfile
+import numpy as np
+sys.path.insert(0, {repo!r})
+import daft_tpu_torch as dt
+from daft_tpu_torch import Window, col
+from daft_tpu_torch.functions import row_number
+from daft_tpu_torch.memory import manager
+from daft_tpu_torch.ops import counters
+rng = np.random.default_rng(5)
+n = 40_000
+df = dt.from_pydict({{"k": rng.integers(0, 300, n), "v": rng.integers(0, 1000, n),
+                      "x": rng.standard_normal(n)}})
+spill_dir = tempfile.mkdtemp()
+w = Window().partition_by("k").order_by("v", "x")
+def q():
+    return (df.select(col("k"), col("v"), row_number().over(w).alias("rn"),
+                      col("v").sum().over(w).alias("rs"))
+            .sort(["k", "rn"]).to_pydict())
+with dt.execution_config_ctx(device="cpu", pipeline_mode="force"):
+    want = q()
+    with dt.execution_config_ctx(memory_limit_bytes=100_000, spill_dir=spill_dir):
+        got = q()
+assert got == want
+assert counters.spill_files >= 16 and counters.spill_bytes > 0, counters.snapshot()
+assert manager().tracked_bytes() == 0
+assert os.listdir(spill_dir) == [], os.listdir(spill_dir)
+os.rmdir(spill_dir)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             or m == "daft_tpu")
+print("FORBIDDEN", bad)
+"""
+
+
+def test_budgeted_spilling_window_imports_no_jax_pyarrow_or_reference():
+    """A window query under a host memory budget that Grace-partitions it
+    into spill files (the window, then the external sort), in a fresh
+    interpreter: the same rows as unbudgeted, the ledger back at 0, the
+    spill directory empty, and no JAX, pyarrow or daft_tpu imported."""
+    proc = subprocess.run([sys.executable, "-c", _SPILLING_WINDOW_QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout

@@ -138,10 +138,10 @@ def test_optimizer_batches_and_passes_match_reference():
         own = [r.__name__ for r in batch.rules if r.__name__ in ported]
         port = next(b for b in popt.default_rule_batches(None) if b.name == batch.name)
         assert [r.__name__ for r in port.rules] == own, batch.name
-    # the rule left out reads a window (the scan rules came with IO, the UDF
-    # split with the UDF tier)
+    # every rule is ported (the scan rules came with IO, the UDF split with
+    # the UDF tier, rule_extract_windows with windows)
     assert {r.__name__ for b in ropt.default_rule_batches(None) for r in b.rules} - ported \
-        == {"rule_extract_windows"}
+        == set()
 
 
 @pytest.mark.parametrize("case", ["prune", "prune_join", "prune_semi", "keep_filter"])
