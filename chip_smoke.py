@@ -203,7 +203,23 @@ error (no phase catches its own failure):
             once; the host's cores and the compute pool's width; q5's host
             joins timed before (the per-batch join) and after the
             build-once probe; file-fed q1 under "on" in torch.profiler;
-18. ooc:    bench.py:1129-1276's out-of-core capture on the port: TPC-H q1,
+18. obs:    the observability tier (daft_tpu_torch/observability/) over
+            cells already loaded: EXPLAIN ANALYZE of q1, q12 and q3 in
+            memory and q6 over the scan phase's Parquet lineitem under
+            pipeline_mode "on", each warm: the result equal to an
+            unobserved run's (floats within rtol 1e-5), the engine counters
+            (device batches, launches, fallbacks, the coalescer's and the
+            scan's counts) equal count for count, the root operator's rows
+            out equal to the result's, the file-fed cell's starve and
+            blocked columns there and its stages stalled; each operator
+            table printed; q12's explain_analyze(profile=...) trace holding
+            device.h2d, device.dispatch and device.d2h spans inside the
+            run's wall clock; a subscriber on q1 seeing start, optimized,
+            operator stats and end in order, QueryEnd.metrics holding the
+            device counters; warm medians of q1, q6 and q12 in turns, no
+            observer with the flight recorder off, the default (recorder
+            on), one subscriber, explain_analyze, on one line;
+19. ooc:    bench.py:1129-1276's out-of-core capture on the port: TPC-H q1,
             q3, q4, q5, q6, q10, q12, q14 and q19 (benchmarking/tpch/
             queries.py, its import rewritten to the port) over the scan
             phase's Parquet lineitem and the in-memory dims, each (a)
@@ -223,7 +239,7 @@ error (no phase catches its own failure):
             and an inner join of lineitem with orders, each equal to its
             unbudgeted run. Spill goes to a temporary directory that the
             phase deletes;
-19. window: W1, six window functions over SF1 lineitem by supplier in
+20. window: W1, six window functions over SF1 lineitem by supplier in
             ship-date order, unbudgeted and under B1 (the Grace window),
             equal as rows keyed by (l_orderkey, l_linenumber) and to a numpy
             oracle; W2, TPC-DS q98's shape on TPC-H tables (30 days of
@@ -232,7 +248,7 @@ error (no phase catches its own failure):
             SQL through run_cell (the aggregate on the card as the device
             join stage), equal to each other, the "off" run and a numpy
             oracle, each with a profile;
-20. ai:     the UDF tier (daft_tpu_torch/ops/udf_stage.py) and the torch
+21. ai:     the UDF tier (daft_tpu_torch/ops/udf_stage.py) and the torch
             provider's encoder at sentence-transformers/all-MiniLM-L6-v2's
             widths (vocab 30,522, hidden 384, 6 layers, 12 heads, FFN
             1,536, max_len 128), seeded weights (about 90 MB) put in the
@@ -257,7 +273,7 @@ error (no phase catches its own failure):
             DeviceUdfRun finalized, so the UDF plane never comes back; one
             aggregate finalize), equal to a numpy oracle (rtol 1e-5),
             uploading nothing warm;
-21. print the {"kernels": [...]} line (each kernel's launches by path:
+22. print the {"kernels": [...]} line (each kernel's launches by path:
    every cell's counted run, and the sql phase's SQL first runs, summed,
    under "sql"), the card line, and last the {"ok": true, "device":
    {...}} line.
@@ -270,10 +286,10 @@ Every relational cell runs at SF1: nothing is cut; the ai cells run the
 model at its published widths with its depth uncut. It imports torch,
 numpy and the port; nothing of JAX, pyarrow or daft_tpu.
 
-    python3 chip_smoke.py --phase ooc|window
+    python3 chip_smoke.py --phase ooc|window|obs
 
-runs phases 1-3, then that phase alone (ooc writes lineitem's Parquet files
-itself).
+runs phases 1-3, then that phase alone (ooc and obs write lineitem's
+Parquet files themselves).
 
     python3 chip_smoke.py --kernels-only [--root DIR]
 
@@ -2603,6 +2619,15 @@ def q6_query(df):
             .agg((col("l_extendedprice") * col("l_discount")).sum().alias("revenue")))
 
 
+def q6_frame(lineitem):
+    """The port's DataFrame of q6's columns, dates as days."""
+    import daft_tpu_torch as dt
+
+    return dt.from_pydict({**{c: lineitem[c] for c in ("l_quantity", "l_extendedprice",
+                                                        "l_discount")},
+                           "l_shipdate": lineitem["l_shipdate"].astype("datetime64[D]")})
+
+
 def phase_q6(lineitem, card: str, sql_tables: dict):
     """TPC-H q6 at SF1 through the ungrouped device stage (DeviceFilterAgg).
     Returns (the query as a callable, the run's launches)."""
@@ -2613,9 +2638,7 @@ def phase_q6(lineitem, card: str, sql_tables: dict):
 
     phase("q6")
     clear_residency()
-    df = dt.from_pydict({**{c: lineitem[c] for c in ("l_quantity", "l_extendedprice",
-                                                      "l_discount")},
-                         "l_shipdate": lineitem["l_shipdate"].astype("datetime64[D]")})
+    df = q6_frame(lineitem)
 
     def query():
         return q6_query(df)
@@ -5400,10 +5423,299 @@ def phase_window(lineitem, dims, frames: dict, card: str) -> dict:
     return paths
 
 
+# ---- obs: the observability tier on the card ------------------------------------
+OBS_ROUNDS = 7  # interleaved rounds of the overhead comparison
+OBS_SETTINGS = ("bare", "default", "subscriber", "explain_analyze")
+# the counters an observed run must move exactly as an unobserved one does
+OBS_COUNTED = ("dispatch_coalesced", "coalesce_morsels_in", "bucket_fill_rows",
+               "bucket_capacity_rows", "scan_tasks", "scan_batches", "scan_rows")
+# the counters that show a kernel ran: launches on the card (a CPU run of the
+# phase's checks counts the wrappers' plain calls)
+OBS_KERNEL_PREFIX = "launches_"
+
+
+def obs_counts(snap: dict) -> dict:
+    """The engine counters an observation must not change: every device
+    stage's batches, runs and fallbacks, every kernel's launches and plain
+    calls, the coalescer's and the scan's counts."""
+    return {k: v for k, v in snap.items()
+            if k.startswith(("device_", "launches_", "plain_")) or k in OBS_COUNTED}
+
+
+def obs_report_rows(report: str, name: str) -> int:
+    """The "rows out" column of operator ``name``'s row in an EXPLAIN
+    ANALYZE report (observability/runtime_stats.py ``format_stats``: the
+    name, rows out, batches, then four times)."""
+    for line in report.split("== Runtime Stats ==\n", 1)[1].splitlines()[1:]:
+        if line.startswith(name + " ") and len(line.split()) >= 6:
+            return int(line.split()[-6])
+    raise SmokeFailure(f"no row for operator {name!r} in the report")
+
+
+def obs_cell(label: str, query, floats, card: str, counter: str, stalls: bool = False,
+             **cfg) -> dict:
+    """EXPLAIN ANALYZE of one cell, warm, on the card (``cfg`` adds to the
+    cells' config): the unobserved run, the same query under a stats
+    collector (as explain_analyze runs it, the result kept) and
+    explain_analyze itself, each with the counters zeroed before and read
+    after. Checks: the observed result equals the unobserved one (keys,
+    counts and integers exactly, ``floats`` within rtol 1e-5); both
+    observed runs' engine counters equal the unobserved run's, count for
+    count (``obs_counts``), ``counter`` above 0, a kernel launched where
+    the cell's stage has kernels (not q6's ungrouped stage), no fallback;
+    the root operator's rows out,
+    in the stats and in the printed table, equal the result's rows; with
+    ``stalls``, the table has its starve and blocked columns and the stages
+    stalled (the file-fed cell under pipeline_mode "on"). Prints the
+    report. Returns the observed run's launches."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.observability.runtime_stats import (StatsCollector,
+                                                            current_collector, set_collector)
+    from daft_tpu_torch.ops import counters
+
+    with dt_ctx(), dt.execution_config_ctx(**cfg):
+        query().to_pydict()  # warm: planes resident, kernels loaded
+        counters.reset()
+        want = query().to_pydict()
+        _synchronize()
+        plain = counters.snapshot()
+        collector = StatsCollector()
+        prev = current_collector()
+        counters.reset()
+        set_collector(collector)
+        try:
+            got = query().to_pydict()
+            _synchronize()
+        finally:
+            set_collector(prev)
+        seen = counters.snapshot()
+        stats = collector.finish()
+        counters.reset()
+        report = query().explain_analyze()
+        _synchronize()
+        explained = counters.snapshot()
+    check(same_result(got, want, floats),
+          f"obs {label}: the observed run's result differs from the unobserved run's")
+    base = obs_counts(plain)
+    for what, snap in (("observed", seen), ("explain_analyze", explained)):
+        moved = obs_counts(snap)
+        check(moved == base, f"obs {label}: the {what} run's engine counters differ from the "
+                             f"unobserved run's: " + json.dumps(
+                                 {k: (base[k], moved[k]) for k in base if base[k] != moved[k]}))
+    check(plain["device_fallbacks"] == 0, f"obs {label}: a device stage fell back")
+    check(plain[counter] >= 1, f"obs {label}: no {counter}")
+    check(counter == "device_stage_batches"
+          or any(v for k, v in base.items() if k.startswith(OBS_KERNEL_PREFIX)),
+          f"obs {label}: no kernel launched")
+    rows = len(next(iter(got.values())))
+    root = min(stats, key=lambda s: s.node_id)
+    check(root.rows_out == rows, f"obs {label}: the root operator {root.name!r} put out "
+                                 f"{root.rows_out} rows, the result has {rows}")
+    check(obs_report_rows(report, root.name) == rows,
+          f"obs {label}: the report's root row does not say {rows} rows out")
+    if stalls:
+        header = report.split("== Runtime Stats ==\n", 1)[1].splitlines()[0]
+        check("starve" in header and "blocked" in header,
+              f"obs {label}: no starve / blocked columns in the report")
+        stalled = sum(s.starve_seconds + s.blocked_seconds for s in stats)
+        check(stalled > 0, f"obs {label}: no operator stalled on a stage channel")
+        print(f"obs {label}: stalls {stalled * 1e3:.3f} ms over {len(stats)} operators")
+    print(f"obs {label}: EXPLAIN ANALYZE [{card}]\n{report}", flush=True)
+    return {k: seen[f"launches_{k}"] for k in counters.KERNEL_NAMES}
+
+
+def obs_profile(label: str, query, card: str) -> None:
+    """``explain_analyze(profile=...)`` of one warm cell: the trace file is
+    written and loads as JSON, it holds device.h2d, device.dispatch and
+    device.d2h spans, and every span of the engine's lane lies inside the
+    run's wall clock (the trace's times count from the run's start).
+    Prints each span name's count and summed ms (host clock: a dispatch
+    span covers the enqueue, and the device time still to run when the
+    host asks for the result lands in the d2h span that waits for it)."""
+    root = tempfile.mkdtemp(prefix="daft_tpu_torch_obs_")
+    try:
+        path = os.path.join(root, "trace.json")
+        with dt_ctx():
+            query().to_pydict()
+            t0 = time.time()
+            query().explain_analyze(profile=path)
+            _synchronize()
+            wall_us = (time.time() - t0) * 1e6
+        with open(path) as f:
+            data = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    spans = [e for e in data["traceEvents"] if e.get("ph") == "X" and e.get("tid") == 4]
+    names = sorted({e["name"] for e in spans})
+    for want in ("device.h2d", "device.dispatch", "device.d2h"):
+        check(want in names, f"obs {label} trace: no {want} span (spans: {names})")
+    outside = [e for e in spans if e["ts"] < 0 or e["ts"] + e["dur"] > wall_us + 1.0]
+    check(not outside, f"obs {label} trace: {len(outside)} spans outside the run's "
+                       f"{wall_us:.1f} us, e.g. {outside[:2]}")
+    summary = {n: [sum(1 for e in spans if e["name"] == n),
+                   round(sum(e["dur"] for e in spans if e["name"] == n) / 1e3, 4)]
+               for n in names}
+    print(f"obs {label} trace: {len(data['traceEvents'])} events, run {wall_us / 1e3:.3f} ms; "
+          f"spans [count, ms]: {json.dumps(summary)} [{card}]", flush=True)
+
+
+def obs_subscriber(label: str, query, card: str) -> None:
+    """A recording subscriber on one cell on the card: start, optimized,
+    one operator-stats event per operator, end, in that order, for one
+    query id; QueryEnd.metrics holds the device counters."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.observability import (Subscriber, attach_subscriber,
+                                              detach_subscriber)
+
+    events = []
+
+    class Recorder(Subscriber):
+        def on_query_start(self, e):
+            events.append(("start", e.query_id, e))
+
+        def on_query_optimized(self, e):
+            events.append(("optimized", e.query_id, e))
+
+        def on_operator_stats(self, qid, s):
+            events.append(("op", qid, s))
+
+        def on_query_end(self, e):
+            events.append(("end", e.query_id, e))
+
+    sub = Recorder()
+    attach_subscriber(sub)
+    try:
+        with dt_ctx():
+            got = query().to_pydict()
+            _synchronize()
+    finally:
+        detach_subscriber(sub)
+    kinds = [k for k, _q, _e in events]
+    check(len(kinds) >= 4 and kinds[:2] == ["start", "optimized"] and kinds[-1] == "end"
+          and set(kinds[2:-1]) == {"op"}, f"obs {label} subscriber: events {kinds}")
+    check(len({q for _k, q, _e in events}) == 1, f"obs {label} subscriber: several query ids")
+    end = events[-1][2]
+    check(end.error is None and end.rows == len(next(iter(got.values()))),
+          f"obs {label} subscriber: QueryEnd {end.rows} rows, error {end.error}")
+    for name in ("device_grouped_batches", "device_stage_runs",
+                 OBS_KERNEL_PREFIX + "segment_sum_planes",
+                 OBS_KERNEL_PREFIX + "segment_sum_float_planes"):
+        check(end.metrics.get(name, 0) >= 1, f"obs {label} subscriber: QueryEnd.metrics has "
+                                             f"no {name}: {sorted(end.metrics)}")
+    print(f"obs {label} subscriber: {kinds}; QueryEnd.metrics "
+          f"{json.dumps({k: end.metrics[k] for k in sorted(end.metrics)})} [{card}]",
+          flush=True)
+
+
+def obs_overhead(cells: dict, card: str) -> dict:
+    """Warm runs of each cell in turns, OBS_ROUNDS rounds, under each
+    setting: "bare" (no observer, the flight recorder off:
+    DAFT_TPU_FLIGHT_RECORDER=0), "default" (the recorder on), "subscriber"
+    (one subscriber that does nothing attached), "explain_analyze". Each
+    run ends in a synchronize. Prints one line: each setting's median and
+    min-max per cell, ms. Returns {setting: {cell: median ms}}."""
+    from daft_tpu_torch.observability import (Subscriber, attach_subscriber,
+                                              detach_subscriber, flight)
+
+    knob = "DAFT_TPU_FLIGHT_RECORDER"
+    saved = os.environ.get(knob)
+    times = {s: {c: [] for c in cells} for s in OBS_SETTINGS}
+    quiet = Subscriber()
+    try:
+        with dt_ctx():
+            for query in cells.values():
+                query().to_pydict()
+            for _ in range(OBS_ROUNDS):
+                for setting in OBS_SETTINGS:
+                    if setting == "bare":
+                        os.environ[knob] = "0"
+                    else:
+                        os.environ.pop(knob, None)
+                    flight._reset_for_tests()
+                    check((flight.recorder() is None) == (setting == "bare"),
+                          f"obs overhead: the flight recorder is not as {setting} sets it")
+                    if setting == "subscriber":
+                        attach_subscriber(quiet)
+                    try:
+                        for cell, query in cells.items():
+                            t0 = time.perf_counter()
+                            if setting == "explain_analyze":
+                                query().explain_analyze()
+                            else:
+                                query().to_pydict()
+                            _synchronize()
+                            times[setting][cell].append((time.perf_counter() - t0) * 1e3)
+                    finally:
+                        detach_subscriber(quiet)
+    finally:
+        if saved is None:
+            os.environ.pop(knob, None)
+        else:
+            os.environ[knob] = saved
+        flight._reset_for_tests()
+    out = {s: {c: statistics.median(v) for c, v in per.items()} for s, per in times.items()}
+    line = "; ".join(
+        f"{s}: " + ", ".join(f"{c} {statistics.median(v):.3f} [{min(v):.3f}-{max(v):.3f}]"
+                             for c, v in per.items())
+        for s, per in times.items())
+    print(f"obs overhead (warm ms, median [min-max] of {OBS_ROUNDS}, in turns): {line} "
+          f"[{card}]", flush=True)
+    return out
+
+
+def phase_obs(tables: dict, lineitem_dir: str, card: str) -> dict:
+    """The observability tier on the card over cells already loaded:
+    ``tables`` holds q1's and q6's lineitem frames ("q1", "q6"), q12's
+    ("q12": lineitem and orders) and the join tails' ("tails", for q3);
+    ``lineitem_dir`` the scan phase's Parquet lineitem (the file-fed q6).
+    EXPLAIN ANALYZE on q1, q12, q3 and the file-fed q6 under
+    pipeline_mode "on" (``obs_cell``), q12's profile (``obs_profile``), a
+    subscriber on q1 (``obs_subscriber``), and the overhead of observing
+    q1, q6 and q12 (``obs_overhead``). Returns {"obs": the observed runs'
+    launches, summed}."""
+    import daft_tpu_torch as dt
+
+    phase("obs")
+    start = time.perf_counter()
+    clear_residency()
+
+    def q1():
+        return q1_query(tables["q1"])
+
+    def q6():
+        return q6_query(tables["q6"])
+
+    def q12():
+        return q12_query(tables["q12"]["lineitem"], tables["q12"]["orders"])
+
+    def q3():
+        return q3_query(tables["tails"])
+
+    def scan_q6():
+        return q6_query(dt.read_parquet(lineitem_dir))
+
+    launches: dict = {}
+    for label, query, floats, counter, cfg in (
+            ("q1", q1, Q1_FLOATS, "device_grouped_batches", {}),
+            ("q12", q12, (), "device_join_batches", {}),
+            ("q3", q3, ("revenue",), "device_topn_runs", {}),
+            ("scan q6", scan_q6, ("revenue",), "device_stage_batches",
+             {"pipeline_mode": "on"})):
+        got = obs_cell(label, query, floats, card, counter, stalls=label == "scan q6", **cfg)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    obs_profile("q12", q12, card)
+    obs_subscriber("q1", q1, card)
+    obs_overhead({"q1": q1, "q6": q6, "q12": q12}, card)
+    print(f"obs phase {time.perf_counter() - start:.1f} s [{card}]", flush=True)
+    return {"obs": launches}
+
+
 def phase_alone(name: str, lineitem, orders, dims, card: str) -> dict:
-    """``--phase ooc`` or ``--phase window`` after the kernels phase: the
-    scan phase's tables in memory (and, for ooc, lineitem written to
-    Parquet under a temporary directory, as the scan phase writes it)."""
+    """``--phase ooc``, ``window`` or ``obs`` after the kernels phase: the
+    scan phase's tables in memory (and, for ooc and obs, lineitem written to
+    Parquet under a temporary directory, as the scan phase writes it; obs
+    builds its cells' frames as their phases do)."""
     import daft_tpu_torch as dt
 
     frames = scan_tables(lineitem, orders, dims)
@@ -5416,6 +5728,12 @@ def phase_alone(name: str, lineitem, orders, dims, card: str) -> dict:
         with dt_ctx():
             frames["lineitem"].write_parquet(d)
         print(f"write parquet lineitem {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+        if name == "obs":
+            del frames
+            df_l, df_o = q12_frames(lineitem, orders)
+            return phase_obs({"q1": q1_frame(lineitem), "q6": q6_frame(lineitem),
+                              "q12": {"lineitem": df_l, "orders": df_o},
+                              "tails": tails_frames(lineitem, orders, dims)}, d, card)
         return phase_ooc(frames, d, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5436,10 +5754,12 @@ def main(argv=None) -> int:
                         help="run the card, build, data and kernels phases only: the "
                              "kernels against their plain versions, with their times "
                              "(no main path runs, so no launches are counted)")
-    parser.add_argument("--phase", choices=("ooc", "window"),
+    parser.add_argument("--phase", choices=("ooc", "window", "obs"),
                         help="run the card, build, data and kernels phases, then this phase "
                              "alone: ooc (TPC-H under a host memory budget, the external "
-                             "sort, the Grace joins) or window (W1, W2)")
+                             "sort, the Grace joins), window (W1, W2) or obs (EXPLAIN "
+                             "ANALYZE, a trace, a subscriber and the cost of observing, "
+                             "on q1, q6, q12, q3 and a file-fed q6)")
     parser.add_argument("--root", default=HERE,
                         help="the checkout whose daft_tpu_torch is driven (default: the "
                              "one beside this script), e.g. an unpacked parent commit to "
@@ -5505,6 +5825,8 @@ def main(argv=None) -> int:
             with dt_ctx():
                 cells["q5"] = q5()
             paths["sql"] = phase_sql(sql_tables, card)
+            obs_tables = {"q1": sql_tables["q1"]["lineitem"], "q6": sql_tables["q6"]["lineitem"],
+                          "q12": sql_tables["q12"], "tails": sql_tables["tails"]}
             del sql_tables
             topn, paths["topn_order"] = phase_topn_order(lineitem, orders, card)
             phase_profile(topn, card, "topn order profile")
@@ -5521,6 +5843,8 @@ def main(argv=None) -> int:
                 scan_paths, dirs = phase_scan(lineitem, orders, dims, cells, card, root)
                 paths.update(scan_paths)
                 paths.update(phase_pipeline(lineitem, orders, dirs, cells, card))
+                paths.update(phase_obs(obs_tables, dirs["lineitem"], card))
+                del obs_tables
                 frames = scan_tables(lineitem, orders, dims)
                 paths.update(phase_ooc(frames, dirs["lineitem"], card))
             finally:

@@ -316,7 +316,8 @@ class Series:
                   device=None):
         """(values, validity) as torch tensors on ``device``, padded to
         ``pad_to`` rows; padding rows are invalid. ``f32=True`` downcasts a
-        float64 column to float32 (the device stages' compute dtype)."""
+        float64 column to float32 (the device stages' compute dtype). The
+        bytes count in the registry's ``hbm_h2d_bytes``."""
         import torch
 
         values = self._values
@@ -331,6 +332,10 @@ class Series:
             pad = pad_to - len(self)
             values = np.concatenate([values, np.zeros(pad, dtype=values.dtype)])
             validity = np.concatenate([validity, np.zeros(pad, dtype=bool)])
+        from ..observability.metrics import registry
+
+        # upload attribution: a warm run over resident planes adds nothing
+        registry().inc("hbm_h2d_bytes", int(values.nbytes) + int(validity.nbytes))
         return (torch.from_numpy(np.ascontiguousarray(values)).to(device),
                 torch.from_numpy(np.ascontiguousarray(validity)).to(device))
 

@@ -6,12 +6,13 @@ cross), ``distinct``, ``repartition``,
 ``min``, ``max``, ``count``), ``sort``, ``limit``, ``offset``, ``exclude``,
 ``collect``, ``to_pydict``, ``write_parquet`` and ``write_csv``; the
 readers (``read_parquet``, ``read_csv``) make a DataFrame over a scan
-(``from_scan``).
+(``from_scan``). ``explain``, ``explain_analyze`` and ``metrics`` report
+the plans and a run's per-operator stats (observability/).
 
-Every method appends a logical node; ``collect`` optimizes the plan
-(plan/optimizer.py, as the reference's ``collect`` does), translates it
-under the current execution config and runs it, caching the result
-partitions.
+Every method appends a logical node; ``collect`` hands the plan to the
+runner (runners/native.py), which optimizes it (plan/optimizer.py, as the
+reference's ``collect`` does), translates it under the current execution
+config and runs it; the result partitions are cached.
 With ``device_mode="on"`` the configured device is resolved first, so a
 query asked to run on a missing card raises instead of running on the CPU.
 """
@@ -61,6 +62,116 @@ class DataFrame:
 
     def __repr__(self) -> str:
         return f"DataFrame(schema={self.schema})"
+
+    # ---- observability -----------------------------------------------------------
+    def metrics(self):
+        """Per-operator execution metrics of the plan as a RecordBatch
+        (operator, rows_out, batches, self_time_s): runs the plan under a
+        stats collector."""
+        from ..core.recordbatch import RecordBatch
+        from ..observability.runtime_stats import (StatsCollector, current_collector,
+                                                   set_collector)
+        from ..runners import get_or_create_runner
+
+        collector = StatsCollector()
+        prev = current_collector()
+        set_collector(collector)
+        try:
+            for _ in get_or_create_runner().run_iter(self._plan):
+                pass
+        finally:
+            set_collector(prev)
+        rows: Dict[str, list] = {"operator": [], "rows_out": [], "batches": [],
+                                 "self_time_s": []}
+        for s in collector.finish():
+            rows["operator"].append(s.name)
+            rows["rows_out"].append(s.rows_out)
+            rows["batches"].append(s.batches_out)
+            rows["self_time_s"].append(s.seconds)
+        return RecordBatch.from_pydict(rows)
+
+    def explain(self, show_all: bool = False) -> str:
+        """The unoptimized logical plan; with ``show_all``, the optimized
+        plan and the physical plan (under the current execution config)
+        too."""
+        s = "== Unoptimized Logical Plan ==\n" + self._plan.display()
+        if show_all:
+            from ..plan.physical import translate
+
+            opt = self.optimized_plan()
+            s += "\n\n== Optimized Logical Plan ==\n" + opt.display()
+            s += "\n\n== Physical Plan ==\n" + translate(opt).display()
+        return s
+
+    def explain_analyze(self, profile: Optional[str] = None) -> str:
+        """Run the plan through the runner collecting per-operator runtime
+        stats; returns the physical plan, the operator table (rows out,
+        batches, self time split into compute / starve / blocked) and the
+        query's metrics-registry deltas (device batches, kernel launches,
+        spill bytes).
+
+        ``profile="trace.json"`` also writes the query's timeline as Chrome
+        trace-event JSON (distributed/trace.py ``QueryTrace.to_chrome_trace``:
+        the operators' lanes and the engine's spans, ``device.h2d`` /
+        ``device.dispatch`` / ``device.d2h`` among them) — open it in
+        Perfetto (ui.perfetto.dev) or chrome://tracing."""
+        import json
+        import time
+
+        from ..observability.metrics import registry
+        from ..observability.runtime_stats import (SpanRecorder, StatsCollector,
+                                                   current_collector, current_spans,
+                                                   format_stats, set_collector, set_spans)
+        from ..plan.physical import translate
+        from ..runners import get_or_create_runner
+
+        phys = translate(self.optimized_plan())
+        collector = StatsCollector()
+        prev = current_collector()
+        runner = get_or_create_runner()
+        reg_before = registry().snapshot()
+        set_collector(collector)
+        span_rec = prev_spans = None
+        if profile:
+            # capture the engine's wall-clock device / scan / spill spans
+            span_rec = SpanRecorder()
+            prev_spans = current_spans()
+            set_spans(span_rec)
+        t_wall0 = time.time()
+        t0 = time.perf_counter()
+        try:
+            for _ in runner.run_iter(self._plan):
+                pass
+        finally:
+            set_collector(prev)
+            if profile:
+                set_spans(prev_spans)
+        total = time.perf_counter() - t0
+        stats = collector.finish()
+        report = ("== Physical Plan ==\n" + phys.display()
+                  + "\n\n== Runtime Stats ==\n" + format_stats(stats, total))
+        deltas = registry().diff(reg_before)
+        if deltas:
+            report += "\n\n== Engine Counters ==\n" + "\n".join(
+                f"{k:<32} {v:>12g}" for k, v in sorted(deltas.items()))
+        if profile:
+            from ..distributed.trace import QueryTrace
+
+            # no workers in the port: an empty trace carries the coordinator lanes
+            trace = QueryTrace("")
+            trace.started_wall = t_wall0
+            data = trace.to_chrome_trace(coordinator_ops=stats, coordinator_spans=span_rec.drain(),
+                                         total_seconds=total)
+            with open(profile, "w") as f:
+                json.dump(data, f)
+        return report
+
+    def explain_placement(self) -> str:
+        """The cost model's placement decisions: not ported yet (ROADMAP
+        Queue 1 item 1, the cost model), as SQL's EXPLAIN PLACEMENT."""
+        raise NotImplementedError(
+            "explain_placement reports the cost model's placement decisions; the "
+            "port has no cost model yet")
 
     def where(self, predicate: ColumnInput) -> "DataFrame":
         return DataFrame(lp.Filter(self._plan, _to_expr(predicate)))
@@ -180,14 +291,9 @@ class DataFrame:
 
     def _materialize(self) -> List[MicroPartition]:
         if self._result is None:
-            from ..config import execution_config
-            from ..execution.executor import execute_plan
-            from ..plan.physical import translate
-            from ..utils.torch_setup import resolve_device
+            from ..runners import get_or_create_runner
 
-            if execution_config().device_mode == "on":
-                resolve_device(execution_config().device)
-            self._result = list(execute_plan(translate(self.optimized_plan())))
+            self._result = get_or_create_runner().run(self._plan)
         return self._result
 
     def optimized_plan(self) -> lp.LogicalPlan:

@@ -28,6 +28,11 @@ as an orphan, up to ``ORPHAN_CAP`` of them, oldest dropped first (the
 reference keeps none outside its worker pool: ``DAFT_TPU_HBM_ORPHANS=0``).
 Unlike the reference's, an entry still pinned by the running query is kept
 too: a streamed morsel's Series dies before its query ends.
+
+Registry (observability/metrics.py): the counters ``hbm_cache_hits``,
+``hbm_cache_misses``, ``hbm_stable_rehits``, ``hbm_pins``, ``hbm_evictions``
+and ``hbm_eviction_bytes``; the gauges ``hbm_bytes_resident`` and
+``hbm_bytes_high_water`` (reset to what stays resident by ``clear()``).
 """
 
 from __future__ import annotations
@@ -142,6 +147,7 @@ class ResidencyManager:
         self._stable: Dict[int, tuple] = {}  # stable key -> full key
         self._orphans: "OrderedDict[tuple, None]" = OrderedDict()
         self._bytes = 0
+        self._high_water = 0
         self._auto_budget = None
         self._dead: list = []
         self._tl = threading.local()
@@ -195,6 +201,7 @@ class ResidencyManager:
             self._watch_anchor(anchor, full_key, e)
             self._pin(full_key, e)
             self._evict_over_budget()
+            self._note_bytes()
         return value
 
     def _stable_rebind(self, stable: int, full_key: tuple, anchor, literals):
@@ -260,10 +267,23 @@ class ResidencyManager:
                 self._evict_over_budget()
 
     def _pin(self, full_key: tuple, e: _Entry) -> None:
+        from ..observability.metrics import registry
+
         scopes = getattr(self._tl, "scopes", None)
         if scopes and full_key not in scopes[-1]:
             scopes[-1].add(full_key)
             e.pins += 1
+            registry().inc("hbm_pins")
+
+    def _note_bytes(self) -> None:
+        """The ``hbm_bytes_resident`` / ``hbm_bytes_high_water`` gauges (the
+        lock held)."""
+        from ..observability.metrics import registry
+
+        if self._bytes > self._high_water:
+            self._high_water = self._bytes
+        registry().set_gauge("hbm_bytes_resident", float(self._bytes))
+        registry().set_gauge("hbm_bytes_high_water", float(self._high_water))
 
     def budget_bytes(self) -> int:
         """Effective budget in bytes (0 = unbounded): the configured
@@ -288,18 +308,27 @@ class ResidencyManager:
         budget = self.budget_bytes()
         if budget <= 0:
             return
+        from ..observability.metrics import registry
+
+        evicted = False
         while self._bytes > budget:
             victim = next(((k, e) for k, e in self._entries.items() if e.pins == 0), None)
             if victim is None:
-                return  # everything pinned: overshoot until the scope ends
+                break  # everything pinned: overshoot until the scope ends
             self._entries.pop(victim[0])
             self._drop_accounting(*victim)
+            registry().inc("hbm_evictions")
+            registry().inc("hbm_eviction_bytes", victim[1].nbytes)
+            evicted = True
+        if evicted:
+            self._note_bytes()
 
     def _sweep_dead(self) -> None:
         """Drop the entries whose anchor died; a content-keyed one stays as
         an orphan (rebindable by equal content), up to ``ORPHAN_CAP``,
         oldest dropped first."""
         cap = ORPHAN_CAP
+        before = self._bytes
         while self._dead:
             k = self._dead.pop()
             e = self._entries.get(k)
@@ -319,6 +348,8 @@ class ResidencyManager:
                 self._drop_accounting(k, e)
             else:
                 self._orphans.pop(k, None)
+        if self._bytes != before:
+            self._note_bytes()
 
     def bytes_resident(self) -> int:
         with self._lock:
@@ -337,6 +368,8 @@ class ResidencyManager:
                 if e.pins == 0:
                     self._entries.pop(k)
                     self._drop_accounting(k, e)
+            self._high_water = self._bytes
+            self._note_bytes()
 
     def pinned_count(self) -> int:
         """Entries a running query's pin scope holds (0 between queries)."""

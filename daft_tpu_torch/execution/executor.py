@@ -83,12 +83,21 @@ _STAGE_NODES = (pp.StreamingScan, pp.Project, pp.PhysFilter, pp.PhysSort,
 def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
     """One node's stream: on a stage thread behind a bounded channel when it
     is a stage node and the pipeline is on (execution/pipeline.py
-    ``spawn_stage``), else the node's generator itself."""
+    ``spawn_stage``), else the node's generator itself. While a stats
+    collector is active (a subscriber, explain_analyze) the stream is
+    wrapped to count its rows and time (observability/runtime_stats.py),
+    and the stage's channel attributes its stalls to the node; with none,
+    the generator runs as it is."""
+    from ..observability.runtime_stats import current_collector
+
+    c = current_collector()
     gen = _exec_impl(node)
+    if c is not None:
+        gen = c.wrap(node, gen)
     if isinstance(node, _STAGE_NODES) and _pipeline_on():
         from .pipeline import spawn_stage
 
-        gen = spawn_stage(gen)
+        gen = spawn_stage(gen, node=node)
     return gen
 
 
@@ -209,9 +218,10 @@ def _exec_impl(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
     if isinstance(node, pp.HashAggregate):
         if node.groupby:
             out = _two_phase_agg(_exec(node.input), node.groupby, node.aggregations,
-                                 node.input.schema)
+                                 node.input.schema, node)
         else:
-            out = _ungrouped_agg(_exec(node.input), node.aggregations, node.input.schema)
+            out = _ungrouped_agg(_exec(node.input), node.aggregations, node.input.schema,
+                                 node)
         yield MicroPartition(node.schema, [out.cast_to_schema(node.schema)])
         return
 
@@ -276,12 +286,21 @@ def _streaming_scan(node: pp.StreamingScan) -> Iterator[MicroPartition]:
     and before each task the window starts, it waits for headroom
     (``wait_for_headroom``: bounded, counted in ``scan_backpressure_stalls``
     and ``scan_stall_ms``), and it counts the ``size_bytes`` it yielded in
-    ``scan_bytes``. Unbudgeted, none of this runs."""
+    ``scan_bytes``. Unbudgeted, none of this runs.
+
+    While a span recorder is active each task's read is one "scan.stream"
+    span, and a stats collector notes the task count beside the node."""
+    from ..observability.runtime_stats import current_collector, span_iter
     from ..ops import counters
     from .memory import manager
 
+    c = current_collector()
+    if c is not None:
+        c.annotate(node, f"streaming: {len(node.tasks)} tasks")
+
     def task_parts(task):
-        for part in task.read():
+        for part in span_iter("scan.stream", "scan", task.read(),
+                              source=task.source_label):
             if node.post_filter is not None and not task.filters_applied:
                 part = _timed_filter(part, node.post_filter)
             yield part
@@ -333,6 +352,7 @@ def _scan_window(tasks, task_parts, mgr=None) -> Iterator[MicroPartition]:
     from collections import deque
     from concurrent.futures import wait
 
+    from ..observability.metrics import registry
     from ..ops import counters
     from ..utils.pool import compute_pool
 
@@ -365,7 +385,7 @@ def _scan_window(tasks, task_parts, mgr=None) -> Iterator[MicroPartition]:
             yield from futures.popleft().result()
     finally:
         wait([f for f in futures if not f.cancel()])
-        counters.bump_max("scan_window_peak", reading[1])
+        registry().set_gauge_max("scan_window_peak", reading[1])
 
 
 def _timed_filter(part: MicroPartition, predicate: Expression) -> MicroPartition:
@@ -469,13 +489,21 @@ def _narrowed(stream, keep: Optional[List[str]]):
 def _note_region(node, region_ops, dispatches: int) -> None:
     """Count one finished fused-region run: each of its device dispatches
     covered len(region_ops) operators. Only regions of at least 2 ops
-    count, so the ratio measures fusion, not bare aggregates."""
+    count, so the ratio measures fusion, not bare aggregates; EXPLAIN
+    ANALYZE shows the region beside the node."""
     if dispatches <= 0 or len(region_ops) < 2:
         return
+    from ..observability.runtime_stats import current_collector
     from ..ops import counters
+    from ..ops.region import region_label
 
     counters.bump("device_region_dispatches", dispatches)
     counters.bump("device_region_ops_fused", dispatches * len(region_ops))
+    c = current_collector()
+    if c is not None:
+        d = "1 dispatch" if dispatches == 1 else f"{dispatches} dispatches"
+        c.annotate(node, f"fused region: {len(region_ops)} ops "
+                         f"({region_label(region_ops)}), {d}")
 
 
 def _exec_device_agg(node: pp.DeviceGroupedAgg) -> MicroPartition:
@@ -498,7 +526,7 @@ def _exec_device_agg(node: pp.DeviceGroupedAgg) -> MicroPartition:
     def _host_agg(s):
         if node.predicate is not None:
             s = (_filter_part(p, node.predicate) for p in s)
-        out = _two_phase_agg(s, node.groupby, node.aggregations, node.input.schema)
+        out = _two_phase_agg(s, node.groupby, node.aggregations, node.input.schema, node)
         return MicroPartition(node.schema, [out.cast_to_schema(node.schema)])
 
     if cfg.device_mode == "off":
@@ -531,6 +559,7 @@ def _exec_device_agg(node: pp.DeviceGroupedAgg) -> MicroPartition:
         # compositionally, so the result is the fused program's)
         counters.bump("device_fallbacks")
         counters.reject("grouped agg", f"device fallback: {type(exc).__name__}")
+        _note_fallback(exc)
         return _host_agg(itertools.chain(buffered, _narrowed(stream, keep)))
     _note_region(node, node_region_ops(node), counters.device_grouped_batches - d0)
     return _grouped_output(node.schema, node.groupby, node.aggregations,
@@ -579,7 +608,7 @@ def _host_filter_agg(node: pp.DeviceFilterAgg, stream) -> MicroPartition:
     stream = _narrowed(stream, _region_keep_columns(node))
     if node.predicate is not None:
         stream = (_filter_part(p, node.predicate) for p in stream)
-    out = _ungrouped_agg(stream, node.aggregations, node.input.schema)
+    out = _ungrouped_agg(stream, node.aggregations, node.input.schema, node)
     return MicroPartition(node.schema, [out.cast_to_schema(node.schema)])
 
 
@@ -615,7 +644,8 @@ def _run_device_udf_stage(node: pp.DeviceUdfProject, stream, cfg) -> MicroPartit
     columns and the decoded UDF column. A failure raises: nothing reruns on
     the host."""
     from ..device.residency import manager as _residency
-    from ..ops.udf_stage import DeviceUdfStage, finish_series
+    from ..observability.runtime_stats import current_collector
+    from ..ops.udf_stage import DeviceUdfStage, finish_series, func_anchors
     from ..utils.torch_setup import resolve_device
 
     device = resolve_device(cfg.device)
@@ -633,6 +663,11 @@ def _run_device_udf_stage(node: pp.DeviceUdfProject, stream, cfg) -> MicroPartit
         run = stage.start_run(device)
         _feed_stream(keeping(), run.feed_batch, cfg)
         out, valid = run.finalize()
+    c = current_collector()
+    if c is not None:
+        anchors = func_anchors(call.func) or {}
+        mb = sum(a.nbytes for a in anchors.values()) / 1e6
+        c.annotate(node, f"device udf: {call.func.name}, weights {mb:.1f}MB resident")
     big = _concat_parts(parts, node.input.schema)
     udf_col = finish_series(call.func, out, valid, out_name)
     cols = [_full_length(eval_expression(big, e), big.num_rows) for e in node.passthrough]
@@ -649,6 +684,7 @@ def _try_fused_udf_agg(node: pp.DeviceFilterAgg, cfg) -> Optional[MicroPartition
     every check that fails returns None before any input runs. A failure
     raises: nothing reruns on the host."""
     from ..device.residency import manager as _residency
+    from ..observability.runtime_stats import current_collector
     from ..ops import counters
     from ..ops.region import node_region_ops, unwrap_udf_agg_input
     from ..ops.stage import try_build_filter_agg_stage
@@ -684,6 +720,9 @@ def _try_fused_udf_agg(node: pp.DeviceFilterAgg, cfg) -> Optional[MicroPartition
         final = agg_run.finalize()
     # the UDF fed the aggregate in the same dispatch: one more fused op
     _note_region(node, ("udf",) + node_region_ops(node), counters.device_stage_batches - d0)
+    c = current_collector()
+    if c is not None:
+        c.annotate(node, f"fused device udf: {call.func.name}")
     return _ungrouped_output(node.schema, agg_stage, final)
 
 
@@ -789,16 +828,19 @@ def _hash_join(node: pp.HashJoin) -> Iterator[MicroPartition]:
 
 
 def _grace_join(node: pp.HashJoin, budget, right_parts, right_it) -> Iterator[MicroPartition]:
+    from ..observability.runtime_stats import profile_span
     from .memory import SpillPartitions
 
     K = 16
     spr = SpillPartitions(node.right.schema, K)
     spl = SpillPartitions(node.left.schema, K)
     try:
-        for b in _drain_prefix(budget, right_parts, right_it):
-            spr.append_partitioned(b, node.right_on)
-        for b in _batch_iter(_exec(node.left)):
-            spl.append_partitioned(b, node.left_on)
+        with profile_span("spill.grace_join", "spill", partitions=K):
+            for b in _drain_prefix(budget, right_parts, right_it):
+                spr.append_partitioned(b, node.right_on)
+            for b in _batch_iter(_exec(node.left)):
+                spl.append_partitioned(b, node.left_on)
+        _annotate_spill(node, spr.bytes_written + spl.bytes_written, f"{K}x2 partitions")
         for fl, fr in zip(spl.files, spr.files):
             lbs = list(fl.read())
             if not lbs:  # inner, left, semi and anti give no row without a left row
@@ -963,7 +1005,18 @@ def _run_device_join(node, label: str, make_run, feed, assemble) -> MicroPartiti
     except DeviceFallback as exc:
         counters.bump("device_fallbacks")
         counters.reject(label, f"device fallback: {exc}")
+        _note_fallback(exc)
         return host()
+
+
+def _note_fallback(exc: BaseException) -> None:
+    """A DeviceFallback, noted by the flight recorder (an anomaly: its ring
+    is dumped, cooldown permitting) when the recorder is on."""
+    from ..observability import flight
+
+    frec = flight.recorder()
+    if frec is not None:
+        frec.note_fallback(f"{type(exc).__name__}: {exc}")
 
 
 def _repartition(node: pp.PhysRepartition) -> Iterator[MicroPartition]:
@@ -1028,6 +1081,7 @@ def _mesh_repartition(node: pp.PhysRepartition, n: int) -> List[MicroPartition]:
     equal the host path's, rows in order. There is no host rerun: a failure
     of the exchange (a kernel that fails to build or launch) raises."""
     from ..config import execution_config
+    from ..observability.runtime_stats import current_collector
     from ..ops import counters
 
     batches = [b for p in _exec(node.input) for b in p.batches if b.num_rows > 0]
@@ -1035,6 +1089,9 @@ def _mesh_repartition(node: pp.PhysRepartition, n: int) -> List[MicroPartition]:
     if rows < max(execution_config().device_min_rows, 1):
         counters.reject("repartition", "fewer rows than device_min_rows")
         return _host_repartition(node, [MicroPartition(node.schema, batches)], n)
+    c = current_collector()
+    if c is not None:
+        c.annotate(node, f"mesh: {n} shard slots")
     return _mesh_repartition_exchange(node, batches, rows, n)
 
 
@@ -1200,7 +1257,17 @@ def _drain_prefix(budget, batches: List[RecordBatch], it) -> Iterator[RecordBatc
     yield from it
 
 
-def _two_phase_agg(stream, groupby, aggs, in_schema) -> RecordBatch:
+def _annotate_spill(node, nbytes: int, what: str) -> None:
+    """EXPLAIN ANALYZE's note of one operator's spill ("memory: spilled
+    12.5 MB, 8 runs"), while a stats collector is active."""
+    from ..observability.runtime_stats import current_collector
+
+    c = current_collector()
+    if c is not None and node is not None:
+        c.annotate(node, f"memory: spilled {nbytes / 1e6:.1f} MB, {what}")
+
+
+def _two_phase_agg(stream, groupby, aggs, in_schema, node=None) -> RecordBatch:
     """Host grouped aggregation. Input up to ``morsel_size_rows`` rows
     aggregates in one phase; larger input aggregates each morsel into
     partials on the compute pool, then combines the partials (the
@@ -1222,7 +1289,8 @@ def _two_phase_agg(stream, groupby, aggs, in_schema) -> RecordBatch:
         batches, over = _admit_prefix(budget, it)
         if not over:
             return _grouped_in_memory(batches, groupby, aggs, in_schema)
-        return _grace_agg(_drain_prefix(budget, batches, it), groupby, aggs, in_schema)
+        return _grace_agg(_drain_prefix(budget, batches, it), groupby, aggs, in_schema,
+                          node)
     finally:
         budget.close()
 
@@ -1242,9 +1310,10 @@ def _grouped_in_memory(batches, groupby, aggs, in_schema) -> RecordBatch:
     return eval_projection(combined, keys + projection)
 
 
-def _grace_agg(rest, groupby, aggs, in_schema) -> RecordBatch:
+def _grace_agg(rest, groupby, aggs, in_schema, node=None) -> RecordBatch:
     from ..config import execution_config
     from ..core.kernels.groupby import grouped_agg
+    from ..observability.runtime_stats import profile_span
     from .memory import SpillPartitions
 
     K = 32
@@ -1253,8 +1322,10 @@ def _grace_agg(rest, groupby, aggs, in_schema) -> RecordBatch:
         # unsplittable: Grace over the raw rows
         sp = SpillPartitions(in_schema, K)
         try:
-            for b in rest:
-                sp.append_partitioned(b, groupby)
+            with profile_span("spill.grace_agg", "spill", partitions=K):
+                for b in rest:
+                    sp.append_partitioned(b, groupby)
+            _annotate_spill(node, sp.bytes_written, f"{K} partitions")
             outs = [grouped_agg(RecordBatch.concat(bs), groupby, aggs)
                     for bs in (list(f.read()) for f in sp.files) if bs]
         finally:
@@ -1265,9 +1336,11 @@ def _grace_agg(rest, groupby, aggs, in_schema) -> RecordBatch:
         morsel = execution_config().morsel_size_rows
         sp = SpillPartitions(partial_schema, K)
         try:
-            for b in rest:
-                for m in _morsels_of(b, morsel):
-                    sp.append_partitioned(grouped_agg(m, groupby, partial), keys)
+            with profile_span("spill.grace_agg", "spill", partitions=K):
+                for b in rest:
+                    for m in _morsels_of(b, morsel):
+                        sp.append_partitioned(grouped_agg(m, groupby, partial), keys)
+            _annotate_spill(node, sp.bytes_written, f"{K} partitions")
             outs = [eval_projection(grouped_agg(RecordBatch.concat(bs), keys, final),
                                     keys + projection)
                     for bs in (list(f.read()) for f in sp.files) if bs]
@@ -1278,7 +1351,7 @@ def _grace_agg(rest, groupby, aggs, in_schema) -> RecordBatch:
     return RecordBatch.concat(outs)
 
 
-def _ungrouped_agg(stream, aggs, in_schema) -> RecordBatch:
+def _ungrouped_agg(stream, aggs, in_schema, node=None) -> RecordBatch:
     """Host ungrouped aggregation into one row, in two phases as
     ``_two_phase_agg`` past a morsel of input. Over a host memory budget,
     the partials stream (one row a morsel) when the aggregations split;
@@ -1294,7 +1367,7 @@ def _ungrouped_agg(stream, aggs, in_schema) -> RecordBatch:
             return _ungrouped_in_memory(batches, aggs, in_schema)
         rest = _drain_prefix(budget, batches, it)
         if any(_agg_op(e) == "count_distinct" for e in aggs):
-            return _ungrouped_agg_spilled(rest, aggs, in_schema)
+            return _ungrouped_agg_spilled(rest, aggs, in_schema, node)
         from ..config import execution_config
         from ..core.kernels.groupby import ungrouped_agg
 
@@ -1321,19 +1394,22 @@ def _ungrouped_in_memory(batches, aggs, in_schema) -> RecordBatch:
     return eval_projection(ungrouped_agg(RecordBatch.concat(partials), final), projection)
 
 
-def _ungrouped_agg_spilled(stream, aggs, in_schema) -> RecordBatch:
+def _ungrouped_agg_spilled(stream, aggs, in_schema, node=None) -> RecordBatch:
     """Over budget with a count_distinct: the raw rows spill once; a
     count_distinct Grace-partitions its own value column (a distinct value
     lands in one partition, so the partitions' counts add up), and every
     other aggregation streams its partials from the spill (the reference's
     ``_ungrouped_agg_spilled``, executor.py:2360-2431)."""
     from ..core.kernels.groupby import make_groups, ungrouped_agg
+    from ..observability.runtime_stats import profile_span
     from .memory import SpillFile, SpillPartitions
 
     spill = SpillFile(in_schema)
     try:
-        for b in stream:
-            spill.append(b)
+        with profile_span("spill.raw", "spill"):
+            for b in stream:
+                spill.append(b)
+        _annotate_spill(node, spill.bytes_written, "1 raw run")
         cols: List[Series] = []
         for e in aggs:
             inner = e
@@ -1444,6 +1520,7 @@ def _sort_exec(node: pp.PhysSort) -> Iterator[MicroPartition]:
 
 def _external_sort(node: pp.PhysSort, budget, buffered, it) -> Iterator[MicroPartition]:
     from ..config import execution_config
+    from ..observability.runtime_stats import profile_span
     from .memory import SpillFile
     from ..ops import counters
 
@@ -1454,10 +1531,11 @@ def _external_sort(node: pp.PhysSort, budget, buffered, it) -> Iterator[MicroPar
         big = RecordBatch.concat(bufs) if len(bufs) > 1 else bufs[0]
         srt = big.sort(_sort_keys(big, node), node.descending, node.nulls_first)
         f = SpillFile(node.schema)
-        for s in range(0, srt.num_rows, step):
-            f.append(srt.slice(s, min(s + step, srt.num_rows)))
-        # publish behind the queued writes: the next run buffers meanwhile
-        f.finish_async()
+        with profile_span("spill.sort_run", "spill", rows=srt.num_rows):
+            for s in range(0, srt.num_rows, step):
+                f.append(srt.slice(s, min(s + step, srt.num_rows)))
+            # publish behind the queued writes: the next run buffers meanwhile
+            f.finish_async()
         counters.bump("spill_runs")
         runs.append(f)
         budget.release_all()  # the buffer is on disk now
@@ -1473,6 +1551,7 @@ def _external_sort(node: pp.PhysSort, budget, buffered, it) -> Iterator[MicroPar
         if buffered:
             flush_run(buffered)
             buffered = []
+        _annotate_spill(node, sum(f.bytes_written for f in runs), f"{len(runs)} runs")
         yield from _merge_sorted_runs(node, runs)
     finally:
         for f in runs:
@@ -1723,14 +1802,17 @@ def _window_exec(node) -> Iterator[MicroPartition]:
 
 
 def _grace_window(node, budget, buffered, it) -> Iterator[MicroPartition]:
+    from ..observability.runtime_stats import profile_span
     from .memory import SpillPartitions
     from .window import eval_window
 
     K = 16
     sp = SpillPartitions(node.input.schema, K)
     try:
-        for b in _drain_prefix(budget, buffered, it):
-            sp.append_partitioned(b, node.spec.partition_by_exprs)
+        with profile_span("spill.grace_window", "spill", partitions=K):
+            for b in _drain_prefix(budget, buffered, it):
+                sp.append_partitioned(b, node.spec.partition_by_exprs)
+        _annotate_spill(node, sp.bytes_written, f"{K} partitions")
 
         def eval_file(f, _i):
             bs = list(f.read())

@@ -1,6 +1,5 @@
 """Pipeline-parallel execution primitives (counterpart of
-daft_tpu/execution/pipeline.py, without its stats collector, placement scope
-and stall attribution).
+daft_tpu/execution/pipeline.py, without its placement scope).
 
 - ``Channel`` / ``spawn_stage``: one operator's generator runs on a stage
   thread of its own (kept between stages by ``_StagePool``) and puts its
@@ -10,9 +9,16 @@ and stall attribution).
   (a limit, an error downstream) the channel is cancelled and the
   generator is closed on its own thread, so its ``finally`` blocks (a
   device stage's residency pin scope among them) unwind on the thread that
-  entered them.
+  entered them. While a stats collector is active the stage thread takes it,
+  and the channel attributes stalls (``Channel(profile=...)``): the
+  producer's waits on a full queue are its node's ``blocked`` time, the
+  consumer's waits on an empty one the ``starve`` time of the node active on
+  its thread. A kept stage thread drops the collector, and every other slot
+  of observability/runtime_stats.py, when its stage ends, so the next query
+  on it runs unobserved unless it is observed itself.
 - ``pmap_stream``: an ordered map over a stream, a bounded window of calls
-  in flight on the compute pool (utils/pool.py), results in input order.
+  in flight on the compute pool (utils/pool.py), results in input order;
+  each call is a ``pipeline.morsel`` span while a span recorder is active.
 - ``morsels`` / ``morsel_stream``: one large MicroPartition cut into slices
   of its batches, views of the same numpy planes (``RecordBatch.slice``),
   so a single in-memory partition still feeds the whole pool.
@@ -45,15 +51,36 @@ _SENTINEL = object()
 
 class Channel:
     """Bounded single-producer, single-consumer channel that carries the
-    producer's error and the consumer's cancellation."""
+    producer's error and the consumer's cancellation.
 
-    def __init__(self, maxsize: int = 4):
+    ``profile`` = (StatsCollector, producer node id), given by spawn_stage
+    only while a collector is active: the producer's time blocked in put()
+    on a full queue is charged to that node as ``blocked``, the consumer's
+    time blocked in get() on an empty one to the node active on its thread
+    as ``starve``. The unprofiled path reads no clock."""
+
+    def __init__(self, maxsize: int = 4, profile=None):
         self._q: Queue = Queue(maxsize)
         self._cancel = threading.Event()
         self._err: Optional[BaseException] = None
+        self._profile = profile
 
     # ---- producer side -----------------------------------------------------------
     def put(self, item) -> None:
+        if self._profile is not None and not self._cancel.is_set():
+            try:
+                self._q.put_nowait(item)
+                return
+            except Full:
+                pass
+            t0 = time.perf_counter()
+            self._put_blocking(item)
+            collector, nid = self._profile
+            collector.note_blocked(nid, time.perf_counter() - t0)
+            return
+        self._put_blocking(item)
+
+    def _put_blocking(self, item) -> None:
         while True:
             if self._cancel.is_set():
                 raise StageCancelled()
@@ -79,7 +106,16 @@ class Channel:
     def __iter__(self) -> Iterator:
         try:
             while True:
-                item = self._q.get()
+                if self._profile is None:
+                    item = self._q.get()
+                else:
+                    try:
+                        item = self._q.get_nowait()
+                    except Empty:
+                        t0 = time.perf_counter()
+                        item = self._q.get()
+                        # starvation lands on the consumer's active node
+                        self._profile[0].note_starve(time.perf_counter() - t0)
                 if item is _SENTINEL:
                     if self._err is not None:
                         raise self._err
@@ -158,7 +194,7 @@ class _StagePool:
 _STAGES = _StagePool()
 
 
-def spawn_stage(gen: Iterator, maxsize: int = 4) -> Iterator:
+def spawn_stage(gen: Iterator, maxsize: int = 4, node=None) -> Iterator:
     """Run ``gen`` on a stage thread; return an iterator over its output
     through a bounded channel. The stage starts on the first pull: a stream
     that is built and dropped unread starts nothing. When the iterator
@@ -166,10 +202,21 @@ def spawn_stage(gen: Iterator, maxsize: int = 4) -> Iterator:
     reference leaves it to finish alone), so a query that returns, a limited
     or failed one included, leaves no stage running and no open pin scope.
     The reference starts a new thread per stage; here the thread comes from
-    ``_StagePool``, which keeps it for the next stage."""
-    ch = Channel(maxsize)
+    ``_StagePool``, which keeps it for the next stage.
+
+    The stage thread takes the caller's stats collector for the stage's
+    length; ``node`` (the physical node whose generator this is) turns on
+    the channel's stall attribution while a collector is active."""
+    from ..observability import runtime_stats
+
+    collector = runtime_stats.current_collector()
+    profile = (collector, collector.node_id(node)) \
+        if collector is not None and node is not None else None
+    ch = Channel(maxsize, profile=profile)
 
     def run():
+        if collector is not None:
+            runtime_stats.set_collector(collector)
         err: Optional[BaseException] = None
         try:
             for item in gen:
@@ -183,6 +230,9 @@ def spawn_stage(gen: Iterator, maxsize: int = 4) -> Iterator:
                 gen.close()  # unwind the generator's finally blocks on this thread
             except BaseException:  # noqa: BLE001 -- the error ch.close(err) reports
                 pass
+            # the thread is kept for another stage, maybe another query's:
+            # nothing of this one's observation may stay on it
+            runtime_stats.reset_thread()
             ch.close(err)
 
     def consume():
@@ -204,19 +254,29 @@ def pmap_stream(stream: Iterator, fn: Callable, window: int = 0,
     order. While the window is full this thread waits on the oldest call, so
     upstream, the pool and downstream overlap. ``strategy`` (a
     batching.BatchingStrategy) is fed each morsel's rows and seconds from
-    the pool thread that ran it."""
+    the pool thread that ran it. While a SpanRecorder is installed each call
+    is also a "pipeline.morsel" span (the recorder is taken here: the pool's
+    threads are not the query's)."""
+    from ..observability.runtime_stats import current_spans
     from ..utils.pool import compute_pool
 
     pool = compute_pool()
     if window <= 0:
         window = pool._max_workers
-    if strategy is not None:
+    spans = current_spans()
+    if strategy is not None or spans is not None:
         inner = fn
 
         def fn(item, i):  # noqa: F811 -- the caller's fn, timed
             t0 = time.perf_counter()
+            w0 = time.time()
             out = inner(item, i)
-            strategy.record(item.num_rows, time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            if strategy is not None:
+                strategy.record(item.num_rows, dt)
+            if spans is not None:
+                spans.record("pipeline.morsel", "compute", w0, w0 + dt,
+                             {"rows": getattr(item, "num_rows", 0)})
             return out
     futs: deque = deque()
     try:

@@ -24,8 +24,10 @@ budget. The wait is pacing, never a gate on correctness: a budget smaller
 than one operator's working set costs throughput, not a deadlock.
 
 Counters (ops/counters.py): ``host_bytes_tracked`` and
-``host_bytes_high_water`` (gauges), ``host_over_budget_events``,
-``scan_backpressure_stalls`` and ``scan_stall_ms``.
+``host_bytes_high_water`` (registry gauges), ``host_over_budget_events``,
+``scan_backpressure_stalls`` and ``scan_stall_ms``. Each upward crossing of
+the pressure threshold is noted by the flight recorder
+(observability/flight.py), callbacks or not.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import threading
 import time
 from typing import Callable, List, Optional
 
+from ..observability.metrics import registry
 from ..ops import counters
 
 # the bounded pacing wait: long enough that a spilling operator usually
@@ -81,16 +84,25 @@ class HostMemoryManager:
             for s in self._scopes:
                 if self._tracked > s._peak:
                     s._peak = self._tracked
-            counters.set_value("host_bytes_tracked", self._tracked)
-            counters.set_value("host_bytes_high_water", self._high_water)
+            registry().set_gauge("host_bytes_tracked", float(self._tracked))
+            registry().set_gauge("host_bytes_high_water", float(self._high_water))
             under = self._under_pressure_locked()
+            crossed = False
             if not self._in_pressure and under:
                 self._in_pressure = True
+                crossed = True
                 if self._pressure_cbs:
                     fire = list(self._pressure_cbs)
             elif self._in_pressure and not under:
                 self._in_pressure = False
             tracked = self._tracked
+        if crossed:
+            # the flight recorder sees every crossing, callbacks or not
+            from ..observability import flight
+
+            frec = flight.recorder()
+            if frec is not None:
+                frec.note_pressure(tracked, self.limit_bytes())
         if fire:
             limit = self.limit_bytes()
             for cb in fire:
@@ -104,7 +116,7 @@ class HostMemoryManager:
             return
         with self._cond:
             self._tracked = max(self._tracked - nbytes, 0)
-            counters.set_value("host_bytes_tracked", self._tracked)
+            registry().set_gauge("host_bytes_tracked", float(self._tracked))
             if self._in_pressure and not self._under_pressure_locked():
                 self._in_pressure = False
             self._cond.notify_all()
@@ -204,8 +216,8 @@ class HostMemoryManager:
             self._in_pressure = False
             self._pressure_cbs.clear()
             self._scopes.clear()
-            counters.set_value("host_bytes_tracked", 0)
-            counters.set_value("host_bytes_high_water", 0)
+            registry().set_gauge("host_bytes_tracked", 0.0)
+            registry().set_gauge("host_bytes_high_water", 0.0)
 
 
 class QueryMemoryScope:

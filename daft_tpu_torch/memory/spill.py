@@ -68,6 +68,7 @@ import numpy as np
 from ..core.recordbatch import RecordBatch
 from ..core.series import Series
 from ..datatype import DataType, Field
+from ..observability.metrics import registry
 from ..ops import counters
 from ..schema import Schema
 
@@ -450,7 +451,7 @@ class _Prefetcher:
                     if len(self._q) > self._hw:
                         self._hw = len(self._q)
                         if self._count:
-                            counters.bump_max("spill_prefetch_inflight", self._hw)
+                            registry().set_gauge_max("spill_prefetch_inflight", self._hw)
         finally:
             with self._cond:
                 self._running = False
@@ -619,7 +620,9 @@ class SpillFile:
 
     def _drain(self) -> None:
         """The IO pool's task: write the queued batches in append order (one
-        drainer a file); the head leaves the queue only once written."""
+        drainer a file); the head leaves the queue only once written. Each
+        write is a "spill.write" span while a span recorder is active."""
+        from ..observability.runtime_stats import profile_span
         from .manager import manager
 
         while True:
@@ -634,7 +637,8 @@ class SpillFile:
                 if item is _FINISH:
                     self._close_and_publish()
                 else:
-                    self._write(item)
+                    with profile_span("spill.write", "spill", rows=item.num_rows):
+                        self._write(item)
             except BaseException as e:  # noqa: BLE001 -- raised again on the producer
                 with self._cond:
                     self._io_err = e
@@ -717,14 +721,18 @@ class SpillFile:
 
     def read(self, prefetch: Optional[int] = None) -> Iterator[RecordBatch]:
         """The batches in append order; with ``prefetch`` > 0 (default: the
-        config's when the IO pool is on) decoded ahead on the pool."""
+        config's when the IO pool is on) decoded ahead on the pool, the read
+        one "spill.read" span while a span recorder is active."""
         self.finish()
         if prefetch is None:
             prefetch = self._prefetch if self._io_threads > 0 else 0
         if self.rows == 0 or not os.path.exists(self.path):
             return
         if prefetch > 0 and self._io_threads > 0:
-            yield from prefetch_iter(self._decode_iter, prefetch, self._io_threads)
+            from ..observability.runtime_stats import span_iter
+
+            yield from span_iter("spill.read", "spill",
+                                 prefetch_iter(self._decode_iter, prefetch, self._io_threads))
         else:
             yield from self._decode_iter()
 

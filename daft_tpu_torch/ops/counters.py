@@ -80,7 +80,15 @@ show which path a query took:
   wrapper without counting a launch.
 
 ``rejections`` records why a stage stayed on the host: {reason: count}.
-Module attribute reads (``counters.device_grouped_batches``) read the table.
+The counters live in the process-wide metrics registry
+(observability/metrics.py), so the same numbers reach EXPLAIN ANALYZE, the
+query events (``QueryEnd.metrics``), the flight recorder and the dashboard.
+``bump``, ``snapshot`` and ``reset`` keep their signatures, scoped to
+``COUNTER_NAMES``; module attribute reads (``counters.device_grouped_batches``)
+read the registry. ``scan_window_peak``, ``spill_prefetch_inflight`` and the
+ledger's two are registry gauges (``set_gauge_max`` / ``set_gauge``), as the
+residency manager's ``hbm_bytes_resident`` / ``hbm_bytes_high_water`` and the
+coalescer's ``bucket_fill_ratio`` are.
 """
 
 from __future__ import annotations
@@ -88,14 +96,12 @@ from __future__ import annotations
 import threading
 from typing import Dict
 
-SEGMENT_KERNELS = ("segment_sum_planes", "segment_extreme_planes",
-                   "segment_extreme_int64")
+from ..observability.metrics import FLOAT_COUNTER_NAMES, KERNEL_NAMES, registry
+
+SEGMENT_KERNELS = KERNEL_NAMES[:3]
 # K4 has two entry points: the table build and the probe; K1a and K5 have no
 # engine caller (nor in the reference), K6 runs the mesh repartition, K7 the
 # grouped stages' float and bool sums
-KERNEL_NAMES = SEGMENT_KERNELS + ("hash_probe_build", "hash_probe_index",
-                                  "segment_sum_planes_f32", "hash_probe_segment_sum",
-                                  "ring_permute_words", "segment_sum_float_planes")
 SPILL_COUNTER_NAMES = ("spill_batches", "spill_bytes", "spill_wire_bytes", "spill_files",
                        "spill_runs", "spill_merge_passes", "spill_dirs_gced",
                        "spill_write_seconds", "spill_write_wall_seconds",
@@ -120,39 +126,25 @@ COUNTER_NAMES = ("device_grouped_batches", "device_stage_batches", "device_join_
                  "device_udf_weight_h2d_bytes") + SPILL_COUNTER_NAMES + \
     MEMORY_COUNTER_NAMES + tuple(
     f"{kind}_{k}" for kind in ("launches", "plain") for k in KERNEL_NAMES)
+# the counters that add host milliseconds or seconds; every other counts events
+FLOAT_COUNTERS = FLOAT_COUNTER_NAMES
+# reset with the counters (the reference's reset drops the fill-ratio gauge
+# with the coalescing counters it is derived from)
+_RESET_ALSO = ("hbm_evictions", "hbm_eviction_bytes", "hbm_pins", "hbm_h2d_bytes",
+               "bucket_fill_ratio")
 
 _LOCK = threading.Lock()
-# the counters that add host milliseconds; every other counts events
-FLOAT_COUNTERS = ("scan_decode_ms", "scan_filter_ms", "fingerprint_ms",
-                  "spill_write_seconds", "spill_write_wall_seconds", "spill_read_seconds",
-                  "spill_read_wall_seconds")
-_COUNTS: Dict[str, float] = {name: 0.0 if name in FLOAT_COUNTERS else 0
-                             for name in COUNTER_NAMES}
 rejections: Dict[str, int] = {}
 
 
-def __getattr__(name: str) -> int:
-    if name in _COUNTS:
-        return _COUNTS[name]
+def __getattr__(name: str) -> float:
+    if name in COUNTER_NAMES:
+        return registry().value(name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def bump(name: str, n: float = 1) -> None:
-    with _LOCK:
-        _COUNTS[name] += n
-
-
-def bump_max(name: str, value: float) -> None:
-    """Raise counter ``name`` to ``value`` where that is larger (a peak)."""
-    with _LOCK:
-        if value > _COUNTS[name]:
-            _COUNTS[name] = value
-
-
-def set_value(name: str, value: float) -> None:
-    """Set counter ``name`` (a gauge) to ``value``."""
-    with _LOCK:
-        _COUNTS[name] = value
+    registry().inc(name, n)
 
 
 def spill_overlap_seconds(snap: Dict[str, float]) -> float:
@@ -169,15 +161,19 @@ def reject(site: str, reason: str) -> None:
         rejections[key] = rejections.get(key, 0) + 1
 
 
-def snapshot() -> Dict[str, int]:
-    with _LOCK:
-        return dict(_COUNTS)
+def snapshot() -> Dict[str, float]:
+    """The counters (``COUNTER_NAMES``) as the registry holds them now."""
+    snap = registry().snapshot()
+    return {name: snap.get(name, 0.0 if name in FLOAT_COUNTERS else 0)
+            for name in COUNTER_NAMES}
 
 
 def reset(names=None) -> None:
-    """Zero every counter and the rejection record, or only ``names``."""
-    with _LOCK:
-        for name in (_COUNTS if names is None else names):
-            _COUNTS[name] = 0.0 if name in FLOAT_COUNTERS else 0
-        if names is None:
+    """Zero every counter and the rejection record, or only ``names``.
+    Scoped to this module's names: the registry's other counters (the flight
+    recorder's, subscriber errors) are not this module's to wipe; per-query
+    attribution uses the registry's snapshot / diff instead."""
+    registry().reset(COUNTER_NAMES + _RESET_ALSO if names is None else tuple(names))
+    if names is None:
+        with _LOCK:
             rejections.clear()

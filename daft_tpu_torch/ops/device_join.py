@@ -73,6 +73,7 @@ import torch
 from ..core.kernels.encoding import _common_key_dtype, canonical_key_values
 from ..datatype import DataType, Field
 from ..device.residency import exprs_structure, expr_structure, manager
+from ..observability.runtime_stats import profile_span
 from ..expressions.expressions import (AggExpr, Alias, BinaryOp, ColumnRef, Expression,
                                        IsIn, Literal)
 from ..schema import Schema
@@ -862,16 +863,32 @@ class DeviceJoinGroupedRun(GroupedAggRun):
             return
         bucket = pad_bucket(n)
         gb_cols = [(g.child if isinstance(g, Alias) else g)._name for g in stage.groupby]
+        # the provisioning (the fact planes' upload, K4's build and probe,
+        # the gathers) is the device.h2d span, the codes' combine and the
+        # stage's launches the device.dispatch span; the reference has one
+        # dispatch span over both
         if not self.force_host_codes and \
                 self._dict_product(batch, gb_cols) <= self.max_segments:
-            dcols, code_planes = self.ctx.provision(batch, bucket, stage._input_cols,
-                                                    gb_cols)
-            decode = self._dict_combined_codes(batch, n, bucket, gb_cols, code_planes)
+            with profile_span("device.h2d", "device", op="join_provision", rows=n,
+                              bucket=bucket):
+                dcols, code_planes = self.ctx.provision(batch, bucket, stage._input_cols,
+                                                        gb_cols)
+            with profile_span("device.dispatch", "device", op="join_agg", rows=n,
+                              bucket=bucket):
+                decode = self._dict_combined_codes(batch, n, bucket, gb_cols, code_planes)
+                out = stage._program_for(decode.cap)(
+                    dcols, decode.dcodes, device_row_mask(n, bucket, self.device),
+                    self._row_offset)
         else:
             decode = self._host_factorized_codes(batch, n, bucket)
-            dcols, _ = self.ctx.provision(batch, bucket, stage._input_cols)
-        out = stage._program_for(decode.cap)(
-            dcols, decode.dcodes, device_row_mask(n, bucket, self.device), self._row_offset)
+            with profile_span("device.h2d", "device", op="join_provision", rows=n,
+                              bucket=bucket):
+                dcols, _ = self.ctx.provision(batch, bucket, stage._input_cols)
+            with profile_span("device.dispatch", "device", op="join_agg", rows=n,
+                              bucket=bucket):
+                out = stage._program_for(decode.cap)(
+                    dcols, decode.dcodes, device_row_mask(n, bucket, self.device),
+                    self._row_offset)
         self._row_offset += n
         self._pending.append((out, decode))
         counters.bump("device_grouped_batches")
@@ -1077,7 +1094,8 @@ class DeviceJoinTopNRun(DeviceJoinGroupedRun):
         cols += [mm[top, j] for j in range(mm.shape[1])]
         cols += [e[top] for e in out["ext"]]
         cols += [sct[top].view(torch.float64) for sct in out["sct"]]
-        host = torch.stack(cols, dim=1).cpu().numpy()
+        with profile_span("device.d2h", "device", op="join_topn", rows=int(k_eff)):
+            host = torch.stack(cols, dim=1).cpu().numpy()
         counters.bump("device_topn_runs")
         rows = host[self.topn.offset:]
         rows = rows[rows[:, 1] > 0]
@@ -1156,7 +1174,9 @@ class DeviceJoinUngroupedRun(FilterAggRun):
         if n == 0:
             return
         bucket = pad_bucket(n)
-        dcols, _codes = self.ctx.provision(batch, bucket,
-                                           list(self.stage._input_cols) + ["__join_ok__"])
+        with profile_span("device.h2d", "device", op="join_provision", rows=n,
+                          bucket=bucket):
+            dcols, _codes = self.ctx.provision(batch, bucket,
+                                               list(self.stage._input_cols) + ["__join_ok__"])
         self._run(dcols, n, bucket)
         counters.bump("device_join_batches")

@@ -47,6 +47,7 @@ import torch
 
 from ..core.kernels.groupby import extreme_replaces
 from ..expressions.expressions import AggExpr, Alias, ColumnRef, Expression
+from ..observability.runtime_stats import profile_span
 from ..schema import Schema
 from . import counters
 from . import device_eval as dev
@@ -426,11 +427,16 @@ class GroupedAggRun:
         bucket = pad_bucket(n)
         decode = self._codes_for(batch, n, bucket)
         prog = stage._program_for(decode.cap)
-        dcols = {name: batch.get_column(name).to_device_cached(
-                     bucket, f32=not stage._use_f64, device=self.device)
-                 for name in stage._input_cols}
-        out = prog(dcols, decode.dcodes, device_row_mask(n, bucket, self.device),
-                   self._row_offset)
+        with profile_span("device.h2d", "device", rows=n, bucket=bucket):
+            dcols = {name: batch.get_column(name).to_device_cached(
+                         bucket, f32=not stage._use_f64, device=self.device)
+                     for name in stage._input_cols}
+        # the span covers the launches' enqueue; their device time lands in
+        # finalize's device.d2h, which waits for them
+        with profile_span("device.dispatch", "device", op="grouped_agg", rows=n,
+                          bucket=bucket, groups_cap=decode.cap):
+            out = prog(dcols, decode.dcodes, device_row_mask(n, bucket, self.device),
+                       self._row_offset)
         self._row_offset += n
         self._pending.append((out, decode))
         counters.bump("device_grouped_batches")
@@ -506,7 +512,8 @@ class GroupedAggRun:
         if not pending:
             return [], [(np.empty(0), np.empty(0, dtype=bool)) for _ in stage.aggs]
 
-        fetched = [_to_host(out) for out, _ in pending]
+        with profile_span("device.d2h", "device", op="grouped_agg", batches=len(pending)):
+            fetched = [_to_host(out) for out, _ in pending]
 
         key_slot: Dict[tuple, int] = {}
         key_order: List[tuple] = []

@@ -25,6 +25,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..core.kernels.groupby import extreme_replaces
 from ..expressions.expressions import AggExpr, Alias, Expression
+from ..observability.metrics import registry
+from ..observability.runtime_stats import profile_span
 from ..schema import Schema
 from . import counters
 from . import device_eval as dev
@@ -194,8 +196,10 @@ class FilterAggRun:
     def _run(self, dcols: Dict[str, dev.DCol], n: int, bucket: int) -> None:
         """The stage over one batch's device columns; its partials stay on
         the device until finalize."""
-        self._partials.append(self.stage.program()(dcols,
-                                                   device_row_mask(n, bucket, self.device)))
+        with profile_span("device.dispatch", "device", op="filter_agg", rows=n,
+                          bucket=bucket):
+            self._partials.append(self.stage.program()(
+                dcols, device_row_mask(n, bucket, self.device)))
         counters.bump("device_stage_batches")
 
     def feed_batch(self, batch) -> None:
@@ -206,9 +210,10 @@ class FilterAggRun:
             return
         bucket = pad_bucket(n)
         f32 = not self.stage._use_f64
-        dcols = {name: batch.get_column(name).to_device_cached(bucket, f32=f32,
-                                                               device=self.device)
-                 for name in self.stage._input_cols}
+        with profile_span("device.h2d", "device", rows=n, bucket=bucket):
+            dcols = {name: batch.get_column(name).to_device_cached(bucket, f32=f32,
+                                                                   device=self.device)
+                     for name in self.stage._input_cols}
         self._run(dcols, n, bucket)
 
     def finalize(self) -> Dict[str, object]:
@@ -219,13 +224,15 @@ class FilterAggRun:
         counters.bump("device_stage_runs")
         values = [v for p in partials for v, _ok in p.values()]
         fetched = {}
-        for is_float in (True, False):
-            pick = [j for j, v in enumerate(values) if v.is_floating_point() == is_float]
-            if pick:
-                host = torch.stack([values[j] for j in pick]).cpu().tolist()
-                fetched.update(zip(pick, host))
-        oks = (torch.stack([ok for p in partials for _v, ok in p.values()]).cpu().tolist()
-               if partials else [])
+        # the copies wait for the run's kernels: the device time lands here
+        with profile_span("device.d2h", "device", op="filter_agg", batches=len(partials)):
+            for is_float in (True, False):
+                pick = [j for j, v in enumerate(values) if v.is_floating_point() == is_float]
+                if pick:
+                    host = torch.stack([values[j] for j in pick]).cpu().tolist()
+                    fetched.update(zip(pick, host))
+            oks = (torch.stack([ok for p in partials for _v, ok in p.values()]).cpu().tolist()
+                   if partials else [])
         per_batch, j = [], 0
         for p in partials:
             per_batch.append({k: (fetched[j + i], bool(oks[j + i])) for i, k in enumerate(p)})
@@ -262,7 +269,9 @@ class DispatchCoalescer:
 
     Counters, once per flush: ``coalesce_morsels_in`` / ``dispatch_coalesced``
     give the amortization factor, ``bucket_fill_rows`` /
-    ``bucket_capacity_rows`` the padding efficiency.
+    ``bucket_capacity_rows`` the padding efficiency, and the
+    ``bucket_fill_ratio`` gauge this run's fill so far. Each flush is a
+    "device.coalesce_flush" span while a span recorder is active.
     """
 
     def __init__(self, feed: Callable, target_rows: int, latency_s: float):
@@ -272,6 +281,8 @@ class DispatchCoalescer:
         self._pending: List = []
         self._rows = 0
         self._oldest: Optional[float] = None
+        self._filled = 0
+        self._capacity = 0
 
     def add(self, batch) -> None:
         if batch.num_rows == 0:
@@ -288,7 +299,8 @@ class DispatchCoalescer:
     def flush(self) -> None:
         if not self._pending:
             return
-        if len(self._pending) == 1:
+        morsels_in = len(self._pending)
+        if morsels_in == 1:
             batch = self._pending[0]  # identity kept: the resident planes hit
         else:
             from ..core.recordbatch import RecordBatch
@@ -297,10 +309,17 @@ class DispatchCoalescer:
         self._pending = []
         self._rows = 0
         self._oldest = None
-        self._feed(batch)
+        bucket = pad_bucket(batch.num_rows)
+        with profile_span("device.coalesce_flush", "device", morsels_in=morsels_in,
+                          rows=batch.num_rows,
+                          fill_ratio=round(batch.num_rows / bucket, 4)):
+            self._feed(batch)
         counters.bump("dispatch_coalesced")
         counters.bump("bucket_fill_rows", batch.num_rows)
-        counters.bump("bucket_capacity_rows", pad_bucket(batch.num_rows))
+        counters.bump("bucket_capacity_rows", bucket)
+        self._filled += batch.num_rows
+        self._capacity += bucket
+        registry().set_gauge("bucket_fill_ratio", round(self._filled / self._capacity, 4))
 
     # the stream is exhausted: feed whatever is still pending
     close = flush

@@ -56,6 +56,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..observability.metrics import registry
+from ..observability.runtime_stats import profile_span
 from . import counters
 
 # model batches pad from 8, so small batches do not balloon to the
@@ -175,8 +177,11 @@ def resident_params(anchor: _WeightAnchor, device):
     from ..device.residency import manager
 
     def upload():
+        with profile_span("device.udf_h2d", "device", op="weights", bytes=anchor.nbytes):
+            out = _to_tensors(anchor.host_params, device)
+        registry().inc("hbm_h2d_bytes", anchor.nbytes)
         counters.bump("device_udf_weight_h2d_bytes", anchor.nbytes)
-        return _to_tensors(anchor.host_params, device)
+        return out
 
     return manager().get_or_build(anchor, ("udf_params", str(device)), upload)
 
@@ -229,6 +234,13 @@ def _upload(a: np.ndarray, bucket: int, device):
     import torch
 
     return torch.from_numpy(np.ascontiguousarray(_pad_rows(a, bucket))).to(device)
+
+
+def _upload_nbytes(inputs: list, bucket: int) -> int:
+    """The bytes ``_chunk_tensors`` uploads for a chunk's prepared arrays
+    (a stage run counts them in ``hbm_h2d_bytes``)."""
+    return sum(a.itemsize * bucket * (a.size // max(a.shape[0], 1))
+               for a in inputs if isinstance(a, np.ndarray))
 
 
 def _chunk_tensors(inputs: list, bucket: int, device, cached: bool) -> list:
@@ -328,8 +340,11 @@ class DeviceUdfRun:
 
         return [eval_expression(batch, e) for e in self.stage.arg_exprs]
 
-    def _dispatch(self, planes: list, rows: int, bucket: int):
-        out = _call(self.stage.func, self._params, [v for v, _m in planes], bucket)
+    def _dispatch(self, planes: list, rows: int, bucket: int, fused: bool = False):
+        args = {"fused": True} if fused else {}
+        with profile_span("device.udf_dispatch", "device", op=self.stage.func.name,
+                          rows=rows, bucket=bucket, **args):
+            out = _call(self.stage.func, self._params, [v for v, _m in planes], bucket)
         counters.bump("device_udf_dispatches")
         counters.bump("device_udf_rows", rows)
         return out
@@ -345,7 +360,9 @@ class DeviceUdfRun:
         for s, e in _chunks(n, self.stage.func.batch_size):
             inputs, valid, m = _prepare_arrays(self.stage.func, _chunk_series(series, s, e))
             bucket = udf_pad_bucket(m)
-            planes = _chunk_tensors(inputs, bucket, self.device, cached=True)
+            with profile_span("device.udf_h2d", "device", rows=m, bucket=bucket):
+                planes = _chunk_tensors(inputs, bucket, self.device, cached=True)
+            registry().inc("hbm_h2d_bytes", _upload_nbytes(inputs, bucket))
             self._outs.append((self._dispatch(planes, m, bucket), m))
             self._valids.append(valid)
 
@@ -357,8 +374,10 @@ class DeviceUdfRun:
         the first argument's resident validity plane, or, after a prepare
         hook, the validity uploaded."""
         inputs, valid, n = _prepare_arrays(self.stage.func, self._arguments(batch))
-        planes = _chunk_tensors(inputs, bucket, self.device, cached=True)
-        out = self._dispatch(planes, n, bucket)
+        with profile_span("device.udf_h2d", "device", rows=n, bucket=bucket):
+            planes = _chunk_tensors(inputs, bucket, self.device, cached=True)
+        registry().inc("hbm_h2d_bytes", _upload_nbytes(inputs, bucket))
+        out = self._dispatch(planes, n, bucket, fused=True)
         if out.ndim != 1:
             raise ValueError(f"fused device UDF {self.stage.func.name!r} returned "
                              f"{tuple(out.shape)}: an aggregate reads one value per row")
@@ -377,7 +396,8 @@ class DeviceUdfRun:
         counters.bump("device_udf_runs")
         if not outs:
             return np.empty((0,), np.float32), np.empty((0,), bool)
-        with torch.inference_mode():
+        with torch.inference_mode(), profile_span("device.udf_d2h", "device",
+                                                  batches=len(outs)):
             parts = [o[:m] for o, m in outs]
             host = (torch.cat(parts) if len(parts) > 1 else parts[0]).cpu().numpy()
         return host, np.concatenate(valids)

@@ -54,7 +54,20 @@ class PhysicalPlan:
         return []
 
     def name(self) -> str:
+        """The operator's name in ``display()`` and EXPLAIN ANALYZE (the
+        reference's, node for node)."""
         return type(self).__name__
+
+    def display(self) -> str:
+        lines: List[str] = []
+
+        def rec(node, depth):
+            lines.append("  " * depth + "* " + node.name())
+            for c in node.children():
+                rec(c, depth + 1)
+
+        rec(self, 0)
+        return "\n".join(lines)
 
     def walk(self):
         yield self
@@ -88,6 +101,9 @@ class StreamingScan(PhysicalPlan):
         self.schema = schema
         self.post_filter = post_filter
         self.post_limit = post_limit
+
+    def name(self) -> str:
+        return f"StreamingScan({len(self.tasks)} tasks)"
 
 
 class PhysWrite(_Unary):
@@ -211,6 +227,11 @@ class DeviceGroupedAgg(_Unary):
         self.aggregations = aggregations
         self.region_ops = region_ops
 
+    def name(self) -> str:
+        if self.region_ops and len(self.region_ops) > 2:
+            return f"DeviceGroupedAgg[{'+'.join(self.region_ops)}]"
+        return "DeviceGroupedAgg"
+
 
 class DeviceFilterAgg(_Unary):
     """Filter (optional) + ungrouped aggregation as one device stage
@@ -224,6 +245,11 @@ class DeviceFilterAgg(_Unary):
         self.predicate = predicate
         self.aggregations = aggregations
         self.region_ops = region_ops
+
+    def name(self) -> str:
+        if self.region_ops and len(self.region_ops) > 2:
+            return f"DeviceFilterAgg[{'+'.join(self.region_ops)}]"
+        return "DeviceFilterAgg"
 
 
 class HashJoin(PhysicalPlan):
@@ -310,6 +336,9 @@ class DeviceJoinAgg(PhysicalPlan):
     def children(self):
         return [self.fact] + [p for _n, p in self.dim_plans]
 
+    def name(self) -> str:
+        return f"DeviceJoinAgg({len(self.dim_plans)} dims)"
+
 
 class DeviceJoinTopN(PhysicalPlan):
     """Star join + grouped aggregate + ORDER BY + LIMIT fused for the device
@@ -329,6 +358,9 @@ class DeviceJoinTopN(PhysicalPlan):
 
     def children(self):
         return [self.fact] + [p for _n, p in self.dim_plans]
+
+    def name(self) -> str:
+        return f"DeviceJoinTopN({len(self.dim_plans)} dims, k={self.topn.limit})"
 
 
 def translate(plan: lp.LogicalPlan) -> PhysicalPlan:

@@ -953,3 +953,79 @@ def test_w2_kernel_cases_get_the_runs_inputs(monkeypatch):
     assert slots == pk.probe_table_slots(len(want["dim_keys"]))
     ((p_keys, p_valid, _table),) = seen["hash_probe_index"]
     assert torch.equal(p_keys, want["keys"]) and torch.equal(p_valid, want["valid"])
+
+
+def _obs_tables(cs, lineitem, orders, dims):
+    df_l, df_o = cs.q12_frames(lineitem, orders)
+    return {"q1": cs.q1_frame(lineitem), "q6": cs.q6_frame(lineitem),
+            "q12": {"lineitem": df_l, "orders": df_o},
+            "tails": cs.tails_frames(lineitem, orders, dims)}
+
+
+def test_obs_phase_on_the_cpu(scan_files, monkeypatch, capsys):
+    """chip_smoke.py's obs phase on the CPU at a small size (the kernels'
+    plain versions, counted as plain calls): EXPLAIN ANALYZE of q1, q12, q3
+    and the file-fed q6 equal to their unobserved runs, counters count for
+    count, rows out; q12's trace with its three device spans inside the
+    run; the subscriber's event order; the four overhead settings, the
+    flight recorder off only under "bare" and back on after."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.observability import flight
+
+    cs, (lineitem, orders, dims), _frames, dirs = scan_files
+    monkeypatch.setattr(cs, "OBS_KERNEL_PREFIX", "plain_")
+    monkeypatch.setattr(cs, "OBS_ROUNDS", 2)
+    with dt.execution_config_ctx(morsel_size_rows=16_384, pipeline_mode="force"):
+        paths = cs.phase_obs(_obs_tables(cs, lineitem, orders, dims), dirs["lineitem"], "cpu")
+    out = capsys.readouterr().out
+    assert list(paths) == ["obs"]
+    assert "obs scan q6: stalls" in out and "obs q12 trace:" in out
+    for setting in cs.OBS_SETTINGS:
+        assert f"{setting}: q1 " in out
+    assert flight.recorder() is not None
+
+
+def test_obs_phase_refuses_an_observation_that_moves_the_counters(scan_files, monkeypatch):
+    """A stand-in device path that feeds one more batch when a stats
+    collector is active: the obs phase's count-for-count check refuses it."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.execution import executor
+    from daft_tpu_torch.observability.runtime_stats import current_collector
+    from daft_tpu_torch.ops import counters
+
+    cs, (lineitem, _orders, _dims), _frames, _dirs = scan_files
+    feed_stream = executor._feed_stream
+
+    def observed_differs(stream, feed, cfg):
+        if current_collector() is not None:
+            counters.bump("device_grouped_batches")
+        return feed_stream(stream, feed, cfg)
+
+    monkeypatch.setattr(executor, "_feed_stream", observed_differs)
+    monkeypatch.setattr(cs, "OBS_KERNEL_PREFIX", "plain_")
+    df = cs.q1_frame(lineitem)
+    with dt.execution_config_ctx(morsel_size_rows=16_384):
+        with pytest.raises(cs.SmokeFailure, match="obs q1: the observed run's engine counters "
+                                                  "differ"):
+            cs.obs_cell("q1", lambda: cs.q1_query(df), cs.Q1_FLOATS, "cpu",
+                        "device_grouped_batches")
+
+
+def test_obs_trace_check_refuses_a_trace_without_h2d(scan_files, monkeypatch):
+    """obs_profile refuses a trace whose device.h2d spans are missing."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.observability import runtime_stats
+
+    cs, (lineitem, orders, _dims), _frames, _dirs = scan_files
+    real = runtime_stats.profile_span
+
+    def no_h2d(name, cat, **args):
+        return real("device.other" if name == "device.h2d" else name, cat, **args)
+
+    for mod in ("daft_tpu_torch.ops.grouped_stage", "daft_tpu_torch.ops.device_join",
+                "daft_tpu_torch.ops.stage"):
+        monkeypatch.setattr(sys.modules[mod], "profile_span", no_h2d)
+    df_l, df_o = cs.q12_frames(lineitem, orders)
+    with dt.execution_config_ctx(morsel_size_rows=16_384):
+        with pytest.raises(cs.SmokeFailure, match="no device.h2d span"):
+            cs.obs_profile("q12", lambda: cs.q12_query(df_l, df_o), "cpu")

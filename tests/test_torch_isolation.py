@@ -18,7 +18,11 @@
   them either, a failing kernel wrapper still raises from ``collect()``,
   and a device query without a card still raises;
 - a window query under a host memory budget, spilling its Grace
-  partitions and sorted runs, imports none of them either.
+  partitions and sorted runs, imports none of them either;
+- with the observability package (dashboard and OTLP exporter included),
+  the runners and the query trace loaded, a subscriber, the dashboard and
+  ``explain_analyze(profile=...)`` observing a device query import none of
+  them either.
 """
 
 import datetime
@@ -570,6 +574,64 @@ def test_budgeted_spilling_window_imports_no_jax_pyarrow_or_reference():
     interpreter: the same rows as unbudgeted, the ledger back at 0, the
     spill directory empty, and no JAX, pyarrow or daft_tpu imported."""
     proc = subprocess.run([sys.executable, "-c", _SPILLING_WINDOW_QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+_OBSERVED_QUERY = """
+import json, os, sys, tempfile
+import numpy as np
+sys.path.insert(0, {repo!r})
+import daft_tpu_torch as dt
+import daft_tpu_torch.observability as obs
+import daft_tpu_torch.observability.dashboard
+import daft_tpu_torch.observability.event_log
+import daft_tpu_torch.observability.flight
+import daft_tpu_torch.observability.otlp
+import daft_tpu_torch.observability.progress
+import daft_tpu_torch.runners
+from daft_tpu_torch.distributed.trace import QueryTrace
+from daft_tpu_torch import col
+seen = []
+class Rec(obs.Subscriber):
+    def on_query_start(self, e): seen.append("start")
+    def on_query_optimized(self, e): seen.append("optimized")
+    def on_operator_stats(self, q, s): seen.append("op")
+    def on_query_end(self, e): seen.append(("end", e.metrics.get("device_grouped_batches")))
+rng = np.random.default_rng(0)
+df = dt.from_pydict({{"k": rng.integers(0, 8, 5000), "v": rng.uniform(0, 1, 5000)}})
+dash = daft_tpu_torch.observability.dashboard.launch()
+sub = Rec()
+obs.attach_subscriber(sub)
+path = os.path.join(tempfile.mkdtemp(), "trace.json")
+try:
+    with dt.execution_config_ctx(device="cpu", device_mode="on", pipeline_mode="force"):
+        out = df.groupby("k").agg(col("v").sum().alias("s")).sort("k").to_pydict()
+        report = df.groupby("k").agg(col("v").sum().alias("s")).explain_analyze(profile=path)
+finally:
+    obs.detach_subscriber(sub)
+    dash.shutdown()
+assert out["k"] == list(range(8)), out
+assert seen[:2] == ["start", "optimized"] and seen[-1] == ("end", 1), seen
+names = {{e["name"] for e in json.load(open(path))["traceEvents"] if e["ph"] == "X"}}
+assert {{"device.h2d", "device.dispatch", "device.d2h"}} <= names, names
+assert "== Engine Counters ==" in report
+os.remove(path)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             or m == "daft_tpu")
+print("FORBIDDEN", bad)
+"""
+
+
+def test_observed_query_imports_no_jax_pyarrow_or_reference():
+    """The observability package (the dashboard and the OTLP exporter
+    included), the runners and the query trace loaded, a subscriber, the
+    dashboard and explain_analyze(profile=...) observing a device_mode="on"
+    query on the CPU, in a fresh interpreter: no JAX, pyarrow or daft_tpu
+    imported."""
+    proc = subprocess.run([sys.executable, "-c", _OBSERVED_QUERY.format(repo=REPO)],
                           capture_output=True, text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "FORBIDDEN []" in proc.stdout, proc.stdout

@@ -119,7 +119,7 @@ def test_tpch_q12_plans_one_device_join_stage(tpch):
     _ref, port_tables = tpch
     with daft_tpu_torch.execution_config_ctx(device="cpu"):
         plan = pp.translate(q12(daft_tpu_torch, port_tables).optimized_plan())
-        nodes = [n.name() for n in plan.walk()]
+        nodes = [type(n).__name__ for n in plan.walk()]
         assert nodes.count("DeviceJoinAgg") == 1 and "HashJoin" not in nodes
         spec = next(n for n in plan.walk() if isinstance(n, pp.DeviceJoinAgg)).spec
     # the fact is lineitem, orders its one adjacent dim; the orderpriority
@@ -328,13 +328,13 @@ def test_float_sum_plans_to_the_host_with_the_reason(star):
     counters.reset()
     with daft_tpu_torch.execution_config_ctx(device="cpu", kernel_mode="off"):
         plan = pp.translate(q(daft_tpu_torch, star[1]).optimized_plan())
-    assert [n.name() for n in plan.walk()].count("HashJoin") == 1
+    assert [type(n).__name__ for n in plan.walk()].count("HashJoin") == 1
     assert not any(isinstance(n, (pp.DeviceJoinAgg, pp.DeviceGroupedAgg))
                    for n in plan.walk())
     assert any("kernel_mode is off" in r for r in counters.rejections), counters.rejections
     with daft_tpu_torch.execution_config_ctx(device="cpu"):
         plan = pp.translate(q(daft_tpu_torch, star[1]).optimized_plan())
-    assert [n.name() for n in plan.walk()].count("DeviceJoinAgg") == 1
+    assert [type(n).__name__ for n in plan.walk()].count("DeviceJoinAgg") == 1
     want = _ref_run(q, star[0])
     manager().clear()
     counters.reset()
