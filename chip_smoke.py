@@ -239,6 +239,21 @@ error (no phase catches its own failure):
             and an inner join of lineitem with orders, each equal to its
             unbudgeted run. Spill goes to a temporary directory that the
             phase deletes;
+    auto:   device_mode="auto" (ops/costmodel.py): the cost model
+            calibrated on the card (its link terms printed with the card's
+            name and power limit), every default rate of costmodel.RATES
+            measured again beside its committed value
+            (tools/calibrate.py measure_rates), then the ooc phase's nine
+            queries over the Parquet lineitem (unbudgeted) and the
+            in-memory supplier, q1, q12 and partkey cells, each run once
+            and then once warm under "auto" (the warm run counted from
+            zero): each result equal to the cell's "off" result by the
+            exactness rule, every stage's verdict printed with its device
+            and host totals, their terms and the margin, and the warm
+            time beside the cell's "off" and "on" times where an earlier
+            phase measured them. The ai embed cell runs under "auto" in the
+            ai phase (its weights resident), within 1e-5 of its "on" run
+            and of the CPU's first 256 rows;
 20. window: W1, six window functions over SF1 lineitem by supplier in
             ship-date order, unbudgeted and under B1 (the Grace window),
             equal as rows keyed by (l_orderkey, l_linenumber) and to a numpy
@@ -286,10 +301,11 @@ Every relational cell runs at SF1: nothing is cut; the ai cells run the
 model at its published widths with its depth uncut. It imports torch,
 numpy and the port; nothing of JAX, pyarrow or daft_tpu.
 
-    python3 chip_smoke.py --phase ooc|window|obs
+    python3 chip_smoke.py --phase ooc|window|obs|auto
 
-runs phases 1-3, then that phase alone (ooc and obs write lineitem's
-Parquet files themselves).
+runs phases 1-3, then that phase alone (ooc, obs and auto write lineitem's
+Parquet files themselves; auto alone computes each cell's "off" result and
+runs the ai embed cell after one "on" run).
 
     python3 chip_smoke.py --kernels-only [--root DIR]
 
@@ -2188,6 +2204,7 @@ def phase_slice(cols, card: str):
     check(int(np.sum(got["n_lines"])) == int(np.count_nonzero(
         cols["l_shipdate"] <= (CUTOFF - EPOCH).days)), "counts do not cover the kept rows")
     print(f"result: {n_groups} groups, equal to the host path and the numpy oracle")
+    remember("supplier", host_s, warm, host)
     print(f"query cold {cold_s:.3f} s; warm median {statistics.median(warm):.3f} s "
           f"(runs {', '.join(f'{w:.3f}' for w in warm)}); host path {host_s:.3f} s; "
           f"max_memory_allocated {peak} bytes [{card}]", flush=True)
@@ -2342,6 +2359,7 @@ def phase_q12(lineitem, orders, card: str, sql_tables: dict):
     check(all(isinstance(v, int) for v in got["high_line_count"] + got["low_line_count"]),
           "q12 counts are not ints")
     print(f"result: {json.dumps(got)}, equal to the host path and the numpy oracle")
+    remember("q12", host_s, warm, host)
     print(f"q12 cold {cold_s:.3f} s; warm median {statistics.median(warm):.4f} s "
           f"(runs {', '.join(f'{w:.4f}' for w in warm)}); host path {host_s:.3f} s; "
           f"max_memory_allocated {peak} bytes [{card}]", flush=True)
@@ -2454,6 +2472,17 @@ def same_result(got: dict, want: dict, floats=()) -> bool:
     return True
 
 
+# what the cells' phases measured, for the auto phase: label -> {"off_ms":
+# the host path's run, "on_ms" and "on_what": the card's run, "want": the
+# host path's result}
+KNOWN = {}
+
+
+def remember(label: str, host_s: float, warm, host: dict) -> None:
+    KNOWN[label] = {"off_ms": host_s * 1e3, "on_ms": statistics.median(warm) * 1e3,
+                    "on_what": "warm median of 3", "want": host}
+
+
 def plan_ms(label: str, query, card: str):
     """optimize() and translate() of one cell's query under the cells'
     config, on the host's clock: the medians of PLANS calls, in ms."""
@@ -2521,6 +2550,7 @@ def run_cell(label: str, query, kernels, card: str, floats=(), oracle=None,
                                                 "oracle")
     rows = len(next(iter(got.values())))
     print(f"{label}: {rows} result rows, equal to the host path and the numpy oracle")
+    remember(label, host_s, warm, host)
     plan_ms(label, query, card)
     print(f"{label} cold {cold_s:.3f} s; warm median {statistics.median(warm):.4f} s "
           f"(runs {', '.join(f'{w:.4f}' for w in warm)}); host path {host_s:.3f} s; "
@@ -2551,6 +2581,23 @@ def phase_q1(lineitem, card: str, sql_tables: dict):
     return (lambda: q1_query(df).to_pydict()), launches, launches_f64
 
 
+def partkey_frame(lineitem):
+    import daft_tpu_torch as dt
+
+    return dt.from_pydict({c: lineitem[c] for c in ("l_partkey", "l_extendedprice",
+                                                     "l_quantity")})
+
+
+def partkey_query(df):
+    from daft_tpu_torch import col
+
+    return (df.groupby("l_partkey")
+            .agg(col("l_extendedprice").sum().alias("revenue"),
+                 col("l_partkey").count().alias("lines"),
+                 col("l_quantity").max().alias("top_qty"))
+            .sort("l_partkey"))
+
+
 def phase_partkey(lineitem, card: str):
     """groupby(l_partkey) over SF1 lineitem: 200,000 groups at cap 2^18,
     past the kernels' former ceiling of 2^17, in an f64 stage (a float
@@ -2560,20 +2607,14 @@ def phase_partkey(lineitem, card: str):
     import numpy as np
 
     import daft_tpu_torch as dt
-    from daft_tpu_torch import col
     from daft_tpu_torch.ops import grouped_stage
 
     phase("partkey")
     clear_residency()
-    df = dt.from_pydict({c: lineitem[c] for c in ("l_partkey", "l_extendedprice",
-                                                   "l_quantity")})
+    df = partkey_frame(lineitem)
 
     def query():
-        return (df.groupby("l_partkey")
-                .agg(col("l_extendedprice").sum().alias("revenue"),
-                     col("l_partkey").count().alias("lines"),
-                     col("l_quantity").max().alias("top_qty"))
-                .sort("l_partkey"))
+        return partkey_query(df)
 
     keys, inv = np.unique(lineitem["l_partkey"], return_inverse=True)
     top = np.full(len(keys), -np.inf)
@@ -4729,6 +4770,7 @@ def phase_ai(lineitem, card: str, kernel_results: dict) -> dict:
     check(cpu_err <= 1e-5, f"ai embed: the card differs from the CPU by {cpu_err}")
     print(f"ai embed: the first 256 rows within {cpu_err:.3e} of the same query on the CPU "
           f"(device_mode=\"off\", {cpu_s:.3f} s) [{card}]", flush=True)
+    paths.update(auto_ai_embed(df, out, cpu, card, on_ms=med * 1e3))
 
     # ---- ai classify ----
     seen = []
@@ -4963,8 +5005,9 @@ def ooc_queries(queries: dict, tables: dict, card: str, budget: int, spill_dir: 
         with dt.execution_config_ctx(device="cuda", device_mode="off"):
             t0 = time.perf_counter()
             expected[q] = queries[q](tables).to_pydict()
-        print(f"ooc q{q} (a) off unbudgeted {(time.perf_counter() - t0) * 1e3:.1f} ms "
-              f"[{card}]", flush=True)
+        off_s = time.perf_counter() - t0
+        KNOWN[f"ooc q{q}"] = {"off_ms": off_s * 1e3, "want": expected[q]}
+        print(f"ooc q{q} (a) off unbudgeted {off_s * 1e3:.1f} ms [{card}]", flush=True)
     counters.reset()
     reset_counters()
     manager().clear()
@@ -4995,6 +5038,7 @@ def ooc_queries(queries: dict, tables: dict, card: str, budget: int, spill_dir: 
         got, ms0, snap0, reasons0 = ooc_card_run(query, contextlib.nullcontext)
         check(same_result(got, expected[q], floats),
               f"ooc q{q} unbudgeted on the card differs from (a)")
+        KNOWN[f"ooc q{q}"].update(on_ms=ms0, on_what="cold, unbudgeted")
         ooc_check_fallbacks(q, snap0, reasons0, "unbudgeted on the card")
         reset_counters()
         manager().clear()
@@ -5711,11 +5755,214 @@ def phase_obs(tables: dict, lineitem_dir: str, card: str) -> dict:
     return {"obs": launches}
 
 
+# ---- device_mode="auto": the cost model's verdicts ----------------------------------
+
+# the in-memory cells the auto phase runs again, with their float columns
+AUTO_MEMORY_CELLS = {"supplier": (), "q1": Q1_FLOATS, "q12": (), "partkey": ("revenue",)}
+AUTO_DEVICE = "cuda"
+AUTO_MEASURE_ROWS = 1 << 23  # the rates' shapes (tools/calibrate.py measure_rates)
+AUTO_UDF_ROWS = 1024         # texts of one encoder forward timed on the card
+AUTO_HOST_UDF_ROWS = 16      # and on the host
+
+
+def _ms(v) -> str:
+    return "-" if v is None else f"{v * 1e3:.4f}"
+
+
+def print_verdicts(label: str, run: str, scope, card: str) -> None:
+    """Each placement decision of one run: the stage, the verdict, both
+    sides' totals and terms (ms), the margin, cached / gate flags."""
+    for r in scope.records():
+        flags = [f for f, on in (("cached", r.cached), ("forced", r.forced)) if on]
+        if r.reason:
+            flags.append(r.reason)
+        terms = {side: {k: round(v * 1e3, 4) for k, v in d.items()
+                        if k != "total" and not k.startswith("note_")}
+                 for side, d in (("device", r.device), ("host", r.host)) if d}
+        m = r.margin()
+        print(f"auto {label} ({run}): {r.site} ({r.rows} rows) -> {r.chosen}; device "
+              f"{_ms(r.device['total'] if r.device else None)} ms, host "
+              f"{_ms(r.host['total'] if r.host else None)} ms, margin "
+              f"{'-' if m is None else f'{m:.3f}x'}"
+              f"{'; ' + ', '.join(flags) if flags else ''}; {r.detail or ''}; terms "
+              f"{json.dumps(terms, sort_keys=True)} [{card}]", flush=True)
+
+
+def auto_cell(label: str, run, floats, card: str, cold: bool = True, flush_ms=None,
+              want=None, off_ms=None, on_ms=None, on_what: str = ""):
+    """One cell under device_mode="auto" on the card: (cold) a first run,
+    whose decisions are priced fresh, then the warm run, each in a
+    placement scope; every verdict printed with both totals and its margin;
+    the warm run's counters zeroed just before it and read just after. Each
+    run's result is held to ``want``, the host path's ("off") result (run
+    here when no earlier phase has it), by the port's rule. Returns the warm
+    run's launches."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.observability import placement
+    from daft_tpu_torch.ops import counters
+
+    if want is None:
+        with dt.execution_config_ctx(device=AUTO_DEVICE, device_mode="off"):
+            t0 = time.perf_counter()
+            want = run()
+            off_ms = (time.perf_counter() - t0) * 1e3
+    extra = {} if flush_ms is None else {"batch_latency_ms": flush_ms}
+    with dt.execution_config_ctx(device=AUTO_DEVICE, device_mode="auto", kernel_mode="on",
+                                 **extra):
+        if cold:
+            with placement.query_scope() as scope:
+                t0 = time.perf_counter()
+                got = run()
+                _synchronize()
+                cold_ms = (time.perf_counter() - t0) * 1e3
+            check(same_result(got, want, floats),
+                  f"auto {label}: the first run differs from the host path's result")
+            print_verdicts(label, "first run", scope, card)
+        counters.reset()
+        with placement.query_scope() as scope:
+            t0 = time.perf_counter()
+            got = run()
+            _synchronize()
+            warm_ms = (time.perf_counter() - t0) * 1e3
+        snap = counters.snapshot()
+    check(same_result(got, want, floats),
+          f"auto {label}: the warm run differs from the host path's result")
+    check(bool(scope.records()), f"auto {label}: the warm run made no placement decision")
+    print_verdicts(label, "warm", scope, card)
+    launches = {k: snap[f"launches_{k}"] for k in counters.KERNEL_NAMES}
+    first = f" (first run {cold_ms:.1f} ms)" if cold else ""
+    on = "not measured in this call" if on_ms is None else f"{on_ms:.1f} ms ({on_what})"
+    print(f"auto {label}: warm {warm_ms:.1f} ms{first}; off {off_ms:.1f} ms; on {on}; equal "
+          f"to off by the rule; device stages "
+          f"{json.dumps({k: snap[k] for k in DEVICE_COUNTERS})}; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})} [{card}]", flush=True)
+    return launches
+
+
+def auto_calibration(card: str) -> None:
+    """The cost model calibrated on the card (the link terms), and every
+    default rate measured again beside its committed value."""
+    from daft_tpu_torch.ops import costmodel
+    from daft_tpu_torch.tools.calibrate import measure_rates
+
+    costmodel.reset_calibration()
+    t0 = time.perf_counter()
+    costmodel.calibrate()
+    cal = costmodel.calibration_dict()
+    print(f"auto calibration ({(time.perf_counter() - t0) * 1e3:.1f} ms): "
+          f"{json.dumps(cal, sort_keys=True)} [{card}]", flush=True)
+    t0 = time.perf_counter()
+    measured = measure_rates(AUTO_DEVICE, rows=AUTO_MEASURE_ROWS, reps=3,
+                             udf_rows=AUTO_UDF_ROWS, host_udf_rows=AUTO_HOST_UDF_ROWS)
+    for name, (env, default) in costmodel.RATES.items():
+        print(f"auto rate {name} ({env}): measured {measured[name]:.4g}, default "
+              f"{default:.4g}, ratio {measured[name] / default:.3f} [{card}]")
+    print(f"auto rates measured in {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+
+def phase_auto(frames: dict, lineitem_dir: str, card: str, runs: dict) -> dict:
+    """device_mode="auto" on the card: the calibration and the rates, then
+    the ooc phase's nine queries over Parquet lineitem (unbudgeted, the
+    in-memory dims) and the in-memory cells in ``runs`` (label -> a
+    callable returning the result), each once warm under "auto" after a
+    first run, every verdict and margin printed, each held to its "off"
+    result. The ai embed cell runs under "auto" in the ai phase
+    (``auto_ai_embed``). Returns {"auto <cell>": the warm run's launches}."""
+    phase("auto")
+    t_phase = time.perf_counter()
+    auto_calibration(card)
+    paths = {}
+    queries = tpch_port_queries()
+    tables = ooc_tables(frames, lineitem_dir)
+    for q in OOC_QUERIES:
+        label = f"ooc q{q}"
+        paths[f"auto {label}"] = auto_cell(
+            label, lambda q=q: queries[q](tables).to_pydict(), OOC_FLOATS.get(q, ()), card,
+            flush_ms=SCAN_FLUSH_MS, **KNOWN.get(label, {}))
+    for label, run in runs.items():
+        paths[f"auto {label}"] = auto_cell(label, run, AUTO_MEMORY_CELLS[label], card,
+                                           **KNOWN.get(label, {}))
+    print(f"auto phase {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return paths
+
+
+def auto_ai_embed(df, out_on: dict, cpu_head: dict, card: str, on_ms=None) -> dict:
+    """The ai embed cell once under "auto", its weights resident (so the run
+    is warm): its verdict printed, the result within 1e-5 of the "on" run's
+    and its first 256 rows within 1e-5 of the "off" run on the CPU (the ai
+    phase's rule; the whole corpus on the CPU would take minutes). Returns
+    {"auto ai embed": launches}."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.observability import placement
+    from daft_tpu_torch.ops import counters
+
+    with dt.execution_config_ctx(device=AUTO_DEVICE, device_mode="auto", kernel_mode="on"):
+        counters.reset()
+        with placement.query_scope() as scope:
+            t0 = time.perf_counter()
+            got = ai_embed_query(df).to_pydict()
+            _synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        snap = counters.snapshot()
+    print_verdicts("ai embed", "warm", scope, card)
+    check(bool(scope.records()), "auto ai embed: no placement decision was made")
+
+    def err(a_rows, b_rows) -> float:
+        check([a is None for a in a_rows] == [b is None for b in b_rows],
+              "auto ai embed: null rows differ")
+        return max((float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                    for a, b in zip(a_rows, b_rows) if a is not None), default=0.0)
+
+    on_err = err(got["e"], out_on["e"])
+    off_err = err(got["e"][:256], cpu_head["e"])
+    check(on_err <= 1e-5 and off_err <= 1e-5,
+          f"auto ai embed: {on_err} from the card's run, {off_err} from the CPU's")
+    on = "not measured in this call" if on_ms is None else f"{on_ms:.1f} ms (warm median of 3)"
+    print(f"auto ai embed: warm {ms:.1f} ms; on {on}; off not measured (the first 256 rows "
+          f"on the CPU: within {off_err:.3e}); within {on_err:.3e} of the card's run; "
+          f"device_udf_dispatches {snap['device_udf_dispatches']} [{card}]", flush=True)
+    return {"auto ai embed": {k: snap[f"launches_{k}"] for k in counters.KERNEL_NAMES}}
+
+
+def auto_ai_alone(card: str) -> dict:
+    """``--phase auto``'s ai embed cell: the model installed, one "on" run
+    (the weights resident), the first 256 rows on the CPU, then
+    ``auto_ai_embed``."""
+    import daft_tpu_torch as dt
+
+    install_ai_model()
+    texts = ai_corpus(SEED, AI_ROWS)
+    df = ai_frame(texts)
+    with dt_ctx():
+        t0 = time.perf_counter()
+        out = ai_embed_query(df).to_pydict()
+        _synchronize()
+        on_ms = (time.perf_counter() - t0) * 1e3
+    with dt.execution_config_ctx(device_mode="off"):
+        cpu = ai_embed_query(ai_frame(texts[:256], 256)).to_pydict()
+    print(f"auto ai embed: the \"on\" run (cold weights) {on_ms:.1f} ms [{card}]", flush=True)
+    return auto_ai_embed(df, out, cpu, card)
+
+
+def auto_runs(lineitem, orders) -> dict:
+    """``--phase auto``'s in-memory cells, each a callable returning its
+    result: the supplier query, q1, q12 and partkey over new frames."""
+    sup, q1df, pk = supplier_frame(lineitem), q1_frame(lineitem), partkey_frame(lineitem)
+    df_l, df_o = q12_frames(lineitem, orders)
+    return {"supplier": lambda: supplier_query(sup).to_pydict(),
+            "q1": lambda: q1_query(q1df).to_pydict(),
+            "q12": lambda: q12_query(df_l, df_o).to_pydict(),
+            "partkey": lambda: partkey_query(pk).to_pydict()}
+
+
 def phase_alone(name: str, lineitem, orders, dims, card: str) -> dict:
-    """``--phase ooc``, ``window`` or ``obs`` after the kernels phase: the
-    scan phase's tables in memory (and, for ooc and obs, lineitem written to
-    Parquet under a temporary directory, as the scan phase writes it; obs
-    builds its cells' frames as their phases do)."""
+    """``--phase ooc``, ``window``, ``obs`` or ``auto`` after the kernels
+    phase: the scan phase's tables in memory (and, for ooc, obs and auto,
+    lineitem written to Parquet under a temporary directory, as the scan
+    phase writes it; obs and auto build their cells' frames as their phases
+    do)."""
     import daft_tpu_torch as dt
 
     frames = scan_tables(lineitem, orders, dims)
@@ -5734,6 +5981,10 @@ def phase_alone(name: str, lineitem, orders, dims, card: str) -> dict:
             return phase_obs({"q1": q1_frame(lineitem), "q6": q6_frame(lineitem),
                               "q12": {"lineitem": df_l, "orders": df_o},
                               "tails": tails_frames(lineitem, orders, dims)}, d, card)
+        if name == "auto":
+            paths = phase_auto(frames, d, card, auto_runs(lineitem, orders))
+            paths.update(auto_ai_alone(card))
+            return paths
         return phase_ooc(frames, d, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5754,12 +6005,15 @@ def main(argv=None) -> int:
                         help="run the card, build, data and kernels phases only: the "
                              "kernels against their plain versions, with their times "
                              "(no main path runs, so no launches are counted)")
-    parser.add_argument("--phase", choices=("ooc", "window", "obs"),
+    parser.add_argument("--phase", choices=("ooc", "window", "obs", "auto"),
                         help="run the card, build, data and kernels phases, then this phase "
                              "alone: ooc (TPC-H under a host memory budget, the external "
-                             "sort, the Grace joins), window (W1, W2) or obs (EXPLAIN "
+                             "sort, the Grace joins), window (W1, W2), obs (EXPLAIN "
                              "ANALYZE, a trace, a subscriber and the cost of observing, "
-                             "on q1, q6, q12, q3 and a file-fed q6)")
+                             "on q1, q6, q12, q3 and a file-fed q6) or auto "
+                             "(device_mode=\"auto\": the calibration, the rates, and the "
+                             "ooc queries, the supplier, q1, q12, partkey and ai embed "
+                             "cells with every verdict)")
     parser.add_argument("--root", default=HERE,
                         help="the checkout whose daft_tpu_torch is driven (default: the "
                              "one beside this script), e.g. an unpacked parent commit to "
@@ -5784,22 +6038,27 @@ def main(argv=None) -> int:
         if args.phase is not None:
             paths.update(phase_alone(args.phase, lineitem, orders, dims, card))
         elif not args.kernels_only:
+            runs = {}  # the in-memory cells the auto phase runs again
             df, paths["supplier"] = phase_slice(lineitem, card)
+            runs["supplier"] = lambda df=df: supplier_query(df).to_pydict()
             phase_profile(lambda: supplier_query(df).to_pydict(), card)
             sql_tables = {}
             cells = {}  # each cell's in-memory result, for the scan and pipeline phases
             with dt_ctx():
                 cells["supplier"] = supplier_query(df).to_pydict()
             q12, paths["q12"] = phase_q12(lineitem, orders, card, sql_tables)
+            runs["q12"] = lambda q12=q12: q12().to_pydict()
             phase_profile(lambda: q12().to_pydict(), card, "q12 profile")
             with dt_ctx():
                 cells["q12"] = q12().to_pydict()
             del df, q12
             q1, paths["q1"], paths["q1_f64"] = phase_q1(lineitem, card, sql_tables)
+            runs["q1"] = q1
             phase_profile(q1, card, "q1 profile")
             with dt_ctx():
                 q1_result = q1()
             partkey, paths["partkey"] = phase_partkey(lineitem, card)
+            runs["partkey"] = partkey
             phase_profile(partkey, card, "partkey profile")
             q6, paths["q6"] = phase_q6(lineitem, card, sql_tables)
             phase_profile(q6, card, "q6 profile")
@@ -5847,6 +6106,8 @@ def main(argv=None) -> int:
                 del obs_tables
                 frames = scan_tables(lineitem, orders, dims)
                 paths.update(phase_ooc(frames, dirs["lineitem"], card))
+                paths.update(phase_auto(frames, dirs["lineitem"], card, runs))
+                del runs
             finally:
                 shutil.rmtree(root, ignore_errors=True)
             del cells

@@ -5,11 +5,19 @@ Frozen dataclass snapshot; ``set_execution_config`` replaces the process
 default and ``execution_config_ctx`` scopes an override.
 
 - ``device``: where device stages run, "cuda" (default) or "cpu". A query
-  with ``device_mode="on"`` resolves it first and raises when the card is
-  missing (utils/torch_setup.py).
-- ``device_mode``: "on" (default) runs qualifying stages as device stages,
-  "off" runs everything on the host. The reference's cost-model "auto" is
-  not ported yet.
+  with ``device_mode`` "on" or "auto" resolves it first and raises when the
+  card is missing (utils/torch_setup.py).
+- ``device_mode`` (``DAFT_TPU_DEVICE``): "on" (default) runs qualifying
+  stages as device stages, "off" runs everything on the host, "auto" prices
+  each qualifying stage's first morsel on the host and on the card
+  (ops/costmodel.py, calibrated on the card at the first priced decision)
+  and runs it where it is cheaper; a stage on a CPU device stays on the
+  host. The reference defaults to "auto"; the port keeps "on" until the
+  card's runs show which verdicts are right (ROADMAP Queue 3).
+- ``device_amortize_runs`` (``DAFT_TPU_DEVICE_AMORTIZE``, 64): under
+  "auto", a stage over resident in-memory tables charges 1/N of its
+  one-time costs (uploads, dictionary builds, join indices), which stay on
+  the card across queries; file scans pay them in full.
 - ``region_mode``: "on" (default) lets the planner fuse the chain of
   Filters and Projects under an aggregate into the aggregate's device stage
   (ops/region.py); "off" peels at most the one Filter directly under it.
@@ -31,9 +39,9 @@ default and ``execution_config_ctx`` scopes an override.
   timer thread); must be > 0.
 - ``mesh_devices``: 0 or 1 = no mesh; N >= 2 = a forced mesh of N shard
   slots on ``device`` for qualifying stages (today the hash repartition into
-  N partitions). The port has no cost model, so no "auto" width.
+  N partitions). The mesh has no cost arm yet, so no "auto" width.
 - ``device_min_rows``: inputs under this many rows stay on the host (the
-  mesh repartition's gate reads it).
+  mesh repartition's gate and "auto"'s first gate read it).
 - ``scan_split_bytes``: a Parquet file past this many bytes splits into
   scan tasks of whole row groups of about this many on-disk bytes each,
   and adjacent smaller tasks merge toward it; 0 turns both off (the
@@ -101,7 +109,9 @@ def _env_float(name: str, default: float) -> float:
 @dataclass(frozen=True)
 class ExecutionConfig:
     device: str = "cuda"
-    device_mode: str = "on"
+    device_mode: str = field(default_factory=lambda: os.environ.get("DAFT_TPU_DEVICE", "on"))
+    device_amortize_runs: int = field(
+        default_factory=lambda: _env_int("DAFT_TPU_DEVICE_AMORTIZE", 64))
     region_mode: str = "on"
     kernel_mode: str = "on"
     morsel_size_rows: int = 128 * 1024
@@ -130,8 +140,9 @@ class ExecutionConfig:
         default_factory=lambda: _env_int("DAFT_TPU_SPILL_PREFETCH_BATCHES", 2))
 
     def __post_init__(self) -> None:
-        if self.device_mode not in ("on", "off"):
-            raise ValueError(f"device_mode must be 'on' or 'off', got {self.device_mode!r}")
+        if self.device_mode not in ("on", "off", "auto"):
+            raise ValueError(f"device_mode must be one of 'on'/'off'/'auto', got "
+                             f"{self.device_mode!r} (check DAFT_TPU_DEVICE)")
         if self.region_mode not in ("on", "off"):
             raise ValueError(f"region_mode must be one of 'on'/'off', got "
                              f"{self.region_mode!r}")

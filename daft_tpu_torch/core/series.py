@@ -125,7 +125,13 @@ def _utf8_len(v) -> int:
 
 def _concat_codes(raws):
     """The raw codes of Series concatenated, from each one's (codes,
-    values): one value list, each part's codes mapped into it."""
+    values): one value list, each part's codes mapped into it. Parts that
+    share one value list (taken from one Series) keep it and their codes as
+    they are: mapping a high-cardinality list value by value per part
+    would cost more than the codes save."""
+    values = raws[0][1]
+    if all(v is values for _c, v in raws):
+        return "raw", np.concatenate([c for c, _v in raws]), values
     index: dict = {}
     out = []
     for codes, values in raws:
@@ -348,6 +354,14 @@ class Series:
         return manager().get_or_build(
             self, ("col", pad_to, bool(f32), str(device)),
             lambda: self.to_device(pad_to, f32=f32, device=device))
+
+    def is_device_resident(self, pad_to: Optional[int] = None, f32: bool = False,
+                           device=None) -> bool:
+        """True when ``to_device_cached`` would upload nothing for this
+        layout (the cost model prices resident planes at zero transfer)."""
+        from ..device.residency import manager
+
+        return manager().is_resident(self, ("col", pad_to, bool(f32), str(device)))
 
     def content_fingerprint(self) -> int:
         """64-bit hash of this column's content: dtype, length, values and

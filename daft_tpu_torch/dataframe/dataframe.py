@@ -7,14 +7,16 @@ cross), ``distinct``, ``repartition``,
 ``collect``, ``to_pydict``, ``write_parquet`` and ``write_csv``; the
 readers (``read_parquet``, ``read_csv``) make a DataFrame over a scan
 (``from_scan``). ``explain``, ``explain_analyze`` and ``metrics`` report
-the plans and a run's per-operator stats (observability/).
+the plans and a run's per-operator stats (observability/);
+``explain_placement`` the cost model's placement decisions.
 
 Every method appends a logical node; ``collect`` hands the plan to the
 runner (runners/native.py), which optimizes it (plan/optimizer.py, as the
 reference's ``collect`` does), translates it under the current execution
 config and runs it; the result partitions are cached.
-With ``device_mode="on"`` the configured device is resolved first, so a
-query asked to run on a missing card raises instead of running on the CPU.
+With ``device_mode`` "on" or "auto" the configured device is resolved
+first, so a query asked to run on a missing card raises instead of running
+on the CPU.
 """
 
 from __future__ import annotations
@@ -167,11 +169,21 @@ class DataFrame:
         return report
 
     def explain_placement(self) -> str:
-        """The cost model's placement decisions: not ported yet (ROADMAP
-        Queue 1 item 1, the cost model), as SQL's EXPLAIN PLACEMENT."""
-        raise NotImplementedError(
-            "explain_placement reports the cost model's placement decisions; the "
-            "port has no cost model yet")
+        """Run the query and report every placement decision the cost model
+        made (observability/placement.py ``render``): the chosen tier, the
+        per-term cost table of each priced side (rtt, h2d, probe, compute,
+        table, d2h, factorize; the residency credit), the margin (how close
+        the losing side was), cached against fresh verdicts, and for
+        dispatched device stages the observed seconds and the model's error
+        per row. The records also ride ``QueryEnd.placements`` and the
+        process ledger behind the dashboard's /api/placement."""
+        from ..observability import placement
+        from ..runners import get_or_create_runner
+
+        with placement.query_scope() as scope:
+            for _ in get_or_create_runner().run_iter(self._plan):
+                pass
+        return placement.render(scope.records())
 
     def where(self, predicate: ColumnInput) -> "DataFrame":
         return DataFrame(lp.Filter(self._plan, _to_expr(predicate)))

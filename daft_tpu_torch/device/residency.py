@@ -12,8 +12,14 @@ queries that differ only in predicate literals reuse one slot per query
 shape (``expr_structure``). Entries die with their anchor (weakref), are
 evicted least-recently-used first when the device bytes pass
 ``budget_bytes``, and are never evicted while pinned by a running query
-(``pin_scope``). The reference also weights eviction by each entry's
-rebuild cost; the port's eviction is plain LRU.
+(``pin_scope``). Eviction is the reference's recency-bucketed LRU, cheapest
+to rebuild first: of the ``EVICT_BUCKET`` least-recently-used unpinned
+entries (at most the older half), the one with the smallest
+``ops/costmodel.py`` ``rebuild_cost_estimate`` (its re-upload plus the host
+factorize its build re-runs, ``rebuild_rows``) goes first, so a column plane
+sheds before a dictionary-code or join index plane of similar age
+(``hbm_evict_cost_saved`` counts the microseconds saved against pure LRU).
+``is_resident`` is the cost model's advisory probe.
 
 Stable keys (the reference's ``stable_slot_key``): a deps-free slot (a
 column plane, a dictionary-code plane: a pure function of its anchor's
@@ -30,8 +36,8 @@ Unlike the reference's, an entry still pinned by the running query is kept
 too: a streamed morsel's Series dies before its query ends.
 
 Registry (observability/metrics.py): the counters ``hbm_cache_hits``,
-``hbm_cache_misses``, ``hbm_stable_rehits``, ``hbm_pins``, ``hbm_evictions``
-and ``hbm_eviction_bytes``; the gauges ``hbm_bytes_resident`` and
+``hbm_cache_misses``, ``hbm_stable_rehits``, ``hbm_pins``, ``hbm_evictions``,
+``hbm_eviction_bytes`` and ``hbm_evict_cost_saved``; the gauges ``hbm_bytes_resident`` and
 ``hbm_bytes_high_water`` (reset to what stays resident by ``clear()``).
 """
 
@@ -126,9 +132,11 @@ def stable_slot_key(anchor, key: tuple):
 
 
 class _Entry:
-    __slots__ = ("value", "nbytes", "pins", "anchor_ref", "deps", "literals", "stable")
+    __slots__ = ("value", "nbytes", "pins", "anchor_ref", "deps", "literals", "stable",
+                 "cost")
 
-    def __init__(self, value, nbytes: int, deps: tuple, literals, stable=None):
+    def __init__(self, value, nbytes: int, deps: tuple, literals, stable=None,
+                 cost: float = 0.0):
         self.value = value
         self.nbytes = nbytes
         self.pins = 0
@@ -136,10 +144,19 @@ class _Entry:
         self.deps = deps
         self.literals = literals
         self.stable = stable
+        self.cost = cost  # estimated seconds to rebuild (eviction order)
 
 
 class ResidencyManager:
-    """Process-wide registry of device-resident buffers with LRU eviction."""
+    """Process-wide registry of device-resident buffers with cost-weighted
+    LRU eviction."""
+
+    # Eviction weighs the EVICT_BUCKET least-recently-used unpinned entries
+    # (at most the older half) by rebuild cost and drops the cheapest, so a
+    # squeeze sheds re-uploadable column planes before index or dictionary
+    # planes of similar age; with two entries the pick is pure LRU, so a hot
+    # cheap plane is never sacrificed to a cold expensive one.
+    EVICT_BUCKET = 8
 
     def __init__(self) -> None:
         self._lock = threading.RLock()
@@ -153,12 +170,15 @@ class ResidencyManager:
         self._tl = threading.local()
 
     def get_or_build(self, anchor, key: tuple, build: Callable[[], Any], deps: tuple = (),
-                     literals=None):
+                     literals=None, rebuild_rows: int = 0):
         """The cached value for (anchor, key), built by ``build()`` when
         absent, or rebuilt in place when a dep is not the identical object
         or the literals differ. A deps-free slot that misses by identity is
-        rebound from an entry of equal content when there is one."""
+        rebound from an entry of equal content when there is one.
+        ``rebuild_rows``: the host rows the build factorizes or probes, which
+        an eviction would make it pay again (eviction order)."""
         from ..ops import counters
+        from ..ops.costmodel import rebuild_cost_estimate
 
         full_key = (identity_token(anchor), key)
         deps = tuple(deps)
@@ -181,9 +201,11 @@ class ResidencyManager:
                     return e.value
         counters.bump("hbm_cache_misses")
         value = build()  # outside the lock: a build may re-enter the manager
+        nbytes = device_nbytes(value)
+        cost = rebuild_cost_estimate(nbytes, rebuild_rows)
         with self._lock:
             old = self._entries.pop(full_key, None)
-            e = _Entry(value, device_nbytes(value), deps, literals, stable)
+            e = _Entry(value, nbytes, deps, literals, stable, cost)
             if old is not None:
                 self._drop_accounting(full_key, old)
                 e.pins = old.pins
@@ -227,6 +249,24 @@ class ResidencyManager:
         self._watch_anchor(anchor, full_key, e)
         self._pin(full_key, e)
         return e
+
+    def is_resident(self, anchor, key: tuple) -> bool:
+        """Advisory residency probe for the cost model (no deps or literal
+        check, no LRU touch, no counters): True when a value for this slot
+        is registered, by the anchor's identity or, when the anchor's content
+        fingerprint is already computed, by its content (the rebind a re-read
+        file's planes take). Never computes a fingerprint."""
+        full_key = (identity_token(anchor), key)
+        with self._lock:
+            if full_key in self._entries:
+                return True
+        if getattr(anchor, "_content_fp", None) is None:
+            return False
+        stable = stable_slot_key(anchor, key)
+        if stable is None:
+            return False
+        with self._lock:
+            return self._stable.get(stable) in self._entries
 
     def _watch_anchor(self, anchor, full_key: tuple, e: _Entry) -> None:
         dead = self._dead
@@ -312,13 +352,21 @@ class ResidencyManager:
 
         evicted = False
         while self._bytes > budget:
-            victim = next(((k, e) for k, e in self._entries.items() if e.pins == 0), None)
-            if victim is None:
+            # front = least recently used; only unpinned entries count toward
+            # the half, or pinned ones would pad the window into the hot tail
+            unpinned = [(k, e) for k, e in self._entries.items() if e.pins == 0]
+            if not unpinned:
                 break  # everything pinned: overshoot until the scope ends
-            self._entries.pop(victim[0])
-            self._drop_accounting(*victim)
+            bucket = unpinned[:min(self.EVICT_BUCKET, max(1, (len(unpinned) + 1) // 2))]
+            victim_key, victim = min(bucket, key=lambda kv: kv[1].cost)
+            lru_cost = bucket[0][1].cost
+            if victim.cost < lru_cost:
+                # rebuild seconds the pure-LRU victim would have cost (µs)
+                registry().inc("hbm_evict_cost_saved", int((lru_cost - victim.cost) * 1e6))
+            self._entries.pop(victim_key)
+            self._drop_accounting(victim_key, victim)
             registry().inc("hbm_evictions")
-            registry().inc("hbm_eviction_bytes", victim[1].nbytes)
+            registry().inc("hbm_eviction_bytes", victim.nbytes)
             evicted = True
         if evicted:
             self._note_bytes()

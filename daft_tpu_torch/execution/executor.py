@@ -18,7 +18,7 @@ UDF that feeds it (``_try_fused_udf_agg``). A ``UDFProject`` runs its UDF
 on the host, a ``DeviceUdfProject`` on the device-UDF tier
 (``_run_device_udf_stage``). A ``DeviceGroupedAgg`` runs its stage on the
 configured device (the reference's device agg branch, executor.py:580-733,
-without the mesh and cost-model arms): each batch is buffered, and when the
+without the mesh arm): each batch is buffered, and when the
 stage raises ``DeviceFallback`` (its group count outgrew the kernels'
 envelope, detected before any launch) the whole buffered stream reruns on
 the host. Both stages, and the join runs but the TopN, take their morsels
@@ -37,6 +37,14 @@ the writer (io/writers.py). Any other error, a kernel that fails to build or
 launch included, propagates, from a stage thread through its channel: no
 device failure turns into a host result.
 
+Placement: under ``device_mode="on"`` every device node runs on the device
+(each run recorded as forced in the placement ledger,
+observability/placement.py); under "off" on the host; under "auto" each
+device aggregate, join, join TopN and device UDF prices its first morsel
+on the host and on the card (``_device_wins``, ``_join_device_wins``,
+``_udf_device_wins``, over ops/costmodel.py) and runs where it is cheaper.
+A CPU device is gated to the host without pricing (``_auto_gate``).
+
 Out of core (``memory_limit_bytes`` > 0; memory/): the host sort, the host
 aggregations, the host join's build side and the window admit each batch
 against the process's byte ledger and, once it is over the budget, switch
@@ -51,6 +59,7 @@ spill counter moves.
 from __future__ import annotations
 
 import itertools
+import threading
 from typing import Iterator, List, Optional
 
 import numpy as np
@@ -60,8 +69,11 @@ from ..core.recordbatch import RecordBatch
 from ..core.series import Series
 from ..expressions.eval import eval_expression, eval_projection
 from ..expressions.expressions import AggExpr, Alias, Expression, col
+from ..observability import placement as _placement
+from ..ops import costmodel as _costmodel
 from ..plan import physical as pp
 from ..schema import Schema
+from ..utils.env import env_bool
 
 
 def execute_plan(plan: pp.PhysicalPlan) -> Iterator[MicroPartition]:
@@ -506,12 +518,317 @@ def _note_region(node, region_ops, dispatches: int) -> None:
                          f"({region_label(region_ops)}), {d}")
 
 
+# ---- placement: device_mode="auto" and the placement ledger --------------------------
+#
+# The reference's cost-model decision points (daft_tpu/execution/executor.py:
+# the "auto" branch of _exec_device_agg, _device_wins, the join's auto path
+# and _join_device_wins, the device UDF's and _udf_device_wins, the bounded
+# decision cache), priced by ops/costmodel.py over the port's kernel tier.
+# Under "on" each device run is recorded as forced (priced too with
+# DAFT_TPU_PLACEMENT_PRICE_FORCED) and wrapped in placement.feedback, as in
+# the reference; under "off" nothing here runs.
+
+
+def _auto_gate(cfg) -> Optional[str]:
+    """Why "auto" keeps a stage on the host without pricing it, or None: the
+    configured device is the CPU (the counterpart of the reference's
+    ``jax.default_backend() == "cpu"`` bail). A "cuda" device without a card
+    raises here, through resolve_device, as under "on". The one function
+    the tests monkeypatch to price stages on CPU tensors."""
+    from ..utils.torch_setup import resolve_device
+
+    return "cpu device" if resolve_device(cfg.device).type == "cpu" else None
+
+
+def _price_forced(cfg) -> bool:
+    """Price a forced "on" run too (DAFT_TPU_PLACEMENT_PRICE_FORCED), so the
+    ledger gets predicted-against-observed samples; never on a CPU device,
+    which has no calibration to price with."""
+    return env_bool("DAFT_TPU_PLACEMENT_PRICE_FORCED", False) and _auto_gate(cfg) is None
+
+
+class _BoundedDecisionCache:
+    """Thread-safe bounded FIFO verdict cache. Concurrent queries hit it from
+    many threads at once; a plain dict's ``pop(next(iter(d)))`` eviction
+    under concurrent insertion can raise mid-query, so reads and the
+    insert+evict pair are locked (one probe per cost decision, never per
+    row)."""
+
+    def __init__(self, cap: int = 512):
+        self._lock = threading.Lock()
+        self._d: dict = {}
+        self.cap = cap
+
+    def get(self, key, default=None):
+        with self._lock:
+            return self._d.get(key, default)
+
+    def put(self, key, value) -> None:
+        with self._lock:
+            self._d[key] = value
+            while len(self._d) > self.cap:
+                self._d.pop(next(iter(self._d)))
+
+    def clear(self) -> None:
+        with self._lock:
+            self._d.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._d)
+
+
+_DECISION_CACHE = _BoundedDecisionCache()
+
+
+def _invalidate_costed_verdicts() -> None:
+    """costmodel.reset_calibration() hook: every cached verdict was priced
+    under the Calibration being discarded, so a recalibrated process
+    re-decides instead of replaying stale verdicts."""
+    _DECISION_CACHE.clear()
+
+
+_costmodel.on_calibration_reset(_invalidate_costed_verdicts)
+
+
+def _batch_layout(part: MicroPartition) -> tuple:
+    """Batch-granularity signature of one partition: (nonempty batch count,
+    mean batch rows padded to its bucket). The coalesce horizon derives from
+    it, so it identifies a cached verdict without a second-partition peek."""
+    from ..ops.stage import pad_bucket
+
+    sizes = [b.num_rows for b in part.batches if b.num_rows > 0]
+    if not sizes:
+        return (0, 0)
+    return (len(sizes), pad_bucket(int(sum(sizes) / len(sizes))))
+
+
+def _decision_key(node, rows: int, cfg, topn: bool, layout: tuple) -> tuple:
+    """Structural identity of one join decision: the captured spec's shape,
+    the input size, the config knobs the decision reads, the fact's batch
+    layout and the dim tables' identity. A repeat whose tail or residency
+    differs reuses the verdict (a repeat-query heuristic, as in the
+    reference); a config change to a keyed knob re-decides."""
+    from ..device.residency import identity_token
+
+    spec = node.spec
+    return (
+        topn, rows, cfg.device_mode, cfg.device_amortize_runs,
+        cfg.batch_fill_target, cfg.morsel_size_rows, layout, cfg.device,
+        repr(spec.predicate),
+        tuple(repr(g) for g in spec.groupby),
+        tuple(repr(a) for a in spec.aggregations),
+        tuple((d.key_col, d.parent) for d in spec.dims),
+        tuple(identity_token(part)
+              for _n, plan in node.dim_plans
+              for part in getattr(plan, "partitions", ())),
+    )
+
+
+def _coalesce_horizon(parts) -> float:
+    """Expected dispatch-coalescing factor from the observed leading
+    partitions' batch granularity (the first, and a peeked second): the
+    mean nonempty batch size against the coalescer's flush threshold,
+    capped by the number of batches seen, so the model never prices an
+    amortization the coalescer cannot deliver. 1.0 with coalescing off."""
+    from ..config import execution_config
+    from .batching import coalesce_target_rows
+
+    target = coalesce_target_rows(execution_config())
+    if target <= 0:
+        return 1.0
+    sizes = [b.num_rows for p in parts for b in p.batches if b.num_rows > 0]
+    if len(sizes) <= 1:
+        return 1.0
+    mean_rows = int(sum(sizes) / len(sizes))
+    return min(_costmodel.expected_coalesce_factor(mean_rows, target), float(len(sizes)))
+
+
+def _resident_source(n) -> bool:
+    """True when the chain under ``n`` ends in an in-memory table (its
+    planes stay resident across queries)."""
+    while n is not None:
+        if isinstance(n, pp.InMemoryScan):
+            return True
+        n = getattr(n, "input", None)
+    return False
+
+
+def _resident_source_rec(n) -> bool:
+    """True if every leaf under ``n`` is an in-memory scan."""
+    kids = n.children()
+    if not kids:
+        return isinstance(n, pp.InMemoryScan)
+    return all(_resident_source_rec(k) for k in kids)
+
+
+def _plane_bytes(batch, cols, bucket: int, f32: bool, device) -> tuple:
+    """(non-resident, resident) upload bytes of ``cols`` of one batch in the
+    stage's layout: 4 or 8 value bytes and a validity byte a row."""
+    per = 5 if f32 else 9
+    nonres = res = 0
+    for c in cols:
+        if batch.get_column(c).is_device_resident(bucket, f32=f32, device=device):
+            res += batch.num_rows * per
+        else:
+            nonres += batch.num_rows * per
+    return nonres, res
+
+
+def _auto_agg(node, stream, grouped: bool, cfg):
+    """The reference's "auto" branch of a device aggregate: peek the first
+    morsel (and a second when the coalescer is on), apply the
+    device_min_rows gate and the CPU gate, then price it. Returns
+    (run on the device, placement record, the stream with the peeked
+    morsels chained back)."""
+    from .batching import coalesce_target_rows
+
+    site = "grouped agg" if grouped else "agg"
+    first = next(stream, None)
+    if first is None:
+        return False, None, stream
+    second = None
+    wins, prec = False, None
+    if first.num_rows < cfg.device_min_rows:
+        # the common tiny-query bail: recorded only when a scope listens
+        _placement.ledger().gate(site, "below device_min_rows", first.num_rows,
+                                 only_scoped=True)
+    else:
+        why = _auto_gate(cfg)
+        if why is not None:
+            _placement.ledger().gate(site, why, first.num_rows, only_scoped=True)
+        else:
+            if coalesce_target_rows(cfg) > 0:
+                # a second morsel widens the coalesce horizon the model prices
+                second = next(stream, None)
+            wins, prec = _device_wins(node, first, grouped, second=second)
+            if not wins:
+                from ..ops import counters
+
+                counters.reject(site, "host wins cost model")
+    peeked = [first] if second is None else [first, second]
+    return wins, prec, itertools.chain(peeked, stream)
+
+
+def _forced_record(node, stream, grouped: bool, cfg):
+    """The ledger record of a forced ("on") device aggregate: priced under
+    DAFT_TPU_PLACEMENT_PRICE_FORCED, else uncosted. Returns (record, stream
+    with any peeked morsel chained back)."""
+    prec = None
+    if _price_forced(cfg):
+        first = next(stream, None)
+        if first is not None:
+            stream = itertools.chain([first], stream)
+            _w, prec = _device_wins(node, first, grouped, forced=True)
+    if prec is None:
+        prec = _placement.ledger().record("grouped agg" if grouped else "agg", "device",
+                                          forced=True)
+    return prec, stream
+
+
+def _device_wins(node, first: MicroPartition, grouped: bool,
+                 second: Optional[MicroPartition] = None, forced: bool = False):
+    """Cost-model decision for one device aggregate from its first morsel:
+    (wins, placement record), the record carrying both sides'
+    CostBreakdowns. One-time costs (uploads, dictionary builds, the host
+    factorize the port caches on a batch) amortize over
+    ``device_amortize_runs`` when the input is a resident in-memory table;
+    a file scan pays them in full. ``forced`` prices a forced run for the
+    ledger only: the caller ignores the verdict."""
+    from ..config import execution_config
+    from ..ops.region import node_region_ops
+    from ..ops.stage import pad_bucket
+    from ..utils.torch_setup import resolve_device
+
+    site = "grouped agg" if grouped else "agg"
+    batch = next((b for b in first.batches if b.num_rows > 0), None)
+    if batch is None:
+        return False, None
+    cfg = execution_config()
+    device = resolve_device(cfg.device)
+    rows = first.num_rows
+    cal = _costmodel.calibrate()
+    coal = _coalesce_horizon([first] if second is None else [first, second])
+    amort = max(cfg.device_amortize_runs, 1) if _resident_source(node.input) else 1
+    # region ops the host path evaluates BEYOND the filter + agg that
+    # host_agg_cost's base terms already price (absorbed projects/filters)
+    extra_ops = max(len(node_region_ops(node)) - (2 if node.predicate is not None else 1), 0)
+    bucket = pad_bucket(batch.num_rows)
+    if grouped:
+        from ..ops.grouped_stage import (MAX_SORT_SEGMENTS, _pad_groups, estimate_groups,
+                                         resolve_key_series, try_build_grouped_agg_stage)
+
+        stage = try_build_grouped_agg_stage(node.input.schema, node.predicate,
+                                            node.groupby, node.aggregations)
+        if stage is None:
+            return False, None
+        f32 = not stage._use_f64
+        nonres, res = _plane_bytes(batch, stage._input_cols, bucket, f32, device)
+        key_series = resolve_key_series(batch, stage.groupby, batch.num_rows)
+        card = estimate_groups(key_series, batch.num_rows)
+        if card > MAX_SORT_SEGMENTS and not forced:
+            # the run would raise DeviceFallback before its first launch
+            from ..ops import counters
+
+            counters.reject(site, "est group count over ceiling")
+            _placement.ledger().gate(site, "est group count over ceiling", rows)
+            return False, None
+        cap = _pad_groups(min(card, MAX_SORT_SEGMENTS))
+        if stage.dict_keys:
+            # dictionary builds and code planes are cached per Series:
+            # amortized like uploads; a new morsel's Series builds its own
+            fact_rows = sum(batch.num_rows for s in key_series
+                            if getattr(s, "_dict_codes", None) is None)
+            for s in key_series:
+                from ..device.residency import manager as _residency
+
+                if not _residency().is_resident(s, ("dictcodes", bucket, str(device))):
+                    nonres += batch.num_rows * 4
+        else:
+            # host-factorized codes are cached on the batch (stage_cache)
+            fact_rows = batch.num_rows
+            nonres += batch.num_rows * 4
+        k1, k7 = (len(r) for r in stage.sum_routes())
+        # a float extreme takes two K3 launches (the value, its zero's sign)
+        k3 = len(stage._ext_specs) - 1 + len(stage._float_ext) + len(stage._sct_specs)
+        dev = _costmodel.device_grouped_kernel_cost(
+            cal, rows, nonres // amort, k1=k1, k7=k7, k2=1, k3=k3, cap=cap,
+            factorize_rows=fact_rows // amort, coalesce=coal, resident_bytes=res)
+        host = _costmodel.host_agg_cost(cal, rows, len(node.aggregations), grouped=True,
+                                        has_predicate=node.predicate is not None,
+                                        n_region_ops=extra_ops)
+        detail = (f"{len(node.groupby)} keys, {len(node.aggregations)} aggs, "
+                  f"~{card} groups (cap {cap}), K1 {k1} / K7 {k7} / K2 1 / K3 {k3} planes")
+    else:
+        from ..ops.stage import try_build_filter_agg_stage
+
+        stage = try_build_filter_agg_stage(node.input.schema, node.predicate,
+                                           node.aggregations)
+        if stage is None:
+            return False, None
+        nonres, res = _plane_bytes(batch, stage._input_cols, bucket, not stage._use_f64,
+                                   device)
+        dev = _costmodel.device_ungrouped_cost(cal, rows, nonres // amort,
+                                               n_partials=max(len(stage.aggs), 1),
+                                               coalesce=coal, resident_bytes=res)
+        host = _costmodel.host_agg_cost(cal, rows, len(node.aggregations), grouped=False,
+                                        has_predicate=node.predicate is not None,
+                                        n_region_ops=extra_ops)
+        detail = (f"{len(node.aggregations)} aggs"
+                  + (", filtered" if node.predicate is not None else ""))
+    wins = dev < host
+    rec = _placement.ledger().record(site, "device" if (wins or forced) else "host", rows,
+                                     forced=forced, device=dev, host=host, detail=detail)
+    return wins, rec
+
+
 def _exec_device_agg(node: pp.DeviceGroupedAgg) -> MicroPartition:
     """Run a DeviceGroupedAgg: the device stage, or the host under
-    device_mode="off" and after a DeviceFallback. The host path and the
-    rerun buffer read the node's input narrowed to its referenced columns;
-    the device stage reads the input batches themselves, so their cached
-    planes and group codes still hit."""
+    device_mode="off", where "auto" prices the host lower, and after a
+    DeviceFallback. The host path and the rerun buffer read the node's
+    input narrowed to its referenced columns; the device stage reads the
+    input batches themselves, so their cached planes and group codes still
+    hit."""
     from ..config import execution_config
     from ..device.residency import manager as _residency
     from ..ops import counters
@@ -531,6 +848,12 @@ def _exec_device_agg(node: pp.DeviceGroupedAgg) -> MicroPartition:
 
     if cfg.device_mode == "off":
         return _host_agg(_narrowed(stream, keep))
+    if cfg.device_mode == "auto":
+        wins, prec, stream = _auto_agg(node, stream, True, cfg)
+        if not wins:
+            return _host_agg(_narrowed(stream, keep))
+    else:
+        prec, stream = _forced_record(node, stream, True, cfg)
 
     device = resolve_device(cfg.device)
     stage = try_build_grouped_agg_stage(node.input.schema, node.predicate,
@@ -540,18 +863,22 @@ def _exec_device_agg(node: pp.DeviceGroupedAgg) -> MicroPartition:
                            "kernel tier does not accept under the current config")
     run = stage.start_run(device)
     buffered: List[MicroPartition] = []
+    fed_rows = 0
 
     def buffering():
+        nonlocal fed_rows
         for part in stream:
             buffered.append(part if keep is None else part.select_columns(keep))
+            fed_rows += part.num_rows
             yield part
 
     d0 = counters.device_grouped_batches
     try:
         # pin the query's resident planes so a tight budget cannot evict
         # buffers this run still reads; released at scope exit
-        with _residency().pin_scope():
+        with _placement.feedback(prec) as fb, _residency().pin_scope():
             _feed_stream(buffering(), run.feed_batch, cfg)
+            fb.set_rows(fed_rows)
             key_rows, results = run.finalize()
     except DeviceFallback as exc:
         # raised before any launch for the offending batch: rerun the whole
@@ -569,8 +896,8 @@ def _exec_device_agg(node: pp.DeviceGroupedAgg) -> MicroPartition:
 def _exec_device_filter_agg(node: pp.DeviceFilterAgg) -> MicroPartition:
     """Run a DeviceFilterAgg: the ungrouped device stage over every batch
     of the input, or the host (over the input narrowed to its referenced
-    columns) under device_mode="off". A failure on the device raises:
-    nothing reruns on the host."""
+    columns) under device_mode="off" and where "auto" prices the host
+    lower. A failure on the device raises: nothing reruns on the host."""
     from ..config import execution_config
     from ..device.residency import manager as _residency
     from ..ops import counters
@@ -588,6 +915,12 @@ def _exec_device_filter_agg(node: pp.DeviceFilterAgg) -> MicroPartition:
     stream = _exec(node.input)
     if cfg.device_mode == "off":
         return _host_filter_agg(node, stream)
+    if cfg.device_mode == "auto":
+        wins, prec, stream = _auto_agg(node, stream, False, cfg)
+        if not wins:
+            return _host_filter_agg(node, stream)
+    else:
+        prec, stream = _forced_record(node, stream, False, cfg)
     device = resolve_device(cfg.device)
     stage = try_build_filter_agg_stage(node.input.schema, node.predicate, node.aggregations)
     if stage is None:
@@ -595,8 +928,17 @@ def _exec_device_filter_agg(node: pp.DeviceFilterAgg) -> MicroPartition:
                            "not accept")
     run = stage.start_run(device)
     d0 = counters.device_stage_batches
-    with _residency().pin_scope():
-        _feed_stream(stream, run.feed_batch, cfg)
+    fed_rows = 0
+
+    def counting():
+        nonlocal fed_rows
+        for part in stream:
+            fed_rows += part.num_rows
+            yield part
+
+    with _placement.feedback(prec) as fb, _residency().pin_scope():
+        _feed_stream(counting(), run.feed_batch, cfg)
+        fb.set_rows(fed_rows)
         final = run.finalize()
     _note_region(node, node_region_ops(node), counters.device_stage_batches - d0)
     return _ungrouped_output(node.schema, stage, final)
@@ -612,32 +954,109 @@ def _host_filter_agg(node: pp.DeviceFilterAgg, stream) -> MicroPartition:
     return MicroPartition(node.schema, [out.cast_to_schema(node.schema)])
 
 
-def _udf_host_parts(node: pp.UDFProject, stream) -> Iterator[MicroPartition]:
+def _udf_host_parts(node: pp.UDFProject, stream, on_cpu: bool = False
+                    ) -> Iterator[MicroPartition]:
     """A UDFProject on the host, one part at a time (a device Func through
     ops/udf_stage.py ``host_eval_device_func``, on the configured device, or
-    on the CPU under device_mode="off")."""
+    on the CPU under device_mode="off" and with ``on_cpu``, the host arm of
+    an "auto" verdict)."""
     exprs = list(node.passthrough) + [node.udf_expr]
     for part in stream:
-        batches = [eval_projection(b, exprs) for b in part.batches]
+        if on_cpu:
+            from ..ops.udf_stage import host_arm
+
+            with host_arm():
+                batches = [eval_projection(b, exprs) for b in part.batches]
+        else:
+            batches = [eval_projection(b, exprs) for b in part.batches]
         yield MicroPartition(node.schema, batches or [RecordBatch.empty(node.schema)])
 
 
 def _exec_device_udf(node: pp.DeviceUdfProject) -> Iterator[MicroPartition]:
     """Run a DeviceUdfProject: the device-UDF stage on the configured device
     (which must be there), or the host path under device_mode="off" (on the
-    CPU, never touching the card). The reference's cost-model choice
-    ("auto") comes with the cost model."""
+    CPU, never touching the card) and where "auto" prices the host lower
+    (``device_udf_cost`` against ``host_udf_cost``, cached per function
+    fingerprint and batch layout)."""
     from ..config import execution_config
+    from ..ops import counters
+    from ..ops.udf_stage import func_fingerprint
 
     cfg = execution_config()
+    call = pp.device_udf_call(node.udf_expr)
     stream = _exec(node.input)
     if cfg.device_mode == "off":
         yield from _udf_host_parts(node, stream)
         return
-    yield _run_device_udf_stage(node, stream, cfg)
+    prec = None
+    if cfg.device_mode == "auto":
+        why = _auto_gate(cfg)
+        if why is not None:
+            counters.reject("device udf", why)
+            counters.bump("device_udf_fallbacks")
+            _placement.ledger().gate("udf", why, only_scoped=True)
+            yield from _udf_host_parts(node, stream, on_cpu=True)
+            return
+        first = next(stream, None)
+        if first is None:
+            yield MicroPartition(node.schema, [RecordBatch.empty(node.schema)])
+            return
+        stream = itertools.chain([first], stream)
+        dk = ("udf", func_fingerprint(call.func), cfg.device_mode, cfg.batch_fill_target,
+              cfg.morsel_size_rows, cfg.device, _batch_layout(first))
+        wins = _DECISION_CACHE.get(dk)
+        if wins is None:
+            wins, prec = _udf_device_wins(call.func, first, _coalesce_horizon([first]))
+            _DECISION_CACHE.put(dk, wins)
+        else:
+            prec = _placement.ledger().record("udf", "device" if wins else "host",
+                                              first.num_rows, cached=True,
+                                              detail=call.func.name)
+        if not wins:
+            counters.reject("device udf", "host wins cost model")
+            counters.bump("device_udf_fallbacks")
+            yield from _udf_host_parts(node, stream, on_cpu=True)
+            return
+    else:
+        if _price_forced(cfg):
+            first = next(stream, None)
+            if first is None:
+                yield MicroPartition(node.schema, [RecordBatch.empty(node.schema)])
+                return
+            stream = itertools.chain([first], stream)
+            _w, prec = _udf_device_wins(call.func, first, _coalesce_horizon([first]),
+                                        forced=True)
+        if prec is None:
+            prec = _placement.ledger().record("udf", "device", forced=True,
+                                              detail=call.func.name)
+    yield _run_device_udf_stage(node, stream, cfg, prec)
 
 
-def _run_device_udf_stage(node: pp.DeviceUdfProject, stream, cfg) -> MicroPartition:
+def _udf_device_wins(func, first: MicroPartition, coal: float, forced: bool = False):
+    """Cost decision for one device-UDF stage: (wins, placement record). The
+    flops estimate is the reference's, coarse (2 x weight scalars a row);
+    both sides use it, so the verdict hangs on the measured rates, the
+    per-morsel input upload and the coalesce-amortized round trip. Weight
+    uploads are priced at zero: a residency-managed one-time investment."""
+    from ..ops.udf_stage import func_weight_nbytes
+
+    cal = _costmodel.calibrate()
+    rows = first.num_rows
+    w_nbytes = func_weight_nbytes(func)
+    w_scalars = (w_nbytes // 4) if w_nbytes else 1 << 20
+    flops = 2.0 * w_scalars * rows
+    in_bytes = rows * 1024        # tokenized ids + mask, order of magnitude
+    fetch_bytes = rows * 512      # output rows (embedding width order)
+    dev = _costmodel.device_udf_cost(cal, rows, in_bytes, flops, fetch_bytes, coalesce=coal)
+    host = _costmodel.host_udf_cost(cal, flops)
+    wins = dev < host
+    rec = _placement.ledger().record("udf", "device" if (wins or forced) else "host", rows,
+                                     forced=forced, device=dev, host=host, detail=func.name)
+    return wins, rec
+
+
+def _run_device_udf_stage(node: pp.DeviceUdfProject, stream, cfg,
+                          prec=None) -> MicroPartition:
     """One DeviceUdfProject on the device tier: the input's batches through
     the dispatch coalescer into the stage, under a pin scope that holds the
     weights, one copy back at finalize; the output is the passthrough
@@ -659,9 +1078,10 @@ def _run_device_udf_stage(node: pp.DeviceUdfProject, stream, cfg) -> MicroPartit
             parts.append(part)
             yield part
 
-    with _residency().pin_scope():
+    with _placement.feedback(prec) as fb, _residency().pin_scope():
         run = stage.start_run(device)
         _feed_stream(keeping(), run.feed_batch, cfg)
+        fb.set_rows(sum(p.num_rows for p in parts))
         out, valid = run.finalize()
     c = current_collector()
     if c is not None:
@@ -713,7 +1133,11 @@ def _try_fused_udf_agg(node: pp.DeviceFilterAgg, cfg) -> Optional[MicroPartition
     udf_stage = DeviceUdfStage(call.func, call.args, internal)
     d0 = counters.device_stage_batches
     agg_run = agg_stage.start_run(device)
-    with _residency().pin_scope():
+    # fusion runs only under "on": a forced record, so the fused dispatches
+    # still land in the placement ledger
+    prec = _placement.ledger().record("udf+agg fused", "device", forced=True,
+                                      detail=call.func.name)
+    with _placement.feedback(prec), _residency().pin_scope():
         feeder = FusedUdfAggFeeder(udf_stage.start_run(device), agg_run, udf_cols, other,
                                    f32=not agg_stage._use_f64)
         _feed_stream(_exec(udf_node.input), feeder.feed_batch, cfg)
@@ -941,7 +1365,9 @@ def _exec_device_join_topn(node: pp.DeviceJoinTopN) -> MicroPartition:
                     continue
                 if first is not None:
                     stream.close()
-                    raise DeviceFallback("device TopN path requires a single fact batch")
+                    exc = DeviceFallback("device TopN path requires a single fact batch")
+                    exc.second_fact_batch = True  # no device work: nothing to observe
+                    raise exc
                 first = b
         if first is not None:
             run.feed_batch(first)
@@ -962,21 +1388,26 @@ def _exec_device_join_topn(node: pp.DeviceJoinTopN) -> MicroPartition:
 
 def _run_device_join(node, label: str, make_run, feed, assemble) -> MicroPartition:
     """What the device join nodes share (the reference's _run_device_join
-    without its cost model and mesh): the host plan under device_mode="off";
-    otherwise materialize the dims, build the join context, and feed the
-    fact stream through the run under one pin scope, then assemble. A
-    DeviceFallback (non-unique or non-integer dim keys, a dim key equal to
-    the probe table's empty marker, too many groups, a TopN's second fact
-    batch: all decided before any launch) records its reason and runs the
-    host plan. Any other error, a kernel failure included, propagates. A
-    finished run counts as a fused region of ("join", "agg"), or ("join",
-    "agg", "topn"), over its join batches."""
+    without its mesh arm): the host plan under device_mode="off"; under
+    "auto" the CPU gate, the first fact morsel's device_min_rows gate, the
+    decision cache's cached rejects and the cost decision
+    (``_join_device_wins``, the dims materialized first); otherwise
+    materialize the dims, build the join context, and feed the fact stream
+    through the run under one pin scope and the placement feedback, then
+    assemble. A DeviceFallback (non-unique or non-integer dim keys, a dim
+    key equal to the probe table's empty marker, too many groups, a TopN's
+    second fact batch: all decided before any launch) records its reason
+    and runs the host plan. Any other error, a kernel failure included,
+    propagates. A finished run counts as a fused region of ("join", "agg"),
+    or ("join", "agg", "topn"), over its join batches."""
     from ..config import execution_config
     from ..device.residency import manager as _residency
     from ..ops import counters
     from ..ops.device_join import _JoinContext, build_join_stage
     from ..ops.grouped_stage import DeviceFallback
+    from ..ops.region import single_batch_horizon
     from ..utils.torch_setup import resolve_device
+    from .batching import coalesce_target_rows
 
     def host() -> MicroPartition:
         return MicroPartition(node.schema, [_concat_parts(list(_exec(node.host_plan)),
@@ -985,28 +1416,213 @@ def _run_device_join(node, label: str, make_run, feed, assemble) -> MicroPartiti
     cfg = execution_config()
     if cfg.device_mode == "off":
         return host()
+    topn = isinstance(node, pp.DeviceJoinTopN)
+    auto = cfg.device_mode == "auto"
+    if auto:
+        why = _auto_gate(cfg)
+        if why is not None:
+            counters.reject(label, why)
+            _placement.ledger().gate(label, why, only_scoped=True)
+            return host()
     device = resolve_device(cfg.device)
     stage, grouped = build_join_stage(node.spec)
     if stage is None:
         return host()  # the config changed since planning (kernel_mode="off")
-    dims = {name: _concat_parts(list(_exec(plan)), plan.schema)
-            for name, plan in node.dim_plans}
-    region_ops = ("join", "agg", "topn") if isinstance(node, pp.DeviceJoinTopN) \
-        else ("join", "agg")
-    d0 = counters.device_join_batches
+    region_ops = ("join", "agg", "topn") if topn else ("join", "agg")
+    fact = _exec(node.fact)
     try:
-        with _residency().pin_scope():
-            run = make_run(stage, grouped, _JoinContext(node.spec, dims, device,
-                                                        f32=not stage._use_f64))
-            feed(run, _exec(node.fact), cfg)
+        first = next(fact, None)
+        if first is None:
+            fact.close()
+            return host()
+        if auto and first.num_rows < cfg.device_min_rows:
+            counters.reject(label, "below device_min_rows")
+            _placement.ledger().gate(label, "below device_min_rows", first.num_rows,
+                                     only_scoped=True)
+            fact.close()
+            return host()
+        # a shape the model rejected before skips the dims and the pricing
+        dk = _decision_key(node, first.num_rows, cfg, topn, _batch_layout(first))
+        if auto and _DECISION_CACHE.get(dk) is False:
+            counters.reject(label, "host wins (cached decision)")
+            _placement.ledger().record(label, "host", first.num_rows, cached=True,
+                                       reason="host wins (cached decision)")
+            fact.close()
+            return host()
+        second = None
+        if auto and not topn and coalesce_target_rows(cfg) > 0:
+            # a second morsel widens the coalesce horizon the model prices
+            second = next(fact, None)
+        peeked = [first] if second is None else [first, second]
+        fact_stream = itertools.chain(peeked, fact)
+        # the TopN is a one-batch region: its round trip is priced in full
+        coal = single_batch_horizon() if topn else _coalesce_horizon(peeked)
+        dims = {name: _concat_parts(list(_exec(plan)), plan.schema)
+                for name, plan in node.dim_plans}
+        ctx = _JoinContext(node.spec, dims, device, f32=not stage._use_f64)
+        prec = None
+        batch0 = next((b for b in first.batches if b.num_rows > 0), None)
+        if auto:
+            wins = False
+            if batch0 is not None:
+                wins, prec = _join_device_wins(node, ctx, first, batch0, grouped, stage,
+                                               topn, label, coal)
+            _DECISION_CACHE.put(dk, wins)
+            if not wins:
+                fact.close()
+                return host()
+        else:
+            if batch0 is not None and _price_forced(cfg):
+                _w, prec = _join_device_wins(node, ctx, first, batch0, grouped, stage,
+                                             topn, label, coal, forced=True)
+            if prec is None:
+                prec = _placement.ledger().record(label, "device", first.num_rows,
+                                                  forced=True)
+        d0 = counters.device_join_batches
+        fed_rows = 0
+
+        def counting():
+            nonlocal fed_rows
+            for part in fact_stream:
+                fed_rows += part.num_rows
+                yield part
+
+        with _placement.feedback(prec) as fb, _residency().pin_scope():
+            run = make_run(stage, grouped, ctx)
+            try:
+                feed(run, counting(), cfg)
+            except DeviceFallback as exc:
+                if getattr(exc, "second_fact_batch", False):
+                    fb.cancel()  # no device work happened: nothing to observe
+                raise
+            fb.set_rows(fed_rows)
             out = assemble(run, stage, grouped)
         _note_region(node, region_ops, counters.device_join_batches - d0)
         return out
     except DeviceFallback as exc:
+        fact.close()
         counters.bump("device_fallbacks")
         counters.reject(label, f"device fallback: {exc}")
         _note_fallback(exc)
         return host()
+
+
+def _join_device_wins(node, ctx, first: MicroPartition, batch, grouped: bool, stage,
+                      topn: bool, label: str, coalesce: float, forced: bool = False):
+    """Cost-model decision for a device join node from its first fact
+    morsel: (wins, placement record), both sides' CostBreakdowns in the
+    record. The device side is the port's (``device_join_kernel_cost``):
+    K4's probe of the fact rows whose index plane is not resident, one
+    gather per dim plane, the grouped kernels or the ungrouped reduce, and
+    the host work the port does per fact batch (its dim index and the host
+    factorize of joined keys that are not dictionary-coded). One-time costs
+    amortize over ``device_amortize_runs`` when every fact source is an
+    in-memory table. ``forced`` prices a forced run for the ledger only."""
+    import math
+
+    from ..config import execution_config
+    from ..device.residency import manager as _residency
+    from ..ops import counters
+    from ..ops.device_join import TOPN_MAX_SEGMENTS, DeviceJoinGroupedRun
+    from ..ops.grouped_stage import _pad_groups, estimate_distinct
+    from ..ops.stage import pad_bucket
+    from ..plan.stats import selectivity
+
+    cfg = execution_config()
+    spec = node.spec
+    cal = _costmodel.calibrate()
+    device = ctx.device
+    rows = first.num_rows
+    bucket = pad_bucket(batch.num_rows)
+    amort = max(cfg.device_amortize_runs, 1) if _resident_source_rec(node.fact) else 1
+    # the host plan pushes the lifted conjuncts below the join, so its probe
+    # and agg passes see only the filtered stream; the device sees every row
+    host_rows = rows
+    if spec.predicate is not None:
+        host_rows = max(int(rows * min(selectivity(spec.predicate), 1.0)), 1)
+    fact_cols = [c for c in stage._input_cols
+                 if spec.col_side.get(c) == "fact" and c not in spec.fact_synthetic]
+    dim_cols = [c for c in stage._input_cols if spec.col_side.get(c) not in ("fact", None)]
+    nonres, res = _plane_bytes(batch, fact_cols, bucket, ctx.f32, device)
+    probe_rows = 0
+    adjacent = [d for d in spec.dims if d.parent[0] == "fact"]
+    for d in adjacent:
+        key = ("pdidx", d.key_col, d.parent, bucket, str(device))
+        if not _residency().is_resident(batch.get_column(d.parent[1]), key):
+            probe_rows += batch.num_rows
+            nonres += batch.num_rows * 9  # the probe values and validity
+    n_gathers = len(dim_cols) + len(spec.dims)  # value planes + visibility
+    n_batches = sum(1 for b in first.batches if b.num_rows > 0)
+    dim_rows = sum(ctx.batches[d.name].num_rows for d in spec.dims)
+    if grouped:
+        ceiling = TOPN_MAX_SEGMENTS if topn else DeviceJoinGroupedRun.max_segments
+        sources = []
+        for g in stage.groupby:
+            name = (g.child if isinstance(g, Alias) else g)._name
+            side = spec.col_side.get(name)
+            sources.append(batch.get_column(name) if side == "fact"
+                           else ctx._dim_source(side, name))
+        # the run codes the keys on the device while the product of their
+        # dictionary sizes fits its ceiling, else by a host factorize
+        product = math.prod(estimate_distinct(s) for s in sources)
+        card = max(min(product, batch.num_rows), 1)
+        if card > ceiling and not forced:
+            counters.reject(label, "est group count over ceiling")
+            _placement.ledger().gate(label, "est group count over ceiling", rows)
+            return False, None
+        cap = _pad_groups(min(card, ceiling))
+        k1, k7 = (len(r) for r in stage.sum_routes())
+        # a float extreme takes two K3 launches (the value, its zero's sign)
+        k3 = len(stage._ext_specs) - 1 + len(stage._float_ext) + len(stage._sct_specs)
+        fact_keys = [s for s, g in zip(sources, stage.groupby)
+                     if spec.col_side.get((g.child if isinstance(g, Alias) else g)._name)
+                     == "fact"]
+        if topn or product > DeviceJoinGroupedRun.max_segments:
+            # the host factorize path: each batch's host dim index (a
+            # uniqueness check over every dim's keys) and the factorize of
+            # the joined key rows, cached on the fact Series
+            fact_rows = n_batches * dim_rows + batch.num_rows
+            nonres += bucket * 4  # the codes plane
+        else:
+            # dictionary codes: built once per new fact Series
+            fact_rows = sum(batch.num_rows for s in fact_keys
+                            if getattr(s, "_dict_codes", None) is None)
+        if topn:
+            k_total = node.topn.offset + node.topn.limit
+            fetch = k_total * (k1 + k7 + 2 + k3) * 8
+        else:
+            fetch = cap * (k1 + k7 + 1 + k3) * 8
+        dev = _costmodel.device_join_kernel_cost(
+            cal, rows, nonres // amort, probe_rows // amort, n_gathers, k1=k1, k7=k7, k2=1,
+            k3=k3, n_partials=0, cap_est=cap, fetch_bytes=fetch,
+            factorize_rows=fact_rows // amort, coalesce=coalesce, resident_bytes=res)
+        host = _costmodel.host_join_agg_cost(cal, host_rows, len(spec.dims), len(stage.aggs),
+                                             True, False)
+        if topn:
+            # the device sorts the cap-length tables: a value and a validity
+            # pass a key and the first-occurrence tie-break; the host sorts
+            # the aggregate's rows
+            dev.add("compute", cap * (2 * len(node.topn.keys) + 1) / cal.sort_rows_per_s)
+            host.add("compute", card * max(math.log2(max(card, 2)), 1.0) / cal.host_agg_rate)
+        detail = (f"{len(spec.dims)} dims, {len(stage.aggs)} aggs, ~{card} joined groups "
+                  f"(cap {cap})")
+    else:
+        fetch = 256 * max(len(stage.aggs), 1)
+        dev = _costmodel.device_join_kernel_cost(
+            cal, rows, nonres // amort, probe_rows // amort, n_gathers, k1=0, k7=0, k2=0,
+            k3=0, n_partials=max(len(stage.aggs), 1), cap_est=1, fetch_bytes=fetch,
+            factorize_rows=0, coalesce=coalesce, resident_bytes=res)
+        host = _costmodel.host_join_agg_cost(cal, host_rows, len(spec.dims), len(stage.aggs),
+                                             False, False)
+        detail = f"{len(spec.dims)} dims, {len(stage.aggs)} aggs"
+    if spec.predicate is not None:
+        host.add("compute", rows / cal.host_agg_rate)  # the filter pass
+    wins = dev < host
+    if not wins and not forced:
+        counters.reject(label, "host wins cost model")
+    rec = _placement.ledger().record(label, "device" if (wins or forced) else "host", rows,
+                                     forced=forced, device=dev, host=host, detail=detail)
+    return wins, rec
 
 
 def _note_fallback(exc: BaseException) -> None:

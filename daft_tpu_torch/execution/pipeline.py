@@ -1,5 +1,5 @@
 """Pipeline-parallel execution primitives (counterpart of
-daft_tpu/execution/pipeline.py, without its placement scope).
+daft_tpu/execution/pipeline.py).
 
 - ``Channel`` / ``spawn_stage``: one operator's generator runs on a stage
   thread of its own (kept between stages by ``_StagePool``) and puts its
@@ -13,9 +13,12 @@ daft_tpu/execution/pipeline.py, without its placement scope).
   and the channel attributes stalls (``Channel(profile=...)``): the
   producer's waits on a full queue are its node's ``blocked`` time, the
   consumer's waits on an empty one the ``starve`` time of the node active on
-  its thread. A kept stage thread drops the collector, and every other slot
-  of observability/runtime_stats.py, when its stage ends, so the next query
-  on it runs unobserved unless it is observed itself.
+  its thread. The query's placement scope (observability/placement.py) rides
+  along the same way, so the cost model's decisions made on a stage thread
+  land in their own query's scope. A kept stage thread drops the collector,
+  every other slot of observability/runtime_stats.py and the placement
+  scope when its stage ends, so the next query on it runs unobserved unless
+  it is observed itself.
 - ``pmap_stream``: an ordered map over a stream, a bounded window of calls
   in flight on the compute pool (utils/pool.py), results in input order;
   each call is a ``pipeline.morsel`` span while a span recorder is active.
@@ -204,12 +207,17 @@ def spawn_stage(gen: Iterator, maxsize: int = 4, node=None) -> Iterator:
     The reference starts a new thread per stage; here the thread comes from
     ``_StagePool``, which keeps it for the next stage.
 
-    The stage thread takes the caller's stats collector for the stage's
-    length; ``node`` (the physical node whose generator this is) turns on
-    the channel's stall attribution while a collector is active."""
-    from ..observability import runtime_stats
+    The stage thread takes the caller's stats collector and placement scope
+    for the stage's length; ``node`` (the physical node whose generator this
+    is) turns on the channel's stall attribution while a collector is
+    active."""
+    from ..observability import placement, runtime_stats
 
     collector = runtime_stats.current_collector()
+    # placement decisions fire on stage threads too: the query's scope
+    # (explain_placement, QueryEnd.placements) rides along, so concurrent
+    # queries' decisions never bleed into each other's scopes
+    pscope = placement.current_scope()
     profile = (collector, collector.node_id(node)) \
         if collector is not None and node is not None else None
     ch = Channel(maxsize, profile=profile)
@@ -217,6 +225,7 @@ def spawn_stage(gen: Iterator, maxsize: int = 4, node=None) -> Iterator:
     def run():
         if collector is not None:
             runtime_stats.set_collector(collector)
+        placement.set_scope(pscope)
         err: Optional[BaseException] = None
         try:
             for item in gen:
@@ -233,6 +242,7 @@ def spawn_stage(gen: Iterator, maxsize: int = 4, node=None) -> Iterator:
             # the thread is kept for another stage, maybe another query's:
             # nothing of this one's observation may stay on it
             runtime_stats.reset_thread()
+            placement.set_scope(None)
             ch.close(err)
 
     def consume():

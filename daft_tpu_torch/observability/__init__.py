@@ -1,7 +1,7 @@
 """Observability: query lifecycle events and subscribers, the metrics
-registry, per-operator runtime stats with stall attribution, timeline spans
-and the always-on flight recorder (counterpart of daft_tpu/observability/,
-without its placement ledger, which comes with the cost model).
+registry, per-operator runtime stats with stall attribution, timeline spans,
+the always-on flight recorder and the cost model's placement ledger
+(placement.py; counterpart of daft_tpu/observability/).
 
     from daft_tpu_torch.observability import Subscriber, attach_subscriber
     df.explain_analyze(profile="trace.json")   # operators, counters, spans

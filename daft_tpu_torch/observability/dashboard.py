@@ -5,7 +5,8 @@ A Subscriber records query lifecycle events into a bounded in-memory
 history; a threaded HTTP server (127.0.0.1 by default, port 0 picks a free
 one) renders them as JSON (/api/queries, /api/query/<id>, /api/engine,
 /api/flight, ...), Prometheus text (/metrics) and a self-contained HTML page
-(/). /api/placement answers that the cost model is not ported yet.
+(/). /api/placement serves the cost model's placement ledger and the
+calibration in effect.
 """
 
 from __future__ import annotations
@@ -447,10 +448,20 @@ class _Handler(BaseHTTPRequestHandler):
                 }, default=str).encode()
             ctype = "application/json"
         elif self.path.startswith("/api/placement"):
-            # the cost model's placement ledger is not ported yet
-            # (ROADMAP Queue 1 item 1)
-            body = json.dumps({"ported": False, "error": "placement records "
-                               "come with the cost model, not ported yet"}).encode()
+            # the cost-model decision ledger: recent placement records
+            # (chosen tier, per-term breakdowns, observed-vs-predicted),
+            # ledger stats, the aggregate model-error summary, and the
+            # effective calibration terms the process is pricing with
+            from ..ops.costmodel import calibration_dict
+            from .placement import ledger
+
+            led = ledger()
+            body = json.dumps({
+                "records": led.snapshot(limit=128),
+                "stats": led.stats(),
+                "error": led.error_summary(),
+                "calibration": calibration_dict(),
+            }, default=str).encode()
             ctype = "application/json"
         elif self.path == "/" or self.path.startswith("/index"):
             body = _HTML.encode()

@@ -12,7 +12,7 @@ registry; writes happen on coarse events only (a device dispatch, a morsel,
 a scan task, a spill file), never per row.
 
 The vocabulary is the reference's for the subsystems the port has (device,
-spill, memory, observability, flight), plus the names only the port writes
+spill, memory, observability, flight, placement), plus the names only the port writes
 (``PORT_COUNTER_NAMES``: the kernels' ``launches_*`` / ``plain_*``, the scan
 reader's counters, ``fingerprint_ms``, ``mesh_exchange_bytes``,
 ``device_fallbacks``). Counters that add host milliseconds or seconds are
@@ -136,7 +136,7 @@ _REGISTRY = MetricsRegistry()
 # process sees every series at 0.
 
 # The reference's device/mesh/UDF names that the port writes (the rest of
-# the reference's group belongs to tiers not ported: the cost model,
+# the reference's group belongs to tiers not ported: the mesh stages,
 # serving, the distributed scheduler, the Pallas tier's counters).
 DEVICE_COUNTER_NAMES = (
     "device_stage_batches",    # batches through the ungrouped stage
@@ -152,6 +152,7 @@ DEVICE_COUNTER_NAMES = (
     "device_udf_rows",         # real rows through those calls
     "device_udf_runs",         # device-UDF runs finalized (one copy back each)
     "device_udf_weight_h2d_bytes",  # weight bytes uploaded (0 on a repeat)
+    "device_udf_fallbacks",    # device-UDF stages "auto" kept on the host path
     # the dispatch coalescer (ops/stage.py DispatchCoalescer) and adaptive
     # batching (execution/batching.py)
     "dispatch_coalesced",      # batches the coalescer fed on
@@ -168,6 +169,7 @@ DEVICE_COUNTER_NAMES = (
     "hbm_h2d_bytes",           # host->device upload bytes (columns, UDF inputs
                                # and weights; flat on a warm run)
     "hbm_stable_rehits",       # slots rebound by content identity
+    "hbm_evict_cost_saved",    # µs of rebuild cost avoided vs pure-LRU eviction
     # fused regions (ops/region.py): ops_fused / dispatches = operators
     # amortized per dispatch
     "device_region_dispatches",
@@ -216,6 +218,21 @@ FLIGHT_COUNTER_NAMES = (
     "flight_dump_failures",    # dump writes that failed (unwritable dir)
 )
 
+# Placement observability (observability/placement.py): the cost-model
+# decision ledger. Counters move ONLY on costed/forced placement decisions —
+# pre-cost gate rejections (a CPU device, below device_min_rows) are ledger
+# records without registry writes, preserving the unobserved-path
+# empty-registry-diff guarantee.
+PLACEMENT_COUNTER_NAMES = (
+    "placement_decisions_total",   # costed auto-tier placement decisions
+    "placement_device_wins",       # decisions that chose the device
+    "placement_host_wins",         # decisions that kept the stage on host
+    "placement_cached_verdicts",   # verdicts served from the bounded cache
+    "placement_forced_runs",       # device_mode=on runs recorded uncosted
+    "placement_feedback_total",    # dispatched stages reporting actual seconds
+    "placement_records_dropped",   # ledger appends evicted at the bounded cap
+)
+
 # The port's kernels: one launches_<kernel> per launch on the card, one
 # plain_<kernel> per wrapper call routed to the plain PyTorch version.
 KERNEL_NAMES = ("segment_sum_planes", "segment_extreme_planes", "segment_extreme_int64",
@@ -244,7 +261,8 @@ FLOAT_COUNTER_NAMES = ("scan_decode_ms", "scan_filter_ms", "fingerprint_ms",
                        "spill_read_seconds", "spill_read_wall_seconds")
 
 DECLARED_COUNTERS = (DEVICE_COUNTER_NAMES + SPILL_COUNTER_NAMES + MEMORY_COUNTER_NAMES +
-                     OBS_COUNTER_NAMES + FLIGHT_COUNTER_NAMES + PORT_COUNTER_NAMES)
+                     OBS_COUNTER_NAMES + FLIGHT_COUNTER_NAMES + PLACEMENT_COUNTER_NAMES +
+                     PORT_COUNTER_NAMES)
 
 DECLARED_GAUGES = (
     "hbm_bytes_resident",      # device bytes the residency manager holds
@@ -254,6 +272,14 @@ DECLARED_GAUGES = (
     "spill_prefetch_inflight",  # high-water decoded batches queued per reader
     "bucket_fill_ratio",       # coalescer padding efficiency (per run)
     "scan_window_peak",        # the most scan tasks reading at once (port only)
+    # cost-model observability (ops/costmodel.py + observability/placement.py)
+    "cost_model_error_ratio",  # last dispatched stage: observed/predicted s/row
+    # the effective Calibration terms, exported at calibrate() so every
+    # scrape states the calibration the process ran under
+    "cost_rtt_s",
+    "cost_h2d_bytes_per_s",
+    "cost_d2h_bytes_per_s",
+    "cost_udf_flops_per_s",
 )
 
 

@@ -54,7 +54,8 @@ show which path a query took:
   ``device_udf_runs``: device-UDF runs finalized (one copy back each);
   ``device_udf_weight_h2d_bytes``:
   weight bytes put on a stage's device (made into tensors on a CPU device;
-  ops/udf_stage.py);
+  ops/udf_stage.py); ``device_udf_fallbacks``: device-UDF stages that
+  ``device_mode="auto"`` ran on the host path;
 - the host memory budget's (memory/, under ``memory_limit_bytes`` > 0
   only; the reference's names): ``spill_batches``, ``spill_bytes`` (their
   ``size_bytes``), ``spill_wire_bytes`` (the bytes the files hold, after the
@@ -123,7 +124,8 @@ COUNTER_NAMES = ("device_grouped_batches", "device_stage_batches", "device_join_
                  "scan_window_tasks", "scan_window_peak", "morsel_resize", "hbm_cache_hits",
                  "hbm_cache_misses", "hbm_stable_rehits", "fingerprint_ms",
                  "device_udf_dispatches", "device_udf_rows", "device_udf_runs",
-                 "device_udf_weight_h2d_bytes") + SPILL_COUNTER_NAMES + \
+                 "device_udf_weight_h2d_bytes", "device_udf_fallbacks") + \
+    SPILL_COUNTER_NAMES + \
     MEMORY_COUNTER_NAMES + tuple(
     f"{kind}_{k}" for kind in ("launches", "plain") for k in KERNEL_NAMES)
 # the counters that add host milliseconds or seconds; every other counts events

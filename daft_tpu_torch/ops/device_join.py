@@ -50,7 +50,8 @@ padding and index-count-bound gathers). Dim filters are evaluated on the
 host (dims are small) and uploaded once per query shape. Left out: the
 group-sorted (``perm``) and local-dense branches (the reference keeps its
 one-hot matmuls narrow with them; the port's kernels take the group codes in
-place at every cap up to ``max_segments``) and the cost-model arm. A stage
+place at every cap up to ``max_segments``); the cost model's arm is the
+port's own (ops/costmodel.py ``device_join_kernel_cost``). A stage
 with a float min/max computes in f64: its fact and dim float columns
 upload, and gather, in f64.
 
@@ -597,7 +598,7 @@ class _JoinContext:
                                        torch.from_numpy(pm).to(self.device), table)
 
         key = ("pdidx", d.key_col, d.parent, bucket, str(self.device))
-        return manager().get_or_build(anchor, key, build, (table,))
+        return manager().get_or_build(anchor, key, build, (table,), rebuild_rows=n)
 
     # ---- dim planes in their adjacent root's row space -----------------------------
 
@@ -774,7 +775,8 @@ class _FactorizedCodes:
             codes[:self.n] = self.group_ids
             return torch.from_numpy(codes).to(self.device)
 
-        return manager().get_or_build(self, ("dcodes", str(self.device)), build)
+        return manager().get_or_build(self, ("dcodes", str(self.device)), build,
+                                      rebuild_rows=self.n)
 
     def _key_rows_of(self, j: int, gids: np.ndarray):
         """Series of key column j at the first rows of groups ``gids``."""

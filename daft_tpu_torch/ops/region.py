@@ -232,6 +232,15 @@ def node_region_ops(node) -> Tuple[str, ...]:
     return ("agg",)
 
 
+def single_batch_horizon() -> float:
+    """Coalesce horizon for a region that by construction dispatches exactly
+    once (the join TopN runs over one fact batch): the dispatch round trip
+    amortizes over nothing, so the cost model prices it in full. The one
+    pricing entry for single-dispatch regions, so the executor never writes
+    ``coalesce=1`` at a fusion site."""
+    return 1.0
+
+
 def unwrap_udf_agg_input(agg_input):
     """(udf_node, rename) when ``agg_input`` is a DeviceUdfProject, or a
     column-only Project over one (the rename ``rule_split_udfs`` leaves; the

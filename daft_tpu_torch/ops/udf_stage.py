@@ -33,7 +33,8 @@ daft_tpu/ops/udf_stage.py).
 ``host_eval_device_func`` runs the same function through the same prepare,
 padding and finish with no stage, coalescer or pin scope, chunk by chunk, on
 the device that ``host_path_device`` names: the configured one, or the CPU
-under ``device_mode="off"``. It serves a device UDF that the planner could
+under ``device_mode="off"`` and in the host arm of an "auto" verdict
+(``host_arm``). It serves a device UDF that the planner could
 not make a stage of (one inside a larger expression, a filter or an
 aggregation). On the CPU it gives the tier's results bit for bit wherever
 the dispatch shapes match (a one-batch input).
@@ -50,6 +51,7 @@ tensors).
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -168,6 +170,36 @@ def func_anchors(func) -> Optional[Dict[Optional[str], _WeightAnchor]]:
     if func.device_params_split:
         return {name: anchor_for(sub) for name, sub in host.items()}
     return {None: anchor_for(host)}
+
+
+def func_weight_nbytes(func) -> int:
+    """Total host bytes of the Func's weight parts (0 = stateless)."""
+    anchors = func_anchors(func)
+    return sum(a.nbytes for a in anchors.values()) if anchors else 0
+
+
+def func_fingerprint(func) -> str:
+    """Stable identity of one device Func's program for the cost model's
+    decision cache: the declared ``device_key`` when present, else
+    module.qualname and a hash over the code object and its closure cells
+    (bytecode alone collides for identical-source closures over different
+    constants)."""
+    if func.device_key:
+        return func.device_key
+    fn = func.fn
+    code = getattr(fn, "__code__", None)
+    tail = ""
+    if code is not None:
+        h = hashlib.blake2b(digest_size=6)
+        h.update(code.co_code)
+        h.update(repr(code.co_consts).encode())
+        for cell in getattr(fn, "__closure__", None) or ():
+            try:
+                h.update(repr(cell.cell_contents)[:4096].encode())
+            except Exception:  # noqa: BLE001 -- an unreprable cell still feeds the hash
+                h.update(b"?")
+        tail = h.hexdigest()
+    return f"{getattr(fn, '__module__', '?')}.{getattr(fn, '__qualname__', func.name)}:{tail}"
 
 
 def resident_params(anchor: _WeightAnchor, device):
@@ -446,17 +478,35 @@ class FusedUdfAggFeeder:
 # ---- the host path ------------------------------------------------------------------
 
 
+_HOST_ARM = threading.local()
+
+
+@contextlib.contextmanager
+def host_arm():
+    """Scope in which ``host_path_device()`` is the CPU on this thread: the
+    host arm of a device UDF that ``device_mode="auto"`` priced to the host
+    runs its function where the host side was priced."""
+    prev = getattr(_HOST_ARM, "on", False)
+    _HOST_ARM.on = True
+    try:
+        yield
+    finally:
+        _HOST_ARM.on = prev
+
+
 def host_path_device():
     """The device a device UDF's host path and the provider's eager calls run
     on: the configured device (resolved, so a missing card raises), or the
-    CPU under ``device_mode="off"``."""
+    CPU under ``device_mode="off"`` and inside ``host_arm()``."""
     import torch
 
     from ..config import execution_config
     from ..utils.torch_setup import resolve_device
 
     cfg = execution_config()
-    return torch.device("cpu") if cfg.device_mode == "off" else resolve_device(cfg.device)
+    if cfg.device_mode == "off" or getattr(_HOST_ARM, "on", False):
+        return torch.device("cpu")
+    return resolve_device(cfg.device)
 
 
 def host_eval_device_func(func, arg_series: Sequence, num_rows: int, name: str):

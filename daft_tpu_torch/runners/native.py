@@ -10,9 +10,10 @@ registry diff; with the flight recorder on (the default), one ring record
 per query and the slow-query / error checks. With neither, the query runs
 unobserved: no snapshot, no collector, no clock but the one timing it.
 
-The reference also opens a placement scope here for the cost model's
-decision records; the port has no cost model yet (ROADMAP Queue 1 item 1),
-so no scope is opened.
+It also owns the query's placement scope (observability/placement.py): an
+ambient one (``explain_placement``) wins; otherwise an observed query gets
+its own, so ``QueryEnd.placements`` and the flight recorder's query record
+carry the cost model's decisions; an unobserved query runs scope-less.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ class NativeRunner(Runner):
         from ..config import execution_config
         from ..execution.executor import execute_plan
         from ..observability import (QueryEnd, QueryOptimized, QueryStart, flight, notify,
-                                     subscribers_active)
+                                     placement, subscribers_active)
         from ..observability.runtime_stats import (StatsCollector, current_collector,
                                                    set_collector)
         from ..plan.optimizer import Optimizer
@@ -75,27 +76,35 @@ class NativeRunner(Runner):
         # interleaved queries on one thread never clobber each other's stats
         prev = current_collector()
         collector = prev if prev is not None else (StatsCollector() if observed else None)
+        # the placement scope, with the same inheritance and save/restore
+        prev_scope = placement.current_scope()
+        pscope = prev_scope if prev_scope is not None \
+            else (placement.PlacementScope() if observed else None)
         rows = 0
         err: str = None
         try:
-            if execution_config().device_mode == "on":
+            if execution_config().device_mode != "off":
                 # a query asked to run on a missing card raises here
                 from ..utils.torch_setup import resolve_device
 
                 resolve_device(execution_config().device)
             set_collector(collector)
+            placement.set_scope(pscope)
             try:
                 stream = execute_plan(phys)
             finally:
                 set_collector(prev)
+                placement.set_scope(prev_scope)
             while True:
                 set_collector(collector)
+                placement.set_scope(pscope)
                 try:
                     part = next(stream)
                 except StopIteration:
                     break
                 finally:
                     set_collector(prev)
+                    placement.set_scope(prev_scope)
                 rows += part.num_rows
                 yield part
         except Exception as e:
@@ -103,20 +112,22 @@ class NativeRunner(Runner):
             raise
         finally:
             set_collector(prev)
+            placement.set_scope(prev_scope)
             seconds = time.perf_counter() - t_start
             deltas = {}
             if observed or frec is not None:
                 from ..observability.metrics import registry
 
                 deltas = registry().diff(reg_before)
+            placements = pscope.to_dicts() if pscope is not None else []
             if observed:
                 stats = collector.finish() if collector else []
                 for s in stats:
                     notify("on_operator_stats", qid, s)
                 notify("on_query_end", QueryEnd(qid, rows, seconds, err, stats,
-                                                metrics=deltas))
+                                                metrics=deltas, placements=placements))
             if frec is not None:
                 # always-on black box: the query record + the slow-query /
                 # query-error anomaly checks (observability/flight.py)
                 frec.note_query(fkey, seconds, query_id=qid, rows=rows, error=err,
-                                metrics=deltas)
+                                metrics=deltas, placements=placements or None)

@@ -5,8 +5,9 @@ the bindings, then ``current_session()``'s tables) into a DataFrame, which ``col
 
 The package module is itself callable, so ``daft_tpu_torch.sql("SELECT
 ...", t=df)`` works although ``daft_tpu_torch.sql`` is the subpackage.
-``EXPLAIN PLACEMENT`` raises ``NotImplementedError``: its report is the cost
-model's placement ledger (ROADMAP Queue 1 item 1).
+``EXPLAIN PLACEMENT <select>`` runs the query and returns the cost model's
+placement report (``DataFrame.explain_placement``) as a one-column frame,
+one row a line.
 """
 
 from __future__ import annotations
@@ -24,9 +25,16 @@ def plan(query: str, bindings, session=None):
     current session)."""
     from .planner import plan_sql
 
-    if query.lstrip()[:30].upper().split()[:2] == ["EXPLAIN", "PLACEMENT"]:
-        raise NotImplementedError("EXPLAIN PLACEMENT is not ported yet: it reports the cost "
-                                  "model's placement decisions (ROADMAP Queue 1 item 1)")
+    stripped = query.lstrip()
+    if stripped[:30].upper().split()[:2] == ["EXPLAIN", "PLACEMENT"]:
+        from .. import from_pydict
+
+        parts = stripped.split(None, 2)
+        if len(parts) < 3:
+            raise ValueError("EXPLAIN PLACEMENT requires a query to explain: "
+                             "EXPLAIN PLACEMENT SELECT ...")
+        report = plan_sql(parts[2], bindings, session).explain_placement()
+        return from_pydict({"explain": report.split("\n")})
     return plan_sql(query, bindings, session)
 
 

@@ -59,7 +59,8 @@ class Func:
     # strings from argmax codes). None: the output rows as they are
     device_finish: Optional[Callable] = None
     # the reference's program-cache key, accepted for its API: the port calls
-    # fn itself and keeps no program cache
+    # fn itself and keeps no program cache; the cost model's decision cache
+    # keys the Func on it (ops/udf_stage.py func_fingerprint)
     device_key: Optional[str] = None
 
     def __post_init__(self) -> None:
@@ -242,7 +243,8 @@ def method(fn: Optional[Callable] = None, *, return_dtype: Optional[DataType] = 
     ``(self, params, *tensors) -> tensor`` on the device tier, and the class's
     ``device_params()`` (with the optional ``device_prepare`` and
     ``device_finish``) gives its weights; ``batch_size`` caps a dispatch;
-    ``device_key`` is the reference's program-cache key (unused here)."""
+    ``device_key`` is the reference's program-cache key (here it keys the
+    cost model's decision cache)."""
 
     def wrap(f):
         f.__udf_method__ = True

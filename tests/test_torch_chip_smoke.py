@@ -1029,3 +1029,99 @@ def test_obs_trace_check_refuses_a_trace_without_h2d(scan_files, monkeypatch):
     with dt.execution_config_ctx(morsel_size_rows=16_384):
         with pytest.raises(cs.SmokeFailure, match="no device.h2d span"):
             cs.obs_profile("q12", lambda: cs.q12_query(df_l, df_o), "cpu")
+
+
+def _auto_on_the_cpu(cs, monkeypatch):
+    """chip_smoke.py's auto phase pointed at the CPU: the executor's CPU gate
+    patched open, the link terms pinned (a CPU device never calibrates), the
+    rates measured at small shapes."""
+    from daft_tpu_torch.execution import executor
+    from daft_tpu_torch.ops import costmodel
+
+    monkeypatch.setattr(cs, "AUTO_DEVICE", "cpu")
+    monkeypatch.setattr(cs, "AUTO_MEASURE_ROWS", 4096)
+    monkeypatch.setattr(cs, "AUTO_UDF_ROWS", 1)
+    monkeypatch.setattr(cs, "AUTO_HOST_UDF_ROWS", 1)
+    monkeypatch.setattr(executor, "_auto_gate", lambda cfg: None)
+    for env, v in (("DAFT_TPU_COST_RTT", "2.7e-5"), ("DAFT_TPU_COST_H2D", "1.1e10"),
+                   ("DAFT_TPU_COST_D2H", "7.4e9")):
+        monkeypatch.setenv(env, v)
+    costmodel.reset_calibration()
+
+
+def test_auto_phase_on_the_cpu(scan_files, monkeypatch, capsys):
+    """chip_smoke.py's auto phase on the CPU at a small size: the calibration
+    and every rate printed, the nine ooc queries over the Parquet lineitem
+    and the in-memory supplier, q1, q12 and partkey cells each run under
+    "auto" (a first run, then the counted warm run), held to their "off"
+    results by the phase's own checks, every verdict printed with both
+    totals and its margin."""
+    import re
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ops import costmodel
+
+    cs, (lineitem, orders, _dims), frames, dirs = scan_files
+    _auto_on_the_cpu(cs, monkeypatch)
+    try:
+        with dt.execution_config_ctx(morsel_size_rows=16_384, device_min_rows=1):
+            paths = cs.phase_auto(frames, dirs["lineitem"], "cpu",
+                                  cs.auto_runs(lineitem, orders))
+    finally:
+        costmodel.reset_calibration()
+    out = capsys.readouterr().out
+    assert sorted(paths) == sorted([f"auto ooc q{q}" for q in cs.OOC_QUERIES]
+                                   + [f"auto {c}" for c in cs.AUTO_MEMORY_CELLS])
+    assert "auto calibration" in out
+    for name in costmodel.RATES:
+        assert f"auto rate {name} " in out
+    for label in [f"ooc q{q}" for q in cs.OOC_QUERIES] + list(cs.AUTO_MEMORY_CELLS):
+        assert f"auto {label} (warm): " in out and f"auto {label}: warm " in out
+    # priced verdicts carry both totals and the margin
+    assert re.search(r"-> (device|host); device [0-9.]+ ms, host [0-9.]+ ms, margin "
+                     r"[0-9.]+x", out)
+
+
+def test_auto_cell_refuses_a_result_that_differs_from_off(scan_files, monkeypatch):
+    """auto_cell holds the auto run to the "off" result: a stand-in run that
+    drifts under "auto" fails the phase."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.config import execution_config
+
+    cs, (lineitem, _orders, _dims), _frames, _dirs = scan_files
+    _auto_on_the_cpu(cs, monkeypatch)
+    df = cs.supplier_frame(lineitem)
+
+    def run():
+        got = cs.supplier_query(df).to_pydict()
+        if execution_config().device_mode == "auto":
+            got["n_lines"][0] += 1
+        return got
+
+    with dt.execution_config_ctx(device_min_rows=1):
+        with pytest.raises(cs.SmokeFailure, match="auto supplier: the first run differs"):
+            cs.auto_cell("supplier", run, (), "cpu")
+
+
+def test_auto_ai_embed_on_the_cpu(ai_small, monkeypatch, capsys):
+    """The ai embed cell under "auto" (the CPU gate patched open): its one
+    device-UDF verdict printed, the result within 1e-5 of the "on" run and
+    of the CPU's first 256 rows."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ops import costmodel
+
+    cs, _texts, frame, model = ai_small
+    _auto_on_the_cpu(cs, monkeypatch)
+    monkeypatch.setattr(cs, "AI_MODEL", model)
+    monkeypatch.setattr(cs.ai_embed_query, "__defaults__", (model, cs.AI_BATCH))
+    try:
+        with dt.execution_config_ctx(device="cpu", device_mode="on"):
+            out = cs.ai_embed_query(frame).to_pydict()
+        with dt.execution_config_ctx(device="cpu", device_mode="off"):
+            head = cs.ai_embed_query(cs.ai_frame(_texts[:256], 256)).to_pydict()
+        with dt.execution_config_ctx(device_min_rows=1):
+            paths = cs.auto_ai_embed(frame, out, head, "cpu")
+    finally:
+        costmodel.reset_calibration()
+    assert list(paths) == ["auto ai embed"]
+    assert "auto ai embed (warm): udf (" in capsys.readouterr().out

@@ -1,6 +1,8 @@
 """The port stands alone and never hides a device failure:
 
-- a port query, the grouped one, the TPC-H q12 and q14 star joins, a fused
+- a port query (also under ``device_mode="auto"`` with the calibrate tool
+  loaded, gated to the host on the CPU and priced with the gate open),
+  the grouped one, the TPC-H q12 and q14 star joins, a fused
   region over a semi join, the mesh repartition, TPC-H q12 in SQL
   (``daft_tpu_torch.sql``), a query that writes and reads Parquet and
   CSV files, and embed, classify and a fused device UDF on the device-UDF
@@ -57,6 +59,23 @@ with dt.execution_config_ctx(device="cpu", device_mode="on"):
            .agg(col("v").sum().alias("s"), col("d").min().alias("d0")).sort("k")
            .to_pydict())
 assert out["k"] == list(range(7)), out
+# device_mode="auto" with the calibrate tool loaded: on a CPU device the
+# stage stays on the host; with the CPU gate open and the link terms pinned
+# it is priced, and explain_placement reports it
+import os
+import daft_tpu_torch.tools.calibrate
+from daft_tpu_torch.execution import executor
+def query():
+    return (df.where(col("d") <= lit(datetime.date(1970, 3, 1))).groupby("k")
+            .agg(col("v").sum().alias("s"), col("d").min().alias("d0")).sort("k"))
+with dt.execution_config_ctx(device="cpu", device_mode="auto", device_min_rows=1):
+    assert query().to_pydict() == out
+    os.environ.update(DAFT_TPU_COST_RTT="5e-5", DAFT_TPU_COST_H2D="1e10",
+                      DAFT_TPU_COST_D2H="1e10")
+    executor._auto_gate = lambda cfg: None
+    report = query().explain_placement()
+    assert "#1 grouped agg (100 rows) -> " in report and "margin:" in report, report
+    assert query().to_pydict() == out
 bad = sorted(m for m in sys.modules
              if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
              or m == "daft_tpu")

@@ -21,8 +21,7 @@ the executor's and the pipeline's hooks) against the reference's
   same registry content.
 
 Differences allowed in the registry parity, each for its reason:
-``placement_*`` (the reference's cost model, not ported), ``plain_*`` /
-``launches_*`` (the port's kernel counters), ``hbm_bytes_resident`` /
+``plain_*`` / ``launches_*`` (the port's kernel counters), ``hbm_bytes_resident`` /
 ``hbm_bytes_high_water`` (gauges: the port counts only card bytes, and on
 the CPU its planes are host tensors).
 """
@@ -330,8 +329,11 @@ def test_explain_show_all_and_placement():
         full = q.explain(show_all=True)
     assert "== Optimized Logical Plan ==" in full
     assert "== Physical Plan ==\n* DeviceGroupedAgg" in full
-    with pytest.raises(NotImplementedError, match="cost model"):
-        q.explain_placement()
+    with cpu():
+        report = q.explain_placement()
+    # device_mode="on" prices nothing: one forced record of the grouped stage
+    assert report.startswith("== Placement Decisions ==\n#1 grouped agg")
+    assert "-> device  [forced]" in report
 
 
 def test_metrics_record_batch():
@@ -455,7 +457,8 @@ def test_dashboard_detail_and_engine_endpoints():
         html = _get(dash.url + "/")[1].decode()
         assert "physical plan" in html and "/api/engine" in html
         assert json.loads(_get(dash.url + "/api/query/nope")[1])["error_404"] is True
-        assert json.loads(_get(dash.url + "/api/placement")[1])["ported"] is False
+        placement = json.loads(_get(dash.url + "/api/placement")[1])
+        assert {"records", "stats", "error", "calibration"} <= set(placement)
         assert json.loads(_get(dash.url + "/api/flight")[1])["enabled"] in (True, False)
     finally:
         dash.shutdown()

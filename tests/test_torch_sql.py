@@ -239,7 +239,6 @@ NOT_PORTED = [
     ("SELECT a FROM df WHERE k ILIKE 'X%'", "item 7"),
     ("SELECT TIMESTAMP '2024-01-01 00:00:00' AS t", "item 7"),
     ("SELECT v FROM t WHERE d < DATE '1994-01-01' + INTERVAL '3' HOUR", "item 7"),
-    ("EXPLAIN PLACEMENT SELECT a FROM df", "item 1"),
 ]
 
 
