@@ -263,6 +263,15 @@ error (no phase catches its own failure):
             SQL through run_cell (the aggregate on the card as the device
             join stage), equal to each other, the "off" run and a numpy
             oracle, each with a profile;
+20a. functions: SF1 lineitem filtered on l_linenumber.is_in([1, 3, 5])
+            and l_orderkey % 7 != 0, eight aggregates of the device
+            functions (log10, sqrt, //, abs, round, **, clip, exp) by flag
+            and status as one f64 DeviceGroupedAgg through run_cell, equal
+            to the "off" run and a numpy oracle, with a profile;
+20b. tpcds:  the 25 queries of benchmarking/tpcds/queries.py at SF1 over
+            tpcds_tables (the reference's generator in numpy), each "off",
+            then "on" cold and warm (median of 3), "on" equal to "off";
+            each query's stage, times, launches and run-time fallbacks;
 21. ai:     the UDF tier (daft_tpu_torch/ops/udf_stage.py) and the torch
             provider's encoder at sentence-transformers/all-MiniLM-L6-v2's
             widths (vocab 30,522, hidden 384, 6 layers, 12 heads, FFN
@@ -301,7 +310,7 @@ Every relational cell runs at SF1: nothing is cut; the ai cells run the
 model at its published widths with its depth uncut. It imports torch,
 numpy and the port; nothing of JAX, pyarrow or daft_tpu.
 
-    python3 chip_smoke.py --phase ooc|window|obs|auto
+    python3 chip_smoke.py --phase ooc|window|obs|auto|functions|tpcds
 
 runs phases 1-3, then that phase alone (ooc, obs and auto write lineitem's
 Parquet files themselves; auto alone computes each cell's "off" result and
@@ -346,6 +355,7 @@ TOPN_SF1_CAP = 1 << 18    # the TopN order cell's ~150,000 customers pad to this
 SCAN_MORSEL_ROWS = 128 * 1024  # rows a Parquet read yields per morsel (morsel_size_rows)
 WIDE_CAP, WIDE_PLANES = 4096, 73  # K1 past one 64-plane chunk
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+CELL_KERNEL_PREFIX = "launches_"  # the counters a cell reads its kernels' launches from
 EPOCH = datetime.date(1970, 1, 1)
 D_1992 = (datetime.date(1992, 1, 1) - EPOCH).days
 D_1998 = (datetime.date(1998, 12, 1) - EPOCH).days
@@ -952,13 +962,11 @@ def bound_ms(nbytes: int) -> float:
 
 def time_s(fn, runs: int = 3):
     """Host-clock seconds of ``runs`` calls, each ending in a synchronize."""
-    import torch
-
     out = []
     for _ in range(runs):
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        _synchronize()
         out.append(time.perf_counter() - t0)
     return out
 
@@ -1518,16 +1526,18 @@ def q12_codes(cols, dev):
     return keep_np, codes8.to(dev)
 
 
-def k4_build_case(pk, dim_keys, label: str):
-    """K4's build over ``dim_keys`` (all valid): the table and its case,
-    equal to the plain build as the sorted set of its (key, row) entries,
-    timed by events (its clearing is part of the build) and on the device,
-    beside its bound."""
+def k4_build_case(pk, dim_keys, label: str, dim_valid=None, slots=None):
+    """K4's build over ``dim_keys`` (all valid unless ``dim_valid`` says,
+    into ``probe_table_slots``' slots unless ``slots`` says): the table and
+    its case, equal to the plain build as the sorted set of its (key, row)
+    entries, timed by events (its clearing is part of the build) and on the
+    device, beside its bound."""
     import torch
 
     n = dim_keys.numel()
-    dim_valid = torch.ones(n, dtype=torch.bool, device=dim_keys.device)
-    slots = pk.probe_table_slots(n)
+    if dim_valid is None:
+        dim_valid = torch.ones(n, dtype=torch.bool, device=dim_keys.device)
+    slots = pk.probe_table_slots(n) if slots is None else slots
     table = pk.build_probe_table(dim_keys, dim_valid, slots)
     plain_table = pk.build_probe_table_plain(dim_keys, dim_valid, slots)
     torch.cuda.synchronize()
@@ -2517,20 +2527,22 @@ def run_cell(label: str, query, kernels, card: str, floats=(), oracle=None,
     import daft_tpu_torch as dt
     from daft_tpu_torch.ops import counters
 
-    with dt.execution_config_ctx(device="cuda", device_mode="on", kernel_mode="on"):
-        torch.cuda.reset_peak_memory_stats()
+    on_card = torch.cuda.is_available()
+    with dt_ctx():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
         counters.reset()
         t0 = time.perf_counter()
         got = query().to_pydict()
-        torch.cuda.synchronize()
+        _synchronize()
         cold_s = time.perf_counter() - t0
         snap = counters.snapshot()
         rejected = dict(counters.rejections)
-        launches = {k: snap[f"launches_{k}"] for k in counters.KERNEL_NAMES}
+        launches = {k: snap[f"{CELL_KERNEL_PREFIX}{k}"] for k in counters.KERNEL_NAMES}
         counters.reset()
         warm = time_s(lambda: query().to_pydict())
         warm_snap = counters.snapshot()
-        peak = torch.cuda.max_memory_allocated()
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
     print(f"{label} cold run counters: {json.dumps(snap, sort_keys=True)}")
     check(snap[counter] >= 1, f"{label}: no {counter} in the cold run")
     check(snap["device_fallbacks"] == 0, f"{label}: the stage fell back to the host")
@@ -4131,7 +4143,9 @@ def scan_q3(pq, want: dict, card: str) -> dict:
         snap = counters.snapshot()
         reasons = dict(counters.rejections)
         launches = {k: snap[f"launches_{k}"] for k in counters.KERNEL_NAMES}
-        warm = time_s(lambda: query().to_pydict())
+        # one warm run: a file-fed q3 run takes about 20 s (the per-batch dim
+        # index, PERF.md §7), and the pipeline phase times it again
+        warm = time_s(lambda: query().to_pydict(), runs=1)
     print(f"scan q3 cold run counters: {json.dumps(snap, sort_keys=True)}")
     print(f"scan q3 fallback: {json.dumps(reasons)}")
     check(snap["device_topn_runs"] == 0 and snap["device_fallbacks"] == 1,
@@ -4145,10 +4159,11 @@ def scan_q3(pq, want: dict, card: str) -> dict:
     return launches
 
 
-# rounds of (off, on, on, off) a pipeline cell runs; q3 and q5 one. Two
-# until the ooc and window phases came: one keeps the script under 15 minutes
-PIPELINE_ROUNDS = 1
+# the modes a pipeline cell runs in turn: (off, on, on, off), once (twice
+# until the ooc and window phases came); file-fed q3, about 20 s a run, one
+# of each, to keep the script well inside its time limit
 PIPELINE_MODES = ("off", "on", "on", "off")
+PIPELINE_MODES_Q3 = ("off", "on")
 DEVICE_NODE_NAMES = ("DeviceGroupedAgg", "DeviceFilterAgg", "DeviceJoinAgg", "DeviceJoinTopN")
 # the kernel wrappers the stages call, and the executor's feed of a device
 # stage's batches, by module: a run's calls are recorded with their thread
@@ -4249,10 +4264,10 @@ def host_profile(label: str, run, card: str, top: int = 10) -> None:
 
 
 def pipeline_cell(label: str, query, want: dict, floats, counter: str, card: str,
-                  rounds: int = PIPELINE_ROUNDS, cold: bool = False,
+                  modes=PIPELINE_MODES, cold: bool = False,
                   profile: bool = False) -> dict:
-    """One cell in turns under pipeline_mode "off" and "on" (off, on, on,
-    off, ``rounds`` times) after one untimed run, the coalescer flushing
+    """One cell in turns under pipeline_mode "off" and "on" (``modes``, in
+    order) after one untimed run, the coalescer flushing
     by size alone, the counters zeroed before each run and read after it. Every run equals
     ``want`` (the cell's result, held to its numpy oracle) and the other
     mode's first run (``floats`` within rtol 1e-5, the rest exactly);
@@ -4280,7 +4295,7 @@ def pipeline_cell(label: str, query, want: dict, floats, counter: str, card: str
                 host_profile(label, lambda: query().to_pydict(), card)
             else:
                 query().to_pydict()  # untimed: the frames' dictionaries and planes
-    for mode in PIPELINE_MODES * rounds:
+    for mode in modes:
         is_cold = cold and mode not in out["cold"]
         if is_cold:
             clear_residency()
@@ -4386,7 +4401,7 @@ def supplier_frame(cols):
 
 
 def pipeline_cells(lineitem, orders, dirs: dict) -> list:
-    """(label, query, the cells key, float columns, stage counter, rounds,
+    """(label, query, the cells key, float columns, stage counter, modes,
     cold) of each pipeline cell: the file-fed q1, q6, q12, q14 and q3 over
     the scan phase's Parquet files, q5 in SQL with its dims from CSV (the
     session's tables, registered by the caller), and the in-memory
@@ -4401,25 +4416,25 @@ def pipeline_cells(lineitem, orders, dirs: dict) -> list:
     df_l, df_o = q12_frames(lineitem, orders)
     return [
         ("pipeline scan q1", lambda: q1_query(pq("lineitem")), "q1", Q1_FLOATS,
-         "device_grouped_batches", PIPELINE_ROUNDS, False),
+         "device_grouped_batches", PIPELINE_MODES, False),
         ("pipeline scan q6", lambda: q6_query(pq("lineitem")), "q6", ("revenue",),
-         "device_stage_batches", PIPELINE_ROUNDS, False),
+         "device_stage_batches", PIPELINE_MODES, False),
         ("pipeline scan q12", lambda: q12_query(pq("lineitem"), pq("orders")), "q12", (),
-         "device_join_batches", PIPELINE_ROUNDS, False),
+         "device_join_batches", PIPELINE_MODES, False),
         ("pipeline scan q14", lambda: q14_query({"lineitem": pq("lineitem"), "part": pq("part")}),
-         "q14", ("promo_revenue",), "device_join_batches", PIPELINE_ROUNDS, False),
+         "q14", ("promo_revenue",), "device_join_batches", PIPELINE_MODES, False),
         ("pipeline scan q3", lambda: q3_query({"lineitem": pq("lineitem"),
                                                "orders": pq("orders"),
                                                "customer": pq("customer")}),
-         "q3", ("revenue",), "device_grouped_batches", 1, False),
+         "q3", ("revenue",), "device_grouped_batches", PIPELINE_MODES_Q3, False),
         ("pipeline scan q5 sql", lambda: dt.sql(TPCH_SQL[5]), "q5", ("revenue",),
-         "device_grouped_batches", 1, True),
+         "device_grouped_batches", PIPELINE_MODES, True),
         ("pipeline supplier", lambda: supplier_query(sup), "supplier", (),
-         "device_grouped_batches", PIPELINE_ROUNDS, False),
+         "device_grouped_batches", PIPELINE_MODES, False),
         ("pipeline q1", lambda: q1_query(q1_df), "q1", Q1_FLOATS, "device_grouped_batches",
-         PIPELINE_ROUNDS, False),
+         PIPELINE_MODES, False),
         ("pipeline q12", lambda: q12_query(df_l, df_o), "q12", (), "device_join_batches",
-         PIPELINE_ROUNDS, False),
+         PIPELINE_MODES, False),
     ]
 
 
@@ -4445,10 +4460,10 @@ def phase_pipeline(lineitem, orders, dirs: dict, cells: dict, card: str) -> dict
     t0 = time.perf_counter()
     try:
         clear_residency()
-        for label, query, key, floats, counter, rounds, cold in \
+        for label, query, key, floats, counter, modes, cold in \
                 pipeline_cells(lineitem, orders, dirs):
             # q3's time is not split yet: its untimed run goes under cProfile
-            r = pipeline_cell(label, query, cells[key], floats, counter, card, rounds, cold,
+            r = pipeline_cell(label, query, cells[key], floats, counter, card, modes, cold,
                               profile=key == "q3")
             paths[label.replace(" ", "_")] = r["launches"]
             if key == "q5":
@@ -5467,6 +5482,563 @@ def phase_window(lineitem, dims, frames: dict, card: str) -> dict:
     return paths
 
 
+# ---- functions: the expression surface's device ops in the stage program --------
+
+FUNCTIONS_FLOATS = ("log10_net", "sqrt_qty", "dist_30k", "tax_round1", "disc_sq",
+                    "disc_clip", "exp_disc")
+FUNCTIONS_KERNELS = ("segment_sum_planes", "segment_extreme_planes", "segment_extreme_int64",
+                     "segment_sum_float_planes")
+
+
+def functions_frame(lineitem):
+    """The functions cell's DataFrame over SF1 lineitem: flags and statuses
+    as strings."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+
+    return dt.from_pydict({
+        "l_returnflag": np.array(RETURNFLAGS, dtype=object)[lineitem["l_returnflag"]],
+        "l_linestatus": np.array(LINESTATUS, dtype=object)[lineitem["l_linestatus"]],
+        **{c: lineitem[c] for c in ("l_orderkey", "l_partkey", "l_linenumber", "l_quantity",
+                                    "l_extendedprice", "l_discount", "l_tax")}})
+
+
+def functions_query(df):
+    """A fact filter of ``is_in`` and ``%`` and eight aggregates of the
+    device ops and functions (log10, sqrt, //, abs, round, **, clip, exp),
+    grouped by flag and status; the float min makes the stage f64."""
+    from daft_tpu_torch import col
+
+    return (df.where(col("l_linenumber").is_in([1, 3, 5]) & ((col("l_orderkey") % 7) != 0))
+            .groupby("l_returnflag", "l_linestatus")
+            .agg((col("l_extendedprice") * (1 - col("l_discount"))).log10().sum()
+                 .alias("log10_net"),
+                 col("l_quantity").sqrt().mean().alias("sqrt_qty"),
+                 (col("l_partkey") // 1000).max().alias("part_k"),
+                 (col("l_extendedprice") - 30000).abs().min().alias("dist_30k"),
+                 col("l_tax").round(1).sum().alias("tax_round1"),
+                 (col("l_discount") ** 2).sum().alias("disc_sq"),
+                 col("l_discount").clip(0.02, 0.08).mean().alias("disc_clip"),
+                 (col("l_discount") * 10).exp().sum().alias("exp_disc"),
+                 col("l_orderkey").count().alias("n"))
+            .sort(["l_returnflag", "l_linestatus"]))
+
+
+def functions_oracle(cols) -> dict:
+    """The functions cell's answer with numpy alone, in f64."""
+    import numpy as np
+
+    keep = np.isin(cols["l_linenumber"], [1, 3, 5]) & (cols["l_orderkey"] % 7 != 0)
+    code = cols["l_returnflag"][keep].astype(np.int64) * 2 + cols["l_linestatus"][keep]
+    price, disc = cols["l_extendedprice"][keep], cols["l_discount"][keep]
+    qty, tax, pk = cols["l_quantity"][keep], cols["l_tax"][keep], cols["l_partkey"][keep]
+    out = {k: [] for k in ("l_returnflag", "l_linestatus", "log10_net", "sqrt_qty", "part_k",
+                           "dist_30k", "tax_round1", "disc_sq", "disc_clip", "exp_disc", "n")}
+    for c in sorted(np.unique(code).tolist(), key=lambda c: (RETURNFLAGS[c // 2],
+                                                             LINESTATUS[c % 2])):
+        rows = code == c
+        out["l_returnflag"].append(RETURNFLAGS[c // 2])
+        out["l_linestatus"].append(LINESTATUS[c % 2])
+        out["log10_net"].append(float(np.log10(price[rows] * (1 - disc[rows])).sum()))
+        out["sqrt_qty"].append(float(np.sqrt(qty[rows]).mean()))
+        out["part_k"].append(int((pk[rows] // 1000).max()))
+        out["dist_30k"].append(float(np.abs(price[rows] - 30000).min()))
+        out["tax_round1"].append(float(np.round(tax[rows], 1).sum()))
+        out["disc_sq"].append(float((disc[rows] ** 2).sum()))
+        out["disc_clip"].append(float(np.clip(disc[rows], 0.02, 0.08).mean()))
+        out["exp_disc"].append(float(np.exp(disc[rows] * 10).sum()))
+        out["n"].append(int(rows.sum()))
+    return out
+
+
+def phase_functions(lineitem, card: str) -> dict:
+    """The functions cell on the card: the filter and the eight function
+    aggregates plan as one DeviceGroupedAgg (no rejection, no fallback),
+    equal to the device_mode="off" run and to the numpy oracle (integers
+    exactly, floats within rtol 1e-5); cold and warm times, launches and a
+    profile. Returns {"functions": launches}."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.plan import physical as pp
+
+    phase("functions")
+    clear_residency()
+    start = time.perf_counter()
+    df = functions_frame(lineitem)
+    with dt_ctx():
+        plan = pp.translate(functions_query(df).optimized_plan())
+    node = plan.input if isinstance(plan, pp.PhysSort) else plan
+    check(type(node).__name__ == "DeviceGroupedAgg",
+          f"functions: the aggregate planned as {type(node).__name__}, not DeviceGroupedAgg")
+    oracle = functions_oracle(lineitem)
+    _got, launches = run_cell("functions", lambda: functions_query(df), FUNCTIONS_KERNELS,
+                              card, FUNCTIONS_FLOATS, oracle)
+    phase_profile(lambda: functions_query(df).to_pydict(), card, "functions profile")
+    print(f"functions phase {time.perf_counter() - start:.1f} s [{card}]", flush=True)
+    return {"functions": launches}
+
+
+# ---- tpcds: the reference's 25 TPC-DS queries at SF1 -----------------------------
+
+TPCDS_SF = 1.0
+TPCDS_SEED = 0
+TPCDS_CATEGORIES = ["Books", "Children", "Electronics", "Home", "Jewelry", "Men", "Music",
+                    "Shoes", "Sports", "Women"]
+TPCDS_CLASSES = ["accent", "classical", "dresses", "fiction", "fragrances", "infants", "pants",
+                 "portable", "reference", "rock"]
+TPCDS_COLORS = ["slate", "blanched", "burnished", "powder", "ghost", "peach", "salmon", "mint",
+                "azure", "rose"]
+TPCDS_MARITAL = ["M", "S", "D", "W", "U"]
+TPCDS_EDUCATION = ["Primary", "Secondary", "College", "2 yr Degree", "4 yr Degree",
+                   "Advanced Degree", "Unknown"]
+TPCDS_BUY_POTENTIAL = [">10000", "5001-10000", "1001-5000", "501-1000", "0-500", "Unknown"]
+TPCDS_CREDIT = ["Low Risk", "High Risk", "Good", "Unknown"]
+TPCDS_STORE_NAMES = ["ought", "able", "ese", "anti", "cally", "ation", "eing", "bar"]
+TPCDS_STATES = ["TN", "GA", "AL", "SC", "NC", "KY", "VA", "FL", "MS", "LA"]
+TPCDS_COUNTIES = ["Williamson County", "Franklin Parish", "Walker County", "Ziebach County",
+                  "Daviess County"]
+TPCDS_CITIES = ["Midway", "Fairview", "Oak Grove", "Five Points", "Centerville"]
+# the stage a query rode, from its cold run's counters, most specific first
+TPCDS_STAGES = (("device_topn_runs", "join TopN"), ("device_join_batches", "device join"),
+                ("device_grouped_batches", "grouped stage"),
+                ("device_stage_batches", "ungrouped stage"))
+# the stage each query's cold run rides at SF1 (measured on the H100,
+# PERF.md §5): the star join's aggregate under a TopN or alone, the grouped
+# stage over host joins, or the host, where the join run fell back
+TPCDS_RIDES = {3: "join TopN", 7: "join TopN", 42: "join TopN", 43: "join TopN",
+               52: "join TopN", 55: "join TopN",
+               12: "device join", 20: "device join", 27: "device join", 36: "device join",
+               48: "device join", 59: "device join", 63: "device join", 88: "device join",
+               96: "device join", 98: "device join",
+               6: "grouped stage", 19: "grouped stage", 33: "grouped stage",
+               56: "grouped stage", 65: "grouped stage",
+               51: "host", 73: "host", 79: "host", 89: "host"}
+# the run-time fallbacks each query's cold run takes at SF1, (count, what
+# every reason says): joined groups past the join run's 2^16 ceiling (q27's
+# at one level of its rollup, q51's in both of its channels); every other
+# query falls back nowhere
+TPCDS_CEILING = "exceeds the ceiling 65536 of DeviceJoinGroupedRun"
+TPCDS_FALLBACKS = {27: (1, TPCDS_CEILING), 51: (2, TPCDS_CEILING), 73: (1, TPCDS_CEILING),
+                   79: (1, TPCDS_CEILING), 89: (1, TPCDS_CEILING)}
+# the kernels a cold run on each stage launches at least once: the star
+# join's K4 build and probe, the grouped run's K1, K2 and K7 (an ungrouped
+# join aggregate, q48, q88 and q96's count, launches K4 alone)
+TPCDS_STAGE_KERNELS = {
+    "join TopN": ("hash_probe_build", "hash_probe_index", "segment_sum_planes",
+                  "segment_extreme_planes", "segment_sum_float_planes"),
+    "device join": ("hash_probe_build", "hash_probe_index"),
+    "grouped stage": ("segment_sum_planes", "segment_extreme_planes",
+                      "segment_sum_float_planes"),
+    "host": ()}
+# the query whose kernel inputs the kernels' TPC-DS cases take: its star
+# join builds K4 over item and date_dim, probes store_sales' keys and runs
+# K1, K2 and K7 at its join run's cap
+TPCDS_KERNEL_QUERY = 98
+
+
+def tpcds_tables(sf: float = TPCDS_SF, seed: int = TPCDS_SEED) -> dict:
+    """benchmarking/tpcds/datagen.py's tables (its lines 42-235) with numpy
+    alone: the same draws in the same order from the same generator, so the
+    columns equal the reference's at any scale factor; strings as object
+    arrays, d_date as datetime64[D]. {table: {column: array}}."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def money(n, lo=0.5, hi=200.0):
+        return np.round(rng.uniform(lo, hi, n), 2)
+
+    def strs(items):
+        out = np.empty(len(items), dtype=object)
+        out[:] = items
+        return out
+
+    def pick(vocab, codes):
+        return strs([vocab[i] for i in codes.tolist()])
+
+    d0 = datetime.date(1998, 1, 1)
+    n_dates = (datetime.date(2002, 12, 31) - d0).days + 1
+    dates = [d0 + datetime.timedelta(days=i) for i in range(n_dates)]
+    date_dim = {
+        "d_date_sk": np.arange(n_dates, dtype=np.int64) + 2_450_000,
+        "d_date": np.array([(d - EPOCH).days for d in dates]).astype("datetime64[D]"),
+        "d_year": np.array([d.year for d in dates], np.int32),
+        "d_moy": np.array([d.month for d in dates], np.int32),
+        "d_dom": np.array([d.day for d in dates], np.int32),
+        "d_qoy": np.array([(d.month - 1) // 3 + 1 for d in dates], np.int32),
+        "d_day_name": strs([d.strftime("%A") for d in dates]),
+        "d_month_seq": np.array([(d.year - 1900) * 12 + d.month - 1 for d in dates], np.int32),
+        "d_week_seq": np.array([((d - EPOCH).days + 3) // 7 for d in dates], np.int32),
+        "d_dow": np.array([d.isoweekday() % 7 for d in dates], np.int32),
+    }
+    secs = np.arange(86400, dtype=np.int64)
+    time_dim = {"t_time_sk": secs, "t_hour": (secs // 3600).astype(np.int32),
+                "t_minute": ((secs // 60) % 60).astype(np.int32),
+                "t_second": (secs % 60).astype(np.int32)}
+    n_item = max(int(18_000 * min(sf, 1.0) + 2_000 * max(sf - 1.0, 0)), 2_000)
+    isk = np.arange(n_item, dtype=np.int64) + 1
+    brand_id = rng.integers(1, 1001, n_item).astype(np.int32)
+    cat_id = rng.integers(0, len(TPCDS_CATEGORIES), n_item)
+    class_id = rng.integers(0, len(TPCDS_CLASSES), n_item)
+    item = {
+        "i_item_sk": isk,
+        "i_item_id": strs([f"AAAAAAAA{k:08d}" for k in isk.tolist()]),
+        "i_brand_id": brand_id,
+        "i_brand": strs([f"brand#{b}" for b in brand_id.tolist()]),
+        "i_class_id": (class_id + 1).astype(np.int32),
+        "i_class": pick(TPCDS_CLASSES, class_id),
+        "i_category_id": (cat_id + 1).astype(np.int32),
+        "i_category": pick(TPCDS_CATEGORIES, cat_id),
+        "i_color": pick(TPCDS_COLORS, rng.integers(0, 10, n_item)),
+        "i_manufact_id": rng.integers(1, 1001, n_item).astype(np.int32),
+        "i_manager_id": rng.integers(1, 101, n_item).astype(np.int32),
+        "i_current_price": money(n_item, 0.09, 99.99),
+    }
+    n_cd = max(int(19_200 * max(sf, 0.01)), 500)
+    cd = {
+        "cd_demo_sk": np.arange(n_cd, dtype=np.int64) + 1,
+        "cd_gender": pick(["M", "F"], rng.integers(0, 2, n_cd)),
+        "cd_marital_status": pick(TPCDS_MARITAL, rng.integers(0, len(TPCDS_MARITAL), n_cd)),
+        "cd_education_status": pick(TPCDS_EDUCATION,
+                                    rng.integers(0, len(TPCDS_EDUCATION), n_cd)),
+        "cd_purchase_estimate": rng.integers(500, 10_000, n_cd).astype(np.int32),
+        "cd_credit_rating": pick(TPCDS_CREDIT, rng.integers(0, len(TPCDS_CREDIT), n_cd)),
+        "cd_dep_count": rng.integers(0, 7, n_cd).astype(np.int32),
+    }
+    n_hd = 7_200
+    hd = {
+        "hd_demo_sk": np.arange(n_hd, dtype=np.int64) + 1,
+        "hd_income_band_sk": rng.integers(1, 21, n_hd).astype(np.int64),
+        "hd_buy_potential": pick(TPCDS_BUY_POTENTIAL,
+                                 rng.integers(0, len(TPCDS_BUY_POTENTIAL), n_hd)),
+        "hd_dep_count": rng.integers(0, 10, n_hd).astype(np.int32),
+        "hd_vehicle_count": rng.integers(-1, 5, n_hd).astype(np.int32),
+    }
+    n_ca = max(int(50_000 * sf), 200)
+    zips = rng.integers(10_000, 99_999, n_ca)
+    ca = {
+        "ca_address_sk": np.arange(n_ca, dtype=np.int64) + 1,
+        "ca_city": strs([f"city_{i}" for i in rng.integers(0, 600, n_ca).tolist()]),
+        "ca_state": pick(TPCDS_STATES, rng.integers(0, len(TPCDS_STATES), n_ca)),
+        "ca_zip": strs([f"{z:05d}" for z in zips.tolist()]),
+        "ca_country": strs(["United States"] * n_ca),
+        "ca_gmt_offset": np.full(n_ca, -5.0),
+    }
+    n_cust = max(int(100_000 * sf), 300)
+    csk = np.arange(n_cust, dtype=np.int64) + 1
+    customer = {
+        "c_customer_sk": csk,
+        "c_customer_id": strs([f"AAAAAAAA{k:08d}" for k in csk.tolist()]),
+        "c_current_cdemo_sk": rng.integers(1, n_cd + 1, n_cust).astype(np.int64),
+        "c_current_hdemo_sk": rng.integers(1, n_hd + 1, n_cust).astype(np.int64),
+        "c_current_addr_sk": rng.integers(1, n_ca + 1, n_cust).astype(np.int64),
+        "c_first_name": strs([f"first{i}" for i in rng.integers(0, 5_000, n_cust).tolist()]),
+        "c_last_name": strs([f"last{i}" for i in rng.integers(0, 6_000, n_cust).tolist()]),
+        "c_birth_year": rng.integers(1924, 1993, n_cust).astype(np.int32),
+    }
+    n_store = max(int(12 * max(sf, 0.25)), 3)
+    szips = rng.integers(10_000, 99_999, n_store)
+    store = {
+        "s_store_sk": np.arange(n_store, dtype=np.int64) + 1,
+        "s_store_id": strs([f"AAAAAAAA{k:08d}" for k in range(1, n_store + 1)]),
+        "s_store_name": strs([TPCDS_STORE_NAMES[i % len(TPCDS_STORE_NAMES)]
+                              for i in range(n_store)]),
+        "s_state": pick(TPCDS_STATES, rng.integers(0, len(TPCDS_STATES), n_store)),
+        "s_county": strs([TPCDS_COUNTIES[i % len(TPCDS_COUNTIES)] for i in range(n_store)]),
+        "s_city": strs([TPCDS_CITIES[i % 5] for i in range(n_store)]),
+        "s_company_name": strs(["Unknown"] * n_store),
+        "s_number_employees": rng.integers(200, 301, n_store).astype(np.int32),
+        "s_zip": strs([f"{z:05d}" for z in szips.tolist()]),
+        "s_gmt_offset": np.full(n_store, -5.0),
+    }
+    n_promo = max(int(300 * max(sf, 0.1)), 30)
+    promotion = {
+        "p_promo_sk": np.arange(n_promo, dtype=np.int64) + 1,
+        "p_promo_id": strs([f"AAAAAAAA{k:08d}" for k in range(1, n_promo + 1)]),
+        "p_channel_email": pick(["N", "Y"], rng.integers(0, 2, n_promo)),
+        "p_channel_event": pick(["N", "Y"], rng.integers(0, 2, n_promo)),
+        "p_channel_tv": pick(["N", "Y"], rng.integers(0, 2, n_promo)),
+    }
+    n_ss = int(2_880_000 * sf)
+    qty = rng.integers(1, 101, n_ss).astype(np.int32)
+    list_price = money(n_ss, 1.0, 200.0)
+    sales_price = np.round(list_price * rng.uniform(0.2, 1.0, n_ss), 2)
+    wholesale = np.round(list_price * rng.uniform(0.3, 0.7, n_ss), 2)
+    store_sales = {
+        "ss_sold_date_sk": (rng.integers(0, n_dates, n_ss) + 2_450_000).astype(np.int64),
+        "ss_sold_time_sk": rng.integers(0, 86_400, n_ss).astype(np.int64),
+        "ss_item_sk": rng.integers(1, n_item + 1, n_ss).astype(np.int64),
+        "ss_customer_sk": rng.integers(1, n_cust + 1, n_ss).astype(np.int64),
+        "ss_cdemo_sk": rng.integers(1, n_cd + 1, n_ss).astype(np.int64),
+        "ss_hdemo_sk": rng.integers(1, n_hd + 1, n_ss).astype(np.int64),
+        "ss_addr_sk": rng.integers(1, n_ca + 1, n_ss).astype(np.int64),
+        "ss_store_sk": rng.integers(1, n_store + 1, n_ss).astype(np.int64),
+        "ss_promo_sk": rng.integers(1, n_promo + 1, n_ss).astype(np.int64),
+        "ss_ticket_number": rng.integers(1, max(n_ss // 10, 2), n_ss).astype(np.int64),
+        "ss_quantity": qty,
+        "ss_wholesale_cost": wholesale,
+        "ss_list_price": list_price,
+        "ss_sales_price": sales_price,
+        "ss_coupon_amt": np.round(rng.uniform(0, 500, n_ss) * (rng.random(n_ss) < 0.2), 2),
+        "ss_ext_sales_price": np.round(sales_price * qty, 2),
+        "ss_ext_list_price": np.round(list_price * qty, 2),
+        "ss_ext_wholesale_cost": np.round(wholesale * qty, 2),
+        "ss_net_profit": np.round((sales_price - wholesale) * qty, 2),
+    }
+
+    def channel(prefix: str, n_rows: int) -> dict:
+        q = rng.integers(1, 101, n_rows).astype(np.int32)
+        lp = money(n_rows, 1.0, 200.0)
+        sp = np.round(lp * rng.uniform(0.2, 1.0, n_rows), 2)
+        return {
+            f"{prefix}_sold_date_sk": (rng.integers(0, n_dates, n_rows)
+                                       + 2_450_000).astype(np.int64),
+            f"{prefix}_item_sk": rng.integers(1, n_item + 1, n_rows).astype(np.int64),
+            f"{prefix}_bill_customer_sk": rng.integers(1, n_cust + 1, n_rows).astype(np.int64),
+            f"{prefix}_bill_addr_sk": rng.integers(1, n_ca + 1, n_rows).astype(np.int64),
+            f"{prefix}_quantity": q,
+            f"{prefix}_list_price": lp,
+            f"{prefix}_sales_price": sp,
+            f"{prefix}_ext_sales_price": np.round(sp * q, 2),
+        }
+
+    catalog_sales = channel("cs", int(1_440_000 * sf))
+    web_sales = channel("ws", int(720_000 * sf))
+    return {"date_dim": date_dim, "time_dim": time_dim, "item": item,
+            "customer_demographics": cd, "household_demographics": hd,
+            "customer_address": ca, "customer": customer, "store": store,
+            "promotion": promotion, "store_sales": store_sales,
+            "catalog_sales": catalog_sales, "web_sales": web_sales}
+
+
+def tpcds_frames(tables: dict) -> dict:
+    """The port's DataFrames of ``tpcds_tables``."""
+    import daft_tpu_torch as dt
+
+    return {name: dt.from_pydict(cols) for name, cols in tables.items()}
+
+
+def tpcds_port_queries(root: str = HERE) -> dict:
+    """benchmarking/tpcds/queries.py's ALL_QUERIES with its imports of
+    daft_tpu read as imports of daft_tpu_torch (nothing of daft_tpu is
+    imported)."""
+    import types
+
+    path = os.path.join(root, "benchmarking", "tpcds", "queries.py")
+    src = open(path).read()
+    check("from daft_tpu import col" in src, f"{path}: the import to rewrite moved")
+    src = src.replace("from daft_tpu import", "from daft_tpu_torch import") \
+        .replace("from daft_tpu.", "from daft_tpu_torch.")
+    mod = types.ModuleType("port_tpcds_queries")
+    exec(compile(src, path, "exec"), mod.__dict__)
+    return mod.ALL_QUERIES
+
+
+def tpcds_stage(snap: dict) -> str:
+    """The stage a run rode, from its counters: the join TopN, the device
+    join, the grouped or the ungrouped stage, or the host."""
+    for counter, name in TPCDS_STAGES:
+        if snap.get(counter, 0) > 0:
+            return name
+    return "host"
+
+
+def float_columns(result: dict) -> tuple:
+    return tuple(c for c, v in result.items() if any(isinstance(x, float) for x in v))
+
+
+def tpcds_check_run(qn: int, stage: str, snap: dict, reasons: list, launches: dict) -> None:
+    """The query's cold run rode the stage TPCDS_RIDES says, fell back
+    exactly where TPCDS_FALLBACKS says, and launched its stage's kernels."""
+    want = TPCDS_RIDES[qn]
+    check(stage == want, f"tpcds q{qn}: rode {stage}, expected {want}")
+    count, reason = TPCDS_FALLBACKS.get(qn, (0, None))
+    check(snap["device_fallbacks"] == count and len(reasons) == count
+          and all(reason in r for r in reasons),
+          f"tpcds q{qn}: fell back {snap['device_fallbacks']} times {reasons}, expected "
+          f"{f'{count} for {reason!r}' if count else 'none'}")
+    missing = [k for k in TPCDS_STAGE_KERNELS[want] if not launches[k]]
+    check(not missing, f"tpcds q{qn}: {want} launched no {', '.join(missing)}")
+
+
+def phase_tpcds(tables: dict, card: str) -> dict:
+    """The 25 TPC-DS queries of benchmarking/tpcds/queries.py over
+    ``tpcds_tables``: each under device_mode="off" (the host path), then
+    under "on" cold (residency cleared, the counters zeroed just before and
+    read just after) and warm (median of 3). "on" must equal "off"
+    (integers and strings exactly, floats within rtol 1e-5), and each cold
+    run must ride its stage, fall back and launch as ``tpcds_check_run``
+    holds it. Prints each query's stage, times, launches and run-time
+    fallbacks, and the phase's time. Returns {"tpcds": the cold runs'
+    launches, summed}."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.ops import counters
+
+    phase("tpcds")
+    start = time.perf_counter()
+    t0 = time.perf_counter()
+    frames = tpcds_frames(tables)
+    print(f"tpcds frames {time.perf_counter() - t0:.2f} s; store_sales "
+          f"{len(tables['store_sales']['ss_item_sk'])} rows, catalog_sales "
+          f"{len(tables['catalog_sales']['cs_item_sk'])}, web_sales "
+          f"{len(tables['web_sales']['ws_item_sk'])} [{card}]", flush=True)
+    queries = tpcds_port_queries()
+    check(len(queries) == 25, f"tpcds: {len(queries)} queries, not 25")
+    check(set(queries) == set(TPCDS_RIDES), f"tpcds: queries {sorted(queries)} are not "
+                                            f"TPCDS_RIDES' {sorted(TPCDS_RIDES)}")
+    total = {k: 0 for k in counters.KERNEL_NAMES}
+    rode = []
+    for qn in sorted(queries):
+        q = queries[qn]
+        with dt_ctx(), dt.execution_config_ctx(device_mode="off"):
+            t0 = time.perf_counter()
+            want = q(frames).to_pydict()
+            off_s = time.perf_counter() - t0
+        clear_residency()
+        with dt_ctx():
+            counters.reset()
+            t0 = time.perf_counter()
+            got = q(frames).to_pydict()
+            _synchronize()
+            cold_s = time.perf_counter() - t0
+            snap = counters.snapshot()
+            reasons = sorted(r for r, n in dict(counters.rejections).items()
+                             if "device fallback: " in r for _ in range(n))
+            stage = tpcds_stage(snap)
+            warm = time_s(lambda: q(frames).to_pydict())
+        check(same_result(got, want, float_columns(want)),
+              f"tpcds q{qn}: the \"on\" run differs from the \"off\" run")
+        launches = {k: snap[f"{CELL_KERNEL_PREFIX}{k}"] for k in counters.KERNEL_NAMES}
+        for k, v in launches.items():
+            total[k] += v
+        if stage != "host":
+            rode.append(qn)
+        rows = len(next(iter(want.values()))) if want else 0
+        fb_txt = f"; fell back to the host: {json.dumps(reasons)}" if reasons else ""
+        print(f"tpcds q{qn}: {stage}; {rows} rows, equal to off; cold {cold_s * 1e3:.2f} ms, "
+              f"warm median {statistics.median(warm) * 1e3:.2f} ms (runs "
+              f"{', '.join(f'{w * 1e3:.2f}' for w in warm)}), off {off_s * 1e3:.2f} ms; "
+              f"launches {json.dumps({k: v for k, v in launches.items() if v})}{fb_txt} "
+              f"[{card}]", flush=True)
+        tpcds_check_run(qn, stage, snap, reasons, launches)
+    print(f"tpcds: {len(rode)} of {len(queries)} queries rode the card: {rode}")
+    print(f"tpcds phase {time.perf_counter() - start:.1f} s [{card}]", flush=True)
+    return {"tpcds": total}
+
+
+TPCDS_WRAPPERS = {"segment_sum_planes": "segment_kernels",
+                  "segment_extreme_planes": "segment_kernels",
+                  "segment_sum_float_planes": "segment_kernels",
+                  "build_probe_table": "probe_kernels", "hash_probe_index": "probe_kernels"}
+
+
+def capture_kernel_calls(run) -> dict:
+    """Run ``run`` with each of TPCDS_WRAPPERS' wrappers replaced by one
+    that keeps a copy of its arguments and of its result, then returns the
+    result: {wrapper: [(args, result), ...]} in call order. The engine
+    calls the wrappers through their modules, so this sees every call."""
+    import importlib
+
+    import torch
+
+    def copy(a):
+        if isinstance(a, torch.Tensor):
+            return a.clone()
+        if isinstance(a, (list, tuple)):
+            return [copy(x) for x in a]
+        return a
+
+    mods = {name: importlib.import_module(f"daft_tpu_torch.ops.{m}")
+            for name, m in TPCDS_WRAPPERS.items()}
+    originals = {name: getattr(m, name) for name, m in mods.items()}
+    calls = {name: [] for name in mods}
+
+    def recorder(name):
+        fn = originals[name]
+
+        def wrapper(*args):
+            kept = copy(args)
+            out = fn(*args)
+            calls[name].append((kept, copy(out)))
+            return out
+        return wrapper
+
+    try:
+        for name, m in mods.items():
+            setattr(m, name, recorder(name))
+        run()
+    finally:
+        for name, m in mods.items():
+            setattr(m, name, originals[name])
+    return calls
+
+
+def tpcds_kernel_calls(tables: dict) -> dict:
+    """TPCDS_KERNEL_QUERY's cold run (residency cleared) under
+    ``capture_kernel_calls``, with each K4 build named by the dim whose
+    keys it holds: {wrapper: [(args, result, name), ...]}."""
+    import numpy as np
+
+    frames = tpcds_frames(tables)
+    query = tpcds_port_queries()[TPCDS_KERNEL_QUERY]
+    clear_residency()
+    with dt_ctx():
+        calls = capture_kernel_calls(lambda: query(frames).to_pydict())
+    dims = {"item": tables["item"]["i_item_sk"], "date_dim": tables["date_dim"]["d_date_sk"]}
+    named = {}
+    for wrapper, seen in calls.items():
+        check(len(seen) > 0, f"tpcds q{TPCDS_KERNEL_QUERY}: {wrapper} was not called")
+        named[wrapper] = []
+        for args, out in seen:
+            name = ""
+            if wrapper == "build_probe_table":
+                keys = args[0][args[1]].cpu().numpy()
+                name = next((d for d, k in dims.items() if np.isin(keys, k).all()), "dim")
+            named[wrapper].append((args, out, name))
+    builds = named["build_probe_table"]
+    for i, (args, _out, _name) in enumerate(named["hash_probe_index"]):
+        name = next((b[2] for b in builds if b[1].shape == args[2].shape
+                     and bool((b[1] == args[2]).all())), "dim")
+        named["hash_probe_index"][i] = (args, _out, name)
+    return named
+
+
+def tpcds_kernel_cases(tables: dict, kernel_results: dict, card: str) -> None:
+    """Each kernel of TPCDS_KERNEL_QUERY's star join at the inputs its cold
+    run gave it (``tpcds_kernel_calls``), held against its plain version on
+    the same tensors with its times and bound, as the other paths' shapes
+    are; the cases go into ``kernel_results`` under "at_tpcds_q98_...". The
+    capture's launches fall outside every counted run."""
+    import torch
+
+    from daft_tpu_torch.ops import probe_kernels as pk
+    from daft_tpu_torch.ops import segment_kernels as sk
+
+    phase("tpcds kernels")
+    named = tpcds_kernel_calls(tables)
+    at = f"at_tpcds_q{TPCDS_KERNEL_QUERY}"
+    new = {}
+    for (planes, codes, cap), _out, _n in named["segment_sum_planes"]:
+        new[("segment_sum_planes", f"{at}_cap{cap}")] = plane_case(sk, "sum", planes, codes, cap)
+    for (planes, codes, cap, op), _out, _n in named["segment_extreme_planes"]:
+        new[("segment_extreme_planes", f"{at}_cap{cap}")] = plane_case(sk, op, planes, codes,
+                                                                       cap)
+    for (planes, codes, cap), _out, _n in named["segment_sum_float_planes"]:
+        new[("segment_sum_float_planes", f"{at}_cap{cap}")] = k7_case(
+            sk, planes, codes, cap, f"tpcds q{TPCDS_KERNEL_QUERY} cap {cap}")
+    for (keys, valid, slots), _out, name in named["build_probe_table"]:
+        _table, new[("hash_probe_build", f"{at}_{name}")] = k4_build_case(
+            pk, keys, f"tpcds {name}", valid, slots)
+    for (keys, valid, table), _out, name in named["hash_probe_index"]:
+        _got, new[("hash_probe_index", f"{at}_{name}")] = k4_probe_case(
+            pk, keys, valid, table, pk.table_entries(table)[0], f"tpcds store_sales x {name}")
+    for (kname, label), case in new.items():
+        kernel_results[kname][label] = case
+    del named, _table, _got
+    torch.cuda.empty_cache()
+    print_cases({f"{k} {label}": case for (k, label), case in new.items()}, card)
+
+
 # ---- obs: the observability tier on the card ------------------------------------
 OBS_ROUNDS = 7  # interleaved rounds of the overhead comparison
 OBS_SETTINGS = ("bare", "default", "subscriber", "explain_analyze")
@@ -5508,7 +6080,9 @@ def obs_cell(label: str, query, floats, card: str, counter: str, stalls: bool = 
     count (``obs_counts``), ``counter`` above 0, a kernel launched where
     the cell's stage has kernels (not q6's ungrouped stage), no fallback;
     the root operator's rows out,
-    in the stats and in the printed table, equal the result's rows; with
+    in the stats and in the printed table, equal the result's rows (the
+    coalescer flushes by size alone, so the counts do not hang on the
+    host's timing); with
     ``stalls``, the table has its starve and blocked columns and the stages
     stalled (the file-fed cell under pipeline_mode "on"). Prints the
     report. Returns the observed run's launches."""
@@ -5517,7 +6091,10 @@ def obs_cell(label: str, query, floats, card: str, counter: str, stalls: bool = 
                                                             current_collector, set_collector)
     from daft_tpu_torch.ops import counters
 
-    with dt_ctx(), dt.execution_config_ctx(**cfg):
+    # the coalescer flushes by size alone (SCAN_FLUSH_MS), as in the scan,
+    # pipeline and ooc cells: a flush by the clock would let a slow host's
+    # timing change the dispatch counts between the runs compared
+    with dt_ctx(), dt.execution_config_ctx(batch_latency_ms=SCAN_FLUSH_MS, **cfg):
         query().to_pydict()  # warm: planes resident, kernels loaded
         counters.reset()
         want = query().to_pydict()
@@ -5957,9 +6534,11 @@ def auto_runs(lineitem, orders) -> dict:
             "partkey": lambda: partkey_query(pk).to_pydict()}
 
 
-def phase_alone(name: str, lineitem, orders, dims, card: str) -> dict:
-    """``--phase ooc``, ``window``, ``obs`` or ``auto`` after the kernels
-    phase: the scan phase's tables in memory (and, for ooc, obs and auto,
+def phase_alone(name: str, lineitem, orders, dims, card: str, kernel_results: dict) -> dict:
+    """``--phase ooc``, ``window``, ``obs``, ``auto``, ``functions`` or
+    ``tpcds`` after the kernels phase: the scan phase's tables in memory
+    (tpcds its own tables, and its kernel cases into ``kernel_results``;
+    and, for ooc, obs and auto,
     lineitem written to Parquet under a temporary directory, as the scan
     phase writes it; obs and auto build their cells' frames as their phases
     do)."""
@@ -5968,6 +6547,14 @@ def phase_alone(name: str, lineitem, orders, dims, card: str) -> dict:
     frames = scan_tables(lineitem, orders, dims)
     if name == "window":
         return phase_window(lineitem, dims, frames, card)
+    if name == "functions":
+        return phase_functions(lineitem, card)
+    if name == "tpcds":
+        del frames
+        tables = tpcds_tables()
+        paths = phase_tpcds(tables, card)
+        tpcds_kernel_cases(tables, kernel_results, card)
+        return paths
     root = tempfile.mkdtemp(prefix="daft_tpu_torch_scan_")
     try:
         d = os.path.join(root, "lineitem")
@@ -6005,7 +6592,8 @@ def main(argv=None) -> int:
                         help="run the card, build, data and kernels phases only: the "
                              "kernels against their plain versions, with their times "
                              "(no main path runs, so no launches are counted)")
-    parser.add_argument("--phase", choices=("ooc", "window", "obs", "auto"),
+    parser.add_argument("--phase", choices=("ooc", "window", "obs", "auto", "functions",
+                                            "tpcds"),
                         help="run the card, build, data and kernels phases, then this phase "
                              "alone: ooc (TPC-H under a host memory budget, the external "
                              "sort, the Grace joins), window (W1, W2), obs (EXPLAIN "
@@ -6013,7 +6601,9 @@ def main(argv=None) -> int:
                              "on q1, q6, q12, q3 and a file-fed q6) or auto "
                              "(device_mode=\"auto\": the calibration, the rates, and the "
                              "ooc queries, the supplier, q1, q12, partkey and ai embed "
-                             "cells with every verdict)")
+                             "cells with every verdict), functions (the device ops and "
+                             "functions over SF1 lineitem in one grouped stage) or tpcds "
+                             "(the 25 TPC-DS queries at SF1, on against off)")
     parser.add_argument("--root", default=HERE,
                         help="the checkout whose daft_tpu_torch is driven (default: the "
                              "one beside this script), e.g. an unpacked parent commit to "
@@ -6036,7 +6626,8 @@ def main(argv=None) -> int:
         kernel_results = phase_kernels(lineitem, orders, dims, card)
         paths = {}
         if args.phase is not None:
-            paths.update(phase_alone(args.phase, lineitem, orders, dims, card))
+            paths.update(phase_alone(args.phase, lineitem, orders, dims, card,
+                                     kernel_results))
         elif not args.kernels_only:
             runs = {}  # the in-memory cells the auto phase runs again
             df, paths["supplier"] = phase_slice(lineitem, card)
@@ -6113,6 +6704,11 @@ def main(argv=None) -> int:
             del cells
             paths.update(phase_window(lineitem, dims, frames, card))
             del frames
+            paths.update(phase_functions(lineitem, card))
+            tables = tpcds_tables()
+            paths.update(phase_tpcds(tables, card))
+            tpcds_kernel_cases(tables, kernel_results, card)
+            del tables
             paths.update(phase_ai(lineitem, card, kernel_results))
     except SmokeFailure as exc:
         print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)

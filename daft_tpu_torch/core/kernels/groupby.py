@@ -73,15 +73,35 @@ def make_groups(key_series: list) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 def grouped_reduce(op: str, values: np.ndarray, valid: np.ndarray,
-                   group_ids: np.ndarray, num_groups: int, mode: str = "valid"):
+                   group_ids: np.ndarray, num_groups: int, mode: str = "valid",
+                   params=None):
     """Aggregate one column by group: returns (values, valid) arrays of length
     ``num_groups``; a group with no valid value is null (count is never null).
 
     Integer sums/min/max run in int64 (sum wraps mod 2^64 like the reference's
     int64 kernels), unsigned in uint64, floats and means in float64. Sums add
     in row order. Float min/max take the reference's host terms
-    (``_float_extreme``)."""
+    (``_float_extreme``). any_value is the group's first row (its first
+    valid row with ``ignore_nulls``); bool_and / bool_or reduce the valid
+    rows; var, stddev and skew are the reference's grouped kernel
+    (relational.py:441-470): f64 sums of powers in row order, the variance
+    clamped at 0, null where the count is at most ``ddof`` and, for skew,
+    where the variance is 0."""
     g = num_groups
+    params = params or {}
+    if op == "any_value":
+        n = len(group_ids)
+        rows = np.arange(n, dtype=np.int64)
+        first = np.full(g, n, dtype=np.int64)
+        np.minimum.at(first, group_ids, rows)
+        if params.get("ignore_nulls", False):
+            first_valid = np.full(g, n, dtype=np.int64)
+            np.minimum.at(first_valid, group_ids[valid], rows[valid])
+            first = np.where(first_valid < n, first_valid, first)
+        safe = np.minimum(first, max(n - 1, 0))
+        if n == 0:
+            return values[:0].copy(), np.zeros(g, dtype=bool)
+        return values[safe], valid[safe] & (first < n)
     if op == "count":
         rows = group_ids if mode == "all" else group_ids[valid]
         cnt = np.bincount(rows, minlength=g)
@@ -113,6 +133,17 @@ def grouped_reduce(op: str, values: np.ndarray, valid: np.ndarray,
             with np.errstate(invalid="ignore", divide="ignore"):
                 acc = acc.astype(np.float64) / cnt
         return acc, has
+    if op in ("bool_and", "bool_or"):
+        b = vals.astype(bool)
+        if op == "bool_and":
+            acc = np.ones(g, dtype=bool)
+            np.logical_and.at(acc, gids, b)
+        else:
+            acc = np.zeros(g, dtype=bool)
+            np.logical_or.at(acc, gids, b)
+        return acc, has
+    if op in ("stddev", "var", "skew"):
+        return _moments(op, vals.astype(np.float64), gids, g, cnt, params.get("ddof", 0))
     if op in ("min", "max"):
         uf = np.minimum if op == "min" else np.maximum
         if vals.dtype.kind == "f":
@@ -127,6 +158,54 @@ def grouped_reduce(op: str, values: np.ndarray, valid: np.ndarray,
         uf.at(acc, gids, work)
         return acc, has
     raise ValueError(f"no host grouped aggregation for {op!r}")
+
+
+def _moments(op: str, z: np.ndarray, gids: np.ndarray, g: int, cnt: np.ndarray, ddof: int):
+    """var / stddev / skew per group from f64 sums of powers (the
+    reference's grouped kernel, relational.py:441-470)."""
+    s1 = np.zeros(g)
+    s2 = np.zeros(g)
+    np.add.at(s1, gids, z)
+    np.add.at(s2, gids, z * z)
+    vc = cnt.astype(np.float64)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        m = s1 / vc
+        var = np.maximum(s2 / vc - m * m, 0.0)
+        if ddof:
+            var = var * vc / np.where(vc > ddof, vc - ddof, 1)
+            var = np.where(vc > ddof, var, np.nan)
+        if op == "var":
+            data = var
+        elif op == "stddev":
+            data = np.sqrt(var)
+        else:
+            s3 = np.zeros(g)
+            np.add.at(s3, gids, z * z * z)
+            m3 = s3 / vc - 3 * m * s2 / vc + 2 * m ** 3
+            sd = np.sqrt(var)
+            data = np.where(sd > 0, m3 / sd ** 3, np.nan)
+    valid = cnt > 0
+    if op == "skew" or ddof:
+        valid = valid & ~np.isnan(data)
+    return data, valid
+
+
+def ungrouped_moment(op: str, x: np.ndarray, ddof: int):
+    """var / stddev / skew of the valid values ``x`` as the reference's
+    one-phase ungrouped kernels give them (pyarrow's variance, and
+    ``Series.skew``: 0.0 at zero variance): (value, valid)."""
+    n = len(x)
+    if n == 0 or (op != "skew" and n <= ddof):
+        return np.nan, False
+    m = x.mean()
+    d = x - m
+    if op == "skew":
+        s2 = (d * d).mean()
+        if s2 == 0:
+            return 0.0, True
+        return float((d ** 3).mean() / s2 ** 1.5), True
+    var = float((d * d).sum() / (n - ddof))
+    return (np.sqrt(var) if op == "stddev" else var), True
 
 
 def _float_extreme(op: str, vals: np.ndarray, gids: np.ndarray, g: int) -> np.ndarray:
@@ -178,7 +257,11 @@ def _agg_columns(batch, aggs, group_ids: np.ndarray, g: int, ungrouped: bool = F
         if inner.op == "count_distinct":
             values = equality_codes(s)
         vals, valid = grouped_reduce(inner.op, values, validity, group_ids, g,
-                                     inner.params.get("mode", "valid"))
+                                     inner.params.get("mode", "valid"), inner.params)
+        if ungrouped and inner.op in ("stddev", "var", "skew"):
+            v, ok = ungrouped_moment(inner.op, values[validity].astype(np.float64),
+                                     inner.params.get("ddof", 0))
+            vals, valid = np.array([v], dtype=np.float64), np.array([ok])
         if ungrouped and inner.op in ("min", "max") and values.dtype.kind == "f":
             kept = values[validity]
             if len(kept) and np.isnan(kept).all():
@@ -233,10 +316,12 @@ def agg_output_dtype(op: str, child: DataType) -> DataType:
         if child.is_null():
             return DataType.null()
         raise ValueError(f"cannot sum dtype {child}")
-    if op == "mean":
+    if op in ("mean", "stddev", "var", "skew"):
         return DataType.float64()
     if op in ("count", "count_distinct"):
         return DataType.uint64()
-    if op in ("min", "max"):
+    if op in ("min", "max", "any_value"):
         return child
+    if op in ("bool_and", "bool_or"):
+        return DataType.bool()
     raise ValueError(f"unknown aggregation {op!r}")

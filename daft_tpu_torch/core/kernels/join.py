@@ -10,11 +10,15 @@ missing partner:
   its right matches in right-row order;
 - ``left``: the inner pairs, then every left row without a match (in
   left-row order) paired with -1, as the reference emits them;
+- ``outer``: the ``left`` rows, then every right row without a match (in
+  right-row order) paired with -1 on the left;
+- ``right``: the ``left`` join with the sides swapped;
 - ``semi`` / ``anti``: the left rows with / without a match, in order, and
   -1 for the right.
 
-Null keys never match. Multi-column keys compare column by column after
-each pair is cast to its common key type (encoding.py).
+Null keys never match, unless ``null_equals_null`` (the SQL set
+operations), when a null matches a null. Multi-column keys compare column
+by column after each pair is cast to its common key type (encoding.py).
 
 ``ProbeTable`` gives the same pairs in the same order with the right side
 indexed once, for a join that probes it with many left batches (the host
@@ -30,11 +34,14 @@ import numpy as np
 from .encoding import _common_key_dtype, canonical_key_values
 
 JOIN_TYPES = ("inner", "left", "semi", "anti")
+ALL_JOIN_TYPES = JOIN_TYPES + ("right", "outer")
 
 
-def _joint_codes(left, right) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+def _joint_codes(left, right, null_equals_null: bool = False
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Dense codes of one key column pair over both sides at once (equal
-    keys share a code) and each side's validity."""
+    keys share a code) and each side's validity; with ``null_equals_null``
+    a null is one more valid code."""
     target = _common_key_dtype(left.dtype, right.dtype)
     sides = []
     for s in (left, right):
@@ -51,10 +58,14 @@ def _joint_codes(left, right) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.nd
     rc = np.zeros(len(rv), dtype=np.int64)
     lc[lm] = codes[:int(lm.sum())]
     rc[rm] = codes[int(lm.sum()):]
+    if null_equals_null:
+        nulls = int(codes.max(initial=-1)) + 1
+        return (np.where(lm, lc, nulls), np.where(rm, rc, nulls),
+                np.ones(len(lc), dtype=bool), np.ones(len(rc), dtype=bool))
     return lc, rc, lm, rm
 
 
-def _matches(left_keys: List, right_keys: List):
+def _matches(left_keys: List, right_keys: List, null_equals_null: bool = False):
     """(right rows with a valid key, sorted by key code; each left row's
     first match among them; its match count, 0 for a null key)."""
     n_left, n_right = len(left_keys[0]), len(right_keys[0])
@@ -63,7 +74,7 @@ def _matches(left_keys: List, right_keys: List):
     lvalid = np.ones(n_left, dtype=bool)
     rvalid = np.ones(n_right, dtype=bool)
     for ls, rs in zip(left_keys, right_keys):
-        lc, rc, lm, rm = _joint_codes(ls, rs)
+        lc, rc, lm, rm = _joint_codes(ls, rs, null_equals_null)
         # fold this column into the running code, then re-densify so the
         # product never overflows
         width = int(max(lc.max(initial=0), rc.max(initial=0))) + 1
@@ -80,24 +91,34 @@ def _matches(left_keys: List, right_keys: List):
     return right_rows, lo, np.where(lvalid, hi - lo, 0)
 
 
-def join_indices(left_keys: List, right_keys: List,
-                 how: str = "inner") -> Tuple[np.ndarray, np.ndarray]:
+def join_indices(left_keys: List, right_keys: List, how: str = "inner",
+                 null_equals_null: bool = False) -> Tuple[np.ndarray, np.ndarray]:
     """(left_idx, right_idx) int64 arrays of a ``how`` join; -1 = no
     partner."""
-    if how not in JOIN_TYPES:
+    if how == "right":
+        ri, li = join_indices(right_keys, left_keys, "left", null_equals_null)
+        return li, ri
+    if how not in ALL_JOIN_TYPES:
         raise ValueError(f"unsupported join type {how!r}")
     n_left = len(left_keys[0])
-    right_rows, lo, counts = _matches(left_keys, right_keys)
+    right_rows, lo, counts = _matches(left_keys, right_keys, null_equals_null)
     if how in ("semi", "anti"):
         lidx = np.flatnonzero(counts > 0 if how == "semi" else counts == 0)
         return lidx.astype(np.int64), np.full(len(lidx), -1, dtype=np.int64)
     left_idx = np.repeat(np.arange(n_left, dtype=np.int64), counts)
     starts = np.repeat(lo - (np.cumsum(counts) - counts), counts)
     right_idx = right_rows[starts + np.arange(len(left_idx), dtype=np.int64)]
-    if how == "left":
+    if how in ("left", "outer"):
         unmatched = np.flatnonzero(counts == 0).astype(np.int64)
+        matched_r = right_idx
         left_idx = np.concatenate([left_idx, unmatched])
         right_idx = np.concatenate([right_idx, np.full(len(unmatched), -1, dtype=np.int64)])
+        if how == "outer":
+            hit = np.zeros(len(right_keys[0]), dtype=bool)
+            hit[matched_r] = True
+            lonely = np.flatnonzero(~hit).astype(np.int64)
+            left_idx = np.concatenate([left_idx, np.full(len(lonely), -1, dtype=np.int64)])
+            right_idx = np.concatenate([right_idx, lonely])
     return left_idx, right_idx.astype(np.int64)
 
 
@@ -141,13 +162,18 @@ class ProbeTable:
     same way (a value the right side lacks cannot match), the levels
     replayed, the CSR ranges expanded. The pairs and their order are
     ``join_indices``': left-major, right rows in row order within a key;
-    ``left`` adds the unmatched left rows after the pairs."""
+    ``left`` adds the unmatched left rows after the pairs. With
+    ``null_equals_null`` (the set operations) a null key is one more code
+    of its column, reserved past the column's value codes, on both sides."""
 
-    def __init__(self, right_keys: List, left_dtypes: List):
+    def __init__(self, right_keys: List, left_dtypes: List, null_equals_null: bool = False):
         self.n_right = len(right_keys[0]) if right_keys else 0
+        self.null_equals_null = null_equals_null
         self._dtypes = []
         # per column: ("dense", lo, hi) | ("sorted", uniq) | ("dict", d) | ("null",)
         self._lookups = []
+        # per column: the code a null key takes under null_equals_null
+        self._null_codes = []
         rcols = []
         rnull = np.zeros(self.n_right, dtype=bool)
         for rs, ldt in zip(right_keys, left_dtypes):
@@ -160,6 +186,7 @@ class ProbeTable:
                 valid = np.zeros(self.n_right, dtype=bool)
                 codes = np.full(self.n_right, -1, dtype=np.int64)
                 self._lookups.append(("null",))
+                null_code = 0
             elif kind == "num":
                 vv = vals[valid]
                 lo = int(vv.min()) if len(vv) else 0
@@ -167,20 +194,27 @@ class ProbeTable:
                 if 0 < hi - lo + 1 <= max(4096, 4 * len(vv)):
                     codes = vals - lo
                     self._lookups.append(("dense", lo, hi))
+                    null_code = hi - lo + 1
                 else:
                     uniq = np.unique(vv)
                     codes = np.searchsorted(uniq, vals).astype(np.int64) if len(uniq) \
                         else np.zeros(self.n_right, dtype=np.int64)
                     self._lookups.append(("sorted", uniq))
+                    null_code = len(uniq)
             else:
                 index: dict = {}
                 codes = np.full(self.n_right, -1, dtype=np.int64)
                 rows = np.flatnonzero(valid)
                 codes[rows] = [index.setdefault(v, len(index)) for v in vals[rows].tolist()]
                 self._lookups.append(("dict", index))
-            codes = np.where(valid, codes, -1).astype(np.int64, copy=False)
+                null_code = len(index)
+            self._null_codes.append(null_code)
+            if null_equals_null:
+                codes = np.where(valid, codes, null_code).astype(np.int64, copy=False)
+            else:
+                codes = np.where(valid, codes, -1).astype(np.int64, copy=False)
+                rnull |= ~valid
             rcols.append(codes)
-            rnull |= ~valid
 
         self._levels = []
         codes = rcols[0] if rcols else np.zeros(0, dtype=np.int64)
@@ -219,7 +253,8 @@ class ProbeTable:
         n = len(left_keys[0]) if left_keys else 0
         lcols = []
         lnull = np.zeros(n, dtype=bool)
-        for ls, target, lookup in zip(left_keys, self._dtypes, self._lookups):
+        for ls, target, lookup, null_code in zip(left_keys, self._dtypes, self._lookups,
+                                                 self._null_codes):
             if ls.dtype != target:
                 ls = ls.cast(target)
             kind, vals, valid = canonical_key_values(ls)
@@ -237,9 +272,14 @@ class ProbeTable:
                     codes = np.full(n, -2, dtype=np.int64)
             else:
                 codes = self._lookup_strings(ls, lookup[1])
-            codes = np.where(valid, codes, -1).astype(np.int64, copy=False)
+            if kind == "null":
+                valid = np.zeros(n, dtype=bool)
+            if self.null_equals_null:
+                codes = np.where(valid, codes, null_code).astype(np.int64, copy=False)
+            else:
+                codes = np.where(valid, codes, -1).astype(np.int64, copy=False)
+                lnull |= ~valid
             lcols.append(codes)
-            lnull |= ~valid
         codes = lcols[0] if lcols else np.zeros(0, dtype=np.int64)
         for (uniq, g), c in zip(self._levels, lcols[1:]):
             pair = (codes + 1) * (g + 2) + (c + 1)

@@ -203,19 +203,90 @@ class DataFrame:
              on: Optional[Union[ColumnInput, List[ColumnInput]]] = None,
              left_on: Optional[Union[ColumnInput, List[ColumnInput]]] = None,
              right_on: Optional[Union[ColumnInput, List[ColumnInput]]] = None,
-             how: str = "inner") -> "DataFrame":
+             how: str = "inner", prefix: Optional[str] = None,
+             suffix: Optional[str] = None, strategy: Optional[str] = None,
+             null_equals_null: bool = False) -> "DataFrame":
         """Equi-join on ``on`` (same names both sides) or on ``left_on`` /
-        ``right_on``; ``how`` is "inner", "left", "semi", "anti" or "cross"
-        (no keys)."""
+        ``right_on``; ``how`` is "inner", "left", "right", "outer", "semi",
+        "anti" or "cross" (no keys). A clashing right column is renamed
+        ``<prefix><name><suffix>``; ``null_equals_null`` matches null keys
+        to each other."""
         if on is not None:
             left_on = right_on = on
         if how == "cross":
-            return DataFrame(lp.Join(self._plan, other._plan, [], [], "cross"))
+            return DataFrame(lp.Join(self._plan, other._plan, [], [], "cross", prefix,
+                                     suffix))
         if left_on is None or right_on is None:
             raise ValueError("join requires `on` or both `left_on` and `right_on`")
         lo = _to_exprs(left_on if isinstance(left_on, list) else [left_on])
         ro = _to_exprs(right_on if isinstance(right_on, list) else [right_on])
-        return DataFrame(lp.Join(self._plan, other._plan, lo, ro, how))
+        return DataFrame(lp.Join(self._plan, other._plan, lo, ro, how, prefix, suffix,
+                                 strategy, null_equals_null))
+
+    # ---- set operations (the reference's dataframe.py:292-380) -----------------------
+    def concat(self, other: "DataFrame") -> "DataFrame":
+        """This frame's rows, then ``other``'s (the same column names)."""
+        return DataFrame(lp.Concat([self._plan, other._plan]))
+
+    union_all = concat
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        return self.concat(other).distinct()
+
+    def union_all_by_name(self, other: "DataFrame") -> "DataFrame":
+        """Both frames' rows with columns matched by name; a column one side
+        lacks is null there."""
+        all_names = list(self.column_names)
+        all_names += [n for n in other.column_names if n not in all_names]
+
+        def conform(df: "DataFrame", peer: "DataFrame") -> "DataFrame":
+            have = set(df.column_names)
+            return df.select(*[col(n) if n in have else
+                               lit(None).cast(peer.schema[n].dtype).alias(n)
+                               for n in all_names])
+
+        return conform(self, other).concat(conform(other, self))
+
+    def union_by_name(self, other: "DataFrame") -> "DataFrame":
+        return self.union_all_by_name(other).distinct()
+
+    def intersect(self, other: "DataFrame") -> "DataFrame":
+        """The distinct rows in both (null matches null)."""
+        keys = [col(n) for n in self.column_names]
+        return self.join(other, left_on=keys, right_on=[col(n) for n in other.column_names],
+                         how="semi", null_equals_null=True).distinct()
+
+    def except_distinct(self, other: "DataFrame") -> "DataFrame":
+        """The distinct rows of this frame absent from ``other`` (null
+        matches null)."""
+        keys = [col(n) for n in self.column_names]
+        return self.join(other, left_on=keys, right_on=[col(n) for n in other.column_names],
+                         how="anti", null_equals_null=True).distinct()
+
+    except_ = except_distinct
+
+    def intersect_all(self, other: "DataFrame") -> "DataFrame":
+        """INTERSECT ALL: each row min(l, r) times."""
+        return self._multiset_setop(other, "semi")
+
+    def except_all(self, other: "DataFrame") -> "DataFrame":
+        """EXCEPT ALL: each row max(l - r, 0) times."""
+        return self._multiset_setop(other, "anti")
+
+    def _multiset_setop(self, other: "DataFrame", how: str) -> "DataFrame":
+        # numbering each duplicate within its row value turns the multiset
+        # operation into a semi / anti join on (columns, occurrence)
+        from ..functions.window import row_number
+        from ..window import Window
+
+        names = list(self.column_names)
+        w = Window().partition_by(*names).order_by(names[0])
+        rn = "__occurrence__"
+        left = self.with_column(rn, row_number().over(w))
+        right = other.with_column(rn, row_number().over(w))
+        keys = [col(n) for n in names] + [col(rn)]
+        return left.join(right, left_on=keys, right_on=keys, how=how,
+                         null_equals_null=True).select(*[col(n) for n in names])
 
     def exclude(self, *names: str) -> "DataFrame":
         """Every column but ``names``."""

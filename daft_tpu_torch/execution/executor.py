@@ -68,7 +68,7 @@ from ..core.micropartition import MicroPartition
 from ..core.recordbatch import RecordBatch
 from ..core.series import Series
 from ..expressions.eval import eval_expression, eval_projection
-from ..expressions.expressions import AggExpr, Alias, Expression, col
+from ..expressions.expressions import AggExpr, Alias, Expression, col, lit
 from ..observability import placement as _placement
 from ..ops import costmodel as _costmodel
 from ..plan import physical as pp
@@ -269,6 +269,11 @@ def _exec_impl(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
 
     if isinstance(node, pp.DeviceJoinAgg):
         yield _exec_device_join_agg(node)
+        return
+
+    if isinstance(node, pp.PhysConcat):
+        for child in node.inputs:
+            yield from _exec(child)
         return
 
     if isinstance(node, pp.PhysRepartition):
@@ -1182,7 +1187,8 @@ class JoinProbe:
         self.right = right
         left_schema = node.left.schema
         self.table = ProbeTable(_keys(right, node.right_on),
-                                [e.to_field(left_schema).dtype for e in node.left_on])
+                                [e.to_field(left_schema).dtype for e in node.left_on],
+                                node.null_equals_null)
 
     def probe(self, left: RecordBatch) -> RecordBatch:
         """``left`` joined to the right side."""
@@ -1223,6 +1229,36 @@ def _selection_vector(batch: RecordBatch, mask: Series) -> np.ndarray:
     return np.flatnonzero(mask.to_numpy().astype(bool) & mask.validity_numpy())
 
 
+def _whole_join(node: pp.HashJoin, left: RecordBatch, right: RecordBatch) -> RecordBatch:
+    """A right or outer join over both sides whole (``join_indices``),
+    assembled as the reference's
+    ``_assemble_join``: an outer join's merged key takes the right's value
+    where the left has no row, a right join's is the right's."""
+    from ..core.kernels.join import join_indices
+
+    rkeys = _keys(right, node.right_on)
+    li, ri = join_indices(_keys(left, node.left_on), rkeys, node.how,
+                          node.null_equals_null)
+    cols = [s.take_or_null(li) for s in left.columns()]
+    names = [s.name for s in cols]
+    for le, re_, rk in zip(node.left_on, node.right_on, rkeys):
+        if re_.name() in node.merged_keys and le.name() in names:
+            i = names.index(le.name())
+            rv = rk.cast(cols[i].dtype) if rk.dtype != cols[i].dtype else rk
+            rv = rv.take_or_null(ri).rename(le.name())
+            if node.how == "right":
+                cols[i] = rv
+            else:
+                miss = li < 0
+                lv = cols[i]
+                vals = np.where(miss, rv.to_numpy(), lv.to_numpy())
+                valid = np.where(miss, rv.validity_numpy(), lv.validity_numpy())
+                cols[i] = Series(lv.name, lv.dtype, vals, valid)
+    cols += [s.take_or_null(ri).rename(node.right_rename.get(s.name, s.name))
+             for s in right.columns() if s.name not in node.merged_keys]
+    return RecordBatch(node.schema, cols, len(li))
+
+
 def _hash_join(node: pp.HashJoin) -> Iterator[MicroPartition]:
     """A host join (the reference's ``_join_exec``, executor.py:2841-2978):
     the right side materialized and indexed once, the left side streamed
@@ -1244,6 +1280,10 @@ def _hash_join(node: pp.HashJoin) -> Iterator[MicroPartition]:
         if not over:
             right = RecordBatch.concat(right_parts) if right_parts \
                 else RecordBatch.empty(node.right.schema)
+            if _whole(node):
+                left = _concat_parts(list(_exec(node.left)), node.left.schema)
+                yield MicroPartition(node.schema, [_whole_join(node, left, right)])
+                return
             yield from _probe_stream(node, right)
             return
         yield from _grace_join(node, budget, right_parts, right_it)
@@ -1267,16 +1307,23 @@ def _grace_join(node: pp.HashJoin, budget, right_parts, right_it) -> Iterator[Mi
         _annotate_spill(node, spr.bytes_written + spl.bytes_written, f"{K}x2 partitions")
         for fl, fr in zip(spl.files, spr.files):
             lbs = list(fl.read())
-            if not lbs:  # inner, left, semi and anti give no row without a left row
-                continue
+            if not lbs and node.how not in ("right", "outer"):
+                continue  # inner, left, semi and anti give no row without a left row
             rbs = list(fr.read())
             right = RecordBatch.concat(rbs) if rbs else RecordBatch.empty(node.right.schema)
-            out = JoinProbe(node, right).probe(RecordBatch.concat(lbs))
+            left = RecordBatch.concat(lbs) if lbs else RecordBatch.empty(node.left.schema)
+            out = _whole_join(node, left, right) if _whole(node) \
+                else JoinProbe(node, right).probe(left)
             if out.num_rows:
                 yield MicroPartition(node.schema, [out])
     finally:
         spr.delete()
         spl.delete()
+
+
+def _whole(node: pp.HashJoin) -> bool:
+    """A join that reads both sides whole: right or outer."""
+    return node.how in ("right", "outer")
 
 
 def _probe_stream(node: pp.HashJoin, right: RecordBatch) -> Iterator[MicroPartition]:
@@ -1795,7 +1842,12 @@ def _agg_op(e: Expression) -> str:
 def _split_aggs(aggs: List[Expression]):
     """(partial, final, projection) expressions of a two-phase aggregation:
     partials per morsel, finals over the concatenated partials, and the
-    projection that names the outputs (mean = sum / count)."""
+    projection that names the outputs. mean = sum / count; var, stddev and
+    skew combine sums of powers and counts, and any_value, bool_and and
+    bool_or merge with themselves, as the reference's agg_split.py:74-111
+    splits them."""
+    from ..datatype import DataType
+
     partial, final, projection = [], [], []
     for i, e in enumerate(aggs):
         name = e.name()
@@ -1805,16 +1857,40 @@ def _split_aggs(aggs: List[Expression]):
         if not isinstance(inner, AggExpr):
             raise ValueError(f"expected an aggregation, got {e!r}")
         p = f"__p{i}"
+        child = inner.child
         if inner.op == "mean":
-            partial += [AggExpr("sum", inner.child).alias(p + "s"),
-                        AggExpr("count", inner.child).alias(p + "c")]
+            partial += [AggExpr("sum", child).alias(p + "s"),
+                        AggExpr("count", child).alias(p + "c")]
             final += [col(p + "s").sum().alias(p + "s"),
                       col(p + "c").sum().alias(p + "c")]
             projection.append((col(p + "s") / col(p + "c")).alias(name))
             continue
-        partial.append(AggExpr(inner.op, inner.child, dict(inner.params)).alias(p))
+        if inner.op in ("stddev", "var", "skew"):
+            powers = [("s", child), ("q", child * child)]
+            if inner.op == "skew":
+                powers.append(("u", child * child * child))
+            partial += [AggExpr("sum", x).alias(p + k) for k, x in powers]
+            partial.append(AggExpr("count", child).alias(p + "c"))
+            final += [col(p + k).sum().alias(p + k) for k, _x in powers]
+            final.append(col(p + "c").sum().alias(p + "c"))
+            s, q, c = col(p + "s"), col(p + "q"), col(p + "c")
+            m = s / c
+            var = ((q / c) - m * m).clip(min=0.0)
+            if inner.op == "skew":
+                sd = var.sqrt()
+                m3 = (col(p + "u") / c) - 3 * m * (q / c) + 2 * m * m * m
+                out = (sd > 0).if_else(m3 / (sd ** 3), lit(None))
+            else:
+                ddof = inner.params.get("ddof", 0)
+                if ddof:
+                    var = (c > ddof).if_else(var * c / (c - ddof), lit(None))
+                out = var.sqrt() if inner.op == "stddev" else var
+            projection.append(out.cast(DataType.float64()).alias(name))
+            continue
+        partial.append(AggExpr(inner.op, child, dict(inner.params)).alias(p))
         merge = "sum" if inner.op in ("sum", "count") else inner.op
-        final.append(AggExpr(merge, col(p)).alias(name))
+        final.append(AggExpr(merge, col(p), dict(inner.params) if merge == inner.op
+                             and merge != "count" else {}).alias(name))
         projection.append(col(name))
     return partial, final, projection
 

@@ -175,6 +175,10 @@ def _eval_one(we, batch: RecordBatch, spec, r: _Rows) -> Series:
         return _uint64(vals, r, name)
 
     # ---- value functions ------------------------------------------------------------
+    if func in ("any_value", "stddev", "var", "skew", "bool_and", "bool_or",
+                "count_distinct"):
+        raise NotImplementedError(f"the windowed aggregation {func!r} is not ported yet: it "
+                                  "comes with the windowed-aggregates wave (ROADMAP item 7)")
     child = _full(batch, we.child)
     sorted_child = child.take(sorted_idx)
     if func in ("lag", "lead"):

@@ -7,14 +7,18 @@ reference's Arrow kernels: validity propagates through arithmetic and
 comparisons, division by zero is null, and/or are Kleene, and a null
 IfElse predicate gives null. ``is_in`` is never null: a null row is true
 only when the item values hold a null (Arrow's ``is_in`` followed by
-``fill_null(False)``, as the reference evaluates it). The string and date
-functions are null on a null row, as Arrow's kernels. A UDF call runs its
+``fill_null(False)``, as the reference evaluates it). The reference's
+``Series`` operators (daft_tpu/core/series.py:556-600) hold for the rest:
+floordiv goes through f64 and is cast back to the common integer type,
+mod is numpy's (the sign of the divisor) and null where the divisor is
+0, pow is in f64, xor is null where either side is, ``eq_null_safe`` is
+never null, ``fill_null`` keeps the left's type. A ``Function`` runs its
+registry host kernel (functions/registry.py); a UDF call runs its
 function on the host (udf/expr.py ``UdfCall.eval_host``).
 """
 
 from __future__ import annotations
 
-import re
 from typing import List
 
 import numpy as np
@@ -61,6 +65,8 @@ def eval_expression(batch, expr: Expression) -> Series:
             return _make(s.name, DataType.bool(), ~v.astype(bool), m)
         if expr.op == "neg":
             return _make(s.name, s.dtype, -v, m)
+        if expr.op == "abs":
+            return _make(s.name, s.dtype, np.abs(v), m)
         if expr.op == "is_null":
             return _make(s.name, DataType.bool(), ~m, np.ones(len(m), dtype=bool))
         if expr.op == "not_null":
@@ -86,7 +92,14 @@ def eval_expression(batch, expr: Expression) -> Series:
         return _is_in(eval_expression(batch, expr.child),
                       [eval_expression(batch, i) for i in expr.items])
     if isinstance(expr, Function):
-        return _function(expr, eval_expression(batch, expr.args[0]))
+        from ..functions.registry import get_function
+
+        spec = get_function(expr.fname)
+        args = [eval_expression(batch, a) for a in expr.args]
+        kwargs = dict(expr.kwargs)
+        if not args:
+            kwargs["__num_rows"] = batch.num_rows
+        return spec.host(args, kwargs).rename(expr.name())
     if isinstance(expr, AggExpr):
         raise ValueError(f"aggregation expression {expr!r} cannot be evaluated in a "
                          "projection context; use .agg()/groupby")
@@ -103,7 +116,8 @@ def eval_expression(batch, expr: Expression) -> Series:
 
 
 def _is_in(s: Series, items: List[Series]) -> Series:
-    """Membership of each row of ``s`` in the values of ``items``. A string
+    """Membership of each row of ``s`` in the values of ``items``, on
+    Arrow's hashing terms: -0.0 is not 0.0, a NaN is every NaN. A string
     column goes through its cached dictionary codes (one lookup table over
     the distinct values), so a repeated predicate over a resident column
     costs one gather."""
@@ -123,48 +137,18 @@ def _is_in(s: Series, items: List[Series]) -> Series:
         hit = lut[codes] if len(codes) else np.zeros(0, dtype=bool)
     else:
         vals = s.to_numpy()
-        hit = np.isin(vals, np.asarray(list(targets))) \
-            if targets and not s.dtype.is_null() else np.zeros(len(s), dtype=bool)
+        if not targets or s.dtype.is_null():
+            hit = np.zeros(len(s), dtype=bool)
+        elif vals.dtype.kind == "f":
+            want = np.asarray([float(t) for t in targets], dtype=np.float64)
+            hit = np.isin(vals.astype(np.float64).view(np.int64),
+                          want[~np.isnan(want)].view(np.int64))
+            if np.isnan(want).any():
+                hit |= np.isnan(vals)
+        else:
+            hit = np.isin(vals, np.asarray(list(targets)))
         hit = np.where(valid, hit, has_null)
     return _make(s.name, DataType.bool(), hit, np.ones(len(s), dtype=bool))
-
-
-def _function(expr: Function, s: Series) -> Series:
-    """A scalar function; a null row gives null. The string functions map
-    the column's cached dictionary (one call per distinct value) and gather
-    through its codes; ``dt_year`` reads the days as numpy dates."""
-    if expr.fname == "dt_year":
-        years = s.to_numpy().astype("datetime64[D]").astype("datetime64[Y]")
-        return _make(s.name, DataType.int32(), years.astype(np.int32) + 1970,
-                     s.validity_numpy())
-    arg = expr.args[1].value
-    codes, vocab, _k = s.dict_codes()
-    if expr.fname in ("utf8_left", "utf8_substr"):
-        if expr.fname == "utf8_left":
-            cut = slice(0, max(arg, 0))
-        else:  # Arrow's utf8_slice_codeunits(start, start + length)
-            length = expr.args[2].value if len(expr.args) > 2 else None
-            cut = slice(arg, None if length is None else arg + length)
-        mapped = np.empty(len(vocab), dtype=object)
-        mapped[:] = [v[cut] if v is not None else None for v in vocab]
-        out = mapped[codes] if len(codes) else np.empty(0, dtype=object)
-        return _make(s.name, DataType.string(), out, s.validity_numpy())
-    if expr.fname == "utf8_like":
-        rx = _like_regex(arg)
-        test = lambda v, _pat: rx.match(v) is not None  # noqa: E731
-    else:
-        test = {"utf8_startswith": str.startswith, "utf8_endswith": str.endswith,
-                "utf8_contains": str.__contains__}[expr.fname]
-    lut = np.array([v is not None and test(v, arg) for v in vocab], dtype=bool)
-    hit = lut[codes] if len(codes) else np.zeros(0, dtype=bool)
-    return _make(s.name, DataType.bool(), hit, s.validity_numpy())
-
-
-def _like_regex(pattern: str):
-    """SQL LIKE as an anchored regex: ``%`` any run, ``_`` one character,
-    everything else literal."""
-    parts = [".*" if ch == "%" else "." if ch == "_" else re.escape(ch) for ch in pattern]
-    return re.compile("^" + "".join(parts) + "$")
 
 
 def _values_as(s: Series, dtype: DataType) -> np.ndarray:
@@ -185,16 +169,53 @@ def _make(name: str, dtype: DataType, values, valid) -> Series:
 
 def _binop(op: str, l: Series, r: Series, out_dt: DataType) -> Series:
     lm, rm = l.validity_numpy(), r.validity_numpy()
+    if op == "add" and out_dt.is_string():
+        n = max(len(l), len(r))
+        lv = np.broadcast_to(l.to_numpy(), n)
+        rv = np.broadcast_to(r.to_numpy(), n)
+        valid = np.broadcast_to(lm, n) & np.broadcast_to(rm, n)
+        out = np.empty(n, dtype=object)
+        out[:] = [a + b if ok else None for a, b, ok in zip(lv, rv, valid.tolist())]
+        return _make(l.name, out_dt, out, valid)
     if op in ARITH_OPS:
         with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
-            if op == "div":
+            if op in ("div", "floordiv", "pow"):
                 lv = _values_as(l, DataType.float64())
                 rv = _values_as(r, DataType.float64())
+                if op == "pow":
+                    return _make(l.name, out_dt, np.power(lv, rv), lm & rm)
                 zero = rv == 0
                 val = lv / np.where(zero, 1.0, rv)
+                if op == "floordiv":
+                    val = np.floor(val)
+                    if out_dt.is_integer():
+                        # a quotient past the integer range stays in range
+                        info = np.iinfo(out_dt.to_numpy())
+                        val = np.where(np.isfinite(val), np.clip(val, info.min, info.max), 0)
+                return _make(l.name, out_dt, val.astype(out_dt.to_numpy()), lm & rm & ~zero)
+            if op == "mod":
+                lv, rv = _values_as(l, out_dt), _values_as(r, out_dt)
+                lv, rv = np.broadcast_arrays(lv, rv)
+                zero = rv == 0
+                val = np.mod(lv, rv, where=~zero, out=np.zeros(lv.shape, dtype=lv.dtype))
                 return _make(l.name, out_dt, val, lm & rm & ~zero)
             val = _ARITH[op](_values_as(l, out_dt), _values_as(r, out_dt))
         return _make(l.name, out_dt, val, lm & rm)
+    if op == "eq_null_safe":
+        n = max(len(l), len(r))
+        if l.dtype.is_null() or r.dtype.is_null():
+            eq = np.zeros(n, dtype=bool)
+        else:
+            eq = _binop("eq", l, r, DataType.bool()).to_numpy()
+        both = np.broadcast_to(lm, n) & np.broadcast_to(rm, n)
+        neither = ~np.broadcast_to(lm, n) & ~np.broadcast_to(rm, n)
+        return _make(l.name, DataType.bool(), np.where(both, eq, neither), np.ones(n, bool))
+    if op == "fill_null":
+        n = max(len(l), len(r))
+        lv = np.broadcast_to(_values_as(l, out_dt), n)
+        rv = np.broadcast_to(_values_as(r, out_dt), n)
+        lmb = np.broadcast_to(lm, n)
+        return _make(l.name, out_dt, np.where(lmb, lv, rv), lmb | np.broadcast_to(rm, n))
     if op in COMPARISON_OPS:
         if l.dtype.is_null() or r.dtype.is_null():
             n = max(len(l), len(r))
@@ -205,6 +226,10 @@ def _binop(op: str, l: Series, r: Series, out_dt: DataType) -> Series:
             lv = np.where(lm, lv, "")
             rv = np.where(rm, rv, "")
         return _make(l.name, DataType.bool(), _CMP[op](lv, rv), lm & rm)
+    if op == "xor":
+        lb = l.to_numpy().astype(bool) if not l.dtype.is_null() else np.zeros(len(l), bool)
+        rb = r.to_numpy().astype(bool) if not r.dtype.is_null() else np.zeros(len(r), bool)
+        return _make(l.name, DataType.bool(), lb ^ rb, lm & rm)
     if op in ("and", "or"):
         lb = l.to_numpy().astype(bool) if not l.dtype.is_null() else np.zeros(len(l), bool)
         rb = r.to_numpy().astype(bool) if not r.dtype.is_null() else np.zeros(len(r), bool)

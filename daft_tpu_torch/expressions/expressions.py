@@ -1,14 +1,16 @@
-"""Expression IR (counterpart of daft_tpu/expressions/expressions.py, the
-subset the grouped-aggregation and join slices need): ``col``, ``lit``
-(with ``datetime.date``), ``Alias``, ``Cast``, arithmetic, comparisons,
-``&``, ``|``, ``~``, null tests, ``IfElse``, ``IsIn``, ``AggExpr`` with
-sum, count, mean, min, max and count_distinct, ``Between``, and the
-``Function`` calls ``.str.startswith``, ``.str.endswith``, ``.str.contains``,
-``.str.left``, ``.str.like``, ``.str.substr`` and ``.dt.year``, and UDF
-calls (udf/expr.py ``UdfCall``, ``Expression.apply``). ``transform``
-rewrites a tree bottom-up (the
-join capture substitutes projections and hoists dim-only subexpressions
-with it).
+"""Expression IR (counterpart of daft_tpu/expressions/expressions.py): ``col``,
+``lit`` (with ``datetime.date``), ``Alias``, ``Cast``, arithmetic (``+ - * /
+// % **``), comparisons and ``eq_null_safe``, ``&``, ``|``, ``^``, ``~``,
+null tests and ``fill_null``, ``abs``, ``IfElse``, ``IsIn``, ``Between``,
+``AggExpr`` (sum, count, mean, min, max, count_distinct, any_value,
+stddev, var, skew, bool_and, bool_or), ``Function`` calls into the scalar
+function registry (functions/registry.py) with the ``.str``, ``.dt`` and
+``.float`` namespaces and the math methods, and UDF calls (udf/expr.py
+``UdfCall``, ``Expression.apply``). The later waves' names (timestamps,
+lists, structs, maps, binary, JSON, images, urls, embeddings, tokenize and
+the sketch and list aggregates) raise ``NotImplementedError`` naming their
+wave. ``transform`` rewrites a tree bottom-up (the join capture substitutes
+projections and hoists dim-only subexpressions with it).
 
 One class hierarchy is both the user-facing Expression and the plan IR. Host
 evaluation lives in expressions/eval.py, device (torch) evaluation in
@@ -111,6 +113,21 @@ class Expression:
     def __rtruediv__(self, other):
         return BinaryOp("div", self._other(other), self)
 
+    def __floordiv__(self, other):
+        return BinaryOp("floordiv", self, self._other(other))
+
+    def __rfloordiv__(self, other):
+        return BinaryOp("floordiv", self._other(other), self)
+
+    def __mod__(self, other):
+        return BinaryOp("mod", self, self._other(other))
+
+    def __rmod__(self, other):
+        return BinaryOp("mod", self._other(other), self)
+
+    def __pow__(self, other):
+        return BinaryOp("pow", self, self._other(other))
+
     def __eq__(self, other):  # type: ignore[override]
         return BinaryOp("eq", self, self._other(other))
 
@@ -141,6 +158,9 @@ class Expression:
     def __ror__(self, other):
         return BinaryOp("or", self._other(other), self)
 
+    def __xor__(self, other):
+        return BinaryOp("xor", self, self._other(other))
+
     def __invert__(self):
         return UnaryOp("not", self)
 
@@ -160,6 +180,15 @@ class Expression:
 
     def not_null(self) -> "Expression":
         return UnaryOp("not_null", self)
+
+    def fill_null(self, value) -> "Expression":
+        return BinaryOp("fill_null", self, self._other(value))
+
+    def eq_null_safe(self, other) -> "Expression":
+        return BinaryOp("eq_null_safe", self, self._other(other))
+
+    def abs(self) -> "Expression":
+        return UnaryOp("abs", self)
 
     def if_else(self, if_true, if_false) -> "Expression":
         return IfElse(self, self._other(if_true), self._other(if_false))
@@ -183,6 +212,71 @@ class Expression:
         f = Func(fn=fn, return_dtype=return_dtype, name=getattr(fn, "__name__", "apply"))
         return UdfCall(f, [self], {})
 
+    # ---- scalar function sugar ------------------------------------------------------
+    def _fn(__self, __fname: str, *args, **kwargs) -> "Expression":
+        exprs = [__self] + [a if isinstance(a, Expression) else lit(a) for a in args]
+        return Function(__fname, exprs, kwargs)
+
+    def exp(self):
+        return self._fn("exp")
+
+    def log(self, base: Optional[float] = None):
+        return self._fn("log", **({"base": base} if base else {}))
+
+    def log2(self):
+        return self._fn("log2")
+
+    def log10(self):
+        return self._fn("log10")
+
+    def sqrt(self):
+        return self._fn("sqrt")
+
+    def sin(self):
+        return self._fn("sin")
+
+    def cos(self):
+        return self._fn("cos")
+
+    def tan(self):
+        return self._fn("tan")
+
+    def arctan(self):
+        return self._fn("arctan")
+
+    def arcsin(self):
+        return self._fn("arcsin")
+
+    def arccos(self):
+        return self._fn("arccos")
+
+    def floor(self):
+        return self._fn("floor")
+
+    def ceil(self):
+        return self._fn("ceil")
+
+    def round(self, decimals: int = 0):
+        return self._fn("round", decimals=decimals)
+
+    def sign(self):
+        return self._fn("sign")
+
+    def clip(self, min=None, max=None):
+        return self._fn("clip", clip_min=min, clip_max=max)
+
+    def hash(self, seed=None):
+        return self._fn("hash", **({"seed": seed} if seed is not None else {}))
+
+    def minhash(self, *args, **kwargs):
+        return self._fn("minhash", *args, **kwargs)
+
+    def tokenize_encode(self, *args, **kwargs):
+        return self._fn("tokenize_encode", *args, **kwargs)
+
+    def tokenize_decode(self, *args, **kwargs):
+        return self._fn("tokenize_decode", *args, **kwargs)
+
     @property
     def str(self) -> "StringNamespace":
         return StringNamespace(self)
@@ -190,6 +284,42 @@ class Expression:
     @property
     def dt(self) -> "DateNamespace":
         return DateNamespace(self)
+
+    @property
+    def float(self) -> "FloatNamespace":
+        return FloatNamespace(self)
+
+    @property
+    def list(self):
+        return _later_wave_namespace("list")
+
+    @property
+    def struct(self):
+        return _later_wave_namespace("struct")
+
+    @property
+    def map(self):
+        return _later_wave_namespace("map")
+
+    @property
+    def binary(self):
+        return _later_wave_namespace("binary")
+
+    @property
+    def json(self):
+        return _later_wave_namespace("json")
+
+    @property
+    def image(self):
+        return _later_wave_namespace("image")
+
+    @property
+    def url(self):
+        return _later_wave_namespace("url")
+
+    @property
+    def embedding(self):
+        return _later_wave_namespace("embedding")
 
     # ---- aggregation sugar ----------------------------------------------------------
     def sum(self):
@@ -210,6 +340,43 @@ class Expression:
     def count_distinct(self):
         """The number of distinct valid values (nulls are not counted)."""
         return AggExpr("count_distinct", self)
+
+    def avg(self):
+        return AggExpr("mean", self)
+
+    def any_value(self, ignore_nulls: bool = False):
+        return AggExpr("any_value", self, {"ignore_nulls": ignore_nulls})
+
+    def stddev(self, ddof: int = 0):
+        return AggExpr("stddev", self, {"ddof": ddof} if ddof else {})
+
+    def var(self, ddof: int = 0):
+        return AggExpr("var", self, {"ddof": ddof} if ddof else {})
+
+    def skew(self):
+        return AggExpr("skew", self)
+
+    def bool_and(self):
+        return AggExpr("bool_and", self)
+
+    def bool_or(self):
+        return AggExpr("bool_or", self)
+
+    def agg_list(self):
+        return AggExpr("list", self)
+
+    def agg_set(self):
+        return AggExpr("set", self)
+
+    def agg_concat(self):
+        return AggExpr("concat", self)
+
+    def approx_count_distinct(self):
+        return AggExpr("approx_count_distinct", self)
+
+    def approx_percentile(self, *percentiles, alpha: float = 0.01):
+        return AggExpr("approx_percentile", self, {"percentiles": list(percentiles),
+                                                   "alpha": alpha})
 
     # ---- windows --------------------------------------------------------------------
     def over(self, spec) -> "WindowExpr":
@@ -311,9 +478,9 @@ class Cast(Expression):
         return f"{self.child!r}.cast({self.dtype})"
 
 
-COMPARISON_OPS = {"eq", "neq", "lt", "le", "gt", "ge"}
-LOGICAL_OPS = {"and", "or"}
-ARITH_OPS = {"add", "sub", "mul", "div"}
+COMPARISON_OPS = {"eq", "neq", "lt", "le", "gt", "ge", "eq_null_safe"}
+LOGICAL_OPS = {"and", "or", "xor"}
+ARITH_OPS = {"add", "sub", "mul", "div", "floordiv", "mod", "pow"}
 
 
 class BinaryOp(Expression):
@@ -344,13 +511,16 @@ class BinaryOp(Expression):
                     raise ValueError(f"logical op {op!r} requires boolean operands, "
                                      f"got {lf.dtype} and {rf.dtype}")
             return Field(name, DataType.bool())
+        if op == "fill_null":
+            return Field(lf.name, lf.dtype if not lf.dtype.is_null() else rf.dtype)
         if op in ARITH_OPS:
             return Field(name, _arith_result_type(op, lf.dtype, rf.dtype))
         raise ValueError(f"unknown binary op {op!r}")
 
     def __repr__(self):
-        sym = {"add": "+", "sub": "-", "mul": "*", "div": "/", "eq": "==", "neq": "!=",
-               "lt": "<", "le": "<=", "gt": ">", "ge": ">=", "and": "&", "or": "|"}.get(self.op)
+        sym = {"add": "+", "sub": "-", "mul": "*", "div": "/", "floordiv": "//", "mod": "%",
+               "pow": "**", "eq": "==", "neq": "!=", "lt": "<", "le": "<=", "gt": ">",
+               "ge": ">=", "and": "&", "or": "|", "xor": "^"}.get(self.op)
         if sym:
             return f"({self.left!r} {sym} {self.right!r})"
         return f"{self.op}({self.left!r}, {self.right!r})"
@@ -374,7 +544,7 @@ class UnaryOp(Expression):
         f = self.child.to_field(schema)
         if self.op in ("is_null", "not_null", "not"):
             return Field(f.name, DataType.bool())
-        if self.op == "neg":
+        if self.op in ("neg", "abs"):
             if not f.dtype.is_numeric():
                 raise ValueError(f"{self.op} requires numeric input, got {f.dtype}")
             return f
@@ -463,106 +633,280 @@ class Between(Expression):
         return f"{self.child!r}.between({self.lower!r}, {self.upper!r})"
 
 
-# the scalar functions the port evaluates (on the host only): name ->
-# (the first argument's kind, the types of the literal arguments after it,
-# how many of them may be left out from the end, the result type)
-FUNCTIONS = {
-    "utf8_startswith": ("string", (str,), 0, "bool"),
-    "utf8_endswith": ("string", (str,), 0, "bool"),
-    "utf8_contains": ("string", (str,), 0, "bool"),
-    "utf8_like": ("string", (str,), 0, "bool"),
-    "utf8_left": ("string", (int,), 0, "string"),
-    "utf8_substr": ("string", (int, int), 1, "string"),
-    "dt_year": ("date", (), 0, "int32"),
-}
-
-
 class Function(Expression):
-    """A scalar function call (counterpart of the reference's ``Function``
-    over its registry, holding only what the TPC-H queries call: the string
-    tests ``utf8_startswith``, ``utf8_endswith`` and ``utf8_contains`` (a
-    substring, not a pattern), ``utf8_like`` (SQL LIKE: ``%`` any run, ``_``
-    one character), ``utf8_left`` (the first n characters), ``utf8_substr``
-    (from a 0-based start, optionally n characters) and ``dt_year``).
-    Evaluated on the host (expressions/eval.py); the device never takes it
-    (ops/device_eval.py), so a join capture hoists it into a host-evaluated
-    dim column."""
+    """A call into the scalar function registry (counterpart of the
+    reference's ``Function``, functions/registry.py): ``args`` are
+    expressions (a literal argument is a ``Literal``), ``kwargs`` the
+    function's options. The registry's return-type rule types it, its host
+    kernel evaluates it (expressions/eval.py), and a function with a device
+    form runs in the stage program (ops/device_eval.py). A name of a later
+    wave raises ``NotImplementedError`` naming the wave; an unknown name
+    raises ``ValueError``."""
 
-    def __init__(self, fname: str, args: List[Expression]):
-        if fname not in FUNCTIONS:
-            raise ValueError(f"function {fname!r} is not ported")
+    def __init__(self, fname: str, args: List[Expression],
+                 kwargs: Optional[Dict[str, Any]] = None):
+        from ..functions.registry import get_function
+
+        get_function(fname)
         self.fname = fname
         self.args = args
+        self.kwargs = kwargs or {}
 
     def name(self) -> str:
-        return self.args[0].name()
+        return self.args[0].name() if self.args else self.fname
 
     def children(self):
         return list(self.args)
 
     def with_children(self, children):
-        return Function(self.fname, children)
+        return Function(self.fname, children, self.kwargs)
 
     def to_field(self, schema: Schema) -> Field:
-        kind, lit_types, optional, out = FUNCTIONS[self.fname]
-        arg = self.args[0].to_field(schema)
-        if not (arg.dtype.is_string() if kind == "string" else arg.dtype.kind == "date"):
-            raise ValueError(f"{self.fname} takes a {kind} column, got {arg.dtype}")
-        lits = self.args[1:]
-        if not len(lit_types) - optional <= len(lits) <= len(lit_types):
-            raise ValueError(f"{self.fname} takes {len(lit_types)} literal arguments, "
-                             f"got {len(lits)}")
-        for a, t in zip(lits, lit_types):
-            if not (isinstance(a, Literal) and isinstance(a.value, t)
-                    and not isinstance(a.value, bool)):
-                raise ValueError(f"{self.fname} takes a {t.__name__} literal, got {a!r}")
-        return Field(arg.name, getattr(DataType, out)())
+        from ..functions.registry import get_function
+
+        spec = get_function(self.fname)
+        fields = [a.to_field(schema) for a in self.args]
+        if spec.check is not None:
+            spec.check(self.fname, self.args, fields)
+        return Field(self.name(), spec.return_type(fields, self.kwargs))
 
     def __repr__(self):
-        return f"{self.fname}({', '.join(repr(a) for a in self.args)})"
+        # the options are part of the call: the stage cache and the
+        # optimizer's conjunct sets key expressions by their repr
+        opts = [f"{k}={v!r}" for k, v in sorted(self.kwargs.items())]
+        return f"{self.fname}({', '.join([repr(a) for a in self.args] + opts)})"
 
 
-class StringNamespace:
-    """``expr.str``: the string functions the port has."""
-
+class _Namespace:
     def __init__(self, expr: Expression):
         self._e = expr
 
-    def startswith(self, pat) -> Expression:
-        return Function("utf8_startswith", [self._e, lit(pat)])
 
-    def endswith(self, pat) -> Expression:
-        return Function("utf8_endswith", [self._e, lit(pat)])
+class StringNamespace(_Namespace):
+    """``expr.str``: the string functions (the reference's StringNamespace,
+    without tokenize, which comes with a later wave)."""
 
-    def contains(self, pat) -> Expression:
-        return Function("utf8_contains", [self._e, lit(pat)])
+    def upper(self):
+        return self._e._fn("utf8_upper")
 
-    def left(self, n) -> Expression:
-        return Function("utf8_left", [self._e, lit(n)])
+    def lower(self):
+        return self._e._fn("utf8_lower")
 
-    def like(self, pattern) -> Expression:
-        return Function("utf8_like", [self._e, lit(pattern)])
+    def title(self):
+        return self._e._fn("utf8_title")
 
-    def substr(self, start, length=None) -> Expression:
-        args = [self._e, lit(start)] + ([] if length is None else [lit(length)])
-        return Function("utf8_substr", args)
+    def capitalize(self):
+        return self._e._fn("utf8_capitalize")
+
+    def length(self):
+        return self._e._fn("utf8_length")
+
+    def length_bytes(self):
+        return self._e._fn("utf8_length_bytes")
+
+    def contains(self, pat):
+        return self._e._fn("utf8_contains", pat)
+
+    def startswith(self, pat):
+        return self._e._fn("utf8_startswith", pat)
+
+    def endswith(self, pat):
+        return self._e._fn("utf8_endswith", pat)
+
+    def match(self, pattern):
+        return self._e._fn("utf8_match", pattern)
+
+    def split(self, pat, regex: bool = False):
+        return self._e._fn("utf8_split", pat, regex=regex)
+
+    def concat(self, other):
+        return BinaryOp("add", self._e, self._e._other(other))
+
+    def substr(self, start, length=None):
+        return self._e._fn("utf8_substr", start, *([] if length is None else [length]))
+
+    def replace(self, pat, replacement, regex: bool = False):
+        return self._e._fn("utf8_replace", pat, replacement, regex=regex)
+
+    def extract(self, pattern, index: int = 0):
+        return self._e._fn("utf8_extract", pattern, index=index)
+
+    def extract_all(self, pattern, index: int = 0):
+        return self._e._fn("utf8_extract_all", pattern, index=index)
+
+    def find(self, substr):
+        return self._e._fn("utf8_find", substr)
+
+    def lstrip(self):
+        return self._e._fn("utf8_lstrip")
+
+    def rstrip(self):
+        return self._e._fn("utf8_rstrip")
+
+    def strip(self):
+        return self._e._fn("utf8_strip")
+
+    def reverse(self):
+        return self._e._fn("utf8_reverse")
+
+    def left(self, n):
+        return self._e._fn("utf8_left", n)
+
+    def right(self, n):
+        return self._e._fn("utf8_right", n)
+
+    def repeat(self, n):
+        return self._e._fn("utf8_repeat", n)
+
+    def like(self, pattern):
+        return self._e._fn("utf8_like", pattern)
+
+    def ilike(self, pattern):
+        return self._e._fn("utf8_ilike", pattern)
+
+    def rpad(self, length, pad=" "):
+        return self._e._fn("utf8_rpad", length, pad)
+
+    def lpad(self, length, pad=" "):
+        return self._e._fn("utf8_lpad", length, pad)
+
+    def to_date(self, format: str):
+        return self._e._fn("utf8_to_date", format=format)
+
+    def to_datetime(self, format: str, timezone: Optional[str] = None):
+        return self._e._fn("utf8_to_datetime", format=format, timezone=timezone)
+
+    def normalize(self, remove_punct=False, lowercase=False, nfd_unicode=False,
+                  white_space=False):
+        return self._e._fn("utf8_normalize", remove_punct=remove_punct, lowercase=lowercase,
+                           nfd_unicode=nfd_unicode, white_space=white_space)
+
+    def count_matches(self, patterns, whole_words: bool = False, case_sensitive: bool = True):
+        return self._e._fn("utf8_count_matches", patterns, whole_words=whole_words,
+                           case_sensitive=case_sensitive)
+
+    def levenshtein(self, other):
+        return self._e._fn("levenshtein", other)
+
+    def jaccard_similarity(self, other, ngram: int = 2):
+        return self._e._fn("jaccard_similarity", other, ngram=ngram)
+
+    def md5(self):
+        return self._e._fn("md5")
+
+    def sha256(self):
+        return self._e._fn("sha256")
+
+    def tokenize_encode(self, *args, **kwargs):
+        return self._e._fn("tokenize_encode", *args, **kwargs)
+
+    def tokenize_decode(self, *args, **kwargs):
+        return self._e._fn("tokenize_decode", *args, **kwargs)
 
 
-class DateNamespace:
-    """``expr.dt``: the date functions the port has."""
+class DateNamespace(_Namespace):
+    """``expr.dt``: the date functions (the reference's TemporalNamespace
+    over the ``date`` type; the timestamp-only ones come with a later
+    wave)."""
 
-    def __init__(self, expr: Expression):
-        self._e = expr
+    def year(self):
+        return self._e._fn("dt_year")
 
-    def year(self) -> Expression:
-        return Function("dt_year", [self._e])
+    def month(self):
+        return self._e._fn("dt_month")
+
+    def day(self):
+        return self._e._fn("dt_day")
+
+    def day_of_month(self):
+        return self._e._fn("dt_day")
+
+    def day_of_week(self):
+        return self._e._fn("dt_day_of_week")
+
+    def day_of_year(self):
+        return self._e._fn("dt_day_of_year")
+
+    def week_of_year(self):
+        return self._e._fn("dt_week_of_year")
+
+    def quarter(self):
+        return self._e._fn("dt_quarter")
+
+    def is_leap_year(self):
+        return self._e._fn("dt_is_leap_year")
+
+    def days_in_month(self):
+        return self._e._fn("dt_days_in_month")
+
+    def truncate(self, interval: str):
+        return self._e._fn("dt_truncate", interval=interval)
+
+    def to_unix_epoch(self, unit: str = "s"):
+        return self._e._fn("dt_to_unix_epoch", unit=unit)
+
+    def strftime(self, format: Optional[str] = None):
+        return self._e._fn("dt_strftime", format=format)
+
+    def hour(self):
+        return self._e._fn("dt_hour")
+
+    def minute(self):
+        return self._e._fn("dt_minute")
+
+    def second(self):
+        return self._e._fn("dt_second")
+
+    def millisecond(self):
+        return self._e._fn("dt_millisecond")
+
+    def microsecond(self):
+        return self._e._fn("dt_microsecond")
+
+    def date(self):
+        return self._e._fn("dt_date")
+
+    def time(self):
+        return self._e._fn("dt_time")
 
 
-AGG_OPS = ("sum", "mean", "min", "max", "count", "count_distinct")
+class FloatNamespace(_Namespace):
+    """``expr.float``: NaN and infinity tests and fill_nan."""
+
+    def is_nan(self):
+        return self._e._fn("is_nan")
+
+    def is_inf(self):
+        return self._e._fn("is_inf")
+
+    def not_nan(self):
+        return self._e._fn("not_nan")
+
+    def fill_nan(self, value):
+        return self._e._fn("fill_nan", value)
+
+
+def _later_wave_namespace(name: str):
+    from ..functions.registry import later_wave
+
+    raise NotImplementedError(f"the .{name} namespace is not ported yet: it comes with "
+                              f"{later_wave(name)}")
+
+
+AGG_OPS = ("sum", "mean", "min", "max", "count", "count_distinct", "any_value", "stddev",
+           "var", "skew", "bool_and", "bool_or")
+# the reference's aggregates of later waves
+LATER_AGG_OPS = ("list", "set", "concat", "product", "string_agg", "approx_count_distinct",
+                 "approx_percentile")
 
 
 class AggExpr(Expression):
     def __init__(self, op: str, child: Expression, params: Optional[Dict[str, Any]] = None):
+        if op in LATER_AGG_OPS:
+            from ..functions.registry import later_wave
+
+            raise NotImplementedError(f"the aggregation {op!r} is not ported yet: it comes "
+                                      f"with {later_wave('agg_' + op)}")
         if op not in AGG_OPS:
             raise ValueError(f"unknown aggregation {op!r}")
         self.op = op
@@ -683,6 +1027,86 @@ class WindowExpr(Expression):
         return f"{base}.over({self.spec!r})"
 
 
+# the reference's flat API (expressions.py:1276-1360): each name a method of
+# Expression, an alias of a namespace method or a registry call; a name of a
+# later wave raises NotImplementedError when called
+_FLAT_NAMESPACE_ALIASES = {
+    "capitalize": ("str", "capitalize"), "count_matches": ("str", "count_matches"),
+    "endswith": ("str", "endswith"), "find": ("str", "find"), "ilike": ("str", "ilike"),
+    "left": ("str", "left"), "like": ("str", "like"), "lower": ("str", "lower"),
+    "lpad": ("str", "lpad"), "lstrip": ("str", "lstrip"),
+    "lengths_bytes": ("str", "length_bytes"), "length_bytes": ("str", "length_bytes"),
+    "normalize": ("str", "normalize"), "repeat": ("str", "repeat"),
+    "replace": ("str", "replace"), "reverse": ("str", "reverse"), "right": ("str", "right"),
+    "rpad": ("str", "rpad"), "rstrip": ("str", "rstrip"), "split": ("str", "split"),
+    "startswith": ("str", "startswith"), "strip": ("str", "strip"),
+    "substr": ("str", "substr"), "upper": ("str", "upper"), "to_date": ("str", "to_date"),
+    "to_datetime": ("str", "to_datetime"),
+    "jaccard_similarity": ("str", "jaccard_similarity"), "regexp": ("str", "match"),
+    "regexp_extract": ("str", "extract"), "regexp_extract_all": ("str", "extract_all"),
+    "date": ("dt", "date"), "day": ("dt", "day"), "day_of_month": ("dt", "day_of_month"),
+    "day_of_week": ("dt", "day_of_week"), "day_of_year": ("dt", "day_of_year"),
+    "hour": ("dt", "hour"), "microsecond": ("dt", "microsecond"),
+    "millisecond": ("dt", "millisecond"), "minute": ("dt", "minute"),
+    "month": ("dt", "month"), "quarter": ("dt", "quarter"), "second": ("dt", "second"),
+    "time": ("dt", "time"), "week_of_year": ("dt", "week_of_year"), "year": ("dt", "year"),
+    "strftime": ("dt", "strftime"), "to_unix_epoch": ("dt", "to_unix_epoch"),
+    "date_trunc": ("dt", "truncate"), "fill_nan": ("float", "fill_nan"),
+    "is_inf": ("float", "is_inf"), "is_nan": ("float", "is_nan"),
+    "not_nan": ("float", "not_nan"), "list_contains": ("list", "contains"),
+    "list_count": ("list", "count"), "list_distinct": ("list", "distinct"),
+    "list_join": ("list", "join"), "list_max": ("list", "max"), "list_mean": ("list", "mean"),
+    "list_min": ("list", "min"), "list_sort": ("list", "sort"), "list_sum": ("list", "sum"),
+    "value_counts": ("list", "value_counts"), "chunk": ("list", "chunk"),
+    "cosine_distance": ("embedding", "cosine_distance"),
+    "euclidean_distance": ("embedding", "euclidean_distance"),
+    "dot_product": ("embedding", "dot"), "crop": ("image", "crop"),
+    "resize": ("image", "resize"), "convert_image": ("image", "to_mode"),
+    "encode_image": ("image", "encode"), "decode_image": ("image", "decode"),
+    "image_to_tensor": ("image", "to_fixed_shape"), "download": ("url", "download"),
+    "upload": ("url", "upload"), "map_get": ("map", "get"), "jq": ("json", "query"),
+}
+_FLAT_REGISTRY_FNS = (
+    "arccosh", "arcsinh", "arctanh", "arctan2", "cbrt", "cosh", "sinh", "tanh", "cot", "sec",
+    "csc", "degrees", "radians", "expm1", "log1p", "to_camel_case", "to_snake_case",
+    "to_kebab_case", "to_title_case", "to_upper_camel_case", "to_upper_snake_case",
+    "to_upper_kebab_case", "parse_url", "shift_left", "shift_right", "bitwise_and",
+    "bitwise_or", "bitwise_xor", "bitwise_not", "coalesce", "total_days", "total_hours",
+    "total_minutes", "total_seconds", "total_milliseconds", "total_microseconds",
+    "total_nanoseconds", "unix_date", "image_height", "image_width", "image_channel",
+    "image_hash",
+)
+
+
+def _install_flat_api():
+    def alias(ns_attr, meth):
+        def flat(self, *args, **kwargs):
+            return getattr(getattr(self, ns_attr), meth)(*args, **kwargs)
+        flat.__name__ = meth
+        flat.__doc__ = f"Alias of Expression.{ns_attr}.{meth}()."
+        return flat
+
+    def registry_call(fname):
+        def flat(self, *args, **kwargs):
+            return self._fn(fname, *args, **kwargs)
+        flat.__name__ = fname
+        flat.__doc__ = f"The registry's scalar function {fname!r}."
+        return flat
+
+    for name, (ns_attr, meth) in _FLAT_NAMESPACE_ALIASES.items():
+        if not hasattr(Expression, name):
+            setattr(Expression, name, alias(ns_attr, meth))
+    for fname in _FLAT_REGISTRY_FNS:
+        if not hasattr(Expression, fname):
+            setattr(Expression, fname, registry_call(fname))
+    Expression.pow = Expression.power = lambda self, exponent: self ** exponent
+    Expression.negate = lambda self: -self
+    Expression.ln = lambda self: self.log()
+
+
+_install_flat_api()
+
+
 def col(name: str) -> Expression:
     return ColumnRef(name)
 
@@ -706,6 +1130,9 @@ def _infer_literal_dtype(v: Any) -> DataType:
         raise TypeError("timestamp literals are not supported by the port yet")
     if isinstance(v, datetime.date):
         return DataType.date()
+    if isinstance(v, (list, tuple)):
+        # a host-only value (utf8_count_matches' patterns)
+        return DataType.list(_infer_literal_dtype(v[0]) if v else DataType.null())
     raise TypeError(f"unsupported literal {v!r}")
 
 
@@ -714,10 +1141,14 @@ def _numeric_promote(a: DataType, b: DataType) -> DataType:
 
 
 def _arith_result_type(op: str, l: DataType, r: DataType) -> DataType:
+    if op == "add" and l.is_string() and r.is_string():
+        return DataType.string()
     if op == "div":
         if l.is_numeric() and r.is_numeric():
             return DataType.float64()
         raise ValueError(f"cannot divide {l} by {r}")
+    if op == "pow":
+        return DataType.float64()
     if l.is_null():
         return r
     if r.is_null():

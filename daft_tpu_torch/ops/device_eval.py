@@ -7,8 +7,13 @@ a dict of column tensors; the grouped stage (ops/grouped_stage.py) calls it
 for the predicate and every aggregation child of a stage.
 
 Null semantics mirror the host kernels: validity propagates through
-arithmetic and comparisons, and/or are Kleene, division by zero is null, a
-null IfElse predicate gives null. Padding rows ride along as invalid and are
+arithmetic and comparisons, and/or are Kleene, xor is null where either
+side is, division and mod by zero are null, a null IfElse predicate gives
+null, ``IsIn`` and ``eq_null_safe`` are never null, ``fill_nan`` replaces
+only valid NaNs. The device functions are the registry's
+(functions/registry.py ``device=``), the float ones computed in the
+stage's float type. An integer floordiv goes through f64 whatever the
+stage's float type, as the host's does, so it is exact where the host is. Padding rows ride along as invalid and are
 masked out at aggregation. Literals are 0-d tensors that broadcast against
 the columns; where a result must have the bucket's shape the caller expands
 it (torch does not grow a 0-d mask the way jnp's ``&`` with a shaped array
@@ -34,7 +39,9 @@ from ..expressions.expressions import (
     Cast,
     ColumnRef,
     Expression,
+    Function,
     IfElse,
+    IsIn,
     Literal,
     UnaryOp,
 )
@@ -44,9 +51,9 @@ from ..schema import Schema
 DCol = Tuple[torch.Tensor, torch.Tensor]
 
 _FLOATS = (torch.float32, torch.float64)
-_BINARY_OPS = ("add", "sub", "mul", "div", "eq", "neq", "lt", "le", "gt", "ge",
-               "and", "or")
-_UNARY_OPS = ("not", "neg", "is_null", "not_null")
+_BINARY_OPS = ("add", "sub", "mul", "div", "floordiv", "mod", "pow", "eq", "neq", "lt",
+               "le", "gt", "ge", "and", "or", "xor", "fill_null", "eq_null_safe")
+_UNARY_OPS = ("not", "neg", "abs", "is_null", "not_null")
 
 
 def is_device_evaluable(expr: Expression, schema: Schema) -> bool:
@@ -69,6 +76,15 @@ def is_device_evaluable(expr: Expression, schema: Schema) -> bool:
                 return False
         elif isinstance(node, (Alias, IfElse)):
             pass
+        elif isinstance(node, IsIn):
+            # the items are a value set (the host's semantics): literals only
+            if not all(isinstance(i, Literal) for i in node.items):
+                return False
+        elif isinstance(node, Function):
+            from ..functions.registry import has_function, get_function
+
+            if not has_function(node.fname) or get_function(node.fname).device is None:
+                return False
         elif isinstance(node, Between):
             if not _temporal_operands_aligned([node.child, node.lower, node.upper], schema):
                 return False
@@ -108,6 +124,25 @@ def _temporal_operands_aligned(exprs, schema: Schema) -> bool:
             return False
     temporal = [dt for dt in dts if dt.is_temporal()]
     return all(dt == temporal[0] for dt in temporal)
+
+
+def needs_f64(exprs, schema: Schema) -> bool:
+    """Whether a stage program over ``exprs`` (None entries skipped) keeps
+    its floats in f64 whatever its aggregates: a float rounded to decimals
+    scales by 10^d, and a decimal tie (x.x5) falls on either side of it once
+    the column is rounded to f32, so the round would differ from the host's
+    on a tenth of such rows (the reference's f32 stage rounds in f32)."""
+    from ..expressions.expressions import Function
+
+    for e in exprs:
+        if e is None:
+            continue
+        for node in e.walk():
+            if isinstance(node, Function) and node.fname == "round" \
+                    and int(node.kwargs.get("decimals", 0)) != 0 \
+                    and node.args[0].to_field(schema).dtype.is_floating():
+                return True
+    return False
 
 
 def build_device_expr(expr: Expression, schema: Schema,
@@ -150,6 +185,8 @@ def build_device_expr(expr: Expression, schema: Schema,
                 return ~v.bool(), m
             if node.op == "neg":
                 return -v, m
+            if node.op == "abs":
+                return v.abs(), m
             if node.op in ("is_null", "not_null"):
                 val = _broadcast_valid(v, ~m if node.op == "is_null" else m)
                 return val, torch.ones_like(val)
@@ -161,6 +198,27 @@ def build_device_expr(expr: Expression, schema: Schema,
         if isinstance(node, Between):
             # the host's Kleene (child >= lower) & (child <= upper)
             return ev(node.as_comparisons(), cols, device)
+        if isinstance(node, IsIn):
+            # never null: a null row is true only where the items hold a null
+            v, m = ev(node.child, cols, device)
+            acc = torch.zeros(v.shape, dtype=torch.bool, device=v.device)
+            has_null = torch.zeros((), dtype=torch.bool, device=v.device)
+            for item in node.items:
+                iv, im = ev(item, cols, device)
+                a, b = _promote_pair(v, iv)
+                eq = a == b
+                if a.dtype.is_floating_point:
+                    # Arrow's hashing terms: -0.0 is not 0.0, NaN is NaN
+                    eq = (eq & (torch.signbit(a) == torch.signbit(b))) | (a.isnan() & b.isnan())
+                acc = acc | (eq & im)
+                has_null = has_null | ~im
+            val = torch.where(m, acc, has_null)
+            return val, torch.ones_like(val)
+        if isinstance(node, Function):
+            from ..functions.registry import get_function
+
+            pairs = [ev(a, cols, device) for a in node.args]
+            return get_function(node.fname).device(pairs, node.kwargs, fdt)
         if isinstance(node, IfElse):
             pv, pm = ev(node.predicate, cols, device)
             tv, tm = ev(node.if_true, cols, device)
@@ -201,6 +259,37 @@ def _binop(op: str, lv, lm, rv, rm, fdt=torch.float64) -> DCol:
         lvf, rvf = lv.to(fdt), rv.to(fdt)
         val = lvf / torch.where(rv == 0, torch.ones_like(rvf), rvf)
         return val, _broadcast_valid(val, lm & rm & (rv != 0))
+    if op == "floordiv":
+        ints = not lv.dtype.is_floating_point and not rv.dtype.is_floating_point
+        wdt = torch.float64 if ints else fdt
+        lvf, rvf = lv.to(wdt), rv.to(wdt)
+        q = torch.floor(lvf / torch.where(rv == 0, torch.ones_like(rvf), rvf))
+        if ints:
+            out = torch.promote_types(lv.dtype, rv.dtype)
+            info = torch.iinfo(out)
+            q = torch.where(torch.isfinite(q), q.clamp(info.min, info.max), 0.0).to(out)
+        return q, _broadcast_valid(q, lm & rm & (rv != 0))
+    if op == "mod":
+        a, b = _promote_pair(lv, rv)
+        zero = b == 0
+        val = torch.remainder(a, torch.where(zero, torch.ones_like(b), b))
+        return val, _broadcast_valid(val, lm & rm & ~zero)
+    if op == "pow":
+        val = torch.pow(lv.to(fdt), rv.to(fdt))
+        return val, _broadcast_valid(val, lm & rm)
+    if op == "xor":
+        val = lv.bool() ^ rv.bool()
+        return val, _broadcast_valid(val, lm & rm)
+    if op == "fill_null":
+        a, b = _promote_pair(lv, rv)
+        val = torch.where(lm, a, b)
+        return val.to(lv.dtype), _broadcast_valid(val, lm | rm)
+    if op == "eq_null_safe":
+        a, b = _promote_pair(lv, rv)
+        both = lm & rm
+        val = torch.where(both, a == b, ~(lm ^ rm))
+        val = _broadcast_valid(val, val)
+        return val, torch.ones_like(val)
     if op in ("eq", "neq", "lt", "le", "gt", "ge"):
         a, b = _promote_pair(lv, rv)
         val = {"eq": torch.eq, "neq": torch.ne, "lt": torch.lt, "le": torch.le,

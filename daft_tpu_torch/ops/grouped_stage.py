@@ -266,11 +266,13 @@ class GroupedAggStage:
                              (isinstance(g, Alias) and isinstance(g.child, ColumnRef))
                              for g in groupby)
         # float min/max must be exact: the stage runs wholly in f64, as the
-        # reference's does
+        # reference's does; so does one that rounds a float to decimals
+        # (device_eval.needs_f64)
         self._use_f64 = any(
             agg.op in ("min", "max")
             and agg.child.to_field(schema).dtype.is_floating()
-            for _n, agg in self.aggs)
+            for _n, agg in self.aggs) or dev.needs_f64(
+                [a.child for _n, a in self.aggs] + [predicate], schema)
         self._classify_planes()
 
     def _classify_planes(self) -> None:

@@ -123,10 +123,12 @@ class FilterAggStage:
         self._lock = threading.Lock()
         self._input_cols = self._referenced_columns()
         # float min/max must be exact: such stages run wholly in f64, as the
-        # reference's do; the others compute in f32 and sum in f64
+        # reference's do, and so do those that round a float to decimals
+        # (device_eval.needs_f64); the others compute in f32 and sum in f64
         self._use_f64 = any(
             agg.op in ("min", "max") and agg.child.to_field(schema).dtype.is_floating()
-            for _n, agg in self.aggs)
+            for _n, agg in self.aggs) or dev.needs_f64(
+                [a.child for _n, a in self.aggs] + [predicate], schema)
 
     def _referenced_columns(self) -> List[str]:
         cols: List[str] = []

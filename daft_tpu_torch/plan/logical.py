@@ -4,8 +4,8 @@ whose pushdowns the optimizer's scan rules attach), a write (``Sink``),
 Filter (with the pruning pass's ``keep``), Project, UDFProject (a
 projection the optimizer's ``rule_split_udfs`` isolated around one UDF),
 Aggregate, Sort, Limit, Offset, TopN (a Sort with a Limit, made by
-plan/optimizer.py ``rule_detect_topn``), Join (inner, left,
-semi, anti and cross), Distinct, Repartition and Window (window
+plan/optimizer.py ``rule_detect_topn``), Join (inner, left, right,
+outer, semi, anti and cross), Concat, Distinct, Repartition and Window (window
 functions over one window spec, the optimizer's ``rule_extract_windows``
 moving them out of a projection). Each node computes its
 output schema on construction, so a type error surfaces where the DataFrame
@@ -265,18 +265,43 @@ class TopN(_Unary):
         return f"TopN[{self.limit}]"
 
 
+class Concat(LogicalPlan):
+    """The rows of each input in turn (counterpart of
+    daft_tpu/plan/logical.py Concat); every input has the first's column
+    names, and the output its schema."""
+
+    def __init__(self, inputs: List[LogicalPlan]):
+        if not inputs:
+            raise ValueError("concat of zero plans")
+        s0 = inputs[0].schema
+        for p in inputs[1:]:
+            if p.schema.column_names() != s0.column_names():
+                raise ValueError(f"concat requires matching schemas: {s0.column_names()} "
+                                 f"vs {p.schema.column_names()}")
+        super().__init__(s0)
+        self.inputs = list(inputs)
+
+    def children(self):
+        return list(self.inputs)
+
+    def with_children(self, children):
+        return Concat(children)
+
+
 class Join(LogicalPlan):
     """Equi-join or cross join (counterpart of daft_tpu/plan/logical.py
-    Join, its ``inner``, ``left``, ``semi``, ``anti`` and ``cross`` types).
-    Join keys of the same name merge into the left's column; other right
-    columns whose names clash with the left are renamed
-    ``<prefix><name><suffix>`` when either is given, else ``right.<name>``.
-    A semi or anti join keeps the left's columns only; a cross join has no
-    keys. ``strategy`` and ``null_equals_null`` are the reference's fields
-    (the optimizer's join reorder leaves a join that sets them alone); the
-    port's host join is a hash join and never matches null keys."""
+    Join, its ``inner``, ``left``, ``right``, ``outer``, ``semi``, ``anti``
+    and ``cross`` types). Join keys of the same name merge into the left's
+    column (an outer join's merged key takes the right's value where the
+    left has no row, a right join's is the right's); other right columns
+    whose names clash with the left are renamed ``<prefix><name><suffix>``
+    when either is given, else ``right.<name>``. A semi or anti join keeps
+    the left's columns only; a cross join has no keys.
+    ``null_equals_null`` makes null keys match each other (the SQL set
+    operations); ``strategy`` is the reference's field (the optimizer's
+    join reorder leaves a join that sets either alone)."""
 
-    JOIN_TYPES = ("inner", "left", "semi", "anti", "cross")
+    JOIN_TYPES = ("inner", "left", "right", "outer", "semi", "anti", "cross")
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_on: List[Expression], right_on: List[Expression], how: str = "inner",
@@ -289,9 +314,6 @@ class Join(LogicalPlan):
                 raise ValueError("a cross join takes no keys")
         elif len(left_on) != len(right_on) or not left_on:
             raise ValueError("join needs the same number (>= 1) of left and right keys")
-        if null_equals_null:
-            raise NotImplementedError("a join matching null keys (the SQL set operations) "
-                                      "is not ported yet")
         self.left = left
         self.right = right
         self.left_on = list(left_on)

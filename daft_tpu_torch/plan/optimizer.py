@@ -687,6 +687,9 @@ def _prune(node: lp.LogicalPlan, needed: Optional[List[str]]) -> lp.LogicalPlan:
                                                   _refs(node.aggregations)))
         return lp.Aggregate(child, node.groupby, node.aggregations)
 
+    if isinstance(node, lp.Concat):
+        return node.with_children([_prune(c, needed) for c in node.inputs])
+
     if isinstance(node, lp.Join):
         left_names = node.left.schema.column_names()
         right_names = node.right.schema.column_names()

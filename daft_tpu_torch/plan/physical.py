@@ -252,12 +252,26 @@ class DeviceFilterAgg(_Unary):
         return "DeviceFilterAgg"
 
 
+class PhysConcat(PhysicalPlan):
+    """The rows of each input in turn, passed through as its stream gives
+    them (each input keeps its own plan, placement and residency)."""
+
+    def __init__(self, inputs: List[PhysicalPlan], schema: Schema):
+        self.inputs = inputs
+        self.schema = schema
+
+    def children(self):
+        return list(self.inputs)
+
+
 class HashJoin(PhysicalPlan):
-    """Host equi-join, inner, left, semi or anti (core/kernels/join.py); the
-    right side is materialized, the left streams."""
+    """Host equi-join, inner, left, right, outer, semi or anti
+    (core/kernels/join.py); the right side is materialized, the left streams
+    (a right or outer join, or one matching null keys, materializes both)."""
 
     def __init__(self, left: PhysicalPlan, right: PhysicalPlan, left_on, right_on,
-                 merged_keys, right_rename, schema: Schema, how: str = "inner"):
+                 merged_keys, right_rename, schema: Schema, how: str = "inner",
+                 null_equals_null: bool = False):
         self.left = left
         self.right = right
         self.left_on = left_on
@@ -266,6 +280,7 @@ class HashJoin(PhysicalPlan):
         self.right_rename = right_rename
         self.schema = schema
         self.how = how
+        self.null_equals_null = null_equals_null
 
     def children(self):
         return [self.left, self.right]
@@ -416,7 +431,10 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
         if swapped is not None:
             return swapped
         return HashJoin(translate(plan.left), translate(plan.right), plan.left_on,
-                        plan.right_on, merged, rename, plan.schema, plan.how)
+                        plan.right_on, merged, rename, plan.schema, plan.how,
+                        plan.null_equals_null)
+    if isinstance(plan, lp.Concat):
+        return PhysConcat([translate(c) for c in plan.inputs], plan.schema)
     if isinstance(plan, lp.Distinct):
         return Dedup(translate(plan.input), plan.on, plan.schema)
     if isinstance(plan, lp.Window):
@@ -485,7 +503,8 @@ def _build_on_left(plan: lp.Join) -> Optional[PhysicalPlan]:
     from ..expressions.expressions import col
     from .stats import estimate_bytes
 
-    if plan.how != "inner" or plan.strategy is not None or plan.output_naming()[1]:
+    if plan.how != "inner" or plan.strategy is not None or plan.null_equals_null \
+            or plan.output_naming()[1]:
         return None
     lb, rb = estimate_bytes(plan.left), estimate_bytes(plan.right)
     if lb is None or rb is None or not lb < rb / 2:

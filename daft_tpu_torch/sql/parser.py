@@ -31,12 +31,12 @@ import datetime
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..datatype import DataType, Field
-from ..expressions.expressions import (AggExpr, Alias, Between, Cast, Expression, Function,
-                                       IfElse, IsIn, Literal, _UnboundWindowFn, col, lit)
+from ..expressions.expressions import (AggExpr, Alias, Between, Cast, Expression, IfElse,
+                                       IsIn, Literal, _UnboundWindowFn, col, lit)
 from .tokenizer import Token, tokenize
 
 # what a ROADMAP item brings, named in the NotImplementedError of each
-EXPRESSIONS = "the expression surface (ROADMAP Queue 1 item 7)"
+EXPRESSIONS = "a later wave of the expression surface (ROADMAP Queue 1 item 7)"
 
 _KEYWORDS_STOP = {
     "FROM", "WHERE", "GROUP", "HAVING", "ORDER", "LIMIT", "OFFSET", "UNION", "ALL",
@@ -60,11 +60,11 @@ _BP = {
 }
 
 _AGG_FUNCS = {"SUM": "sum", "AVG": "mean", "MEAN": "mean", "MIN": "min", "MAX": "max",
-              "COUNT": "count"}
-# the reference's other aggregates, not ported
-_AGG_FUNCS_NOT_PORTED = {
-    "STDDEV", "STDDEV_SAMP", "VAR", "VARIANCE", "ANY_VALUE", "SKEW", "BOOL_AND", "BOOL_OR",
-    "APPROX_COUNT_DISTINCT", "LIST_AGG", "ARRAY_AGG"}
+              "COUNT": "count", "STDDEV": "stddev", "STDDEV_SAMP": "stddev", "VAR": "var",
+              "VARIANCE": "var", "ANY_VALUE": "any_value", "SKEW": "skew",
+              "BOOL_AND": "bool_and", "BOOL_OR": "bool_or"}
+# the reference's aggregates of later waves
+_AGG_FUNCS_NOT_PORTED = {"APPROX_COUNT_DISTINCT", "LIST_AGG", "ARRAY_AGG"}
 _WINDOW_RANK_FUNCS = {"ROW_NUMBER", "RANK", "DENSE_RANK", "PERCENT_RANK", "CUME_DIST",
                       "NTILE"}
 
@@ -317,8 +317,12 @@ class Parser:
             return l * r
         if op == "/":
             return l / r
-        if op in ("%", "^", "||"):
-            raise _not_ported(f"the SQL operator {op!r}")
+        if op == "%":
+            return l % r
+        if op == "^":
+            return l ** r
+        if op == "||":
+            return l._fn("utf8_concat", r)
         raise ValueError(f"unhandled operator {op}")
 
     def _postfix_op(self, lhs: Expression, op: str) -> Expression:
@@ -326,9 +330,7 @@ class Parser:
             pattern = self.parse_expr(_BP["LIKE"] + 1)
             if not isinstance(pattern, Literal):
                 raise ValueError("LIKE pattern must be a string literal")
-            if op == "ILIKE":
-                raise _not_ported("ILIKE")
-            return Function("utf8_like", [lhs, lit(pattern.value)])
+            return lhs._fn("utf8_like" if op == "LIKE" else "utf8_ilike", pattern.value)
         if op == "IN":
             self.expect("punct", "(")
             if self.at_kw("SELECT"):
@@ -349,8 +351,11 @@ class Parser:
             negate = self.eat_kw("NOT")
             if self.eat_kw("NULL"):
                 return lhs.not_null() if negate else lhs.is_null()
-            if self.at_kw("TRUE", "FALSE"):
-                raise _not_ported("IS [NOT] TRUE / FALSE (a null-safe equality)")
+            # IS [NOT] TRUE / FALSE: never null (NULL IS TRUE is false)
+            for word, value in (("TRUE", True), ("FALSE", False)):
+                if self.eat_kw(word):
+                    e = lhs.eq_null_safe(lit(value))
+                    return ~e if negate else e
             raise ValueError("expected NULL/TRUE/FALSE after IS")
         raise ValueError(op)
 
@@ -495,14 +500,14 @@ class Parser:
             self.expect_kw("FROM")
             src = self.parse_expr()
             self.expect("punct", ")")
-            known = {"YEAR", "MONTH", "DAY", "HOUR", "MINUTE", "SECOND", "QUARTER", "WEEK",
-                     "DOY", "DOW", "MILLISECOND", "MICROSECOND"}
-            if unit not in known:
+            table = {"YEAR": "year", "MONTH": "month", "DAY": "day", "HOUR": "hour",
+                     "MINUTE": "minute", "SECOND": "second", "QUARTER": "quarter",
+                     "WEEK": "week_of_year", "DOY": "day_of_year", "DOW": "day_of_week",
+                     "MILLISECOND": "millisecond", "MICROSECOND": "microsecond"}
+            if unit not in table:
                 raise ValueError(f"EXTRACT unit {unit!r} not supported; known: "
-                                 f"{sorted(known)}")
-            if unit != "YEAR":
-                raise _not_ported(f"EXTRACT({unit} FROM ...)")
-            return src.dt.year()
+                                 f"{sorted(table)}")
+            return getattr(src.dt, table[unit])()
 
         distinct = False
         star = False

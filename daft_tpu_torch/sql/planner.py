@@ -12,10 +12,11 @@ semi (anti) join, ``[NOT] EXISTS`` to a semi (anti) join on its equality
 correlations, a scalar subquery to a cross join with a one-row frame
 (uncorrelated) or a left join with a grouped aggregate (correlated).
 
-The set operations (UNION, INTERSECT, EXCEPT) and grouping sets (ROLLUP,
-CUBE, GROUPING SETS) raise ``NotImplementedError``: they need the Concat
-plan node, which comes with the expression surface (ROADMAP Queue 1
-item 7).
+The set operations align their arms by position: UNION ALL is a Concat,
+UNION a Concat and a distinct, INTERSECT and EXCEPT the DataFrame's
+``intersect`` and ``except_distinct`` (null keys match). ROLLUP, CUBE and
+GROUPING SETS union one grouped aggregate per key set by name, the keys a
+set lacks null there.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from ..expressions.expressions import (AggExpr, BinaryOp, ColumnRef, Expression, Literal,
                                        UnaryOp, WindowExpr, col, lit)
-from .parser import (EXPRESSIONS, ExistsSubquery, InSubquery, JoinClause, ScalarSubquery,
+from .parser import (ExistsSubquery, InSubquery, JoinClause, ScalarSubquery,
                      Select, SelectItem, TableFactor, parse_select)
 
 
@@ -358,11 +359,25 @@ class SQLPlanner:
             planner = self._sub()
             for name, sub in sel.ctes.items():
                 planner.cte_frames[name] = planner._sub().plan(sub)
-        if sel.set_ops:
-            raise NotImplementedError(
-                f"the SQL set operation {sel.set_ops[0][0].upper()} is not ported yet: it "
-                f"needs the Concat plan node, which comes with {EXPRESSIONS}")
         df = planner._plan_core(sel)
+        for op, rhs in sel.set_ops:
+            rdf = planner._plan_core(rhs)
+            # SQL set operations align columns by position: the right arm's
+            # columns take the left's names
+            lnames, rnames = df.column_names, rdf.column_names
+            if len(lnames) != len(rnames):
+                raise ValueError(
+                    f"set operation arms have {len(lnames)} vs {len(rnames)} columns")
+            if lnames != rnames:
+                rdf = rdf.select(*[col(rn).alias(ln) for ln, rn in zip(lnames, rnames)])
+            if op == "union_all":
+                df = df.concat(rdf)
+            elif op == "union":
+                df = df.concat(rdf).distinct()
+            elif op == "intersect":
+                df = df.intersect(rdf)
+            else:
+                df = df.except_distinct(rdf)
         return planner._apply_order_limit(df, sel)
 
     def _plan_core(self, sel: Select):
@@ -390,15 +405,13 @@ class SQLPlanner:
 
         has_agg = any(_contains_agg(it.expr) for it in items)
         if sel.grouping_sets is not None:
-            raise NotImplementedError(
-                "ROLLUP / CUBE / GROUPING SETS are not ported yet: they union one "
-                f"aggregate per key set through the Concat plan node ({EXPRESSIONS})")
-        if sel.group_by or has_agg or sel.having is not None:
+            df = self._plan_grouping_sets(df, sel, items, scope)
+        elif sel.group_by or has_agg or sel.having is not None:
             df = self._plan_aggregate(df, sel, items, scope)
         else:
             # ORDER BY may read source columns the projection drops (SQL's
             # scoping allows it): sort before projecting then
-            if sel.order_by:
+            if sel.order_by and not sel.set_ops:
                 out_names = {it.alias or it.expr.name() for it in items}
                 in_names = set(df.column_names)
                 needs_presort = any(
@@ -447,10 +460,6 @@ class SQLPlanner:
             out = left_df.join(right_df, how="cross")
             self._merge_scope_after_join(scope, right_scope, left_df, set())
             return out
-        if j.kind in ("right", "outer"):
-            raise NotImplementedError(
-                f"{'RIGHT' if j.kind == 'right' else 'FULL OUTER'} JOIN is not ported yet: "
-                f"the host join has inner, left, semi, anti and cross ({EXPRESSIONS})")
 
         residual: Optional[Expression] = None
         if j.using:
@@ -534,6 +543,33 @@ class SQLPlanner:
         return left_on, right_on, residual
 
     # ---- aggregation --------------------------------------------------------------
+    def _plan_grouping_sets(self, df, sel: Select, items: List[SelectItem], scope: Scope):
+        """ROLLUP / CUBE / GROUPING SETS: one grouped aggregate per key set,
+        the grouping columns a set lacks null there, unioned by name (the
+        reference's planner.py:589-621)."""
+        import dataclasses
+
+        all_keys = {repr(self._resolve_expr(k, scope))
+                    for ks in sel.grouping_sets for k in ks}
+        out = None
+        for ks in sel.grouping_sets:
+            resolved = [self._resolve_expr(k, scope) for k in ks]
+            kreprs = {repr(k) for k in resolved}
+            sub_items = []
+            for it in items:
+                r = repr(it.expr)
+                if r in all_keys and r not in kreprs:
+                    name = it.alias or it.expr.name()
+                    dtype = it.expr.to_field(df.schema).dtype
+                    sub_items.append(SelectItem(lit(None).cast(dtype).alias(name), name))
+                else:
+                    sub_items.append(it)
+            sub_sel = dataclasses.replace(sel, group_by=list(resolved), grouping_sets=None,
+                                          order_by=[], limit=None, offset=None, set_ops=[])
+            part = self._plan_aggregate(df, sub_sel, sub_items, scope)
+            out = part if out is None else out.union_all_by_name(part)
+        return out
+
     def _plan_aggregate(self, df, sel: Select, items: List[SelectItem], scope: Scope):
         # group-by entries (a position names a select item)
         group_exprs = [items[g - 1].expr if isinstance(g, int) else self._resolve_expr(g, scope)

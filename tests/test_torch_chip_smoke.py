@@ -749,7 +749,6 @@ def test_pipeline_phase_cells_on_the_cpu(scan_files, monkeypatch):
     cells = _cell_results(cs, dt, lineitem, orders, dims)
     with dt.execution_config_ctx(device="cpu"):
         cells["supplier"] = cs.supplier_query(cs.supplier_frame(lineitem)).to_pydict()
-    monkeypatch.setattr(cs, "PIPELINE_ROUNDS", 1)
     sess = dt.current_session()
     sess.create_temp_table("lineitem", dt.read_parquet(dirs["lineitem"]))
     sess.create_temp_table("orders", dt.read_parquet(dirs["orders"]))
@@ -758,11 +757,11 @@ def test_pipeline_phase_cells_on_the_cpu(scan_files, monkeypatch):
     seen = {}
     try:
         with dt.execution_config_ctx(morsel_size_rows=4096, pipeline_mode="force"):
-            for label, query, key, floats, counter, rounds, cold in \
+            for label, query, key, floats, counter, modes, cold in \
                     cs.pipeline_cells(lineitem, orders, dirs):
                 out = cs.pipeline_cell(label, query, cells[key], floats, counter, "cpu",
-                                       rounds, cold, profile=key == "q3")
-                assert len(out["off"]) + len(out["cold"]) // 2 == 2 * rounds, label
+                                       modes, cold, profile=key == "q3")
+                assert len(out["off"]) + len(out["cold"]) // 2 == modes.count("off"), label
                 seen[label] = cs.expected_launch_threads(pp.translate(query().optimized_plan()))
                 if key == "q5":
                     joins = cs.host_join_times(label, query, "cpu")
@@ -1022,9 +1021,11 @@ def test_obs_trace_check_refuses_a_trace_without_h2d(scan_files, monkeypatch):
     def no_h2d(name, cat, **args):
         return real("device.other" if name == "device.h2d" else name, cat, **args)
 
+    import importlib
+
     for mod in ("daft_tpu_torch.ops.grouped_stage", "daft_tpu_torch.ops.device_join",
                 "daft_tpu_torch.ops.stage"):
-        monkeypatch.setattr(sys.modules[mod], "profile_span", no_h2d)
+        monkeypatch.setattr(importlib.import_module(mod), "profile_span", no_h2d)
     df_l, df_o = cs.q12_frames(lineitem, orders)
     with dt.execution_config_ctx(morsel_size_rows=16_384):
         with pytest.raises(cs.SmokeFailure, match="no device.h2d span"):
@@ -1125,3 +1126,153 @@ def test_auto_ai_embed_on_the_cpu(ai_small, monkeypatch, capsys):
         costmodel.reset_calibration()
     assert list(paths) == ["auto ai embed"]
     assert "auto ai embed (warm): udf (" in capsys.readouterr().out
+
+
+def _cpu_cells(monkeypatch):
+    """chip_smoke.py with its cells on the CPU: the cells' config on
+    device="cpu", the kernels' plain calls counted as their launches, no
+    profile (torch.profiler's card capture)."""
+    import contextlib
+
+    import daft_tpu_torch as dt
+
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    @contextlib.contextmanager
+    def cpu_ctx():
+        with dt.execution_config_ctx(device="cpu", device_mode="on") as cfg:
+            yield cfg
+
+    monkeypatch.setattr(cs, "dt_ctx", cpu_ctx)
+    monkeypatch.setattr(cs, "CELL_KERNEL_PREFIX", "plain_")
+    monkeypatch.setattr(cs, "phase_profile", lambda *a, **k: None)
+    return cs
+
+
+def test_functions_phase_on_the_cpu(monkeypatch, capsys):
+    """chip_smoke.py's functions phase on the CPU at a small size: the
+    filter and the eight function aggregates plan as one DeviceGroupedAgg,
+    equal to the "off" run and to the numpy oracle, K1, K2, K3 and K7's
+    plain versions called, and the oracle itself equal to the port's host
+    path."""
+    import daft_tpu_torch as dt
+
+    cs = _cpu_cells(monkeypatch)
+    lineitem, _orders, _dims = _small_tpch(cs)
+    paths = cs.phase_functions(lineitem, "cpu")
+    launches = paths["functions"]
+    assert all(launches[k] > 0 for k in cs.FUNCTIONS_KERNELS), launches
+    out = capsys.readouterr().out
+    assert "functions: 6 result rows, equal to the host path and the numpy oracle" in out
+    with dt.execution_config_ctx(device="cpu", device_mode="off"):
+        host = cs.functions_query(cs.functions_frame(lineitem)).to_pydict()
+    assert cs.same_result(host, cs.functions_oracle(lineitem), cs.FUNCTIONS_FLOATS)
+
+
+def test_functions_phase_fails_on_a_wrong_oracle(monkeypatch):
+    cs = _cpu_cells(monkeypatch)
+    lineitem, _orders, _dims = _small_tpch(cs)
+    oracle = cs.functions_oracle
+
+    def off_by_one(cols):
+        out = oracle(cols)
+        out["part_k"] = [v + 1 for v in out["part_k"]]
+        return out
+
+    monkeypatch.setattr(cs, "functions_oracle", off_by_one)
+    with pytest.raises(cs.SmokeFailure, match="numpy oracle"):
+        cs.phase_functions(lineitem, "cpu")
+
+
+def _tpcds_sf001(monkeypatch, cs):
+    """The stages and fallbacks of the tpcds phase's cold runs at SF 0.01:
+    SF1's, except that q48, q88 and q96 take a dim larger than
+    store_sales' 28,800 rows as the capture's fact and fall back (q88 in
+    each of its eight time windows), and q51, q73, q79 and q89's joined
+    groups stay under the join run's ceiling, so they ride the device
+    join."""
+    unique = "dim keys are not unique"
+    rides = {**cs.TPCDS_RIDES, 48: "host", 88: "host", 96: "host",
+             51: "device join", 73: "device join", 79: "device join", 89: "device join"}
+    monkeypatch.setattr(cs, "TPCDS_RIDES", rides)
+    monkeypatch.setattr(cs, "TPCDS_FALLBACKS", {48: (1, unique), 88: (8, unique),
+                                                96: (1, unique)})
+
+
+def test_tpcds_phase_on_the_cpu(monkeypatch, capsys):
+    """chip_smoke.py's tpcds phase on the CPU at SF 0.01: all 25 queries,
+    "on" equal to "off", each query on the stage, with the fallbacks and
+    the launches, that the phase holds it to (at this size's maps), its
+    times and launches printed, the star joins' K4 counted."""
+    cs = _cpu_cells(monkeypatch)
+    _tpcds_sf001(monkeypatch, cs)
+    paths = cs.phase_tpcds(cs.tpcds_tables(0.01, 0), "cpu")
+    out = capsys.readouterr().out
+    for qn in cs.tpcds_port_queries():
+        assert f"tpcds q{qn}: {cs.TPCDS_RIDES[qn]}; " in out
+    for k in ("hash_probe_build", "hash_probe_index", "segment_sum_planes",
+              "segment_extreme_planes", "segment_sum_float_planes"):
+        assert paths["tpcds"][k] > 0, k
+    assert "22 of 25 queries rode the card" in out
+    assert out.count("fell back to the host") == 3
+    assert "tpcds phase " in out
+
+
+def test_tpcds_phase_fails_when_a_query_falls_back(monkeypatch):
+    """A query that rides the device join at this size (q12) falls back at
+    run time when the join run's ceiling is 1 group: the phase fails on
+    it."""
+    from daft_tpu_torch.ops import device_join
+
+    cs = _cpu_cells(monkeypatch)
+    _tpcds_sf001(monkeypatch, cs)
+    monkeypatch.setattr(device_join.DeviceJoinGroupedRun, "max_segments", 1)
+    with pytest.raises(cs.SmokeFailure, match="tpcds q12: "):
+        cs.phase_tpcds(cs.tpcds_tables(0.01, 0), "cpu")
+
+
+def test_tpcds_kernel_calls_on_the_cpu(monkeypatch):
+    """The inputs the tpcds kernel cases take: q98's cold run calls K1, K2
+    and K7 once each, builds K4 over item's and date_dim's keys and probes
+    store_sales' keys into each table; the wrappers are restored after."""
+    from daft_tpu_torch.ops import probe_kernels as pk
+    from daft_tpu_torch.ops import segment_kernels as sk
+
+    cs = _cpu_cells(monkeypatch)
+    before = (sk.segment_sum_planes, pk.hash_probe_index)
+    tables = cs.tpcds_tables(0.01, 0)
+    named = cs.tpcds_kernel_calls(tables)
+    assert (sk.segment_sum_planes, pk.hash_probe_index) == before
+    for k in ("segment_sum_planes", "segment_extreme_planes", "segment_sum_float_planes"):
+        assert len(named[k]) == 1, k
+    (planes, codes, cap), out, _name = named["segment_sum_planes"][0]
+    assert out.shape == (cap, len(planes)) and len(codes) >= len(
+        tables["store_sales"]["ss_item_sk"])
+    assert sorted(n for _a, _o, n in named["build_probe_table"]) == ["date_dim", "item"]
+    assert sorted(n for _a, _o, n in named["hash_probe_index"]) == ["date_dim", "item"]
+    for (keys, _valid, _table), _out, _name in named["hash_probe_index"]:
+        assert len(keys) >= len(tables["store_sales"]["ss_item_sk"])
+
+
+def test_tpcds_phase_fails_when_on_differs_from_off(monkeypatch):
+    import daft_tpu_torch as dt
+
+    cs = _cpu_cells(monkeypatch)
+    _tpcds_sf001(monkeypatch, cs)
+    queries = cs.tpcds_port_queries()
+
+    def one_query(root=cs.HERE):
+        q = queries[96]
+        calls = []
+
+        def wrong(t):
+            calls.append(1)
+            df = q(t)
+            # the "on" run (the second call) gives one more
+            return df.with_column("count", dt.col("count") + 1) if len(calls) == 2 else df
+        return {**{n: queries[n] for n in queries if n != 96}, 96: wrong}
+
+    monkeypatch.setattr(cs, "tpcds_port_queries", one_query)
+    with pytest.raises(cs.SmokeFailure, match="q96: the \"on\" run differs"):
+        cs.phase_tpcds(cs.tpcds_tables(0.01, 0), "cpu")

@@ -24,7 +24,10 @@
 - with the observability package (dashboard and OTLP exporter included),
   the runners and the query trace loaded, a subscriber, the dashboard and
   ``explain_analyze(profile=...)`` observing a device query import none of
-  them either.
+  them either;
+- a query of the expression surface (registry functions, ``abs``, ``%``,
+  ``is_in``, the new aggregates, ``concat``, and SQL's ABS, % and UNION
+  ALL) imports none of them either.
 """
 
 import datetime
@@ -651,6 +654,50 @@ def test_observed_query_imports_no_jax_pyarrow_or_reference():
     query on the CPU, in a fresh interpreter: no JAX, pyarrow or daft_tpu
     imported."""
     proc = subprocess.run([sys.executable, "-c", _OBSERVED_QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+_SURFACE_QUERY = """
+import sys
+import numpy as np
+sys.path.insert(0, {repo!r})
+import daft_tpu_torch as dt
+from daft_tpu_torch import col
+rng = np.random.default_rng(0)
+df = dt.from_pydict({{"k": rng.integers(0, 6, 4000), "x": rng.normal(0, 5, 4000),
+                      "s": np.array(["ab", "Cd", "éf"], dtype=object)[rng.integers(0, 3, 4000)]}})
+def q(frame):
+    return (frame.where(col("k").is_in([1, 2, 4]) & ((col("x") - 1).abs() < 6))
+            .groupby("k").agg(col("x").abs().sqrt().sum().alias("r"),
+                              col("x").stddev().alias("sd"))
+            .concat(frame.where(col("k") == 5).groupby("k")
+                    .agg(col("x").round(1).sum().alias("r"), col("x").var().alias("sd")))
+            .sort("k"))
+with dt.execution_config_ctx(device="cpu", device_mode="on"):
+    out = q(df).to_pydict()
+    up = df.select(col("s").str.upper().alias("u"), col("s").str.length().alias("n"))
+    assert set(up.to_pydict()["u"]) == {{"AB", "CD", "ÉF"}}
+    sql = dt.sql("SELECT k, ABS(x) % 2 AS m FROM t WHERE k IN (1, 3) UNION ALL "
+                 "SELECT k, x FROM t WHERE k = 0 ORDER BY k, m LIMIT 5", t=df).to_pydict()
+with dt.execution_config_ctx(device="cpu", device_mode="off"):
+    host = q(df).to_pydict()
+assert out["k"] == host["k"] == [1, 2, 4, 5], out
+assert np.allclose(out["r"], host["r"], rtol=1e-5) and np.allclose(out["sd"], host["sd"])
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             or m == "daft_tpu")
+print("FORBIDDEN", bad)
+"""
+
+
+def test_expression_surface_query_imports_no_jax_pyarrow_or_reference():
+    """A query with registry functions (sqrt, round, upper, length),
+    ``abs``, ``%``, ``is_in``, the new aggregates and ``concat`` (and in
+    SQL, ABS, % and UNION ALL), on the device stage and on the host, in a
+    fresh interpreter: equal, and no JAX, pyarrow or daft_tpu imported."""
+    proc = subprocess.run([sys.executable, "-c", _SURFACE_QUERY.format(repo=REPO)],
                           capture_output=True, text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "FORBIDDEN []" in proc.stdout, proc.stdout

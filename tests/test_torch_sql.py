@@ -5,9 +5,12 @@ The cases of tests/test_sql.py and tests/test_sql_subqueries.py whose
 functions the port has run through ``daft_tpu.sql`` and
 ``daft_tpu_torch.sql`` over the same columns (the reference's frames
 carried across with ``from_numpy_columns``) and must give equal
-``to_pydict``; where the reference raises, the port raises too. The other
-cases (windows, set operations, grouping sets, the scalar functions the
-port lacks) raise ``NotImplementedError`` naming the ROADMAP item.
+``to_pydict``; where the reference raises, the port raises too. The
+expression surface's first wave (the registry's functions, ``%``, ``^``,
+``||``, ILIKE, IS TRUE, EXTRACT, the other aggregates, UNION / INTERSECT /
+EXCEPT, ROLLUP / CUBE / GROUPING SETS, RIGHT and FULL OUTER joins) equals
+the reference too. The later waves' functions, types and aggregates raise
+``NotImplementedError`` naming the ROADMAP item.
 
 Every TPC-H text of ``chip_smoke.TPCH_SQL`` runs at SF 0.01 through both
 packages and equals the reference's SQL result and the DataFrame query's
@@ -215,31 +218,78 @@ def test_sql_empty_scalar_subquery_binds_null():
     assert _run_port(q, port) == _run_ref(q, ref) == {"x": [1]}
 
 
-# the cases whose functions the port lacks: each raises NotImplementedError
-# naming what brings it, where the reference answers
+# the cases of the expression surface's later waves: each raises
+# NotImplementedError naming what brings it, where the reference answers
 NOT_PORTED = [
-    ("SELECT UPPER(k) AS ku FROM df WHERE k LIKE 'x%' ORDER BY a", "item 7"),
-    # windows are ported (tests/test_torch_window.py); what they hold may not be
+    ("SELECT HOUR(d) AS h FROM t", "item 7"),
+    # windows are ported (tests/test_torch_window.py); the new aggregates in
+    # a window are not
     ("SELECT a, STDDEV(b) OVER (PARTITION BY k) AS s FROM df", "item 7"),
-    ("SELECT a, ROW_NUMBER() OVER (PARTITION BY k ORDER BY a) % 2 AS rn FROM df", "item 7"),
+    ("SELECT EXTRACT(HOUR FROM d) AS h FROM t", "item 7"),
     ("SELECT a, ANY_VALUE(b) OVER (PARTITION BY k) AS v FROM df", "item 7"),
-    ("SELECT a, SUM(b) OVER (PARTITION BY UPPER(k)) AS s FROM df", "item 7"),
-    ("SELECT a FROM df UNION ALL SELECT a FROM df ORDER BY a LIMIT 3", "item 7"),
-    ("SELECT k FROM df UNION SELECT k FROM df ORDER BY k", "item 7"),
-    ("SELECT a FROM df EXCEPT SELECT 1", "item 7"),
-    ("SELECT k || '_s' AS kk FROM df LIMIT 1", "item 7"),
-    ("SELECT ABS(-3) AS x", "item 7"),
-    ("SELECT ROUND(2.567, 1) AS y", "item 7"),
-    ("SELECT k, SUM(a) s FROM df GROUP BY ROLLUP(k) ORDER BY s, k", "item 7"),
-    ("SELECT k, SUM(a) s FROM df GROUP BY CUBE(k)", "item 7"),
-    ("SELECT k, SUM(a) s FROM df GROUP BY GROUPING SETS ((k), ())", "item 7"),
-    ("SELECT EXTRACT(MONTH FROM DATE '2024-03-02') m", "item 7"),
-    ("SELECT a FROM df WHERE a % 2 = 0", "item 7"),
-    ("SELECT STDDEV(a) AS s FROM df", "item 7"),
-    ("SELECT a FROM df WHERE k ILIKE 'X%'", "item 7"),
+    ("SELECT APPROX_COUNT_DISTINCT(a) AS n FROM df", "item 7"),
+    ("SELECT ARRAY_AGG(a) AS n FROM df", "item 7"),
+    ("SELECT LIST_AGG(k) AS n FROM df", "item 7"),
+    ("SELECT LIST_CONTAINS(a, 1) AS l FROM df", "item 7"),
+    ("SELECT MINHASH(k) AS m FROM df", "item 7"),
+    ("SELECT MD5(k) AS m FROM df", "item 7"),
+    ("SELECT ENCODE_BASE64(k) AS m FROM df", "item 7"),
+    ("SELECT TO_JSON(k) AS j FROM df", "item 7"),
+    ("SELECT TOKENIZE_ENCODE(k) AS t FROM df", "item 7"),
+    ("SELECT CAST(a AS TIMESTAMP) AS t FROM df", "item 7"),
+    ("SELECT CAST(a AS DECIMAL) AS t FROM df", "item 7"),
+    ("SELECT IMAGE_DECODE(k) AS i FROM df", "item 7"),
+    ("SELECT URL_DOWNLOAD(k) AS i FROM df", "item 7"),
+    ("SELECT a, VAR(b) OVER (PARTITION BY k) AS v FROM df", "item 7"),
     ("SELECT TIMESTAMP '2024-01-01 00:00:00' AS t", "item 7"),
     ("SELECT v FROM t WHERE d < DATE '1994-01-01' + INTERVAL '3' HOUR", "item 7"),
 ]
+
+# the expression surface's first wave, against the reference
+SURFACE = [
+    "SELECT UPPER(k) AS ku FROM df WHERE k LIKE 'x%' ORDER BY a",
+    "SELECT a, ROW_NUMBER() OVER (PARTITION BY k ORDER BY a) % 2 AS rn FROM df ORDER BY a",
+    "SELECT a, SUM(b) OVER (PARTITION BY UPPER(k)) AS s FROM df ORDER BY a",
+    "SELECT a FROM df UNION ALL SELECT a FROM df ORDER BY a LIMIT 3",
+    "SELECT k FROM df UNION SELECT k FROM df ORDER BY k",
+    "SELECT a FROM df EXCEPT SELECT 1 ORDER BY a",
+    "SELECT a FROM df INTERSECT SELECT a FROM df WHERE a > 2 ORDER BY a",
+    "SELECT k || '_s' AS kk FROM df ORDER BY a LIMIT 1",
+    "SELECT ABS(-3) AS x",
+    "SELECT ROUND(2.567, 1) AS y",
+    "SELECT k, SUM(a) s FROM df GROUP BY ROLLUP(k) ORDER BY s, k",
+    "SELECT k, SUM(a) s FROM df GROUP BY CUBE(k) ORDER BY s, k",
+    "SELECT k, SUM(a) s FROM df GROUP BY GROUPING SETS ((k), ()) ORDER BY s, k",
+    "SELECT EXTRACT(MONTH FROM DATE '2024-03-02') m",
+    "SELECT a FROM df WHERE a % 2 = 0 ORDER BY a",
+    "SELECT STDDEV(a) AS s FROM df",
+    "SELECT a FROM df WHERE k ILIKE 'X%' ORDER BY a",
+    "SELECT a ^ 2 AS p, a % 3 AS m, b / 3 AS d FROM df ORDER BY a",
+    "SELECT (a > 2) IS TRUE AS t, (a > 2) IS NOT FALSE AS nf FROM df ORDER BY a",
+    "SELECT k, STDDEV(b) AS s, VAR(b) AS v, VARIANCE(a) AS va, SKEW(b) AS sk, "
+    "BOOL_AND(a > 1) AS ba, BOOL_OR(a > 4) AS bo, ANY_VALUE(a) AS av FROM df GROUP BY k "
+    "ORDER BY k",
+    "SELECT LENGTH(k) AS l, LPAD(k, 3, '*') AS lp, REVERSE(k) AS r, REPLACE(k, 'x', 'z') "
+    "AS rp, CONCAT(k, 'q') AS c, RIGHT(k, 1) AS rt FROM df ORDER BY a",
+    "SELECT SQRT(b) AS s, LN(b) AS l, LOG10(b) AS l10, LOG(2, b) AS l2, EXP(a) AS e, "
+    "CEIL(b / 7) AS c, FLOOR(b / 7) AS f, SIGN(a - 3) AS sg, POWER(a, 2) AS p, MOD(a, 2) "
+    "AS m FROM df ORDER BY a",
+    "SELECT utf8_capitalize(k) AS c, to_upper_snake_case(k) AS u FROM df ORDER BY a",
+    "SELECT df.k, v FROM df FULL OUTER JOIN d2 ON df.k = d2.k ORDER BY v, a",
+    "SELECT df.k, v FROM df RIGHT JOIN d2 ON df.k = d2.k ORDER BY v, a",
+    "SELECT YEAR(d) y, MONTH(d) m, DAY(d) dd, DAYOFWEEK(d) w, DAYOFYEAR(d) dy, "
+    "WEEKOFYEAR(d) wy, EXTRACT(QUARTER FROM d) q, DATE_TRUNC('month', d) t FROM t",
+]
+
+
+@pytest.mark.parametrize("i", range(len(SURFACE)))
+def test_sql_expression_surface_matches_reference(i):
+    tables = {**BASE, "t": {"d": [datetime.date(1994, 1, 1), datetime.date(2000, 12, 31)],
+                            "v": [1, 2]}}
+    ref, port = _pair(tables)
+    want = _run_ref(SURFACE[i], ref)
+    _same(_run_port(SURFACE[i], port), want)
+    _same(_run_port(SURFACE[i], port, device_mode="off"), want)
 
 
 @pytest.mark.parametrize("query,item", NOT_PORTED, ids=[str(i) for i in range(len(NOT_PORTED))])
