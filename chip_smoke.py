@@ -10,7 +10,10 @@ error (no phase catches its own failure):
             torch.cuda.get_device_name(0); fail when no card is found;
 2. build:   build the hand-written kernels from ops/csrc (nvcc, one process
             per source, all started together, with measure/k7_leads.cu, the
-            kernels that only measure) and print the build seconds;
+            kernels that only measure) and print the build seconds; build
+            (or load) the host kernel library (daft_tpu_torch/csrc/
+            kernels.cpp, the host compiler) and print its path and build
+            seconds: a failed build fails the script;
    data:    generate TPC-H lineitem (about 6.0 M rows), orders (1.5 M
             rows), part (200,000), customer (150,000), supplier (10,000),
             nation (25) and region (5) at SF1
@@ -70,6 +73,12 @@ error (no phase catches its own failure):
             torch.profiler (K4's build with the table's clearing, where it
             has one). K1a and K5 have no engine caller, in the port or in
             the reference: they are held here alone;
+3a. native: the host kernel library against its plain versions
+            (DAFT_TPU_DISABLE_NATIVE set), in one process: the in-memory
+            supplier, q3, q12 and partkey cells under device_mode="off"
+            both ways in turns (library, plain, library, plain), every
+            result equal, each way's warm ms and the library's calls
+            printed;
 4. slice:   the per-supplier shipment summary over lineitem through the port
             with device="cuda", device_mode="on"; the counters are zeroed
             just before that run and read just after it. The result must equal
@@ -297,7 +306,9 @@ error (no phase catches its own failure):
             DeviceUdfRun finalized, so the UDF plane never comes back; one
             aggregate finalize), equal to a numpy oracle (rtol 1e-5),
             uploading nothing warm;
-22. print the {"kernels": [...]} line (each kernel's launches by path:
+22. print the ``native {...}`` line (the host kernel library's path, its
+   build seconds and each of its 25 exports' calls over the script), the
+   {"kernels": [...]} line (each kernel's launches by path:
    every cell's counted run, and the sql phase's SQL first runs, summed,
    under "sql"), the card line, and last the {"ok": true, "device":
    {...}} line.
@@ -310,11 +321,16 @@ Every relational cell runs at SF1: nothing is cut; the ai cells run the
 model at its published widths with its depth uncut. It imports torch,
 numpy and the port; nothing of JAX, pyarrow or daft_tpu.
 
-    python3 chip_smoke.py --phase ooc|window|obs|auto|functions|tpcds
+    python3 chip_smoke.py --phase ooc|window|obs|auto|functions|tpcds|native
 
 runs phases 1-3, then that phase alone (ooc, obs and auto write lineitem's
 Parquet files themselves; auto alone computes each cell's "off" result and
-runs the ai embed cell after one "on" run).
+runs the ai embed cell after one "on" run; native first times make_groups,
+grouped_reduce, join_indices, ProbeTable's build and probe and the
+selection vector at SF1 shapes both ways (host ms, median of 3, the
+results equal), and adds, both ways, in-memory q1, file-fed q3 and q5 in
+SQL over the scan phase's files, the ooc phase's nine queries under B10,
+TPC-DS q65 and q51 and the functions cell).
 
     python3 chip_smoke.py --kernels-only [--root DIR]
 
@@ -327,6 +343,7 @@ parent is driven by its own unpacked chip_smoke.py.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
 import os
@@ -6534,6 +6551,252 @@ def auto_runs(lineitem, orders) -> dict:
             "partkey": lambda: partkey_query(pk).to_pydict()}
 
 
+# ---- native: the host kernel library against its plain versions ------------------
+
+NATIVE_RUNS = ("library", "plain", "library", "plain")  # in turns; each way's second is warm
+NATIVE_LAYER_RUNS = 3  # host-clock runs per layer timing (the median printed)
+NATIVE_MASK_DENSITIES = (0.01, 0.5, 0.98)  # kept rows of the selection-vector timing
+NATIVE_TPCDS = (65, 51)
+
+
+@contextlib.contextmanager
+def native_switch(plain: bool):
+    """``DAFT_TPU_DISABLE_NATIVE`` set (``plain``) or unset for the block."""
+    from daft_tpu_torch import native
+
+    old = os.environ.pop(native.DISABLE_ENV, None)
+    if plain:
+        os.environ[native.DISABLE_ENV] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(native.DISABLE_ENV, None)
+        if old is not None:
+            os.environ[native.DISABLE_ENV] = old
+
+
+def native_load(card: str) -> None:
+    """Build (or load) the host kernel library from the checkout's source;
+    a failed build fails the script."""
+    from daft_tpu_torch import native
+    from daft_tpu_torch.ops import _build
+
+    try:
+        native.get_lib()
+    except (RuntimeError, OSError) as exc:
+        raise SmokeFailure(f"the host kernel library did not build or load: {exc}") from exc
+    info = _build.BUILD_INFO[os.path.basename(native.SOURCE)]
+    print(f"native library {info['path']}: built in {info['seconds']:.2f} s "
+          f"({len(native.EXPORTS)} exports) [{card}]", flush=True)
+
+
+def native_summary() -> dict:
+    """The ``native`` line: the library's path, its build seconds and each
+    export's calls over the script."""
+    from daft_tpu_torch import native
+    from daft_tpu_torch.ops import _build
+
+    info = _build.BUILD_INFO[os.path.basename(native.SOURCE)]
+    calls = native.calls()
+    return {"path": info["path"], "build_s": info["seconds"],
+            "calls": {name: calls.get(name, 0) for name in native.EXPORTS}}
+
+
+def native_cell(label: str, run, card: str, **cfg) -> dict:
+    """``run()`` on the host (device_mode="off", ``cfg`` added) with the
+    library and with DAFT_TPU_DISABLE_NATIVE set, in turns (library, plain,
+    library, plain): every result equal to the first, the plain runs
+    calling the library never, the library's runs calling it. Prints each
+    way's first and warm (second) ms and a warm library run's calls;
+    returns {"library_ms", "plain_ms"} (warm)."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import native
+
+    first, times, calls = None, {"library": [], "plain": []}, {}
+    for way in NATIVE_RUNS:
+        with native_switch(way == "plain"), dt_ctx(), \
+                dt.execution_config_ctx(device_mode="off", **cfg):
+            before = native.calls()
+            t0 = time.perf_counter()
+            got = run()
+            times[way].append((time.perf_counter() - t0) * 1e3)
+            after = native.calls()
+        if way == "plain":
+            check(after == before, f"native {label}: a plain run called the library")
+        else:
+            calls = {k: v - before.get(k, 0) for k, v in after.items() if v > before.get(k, 0)}
+            check(calls, f"native {label}: the library was never called")
+        if first is None:
+            first = got
+        else:
+            check(got == first, f"native {label}: the {way} run differs from the first")
+    lib, plain = times["library"][1], times["plain"][1]
+    print(f"native {label}: warm library {lib:.1f} ms, plain {plain:.1f} ms "
+          f"({plain / lib:.2f}x); first {times['library'][0]:.1f} / {times['plain'][0]:.1f} ms; "
+          f"calls {json.dumps(calls, sort_keys=True)} [{card}]", flush=True)
+    return {"library_ms": lib, "plain_ms": plain}
+
+
+def native_layer(label: str, fn, card: str) -> None:
+    """One host function at SF1 shapes with the library and plain, in
+    turns, the results equal: each way's median of NATIVE_LAYER_RUNS."""
+    times, out = {"library": [], "plain": []}, {}
+    for _ in range(NATIVE_LAYER_RUNS):
+        for way in ("library", "plain"):
+            with native_switch(way == "plain"):
+                t0 = time.perf_counter()
+                got = fn()
+                times[way].append((time.perf_counter() - t0) * 1e3)
+            out.setdefault(way, got)
+    check(_same_arrays(out["library"], out["plain"]),
+          f"native layer {label}: the library's result differs from the plain version's")
+    lib, plain = (statistics.median(times[w]) for w in ("library", "plain"))
+    print(f"native layer {label}: library {lib:.2f} ms, plain {plain:.2f} ms "
+          f"({plain / lib:.2f}x) [{card}]", flush=True)
+
+
+def _same_arrays(a, b) -> bool:
+    import numpy as np
+
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same_arrays(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+    return a == b
+
+
+def native_layers(lineitem, orders, card: str) -> None:
+    """The host kernels at SF1 shapes, library against plain: make_groups
+    over l_suppkey and over (l_returnflag, l_linestatus), grouped_reduce
+    sum / min / max / var of l_extendedprice by supplier, join_indices of
+    lineitem and orders, ProbeTable's build and probe over orders' keys
+    (dense, and spread by a prime: the hashed map), and the selection
+    vector of a 6 M-row mask: packed bitmaps through ``bool_mask_indices``
+    against ``np.flatnonzero``."""
+    import numpy as np
+
+    from daft_tpu_torch import native
+    from daft_tpu_torch.core.kernels.groupby import grouped_reduce, make_groups
+    from daft_tpu_torch.core.kernels.join import ProbeTable, join_indices
+    from daft_tpu_torch.core.series import Series
+
+    supp = Series.from_numpy(lineitem["l_suppkey"], "l_suppkey")
+    flag = Series.from_numpy(np.array(RETURNFLAGS, dtype=object)[lineitem["l_returnflag"]],
+                             "l_returnflag")
+    status = Series.from_numpy(np.array(LINESTATUS, dtype=object)[lineitem["l_linestatus"]],
+                               "l_linestatus")
+    native_layer("make_groups l_suppkey", lambda: make_groups([supp]), card)
+    native_layer("make_groups l_returnflag, l_linestatus", lambda: make_groups([flag, status]),
+                 card)
+    _first, gids, _counts = make_groups([supp])
+    g = len(_first)
+    price = lineitem["l_extendedprice"]
+    ok = np.ones(len(price), dtype=bool)
+    for op in ("sum", "min", "max", "var"):
+        native_layer(f"grouped_reduce {op} l_extendedprice by l_suppkey",
+                     lambda op=op: grouped_reduce(op, price, ok, gids, g), card)
+    lkey = Series.from_numpy(lineitem["l_orderkey"], "l_orderkey")
+    okey = Series.from_numpy(orders["o_orderkey"], "o_orderkey")
+    native_layer("join_indices lineitem x orders", lambda: join_indices([lkey], [okey]), card)
+    for spread, name in ((1, "dense"), (1_000_003, "hashed")):
+        lk = Series.from_numpy(lineitem["l_orderkey"] * spread, "l_orderkey")
+        ok_ = Series.from_numpy(orders["o_orderkey"] * spread, "o_orderkey")
+        native_layer(f"ProbeTable build orders ({name})",
+                     lambda ok_=ok_: ProbeTable([ok_], [ok_.dtype])._bucket_rows, card)
+        tables = {}
+        for plain in (False, True):
+            with native_switch(plain):
+                tables[plain] = ProbeTable([ok_], [lk.dtype])
+        native_layer(f"ProbeTable probe lineitem ({name})",
+                     lambda tables=tables, lk=lk: tables[native.disabled()].probe([lk], "inner"),
+                     card)
+    rng = np.random.default_rng(SEED)
+    valid = rng.random(len(price)) < 0.99
+    for density in NATIVE_MASK_DENSITIES:
+        keep = rng.random(len(price)) < density
+        times = {"library": [], "numpy": []}
+        for _ in range(NATIVE_LAYER_RUNS):
+            t0 = time.perf_counter()
+            lib = native.native_mask_indices(native.pack_mask(keep), native.pack_mask(valid),
+                                             0, len(keep))
+            times["library"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            ref = np.flatnonzero(keep & valid)
+            times["numpy"].append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(lib, ref), "native mask: bool_mask_indices differs from "
+                                        "np.flatnonzero")
+        lib_ms, np_ms = (statistics.median(times[w]) for w in ("library", "numpy"))
+        print(f"native layer selection vector {len(keep)} rows, {density:.0%} kept: packed "
+              f"bitmaps + bool_mask_indices {lib_ms:.2f} ms, np.flatnonzero {np_ms:.2f} ms "
+              f"({np_ms / lib_ms:.2f}x) [{card}]", flush=True)
+
+
+def phase_native(lineitem, orders, dims, card: str, full: bool = False) -> None:
+    """The host kernel library against its plain versions (the switch
+    DAFT_TPU_DISABLE_NATIVE) in one process: host cells (device_mode="off")
+    both ways, equal: the in-memory supplier, q3, q12 and partkey cells.
+    With ``full`` (``--phase native``) first the layer timings at SF1
+    shapes, then also in-memory q1 (its string keys' factorize, about 10 s a
+    run, keeps it out of the full script), file-fed q3 and q5 in SQL, the
+    ooc phase's nine queries under B10, TPC-DS q65 and q51 and the
+    functions cell."""
+    import daft_tpu_torch as dt
+
+    phase("native")
+    print(f"host: os.cpu_count() {os.cpu_count()} [{card}]", flush=True)
+    t_phase = time.perf_counter()
+    if full:
+        native_layers(lineitem, orders, card)
+    cells = auto_runs(lineitem, orders)
+    tails = tails_frames(lineitem, orders, dims)
+    cells["q3"] = lambda: q3_query(tails).to_pydict()
+    for label in ("supplier", "q1", "q3", "q12", "partkey"):
+        if full or label != "q1":
+            native_cell(label, cells[label], card)
+    del cells, tails
+    if full:
+        root = tempfile.mkdtemp(prefix="daft_tpu_torch_native_")
+        try:
+            frames = scan_tables(lineitem, orders, dims)
+            dirs = scan_write(frames, root, card)
+
+            def pq(name):
+                return dt.read_parquet(dirs[name])
+
+            native_cell("file-fed q3", lambda: q3_query(
+                {"lineitem": pq("lineitem"), "orders": pq("orders"),
+                 "customer": pq("customer")}).to_pydict(), card)
+            sess = dt.current_session()
+            sess.create_temp_table("lineitem", pq("lineitem"))
+            sess.create_temp_table("orders", pq("orders"))
+            for name in SCAN_CSV:
+                sess.create_temp_table(name, dt.read_csv(dirs[f"{name}_csv"]))
+            try:
+                native_cell("file-fed q5 sql", lambda: dt.sql(TPCH_SQL[5]).to_pydict(), card)
+            finally:
+                for name in ("lineitem", "orders") + SCAN_CSV:
+                    sess.drop_temp_table(name)
+            queries = tpch_port_queries()
+            tables = ooc_tables(frames, dirs["lineitem"])
+            budget = budget_of(frames, 0.10)
+            spill = os.path.join(root, "spill")
+            os.makedirs(spill)
+            for q in OOC_QUERIES:
+                native_cell(f"ooc q{q} B10", lambda q=q: queries[q](tables).to_pydict(), card,
+                            memory_limit_bytes=budget, spill_dir=spill)
+            del frames, tables
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        tpcds = tpcds_frames(tpcds_tables())
+        queries = tpcds_port_queries()
+        for qn in NATIVE_TPCDS:
+            native_cell(f"tpcds q{qn}", lambda qn=qn: queries[qn](tpcds).to_pydict(), card)
+        del tpcds
+        df = functions_frame(lineitem)
+        native_cell("functions", lambda: functions_query(df).to_pydict(), card)
+    print(f"native phase {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
+
 def phase_alone(name: str, lineitem, orders, dims, card: str, kernel_results: dict) -> dict:
     """``--phase ooc``, ``window``, ``obs``, ``auto``, ``functions`` or
     ``tpcds`` after the kernels phase: the scan phase's tables in memory
@@ -6544,6 +6807,9 @@ def phase_alone(name: str, lineitem, orders, dims, card: str, kernel_results: di
     do)."""
     import daft_tpu_torch as dt
 
+    if name == "native":
+        phase_native(lineitem, orders, dims, card, full=True)
+        return {}
     frames = scan_tables(lineitem, orders, dims)
     if name == "window":
         return phase_window(lineitem, dims, frames, card)
@@ -6593,7 +6859,7 @@ def main(argv=None) -> int:
                              "kernels against their plain versions, with their times "
                              "(no main path runs, so no launches are counted)")
     parser.add_argument("--phase", choices=("ooc", "window", "obs", "auto", "functions",
-                                            "tpcds"),
+                                            "tpcds", "native"),
                         help="run the card, build, data and kernels phases, then this phase "
                              "alone: ooc (TPC-H under a host memory budget, the external "
                              "sort, the Grace joins), window (W1, W2), obs (EXPLAIN "
@@ -6602,8 +6868,11 @@ def main(argv=None) -> int:
                              "(device_mode=\"auto\": the calibration, the rates, and the "
                              "ooc queries, the supplier, q1, q12, partkey and ai embed "
                              "cells with every verdict), functions (the device ops and "
-                             "functions over SF1 lineitem in one grouped stage) or tpcds "
-                             "(the 25 TPC-DS queries at SF1, on against off)")
+                             "functions over SF1 lineitem in one grouped stage), tpcds "
+                             "(the 25 TPC-DS queries at SF1, on against off) or native (the "
+                             "host kernel library against its plain versions: the layers "
+                             "at SF1 shapes and the host cells, in memory, file-fed, under "
+                             "a budget, TPC-DS q65 and q51, functions)")
     parser.add_argument("--root", default=HERE,
                         help="the checkout whose daft_tpu_torch is driven (default: the "
                              "one beside this script), e.g. an unpacked parent commit to "
@@ -6620,6 +6889,8 @@ def main(argv=None) -> int:
         card, device_name = phase_card()
         print(f"package: {os.path.join(root, 'daft_tpu_torch')}", flush=True)
         phase_build(card)
+        if not args.kernels_only:
+            native_load(card)
         t0 = time.perf_counter()
         lineitem, orders, dims = tpch_sf1(SEED)
         print(f"datagen {time.perf_counter() - t0:.2f} s", flush=True)
@@ -6629,6 +6900,7 @@ def main(argv=None) -> int:
             paths.update(phase_alone(args.phase, lineitem, orders, dims, card,
                                      kernel_results))
         elif not args.kernels_only:
+            phase_native(lineitem, orders, dims, card)
             runs = {}  # the in-memory cells the auto phase runs again
             df, paths["supplier"] = phase_slice(lineitem, card)
             runs["supplier"] = lambda df=df: supplier_query(df).to_pydict()
@@ -6728,6 +7000,8 @@ def main(argv=None) -> int:
         # the rest: device_ms, the read-once bound, tiers, the other shapes
         entry.update({k: v for k, v in r.items() if k not in entry})
         kernels.append(entry)
+    if not args.kernels_only:
+        print(f"native {json.dumps(native_summary())}")
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke.py took {time.perf_counter() - start:.1f} s", flush=True)
     print(card)

@@ -5,7 +5,9 @@ port imports nothing of it, nor JAX, nor pyarrow. Host columns are numpy
 arrays with a validity mask; device work is torch on the configured device
 (``ExecutionConfig.device``, "cuda" by default), with the grouped
 aggregation's segment reductions in hand-written CUDA kernels
-(ops/csrc/segment_reduce.cu).
+(ops/csrc/segment_reduce.cu). Host grouping, aggregation and joins run on
+the host kernel library (native.py over csrc/kernels.cpp, built with the
+host compiler at first use).
 
     import daft_tpu_torch as dt
     df = dt.from_pydict({"k": [1, 2, 1], "v": [10, 20, 30]})

@@ -3,12 +3,14 @@ daft_tpu/core/kernels/groupby.py and the host grouped aggregation of
 daft_tpu/core/relational.py).
 
 ``make_groups`` factorizes multi-column keys (nulls form their own group)
-into group ids ordered by first occurrence, with numpy alone.
-``grouped_reduce`` aggregates one column by group ids with ufunc.at
-scatters: O(rows), no per-group Python loop, so it serves a 6M-row table
-(``count_distinct`` counts the distinct (group, equality code) pairs).
-``grouped_agg`` and ``ungrouped_agg`` aggregate a batch by key expressions,
-or to one row.
+into group ids ordered by first occurrence, through the host kernel
+library's hash factorize (native.py ``native_factorize``,
+``native_combine_factorize``). ``grouped_reduce`` aggregates one column by
+group ids in one pass: sums, means, min/max, var and stddev through the
+library's grouped kernels where the reference's library takes them, the
+rest with numpy scatters (``count_distinct`` counts the distinct (group,
+equality code) pairs). ``grouped_agg`` and ``ungrouped_agg`` aggregate a
+batch by key expressions, or to one row.
 """
 
 from __future__ import annotations
@@ -17,27 +19,37 @@ from typing import Tuple
 
 import numpy as np
 
+from ... import native
 from ...datatype import DataType
 
 
 def equality_codes(series) -> np.ndarray:
-    """Dense int64 equality codes for one column; null -> -1. Floats group
-    -0.0 with 0.0 and every NaN together (bit-canonicalized)."""
+    """Compact int64 equality codes for one column; null -> -1. Numeric,
+    bool and date values take their first-occurrence codes from the
+    library's factorize (the reference's pandas factorize), strings their
+    rank among the sorted distinct values. Floats group -0.0 with 0.0 and
+    every NaN together (bit-canonicalized)."""
     n = len(series)
     valid = series.validity_numpy()
     codes = np.full(n, -1, dtype=np.int64)
     if series.dtype.is_null() or not valid.any():
         return codes
     vals = series.to_numpy()
+    numeric = vals.dtype != object
     if vals.dtype.kind == "f":
         vals = np.where(np.isnan(vals), np.nan, vals + 0.0)
         vals = vals.view(np.int64 if vals.dtype.itemsize == 8 else np.int32)
-    elif vals.dtype == bool:
-        vals = vals.astype(np.int8)
-    if valid.all():
-        codes = np.unique(vals, return_inverse=True)[1].astype(np.int64).reshape(n)
+    if numeric:
+        vals = vals.astype(np.int64, copy=False)
+    all_valid = valid.all()
+    kept = vals if all_valid else vals[valid]
+    if numeric:
+        kept_codes = native.native_factorize(kept)[0]
     else:
-        codes[valid] = np.unique(vals[valid], return_inverse=True)[1].reshape(-1)
+        kept_codes = np.unique(kept, return_inverse=True)[1].astype(np.int64).reshape(-1)
+    if all_valid:
+        return kept_codes
+    codes[valid] = kept_codes
     return codes
 
 
@@ -48,28 +60,46 @@ def make_groups(key_series: list) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
       - first_occurrence_indices[g] = row of the first row of group g
       - group_ids[i] = group of row i (0..G-1, ordered by first occurrence)
       - group_counts[g] = rows in group g
+
+    One numeric column's codes are already first-occurrence ordered: the
+    null group takes its place among them. A string column's codes are
+    factorized once more with the null code -1 as a value (as the
+    reference factorizes every column's). Each further column pairs in
+    through ``combine_factorize`` (b_domain its largest code + 1, so a pair
+    stays below n^2), whose codes are first-occurrence ordered.
     """
     n = len(key_series[0]) if key_series else 0
     if n == 0:
         return (np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, np.int64))
-    combined = None
-    for s in key_series:
-        c = equality_codes(s) + 1  # null -> 0
-        if combined is None:
-            combined = c
-        else:
-            combined = combined * (int(c.max()) + 1) + c
-            combined = np.unique(combined, return_inverse=True)[1].reshape(n)
-    k = int(combined.max()) + 1
-    first = np.full(k, n, dtype=np.int64)
-    np.minimum.at(first, combined, np.arange(n, dtype=np.int64))
-    present = np.flatnonzero(first < n)
-    order = present[np.argsort(first[present], kind="stable")]
-    rank = np.full(k, -1, dtype=np.int64)
-    rank[order] = np.arange(len(order), dtype=np.int64)
-    group_ids = rank[combined]
-    counts = np.bincount(group_ids, minlength=len(order)).astype(np.int64)
-    return first[order], group_ids, counts
+    codes = equality_codes(key_series[0])
+    if len(key_series) == 1 and key_series[0].to_numpy().dtype != object:
+        group_ids, g = _null_group(codes)
+    elif len(key_series) == 1:
+        group_ids, g = native.native_factorize(codes)
+    for s in key_series[1:]:
+        c = equality_codes(s)
+        group_ids, g = native.native_combine_factorize(codes, c, int(c.max()) + 1)
+        codes = group_ids
+    # ids are first-occurrence ordered: a group starts where the running
+    # max of the ids grows
+    new = np.empty(n, dtype=bool)
+    new[0] = True
+    new[1:] = group_ids[1:] > np.maximum.accumulate(group_ids)[:-1]
+    first = np.flatnonzero(new).astype(np.int64)
+    counts = np.bincount(group_ids, minlength=g).astype(np.int64)
+    return first, group_ids, counts
+
+
+def _null_group(codes: np.ndarray) -> Tuple[np.ndarray, int]:
+    """(group ids, groups) of first-occurrence codes whose nulls (-1) form
+    one more group: rows before the first null hold codes 0..k-1 alone, so
+    the null group is k and every later code moves up one."""
+    g = int(codes.max(initial=-1)) + 1
+    nulls = np.flatnonzero(codes < 0)
+    if not len(nulls):
+        return codes, g
+    k = int(codes[:nulls[0]].max(initial=-1)) + 1
+    return np.where(codes < 0, k, codes + (codes >= k)), g + 1
 
 
 def grouped_reduce(op: str, values: np.ndarray, valid: np.ndarray,
@@ -78,10 +108,11 @@ def grouped_reduce(op: str, values: np.ndarray, valid: np.ndarray,
     """Aggregate one column by group: returns (values, valid) arrays of length
     ``num_groups``; a group with no valid value is null (count is never null).
 
-    Integer sums/min/max run in int64 (sum wraps mod 2^64 like the reference's
-    int64 kernels), unsigned in uint64, floats and means in float64. Sums add
-    in row order. Float min/max take the reference's host terms
-    (``_float_extreme``). any_value is the group's first row (its first
+    Integer and bool sums/min/max run in int64 (sum wraps mod 2^64 like the
+    reference's int64 kernels), uint64 sums/min/max in uint64, float sums,
+    min/max and every mean in float64. Sums add in row order. Float min/max
+    take the reference's host terms (native.py ``native_grouped_minmax``:
+    NaN never wins, of 0.0 and -0.0 the first stays). any_value is the group's first row (its first
     valid row with ``ignore_nulls``); bool_and / bool_or reduce the valid
     rows; var, stddev and skew are the reference's grouped kernel
     (relational.py:441-470): f64 sums of powers in row order, the variance
@@ -108,6 +139,11 @@ def grouped_reduce(op: str, values: np.ndarray, valid: np.ndarray,
         if mode == "null":
             cnt = np.bincount(group_ids, minlength=g) - cnt
         return cnt.astype(np.uint64), np.ones(g, dtype=bool)
+    if values.dtype == object and not valid.any():
+        values = np.zeros(len(values))  # a null column: no value is read
+    if op in ("sum", "mean", "min", "max", "stddev", "var", "skew") \
+            and _on_library(op, values):
+        return _library_reduce(op, values, valid, group_ids, g, params.get("ddof", 0))
     gids = group_ids[valid]
     vals = values[valid]
     cnt = np.bincount(gids, minlength=g)
@@ -119,19 +155,10 @@ def grouped_reduce(op: str, values: np.ndarray, valid: np.ndarray,
         pairs = np.unique(gids.astype(np.int64) * width + vals)
         return (np.bincount(pairs // width, minlength=g).astype(np.uint64),
                 np.ones(g, dtype=bool))
-    if op in ("sum", "mean"):
-        if vals.dtype.kind == "f" or op == "mean" and vals.dtype.kind not in "iub":
-            acc = np.zeros(g, dtype=np.float64)
-            np.add.at(acc, gids, vals.astype(np.float64))
-        elif vals.dtype.kind == "u" or vals.dtype == bool:
-            acc = np.zeros(g, dtype=np.uint64)
-            np.add.at(acc, gids, vals.astype(np.uint64))
-        else:
-            acc = np.zeros(g, dtype=np.int64)
-            np.add.at(acc, gids, vals.astype(np.int64))
-        if op == "mean":
-            with np.errstate(invalid="ignore", divide="ignore"):
-                acc = acc.astype(np.float64) / cnt
+    if op == "sum":
+        # uint64: exact in uint64 (the int64 kernel would wrap at 2^63)
+        acc = np.zeros(g, dtype=np.uint64)
+        np.add.at(acc, gids, vals.astype(np.uint64))
         return acc, has
     if op in ("bool_and", "bool_or"):
         b = vals.astype(bool)
@@ -142,31 +169,51 @@ def grouped_reduce(op: str, values: np.ndarray, valid: np.ndarray,
             acc = np.zeros(g, dtype=bool)
             np.logical_or.at(acc, gids, b)
         return acc, has
-    if op in ("stddev", "var", "skew"):
-        return _moments(op, vals.astype(np.float64), gids, g, cnt, params.get("ddof", 0))
     if op in ("min", "max"):
-        uf = np.minimum if op == "min" else np.maximum
-        if vals.dtype.kind == "f":
-            return _float_extreme(op, vals.astype(np.float64), gids, g), has
-        if vals.dtype == bool:
-            work = vals.astype(np.int8)
-            acc = np.full(g, 1 if op == "min" else 0, dtype=np.int8)
-        else:
-            work = vals.astype(np.uint64 if vals.dtype.kind == "u" else np.int64)
-            info = np.iinfo(work.dtype)
-            acc = np.full(g, info.max if op == "min" else info.min, dtype=work.dtype)
-        uf.at(acc, gids, work)
+        # uint64, as the sum
+        info = np.iinfo(np.uint64)
+        acc = np.full(g, info.max if op == "min" else info.min, dtype=np.uint64)
+        (np.minimum if op == "min" else np.maximum).at(acc, gids, vals.astype(np.uint64))
         return acc, has
-    raise ValueError(f"no host grouped aggregation for {op!r}")
+    raise ValueError(f"no host grouped aggregation for {op!r} over {values.dtype}")
 
 
-def _moments(op: str, z: np.ndarray, gids: np.ndarray, g: int, cnt: np.ndarray, ddof: int):
+def _on_library(op: str, values: np.ndarray) -> bool:
+    """Whether the library's grouped kernels take ``op`` over ``values``
+    (the reference's routing, relational.py:170-205): numbers and bools,
+    but no uint64 sum, min or max (the int64 kernels would wrap at 2^63)."""
+    if values.dtype.kind not in "iubf":
+        return False
+    return not (values.dtype == np.uint64 and op in ("sum", "min", "max"))
+
+
+def _library_reduce(op: str, values: np.ndarray, valid: np.ndarray, group_ids: np.ndarray,
+                    g: int, ddof: int):
+    """One aggregation through the library, as the reference computes it
+    with its library loaded: integer and bool sums and extremes in int64,
+    everything else in f64; var, stddev and skew from f64 sums of powers."""
+    whole = values.dtype.kind in "iub" and op in ("sum", "min", "max")
+    work = values.astype(np.int64 if whole else np.float64, copy=False)
+    if op in ("min", "max"):
+        mn, mx = native.native_grouped_minmax(group_ids, work, valid, g)
+        return (mn if op == "min" else mx), np.bincount(group_ids[valid], minlength=g) > 0
+    s1, cnt = native.native_grouped_sum(group_ids, work, valid, g)
+    if op == "sum":
+        return s1, cnt > 0
+    if op == "mean":
+        with np.errstate(invalid="ignore", divide="ignore"):
+            return s1 / cnt, cnt > 0
+    with np.errstate(over="ignore", invalid="ignore"):
+        sq = work * work
+        s2 = native.native_grouped_sum(group_ids, sq, valid, g)[0]
+        s3 = native.native_grouped_sum(group_ids, sq * work, valid, g)[0] \
+            if op == "skew" else None
+    return _moments(op, s1, s2, s3, cnt, ddof)
+
+
+def _moments(op: str, s1: np.ndarray, s2: np.ndarray, s3, cnt: np.ndarray, ddof: int):
     """var / stddev / skew per group from f64 sums of powers (the
     reference's grouped kernel, relational.py:441-470)."""
-    s1 = np.zeros(g)
-    s2 = np.zeros(g)
-    np.add.at(s1, gids, z)
-    np.add.at(s2, gids, z * z)
     vc = cnt.astype(np.float64)
     with np.errstate(invalid="ignore", divide="ignore"):
         m = s1 / vc
@@ -179,8 +226,6 @@ def _moments(op: str, z: np.ndarray, gids: np.ndarray, g: int, cnt: np.ndarray, 
         elif op == "stddev":
             data = np.sqrt(var)
         else:
-            s3 = np.zeros(g)
-            np.add.at(s3, gids, z * z * z)
             m3 = s3 / vc - 3 * m * s2 / vc + 2 * m ** 3
             sd = np.sqrt(var)
             data = np.where(sd > 0, m3 / sd ** 3, np.nan)
@@ -208,27 +253,9 @@ def ungrouped_moment(op: str, x: np.ndarray, ddof: int):
     return (np.sqrt(var) if op == "stddev" else var), True
 
 
-def _float_extreme(op: str, vals: np.ndarray, gids: np.ndarray, g: int) -> np.ndarray:
-    """Per-group f64 min/max as the reference's host kernel computes it, a
-    strict compare per row in row order (native/src/kernels.cpp
-    grouped_minmax_f64): NaN never wins, so a group of NaN alone keeps the
-    identity (+inf for min, -inf for max), and of equal values (0.0 and
-    -0.0) the group's first row stays."""
-    ok = ~np.isnan(vals)
-    acc = np.full(g, np.inf if op == "min" else -np.inf)
-    (np.minimum if op == "min" else np.maximum).at(acc, gids[ok], vals[ok])
-    # the value itself from the group's first row that equals it
-    hit = np.flatnonzero(ok & (vals == acc[gids]))
-    first = np.full(g, len(vals), dtype=np.int64)
-    np.minimum.at(first, gids[hit], hit)
-    found = first < len(vals)
-    acc[found] = vals[first[found]]
-    return acc
-
-
 def extreme_replaces(op: str, new, cur):
     """Whether a later partial extreme ``new`` replaces ``cur`` when partials
-    of one group merge in row order, on ``_float_extreme``'s terms: only if
+    of one group merge in row order, on ``native_grouped_minmax``'s terms: only if
     strictly smaller (min) or larger (max), so NaN never wins and of equal
     values (0.0 and -0.0) the earlier stays. Scalars or arrays (elementwise)."""
     return new < cur if op == "min" else new > cur

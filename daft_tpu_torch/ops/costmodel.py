@@ -146,16 +146,17 @@ class CostBreakdown:
 
 # Default rates: each measured on one H100 80GB HBM3 at 700.00 W and its
 # host (8 cores), the mean of two runs of `python -m
-# daft_tpu_torch.tools.calibrate --measure` (PERF.md, "Calibration").
+# daft_tpu_torch.tools.calibrate --measure` (PERF.md, "Calibration"); the
+# three host rates measured again over the host kernel library (native.py).
 # Name -> (its DAFT_TPU_COST_* override, the measured value).
 RATES = {
     # FilterAggStage's reduce on the card: rows x partials per second
     "mm_plane_rows_per_s": ("DAFT_TPU_COST_MM_RATE", 3.355e10),
-    # the host path (numpy, the port's executor): value-ops, factorized
-    # key rows and hash-join probe rows per second
-    "host_agg_rate": ("DAFT_TPU_COST_HOST_AGG", 2.202e8),
-    "host_factorize_rate": ("DAFT_TPU_COST_HOST_FACT", 6.171e6),
-    "host_probe_rate": ("DAFT_TPU_COST_HOST_PROBE", 1.363e7),
+    # the host path (the port's executor on the host kernel library):
+    # value-ops, factorized key rows and hash-join probe rows per second
+    "host_agg_rate": ("DAFT_TPU_COST_HOST_AGG", 2.458e8),
+    "host_factorize_rate": ("DAFT_TPU_COST_HOST_FACT", 1.258e7),
+    "host_probe_rate": ("DAFT_TPU_COST_HOST_PROBE", 3.834e7),
     # the seeded MiniLM-L6 encoder's forward, card and host (FLOP/s)
     "udf_device_flops_per_s": ("DAFT_TPU_COST_UDF_FLOPS", 2.629e13),
     "udf_host_flops_per_s": ("DAFT_TPU_COST_UDF_HOST_FLOPS", 3.478e11),

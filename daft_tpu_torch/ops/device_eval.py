@@ -343,7 +343,7 @@ def device_agg(op: str, v: torch.Tensor, m: torch.Tensor) -> Tuple[torch.Tensor,
 
 def _float_extreme_all(op: str, v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """The f64 min/max of the valid values on the host path's terms
-    (core/kernels/groupby.py ``_float_extreme``, and ``_agg_columns`` for
+    (native.py ``native_grouped_minmax``, and ``_agg_columns`` for
     the ungrouped all-NaN case): NaN left out of the reduction, then the
     sign of the first zero row put on a zero result."""
     ok = m & ~torch.isnan(v)

@@ -71,6 +71,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..core.kernels.encoding import _common_key_dtype, canonical_key_values
 from ..datatype import DataType, Field
 from ..device.residency import exprs_structure, expr_structure, manager
@@ -385,10 +386,9 @@ def unique_key_index(dim_key_series, probe_vals: np.ndarray, probe_valid: np.nda
             safe = np.clip(pv - lo, 0, domain - 1)
         idx = np.where((pv >= lo) & (pv <= hi), table[safe], -1)
     elif len(vv):
-        order = np.argsort(vv, kind="stable")
-        su = vv[order]
-        pos = np.minimum(np.searchsorted(su, pv), len(su) - 1)
-        idx = np.where(su[pos] == pv, rows[order][pos], -1)
+        # sparse keys: the host kernel library's int64 map, key -> position
+        pos = native.native_i64_map_lookup(*native.native_i64_map_build(vv), pv)
+        idx = np.where(pos >= 0, rows[np.maximum(pos, 0)], -1)
     else:
         idx = np.full(len(pv), -1, dtype=np.int64)
     return np.where(probe_valid, idx, -1).astype(np.int32)

@@ -155,7 +155,7 @@ def _f64_order_key(bits: torch.Tensor) -> torch.Tensor:
 def _float_extreme(v: torch.Tensor, mask: torch.Tensor, seg: torch.Tensor, cap: int,
                    op: str) -> torch.Tensor:
     """Exact f64 min/max of a float plane per segment through K3, on the
-    host path's terms (core/kernels/groupby.py ``_float_extreme``): NaN rows
+    host path's terms (native.py ``native_grouped_minmax``): NaN rows
     are left out of K3's mask, -0.0 folds into +0.0 for the key, and a
     second K3 launch finds each segment's first zero row, whose sign a zero
     result takes."""

@@ -1276,3 +1276,53 @@ def test_tpcds_phase_fails_when_on_differs_from_off(monkeypatch):
     monkeypatch.setattr(cs, "tpcds_port_queries", one_query)
     with pytest.raises(cs.SmokeFailure, match="q96: the \"on\" run differs"):
         cs.phase_tpcds(cs.tpcds_tables(0.01, 0), "cpu")
+
+
+def test_native_phase_on_the_cpu(monkeypatch, capsys):
+    """chip_smoke.py's native phase on the CPU at a small size (TPC-DS at SF
+    0.01), with every cell of ``--phase native``: the layers timed both
+    ways with equal results, each host cell equal with the library and
+    with the switch set, its warm times and the library's calls printed;
+    the ``native`` line names the port's build and counts all 25 exports."""
+    from daft_tpu_torch import native
+
+    cs = _cpu_cells(monkeypatch)
+    real = cs.tpcds_tables
+    monkeypatch.setattr(cs, "tpcds_tables", lambda: real(0.01, 0))
+    lineitem, orders, dims = _small_tpch(cs)
+    cs.native_load("cpu")
+    cs.phase_native(lineitem, orders, dims, "cpu", full=True)
+    out = capsys.readouterr().out
+    assert "native library " in out and os.environ.get(native.DISABLE_ENV) is None
+    for label in ("make_groups l_suppkey", "grouped_reduce var l_extendedprice by l_suppkey",
+                  "join_indices lineitem x orders", "ProbeTable probe lineitem (hashed)",
+                  "selection vector"):
+        assert f"native layer {label}" in out, label
+    cells = ["supplier", "q1", "q3", "q12", "partkey", "file-fed q3", "file-fed q5 sql",
+             "tpcds q65", "tpcds q51", "functions"] + [f"ooc q{q} B10" for q in cs.OOC_QUERIES]
+    for label in cells:
+        assert f"native {label}: warm library " in out, label
+    summary = cs.native_summary()
+    assert summary["path"].endswith(".so") and len(summary["calls"]) == 25
+    assert summary["calls"]["factorize_i64"] > 0 and summary["calls"]["probe_fill"] > 0
+
+
+def test_native_cell_refuses_a_plain_version_that_differs(monkeypatch):
+    """A plain version that gives another answer fails the cell."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import native
+
+    cs = _cpu_cells(monkeypatch)
+    real = native.plain_grouped_sum
+
+    def off_by_one(*args):
+        sums, cnt = real(*args)
+        return sums + 1, cnt
+
+    monkeypatch.setattr(native, "plain_grouped_sum", off_by_one)
+    df = dt.from_pydict({"k": np.arange(100) % 7, "v": np.arange(100.0)})
+    with pytest.raises(cs.SmokeFailure, match="native sums: the plain run differs"):
+        cs.native_cell("sums", lambda: df.groupby("k").agg(dt.col("v").sum()).sort("k")
+                       .to_pydict(), "cpu")

@@ -16,7 +16,10 @@ host on the float columns rounded to f32, each float result rounded to
 f32, floats within ``F32_ULPS`` units in the last place. The inputs hold nulls, NaN, +-inf, -0.0,
 zero divisors and int64 values on both sides of 2^53. Grouped queries of
 the functions run through the device stage, in f64 and in f32, and equal
-the host path.
+the host path. A whole f32 stage end to end (tests/f32_stage_case.py: f64
+columns uploaded as f32, a fused Project / Filter chain of device
+functions, grouped and ungrouped) equals the host path: keys, counts and
+integer min/max bit for bit, float sums and means within rtol 1e-5.
 """
 
 import numpy as np
@@ -24,6 +27,7 @@ import pytest
 import torch
 
 import daft_tpu_torch
+import f32_stage_case
 from daft_tpu_torch.ops import counters
 from daft_tpu_torch.ops import device_eval as de
 
@@ -194,3 +198,19 @@ def test_functions_query_through_the_card_stage_equals_the_host(cuda, extreme):
         want = q().to_pydict()
     for c in want:
         _same(got[c], want[c], c)
+
+
+@pytest.mark.parametrize("grouped", [True, False], ids=["grouped", "ungrouped"])
+def test_f32_stage_end_to_end_on_the_card_equals_the_host(cuda, grouped):
+    """tests/test_torch_device_ops.py's f32 stage at 2^18 rows on the card:
+    one dispatch, no fallback, equal to the host path over the f64 columns."""
+    df = daft_tpu_torch.from_pydict(f32_stage_case.data(1 << 18))
+    q = f32_stage_case.query(daft_tpu_torch, df, grouped)
+    counters.reset()
+    with daft_tpu_torch.execution_config_ctx(device="cuda", device_mode="on"):
+        got = q.to_pydict()
+    assert counters.device_fallbacks == 0 and counters.device_region_dispatches == 1
+    assert (counters.device_grouped_batches if grouped else counters.device_stage_batches) == 1
+    with daft_tpu_torch.execution_config_ctx(device="cpu", device_mode="off"):
+        want = q.to_pydict()
+    f32_stage_case.check(got, want)

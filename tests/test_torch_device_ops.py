@@ -21,6 +21,13 @@ place (NaN and infinities, f32 overflow included, in the same places). Grouped q
 through the stage on the CPU, in f32 and, where a float is rounded to
 decimals, in f64, and equal the host path within rtol 1e-5.
 
+A whole f32 stage, end to end: f64 columns uploaded as f32, a fused
+Project / Filter chain of the device functions (fill_nan, log10, sqrt,
+round, clip, abs, floor, ``%``, ``//``) under a grouped and an ungrouped
+aggregate, one dispatch each, equal to the host path over the f64 columns:
+keys, counts and integer min/max bit for bit, float sums and means within
+rtol 1e-5 (F3's device-vs-host tolerance).
+
 ``is_device_evaluable`` agrees with the reference's on a list of
 expressions over one schema, uint64 aside (no torch device type).
 """
@@ -31,6 +38,7 @@ import torch
 
 import daft_tpu
 import daft_tpu_torch
+import f32_stage_case
 from daft_tpu.config import execution_config_ctx as ref_ctx
 from daft_tpu.ops import device_eval as ref_de
 from daft_tpu_torch.ops import device_eval as port_de
@@ -286,6 +294,36 @@ def test_functions_query_through_the_stage_equals_the_host(decimals):
         want = q().to_pydict()
     for c in want:
         _same(got[c], want[c], c)
+
+
+@pytest.mark.parametrize("grouped", [True, False], ids=["grouped", "ungrouped"])
+def test_f32_stage_end_to_end_equals_the_host(grouped):
+    from daft_tpu_torch.ops import counters
+    from daft_tpu_torch.ops.grouped_stage import try_build_grouped_agg_stage
+    from daft_tpu_torch.ops.stage import try_build_filter_agg_stage
+    from daft_tpu_torch.plan import physical as pp
+
+    df = daft_tpu_torch.from_pydict(f32_stage_case.data(1 << 12))
+    q = f32_stage_case.query(daft_tpu_torch, df, grouped)
+    node_type = pp.DeviceGroupedAgg if grouped else pp.DeviceFilterAgg
+    with daft_tpu_torch.execution_config_ctx(device="cpu", device_mode="on"):
+        plan = pp.translate(q.optimized_plan())
+        node = next(nd for nd in plan.walk() if isinstance(nd, node_type))
+        # the optimizer pushes the Filter down; the chain is one region all the same
+        assert node.region_ops[-1] == "agg" and "filter" in node.region_ops
+        assert node.region_ops.count("project") >= 3
+        stage = (try_build_grouped_agg_stage(node.input.schema, node.predicate, node.groupby,
+                                             node.aggregations) if grouped else
+                 try_build_filter_agg_stage(node.input.schema, node.predicate,
+                                            node.aggregations))
+        assert not stage._use_f64
+        counters.reset()
+        got = q.to_pydict()
+    assert counters.device_fallbacks == 0 and counters.device_region_dispatches == 1
+    assert (counters.device_grouped_batches if grouped else counters.device_stage_batches) == 1
+    with daft_tpu_torch.execution_config_ctx(device="cpu", device_mode="off"):
+        want = q.to_pydict()
+    f32_stage_case.check(got, want)
 
 
 def test_function_options_key_the_stage_cache():

@@ -27,7 +27,11 @@
   them either;
 - a query of the expression surface (registry functions, ``abs``, ``%``,
   ``is_in``, the new aggregates, ``concat``, and SQL's ABS, % and UNION
-  ALL) imports none of them either.
+  ALL) imports none of them either;
+- host queries on the host kernel library (a grouped aggregate over a
+  filter, a join) load the port's own build of csrc/kernels.cpp from
+  daft_tpu_torch/ops/_kbuild/, never the reference's library, and import
+  none of them either.
 """
 
 import datetime
@@ -698,6 +702,48 @@ def test_expression_surface_query_imports_no_jax_pyarrow_or_reference():
     SQL, ABS, % and UNION ALL), on the device stage and on the host, in a
     fresh interpreter: equal, and no JAX, pyarrow or daft_tpu imported."""
     proc = subprocess.run([sys.executable, "-c", _SURFACE_QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+_NATIVE_QUERY = """
+import sys
+import numpy as np
+sys.path.insert(0, {repo!r})
+import daft_tpu_torch as dt
+from daft_tpu_torch import col, native
+from daft_tpu_torch.ops import _build
+rng = np.random.default_rng(5)
+fact = dt.from_pydict({{"k": rng.integers(0, 50, 5000), "v": rng.standard_normal(5000)}})
+dim = dt.from_pydict({{"k": np.arange(50) * 1_000_003, "w": np.arange(50)}})
+with dt.execution_config_ctx(device="cpu", device_mode="off"):
+    g = fact.where(col("v") > 0).groupby("k").agg(col("v").sum().alias("s")).sort("k")
+    j = fact.with_column("k", col("k") * 1_000_003).join(dim, on="k").groupby("w").agg(
+        col("v").max().alias("m")).sort("w")
+    assert len(g.to_pydict()["k"]) == 50 and len(j.to_pydict()["w"]) == 50
+used = native.calls()
+for name in ("factorize_i64", "grouped_sum_f64", "grouped_minmax_f64", "i64_pairmap_build",
+             "probe_unique_pair"):
+    assert used.get(name), (name, used)
+maps = [line.split()[-1] for line in open("/proc/self/maps") if line.rstrip().endswith(".so")]
+mine = [m for m in maps if "libkernels_host_" in m]
+assert mine and all(m.startswith(_build.BUILD_DIR + "/") for m in mine), mine
+assert _build.BUILD_DIR.endswith("daft_tpu_torch/ops/_kbuild"), _build.BUILD_DIR
+assert not [m for m in maps if "libdaft_native" in m], maps
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             or m == "daft_tpu")
+print("FORBIDDEN", bad)
+"""
+
+
+def test_host_kernel_library_is_the_ports_own_build():
+    """Host queries through the host kernel library, in a fresh interpreter:
+    the library mapped is the port's build under daft_tpu_torch/ops/_kbuild/
+    (never the reference's ``libdaft_native.so``), its exports are called,
+    and no JAX, pyarrow or daft_tpu is imported."""
+    proc = subprocess.run([sys.executable, "-c", _NATIVE_QUERY.format(repo=REPO)],
                           capture_output=True, text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "FORBIDDEN []" in proc.stdout, proc.stdout

@@ -390,6 +390,35 @@ def parquet_dir(tmp_path_factory, fact):
     return root
 
 
+def _hold_first_release_until_the_scan_sees_pressure(monkeypatch):
+    """Pin the scan's stall under the pipeline: the sort's first release of
+    ledger bytes (after its first spill) waits, at most 10 s, until the
+    scan thread has asked ``under_pressure`` and been told yes. Each batch
+    here is over the budget, so the sort holds bytes only while it spills
+    one; the scan asks after each morsel it hands on, and on a loaded host
+    it could ask only between spills and never stall."""
+    import threading
+
+    from daft_tpu_torch.memory.manager import HostMemoryManager
+
+    seen = threading.Event()
+    real_pressure = HostMemoryManager.under_pressure
+    real_release = HostMemoryManager.release
+
+    def under_pressure(self):
+        yes = real_pressure(self)
+        if yes:
+            seen.set()
+        return yes
+
+    def release(self, nbytes):
+        seen.wait(10.0)
+        return real_release(self, nbytes)
+
+    monkeypatch.setattr(HostMemoryManager, "under_pressure", under_pressure)
+    monkeypatch.setattr(HostMemoryManager, "release", release)
+
+
 @pytest.mark.parametrize("pipeline_mode", ["off", "force"])
 def test_scan_backpressure_and_decode_ahead(parquet_dir, monkeypatch, pipeline_mode):
     """A budgeted scan under a spilling sort waits (boundedly) for headroom,
@@ -413,6 +442,8 @@ def test_scan_backpressure_and_decode_ahead(parquet_dir, monkeypatch, pipeline_m
            "scan_split_bytes": 100_000}
     want, snap0 = _port(q, 0, **cfg)
     assert not calls and snap0["scan_bytes"] == 0 and snap0["scan_backpressure_stalls"] == 0
+    if pipeline_mode == "force":
+        _hold_first_release_until_the_scan_sees_pressure(monkeypatch)
     got, snap = _port(q, 120_000, memory_pressure=0.5, **cfg)
     assert got == want
     assert calls and set(calls) == {2}  # every reader decoded ahead, depth 2
