@@ -277,6 +277,32 @@ error (no phase catches its own failure):
             functions (log10, sqrt, //, abs, round, **, clip, exp) by flag
             and status as one f64 DeviceGroupedAgg through run_cell, equal
             to the "off" run and a numpy oracle, with a profile;
+20c. temporal: SF1 lineitem with two timestamp("us") columns (l_shipts,
+            l_receiptts: the day's date plus a seeded microsecond of the
+            day). T1, a filter by TIMESTAMP literals and a transit over
+            INTERVAL '20' DAY, then count, sum, min / max of the
+            timestamp and of the transit by flag and status, as a
+            DataFrame and in SQL: one fused region under a
+            DeviceGroupedAgg, K1, K7 and at least four K3 launches, equal
+            to "off" and a numpy oracle, cold and warm (median of 3). T2,
+            the host functions at SF1 (hour, the zone conversion to
+            America/New_York, truncate to the day, total_hours), each
+            timed, feeding grouped device stages held to "off" and to
+            numpy (the zone's offsets from Python's zoneinfo, per hour).
+            T1 file-fed: the table sorted by l_shipts written with the
+            port's Parquet writer and read back, the timestamp statistics
+            pruning row groups, no upload warm. Windowed stddev / var by
+            supplier over three preceding rows in l_shipts order: var
+            within the f64 prefix sums' rounding bound of numpy's, stddev
+            its sqrt bit for bit (both are held bit for bit against the
+            JAX package by tests/test_torch_temporal.py). The surface:
+            sample -> groupby (a device stage; its kept count within 6 sd
+            of the binomial law, the rows it keeps held to the JAX
+            package's by tests/test_torch_temporal.py), into_batches -> q6, unpivot and pivot of the flags,
+            count_rows and add_monotonically_increasing_id, each held to
+            "off". K1, K3 and K7 held at T1's captured inputs against
+            their plain versions ("at_t1_..." rows). Prints where the zone
+            database was found;
 20b. tpcds:  the 25 queries of benchmarking/tpcds/queries.py at SF1 over
             tpcds_tables (the reference's generator in numpy), each "off",
             then "on" cold and warm (median of 3), "on" equal to "off";
@@ -321,7 +347,7 @@ Every relational cell runs at SF1: nothing is cut; the ai cells run the
 model at its published widths with its depth uncut. It imports torch,
 numpy and the port; nothing of JAX, pyarrow or daft_tpu.
 
-    python3 chip_smoke.py --phase ooc|window|obs|auto|functions|tpcds|native
+    python3 chip_smoke.py --phase ooc|window|obs|auto|functions|tpcds|native|temporal
 
 runs phases 1-3, then that phase alone (ooc, obs and auto write lineitem's
 Parquet files themselves; auto alone computes each cell's "off" result and
@@ -2578,7 +2604,8 @@ def run_cell(label: str, query, kernels, card: str, floats=(), oracle=None,
         check(same_result(got, oracle, floats), f"{label} on the card differs from the numpy "
                                                 "oracle")
     rows = len(next(iter(got.values())))
-    print(f"{label}: {rows} result rows, equal to the host path and the numpy oracle")
+    print(f"{label}: {rows} result rows, equal to the host path"
+          + (" and the numpy oracle" if oracle is not None else ""))
     remember(label, host_s, warm, host)
     plan_ms(label, query, card)
     print(f"{label} cold {cold_s:.3f} s; warm median {statistics.median(warm):.4f} s "
@@ -5595,6 +5622,424 @@ def phase_functions(lineitem, card: str) -> dict:
     return {"functions": launches}
 
 
+# ---- temporal: timestamps, durations and zones at SF1 ----------------------------
+
+US_PER_DAY = 86_400_000_000
+T1_FROM = datetime.datetime(1995, 1, 1, 6, 30)
+T1_TO = datetime.datetime(1996, 1, 1, 6, 30)
+T1_TRANSIT = datetime.timedelta(days=20)
+T1_KERNELS = ("segment_sum_planes", "segment_sum_float_planes", "segment_extreme_int64")
+T1_FLOATS = ("revenue",)
+T1_SQL = """SELECT l_returnflag, l_linestatus, COUNT(*) AS n, SUM(l_extendedprice) AS revenue,
+  MIN(l_shipts) AS first_ship, MAX(l_shipts) AS last_ship,
+  MIN(l_receiptts - l_shipts) AS min_transit, MAX(l_receiptts - l_shipts) AS max_transit
+FROM lineitem
+WHERE l_shipts >= TIMESTAMP '1995-01-01 06:30:00' AND l_shipts < TIMESTAMP '1996-01-01 06:30:00'
+  AND l_receiptts - l_shipts > INTERVAL '20' DAY
+GROUP BY l_returnflag, l_linestatus ORDER BY l_returnflag, l_linestatus"""
+T2_ZONE = "America/New_York"
+T2_KERNELS = ("segment_sum_planes", "segment_extreme_int64")
+TEMPORAL_WINDOW_ROWS = 3   # the windowed stddev / var frame: 3 preceding rows
+SAMPLE_FRACTION, SAMPLE_SEED = 0.01, 7
+INTO_BATCH_ROWS = 131072
+TEMPORAL_WRAPPERS = {"segment_sum_planes": "segment_kernels",
+                     "segment_sum_float_planes": "segment_kernels",
+                     "segment_extreme_int64": "segment_kernels"}
+
+
+def temporal_columns(lineitem) -> dict:
+    """l_shipts and l_receiptts: the day's date in microseconds plus a
+    seeded microsecond of the day (int64 storage)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 22)
+    n = len(lineitem["l_shipdate"])
+    return {"l_shipts": lineitem["l_shipdate"].astype(np.int64) * US_PER_DAY
+            + rng.integers(0, US_PER_DAY, n),
+            "l_receiptts": lineitem["l_receiptdate"].astype(np.int64) * US_PER_DAY
+            + rng.integers(0, US_PER_DAY, n)}
+
+
+def temporal_frame(lineitem, ts: dict, order=None, t1_only: bool = False):
+    """The temporal cells' DataFrame: flags and statuses as strings, price,
+    supplier and the two timestamp columns (T1's alone with ``t1_only``),
+    rows in ``order`` when given."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.core.series import Series
+
+    idx = np.arange(len(ts["l_shipts"])) if order is None else order
+    data = {
+        "l_returnflag": np.array(RETURNFLAGS, dtype=object)[lineitem["l_returnflag"][idx]],
+        "l_linestatus": np.array(LINESTATUS, dtype=object)[lineitem["l_linestatus"][idx]],
+        "l_extendedprice": lineitem["l_extendedprice"][idx]}
+    if not t1_only:
+        data["l_suppkey"] = lineitem["l_suppkey"][idx]
+    for c in ("l_shipts", "l_receiptts"):
+        data[c] = Series.from_numpy(ts[c][idx], c, dt.DataType.timestamp("us"))
+    return dt.from_pydict(data)
+
+
+def t1_query(df):
+    """T1: a filter by TIMESTAMP literals and a transit over 20 days, then
+    count, sum and the extremes of a timestamp and a duration by flag and
+    status."""
+    from daft_tpu_torch import col, lit
+
+    transit = col("l_receiptts") - col("l_shipts")
+    return (df.where((col("l_shipts") >= lit(T1_FROM)) & (col("l_shipts") < lit(T1_TO))
+                     & (transit > lit(T1_TRANSIT)))
+            .groupby("l_returnflag", "l_linestatus")
+            .agg(col("l_extendedprice").count().alias("n"),
+                 col("l_extendedprice").sum().alias("revenue"),
+                 col("l_shipts").min().alias("first_ship"),
+                 col("l_shipts").max().alias("last_ship"),
+                 transit.min().alias("min_transit"), transit.max().alias("max_transit"))
+            .sort(["l_returnflag", "l_linestatus"]))
+
+
+def _us_datetime(v: int):
+    return datetime.datetime(1970, 1, 1) + datetime.timedelta(microseconds=int(v))
+
+
+def t1_oracle(lineitem, ts: dict) -> dict:
+    """T1 by numpy alone (the sum in f64, the extremes as storage ints)."""
+    import numpy as np
+
+    ship, rec = ts["l_shipts"], ts["l_receiptts"]
+    lo = int((T1_FROM - datetime.datetime(1970, 1, 1)) / datetime.timedelta(microseconds=1))
+    hi = int((T1_TO - datetime.datetime(1970, 1, 1)) / datetime.timedelta(microseconds=1))
+    transit = rec - ship
+    keep = (ship >= lo) & (ship < hi) & (transit > 20 * US_PER_DAY)
+    code = lineitem["l_returnflag"][keep].astype(np.int64) * 2 + lineitem["l_linestatus"][keep]
+    price, ship_k, tr_k = lineitem["l_extendedprice"][keep], ship[keep], transit[keep]
+    out = {k: [] for k in ("l_returnflag", "l_linestatus", "n", "revenue", "first_ship",
+                           "last_ship", "min_transit", "max_transit")}
+    for c in sorted(np.unique(code).tolist(), key=lambda c: (RETURNFLAGS[c // 2],
+                                                             LINESTATUS[c % 2])):
+        rows = code == c
+        out["l_returnflag"].append(RETURNFLAGS[c // 2])
+        out["l_linestatus"].append(LINESTATUS[c % 2])
+        out["n"].append(int(rows.sum()))
+        out["revenue"].append(float(price[rows].sum()))
+        out["first_ship"].append(_us_datetime(ship_k[rows].min()))
+        out["last_ship"].append(_us_datetime(ship_k[rows].max()))
+        out["min_transit"].append(datetime.timedelta(microseconds=int(tr_k[rows].min())))
+        out["max_transit"].append(datetime.timedelta(microseconds=int(tr_k[rows].max())))
+    return out
+
+
+def zone_hours(us, zone: str):
+    """The local hour of each UTC microsecond in ``zone`` by Python's
+    zoneinfo alone: one utcoffset per distinct UTC hour (every transition
+    of the zone falls on a UTC hour over lineitem's years)."""
+    import zoneinfo
+
+    import numpy as np
+
+    hours = us // 3_600_000_000
+    uniq, inv = np.unique(hours, return_inverse=True)
+    zi = zoneinfo.ZoneInfo(zone)
+    epoch = datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc)
+    off = np.array([int((epoch + datetime.timedelta(hours=int(h))).astimezone(zi)
+                        .utcoffset().total_seconds()) for h in uniq.tolist()], dtype=np.int64)
+    local = us + off[inv] * 1_000_000
+    return (local // 3_600_000_000) % 24
+
+
+def grouped_oracle(keys, transit, key_value=int) -> dict:
+    """count and max transit by key, keys ascending (numpy)."""
+    import numpy as np
+
+    order = np.argsort(keys, kind="stable")
+    k, t = keys[order], transit[order]
+    starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+    counts = np.diff(np.r_[starts, len(k)])
+    mx = np.maximum.reduceat(t, starts)
+    return {"key": [key_value(v) for v in k[starts].tolist()], "n": counts.tolist(),
+            "max_transit": [datetime.timedelta(microseconds=int(v)) for v in mx.tolist()]}
+
+
+def t2_queries(df) -> dict:
+    """T2's three grouped cells: the key a host function of l_shipts."""
+    from daft_tpu_torch import col
+
+    transit = col("l_receiptts") - col("l_shipts")
+    ny = col("l_shipts")._fn("replace_time_zone", tz="UTC")._fn("convert_time_zone",
+                                                                 tz=T2_ZONE)
+    keys = {"hour": col("l_shipts").dt.hour(), "ny_hour": ny.dt.hour(),
+            "day": col("l_shipts").dt.truncate("1 day")}
+
+    def query(key):
+        return lambda: (df.with_column("key", key).groupby("key")
+                        .agg(col("l_shipts").count().alias("n"),
+                             transit.max().alias("max_transit"))
+                        .sort("key"))
+    return {name: query(k) for name, k in keys.items()}
+
+
+def temporal_window_query(df):
+    """Windowed stddev and var of l_extendedprice by supplier over the three
+    preceding rows and the current one, in l_shipts order."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col
+
+    w = dt.Window().partition_by("l_suppkey").order_by("l_shipts") \
+        .rows_between(-TEMPORAL_WINDOW_ROWS, dt.Window.current_row)
+    return df.select(col("l_suppkey"), col("l_extendedprice").stddev().over(w).alias("sd"),
+                     col("l_extendedprice").var().over(w).alias("var"))
+
+
+def temporal_window_oracle(lineitem, ts: dict) -> dict:
+    """The window's sd and var by numpy: rows sorted by (supplier, l_shipts,
+    row), each frame's sums of x and x^2 as differences of f64 prefix sums
+    over the sorted rows (the reference's arithmetic), in input row order,
+    and the bound their rounding puts on var ("bound")."""
+    import numpy as np
+
+    n = len(ts["l_shipts"])
+    order = np.lexsort((np.arange(n), ts["l_shipts"], lineitem["l_suppkey"]))
+    supp = lineitem["l_suppkey"][order]
+    x = lineitem["l_extendedprice"][order].astype(np.float64)
+    start = np.flatnonzero(np.r_[True, supp[1:] != supp[:-1]])
+    seg = np.repeat(start, np.diff(np.r_[start, n]))
+    hi = np.arange(n)
+    lo = np.maximum(hi - TEMPORAL_WINDOW_ROWS, seg)
+    cs = np.concatenate([[0.0], np.cumsum(x)])
+    csq = np.concatenate([[0.0], np.cumsum(x * x)])
+    cnt = (hi - lo + 1).astype(np.int64)
+    m = (cs[hi + 1] - cs[lo]) / cnt
+    var = np.maximum((csq[hi + 1] - csq[lo]) / cnt - m * m, 0.0)
+    out_var = np.empty(n)
+    out_var[order] = var
+    out_sd = np.empty(n)
+    out_sd[order] = np.sqrt(var)
+    # a prefix sum of x^2 taken in another row order rounds differently: each
+    # frame's sum of squares is good to a few ulps of the whole sum
+    bound = 8 * float(np.finfo(np.float64).eps) * float(csq[-1])
+    return {"sd": out_sd, "var": out_var, "bound": bound}
+
+
+def temporal_kernel_cases(df, kernel_results: dict, card: str) -> None:
+    """K1, K7 and K3 at the inputs T1's cold run gave them (residency
+    cleared), each held against its plain version with its times and
+    bound, into ``kernel_results`` under "at_t1_..."; the capture's
+    launches fall outside every counted run."""
+    import torch
+
+    from daft_tpu_torch.ops import segment_kernels as sk
+
+    clear_residency()
+    with dt_ctx():
+        calls = capture_kernel_calls(lambda: t1_query(df).to_pydict(), TEMPORAL_WRAPPERS)
+    new = {}
+    for wrapper, seen in calls.items():
+        check(len(seen) > 0, f"T1: {wrapper} was not called")
+    for i, ((planes, codes, cap), _out) in enumerate(calls["segment_sum_planes"]):
+        new[("segment_sum_planes", f"at_t1_cap{cap}_{i}")] = plane_case(sk, "sum", planes,
+                                                                        codes, cap)
+    for i, ((planes, codes, cap), _out) in enumerate(calls["segment_sum_float_planes"]):
+        new[("segment_sum_float_planes", f"at_t1_cap{cap}_{i}")] = k7_case(
+            sk, planes, codes, cap, f"t1 cap {cap}")
+    for i, ((v, keep, codes, cap, op), _out) in enumerate(calls["segment_extreme_int64"]):
+        new[("segment_extreme_int64", f"at_t1_cap{cap}_{op}{i}")] = k3_case(sk, v, keep, codes,
+                                                                            cap, op)
+    for (kname, label), case in new.items():
+        kernel_results[kname][label] = case
+    del calls
+    torch.cuda.empty_cache()
+    print_cases({f"{k} {label}": case for (k, label), case in new.items()}, card)
+
+
+def phase_temporal(lineitem, card: str, kernel_results: dict) -> dict:
+    """Timestamps, durations and zones at SF1 on the card (the module
+    docstring's 20c). Returns {path: the cold run's launches}."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col, lit
+    from daft_tpu_torch.core import temporal
+    from daft_tpu_torch.ops import counters
+    from daft_tpu_torch.plan import physical as pp
+
+    phase("temporal")
+    start = time.perf_counter()
+    clear_residency()
+    print(f"zone database: {temporal.zone_database()}; {T2_ZONE} read from "
+          f"{temporal.get_zone(T2_ZONE).source}", flush=True)
+    paths = {}
+    t0 = time.perf_counter()
+    ts = temporal_columns(lineitem)
+    df = temporal_frame(lineitem, ts)
+    n = len(ts["l_shipts"])
+    print(f"temporal frame {time.perf_counter() - t0:.2f} s ({n} rows, "
+          f"{2 * 8 * n} bytes of timestamp planes)", flush=True)
+
+    # T1, as a DataFrame and in SQL: one fused region under a DeviceGroupedAgg
+    with dt_ctx():
+        plan = pp.translate(t1_query(df).optimized_plan())
+    region_plan_check("T1", plan, pp.DeviceGroupedAgg, ("project", "filter", "agg"))
+
+    def k3_checks(label):
+        def checks(snap, warm):
+            got = snap[f"{CELL_KERNEL_PREFIX}segment_extreme_int64"]
+            print(f"{label}: K3 launches {got} cold, "
+                  f"{warm[f'{CELL_KERNEL_PREFIX}segment_extreme_int64']} in 3 warm runs")
+            check(got >= 4, f"{label}: K3 launched {got} times, not at least 4")
+        return checks
+
+    oracle = t1_oracle(lineitem, ts)
+    t1_result, paths["temporal_t1"] = run_cell(
+        "T1", lambda: t1_query(df), T1_KERNELS, card, T1_FLOATS, oracle,
+        extra_checks=k3_checks("T1"))
+    _got, paths["temporal_t1_sql"] = run_cell(
+        "T1 sql", lambda: dt.sql(T1_SQL, lineitem=df), T1_KERNELS, card, T1_FLOATS, oracle,
+        extra_checks=k3_checks("T1 sql"))
+
+    # T2: host functions at SF1, each timed, feeding grouped device stages
+    with dt.execution_config_ctx(device="cpu", device_mode="off"):
+        for label, e in (("dt.hour", col("l_shipts").dt.hour()),
+                         ("replace_time_zone(UTC) + convert_time_zone(New_York)",
+                          col("l_shipts")._fn("replace_time_zone", tz="UTC")
+                          ._fn("convert_time_zone", tz=T2_ZONE)),
+                         (f"dt.hour in {T2_ZONE}",
+                          col("l_shipts")._fn("replace_time_zone", tz="UTC")
+                          ._fn("convert_time_zone", tz=T2_ZONE).dt.hour()),
+                         ("dt.truncate('1 day')", col("l_shipts").dt.truncate("1 day")),
+                         ("total_hours", (col("l_receiptts") - col("l_shipts")).total_hours())):
+            ms = statistics.median(time_s(lambda e=e: df.select(e.alias("out")).collect())) \
+                * 1e3
+            print(f"T2 host function {label}: {ms:.1f} ms over {n} rows (host clock, "
+                  f"median of 3) [{card}]", flush=True)
+        hours = df.select((col("l_receiptts") - col("l_shipts")).total_hours().alias("h")) \
+            .to_pydict()["h"]
+    check(np.array_equal(np.asarray(hours), (ts["l_receiptts"] - ts["l_shipts"])
+                         // 3_600_000_000), "T2: total_hours differs from numpy")
+    transit = ts["l_receiptts"] - ts["l_shipts"]
+    t2_keys = {"hour": (ts["l_shipts"] // 3_600_000_000) % 24,
+               "ny_hour": zone_hours(ts["l_shipts"], T2_ZONE),
+               "day": ts["l_shipts"] // US_PER_DAY * US_PER_DAY}
+    for name, query in t2_queries(df).items():
+        key_value = _us_datetime if name == "day" else int
+        want = grouped_oracle(t2_keys[name], transit, key_value)
+        _got, paths[f"temporal_t2_{name}"] = run_cell(
+            f"T2 {name}", query, T2_KERNELS, card, (), want)
+
+    # T1 file-fed: sorted by l_shipts so the timestamp statistics prune
+    root = tempfile.mkdtemp(prefix="daft_tpu_torch_temporal_")
+    try:
+        d = os.path.join(root, "lineitem_ts")
+        t0 = time.perf_counter()
+        sorted_df = temporal_frame(lineitem, ts, np.argsort(ts["l_shipts"], kind="stable"),
+                                   t1_only=True)
+        with dt_ctx():
+            sorted_df.write_parquet(d)
+        print(f"T1 file: wrote {d} in {time.perf_counter() - t0:.2f} s", flush=True)
+        del sorted_df
+
+        def pruned(snap, warm):
+            check(snap["scan_row_groups_pruned"] > 0,
+                  "T1 file: the timestamp statistics pruned no row group")
+            print(f"T1 file: row groups read {snap['scan_row_groups']}, pruned "
+                  f"{snap['scan_row_groups_pruned']}", flush=True)
+
+        clear_residency()
+        paths["temporal_t1_file"] = scan_cell(
+            "T1 file", lambda: t1_query(dt.read_parquet(d)), T1_KERNELS, t1_result,
+            T1_FLOATS, card, "device_grouped_batches", extra=pruned, host_ops=False)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # windowed stddev / var: var within the prefix sums' rounding of numpy's
+    t0 = time.perf_counter()
+    with dt_ctx():
+        got = temporal_window_query(df).to_pydict()
+    win_ms = (time.perf_counter() - t0) * 1e3
+    want = temporal_window_oracle(lineitem, ts)
+    g_var, g_sd = (np.asarray(got[c], dtype=np.float64) for c in ("var", "sd"))
+    err = float(np.abs(g_var - want["var"]).max())
+    check(err <= want["bound"], f"windowed var differs from numpy by {err}, past the prefix "
+                                f"sums' rounding bound {want['bound']}")
+    check(np.array_equal(g_sd, np.sqrt(g_var)), "windowed stddev is not sqrt(var)")
+    print(f"window stddev/var over {n} rows by supplier, 3 preceding in l_shipts order: "
+          f"{win_ms:.1f} ms (host clock); var within {err:.3g} of numpy (bound "
+          f"{want['bound']:.3g}: the f64 prefix sums' rounding, summed in another partition "
+          f"order), stddev its sqrt bit for bit [{card}]", flush=True)
+
+    # the plan surface, each held to "off"
+    # which rows the sample keeps is held to the JAX package's (the same rows
+    # for the same seed) by tests/test_torch_temporal.py; here the kept count
+    # is held to the binomial law, and each supplier's rows to its own
+    got, paths["temporal_sample"] = run_cell(
+        "sample -> groupby", lambda: (df.sample(SAMPLE_FRACTION, seed=SAMPLE_SEED)
+                                      .groupby("l_suppkey")
+                                      .agg(col("l_extendedprice").count().alias("n"),
+                                           col("l_extendedprice").sum().alias("revenue"))
+                                      .sort("l_suppkey")),
+        ("segment_sum_planes", "segment_sum_float_planes"), card, ("revenue",))
+    kept, sd = sum(got["n"]), (n * SAMPLE_FRACTION * (1 - SAMPLE_FRACTION)) ** 0.5
+    check(abs(kept - n * SAMPLE_FRACTION) <= 6 * sd,
+          f"sample kept {kept} of {n} rows, past 6 sd ({sd:.1f}) of {n * SAMPLE_FRACTION}")
+    full = np.bincount(lineitem["l_suppkey"])
+    check(all(c <= full[k] for k, c in zip(got["l_suppkey"], got["n"])),
+          "sample: a supplier kept more rows than it has")
+    print(f"sample: kept {kept} of {n} rows (binomial mean {n * SAMPLE_FRACTION:.1f}, sd "
+          f"{sd:.1f}) [{card}]", flush=True)
+    q6_df = q6_frame(lineitem)
+    _got, paths["temporal_into_batches_q6"] = run_cell(
+        "into_batches -> q6", lambda: q6_query(q6_df.into_batches(INTO_BATCH_ROWS)), (), card,
+        ("revenue",), q6_oracle(lineitem), counter="device_stage_batches")
+    del q6_df
+    flags = df.select("l_suppkey", "l_returnflag", "l_linestatus", "l_extendedprice")
+    t0 = time.perf_counter()
+    with dt_ctx():
+        unp = flags.unpivot(["l_suppkey"], ["l_returnflag", "l_linestatus"]).to_pydict()
+        piv = flags.pivot("l_returnflag", "l_linestatus", "l_extendedprice", "sum") \
+            .sort("l_returnflag").to_pydict()
+        rows = df.where(col("l_shipts") >= lit(T1_FROM)).count_rows()
+        ids = df.into_partitions(4).add_monotonically_increasing_id().select("id") \
+            .to_pydict()["id"]
+    surface_ms = (time.perf_counter() - t0) * 1e3
+    with dt.execution_config_ctx(device_mode="off"):
+        check(unp == flags.unpivot(["l_suppkey"], ["l_returnflag", "l_linestatus"])
+              .to_pydict(), "unpivot differs from off")
+        check(same_result(piv, flags.pivot("l_returnflag", "l_linestatus", "l_extendedprice",
+                                           "sum").sort("l_returnflag").to_pydict(),
+                          ("F", "O")), "pivot differs from off")
+        check(rows == df.where(col("l_shipts") >= lit(T1_FROM)).count_rows(),
+              "count_rows differs from off")
+    check(len(unp["value"]) == 2 * n and unp["value"][:2] == [
+        RETURNFLAGS[lineitem["l_returnflag"][0]], LINESTATUS[lineitem["l_linestatus"][0]]],
+        "unpivot: rows or values differ from numpy")
+    code = lineitem["l_returnflag"].astype(np.int64) * 2 + lineitem["l_linestatus"]
+    sums = np.bincount(code, weights=lineitem["l_extendedprice"], minlength=6)
+    for i, f in enumerate(piv["l_returnflag"]):
+        for s_i, st in enumerate(LINESTATUS):
+            v = piv[st][i]
+            w = sums[RETURNFLAGS.index(f) * 2 + s_i]
+            check((v is None and w == 0) or abs(v - w) <= 1e-9 * abs(w),
+                  f"pivot {f}/{st} differs from numpy")
+    lo = int((T1_FROM - datetime.datetime(1970, 1, 1)) / datetime.timedelta(microseconds=1))
+    check(rows == int((ts["l_shipts"] >= lo).sum()), "count_rows differs from numpy")
+    ids = np.asarray(ids, dtype=np.uint64)
+    sizes = [n // 4 + (1 if i < n % 4 else 0) for i in range(4)]
+    want_ids = np.concatenate([(np.uint64(p) << np.uint64(36)) + np.arange(sz, dtype=np.uint64)
+                               for p, sz in enumerate(sizes)])
+    check(np.array_equal(ids, want_ids), "add_monotonically_increasing_id differs from numpy")
+    print(f"surface: unpivot {len(unp['value'])} rows, pivot {len(piv['l_returnflag'])} rows, "
+          f"count_rows {rows}, {len(ids)} ids over 4 partitions, each equal to off and numpy: "
+          f"{surface_ms:.1f} ms (host clock) [{card}]", flush=True)
+    del unp, piv, ids
+
+    temporal_kernel_cases(df, kernel_results, card)
+    del df
+    clear_residency()
+    counters.reset()
+    print(f"temporal phase {time.perf_counter() - start:.1f} s [{card}]", flush=True)
+    return paths
+
+
 # ---- tpcds: the reference's 25 TPC-DS queries at SF1 -----------------------------
 
 TPCDS_SF = 1.0
@@ -5949,11 +6394,12 @@ TPCDS_WRAPPERS = {"segment_sum_planes": "segment_kernels",
                   "build_probe_table": "probe_kernels", "hash_probe_index": "probe_kernels"}
 
 
-def capture_kernel_calls(run) -> dict:
-    """Run ``run`` with each of TPCDS_WRAPPERS' wrappers replaced by one
-    that keeps a copy of its arguments and of its result, then returns the
-    result: {wrapper: [(args, result), ...]} in call order. The engine
-    calls the wrappers through their modules, so this sees every call."""
+def capture_kernel_calls(run, wrappers=None) -> dict:
+    """Run ``run`` with each of ``wrappers``' (default TPCDS_WRAPPERS)
+    wrappers replaced by one that keeps a copy of its arguments and of its
+    result, then returns the result: {wrapper: [(args, result), ...]} in
+    call order. The engine calls the wrappers through their modules, so
+    this sees every call."""
     import importlib
 
     import torch
@@ -5966,7 +6412,7 @@ def capture_kernel_calls(run) -> dict:
         return a
 
     mods = {name: importlib.import_module(f"daft_tpu_torch.ops.{m}")
-            for name, m in TPCDS_WRAPPERS.items()}
+            for name, m in (wrappers or TPCDS_WRAPPERS).items()}
     originals = {name: getattr(m, name) for name, m in mods.items()}
     calls = {name: [] for name in mods}
 
@@ -6798,8 +7244,8 @@ def phase_native(lineitem, orders, dims, card: str, full: bool = False) -> None:
 
 
 def phase_alone(name: str, lineitem, orders, dims, card: str, kernel_results: dict) -> dict:
-    """``--phase ooc``, ``window``, ``obs``, ``auto``, ``functions`` or
-    ``tpcds`` after the kernels phase: the scan phase's tables in memory
+    """``--phase ooc``, ``window``, ``obs``, ``auto``, ``functions``,
+    ``tpcds``, ``native`` or ``temporal`` after the kernels phase: the scan phase's tables in memory
     (tpcds its own tables, and its kernel cases into ``kernel_results``;
     and, for ooc, obs and auto,
     lineitem written to Parquet under a temporary directory, as the scan
@@ -6810,6 +7256,8 @@ def phase_alone(name: str, lineitem, orders, dims, card: str, kernel_results: di
     if name == "native":
         phase_native(lineitem, orders, dims, card, full=True)
         return {}
+    if name == "temporal":
+        return phase_temporal(lineitem, card, kernel_results)
     frames = scan_tables(lineitem, orders, dims)
     if name == "window":
         return phase_window(lineitem, dims, frames, card)
@@ -6859,7 +7307,7 @@ def main(argv=None) -> int:
                              "kernels against their plain versions, with their times "
                              "(no main path runs, so no launches are counted)")
     parser.add_argument("--phase", choices=("ooc", "window", "obs", "auto", "functions",
-                                            "tpcds", "native"),
+                                            "tpcds", "native", "temporal"),
                         help="run the card, build, data and kernels phases, then this phase "
                              "alone: ooc (TPC-H under a host memory budget, the external "
                              "sort, the Grace joins), window (W1, W2), obs (EXPLAIN "
@@ -6872,7 +7320,10 @@ def main(argv=None) -> int:
                              "(the 25 TPC-DS queries at SF1, on against off) or native (the "
                              "host kernel library against its plain versions: the layers "
                              "at SF1 shapes and the host cells, in memory, file-fed, under "
-                             "a budget, TPC-DS q65 and q51, functions)")
+                             "a budget, TPC-DS q65 and q51, functions) or temporal "
+                             "(timestamps at SF1: T1 in memory, in SQL and file-fed, T2's "
+                             "host functions and zones, windowed stddev / var, the plan "
+                             "surface, K1, K3 and K7 at T1's inputs)")
     parser.add_argument("--root", default=HERE,
                         help="the checkout whose daft_tpu_torch is driven (default: the "
                              "one beside this script), e.g. an unpacked parent commit to "
@@ -6977,6 +7428,7 @@ def main(argv=None) -> int:
             paths.update(phase_window(lineitem, dims, frames, card))
             del frames
             paths.update(phase_functions(lineitem, card))
+            paths.update(phase_temporal(lineitem, card, kernel_results))
             tables = tpcds_tables()
             paths.update(phase_tpcds(tables, card))
             tpcds_kernel_cases(tables, kernel_results, card)

@@ -37,7 +37,7 @@ from .core.micropartition import MicroPartition
 from .core.recordbatch import RecordBatch
 from .core.series import Series
 from .dataframe.dataframe import DataFrame, GroupedDataFrame, read_csv, read_parquet
-from .datatype import DataType, Field
+from .datatype import DataType, Field, TimeUnit
 from .expressions.expressions import Expression, col, lit
 from .interop import from_numpy_columns
 from .plan import logical as _lp
@@ -59,10 +59,18 @@ def from_pydict(data) -> DataFrame:
     return DataFrame(_lp.InMemorySource(part.schema, [part]))
 
 
+def from_pylist(rows) -> DataFrame:
+    """A DataFrame from a list of dicts (the columns of the first row's keys,
+    in order; a missing key is null)."""
+    names = list(rows[0]) if rows else []
+    return from_pydict({n: [r.get(n) for r in rows] for n in names})
+
+
 __all__ = [
     "DataFrame", "DataType", "ExecutionConfig", "Expression", "Field", "Func",
     "GroupedDataFrame", "MicroPartition", "RecordBatch", "Schema", "Series", "Session",
     "cls", "col", "current_session", "execution_config", "execution_config_ctx",
-    "from_numpy_columns", "from_pydict", "func", "lit", "method", "read_csv",
-    "read_parquet", "set_execution_config", "sql", "sql_expr", "udf", "Window",
+    "from_numpy_columns", "from_pydict", "from_pylist", "func", "lit", "method",
+    "read_csv", "read_parquet", "set_execution_config", "sql", "sql_expr", "TimeUnit",
+    "udf", "Window",
 ]

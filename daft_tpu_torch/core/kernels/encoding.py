@@ -1,11 +1,13 @@
 """Join-key canonicalization (counterpart of daft_tpu/core/kernels/encoding.py
 ``canonical_key_values`` and ``_common_key_dtype``, for the port's integer,
-float, bool, date and string keys).
+float, bool, temporal and string keys).
 
 Both sides of an equi-join compare in one common key type, and the values
 are canonicalized so that equal keys get equal representations: integers,
-bools and dates as int64, floats as the bit pattern of ``v + 0.0`` (so -0.0
-equals 0.0), strings as Python objects.
+bools, dates and the int64 ticks of timestamps, durations and times as
+int64 (two temporal keys of one kind but different units compare in the
+finer unit, ``core/temporal.common_temporal_type``), floats as the bit
+pattern of ``v + 0.0`` (so -0.0 equals 0.0), strings as Python objects.
 """
 
 from __future__ import annotations
@@ -27,12 +29,17 @@ def _common_key_dtype(a: DataType, b: DataType) -> DataType:
         return a
     if a.is_numeric() and b.is_numeric():
         return DataType.from_numpy(np.promote_types(a.to_numpy(), b.to_numpy()))
+    if a.kind == b.kind and a.is_temporal() \
+            and (a.kind != "timestamp" or a.timezone == b.timezone):
+        from ..temporal import common_temporal_type
+
+        return common_temporal_type(a, b)
     raise ValueError(f"cannot join/compare keys of dtypes {a} and {b}")
 
 
 def canonical_key_values(s) -> Tuple[str, np.ndarray, np.ndarray]:
     """(kind, values, valid) of a key column: kind "num" with int64 values
-    for numeric, bool and date keys, "obj" with an object array for strings,
+    for numeric, bool and temporal keys, "obj" with an object array for strings,
     "null" for an all-null column."""
     dt = s.dtype
     valid = s.validity_numpy()

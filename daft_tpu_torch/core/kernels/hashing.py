@@ -80,7 +80,8 @@ def hash_series(series, seed: Optional[object] = None):
             bits = values.view(np.uint64).copy()
             bits[np.isnan(values)] = np.uint64(0x7FF8000000000000)
         elif values.dtype.kind in "iu":
-            # dates are int32 days here, as the reference's to_numpy() gives them
+            # dates are int32 days and timestamps, durations and times int64
+            # ticks here, as the reference's to_numpy() gives them
             bits = values.astype(np.int64, copy=False).view(np.uint64).copy()
         else:  # bool
             bits = values.astype(np.uint64)

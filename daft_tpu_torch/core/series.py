@@ -1,7 +1,8 @@
 """Series: a named, typed column (counterpart of daft_tpu/core/series.py).
 
 Host storage is numpy, not Arrow: a values array plus a bool validity mask.
-Strings are object arrays, dates int32 days since 1970-01-01; a null slot
+Strings are object arrays, dates int32 days since 1970-01-01, timestamps,
+durations and times int64 ticks of their unit (core/temporal.py); a null slot
 holds 0 (NaN for floats, None for strings), as the reference's
 ``Series.to_numpy()`` fills it. A list column (an embedding) is an object
 array of Python lists whose numeric elements are rounded to the element
@@ -13,12 +14,14 @@ of torch tensors made by ``to_device`` / ``to_device_cached``.
 from __future__ import annotations
 
 import datetime
+import re
 import weakref
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
 
 from ..datatype import DataType, Field
+from . import temporal
 
 _EPOCH = datetime.date(1970, 1, 1)
 _EPOCH_ORDINAL = _EPOCH.toordinal()
@@ -51,8 +54,26 @@ def _fp_pool():
     return _FP_POOL
 
 
+def _arrow_zone_name(info) -> str:
+    """The zone name pyarrow gives a column of datetimes with this tzinfo:
+    a ZoneInfo's key, "UTC", or a fixed offset as "+hh:mm"."""
+    key = getattr(info, "key", None)
+    if key:
+        return key
+    if info is datetime.timezone.utc:
+        return "UTC"
+    off = info.utcoffset(None)
+    if off is None:
+        raise TypeError(f"cannot name the time zone {info!r}")
+    secs = int(off.total_seconds())
+    sign = "-" if secs < 0 else "+"
+    h, m = divmod(abs(secs) // 60, 60)
+    return f"{sign}{h:02d}:{m:02d}"
+
+
 def _infer_dtype(data: Sequence[Any]) -> DataType:
     kinds = set()
+    tz = None
     for v in data:
         if v is None:
             continue
@@ -65,9 +86,15 @@ def _infer_dtype(data: Sequence[Any]) -> DataType:
         elif isinstance(v, str):
             kinds.add("string")
         elif isinstance(v, datetime.datetime):
-            raise TypeError("timestamps are not supported by the port yet")
+            if v.tzinfo is not None and tz is None:
+                tz = _arrow_zone_name(v.tzinfo)
+            kinds.add("timestamp")
         elif isinstance(v, datetime.date):
             kinds.add("date")
+        elif isinstance(v, datetime.timedelta):
+            kinds.add("duration")
+        elif isinstance(v, datetime.time):
+            kinds.add("time")
         else:
             raise TypeError(f"unsupported value {v!r} of type {type(v).__name__}")
     if not kinds:
@@ -79,7 +106,29 @@ def _infer_dtype(data: Sequence[Any]) -> DataType:
     kind = kinds.pop()
     return {"bool": DataType.bool(), "int": DataType.int64(),
             "float": DataType.float64(), "string": DataType.string(),
-            "date": DataType.date()}[kind]
+            "date": DataType.date(), "timestamp": DataType.timestamp("us", tz),
+            "duration": DataType.duration("us"), "time": DataType.time("us")}[kind]
+
+
+def _temporal_ticks(v, dtype: DataType) -> int:
+    """A Python value as the storage int of a temporal column (Arrow's
+    conversion: ints are storage already)."""
+    if isinstance(v, (int, np.integer)) and not isinstance(v, (bool, np.bool_)):
+        return int(v)
+    kind = dtype.kind
+    if kind == "date":
+        if isinstance(v, datetime.datetime):
+            v = v.date()
+        return v.toordinal() - _EPOCH_ORDINAL
+    if kind == "timestamp":
+        if isinstance(v, np.datetime64):
+            return int(v.astype(f"datetime64[{dtype.time_unit}]").astype(np.int64))
+        return temporal.datetime_ticks(v, dtype.time_unit, dtype.timezone)
+    if kind == "duration":
+        if isinstance(v, np.timedelta64):
+            return int(v.astype(f"timedelta64[{dtype.time_unit}]").astype(np.int64))
+        return temporal.timedelta_ticks(v, dtype.time_unit)
+    return temporal.time_ticks(v, dtype.time_unit)
 
 
 def _null_fill(dtype: DataType):
@@ -173,9 +222,7 @@ class Series:
         validity = np.array([v is not None for v in data], dtype=bool)
         fill = _null_fill(dtype)
         if dtype.is_temporal():
-            conv = [fill if v is None else
-                    (v.toordinal() - _EPOCH_ORDINAL if isinstance(v, datetime.date) else int(v))
-                    for v in data]
+            conv = [fill if v is None else _temporal_ticks(v, dtype) for v in data]
         elif dtype.is_list():
             inner = dtype.inner
             if inner.is_numeric() or inner.is_boolean():
@@ -200,8 +247,11 @@ class Series:
     @classmethod
     def from_numpy(cls, arr, name: str = "series", dtype: Optional[DataType] = None,
                    validity: Optional[np.ndarray] = None) -> "Series":
-        """Wrap a numpy array (numeric, bool, datetime64[D] or object/str).
-        ``validity`` marks nulls; null slots are refilled like ``to_numpy``."""
+        """Wrap a numpy array (numeric, bool, datetime64, timedelta64 or
+        object/str). ``validity`` marks nulls; null slots are refilled like
+        ``to_numpy``. A datetime64[D] array is a date column, one of a finer
+        unit a timestamp, a timedelta64 a duration (NaT is null); ``dtype``
+        converts them to its unit."""
         arr = np.asarray(arr)
         if arr.ndim != 1:
             raise ValueError(f"expected a 1-d array, got shape {arr.shape}")
@@ -210,11 +260,15 @@ class Series:
             if validity is not None:
                 data = [v if ok else None for v, ok in zip(data, validity)]
             return cls.from_pylist(data, name, dtype)
-        if arr.dtype.kind == "M":
+        if arr.dtype.kind in ("M", "m"):
             nat = np.isnat(arr)
-            arr = arr.astype("datetime64[D]").astype(np.int64).astype(np.int32)
+            dtype = dtype or DataType.from_numpy(arr.dtype)
+            if dtype.kind == "date":
+                arr = arr.astype("datetime64[D]").astype(np.int64).astype(np.int32)
+            else:
+                unit = dtype.storage_unit if dtype.is_temporal() else "us"
+                arr = arr.astype(f"{arr.dtype.str[1:3]}[{unit}]").astype(np.int64)
             validity = ~nat if validity is None else (np.asarray(validity, bool) & ~nat)
-            dtype = dtype or DataType.date()
         dtype = dtype or DataType.from_numpy(arr.dtype)
         values = arr if arr.dtype == dtype.to_numpy() else arr.astype(dtype.to_numpy())
         if validity is None:
@@ -312,9 +366,17 @@ class Series:
 
     def to_pylist(self) -> list:
         valid = self._validity
-        if self._dtype.is_temporal():
+        kind = self._dtype.kind
+        if kind == "date":
             return [datetime.date.fromordinal(_EPOCH_ORDINAL + d) if ok else None
                     for d, ok in zip(self._values.tolist(), valid.tolist())]
+        if kind == "timestamp":
+            return temporal.ticks_to_datetimes(self._values, valid, self._dtype.time_unit,
+                                               self._dtype.timezone)
+        if kind == "duration":
+            return temporal.ticks_to_timedeltas(self._values, valid, self._dtype.time_unit)
+        if kind == "time":
+            return temporal.ticks_to_times(self._values, valid, self._dtype.time_unit)
         return [v if ok else None
                 for v, ok in zip(self._values.tolist(), valid.tolist())]
 
@@ -567,9 +629,212 @@ class Series:
             return self
         if self._dtype.is_null():
             return Series.full_null(self._name, dtype, len(self))
+        if self._dtype.kind in ("timestamp", "duration", "time") \
+                or dtype.kind in ("timestamp", "duration", "time") \
+                or (self._dtype.kind == "date" and dtype.is_string()) \
+                or (dtype.kind == "date" and self._dtype.is_string()):
+            values = temporal_cast(self, dtype)
+            if not self._validity.all():
+                values = np.where(self._validity, values, values.dtype.type(_null_fill(dtype))
+                                  if values.dtype != object else None)
+            return Series(self._name, dtype, values, self._validity)
+        if dtype.is_string() and (self._dtype.is_numeric() or self._dtype.is_boolean()):
+            out = np.empty(len(self), dtype=object)
+            out[:] = [_to_text(v) if ok else None
+                      for v, ok in zip(self._values.tolist(), self._validity.tolist())]
+            return Series(self._name, dtype, out, self._validity)
         if dtype.to_numpy() == object or self._dtype.to_numpy() == object:
             raise ValueError(f"cast {self._dtype} -> {dtype} is not supported by the port")
         values = self._values.astype(dtype.to_numpy())
         if not self._validity.all():
             values = np.where(self._validity, values, values.dtype.type(_null_fill(dtype)))
         return Series(self._name, dtype, values, self._validity)
+
+
+def _to_text(v) -> str:
+    """A number or bool as Arrow's cast to string writes it: "true" /
+    "false", an int in decimal, a float in its shortest digits, fixed from
+    1e-6 below 1e10 and with an exponent ("1e+20", "1e-7") outside."""
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if v != v:
+        return "nan"
+    if v in (float("inf"), float("-inf")):
+        return "inf" if v > 0 else "-inf"
+    r = repr(v)
+    mant, _, exp = r.partition("e")
+    e = int(exp) if exp else 0
+    digits = mant.lstrip("-").replace(".", "").lstrip("0") or "0"
+    point = (mant.lstrip("-").find(".") if "." in mant else len(mant.lstrip("-"))) + e
+    if mant.lstrip("-").startswith("0."):
+        point = e - (len(mant.lstrip("-")[2:]) - len(mant.lstrip("-")[2:].lstrip("0")))
+    digits = digits.rstrip("0") or "0"
+    sign = "-" if r.startswith("-") else ""
+    exp10 = point - 1  # the exponent of the leading digit
+    if v != 0 and (exp10 < -6 or exp10 >= 10):
+        m = digits[0] + ("." + digits[1:] if len(digits) > 1 else "")
+        return f"{sign}{m}e{'+' if exp10 >= 0 else '-'}{abs(exp10)}"
+    if v == 0:
+        return sign + "0"
+    if point <= 0:
+        return f"{sign}0.{'0' * -point}{digits}"
+    if point >= len(digits):
+        return sign + digits + "0" * (point - len(digits))
+    return f"{sign}{digits[:point]}.{digits[point:]}"
+
+
+# ---- temporal casts (Arrow's cast rules) -----------------------------------------------
+
+_ISO = re.compile(r"^(\d{4})-(\d{2})-(\d{2})(?:[T ](\d{2})(?::(\d{2})(?::(\d{2})"
+                  r"(?:\.(\d{1,9}))?)?)?)?(Z|[+-]\d{2}(?::?\d{2})?)?$")
+
+
+def _parse_iso(v: str, unit: str, zoned: bool):
+    """An ISO-8601 string as ticks of ``unit`` (Arrow's string to timestamp
+    cast): a date, optionally a time (T or space) with up to 9 fraction
+    digits, and, only for a zoned target, ``Z`` or an offset."""
+    m = _ISO.match(v)
+    if m is None or (m.group(8) is not None) != zoned:
+        what = "expected a zone offset" if zoned and m is not None else "invalid"
+        raise ValueError(f"Failed to parse string: {v!r} as a scalar of type timestamp"
+                         f"[{unit}]: {what}")
+    y, mo, d, hh, mi, ss, frac, zone = m.groups()
+    if not (1 <= int(mo) <= 12 and 1 <= int(d) <= 31):
+        raise ValueError(f"Failed to parse string: {v!r} as a scalar of type timestamp[{unit}]")
+    days = int(temporal.days_from_civil_np(int(y), int(mo), int(d)))
+    secs = days * 86_400 + int(hh or 0) * 3600 + int(mi or 0) * 60 + int(ss or 0)
+    per = temporal.PER_SECOND[unit]
+    ticks = secs * per
+    if frac:
+        ns = int(frac.ljust(9, "0"))
+        if ns % (1_000_000_000 // per):
+            raise ValueError(f"Failed to parse string: {v!r} as a scalar of type "
+                             f"timestamp[{unit}]")
+        ticks += ns // (1_000_000_000 // per)
+    if zone and zone != "Z":
+        sign = -1 if zone[0] == "-" else 1
+        digits = zone[1:].replace(":", "")
+        off = int(digits[:2]) * 3600 + (int(digits[2:4]) * 60 if len(digits) > 2 else 0)
+        ticks -= sign * off * per
+    return ticks
+
+
+def _frac(sub: np.ndarray, unit: str) -> list:
+    width = {"s": 0, "ms": 3, "us": 6, "ns": 9}[unit]
+    return [""] * len(sub) if not width else [f".{x:0{width}d}" for x in sub.tolist()]
+
+
+def format_timestamps(values: np.ndarray, valid: np.ndarray, unit: str,
+                      tz: Optional[str]) -> np.ndarray:
+    """Arrow's timestamp to string cast: "YYYY-MM-DD HH:MM:SS" with the
+    unit's fraction digits, and for a zoned column its local time followed
+    by "Z" (UTC) or "+hhmm"."""
+    per = temporal.PER_SECOND[unit]
+    local = temporal.to_local(values, unit, tz)
+    secs, sub = np.divmod(local, per)
+    days, sod = np.divmod(secs, 86_400)
+    y, m, d = temporal.civil_from_days(days)
+    hh, rest = np.divmod(sod, 3600)
+    mi, ss = np.divmod(rest, 60)
+    fr = _frac(sub, unit)
+    if tz is None:
+        suffix = [""] * len(values)
+    elif tz == "UTC":
+        suffix = ["Z"] * len(values)
+    else:
+        offs = (local - np.asarray(values, dtype=np.int64)) // per
+        suffix = [("-" if o < 0 else "+") + f"{abs(o) // 3600:02d}{abs(o) % 3600 // 60:02d}"
+                  for o in offs.tolist()]
+    out = np.empty(len(values), dtype=object)
+    out[:] = [f"{a:04d}-{b:02d}-{c:02d} {e:02d}:{f:02d}:{g:02d}{h}{z}" if ok else None
+              for a, b, c, e, f, g, h, z, ok in zip(y.tolist(), m.tolist(), d.tolist(),
+                                                    hh.tolist(), mi.tolist(), ss.tolist(),
+                                                    fr, suffix, valid.tolist())]
+    return out
+
+
+def temporal_cast(s: "Series", dtype: DataType) -> np.ndarray:
+    """The storage values of ``s`` cast to ``dtype``, where either side is
+    temporal, as Arrow casts them (a timestamp read in its zone's local
+    time where the target is a date, a time of day or a string); raises
+    ValueError for a cast Arrow refuses or one that would lose ticks."""
+    src = s.dtype
+    v = s.to_numpy()
+    valid = s.validity_numpy()
+    sk, tk = src.kind, dtype.kind
+
+    def refuse():
+        return ValueError(f"Unsupported cast from {src} to {dtype}")
+
+    vals = np.where(valid, v, 0) if v.dtype != object else v
+    if sk == "timestamp":
+        unit, tz = src.time_unit, src.timezone
+        if tk == "timestamp":
+            return temporal.convert_unit(vals, unit, dtype.time_unit)
+        if tk == "date":
+            local = temporal.to_local(vals, unit, tz)
+            return np.floor_divide(local, 86_400 * temporal.PER_SECOND[unit]).astype(np.int32)
+        if tk == "time":
+            local = temporal.to_local(vals, unit, tz)
+            tod = np.mod(local, 86_400 * temporal.PER_SECOND[unit])
+            return temporal.convert_unit(tod, unit, dtype.storage_unit)
+        if tk == "int64":
+            return vals.astype(np.int64)
+        if tk == "string":
+            return format_timestamps(vals, valid, unit, tz)
+        raise refuse()
+    if sk == "date" and tk == "timestamp":
+        return vals.astype(np.int64) * np.int64(86_400 * temporal.PER_SECOND[dtype.time_unit])
+    if sk == "date" and tk == "string":
+        y, m, d = temporal.civil_from_days(vals)
+        out = np.empty(len(v), dtype=object)
+        out[:] = [f"{a:04d}-{b:02d}-{c:02d}" if ok else None
+                  for a, b, c, ok in zip(y.tolist(), m.tolist(), d.tolist(), valid.tolist())]
+        return out
+    if sk == "duration":
+        if tk == "duration":
+            return temporal.convert_unit(vals, src.time_unit, dtype.time_unit)
+        if tk == "int64":
+            return vals.astype(np.int64)
+        if tk == "string":
+            out = np.empty(len(v), dtype=object)
+            out[:] = [str(x) if ok else None for x, ok in zip(vals.tolist(), valid.tolist())]
+            return out
+        raise refuse()
+    if sk == "time":
+        if tk == "time":
+            return temporal.convert_unit(vals, src.storage_unit, dtype.storage_unit)
+        if tk == "int64":
+            return vals.astype(np.int64)
+        if tk == "string":
+            unit = src.storage_unit
+            per = temporal.PER_SECOND[unit]
+            secs, sub = np.divmod(vals, per)
+            hh, rest = np.divmod(secs, 3600)
+            mi, ss = np.divmod(rest, 60)
+            out = np.empty(len(v), dtype=object)
+            out[:] = [f"{a:02d}:{b:02d}:{c:02d}{f}" if ok else None
+                      for a, b, c, f, ok in zip(hh.tolist(), mi.tolist(), ss.tolist(),
+                                                _frac(sub, unit), valid.tolist())]
+            return out
+        raise refuse()
+    if src.is_integer() and tk in ("timestamp", "duration", "time"):
+        return vals.astype(np.int64)
+    if sk == "string" and tk == "timestamp":
+        zoned = dtype.timezone is not None
+        return np.asarray([_parse_iso(x, dtype.time_unit, zoned) if ok else 0
+                           for x, ok in zip(v.tolist(), valid.tolist())], dtype=np.int64)
+    if sk == "string" and tk == "date":
+        out = []
+        for x, ok in zip(v.tolist(), valid.tolist()):
+            if not ok:
+                out.append(0)
+                continue
+            try:
+                out.append(datetime.date.fromisoformat(x).toordinal() - _EPOCH_ORDINAL)
+            except ValueError:
+                raise ValueError(f"Failed to parse string: {x!r} as a scalar of type date32")
+        return np.asarray(out, dtype=np.int32)
+    raise refuse()

@@ -1,10 +1,15 @@
 """DataFrame: the lazy user-facing API (counterpart of
 daft_tpu/dataframe/dataframe.py, the subset the port's slices need):
-``where``, ``select``, ``with_column``, ``join`` (inner, left, semi, anti,
-cross), ``distinct``, ``repartition``,
-``groupby(...).agg(...)``, the ungrouped ``agg`` (and ``sum``, ``mean``,
-``min``, ``max``, ``count``), ``sort``, ``limit``, ``offset``, ``exclude``,
-``collect``, ``to_pydict``, ``write_parquet`` and ``write_csv``; the
+``where``, ``select``, ``with_column(s)``, ``with_column(s)_renamed``,
+``join`` (inner, left, semi, anti, cross), ``distinct``, ``repartition``,
+``into_partitions``, ``into_batches``, ``sample``, ``unpivot`` / ``melt``,
+``pivot``, ``add_monotonically_increasing_id``, ``groupby(...).agg(...)``
+(and its ``map_groups`` and aggregate shortcuts), the ungrouped ``agg``
+(and ``sum``, ``mean``, ``min``, ``max``, ``count``, ``count_rows``,
+``stddev``, ``var``, ``skew``, ``any_value``, ``describe``), ``sort``,
+``limit``, ``offset``, ``exclude``, ``drop_null``, ``drop_nan``, ``pipe``,
+``transform``, ``collect``, ``to_pydict``, ``to_pylist``, ``iter_rows``,
+``iter_partitions``, ``show``, ``write_parquet`` and ``write_csv``; the
 readers (``read_parquet``, ``read_csv``) make a DataFrame over a scan
 (``from_scan``). ``explain``, ``explain_analyze`` and ``metrics`` report
 the plans and a run's per-operator stats (observability/);
@@ -21,10 +26,10 @@ on the CPU.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Union
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Union
 
 from ..core.micropartition import MicroPartition
-from ..expressions.expressions import Expression, col, lit
+from ..expressions.expressions import Alias, Expression, col, lit
 from ..plan import logical as lp
 from ..schema import Schema
 
@@ -199,6 +204,102 @@ class DataFrame:
         keep = [col(n) for n in self.column_names if n != name]
         return DataFrame(lp.Project(self._plan, keep + [_to_expr(expr).alias(name)]))
 
+    def with_columns(self, columns: Dict[str, ColumnInput]) -> "DataFrame":
+        """Add (or replace) several columns at once, as ``with_column``."""
+        new = [_to_expr(e).alias(n) for n, e in columns.items()]
+        keep = [col(n) for n in self.column_names if n not in columns]
+        return DataFrame(lp.Project(self._plan, keep + new))
+
+    def with_column_renamed(self, existing: str, new: str) -> "DataFrame":
+        return self.with_columns_renamed({existing: new})
+
+    def with_columns_renamed(self, mapping: Dict[str, str]) -> "DataFrame":
+        """Rename columns in place (the others keep their names and order)."""
+        return DataFrame(lp.Project(self._plan, [Alias(col(n), mapping[n]) if n in mapping
+                                                 else col(n) for n in self.column_names]))
+
+    def sample(self, fraction: float, with_replacement: bool = False,
+               seed: Optional[int] = None) -> "DataFrame":
+        """A Bernoulli sample of ``fraction`` of the rows; with a seed and
+        without replacement, the same rows as the reference keeps for that
+        seed, however the stream is batched."""
+        return DataFrame(lp.Sample(self._plan, fraction, with_replacement, seed))
+
+    def unpivot(self, ids: Sequence[ColumnInput], values: Sequence[ColumnInput] = (),
+                variable_name: str = "variable", value_name: str = "value") -> "DataFrame":
+        """Wide to long: the ``ids``, then the name and value of each of
+        ``values`` (every other column when none is given), one row each."""
+        ids_ex = _to_exprs(ids if isinstance(ids, (list, tuple)) else [ids])
+        if not values:
+            id_names = {e.name() for e in ids_ex}
+            values = [c for c in self.column_names if c not in id_names]
+        vals_ex = _to_exprs(values if isinstance(values, (list, tuple)) else [values])
+        return DataFrame(lp.Unpivot(self._plan, ids_ex, vals_ex, variable_name, value_name))
+
+    melt = unpivot
+
+    def pivot(self, group_by: Union[ColumnInput, List[ColumnInput]], pivot_col: ColumnInput,
+              value_col: ColumnInput, agg_fn: str,
+              names: Optional[List[str]] = None) -> "DataFrame":
+        """Long to wide: per ``group_by`` key, one column per distinct value
+        of ``pivot_col`` (its ``str``, sorted; ``names`` fixes them) holding
+        ``agg_fn`` of ``value_col``. Finding the names runs a query."""
+        gb = _to_exprs(group_by if isinstance(group_by, list) else [group_by])
+        pc_expr = _to_expr(pivot_col)
+        if names is None:
+            vals = self.select(pc_expr).distinct().sort(pc_expr.name()) \
+                .to_pydict()[pc_expr.name()]
+            names = [str(v) for v in vals if v is not None]
+        return DataFrame(lp.Pivot(self._plan, gb, pc_expr, _to_expr(value_col), agg_fn,
+                                  names))
+
+    def add_monotonically_increasing_id(self, column_name: str = "id") -> "DataFrame":
+        """A first uint64 column of increasing ids (the partition in the top
+        28 bits, the row within it below)."""
+        return DataFrame(lp.MonotonicallyIncreasingId(self._plan, column_name))
+
+    _add_monotonically_increasing_id = add_monotonically_increasing_id
+
+    def into_partitions(self, num: int) -> "DataFrame":
+        """The rows, in order, as ``num`` partitions of equal size."""
+        return DataFrame(lp.IntoPartitions(self._plan, num))
+
+    def into_batches(self, batch_size: int) -> "DataFrame":
+        """The stream re-cut into batches of ``batch_size`` rows."""
+        return DataFrame(lp.IntoBatches(self._plan, batch_size))
+
+    def drop_null(self, *cols: ColumnInput) -> "DataFrame":
+        """Drop the rows with a null in ``cols`` (in any column if none)."""
+        exprs = _to_exprs(cols) if cols else [col(c) for c in self.column_names]
+        pred = exprs[0].not_null()
+        for e in exprs[1:]:
+            pred = pred & e.not_null()
+        return self.where(pred)
+
+    def drop_nan(self, *cols: ColumnInput) -> "DataFrame":
+        """Drop the rows with a NaN in ``cols`` (in any float column if
+        none); a null is kept."""
+        exprs = _to_exprs(cols) if cols else \
+            [col(f.name) for f in self.schema if f.dtype.is_floating()]
+        if not exprs:
+            return self
+        pred = None
+        for e in exprs:
+            c = e.is_null() | ~e.float.is_nan()
+            pred = c if pred is None else pred & c
+        return self.where(pred)
+
+    def pipe(self, fn, *args, **kwargs):
+        """``fn(self, *args, **kwargs)``."""
+        return fn(self, *args, **kwargs)
+
+    def transform(self, fn, *args, **kwargs) -> "DataFrame":
+        """``fn(self, *args, **kwargs)``, which must return a DataFrame."""
+        out = fn(self, *args, **kwargs)
+        if not isinstance(out, DataFrame):
+            raise ValueError(f"transform fn must return a DataFrame, got {type(out).__name__}")
+        return out
+
     def join(self, other: "DataFrame",
              on: Optional[Union[ColumnInput, List[ColumnInput]]] = None,
              left_on: Optional[Union[ColumnInput, List[ColumnInput]]] = None,
@@ -348,6 +449,39 @@ class DataFrame:
             return self.agg(lit(1).count("all").alias("count"))
         return self.agg(*[_to_expr(c).count() for c in cols])
 
+    def count_rows(self) -> int:
+        return self.count().to_pydict()["count"][0]
+
+    def __len__(self) -> int:
+        return self.count_rows()
+
+    def stddev(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).stddev() for c in cols])
+
+    def var(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).var() for c in cols])
+
+    def skew(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).skew() for c in cols])
+
+    def any_value(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).any_value() for c in cols])
+
+    def describe(self) -> "DataFrame":
+        """Per numeric column: count, mean, stddev, min and max."""
+        aggs = []
+        for f in self.schema:
+            if f.dtype.is_numeric():
+                c = col(f.name)
+                aggs += [c.count().alias(f"{f.name}_count"), c.mean().alias(f"{f.name}_mean"),
+                         c.stddev().alias(f"{f.name}_stddev"), c.min().alias(f"{f.name}_min"),
+                         c.max().alias(f"{f.name}_max")]
+        if not aggs:
+            raise ValueError("describe() needs at least one numeric column")
+        return self.agg(*aggs)
+
+    summarize = describe
+
     def write_parquet(self, root_dir: str, compression: str = "snappy",
                       partition_cols: Optional[List[ColumnInput]] = None,
                       write_mode: str = "append") -> "DataFrame":
@@ -399,6 +533,59 @@ class DataFrame:
             return {name: [] for name in self.column_names}
         return MicroPartition.concat(parts).to_pydict()
 
+    def iter_partitions(self) -> Iterator[MicroPartition]:
+        """The result partitions, streamed as the plan produces them (or the
+        collected ones)."""
+        if self._result is not None:
+            yield from self._result
+            return
+        from ..runners import get_or_create_runner
+
+        yield from get_or_create_runner().run_iter(self._plan)
+
+    def iter_rows(self) -> Iterator[Dict[str, Any]]:
+        """Each result row as a dict."""
+        for part in self.iter_partitions():
+            for b in part.batches:
+                d = b.to_pydict()
+                names = list(d)
+                for i in range(b.num_rows):
+                    yield {n: d[n][i] for n in names}
+
+    def __iter__(self):
+        return self.iter_rows()
+
+    def to_pylist(self) -> List[Dict[str, Any]]:
+        return list(self.iter_rows())
+
+    def show(self, n: int = 8) -> None:
+        """Print the first ``n`` rows as a table, as the reference prints it."""
+        print(self._preview_string(n))
+
+    def _preview_string(self, n: int = 8) -> str:
+        d = self.limit(n).to_pydict()
+        names = self.column_names
+        dtypes = [str(self.schema[c].dtype) for c in names]
+        rows = len(d[names[0]]) if names else 0
+
+        def fmt(v) -> str:
+            s = "None" if v is None else str(v)
+            return s if len(s) <= 30 else s[:29] + "…"
+
+        cols = [[fmt(v) for v in d[c]] for c in names]
+        widths = [max(len(c), len(t), *(len(v) for v in vs) if vs else (0,))
+                  for c, t, vs in zip(names, dtypes, cols)]
+        lines = ["╭" + "┬".join("─" * (w + 2) for w in widths) + "╮",
+                 "│" + "│".join(f" {c:<{w}} " for c, w in zip(names, widths)) + "│",
+                 "│" + "│".join(f" {t:<{w}} " for t, w in zip(dtypes, widths)) + "│",
+                 "├" + "┼".join("─" * (w + 2) for w in widths) + "┤"]
+        for i in range(rows):
+            cells = (f" {vs[i]:<{w}} " for vs, w in zip(cols, widths))
+            lines.append("│" + "│".join(cells) + "│")
+        lines.append("╰" + "┴".join("─" * (w + 2) for w in widths) + "╯")
+        lines.append(f"(Showing {rows} rows)")
+        return "\n".join(lines)
+
 
 def from_scan(scan_op) -> DataFrame:
     """A DataFrame over a ScanOperator (io/scan.py)."""
@@ -428,3 +615,37 @@ class GroupedDataFrame:
 
     def agg(self, *aggs: Expression) -> DataFrame:
         return DataFrame(lp.Aggregate(self._df._plan, self._group_by, _to_exprs(aggs)))
+
+    def sum(self, *cols: ColumnInput) -> DataFrame:
+        return self.agg(*[_to_expr(c).sum() for c in cols])
+
+    def mean(self, *cols: ColumnInput) -> DataFrame:
+        return self.agg(*[_to_expr(c).mean() for c in cols])
+
+    def min(self, *cols: ColumnInput) -> DataFrame:
+        return self.agg(*[_to_expr(c).min() for c in cols])
+
+    def max(self, *cols: ColumnInput) -> DataFrame:
+        return self.agg(*[_to_expr(c).max() for c in cols])
+
+    def count(self, *cols: ColumnInput) -> DataFrame:
+        if not cols:
+            return self.agg(lit(1).count("all").alias("count"))
+        return self.agg(*[_to_expr(c).count() for c in cols])
+
+    def any_value(self, *cols: ColumnInput) -> DataFrame:
+        return self.agg(*[_to_expr(c).any_value() for c in cols])
+
+    def stddev(self, *cols: ColumnInput) -> DataFrame:
+        return self.agg(*[_to_expr(c).stddev() for c in cols])
+
+    def var(self, *cols: ColumnInput) -> DataFrame:
+        return self.agg(*[_to_expr(c).var() for c in cols])
+
+    def skew(self, *cols: ColumnInput) -> DataFrame:
+        return self.agg(*[_to_expr(c).skew() for c in cols])
+
+    def map_groups(self, udf_expr: Expression) -> DataFrame:
+        """A UDF over each group's rows; it may emit any number of rows per
+        group, each with the group's keys."""
+        return DataFrame(lp.MapGroups(self._df._plan, self._group_by, udf_expr))

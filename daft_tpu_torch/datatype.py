@@ -1,8 +1,9 @@
 """Logical data types (counterpart of daft_tpu/datatype.py, the integer, float,
-bool, string and date kinds, lists, and ``python`` for arbitrary objects).
+bool, string and temporal kinds, lists, and ``python`` for arbitrary objects).
 
 The port keeps host columns in numpy, not Arrow: ``to_numpy`` is the host
-storage dtype (dates are int32 days since the epoch, strings are object
+storage dtype (dates are int32 days since the epoch; timestamps, durations
+and times int64 ticks of their unit, core/temporal.py; strings are object
 arrays) and ``to_torch`` the device dtype (the counterpart of ``to_jax``,
 datatype.py:394-409).
 """
@@ -10,9 +11,24 @@ datatype.py:394-409).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
+
+
+class TimeUnit:
+    SECONDS = "s"
+    MILLISECONDS = "ms"
+    MICROSECONDS = "us"
+    NANOSECONDS = "ns"
+
+    _ALL = ("s", "ms", "us", "ns")
+
+    @staticmethod
+    def check(unit: str) -> str:
+        if unit not in TimeUnit._ALL:
+            raise ValueError(f"invalid time unit {unit!r}; expected one of {TimeUnit._ALL}")
+        return unit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,13 +43,15 @@ class Field:
 _INTEGER_KINDS = frozenset({"int8", "int16", "int32", "int64", "uint8", "uint16",
                             "uint32", "uint64"})
 _FLOAT_KINDS = frozenset({"float32", "float64"})
+_TEMPORAL_KINDS = frozenset({"date", "time", "timestamp", "duration"})
 
 _NUMPY_MAP = {
     "bool": "bool",
     "int8": "int8", "int16": "int16", "int32": "int32", "int64": "int64",
     "uint8": "uint8", "uint16": "uint16", "uint32": "uint32", "uint64": "uint64",
     "float32": "float32", "float64": "float64",
-    "date": "int32", "string": "object", "null": "object",
+    "date": "int32", "timestamp": "int64", "duration": "int64", "time": "int64",
+    "string": "object", "null": "object",
     "list": "object", "python": "object",
 }
 
@@ -103,6 +121,19 @@ class DataType:
         return cls("date")
 
     @classmethod
+    def time(cls, unit: str = TimeUnit.MICROSECONDS) -> "DataType":
+        return cls("time", (TimeUnit.check(unit),))
+
+    @classmethod
+    def timestamp(cls, unit: str = TimeUnit.MICROSECONDS,
+                  timezone: Optional[str] = None) -> "DataType":
+        return cls("timestamp", (TimeUnit.check(unit), timezone))
+
+    @classmethod
+    def duration(cls, unit: str = TimeUnit.MICROSECONDS) -> "DataType":
+        return cls("duration", (TimeUnit.check(unit),))
+
+    @classmethod
     def list(cls, inner: "DataType") -> "DataType":
         """Variable-length lists of ``inner`` (host storage: an object array
         of Python lists)."""
@@ -136,7 +167,7 @@ class DataType:
         return self.is_integer() or self.is_floating()
 
     def is_temporal(self) -> bool:
-        return self.kind == "date"
+        return self.kind in _TEMPORAL_KINDS
 
     def is_string(self) -> bool:
         return self.kind == "string"
@@ -151,14 +182,37 @@ class DataType:
             raise ValueError(f"{self} has no element type")
         return self.params[0]
 
+    @property
+    def time_unit(self) -> str:
+        if self.kind in ("time", "timestamp", "duration"):
+            return self.params[0]
+        raise ValueError(f"{self} has no time unit")
+
+    @property
+    def timezone(self) -> Optional[str]:
+        if self.kind == "timestamp":
+            return self.params[1]
+        raise ValueError(f"{self} is not a timestamp")
+
+    @property
+    def storage_unit(self) -> str:
+        """The unit of the stored ticks: the time unit, except that a time of
+        day in s or ms is stored in us, as the reference's time64[us]."""
+        if self.kind == "time":
+            return "ns" if self.params[0] == "ns" else "us"
+        return self.time_unit
+
     # ---- conversion ---------------------------------------------------------------
     @classmethod
     def from_numpy(cls, np_dtype) -> "DataType":
         dt = np.dtype(np_dtype)
-        if dt.kind == "M":
-            if np.datetime_data(dt)[0] != "D":
-                raise ValueError(f"only datetime64[D] maps to date, got {dt}")
-            return cls.date()
+        if dt.kind in ("M", "m"):
+            unit = np.datetime_data(dt)[0]
+            if dt.kind == "M" and unit == "D":
+                return cls.date()
+            if unit not in TimeUnit._ALL:
+                raise ValueError(f"no port data type for numpy dtype {dt}")
+            return cls.timestamp(unit) if dt.kind == "M" else cls.duration(unit)
         if dt.kind in ("U", "O"):
             return cls.string()
         if dt.name in _NUMPY_MAP and dt.name not in ("object",):
@@ -188,9 +242,16 @@ class DataType:
             return torch.int64
         if self.kind == "date":
             return torch.int32
+        if self.kind in ("timestamp", "duration", "time"):
+            return torch.int64
         raise ValueError(f"{self} is not device-compatible")
 
     def __repr__(self) -> str:
         if self.is_list():
             return f"List[{self.params[0]!r}]"
+        if self.kind == "timestamp":
+            unit, tz = self.params
+            return f"Timestamp({unit}, {tz})" if tz else f"Timestamp({unit})"
+        if self.kind in ("time", "duration"):
+            return f"{self.kind.capitalize()}({self.params[0]})"
         return self.kind.capitalize() if self.kind != "null" else "Null"

@@ -29,13 +29,17 @@ grouped or ungrouped, the same way (``_exec_device_join_agg``), a
 (``_exec_device_join_topn``), and a ``HashJoin`` (inner, left, semi,
 anti: a ``JoinProbe`` built once from the right side), a ``CrossJoin`` and
 a ``Dedup`` (distinct) run on the host. A ``PhysRepartition`` splits on the
-host by the rows' hash (or at random), or, for a hash repartition into
-``mesh_devices`` partitions, runs the mesh exchange on the device
-(``_mesh_repartition``). A ``PhysWindow`` evaluates its window functions on
-the host (execution/window.py). A ``PhysWrite`` hands its input stream to
-the writer (io/writers.py). Any other error, a kernel that fails to build or
-launch included, propagates, from a stage thread through its channel: no
-device failure turns into a host result.
+host by the rows' hash (or at random, or into equal slices in order for
+``IntoPartitions``), or, for a hash repartition into ``mesh_devices``
+partitions, runs the mesh exchange on the device (``_mesh_repartition``).
+A ``PhysWindow`` evaluates its window functions on the host
+(execution/window.py). ``PhysUnpivot``, ``PhysSample``, ``PhysMonotonicId``,
+``PhysMapGroups``, ``PhysPivot`` and ``PhysIntoBatches`` run on the host
+(core/relational.py), as the reference's executor.py:212-404. A
+``PhysWrite`` hands its input stream to the writer (io/writers.py). Any
+other error, a kernel that fails to build or launch included, propagates,
+from a stage thread through its channel: no device failure turns into a
+host result.
 
 Placement: under ``device_mode="on"`` every device node runs on the device
 (each run recorded as forced in the placement ledger,
@@ -64,9 +68,11 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
+from ..core import relational as rel
 from ..core.micropartition import MicroPartition
 from ..core.recordbatch import RecordBatch
 from ..core.series import Series
+from ..datatype import DataType
 from ..expressions.eval import eval_expression, eval_projection
 from ..expressions.expressions import AggExpr, Alias, Expression, col, lit
 from ..observability import placement as _placement
@@ -87,9 +93,10 @@ def execute_plan(plan: pp.PhysicalPlan) -> Iterator[MicroPartition]:
 # machines, PhysWrite is a sink its consumer drives, a UDF's concurrency is
 # the UDF tier's, and the device join runs (not stage nodes in the
 # reference either) pull their fact and dims themselves.
-_STAGE_NODES = (pp.StreamingScan, pp.Project, pp.PhysFilter, pp.PhysSort,
-                pp.HashAggregate, pp.DeviceFilterAgg, pp.DeviceGroupedAgg, pp.Dedup,
-                pp.HashJoin, pp.CrossJoin, pp.PhysRepartition, pp.PhysWindow)
+_STAGE_NODES = (pp.StreamingScan, pp.Project, pp.PhysFilter, pp.PhysUnpivot,
+                pp.PhysSample, pp.PhysSort, pp.HashAggregate, pp.DeviceFilterAgg,
+                pp.DeviceGroupedAgg, pp.Dedup, pp.PhysPivot, pp.HashJoin, pp.CrossJoin,
+                pp.PhysRepartition, pp.PhysWindow)
 
 
 def _exec(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
@@ -280,7 +287,108 @@ def _exec_impl(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
         yield from _repartition(node)
         return
 
+    if isinstance(node, pp.PhysUnpivot):
+        def unpivot(part, _i):
+            batches = [rel.unpivot(b, [_full_length(eval_expression(b, e), b.num_rows)
+                                       for e in node.ids],
+                                   [_full_length(eval_expression(b, e), b.num_rows)
+                                    for e in node.values],
+                                   node.variable_name, node.value_name, node.schema)
+                       for b in part.batches]
+            return MicroPartition(node.schema, batches or [RecordBatch.empty(node.schema)])
+
+        yield from _map_op(_exec(node.input), unpivot)
+        return
+
+    if isinstance(node, pp.PhysSample):
+        # a seeded sample without replacement hashes each row's position in
+        # the stream (rel.sample_at): the same seed keeps the same rows
+        # however the stream is batched, as in the reference
+        offset = 0
+        for i, part in enumerate(_exec(node.input)):
+            batches = []
+            for b in part.batches:
+                if node.seed is not None and not node.with_replacement:
+                    batches.append(rel.sample_at(b, node.fraction, node.seed, offset))
+                else:
+                    seed = None if node.seed is None else node.seed + i
+                    batches.append(rel.sample(b, node.fraction, node.with_replacement, seed))
+                offset += b.num_rows
+            yield MicroPartition(node.schema, batches or [RecordBatch.empty(node.schema)])
+        return
+
+    if isinstance(node, pp.PhysMonotonicId):
+        # the partition index in the top 28 bits, the row's position in its
+        # partition in the low 36, as the reference
+        for part_id, part in enumerate(_exec(node.input)):
+            offset = 0
+            batches = []
+            for b in part.batches:
+                ids = (np.uint64(part_id) << np.uint64(36)) + np.arange(
+                    offset, offset + b.num_rows, dtype=np.uint64)
+                offset += b.num_rows
+                id_col = Series.from_numpy(ids, node.column_name, DataType.uint64())
+                batches.append(RecordBatch(node.schema, [id_col] + b.columns(), b.num_rows))
+            yield MicroPartition(node.schema, batches or [RecordBatch.empty(node.schema)])
+        return
+
+    if isinstance(node, pp.PhysMapGroups):
+        yield _exec_map_groups(node)
+        return
+
+    if isinstance(node, pp.PhysPivot):
+        keys = list(node.groupby) + [node.pivot_col]
+        sub = _two_phase_agg(_exec(node.input), keys, [AggExpr(node.agg_op, node.value_col)],
+                             node.input.schema)
+        yield MicroPartition(node.schema, [rel.pivot(sub, len(node.groupby), node.names,
+                                                     node.schema)])
+        return
+
+    if isinstance(node, pp.PhysIntoBatches):
+        buffer: List[RecordBatch] = []
+        buffered = 0
+        for part in _exec(node.input):
+            for b in part.batches:
+                buffer.append(b)
+                buffered += b.num_rows
+                while buffered >= node.batch_size:
+                    big = RecordBatch.concat(buffer)
+                    rest = big.slice(node.batch_size, big.num_rows)
+                    yield MicroPartition(node.schema, [big.head(node.batch_size)])
+                    buffer = [rest] if rest.num_rows else []
+                    buffered = rest.num_rows
+        if buffered:
+            yield MicroPartition(node.schema, [RecordBatch.concat(buffer)])
+        return
+
     raise NotImplementedError(f"no executor for {node.name()}")
+
+
+def _exec_map_groups(node) -> MicroPartition:
+    """The UDF expression over each group's rows (groups in first
+    occurrence order), each group's keys repeated for every row it emits,
+    as the reference."""
+    from ..core.kernels.groupby import make_groups
+
+    batch = _concat_parts(list(_exec(node.input)), node.input.schema)
+    if batch.num_rows == 0:
+        return MicroPartition(node.schema, [RecordBatch.empty(node.schema)])
+    key_series = [_full_length(eval_expression(batch, e), batch.num_rows)
+                  for e in node.groupby]
+    first_idx, group_ids, _counts = make_groups(key_series)
+    order = np.argsort(group_ids, kind="stable")
+    bounds = np.concatenate([[0], np.flatnonzero(np.diff(group_ids[order])) + 1,
+                             [len(order)]]).astype(np.int64)
+    outs: List[Series] = []
+    for g in range(len(first_idx)):
+        sub = batch.take(order[bounds[g]:bounds[g + 1]])
+        outs.append(eval_expression(sub, node.udf_expr))  # any number of rows
+    reps = np.repeat(np.arange(len(first_idx), dtype=np.int64),
+                     np.asarray([len(o) for o in outs], dtype=np.int64))
+    cols = [ks.take(first_idx).take(reps) for ks in key_series] + [Series.concat(outs)]
+    out = RecordBatch(node.schema, [c.cast(f.dtype) if c.dtype != f.dtype else c
+                                    for c, f in zip(cols, node.schema)], int(len(reps)))
+    return MicroPartition(node.schema, [out])
 
 
 def _streaming_scan(node: pp.StreamingScan) -> Iterator[MicroPartition]:
@@ -1687,6 +1795,15 @@ def _repartition(node: pp.PhysRepartition) -> Iterator[MicroPartition]:
     input order. ``random`` draws each input partition's ids from numpy's
     ``default_rng(partition index)``, as the reference."""
     n = node.num_partitions or 1
+    if node.scheme == "into":
+        batch = _concat_parts(list(_exec(node.input)), node.schema)
+        rows = batch.num_rows
+        start = 0
+        for i in range(n):
+            size = rows // n + (1 if i < rows % n else 0)
+            yield MicroPartition(node.schema, [batch.slice(start, start + size)])
+            start += size
+        return
     if node.scheme == "hash" and _mesh_repart_eligible(node, n):
         yield from _mesh_repartition(node, n)
         return

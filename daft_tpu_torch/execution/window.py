@@ -12,15 +12,18 @@ order key.
   ``cume_dist``, ``ntile`` (the first ``len % n`` buckets one row larger);
 - ``lag`` / ``lead`` by an offset within the partition, a default (or null)
   past its edge; ``first_value`` / ``last_value`` of the frame;
-- aggregations over the frame (``sum``, ``count``, ``mean``, ``min``,
-  ``max``): prefix sums for the sums and counts (integers in int64, exact
-  past 2^53; floats in float64), a sparse table for min and max
+- aggregations over the frame (``sum``, ``count``, ``mean``, ``stddev``,
+  ``var``, ``min``, ``max``): prefix sums for the sums and counts (integers
+  in int64, exact past 2^53; floats in float64), f64 prefix sums of x and
+  x^2 for the population stddev and var, a sparse table for min and max
   (``_sliding_minmax``). The frame is ``rows_between`` (row offsets) or
   ``range_between`` (the one numeric order key's offsets; a null key frames
   over its peers), clipped to the partition; with none, an ordered window
   runs from the partition's start through the current row's peers, an
   unordered one covers the partition. A frame that is empty, or holds fewer
   than ``min_periods`` rows, or no valid value, gives null (a count, 0).
+  ``any_value``, ``skew``, ``bool_and``, ``bool_or`` and ``count_distinct``
+  raise over a window, as in the reference.
 """
 
 from __future__ import annotations
@@ -175,10 +178,6 @@ def _eval_one(we, batch: RecordBatch, spec, r: _Rows) -> Series:
         return _uint64(vals, r, name)
 
     # ---- value functions ------------------------------------------------------------
-    if func in ("any_value", "stddev", "var", "skew", "bool_and", "bool_or",
-                "count_distinct"):
-        raise NotImplementedError(f"the windowed aggregation {func!r} is not ported yet: it "
-                                  "comes with the windowed-aggregates wave (ROADMAP item 7)")
     child = _full(batch, we.child)
     sorted_child = child.take(sorted_idx)
     if func in ("lag", "lead"):
@@ -248,9 +247,24 @@ def _eval_one(we, batch: RecordBatch, spec, r: _Rows) -> Series:
         with np.errstate(invalid="ignore", divide="ignore"):
             out = wsum.astype(np.float64) / wcnt
         return null_where_empty(out)
+    if func in ("stddev", "var"):
+        # the reference's f64 prefix sums of x and x^2 (population moments;
+        # a ddof is not applied over a window, as in the reference)
+        f64 = np.where(valid, vals.astype(np.float64), 0.0)
+        csq = np.concatenate([[0.0], np.cumsum(f64 * f64)])
+        cs = np.concatenate([[0.0], np.cumsum(f64)])
+        wsq = csq[hi_e + 1] - csq[lo_e]
+        ws = cs[hi_e + 1] - cs[lo_e]
+        with np.errstate(invalid="ignore", divide="ignore"):
+            m = ws / wcnt
+            var = np.maximum(wsq / wcnt - m * m, 0.0)
+            out = np.sqrt(var) if func == "stddev" else var
+        return null_where_empty(out)
     if func in ("min", "max"):
         out = _sliding_minmax(fvals, valid, lo_e, np.maximum(hi_e, lo_e), func == "min")
         return null_where_empty(out, we.child.to_field(batch.schema).dtype)
+    # any_value, skew, bool_and, bool_or and count_distinct: the reference
+    # refuses them over a window with this error
     raise ValueError(f"window aggregation {func!r} not supported")
 
 

@@ -24,6 +24,7 @@ from typing import List
 import numpy as np
 
 from ..core.series import Series, _null_fill
+from ..core.temporal import common_temporal_type, unit_type
 from ..datatype import DataType
 from ..schema import Schema
 from .expressions import (
@@ -123,6 +124,10 @@ def _is_in(s: Series, items: List[Series]) -> Series:
     costs one gather."""
     targets = set()
     has_null = False
+    if s.dtype.is_temporal():
+        # a datetime item is held in its literal's unit: compare in the column's
+        items = [it.cast(s.dtype) if it.dtype.is_temporal() and it.dtype != s.dtype else it
+                 for it in items]
     for it in items:
         for v, ok in zip(it.to_numpy().tolist(), it.validity_numpy().tolist()):
             if ok:
@@ -167,8 +172,36 @@ def _make(name: str, dtype: DataType, values, valid) -> Series:
     return Series(name, dtype, values, valid)
 
 
+_TICKS = ("timestamp", "duration")
+
+
+def _incomparable(l: DataType, r: DataType) -> ValueError:
+    if l.kind == r.kind == "timestamp":
+        return ValueError("Cannot compare timestamp with timezone to timestamp without "
+                          f"timezone, got: {l} and {r}")
+    return ValueError(f"cannot compare {l} with {r}")
+
+
+def _temporal_arith(op: str, l: Series, r: Series, out_dt: DataType) -> Series:
+    """Temporal + and - (the types of expressions.py ``_temporal_arith_type``):
+    the operands in the result's unit, a date as its midnight."""
+    lm, rm = l.validity_numpy(), r.validity_numpy()
+    unit = out_dt.time_unit
+    if l.dtype.kind == "date" and r.dtype.kind == "date":
+        lv, rv = l.to_numpy().astype(np.int64), r.to_numpy().astype(np.int64)
+        return _make(l.name, out_dt, (lv - rv) * np.int64(86_400), lm & rm)
+    lv = l.cast(unit_type(l.dtype, unit)).to_numpy()
+    rv = r.cast(unit_type(r.dtype, unit)).to_numpy()
+    with np.errstate(over="ignore"):
+        val = lv + rv if op == "add" else lv - rv
+    return _make(l.name, out_dt, val, lm & rm)
+
+
 def _binop(op: str, l: Series, r: Series, out_dt: DataType) -> Series:
     lm, rm = l.validity_numpy(), r.validity_numpy()
+    if op in ("add", "sub") and out_dt.kind in _TICKS and not (
+            l.dtype.is_null() or r.dtype.is_null()):
+        return _temporal_arith(op, l, r, out_dt)
     if op == "add" and out_dt.is_string():
         n = max(len(l), len(r))
         lv = np.broadcast_to(l.to_numpy(), n)
@@ -221,6 +254,11 @@ def _binop(op: str, l: Series, r: Series, out_dt: DataType) -> Series:
             n = max(len(l), len(r))
             return _make(l.name, DataType.bool(), np.zeros(n, bool), np.zeros(n, bool))
         lv, rv = l.to_numpy(), r.to_numpy()
+        if l.dtype != r.dtype and l.dtype.is_temporal() and r.dtype.is_temporal():
+            t = common_temporal_type(l.dtype, r.dtype)
+            if t is None:
+                raise _incomparable(l.dtype, r.dtype)
+            lv, rv = l.cast(t).to_numpy(), r.cast(t).to_numpy()
         if lv.dtype == object or rv.dtype == object:
             # strings: null slots hold None, which does not order against str
             lv = np.where(lm, lv, "")

@@ -24,6 +24,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
+from ..core.temporal import finer_unit
 from ..datatype import DataType, Field
 from ..schema import Schema
 
@@ -282,8 +283,8 @@ class Expression:
         return StringNamespace(self)
 
     @property
-    def dt(self) -> "DateNamespace":
-        return DateNamespace(self)
+    def dt(self) -> "TemporalNamespace":
+        return TemporalNamespace(self)
 
     @property
     def float(self) -> "FloatNamespace":
@@ -426,10 +427,15 @@ class Literal(Expression):
         return Field("literal", self.dtype)
 
     def storage_value(self):
-        """The value as stored in a column: a date literal is int32 days
-        since 1970-01-01, on the host path and the device path alike."""
-        if self.dtype.is_temporal() and isinstance(self.value, datetime.date):
-            return self.value.toordinal() - datetime.date(1970, 1, 1).toordinal()
+        """The value as stored in a column of the literal's type, on the host
+        path and the device path alike: a date is int32 days since
+        1970-01-01, a timestamp int64 ticks of its unit (an aware datetime
+        its UTC instant, a naive one read as UTC), a duration or a time of
+        day int64 ticks."""
+        if self.dtype.is_temporal() and self.value is not None:
+            from ..core.series import _temporal_ticks
+
+            return _temporal_ticks(self.value, self.dtype)
         return self.value
 
     def __repr__(self):
@@ -804,10 +810,9 @@ class StringNamespace(_Namespace):
         return self._e._fn("tokenize_decode", *args, **kwargs)
 
 
-class DateNamespace(_Namespace):
-    """``expr.dt``: the date functions (the reference's TemporalNamespace
-    over the ``date`` type; the timestamp-only ones come with a later
-    wave)."""
+class TemporalNamespace(_Namespace):
+    """``expr.dt``: the temporal functions over dates, timestamps and
+    times (the reference's TemporalNamespace)."""
 
     def year(self):
         return self._e._fn("dt_year")
@@ -1107,6 +1112,18 @@ def _install_flat_api():
 _install_flat_api()
 
 
+def _partition_transform(fname):
+    def flat(self):
+        return self._fn(fname)
+    flat.__name__ = fname
+    flat.__doc__ = f"The {fname.split('_')[1]} partition transform (Iceberg's)."
+    return flat
+
+
+for _unit in ("days", "hours", "months", "years"):
+    setattr(Expression, f"partition_{_unit}", _partition_transform(f"partition_{_unit}"))
+
+
 def col(name: str) -> Expression:
     return ColumnRef(name)
 
@@ -1127,9 +1144,15 @@ def _infer_literal_dtype(v: Any) -> DataType:
     if isinstance(v, str):
         return DataType.string()
     if isinstance(v, datetime.datetime):
-        raise TypeError("timestamp literals are not supported by the port yet")
+        # the reference's naming: tzname(None), which is None for a ZoneInfo
+        # zone and "UTC+hh:mm" for a fixed offset
+        return DataType.timestamp("us", v.tzinfo.tzname(None) if v.tzinfo else None)
     if isinstance(v, datetime.date):
         return DataType.date()
+    if isinstance(v, datetime.timedelta):
+        return DataType.duration("us")
+    if isinstance(v, datetime.time):
+        return DataType.python()
     if isinstance(v, (list, tuple)):
         # a host-only value (utf8_count_matches' patterns)
         return DataType.list(_infer_literal_dtype(v[0]) if v else DataType.null())
@@ -1149,6 +1172,8 @@ def _arith_result_type(op: str, l: DataType, r: DataType) -> DataType:
         raise ValueError(f"cannot divide {l} by {r}")
     if op == "pow":
         return DataType.float64()
+    if l.is_temporal() or r.is_temporal():
+        return _temporal_arith_type(op, l, r)
     if l.is_null():
         return r
     if r.is_null():
@@ -1156,6 +1181,32 @@ def _arith_result_type(op: str, l: DataType, r: DataType) -> DataType:
     if not (l.is_numeric() and r.is_numeric()):
         raise ValueError(f"arith op {op!r} unsupported between {l} and {r}")
     return _numeric_promote(l, r)
+
+
+def _temporal_arith_type(op: str, l: DataType, r: DataType) -> DataType:
+    """The reference's temporal arithmetic (expressions.py:1191-1210), with
+    the unit Arrow gives the values: the finer of the operands' units, and a
+    date plus or minus a duration a timestamp."""
+    lk, rk = l.kind, r.kind
+    if op == "sub":
+        if lk == "timestamp" and rk == "timestamp":
+            return DataType.duration(finer_unit(l.time_unit, r.time_unit))
+        if lk == "date" and rk == "date":
+            return DataType.duration("s")
+        if lk == "timestamp" and rk == "duration":
+            return DataType.timestamp(finer_unit(l.time_unit, r.time_unit), l.timezone)
+        if lk == "date" and rk == "duration":
+            return DataType.timestamp(finer_unit("s", r.time_unit))
+    if op == "add":
+        if lk == "timestamp" and rk == "duration":
+            return DataType.timestamp(finer_unit(l.time_unit, r.time_unit), l.timezone)
+        if lk == "duration" and rk == "timestamp":
+            return DataType.timestamp(finer_unit(l.time_unit, r.time_unit), r.timezone)
+        if lk == "date" and rk == "duration":
+            return DataType.timestamp(finer_unit("s", r.time_unit))
+        if lk == "duration" and rk == "duration":
+            return DataType.duration(finer_unit(l.time_unit, r.time_unit))
+    raise ValueError(f"temporal arithmetic {op!r} unsupported between {l} and {r}")
 
 
 def common_supertype(a: DataType, b: DataType) -> DataType:

@@ -1,8 +1,8 @@
 """The scalar function registry (counterpart of daft_tpu/functions/registry.py,
-its ``extra.py`` and ``breadth.py``), first wave: the numeric and float
-functions, the bitwise functions, the string functions (without tokenize),
-the date functions over the ``date`` type, and ``coalesce``,
-``monotonically_increasing_id`` and ``uuid``.
+its ``extra.py`` and ``breadth.py``): the numeric and float functions, the
+bitwise functions, the string functions (without tokenize), the temporal
+functions over dates, timestamps, durations and times (functions/temporal.py),
+and ``coalesce``, ``monotonically_increasing_id`` and ``uuid``.
 
 Each ``FunctionSpec`` carries a return-type rule over the argument fields
 and the options, a host kernel over Series (numpy and Python's ``re``,
@@ -12,7 +12,7 @@ device program takes, a torch function: ``device(args, kwargs, fdt)`` over
 the arguments' (values, validity) pairs, ``fdt`` the stage's float type
 (ops/device_eval.py).
 
-A name of a later wave (timestamps, lists, structs, maps, binary, JSON,
+A name of a later wave (lists, structs, maps, binary, JSON,
 images, urls, embeddings, tokenize, the sketch and list aggregates, the
 extension functions) raises ``NotImplementedError`` naming its wave
 (``later_wave``); an unknown name raises ``ValueError``.
@@ -21,7 +21,6 @@ extension functions) raises ``NotImplementedError`` naming its wave
 from __future__ import annotations
 
 import dataclasses
-import datetime
 import re
 import threading
 from typing import Any, Callable, Dict, List, Optional
@@ -73,13 +72,6 @@ def has_function(name: str) -> bool:
 # ---- the later waves (ROADMAP.md Queue 1 item 7) -------------------------------------
 
 _WAVES = {
-    "the timestamp wave (ROADMAP item 7)": (
-        "dt_hour", "dt_minute", "dt_second", "dt_millisecond", "dt_microsecond",
-        "dt_nanosecond", "dt_date", "dt_time", "utf8_to_datetime", "replace_time_zone",
-        "convert_time_zone", "unix_date", "total_seconds", "total_milliseconds",
-        "total_microseconds", "total_nanoseconds", "total_minutes", "total_hours",
-        "total_days", "partition_days", "partition_hours", "partition_months",
-        "partition_years"),
     "the nested-types wave (ROADMAP item 7: lists, structs, maps, binary, JSON, "
     "compression, serialization)": (
         "list", "struct", "map", "binary", "json", "list_length", "list_get", "list_sum",
@@ -127,16 +119,26 @@ def _rt_float(fields, kwargs):
     return DataType.float32() if fields[0].dtype.kind == "float32" else DataType.float64()
 
 
+_NEED = {"string": DataType.is_string, "numeric": DataType.is_numeric,
+         "integer": DataType.is_integer, "date": lambda d: d.kind in ("date", "timestamp"),
+         "clock": lambda d: d.kind in ("timestamp", "time"),
+         "timestamp": lambda d: d.kind == "timestamp",
+         "temporal": lambda d: d.kind in ("date", "timestamp", "time"),
+         "duration": lambda d: d.kind == "duration"}
+_NEED_WHAT = {"date": "a date column or a timestamp", "clock": "a timestamp or time column",
+              "temporal": "a date, timestamp or time column"}
+
+
 def _need(kind: str):
-    """A check that the first argument is of ``kind`` ("string", "date",
-    "numeric", "integer")."""
-    test = {"string": DataType.is_string, "date": lambda d: d.kind == "date",
-            "numeric": DataType.is_numeric, "integer": DataType.is_integer}[kind]
+    """A check that the first argument is of ``kind`` ("string", "numeric",
+    "integer"; "date": a date or timestamp, "clock": a timestamp or time,
+    "timestamp", "temporal", "duration")."""
+    test = _NEED[kind]
 
     def check(fname, args, fields):
         dt = fields[0].dtype
         if not (test(dt) or dt.is_null()):
-            what = {"date": "a date column"}.get(kind, f"a {kind} column")
+            what = _NEED_WHAT.get(kind, f"a {kind} column")
             raise ValueError(f"{fname} takes {what}, got {dt}")
     return check
 
@@ -710,101 +712,6 @@ register("utf8_lpad", _rt_const(_S), _str_map(_pad(True), _S), check=_literals(i
 register("utf8_rpad", _rt_const(_S), _str_map(_pad(False), _S), check=_literals(int, str))
 
 
-_MONTHS = ("january", "february", "march", "april", "may", "june", "july", "august",
-           "september", "october", "november", "december")
-_WEEKDAYS = ("monday", "tuesday", "wednesday", "thursday", "friday", "saturday", "sunday")
-# directive -> (field, max digits, min, max)
-_NUMERIC = {"Y": ("year", 4, 0, 9999), "m": ("month", 2, 1, 12), "d": ("day", 2, 1, 31),
-            "e": ("day", 2, 1, 31), "y": ("yy", 2, 0, 99), "j": ("doy", 3, 1, 366),
-            "H": (None, 2, 0, 23), "M": (None, 2, 0, 59), "S": (None, 2, 0, 61)}
-
-
-def days_from_civil(y: int, m: int, d: int) -> int:
-    """Days since 1970-01-01 of a proleptic Gregorian date, any year."""
-    y -= m <= 2
-    era = (y if y >= 0 else y - 399) // 400
-    yoe = y - era * 400
-    doy = (153 * (m + (-3 if m > 2 else 9)) + 2) // 5 + d - 1
-    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
-    return era * 146097 + doe - 719468
-
-
-def strptime_days(v: str, format: str):
-    """``v`` parsed by ``fmt`` as Arrow's strptime reads it (its vendored C
-    strptime), in days since 1970-01-01, or None where it does not parse:
-    whitespace in the format matches any run of it, a numeric field skips
-    leading whitespace and reads at most its digits within its range (%Y
-    four, %y 69-99 as 19xx and 00-68 as 20xx), month and weekday names
-    match in any case, whole or abbreviated, every character of ``v`` is
-    consumed, and a day past its month's end rolls into the next."""
-    fmt = format
-    i, n = 0, len(v)
-    f = 0
-    got = {}
-    while f < len(fmt):
-        c = fmt[f]
-        if c.isspace():
-            while i < n and v[i].isspace():
-                i += 1
-            f += 1
-            continue
-        if c != "%" or f + 1 >= len(fmt):
-            if i >= n or v[i] != c:
-                return None
-            i += 1
-            f += 1
-            continue
-        d = fmt[f + 1]
-        f += 2
-        if d == "%":
-            if i >= n or v[i] != "%":
-                return None
-            i += 1
-        elif d in _NUMERIC:
-            field, width, lo, hi = _NUMERIC[d]
-            while i < n and v[i].isspace():
-                i += 1
-            j = i
-            while j < n and j - i < width and v[j].isdigit():
-                j += 1
-            if j == i:
-                return None
-            val = int(v[i:j])
-            if not lo <= val <= hi:
-                return None
-            i = j
-            if field is not None:
-                got[field] = val
-        elif d in "bBhaA":
-            names = _MONTHS if d in "bBh" else _WEEKDAYS
-            low = v[i:].lower()
-            for k, name in enumerate(names):
-                hit = name if low.startswith(name) else name[:3] if low.startswith(name[:3]) \
-                    else None
-                if hit is not None:
-                    i += len(hit)
-                    if d in "bBh":
-                        got["month"] = k + 1
-                    break
-            else:
-                return None
-        else:
-            return None
-    if i != n:
-        return None
-    year = got.get("year")
-    if year is None:
-        yy = got.get("yy")
-        year = 1900 if yy is None else (1900 + yy if yy >= 69 else 2000 + yy)
-    if "doy" in got and "month" not in got:
-        return days_from_civil(year, 1, 1) + got["doy"] - 1
-    return days_from_civil(year, got.get("month", 1), 1) + got.get("day", 1) - 1
-
-
-register("utf8_to_date", _rt_const(DataType.date()), _str_map(strptime_days, DataType.date()),
-         check=_need("string"))
-
-
 def _normalize(v: str, remove_punct=False, lowercase=False, nfd_unicode=False,
                white_space=False):
     import unicodedata
@@ -893,143 +800,6 @@ for _name, _join in [
 
 
 # ===================================================================================
-# dates (int32 days since 1970-01-01)
-# ===================================================================================
-
-_EPOCH_ORDINAL = datetime.date(1970, 1, 1).toordinal()
-
-
-def _ymd(days: np.ndarray):
-    d = days.astype("datetime64[D]")
-    y = d.astype("datetime64[Y]")
-    m = d.astype("datetime64[M]")
-    year = y.astype(np.int64) + 1970
-    month = m.astype(np.int64) % 12 + 1
-    day = (d - m.astype("datetime64[D]")).astype(np.int64) + 1
-    doy = (d - y.astype("datetime64[D]")).astype(np.int64) + 1
-    return year, month, day, doy
-
-
-def _weekday(days: np.ndarray) -> np.ndarray:
-    """Monday 0 .. Sunday 6 (1970-01-01 was a Thursday)."""
-    return (days.astype(np.int64) + 3) % 7
-
-
-def _iso_week(days: np.ndarray) -> np.ndarray:
-    thursday = days.astype(np.int64) - _weekday(days) + 3
-    jan1 = thursday.astype("datetime64[D]").astype("datetime64[Y]").astype(
-        "datetime64[D]").astype(np.int64)
-    return (thursday - jan1) // 7 + 1
-
-
-def _is_leap(year: np.ndarray) -> np.ndarray:
-    return (year % 4 == 0) & ((year % 100 != 0) | (year % 400 == 0))
-
-
-def _date_part(part):
-    def fn(days):
-        year, month, day, doy = _ymd(days)
-        if part == "year":
-            return year
-        if part == "month":
-            return month
-        if part == "day":
-            return day
-        if part == "day_of_year":
-            return doy
-        if part == "day_of_week":
-            return _weekday(days)
-        if part == "week_of_year":
-            return _iso_week(days)
-        if part == "quarter":
-            return (month - 1) // 3 + 1
-        if part == "is_leap_year":
-            return _is_leap(year)
-        # days_in_month
-        start = days.astype("datetime64[D]").astype("datetime64[M]")
-        return ((start + 1).astype("datetime64[D]") - start.astype("datetime64[D]")).astype(
-            np.int64)
-    return fn
-
-
-def _date_fn(part, out_dt: DataType):
-    fn = _date_part(part)
-
-    def host(args, kwargs):
-        s = args[0]
-        return _out(s, out_dt, fn(s.to_numpy()), s.validity_numpy())
-    return host
-
-
-for _name, _part, _dt in [
-    ("dt_year", "year", DataType.int32()), ("dt_month", "month", DataType.uint32()),
-    ("dt_day", "day", DataType.uint32()), ("dt_day_of_year", "day_of_year", DataType.uint32()),
-    ("dt_day_of_week", "day_of_week", DataType.uint32()),
-    ("dt_week_of_year", "week_of_year", DataType.uint32()),
-    ("dt_quarter", "quarter", DataType.uint32()),
-    ("dt_is_leap_year", "is_leap_year", DataType.bool()),
-    ("dt_days_in_month", "days_in_month", DataType.uint32()),
-]:
-    register(_name, _rt_const(_dt), _date_fn(_part, _dt), check=_need("date"))
-
-
-def truncate_days(days: np.ndarray, interval: str) -> np.ndarray:
-    """Dates floored to ``interval`` ("<n> <unit>", unit day, week, month,
-    quarter or year, plural allowed), on Arrow's ``floor_temporal`` terms:
-    days and weeks (Monday first) counted from 1970-01-01's day and week,
-    months, quarters and years from January of year 0."""
-    count, unit = interval.split()
-    n = int(count)
-    unit = unit.rstrip("s")
-    if unit not in ("day", "week", "month", "quarter", "year"):
-        raise ValueError(f"dt_truncate: the interval {interval!r} has no date unit "
-                         "(day, week, month, quarter or year)")
-    d = days.astype(np.int64)
-    if unit == "day":
-        return d // n * n
-    if unit == "week":
-        return (d + 3) // (7 * n) * (7 * n) - 3
-    # months count from January of year 0, as Arrow's floor_temporal counts them
-    months = d.astype("datetime64[D]").astype("datetime64[M]").astype(np.int64) + 1970 * 12
-    step = {"month": n, "quarter": 3 * n, "year": 12 * n}[unit]
-    floored = months // step * step - 1970 * 12
-    return floored.astype("datetime64[M]").astype("datetime64[D]").astype(np.int64)
-
-
-def _truncate_host(args, kwargs):
-    s = args[0]
-    return _out(s, s.dtype, truncate_days(s.to_numpy(), kwargs["interval"]),
-                s.validity_numpy())
-
-
-register("dt_truncate", _rt_same, _truncate_host, check=_need("date"))
-
-
-def _epoch_host(args, kwargs):
-    s = args[0]
-    scale = {"s": 86_400, "ms": 86_400_000, "us": 86_400_000_000,
-             "ns": 86_400_000_000_000}[kwargs.get("unit", "s")]
-    return _out(s, DataType.int64(), s.to_numpy().astype(np.int64) * scale, s.validity_numpy())
-
-
-register("dt_to_unix_epoch", _rt_const(DataType.int64()), _epoch_host, check=_need("date"))
-
-
-def _strftime_host(args, kwargs):
-    s = args[0]
-    fmt = (kwargs.get("format") or "%Y-%m-%d").replace("%.f", "%f")
-    vals = s.to_numpy()
-    valid = s.validity_numpy()
-    out = np.empty(len(s), dtype=object)
-    out[:] = [datetime.date.fromordinal(_EPOCH_ORDINAL + int(v)).strftime(fmt) if ok else None
-              for v, ok in zip(vals.tolist(), valid.tolist())]
-    return Series(s.name, _S, out, valid.copy())
-
-
-register("dt_strftime", _rt_const(_S), _strftime_host, check=_need("date"))
-
-
-# ===================================================================================
 # misc
 # ===================================================================================
 
@@ -1083,3 +853,6 @@ def _uuid_host(args, kwargs):
 
 
 register("uuid", _rt_const(_S), _uuid_host)
+
+
+from . import temporal as _temporal  # noqa: E402,F401  (registers the temporal functions)

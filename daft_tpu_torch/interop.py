@@ -2,9 +2,10 @@
 
 ``from_numpy_columns`` builds a port DataFrame from numpy planes, in the form
 the reference's ``Series.to_numpy()`` and ``Series.validity_numpy()`` give
-them (dates as datetime64[D] or int32 days, strings as object arrays, null
-slots holding 0, NaN, NaT or None), so one table can be fed to both engines
-column for column. ``encoder_params`` turns the reference's encoder
+them (dates as datetime64[D] or int32 days, timestamps and durations as
+int64 ticks or datetime64 / timedelta64, their unit and zone from the
+schema, strings as object arrays, null slots holding 0, NaN, NaT or None),
+so one table can be fed to both engines column for column. ``encoder_params`` turns the reference's encoder
 weights (``JaxEncoderWeights.params``, nested numpy) into the port's
 parameter dict, so both packages can run one encoder. Both take plain
 numpy: nothing of the reference is imported.

@@ -14,9 +14,16 @@ data page v1, at most about 1 MiB of values a page.
 
 Physical and logical types: BOOLEAN; INT32 plain, INT(8/16/32) signed or
 unsigned, and DATE (int32 days); INT64 signed or unsigned; FLOAT; DOUBLE;
-BYTE_ARRAY annotated STRING/UTF8. Anything else (nested or repeated
-columns, DECIMAL, timestamps, times, INT96, fixed-length or unannotated
-binary columns, the DELTA_* and BYTE_STREAM_SPLIT encodings) raises
+BYTE_ARRAY annotated STRING/UTF8; TIMESTAMP (MILLIS / MICROS / NANOS, zoned
+"UTC" where adjusted to UTC) and the legacy TIMESTAMP_MILLIS / _MICROS
+(UTC), TIME (MILLIS in INT32, MICROS, NANOS) and the legacy TIME_MILLIS /
+_MICROS, and INT96 (nanoseconds), as pyarrow reads them for the reference.
+A file's ``ARROW:schema`` (io/_arrow_schema.py) names a timestamp's zone
+and marks a duration, as pyarrow reads it; the writer writes one where a
+column needs it (a zone other than UTC, a duration). A timestamp in
+seconds is written in milliseconds, as pyarrow writes it. Anything else
+(nested or repeated columns, DECIMAL, fixed-length or unannotated binary
+columns, the DELTA_* and BYTE_STREAM_SPLIT encodings) raises
 NotImplementedError naming it: never a wrong read. Values decode with numpy;
 only BYTE_ARRAY values take a Python loop, one step a value.
 """
@@ -34,6 +41,8 @@ import numpy as np
 from ..core.series import Series
 from ..datatype import DataType
 from . import _thrift as th
+from ._arrow_schema import KEY as ARROW_SCHEMA_KEY
+from ._arrow_schema import read_arrow_fields, write_arrow_schema
 from .codecs import compress, decompress
 
 MAGIC = b"PAR1"
@@ -55,9 +64,12 @@ REQUIRED, OPTIONAL, REPEATED = range(3)
 _UTF8, _DECIMAL, _DATE = 0, 5, 6
 _CONVERTED_INT = {15: (8, True), 16: (16, True), 17: (32, True), 18: (64, True),
                   11: (8, False), 12: (16, False), 13: (32, False), 14: (64, False)}
+_TIME_MILLIS, _TIME_MICROS, _TIMESTAMP_MILLIS, _TIMESTAMP_MICROS = 7, 8, 9, 10
 _CONVERTED_NAMES = {1: "MAP", 2: "MAP_KEY_VALUE", 3: "LIST", 4: "ENUM", 5: "DECIMAL",
-                    7: "TIME_MILLIS", 8: "TIME_MICROS", 9: "TIMESTAMP_MILLIS",
-                    10: "TIMESTAMP_MICROS", 19: "JSON", 20: "BSON", 21: "INTERVAL"}
+                    19: "JSON", 20: "BSON", 21: "INTERVAL"}
+_PARQUET_UNITS = {"MILLIS": "ms", "MICROS": "us", "NANOS": "ns"}
+# the Julian day of 1970-01-01 (INT96 timestamps count Julian days)
+_JULIAN_EPOCH = 2_440_588
 
 PAGE_TARGET_BYTES = 1 << 20      # values per data page, about (pyarrow's default)
 DICTIONARY_LIMIT_BYTES = 1 << 20  # a larger string dictionary falls back to PLAIN
@@ -77,19 +89,64 @@ class ColumnInfo:
     physical: int
     dtype: DataType
     max_def: int  # 0 (REQUIRED) or 1 (OPTIONAL)
+    # stored value x scale = the port's storage value (a TIME(MILLIS) read as
+    # microseconds, a timestamp in seconds written in milliseconds: 1000)
+    scale: int = 1
 
 
-def _port_dtype(el: Dict[str, Any]) -> DataType:
+def _parquet_unit(ann: Dict[str, Any], name) -> str:
+    unit = ann.get("unit") or {}
+    for k, u in _PARQUET_UNITS.items():
+        if k in unit:
+            return u
+    raise _unsupported(f"time unit {unit} (column {name!r})")
+
+
+def _temporal_dtype(t, conv, logical, name) -> Optional[Tuple[DataType, int]]:
+    """(dtype, scale) of a timestamp or time column, or None."""
+    if "TIMESTAMP" in logical and t == INT64:
+        ts = logical["TIMESTAMP"]
+        return DataType.timestamp(_parquet_unit(ts, name),
+                                  "UTC" if ts.get("isAdjustedToUTC") else None), 1
+    if "TIME" in logical and t in (INT32, INT64):
+        unit = _parquet_unit(logical["TIME"], name)
+        if (unit == "ms") != (t == INT32):
+            raise _unsupported(f"TIME in {TYPE_NAMES[t]} (column {name!r})")
+        return DataType.time("ns" if unit == "ns" else "us"), 1000 if unit == "ms" else 1
+    if conv in (_TIMESTAMP_MILLIS, _TIMESTAMP_MICROS) and t == INT64:
+        return DataType.timestamp("ms" if conv == _TIMESTAMP_MILLIS else "us", "UTC"), 1
+    if conv == _TIME_MILLIS and t == INT32:
+        return DataType.time("us"), 1000
+    if conv == _TIME_MICROS and t == INT64:
+        return DataType.time("us"), 1
+    if t == INT96:
+        return DataType.timestamp("ns"), 1
+    return None
+
+
+def _port_dtype(el: Dict[str, Any]) -> Tuple[DataType, int]:
+    """(dtype, scale) of a leaf column's schema element."""
     name = el.get("name")
     t = el.get("type")
     conv = el.get("converted_type")
     logical = el.get("logicalType") or {}
-    for kind in ("DECIMAL", "TIMESTAMP", "TIME", "JSON", "BSON", "UUID", "ENUM", "FLOAT16",
-                 "UNKNOWN", "MAP", "LIST"):
+    for kind in ("DECIMAL", "JSON", "BSON", "UUID", "ENUM", "FLOAT16", "UNKNOWN", "MAP",
+                 "LIST"):
         if kind in logical:
             raise _unsupported(f"logical type {kind} (column {name!r})")
     if conv in _CONVERTED_NAMES:
         raise _unsupported(f"converted type {_CONVERTED_NAMES[conv]} (column {name!r})")
+    found = _temporal_dtype(t, conv, logical, name)
+    if found is not None:
+        return found
+    return _plain_dtype(el), 1
+
+
+def _plain_dtype(el: Dict[str, Any]) -> DataType:
+    name = el.get("name")
+    t = el.get("type")
+    conv = el.get("converted_type")
+    logical = el.get("logicalType") or {}
     if t == BOOLEAN:
         return DataType.bool()
     if t in (INT32, INT64):
@@ -113,15 +170,18 @@ def _port_dtype(el: Dict[str, Any]) -> DataType:
             return DataType.string()
         raise _unsupported(f"BYTE_ARRAY column {name!r} without a STRING annotation "
                            "(binary)")
-    if t in (INT96, FIXED_LEN_BYTE_ARRAY):
+    if t == FIXED_LEN_BYTE_ARRAY:
         raise _unsupported(f"physical type {TYPE_NAMES[t]} (column {name!r})")
     raise _unsupported(f"physical type {t} (column {name!r})")
 
 
-def column_info(schema: List[Dict[str, Any]]) -> List[ColumnInfo]:
-    """The leaf columns of a flat schema (the root's direct children)."""
+def column_info(schema: List[Dict[str, Any]], arrow=None) -> List[ColumnInfo]:
+    """The leaf columns of a flat schema (the root's direct children);
+    ``arrow`` ({name: (kind, unit, zone)} of the file's ARROW:schema) names
+    the zone of a timestamp adjusted to UTC and marks a duration's INT64."""
     if not schema:
         raise ValueError("Parquet footer has no schema")
+    arrow = arrow or {}
     cols = []
     for el in schema[1:]:
         name = el.get("name")
@@ -130,8 +190,15 @@ def column_info(schema: List[Dict[str, Any]]) -> List[ColumnInfo]:
         rep = el.get("repetition_type", REQUIRED)
         if rep == REPEATED:
             raise _unsupported(f"repeated column {name!r} (repetition levels)")
-        cols.append(ColumnInfo(name, el.get("type"), _port_dtype(el),
-                               1 if rep == OPTIONAL else 0))
+        dtype, scale = _port_dtype(el)
+        hint = arrow.get(name)
+        if hint is not None and hint[0] == "timestamp" and dtype.kind == "timestamp" \
+                and dtype.timezone is not None and hint[2] is not None:
+            dtype = DataType.timestamp(dtype.time_unit, hint[2])
+        elif hint is not None and hint[0] == "duration" and dtype.kind == "int64":
+            dtype = DataType.duration(hint[1])
+        cols.append(ColumnInfo(name, el.get("type"), dtype, 1 if rep == OPTIONAL else 0,
+                               scale))
     if len(cols) != (schema[0].get("num_children") or 0):
         raise _unsupported("schema whose root children are not its leaves (nested)")
     return cols
@@ -190,7 +257,11 @@ def _parse_footer(path: str, size: int) -> Footer:
         f.seek(size - 8 - n)
         raw, _ = th.read_struct(f.read(n), 0)
     meta = th.decode(th.FILE_META_DATA, raw)
-    return Footer(meta, column_info(meta.get("schema", [])))
+    arrow = {}
+    for kv in meta.get("key_value_metadata") or []:
+        if kv.get("key") == ARROW_SCHEMA_KEY and kv.get("value"):
+            arrow = read_arrow_fields(kv["value"])
+    return Footer(meta, column_info(meta.get("schema", []), arrow))
 
 
 # ---- RLE / bit-packed hybrid -------------------------------------------------------
@@ -290,6 +361,12 @@ def decode_plain(data, pos: int, physical: int, count: int):
         dt = np.dtype(_NUMPY_PHYSICAL[physical])
         return np.frombuffer(data, dtype=dt, count=count, offset=pos), \
             pos + count * dt.itemsize
+    if physical == INT96:
+        # nanoseconds of the day (int64) then the Julian day (int32)
+        raw = np.frombuffer(data, dtype=np.dtype([("ns", "<i8"), ("day", "<i4")]),
+                            count=count, offset=pos)
+        days = raw["day"].astype(np.int64) - _JULIAN_EPOCH
+        return days * np.int64(86_400_000_000_000) + raw["ns"], pos + 12 * count
     if physical == BYTE_ARRAY:
         out = np.empty(count, dtype=object)
         mv = memoryview(data)
@@ -328,8 +405,12 @@ def _decode_values(data, pos: int, encoding: int, col: ColumnInfo, count: int):
 def _to_port(values: np.ndarray, col: ColumnInfo) -> np.ndarray:
     """Physical values as the port's storage dtype of ``col``."""
     kind = col.dtype.kind
-    if kind in ("string", "bool", "date", "int32", "int64", "float32", "float64"):
-        return values
+    if col.scale != 1:
+        return values.astype(np.int64) * np.int64(col.scale)
+    if kind in ("string", "bool", "date", "int32", "int64", "float32", "float64",
+                "timestamp", "duration", "time"):
+        return values if values.dtype == col.dtype.to_numpy() \
+            else values.astype(col.dtype.to_numpy())
     if kind == "uint64":
         return values.view(np.uint64)
     if kind.startswith("uint"):
@@ -469,7 +550,8 @@ def decode_stat(raw: Optional[bytes], col: ColumnInfo):
         if col.physical == BOOLEAN:
             return bool(raw[0])
         if col.physical in (INT32, INT64):
-            return int.from_bytes(raw, "little", signed=not kind.startswith("uint"))
+            return int.from_bytes(raw, "little", signed=not kind.startswith("uint")) \
+                * col.scale
         if col.physical in (FLOAT, DOUBLE):
             v = struct.unpack("<f" if col.physical == FLOAT else "<d", raw)[0]
             return None if math.isnan(v) else v
@@ -486,7 +568,8 @@ def _encode_stat(v, col: ColumnInfo) -> bytes:
     if col.physical == INT32:
         return int(v).to_bytes(4, "little", signed=not col.dtype.kind.startswith("uint"))
     if col.physical == INT64:
-        return int(v).to_bytes(8, "little", signed=not col.dtype.kind.startswith("uint"))
+        return (int(v) * col.scale).to_bytes(8, "little",
+                                             signed=not col.dtype.kind.startswith("uint"))
     if col.physical == FLOAT:
         return struct.pack("<f", v)
     if col.physical == DOUBLE:
@@ -517,8 +600,27 @@ def _chunk_statistics(vals: np.ndarray, col: ColumnInfo, nulls: int,
 # ---- writing -----------------------------------------------------------------------
 
 
-def _physical_for(dtype: DataType) -> Tuple[int, Dict[str, Any]]:
-    """(physical type, the schema element's annotations) of a port dtype."""
+def _physical_for(dtype: DataType) -> Tuple[int, Dict[str, Any], int]:
+    """(physical type, the schema element's annotations, scale) of a port
+    dtype; scale multiplies the stored values (seconds written in ms)."""
+    kind = dtype.kind
+    if kind == "timestamp":
+        unit = "ms" if dtype.time_unit == "s" else dtype.time_unit
+        name = {v: k for k, v in _PARQUET_UNITS.items()}[unit]
+        return INT64, {"logicalType": {"TIMESTAMP": {
+            "isAdjustedToUTC": dtype.timezone is not None, "unit": {name: {}}}}}, \
+            1000 if dtype.time_unit == "s" else 1
+    if kind == "time":
+        name = "NANOS" if dtype.storage_unit == "ns" else "MICROS"
+        return INT64, {"logicalType": {"TIME": {"isAdjustedToUTC": False,
+                                                "unit": {name: {}}}}}, 1
+    if kind == "duration":
+        return INT64, {}, 1
+    phys, ann = _plain_physical(dtype)
+    return phys, ann, 1
+
+
+def _plain_physical(dtype: DataType) -> Tuple[int, Dict[str, Any]]:
     kind = dtype.kind
     if kind == "bool":
         return BOOLEAN, {}
@@ -577,6 +679,8 @@ def _storage(vals: np.ndarray, col: ColumnInfo) -> np.ndarray:
         return vals.view(np.int64)
     if col.physical == INT32 and vals.dtype != np.int32:
         return vals.astype(np.int32)
+    if col.scale != 1:
+        return vals * np.int64(col.scale)
     return vals
 
 
@@ -678,8 +782,8 @@ def write_file(path: str, batches, schema, codec: int,
     cols = []
     elements = [{"name": "schema", "num_children": len(schema)}]
     for field in schema:
-        physical, ann = _physical_for(field.dtype)
-        cols.append(ColumnInfo(field.name, physical, field.dtype, 1))
+        physical, ann, scale = _physical_for(field.dtype)
+        cols.append(ColumnInfo(field.name, physical, field.dtype, 1, scale))
         elements.append({"type": physical, "repetition_type": OPTIONAL, "name": field.name,
                          **ann})
     batches = [b for b in batches if b.num_rows]
@@ -703,9 +807,17 @@ def write_file(path: str, batches, schema, codec: int,
                                        for c in chunks),
                 "file_offset": rg_start, "total_compressed_size": f.tell() - rg_start,
                 "ordinal": len(row_groups)})
+        kv = None
+        if any(f.dtype.kind == "duration" or (f.dtype.kind == "timestamp"
+                                               and f.dtype.timezone not in (None, "UTC"))
+               for f in schema):
+            units = {f.name: "ms" for f in schema
+                     if f.dtype.kind == "timestamp" and f.dtype.time_unit == "s"}
+            kv = [{"key": ARROW_SCHEMA_KEY, "value": write_arrow_schema(schema, units)}]
         meta = th.encode(th.FILE_META_DATA, {
             "version": 1, "schema": elements, "num_rows": total, "row_groups": row_groups,
-            "created_by": "daft_tpu_torch", "column_orders": [{"TYPE_ORDER": {}}] * len(cols)})
+            "key_value_metadata": kv, "created_by": "daft_tpu_torch",
+            "column_orders": [{"TYPE_ORDER": {}}] * len(cols)})
         f.write(meta)
         f.write(struct.pack("<I", len(meta)))
         f.write(MAGIC)

@@ -227,11 +227,15 @@ STATISTICS = [(1, "max", "binary", None), (2, "min", "binary", None),
 INT_TYPE = [(1, "bit_width", "i8", None), (2, "is_signed", "bool", None)]
 DECIMAL_TYPE = [(1, "scale", "i32", None), (2, "precision", "i32", None)]
 _EMPTY: List = []
+# TimeUnit is a union: the field that is set names the unit
+TIME_UNIT = [(1, "MILLIS", "struct", _EMPTY), (2, "MICROS", "struct", _EMPTY),
+             (3, "NANOS", "struct", _EMPTY)]
+TIME_TYPE = [(1, "isAdjustedToUTC", "bool", None), (2, "unit", "struct", TIME_UNIT)]
 # LogicalType is a union: the field that is set names the type
 LOGICAL_TYPE = [(1, "STRING", "struct", _EMPTY), (2, "MAP", "struct", _EMPTY),
                 (3, "LIST", "struct", _EMPTY), (4, "ENUM", "struct", _EMPTY),
                 (5, "DECIMAL", "struct", DECIMAL_TYPE), (6, "DATE", "struct", _EMPTY),
-                (7, "TIME", "struct", _EMPTY), (8, "TIMESTAMP", "struct", _EMPTY),
+                (7, "TIME", "struct", TIME_TYPE), (8, "TIMESTAMP", "struct", TIME_TYPE),
                 (10, "INTEGER", "struct", INT_TYPE), (11, "UNKNOWN", "struct", _EMPTY),
                 (12, "JSON", "struct", _EMPTY), (13, "BSON", "struct", _EMPTY),
                 (14, "UUID", "struct", _EMPTY), (15, "FLOAT16", "struct", _EMPTY)]
@@ -256,10 +260,12 @@ ROW_GROUP = [(1, "columns", "list", ("struct", COLUMN_CHUNK)),
              (5, "file_offset", "i64", None), (6, "total_compressed_size", "i64", None),
              (7, "ordinal", "i16", None)]
 COLUMN_ORDER = [(1, "TYPE_ORDER", "struct", _EMPTY)]
+KEY_VALUE = [(1, "key", "string", None), (2, "value", "string", None)]
 FILE_META_DATA = [(1, "version", "i32", None),
                   (2, "schema", "list", ("struct", SCHEMA_ELEMENT)),
                   (3, "num_rows", "i64", None),
                   (4, "row_groups", "list", ("struct", ROW_GROUP)),
+                  (5, "key_value_metadata", "list", ("struct", KEY_VALUE)),
                   (6, "created_by", "string", None),
                   (7, "column_orders", "list", ("struct", COLUMN_ORDER))]
 DATA_PAGE_HEADER = [(1, "num_values", "i32", None), (2, "encoding", "i32", None),

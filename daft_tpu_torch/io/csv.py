@@ -9,8 +9,13 @@
   (``block_size``); each block's rows are one morsel.
 - Types are inferred from the first block's rows: each column takes the
   first kind that accepts every value there, in pyarrow's order: null,
-  int64, bool, date32, time, timestamp, float64, string. Time and timestamp
-  columns raise NotImplementedError (the port has no such dtype). A value
+  int64, bool, date32, time32[s], timestamp[s], timestamp[ns], float64,
+  string. A time is HH:MM[:SS] (a time of day in microseconds, as the
+  reference types Arrow's time32); a timestamp is a date, optionally with
+  HH[:MM[:SS]] after a space or T, and in seconds unless a value carries a
+  fraction (1 to 9 digits: nanoseconds); a trailing Z or offset (+hh,
+  +hhmm, +hh:mm) makes it UTC, and a column that mixes zoned and naive
+  values is a string column. A value
   in ``NULL_VALUES`` is null in every kind but string (pyarrow's
   ``strings_can_be_null`` is off). Integers may carry spaces around them
   and a ``0x`` prefix, never a ``+``; floats accept a sign, exponents and
@@ -48,9 +53,10 @@ _INT = re.compile(r"[ \t]*(-?)(?:0[xX]([0-9a-fA-F]+)|([0-9]+))[ \t]*\Z")
 _FLOAT = re.compile(r"[ \t]*[+-]?(?:(?:[0-9]+\.?[0-9]*|\.[0-9]+)(?:[eE][+-]?[0-9]+)?"
                     r"|inf|infinity|nan)[ \t]*\Z", re.IGNORECASE)
 _DATE = re.compile(r"([0-9]{4})-([0-9]{2})-([0-9]{2})\Z")
-_TIME = re.compile(r"[0-9]{2}:[0-9]{2}(?::[0-9]{2}(?:\.[0-9]+)?)?\Z")
-_TIMESTAMP = re.compile(r"[0-9]{4}-[0-9]{2}-[0-9]{2}[ T][0-9]{2}:[0-9]{2}"
-                        r"(?::[0-9]{2}(?:\.[0-9]+)?)?(?:Z|[+-][0-9]{2}:?[0-9]{2})?\Z")
+_TIME = re.compile(r"([0-9]{2}):([0-9]{2})(?::([0-9]{2}))?\Z")
+_TIMESTAMP = re.compile(r"([0-9]{4})-([0-9]{2})-([0-9]{2})"
+                        r"(?:[ T]([0-9]{2})(?::([0-9]{2})(?::([0-9]{2})(?:\.([0-9]{1,9}))?)?)?"
+                        r"(Z|[+-][0-9]{2}(?::?[0-9]{2})?)?)?\Z")
 _EPOCH_ORDINAL = datetime.date(1970, 1, 1).toordinal()
 _INT64_MIN, _INT64_MAX = -(1 << 63), (1 << 63) - 1
 
@@ -87,20 +93,66 @@ def _parse_float(v: str):
     return float(v) if _FLOAT.match(v) else None
 
 
-def _reject(_v: str):
-    return None
+def _parse_time(v: str):
+    """HH:MM[:SS] as microseconds since midnight."""
+    m = _TIME.match(v)
+    if m is None:
+        return None
+    h, mi, sec = int(m.group(1)), int(m.group(2)), int(m.group(3) or 0)
+    if h > 23 or mi > 59 or sec > 59:
+        return None
+    return ((h * 60 + mi) * 60 + sec) * 1_000_000
 
 
-# pyarrow's inference order; time and timestamp are recognized only to raise
+def _timestamp_parts(v: str):
+    """(UTC seconds, fraction digits or None, zoned) of a timestamp text, or
+    None."""
+    m = _TIMESTAMP.match(v)
+    if m is None:
+        return None
+    y, mo, d, h, mi, sec, frac, zone = m.groups()
+    try:
+        days = datetime.date(int(y), int(mo), int(d)).toordinal() - _EPOCH_ORDINAL
+    except ValueError:
+        return None
+    h, mi, sec = int(h or 0), int(mi or 0), int(sec or 0)
+    if h > 23 or mi > 59 or sec > 59:
+        return None
+    secs = days * 86_400 + (h * 60 + mi) * 60 + sec
+    if zone and zone != "Z":
+        digits = zone[1:].replace(":", "")
+        off = int(digits[:2]) * 3600 + (int(digits[2:4]) * 60 if len(digits) > 2 else 0)
+        secs -= off if zone[0] == "+" else -off
+    return secs, frac, zone is not None
+
+
+def _timestamp_parser(unit: str, zoned: bool):
+    def parse(v: str):
+        got = _timestamp_parts(v)
+        if got is None or got[2] != zoned or (unit == "s" and got[1] is not None):
+            return None
+        secs, frac, _ = got
+        if unit == "s":
+            return secs
+        return secs * 1_000_000_000 + (int(frac.ljust(9, "0")) if frac else 0)
+    return parse
+
+
+# pyarrow's inference order
 _KINDS = [("int64", _parse_int), ("bool", _parse_bool), ("date", _parse_date),
-          ("time", lambda v: 0 if _TIME.match(v) else None),
-          ("timestamp", lambda v: 0 if _TIMESTAMP.match(v) else None),
+          ("time", _parse_time),
+          ("timestamp_s", _timestamp_parser("s", False)),
+          ("timestamp_s_utc", _timestamp_parser("s", True)),
+          ("timestamp_ns", _timestamp_parser("ns", False)),
+          ("timestamp_ns_utc", _timestamp_parser("ns", True)),
           ("float64", _parse_float)]
+_PARSERS = dict(_KINDS)
 
 
 def infer_kind(values: List[str]) -> str:
-    """The first kind (null, int64, bool, date, time, timestamp, float64,
-    string) that accepts every value of one column."""
+    """The first kind (null, int64, bool, date, time, timestamp in seconds
+    or nanoseconds, naive or UTC, float64, string) that accepts every value
+    of one column."""
     present = [v for v in values if v not in NULL_VALUES]
     if not present:
         return "null"
@@ -111,12 +163,25 @@ def infer_kind(values: List[str]) -> str:
 
 
 def _dtype_of(kind: str, name: str) -> DataType:
-    if kind in ("time", "timestamp"):
-        raise NotImplementedError(f"CSV column {name!r} holds {kind} values: the port has "
-                                  f"no {kind} type")
+    if kind.startswith("timestamp"):
+        return DataType.timestamp(kind.split("_")[1], "UTC" if kind.endswith("_utc") else None)
     return {"null": DataType.null(), "int64": DataType.int64(), "bool": DataType.bool(),
-            "date": DataType.date(), "float64": DataType.float64(),
-            "string": DataType.string()}[kind]
+            "date": DataType.date(), "time": DataType.time("us"),
+            "float64": DataType.float64(), "string": DataType.string()}[kind]
+
+
+def _parser_of(dtype: DataType):
+    if dtype.kind == "timestamp":
+        unit = dtype.time_unit
+        parse = _timestamp_parser("ns" if unit != "s" else "s", dtype.timezone is not None)
+        if unit in ("s", "ns"):
+            return parse
+        k = 1_000_000_000 // {"ms": 1_000, "us": 1_000_000}[unit]
+        return lambda v: None if parse(v) is None else parse(v) // k
+    if dtype.kind == "time":
+        return _parse_time
+    return {"int64": _parse_int, "bool": _parse_bool, "date": _parse_date,
+            "float64": _parse_float}[dtype.kind]
 
 
 def convert_column(values: List[str], dtype: DataType, name: str) -> Series:
@@ -131,8 +196,7 @@ def convert_column(values: List[str], dtype: DataType, name: str) -> Series:
         if any(v not in NULL_VALUES for v in values):
             raise ValueError(f"CSV column {name!r}: a value in a column of nulls")
         return Series.full_null(name, dtype, n)
-    parse = {"int64": _parse_int, "bool": _parse_bool, "date": _parse_date,
-             "float64": _parse_float}[dtype.kind]
+    parse = _parser_of(dtype)
     fill = np.nan if dtype.is_floating() else 0
     out = np.empty(n, dtype=dtype.to_numpy())
     valid = np.ones(n, dtype=bool)

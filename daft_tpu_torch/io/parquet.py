@@ -39,6 +39,7 @@ from typing import Iterator, List, Optional, Union
 
 from ..core.micropartition import MicroPartition
 from ..core.recordbatch import RecordBatch
+from ..core.temporal import common_temporal_type, widen_factor
 from ..schema import Schema
 from ..datatype import Field
 from . import _parquet_format as pf
@@ -145,7 +146,8 @@ def _arrow_convertible(expr) -> bool:
 def _zone_map_conjuncts(expr) -> List[tuple]:
     """(column, op, literal) constraints usable against row-group min/max
     statistics: the top-level AND conjuncts that compare a column with a
-    literal (dates as int32 days, as the statistics decode them)."""
+    literal (the Literal itself: ``_rg_excluded`` puts it on the column's
+    scale)."""
     from ..expressions.expressions import Between, BinaryOp, ColumnRef, Literal
 
     out = []
@@ -158,14 +160,14 @@ def _zone_map_conjuncts(expr) -> List[tuple]:
             return
         if isinstance(e, BinaryOp) and e.op in flip:
             if isinstance(e.left, ColumnRef) and isinstance(e.right, Literal):
-                out.append((e.left._name, e.op, e.right.storage_value()))
+                out.append((e.left._name, e.op, e.right))
             elif isinstance(e.right, ColumnRef) and isinstance(e.left, Literal):
-                out.append((e.right._name, flip[e.op], e.left.storage_value()))
+                out.append((e.right._name, flip[e.op], e.left))
             return
         if isinstance(e, Between) and isinstance(e.child, ColumnRef):
             if isinstance(e.lower, Literal) and isinstance(e.upper, Literal):
-                out.append((e.child._name, "ge", e.lower.storage_value()))
-                out.append((e.child._name, "le", e.upper.storage_value()))
+                out.append((e.child._name, "ge", e.lower))
+                out.append((e.child._name, "le", e.upper))
 
     walk(expr)
     return out
@@ -176,10 +178,18 @@ def _rg_excluded(md: pf.Footer, rg, conjuncts: List[tuple]) -> bool:
     conjunct. Absent or NaN statistics, and incomparable ones, prove
     nothing."""
     cols = {c.name: c for c in md.columns}
-    for name, op, value in conjuncts:
+    for name, op, lit in conjuncts:
         col = cols.get(name)
-        if col is None or value is None:
+        if col is None or lit.value is None:
             continue
+        # the statistics and the literal on one scale: a temporal pair in
+        # the type they meet in, as Arrow compares them
+        stat_scale, value = 1, lit.storage_value()
+        if lit.dtype != col.dtype and lit.dtype.is_temporal() and col.dtype.is_temporal():
+            t = common_temporal_type(lit.dtype, col.dtype)
+            if t is None:
+                continue
+            stat_scale, value = widen_factor(col.dtype, t), value * widen_factor(lit.dtype, t)
         try:
             st = md.chunk(rg, name).get("statistics") or {}
         except KeyError:
@@ -188,6 +198,7 @@ def _rg_excluded(md: pf.Footer, rg, conjuncts: List[tuple]) -> bool:
         hi = pf.decode_stat(st.get("max_value"), col)
         if lo is None or hi is None:
             continue
+        lo, hi = lo * stat_scale, hi * stat_scale
         try:
             if op == "lt" and not (lo < value):
                 return True

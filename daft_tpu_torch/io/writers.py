@@ -187,10 +187,13 @@ def _csv_cells(s: Series) -> List[str]:
     elif dt.is_boolean():
         cells = [("true" if v else "false") if ok else ""
                  for v, ok in zip(vals.tolist(), valid.tolist())]
-    elif dt.is_temporal():
+    elif dt.kind == "date":
         base = datetime.date(1970, 1, 1).toordinal()
         cells = [datetime.date.fromordinal(base + v).isoformat() if ok else ""
                  for v, ok in zip(vals.tolist(), valid.tolist())]
+    elif dt.is_temporal():  # Arrow's string cast, as pyarrow's writer formats them
+        cells = [v if ok else "" for v, ok in zip(s.cast(DataType.string()).to_numpy().tolist(),
+                                                  valid.tolist())]
     elif dt.is_floating():
         cells = [repr(float(v)) if ok else "" for v, ok in zip(vals.tolist(), valid.tolist())]
     elif dt.is_null():

@@ -19,6 +19,13 @@ the columns; where a result must have the bucket's shape the caller expands
 it (torch does not grow a 0-d mask the way jnp's ``&`` with a shaped array
 does for the value side).
 
+Temporal values live on the device as their storage ints (int32 days,
+int64 ticks of a unit). Where two temporal operands of different types meet,
+or a cast changes the type, the device rescales the ints as the host's
+``Series.cast`` does (``core/temporal.common_temporal_type`` and
+``widen_factor``); a cast that reads a zone, could lose ticks or would raise
+stays on the host.
+
 Binary operands are promoted explicitly with ``torch.promote_types``: torch's
 own rule lets a 1-d int32 column win over a 0-d int64 literal, which would
 compare a wide literal in int32.
@@ -28,8 +35,10 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
+from ..core.temporal import common_temporal_type, unit_type, widen_factor
 from ..datatype import DataType
 from ..expressions.expressions import (
     AggExpr,
@@ -54,57 +63,57 @@ _FLOATS = (torch.float32, torch.float64)
 _BINARY_OPS = ("add", "sub", "mul", "div", "floordiv", "mod", "pow", "eq", "neq", "lt",
                "le", "gt", "ge", "and", "or", "xor", "fill_null", "eq_null_safe")
 _UNARY_OPS = ("not", "neg", "abs", "is_null", "not_null")
+_COMPARISONS = ("eq", "neq", "lt", "le", "gt", "ge", "eq_null_safe")
 
 
 def is_device_evaluable(expr: Expression, schema: Schema) -> bool:
     """True if the whole expression tree can run on the device for this
-    input schema (the reference's qualification rule over the port's IR)."""
+    input schema (the reference's qualification rule over the port's IR,
+    with the temporal casts and meetings the device cannot rescale left
+    on the host)."""
     try:
-        out_dt = expr.to_field(schema).dtype
+        return _dtype_on_device(expr.to_field(schema).dtype) \
+            and all(_node_on_device(node, schema) for node in expr.walk())
     except (KeyError, ValueError, TypeError):  # untypeable = not device-evaluable
         return False
-    if not _dtype_on_device(out_dt):
-        return False
-    for node in expr.walk():
-        if isinstance(node, ColumnRef):
-            if not _dtype_on_device(schema[node._name].dtype):
-                return False
-        elif isinstance(node, Literal):
-            dt = node.dtype
-            if not (dt.is_numeric() or dt.is_boolean() or dt.is_null()
-                    or dt.is_temporal()):
-                return False
-        elif isinstance(node, (Alias, IfElse)):
-            pass
-        elif isinstance(node, IsIn):
-            # the items are a value set (the host's semantics): literals only
-            if not all(isinstance(i, Literal) for i in node.items):
-                return False
-        elif isinstance(node, Function):
-            from ..functions.registry import has_function, get_function
 
-            if not has_function(node.fname) or get_function(node.fname).device is None:
-                return False
-        elif isinstance(node, Between):
-            if not _temporal_operands_aligned([node.child, node.lower, node.upper], schema):
-                return False
-        elif isinstance(node, Cast):
-            if not _dtype_on_device(node.dtype):
-                return False
-        elif isinstance(node, BinaryOp):
-            if node.op not in _BINARY_OPS:
-                return False
-            if not _temporal_operands_aligned([node.left, node.right], schema):
-                return False
-        elif isinstance(node, UnaryOp):
-            if node.op not in _UNARY_OPS:
-                return False
-        elif isinstance(node, AggExpr):
-            if node.op not in ("sum", "mean", "min", "max", "count"):
-                return False
-        else:
+
+def _node_on_device(node: Expression, schema: Schema) -> bool:
+    if isinstance(node, ColumnRef):
+        return _dtype_on_device(schema[node._name].dtype)
+    if isinstance(node, Literal):
+        dt = node.dtype
+        return dt.is_numeric() or dt.is_boolean() or dt.is_null() or dt.is_temporal()
+    if isinstance(node, Alias):
+        return True
+    if isinstance(node, IfElse):
+        return _temporal_operands_aligned([node.if_true, node.if_false], schema)
+    if isinstance(node, IsIn):
+        # the items are a value set (the host's semantics): literals only
+        if not all(isinstance(i, Literal) for i in node.items):
             return False
-    return True
+        child_dt = node.child.to_field(schema).dtype
+        for item in node.items:
+            _isin_item_value(item, child_dt)  # raises where the host's cast would
+        return True
+    if isinstance(node, Function):
+        from ..functions.registry import has_function, get_function
+
+        return has_function(node.fname) and get_function(node.fname).device is not None
+    if isinstance(node, Between):
+        return is_device_evaluable(node.as_comparisons(), schema)
+    if isinstance(node, Cast):
+        return _dtype_on_device(node.dtype) \
+            and _cast_how(node.child.to_field(schema).dtype, node.dtype) is not None
+    if isinstance(node, BinaryOp):
+        return node.op in _BINARY_OPS and _meet(
+            node.op, node.left.to_field(schema).dtype, node.right.to_field(schema).dtype,
+            node.to_field(schema).dtype) is not None
+    if isinstance(node, UnaryOp):
+        return node.op in _UNARY_OPS
+    if isinstance(node, AggExpr):
+        return node.op in ("sum", "mean", "min", "max", "count")
+    return False
 
 
 def _dtype_on_device(dt: DataType) -> bool:
@@ -114,8 +123,8 @@ def _dtype_on_device(dt: DataType) -> bool:
 
 
 def _temporal_operands_aligned(exprs, schema: Schema) -> bool:
-    """Temporal values live on the device as raw storage ints (days), so every
-    temporal operand of one operation must have the identical dtype."""
+    """Whether every temporal operand of one operation has the identical
+    dtype (the branches of an if_else, which the device does not rescale)."""
     dts = []
     for e in exprs:
         try:
@@ -124,6 +133,66 @@ def _temporal_operands_aligned(exprs, schema: Schema) -> bool:
             return False
     temporal = [dt for dt in dts if dt.is_temporal()]
     return all(dt == temporal[0] for dt in temporal)
+
+
+def _meet(op: str, ldt: DataType, rdt: DataType, out_dt: DataType):
+    """The types the device brings the two operands of a binary op to before
+    it applies it, as the host's do; None where it cannot. Temporal operands
+    of different types meet in ``common_temporal_type`` for a comparison and
+    in the result's unit for + and -; any other op needs equal types. A
+    temporal operand against a number or a null is taken as it is stored,
+    as on the host."""
+    if ldt == rdt or not (ldt.is_temporal() and rdt.is_temporal()):
+        return ldt, rdt
+    if op in _COMPARISONS:
+        t = common_temporal_type(ldt, rdt)
+        return None if t is None else (t, t)
+    if op in ("add", "sub") and out_dt.kind in ("timestamp", "duration"):
+        return unit_type(ldt, out_dt.time_unit), unit_type(rdt, out_dt.time_unit)
+    return None
+
+
+def _cast_how(src: DataType, dst: DataType):
+    """How the device casts ``src`` to ``dst`` where either is temporal:
+    "scale" (times ``widen_factor``), "day" (a naive timestamp to its date,
+    a floor division) or "plain" (the stored int as it is: an int64-stored
+    temporal to int64, an integer or a null to a temporal, a date to a
+    number); None where the host's cast reads a zone, could lose ticks,
+    raises or writes text. Casts between other types are "plain"."""
+    if src == dst or src.is_null() or not (src.is_temporal() or dst.is_temporal()):
+        return "plain"
+    if widen_factor(src, dst) is not None:
+        return "scale"
+    if src.kind == "timestamp" and dst.kind == "date" and src.timezone is None:
+        return "day"
+    if src.kind in ("timestamp", "duration", "time") and dst.kind == "int64":
+        return "plain"
+    if src.is_integer() and dst.is_temporal():
+        return "plain"
+    if src.kind == "date" and dst.is_numeric():
+        return "plain"
+    return None
+
+
+def _widen(v: torch.Tensor, src: DataType, dst: DataType) -> torch.Tensor:
+    if src == dst:
+        return v
+    return v.to(torch.int64) * widen_factor(src, dst)
+
+
+def _isin_item_value(item: Literal, child_dt: DataType):
+    """The stored value a temporal literal item of another type than the
+    column compares as: the item cast to the column's type, as the host's
+    is_in casts it (raising where the host's cast raises). None where the
+    item is taken as it is."""
+    dt = item.dtype
+    if item.value is None or dt == child_dt or not (dt.is_temporal() and child_dt.is_temporal()):
+        return None
+    from ..core.series import Series
+
+    s = Series("", dt, np.asarray([item.storage_value()], dtype=dt.to_numpy()),
+               np.ones(1, dtype=bool))
+    return s.cast(child_dt).to_numpy()[0].item()
 
 
 def needs_f64(exprs, schema: Schema) -> bool:
@@ -153,6 +222,20 @@ def build_device_expr(expr: Expression, schema: Schema,
     ``float_dtype`` is the device float compute dtype; the grouped stage
     passes float32, as the reference's stage compilers do."""
     fdt = float_dtype
+    # per node of the tree, held with the node so that its id stays its own:
+    # its dtype, and a Between's comparisons (made once, so that their ids last)
+    dtypes: Dict[int, Tuple[Expression, DataType]] = {}
+    lowered: Dict[int, Tuple[Between, Expression]] = {}
+
+    def dtype_of(node: Expression) -> DataType:
+        if id(node) not in dtypes:
+            dtypes[id(node)] = (node, node.to_field(schema).dtype)
+        return dtypes[id(node)][1]
+
+    def comparisons(node: Between) -> Expression:
+        if id(node) not in lowered:
+            lowered[id(node)] = (node, node.as_comparisons())
+        return lowered[id(node)][1]
 
     def fcast(v):
         return v.to(fdt) if v.dtype in _FLOATS and v.dtype != fdt else v
@@ -168,13 +251,21 @@ def build_device_expr(expr: Expression, schema: Schema,
             dt = node.dtype.to_torch()
             if dt in _FLOATS:
                 dt = fdt
-            # a date literal becomes int32 days, as the column stores it
+            # a temporal literal becomes its storage int, as the column stores
+            # it (int32 days, int64 ticks of the unit)
             return (torch.tensor(node.storage_value(), dtype=dt, device=device),
                     torch.ones((), dtype=torch.bool, device=device))
         if isinstance(node, Alias):
             return ev(node.child, cols, device)
         if isinstance(node, Cast):
             v, m = ev(node.child, cols, device)
+            src = dtype_of(node.child)
+            how = _cast_how(src, node.dtype)
+            if how == "scale":
+                return _widen(v, src, node.dtype), m
+            if how == "day":
+                per_day = widen_factor(DataType.date(), DataType.timestamp(src.time_unit))
+                return torch.div(v, per_day, rounding_mode="floor").to(torch.int32), m
             target = node.dtype.to_torch()
             if target in _FLOATS:
                 target = fdt
@@ -194,17 +285,29 @@ def build_device_expr(expr: Expression, schema: Schema,
         if isinstance(node, BinaryOp):
             lv, lm = ev(node.left, cols, device)
             rv, rm = ev(node.right, cols, device)
-            return _binop(node.op, lv, lm, rv, rm, fdt)
+            ldt, rdt = dtype_of(node.left), dtype_of(node.right)
+            if node.op == "sub" and ldt.kind == "date" and rdt.kind == "date":
+                # date - date is a duration in seconds, as on the host
+                return (lv.to(torch.int64) - rv.to(torch.int64)) * 86_400, \
+                    _broadcast_valid(lv, lm & rm)
+            tl, tr = _meet(node.op, ldt, rdt, dtype_of(node))
+            return _binop(node.op, _widen(lv, ldt, tl), lm, _widen(rv, rdt, tr), rm, fdt)
         if isinstance(node, Between):
             # the host's Kleene (child >= lower) & (child <= upper)
-            return ev(node.as_comparisons(), cols, device)
+            return ev(comparisons(node), cols, device)
         if isinstance(node, IsIn):
             # never null: a null row is true only where the items hold a null
             v, m = ev(node.child, cols, device)
+            child_dt = dtype_of(node.child)
             acc = torch.zeros(v.shape, dtype=torch.bool, device=v.device)
             has_null = torch.zeros((), dtype=torch.bool, device=v.device)
             for item in node.items:
-                iv, im = ev(item, cols, device)
+                cast = _isin_item_value(item, child_dt)
+                if cast is None:
+                    iv, im = ev(item, cols, device)
+                else:
+                    iv = torch.tensor(cast, dtype=v.dtype, device=device)
+                    im = torch.ones((), dtype=torch.bool, device=device)
                 a, b = _promote_pair(v, iv)
                 eq = a == b
                 if a.dtype.is_floating_point:

@@ -5,9 +5,10 @@ Filter (with the pruning pass's ``keep``), Project, UDFProject (a
 projection the optimizer's ``rule_split_udfs`` isolated around one UDF),
 Aggregate, Sort, Limit, Offset, TopN (a Sort with a Limit, made by
 plan/optimizer.py ``rule_detect_topn``), Join (inner, left, right,
-outer, semi, anti and cross), Concat, Distinct, Repartition and Window (window
+outer, semi, anti and cross), Concat, Distinct, Repartition, Window (window
 functions over one window spec, the optimizer's ``rule_extract_windows``
-moving them out of a projection). Each node computes its
+moving them out of a projection), Unpivot, Sample, MonotonicallyIncreasingId,
+MapGroups, Pivot, IntoPartitions and IntoBatches. Each node computes its
 output schema on construction, so a type error surfaces where the DataFrame
 method is called.
 
@@ -20,8 +21,8 @@ from __future__ import annotations
 
 from typing import Any, List, Optional
 
-from ..expressions.expressions import Expression
-from ..datatype import Field
+from ..expressions.expressions import AggExpr, Expression, common_supertype
+from ..datatype import DataType, Field
 from ..schema import Schema
 
 
@@ -413,3 +414,130 @@ class Window(_Unary):
 
     def describe(self) -> str:
         return f"Window[{', '.join(e.name() for e in self.window_exprs)}]"
+
+
+class Unpivot(_Unary):
+    """Wide to long: the ``ids`` columns, then ``variable_name`` (the value
+    column's name) and ``value_name`` (its value, in the values' common
+    supertype), one row per input row and value column."""
+
+    def __init__(self, input: LogicalPlan, ids: List[Expression], values: List[Expression],
+                 variable_name: str, value_name: str):
+        in_schema = input.schema
+        fields = [e.to_field(in_schema) for e in ids]
+        value_fields = [e.to_field(in_schema) for e in values]
+        if not value_fields:
+            raise ValueError("unpivot requires at least one value column")
+        vt = value_fields[0].dtype
+        for f in value_fields[1:]:
+            if f.dtype != vt:
+                # the reference's DataType.common_supertype: a string with
+                # anything else is a string
+                vt = DataType.string() if vt.is_string() or f.dtype.is_string() \
+                    else common_supertype(vt, f.dtype)
+        fields += [Field(variable_name, DataType.string()), Field(value_name, vt)]
+        super().__init__(Schema(fields))
+        self.input = input
+        self.ids = list(ids)
+        self.values = list(values)
+        self.variable_name = variable_name
+        self.value_name = value_name
+
+    def with_children(self, children):
+        return Unpivot(children[0], self.ids, self.values, self.variable_name,
+                       self.value_name)
+
+
+class Sample(_Unary):
+    def __init__(self, input: LogicalPlan, fraction: float, with_replacement: bool,
+                 seed: Optional[int]):
+        super().__init__(input.schema)
+        self.input = input
+        self.fraction = fraction
+        self.with_replacement = with_replacement
+        self.seed = seed
+
+    def with_children(self, children):
+        return Sample(children[0], self.fraction, self.with_replacement, self.seed)
+
+
+class MonotonicallyIncreasingId(_Unary):
+    """A uint64 id column before the input's columns: the partition index
+    in the top 28 bits, the row's position in its partition below."""
+
+    def __init__(self, input: LogicalPlan, column_name: str = "id"):
+        super().__init__(Schema([Field(column_name, DataType.uint64())]
+                                + list(input.schema)))
+        self.input = input
+        self.column_name = column_name
+
+    def with_children(self, children):
+        return MonotonicallyIncreasingId(children[0], self.column_name)
+
+
+class MapGroups(_Unary):
+    """A UDF expression over each group's rows; the output is the group
+    keys (one copy per row the UDF emits) and the UDF's column."""
+
+    def __init__(self, input: LogicalPlan, groupby: List[Expression], udf_expr: Expression):
+        in_schema = input.schema
+        super().__init__(Schema([e.to_field(in_schema) for e in groupby]
+                                + [udf_expr.to_field(in_schema)]))
+        self.input = input
+        self.groupby = list(groupby)
+        self.udf_expr = udf_expr
+
+    def with_children(self, children):
+        return MapGroups(children[0], self.groupby, self.udf_expr)
+
+    def describe(self) -> str:
+        g = ", ".join(e.name() for e in self.groupby)
+        return f"MapGroups[groupby=({g}) udf={self.udf_expr.name()}]"
+
+
+class Pivot(_Unary):
+    """Long to wide: the group keys, then one column per name in ``names``
+    holding ``agg_op`` of the values whose pivot value reads as that name."""
+
+    def __init__(self, input: LogicalPlan, groupby: List[Expression], pivot_col: Expression,
+                 value_col: Expression, agg_op: str, names: List[str]):
+        in_schema = input.schema
+        value_dt = AggExpr(agg_op, value_col).to_field(in_schema).dtype
+        super().__init__(Schema([e.to_field(in_schema) for e in groupby]
+                                + [Field(n, value_dt) for n in names]))
+        self.input = input
+        self.groupby = list(groupby)
+        self.pivot_col = pivot_col
+        self.value_col = value_col
+        self.agg_op = agg_op
+        self.names = list(names)
+
+    def with_children(self, children):
+        return Pivot(children[0], self.groupby, self.pivot_col, self.value_col, self.agg_op,
+                     self.names)
+
+
+class IntoPartitions(_Unary):
+    """The rows, in order, cut into ``num_partitions`` partitions of equal
+    size (the first ones one row larger)."""
+
+    def __init__(self, input: LogicalPlan, num_partitions: int):
+        super().__init__(input.schema)
+        self.input = input
+        self.num_partitions = num_partitions
+
+    def with_children(self, children):
+        return IntoPartitions(children[0], self.num_partitions)
+
+
+class IntoBatches(_Unary):
+    """The stream re-cut into batches of ``batch_size`` rows (the last one
+    shorter)."""
+
+    def __init__(self, input: LogicalPlan, batch_size: int):
+        super().__init__(input.schema)
+        self.input = input
+        self.batch_size = batch_size
+
+    def with_children(self, children):
+        return IntoBatches(children[0], self.batch_size)

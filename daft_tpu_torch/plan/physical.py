@@ -311,8 +311,9 @@ class Dedup(_Unary):
 
 
 class PhysRepartition(_Unary):
-    """Hash or random repartition (execution/executor.py ``_repartition``);
-    a hash repartition into ``mesh_devices`` partitions may run as the mesh
+    """Hash, random or "into" (equal slices, in order: ``IntoPartitions``)
+    repartition (execution/executor.py ``_repartition``); a hash
+    repartition into ``mesh_devices`` partitions may run as the mesh
     exchange on the device."""
 
     def __init__(self, input: PhysicalPlan, num_partitions, scheme, by, schema: Schema):
@@ -320,6 +321,54 @@ class PhysRepartition(_Unary):
         self.num_partitions = num_partitions
         self.scheme = scheme
         self.by = by
+
+
+class PhysUnpivot(_Unary):
+    def __init__(self, input: PhysicalPlan, ids, values, variable_name, value_name,
+                 schema: Schema):
+        super().__init__(input, schema)
+        self.ids = ids
+        self.values = values
+        self.variable_name = variable_name
+        self.value_name = value_name
+
+
+class PhysSample(_Unary):
+    def __init__(self, input: PhysicalPlan, fraction, with_replacement, seed, schema: Schema):
+        super().__init__(input, schema)
+        self.fraction = fraction
+        self.with_replacement = with_replacement
+        self.seed = seed
+
+
+class PhysMonotonicId(_Unary):
+    def __init__(self, input: PhysicalPlan, column_name: str, schema: Schema):
+        super().__init__(input, schema)
+        self.column_name = column_name
+
+
+class PhysMapGroups(_Unary):
+    def __init__(self, input: PhysicalPlan, groupby, udf_expr, schema: Schema):
+        super().__init__(input, schema)
+        self.groupby = groupby
+        self.udf_expr = udf_expr
+
+
+class PhysPivot(_Unary):
+    def __init__(self, input: PhysicalPlan, groupby, pivot_col, value_col, agg_op, names,
+                 schema: Schema):
+        super().__init__(input, schema)
+        self.groupby = groupby
+        self.pivot_col = pivot_col
+        self.value_col = value_col
+        self.agg_op = agg_op
+        self.names = names
+
+
+class PhysIntoBatches(_Unary):
+    def __init__(self, input: PhysicalPlan, batch_size: int, schema: Schema):
+        super().__init__(input, schema)
+        self.batch_size = batch_size
 
 
 class PhysWindow(_Unary):
@@ -422,6 +471,24 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
     if isinstance(plan, lp.Repartition):
         return PhysRepartition(translate(plan.input), plan.num_partitions, plan.scheme,
                                plan.by, plan.schema)
+    if isinstance(plan, lp.IntoPartitions):
+        return PhysRepartition(translate(plan.input), plan.num_partitions, "into", None,
+                               plan.schema)
+    if isinstance(plan, lp.IntoBatches):
+        return PhysIntoBatches(translate(plan.input), plan.batch_size, plan.schema)
+    if isinstance(plan, lp.Unpivot):
+        return PhysUnpivot(translate(plan.input), plan.ids, plan.values, plan.variable_name,
+                           plan.value_name, plan.schema)
+    if isinstance(plan, lp.Sample):
+        return PhysSample(translate(plan.input), plan.fraction, plan.with_replacement,
+                          plan.seed, plan.schema)
+    if isinstance(plan, lp.MonotonicallyIncreasingId):
+        return PhysMonotonicId(translate(plan.input), plan.column_name, plan.schema)
+    if isinstance(plan, lp.MapGroups):
+        return PhysMapGroups(translate(plan.input), plan.groupby, plan.udf_expr, plan.schema)
+    if isinstance(plan, lp.Pivot):
+        return PhysPivot(translate(plan.input), plan.groupby, plan.pivot_col, plan.value_col,
+                         plan.agg_op, plan.names, plan.schema)
     if isinstance(plan, lp.Join):
         merged, rename = plan.output_naming()
         if plan.how == "cross":

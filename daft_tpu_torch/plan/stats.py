@@ -100,6 +100,9 @@ def estimate_rows(plan: lp.LogicalPlan) -> Optional[float]:
         child = estimate_rows(plan.input)
         lim = float(plan.limit)
         return lim if child is None else min(child, lim)
+    if isinstance(plan, lp.Sample):
+        child = estimate_rows(plan.input)
+        return None if child is None else child * plan.fraction
     children = plan.children()
     if len(children) == 1:
         return estimate_rows(children[0])

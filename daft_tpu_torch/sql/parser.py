@@ -6,9 +6,9 @@ A Pratt parser builds expressions directly; SELECT structure lands in the
 sql/planner.py plans. The grammar is the reference's; what the port's
 engine cannot evaluate yet raises ``NotImplementedError`` naming the
 ROADMAP item that brings it, where the reference builds an expression:
-``%``, ``^``, ``||``, ``ILIKE``, ``IS [NOT] TRUE/FALSE``, ``TIMESTAMP``
-literals, non-day ``INTERVAL`` units, and the aggregates other than SUM,
-AVG, MIN, MAX and COUNT (the expression surface, item 7).
+the types BINARY, BYTES, DECIMAL and NUMERIC, and the aggregates
+APPROX_COUNT_DISTINCT, LIST_AGG and ARRAY_AGG (the expression surface,
+item 7).
 
 Window functions are the reference's: an aggregate or ROW_NUMBER, RANK,
 DENSE_RANK, PERCENT_RANK, CUME_DIST, NTILE(n), LAG / LEAD (expr[, offset[,
@@ -18,10 +18,12 @@ default]]), FIRST_VALUE, LAST_VALUE, followed by ``OVER ([PARTITION BY
 ``CURRENT ROW`` or ``n PRECEDING|FOLLOWING``. A ranking or value function
 without ``OVER`` raises.
 
-Dates are the port's int32 days: ``DATE 'yyyy-mm-dd'`` is a date literal,
-and ``INTERVAL 'n' DAY`` added to or subtracted from a date literal folds
-into a date literal here (the reference's parser allows the same units; a
-month or year is not a fixed duration, and the port has no timestamps).
+``DATE 'yyyy-mm-dd'`` is a date literal and ``TIMESTAMP '...'`` a
+timestamp literal (microseconds, ISO form). ``INTERVAL 'n' unit`` (week,
+day, hour, minute, second, millisecond) is a duration literal, as in the
+reference; added to or subtracted from a date literal in whole days it
+folds into a date literal here. Month and year are not fixed durations and
+raise, as in the reference.
 """
 
 from __future__ import annotations
@@ -75,8 +77,12 @@ _TYPE_NAMES = {
     "DOUBLE": DataType.float64, "FLOAT8": DataType.float64, "FLOAT4": DataType.float32,
     "TEXT": DataType.string, "STRING": DataType.string, "VARCHAR": DataType.string,
     "BOOL": DataType.bool, "BOOLEAN": DataType.bool, "DATE": DataType.date,
+    "TIMESTAMP": lambda: DataType.timestamp("us"),
 }
-_TYPE_NAMES_NOT_PORTED = {"BINARY", "BYTES", "DECIMAL", "NUMERIC", "TIMESTAMP"}
+_TYPE_NAMES_NOT_PORTED = {"BINARY", "BYTES", "DECIMAL", "NUMERIC"}
+# the fixed-length INTERVAL units, in seconds (the reference's parser.py:423)
+_INTERVAL_SECONDS = {"day": 86400.0, "week": 7 * 86400.0, "hour": 3600.0, "minute": 60.0,
+                     "second": 1.0, "millisecond": 1e-3}
 
 
 class InSubquery(Expression):
@@ -137,14 +143,6 @@ class ScalarSubquery(Expression):
 
     def __repr__(self):
         return "(<scalar subquery>)"
-
-
-class _DayInterval:
-    """``INTERVAL 'n' DAY``: folds into a date literal it is added to or
-    subtracted from."""
-
-    def __init__(self, days: float):
-        self.days = days
 
 
 @dataclasses.dataclass
@@ -248,10 +246,7 @@ class Parser:
 
     # ---- expressions --------------------------------------------------------------
     def parse_expr(self, min_bp: int = 0) -> Expression:
-        lhs = self._operand(min_bp)
-        if isinstance(lhs, _DayInterval):
-            raise _not_ported("an INTERVAL outside date-literal arithmetic")
-        return lhs
+        return self._operand(min_bp)
 
     def _operand(self, min_bp: int):
         lhs = self._prefix()
@@ -291,8 +286,9 @@ class Parser:
             lhs = self._binary(opname, lhs, rhs)
 
     def _binary(self, op: str, l, r):
-        if isinstance(l, _DayInterval) or isinstance(r, _DayInterval):
-            return _date_plus_interval(op, l, r)
+        folded = _date_plus_days(op, l, r)
+        if folded is not None:
+            return folded
         if op == "OR":
             return l | r
         if op == "AND":
@@ -419,7 +415,8 @@ class Parser:
                 self.next()
                 return lit(datetime.date.fromisoformat(self.next().value))
             if up == "TIMESTAMP" and self.peek(1).kind == "string":
-                raise _not_ported("a TIMESTAMP literal (the port has no timestamp type)")
+                self.next()
+                return lit(datetime.datetime.fromisoformat(self.next().value))
             if up == "INTERVAL":
                 self.next()
                 return self._parse_interval()
@@ -435,7 +432,7 @@ class Parser:
             return col(name)
         raise ValueError(f"unexpected token {t.value!r} at {t.pos}")
 
-    def _parse_interval(self) -> _DayInterval:
+    def _parse_interval(self) -> Expression:
         spec = self.expect("string").value.strip()
         parts = spec.split()
         if len(parts) == 2:
@@ -446,11 +443,8 @@ class Parser:
             raise ValueError(f"malformed INTERVAL {spec!r}")
         n = float(n)
         unit = unit.rstrip("sS").lower()
-        if unit == "day":
-            return _DayInterval(n)
-        if unit in ("week", "hour", "minute", "second", "millisecond"):
-            raise _not_ported(f"INTERVAL unit {unit!r} (dates are whole days; the port has "
-                              "no timestamp type)")
+        if unit in _INTERVAL_SECONDS:
+            return lit(datetime.timedelta(seconds=n * _INTERVAL_SECONDS[unit]))
         raise NotImplementedError(
             f"INTERVAL unit {unit!r}: calendar units (month/year) are not fixed durations; "
             "use the dt namespace (e.g. add via datetime arithmetic in the DataFrame API)")
@@ -876,18 +870,24 @@ class Parser:
         return JoinClause(factor, kind, on, using)
 
 
-def _date_plus_interval(op: str, l, r) -> Expression:
-    """DATE literal +/- INTERVAL 'n' DAY (or INTERVAL + DATE) as a date
-    literal."""
-    date, interval = (l, r) if isinstance(r, _DayInterval) else (r, l)
-    if op not in ("+", "-") or (op == "-" and date is r) \
-            or not (isinstance(date, Literal) and isinstance(date.value, datetime.date)):
-        raise _not_ported("INTERVAL arithmetic other than a date literal plus or minus "
-                          "whole days")
-    if interval.days != int(interval.days):
-        raise _not_ported("a fractional day INTERVAL (the port has no timestamp type)")
-    delta = datetime.timedelta(days=int(interval.days))
-    return lit(date.value + delta if op == "+" else date.value - delta)
+def _date_plus_days(op: str, l, r) -> Optional[Expression]:
+    """DATE literal +/- a whole-day INTERVAL (or INTERVAL + DATE) as a date
+    literal; None for anything else, which stays arithmetic."""
+    if op not in ("+", "-"):
+        return None
+
+    def is_date(e):
+        return isinstance(e, Literal) and type(e.value) is datetime.date
+
+    def whole_days(e):
+        return isinstance(e, Literal) and isinstance(e.value, datetime.timedelta) \
+            and e.value % datetime.timedelta(days=1) == datetime.timedelta(0)
+
+    if is_date(l) and whole_days(r):
+        return lit(l.value + r.value if op == "+" else l.value - r.value)
+    if op == "+" and whole_days(l) and is_date(r):
+        return lit(r.value + l.value)
+    return None
 
 
 def parse_expression(text: str) -> Expression:

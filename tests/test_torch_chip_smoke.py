@@ -1326,3 +1326,43 @@ def test_native_cell_refuses_a_plain_version_that_differs(monkeypatch):
     with pytest.raises(cs.SmokeFailure, match="native sums: the plain run differs"):
         cs.native_cell("sums", lambda: df.groupby("k").agg(dt.col("v").sum()).sort("k")
                        .to_pydict(), "cpu")
+
+
+def test_temporal_phase_on_the_cpu(monkeypatch, capsys):
+    """chip_smoke.py's temporal phase on the CPU at a small size (row groups
+    of 16,384 rows, so the file-fed T1 prunes): T1 as one fused region
+    under a DeviceGroupedAgg with four K3 calls, in SQL and file-fed; T2's
+    grouped cells over host functions; the windowed stddev / var; the plan
+    surface; each equal to "off" and its numpy oracle. The kernel cases at
+    T1's inputs need the card's events and are left out here."""
+    from daft_tpu_torch.io import _parquet_format as pf
+
+    cs = _cpu_cells(monkeypatch)
+    monkeypatch.setattr(pf, "ROW_GROUP_ROWS", 16384)
+    monkeypatch.setattr(cs, "temporal_kernel_cases", lambda *a, **k: None)
+    lineitem, _orders, _dims = _small_tpch(cs)
+    paths = cs.phase_temporal(lineitem, "cpu", {})
+    assert paths["temporal_t1"]["segment_extreme_int64"] == 4, paths
+    for path in ("temporal_t1_sql", "temporal_t1_file", "temporal_t2_hour",
+                 "temporal_t2_ny_hour", "temporal_t2_day", "temporal_sample"):
+        assert paths[path]["segment_sum_planes"] >= 1, (path, paths[path])
+    out = capsys.readouterr().out
+    assert "T1 plan: one DeviceGroupedAgg over the scan, fused region" in out
+    assert "zone database:" in out and "T1 file: 0 column uploads on a warm run" in out
+    assert "T1 file: row groups read" in out
+
+
+def test_temporal_phase_fails_on_a_wrong_oracle(monkeypatch):
+    cs = _cpu_cells(monkeypatch)
+    monkeypatch.setattr(cs, "temporal_kernel_cases", lambda *a, **k: None)
+    lineitem, _orders, _dims = _small_tpch(cs)
+    oracle = cs.t1_oracle
+
+    def shifted(cols, ts):
+        out = oracle(cols, ts)
+        out["last_ship"] = [v + cs.datetime.timedelta(microseconds=1) for v in out["last_ship"]]
+        return out
+
+    monkeypatch.setattr(cs, "t1_oracle", shifted)
+    with pytest.raises(cs.SmokeFailure, match="numpy oracle"):
+        cs.phase_temporal(lineitem, "cpu", {})

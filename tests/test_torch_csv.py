@@ -100,10 +100,21 @@ def test_large_file_blocks_and_limit_match_reference(tmp_path):
     assert got_l == want_l
 
 
-def test_time_and_timestamp_columns_raise(tmp_path):
-    for text in ("a\n12:30:00\n", "a\n2020-01-01 12:00:00\n"):
-        with pytest.raises(NotImplementedError, match="time"):
-            daft_tpu_torch.read_csv(_write(tmp_path, "t", text)).schema
+def test_time_and_timestamp_columns_read_as_the_reference(tmp_path):
+    """A time of day and a timestamp in seconds, naive and zoned, typed and
+    read as the reference's pyarrow reader gives them (the full inference
+    table is tests/test_torch_temporal.py's)."""
+    for i, text in enumerate(("a\n12:30:00\n01:02\n", "a\n2020-01-01 12:00:00\n1969-12-31\n",
+                              "a\n2020-01-01 12:00:00+05:30\n2020-01-01T00:00Z\n")):
+        path = _write(tmp_path, f"t{i}", text)
+        with ref_ctx(device_mode="off"):
+            ref = daft_tpu.read_csv(path)
+            want, want_dt = ref.to_pydict(), ref.schema["a"].dtype
+        got_df = daft_tpu_torch.read_csv(path)
+        with daft_tpu_torch.execution_config_ctx(device="cpu"):
+            got = got_df.to_pydict()
+        assert repr(got_df.schema["a"].dtype) == repr(want_dt)
+        assert got == want
 
 
 def test_reference_reads_the_ports_csv(tmp_path):

@@ -5,7 +5,9 @@ breadth.py).
 Every function the port registers runs over the same columns in both
 packages (strings with non-ASCII, empty and null values; floats with NaN,
 +-inf, -0.0 and nulls; integers; dates across year ends, leap days and ISO
-week edges) under device_mode="off", and equals the reference's host:
+week edges; naive microsecond timestamps before and after 1970, durations
+and timestamp strings) under device_mode="off", and equals the reference's
+host:
 floats within rtol 1e-5 (NaN and infinities in the same places), the rest
 exactly, with the same name and return type. ``uuid`` is checked for its
 shape, ``monotonically_increasing_id`` raises in both. The later waves'
@@ -29,6 +31,7 @@ from daft_tpu_torch.functions import registry as port_reg
 
 RTOL = 1e-5
 D = datetime.date
+DT = datetime.datetime
 
 DATA = {
     "t": ["hello world", "Ünïcode straße", "", None, "  padded\t", "a,b,,c",
@@ -44,6 +47,18 @@ DATA = {
     "d": [D(2024, 3, 2), D(1999, 12, 31), None, D(2000, 2, 29), D(1969, 7, 20),
           D(2020, 12, 31), D(2021, 1, 3), D(2019, 12, 30), D(1970, 1, 1), D(2038, 1, 19),
           D(2001, 1, 1), D(1900, 3, 1)],
+    "ts": [DT(2024, 3, 2, 23, 59, 59, 999999), DT(1969, 12, 31, 23, 0, 1, 5), None,
+           DT(2000, 2, 29, 12, 30), DT(1969, 7, 20, 20, 17, 40), DT(2020, 12, 31, 0, 0, 0, 1),
+           DT(2021, 1, 3, 6, 7, 8), DT(2019, 12, 30, 18), DT(1970, 1, 1), DT(2038, 1, 19, 3, 14, 7),
+           DT(2001, 1, 1, 1, 1, 1, 1000), DT(1900, 3, 1, 13, 13, 13)],
+    "du": [datetime.timedelta(days=3, seconds=7261, microseconds=5), datetime.timedelta(-1), None,
+           datetime.timedelta(seconds=-1), datetime.timedelta(0), datetime.timedelta(hours=25),
+           datetime.timedelta(minutes=59, seconds=59), datetime.timedelta(days=400),
+           datetime.timedelta(microseconds=-1), datetime.timedelta(milliseconds=1500),
+           datetime.timedelta(weeks=2), datetime.timedelta(seconds=86399)],
+    "dts": ["2024-03-02 10:11:12", "02/29/2000 01:02:03 PM", None, "1969-12-31 23:59:59",
+            "2021-01-03T04:05", "bad", "2020-12-31 24:00:00", "1999-12-31 00:00:60", "",
+            "2038-01-19 03:14:07", "2001-01-01 1:2:3", "1900-03-01 13:13:13"],
 }
 N = len(DATA["t"])
 
@@ -52,6 +67,7 @@ def _calls(m):
     """name -> expression of package ``m``, one or more per function."""
     col = m.col
     t, t2, f, g, i, j, d, ds = (col(n) for n in ("t", "t2", "f", "g", "i", "j", "d", "ds"))
+    ts, du, dts = col("ts"), col("du"), col("dts")
     out = {}
     for name in ("exp", "sqrt", "sin", "cos", "tan", "arctan", "log2", "log10", "cbrt", "expm1",
                  "log1p", "sinh", "cosh", "tanh", "degrees", "radians", "arccosh", "arcsinh",
@@ -109,6 +125,26 @@ def _calls(m):
         "dt_to_unix_epoch_ns": d.dt.to_unix_epoch("ns"), "dt_strftime": d.dt.strftime(),
         "dt_strftime_fmt": d.dt.strftime("%Y/%m/%d %A %j"),
         "coalesce": i._fn("coalesce", j), "coalesce_lit": f._fn("coalesce", g, 0.0),
+        # the timestamp wave
+        "dt_hour": ts.dt.hour(), "dt_minute": ts.dt.minute(), "dt_second": ts.dt.second(),
+        "dt_millisecond": ts.dt.millisecond(), "dt_microsecond": ts.dt.microsecond(),
+        "dt_nanosecond": ts._fn("dt_nanosecond"), "dt_date": ts.dt.date(),
+        "dt_time": ts.dt.time(), "ts_year": ts.dt.year(), "ts_week": ts.dt.week_of_year(),
+        "ts_strftime": ts.dt.strftime(), "ts_strftime_fmt": ts.dt.strftime("%c %p %I"),
+        "ts_truncate": ts.dt.truncate("6 hours"), "ts_epoch_ms": ts.dt.to_unix_epoch("us"),
+        "utf8_to_datetime": dts.str.to_datetime("%Y-%m-%d %H:%M:%S"),
+        "utf8_to_datetime_pm": dts.str.to_datetime("%m/%d/%Y %I:%M:%S %p"),
+        "utf8_to_datetime_tz": dts.str.to_datetime("%Y-%m-%dT%H:%M", timezone="UTC"),
+        "replace_time_zone": ts._fn("replace_time_zone", tz="America/New_York"),
+        "convert_time_zone": ts._fn("replace_time_zone", tz="UTC")._fn(
+            "convert_time_zone", tz="Asia/Kolkata"),
+        "unix_date": ts.unix_date(), "unix_date_d": d.unix_date(),
+        "total_seconds": du.total_seconds(), "total_milliseconds": du.total_milliseconds(),
+        "total_microseconds": du.total_microseconds(),
+        "total_nanoseconds": du.total_nanoseconds(), "total_minutes": du.total_minutes(),
+        "total_hours": du.total_hours(), "total_days": du.total_days(),
+        "partition_days": ts.partition_days(), "partition_hours": ts.partition_hours(),
+        "partition_months": ts.partition_months(), "partition_years": d.partition_years(),
     })
     for interval in ("1 day", "3 days", "1 week", "2 weeks", "1 month", "5 months",
                      "1 quarter", "1 year", "3 years"):
@@ -174,9 +210,9 @@ def test_uuid_and_monotonically_increasing_id():
         daft_tpu_torch.from_pydict({"x": [1]}).select(e.alias("m")).to_pydict()
 
 
-LATER = ["dt_hour", "utf8_to_datetime", "list_length", "map_get", "json_query", "md5",
+LATER = ["list_sum", "struct_get", "list_length", "map_get", "json_query", "md5",
          "compress", "image_decode", "url_download", "tokenize_encode", "minhash",
-         "embedding_norm", "total_seconds"]
+         "embedding_norm", "image_resize"]
 
 
 @pytest.mark.parametrize("name", LATER)

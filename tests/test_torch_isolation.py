@@ -7,7 +7,7 @@
   (``daft_tpu_torch.sql``), a query that writes and reads Parquet and
   CSV files, and embed, classify and a fused device UDF on the device-UDF
   tier alike, imports neither
-  JAX, nor pyarrow, nor anything of
+  JAX, nor pyarrow, nor pandas, nor anything of
   daft_tpu (checked in a fresh interpreter: tests/conftest.py imports JAX
   into this one);
 - with no card, a query left at the default device ("cuda") raises, an
@@ -31,7 +31,9 @@
 - host queries on the host kernel library (a grouped aggregate over a
   filter, a join) load the port's own build of csrc/kernels.cpp from
   daft_tpu_torch/ops/_kbuild/, never the reference's library, and import
-  none of them either.
+  none of them either;
+- a temporal query (timestamps on the device stage, in SQL, the zone
+  functions, a Parquet and a CSV round trip) imports none of them either.
 """
 
 import datetime
@@ -84,7 +86,8 @@ with dt.execution_config_ctx(device="cpu", device_mode="auto", device_min_rows=1
     assert "#1 grouped agg (100 rows) -> " in report and "margin:" in report, report
     assert query().to_pydict() == out
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             if m in ("jax", "pyarrow", "pandas")
+             or m.startswith(("jax.", "pyarrow.", "pandas.", "daft_tpu."))
              or m == "daft_tpu")
 print("FORBIDDEN", bad)
 """
@@ -125,7 +128,8 @@ from daft_tpu_torch.ops import counters
 assert out["l_shipmode"] == ["MAIL", "SHIP"], out
 assert counters.device_join_batches == 1, counters.snapshot()
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             if m in ("jax", "pyarrow", "pandas")
+             or m.startswith(("jax.", "pyarrow.", "pandas.", "daft_tpu."))
              or m == "daft_tpu")
 print("FORBIDDEN", bad)
 """
@@ -161,7 +165,8 @@ assert 0 < out["promo_revenue"][0] < 100, out
 assert counters.device_join_batches == 1 and counters.device_stage_batches == 1, \
     counters.snapshot()
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             if m in ("jax", "pyarrow", "pandas")
+             or m.startswith(("jax.", "pyarrow.", "pandas.", "daft_tpu."))
              or m == "daft_tpu")
 print("FORBIDDEN", bad)
 """
@@ -183,7 +188,8 @@ assert len(parts) == 8 and sum(len(p) for p in parts) == 5000
 assert counters.mesh_fused_permute_dispatches == 1, counters.snapshot()
 assert counters.plain_ring_permute_words == 1, counters.snapshot()
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             if m in ("jax", "pyarrow", "pandas")
+             or m.startswith(("jax.", "pyarrow.", "pandas.", "daft_tpu."))
              or m == "daft_tpu")
 print("FORBIDDEN", bad)
 """
@@ -211,7 +217,8 @@ assert counters.device_region_dispatches == 1, counters.snapshot()
 # the optimizer pushes v < 40 below the semi join: the region is project + agg
 assert counters.device_region_ops_fused == 2, counters.snapshot()
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             if m in ("jax", "pyarrow", "pandas")
+             or m.startswith(("jax.", "pyarrow.", "pandas.", "daft_tpu."))
              or m == "daft_tpu")
 print("FORBIDDEN", bad)
 """
@@ -241,7 +248,8 @@ with dt.execution_config_ctx(device="cpu", device_mode="on"):
 assert out["l_shipmode"] == ["MAIL", "SHIP"], out
 assert counters.device_join_batches == 1, counters.snapshot()
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             if m in ("jax", "pyarrow", "pandas")
+             or m.startswith(("jax.", "pyarrow.", "pandas.", "daft_tpu."))
              or m == "daft_tpu")
 print("FORBIDDEN", bad)
 """
@@ -407,7 +415,8 @@ assert counters.device_grouped_batches >= 1 and counters.scan_tasks >= 1
 import shutil
 shutil.rmtree(root)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             if m in ("jax", "pyarrow", "pandas")
+             or m.startswith(("jax.", "pyarrow.", "pandas.", "daft_tpu."))
              or m == "daft_tpu")
 print("FORBIDDEN", bad)
 """
@@ -512,7 +521,8 @@ assert manager().pinned_count() == 0
 import shutil
 shutil.rmtree(root)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             if m in ("jax", "pyarrow", "pandas")
+             or m.startswith(("jax.", "pyarrow.", "pandas.", "daft_tpu."))
              or m == "daft_tpu")
 print("FORBIDDEN", bad)
 """
@@ -588,7 +598,8 @@ assert manager().tracked_bytes() == 0
 assert os.listdir(spill_dir) == [], os.listdir(spill_dir)
 os.rmdir(spill_dir)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             if m in ("jax", "pyarrow", "pandas")
+             or m.startswith(("jax.", "pyarrow.", "pandas.", "daft_tpu."))
              or m == "daft_tpu")
 print("FORBIDDEN", bad)
 """
@@ -645,7 +656,8 @@ assert {{"device.h2d", "device.dispatch", "device.d2h"}} <= names, names
 assert "== Engine Counters ==" in report
 os.remove(path)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             if m in ("jax", "pyarrow", "pandas")
+             or m.startswith(("jax.", "pyarrow.", "pandas.", "daft_tpu."))
              or m == "daft_tpu")
 print("FORBIDDEN", bad)
 """
@@ -690,7 +702,8 @@ with dt.execution_config_ctx(device="cpu", device_mode="off"):
 assert out["k"] == host["k"] == [1, 2, 4, 5], out
 assert np.allclose(out["r"], host["r"], rtol=1e-5) and np.allclose(out["sd"], host["sd"])
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             if m in ("jax", "pyarrow", "pandas")
+             or m.startswith(("jax.", "pyarrow.", "pandas.", "daft_tpu."))
              or m == "daft_tpu")
 print("FORBIDDEN", bad)
 """
@@ -732,7 +745,8 @@ assert mine and all(m.startswith(_build.BUILD_DIR + "/") for m in mine), mine
 assert _build.BUILD_DIR.endswith("daft_tpu_torch/ops/_kbuild"), _build.BUILD_DIR
 assert not [m for m in maps if "libdaft_native" in m], maps
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "pyarrow") or m.startswith(("jax.", "pyarrow.", "daft_tpu."))
+             if m in ("jax", "pyarrow", "pandas")
+             or m.startswith(("jax.", "pyarrow.", "pandas.", "daft_tpu."))
              or m == "daft_tpu")
 print("FORBIDDEN", bad)
 """
@@ -744,6 +758,64 @@ def test_host_kernel_library_is_the_ports_own_build():
     (never the reference's ``libdaft_native.so``), its exports are called,
     and no JAX, pyarrow or daft_tpu is imported."""
     proc = subprocess.run([sys.executable, "-c", _NATIVE_QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+_TEMPORAL_QUERY = """
+import datetime, os, sys, tempfile
+import numpy as np
+sys.path.insert(0, {repo!r})
+import daft_tpu_torch as dt
+from daft_tpu_torch import col, lit
+from daft_tpu_torch.ops import counters
+rng = np.random.default_rng(22)
+n = 3000
+day = 86_400_000_000
+ship = rng.integers(9000, 9800, n) * day + rng.integers(0, day, n)
+df = dt.from_pydict({{
+    "f": np.array(["A", "N", "R"], dtype=object)[rng.integers(0, 3, n)],
+    "p": rng.uniform(1, 100, n),
+    "ship": ship.astype("datetime64[us]"),
+    "rec": (ship + rng.integers(1, 30, n) * day).astype("datetime64[us]")}})
+transit = col("rec") - col("ship")
+def t1(frame):
+    return (frame.where((col("ship") >= lit(datetime.datetime(1995, 1, 1, 6, 30)))
+                        & (transit > lit(datetime.timedelta(days=5))))
+            .groupby("f").agg(col("p").count().alias("n"), col("ship").min().alias("a"),
+                              transit.max().alias("t")).sort("f"))
+with dt.execution_config_ctx(device="cpu", device_mode="on"):
+    out = t1(df).to_pydict()
+    assert counters.device_grouped_batches == 1, counters.snapshot()
+    sql = dt.sql("SELECT f, COUNT(*) AS n, MIN(ship) AS a, MAX(rec - ship) AS t FROM t "
+                 "WHERE ship >= TIMESTAMP '1995-01-01 06:30:00' AND rec - ship > "
+                 "INTERVAL '5' DAY GROUP BY f ORDER BY f", t=df).to_pydict()
+    assert sql == out, (sql, out)
+with dt.execution_config_ctx(device="cpu", device_mode="off"):
+    zoned = df.select(col("ship")._fn("replace_time_zone", tz="UTC")._fn(
+        "convert_time_zone", tz="America/New_York").dt.hour().alias("h"),
+        col("ship").dt.truncate("1 day").alias("d"), transit.total_hours().alias("th"))
+    assert len(zoned.to_pydict()["h"]) == n
+    d = tempfile.mkdtemp()
+    df.write_parquet(d)
+    assert t1(dt.read_parquet(d)).to_pydict() == out
+    df.write_csv(d + "_csv")
+    assert len(dt.read_csv(d + "_csv").to_pydict()["ship"]) == n
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow", "pandas")
+             or m.startswith(("jax.", "pyarrow.", "pandas.", "daft_tpu."))
+             or m == "daft_tpu")
+print("FORBIDDEN", bad)
+"""
+
+
+def test_temporal_query_imports_no_jax_pyarrow_or_reference():
+    """Timestamps end to end in a fresh interpreter: T1 on the device stage
+    (as a DataFrame and in SQL), the zone functions, truncation and
+    duration totals on the host, and a Parquet and a CSV round trip of
+    timestamp columns: no JAX, pyarrow, pandas or daft_tpu imported."""
+    proc = subprocess.run([sys.executable, "-c", _TEMPORAL_QUERY.format(repo=REPO)],
                           capture_output=True, text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
