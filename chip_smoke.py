@@ -303,6 +303,28 @@ error (no phase catches its own failure):
             "off". K1, K3 and K7 held at T1's captured inputs against
             their plain versions ("at_t1_..." rows). Prints where the zone
             database was found;
+20d. nested: SF1 lineitem with its ship mode as dictionary-coded
+            strings, a struct of (l_linenumber, l_returnflag) and a seeded
+            three-word l_comment. N1 (host): by l_orderkey, agg_list of
+            l_suppkey, l_quantity, l_extendedprice, l_shipmode and the
+            struct, agg_set of l_shipmode, any_value of l_comment: 1.5 M
+            rows, 6 M elements a list column, held to numpy. N2 (card):
+            the three numeric lists exploded, then count, sums, float and
+            int64 extremes by l_suppkey: one DeviceGroupedAgg over the
+            explode, K1, K2, K7 and K3 launched, equal to the flat
+            aggregation over lineitem, "off" and numpy, cold and warm,
+            uploads on a warm run, a profile. N3: N1 written with the
+            port's Parquet writer and read back equal, then N2 over the
+            file, no upload warm. N4: the host functions (list_length,
+            list_sum, list_max, list_get, list_sort, list_distinct,
+            list_contains, list_join, struct_get, partition_iceberg_bucket
+            over N1's rows; to_json -> json_query, encode_base64, sha256
+            and a gzip round trip, a Python call a value, over its first
+            100,000), host clock, median of 3, each held to a plain-Python
+            oracle on 10,000 seeded rows; explode and agg_list alone. N5:
+            the build in SQL (ARRAY_AGG, LIST_AGG), the explode, N2's
+            aggregate in SQL, equal to N2. K1, K2, K3 and K7 held at N2's
+            captured inputs ("at_n2_..." rows);
 20b. tpcds:  the 25 queries of benchmarking/tpcds/queries.py at SF1 over
             tpcds_tables (the reference's generator in numpy), each "off",
             then "on" cold and warm (median of 3), "on" equal to "off";
@@ -347,7 +369,7 @@ Every relational cell runs at SF1: nothing is cut; the ai cells run the
 model at its published widths with its depth uncut. It imports torch,
 numpy and the port; nothing of JAX, pyarrow or daft_tpu.
 
-    python3 chip_smoke.py --phase ooc|window|obs|auto|functions|tpcds|native|temporal
+    python3 chip_smoke.py --phase ooc|window|obs|auto|functions|tpcds|native|temporal|nested
 
 runs phases 1-3, then that phase alone (ooc, obs and auto write lineitem's
 Parquet files themselves; auto alone computes each cell's "off" result and
@@ -6040,6 +6062,423 @@ def phase_temporal(lineitem, card: str, kernel_results: dict) -> dict:
     return paths
 
 
+# ---- nested: lists, structs and maps at SF1 ----------------------------------------
+
+# N2's aggregates ride the grouped stage: the count (K1), the validity
+# planes' extremes (K2), the float sums (K7), the int64 and f64 extremes (K3)
+NESTED_KERNELS = ("segment_sum_planes", "segment_extreme_planes", "segment_sum_float_planes",
+                  "segment_extreme_int64")
+NESTED_FLOATS = ("qty", "revenue")
+NESTED_SAMPLE = 10_000        # the rows each N4 function is held to its oracle on
+NESTED_VALUE_ROWS = 100_000   # the value functions' rows (a Python call a value)
+NESTED_LISTS = ("l_suppkey", "l_quantity", "l_extendedprice")
+COMMENT_WORDS = ["carefully", "final", "deposits", "furiously", "ironic", "packages",
+                 "quickly", "regular", "accounts", "blithely", "special", "requests",
+                 "pending", "express", "silent", "theodolites"]
+NESTED_WRAPPERS = {"segment_sum_planes": "segment_kernels",
+                   "segment_extreme_planes": "segment_kernels",
+                   "segment_sum_float_planes": "segment_kernels",
+                   "segment_extreme_int64": "segment_kernels"}
+N5_BUILD_SQL = """SELECT l_orderkey, ARRAY_AGG(l_suppkey) AS l_suppkey,
+  LIST_AGG(l_quantity) AS l_quantity, ARRAY_AGG(l_extendedprice) AS l_extendedprice
+FROM lineitem GROUP BY l_orderkey"""
+N5_AGG_SQL = """SELECT l_suppkey, COUNT(l_orderkey) AS n_lines, SUM(l_quantity) AS qty,
+  SUM(l_extendedprice) AS revenue, MIN(l_extendedprice) AS min_price,
+  MAX(l_extendedprice) AS max_price, MIN(l_orderkey) AS first_order,
+  MAX(l_orderkey) AS last_order
+FROM exploded GROUP BY l_suppkey ORDER BY l_suppkey"""
+
+
+def nested_frame(lineitem):
+    """N1's input: lineitem's keys, quantity, price, its ship mode as
+    dictionary-coded strings, a struct of (l_linenumber, l_returnflag), and
+    an ``l_comment`` of three words drawn from COMMENT_WORDS (seeded)."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import DataType, Series
+    from daft_tpu_torch.io._parquet_format import attach_dictionary_codes
+
+    n = len(lineitem["l_orderkey"])
+    modes = _strings("l_shipmode", SHIPMODES, lineitem["l_shipmode"])
+    attach_dictionary_codes(modes, np.array(SHIPMODES, dtype=object),
+                            lineitem["l_shipmode"].astype(np.int64))
+    flags = _strings("l_returnflag", RETURNFLAGS, lineitem["l_returnflag"])
+    attach_dictionary_codes(flags, np.array(RETURNFLAGS, dtype=object),
+                            lineitem["l_returnflag"].astype(np.int64))
+    line = Series.nested("l_line", DataType.struct({"l_linenumber": DataType.int32(),
+                                                    "l_returnflag": DataType.string()}),
+                         None, [Series.from_numpy(lineitem["l_linenumber"], "l_linenumber"),
+                                flags], np.ones(n, dtype=bool))
+    rng = np.random.default_rng(SEED + 7)
+    vocab = np.array([" ".join(w) for w in zip(*(rng.permutation(COMMENT_WORDS * 4)
+                                                   for _ in range(3)))], dtype=object)
+    comment = _strings("l_comment", vocab, rng.integers(0, len(vocab), n))
+    return dt.from_pydict({"l_orderkey": lineitem["l_orderkey"],
+                           "l_suppkey": lineitem["l_suppkey"],
+                           "l_quantity": lineitem["l_quantity"],
+                           "l_extendedprice": lineitem["l_extendedprice"],
+                           "l_shipmode": modes, "l_line": line, "l_comment": comment})
+
+
+def n1_query(df):
+    """N1: each order's lines as lists, its ship modes' set, its lines'
+    (number, flag) structs, one comment."""
+    from daft_tpu_torch import col
+
+    return (df.groupby("l_orderkey")
+            .agg(col("l_suppkey").agg_list(), col("l_quantity").agg_list(),
+                 col("l_extendedprice").agg_list(), col("l_shipmode").agg_list(),
+                 col("l_shipmode").agg_set().alias("modes"), col("l_line").agg_list(),
+                 col("l_comment").any_value()))
+
+
+def n2_aggs():
+    from daft_tpu_torch import col
+
+    return (col("l_orderkey").count().alias("n_lines"),
+            col("l_quantity").sum().alias("qty"),
+            col("l_extendedprice").sum().alias("revenue"),
+            col("l_extendedprice").min().alias("min_price"),
+            col("l_extendedprice").max().alias("max_price"),
+            col("l_orderkey").min().alias("first_order"),
+            col("l_orderkey").max().alias("last_order"))
+
+
+def n2_query(n1):
+    """N2: the three numeric lists exploded, then by supplier."""
+    return n1.explode(*NESTED_LISTS).groupby("l_suppkey").agg(*n2_aggs()).sort("l_suppkey")
+
+
+def n2_flat_query(df):
+    """The same aggregation over flat lineitem (the supplier cell's shape)."""
+    return df.groupby("l_suppkey").agg(*n2_aggs()).sort("l_suppkey")
+
+
+def n2_oracle(lineitem) -> dict:
+    import numpy as np
+
+    keys, inv = np.unique(lineitem["l_suppkey"], return_inverse=True)
+    g = len(keys)
+
+    def ext(ufunc, v, ident):
+        out = np.full(g, ident, dtype=v.dtype)
+        ufunc.at(out, inv, v)
+        return out.tolist()
+
+    price, order = lineitem["l_extendedprice"], lineitem["l_orderkey"]
+    return {"l_suppkey": keys.tolist(), "n_lines": np.bincount(inv, minlength=g).tolist(),
+            "qty": np.bincount(inv, weights=lineitem["l_quantity"], minlength=g).tolist(),
+            "revenue": np.bincount(inv, weights=price, minlength=g).tolist(),
+            "min_price": ext(np.minimum, price, np.inf),
+            "max_price": ext(np.maximum, price, -np.inf),
+            "first_order": ext(np.minimum, order, np.iinfo(np.int64).max),
+            "last_order": ext(np.maximum, order, np.iinfo(np.int64).min)}
+
+
+def n1_checks(n1, lineitem) -> None:
+    """N1 against numpy: one row an order, each list its order's lines in
+    order, each set its ship modes' first occurrences."""
+    import numpy as np
+
+    b = _frame_all(n1)
+    orders = lineitem["l_orderkey"]
+    lines = np.bincount(orders)[1:]
+    check(b.num_rows == len(lines), f"N1: {b.num_rows} rows, expected {len(lines)}")
+    want_off = np.concatenate([[0], np.cumsum(lines)])
+    for c in NESTED_LISTS + ("l_shipmode", "l_line"):
+        s = b.get_column(c)
+        check(np.array_equal(s.list_offsets(), want_off), f"N1: {c}'s offsets differ")
+    for c in NESTED_LISTS:
+        check(np.array_equal(b.get_column(c).list_child().to_numpy(), lineitem[c]),
+              f"N1: {c}'s elements differ from lineitem's")
+    line = b.get_column("l_line").list_child()
+    check(np.array_equal(line.struct_field("l_linenumber").to_numpy(),
+                         lineitem["l_linenumber"]), "N1: the structs' line numbers differ")
+    elems = int(want_off[-1])
+    sets = b.get_column("modes")
+    idx = np.random.default_rng(SEED).choice(len(lines), min(NESTED_SAMPLE, len(lines)),
+                                             replace=False)
+    starts = want_off[idx].tolist()
+    codes = lineitem["l_shipmode"]
+    got = sets.take(idx).to_pylist()
+    for a, n, g in zip(starts, lines[idx].tolist(), got):
+        want = list(dict.fromkeys(SHIPMODES[c] for c in codes[a:a + n].tolist()))
+        check(g == want, f"N1: a ship-mode set differs: {g} != {want}")
+    print(f"N1: {b.num_rows} rows, {elems} elements a list column ({lines.min()}-"
+          f"{lines.max()} a row), equal to numpy", flush=True)
+
+
+def _frame_all(df):
+    """Every partition of a collected DataFrame as one RecordBatch."""
+    from daft_tpu_torch.core.recordbatch import RecordBatch
+
+    return RecordBatch.concat([p.concat_or_empty() for p in df.collect()._plan.partitions])
+
+
+def same_nested(a, b) -> bool:
+    """Two Series equal in type, validity and layout, values bit for bit."""
+    import numpy as np
+
+    if a.dtype != b.dtype or len(a) != len(b) or \
+            not np.array_equal(a.validity_numpy(), b.validity_numpy()):
+        return False
+    if a.is_nested:
+        la, lb = a.layout, b.layout
+        if (la.offsets is None) != (lb.offsets is None) or (
+                la.offsets is not None and not np.array_equal(la.offsets, lb.offsets)):
+            return False
+        return all(same_nested(x, y) for x, y in zip(la.children, lb.children))
+    va, vb = a.to_numpy(), b.to_numpy()
+    if va.dtype == object:
+        return va.tolist() == vb.tolist()
+    return va.tobytes() == vb.tobytes()
+
+
+def n4_functions():
+    """(label, expression, the plain-Python oracle of one input row, input
+    column, value function?) of each N4 function."""
+    import json as _json
+
+    from daft_tpu_torch import DataType, col
+
+    def jq(row):
+        return None if not row else row[0]["l_returnflag"]
+
+    return [
+        ("list_length", col("l_quantity").list.length(), len, "l_quantity", False),
+        ("list_sum", col("l_quantity").list.sum(), lambda r: float(sum(r)), "l_quantity",
+         False),
+        ("list_max", col("l_extendedprice").list.max(), max, "l_extendedprice", False),
+        ("list_get(0)", col("l_suppkey").list.get(0), lambda r: r[0], "l_suppkey", False),
+        ("list_sort", col("l_shipmode").list.sort(), sorted, "l_shipmode", False),
+        ("list_distinct", col("l_shipmode").list.distinct(),
+         lambda r: list(dict.fromkeys(r)), "l_shipmode", False),
+        ("list_contains", col("l_shipmode").list.contains("AIR"), lambda r: "AIR" in r,
+         "l_shipmode", False),
+        ("list_join", col("l_shipmode").list.join(","), ",".join, "l_shipmode", False),
+        ("struct_get", col("l_line").list.get(0).struct.get("l_returnflag"),
+         lambda r: r[0]["l_returnflag"], "l_line", False),
+        ("to_json -> json_query", col("l_line")._fn("to_json")
+         ._fn("json_query", path="$[0].l_returnflag"),
+         lambda r: jq(_json.loads(_json.dumps(r, default=str))), "l_line", True),
+        ("encode_base64", col("l_comment").cast(DataType.binary()).binary.encode_base64(),
+         lambda v: __import__("base64").b64encode(v.encode()).decode(), "l_comment", True),
+        ("sha256", col("l_comment").cast(DataType.binary())._fn("sha256"),
+         lambda v: __import__("hashlib").sha256(v.encode()).hexdigest(), "l_comment", True),
+        ("compress / decompress gzip", col("l_comment").cast(DataType.binary())
+         .compress("gzip").decompress("gzip"), lambda v: v.encode(), "l_comment", True),
+        ("partition_iceberg_bucket(16)", col("l_orderkey").partition_iceberg_bucket(16),
+         lambda v: (murmur3_long(v) & 0x7FFFFFFF) % 16, "l_orderkey", False),
+    ]
+
+
+def murmur3_long(v: int) -> int:
+    """Iceberg's bucket hash of a long, written out from the algorithm."""
+    data = int(v).to_bytes(8, "little", signed=True)
+    h, m = 0, 0xFFFFFFFF
+    for i in (0, 4):
+        k = int.from_bytes(data[i:i + 4], "little")
+        k = (k * 0xCC9E2D51) & m
+        k = ((k << 15) | (k >> 17)) & m
+        k = (k * 0x1B873593) & m
+        h ^= k
+        h = ((h << 13) | (h >> 19)) & m
+        h = (h * 5 + 0xE6546B64) & m
+    h ^= 8
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & m
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & m
+    return h ^ (h >> 16)
+
+
+def phase_n4(n1, df, card: str) -> None:
+    """N4: each host function over N1's rows (the value functions, a Python
+    call a value, over its first NESTED_VALUE_ROWS), host clock, median of
+    3, held to its plain-Python oracle on a seeded sample; then explode and
+    agg_list alone."""
+    import math
+
+    import numpy as np
+
+    import daft_tpu_torch as dt
+
+    rng = np.random.default_rng(SEED)
+    with dt.execution_config_ctx(device="cpu", device_mode="off"):
+        rows = n1.count_rows()
+        head = n1.limit(NESTED_VALUE_ROWS).collect()
+        for label, e, oracle, src, value_fn in n4_functions():
+            frame = head if value_fn else n1
+            n = min(rows, NESTED_VALUE_ROWS) if value_fn else rows
+            out = {}
+
+            def run(frame=frame, e=e):
+                out["df"] = frame.select(e.alias("out"), src).collect()
+
+            ms = statistics.median(time_s(run)) * 1e3
+            b = _frame_all(out["df"])
+            idx = rng.choice(n, min(NESTED_SAMPLE, n), replace=False)
+            got = b.get_column("out").take(idx).to_pylist()
+            ins = b.get_column(src).take(idx).to_pylist()
+            for g, x in zip(got, ins):
+                w = oracle(x)
+                ok = (g == w) or (isinstance(w, float) and math.isclose(g, w, rel_tol=1e-12))
+                check(ok, f"N4 {label}: {g!r} differs from the oracle's {w!r} for {x!r}")
+            print(f"N4 host function {label}: {ms:.1f} ms over {n} rows (host clock, median "
+                  f"of 3), {len(idx)} sampled rows equal to the plain-Python oracle [{card}]",
+                  flush=True)
+        ms = statistics.median(time_s(lambda: n1.explode(*NESTED_LISTS).select(
+            *NESTED_LISTS).collect())) * 1e3
+        print(f"N4 explode alone (3 lists): {ms:.1f} ms (host clock, median of 3) [{card}]",
+              flush=True)
+        from daft_tpu_torch import col
+
+        ms = statistics.median(time_s(lambda: df.groupby("l_orderkey").agg(
+            col("l_suppkey").agg_list()).collect())) * 1e3
+        print(f"N4 agg_list alone (l_suppkey by l_orderkey): {ms:.1f} ms (host clock, median "
+              f"of 3) [{card}]", flush=True)
+
+
+def nested_kernel_cases(n1, kernel_results: dict, card: str) -> None:
+    """K1, K2, K7 and K3 at the inputs N2's cold run gave them, each held against
+    its plain version, into ``kernel_results`` under "at_n2_..."."""
+    import torch
+
+    from daft_tpu_torch.ops import segment_kernels as sk
+
+    clear_residency()
+    with dt_ctx():
+        calls = capture_kernel_calls(lambda: n2_query(n1).to_pydict(), NESTED_WRAPPERS)
+    new = {}
+    for wrapper, seen in calls.items():
+        check(len(seen) > 0, f"N2: {wrapper} was not called")
+    # the first call of each kernel (and op): the run's other batches have
+    # its shapes
+    firsts = {}
+    for wrapper, seen in calls.items():
+        for args, out in seen:
+            key = (wrapper, args[-1] if wrapper in ("segment_extreme_planes",
+                                                    "segment_extreme_int64") else None)
+            firsts.setdefault(key, (args, out))
+    calls = {w: [v for (k, _op), v in firsts.items() if k == w] for w in calls}
+    for i, ((planes, codes, cap), _out) in enumerate(calls["segment_sum_planes"]):
+        new[("segment_sum_planes", f"at_n2_cap{cap}_{i}")] = plane_case(sk, "sum", planes,
+                                                                        codes, cap)
+    for i, ((planes, codes, cap, op), _out) in enumerate(calls["segment_extreme_planes"]):
+        new[("segment_extreme_planes", f"at_n2_cap{cap}_{op}{i}")] = plane_case(
+            sk, op, planes, codes, cap)
+    for i, ((planes, codes, cap), _out) in enumerate(calls["segment_sum_float_planes"]):
+        new[("segment_sum_float_planes", f"at_n2_cap{cap}_{i}")] = k7_case(
+            sk, planes, codes, cap, f"n2 cap {cap}")
+    for i, ((v, keep, codes, cap, op), _out) in enumerate(calls["segment_extreme_int64"]):
+        new[("segment_extreme_int64", f"at_n2_cap{cap}_{op}{i}")] = k3_case(sk, v, keep, codes,
+                                                                            cap, op)
+    for (kname, label), case in new.items():
+        kernel_results[kname][label] = case
+    del calls
+    torch.cuda.empty_cache()
+    print_cases({f"{k} {label}": case for (k, label), case in new.items()}, card)
+
+
+def phase_nested(lineitem, card: str, kernel_results: dict) -> dict:
+    """Lists, structs and maps at SF1 (item 7c): N1 builds the lists on the
+    host, N2 explodes them into the grouped stage on the card (equal to the
+    flat aggregation, "off" and numpy), N3 round-trips N1 through the port's
+    Parquet and runs N2 over the file, N4 times the host functions, N5 is
+    N2 in SQL. Returns {path: the cold run's launches}."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.plan import physical as pp
+
+    phase("nested")
+    start = time.perf_counter()
+    clear_residency()
+    paths = {}
+    df = nested_frame(lineitem)
+    with dt.execution_config_ctx(device="cpu", device_mode="off"):
+        t0 = time.perf_counter()
+        n1 = n1_query(df).collect()
+        build_s = time.perf_counter() - t0
+    n1_checks(n1, lineitem)
+    print(f"N1 build (groupby + 5 agg_list + agg_set + any_value, host): {build_s:.3f} s "
+          f"[{card}]", flush=True)
+
+    with dt_ctx():
+        plan = pp.translate(n2_query(n1).optimized_plan())
+    node = plan.input if isinstance(plan, pp.PhysSort) else plan
+    check(type(node).__name__ == "DeviceGroupedAgg",
+          f"N2: the aggregate planned as {type(node).__name__}, not DeviceGroupedAgg")
+    check(type(node.input).__name__ == "PhysExplode",
+          f"N2: the stage reads {type(node.input).__name__}, not the explode")
+    oracle = n2_oracle(lineitem)
+    flat = dt.from_pydict({c: lineitem[c] for c in ("l_orderkey",) + NESTED_LISTS})
+    with dt_ctx():
+        flat_result = n2_flat_query(flat).to_pydict()
+    check(same_result(flat_result, oracle, NESTED_FLOATS), "N2: the flat aggregation differs "
+                                                           "from the numpy oracle")
+    n2_result, paths["nested_n2"] = run_cell("N2", lambda: n2_query(n1), NESTED_KERNELS, card,
+                                             NESTED_FLOATS, oracle)
+    check(same_result(n2_result, flat_result, NESTED_FLOATS),
+          "N2 differs from the flat aggregation over lineitem")
+    print("N2: equal to the flat aggregation over lineitem (keys, counts and extremes bit "
+          "for bit, sums within rtol 1e-5)", flush=True)
+    with dt_ctx():
+        uploads = count_uploads(lambda: n2_query(n1).to_pydict())
+    print(f"N2: {uploads} column uploads on a warm run", flush=True)
+    phase_profile(lambda: n2_query(n1).to_pydict(), card, "N2 profile")
+
+    root = tempfile.mkdtemp(prefix="daft_tpu_torch_nested_")
+    try:
+        d = os.path.join(root, "n1")
+        with dt.execution_config_ctx(device="cpu", device_mode="off"):
+            t0 = time.perf_counter()
+            n1.write_parquet(d).collect()
+            write_s = time.perf_counter() - t0
+            nbytes = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+            t0 = time.perf_counter()
+            back = dt.read_parquet(d).collect()
+            read_s = time.perf_counter() - t0
+        a = _frame_all(n1)
+        bb = _frame_all(back)
+        check(a.schema == bb.schema, f"N3: the file's schema {bb.schema} is not N1's")
+        for c in a.column_names():
+            check(same_nested(a.get_column(c), bb.get_column(c)),
+                  f"N3: column {c} read back differs from N1's")
+        del a, bb, back
+        print(f"N3: wrote {nbytes} bytes in {write_s:.3f} s ({nbytes / write_s / 1e6:.1f} "
+              f"MB/s), read back in {read_s:.3f} s ({nbytes / read_s / 1e6:.1f} MB/s), equal "
+              f"to N1 [{card}]", flush=True)
+        clear_residency()
+        paths["nested_n3_file"] = scan_cell("N3 file", lambda: n2_query(dt.read_parquet(d)),
+                                            NESTED_KERNELS, n2_result, NESTED_FLOATS, card,
+                                            "device_grouped_batches", host_ops=False)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    phase_n4(n1, df, card)
+
+    # N5: the build in SQL (ARRAY_AGG, LIST_AGG), the explode, N2's aggregate in SQL
+    with dt.execution_config_ctx(device="cpu", device_mode="off"):
+        t0 = time.perf_counter()
+        built = dt.sql(N5_BUILD_SQL, lineitem=df).collect()
+        sql_build_s = time.perf_counter() - t0
+    exploded = built.explode(*NESTED_LISTS)
+    got, paths["nested_n5_sql"] = run_cell("N5 sql", lambda: dt.sql(N5_AGG_SQL,
+                                                                     exploded=exploded),
+                                           NESTED_KERNELS, card, NESTED_FLOATS, n2_result)
+    print(f"N5: SQL build {sql_build_s:.3f} s; N2 in SQL equal to the DataFrame's [{card}]",
+          flush=True)
+    del built, exploded, df
+
+    nested_kernel_cases(n1, kernel_results, card)
+    del n1
+    clear_residency()
+    print(f"nested phase {time.perf_counter() - start:.1f} s [{card}]", flush=True)
+    return paths
+
+
 # ---- tpcds: the reference's 25 TPC-DS queries at SF1 -----------------------------
 
 TPCDS_SF = 1.0
@@ -7245,7 +7684,7 @@ def phase_native(lineitem, orders, dims, card: str, full: bool = False) -> None:
 
 def phase_alone(name: str, lineitem, orders, dims, card: str, kernel_results: dict) -> dict:
     """``--phase ooc``, ``window``, ``obs``, ``auto``, ``functions``,
-    ``tpcds``, ``native`` or ``temporal`` after the kernels phase: the scan phase's tables in memory
+    ``tpcds``, ``native``, ``temporal`` or ``nested`` after the kernels phase: the scan phase's tables in memory
     (tpcds its own tables, and its kernel cases into ``kernel_results``;
     and, for ooc, obs and auto,
     lineitem written to Parquet under a temporary directory, as the scan
@@ -7258,6 +7697,8 @@ def phase_alone(name: str, lineitem, orders, dims, card: str, kernel_results: di
         return {}
     if name == "temporal":
         return phase_temporal(lineitem, card, kernel_results)
+    if name == "nested":
+        return phase_nested(lineitem, card, kernel_results)
     frames = scan_tables(lineitem, orders, dims)
     if name == "window":
         return phase_window(lineitem, dims, frames, card)
@@ -7307,7 +7748,7 @@ def main(argv=None) -> int:
                              "kernels against their plain versions, with their times "
                              "(no main path runs, so no launches are counted)")
     parser.add_argument("--phase", choices=("ooc", "window", "obs", "auto", "functions",
-                                            "tpcds", "native", "temporal"),
+                                            "tpcds", "native", "temporal", "nested"),
                         help="run the card, build, data and kernels phases, then this phase "
                              "alone: ooc (TPC-H under a host memory budget, the external "
                              "sort, the Grace joins), window (W1, W2), obs (EXPLAIN "
@@ -7323,7 +7764,10 @@ def main(argv=None) -> int:
                              "a budget, TPC-DS q65 and q51, functions) or temporal "
                              "(timestamps at SF1: T1 in memory, in SQL and file-fed, T2's "
                              "host functions and zones, windowed stddev / var, the plan "
-                             "surface, K1, K3 and K7 at T1's inputs)")
+                             "surface, K1, K3 and K7 at T1's inputs) or nested (lists, "
+                             "structs and maps at SF1: N1 built on the host, N2 exploded "
+                             "into the grouped stage, N3 through Parquet, N4's host "
+                             "functions, N5 in SQL, K1, K2, K3 and K7 at N2's inputs)")
     parser.add_argument("--root", default=HERE,
                         help="the checkout whose daft_tpu_torch is driven (default: the "
                              "one beside this script), e.g. an unpacked parent commit to "
@@ -7429,6 +7873,7 @@ def main(argv=None) -> int:
             del frames
             paths.update(phase_functions(lineitem, card))
             paths.update(phase_temporal(lineitem, card, kernel_results))
+            paths.update(phase_nested(lineitem, card, kernel_results))
             tables = tpcds_tables()
             paths.update(phase_tpcds(tables, card))
             tpcds_kernel_cases(tables, kernel_results, card)

@@ -39,12 +39,16 @@ def _common_key_dtype(a: DataType, b: DataType) -> DataType:
 
 def canonical_key_values(s) -> Tuple[str, np.ndarray, np.ndarray]:
     """(kind, values, valid) of a key column: kind "num" with int64 values
-    for numeric, bool and temporal keys, "obj" with an object array for strings,
-    "null" for an all-null column."""
+    for numeric, bool and temporal keys, "obj" with an object array for
+    strings and binary, "null" for an all-null column. A nested key
+    compares by its 64-bit row hash (the reference's "hash" kind,
+    encoding.py:278-297), given as "num" values."""
     dt = s.dtype
     valid = s.validity_numpy()
     if dt.is_null():
         return "null", np.zeros(len(s), dtype=np.int64), valid
+    if dt.is_nested() or dt.kind == "fixed_size_binary":
+        return "num", s.hash().to_numpy().view(np.int64), valid
     vals = s.to_numpy()
     if dt.is_numeric() or dt.is_boolean() or dt.is_temporal():
         if vals.dtype.kind == "f":

@@ -9,8 +9,10 @@ library's hash factorize (native.py ``native_factorize``,
 group ids in one pass: sums, means, min/max, var and stddev through the
 library's grouped kernels where the reference's library takes them, the
 rest with numpy scatters (``count_distinct`` counts the distinct (group,
-equality code) pairs). ``grouped_agg`` and ``ungrouped_agg`` aggregate a
-batch by key expressions, or to one row.
+equality code) pairs). ``nested_reduce`` takes the list aggregates
+(``list``, ``set``, ``concat``) on the offsets and child columns, and
+``product`` and ``string_agg``. ``grouped_agg`` and ``ungrouped_agg``
+aggregate a batch by key expressions, or to one row.
 """
 
 from __future__ import annotations
@@ -26,13 +28,25 @@ from ...datatype import DataType
 def equality_codes(series) -> np.ndarray:
     """Compact int64 equality codes for one column; null -> -1. Numeric,
     bool and date values take their first-occurrence codes from the
-    library's factorize (the reference's pandas factorize), strings their
-    rank among the sorted distinct values. Floats group -0.0 with 0.0 and
-    every NaN together (bit-canonicalized)."""
+    library's factorize (the reference's pandas factorize), strings and
+    binary their rank among the sorted distinct values, nested values
+    (lists, structs, maps) the factorize of their row hashes, as the
+    reference's. Floats group -0.0 with 0.0 and every NaN together
+    (bit-canonicalized)."""
     n = len(series)
     valid = series.validity_numpy()
     codes = np.full(n, -1, dtype=np.int64)
     if series.dtype.is_null() or not valid.any():
+        return codes
+    if series.dtype.is_nested() or series.dtype.kind == "fixed_size_binary":
+        vals = series.hash().to_numpy().view(np.int64)
+        codes[valid] = native.native_factorize(vals[valid])[0]
+        return codes
+    if series.dtype.is_string() and series._raw_codes() is not None:
+        # known dictionary codes (a Parquet read, a column built from codes,
+        # and their takes): equal strings share a code, nothing to sort
+        codes = series.dict_codes()[0].astype(np.int64)
+        codes[~valid] = -1
         return codes
     vals = series.to_numpy()
     numeric = vals.dtype != object
@@ -261,6 +275,94 @@ def extreme_replaces(op: str, new, cur):
     return new < cur if op == "min" else new > cur
 
 
+NESTED_AGG_OPS = ("list", "set", "concat", "product", "string_agg")
+
+
+def _group_order(group_ids: np.ndarray, g: int):
+    """(rows in group order, each group's row count): rows of group 0 in
+    row order, then group 1's, ..."""
+    counts = np.bincount(group_ids, minlength=g).astype(np.int64)
+    return np.argsort(group_ids, kind="stable").astype(np.int64), counts
+
+
+def nested_reduce(op: str, s, group_ids: np.ndarray, g: int, params, ungrouped: bool,
+                  out_dt: DataType):
+    """One of ``NESTED_AGG_OPS`` over the Series ``s`` by group (the
+    reference's relational.py:350-398 grouped and series.py:764-890
+    ungrouped kernels), as a Series of ``g`` rows:
+
+    - ``list``: each group's values, nulls kept, in row order;
+    - ``set``: each group's distinct valid values in order of first
+      occurrence (a NaN is distinct from every value, as in a Python set;
+      lists and structs compare by value);
+    - ``concat``: each group's lists' elements in row order; a group of
+      null lists is null grouped and [] ungrouped;
+    - ``product``: in int64 (wrapping) or f64, rounded to the output type;
+      null where a group has no valid value;
+    - ``string_agg``: the valid strings joined by ``delimiter``; null
+      where there are none."""
+    from ..series import Series, _lengths_to_offsets, _ranges
+
+    name = s.name
+    valid = s.validity_numpy()
+    if op == "list":
+        order, counts = _group_order(group_ids, g)
+        return Series.nested(name, out_dt, _lengths_to_offsets(counts), [s.take(order)],
+                             np.ones(g, dtype=bool))
+    if op == "set":
+        codes = equality_codes(s)
+        if s.dtype.is_floating():
+            nan = valid & np.isnan(s.to_numpy())
+            codes = np.where(nan, int(codes.max(initial=-1)) + 1 + np.cumsum(nan), codes)
+        rows = np.flatnonzero(valid)
+        width = int(codes.max(initial=0)) + 1
+        _u, first = np.unique(group_ids[rows].astype(np.int64) * width + codes[rows],
+                              return_index=True)
+        keep = rows[first]
+        keep = keep[np.lexsort((keep, group_ids[keep]))]
+        counts = np.bincount(group_ids[keep], minlength=g).astype(np.int64)
+        return Series.nested(name, out_dt, _lengths_to_offsets(counts), [s.take(keep)],
+                             np.ones(g, dtype=bool))
+    if op == "concat":
+        if not s.dtype.is_list():
+            raise ValueError(f"agg_concat requires a list dtype, got {s.dtype}")
+        order, _counts = _group_order(group_ids, g)
+        lens = s.list_lengths()[order]
+        child = s.list_child()
+        if s.dtype.kind == "fixed_size_list":
+            starts = order * s.dtype.size
+        else:
+            starts = s.list_offsets()[:-1][order]
+        per_group = np.bincount(group_ids[order], weights=lens, minlength=g).astype(np.int64) \
+            if len(order) else np.zeros(g, dtype=np.int64)
+        has = np.bincount(group_ids[valid], minlength=g) > 0
+        out_valid = np.ones(g, dtype=bool) if ungrouped else has
+        return Series.nested(name, out_dt, _lengths_to_offsets(per_group),
+                             [child.take(_ranges(starts, lens))], out_valid)
+    if op == "product":
+        if s.dtype.is_null():
+            return Series.full_null(name, out_dt, g)
+        vals = s.to_numpy()
+        work = np.float64 if out_dt.is_floating() else np.int64
+        acc = np.ones(g, dtype=work)
+        with np.errstate(over="ignore", invalid="ignore"):
+            np.multiply.at(acc, group_ids[valid], vals[valid].astype(work))
+        has = np.bincount(group_ids[valid], minlength=g) > 0
+        if out_dt.kind == "uint64":
+            acc = acc.view(np.uint64)
+        acc = np.where(has, acc, acc.dtype.type(0)).astype(out_dt.to_numpy())
+        return Series.from_numpy(acc, name, dtype=out_dt, validity=has)
+    if op == "string_agg":
+        delim = params.get("delimiter", "")
+        order, counts = _group_order(group_ids[valid], g)
+        items = s.to_numpy()[np.flatnonzero(valid)][order].tolist()
+        bounds = _lengths_to_offsets(counts).tolist()
+        rows = [delim.join(items[bounds[k]:bounds[k + 1]]) if counts[k] else None
+                for k in range(g)]
+        return Series.from_pylist(rows, name, DataType.string())
+    raise ValueError(f"unknown nested aggregation {op!r}")
+
+
 def _agg_columns(batch, aggs, group_ids: np.ndarray, g: int, ungrouped: bool = False):
     """One output Series per aggregation over ``g`` groups. Ungrouped, a
     float min/max over valid values that are all NaN is NaN (the
@@ -280,6 +382,10 @@ def _agg_columns(batch, aggs, group_ids: np.ndarray, g: int, ungrouped: bool = F
         s = eval_expression(batch, inner.child)
         s = s.broadcast(n) if len(s) == 1 and n != 1 else s
         out_dt = e.to_field(batch.schema).dtype
+        if inner.op in NESTED_AGG_OPS:
+            out.append(nested_reduce(inner.op, s, group_ids, g, inner.params, ungrouped,
+                                     out_dt).rename(e.name()))
+            continue
         values, validity = s.to_numpy(), s.validity_numpy()
         if inner.op == "count_distinct":
             values = equality_codes(s)
@@ -333,7 +439,7 @@ def grouped_agg(batch, groupby, aggs):
 
 def agg_output_dtype(op: str, child: DataType) -> DataType:
     """Output type of an aggregation (counterpart of AggExpr.to_field)."""
-    if op == "sum":
+    if op in ("sum", "product"):
         if child.is_signed_integer():
             return DataType.int64()
         if child.is_unsigned_integer() or child.is_boolean():
@@ -351,4 +457,12 @@ def agg_output_dtype(op: str, child: DataType) -> DataType:
         return child
     if op in ("bool_and", "bool_or"):
         return DataType.bool()
+    if op in ("list", "set"):
+        return DataType.list(child)
+    if op == "concat":
+        if not child.is_list():
+            raise ValueError(f"agg_concat requires list dtype, got {child}")
+        return child
+    if op == "string_agg":
+        return DataType.string()
     raise ValueError(f"unknown aggregation {op!r}")

@@ -7,12 +7,16 @@ widened to f64 with -0.0 and every NaN canonicalized, bools as 0/1. Strings
 take the reference's Arrow-buffer hash, recomputed here from Python ``str``
 (the port has no Arrow): a row of at most 256 UTF-8 bytes takes FNV-1a over
 its bytes and then ``splitmix64(h ^ len)``; a longer row takes its 8-byte
-blake2b digest. Null rows hash to ``NULL_HASH``, so partitioning, grouping
-and joining agree across the two engines and across processes.
+blake2b digest. Binary takes the same hash over its bytes. A nested row
+(a list, a struct, a map) takes the 8-byte blake2b digest of its Python
+value pickled, as the reference hashes nested values. Null rows hash to
+``NULL_HASH``, so partitioning, grouping and joining agree across the two
+engines and across processes.
 """
 
 from __future__ import annotations
 
+import pickle
 from hashlib import blake2b
 from typing import List, Optional
 
@@ -43,7 +47,8 @@ def splitmix64(x: np.ndarray) -> np.ndarray:
 
 def _hash_strings(values: np.ndarray, valid: np.ndarray) -> np.ndarray:
     """The reference's ``_hash_string_arrow`` over an object array of str."""
-    encoded = [v.encode("utf-8") if ok else b"" for v, ok in zip(values, valid)]
+    encoded = [(v.encode("utf-8") if isinstance(v, str) else bytes(v)) if ok else b""
+               for v, ok in zip(values, valid)]
     n = len(encoded)
     lengths = np.fromiter((len(b) for b in encoded), dtype=np.int64, count=n)
     data = np.frombuffer(b"".join(encoded), dtype=np.uint8)
@@ -70,8 +75,14 @@ def hash_series(series, seed: Optional[object] = None):
     valid = series.validity_numpy()
     if dt.is_null():
         h = np.full(len(series), NULL_HASH, dtype=np.uint64)
-    elif dt.is_string():
+    elif dt.is_string() or dt.kind == "binary":
         h = _hash_strings(series.to_numpy(), valid)
+    elif dt.is_nested() or dt.kind == "fixed_size_binary":
+        h = np.full(len(series), NULL_HASH, dtype=np.uint64)
+        for i, v in enumerate(series.to_pylist()):
+            if v is not None:
+                h[i] = np.frombuffer(blake2b(pickle.dumps(v), digest_size=8).digest(),
+                                     dtype=np.uint64)[0]
     elif dt.is_numeric() or dt.is_boolean() or dt.is_temporal():
         values = series.to_numpy()
         if values.dtype.kind == "f":

@@ -15,8 +15,23 @@ import numpy as np
 def _column_keys(series, descending: bool, nulls_first: bool) -> List[np.ndarray]:
     """[null_key, value_key] for one sort column (null_key more significant)."""
     valid = series.validity_numpy()
-    vals = series.to_numpy()
-    if series.dtype.is_string() or series.dtype.is_null():
+    if series.dtype.is_nested() or series.dtype.kind == "fixed_size_binary":
+        # the reference's fallback: by row hash (an order, not a meaningful one)
+        vals = series.hash().to_numpy()
+    else:
+        vals = series.to_numpy()
+    raw = series._raw_codes() if series.dtype.is_string() else None
+    if raw is not None:
+        # known dictionary codes: each entry's rank among the distinct words
+        codes, words = raw
+        rank = np.zeros(len(words) + 1, dtype=np.int64)
+        r, prev = -1, None
+        for w, i in sorted((w, i) for i, w in enumerate(words) if w is not None):
+            r += w != prev or r < 0
+            rank[i], prev = r, w
+        vals = rank[np.asarray(codes, dtype=np.int64)]
+    elif series.dtype.is_string() or series.dtype.is_null() or series.dtype.is_binary() \
+            or series.dtype.is_nested():
         codes = np.zeros(len(series), dtype=np.int64)
         if valid.any():
             codes[valid] = np.unique(vals[valid], return_inverse=True)[1].reshape(-1)

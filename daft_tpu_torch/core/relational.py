@@ -1,6 +1,6 @@
 """Host relational kernels of the plan surface (counterpart of
-daft_tpu/core/relational.py ``sample_at``, ``sample``, ``unpivot`` and
-``pivot``), in numpy.
+daft_tpu/core/relational.py ``sample_at``, ``sample``, ``explode``,
+``unpivot`` and ``pivot``), in numpy.
 
 ``sample_at`` keeps the row at global position p iff a splitmix64 hash of
 (p, seed) falls below the fraction, so a seeded sample keeps the same rows
@@ -16,7 +16,7 @@ import numpy as np
 from ..datatype import DataType
 from ..schema import Schema
 from .recordbatch import RecordBatch
-from .series import Series
+from .series import Series, _ranges
 
 _MASK64 = 0xFFFFFFFFFFFFFFFF
 
@@ -53,6 +53,56 @@ def sample(batch: RecordBatch, fraction: float, with_replacement: bool,
         k = min(k, n)
         idx = rng.choice(n, size=k, replace=False) if n else np.empty(0, np.int64)
     return batch.take(np.sort(idx))
+
+
+def explode(batch: RecordBatch, to_explode, output_schema) -> RecordBatch:
+    """One row per element of the exploded list columns (the reference's
+    relational.py:703-740): a null or empty list gives one null row, the
+    other columns repeat, and every exploded column must have the same
+    length in each row (a null or empty list counting as one). Works on the
+    offsets and the child columns alone."""
+    from ..expressions.eval import eval_expression
+
+    exploded = {}
+    for e in to_explode:
+        s = eval_expression(batch, e)
+        if len(s) == 1 and batch.num_rows != 1:
+            s = s.broadcast(batch.num_rows)
+        if not s.dtype.is_list():
+            raise ValueError(f"cannot explode non-list column {s.name} ({s.dtype})")
+        exploded[e.name()] = s
+    out_counts = None
+    for s in exploded.values():
+        counts = np.maximum(s.list_lengths(), 1)
+        if out_counts is None:
+            out_counts = counts
+        elif not np.array_equal(counts, out_counts):
+            raise ValueError("exploded columns must have matching list lengths per row")
+    parent = np.repeat(np.arange(batch.num_rows, dtype=np.int64), out_counts)
+    cols = []
+    for f in output_schema:
+        s = exploded.get(f.name)
+        if s is None:
+            cols.append(batch.get_column(f.name).take(parent))
+            continue
+        lens = s.list_lengths()
+        child = s.list_child()
+        if len(child) == len(parent) and s.dtype.kind == "list" and (lens > 0).all():
+            # every row a non-empty list: the output column is the child as
+            # it is (its device planes and fingerprint carry over)
+            cols.append(child.rename(f.name))
+            continue
+        # each output row's element, -1 where its row's list is null or empty
+        idx = np.full(len(parent), -1, dtype=np.int64)
+        starts = np.cumsum(out_counts) - out_counts
+        has = lens > 0
+        idx[_ranges(starts[has], lens[has])] = _ranges(s.list_offsets()[:-1][has], lens[has])
+        out = child.take_or_null(idx) if len(child) else \
+            Series.full_null(f.name, child.dtype, len(idx))
+        cols.append(out.rename(f.name))
+    return RecordBatch(output_schema, [c.cast(f.dtype) if c.dtype != f.dtype else c
+                                       for c, f in zip(cols, output_schema)],
+                       len(parent))
 
 
 def unpivot(batch: RecordBatch, id_series: List[Series], val_series: List[Series],

@@ -1,14 +1,22 @@
 """Series: a named, typed column (counterpart of daft_tpu/core/series.py).
 
 Host storage is numpy, not Arrow: a values array plus a bool validity mask.
-Strings are object arrays, dates int32 days since 1970-01-01, timestamps,
-durations and times int64 ticks of their unit (core/temporal.py); a null slot
-holds 0 (NaN for floats, None for strings), as the reference's
-``Series.to_numpy()`` fills it. A list column (an embedding) is an object
-array of Python lists whose numeric elements are rounded to the element
-type, as Arrow stores them; a ``python`` column holds any objects. Both are
-host only: built, sliced, taken, concatenated and read back, nothing more. Device storage is a (values, validity) pair
-of torch tensors made by ``to_device`` / ``to_device_cached``.
+Strings and binary are object arrays (of ``str`` and ``bytes``), dates int32
+days since 1970-01-01, timestamps, durations and times int64 ticks of their
+unit (core/temporal.py); a null slot holds 0 (NaN for floats, None for
+strings and bytes), as the reference's ``Series.to_numpy()`` fills it.
+
+A nested column holds Arrow's layout in numpy (``NestedLayout``): a list
+int64 offsets (n + 1, from 0) and one child Series of its elements, a null
+or empty row zero elements long; a fixed-size list a child of n x size
+rows; a struct one child Series per field; a map a list of a struct of
+``key`` and ``value``. Element values are stored in the element type, so
+numbers are rounded to it as Arrow stores them. Slicing, taking and
+concatenating move offsets and children, never Python lists; the
+object-array-of-lists input (an encoder's output, ``from_numpy``) stays a
+constructor. A ``python`` column holds any objects. Nested, binary and
+``python`` columns are host only. Device storage is a (values, validity)
+pair of torch tensors made by ``to_device`` / ``to_device_cached``.
 """
 
 from __future__ import annotations
@@ -71,11 +79,42 @@ def _arrow_zone_name(info) -> str:
     return f"{sign}{h:02d}:{m:02d}"
 
 
+class NestedLayout:
+    """The storage of a nested column (the ``values`` of its Series):
+    ``offsets`` (int64, n + 1, from 0) for a list or a map, else None, and
+    the child Series (one for a list, a fixed-size list or a map; one per
+    field for a struct). ``len`` is the column's row count."""
+
+    __slots__ = ("offsets", "children", "n")
+
+    def __init__(self, offsets: Optional[np.ndarray], children: list, n: int):
+        self.offsets = offsets
+        self.children = list(children)
+        self.n = n
+
+    def __len__(self) -> int:
+        return self.n
+
+
 def _infer_dtype(data: Sequence[Any]) -> DataType:
     kinds = set()
     tz = None
+    elems: list = []      # every list value's elements
+    fields: dict = {}     # every dict value's values, by key in first-seen order
     for v in data:
         if v is None:
+            continue
+        if isinstance(v, (list, tuple, np.ndarray)):
+            kinds.add("list")
+            elems.extend(v)
+            continue
+        if isinstance(v, dict):
+            kinds.add("struct")
+            for k, x in v.items():
+                fields.setdefault(k, []).append(x)
+            continue
+        if isinstance(v, (bytes, bytearray)):
+            kinds.add("binary")
             continue
         if isinstance(v, (bool, np.bool_)):
             kinds.add("bool")
@@ -104,7 +143,11 @@ def _infer_dtype(data: Sequence[Any]) -> DataType:
     if len(kinds) > 1:
         raise TypeError(f"mixed value kinds in one column: {sorted(kinds)}")
     kind = kinds.pop()
-    return {"bool": DataType.bool(), "int": DataType.int64(),
+    if kind == "list":
+        return DataType.list(_infer_dtype(elems))
+    if kind == "struct":
+        return DataType.struct({k: _infer_dtype(xs) for k, xs in fields.items()})
+    return {"bool": DataType.bool(), "int": DataType.int64(), "binary": DataType.binary(),
             "float": DataType.float64(), "string": DataType.string(),
             "date": DataType.date(), "timestamp": DataType.timestamp("us", tz),
             "duration": DataType.duration("us"), "time": DataType.time("us")}[kind]
@@ -134,9 +177,31 @@ def _temporal_ticks(v, dtype: DataType) -> int:
 def _null_fill(dtype: DataType):
     if dtype.is_floating():
         return np.nan
-    if dtype.to_numpy() == object:
+    if dtype.kind == "python" or dtype.to_numpy() == object:
         return None
     return 0
+
+
+def _map_pairs(v) -> list:
+    """A map row (a dict, or (key, value) pairs) as a list of pairs."""
+    return list(v.items()) if isinstance(v, dict) else [tuple(p) for p in v]
+
+
+def _lengths_to_offsets(lens: np.ndarray) -> np.ndarray:
+    off = np.zeros(len(lens) + 1, dtype=np.int64)
+    np.cumsum(lens, out=off[1:])
+    return off
+
+
+def _ranges(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """The concatenated index ranges [starts[i], starts[i] + lens[i])."""
+    lens = lens.astype(np.int64, copy=False)
+    total = int(lens.sum())
+    if total == 0:
+        return np.zeros(0, dtype=np.int64)
+    off = _lengths_to_offsets(lens)
+    return np.arange(total, dtype=np.int64) + np.repeat(starts.astype(np.int64) - off[:-1],
+                                                        lens)
 
 
 def _object_array(items: list) -> np.ndarray:
@@ -223,26 +288,62 @@ class Series:
         fill = _null_fill(dtype)
         if dtype.is_temporal():
             conv = [fill if v is None else _temporal_ticks(v, dtype) for v in data]
-        elif dtype.is_list():
-            inner = dtype.inner
-            if inner.is_numeric() or inner.is_boolean():
-                np_inner = inner.to_numpy()
-                conv = [None if v is None else np.asarray(v, dtype=np_inner).tolist()
-                        for v in data]
-            else:
-                conv = [None if v is None else list(v) for v in data]
-            return cls(name, dtype, _object_array(conv), validity)
+        elif dtype.is_nested():
+            return cls._nested_from_pylist(data, name, dtype, validity)
         elif dtype.kind == "python":
             return cls(name, dtype, _object_array(data), validity)
+        elif dtype.is_binary():
+            conv = [None if v is None else bytes(v) for v in data]
+            if dtype.kind == "fixed_size_binary" and any(
+                    v is not None and len(v) != dtype.size for v in conv):
+                raise ValueError(f"a value of a {dtype} column is not {dtype.size} bytes")
         else:
             conv = [fill if v is None else v for v in data]
-        if dtype.is_string() or dtype.is_null():
+        if dtype.is_string() or dtype.is_null() or dtype.is_binary():
             values = np.empty(len(conv), dtype=object)
             values[:] = conv
         else:
             values = np.asarray(conv, dtype=dtype.to_numpy()) if conv \
                 else np.empty(0, dtype=dtype.to_numpy())
         return cls(name, dtype, values, validity)
+
+    @classmethod
+    def _nested_from_pylist(cls, data: list, name: str, dtype: DataType,
+                            validity: np.ndarray) -> "Series":
+        kind = dtype.kind
+        n = len(data)
+        if kind == "struct":
+            children = []
+            for fname, fdt in dtype.struct_fields:
+                col = [None if v is None else (v.get(fname) if isinstance(v, dict)
+                                               else getattr(v, fname, None))
+                       for v in data]
+                children.append(cls.from_pylist(col, fname, fdt))
+            return cls.nested(name, dtype, None, children, validity)
+        if kind == "fixed_size_list":
+            size = dtype.size
+            flat: list = []
+            for v in data:
+                if v is None:
+                    flat.extend([None] * size)
+                    continue
+                if len(v) != size:
+                    raise ValueError(f"a row of {len(v)} values in a {dtype} column")
+                flat.extend(v)
+            return cls.nested(name, dtype, None, [cls.from_pylist(flat, "item", dtype.inner)],
+                              validity)
+        rows = [None if v is None else (_map_pairs(v) if kind == "map" else v) for v in data]
+        lens = np.fromiter((0 if v is None else len(v) for v in rows), dtype=np.int64, count=n)
+        flat = [x for v in rows if v is not None for x in v]
+        if kind == "map":
+            key_dt, val_dt = dtype.params
+            child = cls.nested("entries", dtype.map_entry, None,
+                               [cls.from_pylist([p[0] for p in flat], "key", key_dt),
+                                cls.from_pylist([p[1] for p in flat], "value", val_dt)],
+                               np.ones(len(flat), dtype=bool))
+        else:
+            child = cls.from_pylist(flat, "item", dtype.inner)
+        return cls.nested(name, dtype, _lengths_to_offsets(lens), [child], validity)
 
     @classmethod
     def from_numpy(cls, arr, name: str = "series", dtype: Optional[DataType] = None,
@@ -253,6 +354,14 @@ class Series:
         unit a timestamp, a timedelta64 a duration (NaT is null); ``dtype``
         converts them to its unit."""
         arr = np.asarray(arr)
+        if arr.ndim == 2 and arr.dtype != object:
+            # a fixed-size-list column (the reference's from_numpy, series.py:75-82)
+            inner = DataType.from_numpy(arr.dtype)
+            dtype = dtype or DataType.fixed_size_list(inner, arr.shape[1])
+            child = cls.from_numpy(arr.reshape(-1), "item", inner)
+            out = cls.nested(name, DataType.fixed_size_list(inner, arr.shape[1]), None,
+                             [child], np.ones(len(arr), dtype=bool))
+            return out.cast(dtype)
         if arr.ndim != 1:
             raise ValueError(f"expected a 1-d array, got shape {arr.shape}")
         if arr.dtype.kind in ("O", "U"):
@@ -300,7 +409,67 @@ class Series:
         return Field(self._name, self._dtype)
 
     def __len__(self) -> int:
-        return len(self._values)
+        return len(self._validity)
+
+    @property
+    def is_nested(self) -> bool:
+        return isinstance(self._values, NestedLayout)
+
+    @property
+    def layout(self) -> NestedLayout:
+        """The offsets and children of a nested column."""
+        if not isinstance(self._values, NestedLayout):
+            raise ValueError(f"a {self._dtype} column has no nested layout")
+        return self._values
+
+    @classmethod
+    def nested(cls, name: str, dtype: DataType, offsets: Optional[np.ndarray], children,
+               validity: np.ndarray) -> "Series":
+        """A nested column from its layout (offsets for a list or a map, the
+        child Series); a null row of a list must be zero elements long."""
+        validity = np.asarray(validity, dtype=bool)
+        if offsets is not None:
+            offsets = np.asarray(offsets, dtype=np.int64)
+        return cls(name, dtype, NestedLayout(offsets, children, len(validity)), validity)
+
+    def list_lengths(self) -> np.ndarray:
+        """Each row's element count (0 for a null row) of a list or a map."""
+        lay = self.layout
+        if self._dtype.kind == "fixed_size_list":
+            return np.where(self._validity, self._dtype.size, 0).astype(np.int64)
+        return np.diff(lay.offsets)
+
+    def list_offsets(self) -> np.ndarray:
+        """Offsets of a list, a fixed-size list or a map (n + 1, from 0)."""
+        lay = self.layout
+        if self._dtype.kind == "fixed_size_list":
+            return np.arange(len(self) + 1, dtype=np.int64) * self._dtype.size
+        return lay.offsets
+
+    def list_child(self) -> "Series":
+        """The element column of a list, a fixed-size list or a map."""
+        return self.layout.children[0]
+
+    def struct_field(self, name: str) -> "Series":
+        """One field of a struct column, null where the struct row is."""
+        for (fname, _fdt), child in zip(self._dtype.struct_fields, self.layout.children):
+            if fname == name:
+                if self._validity.all():
+                    return child.rename(name)
+                return child.with_validity(child.validity_numpy() & self._validity).rename(name)
+        raise ValueError(f"struct has no field {name!r}")
+
+    def with_validity(self, valid: np.ndarray) -> "Series":
+        """This column with ``valid`` as its validity (a row newly null
+        keeps a null fill; a list row its elements dropped)."""
+        valid = np.asarray(valid, dtype=bool)
+        if self.is_nested:
+            return self._nested_take(np.where(valid, np.arange(len(self)), -1))
+        values = self._values
+        if not valid.all():
+            values = np.where(valid, values, values.dtype.type(_null_fill(self._dtype))
+                              if values.dtype != object else None)
+        return Series(self._name, self._dtype, values, valid)
 
     def __repr__(self) -> str:
         vals = self.to_pylist()
@@ -318,7 +487,11 @@ class Series:
 
     # ---- conversion ---------------------------------------------------------------
     def to_numpy(self) -> np.ndarray:
-        """Dense values; null slots hold 0 / NaN / None (see validity_numpy)."""
+        """Dense values; null slots hold 0 / NaN / None (see validity_numpy).
+        A nested column gives an object array of its rows as Python
+        values (``to_pylist``)."""
+        if isinstance(self._values, NestedLayout):
+            return _object_array(self.to_pylist())
         return self._values
 
     def validity_numpy(self) -> np.ndarray:
@@ -343,11 +516,14 @@ class Series:
             return bitmap + nulls
         if kind == "string":
             return 8 * n + self._utf8_bytes() + nulls
-        if kind == "list":
-            width = self._dtype.inner.to_numpy().itemsize \
-                if self._dtype.inner.to_numpy() != object else 8
-            elems = sum(len(v) for v in self._values[self._validity].tolist())
-            return 8 * n + width * elems + nulls
+        if kind == "binary":
+            return 8 * n + sum(map(len, self._values[self._validity].tolist())) + nulls
+        if kind == "fixed_size_binary":
+            return self._dtype.size * n + nulls
+        if kind in ("list", "map"):
+            return 8 * n + self.list_child().size_bytes() + nulls
+        if kind in ("fixed_size_list", "struct"):
+            return sum(c.size_bytes() for c in self.layout.children) + nulls
         return self._values.dtype.itemsize * n + nulls
 
     def _utf8_bytes(self) -> int:
@@ -367,6 +543,8 @@ class Series:
     def to_pylist(self) -> list:
         valid = self._validity
         kind = self._dtype.kind
+        if isinstance(self._values, NestedLayout):
+            return self._nested_pylist()
         if kind == "date":
             return [datetime.date.fromordinal(_EPOCH_ORDINAL + d) if ok else None
                     for d, ok in zip(self._values.tolist(), valid.tolist())]
@@ -379,6 +557,23 @@ class Series:
             return temporal.ticks_to_times(self._values, valid, self._dtype.time_unit)
         return [v if ok else None
                 for v, ok in zip(self._values.tolist(), valid.tolist())]
+
+    def _nested_pylist(self) -> list:
+        kind = self._dtype.kind
+        valid = self._validity.tolist()
+        lay = self._values
+        if kind == "struct":
+            names = [n for n, _t in self._dtype.struct_fields]
+            cols = [c.to_pylist() for c in lay.children]
+            rows = zip(*cols) if cols else ([()] * len(valid))
+            return [dict(zip(names, r)) if ok else None for r, ok in zip(rows, valid)]
+        if kind == "map":
+            entries = lay.children[0].layout.children
+            flat = list(zip(entries[0].to_pylist(), entries[1].to_pylist()))
+        else:
+            flat = lay.children[0].to_pylist()
+        o = self.list_offsets().tolist()
+        return [flat[o[i]:o[i + 1]] if ok else None for i, ok in enumerate(valid)]
 
     def to_device(self, pad_to: Optional[int] = None, f32: bool = False,
                   device=None):
@@ -435,7 +630,7 @@ class Series:
         the time spent counts in ``fingerprint_ms``."""
         if self._content_fp is not None:
             return self._content_fp
-        if self._dtype.is_list() or self._dtype.kind == "python":
+        if self._dtype.is_nested() or self._dtype.is_binary() or self._dtype.kind == "python":
             raise TypeError(f"a {self._dtype} column has no content fingerprint")
         import time
 
@@ -568,6 +763,8 @@ class Series:
 
     # ---- selection ----------------------------------------------------------------
     def slice(self, start: int, end: int) -> "Series":
+        if isinstance(self._values, NestedLayout):
+            return self._nested_slice(*slice(start, end).indices(len(self))[:2])
         out = Series(self._name, self._dtype, self._values[start:end],
                      self._validity[start:end])
         raw = self._raw_codes()
@@ -580,6 +777,8 @@ class Series:
 
     def take(self, indices) -> "Series":
         idx = np.asarray(indices, dtype=np.int64)
+        if isinstance(self._values, NestedLayout):
+            return self._nested_take(np.where(idx < 0, idx + len(self), idx))
         out = Series(self._name, self._dtype, self._values[idx], self._validity[idx])
         raw = self._raw_codes()
         if raw is not None:
@@ -593,6 +792,8 @@ class Series:
         miss = idx < 0
         if not miss.any():
             return self.take(idx)
+        if isinstance(self._values, NestedLayout):
+            return self._nested_take(idx)
         if len(self) == 0:
             return Series.full_null(self._name, self._dtype, len(idx))
         safe = np.where(miss, 0, idx)
@@ -602,8 +803,72 @@ class Series:
 
     def broadcast(self, n: int) -> "Series":
         """A length-1 Series repeated to ``n`` rows."""
+        if isinstance(self._values, NestedLayout):
+            return self._nested_take(np.zeros(n, dtype=np.int64))
         return Series(self._name, self._dtype, np.repeat(self._values, n),
                       np.repeat(self._validity, n))
+
+    def _nested_take(self, idx: np.ndarray) -> "Series":
+        """Rows ``idx`` of a nested column, -1 giving a null row."""
+        miss = idx < 0
+        safe = np.where(miss, 0, idx) if len(self) else np.zeros(len(idx), dtype=np.int64)
+        valid = (self._validity[safe] & ~miss) if len(self) else np.zeros(len(idx), bool)
+        kind = self._dtype.kind
+        lay = self._values
+        if kind == "struct":
+            kids = [c._nested_take(idx) if c.is_nested else c.take_or_null(idx)
+                    for c in lay.children]
+            return Series.nested(self._name, self._dtype, None, kids, valid)
+        if kind == "fixed_size_list":
+            size = self._dtype.size
+            rows = np.where(valid, safe, -1)
+            cidx = (rows[:, None] * size + np.arange(size)).reshape(-1) if size else \
+                np.zeros(0, dtype=np.int64)
+            cidx = np.where(np.repeat(rows, size) < 0, -1, cidx)
+            child = lay.children[0]
+            kid = child.take_or_null(cidx) if len(child) else \
+                Series.full_null(child.name, child.dtype, len(cidx))
+            return Series.nested(self._name, self._dtype, None, [kid], valid)
+        off = lay.offsets
+        if len(self):
+            starts = off[safe]
+            lens = np.where(valid, off[safe + 1] - starts, 0)
+        else:
+            starts = lens = np.zeros(len(idx), dtype=np.int64)
+        child = lay.children[0]
+        return Series.nested(self._name, self._dtype, _lengths_to_offsets(lens),
+                             [child.take(_ranges(starts, lens))], valid)
+
+    def _nested_slice(self, start: int, end: int) -> "Series":
+        end = max(start, end)
+        kind = self._dtype.kind
+        lay = self._values
+        valid = self._validity[start:end]
+        if kind == "struct":
+            kids = [c.slice(start, end) for c in lay.children]
+            return Series.nested(self._name, self._dtype, None, kids, valid)
+        if kind == "fixed_size_list":
+            size = self._dtype.size
+            return Series.nested(self._name, self._dtype, None,
+                                 [lay.children[0].slice(start * size, end * size)], valid)
+        o = lay.offsets[start:end + 1]
+        return Series.nested(self._name, self._dtype, o - o[0],
+                             [lay.children[0].slice(int(o[0]), int(o[-1]))], valid)
+
+    @classmethod
+    def _nested_concat(cls, parts: List["Series"]) -> "Series":
+        first = parts[0]
+        kind = first._dtype.kind
+        valid = np.concatenate([p._validity for p in parts])
+        if kind == "struct":
+            kids = [cls.concat([p._values.children[k] for p in parts])
+                    for k in range(len(first._dtype.struct_fields))]
+            return cls.nested(first._name, first._dtype, None, kids, valid)
+        child = cls.concat([p._values.children[0] for p in parts])
+        if kind == "fixed_size_list":
+            return cls.nested(first._name, first._dtype, None, [child], valid)
+        lens = np.concatenate([np.diff(p._values.offsets) for p in parts])
+        return cls.nested(first._name, first._dtype, _lengths_to_offsets(lens), [child], valid)
 
     @classmethod
     def concat(cls, series_list: List["Series"]) -> "Series":
@@ -613,6 +878,8 @@ class Series:
         if any(s._dtype != first._dtype for s in series_list):
             raise ValueError("cannot concat series of differing dtypes: "
                              f"{sorted({s._dtype.kind for s in series_list})}")
+        if isinstance(first._values, NestedLayout):
+            return cls._nested_concat(series_list)
         out = cls(first._name, first._dtype,
                   np.concatenate([s._values for s in series_list]),
                   np.concatenate([s._validity for s in series_list]))
@@ -629,6 +896,12 @@ class Series:
             return self
         if self._dtype.is_null():
             return Series.full_null(self._name, dtype, len(self))
+        if dtype.kind == "python":
+            return Series(self._name, dtype, _object_array(self.to_pylist()), self._validity)
+        if self.is_nested or dtype.is_nested():
+            return self._nested_cast(dtype)
+        if self._dtype.is_binary() or dtype.is_binary():
+            return self._binary_cast(dtype)
         if self._dtype.kind in ("timestamp", "duration", "time") \
                 or dtype.kind in ("timestamp", "duration", "time") \
                 or (self._dtype.kind == "date" and dtype.is_string()) \
@@ -649,6 +922,73 @@ class Series:
         if not self._validity.all():
             values = np.where(self._validity, values, values.dtype.type(_null_fill(dtype)))
         return Series(self._name, dtype, values, self._validity)
+
+
+    def _nested_cast(self, dtype: DataType) -> "Series":
+        """Arrow's casts between nested types: a list's elements to another
+        element type, a list to a fixed-size list of its length and back, a
+        struct field by field, a map's keys and values."""
+        src, kind = self._dtype, dtype.kind
+        if not (self.is_nested and dtype.is_nested()):
+            raise ValueError(f"Unsupported cast from {src} to {dtype}")
+        lay = self._values
+        if src.kind == "struct" and kind == "struct":
+            if len(src.struct_fields) != len(dtype.struct_fields):
+                raise ValueError(f"Unsupported cast from {src} to {dtype}")
+            kids = [c.cast(t).rename(n) for c, (n, t) in zip(lay.children, dtype.struct_fields)]
+            return Series.nested(self._name, dtype, None, kids, self._validity)
+        if src.kind == "map" and kind == "map":
+            entries = lay.children[0].cast(dtype.map_entry)
+            return Series.nested(self._name, dtype, lay.offsets, [entries], self._validity)
+        if src.is_list() and dtype.is_list():
+            child = self.list_child()
+            if kind == "fixed_size_list" and src.kind == "list":
+                size = dtype.size
+                if (self.list_lengths()[self._validity] != size).any():
+                    raise ValueError(f"Unsupported cast from {src} to {dtype}: a list "
+                                     f"is not {size} long")
+                idx = (lay.offsets[:-1][:, None] + np.arange(size)).reshape(-1)
+                child = child.take_or_null(np.where(np.repeat(self._validity, size), idx, -1))
+                return Series.nested(self._name, dtype, None, [child.cast(dtype.inner)],
+                                     self._validity)
+            if kind == "fixed_size_list":
+                if src.size != dtype.size:
+                    raise ValueError(f"Unsupported cast from {src} to {dtype}")
+                return Series.nested(self._name, dtype, None, [child.cast(dtype.inner)],
+                                     self._validity)
+            if src.kind == "fixed_size_list":
+                keep = np.repeat(self._validity, src.size)
+                child = child.take(np.flatnonzero(keep)) if not keep.all() else child
+            return Series.nested(self._name, dtype, _lengths_to_offsets(self.list_lengths()),
+                                 [child.cast(dtype.inner)], self._validity)
+        raise ValueError(f"Unsupported cast from {src} to {dtype}")
+
+    def _binary_cast(self, dtype: DataType) -> "Series":
+        """Arrow's casts of binary: a string to its UTF-8 bytes, binary to a
+        string (valid UTF-8 only), a binary to a fixed-size binary of its
+        width."""
+        src = self._dtype
+        vals = self._values
+        valid = self._validity
+        out = np.empty(len(self), dtype=object)
+        if src.is_string() and dtype.is_binary():
+            out[:] = [v.encode("utf-8") if ok else None for v, ok in zip(vals.tolist(),
+                                                                          valid.tolist())]
+        elif src.is_binary() and dtype.is_string():
+            try:
+                out[:] = [v.decode("utf-8") if ok else None
+                          for v, ok in zip(vals.tolist(), valid.tolist())]
+            except UnicodeDecodeError:
+                raise ValueError("Invalid UTF8 payload in a cast from binary to string")
+        elif src.is_binary() and dtype.is_binary():
+            out[:] = vals
+        else:
+            raise ValueError(f"Unsupported cast from {src} to {dtype}")
+        if dtype.kind == "fixed_size_binary" and any(
+                ok and len(v) != dtype.size for v, ok in zip(out.tolist(), valid.tolist())):
+            raise ValueError(f"Unsupported cast from {src} to {dtype}: a value is not "
+                             f"{dtype.size} bytes")
+        return Series(self._name, dtype, out, valid)
 
 
 def _to_text(v) -> str:

@@ -196,7 +196,28 @@ class DataFrame:
     filter = where
 
     def select(self, *columns: ColumnInput) -> "DataFrame":
-        return DataFrame(lp.Project(self._plan, _to_exprs(columns)))
+        """A projection; an ``unnest()`` of a struct column becomes one
+        column per field (the reference's dataframe.py:175-195)."""
+        from ..expressions.expressions import Unnest
+
+        exprs = _to_exprs(columns)
+        if any(isinstance(e, Unnest) for e in exprs):
+            expanded = []
+            for e in exprs:
+                if not isinstance(e, Unnest):
+                    expanded.append(e)
+                    continue
+                dt = e.child.to_field(self.schema).dtype
+                if not dt.is_struct():
+                    raise ValueError(f"unnest() requires a struct column, got {dt}")
+                expanded.extend(e.child.struct.get(f).alias(f) for f, _t in dt.struct_fields)
+            exprs = expanded
+        return DataFrame(lp.Project(self._plan, exprs))
+
+    def explode(self, *columns: ColumnInput) -> "DataFrame":
+        """One row per element of the list columns (dataframe.py:232); a
+        null or empty list gives one null row."""
+        return DataFrame(lp.Explode(self._plan, _to_exprs(columns)))
 
     def with_column(self, name: str, expr: ColumnInput) -> "DataFrame":
         """Add (or replace) column ``name``: the other columns keep their
@@ -467,6 +488,27 @@ class DataFrame:
     def any_value(self, *cols: ColumnInput) -> "DataFrame":
         return self.agg(*[_to_expr(c).any_value() for c in cols])
 
+    def agg_list(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).agg_list() for c in cols])
+
+    list_agg = agg_list
+
+    def agg_set(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).agg_set() for c in cols])
+
+    list_agg_distinct = agg_set
+
+    def agg_concat(self, *cols: ColumnInput) -> "DataFrame":
+        return self.agg(*[_to_expr(c).agg_concat() for c in cols])
+
+    def string_agg(self, *cols: ColumnInput, delimiter: str = "") -> "DataFrame":
+        """Each column's values listed and joined by ``delimiter`` (the
+        reference's dataframe.py:437-443: a list holding a null joins to
+        null)."""
+        names = [_to_expr(c).name() for c in cols]
+        out = self.agg(*[_to_expr(c).agg_list().alias(n) for c, n in zip(cols, names)])
+        return out.select(*[col(n).list.join(delimiter).alias(n) for n in names])
+
     def describe(self) -> "DataFrame":
         """Per numeric column: count, mean, stddev, min and max."""
         aggs = []
@@ -644,6 +686,26 @@ class GroupedDataFrame:
 
     def skew(self, *cols: ColumnInput) -> DataFrame:
         return self.agg(*[_to_expr(c).skew() for c in cols])
+
+    def agg_list(self, *cols: ColumnInput) -> DataFrame:
+        return self.agg(*[_to_expr(c).agg_list() for c in cols])
+
+    def agg_concat(self, *cols: ColumnInput) -> DataFrame:
+        return self.agg(*[_to_expr(c).agg_concat() for c in cols])
+
+    def agg_set(self, *cols: ColumnInput) -> DataFrame:
+        return self.agg(*[_to_expr(c).agg_set() for c in cols])
+
+    list_agg = agg_list
+    list_agg_distinct = agg_set
+
+    def string_agg(self, *cols: ColumnInput, delimiter: str = "") -> DataFrame:
+        """As ``DataFrame.string_agg`` per group (dataframe.py:793-802)."""
+        names = [_to_expr(c).name() for c in cols]
+        out = self.agg(*[_to_expr(c).agg_list().alias(n) for c, n in zip(cols, names)])
+        keep = [col(e.name()) for e in self._group_by]
+        keep += [col(n).list.join(delimiter).alias(n) for n in names]
+        return out.select(*keep)
 
     def map_groups(self, udf_expr: Expression) -> DataFrame:
         """A UDF over each group's rows; it may emit any number of rows per

@@ -1,11 +1,15 @@
 """Logical data types (counterpart of daft_tpu/datatype.py, the integer, float,
-bool, string and temporal kinds, lists, and ``python`` for arbitrary objects).
+bool, string, binary and temporal kinds, the nested kinds (lists, fixed-size
+lists, structs, maps; datatype.py:153-199, 334-381), and ``python`` for
+arbitrary objects).
 
 The port keeps host columns in numpy, not Arrow: ``to_numpy`` is the host
 storage dtype (dates are int32 days since the epoch; timestamps, durations
-and times int64 ticks of their unit, core/temporal.py; strings are object
-arrays) and ``to_torch`` the device dtype (the counterpart of ``to_jax``,
-datatype.py:394-409).
+and times int64 ticks of their unit, core/temporal.py; strings and binary
+are object arrays; a nested column keeps Arrow's layout of offsets and
+child columns, core/series.py) and ``to_torch`` the device dtype (the
+counterpart of ``to_jax``, datatype.py:394-409). No binary or nested type
+is device-compatible.
 """
 
 from __future__ import annotations
@@ -51,8 +55,9 @@ _NUMPY_MAP = {
     "uint8": "uint8", "uint16": "uint16", "uint32": "uint32", "uint64": "uint64",
     "float32": "float32", "float64": "float64",
     "date": "int32", "timestamp": "int64", "duration": "int64", "time": "int64",
-    "string": "object", "null": "object",
-    "list": "object", "python": "object",
+    "string": "object", "null": "object", "binary": "object", "fixed_size_binary": "object",
+    "list": "object", "fixed_size_list": "object", "struct": "object", "map": "object",
+    "python": "object",
 }
 
 
@@ -134,10 +139,34 @@ class DataType:
         return cls("duration", (TimeUnit.check(unit),))
 
     @classmethod
+    def binary(cls) -> "DataType":
+        return cls("binary")
+
+    @classmethod
+    def fixed_size_binary(cls, size: int) -> "DataType":
+        return cls("fixed_size_binary", (size,))
+
+    @classmethod
     def list(cls, inner: "DataType") -> "DataType":
-        """Variable-length lists of ``inner`` (host storage: an object array
-        of Python lists)."""
+        """Variable-length lists of ``inner`` (host storage: int64 offsets
+        and one child column, as Arrow's ListArray)."""
         return cls("list", (inner,))
+
+    @classmethod
+    def fixed_size_list(cls, inner: "DataType", size: int) -> "DataType":
+        return cls("fixed_size_list", (inner, size))
+
+    @classmethod
+    def struct(cls, fields) -> "DataType":
+        """Named fields, in order (a dict, or (name, dtype) pairs)."""
+        return cls("struct", tuple(fields.items()) if isinstance(fields, dict)
+                   else tuple(fields))
+
+    @classmethod
+    def map(cls, key: "DataType", value: "DataType") -> "DataType":
+        """Key-value lists (host storage: a list of a struct of ``key`` and
+        ``value``, as Arrow's MapArray)."""
+        return cls("map", (key, value))
 
     @classmethod
     def python(cls) -> "DataType":
@@ -172,15 +201,64 @@ class DataType:
     def is_string(self) -> bool:
         return self.kind == "string"
 
+    def is_binary(self) -> bool:
+        return self.kind in ("binary", "fixed_size_binary")
+
     def is_list(self) -> bool:
-        return self.kind == "list"
+        return self.kind in ("list", "fixed_size_list")
+
+    def is_struct(self) -> bool:
+        return self.kind == "struct"
+
+    def is_map(self) -> bool:
+        return self.kind == "map"
+
+    def is_nested(self) -> bool:
+        return self.is_list() or self.is_struct() or self.is_map()
+
+    def is_python(self) -> bool:
+        return self.kind == "python"
+
+    def is_comparable(self) -> bool:
+        """Types with an order (datatype.py:283-287): binary is, a
+        fixed-size binary and the nested types are not."""
+        return (self.is_numeric() or self.is_boolean() or self.is_string()
+                or self.is_temporal() or self.kind == "binary" or self.is_null())
+
+    def is_device_compatible(self) -> bool:
+        """Whether a column of this type can live on the device as one
+        fixed-width plane (datatype.py:303-307, without the multimodal
+        kinds): no binary or nested type is."""
+        return self.is_numeric() or self.is_boolean() or self.is_temporal()
 
     @property
     def inner(self) -> "DataType":
-        """The element type of a list."""
+        """The element type of a list or a fixed-size list."""
         if not self.is_list():
-            raise ValueError(f"{self} has no element type")
+            raise ValueError(f"{self} has no inner dtype")
         return self.params[0]
+
+    @property
+    def size(self) -> int:
+        """The length of a fixed-size list, the width of a fixed-size binary."""
+        if self.kind == "fixed_size_list":
+            return self.params[1]
+        if self.kind == "fixed_size_binary":
+            return self.params[0]
+        raise ValueError(f"{self} has no fixed size")
+
+    @property
+    def struct_fields(self) -> Tuple[Tuple[str, "DataType"], ...]:
+        if self.kind != "struct":
+            raise ValueError(f"{self} is not a struct")
+        return self.params
+
+    @property
+    def map_entry(self) -> "DataType":
+        """A map's storage element: the struct of ``key`` and ``value``."""
+        if self.kind != "map":
+            raise ValueError(f"{self} is not a map")
+        return DataType.struct((("key", self.params[0]), ("value", self.params[1])))
 
     @property
     def time_unit(self) -> str:
@@ -247,8 +325,17 @@ class DataType:
         raise ValueError(f"{self} is not device-compatible")
 
     def __repr__(self) -> str:
-        if self.is_list():
+        if self.kind == "list":
             return f"List[{self.params[0]!r}]"
+        if self.kind == "fixed_size_list":
+            return f"FixedSizeList[{self.params[0]}; {self.params[1]}]"
+        if self.kind == "struct":
+            inner = ", ".join(f"{n}: {t}" for n, t in self.params)
+            return f"Struct[{inner}]"
+        if self.kind == "map":
+            return f"Map[{self.params[0]}: {self.params[1]}]"
+        if self.kind == "fixed_size_binary":
+            return f"FixedSizeBinary({self.params[0]})"
         if self.kind == "timestamp":
             unit, tz = self.params
             return f"Timestamp({unit}, {tz})" if tz else f"Timestamp({unit})"

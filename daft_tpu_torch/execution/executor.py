@@ -93,7 +93,7 @@ def execute_plan(plan: pp.PhysicalPlan) -> Iterator[MicroPartition]:
 # machines, PhysWrite is a sink its consumer drives, a UDF's concurrency is
 # the UDF tier's, and the device join runs (not stage nodes in the
 # reference either) pull their fact and dims themselves.
-_STAGE_NODES = (pp.StreamingScan, pp.Project, pp.PhysFilter, pp.PhysUnpivot,
+_STAGE_NODES = (pp.StreamingScan, pp.Project, pp.PhysFilter, pp.PhysExplode, pp.PhysUnpivot,
                 pp.PhysSample, pp.PhysSort, pp.HashAggregate, pp.DeviceFilterAgg,
                 pp.DeviceGroupedAgg, pp.Dedup, pp.PhysPivot, pp.HashJoin, pp.CrossJoin,
                 pp.PhysRepartition, pp.PhysWindow)
@@ -285,6 +285,14 @@ def _exec_impl(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
 
     if isinstance(node, pp.PhysRepartition):
         yield from _repartition(node)
+        return
+
+    if isinstance(node, pp.PhysExplode):
+        def explode(part, _i):
+            batches = [rel.explode(b, node.to_explode, node.schema) for b in part.batches]
+            return MicroPartition(node.schema, batches or [RecordBatch.empty(node.schema)])
+
+        yield from _map_op(_exec(node.input), explode)
         return
 
     if isinstance(node, pp.PhysUnpivot):
@@ -1956,13 +1964,18 @@ def _agg_op(e: Expression) -> str:
     return e.op if isinstance(e, AggExpr) else ""
 
 
+# aggregations that need each group's whole value set: one phase (the
+# reference's agg_split.py returns None for them)
+_UNSPLIT_AGGS = ("count_distinct", "set", "string_agg")
+
+
 def _split_aggs(aggs: List[Expression]):
     """(partial, final, projection) expressions of a two-phase aggregation:
     partials per morsel, finals over the concatenated partials, and the
     projection that names the outputs. mean = sum / count; var, stddev and
-    skew combine sums of powers and counts, and any_value, bool_and and
-    bool_or merge with themselves, as the reference's agg_split.py:74-111
-    splits them."""
+    skew combine sums of powers and counts, any_value, bool_and, bool_or,
+    product and concat merge with themselves, and a list's partial lists
+    concatenate, as the reference's agg_split.py:74-121 splits them."""
     from ..datatype import DataType
 
     partial, final, projection = [], [], []
@@ -2005,7 +2018,8 @@ def _split_aggs(aggs: List[Expression]):
             projection.append(out.cast(DataType.float64()).alias(name))
             continue
         partial.append(AggExpr(inner.op, child, dict(inner.params)).alias(p))
-        merge = "sum" if inner.op in ("sum", "count") else inner.op
+        merge = "sum" if inner.op in ("sum", "count") else \
+            "concat" if inner.op == "list" else inner.op
         final.append(AggExpr(merge, col(p), dict(inner.params) if merge == inner.op
                              and merge != "count" else {}).alias(name))
         projection.append(col(name))
@@ -2020,7 +2034,7 @@ def _agg_morsels(batches, aggs):
 
     morsel = execution_config().morsel_size_rows
     if sum(b.num_rows for b in batches) <= morsel or \
-            any(_agg_op(e) == "count_distinct" for e in aggs):
+            any(_agg_op(e) in _UNSPLIT_AGGS for e in aggs):
         return None
     return [m for b in batches for m in _morsels_of(b, morsel)]
 
@@ -2127,7 +2141,7 @@ def _grace_agg(rest, groupby, aggs, in_schema, node=None) -> RecordBatch:
 
     K = 32
     keys = [col(e.name()) for e in groupby]
-    if any(_agg_op(e) == "count_distinct" for e in aggs):
+    if any(_agg_op(e) in _UNSPLIT_AGGS for e in aggs):
         # unsplittable: Grace over the raw rows
         sp = SpillPartitions(in_schema, K)
         try:
@@ -2175,7 +2189,7 @@ def _ungrouped_agg(stream, aggs, in_schema, node=None) -> RecordBatch:
         if not over:
             return _ungrouped_in_memory(batches, aggs, in_schema)
         rest = _drain_prefix(budget, batches, it)
-        if any(_agg_op(e) == "count_distinct" for e in aggs):
+        if any(_agg_op(e) in _UNSPLIT_AGGS for e in aggs):
             return _ungrouped_agg_spilled(rest, aggs, in_schema, node)
         from ..config import execution_config
         from ..core.kernels.groupby import ungrouped_agg
@@ -2245,6 +2259,11 @@ def _ungrouped_agg_spilled(stream, aggs, in_schema, node=None) -> RecordBatch:
                 finally:
                     sp.delete()
                 cols.append(Series.from_pylist([total], name, dtype=out_field.dtype))
+                continue
+            if inner.op in _UNSPLIT_AGGS:  # set, string_agg: every value at once
+                rows = list(spill.read())
+                whole = RecordBatch.concat(rows) if rows else RecordBatch.empty(in_schema)
+                cols.append(ungrouped_agg(whole, [e]).get_column(name))
                 continue
             partial, final, projection = _split_aggs([e])
             partials = [ungrouped_agg(b, partial) for b in spill.read()]

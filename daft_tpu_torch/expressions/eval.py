@@ -101,6 +101,10 @@ def eval_expression(batch, expr: Expression) -> Series:
         if not args:
             kwargs["__num_rows"] = batch.num_rows
         return spec.host(args, kwargs).rename(expr.name())
+    from .expressions import _TypeDispatch
+
+    if isinstance(expr, _TypeDispatch):
+        return eval_expression(batch, expr.resolve(batch.schema)).rename(expr.name())
     if isinstance(expr, AggExpr):
         raise ValueError(f"aggregation expression {expr!r} cannot be evaluated in a "
                          "projection context; use .agg()/groupby")

@@ -3,13 +3,15 @@
 // % **``), comparisons and ``eq_null_safe``, ``&``, ``|``, ``^``, ``~``,
 null tests and ``fill_null``, ``abs``, ``IfElse``, ``IsIn``, ``Between``,
 ``AggExpr`` (sum, count, mean, min, max, count_distinct, any_value,
-stddev, var, skew, bool_and, bool_or), ``Function`` calls into the scalar
-function registry (functions/registry.py) with the ``.str``, ``.dt`` and
-``.float`` namespaces and the math methods, and UDF calls (udf/expr.py
-``UdfCall``, ``Expression.apply``). The later waves' names (timestamps,
-lists, structs, maps, binary, JSON, images, urls, embeddings, tokenize and
-the sketch and list aggregates) raise ``NotImplementedError`` naming their
-wave. ``transform`` rewrites a tree bottom-up (the join capture substitutes
+stddev, var, skew, bool_and, bool_or, and the list aggregates list, set,
+concat, product and string_agg), ``Function`` calls into the scalar
+function registry (functions/registry.py) with the ``.str``, ``.dt``,
+``.float``, ``.list``, ``.struct``, ``.map``, ``.binary`` and ``.json``
+namespaces, the math methods and the flat API (with ``_TypeDispatch``,
+whose namespace follows the input type, and ``Unnest``), and UDF calls
+(udf/expr.py ``UdfCall``, ``Expression.apply``). The later waves' names
+(images, urls, embeddings, tokenize and the sketch aggregates) raise
+``NotImplementedError`` naming their wave. ``transform`` rewrites a tree bottom-up (the join capture substitutes
 projections and hoists dim-only subexpressions with it).
 
 One class hierarchy is both the user-facing Expression and the plan IR. Host
@@ -291,24 +293,24 @@ class Expression:
         return FloatNamespace(self)
 
     @property
-    def list(self):
-        return _later_wave_namespace("list")
+    def list(self) -> "ListNamespace":
+        return ListNamespace(self)
 
     @property
-    def struct(self):
-        return _later_wave_namespace("struct")
+    def struct(self) -> "StructNamespace":
+        return StructNamespace(self)
 
     @property
-    def map(self):
-        return _later_wave_namespace("map")
+    def map(self) -> "MapNamespace":
+        return MapNamespace(self)
 
     @property
-    def binary(self):
-        return _later_wave_namespace("binary")
+    def binary(self) -> "BinaryNamespace":
+        return BinaryNamespace(self)
 
     @property
-    def json(self):
-        return _later_wave_namespace("json")
+    def json(self) -> "JsonNamespace":
+        return JsonNamespace(self)
 
     @property
     def image(self):
@@ -371,6 +373,21 @@ class Expression:
 
     def agg_concat(self):
         return AggExpr("concat", self)
+
+    def product(self):
+        """The product of the valid values (the reference's
+        expressions.py:1579)."""
+        return AggExpr("product", self)
+
+    def string_agg(self, delimiter: str = ""):
+        """The valid strings joined by ``delimiter`` (expressions.py:1584)."""
+        return AggExpr("string_agg", self, {"delimiter": delimiter})
+
+    def list_agg(self):
+        return AggExpr("list", self)
+
+    def list_agg_distinct(self):
+        return AggExpr("set", self)
 
     def approx_count_distinct(self):
         return AggExpr("approx_count_distinct", self)
@@ -891,6 +908,101 @@ class FloatNamespace(_Namespace):
         return self._e._fn("fill_nan", value)
 
 
+class ListNamespace(_Namespace):
+    """``expr.list`` (the reference's expressions.py:1011-1054)."""
+
+    def length(self):
+        return self._e._fn("list_length")
+
+    def get(self, idx, default=None):
+        return self._e._fn("list_get", idx, default)
+
+    def sum(self):
+        return self._e._fn("list_sum")
+
+    def mean(self):
+        return self._e._fn("list_mean")
+
+    def min(self):
+        return self._e._fn("list_min")
+
+    def max(self):
+        return self._e._fn("list_max")
+
+    def count(self, mode: str = "valid"):
+        return self._e._fn("list_count", mode=mode)
+
+    def join(self, delimiter: str):
+        return self._e._fn("list_join", delimiter)
+
+    def contains(self, value):
+        return self._e._fn("list_contains", value)
+
+    def slice(self, start, end=None):
+        return self._e._fn("list_slice", start, end)
+
+    def sort(self, desc: bool = False):
+        return self._e._fn("list_sort", desc=desc)
+
+    def distinct(self):
+        return self._e._fn("list_distinct")
+
+    def value_counts(self):
+        return self._e._fn("list_value_counts")
+
+    def chunk(self, size: int):
+        return self._e._fn("list_chunk", size=size)
+
+
+class StructNamespace(_Namespace):
+    """``expr.struct`` (expressions.py:1116-1125)."""
+
+    def get(self, name: str):
+        return self._e._fn("struct_get", name=name)
+
+
+class BinaryNamespace(_Namespace):
+    """``expr.binary`` (expressions.py:1228-1255)."""
+
+    def length(self):
+        return self._e._fn("binary_length")
+
+    def concat(self, other):
+        return self._e._fn("binary_concat", other)
+
+    def slice(self, start: int, length=None):
+        kw = {"start": start}
+        if length is not None:
+            kw["length"] = length
+        return self._e._fn("binary_slice", **kw)
+
+    def encode_hex(self):
+        return self._e._fn("encode_hex")
+
+    def decode_hex(self):
+        return self._e._fn("decode_hex")
+
+    def encode_base64(self):
+        return self._e._fn("encode_base64")
+
+    def decode_base64(self):
+        return self._e._fn("decode_base64")
+
+
+class MapNamespace(_Namespace):
+    """``expr.map`` (expressions.py:1256-1262)."""
+
+    def get(self, key):
+        return self._e._fn("map_get", key=key)
+
+
+class JsonNamespace(_Namespace):
+    """``expr.json`` (expressions.py:1263-1275)."""
+
+    def query(self, path: str):
+        return self._e._fn("json_query", path=path)
+
+
 def _later_wave_namespace(name: str):
     from ..functions.registry import later_wave
 
@@ -899,10 +1011,10 @@ def _later_wave_namespace(name: str):
 
 
 AGG_OPS = ("sum", "mean", "min", "max", "count", "count_distinct", "any_value", "stddev",
-           "var", "skew", "bool_and", "bool_or")
-# the reference's aggregates of later waves
-LATER_AGG_OPS = ("list", "set", "concat", "product", "string_agg", "approx_count_distinct",
-                 "approx_percentile")
+           "var", "skew", "bool_and", "bool_or", "list", "set", "concat", "product",
+           "string_agg")
+# the reference's aggregates of a later wave (the sketches)
+LATER_AGG_OPS = ("approx_count_distinct", "approx_percentile")
 
 
 class AggExpr(Expression):
@@ -1124,6 +1236,120 @@ for _unit in ("days", "hours", "months", "years"):
     setattr(Expression, f"partition_{_unit}", _partition_transform(f"partition_{_unit}"))
 
 
+def _options_call(fname, **defaults):
+    """A flat method calling ``fname`` with keyword options (the reference's
+    expressions.py:1505-1720 flat methods of the nested-types wave)."""
+    names = list(defaults)
+
+    def flat(self, *args, **kwargs):
+        opts = dict(defaults)
+        opts.update(zip(names, args))
+        opts.update(kwargs)
+        return self._fn(fname, **opts)
+    flat.__name__ = fname
+    flat.__doc__ = f"The registry's scalar function {fname!r}."
+    return flat
+
+
+for _name, _fname, _defaults in (
+        ("serialize", "serialize", {"format": "json"}),
+        ("deserialize", "deserialize", {"format": "json", "dtype": None}),
+        ("try_deserialize", "try_deserialize", {"format": "json", "dtype": None}),
+        ("compress", "compress", {"codec": "gzip"}),
+        ("decompress", "decompress", {"codec": "gzip"}),
+        ("try_compress", "try_compress", {"codec": "gzip"}),
+        ("try_decompress", "try_decompress", {"codec": "gzip"}),
+        ("encode", "codec_encode", {"codec": "utf-8"}),
+        ("decode", "codec_decode", {"codec": "utf-8"}),
+        ("try_encode", "try_codec_encode", {"codec": "utf-8"}),
+        ("try_decode", "try_codec_decode", {"codec": "utf-8"}),
+        ("partition_iceberg_bucket", "partition_iceberg_bucket", {"n": None}),
+        ("partition_iceberg_truncate", "partition_iceberg_truncate", {"w": None})):
+    setattr(Expression, _name, _options_call(_fname, **_defaults))
+
+Expression.list_append = lambda self, other: self._fn("list_append", other)
+Expression.list_bool_and = lambda self: self._fn("list_bool_and")
+Expression.list_bool_or = lambda self: self._fn("list_bool_or")
+Expression.regexp_count = lambda self, pattern: self.str.extract_all(pattern).list.length()
+
+
+class _TypeDispatch(Expression):
+    """A flat method whose namespace depends on the input type, chosen when
+    the schema is known (the reference's expressions.py:1400-1445)."""
+
+    def __init__(self, child: Expression, table, opname, *args):
+        self.child = child
+        self.table = table
+        self.opname = opname
+        self.args = args
+
+    def name(self) -> str:
+        return self.child.name()
+
+    def children(self):
+        return [self.child]
+
+    def with_children(self, children):
+        return _TypeDispatch(children[0], self.table, self.opname, *self.args)
+
+    def resolve(self, schema: Schema) -> Expression:
+        dt = self.child.to_field(schema).dtype
+        kind = ("list" if dt.is_list() else "string" if dt.is_string() else
+                "binary" if dt.is_binary() else "map" if dt.is_map() else
+                "struct" if dt.is_struct() else dt.kind)
+        hit = self.table.get(kind)
+        if hit is None:
+            raise ValueError(f"{self.opname}() does not support dtype {dt}; "
+                             f"supported kinds: {sorted(self.table)}")
+        ns_attr, meth = hit
+        args = [a for a in self.args if a is not None] if self.opname == "slice" \
+            else list(self.args)
+        return getattr(getattr(self.child, ns_attr), meth)(*args)
+
+    def to_field(self, schema: Schema) -> Field:
+        return self.resolve(schema).to_field(schema)
+
+    def __repr__(self):
+        return f"{self.child!r}.{self.opname}({', '.join(map(repr, self.args))})"
+
+
+Expression.length = lambda self: _TypeDispatch(
+    self, {"list": ("list", "length"), "string": ("str", "length"),
+           "binary": ("binary", "length")}, "length")
+Expression.get = lambda self, key_or_index, default=None: _TypeDispatch(
+    self, {"list": ("list", "get"), "map": ("map", "get"), "struct": ("struct", "get")},
+    "get", key_or_index)
+Expression.contains = lambda self, item: _TypeDispatch(
+    self, {"list": ("list", "contains"), "string": ("str", "contains")}, "contains", item)
+Expression.slice = lambda self, start, end=None: _TypeDispatch(
+    self, {"list": ("list", "slice"), "binary": ("binary", "slice")}, "slice", start, end)
+Expression.concat = lambda self, other: _TypeDispatch(
+    self, {"string": ("str", "concat"), "binary": ("binary", "concat")}, "concat", other)
+
+
+class Unnest(Expression):
+    """A struct column's fields as columns, expanded by ``select`` (the
+    reference's expressions.py:1680-1700)."""
+
+    def __init__(self, child: Expression):
+        self.child = child
+
+    def name(self) -> str:
+        return self.child.name()
+
+    def children(self):
+        return [self.child]
+
+    def with_children(self, children):
+        return Unnest(children[0])
+
+    def to_field(self, schema: Schema) -> Field:
+        raise ValueError("unnest() can only be used directly inside select()")
+
+
+Expression.unnest = lambda self: Unnest(self)
+
+
 def col(name: str) -> Expression:
     return ColumnRef(name)
 
@@ -1143,6 +1369,8 @@ def _infer_literal_dtype(v: Any) -> DataType:
         return DataType.float64()
     if isinstance(v, str):
         return DataType.string()
+    if isinstance(v, (bytes, bytearray)):
+        return DataType.binary()
     if isinstance(v, datetime.datetime):
         # the reference's naming: tzname(None), which is None for a ZoneInfo
         # zone and "UTC+hh:mm" for a fixed offset

@@ -12,10 +12,11 @@ device program takes, a torch function: ``device(args, kwargs, fdt)`` over
 the arguments' (values, validity) pairs, ``fdt`` the stage's float type
 (ops/device_eval.py).
 
-A name of a later wave (lists, structs, maps, binary, JSON,
-images, urls, embeddings, tokenize, the sketch and list aggregates, the
-extension functions) raises ``NotImplementedError`` naming its wave
-(``later_wave``); an unknown name raises ``ValueError``.
+The nested-types wave (lists, structs, maps, binary, JSON, hashes, URLs,
+compression, serialization, codecs and the Iceberg partitions) is in
+functions/nested.py. A name of a later wave (images, urls, embeddings,
+tokenize, the sketch aggregates) raises ``NotImplementedError`` naming its
+wave (``later_wave``); an unknown name raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -72,19 +73,6 @@ def has_function(name: str) -> bool:
 # ---- the later waves (ROADMAP.md Queue 1 item 7) -------------------------------------
 
 _WAVES = {
-    "the nested-types wave (ROADMAP item 7: lists, structs, maps, binary, JSON, "
-    "compression, serialization)": (
-        "list", "struct", "map", "binary", "json", "list_length", "list_get", "list_sum",
-        "list_mean", "list_min", "list_max", "list_count", "list_join", "list_contains",
-        "list_slice", "list_sort", "list_distinct", "list_value_counts", "list_chunk",
-        "list_append", "list_bool_and", "list_bool_or", "struct_get", "map_get",
-        "binary_length", "binary_concat", "binary_slice", "encode_hex", "decode_hex",
-        "encode_base64", "decode_base64", "json_query", "to_json", "compress",
-        "decompress", "try_compress", "try_decompress", "serialize", "deserialize",
-        "try_deserialize", "codec_encode", "codec_decode", "try_codec_encode",
-        "try_codec_decode", "md5", "sha1", "sha256", "sha512", "parse_url",
-        "partition_iceberg_bucket", "partition_iceberg_truncate", "agg_list", "agg_set",
-        "agg_concat", "agg_product", "agg_string_agg"),
     "the multimodal wave (ROADMAP item 7: images, urls, embeddings, tokenize, minhash, "
     "audio, video)": (
         "image", "url", "embedding", "image_decode", "image_encode", "image_resize",
@@ -184,8 +172,11 @@ def _scalar_arg(s: Series):
 
 
 def _out(s: Series, dtype: DataType, values, valid) -> Series:
-    values = np.asarray(values)
     valid = np.asarray(valid, dtype=bool)
+    if dtype.is_nested():
+        return Series.from_pylist([v if ok else None for v, ok in zip(values, valid.tolist())],
+                                  s.name, dtype)
+    values = np.asarray(values)
     if values.dtype != object:
         values = values.astype(dtype.to_numpy(), copy=False)
         if not valid.all():
@@ -856,3 +847,4 @@ register("uuid", _rt_const(_S), _uuid_host)
 
 
 from . import temporal as _temporal  # noqa: E402,F401  (registers the temporal functions)
+from . import nested as _nested  # noqa: E402,F401  (registers the nested-types wave)

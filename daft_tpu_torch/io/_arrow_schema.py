@@ -6,10 +6,11 @@ The value is a base64 IPC message (0xFFFFFFFF, its length, a flatbuffer
 ``Message`` whose header is a ``Schema``). pyarrow reads a column's time
 zone and a duration's type from it, where the Parquet schema holds only
 "adjusted to UTC" and a plain INT64. ``read_arrow_fields`` gives the flat
-schema's zone names and durations; ``write_arrow_schema`` writes one for a
-flat port schema, so pyarrow reads such columns back as the port wrote
-them. Only flat schemas: nested fields are skipped on reading and never
-written.
+schema's zone names and durations, ``read_arrow_types`` each field's port
+type, nested fields (lists, large lists, fixed-size lists, structs, maps)
+and binary included; ``write_arrow_schema`` writes one for a port schema,
+nested fields with their children, so pyarrow reads such columns back as
+the port wrote them.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ KEY = "ARROW:schema"
 # Type union tags (Schema.fbs)
 _NULL, _INT, _FLOAT, _UTF8, _BOOL, _DATE, _TIME, _TIMESTAMP = 1, 2, 3, 5, 6, 8, 9, 10
 _DURATION, _LARGE_UTF8 = 18, 20
+_BINARY, _LIST, _STRUCT, _FIXED_BINARY, _FIXED_LIST, _MAP = 4, 12, 13, 15, 16, 17
+_LARGE_BINARY, _LARGE_LIST = 19, 21
 _UNITS = ("s", "ms", "us", "ns")  # TimeUnit: SECOND .. NANOSECOND
 
 
@@ -101,6 +104,74 @@ def read_arrow_fields(value: str) -> Dict[str, Tuple[str, Optional[str], Optiona
             elif tag == _DURATION:
                 # Duration.unit defaults to MILLISECOND (Schema.fbs)
                 out[name] = ("duration", _UNITS[t.scalar(0, "h", 1)], None)
+        return out
+    except (ValueError, IndexError, struct.error, UnicodeDecodeError):
+        return {}
+
+
+def _field_type(f: _Table):
+    """The port DataType of one Arrow field table (None where the port has
+    no such type)."""
+    from ..datatype import DataType
+
+    tag = f.scalar(2, "B")
+    t = f.table(3)
+    kids = [_field_type(c) for c in f.tables(5)]
+    if tag == _NULL:
+        return DataType.null()
+    if tag == _BOOL:
+        return DataType.bool()
+    if tag == _INT and t is not None:
+        width, signed = t.scalar(0, "i"), t.scalar(1, "?")
+        return DataType(("int" if signed else "uint") + str(width))
+    if tag == _FLOAT and t is not None:
+        return DataType.float32() if t.scalar(0, "h") <= 1 else DataType.float64()
+    if tag in (_UTF8, _LARGE_UTF8):
+        return DataType.string()
+    if tag in (_BINARY, _LARGE_BINARY):
+        return DataType.binary()
+    if tag == _FIXED_BINARY and t is not None:
+        return DataType.fixed_size_binary(t.scalar(0, "i"))
+    if tag == _DATE:
+        return DataType.date()
+    if tag == _TIME and t is not None:
+        unit = _UNITS[t.scalar(0, "h", 1)]
+        return DataType.time("ns" if unit == "ns" else "us")
+    if tag == _TIMESTAMP and t is not None:
+        return DataType.timestamp(_UNITS[t.scalar(0, "h")], t.string(1))
+    if tag == _DURATION:
+        return DataType.duration(_UNITS[t.scalar(0, "h", 1) if t is not None else 1])
+    if None in kids:
+        return None
+    if tag in (_LIST, _LARGE_LIST) and len(kids) == 1:
+        return DataType.list(kids[0])
+    if tag == _FIXED_LIST and len(kids) == 1 and t is not None:
+        return DataType.fixed_size_list(kids[0], t.scalar(0, "i"))
+    if tag == _STRUCT:
+        return DataType.struct([(c.string(0), k) for c, k in zip(f.tables(5), kids)])
+    if tag == _MAP and len(kids) == 1 and kids[0].kind == "struct" \
+            and len(kids[0].struct_fields) == 2:
+        (_k, kt), (_v, vt) = kids[0].struct_fields
+        return DataType.map(kt, vt)
+    return None
+
+
+def read_arrow_types(value: str) -> dict:
+    """{column name: port DataType} of the schema's top-level fields the
+    port has a type for; {} for a value it cannot read."""
+    try:
+        raw = base64.b64decode(value)
+        if raw[:4] == b"\xff\xff\xff\xff":
+            raw = raw[8:]
+        msg = _Table(raw, struct.unpack_from("<I", raw, 0)[0])
+        if msg.scalar(1, "B") != 1:
+            return {}
+        schema = msg.table(2)
+        out = {}
+        for f in schema.tables(1) if schema is not None else []:
+            dt = _field_type(f)
+            if f.string(0) is not None and dt is not None:
+                out[f.string(0)] = dt
         return out
     except (ValueError, IndexError, struct.error, UnicodeDecodeError):
         return {}
@@ -189,6 +260,18 @@ def _type_of(dtype) -> Tuple[int, list]:
         return _FLOAT, [(0, "h", 1 if kind == "float32" else 2)]
     if kind == "string":
         return _LARGE_UTF8, []
+    if kind == "binary":
+        return _LARGE_BINARY, []
+    if kind == "fixed_size_binary":
+        return _FIXED_BINARY, [(0, "i", dtype.size)]
+    if kind == "list":
+        return _LARGE_LIST, []
+    if kind == "fixed_size_list":
+        return _FIXED_LIST, [(0, "i", dtype.size)]
+    if kind == "struct":
+        return _STRUCT, []
+    if kind == "map":
+        return _MAP, [(0, "?", False)]
     if kind == "date":
         return _DATE, [(0, "h", 0)]
     if kind == "time":
@@ -218,18 +301,35 @@ def write_arrow_schema(schema, units: Dict[str, str]) -> str:
                for slot, fmt, v in fields]
         return tag, (lambda: b.table(out))
 
-    def field_writer(field):
-        dtype = field.dtype
-        if dtype.kind == "timestamp" and field.name in units:
-            dtype = DataType.timestamp(units[field.name], dtype.timezone)
+    def children(dtype):
+        """(name, dtype, nullable) of a nested type's child fields, named as
+        the Parquet schema names them."""
+        k = dtype.kind
+        if k in ("list", "fixed_size_list"):
+            return [("element", dtype.inner, True)]
+        if k == "struct":
+            return [(n, t, True) for n, t in dtype.struct_fields]
+        if k == "map":
+            return [("key_value", dtype.map_entry, False)]
+        return []
+
+    def field_writer(name, dtype, nullable=True, entry_key=False):
+        if dtype.kind == "timestamp" and name in units:
+            dtype = DataType.timestamp(units[name], dtype.timezone)
         tag, tw = type_writer(dtype)
-        return lambda: b.table([(0, "off", lambda: b.string(field.name)), (1, "?", True),
+        kids = children(dtype)
+        if dtype.kind == "struct" and entry_key:  # a map's entries: a required key
+            kid_writers = [field_writer(n, t, i != 0) for i, (n, t, _o) in enumerate(kids)]
+        else:
+            kid_writers = [field_writer(n, t, o, dtype.kind == "map") for n, t, o in kids]
+        return lambda: b.table([(0, "off", lambda: b.string(name)), (1, "?", nullable),
                                 (2, "B", tag), (3, "off", tw),
-                                (5, "off", lambda: b.vector([]))])
+                                (5, "off", lambda: b.vector(kid_writers))])
 
     def schema_writer():
         return b.table([(0, "h", 0),
-                        (1, "off", lambda: b.vector([field_writer(f) for f in schema]))])
+                        (1, "off", lambda: b.vector([field_writer(f.name, f.dtype)
+                                                     for f in schema]))])
 
     def message_writer():
         return b.table([(0, "h", 4), (1, "B", 1), (2, "off", schema_writer), (3, "q", 0)])

@@ -1,5 +1,6 @@
-"""The Parquet file format for flat columns (the port's own; the reference
-reads and writes Parquet through pyarrow).
+"""The Parquet file format (the port's own; the reference reads and writes
+Parquet through pyarrow). Flat columns here; nested columns (lists,
+structs, maps: repetition and definition levels) in io/_parquet_nested.py.
 
 Reading: the footer framed by ``PAR1`` (``read_footer``), the flat schema
 mapped to the port's dtypes as the reference's ``read_parquet`` types them
@@ -14,7 +15,8 @@ data page v1, at most about 1 MiB of values a page.
 
 Physical and logical types: BOOLEAN; INT32 plain, INT(8/16/32) signed or
 unsigned, and DATE (int32 days); INT64 signed or unsigned; FLOAT; DOUBLE;
-BYTE_ARRAY annotated STRING/UTF8; TIMESTAMP (MILLIS / MICROS / NANOS, zoned
+BYTE_ARRAY annotated STRING/UTF8, or unannotated (binary);
+FIXED_LEN_BYTE_ARRAY (a fixed-size binary); TIMESTAMP (MILLIS / MICROS / NANOS, zoned
 "UTC" where adjusted to UTC) and the legacy TIMESTAMP_MILLIS / _MICROS
 (UTC), TIME (MILLIS in INT32, MICROS, NANOS) and the legacy TIME_MILLIS /
 _MICROS, and INT96 (nanoseconds), as pyarrow reads them for the reference.
@@ -22,9 +24,9 @@ A file's ``ARROW:schema`` (io/_arrow_schema.py) names a timestamp's zone
 and marks a duration, as pyarrow reads it; the writer writes one where a
 column needs it (a zone other than UTC, a duration). A timestamp in
 seconds is written in milliseconds, as pyarrow writes it. Anything else
-(nested or repeated columns, DECIMAL, fixed-length or unannotated binary
-columns, the DELTA_* and BYTE_STREAM_SPLIT encodings) raises
-NotImplementedError naming it: never a wrong read. Values decode with numpy;
+(DECIMAL, UUID, FLOAT16, a legacy two-level or bare repeated column, the
+DELTA_* and BYTE_STREAM_SPLIT encodings) raises NotImplementedError naming
+it: never a wrong read. Values decode with numpy;
 only BYTE_ARRAY values take a Python loop, one step a value.
 """
 
@@ -92,6 +94,10 @@ class ColumnInfo:
     # stored value x scale = the port's storage value (a TIME(MILLIS) read as
     # microseconds, a timestamp in seconds written in milliseconds: 1000)
     scale: int = 1
+    # a nested column's schema tree (io/_parquet_nested.py PNode), else None
+    node: Any = None
+    # FIXED_LEN_BYTE_ARRAY's width
+    width: int = 0
 
 
 def _parquet_unit(ann: Dict[str, Any], name) -> str:
@@ -168,10 +174,9 @@ def _plain_dtype(el: Dict[str, Any]) -> DataType:
     if t == BYTE_ARRAY:
         if "STRING" in logical or conv == _UTF8:
             return DataType.string()
-        raise _unsupported(f"BYTE_ARRAY column {name!r} without a STRING annotation "
-                           "(binary)")
+        return DataType.binary()
     if t == FIXED_LEN_BYTE_ARRAY:
-        raise _unsupported(f"physical type {TYPE_NAMES[t]} (column {name!r})")
+        return DataType.fixed_size_binary(int(el.get("type_length") or 0))
     raise _unsupported(f"physical type {t} (column {name!r})")
 
 
@@ -181,15 +186,18 @@ def column_info(schema: List[Dict[str, Any]], arrow=None) -> List[ColumnInfo]:
     the zone of a timestamp adjusted to UTC and marks a duration's INT64."""
     if not schema:
         raise ValueError("Parquet footer has no schema")
+    from . import _parquet_nested as pn
+
     arrow = arrow or {}
     cols = []
-    for el in schema[1:]:
+    for el, sub in pn.top_level_fields(schema):
         name = el.get("name")
-        if el.get("num_children"):
-            raise _unsupported(f"nested column {name!r}")
         rep = el.get("repetition_type", REQUIRED)
-        if rep == REPEATED:
-            raise _unsupported(f"repeated column {name!r} (repetition levels)")
+        if el.get("num_children") or rep == REPEATED:
+            node = pn.build_node(sub, 0, 0, 0)[0]
+            cols.append(ColumnInfo(name, -1, pn.reconcile(node.dtype, arrow.get(name)),
+                                   node.def_level, 1, node))
+            continue
         dtype, scale = _port_dtype(el)
         hint = arrow.get(name)
         if hint is not None and hint[0] == "timestamp" and dtype.kind == "timestamp" \
@@ -198,9 +206,7 @@ def column_info(schema: List[Dict[str, Any]], arrow=None) -> List[ColumnInfo]:
         elif hint is not None and hint[0] == "duration" and dtype.kind == "int64":
             dtype = DataType.duration(hint[1])
         cols.append(ColumnInfo(name, el.get("type"), dtype, 1 if rep == OPTIONAL else 0,
-                               scale))
-    if len(cols) != (schema[0].get("num_children") or 0):
-        raise _unsupported("schema whose root children are not its leaves (nested)")
+                               scale, None, int(el.get("type_length") or 0)))
     return cols
 
 
@@ -224,6 +230,25 @@ class Footer:
             if md.get("path_in_schema", [None])[0] == name:
                 return md
         raise KeyError(f"column {name!r} not in the row group")
+
+    def chunk_by_path(self, rg: Dict[str, Any], path) -> Dict[str, Any]:
+        """The ColumnMetaData of the leaf at ``path`` in row group ``rg``."""
+        path = list(path)
+        for c in rg["columns"]:
+            md = c.get("meta_data") or {}
+            if md.get("path_in_schema") == path:
+                return md
+        raise KeyError(f"column {'.'.join(path)!r} not in the row group")
+
+
+def read_column(f, footer: "Footer", rg: Dict[str, Any], col: ColumnInfo) -> Series:
+    """One column of row group ``rg``: a flat column's chunk, or a nested
+    column assembled from its leaf chunks (io/_parquet_nested.py)."""
+    if col.node is not None:
+        from ._parquet_nested import read_nested
+
+        return read_nested(f, footer, rg, col)
+    return read_column_chunk(f, footer.chunk(rg, col.name), col)
 
 
 _FOOTERS: Dict[tuple, Footer] = {}  # (path, size, mtime_ns) -> footer
@@ -261,6 +286,11 @@ def _parse_footer(path: str, size: int) -> Footer:
     for kv in meta.get("key_value_metadata") or []:
         if kv.get("key") == ARROW_SCHEMA_KEY and kv.get("value"):
             arrow = read_arrow_fields(kv["value"])
+            from ._arrow_schema import read_arrow_types
+
+            for name, dt in read_arrow_types(kv["value"]).items():
+                if dt.is_nested():
+                    arrow[name] = dt
     return Footer(meta, column_info(meta.get("schema", []), arrow))
 
 
@@ -351,8 +381,16 @@ def encode_hybrid(values: np.ndarray, bit_width: int) -> bytes:
 _NUMPY_PHYSICAL = {INT32: "<i4", INT64: "<i8", FLOAT: "<f4", DOUBLE: "<f8"}
 
 
-def decode_plain(data, pos: int, physical: int, count: int):
-    """``count`` PLAIN values at ``pos``: (values, position after them)."""
+def decode_plain(data, pos: int, physical: int, count: int, binary: bool = False,
+                 width: int = 0):
+    """``count`` PLAIN values at ``pos``: (values, position after them);
+    BYTE_ARRAY values are str, or bytes with ``binary``; a
+    FIXED_LEN_BYTE_ARRAY value is ``width`` bytes."""
+    if physical == FIXED_LEN_BYTE_ARRAY:
+        out = np.empty(count, dtype=object)
+        raw = bytes(data[pos:pos + width * count])
+        out[:] = [raw[i * width:(i + 1) * width] for i in range(count)]
+        return out, pos + width * count
     if physical == BOOLEAN:
         nb = (count + 7) // 8
         raw = np.frombuffer(data, dtype=np.uint8, count=nb, offset=pos)
@@ -374,7 +412,7 @@ def decode_plain(data, pos: int, physical: int, count: int):
         for i in range(count):
             n = unpack(data, pos)[0]
             pos += 4
-            out[i] = str(mv[pos:pos + n], "utf-8")
+            out[i] = bytes(mv[pos:pos + n]) if binary else str(mv[pos:pos + n], "utf-8")
             pos += n
         return out, pos
     raise _unsupported(f"PLAIN values of physical type {TYPE_NAMES[physical]}")
@@ -394,7 +432,8 @@ def _dictionary_indices(data, pos: int, col: ColumnInfo, count: int, dictionary)
 
 def _decode_values(data, pos: int, encoding: int, col: ColumnInfo, count: int):
     if encoding == PLAIN:
-        return decode_plain(data, pos, col.physical, count)[0]
+        return decode_plain(data, pos, col.physical, count, col.dtype.is_binary(),
+                            col.width)[0]
     if encoding == RLE and col.physical == BOOLEAN:
         n = struct.unpack_from("<I", data, pos)[0]
         return decode_hybrid(data, pos + 4, pos + 4 + n, 1, count).astype(bool)
@@ -408,7 +447,7 @@ def _to_port(values: np.ndarray, col: ColumnInfo) -> np.ndarray:
     if col.scale != 1:
         return values.astype(np.int64) * np.int64(col.scale)
     if kind in ("string", "bool", "date", "int32", "int64", "float32", "float64",
-                "timestamp", "duration", "time"):
+                "timestamp", "duration", "time", "binary", "fixed_size_binary"):
         return values if values.dtype == col.dtype.to_numpy() \
             else values.astype(col.dtype.to_numpy())
     if kind == "uint64":
@@ -451,7 +490,8 @@ def read_column_chunk(f, md: Dict[str, Any], col: ColumnInfo, name: str = "") ->
                                    f"{ENCODING_NAMES.get(dh.get('encoding'))}")
             data = decompress(codec, page, ph["uncompressed_page_size"])
             dictionary = _to_port(decode_plain(data, 0, col.physical,
-                                               dh.get("num_values", 0))[0], col)
+                                               dh.get("num_values", 0), col.dtype.is_binary(),
+                                               col.width)[0], col)
             continue
         if kind == DATA_PAGE:
             dh = ph["data_page_header"]
@@ -528,7 +568,7 @@ def _assemble(name: str, dtype: DataType, values, valid, total: int) -> Series:
 
         fill = _null_fill(dtype)
         out = np.empty(total, dtype=np_dt)
-        if dtype.is_string():
+        if np_dt == object:
             out[:] = None
         else:
             out[:] = fill
@@ -556,7 +596,7 @@ def decode_stat(raw: Optional[bytes], col: ColumnInfo):
             v = struct.unpack("<f" if col.physical == FLOAT else "<d", raw)[0]
             return None if math.isnan(v) else v
         if col.physical == BYTE_ARRAY:
-            return raw.decode("utf-8")
+            return raw if col.dtype.is_binary() else raw.decode("utf-8")
     except (ValueError, IndexError, struct.error, UnicodeDecodeError):
         return None
     return None
@@ -574,7 +614,7 @@ def _encode_stat(v, col: ColumnInfo) -> bytes:
         return struct.pack("<f", v)
     if col.physical == DOUBLE:
         return struct.pack("<d", v)
-    return v.encode("utf-8")
+    return v if isinstance(v, bytes) else v.encode("utf-8")
 
 
 def _chunk_statistics(vals: np.ndarray, col: ColumnInfo, nulls: int,
@@ -585,7 +625,7 @@ def _chunk_statistics(vals: np.ndarray, col: ColumnInfo, nulls: int,
         src = src[~np.isnan(src)]
     if not len(src):
         return out
-    if col.dtype.is_string():
+    if src.dtype == object:
         lo, hi = min(src), max(src)
     else:
         lo, hi = src.min(), src.max()
@@ -630,6 +670,10 @@ def _plain_physical(dtype: DataType) -> Tuple[int, Dict[str, Any]]:
         return (FLOAT if kind == "float32" else DOUBLE), {}
     if kind == "string":
         return BYTE_ARRAY, {"converted_type": _UTF8, "logicalType": {"STRING": {}}}
+    if kind == "binary":
+        return BYTE_ARRAY, {}
+    if kind == "fixed_size_binary":
+        return FIXED_LEN_BYTE_ARRAY, {"type_length": dtype.size}
     if dtype.is_integer():
         signed = dtype.is_signed_integer()
         width = int(kind[kind.index("t") + 1:])
@@ -641,6 +685,13 @@ def _plain_physical(dtype: DataType) -> Tuple[int, Dict[str, Any]]:
 
 
 def encode_plain(vals: np.ndarray, physical: int) -> bytes:
+    if physical == FIXED_LEN_BYTE_ARRAY:
+        return b"".join(vals.tolist())
+    if physical == BYTE_ARRAY and len(vals) and isinstance(vals[0], bytes):
+        items = vals.tolist()
+        lens = np.fromiter(map(len, items), dtype="<u4", count=len(items)).tolist()
+        return b"".join(x for pair in zip((struct.pack("<I", n) for n in lens), items)
+                        for x in pair)
     if physical == BOOLEAN:
         return np.packbits(vals.astype(np.uint8), bitorder="little").tobytes()
     if physical in _NUMPY_PHYSICAL:
@@ -772,18 +823,44 @@ def write_column_chunk(f, series: Series, col: ColumnInfo, codec: int) -> Dict[s
     return md
 
 
+def _needs_arrow_schema(dtype: DataType) -> bool:
+    """Whether pyarrow needs the file's ARROW:schema to read a column back
+    as written: a duration, a timestamp zoned other than UTC, a
+    fixed-size list, anywhere in the type."""
+    k = dtype.kind
+    if k == "duration" or (k == "timestamp" and dtype.timezone not in (None, "UTC")):
+        return True
+    if k == "fixed_size_list":
+        return True
+    if k == "list":
+        return _needs_arrow_schema(dtype.inner)
+    if k == "struct":
+        return any(_needs_arrow_schema(t) for _n, t in dtype.struct_fields)
+    if k == "map":
+        return any(_needs_arrow_schema(t) for t in dtype.params)
+    return False
+
+
 def write_file(path: str, batches, schema, codec: int,
                row_group_rows: Optional[int] = None) -> None:
     """Write the RecordBatches ``batches`` (one schema) as one Parquet file,
     in row groups of ``row_group_rows`` (default ``ROW_GROUP_ROWS``)."""
     from ..core.recordbatch import RecordBatch
 
+    from . import _parquet_nested as pn
+
     row_group_rows = row_group_rows or ROW_GROUP_ROWS
     cols = []
     elements = [{"name": "schema", "num_children": len(schema)}]
     for field in schema:
+        if field.dtype.is_nested():
+            cols.append(ColumnInfo(field.name, -1, field.dtype, 1, 1, True))
+            elements += pn.schema_elements(field.name, field.dtype)
+            continue
         physical, ann, scale = _physical_for(field.dtype)
-        cols.append(ColumnInfo(field.name, physical, field.dtype, 1, scale))
+        cols.append(ColumnInfo(field.name, physical, field.dtype, 1, scale, None,
+                               field.dtype.size if field.dtype.kind == "fixed_size_binary"
+                               else 0))
         elements.append({"type": physical, "repetition_type": OPTIONAL, "name": field.name,
                          **ann})
     batches = [b for b in batches if b.num_rows]
@@ -797,10 +874,12 @@ def write_file(path: str, batches, schema, codec: int,
             rg_start = f.tell()
             chunks = []
             for col, s in zip(cols, part.columns()):
-                md = write_column_chunk(f, s, col, codec)
-                chunks.append({"file_offset": md.get("dictionary_page_offset",
-                                                     md["data_page_offset"]),
-                               "meta_data": md})
+                mds = pn.write_nested_column(f, s, codec) if col.node is not None \
+                    else [write_column_chunk(f, s, col, codec)]
+                for md in mds:
+                    chunks.append({"file_offset": md.get("dictionary_page_offset",
+                                                         md["data_page_offset"]),
+                                   "meta_data": md})
             row_groups.append({
                 "columns": chunks, "num_rows": part.num_rows,
                 "total_byte_size": sum(c["meta_data"]["total_uncompressed_size"]
@@ -808,16 +887,15 @@ def write_file(path: str, batches, schema, codec: int,
                 "file_offset": rg_start, "total_compressed_size": f.tell() - rg_start,
                 "ordinal": len(row_groups)})
         kv = None
-        if any(f.dtype.kind == "duration" or (f.dtype.kind == "timestamp"
-                                               and f.dtype.timezone not in (None, "UTC"))
-               for f in schema):
+        if any(_needs_arrow_schema(f.dtype) for f in schema):
             units = {f.name: "ms" for f in schema
                      if f.dtype.kind == "timestamp" and f.dtype.time_unit == "s"}
             kv = [{"key": ARROW_SCHEMA_KEY, "value": write_arrow_schema(schema, units)}]
         meta = th.encode(th.FILE_META_DATA, {
             "version": 1, "schema": elements, "num_rows": total, "row_groups": row_groups,
             "key_value_metadata": kv, "created_by": "daft_tpu_torch",
-            "column_orders": [{"TYPE_ORDER": {}}] * len(cols)})
+            "column_orders": [{"TYPE_ORDER": {}}] * sum(
+                1 for e in elements[1:] if not e.get("num_children"))})
         f.write(meta)
         f.write(struct.pack("<I", len(meta)))
         f.write(MAGIC)

@@ -180,8 +180,8 @@ def _rg_excluded(md: pf.Footer, rg, conjuncts: List[tuple]) -> bool:
     cols = {c.name: c for c in md.columns}
     for name, op, lit in conjuncts:
         col = cols.get(name)
-        if col is None or lit.value is None:
-            continue
+        if col is None or lit.value is None or col.node is not None:
+            continue  # a nested column's leaf statistics prune nothing
         # the statistics and the literal on one scale: a temporal pair in
         # the type they meet in, as Arrow compares them
         stat_scale, value = 1, lit.storage_value()
@@ -325,7 +325,7 @@ def _read_row_groups(path: str, rg_ids, columns, out_schema: Schema,
             for name in names:
                 if name not in by_name:
                     raise KeyError(f"{path}: no column {name!r}")
-                cols.append(pf.read_column_chunk(f, footer.chunk(rg, name), by_name[name]))
+                cols.append(pf.read_column(f, footer, rg, by_name[name]))
             counters.bump("scan_decode_ms", (time.perf_counter() - t0) * 1e3)
             counters.bump("scan_row_groups")
             schema = Schema([Field(s.name, s.dtype) for s in cols])

@@ -126,6 +126,9 @@ def batch_bytes(b: RecordBatch) -> int:
     4-byte offset each, as Arrow would hold them)."""
     total = 0
     for s in b.columns():
+        if s.is_nested or s.dtype.is_binary():
+            total += s.size_bytes()
+            continue
         if s.dtype.is_string():
             valid = s.to_numpy()[s.validity_numpy()]
             total += sum(map(len, valid.tolist())) + 4 * len(s)

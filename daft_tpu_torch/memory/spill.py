@@ -14,8 +14,10 @@ validity plane. The body, compressed by the codec
 io/codecs.py, or "none"), holds each plane at an 8-byte boundary: numeric
 and date values as their bytes, booleans bit-packed, a string column as
 int64 offsets plus UTF-8 bytes (or, where the column carries dictionary
-codes, as int32 codes plus its dictionary in that form), list and
-``python`` columns pickled, then the validity bit-packed where the column
+codes, as int32 codes plus its dictionary in that form), binary as int64
+offsets plus its bytes, a nested column as its layout (a list's or a map's
+int64 offsets, then each child column in this form, recursively), a
+``python`` column pickled, then the validity bit-packed where the column
 has a null. A read gives back the batch that was written, bit for bit:
 nulls and the values under them, NaN, -0.0, dates, and empty batches
 (``encode_batch`` / ``decode_batch``).
@@ -93,12 +95,30 @@ def spill_root() -> str:
 
 
 def _dtype_of(spec) -> DataType:
-    kind, inner = spec
-    return DataType.list(_dtype_of(inner)) if kind == "list" else DataType(kind)
+    kind, params = spec
+    out = []
+    for p in params or ():
+        if isinstance(p, dict) and "t" in p:
+            out.append(_dtype_of(p["t"]))
+        elif isinstance(p, dict) and "f" in p:
+            out.append((p["f"][0], _dtype_of(p["f"][1])))
+        else:
+            out.append(p)
+    return DataType(kind, tuple(out))
 
 
 def _dtype_spec(dtype: DataType):
-    return ["list", _dtype_spec(dtype.inner)] if dtype.is_list() else [dtype.kind, None]
+    """A dtype as JSON: [kind, params], a nested type's element types and
+    a struct's (name, type) fields recursively."""
+    params = []
+    for p in dtype.params:
+        if isinstance(p, DataType):
+            params.append({"t": _dtype_spec(p)})
+        elif isinstance(p, tuple):
+            params.append({"f": [p[0], _dtype_spec(p[1])]})
+        else:
+            params.append(p)
+    return [dtype.kind, params]
 
 
 def _encode_strings(items: list):
@@ -130,59 +150,77 @@ def _decode_strings(offsets: np.ndarray, data: bytes) -> np.ndarray:
     return out
 
 
+def _encode_column(s: Series, planes: List[bytes]) -> dict:
+    """One column's entry, its planes appended to ``planes``."""
+    values, valid = (None if s.is_nested else s.to_numpy()), s.validity_numpy()
+    kind = s.dtype.kind
+    entry = {"name": s.name, "dtype": _dtype_spec(s.dtype), "planes": []}
+    if kind == "null":
+        entry["form"] = "null"
+    elif s.is_nested:
+        entry["form"] = "nested"
+        lay = s.layout
+        if lay.offsets is not None:
+            entry["planes"].append(len(planes))
+            planes.append(np.ascontiguousarray(lay.offsets, dtype=np.int64).tobytes())
+        entry["children"] = [_encode_column(c, planes) for c in lay.children]
+    elif kind == "python":
+        entry["form"] = "pickle"
+        entry["planes"].append(len(planes))
+        planes.append(pickle.dumps(values.tolist(), protocol=pickle.HIGHEST_PROTOCOL))
+    elif s.dtype.is_binary():
+        entry["form"] = "bytes"
+        items = [v if ok else b"" for v, ok in zip(values.tolist(), valid.tolist())]
+        lens = np.fromiter(map(len, items), dtype=np.int64, count=len(items))
+        offsets = np.zeros(len(items) + 1, dtype=np.int64)
+        np.cumsum(lens, out=offsets[1:])
+        entry["planes"] += [len(planes), len(planes) + 1]
+        planes += [offsets.tobytes(), b"".join(items)]
+    elif kind == "string":
+        raw = s._raw_codes()
+        if raw is not None and len(raw[1]) <= len(s):
+            codes, dictionary = raw
+            entry["form"] = "dict"
+            offsets, data = _encode_strings(["" if v is None else v for v in dictionary])
+            entry["dict_none"] = [i for i, v in enumerate(dictionary) if v is None]
+            arrays = [np.ascontiguousarray(codes, dtype=np.int32), offsets]
+            for a in arrays:
+                entry["planes"].append(len(planes))
+                planes.append(a.tobytes())
+            entry["planes"].append(len(planes))
+            planes.append(data)
+        else:
+            entry["form"] = "utf8"
+            nones = np.flatnonzero(np.equal(values, None))
+            items = values.tolist()
+            for i in nones.tolist():
+                items[i] = ""
+            entry["none_rows"] = len(nones) > 0
+            offsets, data = _encode_strings(items)
+            entry["planes"] += [len(planes), len(planes) + 1]
+            planes += [offsets.tobytes(), data]
+            if len(nones):
+                entry["planes"].append(len(planes))
+                planes.append(nones.astype(np.int64).tobytes())
+    elif kind == "bool":
+        entry["form"] = "bits"
+        entry["planes"].append(len(planes))
+        planes.append(np.packbits(values.astype(bool)).tobytes())
+    else:
+        entry["form"] = "raw"
+        entry["np"] = values.dtype.str
+        entry["planes"].append(len(planes))
+        planes.append(np.ascontiguousarray(values).tobytes())
+    if not valid.all():
+        entry["validity"] = len(planes)
+        planes.append(np.packbits(valid).tobytes())
+    return entry
+
+
 def encode_batch(batch: RecordBatch, codec: str) -> bytes:
     """One frame holding ``batch``."""
     planes: List[bytes] = []
-    cols = []
-    for s in batch.columns():
-        values, valid = s.to_numpy(), s.validity_numpy()
-        kind = s.dtype.kind
-        entry = {"name": s.name, "dtype": _dtype_spec(s.dtype), "planes": []}
-        if kind == "null":
-            entry["form"] = "null"
-        elif kind in ("list", "python"):
-            entry["form"] = "pickle"
-            entry["planes"].append(len(planes))
-            planes.append(pickle.dumps(values.tolist(), protocol=pickle.HIGHEST_PROTOCOL))
-        elif kind == "string":
-            raw = s._raw_codes()
-            if raw is not None and len(raw[1]) <= len(s):
-                codes, dictionary = raw
-                entry["form"] = "dict"
-                offsets, data = _encode_strings(["" if v is None else v for v in dictionary])
-                entry["dict_none"] = [i for i, v in enumerate(dictionary) if v is None]
-                arrays = [np.ascontiguousarray(codes, dtype=np.int32), offsets]
-                for a in arrays:
-                    entry["planes"].append(len(planes))
-                    planes.append(a.tobytes())
-                entry["planes"].append(len(planes))
-                planes.append(data)
-            else:
-                entry["form"] = "utf8"
-                nones = np.flatnonzero(np.equal(values, None))
-                items = values.tolist()
-                for i in nones.tolist():
-                    items[i] = ""
-                entry["none_rows"] = len(nones) > 0
-                offsets, data = _encode_strings(items)
-                entry["planes"] += [len(planes), len(planes) + 1]
-                planes += [offsets.tobytes(), data]
-                if len(nones):
-                    entry["planes"].append(len(planes))
-                    planes.append(nones.astype(np.int64).tobytes())
-        elif kind == "bool":
-            entry["form"] = "bits"
-            entry["planes"].append(len(planes))
-            planes.append(np.packbits(values.astype(bool)).tobytes())
-        else:
-            entry["form"] = "raw"
-            entry["np"] = values.dtype.str
-            entry["planes"].append(len(planes))
-            planes.append(np.ascontiguousarray(values).tobytes())
-        if not valid.all():
-            entry["validity"] = len(planes)
-            planes.append(np.packbits(valid).tobytes())
-        cols.append(entry)
+    cols = [_encode_column(s, planes) for s in batch.columns()]
     sizes = [len(p) for p in planes]
     body = bytearray()
     for p in planes:
@@ -241,18 +279,34 @@ def decode_batch(header: dict, body: bytes) -> RecordBatch:
     def raw_bytes(i: int) -> bytes:
         return bytes(buf[starts[i]:starts[i] + header["sizes"][i]])
 
-    cols = []
-    for e in header["cols"]:
+    def column(e: dict, n: int) -> Series:
         dtype = _dtype_of(e["dtype"])
         valid = np.unpackbits(plane(e["validity"]), count=n).astype(bool) \
             if "validity" in e else np.ones(n, dtype=bool)
         form = e["form"]
         if form == "null":
             values = np.empty(n, dtype=object)
+        elif form == "nested":
+            offsets = plane(e["planes"][0], np.int64, n + 1).copy() if e["planes"] else None
+            kind = dtype.kind
+            if kind == "struct":
+                counts = [n] * len(e["children"])
+            elif kind == "fixed_size_list":
+                counts = [n * dtype.size]
+            else:
+                counts = [int(offsets[-1])]
+            kids = [column(c, k) for c, k in zip(e["children"], counts)]
+            return Series.nested(e["name"], dtype, offsets, kids, valid)
         elif form == "pickle":
             from ..core.series import _object_array
 
             values = _object_array(pickle.loads(raw_bytes(e["planes"][0])))
+        elif form == "bytes":
+            offsets = plane(e["planes"][0], np.int64, n + 1).tolist()
+            data = raw_bytes(e["planes"][1])
+            values = np.empty(n, dtype=object)
+            values[:] = [data[a:b] if ok else None
+                         for a, b, ok in zip(offsets[:-1], offsets[1:], valid.tolist())]
         elif form == "dict":
             codes = plane(e["planes"][0], np.int32, n).copy()
             offsets = plane(e["planes"][1], np.int64)
@@ -263,8 +317,7 @@ def decode_batch(header: dict, body: bytes) -> RecordBatch:
             values[~valid] = None
             s = Series(e["name"], dtype, values, valid)
             s._dict_codes = ("raw", codes, dictionary.tolist())
-            cols.append(s)
-            continue
+            return s
         elif form == "utf8":
             values = _decode_strings(plane(e["planes"][0], np.int64), raw_bytes(e["planes"][1]))
             if e["none_rows"]:
@@ -273,7 +326,9 @@ def decode_batch(header: dict, body: bytes) -> RecordBatch:
             values = np.unpackbits(plane(e["planes"][0]), count=n).astype(bool)
         else:
             values = plane(e["planes"][0], np.dtype(e["np"]), n)
-        cols.append(Series(e["name"], dtype, values, valid))
+        return Series(e["name"], dtype, values, valid)
+
+    cols = [column(e, n) for e in header["cols"]]
     schema = Schema([Field(s.name, s.dtype) for s in cols])
     return RecordBatch(schema, cols, n)
 

@@ -78,6 +78,20 @@ def is_device_evaluable(expr: Expression, schema: Schema) -> bool:
         return False
 
 
+def has_nested_operand(expr: Expression, schema: Schema) -> bool:
+    """Whether any node of ``expr`` reads or makes a nested, binary or
+    ``python`` value: the device holds none (a stage never sees such a
+    column)."""
+    try:
+        for node in expr.walk():
+            dt = node.to_field(schema).dtype
+            if dt.is_nested() or dt.is_binary() or dt.kind == "python":
+                return True
+    except (KeyError, ValueError, TypeError):
+        return False
+    return False
+
+
 def _node_on_device(node: Expression, schema: Schema) -> bool:
     if isinstance(node, ColumnRef):
         return _dtype_on_device(schema[node._name].dtype)

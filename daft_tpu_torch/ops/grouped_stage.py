@@ -749,6 +749,15 @@ def try_build_grouped_agg_stage(schema: Schema, predicate: Optional[Expression],
         if g.has_agg():
             counters.reject(site, "group key holds an aggregation")
             return None
+        try:
+            key_dt = g.to_field(schema).dtype
+        except (KeyError, ValueError, TypeError):
+            key_dt = None
+        if key_dt is not None and (key_dt.is_nested() or key_dt.kind == "python"):
+            # the host groups nested keys by their row hashes; the stage's key
+            # dictionary holds hashable values only
+            counters.reject(site, "group key is nested")
+            return None
     stage = GroupedAggStage(schema, predicate, groupby, aggs)
     with _CACHE_LOCK:
         _STAGE_CACHE[key] = stage

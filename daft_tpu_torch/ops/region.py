@@ -109,8 +109,12 @@ def _expr_absorbable(e: Expression) -> bool:
 
 def _chain_below(agg_input) -> List:
     """The longest absorbable Filter/Project chain under the aggregate,
-    nearest the aggregate first."""
+    nearest the aggregate first. An operator over a nested, binary or
+    ``python`` operand (a Project of list functions) ends the chain, with a
+    counted rejection: it stays on the host under the shorter region."""
     from ..plan import logical as lp
+    from . import counters
+    from .device_eval import has_nested_operand
 
     chain = []
     node = agg_input
@@ -118,8 +122,14 @@ def _chain_below(agg_input) -> List:
         if isinstance(node, lp.Filter):
             if not _expr_absorbable(node.predicate):
                 break
+            if has_nested_operand(node.predicate, node.input.schema):
+                counters.reject("region", "nested operand stays on the host")
+                break
         elif isinstance(node, lp.Project):
             if not all(_expr_absorbable(e) for e in node.projection):
+                break
+            if any(has_nested_operand(e, node.input.schema) for e in node.projection):
+                counters.reject("region", "nested operand stays on the host")
                 break
         else:
             break

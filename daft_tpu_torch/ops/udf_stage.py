@@ -298,15 +298,16 @@ def finish_series(func, out: np.ndarray, valid: np.ndarray, name: str):
     where the input row was: ``device_finish``'s values, or the output rows
     as they are (a 2-D output of a numeric list dtype goes straight to its
     lists, the values already of the element type)."""
-    from ..core.series import Series, _object_array
+    from ..core.series import Series, _lengths_to_offsets
 
     dtype = func.return_dtype
-    if func.device_finish is None and out.ndim == 2 and dtype.is_list() \
+    if func.device_finish is None and out.ndim == 2 and dtype.kind == "list" \
             and dtype.inner.is_numeric():
-        rows = out.astype(dtype.inner.to_numpy(), copy=False).tolist()
-        return Series(name, dtype, _object_array([r if ok else None for r, ok in
-                                                  zip(rows, valid.tolist())]),
-                      np.asarray(valid, dtype=bool).copy())
+        valid = np.asarray(valid, dtype=bool).copy()
+        flat = out[valid].astype(dtype.inner.to_numpy(), copy=False).reshape(-1)
+        lens = np.where(valid, out.shape[1], 0)
+        return Series.nested(name, dtype, _lengths_to_offsets(lens),
+                             [Series.from_numpy(flat, "item", dtype.inner)], valid)
     if func.device_finish is not None:
         vals = func.device_finish(out)
     elif out.ndim == 1:

@@ -7,7 +7,7 @@ Aggregate, Sort, Limit, Offset, TopN (a Sort with a Limit, made by
 plan/optimizer.py ``rule_detect_topn``), Join (inner, left, right,
 outer, semi, anti and cross), Concat, Distinct, Repartition, Window (window
 functions over one window spec, the optimizer's ``rule_extract_windows``
-moving them out of a projection), Unpivot, Sample, MonotonicallyIncreasingId,
+moving them out of a projection), Explode, Unpivot, Sample, MonotonicallyIncreasingId,
 MapGroups, Pivot, IntoPartitions and IntoBatches. Each node computes its
 output schema on construction, so a type error surfaces where the DataFrame
 method is called.
@@ -414,6 +414,28 @@ class Window(_Unary):
 
     def describe(self) -> str:
         return f"Window[{', '.join(e.name() for e in self.window_exprs)}]"
+
+
+class Explode(_Unary):
+    """One row per element of the exploded list columns, the other columns
+    repeated (the reference's logical.py:229-252); an exploded column takes
+    its element type."""
+
+    def __init__(self, input: LogicalPlan, to_explode: List[Expression]):
+        in_schema = input.schema
+        exploded = {}
+        for e in to_explode:
+            f = e.to_field(in_schema)
+            exploded[f.name] = Field(f.name, f.dtype.inner if f.dtype.is_list() else f.dtype)
+        super().__init__(Schema([exploded.get(f.name, f) for f in in_schema]))
+        self.input = input
+        self.to_explode = list(to_explode)
+
+    def with_children(self, children):
+        return Explode(children[0], self.to_explode)
+
+    def describe(self) -> str:
+        return f"Explode[{', '.join(e.name() for e in self.to_explode)}]"
 
 
 class Unpivot(_Unary):

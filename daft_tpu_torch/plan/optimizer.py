@@ -669,6 +669,12 @@ def _prune(node: lp.LogicalPlan, needed: Optional[List[str]]) -> lp.LogicalPlan:
     if isinstance(node, (lp.Limit, lp.Offset, lp.Sample, lp.IntoBatches, lp.IntoPartitions)):
         return node.with_children([_prune(node.input, needed)])
 
+    if isinstance(node, lp.Explode):
+        # the exploded columns are read whatever the parent needs
+        child_needed = None if needed is None else _ordered_union(needed,
+                                                                  _refs(node.to_explode))
+        return node.with_children([_prune(node.input, child_needed)])
+
     if isinstance(node, lp.MonotonicallyIncreasingId):
         child_needed = None if needed is None else [c for c in needed if c != node.column_name]
         return node.with_children([_prune(node.input, child_needed)])

@@ -323,6 +323,15 @@ class PhysRepartition(_Unary):
         self.by = by
 
 
+class PhysExplode(_Unary):
+    """The explode operator (the reference's physical.py:155): one output
+    batch per input batch (core/relational.py ``explode``)."""
+
+    def __init__(self, input: PhysicalPlan, to_explode, schema: Schema):
+        super().__init__(input, schema)
+        self.to_explode = to_explode
+
+
 class PhysUnpivot(_Unary):
     def __init__(self, input: PhysicalPlan, ids, values, variable_name, value_name,
                  schema: Schema):
@@ -476,6 +485,8 @@ def translate(plan: lp.LogicalPlan) -> PhysicalPlan:
                                plan.schema)
     if isinstance(plan, lp.IntoBatches):
         return PhysIntoBatches(translate(plan.input), plan.batch_size, plan.schema)
+    if isinstance(plan, lp.Explode):
+        return PhysExplode(translate(plan.input), plan.to_explode, plan.schema)
     if isinstance(plan, lp.Unpivot):
         return PhysUnpivot(translate(plan.input), plan.ids, plan.values, plan.variable_name,
                            plan.value_name, plan.schema)

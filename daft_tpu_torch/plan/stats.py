@@ -103,6 +103,10 @@ def estimate_rows(plan: lp.LogicalPlan) -> Optional[float]:
     if isinstance(plan, lp.Sample):
         child = estimate_rows(plan.input)
         return None if child is None else child * plan.fraction
+    if isinstance(plan, lp.Explode):
+        # the reference's guess (stats.py:115): four elements a list
+        child = estimate_rows(plan.input)
+        return None if child is None else child * 4.0
     children = plan.children()
     if len(children) == 1:
         return estimate_rows(children[0])

@@ -6,9 +6,9 @@ A Pratt parser builds expressions directly; SELECT structure lands in the
 sql/planner.py plans. The grammar is the reference's; what the port's
 engine cannot evaluate yet raises ``NotImplementedError`` naming the
 ROADMAP item that brings it, where the reference builds an expression:
-the types BINARY, BYTES, DECIMAL and NUMERIC, and the aggregates
-APPROX_COUNT_DISTINCT, LIST_AGG and ARRAY_AGG (the expression surface,
-item 7).
+the types DECIMAL and NUMERIC, and the aggregate APPROX_COUNT_DISTINCT
+(the expression surface, item 7). LIST_AGG and ARRAY_AGG are ``agg_list``,
+BINARY and BYTES the binary type.
 
 Window functions are the reference's: an aggregate or ROW_NUMBER, RANK,
 DENSE_RANK, PERCENT_RANK, CUME_DIST, NTILE(n), LAG / LEAD (expr[, offset[,
@@ -64,9 +64,10 @@ _BP = {
 _AGG_FUNCS = {"SUM": "sum", "AVG": "mean", "MEAN": "mean", "MIN": "min", "MAX": "max",
               "COUNT": "count", "STDDEV": "stddev", "STDDEV_SAMP": "stddev", "VAR": "var",
               "VARIANCE": "var", "ANY_VALUE": "any_value", "SKEW": "skew",
-              "BOOL_AND": "bool_and", "BOOL_OR": "bool_or"}
-# the reference's aggregates of later waves
-_AGG_FUNCS_NOT_PORTED = {"APPROX_COUNT_DISTINCT", "LIST_AGG", "ARRAY_AGG"}
+              "BOOL_AND": "bool_and", "BOOL_OR": "bool_or", "LIST_AGG": "list",
+              "ARRAY_AGG": "list"}
+# the reference's aggregates of later waves (the sketches)
+_AGG_FUNCS_NOT_PORTED = {"APPROX_COUNT_DISTINCT"}
 _WINDOW_RANK_FUNCS = {"ROW_NUMBER", "RANK", "DENSE_RANK", "PERCENT_RANK", "CUME_DIST",
                       "NTILE"}
 
@@ -78,8 +79,9 @@ _TYPE_NAMES = {
     "TEXT": DataType.string, "STRING": DataType.string, "VARCHAR": DataType.string,
     "BOOL": DataType.bool, "BOOLEAN": DataType.bool, "DATE": DataType.date,
     "TIMESTAMP": lambda: DataType.timestamp("us"),
+    "BINARY": DataType.binary, "BYTES": DataType.binary,
 }
-_TYPE_NAMES_NOT_PORTED = {"BINARY", "BYTES", "DECIMAL", "NUMERIC"}
+_TYPE_NAMES_NOT_PORTED = {"DECIMAL", "NUMERIC"}
 # the fixed-length INTERVAL units, in seconds (the reference's parser.py:423)
 _INTERVAL_SECONDS = {"day": 86400.0, "week": 7 * 86400.0, "hour": 3600.0, "minute": 60.0,
                      "second": 1.0, "millisecond": 1e-3}

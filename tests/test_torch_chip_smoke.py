@@ -1366,3 +1366,49 @@ def test_temporal_phase_fails_on_a_wrong_oracle(monkeypatch):
     monkeypatch.setattr(cs, "t1_oracle", shifted)
     with pytest.raises(cs.SmokeFailure, match="numpy oracle"):
         cs.phase_temporal(lineitem, "cpu", {})
+
+
+def test_nested_phase_on_the_cpu(monkeypatch, capsys):
+    """chip_smoke.py's nested phase on the CPU at a small size: N1's lists
+    held to numpy, N2 as one DeviceGroupedAgg over the explode with K1,
+    K2, K7 and K3's plain calls, equal to the flat aggregation, "off" and
+    numpy; N3's Parquet round trip equal and N2 over the file without a
+    warm upload; every N4 function equal to its oracle; N5 in SQL equal to
+    N2. The kernel cases at N2's inputs need the card and are left out."""
+    from daft_tpu_torch.device.residency import manager
+
+    cs = _cpu_cells(monkeypatch)
+    monkeypatch.setattr(cs, "nested_kernel_cases", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "clear_residency", lambda: manager().clear())
+    monkeypatch.setattr(cs, "NESTED_VALUE_ROWS", 2_000)
+    monkeypatch.setattr(cs, "NESTED_SAMPLE", 500)
+    lineitem = cs.tpch_sf1(11, n_orders=4_000, n_parts=200, n_customers=400)[0]
+    paths = cs.phase_nested(lineitem, "cpu", {})
+    for path in ("nested_n2", "nested_n3_file", "nested_n5_sql"):
+        for k in cs.NESTED_KERNELS:
+            assert paths[path][k] >= 1, (path, k, paths[path])
+    out = capsys.readouterr().out
+    assert "N1: 4000 rows" in out and "N3 file: 0 column uploads on a warm run" in out
+    assert "N2: equal to the flat aggregation over lineitem" in out
+    assert out.count("sampled rows equal to the plain-Python oracle") == \
+        len(cs.n4_functions())
+    assert "N5: SQL build" in out
+
+
+def test_nested_phase_fails_on_a_wrong_oracle(monkeypatch):
+    from daft_tpu_torch.device.residency import manager
+
+    cs = _cpu_cells(monkeypatch)
+    monkeypatch.setattr(cs, "nested_kernel_cases", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "clear_residency", lambda: manager().clear())
+    lineitem = cs.tpch_sf1(11, n_orders=2_000, n_parts=200, n_customers=400)[0]
+    oracle = cs.n2_oracle
+
+    def shifted(cols):
+        out = oracle(cols)
+        out["last_order"] = [v + 1 for v in out["last_order"]]
+        return out
+
+    monkeypatch.setattr(cs, "n2_oracle", shifted)
+    with pytest.raises(cs.SmokeFailure, match="numpy oracle"):
+        cs.phase_nested(lineitem, "cpu", {})

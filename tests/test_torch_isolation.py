@@ -819,3 +819,47 @@ def test_temporal_query_imports_no_jax_pyarrow_or_reference():
                           capture_output=True, text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+_NESTED_QUERY = """
+import sys, tempfile
+import numpy as np
+sys.path.insert(0, {repo!r})
+import daft_tpu_torch as dt
+from daft_tpu_torch import col
+from daft_tpu_torch.ops import counters
+rng = np.random.default_rng(23)
+n = 3000
+df = dt.from_pydict({{"o": np.sort(rng.integers(0, 500, n)), "s": rng.integers(0, 20, n),
+                      "p": rng.uniform(1, 100, n),
+                      "m": np.array(["AIR", "RAIL", "SHIP"], dtype=object)[rng.integers(0, 3, n)]}})
+with dt.execution_config_ctx(device="cpu", device_mode="on"):
+    lists = df.groupby("o").agg(col("s").agg_list(), col("p").agg_list(),
+                                col("m").agg_set().alias("ms")).collect()
+    out = lists.explode("s", "p").groupby("s").agg(col("p").sum().alias("r"),
+                                                   col("o").count().alias("c")).sort("s")
+    got = out.to_pydict()
+    assert counters.device_grouped_batches >= 1, counters.snapshot()
+    j = lists.select(col("ms")._fn("to_json").alias("j")).to_pydict()["j"]
+    assert all(x.startswith("[") for x in j)
+    d = tempfile.mkdtemp()
+    lists.write_parquet(d)
+    back = dt.read_parquet(d).sort("o").to_pydict()
+    assert back == lists.sort("o").to_pydict()
+    assert sum(got["c"]) == n
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow", "pandas")
+             or m.startswith(("jax.", "pyarrow.", "pandas.", "daft_tpu."))
+             or m == "daft_tpu")
+print("FORBIDDEN", bad)
+"""
+
+
+def test_nested_query_imports_no_jax_pyarrow_or_reference():
+    """agg_list and agg_set, explode into a device grouped stage, to_json and
+    a nested Parquet round trip in a fresh interpreter: no JAX, pyarrow,
+    pandas or daft_tpu imported."""
+    proc = subprocess.run([sys.executable, "-c", _NESTED_QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout

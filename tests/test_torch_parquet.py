@@ -345,11 +345,19 @@ def test_unsupported_codec_raises_naming_it(tmp_path, codec):
 UNSUPPORTED = {
     "decimal": (pa.table({"a": pa.array([1, 2], pa.decimal128(10, 2))}), {}, "DECIMAL"),
     # timestamps and times read since the temporal slice (tests/test_torch_temporal.py)
-    "fixed_len_binary": (pa.table({"a": pa.array([b"xyz", b"abc"], pa.binary(3))}), {},
-                         "FIXED_LEN_BYTE_ARRAY"),
-    "struct": (pa.table({"a": pa.array([{"x": 1}, {"x": 2}])}), {}, "nested"),
-    "nested": (pa.table({"a": pa.array([[1], [2, 3]])}), {}, "nested"),
-    "binary": (pa.table({"a": pa.array([b"x", b"y"])}), {}, "binary"),
+    # binary, fixed-size binary, lists and structs read since the nested
+    # slice (tests/test_torch_parquet_nested.py)
+    "float16": (pa.table({"a": pa.array(np.array([1, 2], dtype=np.float16))}), {},
+                "FLOAT16"),
+    "decimal_in_list": (pa.table({"a": pa.array([[1], [2, 3]], pa.list_(pa.decimal128(10, 2)))}),
+                        {}, "DECIMAL"),
+    "delta_length": (pa.table({"a": pa.array(["x", "yy"])}),
+                     dict(use_dictionary=False,
+                          column_encoding={"a": "DELTA_LENGTH_BYTE_ARRAY"}),
+                     "DELTA_LENGTH_BYTE_ARRAY"),
+    "delta_byte_array": (pa.table({"a": pa.array(["x", "xy"])}),
+                         dict(use_dictionary=False, column_encoding={"a": "DELTA_BYTE_ARRAY"}),
+                         "DELTA_BYTE_ARRAY"),
     "delta": (pa.table({"a": pa.array([1, 2, 3])}),
               dict(use_dictionary=False, column_encoding={"a": "DELTA_BINARY_PACKED"}),
               "DELTA_BINARY_PACKED"),
