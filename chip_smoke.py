@@ -123,7 +123,7 @@ error (no phase catches its own failure):
             and a numpy oracle (row order, integers, strings and dates
             exactly, float sums at rtol 1e-5), q3's and q10's oracle margin
             at the limit and their cold host factorize time printed; cold
-            time, warm median of 3, peak memory and a profile each;
+            time, warm median of 2, peak memory and a profile each;
 11. q1 chain, q6 chain: q1 and q6 written with their derived columns
             as ``with_column`` (q1: two, then ``where`` and ``groupby``;
             q6: ``where``, one, ``agg``) at SF1: each must plan as one
@@ -181,7 +181,7 @@ error (no phase catches its own failure):
             table's snappy pages decoded by the library and the plain
             Python decoder, equal; the fingerprints of q1's columns against
             their uploads. Then, each through run_cell (counters from zero,
-            cold, warm median of 3, host path, peak memory, optimize /
+            cold, warm median of 2, host path, peak memory, optimize /
             translate) and equal to its in-memory cell's result, with the
             scan's own numbers (tasks, row groups read and pruned, morsels,
             decode ms) and the warm runs' rebinding (fingerprint ms,
@@ -201,8 +201,8 @@ error (no phase catches its own failure):
             against the sequential one ("off"), over the scan phase's files:
             q1, q6, q12, q14 and q3 over Parquet, q5 in SQL with its dims
             from CSV, and the in-memory supplier, q1 and q12 cells, each in
-            turns off, on, on, off (one round; q5 cold and
-            warm in each mode), counted from zero each run: every run equal
+            turns off, on (q5 off, on, on, off: cold and warm in each
+            mode), counted from zero each run: every run equal
             to the cell's result (held to its numpy oracle) and to the other
             mode's, its stage counter above 0, in "on" every kernel call and
             device feed made from the thread the plan puts it on (a stage
@@ -263,15 +263,15 @@ error (no phase catches its own failure):
             phase measured them. The ai embed cell runs under "auto" in the
             ai phase (its weights resident), within 1e-5 of its "on" run
             and of the CPU's first 256 rows;
-20. window: W1, six window functions over SF1 lineitem by supplier in
-            ship-date order, unbudgeted and under B1 (the Grace window),
-            equal as rows keyed by (l_orderkey, l_linenumber) and to a numpy
-            oracle; W2, TPC-DS q98's shape on TPC-H tables (30 days of
-            lineitem joined to part, revenue by brand and type, each
-            group's share of its type by a window), as a DataFrame and in
-            SQL through run_cell (the aggregate on the card as the device
-            join stage), equal to each other, the "off" run and a numpy
-            oracle, each with a profile;
+20. window: W1, six window functions over SF1 lineitem's first 1,500,000
+            rows by supplier in ship-date order, unbudgeted and under B1
+            (the Grace window), equal as rows keyed by (l_orderkey,
+            l_linenumber) and to a numpy oracle; W2, TPC-DS q98's shape on
+            TPC-H tables (30 days of lineitem joined to part, revenue by
+            brand and type, each group's share of its type by a window),
+            as a DataFrame and in SQL through run_cell (the aggregate on
+            the card as the device join stage), equal to each other, the
+            "off" run and a numpy oracle, each with a profile;
 20a. functions: SF1 lineitem filtered on l_linenumber.is_in([1, 3, 5])
             and l_orderkey % 7 != 0, eight aggregates of the device
             functions (log10, sqrt, //, abs, round, **, clip, exp) by flag
@@ -284,21 +284,23 @@ error (no phase catches its own failure):
             timestamp and of the transit by flag and status, as a
             DataFrame and in SQL: one fused region under a
             DeviceGroupedAgg, K1, K7 and at least four K3 launches, equal
-            to "off" and a numpy oracle, cold and warm (median of 3). T2,
+            to "off" and a numpy oracle, cold and warm (median of 2). T2,
             the host functions at SF1 (hour, the zone conversion to
             America/New_York, truncate to the day, total_hours), each
             timed, feeding grouped device stages held to "off" and to
             numpy (the zone's offsets from Python's zoneinfo, per hour).
             T1 file-fed: the table sorted by l_shipts written with the
             port's Parquet writer and read back, the timestamp statistics
-            pruning row groups, no upload warm. Windowed stddev / var by
-            supplier over three preceding rows in l_shipts order: var
+            pruning row groups, no upload warm. Over the first 1,500,000
+            rows: windowed stddev / var by supplier over three preceding
+            rows in l_shipts order: var
             within the f64 prefix sums' rounding bound of numpy's, stddev
             its sqrt bit for bit (both are held bit for bit against the
             JAX package by tests/test_torch_temporal.py). The surface:
             sample -> groupby (a device stage; its kept count within 6 sd
             of the binomial law, the rows it keeps held to the JAX
-            package's by tests/test_torch_temporal.py), into_batches -> q6, unpivot and pivot of the flags,
+            package's by tests/test_torch_temporal.py), into_batches -> q6,
+            and over the first 1,500,000 rows unpivot and pivot of the flags,
             count_rows and add_monotonically_increasing_id, each held to
             "off". K1, K3 and K7 held at T1's captured inputs against
             their plain versions ("at_t1_..." rows). Prints where the zone
@@ -320,14 +322,32 @@ error (no phase catches its own failure):
             list_contains, list_join, struct_get, partition_iceberg_bucket
             over N1's rows; to_json -> json_query, encode_base64, sha256
             and a gzip round trip, a Python call a value, over its first
-            100,000), host clock, median of 3, each held to a plain-Python
+            25,000), host clock, median of 3, each held to a plain-Python
             oracle on 10,000 seeded rows; explode and agg_list alone. N5:
             the build in SQL (ARRAY_AGG, LIST_AGG), the explode, N2's
             aggregate in SQL, equal to N2. K1, K2, K3 and K7 held at N2's
             captured inputs ("at_n2_..." rows);
+20e. multimodal: M1: 4,096 seeded PNG files (sides 128-512, 80 % RGB,
+            10 % L, 10 % RGBA, 1 % of no image) written by the port's
+            encoder, then from_glob_path -> url.download -> image.decode
+            (on_error="null") -> to_fixed_shape("RGB", 224, 224) -> an
+            on_device UDF over the (bucket, 224, 224, 3) uint8 tensor (64
+            f32 features) -> cosine_distance to a fixed query -> count,
+            sum, mean, min and max by channels x width bucket on the
+            grouped stage (K1, K2, K7): the UDF within rtol 1e-5 of the
+            CPU, equal to "off" and the oracle, 0 bytes uploaded warm,
+            the host split, a profile. M2: 200,000 documents, minhash(32,
+            3) equal to a numpy / hashlib oracle, the first band's int64
+            key grouped on the card (K1), its candidate pairs the
+            oracle's; tokenize_encode's lengths. M3: approx_count_distinct
+            of l_orderkey (registers and estimate the oracle's, within 2 %)
+            and approx_percentile of l_extendedprice by flag and status
+            (within alpha of the exact quantiles). The stage's kernels held
+            at the inputs M1's and M2's cold runs gave them ("at_m1_...",
+            "at_m2_..." rows);
 20b. tpcds:  the 25 queries of benchmarking/tpcds/queries.py at SF1 over
             tpcds_tables (the reference's generator in numpy), each "off",
-            then "on" cold and warm (median of 3), "on" equal to "off";
+            then "on" cold and warm (median of 2), "on" equal to "off";
             each query's stage, times, launches and run-time fallbacks;
 21. ai:     the UDF tier (daft_tpu_torch/ops/udf_stage.py) and the torch
             provider's encoder at sentence-transformers/all-MiniLM-L6-v2's
@@ -337,7 +357,7 @@ error (no phase catches its own failure):
             of 65,536 texts (8-64 words drawn Zipf-like from 50,000
             synthetic words, some null or empty) in morsels of 512 rows.
             embed (batch_size 1,024): counters from zero, the morsels
-            coalesced into fewer dispatches, cold time, warm median of 3
+            coalesced into fewer dispatches, cold time, one warm run
             with no weight bytes uploaded, rows/s, peak memory, unit-norm
             rows and null texts null, one warm run under torch.profiler
             (host tokenization against device busy time, the encoder's
@@ -369,7 +389,7 @@ Every relational cell runs at SF1: nothing is cut; the ai cells run the
 model at its published widths with its depth uncut. It imports torch,
 numpy and the port; nothing of JAX, pyarrow or daft_tpu.
 
-    python3 chip_smoke.py --phase ooc|window|obs|auto|functions|tpcds|native|temporal|nested
+    python3 chip_smoke.py --phase ooc|window|obs|auto|functions|tpcds|native|temporal|nested|multimodal
 
 runs phases 1-3, then that phase alone (ooc, obs and auto write lineitem's
 Parquet files themselves; auto alone computes each cell's "off" result and
@@ -729,8 +749,18 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+_PHASE = {"name": None, "t0": 0.0}
+
+
+def phase(name: "str | None") -> None:
+    """Start phase ``name`` (None: end the last one): the phase before it
+    prints its seconds on a line of its own."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        print(f"phase seconds: {_PHASE['name']} {now - _PHASE['t0']:.1f} s", flush=True)
+    _PHASE.update(name=name, t0=now)
+    if name is not None:
+        print(f"== {name}", flush=True)
 
 
 # ---- data ----------------------------------------------------------------------
@@ -2326,7 +2356,17 @@ def phase_profile(run, card: str, name: str = "profile", host_ops: bool = True,
     (not the host's torch ops, ``host_ops`` False: a long host run's ops
     fill the profiler's buffers), with the activities it holds printed;
     then the phase prints "not measured" in place of a busy time, and the
-    last capture's busy time as a lower bound."""
+    last capture's busy time as a lower bound. What follows the profile
+    counts to the phase it interrupted again ("... (continued)")."""
+    resume = _PHASE["name"]
+    try:
+        _profile_run(run, card, name, host_ops, **cfg)
+    finally:
+        if resume is not None:
+            phase(resume.removesuffix(" (continued)") + " (continued)")
+
+
+def _profile_run(run, card: str, name: str, host_ops: bool, **cfg) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2555,7 +2595,7 @@ KNOWN = {}
 
 def remember(label: str, host_s: float, warm, host: dict) -> None:
     KNOWN[label] = {"off_ms": host_s * 1e3, "on_ms": statistics.median(warm) * 1e3,
-                    "on_what": "warm median of 3", "want": host}
+                    "on_what": f"warm median of {len(warm)}", "want": host}
 
 
 def plan_ms(label: str, query, card: str):
@@ -2580,16 +2620,24 @@ def plan_ms(label: str, query, card: str):
 
 
 def run_cell(label: str, query, kernels, card: str, floats=(), oracle=None,
-             counter: str = "device_grouped_batches", extra_checks=None):
+             counter: str = "device_grouped_batches", extra_checks=None, host_reasons=(),
+             warm_runs: int = 2, captured=None):
     """One query cell on the card: the counters zeroed just before the cold
-    run and read just after it, then the warm runs (median of 3, counted
-    apart), peak device memory, the host path, and the checks: ``kernels``
+    run and read just after it, then ``warm_runs`` warm runs (their median,
+    counted apart), peak device memory, the host path, and the checks: ``kernels``
     launched, ``counter`` above 0, no fallback, no rejection,
     ``extra_checks(cold counters, warm counters)``, the result equal to the
-    host path and ``oracle``. Returns the cold run's launches."""
+    host path and ``oracle`` (a callable is called for it just after the
+    cold run); a rejection is allowed only for a reason in
+    ``host_reasons`` (a part of the plan the cell keeps on the host by
+    design). The warm counters carry ``hbm_h2d_bytes``, the bytes the warm
+    runs uploaded. ``captured``, a dict, receives the cold run's calls of
+    the grouped stage's kernels (``capture_kernel_calls`` over
+    GROUPED_WRAPPERS). Returns the cold run's launches."""
     import torch
 
     import daft_tpu_torch as dt
+    from daft_tpu_torch.observability.metrics import registry
     from daft_tpu_torch.ops import counters
 
     on_card = torch.cuda.is_available()
@@ -2598,24 +2646,38 @@ def run_cell(label: str, query, kernels, card: str, floats=(), oracle=None,
             torch.cuda.reset_peak_memory_stats()
         counters.reset()
         t0 = time.perf_counter()
-        got = query().to_pydict()
+        if captured is None:
+            got = query().to_pydict()
+        else:
+            out = []
+            captured.update(capture_kernel_calls(lambda: out.append(query().to_pydict()),
+                                                 GROUPED_WRAPPERS))
+            got = out[0]
         _synchronize()
         cold_s = time.perf_counter() - t0
         snap = counters.snapshot()
         rejected = dict(counters.rejections)
         launches = {k: snap[f"{CELL_KERNEL_PREFIX}{k}"] for k in counters.KERNEL_NAMES}
+        if callable(oracle):
+            oracle = oracle()
         counters.reset()
-        warm = time_s(lambda: query().to_pydict())
+        before = registry().snapshot()
+        warm = time_s(lambda: query().to_pydict(), warm_runs)
         warm_snap = counters.snapshot()
+        warm_snap["hbm_h2d_bytes"] = registry().diff(before).get("hbm_h2d_bytes", 0)
+        warm_snap["warm_runs"] = len(warm)
         peak = torch.cuda.max_memory_allocated() if on_card else 0
     print(f"{label} cold run counters: {json.dumps(snap, sort_keys=True)}")
     check(snap[counter] >= 1, f"{label}: no {counter} in the cold run")
     check(snap["device_fallbacks"] == 0, f"{label}: the stage fell back to the host")
-    check(not rejected, f"{label}: a stage was refused: {rejected}")
+    check(not set(rejected) - set(host_reasons), f"{label}: a stage was refused: {rejected}")
+    if rejected:
+        print(f"{label}: kept on the host by design: {json.dumps(rejected, sort_keys=True)}")
     for k in kernels:
         check(launches[k] > 0, f"{label}: kernel {k} was not launched")
     if extra_checks is not None:
-        print(f"{label} warm runs counters (3 runs): {json.dumps(warm_snap, sort_keys=True)}")
+        print(f"{label} warm runs counters ({len(warm)} runs): "
+              f"{json.dumps(warm_snap, sort_keys=True)}")
         extra_checks(snap, warm_snap)
     with dt.execution_config_ctx(device_mode="off"):
         t0 = time.perf_counter()
@@ -2630,7 +2692,8 @@ def run_cell(label: str, query, kernels, card: str, floats=(), oracle=None,
           + (" and the numpy oracle" if oracle is not None else ""))
     remember(label, host_s, warm, host)
     plan_ms(label, query, card)
-    print(f"{label} cold {cold_s:.3f} s; warm median {statistics.median(warm):.4f} s "
+    print(f"{label} cold {cold_s:.3f} s; warm median of {len(warm)} "
+          f"{statistics.median(warm):.4f} s "
           f"(runs {', '.join(f'{w:.4f}' for w in warm)}); host path {host_s:.3f} s; "
           f"max_memory_allocated {peak} bytes [{card}]", flush=True)
     return got, launches
@@ -3038,9 +3101,10 @@ def phase_tail(name: str, frames: dict, lineitem, orders, dims, card: str):
                   f"{name}: K4 {k} launched {snap[f'launches_{k}']} times on the cold run, "
                   "expected once (one adjacent dim)")
             check(warm[f"launches_{k}"] == 0, f"{name}: a warm run launched K4 {k}")
-        check(warm["device_fallbacks"] == 0 and warm["device_join_batches"] == 3,
+        check(warm["device_fallbacks"] == 0
+              and warm["device_join_batches"] == warm["warm_runs"],
               f"{name}: a warm run left the device join path")
-        check(warm["device_topn_runs"] == (3 if topn else 0),
+        check(warm["device_topn_runs"] == (warm["warm_runs"] if topn else 0),
               f"{name}: a warm run left the device TopN")
 
     kernels = ("hash_probe_build", "hash_probe_index")
@@ -3145,7 +3209,7 @@ def count_uploads(run) -> int:
 
 def region_counter_checks(label: str, counter: str, n_ops: int):
     def checks(snap, warm):
-        for s, runs in ((snap, 1), (warm, 3)):
+        for s, runs in ((snap, 1), (warm, warm["warm_runs"])):
             check(s["device_region_dispatches"] == s[counter] == runs,
                   f"{label}: {s['device_region_dispatches']} region dispatches for "
                   f"{s[counter]} {counter}, expected {runs}")
@@ -3155,7 +3219,7 @@ def region_counter_checks(label: str, counter: str, n_ops: int):
     return checks
 
 
-CHAIN_ROUNDS = 7  # interleaved rounds of the chain cells' warm comparison
+CHAIN_ROUNDS = 3  # interleaved rounds of the chain cells' warm comparison
 PLANS = 20        # translate() calls timed per query
 
 
@@ -3491,7 +3555,8 @@ def phase_q5(lineitem, orders, dims, card: str, sql_tables: dict):
               f"{snap['launches_hash_probe_index']} (adjacent dims: orders, supplier)")
         for k in ("hash_probe_build", "hash_probe_index"):
             check(warm[f"launches_{k}"] == 0, f"q5: a warm run launched K4 {k}")
-        check(warm["device_fallbacks"] == 0 and warm["device_join_batches"] == 3,
+        check(warm["device_fallbacks"] == 0
+              and warm["device_join_batches"] == warm["warm_runs"],
               "q5: a warm run left the device join path")
 
     got, launches = run_cell(
@@ -3612,7 +3677,7 @@ def phase_topn_order(lineitem, orders, card: str):
          "orders": dt.from_pydict({c: orders[c] for c in ("o_orderkey", "o_custkey")})}
 
     def checks(snap, warm):
-        check(snap["device_topn_runs"] == 1 and warm["device_topn_runs"] == 3,
+        check(snap["device_topn_runs"] == 1 and warm["device_topn_runs"] == warm["warm_runs"],
               "topn order SF1: a run left the device TopN")
 
     got, launches = run_cell(
@@ -4008,11 +4073,12 @@ SCAN_NUMBERS = ("scan_tasks", "scan_tasks_split", "scan_tasks_merged", "scan_bat
 
 def scan_checks(label: str, extra=None):
     """run_cell's extra checks for a file-fed cell: print the scan's own
-    numbers (cold) and the rebinding's (the three warm runs)."""
+    numbers (cold) and the rebinding's (the warm runs)."""
     def checks(snap, warm):
         print(f"{label} scan (cold): " + ", ".join(f"{k} {snap[k]:.3f}" if k.endswith("_ms")
                                                   else f"{k} {snap[k]}" for k in SCAN_NUMBERS))
-        print(f"{label} rebinding (3 warm runs): fingerprint_ms {warm['fingerprint_ms']:.3f}, "
+        print(f"{label} rebinding ({warm['warm_runs']} warm runs): fingerprint_ms "
+              f"{warm['fingerprint_ms']:.3f}, "
               f"hbm_stable_rehits {warm['hbm_stable_rehits']}, hbm_cache_misses "
               f"{warm['hbm_cache_misses']}, scan_decode_ms {warm['scan_decode_ms']:.3f}, "
               f"scan_filter_ms {warm['scan_filter_ms']:.3f}")
@@ -4025,19 +4091,25 @@ def scan_checks(label: str, extra=None):
 def scan_cell(label: str, query, kernels, want, floats, card: str, counter: str,
               extra=None, host_ops: bool = True):
     """One file-fed query on the card through run_cell (equal to its
-    in-memory cell ``want``), then a warm run's uploads (none: every plane
-    rebinds) and a profile (phase_profile's ``host_ops``), the coalescer
-    flushing by size alone (SCAN_FLUSH_MS). Returns the cold run's
-    launches."""
+    in-memory cell ``want``; one warm run, which uploads no column: every
+    plane rebinds) and a profile (phase_profile's ``host_ops``), the
+    coalescer flushing by size alone (SCAN_FLUSH_MS). Returns the cold
+    run's launches."""
     import daft_tpu_torch as dt
 
+    def warm_uploads(snap, warm):
+        # every column upload (Series.to_device) counts its bytes; a
+        # residency miss of a plane made on the card from resident ones
+        # (a probe index) uploads nothing
+        scan_checks(label, extra)(snap, warm)
+        check(warm["hbm_h2d_bytes"] == 0,
+              f"{label}: a warm run uploaded {warm['hbm_h2d_bytes']} bytes")
+        print(f"{label}: 0 column uploads on a warm run (0 bytes; "
+              f"{warm['hbm_cache_misses']} residency misses)", flush=True)
+
     with dt.execution_config_ctx(batch_latency_ms=SCAN_FLUSH_MS):
-        _got, launches = run_cell(label, query, kernels, card, floats, want, counter=counter,
-                                  extra_checks=scan_checks(label, extra))
-        with dt_ctx():
-            uploads = count_uploads(lambda: query().to_pydict())
-        print(f"{label}: {uploads} column uploads on a warm run", flush=True)
-        check(uploads == 0, f"{label}: a warm run uploaded {uploads} columns")
+        _got, launches = run_cell(label, query, kernels, card, floats, want,
+                                  counter=counter, extra_checks=warm_uploads, warm_runs=1)
         phase_profile(lambda: query().to_pydict(), card, f"{label} profile",
                       host_ops=host_ops)
     return launches
@@ -4126,7 +4198,7 @@ def phase_scan(lineitem, orders, dims, cells: dict, card: str, root: str):
     def warm_k4(label):
         def extra(snap, warm):
             print(f"{label} K4 launches: cold build {snap['launches_hash_probe_build']}, "
-                  f"probe {snap['launches_hash_probe_index']}; 3 warm runs build "
+                  f"probe {snap['launches_hash_probe_index']}; {warm['warm_runs']} warm runs build "
                   f"{warm['launches_hash_probe_build']}, probe "
                   f"{warm['launches_hash_probe_index']}")
         return extra
@@ -4225,10 +4297,12 @@ def scan_q3(pq, want: dict, card: str) -> dict:
     return launches
 
 
-# the modes a pipeline cell runs in turn: (off, on, on, off), once (twice
-# until the ooc and window phases came); file-fed q3, about 20 s a run, one
-# of each, to keep the script well inside its time limit
-PIPELINE_MODES = ("off", "on", "on", "off")
+# the modes a pipeline cell runs in turn after its untimed run: (off, on); a
+# cold cell (off, on, on, off), each mode's first run cold and its second
+# warm; file-fed q3 one of each, to keep the script well inside its time
+# limit
+PIPELINE_MODES = ("off", "on")
+PIPELINE_MODES_COLD = ("off", "on", "on", "off")  # a cold cell: each mode cold, then warm
 PIPELINE_MODES_Q3 = ("off", "on")
 DEVICE_NODE_NAMES = ("DeviceGroupedAgg", "DeviceFilterAgg", "DeviceJoinAgg", "DeviceJoinTopN")
 # the kernel wrappers the stages call, and the executor's feed of a device
@@ -4494,7 +4568,7 @@ def pipeline_cells(lineitem, orders, dirs: dict) -> list:
                                                "customer": pq("customer")}),
          "q3", ("revenue",), "device_grouped_batches", PIPELINE_MODES_Q3, False),
         ("pipeline scan q5 sql", lambda: dt.sql(TPCH_SQL[5]), "q5", ("revenue",),
-         "device_grouped_batches", PIPELINE_MODES, True),
+         "device_grouped_batches", PIPELINE_MODES_COLD, True),
         ("pipeline supplier", lambda: supplier_query(sup), "supplier", (),
          "device_grouped_batches", PIPELINE_MODES, False),
         ("pipeline q1", lambda: q1_query(q1_df), "q1", Q1_FLOATS, "device_grouped_batches",
@@ -4547,6 +4621,7 @@ def phase_pipeline(lineitem, orders, dirs: dict, cells: dict, card: str) -> dict
 AI_ROWS = 1 << 16            # texts in the ai cells (the default device_min_rows)
 AI_MORSEL_ROWS = 512         # rows a morsel of the corpus holds (the reference's ai suite)
 AI_BATCH = 1024              # batch_size: the rows of one encoder dispatch
+AI_WARM_RUNS = 1             # the embed cell's warm runs (their median)
 AI_WORDS = 50_000            # the synthetic vocabulary the texts draw from
 AI_MODEL = "minilm-l6-seeded"
 # sentence-transformers/all-MiniLM-L6-v2's published widths (FFN 4 x 384)
@@ -4802,7 +4877,7 @@ def phase_ai(lineitem, card: str, kernel_results: dict) -> dict:
         peak = torch.cuda.max_memory_allocated()
         paths["ai_embed"] = {k: snap[f"launches_{k}"] for k in counters.KERNEL_NAMES}
         counters.reset()
-        warm = time_s(lambda: ai_embed_query(df).to_pydict())
+        warm = time_s(lambda: ai_embed_query(df).to_pydict(), AI_WARM_RUNS)
         warm_snap = counters.snapshot()
     print(f"ai embed cold run counters: {json.dumps(snap, sort_keys=True)}")
     chunks = -(-AI_ROWS // AI_BATCH)
@@ -4830,7 +4905,8 @@ def phase_ai(lineitem, card: str, kernel_results: dict) -> dict:
           f"{snap['coalesce_morsels_in']} morsels into {snap['dispatch_coalesced']} coalesced "
           f"batch(es), {snap['device_udf_dispatches']} dispatches of {AI_BATCH} rows; weights "
           f"{snap['device_udf_weight_h2d_bytes']} bytes cold, "
-          f"{warm_snap['device_udf_weight_h2d_bytes']} over the 3 warm runs; unit-norm error "
+          f"{warm_snap['device_udf_weight_h2d_bytes']} over the {len(warm)} warm runs; "
+          f"unit-norm error "
           f"{norm_err:.3e}; max_memory_allocated {peak} bytes [{card}]", flush=True)
     prof = ai_profile(lambda: ai_embed_query(df).to_pydict(), emb, card)
     tokens = chunks * AI_BATCH * length  # padded positions are computed too
@@ -4977,6 +5053,7 @@ W2_FROM, W2_TO = datetime.date(1995, 1, 1), datetime.date(1995, 1, 31)  # 30 day
 W2_CAP = 4096             # W2's 25 brands x 150 types pad to this group capacity
 W1_COLUMNS = ("l_orderkey", "l_linenumber", "l_suppkey", "l_shipdate", "l_quantity",
               "l_extendedprice")
+W1_ROWS = 1_500_000       # W1 over lineitem's first rows (all 6 M until PR 24's cut)
 DEVICE_COUNTERS = ("device_grouped_batches", "device_stage_batches", "device_join_batches")
 SPILL_PRINT = ("spill_batches", "spill_bytes", "spill_wire_bytes", "spill_files", "spill_runs",
                "spill_merge_passes", "spill_merge_sort_rows", "spill_write_seconds",
@@ -5457,8 +5534,8 @@ def w2_oracle(lineitem, dims) -> dict:
 
 
 def phase_window(lineitem, dims, frames: dict, card: str) -> dict:
-    """Windows. W1 over SF1 lineitem in memory: unbudgeted and
-    under B1, where the Grace window takes 16 partitions a spec; equal as
+    """Windows. W1 over SF1 lineitem's first W1_ROWS rows in memory:
+    unbudgeted and under B1, where the Grace window takes 16 partitions a spec; equal as
     rows keyed by (l_orderkey, l_linenumber) (ranks, integers and the
     whole-number running sum exactly, the share within rtol 1e-5), and
     row_number and the running sum equal to a numpy oracle. W2 (q98's
@@ -5477,12 +5554,13 @@ def phase_window(lineitem, dims, frames: dict, card: str) -> dict:
     start = time.perf_counter()
     paths = {}
     b1 = budget_of(frames, 0.01)
-    df = w1_frame(lineitem)
+    w1 = {c: lineitem[c][:W1_ROWS] for c in W1_COLUMNS}
+    df = w1_frame(w1)
     with dt_ctx():
         t0 = time.perf_counter()
         want = w1_keyed(w1_query(df).collect()._result)
         mem_s = time.perf_counter() - t0
-    oracle = w1_oracle(lineitem)
+    oracle = w1_oracle(w1)
     check(np.array_equal(want["rn"], oracle["rn"]), "W1: row_number differs from numpy")
     check(np.array_equal(want["run_qty"], oracle["run_qty"]),
           "W1: the running l_quantity sum differs from numpy")
@@ -5510,7 +5588,7 @@ def phase_window(lineitem, dims, frames: dict, card: str) -> dict:
           "W1 under B1: the price share differs past rtol 1e-5")
     check(snap["spill_files"] >= 32, f"W1 under B1: {snap['spill_files']} spill files, not "
                                      "16 for each of its two specs")
-    print(f"W1: {len(got['rn'])} rows, {len(np.unique(lineitem['l_suppkey']))} partitions; "
+    print(f"W1: {len(got['rn'])} rows, {len(np.unique(w1['l_suppkey']))} partitions; "
           f"unbudgeted {mem_s:.3f} s, under B1 ({b1} bytes) {b1_s:.3f} s, equal, row_number "
           f"and the running sum equal to numpy; {json.dumps(spill_counts(snap), sort_keys=True)};"
           f" scope peak {scope.peak_bytes()}, ru_maxrss {rss_high_water_bytes()} [{card}]",
@@ -5662,6 +5740,7 @@ GROUP BY l_returnflag, l_linestatus ORDER BY l_returnflag, l_linestatus"""
 T2_ZONE = "America/New_York"
 T2_KERNELS = ("segment_sum_planes", "segment_extreme_int64")
 TEMPORAL_WINDOW_ROWS = 3   # the windowed stddev / var frame: 3 preceding rows
+TEMPORAL_HOST_ROWS = 1_500_000  # the window's and the plan surface's rows (6 M until PR 24)
 SAMPLE_FRACTION, SAMPLE_SEED = 0.01, 7
 INTO_BATCH_ROWS = 131072
 TEMPORAL_WRAPPERS = {"segment_sum_planes": "segment_kernels",
@@ -5907,7 +5986,8 @@ def phase_temporal(lineitem, card: str, kernel_results: dict) -> dict:
         def checks(snap, warm):
             got = snap[f"{CELL_KERNEL_PREFIX}segment_extreme_int64"]
             print(f"{label}: K3 launches {got} cold, "
-                  f"{warm[f'{CELL_KERNEL_PREFIX}segment_extreme_int64']} in 3 warm runs")
+                  f"{warm[f'{CELL_KERNEL_PREFIX}segment_extreme_int64']} in "
+                  f"{warm['warm_runs']} warm runs")
             check(got >= 4, f"{label}: K3 launched {got} times, not at least 4")
         return checks
 
@@ -5973,18 +6053,26 @@ def phase_temporal(lineitem, card: str, kernel_results: dict) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    # the host-only sweeps (the window, the plan surface) over the first
+    # TEMPORAL_HOST_ROWS rows
+    hn = min(n, TEMPORAL_HOST_ROWS)
+    h_li = {c: lineitem[c][:hn] for c in ("l_returnflag", "l_linestatus", "l_extendedprice",
+                                          "l_suppkey")}
+    h_ts = {c: v[:hn] for c, v in ts.items()}
+    hdf = temporal_frame(h_li, h_ts)
+
     # windowed stddev / var: var within the prefix sums' rounding of numpy's
     t0 = time.perf_counter()
     with dt_ctx():
-        got = temporal_window_query(df).to_pydict()
+        got = temporal_window_query(hdf).to_pydict()
     win_ms = (time.perf_counter() - t0) * 1e3
-    want = temporal_window_oracle(lineitem, ts)
+    want = temporal_window_oracle(h_li, h_ts)
     g_var, g_sd = (np.asarray(got[c], dtype=np.float64) for c in ("var", "sd"))
     err = float(np.abs(g_var - want["var"]).max())
     check(err <= want["bound"], f"windowed var differs from numpy by {err}, past the prefix "
                                 f"sums' rounding bound {want['bound']}")
     check(np.array_equal(g_sd, np.sqrt(g_var)), "windowed stddev is not sqrt(var)")
-    print(f"window stddev/var over {n} rows by supplier, 3 preceding in l_shipts order: "
+    print(f"window stddev/var over {hn} rows by supplier, 3 preceding in l_shipts order: "
           f"{win_ms:.1f} ms (host clock); var within {err:.3g} of numpy (bound "
           f"{want['bound']:.3g}: the f64 prefix sums' rounding, summed in another partition "
           f"order), stddev its sqrt bit for bit [{card}]", flush=True)
@@ -6013,14 +6101,14 @@ def phase_temporal(lineitem, card: str, kernel_results: dict) -> dict:
         "into_batches -> q6", lambda: q6_query(q6_df.into_batches(INTO_BATCH_ROWS)), (), card,
         ("revenue",), q6_oracle(lineitem), counter="device_stage_batches")
     del q6_df
-    flags = df.select("l_suppkey", "l_returnflag", "l_linestatus", "l_extendedprice")
+    flags = hdf.select("l_suppkey", "l_returnflag", "l_linestatus", "l_extendedprice")
     t0 = time.perf_counter()
     with dt_ctx():
         unp = flags.unpivot(["l_suppkey"], ["l_returnflag", "l_linestatus"]).to_pydict()
         piv = flags.pivot("l_returnflag", "l_linestatus", "l_extendedprice", "sum") \
             .sort("l_returnflag").to_pydict()
-        rows = df.where(col("l_shipts") >= lit(T1_FROM)).count_rows()
-        ids = df.into_partitions(4).add_monotonically_increasing_id().select("id") \
+        rows = hdf.where(col("l_shipts") >= lit(T1_FROM)).count_rows()
+        ids = hdf.into_partitions(4).add_monotonically_increasing_id().select("id") \
             .to_pydict()["id"]
     surface_ms = (time.perf_counter() - t0) * 1e3
     with dt.execution_config_ctx(device_mode="off"):
@@ -6029,13 +6117,13 @@ def phase_temporal(lineitem, card: str, kernel_results: dict) -> dict:
         check(same_result(piv, flags.pivot("l_returnflag", "l_linestatus", "l_extendedprice",
                                            "sum").sort("l_returnflag").to_pydict(),
                           ("F", "O")), "pivot differs from off")
-        check(rows == df.where(col("l_shipts") >= lit(T1_FROM)).count_rows(),
+        check(rows == hdf.where(col("l_shipts") >= lit(T1_FROM)).count_rows(),
               "count_rows differs from off")
-    check(len(unp["value"]) == 2 * n and unp["value"][:2] == [
+    check(len(unp["value"]) == 2 * hn and unp["value"][:2] == [
         RETURNFLAGS[lineitem["l_returnflag"][0]], LINESTATUS[lineitem["l_linestatus"][0]]],
         "unpivot: rows or values differ from numpy")
-    code = lineitem["l_returnflag"].astype(np.int64) * 2 + lineitem["l_linestatus"]
-    sums = np.bincount(code, weights=lineitem["l_extendedprice"], minlength=6)
+    code = h_li["l_returnflag"].astype(np.int64) * 2 + h_li["l_linestatus"]
+    sums = np.bincount(code, weights=h_li["l_extendedprice"], minlength=6)
     for i, f in enumerate(piv["l_returnflag"]):
         for s_i, st in enumerate(LINESTATUS):
             v = piv[st][i]
@@ -6043,16 +6131,16 @@ def phase_temporal(lineitem, card: str, kernel_results: dict) -> dict:
             check((v is None and w == 0) or abs(v - w) <= 1e-9 * abs(w),
                   f"pivot {f}/{st} differs from numpy")
     lo = int((T1_FROM - datetime.datetime(1970, 1, 1)) / datetime.timedelta(microseconds=1))
-    check(rows == int((ts["l_shipts"] >= lo).sum()), "count_rows differs from numpy")
+    check(rows == int((h_ts["l_shipts"] >= lo).sum()), "count_rows differs from numpy")
     ids = np.asarray(ids, dtype=np.uint64)
-    sizes = [n // 4 + (1 if i < n % 4 else 0) for i in range(4)]
+    sizes = [hn // 4 + (1 if i < hn % 4 else 0) for i in range(4)]
     want_ids = np.concatenate([(np.uint64(p) << np.uint64(36)) + np.arange(sz, dtype=np.uint64)
                                for p, sz in enumerate(sizes)])
     check(np.array_equal(ids, want_ids), "add_monotonically_increasing_id differs from numpy")
     print(f"surface: unpivot {len(unp['value'])} rows, pivot {len(piv['l_returnflag'])} rows, "
           f"count_rows {rows}, {len(ids)} ids over 4 partitions, each equal to off and numpy: "
           f"{surface_ms:.1f} ms (host clock) [{card}]", flush=True)
-    del unp, piv, ids
+    del unp, piv, ids, hdf
 
     temporal_kernel_cases(df, kernel_results, card)
     del df
@@ -6070,15 +6158,17 @@ NESTED_KERNELS = ("segment_sum_planes", "segment_extreme_planes", "segment_sum_f
                   "segment_extreme_int64")
 NESTED_FLOATS = ("qty", "revenue")
 NESTED_SAMPLE = 10_000        # the rows each N4 function is held to its oracle on
-NESTED_VALUE_ROWS = 100_000   # the value functions' rows (a Python call a value)
+NESTED_VALUE_ROWS = 25_000    # the value functions' rows (a Python call a value)
+NESTED_SWEEP_ROWS = 300_000   # the other N4 functions' rows (N1's first)
 NESTED_LISTS = ("l_suppkey", "l_quantity", "l_extendedprice")
 COMMENT_WORDS = ["carefully", "final", "deposits", "furiously", "ironic", "packages",
                  "quickly", "regular", "accounts", "blithely", "special", "requests",
                  "pending", "express", "silent", "theodolites"]
-NESTED_WRAPPERS = {"segment_sum_planes": "segment_kernels",
-                   "segment_extreme_planes": "segment_kernels",
-                   "segment_sum_float_planes": "segment_kernels",
-                   "segment_extreme_int64": "segment_kernels"}
+# the grouped stage's wrappers, whose calls a cold run's capture keeps
+GROUPED_WRAPPERS = {"segment_sum_planes": "segment_kernels",
+                    "segment_extreme_planes": "segment_kernels",
+                    "segment_sum_float_planes": "segment_kernels",
+                    "segment_extreme_int64": "segment_kernels"}
 N5_BUILD_SQL = """SELECT l_orderkey, ARRAY_AGG(l_suppkey) AS l_suppkey,
   LIST_AGG(l_quantity) AS l_quantity, ARRAY_AGG(l_extendedprice) AS l_extendedprice
 FROM lineitem GROUP BY l_orderkey"""
@@ -6294,10 +6384,10 @@ def murmur3_long(v: int) -> int:
 
 
 def phase_n4(n1, df, card: str) -> None:
-    """N4: each host function over N1's rows (the value functions, a Python
-    call a value, over its first NESTED_VALUE_ROWS), host clock, median of
-    3, held to its plain-Python oracle on a seeded sample; then explode and
-    agg_list alone."""
+    """N4: each host function over N1's first NESTED_SWEEP_ROWS rows (the
+    value functions, a Python call a value, over its first
+    NESTED_VALUE_ROWS), host clock, median of 3, held to its plain-Python
+    oracle on a seeded sample; then explode and agg_list alone."""
     import math
 
     import numpy as np
@@ -6308,9 +6398,10 @@ def phase_n4(n1, df, card: str) -> None:
     with dt.execution_config_ctx(device="cpu", device_mode="off"):
         rows = n1.count_rows()
         head = n1.limit(NESTED_VALUE_ROWS).collect()
+        sweep = n1.limit(NESTED_SWEEP_ROWS).collect()
         for label, e, oracle, src, value_fn in n4_functions():
-            frame = head if value_fn else n1
-            n = min(rows, NESTED_VALUE_ROWS) if value_fn else rows
+            frame = head if value_fn else sweep
+            n = min(rows, NESTED_VALUE_ROWS if value_fn else NESTED_SWEEP_ROWS)
             out = {}
 
             def run(frame=frame, e=e):
@@ -6343,18 +6434,26 @@ def phase_n4(n1, df, card: str) -> None:
 def nested_kernel_cases(n1, kernel_results: dict, card: str) -> None:
     """K1, K2, K7 and K3 at the inputs N2's cold run gave them, each held against
     its plain version, into ``kernel_results`` under "at_n2_..."."""
+    clear_residency()
+    with dt_ctx():
+        calls = capture_kernel_calls(lambda: n2_query(n1).to_pydict(), GROUPED_WRAPPERS)
+    stage_kernel_cases("n2", "N2", calls, GROUPED_WRAPPERS, kernel_results, card)
+
+
+def stage_kernel_cases(tag: str, label: str, calls: dict, required, kernel_results: dict,
+                       card: str) -> None:
+    """The grouped stage's kernels at the inputs a cold run gave them
+    (``calls``: ``capture_kernel_calls`` over GROUPED_WRAPPERS), the first
+    call of each kernel and op (the run's other batches have its shapes),
+    each held against its plain version with its times and bound, into
+    ``kernel_results`` under "at_<tag>_..."; each of ``required`` must have
+    been called. These launches fall outside every counted run."""
     import torch
 
     from daft_tpu_torch.ops import segment_kernels as sk
 
-    clear_residency()
-    with dt_ctx():
-        calls = capture_kernel_calls(lambda: n2_query(n1).to_pydict(), NESTED_WRAPPERS)
-    new = {}
-    for wrapper, seen in calls.items():
-        check(len(seen) > 0, f"N2: {wrapper} was not called")
-    # the first call of each kernel (and op): the run's other batches have
-    # its shapes
+    for wrapper in required:
+        check(len(calls[wrapper]) > 0, f"{label}: {wrapper} was not called")
     firsts = {}
     for wrapper, seen in calls.items():
         for args, out in seen:
@@ -6362,23 +6461,27 @@ def nested_kernel_cases(n1, kernel_results: dict, card: str) -> None:
                                                     "segment_extreme_int64") else None)
             firsts.setdefault(key, (args, out))
     calls = {w: [v for (k, _op), v in firsts.items() if k == w] for w in calls}
-    for i, ((planes, codes, cap), _out) in enumerate(calls["segment_sum_planes"]):
-        new[("segment_sum_planes", f"at_n2_cap{cap}_{i}")] = plane_case(sk, "sum", planes,
-                                                                        codes, cap)
-    for i, ((planes, codes, cap, op), _out) in enumerate(calls["segment_extreme_planes"]):
-        new[("segment_extreme_planes", f"at_n2_cap{cap}_{op}{i}")] = plane_case(
+    new = {}
+    for i, ((planes, codes, cap), _out) in enumerate(calls.get("segment_sum_planes", ())):
+        new[("segment_sum_planes", f"at_{tag}_cap{cap}_{i}")] = plane_case(sk, "sum", planes,
+                                                                          codes, cap)
+    for i, ((planes, codes, cap, op), _out) in enumerate(calls.get("segment_extreme_planes",
+                                                                   ())):
+        new[("segment_extreme_planes", f"at_{tag}_cap{cap}_{op}{i}")] = plane_case(
             sk, op, planes, codes, cap)
-    for i, ((planes, codes, cap), _out) in enumerate(calls["segment_sum_float_planes"]):
-        new[("segment_sum_float_planes", f"at_n2_cap{cap}_{i}")] = k7_case(
-            sk, planes, codes, cap, f"n2 cap {cap}")
-    for i, ((v, keep, codes, cap, op), _out) in enumerate(calls["segment_extreme_int64"]):
-        new[("segment_extreme_int64", f"at_n2_cap{cap}_{op}{i}")] = k3_case(sk, v, keep, codes,
-                                                                            cap, op)
-    for (kname, label), case in new.items():
-        kernel_results[kname][label] = case
-    del calls
+    for i, ((planes, codes, cap), _out) in enumerate(calls.get("segment_sum_float_planes",
+                                                               ())):
+        new[("segment_sum_float_planes", f"at_{tag}_cap{cap}_{i}")] = k7_case(
+            sk, planes, codes, cap, f"{tag} cap {cap}")
+    for i, ((v, keep, codes, cap, op), _out) in enumerate(calls.get("segment_extreme_int64",
+                                                                    ())):
+        new[("segment_extreme_int64", f"at_{tag}_cap{cap}_{op}{i}")] = k3_case(
+            sk, v, keep, codes, cap, op)
+    for (kname, case_label), case in new.items():
+        kernel_results[kname][case_label] = case
+    del calls, firsts
     torch.cuda.empty_cache()
-    print_cases({f"{k} {label}": case for (k, label), case in new.items()}, card)
+    print_cases({f"{k} {case_label}": case for (k, case_label), case in new.items()}, card)
 
 
 def phase_nested(lineitem, card: str, kernel_results: dict) -> dict:
@@ -6482,6 +6585,7 @@ def phase_nested(lineitem, card: str, kernel_results: dict) -> dict:
 # ---- tpcds: the reference's 25 TPC-DS queries at SF1 -----------------------------
 
 TPCDS_SF = 1.0
+TPCDS_WARM_RUNS = 1  # each query's warm runs (their median)
 TPCDS_SEED = 0
 TPCDS_CATEGORIES = ["Books", "Children", "Electronics", "Home", "Jewelry", "Men", "Music",
                     "Shoes", "Sports", "Women"]
@@ -6766,7 +6870,7 @@ def phase_tpcds(tables: dict, card: str) -> dict:
     """The 25 TPC-DS queries of benchmarking/tpcds/queries.py over
     ``tpcds_tables``: each under device_mode="off" (the host path), then
     under "on" cold (residency cleared, the counters zeroed just before and
-    read just after) and warm (median of 3). "on" must equal "off"
+    read just after) and warm (median of TPCDS_WARM_RUNS). "on" must equal "off"
     (integers and strings exactly, floats within rtol 1e-5), and each cold
     run must ride its stage, fall back and launch as ``tpcds_check_run``
     holds it. Prints each query's stage, times, launches and run-time
@@ -6806,7 +6910,7 @@ def phase_tpcds(tables: dict, card: str) -> dict:
             reasons = sorted(r for r, n in dict(counters.rejections).items()
                              if "device fallback: " in r for _ in range(n))
             stage = tpcds_stage(snap)
-            warm = time_s(lambda: q(frames).to_pydict())
+            warm = time_s(lambda: q(frames).to_pydict(), TPCDS_WARM_RUNS)
         check(same_result(got, want, float_columns(want)),
               f"tpcds q{qn}: the \"on\" run differs from the \"off\" run")
         launches = {k: snap[f"{CELL_KERNEL_PREFIX}{k}"] for k in counters.KERNEL_NAMES}
@@ -7398,7 +7502,8 @@ def auto_ai_embed(df, out_on: dict, cpu_head: dict, card: str, on_ms=None) -> di
     off_err = err(got["e"][:256], cpu_head["e"])
     check(on_err <= 1e-5 and off_err <= 1e-5,
           f"auto ai embed: {on_err} from the card's run, {off_err} from the CPU's")
-    on = "not measured in this call" if on_ms is None else f"{on_ms:.1f} ms (warm median of 3)"
+    on = "not measured in this call" if on_ms is None \
+        else f"{on_ms:.1f} ms (warm median of {AI_WARM_RUNS})"
     print(f"auto ai embed: warm {ms:.1f} ms; on {on}; off not measured (the first 256 rows "
           f"on the CPU: within {off_err:.3e}); within {on_err:.3e} of the card's run; "
           f"device_udf_dispatches {snap['device_udf_dispatches']} [{card}]", flush=True)
@@ -7439,6 +7544,7 @@ def auto_runs(lineitem, orders) -> dict:
 # ---- native: the host kernel library against its plain versions ------------------
 
 NATIVE_RUNS = ("library", "plain", "library", "plain")  # in turns; each way's second is warm
+NATIVE_RUNS_SHORT = ("library", "plain")  # the full script's short native phase
 NATIVE_LAYER_RUNS = 3  # host-clock runs per layer timing (the median printed)
 NATIVE_MASK_DENSITIES = (0.01, 0.5, 0.98)  # kept rows of the selection-vector timing
 NATIVE_TPCDS = (65, 51)
@@ -7487,7 +7593,7 @@ def native_summary() -> dict:
             "calls": {name: calls.get(name, 0) for name in native.EXPORTS}}
 
 
-def native_cell(label: str, run, card: str, **cfg) -> dict:
+def native_cell(label: str, run, card: str, runs=NATIVE_RUNS, **cfg) -> dict:
     """``run()`` on the host (device_mode="off", ``cfg`` added) with the
     library and with DAFT_TPU_DISABLE_NATIVE set, in turns (library, plain,
     library, plain): every result equal to the first, the plain runs
@@ -7498,7 +7604,7 @@ def native_cell(label: str, run, card: str, **cfg) -> dict:
     from daft_tpu_torch import native
 
     first, times, calls = None, {"library": [], "plain": []}, {}
-    for way in NATIVE_RUNS:
+    for way in runs:
         with native_switch(way == "plain"), dt_ctx(), \
                 dt.execution_config_ctx(device_mode="off", **cfg):
             before = native.calls()
@@ -7515,8 +7621,9 @@ def native_cell(label: str, run, card: str, **cfg) -> dict:
             first = got
         else:
             check(got == first, f"native {label}: the {way} run differs from the first")
-    lib, plain = times["library"][1], times["plain"][1]
-    print(f"native {label}: warm library {lib:.1f} ms, plain {plain:.1f} ms "
+    lib, plain = times["library"][-1], times["plain"][-1]
+    print(f"native {label}: {'warm' if len(runs) > 2 else 'one run each:'} library "
+          f"{lib:.1f} ms, plain {plain:.1f} ms "
           f"({plain / lib:.2f}x); first {times['library'][0]:.1f} / {times['plain'][0]:.1f} ms; "
           f"calls {json.dumps(calls, sort_keys=True)} [{card}]", flush=True)
     return {"library_ms": lib, "plain_ms": plain}
@@ -7637,7 +7744,8 @@ def phase_native(lineitem, orders, dims, card: str, full: bool = False) -> None:
     cells["q3"] = lambda: q3_query(tails).to_pydict()
     for label in ("supplier", "q1", "q3", "q12", "partkey"):
         if full or label != "q1":
-            native_cell(label, cells[label], card)
+            native_cell(label, cells[label], card,
+                        runs=NATIVE_RUNS if full else NATIVE_RUNS_SHORT)
     del cells, tails
     if full:
         root = tempfile.mkdtemp(prefix="daft_tpu_torch_native_")
@@ -7682,6 +7790,539 @@ def phase_native(lineitem, orders, dims, card: str, full: bool = False) -> None:
     print(f"native phase {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
 
+# ---- multimodal: images from files through a device UDF into the grouped stage ------
+
+MM_SEED = SEED
+MM_IMAGES = 4096           # M1's images
+MM_SIDES = (128, 512)      # each side drawn in [128, 512]: downscales and upscales to 224
+MM_SIZE = 224              # to_fixed_shape("RGB", 224, 224)
+MM_EMBED = 64              # the device UDF's output width
+MM_BATCH = 512             # the device UDF's batch_size (rows a dispatch)
+MM_BAD = 0.01              # the share of files replaced by bytes of no image
+MM_CHECK_ROWS = 256        # the UDF's rows held to the same function on the CPU
+MM_WARM_RUNS = 1           # M1's warm runs (their median)
+MM_PNG_LEVEL = 1           # the zlib level the seeded files are written at
+MM_KERNELS = ("segment_sum_planes", "segment_extreme_planes", "segment_sum_float_planes")
+MM_FLOATS = ("s", "m", "lo", "hi")
+# the image functions and the distance stay on the host: the fused region
+# refuses their nested operands, and the grouped stage reads their outputs
+MM_HOST_REASONS = ("region: nested operand stays on the host",)
+MM_DOCS = 200_000          # M2's documents
+MM_VOCAB = 5_000           # their vocabulary
+MM_DOC_WORDS = (8, 40)     # words a document
+MM_EDITS = 0.10            # the share that are one-word edits of another document
+MM_HASHES, MM_NGRAM, MM_BAND = 32, 3, 4
+M3_PERCENTILES = (0.5, 0.9, 0.99)
+M3_ALPHA = 0.01
+
+
+def mm_write_images(root: str, seed: int = MM_SEED) -> dict:
+    """MM_IMAGES PNG files written by the port's encoder (at zlib level
+    MM_PNG_LEVEL) into ``root``: sides
+    drawn in MM_SIDES, 80 % RGB, 10 % L, 10 % RGBA, smooth gradients plus
+    noise; MM_BAD of them replaced by bytes of no image. Returns the
+    oracle's view: {"paths", "channels", "widths", "bad", "bytes"}."""
+    import numpy as np
+
+    from daft_tpu_torch.core.kernels import png
+
+    n = MM_IMAGES
+    rng = np.random.default_rng(seed)
+    hs = rng.integers(MM_SIDES[0], MM_SIDES[1] + 1, n)
+    ws = rng.integers(MM_SIDES[0], MM_SIDES[1] + 1, n)
+    u = rng.random(n)
+    channels = np.where(u < 0.8, 3, np.where(u < 0.9, 1, 4))
+    bad = np.zeros(n, dtype=bool)
+    bad[rng.choice(n, int(round(n * MM_BAD)), replace=False)] = True
+    paths = [os.path.join(root, f"img_{i:05d}.png") for i in range(n)]
+
+    def one(i):
+        r = np.random.default_rng([seed, i])
+        if bad[i]:
+            data = b"not an image " + r.integers(0, 256, 4096, dtype=np.uint8).tobytes()
+        else:
+            h, w, c = int(hs[i]), int(ws[i]), int(channels[i])
+            grad = (np.arange(h, dtype=np.float32)[:, None, None] * r.uniform(-0.4, 0.4, c)
+                    + np.arange(w, dtype=np.float32)[None, :, None] * r.uniform(-0.4, 0.4, c)
+                    + r.uniform(40, 215, c))
+            img = np.clip(grad + r.integers(-6, 7, (h, w, c)), 0, 255).astype(np.uint8)
+            data = png.encode_png(img, level=MM_PNG_LEVEL)
+        with open(paths[i], "wb") as f:
+            f.write(data)
+        return len(data)
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        sizes = list(pool.map(one, range(n)))
+    return {"paths": paths, "channels": channels, "widths": ws, "bad": bad,
+            "bytes": int(sum(sizes))}
+
+
+def mm_projection(seed: int = MM_SEED):
+    """The UDF's fixed seeded projection of a 7 x 7 pooled thumbnail's 147
+    values to MM_EMBED - 3 features, and the fixed query vector."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, 7])
+    w = (rng.standard_normal((147, MM_EMBED - 3)) / np.sqrt(147)).astype(np.float32)
+    q = rng.standard_normal(MM_EMBED)
+    return w, q
+
+
+def mm_embed_fn(params, x):
+    """The device UDF: (rows, 224, 224, 3) uint8 to MM_EMBED f32 features,
+    the channel means and a projection of a 7 x 7 pooled thumbnail, in plain
+    torch ops."""
+    import torch
+
+    f = x.to(torch.float32) * (1.0 / 255.0)
+    means = f.mean(dim=(1, 2))
+    thumb = torch.nn.functional.adaptive_avg_pool2d(f.permute(0, 3, 1, 2), 7) \
+        .reshape(f.shape[0], -1)
+    return torch.cat([means, thumb @ params["w"]], dim=1)
+
+
+def mm_embed_func():
+    import daft_tpu_torch as dt
+
+    w, _q = mm_projection()
+    return dt.func(mm_embed_fn, on_device=True, batch_size=MM_BATCH,
+                   return_dtype=dt.DataType.embedding(dt.DataType.float32(), MM_EMBED),
+                   device_params=lambda: {"w": w}, device_key="chip_smoke_mm_embed:v1")
+
+
+def m1_frame(root: str, embed, upto: str = "agg"):
+    """M1's chain over the files in ``root``: from_glob_path, url.download,
+    image.decode(on_error="null"), to_fixed_shape("RGB", 224, 224), the
+    device UDF, embedding.cosine_distance to the fixed query, and the key
+    (channels x 16 + width // 64); with ``upto="agg"`` the groupby's count,
+    sum, mean, min and max of the distance."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col
+
+    _w, q = mm_projection()
+    df = dt.from_glob_path(os.path.join(root, "*.png"))
+    df = df.with_column("img", col("path").url.download().image.decode(on_error="null"))
+    df = df.with_column("fx", col("img").image.to_fixed_shape("RGB", MM_SIZE, MM_SIZE))
+    df = df.with_column("e", embed(col("fx")))
+    df = df.with_column("dist", col("e").embedding.cosine_distance(dt.lit(q)))
+    df = df.with_column("key", col("img").image_channel().cast(dt.DataType.int64()) * 16
+                        + (col("img").image_width().cast(dt.DataType.int64()) // 64))
+    if upto != "agg":
+        return df.select("path", "key", "e", "dist")
+    d = col("dist")
+    return df.groupby("key").agg(d.count().alias("n"), d.sum().alias("s"),
+                                 d.mean().alias("m"), d.min().alias("lo"),
+                                 d.max().alias("hi")).sort("key")
+
+
+def m1_oracle(meta: dict, dist) -> dict:
+    """The grouped result in numpy from the generation's metadata (keys,
+    counts) and per-file distances ``dist`` (the null key last)."""
+    import numpy as np
+
+    ok = ~meta["bad"]
+    key = meta["channels"].astype(np.int64) * 16 + meta["widths"].astype(np.int64) // 64
+    out = {"key": [], "n": [], "s": [], "m": [], "lo": [], "hi": []}
+    for k in sorted(set(key[ok].tolist())):
+        sel = ok & (key == k)
+        v = dist[sel]
+        out["key"].append(k)
+        out["n"].append(int(sel.sum()))
+        out["s"].append(float(v.sum()))
+        out["m"].append(float(v.mean()))
+        out["lo"].append(float(v.min()))
+        out["hi"].append(float(v.max()))
+    if (~ok).any():
+        for c, v in (("key", None), ("n", 0), ("s", None), ("m", None), ("lo", None),
+                     ("hi", None)):
+            out[c].append(v)
+    return out
+
+
+def mm_time(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def phase_m1(root: str, card: str, kernel_results: dict) -> dict:
+    """M1: images from files into the card (see ``phase_multimodal``)."""
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.core.kernels import image as imk
+    from daft_tpu_torch.functions import get_function
+    from daft_tpu_torch.ops import counters
+    from daft_tpu_torch.plan import physical as pp
+
+    t0 = time.perf_counter()
+    meta = mm_write_images(root)
+    print(f"M1 data: {MM_IMAGES} PNG files ({int(meta['bad'].sum())} of no image), "
+          f"{meta['bytes']} bytes, written in {time.perf_counter() - t0:.2f} s by the port's "
+          f"encoder", flush=True)
+    embed = mm_embed_func()
+    with dt_ctx():
+        plan = pp.translate(m1_frame(root, embed).optimized_plan())
+    names = []
+    node = plan
+    while node is not None:
+        names.append(type(node).__name__)
+        node = getattr(node, "input", None)
+    check("DeviceGroupedAgg" in names, f"M1: no DeviceGroupedAgg in the plan {names}")
+    check(any("Udf" in n for n in names), f"M1: no device UDF stage in the plan {names}")
+    print(f"M1 plan: {' <- '.join(names)}", flush=True)
+
+    # M1's cold run, its host steps timed as they run (the host split), its
+    # UDF output and distances captured: the UDF against the same function
+    # on the CPU, the distances against numpy, and the numpy oracle's
+    # per-group values from them, made before the warm runs
+    from daft_tpu_torch.ops import udf_stage
+
+    clear_residency()
+    split, seen = {}, {"e": [], "dist": []}
+
+    def timed(label, fn, keep=None):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                split[label] = split.get(label, 0.0) + time.perf_counter() - t0
+            if keep is not None:
+                seen[keep].append(out)
+            return out
+        return wrapped
+
+    dl_spec, dist_spec = get_function("url_download"), get_function("cosine_distance")
+    real = (dl_spec.host, dist_spec.host, imk.decode, imk.to_fixed_shape,
+            udf_stage.DeviceUdfRun.feed_batch, udf_stage.DeviceUdfRun.finalize)
+    udf_label = "udf (cold: fingerprint, upload, dispatch, copy back)"
+    dl_spec.host = timed("download", real[0])
+    dist_spec.host = timed("cosine_distance", real[1], "dist")
+    imk.decode = timed("decode", real[2])
+    imk.to_fixed_shape = timed("to_fixed_shape (convert + resize)", real[3])
+    udf_stage.DeviceUdfRun.feed_batch = timed(udf_label, real[4])
+    udf_stage.DeviceUdfRun.finalize = timed(udf_label, real[5], "e")
+
+    def restore():
+        (dl_spec.host, dist_spec.host, imk.decode, imk.to_fixed_shape,
+         udf_stage.DeviceUdfRun.feed_batch, udf_stage.DeviceUdfRun.finalize) = real
+
+    def cold_oracle():
+        restore()
+        e = np.concatenate([out for out, _valid in seen["e"]]).astype(np.float32)
+        valid = np.concatenate([v for _out, v in seen["e"]])
+        check(np.array_equal(valid, ~meta["bad"]), "M1: the null rows are not the files of "
+                                                   "no image")
+        paths = dt.Series.from_pylist(meta["paths"][:MM_CHECK_ROWS], "path")
+        fx = imk.to_fixed_shape(imk.decode(real[0]([paths], {}), on_error="null"), "RGB",
+                                MM_SIZE, MM_SIZE)
+        w, q = mm_projection()
+        with torch.inference_mode():
+            cpu = mm_embed_fn({"w": torch.from_numpy(w)},
+                              torch.from_numpy(fx.to_numpy())).numpy()
+        live = valid[:MM_CHECK_ROWS]
+        err = float(np.abs(cpu[live] - e[:MM_CHECK_ROWS][live]).max())
+        check(np.allclose(e[:MM_CHECK_ROWS][live], cpu[live], rtol=1e-5, atol=1e-6),
+              f"M1: the UDF on the card differs from the CPU (max abs err {err:.3g})")
+        print(f"M1: the UDF's {int(live.sum())} first valid rows equal the CPU's within "
+              f"rtol 1e-5 (max abs err {err:.3g})", flush=True)
+        d = dt.Series.concat(seen["dist"])
+        dist = np.where(d.validity_numpy(), d.to_numpy(), np.nan)
+        with np.errstate(invalid="ignore"):
+            want = 1.0 - (e.astype(np.float64) @ q) / (
+                np.linalg.norm(e.astype(np.float64), axis=1) * np.linalg.norm(q))
+        check(np.array_equal(~np.isnan(dist), valid)
+              and np.allclose(dist[valid], want[valid], rtol=1e-12),
+              "M1: cosine_distance differs from numpy's")
+        print("M1 host split of the cold run (s): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split.items()) + f" [{card}]", flush=True)
+        holder["dist"] = dist
+        return m1_oracle(meta, dist)
+
+    def no_warm_uploads(cold, warm):
+        check(warm["hbm_cache_misses"] == 0 and warm["hbm_h2d_bytes"] == 0
+              and warm["device_udf_weight_h2d_bytes"] == 0,
+              f"M1: the warm runs uploaded {warm['hbm_h2d_bytes']} bytes "
+              f"({warm['hbm_cache_misses']} residency misses)")
+        print(f"M1: the warm runs upload {warm['hbm_h2d_bytes']} bytes, "
+              f"{warm['hbm_cache_misses']} residency misses, "
+              f"{warm['hbm_stable_rehits']} planes rebound by their fingerprint", flush=True)
+
+    holder, calls = {}, {}
+    try:
+        got, launches = run_cell("M1", lambda: m1_frame(root, embed), MM_KERNELS, card,
+                                 MM_FLOATS, cold_oracle, extra_checks=no_warm_uploads,
+                                 host_reasons=MM_HOST_REASONS, warm_runs=MM_WARM_RUNS,
+                                 captured=calls)
+    finally:
+        restore()
+    oracle = m1_oracle(meta, holder["dist"])
+    check(got["key"] == oracle["key"] and got["n"] == oracle["n"],
+          "M1: keys and counts differ from the oracle")
+    stage_kernel_cases("m1", "M1", calls, MM_KERNELS, kernel_results, card)
+    del calls
+
+    # the stage alone, warm, over the distances already computed
+    flat = dt.from_pydict({"key": [None if k < 0 else int(k) for k in
+                                   (np.where(meta["bad"], -1, meta["channels"] * 16
+                                             + meta["widths"] // 64)).tolist()],
+                           "dist": holder["dist"]})
+    with dt_ctx():
+        stage = lambda: flat.groupby("key").agg(dt.col("dist").sum()).to_pydict()  # noqa: E731
+        stage()
+        print(f"M1 stage alone (warm): {mm_time(stage):.4f} s [{card}]", flush=True)
+    del flat
+    phase_profile(lambda: m1_frame(root, embed).to_pydict(), card, "M1 profile",
+                  host_ops=False)
+    counters.reset()
+    return {"multimodal_m1": launches}
+
+
+def m2_corpus(seed: int = MM_SEED):
+    """MM_DOCS documents of MM_DOC_WORDS words from a seeded MM_VOCAB-word
+    vocabulary; MM_EDITS of them a one-word edit of an earlier document.
+    Returns (texts, the (copy, source) pairs)."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, 2])
+    vocab = np.array([f"w{i:04d}{chr(97 + i % 26)}" for i in range(MM_VOCAB)], dtype=object)
+    lens = rng.integers(MM_DOC_WORDS[0], MM_DOC_WORDS[1] + 1, MM_DOCS)
+    words = rng.integers(0, MM_VOCAB, int(lens.sum()))
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    docs = [words[offs[i]:offs[i + 1]] for i in range(MM_DOCS)]
+    copies = np.flatnonzero(rng.random(MM_DOCS) < MM_EDITS)
+    copies = copies[copies > 0]
+    pairs = []
+    for i in copies.tolist():
+        src = int(rng.integers(0, i))
+        d = docs[src].copy()
+        d[int(rng.integers(0, len(d)))] = int(rng.integers(0, MM_VOCAB))
+        docs[i] = d
+        pairs.append((i, src))
+    return [" ".join(vocab[d].tolist()) for d in docs], pairs
+
+
+def m2_signatures_oracle(texts):
+    """The minhash signatures in numpy and hashlib, written out apart from
+    the port: numpy's default_rng(1) permutations, BLAKE2b-8 of each word
+    3-gram, (a x + b) mod 2^61 - 1 masked to 32 bits, each row's minimum."""
+    import hashlib
+
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    a = rng.integers(1, 1 << 32, size=MM_HASHES, dtype=np.uint64)
+    b = rng.integers(0, 1 << 32, size=MM_HASHES, dtype=np.uint64)
+    p, mask = np.uint64((1 << 61) - 1), np.uint64(0xFFFFFFFF)
+    counts, digests = [], []
+    for t in texts:  # every document has at least MM_NGRAM words
+        w = t.split()
+        grams = [" ".join(w[j:j + MM_NGRAM]) for j in range(len(w) - MM_NGRAM + 1)]
+        counts.append(len(grams))
+        digests += [hashlib.blake2b(g.encode(), digest_size=8).digest() for g in grams]
+    x = np.frombuffer(b"".join(digests), dtype=np.uint64)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    out = np.empty((len(texts), MM_HASHES), dtype=np.uint64)
+    for j in range(MM_HASHES):  # one permutation at a time over every 3-gram
+        with np.errstate(over="ignore"):
+            h = ((x * a[j] + b[j]) % p) & mask
+        out[:, j] = np.minimum.reduceat(h, starts)
+    return out
+
+
+def m2_band_oracle(sig):
+    """The first band's int64 key: splitmix64 chained over its 4 hashes,
+    shifted right by one."""
+    import numpy as np
+
+    h = splitmix64_np(sig[:, 0].copy())
+    for j in range(1, MM_BAND):
+        h = splitmix64_np(h ^ sig[:, j])
+    return (h >> np.uint64(1)).astype(np.int64)
+
+
+def phase_m2(card: str, kernel_results: dict) -> dict:
+    """M2: near-duplicate text (see ``phase_multimodal``)."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col
+
+    t0 = time.perf_counter()
+    texts, pairs = m2_corpus()
+    print(f"M2 data: {MM_DOCS} documents, {len(pairs)} one-word edits, built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    docs = dt.from_pydict({"t": texts})
+    with dt.execution_config_ctx(device="cpu", device_mode="off"):
+        t0 = time.perf_counter()
+        sig = docs.select(col("t").minhash(num_hashes=MM_HASHES, ngram_size=MM_NGRAM)
+                          .alias("sig")).collect()
+        minhash_s = time.perf_counter() - t0
+        h = col("sig").list.get(0).hash()
+        for j in range(1, MM_BAND):
+            h = h._fn("bitwise_xor", col("sig").list.get(j)).hash()
+        t0 = time.perf_counter()
+        bands = sig.select(h._fn("shift_right", dt.lit(np.uint64(1)))
+                           .cast(dt.DataType.int64())
+                           .alias("band")).collect()
+        band_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tok = docs.select(col("t").tokenize_encode("bytes").list.length().alias("n")).sum("n") \
+            .to_pydict()
+        tok_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_sig = m2_signatures_oracle(texts)
+    oracle_s = time.perf_counter() - t0
+    got_sig = sig.to_pydict()["sig"]
+    got_sig = np.stack(got_sig) if isinstance(got_sig[0], np.ndarray) else np.array(got_sig,
+                                                                                    np.uint64)
+    check(np.array_equal(got_sig.astype(np.uint64), want_sig),
+          "M2: the minhash signatures differ from the oracle")
+    want_band = m2_band_oracle(want_sig)
+    got_band = np.asarray(bands.to_pydict()["band"], dtype=np.int64)
+    check(np.array_equal(got_band, want_band), "M2: the band keys differ from the oracle")
+    want_tok = sum(len(t.encode("utf-8")) for t in texts)
+    check(tok["n"] == [want_tok], f"M2: tokenize_encode's lengths sum to {tok['n']}, not "
+                                  f"{want_tok}")
+    print(f"M2 host (s): minhash {minhash_s:.3f} (32 hashes, 3-grams), band key {band_s:.3f}, "
+          f"tokenize_encode + list_length {tok_s:.3f}; the numpy/hashlib oracle "
+          f"{oracle_s:.3f}; signatures and bands equal the oracle bit for bit [{card}]",
+          flush=True)
+    keys, counts = np.unique(want_band, return_counts=True)
+    order = np.argsort(keys)
+    oracle = {"band": keys[order].tolist(), "n": counts[order].astype(np.int64).tolist()}
+    calls = {}
+    got, launches = run_cell("M2 band", lambda: bands.groupby("band").agg(
+        col("band").count().alias("n")).sort("band"), ("segment_sum_planes",), card, (),
+        oracle, captured=calls)
+    stage_kernel_cases("m2", "M2", calls, ("segment_sum_planes",), kernel_results, card)
+    del calls
+    dup = {k for k, c in zip(got["band"], got["n"]) if c > 1}
+    cand = sum(c * (c - 1) // 2 for c in got["n"])
+    want_cand = int((counts * (counts - 1) // 2).sum())
+    check(cand == want_cand, f"M2: {cand} candidate pairs, the oracle {want_cand}")
+    caught = sum(1 for i, j in pairs if want_band[i] == want_band[j] and want_band[i] in dup)
+    print(f"M2: {len(got['band'])} bands, {len(dup)} shared, {cand} candidate pairs (the "
+          f"oracle's); {caught} of the {len(pairs)} planted edits share their first band "
+          f"[{card}]", flush=True)
+    return {"multimodal_m2": launches}
+
+
+def phase_m3(lineitem, card: str) -> None:
+    """M3: sketches at SF1 (see ``phase_multimodal``)."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col
+    from daft_tpu_torch.core.kernels import sketches
+
+    df = dt.from_pydict({c: lineitem[c] for c in ("l_orderkey", "l_extendedprice",
+                                                  "l_returnflag", "l_linestatus")})
+    with dt.execution_config_ctx(device="cpu", device_mode="off"):
+        t0 = time.perf_counter()
+        est = df.agg(col("l_orderkey").approx_count_distinct().alias("n")).to_pydict()["n"][0]
+        hll_s = time.perf_counter() - t0
+        regs = sketches.hll_registers(dt.Series.from_numpy(lineitem["l_orderkey"]))
+    # the oracle: the registers bit by bit, as the reference shifts them
+    h = splitmix64_np(np.asarray(lineitem["l_orderkey"], dtype=np.int64).view(np.uint64))
+    idx = (h >> np.uint64(50)).astype(np.int64)
+    rest = (h << np.uint64(14)) | np.uint64((1 << 14) - 1)
+    lz = np.zeros(len(rest), dtype=np.uint8)
+    alive = np.ones(len(rest), dtype=bool)
+    for _ in range(51):
+        top0 = alive & ((rest & np.uint64(1 << 63)) == 0)
+        lz[top0] += 1
+        alive = top0
+        if not alive.any():
+            break
+        rest = rest << np.uint64(1)
+    want_regs = np.zeros(1 << 14, dtype=np.uint8)
+    np.maximum.at(want_regs, idx, lz + 1)
+    check(np.array_equal(regs, want_regs), "M3: the HLL registers differ from the oracle")
+    m = float(1 << 14)
+    e = 0.7213 / (1.0 + 1.079 / m) * m * m / np.power(2.0, -want_regs.astype(np.float64)).sum()
+    zeros = int((want_regs == 0).sum())
+    if e <= 2.5 * m and zeros:  # the small-range correction
+        e = m * np.log(m / zeros)
+    want_est = int(round(e))
+    exact = len(np.unique(lineitem["l_orderkey"]))
+    check(est == want_est, f"M3: the estimate {est} is not the oracle's {want_est}")
+    check(abs(est - exact) <= 0.02 * exact, f"M3: the estimate {est} is not within 2 % of "
+                                            f"{exact}")
+    print(f"M3 approx_count_distinct(l_orderkey): {est} (exact {exact}, error "
+          f"{(est - exact) / exact:+.4%}); registers and estimate equal the oracle; "
+          f"{hll_s:.3f} s host [{card}]", flush=True)
+    with dt.execution_config_ctx(device="cpu", device_mode="off"):
+        t0 = time.perf_counter()
+        got = df.groupby("l_returnflag", "l_linestatus").agg(
+            col("l_extendedprice").approx_percentile(*M3_PERCENTILES).alias("p")) \
+            .sort(["l_returnflag", "l_linestatus"]).to_pydict()
+        pct_s = time.perf_counter() - t0
+    flags = np.asarray(lineitem["l_returnflag"], dtype=object)
+    status = np.asarray(lineitem["l_linestatus"], dtype=object)
+    price = np.asarray(lineitem["l_extendedprice"], dtype=np.float64)
+    worst = 0.0
+    for f, s, ps in zip(got["l_returnflag"], got["l_linestatus"], got["p"]):
+        v = np.sort(price[(flags == f) & (status == s)])
+        for q, est_q in zip(M3_PERCENTILES, ps):
+            x = v[int(np.floor(q * (len(v) - 1)))]
+            rel = abs(est_q - x) / abs(x)
+            worst = max(worst, rel)
+            check(rel <= M3_ALPHA + 1e-12, f"M3: percentile {q} of ({f}, {s}) is {est_q}, "
+                                           f"{rel:.4%} from the exact {x}")
+    print(f"M3 approx_percentile(l_extendedprice, {list(M3_PERCENTILES)}) by (l_returnflag, "
+          f"l_linestatus): {len(got['p'])} groups, worst relative error {worst:.5f} (alpha "
+          f"{M3_ALPHA}); {pct_s:.3f} s host [{card}]", flush=True)
+
+
+def phase_multimodal(lineitem, card: str, kernel_results: dict) -> dict:
+    """Images, text sketches and the approximate aggregates (items 7d, 7e):
+
+    - M1: MM_IMAGES seeded PNG files written by the port's encoder (1 % of
+      no image) through from_glob_path, url.download, image.decode
+      (on_error="null"), to_fixed_shape("RGB", 224, 224), an on_device UDF
+      over the (bucket, 224, 224, 3) uint8 tensor (MM_EMBED f32 features),
+      embedding.cosine_distance to a fixed query, and a groupby of channels
+      x width bucket with count, sum, mean, min and max of the distance on
+      the grouped stage. The UDF's output equals the CPU's within rtol
+      1e-5, the result "off" and the oracle (keys and counts bit for bit),
+      and a warm run uploads 0 bytes. The host split and one profiled run.
+    - M2: MM_DOCS documents, minhash(32, 3) on the host equal to a numpy /
+      hashlib oracle bit for bit, the first band's int64 key, and
+      groupby(band).count() on the grouped stage (K1): its candidate pairs
+      the oracle's; tokenize_encode("bytes") -> list.length summed.
+    - M3: approx_count_distinct(l_orderkey) at SF1, its registers and
+      estimate the oracle's and within 2 % of 1,500,000; approx_percentile
+      of l_extendedprice at 0.5, 0.9, 0.99 by flag and status within alpha
+      of the exact quantiles.
+
+    The grouped stage's kernels at the inputs M1's and M2's cold runs gave
+    them, each held against its plain version, go into ``kernel_results``
+    under "at_m1_..." and "at_m2_...". Returns {path: the cold run's
+    launches}."""
+    phase("multimodal")
+    start = time.perf_counter()
+    clear_residency()
+    paths = {}
+    root = tempfile.mkdtemp(prefix="daft_tpu_torch_mm_")
+    try:
+        paths.update(phase_m1(root, card, kernel_results))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    clear_residency()
+    phase("multimodal M2")
+    paths.update(phase_m2(card, kernel_results))
+    phase("multimodal M3")
+    phase_m3(lineitem, card)
+    clear_residency()
+    print(f"multimodal phase {time.perf_counter() - start:.1f} s [{card}]", flush=True)
+    return paths
+
+
 def phase_alone(name: str, lineitem, orders, dims, card: str, kernel_results: dict) -> dict:
     """``--phase ooc``, ``window``, ``obs``, ``auto``, ``functions``,
     ``tpcds``, ``native``, ``temporal`` or ``nested`` after the kernels phase: the scan phase's tables in memory
@@ -7699,6 +8340,8 @@ def phase_alone(name: str, lineitem, orders, dims, card: str, kernel_results: di
         return phase_temporal(lineitem, card, kernel_results)
     if name == "nested":
         return phase_nested(lineitem, card, kernel_results)
+    if name == "multimodal":
+        return phase_multimodal(lineitem, card, kernel_results)
     frames = scan_tables(lineitem, orders, dims)
     if name == "window":
         return phase_window(lineitem, dims, frames, card)
@@ -7748,7 +8391,8 @@ def main(argv=None) -> int:
                              "kernels against their plain versions, with their times "
                              "(no main path runs, so no launches are counted)")
     parser.add_argument("--phase", choices=("ooc", "window", "obs", "auto", "functions",
-                                            "tpcds", "native", "temporal", "nested"),
+                                            "tpcds", "native", "temporal", "nested",
+                                            "multimodal"),
                         help="run the card, build, data and kernels phases, then this phase "
                              "alone: ooc (TPC-H under a host memory budget, the external "
                              "sort, the Grace joins), window (W1, W2), obs (EXPLAIN "
@@ -7767,7 +8411,11 @@ def main(argv=None) -> int:
                              "surface, K1, K3 and K7 at T1's inputs) or nested (lists, "
                              "structs and maps at SF1: N1 built on the host, N2 exploded "
                              "into the grouped stage, N3 through Parquet, N4's host "
-                             "functions, N5 in SQL, K1, K2, K3 and K7 at N2's inputs)")
+                             "functions, N5 in SQL, K1, K2, K3 and K7 at N2's inputs) or "
+                             "multimodal (M1: PNG files decoded, resized and fed to a "
+                             "device UDF, its distances into the grouped stage; M2: minhash "
+                             "bands into the grouped stage; M3: the sketch aggregates at "
+                             "SF1)")
     parser.add_argument("--root", default=HERE,
                         help="the checkout whose daft_tpu_torch is driven (default: the "
                              "one beside this script), e.g. an unpacked parent commit to "
@@ -7874,11 +8522,13 @@ def main(argv=None) -> int:
             paths.update(phase_functions(lineitem, card))
             paths.update(phase_temporal(lineitem, card, kernel_results))
             paths.update(phase_nested(lineitem, card, kernel_results))
+            paths.update(phase_multimodal(lineitem, card, kernel_results))
             tables = tpcds_tables()
             paths.update(phase_tpcds(tables, card))
             tpcds_kernel_cases(tables, kernel_results, card)
             del tables
             paths.update(phase_ai(lineitem, card, kernel_results))
+        phase(None)
     except SmokeFailure as exc:
         print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)
         return 1

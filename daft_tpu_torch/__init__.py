@@ -23,6 +23,15 @@ Files (io/, no pyarrow): ``df.write_parquet(dir)``, ``dt.read_parquet(dir)``,
 ``df.write_csv(dir)``, ``dt.read_csv(dir)``; SQL resolves unbound table
 names through ``dt.current_session()``.
 
+Images and files (core/kernels/image.py, png.py, functions/multimodal.py,
+filetype.py): ``dt.from_files("dir/*.png")`` or ``dt.from_glob_path`` then
+``col("path").url.download()``, ``.image.decode()``,
+``.image.to_fixed_shape("RGB", 224, 224)`` (a dense column a device UDF
+takes as one (rows, 224, 224, 3) uint8 tensor), ``.embedding
+.cosine_distance(...)``; ``minhash``, ``tokenize_encode``, audio metadata
+(functions/media.py) and the sketches ``approx_count_distinct`` /
+``approx_percentile``.
+
 UDFs (udf/): ``@dt.func``, ``@dt.cls`` with ``@dt.method``, the legacy
 ``@dt.udf``; ``on_device=True`` puts one on the device-UDF tier
 (ops/udf_stage.py). Text embedding and classification on the card:
@@ -37,7 +46,7 @@ from .core.micropartition import MicroPartition
 from .core.recordbatch import RecordBatch
 from .core.series import Series
 from .dataframe.dataframe import DataFrame, GroupedDataFrame, read_csv, read_parquet
-from .datatype import DataType, Field, TimeUnit
+from .datatype import DataType, Field, ImageMode, TimeUnit
 from .expressions.expressions import Expression, col, lit
 from .interop import from_numpy_columns
 from .plan import logical as _lp
@@ -59,6 +68,28 @@ def from_pydict(data) -> DataFrame:
     return DataFrame(_lp.InMemorySource(part.schema, [part]))
 
 
+def from_glob_path(path) -> DataFrame:
+    """A DataFrame of the files a glob, a directory or a list names: path,
+    size, num_rows (api.py:187-190)."""
+    from .dataframe.dataframe import from_scan
+    from .io.glob_files import GlobPathScanOperator
+
+    return from_scan(GlobPathScanOperator(path))
+
+
+def file(path_expr, io_config=None) -> Expression:
+    """A lazy File column from path or URL strings (api.py:224-231)."""
+    from .dataframe.dataframe import _to_expr
+
+    return _to_expr(path_expr)._fn("file", io_config=io_config)
+
+
+def from_files(path, io_config=None) -> DataFrame:
+    """``from_glob_path`` with a lazy ``file`` column of each path
+    (api.py:234-243): path, size, num_rows, file."""
+    return from_glob_path(path).with_columns({"file": file(col("path"), io_config=io_config)})
+
+
 def from_pylist(rows) -> DataFrame:
     """A DataFrame from a list of dicts (the columns of the first row's keys,
     in order; a missing key is null)."""
@@ -68,9 +99,10 @@ def from_pylist(rows) -> DataFrame:
 
 __all__ = [
     "DataFrame", "DataType", "ExecutionConfig", "Expression", "Field", "Func",
-    "GroupedDataFrame", "MicroPartition", "RecordBatch", "Schema", "Series", "Session",
-    "cls", "col", "current_session", "execution_config", "execution_config_ctx",
-    "from_numpy_columns", "from_pydict", "from_pylist", "func", "lit", "method",
+    "GroupedDataFrame", "ImageMode", "MicroPartition", "RecordBatch", "Schema", "Series",
+    "Session", "cls", "col", "current_session", "execution_config", "execution_config_ctx",
+    "file", "from_files", "from_glob_path", "from_numpy_columns", "from_pydict",
+    "from_pylist", "func", "lit", "method",
     "read_csv", "read_parquet", "set_execution_config", "sql", "sql_expr", "TimeUnit",
     "udf", "Window",
 ]

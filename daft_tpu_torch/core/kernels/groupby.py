@@ -17,6 +17,7 @@ aggregate a batch by key expressions, or to one row.
 
 from __future__ import annotations
 
+import itertools
 from typing import Tuple
 
 import numpy as np
@@ -60,11 +61,28 @@ def equality_codes(series) -> np.ndarray:
     if numeric:
         kept_codes = native.native_factorize(kept)[0]
     else:
-        kept_codes = np.unique(kept, return_inverse=True)[1].astype(np.int64).reshape(-1)
+        kept_codes = _object_ranks(kept)
     if all_valid:
         return kept_codes
     codes[valid] = kept_codes
     return codes
+
+
+def _object_ranks(values: np.ndarray) -> np.ndarray:
+    """Each str or bytes value's rank among the sorted distinct values (what
+    ``np.unique(values, return_inverse=True)`` gives), from one dict pass
+    in C (``map`` of ``dict.setdefault``: each value's first row) and a
+    sort of the distinct values alone, not of every row."""
+    first: dict = {}
+    rows = np.fromiter(map(first.setdefault, values, itertools.count()), dtype=np.int64,
+                       count=len(values))
+    distinct = list(first)
+    order = sorted(range(len(distinct)), key=distinct.__getitem__)
+    rank = np.empty(len(distinct), dtype=np.int64)
+    rank[order] = np.arange(len(distinct), dtype=np.int64)
+    by_row = np.empty(len(values), dtype=np.int64)
+    by_row[np.fromiter(first.values(), dtype=np.int64, count=len(distinct))] = rank
+    return by_row[rows]
 
 
 def make_groups(key_series: list) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -386,10 +404,22 @@ def _agg_columns(batch, aggs, group_ids: np.ndarray, g: int, ungrouped: bool = F
             out.append(nested_reduce(inner.op, s, group_ids, g, inner.params, ungrouped,
                                      out_dt).rename(e.name()))
             continue
+        if inner.op == "approx_percentile":
+            out.append(_approx_percentile(s, group_ids, g, inner.params, out_dt)
+                       .rename(e.name()))
+            continue
+        if inner.op == "approx_count_distinct" and ungrouped:
+            # HyperLogLog over the whole column (series.py:893-896); grouped,
+            # the reference counts each group's distinct values exactly
+            from .sketches import hll_count_distinct
+
+            out.append(Series.from_pylist([hll_count_distinct(s)], e.name(), out_dt))
+            continue
         values, validity = s.to_numpy(), s.validity_numpy()
-        if inner.op == "count_distinct":
+        op = "count_distinct" if inner.op == "approx_count_distinct" else inner.op
+        if op == "count_distinct":
             values = equality_codes(s)
-        vals, valid = grouped_reduce(inner.op, values, validity, group_ids, g,
+        vals, valid = grouped_reduce(op, values, validity, group_ids, g,
                                      inner.params.get("mode", "valid"), inner.params)
         if ungrouped and inner.op in ("stddev", "var", "skew"):
             v, ok = ungrouped_moment(inner.op, values[validity].astype(np.float64),
@@ -403,6 +433,30 @@ def _agg_columns(batch, aggs, group_ids: np.ndarray, g: int, ungrouped: bool = F
         out.append(Series.from_numpy(vals.astype(out_dt.to_numpy()), e.name(),
                                      dtype=out_dt, validity=valid))
     return out
+
+
+def _approx_percentile(s, group_ids: np.ndarray, g: int, params, out_dt: DataType):
+    """Each group's DDSketch percentile(s) of its valid values
+    (relational.py:332-348, series.py:898-907): a float64 (null for no
+    values), or for several percentiles a list of them (each None for no
+    values)."""
+    from ..series import Series
+    from .sketches import ddsketch_percentiles
+
+    ps = params["percentiles"]
+    alpha = params.get("alpha", 0.01)
+    single = not isinstance(ps, list)
+    plist = [ps] if single else list(ps)
+    valid = s.validity_numpy()
+    vals = s.to_numpy()[valid].astype(np.float64)
+    order, counts = _group_order(group_ids[valid], g)
+    vals = vals[order]
+    bounds = np.concatenate([[0], np.cumsum(counts)]).tolist()
+    rows = []
+    for k in range(g):
+        qs = ddsketch_percentiles(vals[bounds[k]:bounds[k + 1]], plist, alpha)
+        rows.append(qs[0] if single else qs)
+    return Series.from_pylist(rows, s.name, out_dt)
 
 
 def ungrouped_agg(batch, aggs):
@@ -451,7 +505,7 @@ def agg_output_dtype(op: str, child: DataType) -> DataType:
         raise ValueError(f"cannot sum dtype {child}")
     if op in ("mean", "stddev", "var", "skew"):
         return DataType.float64()
-    if op in ("count", "count_distinct"):
+    if op in ("count", "count_distinct", "approx_count_distinct"):
         return DataType.uint64()
     if op in ("min", "max", "any_value"):
         return child

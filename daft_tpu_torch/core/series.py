@@ -14,9 +14,14 @@ rows; a struct one child Series per field; a map a list of a struct of
 numbers are rounded to it as Arrow stores them. Slicing, taking and
 concatenating move offsets and children, never Python lists; the
 object-array-of-lists input (an encoder's output, ``from_numpy``) stays a
-constructor. A ``python`` column holds any objects. Nested, binary and
-``python`` columns are host only. Device storage is a (values, validity)
-pair of torch tensors made by ``to_device`` / ``to_device_cached``.
+constructor. A ``python`` column holds any objects. A multimodal logical
+column (an embedding, an image, a tensor, a file) holds the layout of its
+storage type (``DataType.storage``). Nested, binary and ``python`` columns
+are host only, but for the fixed-shape kinds (a fixed-size list, an
+embedding, a fixed-shape tensor or image), whose ``to_numpy`` is the dense
+(rows, *shape) array and whose device planes are too. Device storage is a
+(values, validity) pair of torch tensors made by ``to_device`` /
+``to_device_cached``.
 """
 
 from __future__ import annotations
@@ -310,18 +315,29 @@ class Series:
     @classmethod
     def _nested_from_pylist(cls, data: list, name: str, dtype: DataType,
                             validity: np.ndarray) -> "Series":
-        kind = dtype.kind
+        sdt = dtype.storage
+        kind = sdt.kind
         n = len(data)
         if kind == "struct":
             children = []
-            for fname, fdt in dtype.struct_fields:
+            for fname, fdt in sdt.struct_fields:
                 col = [None if v is None else (v.get(fname) if isinstance(v, dict)
                                                else getattr(v, fname, None))
                        for v in data]
                 children.append(cls.from_pylist(col, fname, fdt))
             return cls.nested(name, dtype, None, children, validity)
         if kind == "fixed_size_list":
-            size = dtype.size
+            size = sdt.size
+            if any(isinstance(v, np.ndarray) for v in data) and all(
+                    v is None or isinstance(v, np.ndarray) for v in data):
+                # rows of numpy arrays (to_pylist of a fixed-shape kind)
+                dense = np.zeros((n, size), dtype=sdt.inner.to_numpy())
+                for i, v in enumerate(data):
+                    if v is not None:
+                        if v.size != size:
+                            raise ValueError(f"a row of {v.size} values in a {dtype} column")
+                        dense[i] = v.reshape(-1)
+                return cls._dense_fixed(name, dtype, dense, validity)
             flat: list = []
             for v in data:
                 if v is None:
@@ -330,20 +346,31 @@ class Series:
                 if len(v) != size:
                     raise ValueError(f"a row of {len(v)} values in a {dtype} column")
                 flat.extend(v)
-            return cls.nested(name, dtype, None, [cls.from_pylist(flat, "item", dtype.inner)],
+            return cls.nested(name, dtype, None, [cls.from_pylist(flat, "item", sdt.inner)],
                               validity)
         rows = [None if v is None else (_map_pairs(v) if kind == "map" else v) for v in data]
         lens = np.fromiter((0 if v is None else len(v) for v in rows), dtype=np.int64, count=n)
         flat = [x for v in rows if v is not None for x in v]
         if kind == "map":
-            key_dt, val_dt = dtype.params
-            child = cls.nested("entries", dtype.map_entry, None,
+            key_dt, val_dt = sdt.params
+            child = cls.nested("entries", sdt.map_entry, None,
                                [cls.from_pylist([p[0] for p in flat], "key", key_dt),
                                 cls.from_pylist([p[1] for p in flat], "value", val_dt)],
                                np.ones(len(flat), dtype=bool))
         else:
-            child = cls.from_pylist(flat, "item", dtype.inner)
+            child = cls.from_pylist(flat, "item", sdt.inner)
         return cls.nested(name, dtype, _lengths_to_offsets(lens), [child], validity)
+
+    @classmethod
+    def _dense_fixed(cls, name: str, dtype: DataType, dense: np.ndarray,
+                     validity: np.ndarray) -> "Series":
+        """A fixed-shape column of ``dtype`` from its dense (rows, size)
+        values in the element type (null rows hold their values as given)."""
+        sdt = dtype.storage
+        flat = np.ascontiguousarray(dense).reshape(-1)
+        child = cls("item", sdt.inner, flat if flat.dtype == sdt.inner.to_numpy()
+                    else flat.astype(sdt.inner.to_numpy()), np.ones(len(flat), dtype=bool))
+        return cls.nested(name, dtype, None, [child], validity)
 
     @classmethod
     def from_numpy(cls, arr, name: str = "series", dtype: Optional[DataType] = None,
@@ -354,16 +381,37 @@ class Series:
         unit a timestamp, a timedelta64 a duration (NaT is null); ``dtype``
         converts them to its unit."""
         arr = np.asarray(arr)
-        if arr.ndim == 2 and arr.dtype != object:
-            # a fixed-size-list column (the reference's from_numpy, series.py:75-82)
+        if arr.ndim >= 2 and arr.dtype != object:
+            # a fixed-size-list column (the reference's from_numpy, series.py:75-82),
+            # or, given a fixed-shape dtype, an (n, *shape) array of its rows
+            n = len(arr)
+            flat2 = arr.reshape(n, -1)
             inner = DataType.from_numpy(arr.dtype)
-            dtype = dtype or DataType.fixed_size_list(inner, arr.shape[1])
-            child = cls.from_numpy(arr.reshape(-1), "item", inner)
-            out = cls.nested(name, DataType.fixed_size_list(inner, arr.shape[1]), None,
-                             [child], np.ones(len(arr), dtype=bool))
-            return out.cast(dtype)
+            valid = np.ones(n, dtype=bool) if validity is None \
+                else np.asarray(validity, dtype=bool)
+            if dtype is not None and dtype.is_fixed_shape():
+                if flat2.shape[1] != dtype.storage.size:
+                    raise ValueError(f"rows of shape {arr.shape[1:]} for a {dtype} column")
+                if inner == dtype.storage.inner:
+                    return cls._dense_fixed(name, dtype, flat2, valid)
+            out = cls._dense_fixed(name, DataType.fixed_size_list(inner, flat2.shape[1]),
+                                   flat2, valid)
+            return out.cast(dtype) if dtype is not None else out
         if arr.ndim != 1:
             raise ValueError(f"expected a 1-d array, got shape {arr.shape}")
+        if arr.dtype.kind == "O" and (dtype is None or dtype.is_string()) and len(arr):
+            # a column of str (and None): the values as they are, without a
+            # per-value Python pass to infer and convert them
+            kinds = set(map(type, arr))
+            if kinds <= {str, type(None)} and str in kinds:
+                valid = np.ones(len(arr), dtype=bool) if type(None) not in kinds else \
+                    np.fromiter((v is not None for v in arr), dtype=bool, count=len(arr))
+                if validity is not None:
+                    valid &= np.asarray(validity, dtype=bool)
+                values = arr.copy()
+                if not valid.all():
+                    values[~valid] = None
+                return cls(name, DataType.string(), values, valid)
         if arr.dtype.kind in ("O", "U"):
             data = arr.tolist()
             if validity is not None:
@@ -435,15 +483,17 @@ class Series:
     def list_lengths(self) -> np.ndarray:
         """Each row's element count (0 for a null row) of a list or a map."""
         lay = self.layout
-        if self._dtype.kind == "fixed_size_list":
-            return np.where(self._validity, self._dtype.size, 0).astype(np.int64)
+        sdt = self._dtype.storage
+        if sdt.kind == "fixed_size_list":
+            return np.where(self._validity, sdt.size, 0).astype(np.int64)
         return np.diff(lay.offsets)
 
     def list_offsets(self) -> np.ndarray:
         """Offsets of a list, a fixed-size list or a map (n + 1, from 0)."""
         lay = self.layout
-        if self._dtype.kind == "fixed_size_list":
-            return np.arange(len(self) + 1, dtype=np.int64) * self._dtype.size
+        sdt = self._dtype.storage
+        if sdt.kind == "fixed_size_list":
+            return np.arange(len(self) + 1, dtype=np.int64) * sdt.size
         return lay.offsets
 
     def list_child(self) -> "Series":
@@ -452,7 +502,8 @@ class Series:
 
     def struct_field(self, name: str) -> "Series":
         """One field of a struct column, null where the struct row is."""
-        for (fname, _fdt), child in zip(self._dtype.struct_fields, self.layout.children):
+        for (fname, _fdt), child in zip(self._dtype.storage.struct_fields,
+                                        self.layout.children):
             if fname == name:
                 if self._validity.all():
                     return child.rename(name)
@@ -488,11 +539,39 @@ class Series:
     # ---- conversion ---------------------------------------------------------------
     def to_numpy(self) -> np.ndarray:
         """Dense values; null slots hold 0 / NaN / None (see validity_numpy).
-        A nested column gives an object array of its rows as Python
-        values (``to_pylist``)."""
+        A fixed-size list, an embedding, a fixed-shape tensor or image gives
+        the dense (rows, *shape) array of its element type, 0 under a null
+        row or element (series.py:153-185); any other nested column an
+        object array of its rows as Python values (``to_pylist``)."""
         if isinstance(self._values, NestedLayout):
+            if self._has_dense():
+                return self._dense()
             return _object_array(self.to_pylist())
         return self._values
+
+    def _has_dense(self) -> bool:
+        """A fixed-shape column of flat elements (not a fixed-size list of
+        lists)."""
+        return self._dtype.is_fixed_shape() and not self._values.children[0].is_nested
+
+    def _is_dense_plane(self) -> bool:
+        """A fixed-shape column of numbers: one dense plane on the device,
+        fingerprinted by its bytes."""
+        return self._has_dense() and self._dtype.storage.inner.is_device_compatible()
+
+    def _dense(self) -> np.ndarray:
+        """The (rows, *shape) values of a fixed-shape column."""
+        dt = self._dtype
+        child = self._values.children[0]
+        flat = child._values
+        if flat.dtype != object:  # zero under a null element, or a null row's floats
+            if not child._validity.all():
+                flat = np.where(child._validity, flat, flat.dtype.type(0))
+            elif dt.storage.inner.is_floating() and not self._validity.all():
+                flat = np.where(np.repeat(self._validity, dt.storage.size), flat,
+                                flat.dtype.type(0))
+        flat = flat.astype(dt.element_numpy, copy=False)
+        return flat.reshape((len(self),) + tuple(dt.dense_shape))
 
     def validity_numpy(self) -> np.ndarray:
         return self._validity
@@ -520,6 +599,7 @@ class Series:
             return 8 * n + sum(map(len, self._values[self._validity].tolist())) + nulls
         if kind == "fixed_size_binary":
             return self._dtype.size * n + nulls
+        kind = self._dtype.storage.kind
         if kind in ("list", "map"):
             return 8 * n + self.list_child().size_bytes() + nulls
         if kind in ("fixed_size_list", "struct"):
@@ -543,6 +623,10 @@ class Series:
     def to_pylist(self) -> list:
         valid = self._validity
         kind = self._dtype.kind
+        if kind in ("embedding", "fixed_shape_tensor", "fixed_shape_image"):
+            # one numpy array per row (series.py:147-150)
+            dense = self._dense()
+            return [dense[i] if ok else None for i, ok in enumerate(valid.tolist())]
         if isinstance(self._values, NestedLayout):
             return self._nested_pylist()
         if kind == "date":
@@ -559,11 +643,11 @@ class Series:
                 for v, ok in zip(self._values.tolist(), valid.tolist())]
 
     def _nested_pylist(self) -> list:
-        kind = self._dtype.kind
+        kind = self._dtype.storage.kind
         valid = self._validity.tolist()
         lay = self._values
         if kind == "struct":
-            names = [n for n, _t in self._dtype.struct_fields]
+            names = [n for n, _t in self._dtype.storage.struct_fields]
             cols = [c.to_pylist() for c in lay.children]
             rows = zip(*cols) if cols else ([()] * len(valid))
             return [dict(zip(names, r)) if ok else None for r, ok in zip(rows, valid)]
@@ -583,8 +667,11 @@ class Series:
         bytes count in the registry's ``hbm_h2d_bytes``."""
         import torch
 
-        values = self._values
-        target = self._dtype.to_torch()
+        if self.is_nested and not self._is_dense_plane():
+            raise ValueError(f"a {self._dtype} column has no device plane")
+        values = self._dense() if self.is_nested else self._values
+        target = (self._dtype.storage.inner if self._dtype.kind == "fixed_size_list"
+                  else self._dtype).to_torch()
         if f32 and target == torch.float64:
             target = torch.float32
         np_target = torch.empty(0, dtype=target).numpy().dtype
@@ -593,7 +680,8 @@ class Series:
         validity = self._validity
         if pad_to is not None and pad_to > len(self):
             pad = pad_to - len(self)
-            values = np.concatenate([values, np.zeros(pad, dtype=values.dtype)])
+            values = np.concatenate([values, np.zeros((pad,) + values.shape[1:],
+                                                      dtype=values.dtype)])
             validity = np.concatenate([validity, np.zeros(pad, dtype=bool)])
         from ..observability.metrics import registry
 
@@ -630,7 +718,8 @@ class Series:
         the time spent counts in ``fingerprint_ms``."""
         if self._content_fp is not None:
             return self._content_fp
-        if self._dtype.is_nested() or self._dtype.is_binary() or self._dtype.kind == "python":
+        if (self.is_nested and not self._is_dense_plane()) or self._dtype.is_binary() \
+                or self._dtype.kind == "python":
             raise TypeError(f"a {self._dtype} column has no content fingerprint")
         import time
 
@@ -667,9 +756,14 @@ class Series:
                     a, b = ab
                     return _sha256(*piece(a, b), valid[a:b])
             else:
-                width = 0 if self._dtype.is_null() else self._values.dtype.itemsize
-                values = np.ascontiguousarray(self._values).view(np.uint8) if width \
-                    else np.zeros(0, dtype=np.uint8)
+                if self.is_nested:  # a fixed-shape kind: its dense rows' bytes
+                    dense = np.ascontiguousarray(self._dense()).reshape(n, -1)
+                    width = dense.shape[1] * dense.itemsize
+                    values = dense.view(np.uint8).reshape(-1)
+                else:
+                    width = 0 if self._dtype.is_null() else self._values.dtype.itemsize
+                    values = np.ascontiguousarray(self._values).view(np.uint8) if width \
+                        else np.zeros(0, dtype=np.uint8)
 
                 def digest(ab):
                     a, b = ab
@@ -813,14 +907,27 @@ class Series:
         miss = idx < 0
         safe = np.where(miss, 0, idx) if len(self) else np.zeros(len(idx), dtype=np.int64)
         valid = (self._validity[safe] & ~miss) if len(self) else np.zeros(len(idx), bool)
-        kind = self._dtype.kind
+        sdt = self._dtype.storage
+        kind = sdt.kind
         lay = self._values
         if kind == "struct":
             kids = [c._nested_take(idx) if c.is_nested else c.take_or_null(idx)
                     for c in lay.children]
             return Series.nested(self._name, self._dtype, None, kids, valid)
+        if kind == "fixed_size_list" and not lay.children[0].is_nested and len(self):
+            # gather whole rows of the (n, size) child: a null row's elements
+            # null, holding the element type's null fill
+            size = sdt.size
+            child = lay.children[0]
+            vals = child._values.reshape(len(self), size)[safe]
+            cval = child._validity.reshape(len(self), size)[safe] & valid[:, None]
+            if not valid.all():
+                fill = _null_fill(sdt.inner)
+                vals[~valid] = None if vals.dtype == object else vals.dtype.type(fill)
+            kid = Series(child.name, child.dtype, vals.reshape(-1), cval.reshape(-1))
+            return Series.nested(self._name, self._dtype, None, [kid], valid)
         if kind == "fixed_size_list":
-            size = self._dtype.size
+            size = sdt.size
             rows = np.where(valid, safe, -1)
             cidx = (rows[:, None] * size + np.arange(size)).reshape(-1) if size else \
                 np.zeros(0, dtype=np.int64)
@@ -841,14 +948,15 @@ class Series:
 
     def _nested_slice(self, start: int, end: int) -> "Series":
         end = max(start, end)
-        kind = self._dtype.kind
+        sdt = self._dtype.storage
+        kind = sdt.kind
         lay = self._values
         valid = self._validity[start:end]
         if kind == "struct":
             kids = [c.slice(start, end) for c in lay.children]
             return Series.nested(self._name, self._dtype, None, kids, valid)
         if kind == "fixed_size_list":
-            size = self._dtype.size
+            size = sdt.size
             return Series.nested(self._name, self._dtype, None,
                                  [lay.children[0].slice(start * size, end * size)], valid)
         o = lay.offsets[start:end + 1]
@@ -858,11 +966,12 @@ class Series:
     @classmethod
     def _nested_concat(cls, parts: List["Series"]) -> "Series":
         first = parts[0]
-        kind = first._dtype.kind
+        sdt = first._dtype.storage
+        kind = sdt.kind
         valid = np.concatenate([p._validity for p in parts])
         if kind == "struct":
             kids = [cls.concat([p._values.children[k] for p in parts])
-                    for k in range(len(first._dtype.struct_fields))]
+                    for k in range(len(sdt.struct_fields))]
             return cls.nested(first._name, first._dtype, None, kids, valid)
         child = cls.concat([p._values.children[0] for p in parts])
         if kind == "fixed_size_list":
@@ -924,10 +1033,25 @@ class Series:
         return Series(self._name, dtype, values, self._validity)
 
 
+    def as_storage(self) -> "Series":
+        """A logical column as its storage type (the same layout); any other
+        column as it is."""
+        if not self._dtype.is_logical():
+            return self
+        return Series(self._name, self._dtype.storage, self._values, self._validity)
+
     def _nested_cast(self, dtype: DataType) -> "Series":
         """Arrow's casts between nested types: a list's elements to another
         element type, a list to a fixed-size list of its length and back, a
-        struct field by field, a map's keys and values."""
+        struct field by field, a map's keys and values. A logical type casts
+        as its storage type does (the reference's Arrow cast of its
+        storage), then takes the logical type."""
+        if self._dtype.is_logical() or dtype.is_logical():
+            if not (self.is_nested and dtype.is_nested()):
+                raise ValueError(f"Unsupported cast from {self._dtype} to {dtype}")
+            st = self.as_storage()
+            st = st if st.dtype == dtype.storage else st._nested_cast(dtype.storage)
+            return Series(self._name, dtype, st._values, st._validity)
         src, kind = self._dtype, dtype.kind
         if not (self.is_nested and dtype.is_nested()):
             raise ValueError(f"Unsupported cast from {src} to {dtype}")

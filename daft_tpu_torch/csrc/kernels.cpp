@@ -5,7 +5,8 @@
 // ctypes (daft_tpu_torch/native.py), which drops the GIL for the call.
 //
 // The same exports, arguments and results as the reference's
-// native/src/kernels.cpp, kept as the port's own source. Built at first use
+// native/src/kernels.cpp, kept as the port's own source, and one export of
+// the port's own: png_unfilter (the PNG codec, core/kernels/png.py). Built at first use
 // by ops/_build.py ``host_library`` with the host compiler (``$CXX``, else
 // ``c++``) into ops/_kbuild/.
 //
@@ -588,6 +589,57 @@ void bucket_scatter(const int64_t* codes, int64_t n, int64_t num_codes,
   for (int64_t i = 0; i < n; i++) {
     if (codes[i] >= 0) rows[cursor[codes[i]]++] = i;
   }
+}
+
+// PNG row unfiltering (the port's own: the reference leaves PNG to PIL).
+// raw holds h rows of 1 filter byte + stride bytes; out receives h x stride
+// bytes. bpp is the bytes of one whole pixel (1 below 8 bits a pixel).
+// Returns 0, or -(row + 1) at a row whose filter byte is not 0-4.
+int64_t png_unfilter(const uint8_t* raw, int64_t h, int64_t stride, int64_t bpp,
+                     uint8_t* out) {
+  for (int64_t y = 0; y < h; y++) {
+    const uint8_t* in = raw + y * (stride + 1);
+    const uint8_t ft = in[0];
+    in++;
+    uint8_t* cur = out + y * stride;
+    const uint8_t* prev = y ? cur - stride : nullptr;
+    switch (ft) {
+      case 0:
+        std::memcpy(cur, in, (size_t)stride);
+        break;
+      case 1:
+        for (int64_t i = 0; i < stride; i++)
+          cur[i] = (uint8_t)(in[i] + (i >= bpp ? cur[i - bpp] : 0));
+        break;
+      case 2:
+        for (int64_t i = 0; i < stride; i++)
+          cur[i] = (uint8_t)(in[i] + (prev ? prev[i] : 0));
+        break;
+      case 3:
+        for (int64_t i = 0; i < stride; i++) {
+          const int a = i >= bpp ? cur[i - bpp] : 0;
+          const int b = prev ? prev[i] : 0;
+          cur[i] = (uint8_t)(in[i] + ((a + b) >> 1));
+        }
+        break;
+      case 4:
+        for (int64_t i = 0; i < stride; i++) {
+          const int a = i >= bpp ? cur[i - bpp] : 0;
+          const int b = prev ? prev[i] : 0;
+          const int c = (i >= bpp && prev) ? prev[i - bpp] : 0;
+          const int p = a + b - c;
+          const int pa = p > a ? p - a : a - p;
+          const int pb = p > b ? p - b : b - p;
+          const int pc = p > c ? p - c : c - p;
+          const int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+          cur[i] = (uint8_t)(in[i] + pred);
+        }
+        break;
+      default:
+        return -(y + 1);
+    }
+  }
+  return 0;
 }
 
 }  // extern "C"

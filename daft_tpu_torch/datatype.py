@@ -1,15 +1,23 @@
 """Logical data types (counterpart of daft_tpu/datatype.py, the integer, float,
 bool, string, binary and temporal kinds, the nested kinds (lists, fixed-size
-lists, structs, maps; datatype.py:153-199, 334-381), and ``python`` for
-arbitrary objects).
+lists, structs, maps; datatype.py:153-199, 334-381), the multimodal logical
+kinds (embedding, image, fixed-shape image, tensor, fixed-shape tensor,
+sparse tensor, file; datatype.py:197-236, with ``ImageMode``, :37-70), and
+``python`` for arbitrary objects).
 
 The port keeps host columns in numpy, not Arrow: ``to_numpy`` is the host
 storage dtype (dates are int32 days since the epoch; timestamps, durations
 and times int64 ticks of their unit, core/temporal.py; strings and binary
 are object arrays; a nested column keeps Arrow's layout of offsets and
 child columns, core/series.py) and ``to_torch`` the device dtype (the
-counterpart of ``to_jax``, datatype.py:394-409). No binary or nested type
-is device-compatible.
+counterpart of ``to_jax``, datatype.py:394-409). A logical kind is stored
+as its Arrow storage type (datatype.py:498-530; ``storage``): an image a
+struct of its bytes, mode, height, width and channels, a fixed-shape image,
+an embedding and a fixed-shape tensor a fixed-size list, a tensor and a
+sparse tensor their structs, a file a struct of its path and bytes. Of the
+binary and nested types only the embedding, the fixed-shape tensor and the
+fixed-shape image are device-compatible (a fixed-size list of numbers, too,
+goes to the device as one dense (rows, *shape) plane).
 """
 
 from __future__ import annotations
@@ -35,6 +43,41 @@ class TimeUnit:
         return unit
 
 
+class ImageMode:
+    """Image modes (counterpart of daft_tpu/datatype.py:37-70): channels and
+    the numpy element type of each."""
+
+    L = "L"
+    LA = "LA"
+    RGB = "RGB"
+    RGBA = "RGBA"
+    L16 = "L16"
+    LA16 = "LA16"
+    RGB16 = "RGB16"
+    RGBA16 = "RGBA16"
+    RGB32F = "RGB32F"
+    RGBA32F = "RGBA32F"
+
+    _CHANNELS = {
+        "L": 1, "LA": 2, "RGB": 3, "RGBA": 4,
+        "L16": 1, "LA16": 2, "RGB16": 3, "RGBA16": 4,
+        "RGB32F": 3, "RGBA32F": 4,
+    }
+    _NP_DTYPE = {
+        "L": np.uint8, "LA": np.uint8, "RGB": np.uint8, "RGBA": np.uint8,
+        "L16": np.uint16, "LA16": np.uint16, "RGB16": np.uint16, "RGBA16": np.uint16,
+        "RGB32F": np.float32, "RGBA32F": np.float32,
+    }
+
+    @staticmethod
+    def num_channels(mode: str) -> int:
+        return ImageMode._CHANNELS[mode]
+
+    @staticmethod
+    def np_dtype(mode: str):
+        return ImageMode._NP_DTYPE[mode]
+
+
 @dataclasses.dataclass(frozen=True)
 class Field:
     name: str
@@ -58,7 +101,16 @@ _NUMPY_MAP = {
     "string": "object", "null": "object", "binary": "object", "fixed_size_binary": "object",
     "list": "object", "fixed_size_list": "object", "struct": "object", "map": "object",
     "python": "object",
+    "embedding": "object", "image": "object", "fixed_shape_image": "object",
+    "tensor": "object", "fixed_shape_tensor": "object", "sparse_tensor": "object",
+    "file": "object",
 }
+
+_LOGICAL_KINDS = frozenset({"embedding", "image", "fixed_shape_image", "tensor",
+                            "fixed_shape_tensor", "sparse_tensor", "file"})
+# the kinds whose host values are a dense (rows, *shape) array (series.py:153-185)
+_FIXED_SHAPE_KINDS = frozenset({"fixed_size_list", "embedding", "fixed_shape_tensor",
+                                "fixed_shape_image"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,6 +225,43 @@ class DataType:
         """Arbitrary Python objects (host only)."""
         return cls("python")
 
+    # ---- multimodal logical types (datatype.py:197-236) --------------------------
+    @classmethod
+    def embedding(cls, inner: "DataType", size: int) -> "DataType":
+        if not inner.is_numeric():
+            raise ValueError(f"embedding inner dtype must be numeric, got {inner}")
+        return cls("embedding", (inner, size))
+
+    @classmethod
+    def image(cls, mode: Optional[str] = None) -> "DataType":
+        if mode is not None and mode not in ImageMode._CHANNELS:
+            raise ValueError(f"invalid image mode {mode!r}")
+        return cls("image", (mode,))
+
+    @classmethod
+    def fixed_shape_image(cls, mode: str, height: int, width: int) -> "DataType":
+        if mode not in ImageMode._CHANNELS:
+            raise ValueError(f"invalid image mode {mode!r}")
+        return cls("fixed_shape_image", (mode, height, width))
+
+    @classmethod
+    def tensor(cls, inner: "DataType", shape: Optional[Tuple[int, ...]] = None) -> "DataType":
+        if shape is not None:
+            return cls("fixed_shape_tensor", (inner, tuple(shape)))
+        return cls("tensor", (inner,))
+
+    @classmethod
+    def fixed_shape_tensor(cls, inner: "DataType", shape: Tuple[int, ...]) -> "DataType":
+        return cls("fixed_shape_tensor", (inner, tuple(shape)))
+
+    @classmethod
+    def sparse_tensor(cls, inner: "DataType") -> "DataType":
+        return cls("sparse_tensor", (inner,))
+
+    @classmethod
+    def file(cls) -> "DataType":
+        return cls("file")
+
     # ---- predicates ---------------------------------------------------------------
     def is_null(self) -> bool:
         return self.kind == "null"
@@ -214,7 +303,19 @@ class DataType:
         return self.kind == "map"
 
     def is_nested(self) -> bool:
-        return self.is_list() or self.is_struct() or self.is_map()
+        """Stored as a ``NestedLayout`` (core/series.py): a list, struct or
+        map, or a logical kind, whose storage is one of them."""
+        return self.is_list() or self.is_struct() or self.is_map() \
+            or self.kind in _LOGICAL_KINDS
+
+    def is_logical(self) -> bool:
+        return self.kind in _LOGICAL_KINDS
+
+    def is_fixed_shape(self) -> bool:
+        """A fixed-size list, embedding, fixed-shape tensor or fixed-shape
+        image: host values a dense (rows, *shape) array, device values one
+        plane of that shape."""
+        return self.kind in _FIXED_SHAPE_KINDS
 
     def is_python(self) -> bool:
         return self.kind == "python"
@@ -227,25 +328,94 @@ class DataType:
 
     def is_device_compatible(self) -> bool:
         """Whether a column of this type can live on the device as one
-        fixed-width plane (datatype.py:303-307, without the multimodal
-        kinds): no binary or nested type is."""
-        return self.is_numeric() or self.is_boolean() or self.is_temporal()
+        plane (datatype.py:303-307): the numbers, booleans and temporal
+        kinds, and the embedding, fixed-shape tensor and fixed-shape image
+        as dense (rows, *shape) planes."""
+        return self.is_numeric() or self.is_boolean() or self.is_temporal() \
+            or self.kind in ("embedding", "fixed_shape_tensor", "fixed_shape_image")
 
     @property
     def inner(self) -> "DataType":
-        """The element type of a list or a fixed-size list."""
-        if not self.is_list():
+        """The element type of a list, a fixed-size list, an embedding or a
+        tensor (datatype.py:309-314)."""
+        if self.kind not in ("list", "fixed_size_list", "embedding", "tensor",
+                             "fixed_shape_tensor", "sparse_tensor"):
             raise ValueError(f"{self} has no inner dtype")
         return self.params[0]
 
     @property
     def size(self) -> int:
-        """The length of a fixed-size list, the width of a fixed-size binary."""
-        if self.kind == "fixed_size_list":
+        """The length of a fixed-size list or an embedding, the width of a
+        fixed-size binary."""
+        if self.kind in ("fixed_size_list", "embedding"):
             return self.params[1]
         if self.kind == "fixed_size_binary":
             return self.params[0]
         raise ValueError(f"{self} has no fixed size")
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """A fixed-shape tensor's shape; a fixed-shape image's (height,
+        width, channels) (datatype.py:325-332)."""
+        if self.kind == "fixed_shape_tensor":
+            return self.params[1]
+        if self.kind == "fixed_shape_image":
+            mode, h, w = self.params
+            return (h, w, ImageMode.num_channels(mode))
+        raise ValueError(f"{self} has no fixed shape")
+
+    @property
+    def image_mode(self) -> Optional[str]:
+        if self.kind in ("image", "fixed_shape_image"):
+            return self.params[0]
+        raise ValueError(f"{self} is not an image dtype")
+
+    @property
+    def dense_shape(self) -> Tuple[int, ...]:
+        """A fixed-shape kind's row shape: (size,) for a fixed-size list or
+        an embedding, else ``shape``."""
+        if self.kind in ("fixed_size_list", "embedding"):
+            return (self.params[1],)
+        return self.shape
+
+    @property
+    def element_numpy(self) -> np.dtype:
+        """The numpy element type of a fixed-shape kind's dense values (an
+        image's that of its mode)."""
+        if self.kind == "fixed_shape_image":
+            return np.dtype(ImageMode.np_dtype(self.params[0]))
+        return self.params[0].to_numpy()
+
+    @property
+    def storage(self) -> "DataType":
+        """The Arrow storage type of a logical kind (datatype.py:498-530);
+        any other type is its own storage."""
+        k = self.kind
+        if k == "embedding":
+            return DataType.fixed_size_list(self.params[0], self.params[1])
+        if k == "fixed_shape_image":
+            mode, h, w = self.params
+            return DataType.fixed_size_list(
+                DataType(np.dtype(ImageMode.np_dtype(mode)).name),
+                h * w * ImageMode.num_channels(mode))
+        if k == "fixed_shape_tensor":
+            inner, shape = self.params
+            return DataType.fixed_size_list(inner, int(np.prod(shape)) if shape else 1)
+        if k == "image":
+            return DataType.struct((("data", DataType.binary()), ("mode", DataType.uint8()),
+                                    ("height", DataType.uint32()),
+                                    ("width", DataType.uint32()),
+                                    ("channels", DataType.uint8())))
+        if k == "tensor":
+            return DataType.struct((("data", DataType.list(self.params[0])),
+                                    ("shape", DataType.list(DataType.uint64()))))
+        if k == "sparse_tensor":
+            return DataType.struct((("values", DataType.list(self.params[0])),
+                                    ("indices", DataType.list(DataType.uint64())),
+                                    ("shape", DataType.list(DataType.uint64()))))
+        if k == "file":
+            return DataType.struct((("path", DataType.string()), ("data", DataType.binary())))
+        return self
 
     @property
     def struct_fields(self) -> Tuple[Tuple[str, "DataType"], ...]:
@@ -322,6 +492,8 @@ class DataType:
             return torch.int32
         if self.kind in ("timestamp", "duration", "time"):
             return torch.int64
+        if self.kind in ("embedding", "fixed_shape_tensor", "fixed_shape_image"):
+            return DataType(self.element_numpy.name).to_torch()
         raise ValueError(f"{self} is not device-compatible")
 
     def __repr__(self) -> str:
@@ -329,6 +501,18 @@ class DataType:
             return f"List[{self.params[0]!r}]"
         if self.kind == "fixed_size_list":
             return f"FixedSizeList[{self.params[0]}; {self.params[1]}]"
+        if self.kind == "embedding":
+            return f"Embedding[{self.params[0]}; {self.params[1]}]"
+        if self.kind == "fixed_shape_tensor":
+            return f"Tensor[{self.params[0]}; {'x'.join(map(str, self.params[1]))}]"
+        if self.kind == "tensor":
+            return f"Tensor[{self.params[0]}]"
+        if self.kind == "sparse_tensor":
+            return f"SparseTensor[{self.params[0]}]"
+        if self.kind == "image":
+            return f"Image[{self.params[0] or 'MIXED'}]"
+        if self.kind == "fixed_shape_image":
+            return f"Image[{self.params[0]}; {self.params[1]}x{self.params[2]}]"
         if self.kind == "struct":
             inner = ", ".join(f"{n}: {t}" for n, t in self.params)
             return f"Struct[{inner}]"

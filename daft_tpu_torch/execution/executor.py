@@ -1966,7 +1966,8 @@ def _agg_op(e: Expression) -> str:
 
 # aggregations that need each group's whole value set: one phase (the
 # reference's agg_split.py returns None for them)
-_UNSPLIT_AGGS = ("count_distinct", "set", "string_agg")
+_UNSPLIT_AGGS = ("count_distinct", "set", "string_agg", "approx_count_distinct",
+                 "approx_percentile")
 
 
 def _split_aggs(aggs: List[Expression]):

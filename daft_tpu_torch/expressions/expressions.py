@@ -3,15 +3,15 @@
 // % **``), comparisons and ``eq_null_safe``, ``&``, ``|``, ``^``, ``~``,
 null tests and ``fill_null``, ``abs``, ``IfElse``, ``IsIn``, ``Between``,
 ``AggExpr`` (sum, count, mean, min, max, count_distinct, any_value,
-stddev, var, skew, bool_and, bool_or, and the list aggregates list, set,
-concat, product and string_agg), ``Function`` calls into the scalar
-function registry (functions/registry.py) with the ``.str``, ``.dt``,
-``.float``, ``.list``, ``.struct``, ``.map``, ``.binary`` and ``.json``
-namespaces, the math methods and the flat API (with ``_TypeDispatch``,
-whose namespace follows the input type, and ``Unnest``), and UDF calls
-(udf/expr.py ``UdfCall``, ``Expression.apply``). The later waves' names
-(images, urls, embeddings, tokenize and the sketch aggregates) raise
-``NotImplementedError`` naming their wave. ``transform`` rewrites a tree bottom-up (the join capture substitutes
+stddev, var, skew, bool_and, bool_or, the list aggregates list, set,
+concat, product and string_agg, and the sketches approx_count_distinct and
+approx_percentile), ``Function`` calls into the scalar function registry
+(functions/registry.py) with the ``.str``, ``.dt``, ``.float``, ``.list``,
+``.struct``, ``.map``, ``.binary``, ``.json``, ``.embedding``, ``.image``
+and ``.url`` namespaces, the math methods, ``minhash``, ``tokenize_*``, the
+file methods and the flat API (with ``_TypeDispatch``, whose namespace
+follows the input type, and ``Unnest``), and UDF calls (udf/expr.py
+``UdfCall``, ``Expression.apply``). ``transform`` rewrites a tree bottom-up (the join capture substitutes
 projections and hoists dim-only subexpressions with it).
 
 One class hierarchy is both the user-facing Expression and the plan IR. Host
@@ -271,14 +271,28 @@ class Expression:
     def hash(self, seed=None):
         return self._fn("hash", **({"seed": seed} if seed is not None else {}))
 
-    def minhash(self, *args, **kwargs):
-        return self._fn("minhash", *args, **kwargs)
+    def minhash(self, num_hashes: int = 16, ngram_size: int = 1, seed: int = 1):
+        """Word-shingle MinHash signatures (expressions.py:264-265)."""
+        return self._fn("minhash", num_hashes=num_hashes, ngram_size=ngram_size, seed=seed)
 
-    def tokenize_encode(self, *args, **kwargs):
-        return self._fn("tokenize_encode", *args, **kwargs)
+    def tokenize_encode(self, tokenizer: str = "bytes"):
+        """Text to token ids (expressions.py:267-270): the "bytes" tokenizer."""
+        return self._fn("tokenize_encode", tokenizer=tokenizer)
 
-    def tokenize_decode(self, *args, **kwargs):
-        return self._fn("tokenize_decode", *args, **kwargs)
+    def tokenize_decode(self, tokenizer: str = "bytes"):
+        """Token ids to text, the inverse of ``tokenize_encode``."""
+        return self._fn("tokenize_decode", tokenizer=tokenizer)
+
+    def file_path(self):
+        """The path of a file column's reference (expressions.py:1748)."""
+        return self._fn("file_path")
+
+    def file_size(self, io_config=None):
+        return self._fn("file_size", io_config=io_config)
+
+    def file_read(self, offset: int = 0, length=None, io_config=None):
+        """A file column's bytes from ``offset``, ``length`` of them."""
+        return self._fn("file_read", offset=offset, length=length, io_config=io_config)
 
     @property
     def str(self) -> "StringNamespace":
@@ -313,16 +327,16 @@ class Expression:
         return JsonNamespace(self)
 
     @property
-    def image(self):
-        return _later_wave_namespace("image")
+    def image(self) -> "ImageNamespace":
+        return ImageNamespace(self)
 
     @property
-    def url(self):
-        return _later_wave_namespace("url")
+    def url(self) -> "UrlNamespace":
+        return UrlNamespace(self)
 
     @property
-    def embedding(self):
-        return _later_wave_namespace("embedding")
+    def embedding(self) -> "EmbeddingNamespace":
+        return EmbeddingNamespace(self)
 
     # ---- aggregation sugar ----------------------------------------------------------
     def sum(self):
@@ -393,8 +407,14 @@ class Expression:
         return AggExpr("approx_count_distinct", self)
 
     def approx_percentile(self, *percentiles, alpha: float = 0.01):
-        return AggExpr("approx_percentile", self, {"percentiles": list(percentiles),
-                                                   "alpha": alpha})
+        """DDSketch percentile(s) in [0, 1] (expressions.py:335-344): one
+        gives a float64, several a list of float64."""
+        if not percentiles:
+            raise ValueError("approx_percentile needs at least one percentile")
+        single = len(percentiles) == 1
+        return AggExpr("approx_percentile", self, {
+            "percentiles": float(percentiles[0]) if single else [float(p) for p in percentiles],
+            "alpha": alpha})
 
     # ---- windows --------------------------------------------------------------------
     def over(self, spec) -> "WindowExpr":
@@ -706,8 +726,7 @@ class _Namespace:
 
 
 class StringNamespace(_Namespace):
-    """``expr.str``: the string functions (the reference's StringNamespace,
-    without tokenize, which comes with a later wave)."""
+    """``expr.str``: the string functions (the reference's StringNamespace)."""
 
     def upper(self):
         return self._e._fn("utf8_upper")
@@ -820,11 +839,14 @@ class StringNamespace(_Namespace):
     def sha256(self):
         return self._e._fn("sha256")
 
-    def tokenize_encode(self, *args, **kwargs):
-        return self._e._fn("tokenize_encode", *args, **kwargs)
+    def tokenize_encode(self, tokenizer: str = "r50k_base"):
+        """As ``Expression.tokenize_encode``, with the reference's default
+        tokenizer (expressions.py:943): a tokenizer file, which raises
+        ``NotImplementedError`` until its reader is ported."""
+        return self._e._fn("tokenize_encode", tokenizer=tokenizer)
 
-    def tokenize_decode(self, *args, **kwargs):
-        return self._e._fn("tokenize_decode", *args, **kwargs)
+    def tokenize_decode(self, tokenizer: str = "r50k_base"):
+        return self._e._fn("tokenize_decode", tokenizer=tokenizer)
 
 
 class TemporalNamespace(_Namespace):
@@ -1003,27 +1025,62 @@ class JsonNamespace(_Namespace):
         return self._e._fn("json_query", path=path)
 
 
-def _later_wave_namespace(name: str):
-    from ..functions.registry import later_wave
+class EmbeddingNamespace(_Namespace):
+    """``expr.embedding`` (expressions.py:1069-1080)."""
 
-    raise NotImplementedError(f"the .{name} namespace is not ported yet: it comes with "
-                              f"{later_wave(name)}")
+    def cosine_distance(self, other):
+        return self._e._fn("cosine_distance", other)
+
+    def dot(self, other):
+        return self._e._fn("dot", other)
+
+    def euclidean_distance(self, other):
+        return self._e._fn("euclidean_distance", other)
+
+    def norm(self):
+        return self._e._fn("embedding_norm")
+
+
+class ImageNamespace(_Namespace):
+    """``expr.image`` (expressions.py:1083-1105)."""
+
+    def decode(self, mode: Optional[str] = None, on_error: str = "raise"):
+        return self._e._fn("image_decode", mode=mode, on_error=on_error)
+
+    def encode(self, image_format: str = "PNG"):
+        return self._e._fn("image_encode", image_format=image_format)
+
+    def resize(self, w: int, h: int):
+        return self._e._fn("image_resize", w=w, h=h)
+
+    def crop(self, bbox):
+        return self._e._fn("image_crop", bbox=tuple(bbox))
+
+    def to_mode(self, mode: str):
+        return self._e._fn("image_to_mode", mode=mode)
+
+    def to_fixed_shape(self, mode: str, h: int, w: int):
+        """A dense (h, w, c) fixed-shape image: the device UDF tier's input."""
+        return self._e._fn("image_to_fixed_shape", mode=mode, h=h, w=w)
+
+
+class UrlNamespace(_Namespace):
+    """``expr.url`` (expressions.py:1108-1115)."""
+
+    def download(self, on_error: str = "raise", timeout: int = 30):
+        return self._e._fn("url_download", on_error=on_error, timeout=timeout)
+
+    def upload(self, location: str):
+        return self._e._fn("url_upload", location=location)
 
 
 AGG_OPS = ("sum", "mean", "min", "max", "count", "count_distinct", "any_value", "stddev",
            "var", "skew", "bool_and", "bool_or", "list", "set", "concat", "product",
-           "string_agg")
-# the reference's aggregates of a later wave (the sketches)
-LATER_AGG_OPS = ("approx_count_distinct", "approx_percentile")
+           "string_agg", "approx_count_distinct", "approx_percentile")
 
 
 class AggExpr(Expression):
     def __init__(self, op: str, child: Expression, params: Optional[Dict[str, Any]] = None):
-        if op in LATER_AGG_OPS:
-            from ..functions.registry import later_wave
-
-            raise NotImplementedError(f"the aggregation {op!r} is not ported yet: it comes "
-                                      f"with {later_wave('agg_' + op)}")
         if op not in AGG_OPS:
             raise ValueError(f"unknown aggregation {op!r}")
         self.op = op
@@ -1043,6 +1100,10 @@ class AggExpr(Expression):
         from ..core.kernels.groupby import agg_output_dtype
 
         f = self.child.to_field(schema)
+        if self.op == "approx_percentile":
+            single = not isinstance(self.params.get("percentiles"), list)
+            return Field(f.name, DataType.float64() if single
+                         else DataType.list(DataType.float64()))
         return Field(f.name, agg_output_dtype(self.op, f.dtype))
 
     def __repr__(self):
@@ -1145,8 +1206,7 @@ class WindowExpr(Expression):
 
 
 # the reference's flat API (expressions.py:1276-1360): each name a method of
-# Expression, an alias of a namespace method or a registry call; a name of a
-# later wave raises NotImplementedError when called
+# Expression, an alias of a namespace method or a registry call
 _FLAT_NAMESPACE_ALIASES = {
     "capitalize": ("str", "capitalize"), "count_matches": ("str", "count_matches"),
     "endswith": ("str", "endswith"), "find": ("str", "find"), "ilike": ("str", "ilike"),
@@ -1384,6 +1444,9 @@ def _infer_literal_dtype(v: Any) -> DataType:
     if isinstance(v, (list, tuple)):
         # a host-only value (utf8_count_matches' patterns)
         return DataType.list(_infer_literal_dtype(v[0]) if v else DataType.null())
+    if isinstance(v, np.ndarray):
+        # an array is a fixed-shape tensor (expressions.py:1158-1160)
+        return DataType.fixed_shape_tensor(DataType.from_numpy(v.dtype), v.shape)
     raise TypeError(f"unsupported literal {v!r}")
 
 

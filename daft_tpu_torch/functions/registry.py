@@ -1,6 +1,6 @@
 """The scalar function registry (counterpart of daft_tpu/functions/registry.py,
 its ``extra.py`` and ``breadth.py``): the numeric and float functions, the
-bitwise functions, the string functions (without tokenize), the temporal
+bitwise functions, the string functions, the temporal
 functions over dates, timestamps, durations and times (functions/temporal.py),
 and ``coalesce``, ``monotonically_increasing_id`` and ``uuid``.
 
@@ -14,9 +14,11 @@ the arguments' (values, validity) pairs, ``fdt`` the stage's float type
 
 The nested-types wave (lists, structs, maps, binary, JSON, hashes, URLs,
 compression, serialization, codecs and the Iceberg partitions) is in
-functions/nested.py. A name of a later wave (images, urls, embeddings,
-tokenize, the sketch aggregates) raises ``NotImplementedError`` naming its
-wave (``later_wave``); an unknown name raises ``ValueError``.
+functions/nested.py, the multimodal wave (embeddings, minhash, tokenize,
+images, urls, files) in functions/multimodal.py, audio and video in
+functions/media.py. ``_WAVES`` holds the names of a later wave, each of
+which raises ``NotImplementedError`` naming its wave (``later_wave``); none
+is left. An unknown name raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -72,18 +74,7 @@ def has_function(name: str) -> bool:
 
 # ---- the later waves (ROADMAP.md Queue 1 item 7) -------------------------------------
 
-_WAVES = {
-    "the multimodal wave (ROADMAP item 7: images, urls, embeddings, tokenize, minhash, "
-    "audio, video)": (
-        "image", "url", "embedding", "image_decode", "image_encode", "image_resize",
-        "image_crop", "image_to_mode", "image_to_fixed_shape", "image_height",
-        "image_width", "image_channel", "image_mode", "image_hash", "url_download",
-        "url_upload", "cosine_distance", "dot", "euclidean_distance", "embedding_norm",
-        "tokenize_encode", "tokenize_decode", "minhash", "file", "file_path", "file_size",
-        "file_read"),
-    "the sketch wave (ROADMAP item 7: approx_count_distinct, approx_percentile)": (
-        "agg_approx_count_distinct", "agg_approx_percentile"),
-}
+_WAVES: Dict[str, tuple] = {}
 _LATER = {n: wave for wave, names in _WAVES.items() for n in names}
 
 
@@ -848,3 +839,5 @@ register("uuid", _rt_const(_S), _uuid_host)
 
 from . import temporal as _temporal  # noqa: E402,F401  (registers the temporal functions)
 from . import nested as _nested  # noqa: E402,F401  (registers the nested-types wave)
+from . import multimodal as _multimodal  # noqa: E402,F401  (registers the multimodal wave)
+from . import media as _media  # noqa: E402,F401  (registers audio, video)

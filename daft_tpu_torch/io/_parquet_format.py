@@ -844,10 +844,19 @@ def _needs_arrow_schema(dtype: DataType) -> bool:
 def write_file(path: str, batches, schema, codec: int,
                row_group_rows: Optional[int] = None) -> None:
     """Write the RecordBatches ``batches`` (one schema) as one Parquet file,
-    in row groups of ``row_group_rows`` (default ``ROW_GROUP_ROWS``)."""
+    in row groups of ``row_group_rows`` (default ``ROW_GROUP_ROWS``). A
+    multimodal logical column is written as its storage type, as the
+    reference writes it (reading it back gives the storage type)."""
     from ..core.recordbatch import RecordBatch
+    from ..datatype import Field
+    from ..schema import Schema
 
     from . import _parquet_nested as pn
+
+    if any(f.dtype.is_logical() for f in schema):
+        schema = Schema([Field(f.name, f.dtype.storage) for f in schema])
+        batches = [RecordBatch(schema, [c.as_storage() for c in b.columns()], b.num_rows)
+                   for b in batches]
 
     row_group_rows = row_group_rows or ROW_GROUP_ROWS
     cols = []

@@ -102,6 +102,8 @@ def _dtype_of(spec) -> DataType:
             out.append(_dtype_of(p["t"]))
         elif isinstance(p, dict) and "f" in p:
             out.append((p["f"][0], _dtype_of(p["f"][1])))
+        elif isinstance(p, dict) and "s" in p:
+            out.append(tuple(p["s"]))
         else:
             out.append(p)
     return DataType(kind, tuple(out))
@@ -114,6 +116,8 @@ def _dtype_spec(dtype: DataType):
     for p in dtype.params:
         if isinstance(p, DataType):
             params.append({"t": _dtype_spec(p)})
+        elif isinstance(p, tuple) and all(isinstance(x, int) for x in p):
+            params.append({"s": list(p)})  # a tensor's shape
         elif isinstance(p, tuple):
             params.append({"f": [p[0], _dtype_spec(p[1])]})
         else:
@@ -288,11 +292,11 @@ def decode_batch(header: dict, body: bytes) -> RecordBatch:
             values = np.empty(n, dtype=object)
         elif form == "nested":
             offsets = plane(e["planes"][0], np.int64, n + 1).copy() if e["planes"] else None
-            kind = dtype.kind
+            kind = dtype.storage.kind
             if kind == "struct":
                 counts = [n] * len(e["children"])
             elif kind == "fixed_size_list":
-                counts = [n * dtype.size]
+                counts = [n * dtype.storage.size]
             else:
                 counts = [int(offsets[-1])]
             kids = [column(c, k) for c, k in zip(e["children"], counts)]

@@ -80,6 +80,11 @@ EXPORTS = {
     "bucket_scatter": (None, [_I64P, _I64, _I64, _I64P, _I64P]),
 }
 
+# the port's own exports, beyond the reference's library: export -> (restype, argtypes)
+PORT_EXPORTS = {
+    "png_unfilter": (_I64, [_U8P, _I64, _I64, _I64, _U8P]),
+}
+
 _LIB: Optional[ctypes.CDLL] = None
 _COUNT_LOCK = threading.Lock()
 CALLS: collections.Counter = collections.Counter()
@@ -107,7 +112,12 @@ def get_lib() -> ctypes.CDLL:
     if _LIB is None:
         from .ops._build import host_library
 
-        _LIB = declare(host_library(SOURCE))
+        lib = declare(host_library(SOURCE))
+        for name, (restype, argtypes) in PORT_EXPORTS.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        _LIB = lib
     return _LIB
 
 
@@ -806,3 +816,68 @@ def pack_mask(mask: np.ndarray) -> np.ndarray:
     packed = np.packbits(np.asarray(mask, dtype=bool), bitorder="little")
     pad = -len(packed) % 8
     return np.concatenate([packed, np.zeros(pad, dtype=np.uint8)]) if pad else packed
+
+
+# ---- PNG unfiltering (the port's own export) ------------------------------------------
+
+
+def png_unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """PNG's five row filters undone: ``raw`` holds ``h`` rows of a filter
+    byte and ``stride`` bytes; returns the (h, stride) uint8 scanlines.
+    Raises ValueError on a filter byte outside 0-4 or short data. The
+    library's export, or ``plain_png_unfilter`` under
+    ``DAFT_TPU_DISABLE_NATIVE``."""
+    raw = np.ascontiguousarray(raw, dtype=np.uint8)
+    _need(len(raw) >= h * (stride + 1), "PNG image data is truncated")
+    if disabled():
+        return plain_png_unfilter(raw, h, stride, bpp)
+    out = np.empty((max(h, 1), max(stride, 1)), dtype=np.uint8)
+    rc = _call("png_unfilter", raw.ctypes.data_as(_U8P), h, stride, bpp,
+               out.ctypes.data_as(_U8P))
+    if rc < 0:
+        raise ValueError(f"PNG row {-rc - 1} has an unknown filter type")
+    return out[:h, :stride]
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+
+
+def plain_png_unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """The plain version: None, Sub and Up row at a time in numpy; Average
+    and Paeth, which read the byte to their left, byte by byte."""
+    rows = np.asarray(raw[:h * (stride + 1)], dtype=np.uint8).reshape(h, stride + 1)
+    out = np.zeros((h, stride), dtype=np.uint8)
+    prev = np.zeros(stride, dtype=np.uint8)
+    for y in range(h):
+        ft, line = int(rows[y, 0]), rows[y, 1:]
+        if ft == 0:
+            cur = line.copy()
+        elif ft == 1:
+            pad = (-stride) % bpp
+            lanes = np.concatenate([line, np.zeros(pad, np.uint8)]).reshape(-1, bpp)
+            cur = (np.cumsum(lanes.astype(np.int64), axis=0) % 256).astype(np.uint8)
+            cur = cur.reshape(-1)[:stride]
+        elif ft == 2:
+            cur = (line.astype(np.int64) + prev) % 256
+            cur = cur.astype(np.uint8)
+        elif ft in (3, 4):
+            cur = np.zeros(stride, dtype=np.uint8)
+            ln, pv = line.tolist(), prev.tolist()
+            c = [0] * stride
+            for i in range(stride):
+                a = c[i - bpp] if i >= bpp else 0
+                b = pv[i]
+                if ft == 3:
+                    pred = (a + b) >> 1
+                else:
+                    pred = _paeth(a, b, pv[i - bpp] if i >= bpp else 0)
+                c[i] = (ln[i] + pred) & 0xFF
+            cur[:] = c
+        else:
+            raise ValueError(f"PNG row {y} has an unknown filter type")
+        out[y] = cur
+        prev = cur
+    return out

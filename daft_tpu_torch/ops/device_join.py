@@ -360,11 +360,11 @@ def build_join_stage(spec: JoinAggSpec):
 # ======================================================================================
 
 
-def unique_key_index(dim_key_series, probe_vals: np.ndarray, probe_valid: np.ndarray,
-                     target_dtype) -> np.ndarray:
-    """Host index: idx[i] = dim row whose key equals probe value i, else -1.
-    Raises DeviceFallback when the dim keys are not unique (the join would
-    multiply rows) or not integer-like."""
+def dim_key_index(dim_key_series, target_dtype):
+    """(rows, lo, hi, table or None, map or None, any keys) of a dim key
+    column: its valid rows, the key range, a dense table of the range or
+    the host library's int64 map of sparse keys. Raises DeviceFallback
+    when the keys are not unique or not integer-like."""
     s = dim_key_series
     if s.dtype != target_dtype:
         s = s.cast(target_dtype)
@@ -374,20 +374,37 @@ def unique_key_index(dim_key_series, probe_vals: np.ndarray, probe_valid: np.nda
     vv = vals[valid]
     if len(np.unique(vv)) != len(vv):
         raise DeviceFallback(f"dim key {s.name!r} is not unique")
-    pv = probe_vals.astype(np.int64, copy=False)
     rows = np.flatnonzero(valid)
     lo = int(vv.min()) if len(vv) else 0
     hi = int(vv.max()) if len(vv) else -1
     domain = hi - lo + 1
+    table = lookup = None
     if 0 < domain <= max(4096, 8 * max(len(vv), 1)):
         table = np.full(domain, -1, dtype=np.int64)
         table[vv - lo] = rows
+    elif len(vv):
+        lookup = native.native_i64_map_build(vv)
+    return rows, lo, hi, table, lookup, len(vv) > 0
+
+
+def unique_key_index(dim_key_series, probe_vals: np.ndarray, probe_valid: np.ndarray,
+                     target_dtype, dim=None) -> np.ndarray:
+    """Host index: idx[i] = dim row whose key equals probe value i, else -1.
+    Raises DeviceFallback when the dim keys are not unique (the join would
+    multiply rows) or not integer-like. ``dim`` is the column's
+    ``dim_key_index`` where the caller holds it (a join run probes one dim
+    with every fact batch)."""
+    rows, lo, hi, table, lookup, any_keys = (dim if dim is not None
+                                             else dim_key_index(dim_key_series, target_dtype))
+    pv = probe_vals.astype(np.int64, copy=False)
+    if table is not None:
+        domain = hi - lo + 1
         with np.errstate(over="ignore"):
             safe = np.clip(pv - lo, 0, domain - 1)
         idx = np.where((pv >= lo) & (pv <= hi), table[safe], -1)
-    elif len(vv):
+    elif any_keys:
         # sparse keys: the host kernel library's int64 map, key -> position
-        pos = native.native_i64_map_lookup(*native.native_i64_map_build(vv), pv)
+        pos = native.native_i64_map_lookup(*lookup, pv)
         idx = np.where(pos >= 0, rows[np.maximum(pos, 0)], -1)
     else:
         idx = np.full(len(pv), -1, dtype=np.int64)
@@ -415,6 +432,9 @@ class _JoinContext:
         # float columns upload as f32, or as f64 for a stage computed in f64
         # (a float min/max); dim planes gather in the dtype they upload in
         self.f32 = f32
+        # each dim key column's dim_key_index, made once a run: the run
+        # probes one dim with every fact batch
+        self.dim_indexes: Dict[Tuple[str, str], tuple] = {}
         self.syn_series: Dict[str, Dict[str, object]] = {
             d.name: {name: self._cached_syn(dim_batches[d.name], name, expr)
                      for name, expr in d.synthetic}
@@ -471,6 +491,15 @@ class _JoinContext:
             return self.syn_series[dname][colname]
         return self.batches[dname].get_column(colname)
 
+    def _dim_index(self, dname: str, key_series, kdt) -> tuple:
+        """``dim_key_index`` of dim ``dname``'s key column as ``kdt``, made
+        once a run."""
+        key = (dname, repr(kdt))
+        hit = self.dim_indexes.get(key)
+        if hit is None:
+            hit = self.dim_indexes[key] = dim_key_index(key_series, kdt)
+        return hit
+
     def dim_space_idx(self, child: DimSpec) -> np.ndarray:
         """Host index from parent-dim rows to child rows (-1 = miss)."""
         pname, pcol = child.parent
@@ -483,7 +512,8 @@ class _JoinContext:
             kind, vals, valid = canonical_key_values(p)
             if kind != "num":
                 raise DeviceFallback(f"chain key {pcol!r} is not integer-like")
-            return unique_key_index(key_series, vals, valid, kdt)
+            return unique_key_index(key_series, vals, valid, kdt,
+                                    self._dim_index(child.name, key_series, kdt))
 
         return manager().get_or_build(probe, ("dsidx", child.key_col, repr(kdt)), build,
                                       (key_series,))
@@ -540,7 +570,8 @@ class _JoinContext:
 
             def build(d=d, kdt=kdt, key_series=key_series, so_far=dict(out)):
                 vals, valid = self._probe_values(batch, d, so_far, kdt)
-                return unique_key_index(key_series, vals, valid, kdt)
+                return unique_key_index(key_series, vals, valid, kdt,
+                                        self._dim_index(d.name, key_series, kdt))
 
             key = ("uki", d.key_col, d.parent, repr(kdt), batch.num_rows)
             out[d.name] = manager().get_or_build(anchor, key, build, deps)

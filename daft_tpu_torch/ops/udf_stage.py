@@ -297,10 +297,14 @@ def finish_series(func, out: np.ndarray, valid: np.ndarray, name: str):
     """One run's output rows as a Series of the UDF's return dtype, null
     where the input row was: ``device_finish``'s values, or the output rows
     as they are (a 2-D output of a numeric list dtype goes straight to its
-    lists, the values already of the element type)."""
+    lists, the values already of the element type; an output of a
+    fixed-shape dtype, such as an embedding, to its dense rows)."""
     from ..core.series import Series, _lengths_to_offsets
 
     dtype = func.return_dtype
+    if func.device_finish is None and out.ndim >= 2 and dtype.is_fixed_shape():
+        # a fixed-shape dtype (an embedding, a tensor): the rows as they are
+        return Series.from_numpy(out, name, dtype, validity=np.asarray(valid, dtype=bool))
     if func.device_finish is None and out.ndim == 2 and dtype.kind == "list" \
             and dtype.inner.is_numeric():
         valid = np.asarray(valid, dtype=bool).copy()

@@ -6,8 +6,7 @@ A Pratt parser builds expressions directly; SELECT structure lands in the
 sql/planner.py plans. The grammar is the reference's; what the port's
 engine cannot evaluate yet raises ``NotImplementedError`` naming the
 ROADMAP item that brings it, where the reference builds an expression:
-the types DECIMAL and NUMERIC, and the aggregate APPROX_COUNT_DISTINCT
-(the expression surface, item 7). LIST_AGG and ARRAY_AGG are ``agg_list``,
+the types DECIMAL and NUMERIC (the expression surface, item 7). LIST_AGG and ARRAY_AGG are ``agg_list``,
 BINARY and BYTES the binary type.
 
 Window functions are the reference's: an aggregate or ROW_NUMBER, RANK,
@@ -64,10 +63,9 @@ _BP = {
 _AGG_FUNCS = {"SUM": "sum", "AVG": "mean", "MEAN": "mean", "MIN": "min", "MAX": "max",
               "COUNT": "count", "STDDEV": "stddev", "STDDEV_SAMP": "stddev", "VAR": "var",
               "VARIANCE": "var", "ANY_VALUE": "any_value", "SKEW": "skew",
-              "BOOL_AND": "bool_and", "BOOL_OR": "bool_or", "LIST_AGG": "list",
+              "BOOL_AND": "bool_and", "BOOL_OR": "bool_or",
+              "APPROX_COUNT_DISTINCT": "approx_count_distinct", "LIST_AGG": "list",
               "ARRAY_AGG": "list"}
-# the reference's aggregates of later waves (the sketches)
-_AGG_FUNCS_NOT_PORTED = {"APPROX_COUNT_DISTINCT"}
 _WINDOW_RANK_FUNCS = {"ROW_NUMBER", "RANK", "DENSE_RANK", "PERCENT_RANK", "CUME_DIST",
                       "NTILE"}
 
@@ -613,8 +611,6 @@ class Parser:
             if distinct:
                 raise ValueError(f"DISTINCT not supported for {fname}")
             return AggExpr(_AGG_FUNCS[fname], args[0])
-        if fname in _AGG_FUNCS_NOT_PORTED:
-            raise _not_ported(f"the aggregate {fname}")
         if fname in _WINDOW_RANK_FUNCS:
             params = {"n": int(args[0].value)} if fname == "NTILE" and args else {}
             return _UnboundWindowFn(fname.lower(), None, params)

@@ -190,12 +190,14 @@ def test_function_matches_the_reference_host(name):
 
 
 def test_every_registered_function_is_called():
-    from daft_tpu_torch.functions import nested
+    from daft_tpu_torch.functions import media, multimodal, nested
 
     names = {e.fname for e in _calls(daft_tpu_torch).values()}
-    # the nested-types wave's functions are called by tests/test_torch_nested.py
-    wave = {n for n, spec in port_reg._REGISTRY.items()
-            if spec.host.__module__ == nested.__name__}
+    # the nested-types wave's functions are called by tests/test_torch_nested.py,
+    # the multimodal wave's by tests/test_torch_multimodal.py, test_torch_image.py
+    # and test_torch_media.py
+    waves = (nested.__name__, multimodal.__name__, media.__name__)
+    wave = {n for n, spec in port_reg._REGISTRY.items() if spec.host.__module__ in waves}
     skipped = {"uuid", "monotonically_increasing_id"}
     assert set(port_reg._REGISTRY) - names - wave == skipped
     for name in port_reg._REGISTRY:
@@ -215,7 +217,8 @@ def test_uuid_and_monotonically_increasing_id():
         daft_tpu_torch.from_pydict({"x": [1]}).select(e.alias("m")).to_pydict()
 
 
-# the nested-types wave is ported (tests/test_torch_nested.py)
+# the nested-types wave is ported (tests/test_torch_nested.py), and the
+# multimodal wave (tests/test_torch_multimodal.py, tests/test_torch_image.py)
 LATER = ["image_crop", "image_to_mode", "image_height", "image_width", "dot",
          "cosine_distance", "euclidean_distance", "image_decode", "url_download",
          "tokenize_encode", "minhash", "embedding_norm", "image_resize"]
@@ -223,18 +226,21 @@ LATER = ["image_crop", "image_to_mode", "image_height", "image_width", "dot",
 
 @pytest.mark.parametrize("name", LATER)
 def test_later_wave_names_raise_naming_their_wave(name):
-    assert ref_reg.has_function(name)
-    with pytest.raises(NotImplementedError, match="wave"):
-        daft_tpu_torch.col("t")._fn(name)
+    """Every later wave is ported: each name the reference registers builds
+    an expression, and no wave names it."""
+    assert ref_reg.has_function(name) and port_reg.has_function(name)
+    assert port_reg.later_wave(name) is None
+    assert daft_tpu_torch.col("t")._fn(name).fname == name
 
 
 def test_later_wave_namespaces_and_aggregates_raise():
+    """The multimodal namespaces and the sketch aggregates build (ported:
+    no wave is left to raise)."""
     c = daft_tpu_torch.col("t")
     for ns in ("image", "url", "embedding"):
-        with pytest.raises(NotImplementedError, match="multimodal wave"):
-            getattr(c, ns)
-    with pytest.raises(NotImplementedError, match="sketch wave"):
-        c.approx_count_distinct()
+        assert getattr(c, ns) is not None
+    assert c.approx_count_distinct().op == "approx_count_distinct"
+    assert c.approx_percentile(0.5).op == "approx_percentile"
     # the nested-types wave's namespaces and aggregates build
     for ns in ("list", "struct", "map", "binary", "json"):
         assert getattr(c, ns) is not None

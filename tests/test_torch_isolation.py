@@ -33,7 +33,10 @@
   daft_tpu_torch/ops/_kbuild/, never the reference's library, and import
   none of them either;
 - a temporal query (timestamps on the device stage, in SQL, the zone
-  functions, a Parquet and a CSV round trip) imports none of them either.
+  functions, a Parquet and a CSV round trip) imports none of them either;
+- a multimodal query (PNG files decoded, made fixed-shape and fed to a
+  device UDF, cosine distances grouped on the device stage) and a minhash
+  query import none of them, nor PIL, cv2, tokenizers, soundfile or av.
 """
 
 import datetime
@@ -860,6 +863,60 @@ def test_nested_query_imports_no_jax_pyarrow_or_reference():
     a nested Parquet round trip in a fresh interpreter: no JAX, pyarrow,
     pandas or daft_tpu imported."""
     proc = subprocess.run([sys.executable, "-c", _NESTED_QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+_MULTIMODAL_QUERY = """
+import os, sys, tempfile
+import numpy as np
+sys.path.insert(0, {repo!r})
+import torch
+import daft_tpu_torch as dt
+from daft_tpu_torch import col
+from daft_tpu_torch.core.kernels import png
+from daft_tpu_torch.ops import counters
+rng = np.random.default_rng(24)
+d = tempfile.mkdtemp()
+for i in range(24):
+    h, w, c = int(rng.integers(20, 60)), int(rng.integers(20, 60)), (3, 1, 4)[i % 3]
+    img = rng.integers(0, 256, (h, w, c), dtype=np.uint8)
+    with open(os.path.join(d, f"{{i:02d}}.png"), "wb") as f:
+        f.write(png.encode_png(img) if i != 5 else b"no image")
+w = rng.standard_normal((3, 4)).astype(np.float32)
+emb = dt.func(lambda p, x: x.to(torch.float32).mean(dim=(1, 2)) @ p["w"], on_device=True,
+              return_dtype=dt.DataType.embedding(dt.DataType.float32(), 4),
+              device_params=lambda: {{"w": w}}, device_key="isolation_mm:v1")
+with dt.execution_config_ctx(device="cpu", device_mode="on"):
+    df = dt.from_glob_path(os.path.join(d, "*.png"))
+    df = df.with_column("img", col("path").url.download().image.decode(on_error="null"))
+    df = df.with_column("e", emb(col("img").image.to_fixed_shape("RGB", 16, 16)))
+    df = df.with_column("dist", col("e").embedding.cosine_distance(dt.lit(np.ones(4))))
+    out = df.groupby(col("img").image_channel().alias("c")).agg(
+        col("dist").sum().alias("s"), col("dist").count().alias("n")).sort("c").to_pydict()
+    assert counters.device_grouped_batches >= 1 and counters.device_udf_dispatches >= 1
+    assert sum(out["n"]) == 23, out
+    docs = dt.from_pydict({{"t": ["a b c d", "a b c e", None]}})
+    sig = docs.select(col("t").minhash(num_hashes=8, ngram_size=2).alias("m")).to_pydict()
+    assert sig["m"][2] is None and len(sig["m"][0]) == 8
+    n = docs.agg(col("t").approx_count_distinct().alias("n")).to_pydict()
+    assert n["n"] == [2], n
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow", "pandas", "PIL", "cv2", "tokenizers", "soundfile", "av")
+             or m.startswith(("jax.", "pyarrow.", "pandas.", "daft_tpu.", "PIL.", "cv2.",
+                              "tokenizers.", "soundfile.", "av."))
+             or m == "daft_tpu")
+print("FORBIDDEN", bad)
+"""
+
+
+def test_multimodal_query_imports_no_jax_pyarrow_or_reference():
+    """A small M1 chain (files, decode, fixed shape, a device UDF, distances,
+    a grouped device stage) and a minhash query in a fresh interpreter: no
+    JAX, pyarrow, pandas, daft_tpu, PIL, cv2, tokenizers, soundfile or av
+    imported."""
+    proc = subprocess.run([sys.executable, "-c", _MULTIMODAL_QUERY.format(repo=REPO)],
                           capture_output=True, text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "FORBIDDEN []" in proc.stdout, proc.stdout

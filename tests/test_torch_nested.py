@@ -421,3 +421,85 @@ def test_to_json_and_serialize_text_is_the_references():
                                   m.col("v").serialize().alias("s")).to_pydict())
     assert outs[0] == outs[1]
     assert json.loads(outs[1]["j"][0]) == rows[0]
+
+
+def _fixed_shape_pairs():
+    """The same seeded rows (one null) as each package's fixed-size list,
+    embedding, fixed-shape tensor and fixed-shape image."""
+    rng = np.random.default_rng(24)
+    f = rng.standard_normal((6, 12)).astype(np.float32)
+    u8 = rng.integers(0, 256, (6, 2 * 3 * 2), dtype=np.uint8)
+    out = []
+    for D, S in ((PD, daft_tpu_torch.Series), (RD, daft_tpu.Series)):
+        rows_f = [r.tolist() for r in f]
+        rows_f[2] = None
+        rows_u = [r.tolist() for r in u8]
+        rows_u[2] = None
+        out.append({
+            "fixed_size_list": S.from_pylist(rows_f, "a", D.fixed_size_list(D.float32(), 12)),
+            "embedding": S.from_pylist(rows_f, "a", D.embedding(D.float32(), 12)),
+            "fixed_shape_tensor": S.from_pylist(rows_f, "a",
+                                                D.fixed_shape_tensor(D.float32(), (3, 4))),
+            "fixed_shape_image": S.from_pylist(rows_u, "a", D.fixed_shape_image("RGB", 2, 2)),
+        })
+    return out
+
+
+@pytest.mark.parametrize("kind", ["fixed_size_list", "embedding", "fixed_shape_tensor",
+                                  "fixed_shape_image"])
+def test_fixed_shape_to_numpy_is_dense_as_the_reference(kind):
+    """The port's to_numpy of a fixed-shape column was an object array of
+    Python lists, where the reference gives the dense (n, *shape) array of
+    the element type: the old result differed; now the valid rows are the
+    reference's, the null row zero."""
+    from daft_tpu_torch.core.series import _object_array
+
+    port, ref = (p[kind] for p in _fixed_shape_pairs())
+    want = ref.to_numpy()
+    valid = ref.validity_numpy()
+    old = _object_array(port.to_pylist())
+    assert old.shape != want.shape or old.dtype != want.dtype
+    got = port.to_numpy()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert np.array_equal(got[valid], want[valid])
+    assert not got[~valid].any()
+    if kind != "fixed_size_list":
+        pl, rl = port.to_pylist(), ref.to_pylist()
+        assert [v is None for v in pl] == [v is None for v in rl]
+        assert all(np.array_equal(a, b) and a.dtype == b.dtype
+                   for a, b in zip(pl, rl) if b is not None)
+    else:
+        assert port.to_pylist() == ref.to_pylist()
+
+
+@pytest.mark.parametrize("kind", ["fixed_size_list", "embedding", "fixed_shape_tensor",
+                                  "fixed_shape_image"])
+def test_fixed_shape_columns_go_to_the_device_as_dense_planes(kind):
+    import torch
+
+    from daft_tpu_torch.device.residency import manager
+    from daft_tpu_torch.observability.metrics import registry
+
+    port, _ref = (p[kind] for p in _fixed_shape_pairs())
+    manager().clear()
+    before = registry().get("hbm_h2d_bytes")
+    vals, valid = port.to_device_cached(8, device="cpu")
+    moved = registry().get("hbm_h2d_bytes") - before
+    shape = port.to_numpy().shape[1:]
+    assert tuple(vals.shape) == (8,) + shape and valid.tolist() == [True, True, False, True,
+                                                                    True, True, False, False]
+    assert moved == vals.numel() * vals.element_size() + valid.numel()
+    assert not vals[6:].any() and not vals[2].any()
+    assert torch.equal(vals[:6], torch.from_numpy(port.to_numpy()))
+    again = port.slice(0, len(port))  # a new Series of the same content
+    before = registry().get("hbm_h2d_bytes")
+    again.to_device_cached(8, device="cpu")
+    assert registry().get("hbm_h2d_bytes") == before
+    assert port.content_fingerprint() == again.content_fingerprint()
+
+
+def test_variable_nested_columns_still_have_no_device_plane():
+    for col_ in ("l", "st", "mp"):
+        s = daft_tpu_torch.Series.from_pylist(DATA[col_], col_, _types(PD)[col_])
+        with pytest.raises(ValueError):
+            s.to_device(device="cpu")
