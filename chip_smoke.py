@@ -327,8 +327,9 @@ error (no phase catches its own failure):
             the build in SQL (ARRAY_AGG, LIST_AGG), the explode, N2's
             aggregate in SQL, equal to N2. K1, K2, K3 and K7 held at N2's
             captured inputs ("at_n2_..." rows);
-20e. multimodal: M1: 4,096 seeded PNG files (sides 128-512, 80 % RGB,
-            10 % L, 10 % RGBA, 1 % of no image) written by the port's
+20e. multimodal (the full script: M1 1,024 files, M2 50,000 documents;
+            alone at the sizes below): M1: 4,096 seeded PNG files (sides
+            128-512, 80 % RGB, 10 % L, 10 % RGBA, 1 % of no image) written by the port's
             encoder, then from_glob_path -> url.download -> image.decode
             (on_error="null") -> to_fixed_shape("RGB", 224, 224) -> an
             on_device UDF over the (bucket, 224, 224, 3) uint8 tensor (64
@@ -345,6 +346,24 @@ error (no phase catches its own failure):
             (within alpha of the exact quantiles). The stage's kernels held
             at the inputs M1's and M2's cold runs gave them ("at_m1_...",
             "at_m2_..." rows);
+20f. ingest: J1: 4,096 JPEG files (sides 128-640; RGB 4:2:0 at quality
+            75, 85 or 95, RGB 4:4:4, L, RGB 4:1:1; 41 of no image) written
+            by the port's encoder and a manifest of 4 JSONL shards, then
+            read_json -> url.download -> image.decode(on_error="null") ->
+            to_fixed_shape("RGB", 224, 224) -> M1's device UDF -> cosine
+            distance -> count, mean, min and max by label on the grouped
+            stage (K1, K2, K3, K7): as M1, and the library's JPEG decode
+            equal to the plain one on 256 files and the committed
+            fixtures (PIL's pixels). W1: 4 gzipped WARC files of 4,096
+            request / response pairs (2,048 hosts, 10 % duplicate
+            payloads of Zipf text in mixed scripts), then read_warc -> the
+            responses -> host by str.extract, tokens by tokenize_encode
+            with tests/data/w1_tokenizer.json -> count, sum of tokens and
+            mean content length by host on the grouped stage (K1, K2):
+            equal to "off" and a plain-Python oracle, 0 bytes uploaded
+            warm. Each with its host split and a profile; the stage's
+            kernels held at the inputs the cold runs gave them
+            ("at_j1_...", "at_w1_..." rows);
 20b. tpcds:  the 25 queries of benchmarking/tpcds/queries.py at SF1 over
             tpcds_tables (the reference's generator in numpy), each "off",
             then "on" cold and warm (median of 2), "on" equal to "off";
@@ -389,7 +408,8 @@ Every relational cell runs at SF1: nothing is cut; the ai cells run the
 model at its published widths with its depth uncut. It imports torch,
 numpy and the port; nothing of JAX, pyarrow or daft_tpu.
 
-    python3 chip_smoke.py --phase ooc|window|obs|auto|functions|tpcds|native|temporal|nested|multimodal
+    python3 chip_smoke.py --phase ooc|window|obs|auto|functions|tpcds|native|temporal|nested|
+                                  multimodal|ingest
 
 runs phases 1-3, then that phase alone (ooc, obs and auto write lineitem's
 Parquet files themselves; auto alone computes each cell's "off" result and
@@ -7808,6 +7828,10 @@ MM_FLOATS = ("s", "m", "lo", "hi")
 # refuses their nested operands, and the grouped stage reads their outputs
 MM_HOST_REASONS = ("region: nested operand stays on the host",)
 MM_DOCS = 200_000          # M2's documents
+# the full script runs M1 and M2 at these depths (J1 drives M1's chain at full
+# size after them); --phase multimodal alone runs MM_IMAGES and MM_DOCS
+FULL_MM_IMAGES = 1024
+FULL_MM_DOCS = 50_000
 MM_VOCAB = 5_000           # their vocabulary
 MM_DOC_WORDS = (8, 40)     # words a document
 MM_EDITS = 0.10            # the share that are one-word edits of another document
@@ -7816,8 +7840,8 @@ M3_PERCENTILES = (0.5, 0.9, 0.99)
 M3_ALPHA = 0.01
 
 
-def mm_write_images(root: str, seed: int = MM_SEED) -> dict:
-    """MM_IMAGES PNG files written by the port's encoder (at zlib level
+def mm_write_images(root: str, n: int = MM_IMAGES, seed: int = MM_SEED) -> dict:
+    """``n`` PNG files written by the port's encoder (at zlib level
     MM_PNG_LEVEL) into ``root``: sides
     drawn in MM_SIDES, 80 % RGB, 10 % L, 10 % RGBA, smooth gradients plus
     noise; MM_BAD of them replaced by bytes of no image. Returns the
@@ -7826,7 +7850,6 @@ def mm_write_images(root: str, seed: int = MM_SEED) -> dict:
 
     from daft_tpu_torch.core.kernels import png
 
-    n = MM_IMAGES
     rng = np.random.default_rng(seed)
     hs = rng.integers(MM_SIDES[0], MM_SIDES[1] + 1, n)
     ws = rng.integers(MM_SIDES[0], MM_SIDES[1] + 1, n)
@@ -7947,7 +7970,7 @@ def mm_time(fn) -> float:
     return time.perf_counter() - t0
 
 
-def phase_m1(root: str, card: str, kernel_results: dict) -> dict:
+def phase_m1(root: str, card: str, kernel_results: dict, images: int = MM_IMAGES) -> dict:
     """M1: images from files into the card (see ``phase_multimodal``)."""
     import numpy as np
     import torch
@@ -7959,8 +7982,8 @@ def phase_m1(root: str, card: str, kernel_results: dict) -> dict:
     from daft_tpu_torch.plan import physical as pp
 
     t0 = time.perf_counter()
-    meta = mm_write_images(root)
-    print(f"M1 data: {MM_IMAGES} PNG files ({int(meta['bad'].sum())} of no image), "
+    meta = mm_write_images(root, images)
+    print(f"M1 data: {images} PNG files ({int(meta['bad'].sum())} of no image), "
           f"{meta['bytes']} bytes, written in {time.perf_counter() - t0:.2f} s by the port's "
           f"encoder", flush=True)
     embed = mm_embed_func()
@@ -8082,19 +8105,19 @@ def phase_m1(root: str, card: str, kernel_results: dict) -> dict:
     return {"multimodal_m1": launches}
 
 
-def m2_corpus(seed: int = MM_SEED):
-    """MM_DOCS documents of MM_DOC_WORDS words from a seeded MM_VOCAB-word
+def m2_corpus(n: int = MM_DOCS, seed: int = MM_SEED):
+    """``n`` documents of MM_DOC_WORDS words from a seeded MM_VOCAB-word
     vocabulary; MM_EDITS of them a one-word edit of an earlier document.
     Returns (texts, the (copy, source) pairs)."""
     import numpy as np
 
     rng = np.random.default_rng([seed, 2])
     vocab = np.array([f"w{i:04d}{chr(97 + i % 26)}" for i in range(MM_VOCAB)], dtype=object)
-    lens = rng.integers(MM_DOC_WORDS[0], MM_DOC_WORDS[1] + 1, MM_DOCS)
+    lens = rng.integers(MM_DOC_WORDS[0], MM_DOC_WORDS[1] + 1, n)
     words = rng.integers(0, MM_VOCAB, int(lens.sum()))
     offs = np.concatenate([[0], np.cumsum(lens)])
-    docs = [words[offs[i]:offs[i + 1]] for i in range(MM_DOCS)]
-    copies = np.flatnonzero(rng.random(MM_DOCS) < MM_EDITS)
+    docs = [words[offs[i]:offs[i + 1]] for i in range(n)]
+    copies = np.flatnonzero(rng.random(n) < MM_EDITS)
     copies = copies[copies > 0]
     pairs = []
     for i in copies.tolist():
@@ -8145,7 +8168,7 @@ def m2_band_oracle(sig):
     return (h >> np.uint64(1)).astype(np.int64)
 
 
-def phase_m2(card: str, kernel_results: dict) -> dict:
+def phase_m2(card: str, kernel_results: dict, docs: int = MM_DOCS) -> dict:
     """M2: near-duplicate text (see ``phase_multimodal``)."""
     import numpy as np
 
@@ -8153,8 +8176,8 @@ def phase_m2(card: str, kernel_results: dict) -> dict:
     from daft_tpu_torch import col
 
     t0 = time.perf_counter()
-    texts, pairs = m2_corpus()
-    print(f"M2 data: {MM_DOCS} documents, {len(pairs)} one-word edits, built in "
+    texts, pairs = m2_corpus(docs)
+    print(f"M2 data: {docs} documents, {len(pairs)} one-word edits, built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     docs = dt.from_pydict({"t": texts})
     with dt.execution_config_ctx(device="cpu", device_mode="off"):
@@ -8279,10 +8302,11 @@ def phase_m3(lineitem, card: str) -> None:
           f"{M3_ALPHA}); {pct_s:.3f} s host [{card}]", flush=True)
 
 
-def phase_multimodal(lineitem, card: str, kernel_results: dict) -> dict:
+def phase_multimodal(lineitem, card: str, kernel_results: dict, images: int = MM_IMAGES,
+                     docs: int = MM_DOCS) -> dict:
     """Images, text sketches and the approximate aggregates (items 7d, 7e):
 
-    - M1: MM_IMAGES seeded PNG files written by the port's encoder (1 % of
+    - M1: ``images`` seeded PNG files written by the port's encoder (1 % of
       no image) through from_glob_path, url.download, image.decode
       (on_error="null"), to_fixed_shape("RGB", 224, 224), an on_device UDF
       over the (bucket, 224, 224, 3) uint8 tensor (MM_EMBED f32 features),
@@ -8291,7 +8315,7 @@ def phase_multimodal(lineitem, card: str, kernel_results: dict) -> dict:
       the grouped stage. The UDF's output equals the CPU's within rtol
       1e-5, the result "off" and the oracle (keys and counts bit for bit),
       and a warm run uploads 0 bytes. The host split and one profiled run.
-    - M2: MM_DOCS documents, minhash(32, 3) on the host equal to a numpy /
+    - M2: ``docs`` documents, minhash(32, 3) on the host equal to a numpy /
       hashlib oracle bit for bit, the first band's int64 key, and
       groupby(band).count() on the grouped stage (K1): its candidate pairs
       the oracle's; tokenize_encode("bytes") -> list.length summed.
@@ -8310,16 +8334,674 @@ def phase_multimodal(lineitem, card: str, kernel_results: dict) -> dict:
     paths = {}
     root = tempfile.mkdtemp(prefix="daft_tpu_torch_mm_")
     try:
-        paths.update(phase_m1(root, card, kernel_results))
+        paths.update(phase_m1(root, card, kernel_results, images))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     clear_residency()
     phase("multimodal M2")
-    paths.update(phase_m2(card, kernel_results))
+    paths.update(phase_m2(card, kernel_results, docs))
     phase("multimodal M3")
     phase_m3(lineitem, card)
     clear_residency()
     print(f"multimodal phase {time.perf_counter() - start:.1f} s [{card}]", flush=True)
+    return paths
+
+
+# ---- ingest: a JSONL manifest of JPEGs and a gzipped WARC crawl into the grouped stage --
+
+INGEST_SEED = SEED
+J1_IMAGES = 4096           # J1's manifest rows
+J1_SHARDS = 4              # JSONL shards of J1_IMAGES // J1_SHARDS rows
+J1_SIDES = (128, 640)      # each side drawn in [128, 640] (ImageNet val averages ~400 x 350)
+J1_LABELS = 21             # classes
+J1_BAD = 41                # rows whose bytes are no image (truncated JPEGs, random bytes)
+J1_QUALITIES = (75, 85, 95)
+# the writer's mix: (kind, share); the share left over after J1_BAD is 4:1:1
+J1_MIX = (("4:2:0", 0.80), ("4:4:4", 0.05), ("L", 0.10))
+J1_PLAIN_FILES = 256       # files decoded by the library and by the plain version
+J1_FLOATS = ("m", "lo", "hi")
+J1_WARM_RUNS = 1
+JPEG_FIXTURES = os.path.join(HERE, "tests", "data", "jpeg")
+W1_FILES = 4               # gzipped WARC files
+W1_RESPONSES = 4096        # response records a file (each after its request record;
+                           # 8,192 took the phase to 212 s on an H100 at 700 W, past 180)
+W1_HOSTS = 2048
+W1_PAYLOAD = (1024, 8192)  # each response's text, bytes drawn in this range
+W1_DUPLICATES = 0.10       # the share of responses that repeat an earlier payload exactly
+W1_VOCAB = 20_000          # the seeded Zipf vocabulary's words
+W1_ZIPF = 1.15
+W1_WARM_RUNS = 1
+W1_TOKENIZER = os.path.join(HERE, "tests", "data", "w1_tokenizer.json")
+W1_KERNELS = ("segment_sum_planes",)
+W1_FLOATS = ("mean_len",)
+W1_HOST_REASONS = ("region: nested operand stays on the host",)
+_CRAWL_SCRIPTS = ("abcdefghijklmnopqrstuvwxyz", "àáâäçèéêëíîïñóôöúûüßøå",
+                  "абвгдежзийклмнопрстуфхцчшщъыьэюя", "αβγδεζηθικλμνξοπρστυφχψω",
+                  "的一是不了人我在有他这为之大来以个中上们到说国和地也子时道出而要于就下得可你年生",
+                  "0123456789")
+_CRAWL_PUNCT = (",", ".", "!", "?", ";", ":", "—", "(", ")", "'s", "n't", "🎉", "👍", "…")
+
+
+def j1_image(r, h: int, w: int, c: int):
+    """A seeded smooth image with noise (M1's recipe): (h, w, c) uint8."""
+    import numpy as np
+
+    grad = (np.arange(h, dtype=np.float32)[:, None, None] * r.uniform(-0.4, 0.4, c)
+            + np.arange(w, dtype=np.float32)[None, :, None] * r.uniform(-0.4, 0.4, c)
+            + r.uniform(40, 215, c))
+    return np.clip(grad + r.integers(-6, 7, (h, w, c)), 0, 255).astype(np.uint8)
+
+
+def j1_write(root: str, seed: int = INGEST_SEED) -> dict:
+    """J1's data: J1_IMAGES JPEG files written by the port's encoder (the
+    J1_MIX of RGB 4:2:0 at a quality from J1_QUALITIES, RGB 4:4:4, "L" and
+    the rest RGB 4:1:1) and J1_BAD rows of no image (a JPEG cut short, or
+    random bytes), under ``root``/img; a manifest of J1_SHARDS JSONL shards
+    under ``root``/manifest, a row each: key, path, caption, label, width,
+    height. Returns the oracle's view."""
+    import numpy as np
+
+    from daft_tpu_torch.core.kernels import jpeg
+
+    n = J1_IMAGES
+    rng = np.random.default_rng(seed)
+    hs = rng.integers(J1_SIDES[0], J1_SIDES[1] + 1, n)
+    ws = rng.integers(J1_SIDES[0], J1_SIDES[1] + 1, n)
+    labels = rng.integers(0, J1_LABELS, n)
+    u = rng.random(n)
+    edges = np.cumsum([share for _k, share in J1_MIX])
+    kinds = np.array([k for k, _s in J1_MIX] + ["4:1:1"])[np.searchsorted(edges, u, "right")]
+    quality = rng.choice(J1_QUALITIES, n)
+    bad = np.zeros(n, dtype=bool)
+    bad[rng.choice(n, J1_BAD, replace=False)] = True
+    words = ["photo", "of", "a", "the", "dog", "cat", "red", "small", "on", "street", "with",
+             "tree", "old", "car", "blue", "sky", "near", "river", "two", "people", "house"]
+    os.makedirs(os.path.join(root, "img"), exist_ok=True)
+    os.makedirs(os.path.join(root, "manifest"), exist_ok=True)
+    paths = [os.path.join(root, "img", f"{i:05d}.jpg") for i in range(n)]
+
+    def one(i):
+        r = np.random.default_rng([seed, i])
+        h, w, kind = int(hs[i]), int(ws[i]), str(kinds[i])
+        img = j1_image(r, h, w, 1 if kind == "L" else 3)
+        if kind == "L":
+            data = jpeg.encode_jpeg(img, quality=int(quality[i]))
+        else:
+            data = jpeg.encode_jpeg(img, quality=int(quality[i]), subsampling=kind)
+        if bad[i]:
+            data = data[:int(len(data) * r.uniform(0.2, 0.9))] if i % 2 \
+                else r.integers(0, 256, 2048, dtype=np.uint8).tobytes()
+        with open(paths[i], "wb") as f:
+            f.write(data)
+        return len(data)
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        sizes = list(pool.map(one, range(n)))
+    per = -(-n // J1_SHARDS)
+    for s in range(J1_SHARDS):
+        with open(os.path.join(root, "manifest", f"part-{s}.jsonl"), "w") as f:
+            for i in range(s * per, min(n, (s + 1) * per)):
+                cap = " ".join(words[k] for k in rng.integers(0, len(words), 6))
+                f.write(json.dumps({"key": i, "path": paths[i], "caption": cap,
+                                    "label": int(labels[i]), "width": int(ws[i]),
+                                    "height": int(hs[i])}) + "\n")
+    return {"paths": paths, "labels": labels, "bad": bad, "kinds": kinds,
+            "bytes": int(sum(sizes))}
+
+
+def j1_frame(root: str, embed, upto: str = "agg"):
+    """J1's chain: read_json over the manifest, url.download of each path,
+    image.decode(on_error="null"), to_fixed_shape("RGB", 224, 224), M1's
+    device UDF, embedding.cosine_distance to the fixed query; with
+    ``upto="agg"`` groupby(label) with count, mean, min and max of the
+    distance."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col
+
+    _w, q = mm_projection()
+    df = dt.read_json(os.path.join(root, "manifest"))
+    df = df.with_column("img", col("path").url.download().image.decode(on_error="null"))
+    df = df.with_column("fx", col("img").image.to_fixed_shape("RGB", MM_SIZE, MM_SIZE))
+    df = df.with_column("e", embed(col("fx")))
+    df = df.with_column("dist", col("e").embedding.cosine_distance(dt.lit(q)))
+    if upto != "agg":
+        return df.select("key", "label", "e", "dist")
+    d = col("dist")
+    return df.groupby("label").agg(d.count().alias("n"), d.mean().alias("m"),
+                                   d.min().alias("lo"), d.max().alias("hi")).sort("label")
+
+
+def j1_oracle(meta: dict, dist) -> dict:
+    """J1's grouped result in numpy from the manifest's labels, the rows of
+    no image and the per-row distances ``dist``."""
+    import numpy as np
+
+    out = {"label": [], "n": [], "m": [], "lo": [], "hi": []}
+    for k in sorted(set(meta["labels"].tolist())):
+        sel = (meta["labels"] == k) & ~meta["bad"]
+        v = dist[sel]
+        out["label"].append(int(k))
+        out["n"].append(int(sel.sum()))
+        out["m"].append(float(v.mean()) if len(v) else None)
+        out["lo"].append(float(v.min()) if len(v) else None)
+        out["hi"].append(float(v.max()) if len(v) else None)
+    return out
+
+
+def _jpeg_digest(path: str):
+    """(shape, mode, sha256 of the pixels) of a JPEG file as the port
+    decodes it, or the error's class name."""
+    import hashlib
+
+    from daft_tpu_torch.core.kernels import jpeg
+
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        img = jpeg.decode_jpeg(data)
+    except Exception as e:  # noqa: BLE001  (the class is what is compared)
+        return type(e).__name__
+    return (list(img.pixels.shape), img.mode, hashlib.sha256(img.pixels.tobytes()).hexdigest())
+
+
+def _plain_worker_init(root: str) -> None:
+    sys.path.insert(0, root)
+    os.environ["DAFT_TPU_DISABLE_NATIVE"] = "1"
+
+
+def j1_plain_check(paths, card: str) -> None:
+    """The library's JPEG decode against the plain version's (the Python
+    Huffman loop and the numpy stages, under DAFT_TPU_DISABLE_NATIVE, in
+    spawned processes), bit for bit, on ``paths`` and on the committed
+    fixtures of tests/data/jpeg, whose PIL pixels' digests the fixtures'
+    expected.json holds."""
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing
+
+    with open(os.path.join(JPEG_FIXTURES, "expected.json")) as f:
+        expected = json.load(f)
+    fixtures = [os.path.join(JPEG_FIXTURES, name) for name in sorted(expected)]
+    files = list(paths) + fixtures
+    t0 = time.perf_counter()
+    lib = [_jpeg_digest(p) for p in files]
+    lib_s = time.perf_counter() - t0
+    root = os.path.dirname(os.path.dirname(sys.modules["daft_tpu_torch"].__file__))
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=os.cpu_count() or 4,
+                             mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_plain_worker_init, initargs=(root,)) as pool:
+        plain = list(pool.map(_jpeg_digest, files, chunksize=8))
+    plain_s = time.perf_counter() - t0
+    bad = [p for p, a, b in zip(files, lib, plain) if a != b]
+    check(not bad, f"J1: the library's JPEG decode differs from the plain one on {bad[:3]}")
+    for p in fixtures:
+        want = expected[os.path.basename(p)]
+        got = lib[files.index(p)]
+        check(got == (want["shape"], want["mode"], want["sha256"]) if isinstance(got, tuple)
+              else False, f"J1: fixture {os.path.basename(p)} decodes to {got}, not PIL's "
+                          f"{want}")
+    print(f"J1: the library's JPEG decode equals the plain version bit for bit on "
+          f"{len(paths)} files and {len(fixtures)} fixtures (progressive, restarts, CMYK; "
+          f"their pixels PIL's); library {lib_s:.3f} s on one thread, plain {plain_s:.3f} s "
+          f"on {os.cpu_count()} processes [{card}]", flush=True)
+
+
+def phase_j1(root: str, card: str, kernel_results: dict) -> dict:
+    """J1: a JSONL manifest of JPEGs into the card (see ``phase_ingest``)."""
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.core.kernels import image as imk
+    from daft_tpu_torch.functions import get_function
+    from daft_tpu_torch.io import json as json_io
+    from daft_tpu_torch.ops import udf_stage
+    from daft_tpu_torch.plan import physical as pp
+
+    t0 = time.perf_counter()
+    meta = j1_write(root)
+    kinds = {k: int((meta["kinds"] == k).sum()) for k in sorted(set(meta["kinds"].tolist()))}
+    print(f"J1 data: {J1_IMAGES} JPEG files {kinds} ({J1_BAD} of no image), "
+          f"{meta['bytes']} bytes, and {J1_SHARDS} JSONL shards, written in "
+          f"{time.perf_counter() - t0:.2f} s by the port's encoder", flush=True)
+    j1_plain_check(meta["paths"][:J1_PLAIN_FILES], card)
+    embed = mm_embed_func()
+    with dt_ctx():
+        plan = pp.translate(j1_frame(root, embed).optimized_plan())
+    names = []
+    node = plan
+    while node is not None:
+        names.append(type(node).__name__)
+        node = getattr(node, "input", None)
+    check("DeviceGroupedAgg" in names, f"J1: no DeviceGroupedAgg in the plan {names}")
+    check(any("Udf" in n for n in names), f"J1: no device UDF stage in the plan {names}")
+    print(f"J1 plan: {' <- '.join(names)}", flush=True)
+
+    clear_residency()
+    split, seen = {}, {"e": [], "dist": []}
+
+    def timed(label, fn, keep=None):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                split[label] = split.get(label, 0.0) + time.perf_counter() - t0
+            if keep is not None:
+                seen[keep].append(out)
+            return out
+        return wrapped
+
+    dl_spec, dist_spec = get_function("url_download"), get_function("cosine_distance")
+    real = (json_io._parse_lines, dl_spec.host, dist_spec.host, imk.decode,
+            imk.to_fixed_shape, udf_stage.DeviceUdfRun.feed_batch,
+            udf_stage.DeviceUdfRun.finalize)
+    udf_label = "udf (cold: fingerprint, upload, dispatch, copy back)"
+    json_io._parse_lines = timed("read_json", real[0])
+    dl_spec.host = timed("download", real[1])
+    dist_spec.host = timed("cosine_distance", real[2], "dist")
+    imk.decode = timed("decode", real[3])
+    imk.to_fixed_shape = timed("resize (to_fixed_shape)", real[4])
+    udf_stage.DeviceUdfRun.feed_batch = timed(udf_label, real[5])
+    udf_stage.DeviceUdfRun.finalize = timed(udf_label, real[6], "e")
+
+    def restore():
+        (json_io._parse_lines, dl_spec.host, dist_spec.host, imk.decode, imk.to_fixed_shape,
+         udf_stage.DeviceUdfRun.feed_batch, udf_stage.DeviceUdfRun.finalize) = real
+
+    def cold_oracle():
+        restore()
+        e = np.concatenate([out for out, _valid in seen["e"]]).astype(np.float32)
+        valid = np.concatenate([v for _out, v in seen["e"]])
+        check(np.array_equal(valid, ~meta["bad"]), "J1: the null rows are not the rows of no "
+                                                   "image")
+        paths = dt.Series.from_pylist(meta["paths"][:MM_CHECK_ROWS], "path")
+        fx = imk.to_fixed_shape(imk.decode(real[1]([paths], {}), on_error="null"), "RGB",
+                                MM_SIZE, MM_SIZE)
+        w, q = mm_projection()
+        with torch.inference_mode():
+            cpu = mm_embed_fn({"w": torch.from_numpy(w)},
+                              torch.from_numpy(fx.to_numpy())).numpy()
+        live = valid[:MM_CHECK_ROWS]
+        err = float(np.abs(cpu[live] - e[:MM_CHECK_ROWS][live]).max())
+        check(np.allclose(e[:MM_CHECK_ROWS][live], cpu[live], rtol=1e-5, atol=1e-6),
+              f"J1: the UDF on the card differs from the CPU (max abs err {err:.3g})")
+        print(f"J1: the UDF's {int(live.sum())} first valid rows equal the CPU's within "
+              f"rtol 1e-5 (max abs err {err:.3g})", flush=True)
+        d = dt.Series.concat(seen["dist"])
+        dist = np.where(d.validity_numpy(), d.to_numpy(), np.nan)
+        with np.errstate(invalid="ignore"):
+            want = 1.0 - (e.astype(np.float64) @ q) / (
+                np.linalg.norm(e.astype(np.float64), axis=1) * np.linalg.norm(q))
+        check(np.array_equal(~np.isnan(dist), valid)
+              and np.allclose(dist[valid], want[valid], rtol=1e-12),
+              "J1: cosine_distance differs from numpy's")
+        print("J1 host split of the cold run (s): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split.items()) + f" [{card}]", flush=True)
+        holder["dist"] = dist
+        return j1_oracle(meta, dist)
+
+    def no_warm_uploads(cold, warm):
+        check(warm["hbm_cache_misses"] == 0 and warm["hbm_h2d_bytes"] == 0
+              and warm["device_udf_weight_h2d_bytes"] == 0,
+              f"J1: the warm runs uploaded {warm['hbm_h2d_bytes']} bytes "
+              f"({warm['hbm_cache_misses']} residency misses)")
+        print(f"J1: the warm runs upload {warm['hbm_h2d_bytes']} bytes, "
+              f"{warm['hbm_cache_misses']} residency misses, "
+              f"{warm['hbm_stable_rehits']} planes rebound by their fingerprint", flush=True)
+
+    holder, calls = {}, {}
+    try:
+        # the manifest's shards reach the UDF as several morsels: flush by size
+        # alone, so each run cuts the same UDF batches and a warm run rebinds
+        with dt.execution_config_ctx(batch_latency_ms=SCAN_FLUSH_MS):
+            got, launches = run_cell("J1", lambda: j1_frame(root, embed), MM_KERNELS, card,
+                                     J1_FLOATS, cold_oracle, extra_checks=no_warm_uploads,
+                                     host_reasons=MM_HOST_REASONS, warm_runs=J1_WARM_RUNS,
+                                     captured=calls)
+    finally:
+        restore()
+    oracle = j1_oracle(meta, holder["dist"])
+    check(got["label"] == oracle["label"] and got["n"] == oracle["n"],
+          "J1: labels and counts differ from the oracle")
+    stage_kernel_cases("j1", "J1", calls, MM_KERNELS, kernel_results, card)
+    del calls
+    # the stage alone, warm, over the labels and distances already computed
+    flat = dt.from_pydict({"label": meta["labels"].tolist(), "dist": holder["dist"]})
+    d = dt.col("dist")
+    with dt_ctx():
+        stage = lambda: flat.groupby("label").agg(  # noqa: E731
+            d.count(), d.mean().alias("m"), d.min().alias("lo"), d.max().alias("hi")).to_pydict()
+        stage()
+        print(f"J1 stage alone (warm): {mm_time(stage):.4f} s [{card}]", flush=True)
+    del flat
+    with dt.execution_config_ctx(batch_latency_ms=SCAN_FLUSH_MS):
+        phase_profile(lambda: j1_frame(root, embed).to_pydict(), card, "J1 profile",
+                      host_ops=False)
+    return {"ingest_j1": launches}
+
+
+def crawl_vocabulary(seed: int = INGEST_SEED):
+    """W1_VOCAB seeded words of mixed scripts (Latin with and without
+    accents, Cyrillic, Greek, CJK, digits), a few with punctuation or an
+    emoji attached."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, 1])
+    words = []
+    for i in range(W1_VOCAB):
+        alphabet = _CRAWL_SCRIPTS[i % len(_CRAWL_SCRIPTS)]
+        n = int(rng.integers(1, 4)) if i % len(_CRAWL_SCRIPTS) == 4 else int(rng.integers(1, 10))
+        w = "".join(rng.choice(list(alphabet), n))
+        if i % 17 == 0:
+            w = w.capitalize()
+        if i % 23 == 0:
+            w += str(rng.choice(_CRAWL_PUNCT))
+        words.append(w)
+    return words
+
+
+def crawl_texts(rng, n: int, words):
+    """``n`` texts of W1_PAYLOAD bytes, Zipf-drawn words joined by spaces, a
+    newline every 12th word."""
+    import numpy as np
+
+    vocab = np.array(words, dtype=object)
+    nbytes = np.array([len(w.encode("utf-8")) + 1 for w in words])
+    targets = rng.integers(W1_PAYLOAD[0], W1_PAYLOAD[1] + 1, n)
+    per_word = float(nbytes.mean())
+    draws = (rng.zipf(W1_ZIPF, int(targets.sum() / per_word * 1.5) + 1000) - 1) % len(words)
+    cum = np.cumsum(nbytes[draws])
+    out, start, base = [], 0, 0
+    for t in targets.tolist():
+        stop = int(np.searchsorted(cum, base + t)) + 1
+        seg = vocab[draws[start:stop]].tolist()
+        lines = [" ".join(seg[k:k + 12]) for k in range(0, len(seg), 12)]
+        out.append("\n".join(lines))
+        base = int(cum[stop - 1])
+        start = stop
+    return out
+
+
+def _warc_record(headers: dict, payload: bytes) -> bytes:
+    head = "WARC/1.0\r\n" + "".join(f"{k}: {v}\r\n" for k, v in headers.items()) + \
+        f"Content-Length: {len(payload)}\r\n\r\n"
+    return head.encode("utf-8") + payload + b"\r\n\r\n"
+
+
+def crawl_write(root: str, seed: int = INGEST_SEED) -> dict:
+    """W1's data: W1_FILES gzipped WARC files under ``root``, each a
+    warcinfo record, then W1_RESPONSES request / response pairs, every
+    record its own gzip member (as Common Crawl writes them). A response's
+    payload is an HTTP header and a W1_PAYLOAD text (W1_DUPLICATES of them
+    an earlier payload again); its URI's host one of W1_HOSTS. Returns the
+    oracle's view: each response's host, payload length and text."""
+    import gzip
+
+    import numpy as np
+
+    os.makedirs(root, exist_ok=True)
+    words = crawl_vocabulary(seed)
+    rng = np.random.default_rng([seed, 2])
+    n = W1_FILES * W1_RESPONSES
+    fresh = crawl_texts(rng, n, words)
+    dup = rng.random(n) < W1_DUPLICATES
+    dup[0] = False
+    texts = []
+    for i in range(n):
+        texts.append(texts[int(rng.integers(0, i))] if dup[i] else fresh[i])
+    tlds = ("com", "org", "net", "de", "ru", "cn", "gr", "fr")
+    hosts = [f"site{h:04d}.example.{tlds[h % len(tlds)]}" for h in range(W1_HOSTS)]
+    host_of = (rng.zipf(1.3, n) - 1) % W1_HOSTS
+    scheme = np.where(rng.random(n) < 0.7, "https", "http")
+    payloads = [("HTTP/1.1 200 OK\r\nContent-Type: text/html; charset=utf-8\r\n\r\n" + t)
+                .encode("utf-8") for t in texts]
+
+    def one(f):
+        path = os.path.join(root, f"crawl-{f:02d}.warc.gz")
+        info = f"software: chip_smoke.py\r\nformat: WARC File Format 1.0\r\n".encode()
+        members = [gzip.compress(_warc_record(
+            {"WARC-Type": "warcinfo", "WARC-Date": "2024-05-01T00:00:00Z",
+             "WARC-Record-ID": f"<urn:uuid:info-{f}>", "Content-Type": "application/warc-fields"},
+            info))]
+        for i in range(f * W1_RESPONSES, (f + 1) * W1_RESPONSES):
+            uri = f"{scheme[i]}://{hosts[host_of[i]]}/page/{i}"
+            date = f"2024-05-01T{(i // 3600) % 24:02d}:{(i // 60) % 60:02d}:{i % 60:02d}Z"
+            req = f"GET /page/{i} HTTP/1.1\r\nHost: {hosts[host_of[i]]}\r\n\r\n".encode()
+            members.append(gzip.compress(_warc_record(
+                {"WARC-Type": "request", "WARC-Target-URI": uri, "WARC-Date": date,
+                 "WARC-Record-ID": f"<urn:uuid:req-{i}>",
+                 "Content-Type": "application/http; msgtype=request"}, req)))
+            members.append(gzip.compress(_warc_record(
+                {"WARC-Type": "response", "WARC-Target-URI": uri, "WARC-Date": date,
+                 "WARC-Record-ID": f"<urn:uuid:resp-{i}>",
+                 "Content-Type": "application/http; msgtype=response"}, payloads[i])))
+        with open(path, "wb") as fh:
+            fh.write(b"".join(members))
+        return os.path.getsize(path)
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=W1_FILES) as pool:
+        sizes = list(pool.map(one, range(W1_FILES)))
+    return {"hosts": [hosts[h] for h in host_of.tolist()],
+            "lengths": [len(p) for p in payloads], "payloads": payloads,
+            "duplicates": int(dup.sum()), "bytes": int(sum(sizes))}
+
+
+def crawl_frame(root: str, tokenizer: str = W1_TOKENIZER, upto: str = "agg"):
+    """W1's chain: read_warc, the responses, the host by ``str.extract``,
+    the tokens a response by ``tokenize_encode(<the BPE file>)`` then
+    ``list.length()`` (as int64); with ``upto="agg"`` groupby(host):
+    count, sum of the tokens, mean of the content length."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch import col
+
+    df = dt.read_warc(os.path.join(root, "*.warc.gz"))
+    df = df.where(col("warc_type") == "response")
+    df = df.with_column("host", col("warc_target_uri").str.extract(r"^https?://([^/]+)", 1))
+    # list.length() is uint64, which the grouped stage does not sum: int64 does
+    df = df.with_column("n_tokens", col("content").tokenize_encode(tokenizer).list.length()
+                        .cast(dt.DataType.int64()))
+    if upto != "agg":
+        return df.select("host", "n_tokens", "content_length")
+    return crawl_aggregate(df)
+
+
+def crawl_aggregate(df):
+    from daft_tpu_torch import col
+
+    return df.groupby("host").agg(col("content_length").count().alias("n"),
+                                  col("n_tokens").sum().alias("tokens"),
+                                  col("content_length").mean().alias("mean_len")).sort("host")
+
+
+def _plain_token_counts(texts, tokenizer: str = W1_TOKENIZER) -> list:
+    """The tokens of each text by the tokenizer file's plain reader (a
+    spawned worker of ``crawl_oracle``, DAFT_TPU_DISABLE_NATIVE set)."""
+    from daft_tpu_torch.functions.tokenizer_file import from_file
+
+    tok = from_file(tokenizer)
+    return [len(tok.encode(t)) for t in texts]
+
+
+def crawl_oracle(meta: dict, tokenizer: str = W1_TOKENIZER) -> dict:
+    """W1's result in plain Python over the generated records: per host the
+    responses, their tokens and their mean payload length. The tokens are
+    counted by the tokenizer file's plain reader (the ``re`` split and a
+    dict, under DAFT_TPU_DISABLE_NATIVE, in spawned processes, each
+    distinct payload once), so the host library's split and word table,
+    which the timed path runs, are held to it."""
+    from concurrent.futures import ProcessPoolExecutor
+    import functools
+    import itertools
+    import multiprocessing
+
+    distinct = list(dict.fromkeys(meta["payloads"]))
+    texts = [p.decode("utf-8", "replace") for p in distinct]
+    workers = min(os.cpu_count() or 4, max(1, len(texts)))
+    step = -(-len(texts) // (4 * workers)) or 1
+    root = os.path.dirname(os.path.dirname(sys.modules["daft_tpu_torch"].__file__))
+    with ProcessPoolExecutor(max_workers=workers,
+                             mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_plain_worker_init, initargs=(root,)) as pool:
+        chunks = pool.map(functools.partial(_plain_token_counts, tokenizer=tokenizer),
+                          [texts[i:i + step] for i in range(0, len(texts), step)])
+        counts = dict(zip(distinct, itertools.chain.from_iterable(chunks)))
+    per = {}
+    for host, length, payload in zip(meta["hosts"], meta["lengths"], meta["payloads"]):
+        n, t, s = per.get(host, (0, 0, 0))
+        per[host] = (n + 1, t + counts[payload], s + length)
+    out = {"host": [], "n": [], "tokens": [], "mean_len": []}
+    for host in sorted(per):
+        n, t, s = per[host]
+        out["host"].append(host)
+        out["n"].append(n)
+        out["tokens"].append(t)
+        out["mean_len"].append(s / n)
+    return out
+
+
+def phase_crawl(root: str, card: str, kernel_results: dict) -> dict:
+    """W1: a gzipped Common Crawl shard into the card (see
+    ``phase_ingest``)."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.functions import get_function
+    from daft_tpu_torch.io import warc as warc_io
+
+    t0 = time.perf_counter()
+    meta = crawl_write(root)
+    print(f"W1 data: {W1_FILES} gzipped WARC files, {W1_FILES * W1_RESPONSES} responses "
+          f"({meta['duplicates']} exact duplicates) of {sum(meta['lengths'])} payload bytes "
+          f"over {len(set(meta['hosts']))} hosts, {meta['bytes']} bytes gzipped, written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    oracle = crawl_oracle(meta)
+    print(f"W1 oracle (the plain tokenizer on {os.cpu_count()} processes) "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    del meta
+
+    split = {}
+
+    def timed(label, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                split[label] = split.get(label, 0.0) + time.perf_counter() - t0
+        return wrapped
+
+    tok_spec, ext_spec = get_function("tokenize_encode"), get_function("utf8_extract")
+    real = (warc_io.iter_warc_records, tok_spec.host, ext_spec.host)
+
+    def scan_timed(path):
+        it = real[0](path)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                rec = next(it)
+            except StopIteration:
+                split["scan (gunzip, parse)"] = split.get("scan (gunzip, parse)", 0.0) + \
+                    time.perf_counter() - t0
+                return
+            split["scan (gunzip, parse)"] = split.get("scan (gunzip, parse)", 0.0) + \
+                time.perf_counter() - t0
+            yield rec
+
+    warc_io.iter_warc_records = scan_timed
+    tok_spec.host = timed("tokenize", real[1])
+    ext_spec.host = timed("extract host", real[2])
+
+    def restore():
+        warc_io.iter_warc_records, tok_spec.host, ext_spec.host = real
+
+    def cold_oracle():
+        restore()
+        print("W1 host split of the cold run (s): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split.items()) + f" [{card}]", flush=True)
+        return oracle
+
+    def no_warm_uploads(cold, warm):
+        check(warm["hbm_cache_misses"] == 0 and warm["hbm_h2d_bytes"] == 0,
+              f"W1: the warm runs uploaded {warm['hbm_h2d_bytes']} bytes "
+              f"({warm['hbm_cache_misses']} residency misses)")
+        print(f"W1: the warm runs upload {warm['hbm_h2d_bytes']} bytes, "
+              f"{warm['hbm_cache_misses']} residency misses, "
+              f"{warm['hbm_stable_rehits']} planes rebound by their fingerprint", flush=True)
+
+    calls = {}
+    try:
+        with dt.execution_config_ctx(batch_latency_ms=SCAN_FLUSH_MS):
+            got, launches = run_cell("W1", lambda: crawl_frame(root), W1_KERNELS, card,
+                                     W1_FLOATS, cold_oracle, extra_checks=no_warm_uploads,
+                                     host_reasons=W1_HOST_REASONS, warm_runs=W1_WARM_RUNS,
+                                     captured=calls)
+    finally:
+        restore()
+    check(got["host"] == oracle["host"] and got["n"] == oracle["n"]
+          and got["tokens"] == oracle["tokens"], "W1: hosts, counts or tokens differ from "
+                                                 "the oracle")
+    print(f"W1: {len(got['host'])} hosts, {sum(got['n'])} responses, {sum(got['tokens'])} "
+          f"tokens, equal to the oracle", flush=True)
+    stage_kernel_cases("w1", "W1", calls, W1_KERNELS, kernel_results, card)
+    del calls
+    # the stage alone, warm, over one row per response with its host, tokens and length
+    with dt_ctx():
+        flat = dt.from_pydict(crawl_frame(root, upto="rows").to_pydict())
+        stage = lambda: crawl_aggregate(flat).to_pydict()  # noqa: E731
+        stage()
+        print(f"W1 stage alone (warm): {mm_time(stage):.4f} s [{card}]", flush=True)
+    del flat
+    with dt.execution_config_ctx(batch_latency_ms=SCAN_FLUSH_MS):
+        phase_profile(lambda: crawl_frame(root).to_pydict(), card, "W1 profile",
+                      host_ops=False)
+    return {"ingest_w1": launches}
+
+
+def phase_ingest(card: str, kernel_results: dict) -> dict:
+    """The ingest formats (Queue 1's image codecs and tokenizer files, item
+    2's JSON, text and WARC scans):
+
+    - J1: a JSONL manifest of JPEGs, the shape of an image-caption set.
+      J1_IMAGES JPEG files written by the port's encoder (sides in
+      J1_SIDES; RGB 4:2:0 at quality 75, 85 or 95, RGB 4:4:4, "L", RGB
+      4:1:1; J1_BAD rows of no image) and J1_SHARDS JSONL shards; read_json
+      -> url.download -> image.decode(on_error="null") -> to_fixed_shape
+      ("RGB", 224, 224) -> M1's device UDF -> cosine distance -> groupby
+      (label) with count, mean, min and max on the grouped stage. Held to
+      "off", a numpy oracle, the UDF's CPU run and 0 bytes uploaded warm;
+      the library's JPEG decode to the plain one bit for bit on
+      J1_PLAIN_FILES files and the committed fixtures (PIL's pixels).
+    - W1: a Common Crawl shard, the shape of pretraining data prep.
+      W1_FILES gzipped WARC files of W1_RESPONSES request / response pairs
+      (W1_HOSTS hosts, W1_DUPLICATES exact duplicates, Zipf text of mixed
+      scripts); read_warc -> the responses -> host by str.extract and
+      tokens by tokenize_encode(<the committed BPE file>).list.length() ->
+      groupby(host) with count, sum(tokens) and mean(content_length) on the
+      grouped stage. Held to "off" and a plain-Python oracle whose tokens
+      the tokenizer file's plain reader counts (the host library's split
+      and word table held to it).
+
+    Each prints its host split, cold and warm wall time and a profiled
+    run's device busy time and idle share. Returns {path: the cold run's
+    launches}."""
+    phase("ingest")
+    start = time.perf_counter()
+    clear_residency()
+    paths = {}
+    root = tempfile.mkdtemp(prefix="daft_tpu_torch_ingest_")
+    try:
+        paths.update(phase_j1(os.path.join(root, "j1"), card, kernel_results))
+        clear_residency()
+        phase("ingest W1")
+        paths.update(phase_crawl(os.path.join(root, "w1"), card, kernel_results))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    clear_residency()
+    print(f"ingest phase {time.perf_counter() - start:.1f} s [{card}]", flush=True)
     return paths
 
 
@@ -8342,6 +9024,8 @@ def phase_alone(name: str, lineitem, orders, dims, card: str, kernel_results: di
         return phase_nested(lineitem, card, kernel_results)
     if name == "multimodal":
         return phase_multimodal(lineitem, card, kernel_results)
+    if name == "ingest":
+        return phase_ingest(card, kernel_results)
     frames = scan_tables(lineitem, orders, dims)
     if name == "window":
         return phase_window(lineitem, dims, frames, card)
@@ -8392,7 +9076,7 @@ def main(argv=None) -> int:
                              "(no main path runs, so no launches are counted)")
     parser.add_argument("--phase", choices=("ooc", "window", "obs", "auto", "functions",
                                             "tpcds", "native", "temporal", "nested",
-                                            "multimodal"),
+                                            "multimodal", "ingest"),
                         help="run the card, build, data and kernels phases, then this phase "
                              "alone: ooc (TPC-H under a host memory budget, the external "
                              "sort, the Grace joins), window (W1, W2), obs (EXPLAIN "
@@ -8415,7 +9099,10 @@ def main(argv=None) -> int:
                              "multimodal (M1: PNG files decoded, resized and fed to a "
                              "device UDF, its distances into the grouped stage; M2: minhash "
                              "bands into the grouped stage; M3: the sketch aggregates at "
-                             "SF1)")
+                             "SF1) or ingest (J1: a JSONL manifest of JPEG files decoded, "
+                             "resized and fed to a device UDF, its distances into the "
+                             "grouped stage; W1: gzipped WARC files tokenized with a BPE "
+                             "file, tokens per host on the grouped stage)")
     parser.add_argument("--root", default=HERE,
                         help="the checkout whose daft_tpu_torch is driven (default: the "
                              "one beside this script), e.g. an unpacked parent commit to "
@@ -8522,7 +9209,9 @@ def main(argv=None) -> int:
             paths.update(phase_functions(lineitem, card))
             paths.update(phase_temporal(lineitem, card, kernel_results))
             paths.update(phase_nested(lineitem, card, kernel_results))
-            paths.update(phase_multimodal(lineitem, card, kernel_results))
+            paths.update(phase_multimodal(lineitem, card, kernel_results,
+                                          images=FULL_MM_IMAGES, docs=FULL_MM_DOCS))
+            paths.update(phase_ingest(card, kernel_results))
             tables = tpcds_tables()
             paths.update(phase_tpcds(tables, card))
             tpcds_kernel_cases(tables, kernel_results, card)

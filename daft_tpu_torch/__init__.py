@@ -20,8 +20,9 @@ Out of core: under ``execution_config_ctx(memory_limit_bytes=N)`` the host
 sort, aggregations, join build and windows spill past N bytes (memory/).
 
 Files (io/, no pyarrow): ``df.write_parquet(dir)``, ``dt.read_parquet(dir)``,
-``df.write_csv(dir)``, ``dt.read_csv(dir)``; SQL resolves unbound table
-names through ``dt.current_session()``.
+``df.write_csv(dir)``, ``dt.read_csv(dir)``, ``df.write_json(dir)``,
+``dt.read_json(dir)``, ``dt.read_text(path)``, ``dt.read_warc(path)``; SQL
+resolves unbound table names through ``dt.current_session()``.
 
 Images and files (core/kernels/image.py, png.py, functions/multimodal.py,
 filetype.py): ``dt.from_files("dir/*.png")`` or ``dt.from_glob_path`` then
@@ -45,7 +46,8 @@ from .config import ExecutionConfig, execution_config, execution_config_ctx, \
 from .core.micropartition import MicroPartition
 from .core.recordbatch import RecordBatch
 from .core.series import Series
-from .dataframe.dataframe import DataFrame, GroupedDataFrame, read_csv, read_parquet
+from .dataframe.dataframe import DataFrame, GroupedDataFrame, read_csv, read_json, \
+    read_parquet, read_text, read_warc
 from .datatype import DataType, Field, ImageMode, TimeUnit
 from .expressions.expressions import Expression, col, lit
 from .interop import from_numpy_columns
@@ -103,6 +105,6 @@ __all__ = [
     "Session", "cls", "col", "current_session", "execution_config", "execution_config_ctx",
     "file", "from_files", "from_glob_path", "from_numpy_columns", "from_pydict",
     "from_pylist", "func", "lit", "method",
-    "read_csv", "read_parquet", "set_execution_config", "sql", "sql_expr", "TimeUnit",
-    "udf", "Window",
+    "read_csv", "read_json", "read_parquet", "read_text", "read_warc", "set_execution_config",
+    "sql", "sql_expr", "TimeUnit", "udf", "Window",
 ]

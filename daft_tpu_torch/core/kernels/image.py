@@ -5,14 +5,17 @@ An image column is the reference's struct {data, mode, height, width,
 channels}: each row's raw pixels (uint8, uint16 or float32 by its mode) in
 ``data``, so a fixed-shape column goes to the device as one dense plane
 without decoding again. Where the reference asks PIL and cv2, the port has
-its own code: PNG through core/kernels/png.py (other formats raise
-``NotImplementedError`` naming the ROADMAP entry that brings them), PIL's
+its own code: PNG through core/kernels/png.py and JPEG through
+core/kernels/jpeg.py (other formats raise ``NotImplementedError`` naming
+the ROADMAP entry that brings them; a CMYK JPEG becomes RGB as PIL's
+``convert`` makes it), PIL's
 mode conversions among L, LA, RGB and RGBA in its integer formulas, and
 cv2's ``INTER_LINEAR`` resize, fixed point for uint8 images (11-bit
 weights, a horizontal pass in integers, the vertical pass as cv2's vector
-path rounds it), and an exact 2x downscale as cv2's area average. Images
+path rounds it; in the host library, native.py ``image_resize_u8``), and
+an exact 2x downscale as cv2's area average. Images
 decode, convert and resize on a small thread pool of their own (zlib, the
-host library's unfiltering and numpy's large operations drop the GIL); the
+host library's PNG and JPEG stages and numpy's large operations drop the GIL); the
 results are the sequential loop's, row for row.
 """
 
@@ -24,7 +27,7 @@ import numpy as np
 
 from ...datatype import DataType, ImageMode
 from ..series import Series
-from . import png
+from . import jpeg, png
 
 _MODES = ["L", "LA", "RGB", "RGBA", "L16", "LA16", "RGB16", "RGBA16", "RGB32F", "RGBA32F"]
 _MODE_INDEX = {m: i for i, m in enumerate(_MODES)}
@@ -132,10 +135,18 @@ def unpack_images(series: Series):
 def _decode_one(data: bytes, mode: Optional[str]):
     fmt = png.sniff_format(data)
     if fmt is None:
-        raise ValueError("cannot identify image file")
-    if fmt != "PNG":
+        raise png.ImageDecodeError("cannot identify image file")
+    if fmt == "PNG":
+        img = png.decode_png(data)
+    elif fmt == "JPEG":
+        img = jpeg.decode_jpeg(data)
+        if img.mode == "CMYK":
+            if mode is not None and mode not in _MODE_INDEX:
+                raise ValueError(f"conversion from CMYK to {mode} not supported")
+            # PIL converts CMYK to the other modes by way of RGB
+            img = png.PngImage(jpeg.cmyk_to_rgb(img.pixels), "RGB")
+    else:
         raise png.deferred_format_error(fmt)
-    img = png.decode_png(data)
     target = mode or ("RGB" if img.mode not in _MODE_INDEX else img.mode)
     if img.mode == target:
         px = img.pixels
@@ -167,10 +178,11 @@ def decode(series: Series, mode: Optional[str] = None, on_error: str = "raise") 
 
 def encode(series: Series, image_format: str = "PNG") -> Series:
     """Encode an image column back to bytes (image.py:108-128): PNG at zlib
-    level 6; another format raises ``NotImplementedError`` naming the
-    ROADMAP entry that brings it."""
+    level 6, JPEG as PIL's default save writes it (quality 75, 4:2:0; L
+    and RGB images, others raise as PIL does); another format raises
+    ``NotImplementedError`` naming the ROADMAP entry that brings it."""
     fmt = image_format.upper().replace("JPG", "JPEG")
-    if fmt != "PNG":
+    if fmt not in ("PNG", "JPEG"):
         raise png.deferred_format_error(fmt)
     rows = _rows(series)
 
@@ -178,7 +190,11 @@ def encode(series: Series, image_format: str = "PNG") -> Series:
         if row is None:
             return None
         if row[1] not in _PIL_CONVERTIBLE:
-            raise ValueError(f"cannot encode a {row[1]} image as PNG")
+            raise ValueError(f"cannot encode a {row[1]} image as {fmt}")
+        if fmt == "JPEG":
+            if row[1] not in ("L", "RGB"):
+                raise OSError(f"cannot write mode {row[1]} as JPEG")
+            return jpeg.encode_jpeg(_pixels(row))
         return png.encode_png(_pixels(row))
     out = _map(one, rows)
     for r in out:
@@ -210,26 +226,14 @@ def _taps(src: int, dst: int):
 
 
 def _resize_u8(img: np.ndarray, w: int, h: int) -> np.ndarray:
-    sh, sw, c = img.shape
+    from ... import native
+
+    sh, sw, _c = img.shape
     xs0, xs1, fx = _taps(sw, w)
     ys0, ys1, fy = _taps(sh, h)
     a0 = np.rint((np.float32(1) - fx) * np.float32(_COEF)).astype(np.int32)
-    a1 = _COEF - a0
     b0 = np.rint((np.float32(1) - fy) * np.float32(_COEF)).astype(np.int32)
-    b1 = _COEF - b0
-    rows = np.unique(np.concatenate([ys0, ys1]))
-    src = img[rows].astype(np.int32)
-    # int32 throughout: a row sum is at most 255 x 2048, and b x (row >> 4)
-    # at most 2048 x 32640
-    horiz = src[:, xs0, :] * a0[None, :, None]
-    horiz += src[:, xs1, :] * a1[None, :, None]
-    horiz >>= 4
-    pos0, pos1 = np.searchsorted(rows, ys0), np.searchsorted(rows, ys1)
-    out = (horiz[pos0] * b0[:, None, None]) >> 16
-    out += (horiz[pos1] * b1[:, None, None]) >> 16
-    out += 2
-    out >>= 2
-    return np.clip(out, 0, 255).astype(np.uint8)
+    return native.image_resize_u8(img, xs0, xs1, a0, ys0, ys1, b0)
 
 
 def _resize_float(img: np.ndarray, w: int, h: int) -> np.ndarray:

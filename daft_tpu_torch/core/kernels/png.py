@@ -48,10 +48,16 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
           (1, 0, 2, 2), (0, 1, 1, 2))
 
 # magic numbers of the formats the port does not decode yet (ROADMAP Queue 1)
-_OTHER_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
-                  (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
-DEFERRED_CODECS = ("the image codecs entry of ROADMAP Queue 1 (a JPEG decoder and encoder, "
-                   "then the other formats PIL reads)")
+_OTHER_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
+                  (b"MM\x00*", "TIFF"))
+DEFERRED_CODECS = ("the image codecs entry of ROADMAP Queue 1 (GIF, BMP, TIFF and WebP, the "
+                   "other formats PIL reads)")
+
+
+class ImageDecodeError(OSError, ValueError):
+    """Bytes the port cannot read as an image: an OSError, as PIL's errors
+    are (``UnidentifiedImageError``, "image file is truncated"), and a
+    ValueError, as the port's image decode has always raised."""
 
 
 class PngImage:
@@ -70,10 +76,12 @@ class PngImage:
 
 
 def sniff_format(data: bytes) -> Optional[str]:
-    """"PNG", the name of another image format the port cannot decode yet
-    (JPEG, GIF, BMP, TIFF, WebP), or None for bytes of no known image."""
+    """"PNG", "JPEG", the name of another image format the port cannot
+    decode yet (GIF, BMP, TIFF, WebP), or None for bytes of no known image."""
     if data[:8] == SIGNATURE:
         return "PNG"
+    if data[:3] == b"\xff\xd8\xff":
+        return "JPEG"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
     for magic, name in _OTHER_FORMATS:

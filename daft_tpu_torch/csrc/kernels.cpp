@@ -5,8 +5,11 @@
 // ctypes (daft_tpu_torch/native.py), which drops the GIL for the call.
 //
 // The same exports, arguments and results as the reference's
-// native/src/kernels.cpp, kept as the port's own source, and one export of
-// the port's own: png_unfilter (the PNG codec, core/kernels/png.py). Built at first use
+// native/src/kernels.cpp, kept as the port's own source, and exports of the
+// port's own: png_unfilter (the PNG codec, core/kernels/png.py), the JPEG
+// codec's stages (core/kernels/jpeg.py), cv2's uint8 resize
+// (core/kernels/image.py) and the tokenizer-file reader's split and word
+// cache (functions/tokenizer_file.py). Built at first use
 // by ops/_build.py ``host_library`` with the host compiler (``$CXX``, else
 // ``c++``) into ops/_kbuild/.
 //
@@ -14,8 +17,11 @@
 // buffer is allocated with at least one element (numpy's max(n, 1)), since
 // a kernel writes nothing for n = 0 but takes the pointer.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <mutex>
+#include <shared_mutex>
 #include <vector>
 
 extern "C" {
@@ -640,6 +646,825 @@ int64_t png_unfilter(const uint8_t* raw, int64_t h, int64_t stride, int64_t bpp,
     }
   }
   return 0;
+}
+
+// ---------------------------------------------------------------------------------
+// JPEG (the port's own: the reference leaves JPEG to PIL over libjpeg-turbo).
+// core/kernels/jpeg.py parses the markers; these are the per-pixel stages,
+// each held bit for bit to libjpeg-turbo's decoder (jdhuff.c / jdphuff.c,
+// jidctint.c, jdsample.c, jdcolor.c) and its baseline Huffman encoder.
+// ---------------------------------------------------------------------------------
+
+// zigzag index -> natural index; 16 extra entries of 63 absorb a corrupt run
+// past the end of a block, as libjpeg's jpeg_natural_order does
+static const int kJpegNatural[80] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,  12, 19, 26, 33,
+    40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36,
+    29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54,
+    47, 55, 62, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// a decoding table's int32 layout (built by jpeg.py ``huffman_table``):
+// [0, 256) 8-bit lookahead, (length << 8) | symbol, 0 for a longer code;
+// [256, 274) maxcode by length (-1: none); [274, 292) value offset by
+// length; [292, 548) the symbols
+enum { kHuffInts = 548, kHuffMax = 256, kHuffOff = 274, kHuffVal = 292 };
+
+struct JpegBits {
+  const uint8_t* d;
+  int64_t n, pos, marker;  // marker: index of the 0xFF of the marker that ended the data
+  uint64_t buf;            // MSB-aligned
+  int bits;
+
+  void fill() {
+    while (bits <= 56) {
+      uint64_t b = 0;
+      if (marker < 0 && pos < n) {
+        const uint8_t c = d[pos];
+        if (c == 0xFF) {
+          int64_t q = pos + 1;
+          while (q < n && d[q] == 0xFF) q++;  // fill bytes
+          if (q >= n) {
+            pos = n;
+          } else if (d[q] == 0) {
+            b = 0xFF;
+            pos = q + 1;
+          } else {
+            marker = q - 1;  // past a marker libjpeg reads zeros
+          }
+        } else {
+          b = c;
+          pos++;
+        }
+      }
+      buf |= b << (56 - bits);
+      bits += 8;
+    }
+  }
+  inline uint32_t get(int s) {  // 1 <= s <= 16
+    if (bits < s) fill();
+    const uint32_t v = (uint32_t)(buf >> (64 - s));
+    buf <<= s;
+    bits -= s;
+    return v;
+  }
+  inline int decode(const int32_t* t) {
+    if (bits < 16) fill();
+    const int32_t e = t[buf >> 56];
+    if (e) {
+      const int l = e >> 8;
+      buf <<= l;
+      bits -= l;
+      return e & 0xFF;
+    }
+    const int32_t code16 = (int32_t)(buf >> 48);
+    for (int l = 9; l <= 16; l++) {
+      const int32_t code = code16 >> (16 - l);
+      if (code <= t[kHuffMax + l]) {
+        buf <<= l;
+        bits -= l;
+        return t[kHuffVal + ((t[kHuffOff + l] + code) & 0xFF)];
+      }
+    }
+    buf <<= 16;  // a bad code: libjpeg warns, reads 16 bits and gives symbol 0
+    bits -= 16;
+    return 0;
+  }
+  void restart() {  // drop the padding bits and read an RSTn marker
+    buf = 0;
+    bits = 0;
+    if (marker < 0) {
+      while (pos + 1 < n && !(d[pos] == 0xFF && d[pos + 1] != 0 && d[pos + 1] != 0xFF)) pos++;
+      if (pos + 1 >= n) {
+        pos = n;
+        return;
+      }
+      marker = pos;
+    }
+    if (d[marker + 1] >= 0xD0 && d[marker + 1] <= 0xD7) {
+      pos = marker + 2;
+      marker = -1;
+    }
+  }
+};
+
+static inline int jpeg_extend(uint32_t v, int s) {
+  return s == 0 ? 0 : ((int)v < (1 << (s - 1)) ? (int)v - (1 << s) + 1 : (int)v);
+}
+
+// One scan's entropy-coded data, from data[pos], into the coefficient
+// blocks (int16, natural order, zeroed before the first scan). params:
+// [progressive, Ss, Se, Ah, Al, restart interval, components in the scan,
+// MCUs per row, MCU rows], then per component of the scan: [offset of its
+// blocks in coefs (in blocks), blocks per row allocated, h, v, DC table,
+// AC table (0-3 each), blocks per row, block rows]. A scan of one
+// component walks its own blocks; an interleaved scan walks MCUs. huff
+// holds 8 tables: DC 0-3, then AC 0-3. Returns the index where the data
+// stopped: the 0xFF of the marker after it, or n at the end of the bytes.
+int64_t jpeg_decode_scan(const uint8_t* data, int64_t n, int64_t pos, const int32_t* params,
+                         const int32_t* huff, int16_t* coefs) {
+  const int prog = params[0], ss = params[1], se = params[2], ah = params[3], al = params[4];
+  const int64_t ri = params[5];
+  const int nc = params[6];
+  const int64_t mcus_x = params[7], mcus_y = params[8];
+  const int32_t* comp = params + 9;
+  JpegBits br{data, n, pos, -1, 0, 0};
+  int pred[4] = {0, 0, 0, 0};
+  int64_t eobrun = 0;
+  const int p1 = 1 << al, m1 = -1 * (1 << al);
+
+  auto block = [&](int c, int64_t bx, int64_t by) {
+    const int32_t* cp = comp + 8 * c;
+    int16_t* blk = coefs + (cp[0] + by * cp[1] + bx) * 64;
+    const int32_t* dct = huff + cp[4] * kHuffInts;
+    const int32_t* act = huff + (4 + cp[5]) * kHuffInts;
+    if (!prog) {
+      const int s = br.decode(dct);
+      pred[c] += s ? jpeg_extend(br.get(s), s) : 0;
+      blk[0] = (int16_t)pred[c];
+      for (int k = 1; k < 64; k++) {
+        const int rs = br.decode(act);
+        const int r = rs >> 4, s2 = rs & 15;
+        if (s2) {
+          k += r;
+          blk[kJpegNatural[k]] = (int16_t)jpeg_extend(br.get(s2), s2);
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
+      }
+      return;
+    }
+    if (ss == 0) {  // DC scans (interleaved or not)
+      if (ah == 0) {
+        const int s = br.decode(dct);
+        pred[c] += s ? jpeg_extend(br.get(s), s) : 0;
+        blk[0] = (int16_t)(pred[c] * (1 << al));
+      } else if (br.get(1)) {
+        blk[0] = (int16_t)(blk[0] | p1);
+      }
+      return;
+    }
+    if (ah == 0) {  // AC first
+      if (eobrun > 0) {
+        eobrun--;
+        return;
+      }
+      for (int k = ss; k <= se; k++) {
+        const int rs = br.decode(act);
+        const int r = rs >> 4, s = rs & 15;
+        if (s) {
+          k += r;
+          blk[kJpegNatural[k]] = (int16_t)(jpeg_extend(br.get(s), s) * (1 << al));
+        } else {
+          if (r == 15) {
+            k += 15;
+          } else {
+            eobrun = 1 << r;
+            if (r) eobrun += br.get(r);
+            eobrun--;
+            break;
+          }
+        }
+      }
+      return;
+    }
+    // AC refinement (jdphuff.c decode_mcu_AC_refine)
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; k++) {
+        const int rs = br.decode(act);
+        int r = rs >> 4;
+        int s = rs & 15;
+        if (s) {
+          s = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.get(r);
+          break;
+        }
+        do {
+          int16_t* co = blk + kJpegNatural[k];
+          if (*co != 0) {
+            if (br.get(1)) {
+              if ((*co & p1) == 0) *co = (int16_t)(*co >= 0 ? *co + p1 : *co + m1);
+            }
+          } else {
+            if (--r < 0) break;
+          }
+          k++;
+        } while (k <= se);
+        if (s) blk[kJpegNatural[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; k++) {
+        int16_t* co = blk + kJpegNatural[k];
+        if (*co != 0) {
+          if (br.get(1)) {
+            if ((*co & p1) == 0) *co = (int16_t)(*co >= 0 ? *co + p1 : *co + m1);
+          }
+        }
+      }
+      eobrun--;
+    }
+  };
+
+  const int64_t total = nc == 1 ? (int64_t)comp[6] * comp[7] : mcus_x * mcus_y;
+  for (int64_t m = 0; m < total; m++) {
+    if (ri > 0 && m > 0 && m % ri == 0) {
+      br.restart();
+      pred[0] = pred[1] = pred[2] = pred[3] = 0;
+      eobrun = 0;
+    }
+    if (nc == 1) {
+      block(0, m % comp[6], m / comp[6]);
+      continue;
+    }
+    const int64_t mx = m % mcus_x, my = m / mcus_x;
+    for (int c = 0; c < nc; c++) {
+      const int h = comp[8 * c + 2], v = comp[8 * c + 3];
+      for (int y = 0; y < v; y++)
+        for (int x = 0; x < h; x++) block(c, mx * h + x, my * v + y);
+    }
+  }
+  if (br.marker >= 0) return br.marker;
+  int64_t q = br.pos;  // the padding and any stray bytes before the next marker
+  while (q + 1 < n && !(data[q] == 0xFF && data[q + 1] != 0 && data[q + 1] != 0xFF)) q++;
+  return q + 1 < n ? q : n;
+}
+
+// libjpeg's islow IDCT (jidctint.c, CONST_BITS 13, PASS1_BITS 2) over bw x bh
+// blocks of a component (stride blocks a row in coefs), dequantized by the
+// natural-order table qt, into an (8 bh, 8 bw) plane. The output is
+// clamped to 0-255, as libjpeg-turbo's SIMD path saturates it.
+void jpeg_idct(const int16_t* coefs, int64_t stride, int64_t bw, int64_t bh, const uint16_t* qt,
+               uint8_t* out) {
+  const int64_t ow = bw * 8;
+  for (int64_t by = 0; by < bh; by++) {
+    for (int64_t bx = 0; bx < bw; bx++) {
+      const int16_t* in = coefs + (by * stride + bx) * 64;
+      int64_t ws[64];
+      for (int c = 0; c < 8; c++) {
+        const int16_t* ip = in + c;
+        const uint16_t* q = qt + c;
+        if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 && ip[40] == 0 &&
+            ip[48] == 0 && ip[56] == 0) {
+          const int64_t dc = (int64_t)ip[0] * q[0] * 4;
+          for (int r = 0; r < 8; r++) ws[r * 8 + c] = dc;
+          continue;
+        }
+        int64_t z2 = (int64_t)ip[16] * q[16], z3 = (int64_t)ip[48] * q[48];
+        int64_t z1 = (z2 + z3) * 4433;
+        const int64_t t2 = z1 + z3 * -15137, t3 = z1 + z2 * 6270;
+        z2 = (int64_t)ip[0] * q[0];
+        z3 = (int64_t)ip[32] * q[32];
+        const int64_t t0 = (z2 + z3) * 8192, t1 = (z2 - z3) * 8192;
+        const int64_t t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
+        int64_t o0 = (int64_t)ip[56] * q[56], o1 = (int64_t)ip[40] * q[40];
+        int64_t o2 = (int64_t)ip[24] * q[24], o3 = (int64_t)ip[8] * q[8];
+        z1 = o0 + o3;
+        z2 = o1 + o2;
+        z3 = o0 + o2;
+        int64_t z4 = o1 + o3;
+        const int64_t z5 = (z3 + z4) * 9633;
+        o0 *= 2446;
+        o1 *= 16819;
+        o2 *= 25172;
+        o3 *= 12299;
+        z1 *= -7373;
+        z2 *= -20995;
+        z3 *= -16069;
+        z4 *= -3196;
+        z3 += z5;
+        z4 += z5;
+        o0 += z1 + z3;
+        o1 += z2 + z4;
+        o2 += z2 + z3;
+        o3 += z1 + z4;
+        const int64_t rnd = 1 << 10;
+        ws[0 * 8 + c] = (t10 + o3 + rnd) >> 11;
+        ws[7 * 8 + c] = (t10 - o3 + rnd) >> 11;
+        ws[1 * 8 + c] = (t11 + o2 + rnd) >> 11;
+        ws[6 * 8 + c] = (t11 - o2 + rnd) >> 11;
+        ws[2 * 8 + c] = (t12 + o1 + rnd) >> 11;
+        ws[5 * 8 + c] = (t12 - o1 + rnd) >> 11;
+        ws[3 * 8 + c] = (t13 + o0 + rnd) >> 11;
+        ws[4 * 8 + c] = (t13 - o0 + rnd) >> 11;
+      }
+      for (int r = 0; r < 8; r++) {
+        const int64_t* w = ws + r * 8;
+        uint8_t* op = out + (by * 8 + r) * ow + bx * 8;
+        auto lim = [](int64_t v) -> uint8_t {
+          v += 128;
+          return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+        };
+        int64_t z2 = w[2], z3 = w[6];
+        int64_t z1 = (z2 + z3) * 4433;
+        const int64_t t2 = z1 + z3 * -15137, t3 = z1 + z2 * 6270;
+        const int64_t t0 = (w[0] + w[4]) * 8192, t1 = (w[0] - w[4]) * 8192;
+        const int64_t t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
+        int64_t o0 = w[7], o1 = w[5], o2 = w[3], o3 = w[1];
+        z1 = o0 + o3;
+        z2 = o1 + o2;
+        z3 = o0 + o2;
+        int64_t z4 = o1 + o3;
+        const int64_t z5 = (z3 + z4) * 9633;
+        o0 *= 2446;
+        o1 *= 16819;
+        o2 *= 25172;
+        o3 *= 12299;
+        z1 *= -7373;
+        z2 *= -20995;
+        z3 *= -16069;
+        z4 *= -3196;
+        z3 += z5;
+        z4 += z5;
+        o0 += z1 + z3;
+        o1 += z2 + z4;
+        o2 += z2 + z3;
+        o3 += z1 + z4;
+        const int64_t rnd = (int64_t)1 << 17;
+        op[0] = lim((t10 + o3 + rnd) >> 18);
+        op[7] = lim((t10 - o3 + rnd) >> 18);
+        op[1] = lim((t11 + o2 + rnd) >> 18);
+        op[6] = lim((t11 - o2 + rnd) >> 18);
+        op[2] = lim((t12 + o1 + rnd) >> 18);
+        op[5] = lim((t12 - o1 + rnd) >> 18);
+        op[3] = lim((t13 + o0 + rnd) >> 18);
+        op[4] = lim((t13 - o0 + rnd) >> 18);
+      }
+    }
+  }
+}
+
+// A component's samples (dw x dh real, rows of in_stride bytes) brought up
+// to the frame's sampling, hf x vf, into an (out_h, out_w) plane as
+// jdsample.c does: fancy (triangle) filters for h2v1, h1v2 and h2v2
+// (h2 only where dw > 2), replication for every other integral factor. A
+// row past dh reads the last real row, as jdmainct.c's context does.
+void jpeg_upsample(const uint8_t* in, int64_t in_stride, int64_t dw, int64_t dh, int64_t hf,
+                   int64_t vf, uint8_t* out, int64_t out_w, int64_t out_h) {
+  std::vector<uint8_t> line((size_t)(dw * hf + 16));
+  auto row = [&](int64_t r) { return in + (r < 0 ? 0 : (r >= dh ? dh - 1 : r)) * in_stride; };
+  const bool fancy_h = hf == 2 && dw > 2;
+  const bool fancy_v = vf == 2 && (hf == 1 || fancy_h);
+  for (int64_t y = 0; y < out_h; y++) {
+    const int64_t r = y / vf;
+    const uint8_t* near = row(r);
+    uint8_t* l = line.data();
+    if (fancy_v && hf == 2) {
+      const uint8_t* far = (y & 1) ? row(r + 1) : row(r - 1);
+      int prev = near[0] * 3 + far[0], cur = prev;
+      for (int64_t i = 0; i < dw; i++) {
+        const int next = i + 1 < dw ? near[i + 1] * 3 + far[i + 1] : cur;
+        if (i == 0) {
+          l[0] = (uint8_t)((cur * 4 + 8) >> 4);
+        } else {
+          l[2 * i] = (uint8_t)((cur * 3 + prev + 8) >> 4);
+        }
+        if (i + 1 < dw) {
+          l[2 * i + 1] = (uint8_t)((cur * 3 + next + 7) >> 4);
+        } else {
+          l[2 * i + 1] = (uint8_t)((cur * 4 + 7) >> 4);
+        }
+        prev = cur;
+        cur = next;
+      }
+    } else if (fancy_v) {  // h1v2
+      const uint8_t* far = (y & 1) ? row(r + 1) : row(r - 1);
+      const int bias = (y & 1) ? 2 : 1;
+      for (int64_t i = 0; i < dw; i++) l[i] = (uint8_t)((near[i] * 3 + far[i] + bias) >> 2);
+    } else if (fancy_h && vf == 1) {  // h2v1
+      for (int64_t i = 0; i < dw; i++) {
+        const int v3 = near[i] * 3;
+        l[2 * i] = i == 0 ? near[0] : (uint8_t)((v3 + near[i - 1] + 1) >> 2);
+        l[2 * i + 1] = i + 1 < dw ? (uint8_t)((v3 + near[i + 1] + 2) >> 2) : near[i];
+      }
+    } else {
+      for (int64_t i = 0; i < dw; i++)
+        for (int64_t k = 0; k < hf; k++) l[i * hf + k] = near[i];
+    }
+    std::memcpy(out + y * out_w, l, (size_t)out_w);
+  }
+}
+
+// Full-size planes (npix samples each) to PIL's pixels: space 0 YCbCr ->
+// RGB (jdcolor.c's 16-bit fixed-point tables), 1 RGB kept, 2 CMYK and 3
+// YCCK -> CMYK, both then inverted as PIL's "CMYK;I" reads Adobe's CMYK.
+void jpeg_color(const uint8_t* p0, const uint8_t* p1, const uint8_t* p2, const uint8_t* p3,
+                int64_t npix, int64_t space, uint8_t* out) {
+  static int cr_r[256], cb_b[256];
+  static int64_t cr_g[256], cb_g[256];
+  static const bool ready = [] {
+    const int64_t half = (int64_t)1 << 15;
+    for (int i = 0; i < 256; i++) {
+      const int64_t x = i - 128;
+      cr_r[i] = (int)((91881 * x + half) >> 16);   // FIX(1.40200)
+      cb_b[i] = (int)((116130 * x + half) >> 16);  // FIX(1.77200)
+      cr_g[i] = -46802 * x;                        // FIX(0.71414)
+      cb_g[i] = -22554 * x + half;                 // FIX(0.34414)
+    }
+    return true;
+  }();
+  (void)ready;
+  auto lim = [](int v) -> uint8_t { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v)); };
+  for (int64_t i = 0; i < npix; i++) {
+    if (space == 0 || space == 3) {
+      const int y = p0[i], cb = p1[i], cr = p2[i];
+      const int r = lim(y + cr_r[cr]);
+      const int g = lim(y + (int)((cb_g[cb] + cr_g[cr]) >> 16));
+      const int b = lim(y + cb_b[cb]);
+      if (space == 0) {
+        out[3 * i] = (uint8_t)r;
+        out[3 * i + 1] = (uint8_t)g;
+        out[3 * i + 2] = (uint8_t)b;
+      } else {  // libjpeg gives 255 - rgb; PIL inverts it back
+        out[4 * i] = (uint8_t)r;
+        out[4 * i + 1] = (uint8_t)g;
+        out[4 * i + 2] = (uint8_t)b;
+        out[4 * i + 3] = (uint8_t)(255 - p3[i]);
+      }
+    } else if (space == 1) {
+      out[3 * i] = p0[i];
+      out[3 * i + 1] = p1[i];
+      out[3 * i + 2] = p2[i];
+    } else {
+      out[4 * i] = (uint8_t)(255 - p0[i]);
+      out[4 * i + 1] = (uint8_t)(255 - p1[i]);
+      out[4 * i + 2] = (uint8_t)(255 - p2[i]);
+      out[4 * i + 3] = (uint8_t)(255 - p3[i]);
+    }
+  }
+}
+
+// The baseline Huffman encoder: quantized blocks (int16, natural order) in
+// MCU order into entropy-coded bytes with 0xFF stuffing, padded with 1 bits.
+// params: [components, MCUs per row, MCU rows], then per component [offset
+// of its blocks (in blocks), blocks per row allocated, h, v, DC table, AC
+// table]; ehuf holds 4 tables (DC 0-1, AC 0-1) of 256 codes then 256
+// lengths. Returns the bytes written, or -1 when cap is too small.
+int64_t jpeg_encode_scan(const int16_t* coefs, const int32_t* params, const int32_t* ehuf,
+                         uint8_t* out, int64_t cap) {
+  const int nc = params[0];
+  const int64_t mcus_x = params[1], mcus_y = params[2];
+  const int32_t* comp = params + 3;
+  uint64_t acc = 0;
+  int nbits = 0;
+  int64_t o = 0;
+  bool over = false;
+  auto put = [&](uint32_t code, int size) {
+    acc = (acc << size) | (code & ((1u << size) - 1));
+    nbits += size;
+    while (nbits >= 8) {
+      const uint8_t b = (uint8_t)(acc >> (nbits - 8));
+      nbits -= 8;
+      if (o + 2 > cap) {
+        over = true;
+        return;
+      }
+      out[o++] = b;
+      if (b == 0xFF) out[o++] = 0;
+    }
+  };
+  int pred[4] = {0, 0, 0, 0};
+  for (int64_t m = 0; m < mcus_x * mcus_y && !over; m++) {
+    const int64_t mx = m % mcus_x, my = m / mcus_x;
+    for (int c = 0; c < nc; c++) {
+      const int32_t* cp = comp + 6 * c;
+      const int32_t* dc = ehuf + cp[4] * 512;
+      const int32_t* ac = ehuf + (2 + cp[5]) * 512;
+      for (int y = 0; y < cp[3]; y++) {
+        for (int x = 0; x < cp[2]; x++) {
+          const int16_t* blk = coefs + (cp[0] + (my * cp[3] + y) * cp[1] + mx * cp[2] + x) * 64;
+          int t = blk[0] - pred[c], t2 = t;
+          pred[c] = blk[0];
+          if (t < 0) {
+            t = -t;
+            t2--;
+          }
+          int s = 0;
+          while (t) {
+            s++;
+            t >>= 1;
+          }
+          put((uint32_t)dc[s], dc[256 + s]);
+          if (s) put((uint32_t)t2, s);
+          int r = 0;
+          for (int k = 1; k < 64; k++) {
+            int v = blk[kJpegNatural[k]];
+            if (v == 0) {
+              r++;
+              continue;
+            }
+            while (r > 15) {
+              put((uint32_t)ac[0xF0], ac[256 + 0xF0]);
+              r -= 16;
+            }
+            int v2 = v;
+            if (v < 0) {
+              v = -v;
+              v2--;
+            }
+            int sz = 0;
+            while (v) {
+              sz++;
+              v >>= 1;
+            }
+            const int sym = (r << 4) + sz;
+            put((uint32_t)ac[sym], ac[256 + sym]);
+            put((uint32_t)v2, sz);
+            r = 0;
+          }
+          if (r > 0) put((uint32_t)ac[0], ac[256]);
+        }
+      }
+    }
+  }
+  if (!over) put(0x7F, 7);  // libjpeg's flush: seven 1 bits, the rest dropped
+  return over ? -1 : o;
+}
+
+// GPT-2's pre-tokenizer split ('s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+|
+// ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+) over n code points: cls gives each code
+// point's class (0 other, 1 letter, 2 number, 3 whitespace as Oniguruma's
+// \s). Writes each word's end into ends; returns the number of words.
+static int64_t gpt2_split(const uint32_t* cp, int64_t n, const uint8_t* cls, int64_t* ends) {
+  auto k = [&](int64_t i) -> int { return cp[i] < 0x110000 ? cls[cp[i]] : 0; };
+  int64_t i = 0, m = 0;
+  while (i < n) {
+    const uint32_t c = cp[i];
+    if (c == '\'' && i + 1 < n) {
+      const uint32_t a = cp[i + 1];
+      if (a == 's' || a == 't' || a == 'm' || a == 'd') {
+        ends[m++] = i + 2;
+        i += 2;
+        continue;
+      }
+      if (i + 2 < n) {
+        const uint32_t b = cp[i + 2];
+        if ((a == 'r' && b == 'e') || (a == 'v' && b == 'e') || (a == 'l' && b == 'l')) {
+          ends[m++] = i + 3;
+          i += 3;
+          continue;
+        }
+      }
+    }
+    int64_t j;
+    const int t = k(i);
+    if (c == ' ' && i + 1 < n && k(i + 1) != 3) {  // an optional space, then a run
+      const int t1 = k(i + 1);
+      j = i + 2;
+      while (j < n && k(j) == t1) j++;
+    } else if (t != 3) {
+      j = i + 1;
+      while (j < n && k(j) == t) j++;
+    } else {  // whitespace: all of it at the end, else all but the last before a word
+      j = i + 1;
+      while (j < n && k(j) == 3) j++;
+      if (j < n && j - i >= 2) j--;
+    }
+    ends[m++] = j;
+    i = j;
+  }
+  return m;
+}
+
+// The encoder's islow FDCT (jfdctint.c) and libjpeg-turbo's reciprocal
+// quantization (jcdctmgr.c, its 16-bit SIMD build) of every block of an
+// (8 bh, 8 bw) plane of samples; quant holds 64 reciprocals, 64
+// corrections and 64 shifts (natural order). Writes (bh, bw, 64) int16
+// coefficients, natural order.
+void jpeg_fdct_quant(const uint8_t* plane, int64_t bw, int64_t bh, const int32_t* quant,
+                     int16_t* out) {
+  const int64_t stride = bw * 8;
+  for (int64_t by = 0; by < bh; by++) {
+    for (int64_t bx = 0; bx < bw; bx++) {
+      int64_t d[64];
+      for (int r = 0; r < 8; r++)
+        for (int c = 0; c < 8; c++) d[r * 8 + c] = (int64_t)plane[(by * 8 + r) * stride + bx * 8 + c] - 128;
+      for (int pass = 0; pass < 2; pass++) {
+        const int step = pass == 0 ? 1 : 8;   // along a row, then down a column
+        const int next = pass == 0 ? 8 : 1;
+        const int sh = pass == 0 ? 11 : 15;
+        for (int line = 0; line < 8; line++) {
+          int64_t* p = d + line * next;
+          const int64_t t0 = p[0] + p[7 * step], t7 = p[0] - p[7 * step];
+          const int64_t t1 = p[step] + p[6 * step], t6 = p[step] - p[6 * step];
+          const int64_t t2 = p[2 * step] + p[5 * step], t5 = p[2 * step] - p[5 * step];
+          const int64_t t3 = p[3 * step] + p[4 * step], t4 = p[3 * step] - p[4 * step];
+          const int64_t t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
+          if (pass == 0) {
+            p[0] = (t10 + t11) * 4;
+            p[4 * step] = (t10 - t11) * 4;
+          } else {
+            p[0] = (t10 + t11 + 2) >> 2;
+            p[4 * step] = (t10 - t11 + 2) >> 2;
+          }
+          const int64_t rnd = (int64_t)1 << (sh - 1);
+          int64_t z1 = (t12 + t13) * 4433;
+          p[2 * step] = (z1 + t13 * 6270 + rnd) >> sh;
+          p[6 * step] = (z1 + t12 * -15137 + rnd) >> sh;
+          z1 = t4 + t7;
+          int64_t z2 = t5 + t6, z3 = t4 + t6, z4 = t5 + t7;
+          const int64_t z5 = (z3 + z4) * 9633;
+          z1 *= -7373;
+          z2 *= -20995;
+          z3 = z3 * -16069 + z5;
+          z4 = z4 * -3196 + z5;
+          p[7 * step] = (t4 * 2446 + z1 + z3 + rnd) >> sh;
+          p[5 * step] = (t5 * 16819 + z2 + z4 + rnd) >> sh;
+          p[3 * step] = (t6 * 25172 + z2 + z3 + rnd) >> sh;
+          p[step] = (t7 * 12299 + z1 + z4 + rnd) >> sh;
+        }
+      }
+      int16_t* o = out + (by * bw + bx) * 64;
+      for (int i = 0; i < 64; i++) {
+        const int64_t v = d[i];
+        const int64_t m = (((v < 0 ? -v : v) + quant[64 + i]) * quant[i]) >> quant[128 + i];
+        o[i] = (int16_t)(v < 0 ? -m : m);
+      }
+    }
+  }
+}
+
+// A cache of BPE words for the tokenizer-file reader: each word's code
+// points to its ids, in an open-addressed table over two flat pools, emptied
+// when it holds max_words words. bpe_encode splits a text as gpt2_split does
+// and looks every word up; the words it misses go back to the caller, which
+// merges them (functions/tokenizer_file.py), fills them in and puts them in.
+struct BpeCache {
+  struct Slot {
+    uint64_t hash;
+    int64_t key_off, ids_off;
+    int32_t key_len, ids_len;  // key_len < 0: an empty slot
+  };
+  std::vector<uint32_t> keys;
+  std::vector<int32_t> ids;
+  std::vector<Slot> slots;
+  int64_t used = 0;
+  const int64_t max_words;
+  std::shared_mutex mu;
+
+  explicit BpeCache(int64_t max_words) : max_words(max_words > 0 ? max_words : 1) { reset(); }
+  void reset() {
+    keys.clear();
+    ids.clear();
+    slots.assign((size_t)1 << 12, Slot{0, 0, 0, -1, 0});
+    used = 0;
+  }
+  static uint64_t hash(const uint32_t* cp, int64_t n) {
+    uint64_t h = 1469598103934665603ULL;
+    for (int64_t i = 0; i < n; i++) h = (h ^ cp[i]) * 1099511628211ULL;
+    return h;
+  }
+  const Slot* find(const uint32_t* cp, int64_t n, uint64_t h) const {
+    const size_t mask = slots.size() - 1;
+    for (size_t i = (size_t)h & mask;; i = (i + 1) & mask) {
+      const Slot& s = slots[i];
+      if (s.key_len < 0) return nullptr;
+      if (s.hash == h && s.key_len == n &&
+          std::memcmp(keys.data() + s.key_off, cp, (size_t)n * 4) == 0)
+        return &s;
+    }
+  }
+  void insert(const Slot& s) {
+    const size_t mask = slots.size() - 1;
+    size_t i = (size_t)s.hash & mask;
+    while (slots[i].key_len >= 0) i = (i + 1) & mask;
+    slots[i] = s;
+  }
+  void put(const uint32_t* cp, int64_t n, const int32_t* w, int64_t k) {
+    const uint64_t h = hash(cp, n);
+    if (find(cp, n, h)) return;
+    if (used >= max_words) reset();  // a bounded cache
+    if ((used + 1) * 2 > (int64_t)slots.size()) {
+      std::vector<Slot> old;
+      old.swap(slots);
+      slots.assign(old.size() * 2, Slot{0, 0, 0, -1, 0});
+      for (const Slot& s : old)
+        if (s.key_len >= 0) insert(s);
+    }
+    Slot s{h, (int64_t)keys.size(), (int64_t)ids.size(), (int32_t)n, (int32_t)k};
+    keys.insert(keys.end(), cp, cp + n);
+    ids.insert(ids.end(), w, w + k);
+    insert(s);
+    used++;
+  }
+};
+
+int64_t bpe_cache_new(int64_t max_words) { return (int64_t)(intptr_t) new BpeCache(max_words); }
+
+void bpe_cache_free(int64_t h) { delete (BpeCache*)(intptr_t)h; }
+
+void bpe_cache_put(int64_t h, const uint32_t* cp, int64_t n, const int32_t* ids, int64_t k) {
+  BpeCache* c = (BpeCache*)(intptr_t)h;
+  std::unique_lock<std::shared_mutex> lock(c->mu);
+  c->put(cp, n, ids, k);
+}
+
+// Writes the ids of the text's words found in the cache into out (cap
+// out_cap), in order, and returns their number; for each word missing from
+// the cache, writes its start, its end and the place in out where its ids
+// belong into miss (triples; a text of n code points has at most n words)
+// and counts it in n_miss. -2 when out is too small.
+int64_t bpe_encode(int64_t h, const uint32_t* cp, int64_t n, const uint8_t* cls, int32_t* out,
+                   int64_t out_cap, int64_t* miss, int64_t* n_miss) {
+  BpeCache* c = (BpeCache*)(intptr_t)h;
+  std::vector<int64_t> ends((size_t)(n > 0 ? n : 1));
+  const int64_t m = gpt2_split(cp, n, cls, ends.data());
+  std::shared_lock<std::shared_mutex> lock(c->mu);
+  int64_t o = 0, nm = 0;
+  for (int64_t w = 0, start = 0; w < m; start = ends[w], w++) {
+    const int64_t len = ends[w] - start;
+    const BpeCache::Slot* s = c->find(cp + start, len, BpeCache::hash(cp + start, len));
+    if (s == nullptr) {
+      miss[3 * nm] = start;
+      miss[3 * nm + 1] = ends[w];
+      miss[3 * nm + 2] = o;
+      nm++;
+      continue;
+    }
+    if (o + s->ids_len > out_cap) return -2;
+    std::memcpy(out + o, c->ids.data() + s->ids_off, (size_t)s->ids_len * sizeof(int32_t));
+    o += s->ids_len;
+  }
+  *n_miss = nm;
+  return o;
+}
+
+// cv2's INTER_LINEAR resize of a uint8 (sh, sw, c) image to (oh, ow, c) in
+// its fixed point (core/kernels/image.py computes the taps: each output
+// column's two source columns and the first's 11-bit weight a0, each output
+// row's b0): a horizontal pass in int32 (>> 4), then the vertical pass as
+// cv2's vector path rounds it, ((h0 b0 >> 16) + (h1 b1 >> 16) + 2) >> 2.
+void image_resize_u8(const uint8_t* src, int64_t sw, int64_t c, const int64_t* xs0,
+                     const int64_t* xs1, const int32_t* a0, const int64_t* ys0,
+                     const int64_t* ys1, const int32_t* b0, int64_t ow, int64_t oh,
+                     uint8_t* out) {
+  const int64_t n = ow * c;
+  std::vector<int32_t> h0((size_t)(n > 0 ? n : 1)), h1((size_t)(n > 0 ? n : 1));
+  auto horiz = [&](int64_t r, int32_t* h) {
+    const uint8_t* row = src + r * sw * c;
+    for (int64_t x = 0; x < ow; x++) {
+      const int32_t a = a0[x], a1 = 2048 - a;
+      const uint8_t* p0 = row + xs0[x] * c;
+      const uint8_t* p1 = row + xs1[x] * c;
+      for (int64_t k = 0; k < c; k++) h[x * c + k] = (p0[k] * a + p1[k] * a1) >> 4;
+    }
+  };
+  for (int64_t y = 0; y < oh; y++) {
+    horiz(ys0[y], h0.data());
+    horiz(ys1[y], h1.data());
+    const int32_t b = b0[y], b1 = 2048 - b;
+    uint8_t* o = out + y * n;
+    for (int64_t i = 0; i < n; i++) {
+      const int32_t v = (((h0[i] * b) >> 16) + ((h1[i] * b1) >> 16) + 2) >> 2;
+      o[i] = (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+    }
+  }
+}
+
+// The writer's samples of one component (jccolor.c, jcprep.c, jcsample.c):
+// component comp (0 Y, 1 Cb, 2 Cr; 0 of a gray image) of the (h, w, c)
+// uint8 pixels (c 1 or 3), the image padded by its edge samples down to a
+// row group (max_v rows) and right to bw * 8 * hf columns, downsampled hf x
+// vf (h2v2 with its 1, 2 bias, h2v1 with 0, 1, int_downsample otherwise),
+// then padded down by its last row: out is (bh * 8, bw * 8).
+void jpeg_component_plane(const uint8_t* px, int64_t h, int64_t w, int64_t c, int64_t comp,
+                          int64_t hf, int64_t vf, int64_t max_v, int64_t bw, int64_t bh,
+                          uint8_t* out) {
+  const int64_t rows = (h + max_v - 1) / max_v * max_v;  // the padded rows
+  const int64_t drows = rows / vf;                      // the downsampled rows
+  const int64_t ow = bw * 8;
+  auto sample = [&](int64_t r, int64_t x) -> int32_t {
+    const uint8_t* p = px + ((r < h ? r : h - 1) * w + (x < w ? x : w - 1)) * c;
+    if (c == 1) return p[0];
+    const int32_t R = p[0], G = p[1], B = p[2];
+    if (comp == 0) return (19595 * R + 38470 * G + 7471 * B + 32768) >> 16;
+    if (comp == 1) return (-11059 * R - 21709 * G + 32768 * B + 8421375) >> 16;
+    return (32768 * R - 27439 * G - 5329 * B + 8421375) >> 16;
+  };
+  for (int64_t y = 0; y < bh * 8; y++) {
+    const int64_t dr = y < drows ? y : drows - 1;
+    uint8_t* o = out + y * ow;
+    for (int64_t x = 0; x < ow; x++) {
+      int32_t v;
+      if (hf == 1 && vf == 1) {
+        v = sample(dr, x);
+      } else if (hf == 2 && vf == 2) {
+        v = (sample(2 * dr, 2 * x) + sample(2 * dr, 2 * x + 1) + sample(2 * dr + 1, 2 * x) +
+             sample(2 * dr + 1, 2 * x + 1) + ((x & 1) ? 2 : 1)) >> 2;
+      } else if (hf == 2 && vf == 1) {
+        v = (sample(dr, 2 * x) + sample(dr, 2 * x + 1) + (int32_t)(x & 1)) >> 1;
+      } else {
+        int32_t sum = 0;
+        for (int64_t a = 0; a < vf; a++)
+          for (int64_t b = 0; b < hf; b++) sum += sample(dr * vf + a, x * hf + b);
+        v = (sum + (int32_t)(hf * vf / 2)) / (int32_t)(hf * vf);
+      }
+      o[x] = (uint8_t)v;
+    }
+  }
 }
 
 }  // extern "C"

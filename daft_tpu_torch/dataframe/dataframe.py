@@ -545,6 +545,16 @@ class DataFrame:
                                      _to_exprs(partition_cols) if partition_cols else None,
                                      write_mode))
 
+    def write_json(self, root_dir: str, write_mode: str = "append",
+                   partition_cols: Optional[List[ColumnInput]] = None) -> "DataFrame":
+        """Write the rows as JSON-lines files (``.jsonl``) under ``root_dir``,
+        as write_csv."""
+        from ..io.writers import WriteInfo
+
+        return self._write(WriteInfo("json", root_dir, {},
+                                     _to_exprs(partition_cols) if partition_cols else None,
+                                     write_mode))
+
     def _write(self, info) -> "DataFrame":
         return DataFrame(lp.Sink(self._plan, info)).collect()
 
@@ -648,6 +658,30 @@ def read_csv(path, **options) -> DataFrame:
     from ..io.csv import CsvScanOperator
 
     return from_scan(CsvScanOperator(path, **options))
+
+
+def read_json(path, **options) -> DataFrame:
+    """A DataFrame over line-delimited JSON files (``.json``, ``.jsonl``,
+    ``.ndjson``; ``schema=``)."""
+    from ..io.json import JsonScanOperator
+
+    return from_scan(JsonScanOperator(path, **options))
+
+
+def read_text(path, **options) -> DataFrame:
+    """A DataFrame of the lines of text files: one string column ``text``
+    (``.gz`` read too)."""
+    from ..io.text import TextScanOperator
+
+    return from_scan(TextScanOperator(path, **options))
+
+
+def read_warc(path, **options) -> DataFrame:
+    """A DataFrame of the records of WARC (Common Crawl) files, a row per
+    record (``.gz`` read too)."""
+    from ..io.warc import WarcScanOperator
+
+    return from_scan(WarcScanOperator(path, **options))
 
 
 class GroupedDataFrame:

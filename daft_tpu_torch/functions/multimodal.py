@@ -117,37 +117,38 @@ register("minhash",
 
 # ---- tokenize (registry.py:960-1017) -----------------------------------------------------
 
-DEFERRED_TOKENIZERS = ("the tokenizer-file entry of ROADMAP Queue 1 (a reader for "
-                       "HuggingFace tokenizer.json files)")
-
-
-def _check_tokenizer(name: str) -> None:
-    """The "bytes" tokenizer (UTF-8 byte ids) is built in; a tokenizer file
-    raises ``NotImplementedError`` until its reader is ported."""
-    if name != "bytes":
-        raise NotImplementedError(f"tokenizer {name!r}: tokenizer files are not supported by "
-                                  f"the port yet: they come with {DEFERRED_TOKENIZERS}")
-
 
 def _tokenize_encode(args, kwargs):
     from ..core.series import _lengths_to_offsets
+    from .tokenizer_file import load_tokenizer
 
-    _check_tokenizer(kwargs.get("tokenizer", "bytes"))
+    tok = load_tokenizer(kwargs.get("tokenizer", "bytes"))
     s = args[0]
     valid = s.validity_numpy()
-    texts = s.to_numpy()
-    enc = [t.encode("utf-8") if ok else b"" for t, ok in zip(texts.tolist(), valid.tolist())]
-    lens = np.fromiter(map(len, enc), dtype=np.int64, count=len(enc))
-    ids = np.frombuffer(b"".join(enc), dtype=np.uint8).astype(np.uint32)
+    texts = s.to_numpy().tolist()
+    if tok is None:
+        enc = [t.encode("utf-8") if ok else b"" for t, ok in zip(texts, valid.tolist())]
+        lens = np.fromiter(map(len, enc), dtype=np.int64, count=len(enc))
+        ids = np.frombuffer(b"".join(enc), dtype=np.uint8).astype(np.uint32)
+    else:
+        rows = [tok.encode_ids(t) if ok else np.zeros(0, np.int32)
+                for t, ok in zip(texts, valid.tolist())]
+        lens = np.fromiter(map(len, rows), dtype=np.int64, count=len(rows))
+        ids = (np.concatenate(rows) if rows else np.zeros(0, np.int32)).astype(np.uint32)
     child = Series("item", _U32, ids, np.ones(len(ids), dtype=bool))
     return Series.nested(s.name, DataType.list(_U32), _lengths_to_offsets(lens), [child],
                          valid.copy())
 
 
 def _tokenize_decode(args, kwargs):
-    _check_tokenizer(kwargs.get("tokenizer", "bytes"))
-    out = [None if ids is None else bytes(ids).decode("utf-8", "replace")
-           for ids in args[0].to_pylist()]
+    from .tokenizer_file import load_tokenizer
+
+    tok = load_tokenizer(kwargs.get("tokenizer", "bytes"))
+    rows = args[0].to_pylist()
+    if tok is None:
+        out = [None if ids is None else bytes(ids).decode("utf-8", "replace") for ids in rows]
+    else:
+        out = [None if ids is None else tok.decode(ids) for ids in rows]
     return Series.from_pylist(out, args[0].name, DataType.string())
 
 

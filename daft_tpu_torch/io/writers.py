@@ -1,4 +1,4 @@
-"""File writers: Parquet and CSV with hive-style partitioning and
+"""File writers: Parquet, CSV and JSON lines with hive-style partitioning and
 size-targeted file rotation (counterpart of daft_tpu/io/writers.py, the
 local part; the reference writes through pyarrow, the port through its own
 format code).
@@ -12,8 +12,10 @@ dictionary-encoded, row groups of 1 Mi rows, with per-row-group statistics
 quoted header, strings quoted (``"`` doubled), nulls empty, booleans
 ``true`` / ``false``, dates ISO; floats are written by their Python repr
 (``1.0``, not pyarrow's ``1``), so a float column reads back as float.
-Not ported: the JSON writer, remote roots (the object store) and
-checkpointed writes (``checkpoint=``, ROADMAP Queue 6).
+JSON files are ``.jsonl``, a row a line written as the reference writes it,
+``json.dumps(row, default=str)`` of the row's values as ``to_pylist``
+gives them. Not ported: remote roots (the object store) and checkpointed
+writes (``checkpoint=``, ROADMAP Queue 6).
 """
 
 from __future__ import annotations
@@ -38,9 +40,9 @@ _TARGET_FILE_BYTES = 512 * 1024 * 1024
 class WriteInfo:
     def __init__(self, format: str, root_dir: str, options: Dict[str, Any],
                  partition_cols: Optional[List[Any]] = None, write_mode: str = "append"):
-        if format not in ("parquet", "csv"):
-            raise NotImplementedError(f"write format {format!r}: only parquet and csv are "
-                                      "ported")
+        if format not in ("parquet", "csv", "json"):
+            raise NotImplementedError(f"write format {format!r}: only parquet, csv and json "
+                                      "are ported")
         if write_mode not in ("append", "overwrite"):
             raise ValueError(f"write_mode must be 'append' or 'overwrite', got "
                              f"{write_mode!r}")
@@ -169,6 +171,9 @@ class _FileWriter:
             path = os.path.join(self.dir, name + ".parquet")
             pf.write_file(path, self.buffer, self.schema,
                           codec_by_name(self.options.get("compression", "snappy")))
+        elif self.format == "json":
+            path = os.path.join(self.dir, name + ".jsonl")
+            write_json_file(path, self.buffer, self.schema)
         else:
             path = os.path.join(self.dir, name + ".csv")
             write_csv_file(path, self.buffer, self.schema)
@@ -213,3 +218,14 @@ def write_csv_file(path: str, batches: List[RecordBatch], schema: Schema) -> Non
         for b in batches:
             cols = [_csv_cells(s) for s in b.columns()]
             f.writelines(",".join(row) + "\n" for row in zip(*cols))
+
+
+def write_json_file(path: str, batches: List[RecordBatch], schema: Schema) -> None:
+    import json
+
+    names = schema.column_names()
+    with open(path, "w", encoding="utf-8") as f:
+        for b in batches:
+            cols = [s.to_pylist() for s in b.columns()]
+            f.writelines(json.dumps(dict(zip(names, row)), default=str) + "\n"
+                         for row in zip(*cols))

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import itertools
 import os
 import threading
 from typing import NamedTuple, Optional
@@ -44,6 +45,10 @@ _I64P = ctypes.POINTER(ctypes.c_int64)
 _U64P = ctypes.POINTER(ctypes.c_uint64)
 _F64P = ctypes.POINTER(ctypes.c_double)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
+_I16P = ctypes.POINTER(ctypes.c_int16)
+_U16P = ctypes.POINTER(ctypes.c_uint16)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_U32P = ctypes.POINTER(ctypes.c_uint32)
 _I64 = ctypes.c_int64
 _U64 = ctypes.c_uint64
 
@@ -83,6 +88,20 @@ EXPORTS = {
 # the port's own exports, beyond the reference's library: export -> (restype, argtypes)
 PORT_EXPORTS = {
     "png_unfilter": (_I64, [_U8P, _I64, _I64, _I64, _U8P]),
+    "jpeg_decode_scan": (_I64, [_U8P, _I64, _I64, _I32P, _I32P, _I16P]),
+    "jpeg_idct": (None, [_I16P, _I64, _I64, _I64, _U16P, _U8P]),
+    "jpeg_upsample": (None, [_U8P, _I64, _I64, _I64, _I64, _I64, _U8P, _I64, _I64]),
+    "jpeg_color": (None, [_U8P, _U8P, _U8P, _U8P, _I64, _I64, _U8P]),
+    "jpeg_encode_scan": (_I64, [_I16P, _I32P, _I32P, _U8P, _I64]),
+    "jpeg_fdct_quant": (None, [_U8P, _I64, _I64, _I32P, _I16P]),
+    "jpeg_component_plane": (None, [_U8P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                                    _U8P]),
+    "bpe_cache_new": (_I64, [_I64]),
+    "bpe_cache_free": (None, [_I64]),
+    "bpe_cache_put": (None, [_I64, _U32P, _I64, _I32P, _I64]),
+    "bpe_encode": (_I64, [_I64, _U32P, _I64, _U8P, _I32P, _I64, _I64P, _I64P]),
+    "image_resize_u8": (None, [_U8P, _I64, _I64, _I64P, _I64P, _I32P, _I64P, _I64P, _I32P,
+                               _I64, _I64, _U8P]),
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -881,3 +900,691 @@ def plain_png_unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.nda
         out[y] = cur
         prev = cur
     return out
+
+
+# ---- JPEG (the port's own exports: core/kernels/jpeg.py) -----------------------------
+
+# zigzag index -> natural index, with 16 entries of 63 past the end (csrc kJpegNatural)
+JPEG_NATURAL = np.array(
+    [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34,
+     27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44,
+     51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63] + [63] * 16,
+    dtype=np.int64)
+JPEG_HUFF_INTS = 548  # one decoding table: lookahead, maxcode, value offsets, symbols
+
+
+def _scan_blocks_needed(params: np.ndarray) -> int:
+    """The blocks a scan's params reach, so the wrapper can refuse a short
+    coefficient buffer."""
+    nc, mx, my = int(params[6]), int(params[7]), int(params[8])
+    need = 0
+    for c in range(nc):
+        off, stride, h, v, _dc, _ac, bw, bh = (int(x) for x in params[9 + 8 * c:17 + 8 * c])
+        cols, rows = (bw, bh) if nc == 1 else (mx * h, my * v)
+        _need(cols <= stride, "JPEG scan wider than its component's blocks")
+        need = max(need, off + (rows - 1) * stride + cols if rows and cols else 0)
+    return need
+
+
+def jpeg_decode_scan(data, pos: int, params: np.ndarray, huff: np.ndarray,
+                     coefs: np.ndarray) -> int:
+    """One scan's entropy-coded data, from ``data[pos]``, decoded into
+    ``coefs`` ((blocks, 64) int16, natural order) in place, baseline or
+    progressive (csrc/kernels.cpp ``jpeg_decode_scan`` lays out ``params``
+    and ``huff``). Returns the index of the marker that ends the data, or
+    ``len(data)``. The library's export, or ``plain_jpeg_decode_scan``
+    under ``DAFT_TPU_DISABLE_NATIVE``."""
+    buf = np.frombuffer(data, dtype=np.uint8) if isinstance(data, (bytes, bytearray)) \
+        else np.ascontiguousarray(data, dtype=np.uint8)
+    params = np.ascontiguousarray(params, dtype=np.int32)
+    huff = np.ascontiguousarray(huff, dtype=np.int32)
+    _need(huff.size >= 8 * JPEG_HUFF_INTS, "JPEG scan needs 8 Huffman tables")
+    _need(coefs.dtype == np.int16 and coefs.flags.c_contiguous
+          and coefs.size >= 64 * _scan_blocks_needed(params), "JPEG coefficients too short")
+    if disabled():
+        return plain_jpeg_decode_scan(bytes(buf), pos, params, huff, coefs)
+    return int(_call("jpeg_decode_scan", _p8(buf), len(buf), int(pos), _p(params, ctypes.c_int32),
+                     _p(huff, ctypes.c_int32), _p(coefs, ctypes.c_int16)))
+
+
+def _entropy_segments(data: bytes, pos: int, restarts: bool):
+    """The scan's unstuffed bytes from ``pos``, cut at each RSTn marker
+    where the scan has a restart interval; and the index of the marker
+    that ends it (or ``len(data)``)."""
+    n = len(data)
+    segs, cur = [], bytearray()
+    while True:
+        j = data.find(b"\xff", pos)
+        if j < 0:
+            cur += data[pos:]
+            segs.append(cur)
+            return segs, n
+        cur += data[pos:j]
+        k = j + 1
+        while k < n and data[k] == 0xFF:
+            k += 1
+        if k >= n:
+            segs.append(cur)
+            return segs, n
+        if data[k] == 0:
+            cur.append(0xFF)
+            pos = k + 1
+        elif restarts and 0xD0 <= data[k] <= 0xD7:
+            segs.append(cur)
+            cur = bytearray()
+            pos = k + 1
+        else:
+            segs.append(cur)
+            return segs, k - 1
+
+
+def plain_jpeg_decode_scan(data: bytes, pos: int, params, huff, coefs: np.ndarray) -> int:
+    """The plain version: the same decoder, bit by bit in Python, over the
+    scan's bytes unstuffed first and cut at its restart markers."""
+    p = [int(x) for x in params]
+    prog, ss, se, ah, al, ri, nc, mcus_x, mcus_y = p[:9]
+    comp = [p[9 + 8 * c:17 + 8 * c] for c in range(nc)]
+    tables = [huff[t * JPEG_HUFF_INTS:(t + 1) * JPEG_HUFF_INTS].tolist() for t in range(8)]
+    nat = JPEG_NATURAL.tolist()
+    segs, end = _entropy_segments(data, pos, ri > 0)
+    flat = coefs.reshape(-1)
+    st = {"seg": 0, "bp": 0, "buf": bytes(segs[0]) + bytes(8)}
+
+    def get(s):
+        bp = st["bp"]
+        i = bp >> 3
+        v = int.from_bytes(st["buf"][i:i + 4].ljust(4, b"\0"), "big")
+        st["bp"] = bp + s
+        return (v >> (32 - (bp & 7) - s)) & ((1 << s) - 1)
+
+    def decode(t):
+        bp = st["bp"]
+        i = bp >> 3
+        v = int.from_bytes(st["buf"][i:i + 4].ljust(4, b"\0"), "big")
+        code16 = (v >> (16 - (bp & 7))) & 0xFFFF
+        e = t[code16 >> 8]
+        if e:
+            st["bp"] = bp + (e >> 8)
+            return e & 0xFF
+        for ln in range(9, 17):
+            code = code16 >> (16 - ln)
+            if code <= t[256 + ln]:
+                st["bp"] = bp + ln
+                return t[292 + ((t[274 + ln] + code) & 0xFF)]
+        st["bp"] = bp + 16
+        return 0
+
+    def extend(v, s):
+        return 0 if s == 0 else (v - (1 << s) + 1 if v < (1 << (s - 1)) else v)
+
+    def i16(v):  # the C side's int16_t store
+        return ((v + 32768) & 0xFFFF) - 32768
+
+    pred = [0, 0, 0, 0]
+    eob = [0]
+    p1, m1 = 1 << al, -(1 << al)
+
+    def refine(base, k):
+        c = flat[base + nat[k]]
+        if c != 0 and get(1) and (int(c) & p1) == 0:
+            flat[base + nat[k]] = i16(int(c) + (p1 if c >= 0 else m1))
+        return c != 0
+
+    def block(ci, bx, by):
+        off, stride, _h, _v, dct, act = comp[ci][:6]
+        base = (off + by * stride + bx) * 64
+        dt, at = tables[dct], tables[4 + act]
+        if not prog:
+            s = decode(dt)
+            pred[ci] += extend(get(s), s) if s else 0
+            flat[base] = i16(pred[ci])
+            k = 1
+            while k < 64:
+                rs = decode(at)
+                r, s = rs >> 4, rs & 15
+                if s:
+                    k += r
+                    flat[base + nat[k]] = i16(extend(get(s), s))
+                elif r != 15:
+                    break
+                else:
+                    k += 15
+                k += 1
+            return
+        if ss == 0:
+            if ah == 0:
+                s = decode(dt)
+                pred[ci] += extend(get(s), s) if s else 0
+                flat[base] = i16(pred[ci] * (1 << al))
+            elif get(1):
+                flat[base] = i16(int(flat[base]) | p1)
+            return
+        if ah == 0:
+            if eob[0] > 0:
+                eob[0] -= 1
+                return
+            k = ss
+            while k <= se:
+                rs = decode(at)
+                r, s = rs >> 4, rs & 15
+                if s:
+                    k += r
+                    flat[base + nat[k]] = i16(extend(get(s), s) * (1 << al))
+                elif r == 15:
+                    k += 15
+                else:
+                    eob[0] = (1 << r) + (get(r) if r else 0) - 1
+                    break
+                k += 1
+            return
+        k = ss
+        if eob[0] == 0:
+            while k <= se:
+                rs = decode(at)
+                r, s = rs >> 4, rs & 15
+                if s:
+                    s = p1 if get(1) else m1
+                elif r != 15:
+                    eob[0] = (1 << r) + (get(r) if r else 0)
+                    break
+                while k <= se:
+                    if not refine(base, k):
+                        r -= 1
+                        if r < 0:
+                            break
+                    k += 1
+                if s:
+                    flat[base + nat[k]] = i16(s)
+                k += 1
+        if eob[0] > 0:
+            while k <= se:
+                refine(base, k)
+                k += 1
+            eob[0] -= 1
+
+    total = comp[0][6] * comp[0][7] if nc == 1 else mcus_x * mcus_y
+    for m in range(total):
+        if ri > 0 and m > 0 and m % ri == 0:
+            st["seg"] += 1
+            nxt = segs[st["seg"]] if st["seg"] < len(segs) else b""
+            st["buf"], st["bp"] = bytes(nxt) + bytes(8), 0
+            pred[:] = [0, 0, 0, 0]
+            eob[0] = 0
+        if nc == 1:
+            block(0, m % comp[0][6], m // comp[0][6])
+            continue
+        mx, my = m % mcus_x, m // mcus_x
+        for ci in range(nc):
+            h, v = comp[ci][2], comp[ci][3]
+            for y in range(v):
+                for x in range(h):
+                    block(ci, mx * h + x, my * v + y)
+    return end
+
+
+def jpeg_idct(coefs: np.ndarray, stride: int, bw: int, bh: int, qt: np.ndarray) -> np.ndarray:
+    """libjpeg's islow IDCT of a component's ``bw`` x ``bh`` blocks (rows of
+    ``stride`` blocks in ``coefs``), dequantized by the natural-order table
+    ``qt``: the (8 bh, 8 bw) uint8 plane. The library's export, or
+    ``plain_jpeg_idct`` under ``DAFT_TPU_DISABLE_NATIVE``."""
+    coefs = np.ascontiguousarray(coefs, dtype=np.int16)
+    qt = np.ascontiguousarray(qt, dtype=np.uint16)
+    _need(qt.size == 64 and bw <= stride and coefs.size >= 64 * stride * bh,
+          "JPEG IDCT arguments out of range")
+    if disabled():
+        return plain_jpeg_idct(coefs, stride, bw, bh, qt)
+    out = np.empty((max(bh, 1) * 8, max(bw, 1) * 8), dtype=np.uint8)
+    _call("jpeg_idct", _p(coefs, ctypes.c_int16), stride, bw, bh, _p(qt, ctypes.c_uint16),
+          _p8(out))
+    return out[:bh * 8, :bw * 8]
+
+
+def _butterfly(x, rnd_shift):
+    """The islow IDCT's 1-D pass (jidctint.c) over axis 0 of ``x`` (8, ...)
+    int64, descaled by ``rnd_shift``."""
+    z2, z3 = x[2], x[6]
+    z1 = (z2 + z3) * 4433
+    t2 = z1 + z3 * -15137
+    t3 = z1 + z2 * 6270
+    t0 = (x[0] + x[4]) * 8192
+    t1 = (x[0] - x[4]) * 8192
+    t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+    o0, o1, o2, o3 = x[7], x[5], x[3], x[1]
+    z1, z2, z3, z4 = o0 + o3, o1 + o2, o0 + o2, o1 + o3
+    z5 = (z3 + z4) * 9633
+    o0, o1, o2, o3 = o0 * 2446, o1 * 16819, o2 * 25172, o3 * 12299
+    z1, z2 = z1 * -7373, z2 * -20995
+    z3 = z3 * -16069 + z5
+    z4 = z4 * -3196 + z5
+    o0 = o0 + z1 + z3
+    o1 = o1 + z2 + z4
+    o2 = o2 + z2 + z3
+    o3 = o3 + z1 + z4
+    rnd = 1 << (rnd_shift - 1)
+    return np.stack([t10 + o3, t11 + o2, t12 + o1, t13 + o0,
+                     t13 - o0, t12 - o1, t11 - o2, t10 - o3]) + rnd >> rnd_shift
+
+
+def plain_jpeg_idct(coefs, stride: int, bw: int, bh: int, qt) -> np.ndarray:
+    """The plain version: both passes over every block at once in numpy."""
+    blocks = coefs.reshape(-1, 64)[:stride * bh].reshape(bh, stride, 8, 8)[:, :bw]
+    x = blocks.astype(np.int64) * qt.reshape(8, 8).astype(np.int64)
+    # pass 1 down the columns (axis 2 is the row u), pass 2 along the rows
+    ws = _butterfly(np.moveaxis(x, 2, 0), 11)                # (u', bh, bw, v)
+    out = _butterfly(np.moveaxis(ws, 3, 0), 18)              # (v', u', bh, bw)
+    px = np.clip(out + 128, 0, 255).astype(np.uint8)
+    return np.ascontiguousarray(px.transpose(2, 1, 3, 0).reshape(bh * 8, bw * 8))
+
+
+def jpeg_upsample(plane: np.ndarray, dw: int, dh: int, hf: int, vf: int, out_w: int,
+                  out_h: int) -> np.ndarray:
+    """A component's ``dw`` x ``dh`` samples (the top left of ``plane``)
+    brought up ``hf`` x ``vf`` times into an (out_h, out_w) plane as
+    jdsample.c does (fancy h2v1, h1v2, h2v2; replication otherwise). The
+    library's export, or ``plain_jpeg_upsample`` under
+    ``DAFT_TPU_DISABLE_NATIVE``."""
+    plane = np.ascontiguousarray(plane, dtype=np.uint8)
+    _need(plane.ndim == 2 and 0 < dw <= plane.shape[1] and 0 < dh <= plane.shape[0]
+          and out_w <= dw * hf and out_h <= dh * vf and hf >= 1 and vf >= 1,
+          "JPEG upsampling arguments out of range")
+    if disabled():
+        return plain_jpeg_upsample(plane, dw, dh, hf, vf, out_w, out_h)
+    out = np.empty((max(out_h, 1), max(out_w, 1)), dtype=np.uint8)
+    _call("jpeg_upsample", _p8(plane), plane.shape[1], dw, dh, hf, vf, _p8(out), out_w, out_h)
+    return out[:out_h, :out_w]
+
+
+def plain_jpeg_upsample(plane, dw: int, dh: int, hf: int, vf: int, out_w: int,
+                        out_h: int) -> np.ndarray:
+    src = plane[:dh, :dw].astype(np.int32)
+    fancy_h = hf == 2 and dw > 2
+    r = np.arange(out_h) // vf
+    if vf == 2 and (hf == 1 or fancy_h):
+        odd = (np.arange(out_h) & 1).astype(bool)
+        far = np.clip(np.where(odd, r + 1, r - 1), 0, dh - 1)
+        col = src[r] * 3 + src[far]
+        if hf == 1:
+            out = (col + np.where(odd, 2, 1)[:, None]) >> 2
+        else:
+            left = np.concatenate([col[:, :1], col[:, :-1]], axis=1)
+            right = np.concatenate([col[:, 1:], col[:, -1:]], axis=1)
+            even = (col * 3 + left + 8) >> 4
+            even[:, 0] = (col[:, 0] * 4 + 8) >> 4
+            oddc = (col * 3 + right + 7) >> 4
+            oddc[:, -1] = (col[:, -1] * 4 + 7) >> 4
+            out = np.stack([even, oddc], axis=2).reshape(out_h, 2 * dw)
+    elif fancy_h and vf == 1:
+        rows = src[r]
+        v3 = rows * 3
+        left = np.concatenate([rows[:, :1], rows[:, :-1]], axis=1)
+        right = np.concatenate([rows[:, 1:], rows[:, -1:]], axis=1)
+        even = (v3 + left + 1) >> 2
+        even[:, 0] = rows[:, 0]
+        oddc = (v3 + right + 2) >> 2
+        oddc[:, -1] = rows[:, -1]
+        out = np.stack([even, oddc], axis=2).reshape(out_h, 2 * dw)
+    else:
+        out = np.repeat(src[r], hf, axis=1)
+    return np.ascontiguousarray(out[:, :out_w].astype(np.uint8))
+
+
+# space: 0 YCbCr -> RGB, 1 RGB, 2 CMYK, 3 YCCK (the last two as PIL's inverted CMYK)
+JPEG_SPACE_CHANNELS = {0: 3, 1: 3, 2: 4, 3: 4}
+
+
+def jpeg_color(planes, space: int) -> np.ndarray:
+    """Equal-size planes (3 or 4) to interleaved pixels (h, w, 3 or 4) in
+    PIL's representation: YCbCr -> RGB by jdcolor.c's tables, RGB kept,
+    CMYK and YCCK as PIL's inverted CMYK. The library's export, or
+    ``plain_jpeg_color`` under ``DAFT_TPU_DISABLE_NATIVE``."""
+    planes = [np.ascontiguousarray(p, dtype=np.uint8) for p in planes]
+    ch = JPEG_SPACE_CHANNELS[space]
+    _need(len(planes) == (4 if ch == 4 else 3), "JPEG colour planes do not match the space")
+    _need(all(p.shape == planes[0].shape for p in planes), "JPEG colour planes differ in size")
+    if disabled():
+        return plain_jpeg_color(planes, space)
+    h, w = planes[0].shape
+    out = np.empty((h, w, ch), dtype=np.uint8)
+    p3 = planes[3] if len(planes) > 3 else planes[0]
+    _call("jpeg_color", _p8(planes[0]), _p8(planes[1]), _p8(planes[2]), _p8(p3), h * w, space,
+          _p8(out))
+    return out
+
+
+def _ycc_tables():
+    x = np.arange(256, dtype=np.int64) - 128
+    half = 1 << 15
+    return ((91881 * x + half) >> 16, (116130 * x + half) >> 16, -46802 * x, -22554 * x + half)
+
+
+def plain_jpeg_color(planes, space: int) -> np.ndarray:
+    p = [q.astype(np.int64) for q in planes]
+    if space == 1:
+        return np.stack(planes[:3], axis=2)
+    if space == 2:
+        return (255 - np.stack(planes[:4], axis=2)).astype(np.uint8)
+    cr_r, cb_b, cr_g, cb_g = _ycc_tables()
+    y, cb, cr = p[0], p[1], p[2]
+    rgb = [np.clip(y + cr_r[cr], 0, 255), np.clip(y + ((cb_g[cb] + cr_g[cr]) >> 16), 0, 255),
+           np.clip(y + cb_b[cb], 0, 255)]
+    if space == 3:
+        rgb.append(255 - p[3])
+    return np.stack(rgb, axis=2).astype(np.uint8)
+
+
+def jpeg_component_plane(px: np.ndarray, comp: int, hf: int, vf: int, max_v: int, bw: int,
+                         bh: int) -> np.ndarray:
+    """The writer's (8 bh, 8 bw) uint8 samples of component ``comp`` (0 Y,
+    1 Cb, 2 Cr; 0 of a gray image) of (h, w) or (h, w, 3) uint8 pixels:
+    jccolor.c's RGB -> YCbCr, jcprep.c's edge padding (down to a row group
+    of ``max_v`` rows, right to whole blocks), jcsample.c's ``hf`` x ``vf``
+    downsampling, the last row repeated down to whole blocks. The
+    library's export, or ``plain_jpeg_component_plane`` under
+    ``DAFT_TPU_DISABLE_NATIVE``."""
+    px = np.ascontiguousarray(px, dtype=np.uint8)
+    h, w = px.shape[:2]
+    c = 1 if px.ndim == 2 else px.shape[2]
+    _need(c in (1, 3) and h > 0 and w > 0 and hf >= 1 and vf >= 1 and max_v % vf == 0
+          and bw * 8 * hf >= w and comp in ((0,) if c == 1 else (0, 1, 2)),
+          "JPEG component arguments out of range")
+    if disabled():
+        return plain_jpeg_component_plane(px, comp, hf, vf, max_v, bw, bh)
+    out = np.empty((bh * 8, bw * 8), dtype=np.uint8)
+    _call("jpeg_component_plane", _p8(px), h, w, c, comp, hf, vf, max_v, bw, bh, _p8(out))
+    return out
+
+
+def plain_jpeg_component_plane(px, comp: int, hf: int, vf: int, max_v: int, bw: int,
+                               bh: int) -> np.ndarray:
+    """The plain version, in numpy (int32: every colour sum stays under 2^25)."""
+    if px.ndim == 2:
+        full = px.astype(np.int32)
+    else:
+        r, g, b = (px[:, :, i].astype(np.int32) for i in range(3))
+        full = ((19595 * r + 38470 * g + 7471 * b + 32768) >> 16,
+                (-11059 * r - 21709 * g + 32768 * b + 8421375) >> 16,
+                (32768 * r - 27439 * g - 5329 * b + 8421375) >> 16)[comp]
+    height, width = full.shape
+    need_w = bw * 8 * hf
+    rows = -(-height // max_v) * max_v
+    p = np.pad(full, ((0, rows - height), (0, need_w - width)), mode="edge")
+    if hf == 2 and vf == 2:
+        s = p[0::2, 0::2] + p[0::2, 1::2] + p[1::2, 0::2] + p[1::2, 1::2]
+        p = (s + np.tile(np.array([1, 2], np.int32), bw * 4)) >> 2
+    elif hf == 2 and vf == 1:
+        p = (p[:, 0::2] + p[:, 1::2] + np.tile(np.array([0, 1], np.int32), bw * 4)) >> 1
+    elif (hf, vf) != (1, 1):  # int_downsample
+        s = p.reshape(rows // vf, vf, need_w // hf, hf).sum(axis=(1, 3))
+        p = (s + hf * vf // 2) // (hf * vf)
+    rows_out = np.minimum(np.arange(bh * 8), p.shape[0] - 1)
+    return np.ascontiguousarray(p[rows_out].astype(np.uint8))
+
+
+def jpeg_fdct_quant(plane: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """The islow FDCT (jfdctint.c) and libjpeg-turbo's reciprocal
+    quantization of every block of an (8 bh, 8 bw) uint8 plane: (bh, bw,
+    64) int16 coefficients in natural order. ``quant``: 64 reciprocals, 64
+    corrections, 64 shifts. The library's export, or
+    ``plain_jpeg_fdct_quant`` under ``DAFT_TPU_DISABLE_NATIVE``."""
+    plane = np.ascontiguousarray(plane, dtype=np.uint8)
+    quant = np.ascontiguousarray(quant, dtype=np.int32)
+    _need(plane.ndim == 2 and plane.shape[0] % 8 == 0 and plane.shape[1] % 8 == 0
+          and quant.size == 192, "JPEG FDCT arguments out of range")
+    bh, bw = plane.shape[0] // 8, plane.shape[1] // 8
+    if disabled():
+        return plain_jpeg_fdct_quant(plane, quant)
+    out = np.empty((max(bh, 1), max(bw, 1), 64), dtype=np.int16)
+    _call("jpeg_fdct_quant", _p8(plane), bw, bh, _p(quant, ctypes.c_int32),
+          _p(out, ctypes.c_int16))
+    return out[:bh, :bw]
+
+
+def _fdct_pass(x, last: bool):
+    """jfdctint.c's 1-D pass over axis 0 of ``x`` (8, ...) int64: the row
+    pass (``last`` False) keeps PASS1_BITS, the column pass removes it."""
+    t0, t7 = x[0] + x[7], x[0] - x[7]
+    t1, t6 = x[1] + x[6], x[1] - x[6]
+    t2, t5 = x[2] + x[5], x[2] - x[5]
+    t3, t4 = x[3] + x[4], x[3] - x[4]
+    t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+    sh = 15 if last else 11
+    rnd = 1 << (sh - 1)
+    out = [None] * 8
+    if last:
+        out[0], out[4] = (t10 + t11 + 2) >> 2, (t10 - t11 + 2) >> 2
+    else:
+        out[0], out[4] = (t10 + t11) * 4, (t10 - t11) * 4
+    z1 = (t12 + t13) * 4433
+    out[2] = (z1 + t13 * 6270 + rnd) >> sh
+    out[6] = (z1 + t12 * -15137 + rnd) >> sh
+    z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
+    z5 = (z3 + z4) * 9633
+    z1, z2 = z1 * -7373, z2 * -20995
+    z3 = z3 * -16069 + z5
+    z4 = z4 * -3196 + z5
+    out[7] = (t4 * 2446 + z1 + z3 + rnd) >> sh
+    out[5] = (t5 * 16819 + z2 + z4 + rnd) >> sh
+    out[3] = (t6 * 25172 + z2 + z3 + rnd) >> sh
+    out[1] = (t7 * 12299 + z1 + z4 + rnd) >> sh
+    return np.stack(out)
+
+
+def plain_jpeg_fdct_quant(plane, quant) -> np.ndarray:
+    """The plain version: both passes over every block at once in numpy."""
+    bh, bw = plane.shape[0] // 8, plane.shape[1] // 8
+    x = plane.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3).astype(np.int64) - 128
+    rows = _fdct_pass(np.moveaxis(x, 3, 0), last=False)       # (v', bh, bw, u)
+    cols = _fdct_pass(np.moveaxis(rows, 3, 0), last=True)     # (u', v', bh, bw)
+    coef = cols.transpose(2, 3, 0, 1).reshape(bh, bw, 64)
+    recip, corr, shift = (quant[k * 64:(k + 1) * 64].astype(np.int64) for k in range(3))
+    mag = ((np.abs(coef) + corr) * recip) >> shift
+    return np.where(coef < 0, -mag, mag).astype(np.int16)
+
+
+def jpeg_encode_scan(coefs: np.ndarray, params: np.ndarray, ehuf: np.ndarray) -> bytes:
+    """Quantized blocks ((blocks, 64) int16, natural order) entropy-coded
+    as one baseline interleaved scan: MCU by MCU, 0xFF stuffed, padded
+    with 1 bits (csrc/kernels.cpp ``jpeg_encode_scan`` lays out ``params``
+    and ``ehuf``). The library's export, or ``plain_jpeg_encode_scan``
+    under ``DAFT_TPU_DISABLE_NATIVE``."""
+    coefs = np.ascontiguousarray(coefs, dtype=np.int16)
+    params = np.ascontiguousarray(params, dtype=np.int32)
+    ehuf = np.ascontiguousarray(ehuf, dtype=np.int32)
+    nc, mx, my = int(params[0]), int(params[1]), int(params[2])
+    need = 0
+    for c in range(nc):
+        off, stride, h, v = (int(x) for x in params[3 + 6 * c:7 + 6 * c])
+        _need(mx * h <= stride, "JPEG scan wider than its component's blocks")
+        need = max(need, off + (my * v - 1) * stride + mx * h)
+    _need(coefs.size >= 64 * need and ehuf.size >= 4 * 512, "JPEG encoder arguments too short")
+    if disabled():
+        return plain_jpeg_encode_scan(coefs, params, ehuf)
+    cap = coefs.size * 8 + 1024
+    out = np.empty(cap, dtype=np.uint8)
+    n = _call("jpeg_encode_scan", _p(coefs, ctypes.c_int16), _p(params, ctypes.c_int32),
+              _p(ehuf, ctypes.c_int32), _p8(out), cap)
+    _need(n >= 0, "JPEG entropy-coded data outgrew its buffer")
+    return out[:n].tobytes()
+
+
+def plain_jpeg_encode_scan(coefs, params, ehuf) -> bytes:
+    """The plain version: the same coder in Python."""
+    p = [int(x) for x in params]
+    nc, mcus_x, mcus_y = p[:3]
+    comp = [p[3 + 6 * c:9 + 6 * c] for c in range(nc)]
+    tabs = [ehuf[t * 512:(t + 1) * 512].tolist() for t in range(4)]
+    nat = JPEG_NATURAL[:64].tolist()
+    blocks = coefs.reshape(-1, 64)
+    out = bytearray()
+    st = [0, 0]  # accumulator, bits in it
+
+    def put(code, size):
+        acc = (st[0] << size) | (code & ((1 << size) - 1))
+        nb = st[1] + size
+        while nb >= 8:
+            b = (acc >> (nb - 8)) & 0xFF
+            nb -= 8
+            out.append(b)
+            if b == 0xFF:
+                out.append(0)
+        st[0], st[1] = acc & ((1 << nb) - 1), nb
+
+    pred = [0] * nc
+    for m in range(mcus_x * mcus_y):
+        mx, my = m % mcus_x, m // mcus_x
+        for c in range(nc):
+            off, stride, h, v, dct, act = comp[c]
+            dc, ac = tabs[dct], tabs[2 + act]
+            for y in range(v):
+                for x in range(h):
+                    blk = blocks[off + (my * v + y) * stride + mx * h + x].tolist()
+                    t = blk[0] - pred[c]
+                    pred[c] = blk[0]
+                    s = abs(t).bit_length()
+                    put(dc[s], dc[256 + s])
+                    if s:
+                        put(t - 1 if t < 0 else t, s)
+                    r = 0
+                    for k in range(1, 64):
+                        val = blk[nat[k]]
+                        if val == 0:
+                            r += 1
+                            continue
+                        while r > 15:
+                            put(ac[0xF0], ac[256 + 0xF0])
+                            r -= 16
+                        sz = abs(val).bit_length()
+                        sym = (r << 4) + sz
+                        put(ac[sym], ac[256 + sym])
+                        put(val - 1 if val < 0 else val, sz)
+                        r = 0
+                    if r > 0:
+                        put(ac[0], ac[256])
+    put(0x7F, 7)
+    return bytes(out)
+
+
+# ---- the tokenizer-file reader's split and word cache (functions/tokenizer_file.py) ---
+
+
+class BpeCache:
+    """One tokenizer's words and their ids, emptied when it holds
+    ``max_words`` words: the library's table (made at first use, freed with
+    this object), or ``words``, the plain version's dict, under
+    ``DAFT_TPU_DISABLE_NATIVE``."""
+
+    def __init__(self, max_words: int = 1 << 20):
+        self.max_words = max_words
+        self.words: dict = {}
+        self.lock = threading.Lock()
+        self._handle = None
+
+    def handle(self) -> int:
+        with self.lock:
+            if self._handle is None:
+                self._handle = int(_call("bpe_cache_new", self.max_words))
+            return self._handle
+
+    def __del__(self):
+        if self._handle is not None and _LIB is not None:
+            _LIB.bpe_cache_free(self._handle)
+
+
+def bpe_encode(cache: BpeCache, text: str, classes: np.ndarray, pattern, merge) -> np.ndarray:
+    """``text`` cut into GPT-2's pre-tokenizer words and each word's ids
+    (int32, in order), a word's ids from ``cache`` or, when it is not
+    there, from ``merge(word)`` (once a call, then put in ``cache``).
+    ``classes``: a uint8 class per code point (0 other, 1 letter, 2 number,
+    3 whitespace); ``pattern``: the same split as a compiled ``re`` pattern,
+    which ``plain_bpe_encode`` runs under ``DAFT_TPU_DISABLE_NATIVE``."""
+    _need(classes.dtype == np.uint8 and classes.size == 0x110000,
+          "bpe_encode needs a class for every code point")
+    if disabled():
+        return plain_bpe_encode(cache, text, pattern, merge)
+    cps = np.frombuffer(text.encode("utf-32-le"), dtype=np.uint32)
+    h = cache.handle()
+    out = np.empty(4 * len(cps) + 16, dtype=np.int32)  # a code point is at most 4 byte ids
+    miss = np.empty(3 * len(cps) + 3, dtype=np.int64)
+    n_miss = np.zeros(1, dtype=np.int64)
+    o = _call("bpe_encode", h, _p(cps, ctypes.c_uint32), len(cps), _p8(classes),
+              _p(out, ctypes.c_int32), len(out), _p(miss), _p(n_miss))
+    _need(o >= 0, "bpe_encode: a word's ids outgrew their buffer")
+    if not n_miss[0]:
+        return out[:o].copy()
+    # the missing words' ids go between the found ones; the cache may drop
+    # them again (another call's reset), this call does not read them back
+    merged: dict = {}
+    parts, prev = [], 0
+    for s, e, at in miss[:3 * int(n_miss[0])].reshape(-1, 3).tolist():
+        word = text[s:e]
+        ids = merged.get(word)
+        if ids is None:
+            ids = merged[word] = np.ascontiguousarray(merge(word), dtype=np.int32)
+            key = np.ascontiguousarray(cps[s:e])
+            _call("bpe_cache_put", h, _p(key, ctypes.c_uint32), e - s, _p(ids, ctypes.c_int32),
+                  len(ids))
+        parts += (out[prev:at], ids)
+        prev = at
+    parts.append(out[prev:o])
+    return np.concatenate(parts)
+
+
+def plain_bpe_encode(cache: BpeCache, text: str, pattern, merge) -> np.ndarray:
+    """The plain version: ``re`` splits, a dict keeps the words."""
+    words = pattern.findall(text)
+    got = list(map(cache.words.get, words))
+    for i, w in enumerate(words):
+        if got[i] is None:
+            ids = cache.words.get(w)
+            if ids is None:
+                ids = tuple(merge(w))
+                with cache.lock:
+                    if len(cache.words) >= cache.max_words:
+                        cache.words.clear()
+                    cache.words[w] = ids
+            got[i] = ids
+    n = sum(map(len, got))
+    return np.fromiter(itertools.chain.from_iterable(got), dtype=np.int32, count=n)
+
+
+# ---- cv2's INTER_LINEAR for uint8 images (core/kernels/image.py) ---------------------
+
+
+def image_resize_u8(img: np.ndarray, xs0, xs1, a0, ys0, ys1, b0) -> np.ndarray:
+    """An (sh, sw, c) uint8 image resized in cv2's fixed point to (len(ys0),
+    len(xs0), c): the output column's source columns ``xs0`` / ``xs1`` and
+    the first's 11-bit weight ``a0``, the output row's ``ys0`` / ``ys1`` /
+    ``b0``. The library's export, or ``plain_image_resize_u8`` under
+    ``DAFT_TPU_DISABLE_NATIVE``."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    xs0, xs1, ys0, ys1 = (np.ascontiguousarray(a, dtype=np.int64) for a in (xs0, xs1, ys0, ys1))
+    a0, b0 = (np.ascontiguousarray(a, dtype=np.int32) for a in (a0, b0))
+    sh, sw, c = img.shape
+    _need(len(xs1) == len(xs0) == len(a0) and len(ys1) == len(ys0) == len(b0)
+          and all(len(a) == 0 or (a.min() >= 0 and a.max() < lim)
+                  for a, lim in ((xs0, sw), (xs1, sw), (ys0, sh), (ys1, sh))),
+          "resize taps out of the image")
+    if disabled():
+        return plain_image_resize_u8(img, xs0, xs1, a0, ys0, ys1, b0)
+    out = np.empty((max(len(ys0), 1), max(len(xs0), 1), max(c, 1)), dtype=np.uint8)
+    _call("image_resize_u8", _p8(img), sw, c, _p(xs0), _p(xs1), _p(a0, ctypes.c_int32),
+          _p(ys0), _p(ys1), _p(b0, ctypes.c_int32), len(xs0), len(ys0), _p8(out))
+    return out[:len(ys0), :len(xs0), :c]
+
+
+def plain_image_resize_u8(img, xs0, xs1, a0, ys0, ys1, b0) -> np.ndarray:
+    """The plain version: the horizontal pass over the rows the output
+    reads, at once in numpy, int32 throughout (a row sum is at most 255 x
+    2048, and b x (row >> 4) at most 2048 x 32640)."""
+    a1, b1 = 2048 - a0, 2048 - b0
+    rows = np.unique(np.concatenate([ys0, ys1]))
+    src = img[rows].astype(np.int32)
+    horiz = src[:, xs0, :] * a0[None, :, None]
+    horiz += src[:, xs1, :] * a1[None, :, None]
+    horiz >>= 4
+    pos0, pos1 = np.searchsorted(rows, ys0), np.searchsorted(rows, ys1)
+    out = (horiz[pos0] * b0[:, None, None]) >> 16
+    out += (horiz[pos1] * b1[:, None, None]) >> 16
+    out += 2
+    out >>= 2
+    return np.clip(out, 0, 255).astype(np.uint8)

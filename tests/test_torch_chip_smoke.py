@@ -1412,3 +1412,85 @@ def test_nested_phase_fails_on_a_wrong_oracle(monkeypatch):
     monkeypatch.setattr(cs, "n2_oracle", shifted)
     with pytest.raises(cs.SmokeFailure, match="numpy oracle"):
         cs.phase_nested(lineitem, "cpu", {})
+
+
+def _small_ingest(cs, monkeypatch):
+    """chip_smoke.py's ingest phase at a small size on the CPU; the kernel
+    cases (which need the card) replaced by a record of the calls the cold
+    runs handed them."""
+    from daft_tpu_torch.device.residency import manager
+
+    monkeypatch.setattr(cs, "clear_residency", lambda: manager().clear())
+    for name, v in (("J1_IMAGES", 120), ("J1_BAD", 5), ("J1_SIDES", (20, 72)),
+                    ("MM_SIZE", 28), ("MM_CHECK_ROWS", 40), ("MM_BATCH", 32),
+                    ("J1_PLAIN_FILES", 6), ("W1_RESPONSES", 60), ("W1_HOSTS", 25),
+                    ("W1_PAYLOAD", (150, 600))):
+        monkeypatch.setattr(cs, name, v)
+    cases = {}
+
+    def record(tag, label, calls, required, kernel_results, card):
+        for wrapper in required:
+            assert calls[wrapper], (label, wrapper)
+        cases[tag] = {w: len(seen) for w, seen in calls.items()}
+
+    monkeypatch.setattr(cs, "stage_kernel_cases", record)
+    return cases
+
+
+def test_ingest_phase_on_the_cpu(monkeypatch, capsys):
+    """J1 (a JSONL manifest of JPEGs through a device UDF into the grouped
+    stage) and W1 (gzipped WARC tokenized with the committed BPE file into
+    the grouped stage) at a small size: equal to "off" and their oracles,
+    nothing uploaded warm, the library's JPEG decode equal to the plain one
+    on files and fixtures, and every kernel a path's cold run called
+    counted among its launches."""
+    cs = _cpu_cells(monkeypatch)
+    cases = _small_ingest(cs, monkeypatch)
+    paths = cs.phase_ingest("cpu", {})
+    assert set(cases) == {"j1", "w1"}
+    for tag, path in (("j1", "ingest_j1"), ("w1", "ingest_w1")):
+        for w, n in cases[tag].items():
+            assert n == paths[path][w], (tag, w, n, paths[path])
+    for k in cs.MM_KERNELS:
+        assert paths["ingest_j1"][k] >= 1, paths
+    for k in cs.W1_KERNELS:
+        assert paths["ingest_w1"][k] >= 1, paths
+    out = capsys.readouterr().out
+    assert "J1: the library's JPEG decode equals the plain version bit for bit on 6 files" \
+        in out
+    assert "J1: 21 result rows, equal to the host path and the numpy oracle" in out
+    assert "J1: the warm runs upload 0 bytes, 0 residency misses" in out
+    assert "W1: the warm runs upload 0 bytes, 0 residency misses" in out
+    assert "W1: 25 hosts" in out or "equal to the oracle" in out
+    assert "J1 host split of the cold run (s): read_json" in out
+    assert "W1 host split of the cold run (s): scan (gunzip, parse)" in out
+
+
+def test_j1_oracle_and_data_follow_the_mix(monkeypatch, tmp_path):
+    """J1's writer: the kinds in their shares, the rows of no image
+    unreadable, the others decoding to their sides; the oracle's counts
+    skip the rows of no image."""
+    import numpy as np
+
+    from daft_tpu_torch.core.kernels import jpeg
+
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "J1_IMAGES", 200)
+    monkeypatch.setattr(cs, "J1_BAD", 6)
+    monkeypatch.setattr(cs, "J1_SIDES", (16, 40))
+    meta = cs.j1_write(str(tmp_path))
+    assert int(meta["bad"].sum()) == 6
+    assert set(meta["kinds"].tolist()) <= {"4:2:0", "4:4:4", "L", "4:1:1"}
+    for i, p in enumerate(meta["paths"]):
+        data = open(p, "rb").read()
+        if meta["bad"][i]:
+            with pytest.raises(OSError):
+                jpeg.decode_jpeg(data)
+        else:
+            img = jpeg.decode_jpeg(data)
+            assert img.mode == ("L" if meta["kinds"][i] == "L" else "RGB")
+    dist = np.arange(200, dtype=np.float64)
+    out = cs.j1_oracle(meta, dist)
+    assert sum(out["n"]) == 194

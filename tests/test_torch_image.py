@@ -10,8 +10,9 @@ which asks PIL and cv2), on the same seeded inputs:
 - crop, the mode conversions among L, LA, RGB and RGBA, to_fixed_shape,
   the accessors and image_hash bit for bit;
 - bytes of no image are null under on_error="null" and raise under
-  "raise"; JPEG, GIF, BMP, TIFF and WebP bytes raise NotImplementedError
-  under both; encode to JPEG raises NotImplementedError;
+  "raise"; GIF, BMP, TIFF and WebP bytes, and an arithmetic-coded JPEG,
+  raise NotImplementedError under both; encode to JPEG refuses the modes
+  PIL refuses (tests/test_torch_jpeg.py holds the JPEG codec itself);
 - the PNG unfiltering export equals its plain version.
 """
 
@@ -307,14 +308,26 @@ def test_decode_errors_follow_on_error():
 def test_deferred_formats_raise_not_implemented(fmt, on_error):
     b = io.BytesIO()
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(b, fmt.upper())
+    data = b.getvalue()
+    if fmt == "JPEG":
+        # the port decodes baseline and progressive JPEG; an arithmetic-coded
+        # frame (SOF9) is a variant that still raises
+        data = data.replace(b"\xff\xc0", b"\xff\xc9", 1)
     with pytest.raises(NotImplementedError, match=fmt):
-        port_image.decode(_port_series([b.getvalue()]), on_error=on_error)
+        port_image.decode(_port_series([data]), on_error=on_error)
 
 
 def test_encode_to_jpeg_raises_not_implemented():
-    col_ = port_image.build_image_series("i", [np.zeros((2, 2, 3), np.uint8)], ["RGB"])
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        port_image.encode(col_, "jpg")
+    """JPEG encoding is ported: an RGB image encodes; an RGBA one raises as
+    PIL's save raises (OSError), and so does the reference."""
+    rgb = port_image.build_image_series("i", [np.zeros((2, 2, 3), np.uint8)], ["RGB"])
+    assert Image.open(io.BytesIO(port_image.encode(rgb, "jpg").to_pylist()[0])).mode == "RGB"
+    rgba = port_image.build_image_series("i", [np.zeros((2, 2, 4), np.uint8)], ["RGBA"])
+    with pytest.raises(OSError, match="JPEG"):
+        port_image.encode(rgba, "jpg")
+    ref_rgba = ref_image.build_image_series("i", [np.zeros((2, 2, 4), np.uint8)], ["RGBA"])
+    with pytest.raises(OSError, match="JPEG"):
+        ref_image.encode(ref_rgba, "jpg")
 
 
 @pytest.mark.parametrize("bpp", [1, 2, 3, 4, 6, 8])
@@ -353,3 +366,21 @@ def test_image_functions_in_a_query_equal_reference(tmp_path):
     with daft_tpu_torch.execution_config_ctx(device="cpu"):
         got = q(daft_tpu_torch, col).to_pydict()
     assert got == want
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_resize_library_equals_plain(seed, monkeypatch):
+    """The host library's uint8 resize (native.py ``image_resize_u8``)
+    equals its plain numpy version bit for bit, up and down, every channel
+    count."""
+    rng = np.random.default_rng([SEED, seed])
+    cases = []
+    for _ in range(12):
+        h, w, c = int(rng.integers(1, 90)), int(rng.integers(1, 90)), int(rng.integers(1, 5))
+        cases.append((rng.integers(0, 256, (h, w, c), dtype=np.uint8),
+                      int(rng.integers(1, 120)), int(rng.integers(1, 120))))
+    lib = [port_image.resize_image(img, w, h) for img, w, h in cases]
+    monkeypatch.setenv(native.DISABLE_ENV, "1")
+    plain = [port_image.resize_image(img, w, h) for img, w, h in cases]
+    for a, b in zip(lib, plain):
+        assert a.shape == b.shape and np.array_equal(a, b)

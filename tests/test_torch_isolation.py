@@ -36,7 +36,10 @@
   functions, a Parquet and a CSV round trip) imports none of them either;
 - a multimodal query (PNG files decoded, made fixed-shape and fed to a
   device UDF, cosine distances grouped on the device stage) and a minhash
-  query import none of them, nor PIL, cv2, tokenizers, soundfile or av.
+  query import none of them, nor PIL, cv2, tokenizers, soundfile or av;
+- an ingest query (a JPEG encoded and decoded, a BPE tokenizer file's
+  encode, a JSON manifest and a WARC file scanned into the device stage,
+  a JSON write) imports none of them, nor PIL, tokenizers or regex.
 """
 
 import datetime
@@ -917,6 +920,66 @@ def test_multimodal_query_imports_no_jax_pyarrow_or_reference():
     JAX, pyarrow, pandas, daft_tpu, PIL, cv2, tokenizers, soundfile or av
     imported."""
     proc = subprocess.run([sys.executable, "-c", _MULTIMODAL_QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+_INGEST_QUERY = """
+import gzip, json, os, sys, tempfile
+sys.path.insert(0, {repo!r})
+import numpy as np
+import daft_tpu_torch as dt
+from daft_tpu_torch import col
+from daft_tpu_torch.core.kernels import jpeg
+from daft_tpu_torch.ops import counters
+d = tempfile.mkdtemp()
+rng = np.random.default_rng(3)
+rows = []
+for i in range(12):
+    px = rng.integers(0, 256, (9 + i, 14, 3), dtype=np.uint8)
+    data = jpeg.encode_jpeg(px)
+    assert jpeg.decode_jpeg(data).pixels.shape == (9 + i, 14, 3)
+    p = os.path.join(d, f"{{i}}.jpg")
+    open(p, "wb").write(data)
+    rows.append({{"path": p, "label": i % 3}})
+os.makedirs(os.path.join(d, "m"))
+with open(os.path.join(d, "m", "a.jsonl"), "w") as f:
+    f.writelines(json.dumps(r) + "\\n" for r in rows)
+tok = os.path.join({repo!r}, "tests", "data", "w1_tokenizer.json")
+with open(os.path.join(d, "a.warc.gz"), "wb") as f:
+    for i in range(6):
+        body = ("t\u00e9xt %d \u4e2d " % i).encode() * 5
+        f.write(gzip.compress(b"WARC/1.0\\r\\nWARC-Type: response\\r\\nWARC-Target-URI: http://h%d/\\r\\n"
+                              b"Content-Length: %d\\r\\n\\r\\n" % (i % 2, len(body)) + body + b"\\r\\n\\r\\n"))
+with dt.execution_config_ctx(device="cpu", device_mode="on"):
+    df = dt.read_json(os.path.join(d, "m"))
+    df = df.with_column("img", col("path").url.download().image.decode(on_error="null"))
+    df = df.with_column("w", col("img").image_width().cast(dt.DataType.int64()))
+    out = df.groupby("label").agg(col("w").sum().alias("s")).sort("label").to_pydict()
+    assert out["s"] == [56, 56, 56], out
+    assert counters.device_grouped_batches >= 1
+    w = dt.read_warc(os.path.join(d, "a.warc.gz")).with_column(
+        "n", col("content").tokenize_encode(tok).list.length().cast(dt.DataType.int64()))
+    out = w.groupby("warc_target_uri").agg(col("n").sum()).to_pydict()
+    assert sum(out["n"]) > 0, out
+    dt.read_json(os.path.join(d, "m")).write_json(os.path.join(d, "o"))
+    assert dt.read_text(os.path.join(d, "m", "a.jsonl")).count_rows() == 12
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow", "pandas", "PIL", "cv2", "tokenizers", "regex")
+             or m.startswith(("jax.", "pyarrow.", "pandas.", "daft_tpu.", "PIL.", "cv2.",
+                              "tokenizers.", "regex."))
+             or m == "daft_tpu")
+print("FORBIDDEN", bad)
+"""
+
+
+def test_ingest_query_imports_no_jax_pyarrow_pil_tokenizers_or_reference():
+    """JPEG encode and decode, a BPE file's encode, JSON, text and WARC
+    scans into the device stage and a JSON write in a fresh interpreter: no
+    JAX, pyarrow, pandas, daft_tpu, PIL, cv2, tokenizers or regex
+    imported."""
+    proc = subprocess.run([sys.executable, "-c", _INGEST_QUERY.format(repo=REPO)],
                           capture_output=True, text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
