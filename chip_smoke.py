@@ -149,6 +149,28 @@ error (no phase catches its own failure):
             equal (floats within rtol 1e-5, the rest exactly); first-run and
             warm median-of-3 wall time; a warm SQL run uploads nothing where
             the DataFrame form's does not;
+    serve:  the serving tier (daft_tpu_torch/serving/, gateway/): one
+            in-process GatewayServer on 127.0.0.1 with four serving
+            workers, four tenants on their own connections and threads,
+            each sending TPC-H q1, q3, q5, q6, q12, q14 (their TPCH_SQL
+            texts) and one grouped MIN/MAX over lineitem (K3) in a rotated
+            order, over SF1 tables that hold every column the mix reads
+            (``serve_tables``). Rounds: cold (prepared misses, K1-K4 and K7
+            captured at the inputs the run gave them); warm with the result
+            cache off (prepared hits; q6 with another discount range, a
+            literal the prepared cache replans once); the result cache on
+            (each tenant's second pass served from it, equal to its first);
+            hbm_budget_bytes at the largest reservation of the warm round
+            (admission waits); and a one-worker gateway where one tenant
+            queues eight queries and cancels the last (the typed
+            "cancelled" error; afterwards no reservation and no pin). Every
+            answer equals the same SQL in-process under device_mode="off"
+            (floats within rtol 1e-5, the rest exactly), every executed
+            query's plan holds a device stage that ran with no fallback and
+            no rejection, and the captured kernel calls equal their plain
+            versions; each query's p50 and p99 latency through the wire per
+            round, admission waits, prepared and result-cache hits, the
+            bytes streamed and one warm round under torch.profiler;
 13. topn order: the join TopN's row order on the card against the host
             path: 4,000 rows of negative int64 sums, sums past 2^53 that tie
             in f64, and float sums with +inf, NaN and a null group, each in
@@ -396,9 +418,9 @@ error (no phase catches its own failure):
 22. print the ``native {...}`` line (the host kernel library's path, its
    build seconds and each of its 25 exports' calls over the script), the
    {"kernels": [...]} line (each kernel's launches by path:
-   every cell's counted run, and the sql phase's SQL first runs, summed,
-   under "sql"), the card line, and last the {"ok": true, "device":
-   {...}} line.
+   every cell's counted run, the sql phase's SQL first runs, summed,
+   under "sql", and the serve phase's rounds, summed, under "serve"), the
+   card line, and last the {"ok": true, "device": {...}} line.
 
 Every DataFrame runs through ``collect``, which optimizes its plan
 (daft_tpu_torch/plan/optimizer.py) before translating it; each cell prints
@@ -409,7 +431,7 @@ model at its published widths with its depth uncut. It imports torch,
 numpy and the port; nothing of JAX, pyarrow or daft_tpu.
 
     python3 chip_smoke.py --phase ooc|window|obs|auto|functions|tpcds|native|temporal|nested|
-                                  multimodal|ingest
+                                  multimodal|ingest|serve
 
 runs phases 1-3, then that phase alone (ooc, obs and auto write lineitem's
 Parquet files themselves; auto alone computes each cell's "off" result and
@@ -3485,6 +3507,362 @@ def phase_sql(sql_tables: dict, card: str) -> dict:
               f"run {first_s:.4f} s; warm median {statistics.median(warm):.4f} s (runs "
               f"{', '.join(f'{w:.4f}' for w in warm)}); warm uploads {uploads} (the "
               f"DataFrame form's {df_uploads}) [{card}]", flush=True)
+    return launches
+
+
+# ---- serve: the serving tier on the card -----------------------------------------
+
+# the mix: TPC-H q1, q3, q5, q6, q12 and q14 as TPCH_SQL writes them, and a
+# grouped MIN/MAX over lineitem, whose int64 and date extremes run on K3
+# (none of the six launches it)
+SERVE_MINMAX_SQL = """
+select l_returnflag, l_linestatus, min(l_shipdate) as first_ship,
+       max(l_shipdate) as last_ship, min(l_orderkey) as first_order,
+       max(l_orderkey) as last_order, count(*) as n
+from lineitem
+group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus"""
+SERVE_MIX = (("q1", TPCH_SQL[1]), ("q3", TPCH_SQL[3]), ("q5", TPCH_SQL[5]),
+             ("q6", TPCH_SQL[6]), ("q12", TPCH_SQL[12]), ("q14", TPCH_SQL[14]),
+             ("minmax", SERVE_MINMAX_SQL))
+# the warm round's q6: another discount range, so its prepared entry
+# replans once (the literal contract) and executes
+SERVE_Q6_WARM = TPCH_SQL[6].replace("between 0.05 and 0.07", "between 0.04 and 0.06")
+SERVE_FLOATS = {"q1": Q1_FLOATS, "q3": ("revenue",), "q5": ("revenue",), "q6": ("revenue",),
+                "q12": (), "q14": ("promo_revenue",), "minmax": ()}
+SERVE_TENANTS = 4
+SERVE_CONCURRENT = 4          # the gateway's serving workers (max_concurrent_queries)
+SERVE_CANCEL_QUEUE = 8        # the cancel round's queued queries (one tenant)
+SERVE_RESULT_CACHE = 256 << 20  # the result cache's budget in the cached round
+SERVE_TIMEOUT_S = 600.0       # each client socket's timeout and each thread's join
+SERVE_KERNEL_CALLS = 4        # calls of each kernel the cold round keeps for its cases
+SERVE_WRAPPERS = {"segment_sum_planes": "segment_kernels",
+                  "segment_extreme_planes": "segment_kernels",
+                  "segment_sum_float_planes": "segment_kernels",
+                  "segment_extreme_int64": "segment_kernels",
+                  "build_probe_table": "probe_kernels", "hash_probe_index": "probe_kernels"}
+# the reservation the cancel round holds while its tenant queues (past any
+# card's memory, and the round's hbm_budget_bytes: every served query waits)
+SERVE_HOLD_BYTES = 1 << 40
+SERVE_KERNELS = ("segment_sum_planes", "segment_extreme_planes", "segment_extreme_int64",
+                 "hash_probe_build", "hash_probe_index", "segment_sum_float_planes")
+SERVE_STAGES = ("device_grouped_batches", "device_stage_batches", "device_join_batches",
+                "device_topn_runs")
+
+
+def serve_tables(lineitem, orders, dims) -> dict:
+    """The serve phase's tables: every column the mix reads, string columns
+    as object arrays of their strings, dates as days."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+
+    def strings(vocab, codes):
+        return np.array(vocab, dtype=object)[codes]
+
+    day = {c: lineitem[c].astype("datetime64[D]")
+           for c in ("l_shipdate", "l_commitdate", "l_receiptdate")}
+    part, customer = dims["part"], dims["customer"]
+    return {
+        "lineitem": dt.from_pydict({
+            **{c: lineitem[c] for c in ("l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
+                                        "l_extendedprice", "l_discount", "l_tax")},
+            "l_returnflag": strings(RETURNFLAGS, lineitem["l_returnflag"]),
+            "l_linestatus": strings(LINESTATUS, lineitem["l_linestatus"]),
+            "l_shipmode": strings(SHIPMODES, lineitem["l_shipmode"]), **day}),
+        "orders": dt.from_pydict({
+            "o_orderkey": orders["o_orderkey"], "o_custkey": orders["o_custkey"],
+            "o_orderdate": orders["o_orderdate"].astype("datetime64[D]"),
+            "o_shippriority": orders["o_shippriority"],
+            "o_orderpriority": strings(PRIORITIES, orders["o_orderpriority"])}),
+        "customer": dt.from_pydict({
+            "c_custkey": customer["c_custkey"], "c_nationkey": customer["c_nationkey"],
+            "c_mktsegment": strings(SEGMENTS, customer["c_mktsegment"])}),
+        "part": dt.from_pydict({"p_partkey": part["p_partkey"],
+                                "p_type": strings(P_TYPES, part["p_type"])}),
+        "supplier": dt.from_pydict(dims["supplier"]),
+        "nation": dt.from_pydict(dims["nation"]),
+        "region": dt.from_pydict(dims["region"]),
+    }
+
+
+def serve_off(tables: dict):
+    """The mix's answers in-process under device_mode="off": (by query, the
+    same with the warm round's q6)."""
+    import daft_tpu_torch as dt
+
+    with dt.execution_config_ctx(device_mode="off"):
+        want = {name: dt.sql(text, **tables).to_pydict() for name, text in SERVE_MIX}
+        return want, {**want, "q6": dt.sql(SERVE_Q6_WARM, **tables).to_pydict()}
+
+
+def serve_round(srv, label: str, mix, passes: int = 1) -> list:
+    """Each of SERVE_TENANTS tenants on its own connection and thread sends
+    ``mix`` rotated by its number, ``passes`` times over: [(tenant, pass,
+    name, source, seconds, result), ...]. A tenant's failure fails the
+    round."""
+    import threading
+
+    from daft_tpu_torch.gateway import GatewayClient
+
+    out, errors = [], []
+    lock = threading.Lock()
+
+    def tenant(t: int) -> None:
+        try:
+            with GatewayClient(srv.host, srv.port, tenant=f"tenant-{t}",
+                               timeout=SERVE_TIMEOUT_S) as c:
+                order = list(mix[t % len(mix):]) + list(mix[:t % len(mix)])
+                for p in range(passes):
+                    for name, text in order:
+                        t0 = time.perf_counter()
+                        got = c.query(text)
+                        dt_s = time.perf_counter() - t0
+                        with lock:
+                            out.append((t, p, name, c.last_source, dt_s, got))
+        except Exception as e:  # noqa: BLE001 -- carried to the phase as a failure
+            with lock:
+                errors.append(f"tenant-{t}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=tenant, args=(t,), name=f"serve-tenant-{t}")
+               for t in range(SERVE_TENANTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(SERVE_TIMEOUT_S)
+    check(not any(th.is_alive() for th in threads), f"{label}: a tenant did not finish")
+    check(not errors, f"{label}: {errors}")
+    return out
+
+
+def serve_latencies(label: str, rows: list, wall_s: float, card: str) -> None:
+    """Each query's p50 and p99 latency through the wire over a round's
+    samples, and the round's wall time."""
+    import numpy as np
+
+    by = {}
+    for _t, _p, name, _src, sec, _got in rows:
+        by.setdefault(name, []).append(sec * 1e3)
+    print(f"{label}: wall {wall_s:.3f} s, {len(rows)} queries; latency through the wire, "
+          "ms (p50 / p99 over the round's samples): " + "; ".join(
+              f"{n} {np.percentile(v, 50):.3f} / {np.percentile(v, 99):.3f} (n {len(v)})"
+              for n, v in by.items()) + f" [{card}]", flush=True)
+
+
+def serve_checks(label: str, rows: list, want: dict, prepared, card: str) -> None:
+    """Every answer equals the "off" run (SERVE_FLOATS within rtol 1e-5,
+    the rest exactly), every executed query's plan holds a device stage,
+    and none fell back or was refused."""
+    from daft_tpu_torch.ops import counters
+    from daft_tpu_torch.plan import physical as pp
+
+    for t, p, name, _src, _sec, got in rows:
+        check(same_result(got, want[name], SERVE_FLOATS[name]),
+              f"{label}: tenant-{t}'s {name} (pass {p}) differs from the \"off\" run")
+    device = (pp.DeviceGroupedAgg, pp.DeviceFilterAgg, pp.DeviceJoinAgg, pp.DeviceJoinTopN)
+    with prepared._lock:
+        entries = list(prepared._entries.values())
+    for e in entries:
+        check(any(isinstance(n, device) for n in e.physical.walk()),
+              f"{label}: a served plan holds no device stage:\n{e.physical.display()}")
+    snap = counters.snapshot()
+    check(snap["device_fallbacks"] == 0, f"{label}: a device stage fell back to the host")
+    check(not counters.rejections, f"{label}: a stage was refused: {counters.rejections}")
+    print(f"{label}: {len(rows)} answers equal to the \"off\" runs; every served plan holds a "
+          f"device stage; no fallback, no rejection [{card}]", flush=True)
+
+
+def serve_kernel_cases(calls: dict, kernel_results: dict, card: str) -> None:
+    """K1, K2, K3 and K7 (``stage_kernel_cases``) and K4's builds and probes
+    at the inputs the cold round gave them, each held against its plain
+    version, into ``kernel_results`` under "at_serve_..."."""
+    import torch
+
+    from daft_tpu_torch.ops import probe_kernels as pk
+
+    stage_kernel_cases("serve", "serve", {w: calls[w] for w in GROUPED_WRAPPERS},
+                       GROUPED_WRAPPERS, kernel_results, card)
+    check(calls["build_probe_table"] and calls["hash_probe_index"],
+          "serve: K4 was not called in the cold round")
+    new = {}
+    for i, ((keys, valid, slots), _out) in enumerate(calls["build_probe_table"]):
+        _table, new[("hash_probe_build", f"at_serve_{i}")] = k4_build_case(
+            pk, keys, f"serve build {i}", valid, slots)
+    for i, ((keys, valid, table), _out) in enumerate(calls["hash_probe_index"]):
+        _got, new[("hash_probe_index", f"at_serve_{i}")] = k4_probe_case(
+            pk, keys, valid, table, pk.table_entries(table)[0], f"serve probe {i}")
+    for (kname, case_label), case in new.items():
+        kernel_results[kname][case_label] = case
+    del calls, new
+    torch.cuda.empty_cache()
+
+
+def phase_serve(lineitem, orders, dims, card: str, kernel_results: dict) -> dict:
+    """The serve phase (see the module doc): five rounds through one gateway
+    (the fifth through a one-worker gateway), every check a SmokeFailure.
+    Returns the launches of the rounds, summed (the kernel cases' and the
+    profile's launches fall outside them)."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.device.residency import manager
+    from daft_tpu_torch.gateway import GatewayClient, GatewayError, GatewayServer, ResultCache
+    from daft_tpu_torch.observability import Subscriber, attach_subscriber, detach_subscriber
+    from daft_tpu_torch.observability.metrics import registry
+    from daft_tpu_torch.ops import counters
+
+    phase("serve")
+    t_phase = time.perf_counter()
+    tables = serve_tables(lineitem, orders, dims)
+    warm_mix = tuple((n, SERVE_Q6_WARM if n == "q6" else text) for n, text in SERVE_MIX)
+    t0 = time.perf_counter()
+    want, want_warm = serve_off(tables)
+    print(f"serve: the mix's \"off\" runs {time.perf_counter() - t0:.3f} s (host clock)",
+          flush=True)
+
+    class Records(Subscriber):
+        def __init__(self):
+            self.recs = []
+
+        def on_serve_query(self, rec):
+            self.recs.append(rec)
+
+    records = Records()
+    attach_subscriber(records)
+    clear_residency()
+    reg0 = registry().snapshot()
+    try:
+        with dt_ctx():
+            counters.reset()
+            srv = GatewayServer(tables=tables, max_concurrent=SERVE_CONCURRENT,
+                                result_cache_budget=0).start()
+            try:
+                prepared = srv._session.prepared
+                # 1. cold: every plan prepared anew, the kernels' calls kept
+                rows = []
+                t0 = time.perf_counter()
+                calls = capture_kernel_calls(
+                    lambda: rows.extend(serve_round(srv, "serve cold", SERVE_MIX)),
+                    SERVE_WRAPPERS, limit=SERVE_KERNEL_CALLS)
+                serve_latencies("serve cold", rows, time.perf_counter() - t0, card)
+                serve_checks("serve cold", rows, want, prepared, card)
+                check(all(src == "executed" for *_x, src, _s, _g in rows),
+                      "serve cold: a query did not execute")
+                # 2. warm, the result cache off: prepared hits, q6 replanned once
+                hits0 = registry().get("serve_prepared_hits")
+                miss0 = registry().get("serve_prepared_misses")
+                n_recs = len(records.recs)
+                t0 = time.perf_counter()
+                rows = serve_round(srv, "serve warm", warm_mix)
+                serve_latencies("serve warm", rows, time.perf_counter() - t0, card)
+                serve_checks("serve warm", rows, want_warm, prepared, card)
+                check(all(r[3] == "executed" for r in rows), "serve warm: a query did not "
+                      "execute")
+                hits = registry().get("serve_prepared_hits") - hits0
+                misses = registry().get("serve_prepared_misses") - miss0
+                check(hits > 0, "serve warm: no prepared hit")
+                warm_recs = records.recs[n_recs:]
+                est = max(r.est_pin_bytes for r in warm_recs)
+                print(f"serve warm: prepared hits {hits}, misses {misses} (q6's new range "
+                      f"replans in its slot); largest reservation {est} bytes, observed "
+                      f"pins calibrated {registry().get('serve_pin_calibrations')} times "
+                      f"[{card}]", flush=True)
+                warm_answers = {(t, name): got for t, _p, name, _s, _d, got in rows}
+                # 3. the result cache on: each tenant's second pass from it
+                srv.cache = ResultCache(SERVE_RESULT_CACHE)
+                rc0 = registry().get("result_cache_hits")
+                t0 = time.perf_counter()
+                rows = serve_round(srv, "serve cached", warm_mix, passes=2)
+                serve_latencies("serve cached", rows, time.perf_counter() - t0, card)
+                serve_checks("serve cached", rows, want_warm, prepared, card)
+                first = {(t, name): got for t, p, name, _s, _d, got in rows if p == 0}
+                for t, p, name, src, _d, got in rows:
+                    if p == 1:
+                        check(src == "result_cache", f"serve cached: tenant-{t}'s repeat of "
+                              f"{name} came from {src}")
+                        check(got == first[(t, name)], f"serve cached: tenant-{t}'s repeat of "
+                              f"{name} differs from its first answer")
+                        check(same_result(got, warm_answers[(t, name)], SERVE_FLOATS[name]),
+                              f"serve cached: tenant-{t}'s {name} differs from round 2's")
+                rc_hits = registry().get("result_cache_hits") - rc0
+                check(rc_hits > 0, "serve cached: no result-cache hit")
+                print(f"serve cached: result-cache hits {rc_hits}, {srv.cache.stats()} "
+                      f"[{card}]", flush=True)
+                srv.cache = ResultCache(0)
+                # 4. a tight HBM budget: the largest warm reservation
+                waits0 = registry().get("admission_waits_total")
+                with dt.execution_config_ctx(hbm_budget_bytes=est):
+                    t0 = time.perf_counter()
+                    rows = serve_round(srv, "serve tight", warm_mix)
+                    serve_latencies("serve tight", rows, time.perf_counter() - t0, card)
+                    serve_checks("serve tight", rows, want_warm, prepared, card)
+                waits = registry().get("admission_waits_total") - waits0
+                check(waits > 0, f"serve tight: no admission wait under a budget of {est} "
+                      "bytes")
+                print(f"serve tight: hbm_budget_bytes {est}, admission waits {waits} "
+                      f"[{card}]", flush=True)
+            finally:
+                srv.close()
+            # 5. cancel: one worker; while the phase holds a reservation of
+            # the whole budget, one tenant queues SERVE_CANCEL_QUEUE queries
+            # (the first waits at admission, the rest in the fair queue) and
+            # cancels the last
+            one = GatewayServer(tables=tables, max_concurrent=1, result_cache_budget=0).start()
+            try:
+                queue = (list(warm_mix) * 2)[:SERVE_CANCEL_QUEUE]
+                with GatewayClient(one.host, one.port, tenant="tenant-cancel",
+                                   timeout=SERVE_TIMEOUT_S) as c:
+                    with dt.execution_config_ctx(hbm_budget_bytes=SERVE_HOLD_BYTES), \
+                            manager().admit(SERVE_HOLD_BYTES, tenant="serve-hold"):
+                        qids = [c.execute(sql=text) for _n, text in queue]
+                        check(c.cancel(qids[-1]), "serve cancel: the cancel was not delivered")
+                    for (name, _text), qid in zip(queue[:-1], qids[:-1]):
+                        got = c.fetch_pydict(qid)
+                        check(same_result(got, want_warm[name], SERVE_FLOATS[name]),
+                              f"serve cancel: {name} differs from the \"off\" run")
+                    try:
+                        c.fetch_pydict(qids[-1])
+                    except GatewayError as e:
+                        check(e.code == "cancelled", f"serve cancel: the cancelled query "
+                              f"answered {e.code}: {e}")
+                    else:
+                        raise SmokeFailure("serve cancel: the cancelled query answered a "
+                                           "result")
+            finally:
+                one.close()
+            check(manager().reserved_bytes() == 0 and manager().reservation_count() == 0,
+                  f"serve cancel: {manager().reserved_bytes()} bytes still reserved")
+            check(manager().pinned_count() == 0,
+                  f"serve cancel: {manager().pinned_count()} residency entries still pinned")
+            print(f"serve cancel: {SERVE_CANCEL_QUEUE - 1} answers equal to the \"off\" runs, "
+                  "the last query cancelled with the typed error; no reservation, no pin "
+                  f"[{card}]", flush=True)
+            snap = counters.snapshot()
+    finally:
+        detach_subscriber(records)
+    launches = {k: snap[f"{CELL_KERNEL_PREFIX}{k}"] for k in counters.KERNEL_NAMES}
+    for k in SERVE_KERNELS:
+        check(launches[k] > 0, f"serve: kernel {k} was not launched")
+    delta = registry().diff(reg0)
+    stages = {k: snap[k] for k in SERVE_STAGES}
+    print(f"serve: launches {json.dumps({k: v for k, v in launches.items() if v})}; stages "
+          f"{json.dumps(stages)}; admission waits {delta.get('admission_waits_total', 0)}, "
+          f"prepared hits {delta.get('serve_prepared_hits', 0)}, misses "
+          f"{delta.get('serve_prepared_misses', 0)}, result-cache hits "
+          f"{delta.get('result_cache_hits', 0)}, gateway_bytes_streamed "
+          f"{delta.get('gateway_bytes_streamed', 0)}, queries served "
+          f"{delta.get('serve_queries_total', 0)}, cancelled "
+          f"{delta.get('serve_cancelled_total', 0)}; phase wall "
+          f"{time.perf_counter() - t_phase:.3f} s [{card}]", flush=True)
+    serve_kernel_cases(calls, kernel_results, card)
+    # the device's idle share over one warm round (a gateway of its own)
+    prof = GatewayServer(tables=tables, max_concurrent=SERVE_CONCURRENT,
+                         result_cache_budget=0).start()
+    try:
+        with dt_ctx():
+            serve_round(prof, "serve profile warm-up", warm_mix)
+        phase_profile(lambda: serve_round(prof, "serve profile", warm_mix), card,
+                      "serve profile", host_ops=False)
+    finally:
+        prof.close()
     return launches
 
 
@@ -6957,12 +7335,14 @@ TPCDS_WRAPPERS = {"segment_sum_planes": "segment_kernels",
                   "build_probe_table": "probe_kernels", "hash_probe_index": "probe_kernels"}
 
 
-def capture_kernel_calls(run, wrappers=None) -> dict:
+def capture_kernel_calls(run, wrappers=None, limit: int = 0) -> dict:
     """Run ``run`` with each of ``wrappers``' (default TPCDS_WRAPPERS)
     wrappers replaced by one that keeps a copy of its arguments and of its
     result, then returns the result: {wrapper: [(args, result), ...]} in
     call order. The engine calls the wrappers through their modules, so
-    this sees every call."""
+    this sees every call, on any thread. ``limit`` > 0 keeps the first
+    ``limit`` calls of each wrapper (about: concurrent callers may pass it
+    by one or two) and lets the rest run uncopied."""
     import importlib
 
     import torch
@@ -6983,6 +7363,8 @@ def capture_kernel_calls(run, wrappers=None) -> dict:
         fn = originals[name]
 
         def wrapper(*args):
+            if limit and len(calls[name]) >= limit:
+                return fn(*args)
             kept = copy(args)
             out = fn(*args)
             calls[name].append((kept, copy(out)))
@@ -9007,7 +9389,8 @@ def phase_ingest(card: str, kernel_results: dict) -> dict:
 
 def phase_alone(name: str, lineitem, orders, dims, card: str, kernel_results: dict) -> dict:
     """``--phase ooc``, ``window``, ``obs``, ``auto``, ``functions``,
-    ``tpcds``, ``native``, ``temporal`` or ``nested`` after the kernels phase: the scan phase's tables in memory
+    ``tpcds``, ``native``, ``temporal``, ``nested``, ``multimodal``,
+    ``ingest`` or ``serve`` after the kernels phase: the scan phase's tables in memory
     (tpcds its own tables, and its kernel cases into ``kernel_results``;
     and, for ooc, obs and auto,
     lineitem written to Parquet under a temporary directory, as the scan
@@ -9026,6 +9409,8 @@ def phase_alone(name: str, lineitem, orders, dims, card: str, kernel_results: di
         return phase_multimodal(lineitem, card, kernel_results)
     if name == "ingest":
         return phase_ingest(card, kernel_results)
+    if name == "serve":
+        return {"serve": phase_serve(lineitem, orders, dims, card, kernel_results)}
     frames = scan_tables(lineitem, orders, dims)
     if name == "window":
         return phase_window(lineitem, dims, frames, card)
@@ -9076,7 +9461,7 @@ def main(argv=None) -> int:
                              "(no main path runs, so no launches are counted)")
     parser.add_argument("--phase", choices=("ooc", "window", "obs", "auto", "functions",
                                             "tpcds", "native", "temporal", "nested",
-                                            "multimodal", "ingest"),
+                                            "multimodal", "ingest", "serve"),
                         help="run the card, build, data and kernels phases, then this phase "
                              "alone: ooc (TPC-H under a host memory budget, the external "
                              "sort, the Grace joins), window (W1, W2), obs (EXPLAIN "
@@ -9102,7 +9487,9 @@ def main(argv=None) -> int:
                              "SF1) or ingest (J1: a JSONL manifest of JPEG files decoded, "
                              "resized and fed to a device UDF, its distances into the "
                              "grouped stage; W1: gzipped WARC files tokenized with a BPE "
-                             "file, tokens per host on the grouped stage)")
+                             "file, tokens per host on the grouped stage) or serve (four "
+                             "tenants' TPC-H SQL at SF1 through one gateway: cold, warm, "
+                             "result cache, a tight HBM budget, a cancel)")
     parser.add_argument("--root", default=HERE,
                         help="the checkout whose daft_tpu_torch is driven (default: the "
                              "one beside this script), e.g. an unpacked parent commit to "
@@ -9177,6 +9564,7 @@ def main(argv=None) -> int:
             with dt_ctx():
                 cells["q5"] = q5()
             paths["sql"] = phase_sql(sql_tables, card)
+            paths["serve"] = phase_serve(lineitem, orders, dims, card, kernel_results)
             obs_tables = {"q1": sql_tables["q1"]["lineitem"], "q6": sql_tables["q6"]["lineitem"],
                           "q12": sql_tables["q12"], "tails": sql_tables["tails"]}
             del sql_tables

@@ -99,12 +99,45 @@ def from_pylist(rows) -> DataFrame:
     return from_pydict({n: [r.get(n) for r in rows] for n in names})
 
 
+# ---- observability and serving conveniences (api.py:37-72) -------------------------
+
+
+def launch_dashboard(host: str = "127.0.0.1", port: int = 0):
+    """Start the embedded dashboard (query history, /api/* JSON, Prometheus
+    /metrics); returns the Dashboard (``.url``, ``.shutdown()``)."""
+    from .observability.dashboard import launch
+
+    return launch(host, port)
+
+
+def enable_event_log(path: str):
+    """Append one JSON line per query lifecycle event to ``path``
+    (observability/event_log.py); returns the subscriber."""
+    from .observability.event_log import enable_event_log as _enable
+
+    return _enable(path)
+
+
+def serving_session(max_concurrent=None, runner=None, prepared_cap: int = 64):
+    """A ServingSession (serving/): N concurrent queries behind fair
+    per-tenant admission, the HBM admission controller and the
+    prepared-query cache. A context manager::
+
+        with dt.serving_session(max_concurrent=4) as sess:
+            rows = sess.submit(df.groupby("k").agg(...), tenant="acme").to_pydict()
+    """
+    from .serving import ServingSession
+
+    return ServingSession(max_concurrent=max_concurrent, runner=runner,
+                          prepared_cap=prepared_cap)
+
+
 __all__ = [
     "DataFrame", "DataType", "ExecutionConfig", "Expression", "Field", "Func",
     "GroupedDataFrame", "ImageMode", "MicroPartition", "RecordBatch", "Schema", "Series",
     "Session", "cls", "col", "current_session", "execution_config", "execution_config_ctx",
     "file", "from_files", "from_glob_path", "from_numpy_columns", "from_pydict",
-    "from_pylist", "func", "lit", "method",
+    "from_pylist", "func", "enable_event_log", "launch_dashboard", "lit", "method",
     "read_csv", "read_json", "read_parquet", "read_text", "read_warc", "set_execution_config",
-    "sql", "sql_expr", "TimeUnit", "udf", "Window",
+    "serving_session", "sql", "sql_expr", "TimeUnit", "udf", "Window",
 ]

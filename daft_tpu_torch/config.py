@@ -82,6 +82,21 @@ and environment variables):
 - ``spill_prefetch_batches`` (``DAFT_TPU_SPILL_PREFETCH_BATCHES``, 2): the
   read-ahead depth of one spill reader (and of a budgeted Parquet scan's
   decode-ahead); 0 turns read-ahead off.
+
+The serving tier (serving/, gateway/; the reference's knobs, defaults and
+environment variables):
+
+- ``max_concurrent_queries`` (``DAFT_TPU_MAX_CONCURRENT_QUERIES``, 4): the
+  queries one ServingSession runs at once (its worker threads); more queue
+  fairly (per-tenant round-robin, FIFO within a tenant);
+- ``tenant_budget_bytes`` (``DAFT_TPU_TENANT_BUDGET``, 0): the most
+  estimated pin-scope bytes one tenant's admitted queries may reserve at
+  once (device/residency.py ``admit``); 0 = no per-tenant cap;
+- ``shuffle_compression`` (``DAFT_TPU_SHUFFLE_COMPRESSION``, "lz4"): the
+  Arrow IPC body codec of the gateway's result chunks and the stage
+  checkpoints' result files (io/arrow_ipc.py): "lz4" (LZ4_FRAME), "zstd"
+  (accepted here as the reference accepts it; the writer raises
+  NotImplementedError: the port has no zstd codec) or "none".
 """
 
 from __future__ import annotations
@@ -138,6 +153,12 @@ class ExecutionConfig:
         default_factory=lambda: _env_int("DAFT_TPU_SPILL_IO_THREADS", 2))
     spill_prefetch_batches: int = field(
         default_factory=lambda: _env_int("DAFT_TPU_SPILL_PREFETCH_BATCHES", 2))
+    max_concurrent_queries: int = field(
+        default_factory=lambda: _env_int("DAFT_TPU_MAX_CONCURRENT_QUERIES", 4))
+    tenant_budget_bytes: int = field(
+        default_factory=lambda: _env_int("DAFT_TPU_TENANT_BUDGET", 0))
+    shuffle_compression: str = field(
+        default_factory=lambda: os.environ.get("DAFT_TPU_SHUFFLE_COMPRESSION", "lz4"))
 
     def __post_init__(self) -> None:
         if self.device_mode not in ("on", "off", "auto"):
@@ -183,6 +204,18 @@ class ExecutionConfig:
             raise ValueError(f"spill_prefetch_batches must be >= 0 (0 disables read-ahead), "
                              f"got {self.spill_prefetch_batches!r} "
                              f"(check DAFT_TPU_SPILL_PREFETCH_BATCHES)")
+        if self.shuffle_compression not in ("none", "lz4", "zstd"):
+            raise ValueError(f"shuffle_compression must be one of 'none'/'lz4'/'zstd', got "
+                             f"{self.shuffle_compression!r} "
+                             f"(check DAFT_TPU_SHUFFLE_COMPRESSION)")
+        if self.max_concurrent_queries < 1:
+            raise ValueError(f"max_concurrent_queries must be >= 1, got "
+                             f"{self.max_concurrent_queries!r} "
+                             f"(check DAFT_TPU_MAX_CONCURRENT_QUERIES)")
+        if self.tenant_budget_bytes < 0:
+            raise ValueError(f"tenant_budget_bytes must be >= 0 (0 disables the per-tenant "
+                             f"cap), got {self.tenant_budget_bytes!r} "
+                             f"(check DAFT_TPU_TENANT_BUDGET)")
 
 
 _default: Optional[ExecutionConfig] = None

@@ -9,7 +9,8 @@
 // port's own: png_unfilter (the PNG codec, core/kernels/png.py), the JPEG
 // codec's stages (core/kernels/jpeg.py), cv2's uint8 resize
 // (core/kernels/image.py) and the tokenizer-file reader's split and word
-// cache (functions/tokenizer_file.py). Built at first use
+// cache (functions/tokenizer_file.py), and LZ4's block and frame codec with
+// xxh32 (io/arrow_ipc.py's LZ4_FRAME bodies). Built at first use
 // by ops/_build.py ``host_library`` with the host compiler (``$CXX``, else
 // ``c++``) into ops/_kbuild/.
 //
@@ -1465,6 +1466,268 @@ void jpeg_component_plane(const uint8_t* px, int64_t h, int64_t w, int64_t c, in
       o[x] = (uint8_t)v;
     }
   }
+}
+
+// ---------------------------------------------------------------------------------
+// LZ4 (the block and frame formats of the public LZ4 specification; a fresh
+// implementation): Arrow IPC's LZ4_FRAME body compression
+// (io/arrow_ipc.py). The compressor is a greedy single-pass matcher over a
+// 2^16-entry table of 4-byte hashes; native.py's plain versions run the same
+// algorithm, byte for byte. The decompressor takes any valid frame (linked or
+// independent blocks, block and content checksums, content size, stored
+// blocks, skippable frames, several frames in a row), as pyarrow writes them.
+// ---------------------------------------------------------------------------------
+
+static const uint32_t X32_1 = 2654435761U, X32_2 = 2246822519U, X32_3 = 3266489917U;
+static const uint32_t X32_4 = 668265263U, X32_5 = 374761393U;
+
+static inline uint32_t rotl32(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
+
+static inline uint32_t rd32(const uint8_t* p) {
+  uint32_t v;
+  memcpy(&v, p, 4);
+  return v;
+}
+
+uint32_t lz4_xxh32(const uint8_t* p, int64_t n, uint32_t seed) {
+  const uint8_t* end = p + n;
+  uint32_t h;
+  if (n >= 16) {
+    uint32_t v1 = seed + X32_1 + X32_2, v2 = seed + X32_2, v3 = seed, v4 = seed - X32_1;
+    const uint8_t* limit = end - 16;
+    do {
+      v1 = rotl32(v1 + rd32(p) * X32_2, 13) * X32_1; p += 4;
+      v2 = rotl32(v2 + rd32(p) * X32_2, 13) * X32_1; p += 4;
+      v3 = rotl32(v3 + rd32(p) * X32_2, 13) * X32_1; p += 4;
+      v4 = rotl32(v4 + rd32(p) * X32_2, 13) * X32_1; p += 4;
+    } while (p <= limit);
+    h = rotl32(v1, 1) + rotl32(v2, 7) + rotl32(v3, 12) + rotl32(v4, 18);
+  } else {
+    h = seed + X32_5;
+  }
+  h += (uint32_t)n;
+  while (p + 4 <= end) {
+    h = rotl32(h + rd32(p) * X32_3, 17) * X32_4;
+    p += 4;
+  }
+  while (p < end) {
+    h = rotl32(h + (*p) * X32_5, 11) * X32_1;
+    p++;
+  }
+  h ^= h >> 15;
+  h *= X32_2;
+  h ^= h >> 13;
+  h *= X32_3;
+  h ^= h >> 16;
+  return h;
+}
+
+static const int LZ4_HASH_LOG = 16;
+static const int64_t LZ4_MIN_MATCH = 4, LZ4_LAST_LITERALS = 5, LZ4_MFLIMIT = 12;
+
+static inline int64_t lz4_put_length(uint8_t* dst, int64_t op, int64_t cap, int64_t len) {
+  // the bytes of a length past its token's 15
+  while (len >= 255) {
+    if (op >= cap) return -1;
+    dst[op++] = 255;
+    len -= 255;
+  }
+  if (op >= cap) return -1;
+  dst[op++] = (uint8_t)len;
+  return op;
+}
+
+static int64_t lz4_emit(const uint8_t* src, int64_t anchor, int64_t lit, uint8_t* dst,
+                        int64_t op, int64_t cap, int64_t offset, int64_t mlen) {
+  // one sequence: token, literal length, literals, then (mlen > 0) the offset
+  // and the match length; returns the new output position or -1 (no room)
+  if (op >= cap) return -1;
+  const int64_t tok = op++;
+  const int64_t ml = mlen > 0 ? mlen - LZ4_MIN_MATCH : 0;
+  dst[tok] = (uint8_t)(((lit >= 15 ? 15 : lit) << 4) | (ml >= 15 ? 15 : ml));
+  if (lit >= 15 && (op = lz4_put_length(dst, op, cap, lit - 15)) < 0) return -1;
+  if (op + lit > cap) return -1;
+  memcpy(dst + op, src + anchor, (size_t)lit);
+  op += lit;
+  if (mlen > 0) {
+    if (op + 2 > cap) return -1;
+    dst[op++] = (uint8_t)(offset & 0xFF);
+    dst[op++] = (uint8_t)(offset >> 8);
+    if (ml >= 15 && (op = lz4_put_length(dst, op, cap, ml - 15)) < 0) return -1;
+  }
+  return op;
+}
+
+int64_t lz4_block_compress(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
+  // an LZ4 block of src[0:n]; the bytes written, or -1 when cap is short
+  std::vector<int32_t> table((size_t)1 << LZ4_HASH_LOG, -1);
+  int64_t ip = 0, anchor = 0, op = 0;
+  const int64_t mflimit = n - LZ4_MFLIMIT, matchlimit = n - LZ4_LAST_LITERALS;
+  while (ip < mflimit) {
+    const uint32_t seq = rd32(src + ip);
+    const uint32_t h = (seq * 2654435761U) >> (32 - LZ4_HASH_LOG);
+    const int64_t ref = table[h];
+    table[h] = (int32_t)ip;
+    if (ref < 0 || ip - ref > 65535 || rd32(src + ref) != seq) {
+      ip++;
+      continue;
+    }
+    int64_t mlen = LZ4_MIN_MATCH;
+    while (ip + mlen < matchlimit && src[ref + mlen] == src[ip + mlen]) mlen++;
+    op = lz4_emit(src, anchor, ip - anchor, dst, op, cap, ip - ref, mlen);
+    if (op < 0) return -1;
+    ip += mlen;
+    anchor = ip;
+  }
+  return lz4_emit(src, anchor, n - anchor, dst, op, cap, 0, 0);
+}
+
+static int64_t lz4_block_into(const uint8_t* src, int64_t n, uint8_t* base, int64_t pos,
+                              int64_t cap) {
+  // decode one block into base[pos:cap]; a match may reach back into what
+  // earlier blocks wrote to base (linked blocks). The new position, or a
+  // negative code: -2 malformed input, -3 output past cap
+  int64_t ip = 0;
+  while (ip < n) {
+    const int tok = src[ip++];
+    int64_t lit = tok >> 4;
+    if (lit == 15) {
+      int b;
+      do {
+        if (ip >= n) return -2;
+        b = src[ip++];
+        lit += b;
+      } while (b == 255);
+    }
+    if (ip + lit > n) return -2;
+    if (pos + lit > cap) return -3;
+    memcpy(base + pos, src + ip, (size_t)lit);
+    ip += lit;
+    pos += lit;
+    if (ip == n) break;  // the last sequence has no match
+    if (ip + 2 > n) return -2;
+    const int64_t offset = src[ip] | ((int64_t)src[ip + 1] << 8);
+    ip += 2;
+    if (offset == 0 || offset > pos) return -2;
+    int64_t mlen = tok & 15;
+    if (mlen == 15) {
+      int b;
+      do {
+        if (ip >= n) return -2;
+        b = src[ip++];
+        mlen += b;
+      } while (b == 255);
+    }
+    mlen += LZ4_MIN_MATCH;
+    if (pos + mlen > cap) return -3;
+    const uint8_t* m = base + pos - offset;
+    for (int64_t k = 0; k < mlen; k++) base[pos + k] = m[k];  // may overlap
+    pos += mlen;
+  }
+  return pos;
+}
+
+int64_t lz4_block_decompress(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
+  return lz4_block_into(src, n, dst, 0, cap);
+}
+
+static const uint32_t LZ4F_MAGIC = 0x184D2204U;
+static const int64_t LZ4F_BLOCK = (int64_t)4 << 20;  // BD 7: 4 MiB blocks
+
+int64_t lz4_frame_compress(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
+  // one LZ4 frame: independent 4 MiB blocks (a block that does not shrink is
+  // stored), no checksums, no content size; the bytes written, or -1
+  if (cap < 11) return -1;
+  uint32_t magic = LZ4F_MAGIC;
+  memcpy(dst, &magic, 4);
+  dst[4] = 0x60;  // version 01, independent blocks
+  dst[5] = 0x70;  // 4 MiB blocks
+  dst[6] = (uint8_t)((lz4_xxh32(dst + 4, 2, 0) >> 8) & 0xFF);
+  int64_t op = 7;
+  for (int64_t at = 0; at < n; at += LZ4F_BLOCK) {
+    const int64_t len = std::min(LZ4F_BLOCK, n - at);
+    if (op + 4 > cap) return -1;
+    int64_t c = lz4_block_compress(src + at, len, dst + op + 4, std::min(cap - op - 4, len - 1));
+    uint32_t word;
+    if (c < 0) {  // no gain: stored
+      if (op + 4 + len > cap) return -1;
+      memcpy(dst + op + 4, src + at, (size_t)len);
+      word = (uint32_t)len | 0x80000000U;
+      c = len;
+    } else {
+      word = (uint32_t)c;
+    }
+    memcpy(dst + op, &word, 4);
+    op += 4 + c;
+  }
+  if (op + 4 > cap) return -1;
+  memset(dst + op, 0, 4);  // EndMark
+  return op + 4;
+}
+
+int64_t lz4_frame_decompress(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
+  // every frame of src[0:n] (skippable frames skipped); the bytes written,
+  // or a negative code: -1 not LZ4, -2 malformed, -3 past cap, -4 a
+  // checksum differs, -5 a dictionary is named
+  int64_t ip = 0, pos = 0;
+  while (ip < n) {
+    if (ip + 4 > n) return -2;
+    const uint32_t magic = rd32(src + ip);
+    if ((magic & 0xFFFFFFF0U) == 0x184D2A50U) {
+      if (ip + 8 > n) return -2;
+      ip += 8 + (int64_t)rd32(src + ip + 4);
+      continue;
+    }
+    if (magic != LZ4F_MAGIC) return ip == 0 ? -1 : -2;
+    if (ip + 7 > n) return -2;
+    const int flg = src[ip + 4];
+    if ((flg >> 6) != 1) return -2;
+    const bool indep = flg & 0x20, bsum = flg & 0x10, csize = flg & 0x08;
+    const bool csum = flg & 0x04, dict = flg & 0x01;
+    const int64_t desc = 2 + (csize ? 8 : 0) + (dict ? 4 : 0);
+    if (ip + 4 + desc + 1 > n) return -2;
+    if (((lz4_xxh32(src + ip + 4, desc, 0) >> 8) & 0xFF) != src[ip + 4 + desc]) return -4;
+    if (dict) return -5;
+    int64_t content = -1;
+    if (csize) {
+      uint64_t v;
+      memcpy(&v, src + ip + 6, 8);
+      content = (int64_t)v;
+    }
+    const int64_t bmax = (int64_t)1 << (8 + 2 * ((src[ip + 5] >> 4) & 7));
+    ip += 4 + desc + 1;
+    const int64_t start = pos;
+    while (true) {
+      if (ip + 4 > n) return -2;
+      const uint32_t word = rd32(src + ip);
+      ip += 4;
+      if (word == 0) break;
+      const int64_t len = word & 0x7FFFFFFFU;
+      if (len > bmax || ip + len + (bsum ? 4 : 0) > n) return -2;
+      if (bsum && lz4_xxh32(src + ip, len, 0) != rd32(src + ip + len)) return -4;
+      if (word & 0x80000000U) {
+        if (pos + len > cap) return -3;
+        memcpy(dst + pos, src + ip, (size_t)len);
+        pos += len;
+      } else {
+        // an independent block's matches stay inside it: decode it from its
+        // own start; a linked block's may reach the frame's earlier output
+        const int64_t r = indep ? lz4_block_into(src + ip, len, dst + pos, 0, cap - pos)
+                                : lz4_block_into(src + ip, len, dst + start, pos - start,
+                                                 cap - start);
+        if (r < 0) return r;
+        pos = indep ? pos + r : start + r;
+      }
+      ip += len + (bsum ? 4 : 0);
+    }
+    if (csum) {
+      if (ip + 4 > n) return -2;
+      if (lz4_xxh32(dst + start, pos - start, 0) != rd32(src + ip)) return -4;
+      ip += 4;
+    }
+    if (content >= 0 && content != pos - start) return -2;
+  }
+  return pos;
 }
 
 }  // extern "C"

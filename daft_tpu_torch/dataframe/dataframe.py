@@ -526,15 +526,17 @@ class DataFrame:
 
     def write_parquet(self, root_dir: str, compression: str = "snappy",
                       partition_cols: Optional[List[ColumnInput]] = None,
-                      write_mode: str = "append") -> "DataFrame":
+                      write_mode: str = "append", checkpoint=None) -> "DataFrame":
         """Write the rows as Parquet files under ``root_dir`` (hive-style
         directories by ``partition_cols``; ``write_mode`` "append" or
-        "overwrite"); returns the collected frame of written paths."""
+        "overwrite"); returns the collected frame of written paths.
+        ``checkpoint=(CheckpointStore, key_column)`` resumes: rows whose key
+        a former run sealed are skipped (checkpoint/__init__.py)."""
         from ..io.writers import WriteInfo
 
         return self._write(WriteInfo("parquet", root_dir, {"compression": compression},
                                      _to_exprs(partition_cols) if partition_cols else None,
-                                     write_mode))
+                                     write_mode, checkpoint=checkpoint))
 
     def write_csv(self, root_dir: str, partition_cols: Optional[List[ColumnInput]] = None,
                   write_mode: str = "append") -> "DataFrame":

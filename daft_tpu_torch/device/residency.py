@@ -39,6 +39,21 @@ Registry (observability/metrics.py): the counters ``hbm_cache_hits``,
 ``hbm_cache_misses``, ``hbm_stable_rehits``, ``hbm_pins``, ``hbm_evictions``,
 ``hbm_eviction_bytes`` and ``hbm_evict_cost_saved``; the gauges ``hbm_bytes_resident`` and
 ``hbm_bytes_high_water`` (reset to what stays resident by ``clear()``).
+
+Serving admission (the reference's ``observe_pins`` / ``admit``):
+``admit(est)`` brackets one served query with a reservation of its
+estimated pin-scope bytes and waits while the outstanding reservations plus
+this one would pass ``budget_bytes`` (a query is always admissible when no
+reservation is outstanding, so an over-budget query runs alone instead of
+waiting forever; ``tenant_budget`` caps one tenant's reservations the same
+way; a cancelled query leaves the wait through ``raise_if_cancelled``).
+``observe_pins()`` yields the high-water of the bytes the query's open pin
+scopes hold together, on its thread and on the stage threads its pipeline
+spawns (execution/pipeline.py ``spawn_stage`` hands the observation over as
+it hands the stats collector). The bytes counted are those on the device
+the query runs on: card bytes, or on a CPU device its tensors' bytes (the
+budget counts card bytes only). Gauge: ``hbm_reserved_bytes``; counter:
+``admission_waits_total``.
 """
 
 from __future__ import annotations
@@ -89,6 +104,67 @@ def device_nbytes(value) -> int:
     return total
 
 
+def held_nbytes(value) -> int:
+    """The bytes of the tensors reachable from ``value`` on the device they
+    live on: ``device_nbytes``, or, for a value held on the CPU (a CPU
+    device's planes), its CPU tensors' bytes."""
+    nbytes = device_nbytes(value)
+    if nbytes:
+        return nbytes
+    import torch
+
+    total = 0
+    stack = [value]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, (tuple, list)):
+            stack.extend(x)
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+    return total
+
+
+# ---- pin-scope observation (serving admission calibration) -------------------------
+
+# Pin scopes open on whichever thread drives a device stage (a session
+# worker, or more often a spawn_stage thread), so the observation lives in a
+# thread-local that pipeline.spawn_stage hands to its stage thread, as it
+# hands the stats collector, and a kept stage thread drops when its stage
+# ends.
+_OBS_TL = threading.local()
+
+
+class _PinObservation:
+    """Pinned-byte high-water across every pin scope of one query. A plan
+    may hold several scopes open at once (device stages on separate stage
+    threads), so each exiting scope notes the sum over all of the query's
+    open scopes. ``open_scopes`` maps id(pinned set) -> pinned set, changed
+    under the manager's lock."""
+
+    __slots__ = ("high_water", "open_scopes")
+
+    def __init__(self) -> None:
+        self.high_water = 0
+        self.open_scopes: Dict[int, set] = {}
+
+    def note(self, nbytes: int) -> None:
+        if nbytes > self.high_water:
+            self.high_water = nbytes
+
+
+def current_pin_observation():
+    """This thread's pin observation (None when the query is not observed)."""
+    return getattr(_OBS_TL, "obs", None)
+
+
+def set_pin_observation(obs) -> None:
+    """Install (or clear, with None) this thread's pin observation: the
+    hand-off to a stage thread."""
+    _OBS_TL.obs = obs
+
+
 def expr_structure(expr) -> Tuple[str, tuple]:
     """(skeleton, literals) of one expression: the repr with every literal
     masked, and the literals as (dtype repr, value) pairs in walk order. Two
@@ -132,13 +208,14 @@ def stable_slot_key(anchor, key: tuple):
 
 
 class _Entry:
-    __slots__ = ("value", "nbytes", "pins", "anchor_ref", "deps", "literals", "stable",
-                 "cost")
+    __slots__ = ("value", "nbytes", "held", "pins", "anchor_ref", "deps", "literals",
+                 "stable", "cost")
 
     def __init__(self, value, nbytes: int, deps: tuple, literals, stable=None,
-                 cost: float = 0.0):
+                 cost: float = 0.0, held: int = 0):
         self.value = value
         self.nbytes = nbytes
+        self.held = held or nbytes  # bytes on its own device (held_nbytes)
         self.pins = 0
         self.anchor_ref = None
         self.deps = deps
@@ -168,6 +245,10 @@ class ResidencyManager:
         self._auto_budget = None
         self._dead: list = []
         self._tl = threading.local()
+        # admission control: outstanding reservations {token: (tenant, bytes)}
+        self._adm = threading.Condition(threading.Lock())
+        self._reservations: Dict[int, Tuple[str, int]] = {}
+        self._rsv_seq = itertools.count(1)
 
     def get_or_build(self, anchor, key: tuple, build: Callable[[], Any], deps: tuple = (),
                      literals=None, rebuild_rows: int = 0):
@@ -203,9 +284,10 @@ class ResidencyManager:
         value = build()  # outside the lock: a build may re-enter the manager
         nbytes = device_nbytes(value)
         cost = rebuild_cost_estimate(nbytes, rebuild_rows)
+        held = nbytes or held_nbytes(value)
         with self._lock:
             old = self._entries.pop(full_key, None)
-            e = _Entry(value, nbytes, deps, literals, stable, cost)
+            e = _Entry(value, nbytes, deps, literals, stable, cost, held)
             if old is not None:
                 self._drop_accounting(full_key, old)
                 e.pins = old.pins
@@ -295,16 +377,104 @@ class ResidencyManager:
             scopes = self._tl.scopes = []
         pinned: set = set()
         scopes.append(pinned)
+        obs = current_pin_observation()
+        if obs is not None:
+            # under the lock: a concurrent scope exit iterates open_scopes
+            with self._lock:
+                obs.open_scopes[id(pinned)] = pinned
         try:
             yield self
         finally:
             scopes.pop()
             with self._lock:
+                if obs is not None:
+                    # the bytes all of the query's open scopes hold together
+                    keys = set().union(*obs.open_scopes.values())
+                    obs.note(sum(e.held for k in keys
+                                 if (e := self._entries.get(k)) is not None))
+                    obs.open_scopes.pop(id(pinned), None)
                 for k in pinned:
                     e = self._entries.get(k)
                     if e is not None and e.pins > 0:
                         e.pins -= 1
                 self._evict_over_budget()
+
+    @contextlib.contextmanager
+    def observe_pins(self):
+        """Observe the pinned-byte high-water of every pin scope the query
+        opens inside the context, on this thread and on the stage threads
+        its pipeline spawns. Yields a callable returning the high-water so
+        far. Nothing is summed while no observation is installed."""
+        prev = current_pin_observation()
+        obs = _PinObservation()
+        set_pin_observation(obs)
+        try:
+            yield lambda: obs.high_water
+        finally:
+            set_pin_observation(prev)
+
+    # ---- admission control (serving tier) ------------------------------------------
+    @contextlib.contextmanager
+    def admit(self, est_bytes: int, tenant: str = "", tenant_budget: int = 0):
+        """Bracket one query's execution with a reservation of ``est_bytes``
+        estimated pin-scope bytes; wait while the outstanding reservations
+        plus this one would pass ``budget_bytes()`` (or one tenant's pass
+        ``tenant_budget``). Yields True when the query had to wait. A query
+        is always admissible when no reservation is outstanding (its
+        tenant's, for the tenant cap), and an estimate of 0 (a host plan)
+        never waits. A cancelled query leaves the wait before it reserves
+        anything."""
+        from ..cancellation import raise_if_cancelled
+        from ..observability.metrics import registry
+
+        est = max(int(est_bytes), 0)
+        budget = self.budget_bytes()
+        waited = False
+        with self._adm:
+            while not self._admissible(est, tenant, budget, tenant_budget):
+                raise_if_cancelled("query cancelled while awaiting admission")
+                if not waited:
+                    waited = True
+                    registry().inc("admission_waits_total")
+                # timed: the budget is read again, so a config change
+                # unblocks waiters without a signal
+                self._adm.wait(0.05)
+                budget = self.budget_bytes()
+            tok = next(self._rsv_seq)
+            self._reservations[tok] = (tenant, est)
+            registry().set_gauge("hbm_reserved_bytes", float(self._reserved()))
+        try:
+            yield waited
+        finally:
+            with self._adm:
+                self._reservations.pop(tok, None)
+                registry().set_gauge("hbm_reserved_bytes", float(self._reserved()))
+                self._adm.notify_all()
+
+    def _reserved(self) -> int:
+        return sum(b for _t, b in self._reservations.values())
+
+    def _admissible(self, est: int, tenant: str, budget: int, tenant_budget: int) -> bool:
+        """Under ``self._adm``. The empty-ledger escapes make over-budget
+        queries run one at a time instead of deadlocking."""
+        if est <= 0 or not self._reservations:
+            return True
+        if budget > 0 and self._reserved() + est > budget:
+            return False
+        if tenant_budget > 0:
+            mine = sum(b for t, b in self._reservations.values() if t == tenant)
+            if mine and mine + est > tenant_budget:
+                return False
+        return True
+
+    def reserved_bytes(self) -> int:
+        """Outstanding admission reservations, in bytes."""
+        with self._adm:
+            return self._reserved()
+
+    def reservation_count(self) -> int:
+        with self._adm:
+            return len(self._reservations)
 
     def _pin(self, full_key: tuple, e: _Entry) -> None:
         from ..observability.metrics import registry

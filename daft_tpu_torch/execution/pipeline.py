@@ -207,13 +207,16 @@ def spawn_stage(gen: Iterator, maxsize: int = 4, node=None) -> Iterator:
     The reference starts a new thread per stage; here the thread comes from
     ``_StagePool``, which keeps it for the next stage.
 
-    The stage thread takes the caller's stats collector and placement scope
-    for the stage's length; ``node`` (the physical node whose generator this
-    is) turns on the channel's stall attribution while a collector is
-    active."""
+    The stage thread takes the caller's stats collector, placement scope
+    and pin observation (device/residency.py ``observe_pins``: a served
+    query's device stages open their pin scopes on stage threads) for the
+    stage's length; ``node`` (the physical node whose generator this is)
+    turns on the channel's stall attribution while a collector is active."""
+    from ..device import residency
     from ..observability import placement, runtime_stats
 
     collector = runtime_stats.current_collector()
+    pin_obs = residency.current_pin_observation()
     # placement decisions fire on stage threads too: the query's scope
     # (explain_placement, QueryEnd.placements) rides along, so concurrent
     # queries' decisions never bleed into each other's scopes
@@ -226,6 +229,7 @@ def spawn_stage(gen: Iterator, maxsize: int = 4, node=None) -> Iterator:
         if collector is not None:
             runtime_stats.set_collector(collector)
         placement.set_scope(pscope)
+        residency.set_pin_observation(pin_obs)
         err: Optional[BaseException] = None
         try:
             for item in gen:
@@ -243,6 +247,7 @@ def spawn_stage(gen: Iterator, maxsize: int = 4, node=None) -> Iterator:
             # nothing of this one's observation may stay on it
             runtime_stats.reset_thread()
             placement.set_scope(None)
+            residency.set_pin_observation(None)
             ch.close(err)
 
     def consume():

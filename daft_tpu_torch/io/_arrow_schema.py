@@ -68,6 +68,14 @@ class _Table:
         n = struct.unpack_from("<I", self.buf, t)[0]
         return self.buf[t + 4:t + 4 + n].decode("utf-8")
 
+    def raw_vector(self, slot: int) -> Tuple[int, int]:
+        """(element count, position of the first element) of a vector of
+        structs; (0, 0) when absent."""
+        t = self._target(slot)
+        if t is None:
+            return 0, 0
+        return struct.unpack_from("<I", self.buf, t)[0], t + 4
+
     def tables(self, slot: int) -> List["_Table"]:
         t = self._target(slot)
         if t is None:
@@ -239,6 +247,15 @@ class _Builder:
             struct.pack_into("<I", self.buf, at, child - at)
         return pos
 
+    def struct_vector(self, count: int, raw: bytes) -> int:
+        """A vector of ``count`` structs whose bytes are ``raw``, its data
+        8-byte aligned (Arrow's FieldNode and Buffer structs hold int64s)."""
+        while (len(self.buf) + 4) % 8:
+            self.buf.append(0)
+        pos = len(self.buf)
+        self.buf += struct.pack("<I", count) + raw
+        return pos
+
     def finish(self, root_writer) -> bytes:
         root = root_writer()
         struct.pack_into("<I", self.buf, 0, root)
@@ -287,33 +304,35 @@ def _type_of(dtype) -> Tuple[int, list]:
     raise ValueError(f"no Arrow type for {dtype}")
 
 
-def write_arrow_schema(schema, units: Dict[str, str]) -> str:
-    """The ``ARROW:schema`` value of a flat port schema; ``units`` names the
-    unit each timestamp column is written in (a seconds column is written
-    in milliseconds, and the Arrow type says what the file holds)."""
+def schema_table(b: "_Builder", fields, units: Dict[str, str], arrow_names: bool = False):
+    """A writer of the ``Schema`` table of ``fields`` ((name, dtype) pairs)
+    on ``b``. ``units``: the unit each timestamp column is written in.
+    Child fields are named as the Parquet schema names them ("element",
+    "key_value"), or, with ``arrow_names``, as pyarrow names them ("item",
+    "entries"; io/arrow_ipc.py), and a logical type is written as its
+    storage type."""
     from ..datatype import DataType
 
-    b = _Builder()
-
     def type_writer(dtype):
-        tag, fields = _type_of(dtype)
+        tag, tfields = _type_of(dtype)
         out = [(slot, "off", lambda v=v: b.string(v)) if fmt == "str" else (slot, fmt, v)
-               for slot, fmt, v in fields]
+               for slot, fmt, v in tfields]
         return tag, (lambda: b.table(out))
 
     def children(dtype):
-        """(name, dtype, nullable) of a nested type's child fields, named as
-        the Parquet schema names them."""
+        """(name, dtype, nullable) of a nested type's child fields."""
         k = dtype.kind
         if k in ("list", "fixed_size_list"):
-            return [("element", dtype.inner, True)]
+            return [("item" if arrow_names else "element", dtype.inner, True)]
         if k == "struct":
             return [(n, t, True) for n, t in dtype.struct_fields]
         if k == "map":
-            return [("key_value", dtype.map_entry, False)]
+            return [("entries" if arrow_names else "key_value", dtype.map_entry, False)]
         return []
 
     def field_writer(name, dtype, nullable=True, entry_key=False):
+        if arrow_names:
+            dtype = dtype.storage
         if dtype.kind == "timestamp" and name in units:
             dtype = DataType.timestamp(units[name], dtype.timezone)
         tag, tw = type_writer(dtype)
@@ -326,10 +345,17 @@ def write_arrow_schema(schema, units: Dict[str, str]) -> str:
                                 (2, "B", tag), (3, "off", tw),
                                 (5, "off", lambda: b.vector(kid_writers))])
 
-    def schema_writer():
-        return b.table([(0, "h", 0),
-                        (1, "off", lambda: b.vector([field_writer(f.name, f.dtype)
-                                                     for f in schema]))])
+    return lambda: b.table([(0, "h", 0),
+                            (1, "off", lambda: b.vector([field_writer(n, t)
+                                                         for n, t in fields]))])
+
+
+def write_arrow_schema(schema, units: Dict[str, str]) -> str:
+    """The ``ARROW:schema`` value of a flat port schema; ``units`` names the
+    unit each timestamp column is written in (a seconds column is written
+    in milliseconds, and the Arrow type says what the file holds)."""
+    b = _Builder()
+    schema_writer = schema_table(b, [(f.name, f.dtype) for f in schema], units)
 
     def message_writer():
         return b.table([(0, "h", 4), (1, "B", 1), (2, "off", schema_writer), (3, "q", 0)])

@@ -14,8 +14,10 @@ quoted header, strings quoted (``"`` doubled), nulls empty, booleans
 (``1.0``, not pyarrow's ``1``), so a float column reads back as float.
 JSON files are ``.jsonl``, a row a line written as the reference writes it,
 ``json.dumps(row, default=str)`` of the row's values as ``to_pylist``
-gives them. Not ported: remote roots (the object store) and checkpointed
-writes (``checkpoint=``, ROADMAP Queue 6).
+gives them. A checkpointed write (``checkpoint=(store, key_column)``,
+checkpoint/__init__.py) skips the rows whose key a former run sealed and
+seals this run's keys with the files it wrote once every batch is written.
+Not ported: remote roots (the object store).
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ _TARGET_FILE_BYTES = 512 * 1024 * 1024
 
 class WriteInfo:
     def __init__(self, format: str, root_dir: str, options: Dict[str, Any],
-                 partition_cols: Optional[List[Any]] = None, write_mode: str = "append"):
+                 partition_cols: Optional[List[Any]] = None, write_mode: str = "append",
+                 checkpoint=None):
         if format not in ("parquet", "csv", "json"):
             raise NotImplementedError(f"write format {format!r}: only parquet, csv and json "
                                       "are ported")
@@ -51,6 +54,8 @@ class WriteInfo:
         self.options = options
         self.partition_cols = partition_cols
         self.write_mode = write_mode
+        # (CheckpointStore, key_column): skip on rerun, seal keys and files
+        self.checkpoint = checkpoint
 
     def __repr__(self) -> str:
         return f"{self.format}://{self.root_dir}"
@@ -62,6 +67,9 @@ class WriteInfo:
                       input_schema: Schema) -> Iterator[MicroPartition]:
         from .paths import _REMOTE_SCHEMES
 
+        if self.checkpoint is not None:
+            yield from self._execute_checkpointed(parts, input_schema)
+            return
         if self.root_dir.startswith(_REMOTE_SCHEMES):
             raise NotImplementedError(f"remote write root {self.root_dir!r}: the object "
                                       "store is not ported yet")
@@ -79,6 +87,41 @@ class WriteInfo:
         paths = Series.from_pylist(written, "path", DataType.string())
         yield MicroPartition(self.result_schema(),
                              [RecordBatch(self.result_schema(), [paths], len(written))])
+
+    def _execute_checkpointed(self, parts: Iterator[MicroPartition],
+                              input_schema: Schema) -> Iterator[MicroPartition]:
+        """Rows whose key a former run sealed are skipped; this run's keys
+        stage under a fresh checkpoint id, sealed with the manifest of the
+        files written once every batch succeeded (daft_tpu/io/writers.py:70-104)."""
+        from ..expressions.eval import eval_expression
+        from ..expressions.expressions import col
+
+        store, key_col = self.checkpoint
+        done = store.get_checkpointed_keys()
+        cid = uuid.uuid4().hex[:16]
+
+        def filtered_parts():
+            for part in parts:
+                for b in part.batches:
+                    if b.num_rows == 0:
+                        continue
+                    keys = eval_expression(b, col(key_col)).to_pylist()
+                    if done:
+                        keep = np.array([k not in done for k in keys], dtype=bool)
+                        if not keep.any():
+                            continue
+                        if not keep.all():
+                            b = b.filter_by_mask(Series.from_numpy(keep, "m"))
+                            keys = [k for k, kp in zip(keys, keep) if kp]
+                    store.stage_keys(cid, keys)
+                    yield MicroPartition(b.schema, [b])
+
+        inner = WriteInfo(self.format, self.root_dir, self.options, self.partition_cols,
+                          self.write_mode)
+        manifest = list(inner.execute_write(filtered_parts(), input_schema))
+        store.stage_files(cid, [p for mp in manifest for p in mp.to_pydict().get("path", [])])
+        store.checkpoint(cid)  # seal: keys and files visible at once
+        yield from manifest
 
     def _write_partitioned(self, parts: Iterator[MicroPartition],
                            input_schema: Schema) -> List[str]:

@@ -102,6 +102,11 @@ PORT_EXPORTS = {
     "bpe_encode": (_I64, [_I64, _U32P, _I64, _U8P, _I32P, _I64, _I64P, _I64P]),
     "image_resize_u8": (None, [_U8P, _I64, _I64, _I64P, _I64P, _I32P, _I64P, _I64P, _I32P,
                                _I64, _I64, _U8P]),
+    "lz4_xxh32": (ctypes.c_uint32, [_U8P, _I64, ctypes.c_uint32]),
+    "lz4_block_compress": (_I64, [_U8P, _I64, _U8P, _I64]),
+    "lz4_block_decompress": (_I64, [_U8P, _I64, _U8P, _I64]),
+    "lz4_frame_compress": (_I64, [_U8P, _I64, _U8P, _I64]),
+    "lz4_frame_decompress": (_I64, [_U8P, _I64, _U8P, _I64]),
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -1588,3 +1593,310 @@ def plain_image_resize_u8(img, xs0, xs1, a0, ys0, ys1, b0) -> np.ndarray:
     out += 2
     out >>= 2
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+# ---- LZ4 (io/arrow_ipc.py's LZ4_FRAME bodies) -----------------------------------------
+
+LZ4_HASH_LOG = 16
+LZ4_FRAME_BLOCK = 4 << 20   # the frames written hold blocks of 4 MiB (BD 7)
+_LZ4_ERRORS = {-1: "not an LZ4 frame", -2: "malformed LZ4 data",
+               -3: "LZ4 data decodes past its stated size", -4: "an LZ4 checksum differs",
+               -5: "an LZ4 frame names a dictionary"}
+
+
+def _u8_view(data) -> np.ndarray:
+    buf = np.frombuffer(memoryview(data).cast("B"), dtype=np.uint8)
+    return buf if len(buf) else np.zeros(1, np.uint8)
+
+
+def lz4_block_bound(n: int) -> int:
+    """The most bytes an LZ4 block of ``n`` input bytes takes."""
+    return n + n // 255 + 16
+
+
+def lz4_frame_bound(n: int) -> int:
+    """The most bytes ``lz4_frame_compress`` writes for ``n`` input bytes."""
+    blocks = max(1, -(-n // LZ4_FRAME_BLOCK))
+    return 7 + 4 * (blocks + 1) + n
+
+
+def lz4_xxh32(data, seed: int = 0) -> int:
+    """xxh32 of ``data`` (the LZ4 frame's checksums). The library's export,
+    or ``plain_lz4_xxh32`` under ``DAFT_TPU_DISABLE_NATIVE``."""
+    if disabled():
+        return plain_lz4_xxh32(data, seed)
+    return int(_call("lz4_xxh32", _u8_view(data).ctypes.data_as(_U8P), len(data), seed))
+
+
+def lz4_block_compress(data) -> bytes:
+    """One LZ4 block of ``data``. The library's export, or
+    ``plain_lz4_block_compress`` (the same bytes) under
+    ``DAFT_TPU_DISABLE_NATIVE``."""
+    if disabled():
+        return plain_lz4_block_compress(data)
+    src = _u8_view(data)
+    out = np.empty(lz4_block_bound(len(data)), dtype=np.uint8)
+    n = _call("lz4_block_compress", src.ctypes.data_as(_U8P), len(data),
+              out.ctypes.data_as(_U8P), len(out))
+    _need(n >= 0, "LZ4 block bound too small")
+    return out[:n].tobytes()
+
+
+def lz4_block_decompress(data, size: int) -> bytes:
+    """The ``size`` bytes one LZ4 block decodes to (ValueError on malformed
+    data or another size). The library's export, or
+    ``plain_lz4_block_decompress`` under ``DAFT_TPU_DISABLE_NATIVE``."""
+    if disabled():
+        return plain_lz4_block_decompress(data, size)
+    src = _u8_view(data)
+    out = np.empty(max(size, 1), dtype=np.uint8)
+    n = _call("lz4_block_decompress", src.ctypes.data_as(_U8P), len(data),
+              out.ctypes.data_as(_U8P), size)
+    if n < 0:
+        raise ValueError(_LZ4_ERRORS.get(int(n), "malformed LZ4 data"))
+    _need(n == size, f"LZ4 block decodes to {n} bytes, expected {size}")
+    return out[:size].tobytes()
+
+
+def lz4_frame_compress(data) -> bytes:
+    """One LZ4 frame of ``data``: independent 4 MiB blocks, a block that
+    does not shrink stored, no checksums. The library's export, or
+    ``plain_lz4_frame_compress`` (the same bytes) under
+    ``DAFT_TPU_DISABLE_NATIVE``."""
+    if disabled():
+        return plain_lz4_frame_compress(data)
+    src = _u8_view(data)
+    out = np.empty(lz4_frame_bound(len(data)), dtype=np.uint8)
+    n = _call("lz4_frame_compress", src.ctypes.data_as(_U8P), len(data),
+              out.ctypes.data_as(_U8P), len(out))
+    _need(n >= 0, "LZ4 frame bound too small")
+    return out[:n].tobytes()
+
+
+def lz4_frame_decompress(data, size: int) -> bytes:
+    """The ``size`` bytes the LZ4 frames of ``data`` decode to (any valid
+    frame: linked or independent blocks, checksums, content size, stored
+    blocks, skippable frames); ValueError on malformed data or another
+    size. The library's export, or ``plain_lz4_frame_decompress`` under
+    ``DAFT_TPU_DISABLE_NATIVE``."""
+    if disabled():
+        return plain_lz4_frame_decompress(data, size)
+    src = _u8_view(data)
+    out = np.empty(max(size, 1), dtype=np.uint8)
+    n = _call("lz4_frame_decompress", src.ctypes.data_as(_U8P), len(data),
+              out.ctypes.data_as(_U8P), size)
+    if n < 0:
+        raise ValueError(_LZ4_ERRORS.get(int(n), "malformed LZ4 data"))
+    _need(n == size, f"LZ4 frame decodes to {n} bytes, expected {size}")
+    return out[:size].tobytes()
+
+
+_M32 = 0xFFFFFFFF
+_X32 = (2654435761, 2246822519, 3266489917, 668265263, 374761393)
+
+
+def _rotl32(x: int, r: int) -> int:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def plain_lz4_xxh32(data, seed: int = 0) -> int:
+    p1, p2, p3, p4, p5 = _X32
+    b = bytes(data)
+    n = len(b)
+    i = 0
+    if n >= 16:
+        v = [(seed + p1 + p2) & _M32, (seed + p2) & _M32, seed & _M32, (seed - p1) & _M32]
+        while i <= n - 16:
+            for k in range(4):
+                w = int.from_bytes(b[i:i + 4], "little")
+                v[k] = (_rotl32((v[k] + w * p2) & _M32, 13) * p1) & _M32
+                i += 4
+        h = (_rotl32(v[0], 1) + _rotl32(v[1], 7) + _rotl32(v[2], 12) + _rotl32(v[3], 18)) & _M32
+    else:
+        h = (seed + p5) & _M32
+    h = (h + n) & _M32
+    while i + 4 <= n:
+        h = (_rotl32((h + int.from_bytes(b[i:i + 4], "little") * p3) & _M32, 17) * p4) & _M32
+        i += 4
+    while i < n:
+        h = (_rotl32((h + b[i] * p5) & _M32, 11) * p1) & _M32
+        i += 1
+    h ^= h >> 15
+    h = (h * p2) & _M32
+    h ^= h >> 13
+    h = (h * p3) & _M32
+    h ^= h >> 16
+    return h
+
+
+def _lz4_length(out: bytearray, rest: int) -> None:
+    while rest >= 255:
+        out.append(255)
+        rest -= 255
+    out.append(rest)
+
+
+def _lz4_sequence(out: bytearray, src: bytes, anchor: int, lit: int, offset: int,
+                  mlen: int) -> None:
+    ml = mlen - 4 if mlen else 0
+    out.append((min(lit, 15) << 4) | min(ml, 15))
+    if lit >= 15:
+        _lz4_length(out, lit - 15)
+    out += src[anchor:anchor + lit]
+    if mlen:
+        out += bytes((offset & 0xFF, offset >> 8))
+        if ml >= 15:
+            _lz4_length(out, ml - 15)
+
+
+def plain_lz4_block_compress(data) -> bytes:
+    src = bytes(data)
+    n = len(src)
+    table = {}
+    out = bytearray()
+    ip = anchor = 0
+    mflimit, matchlimit = n - 12, n - 5
+    while ip < mflimit:
+        seq = int.from_bytes(src[ip:ip + 4], "little")
+        h = ((seq * 2654435761) & _M32) >> (32 - LZ4_HASH_LOG)
+        ref = table.get(h, -1)
+        table[h] = ip
+        if ref < 0 or ip - ref > 65535 or src[ref:ref + 4] != src[ip:ip + 4]:
+            ip += 1
+            continue
+        mlen = 4
+        while ip + mlen < matchlimit and src[ref + mlen] == src[ip + mlen]:
+            mlen += 1
+        _lz4_sequence(out, src, anchor, ip - anchor, ip - ref, mlen)
+        ip += mlen
+        anchor = ip
+    _lz4_sequence(out, src, anchor, n - anchor, 0, 0)
+    return bytes(out)
+
+
+def _plain_lz4_block_into(src: bytes, out: bytearray, start: int, cap: int) -> None:
+    """Decode one block, appending to ``out``; a match reaches back no
+    further than ``start``; ``cap`` bounds len(out)."""
+    ip, n = 0, len(src)
+
+    def length(ip: int, v: int):
+        while True:
+            if ip >= n:
+                raise ValueError("malformed LZ4 data")
+            b = src[ip]
+            ip += 1
+            v += b
+            if b != 255:
+                return ip, v
+
+    while ip < n:
+        tok = src[ip]
+        ip += 1
+        lit = tok >> 4
+        if lit == 15:
+            ip, lit = length(ip, lit)
+        if ip + lit > n:
+            raise ValueError("malformed LZ4 data")
+        if len(out) + lit > cap:
+            raise ValueError("LZ4 data decodes past its stated size")
+        out += src[ip:ip + lit]
+        ip += lit
+        if ip == n:
+            break
+        if ip + 2 > n:
+            raise ValueError("malformed LZ4 data")
+        offset = src[ip] | (src[ip + 1] << 8)
+        ip += 2
+        if offset == 0 or offset > len(out) - start:
+            raise ValueError("malformed LZ4 data")
+        mlen = tok & 15
+        if mlen == 15:
+            ip, mlen = length(ip, mlen)
+        mlen += 4
+        if len(out) + mlen > cap:
+            raise ValueError("LZ4 data decodes past its stated size")
+        for _ in range(mlen):
+            out.append(out[-offset])
+
+
+def plain_lz4_block_decompress(data, size: int) -> bytes:
+    out = bytearray()
+    _plain_lz4_block_into(bytes(data), out, 0, size)
+    _need(len(out) == size, f"LZ4 block decodes to {len(out)} bytes, expected {size}")
+    return bytes(out)
+
+
+def plain_lz4_frame_compress(data) -> bytes:
+    src = bytes(data)
+    desc = bytes((0x60, 0x70))
+    out = bytearray((0x184D2204).to_bytes(4, "little") + desc
+                    + bytes(((plain_lz4_xxh32(desc) >> 8) & 0xFF,)))
+    for at in range(0, len(src), LZ4_FRAME_BLOCK):
+        block = src[at:at + LZ4_FRAME_BLOCK]
+        c = plain_lz4_block_compress(block)
+        if len(c) >= len(block):
+            out += (len(block) | 0x80000000).to_bytes(4, "little") + block
+        else:
+            out += len(c).to_bytes(4, "little") + c
+    return bytes(out + bytes(4))
+
+
+def plain_lz4_frame_decompress(data, size: int) -> bytes:
+    src = bytes(data)
+    n = len(src)
+    out = bytearray()
+    ip = 0
+
+    def word(at: int) -> int:
+        if at + 4 > n:
+            raise ValueError("malformed LZ4 data")
+        return int.from_bytes(src[at:at + 4], "little")
+
+    while ip < n:
+        magic = word(ip)
+        if magic & 0xFFFFFFF0 == 0x184D2A50:
+            ip += 8 + word(ip + 4)
+            continue
+        if magic != 0x184D2204:
+            raise ValueError("not an LZ4 frame" if ip == 0 else "malformed LZ4 data")
+        if ip + 7 > n or src[ip + 4] >> 6 != 1:
+            raise ValueError("malformed LZ4 data")
+        flg = src[ip + 4]
+        indep, bsum, csize, csum, dict_ = (bool(flg & m) for m in (0x20, 0x10, 0x08, 0x04, 0x01))
+        desc = 2 + (8 if csize else 0) + (4 if dict_ else 0)
+        if ip + 5 + desc > n:
+            raise ValueError("malformed LZ4 data")
+        if (plain_lz4_xxh32(src[ip + 4:ip + 4 + desc]) >> 8) & 0xFF != src[ip + 4 + desc]:
+            raise ValueError("an LZ4 checksum differs")
+        if dict_:
+            raise ValueError("an LZ4 frame names a dictionary")
+        content = int.from_bytes(src[ip + 6:ip + 14], "little") if csize else -1
+        bmax = 1 << (8 + 2 * ((src[ip + 5] >> 4) & 7))
+        ip += 5 + desc
+        start = len(out)
+        while True:
+            w = word(ip)
+            ip += 4
+            if w == 0:
+                break
+            length = w & 0x7FFFFFFF
+            if length > bmax or ip + length + (4 if bsum else 0) > n:
+                raise ValueError("malformed LZ4 data")
+            block = src[ip:ip + length]
+            if bsum and plain_lz4_xxh32(block) != word(ip + length):
+                raise ValueError("an LZ4 checksum differs")
+            if w & 0x80000000:
+                if len(out) + length > size:
+                    raise ValueError("LZ4 data decodes past its stated size")
+                out += block
+            else:
+                _plain_lz4_block_into(block, out, len(out) if indep else start, size)
+            ip += length + (4 if bsum else 0)
+        if csum:
+            if plain_lz4_xxh32(out[start:]) != word(ip):
+                raise ValueError("an LZ4 checksum differs")
+            ip += 4
+        if content >= 0 and content != len(out) - start:
+            raise ValueError("malformed LZ4 data")
+    _need(len(out) == size, f"LZ4 frame decodes to {len(out)} bytes, expected {size}")
+    return bytes(out)

@@ -206,6 +206,44 @@ MEMORY_COUNTER_NAMES = (
     "host_over_budget_events",  # operators that crossed the budget -> spill
 )
 
+# The serving tier (serving/): the HBM admission controller and the
+# prepared-query cache. Outside ops/counters.py's reset scope, as in the
+# reference: a counter reset mid-session must not wipe them.
+SERVING_COUNTER_NAMES = (
+    "admission_waits_total",   # queries queued at the HBM admission controller
+    "serve_queries_total",     # queries executed through a ServingSession
+    "serve_prepared_hits",     # prepared-query cache hits (planning skipped)
+    "serve_prepared_misses",   # prepared-query cache misses (planned + cached)
+    "serve_pin_calibrations",  # reservations shrunk toward observed pin high-water
+    "serve_cancelled_total",   # queries cancelled (queued or running)
+    "serve_over_cap_rejections",  # submits refused at a tenant queue-depth cap
+)
+
+# The gateway (gateway/): the wire front door and its cross-tenant result
+# cache. Connection, auth and protocol failures count here (they never reach
+# a ServeQueryRecord).
+GATEWAY_COUNTER_NAMES = (
+    "gateway_connections_total",   # TCP connections accepted
+    "gateway_disconnects_total",   # connections closed (any reason)
+    "gateway_requests_total",      # wire requests served (all verbs)
+    "gateway_queries_total",       # execute verbs answered (any source)
+    "gateway_auth_failures",       # hello rejected (bad token / unknown tenant)
+    "gateway_errors_total",        # protocol/IO errors answered or logged
+    "gateway_bytes_streamed",      # Arrow IPC payload bytes sent to clients
+    "result_cache_hits",           # queries served from the result cache
+    "result_cache_misses",         # result-cache lookups that executed
+    "result_cache_evictions",      # entries evicted under the byte budget
+)
+
+# Stage checkpoints (checkpoint/stages.py).
+CHECKPOINT_COUNTER_NAMES = (
+    "checkpoint_stages_committed",
+    "checkpoint_stages_skipped",     # committed stages restored instead of run
+    "checkpoint_commit_failures",
+    "checkpoint_restore_failures",   # committed stage unreadable -> stage re-run
+    "checkpoint_stages_gced",        # committed stages removed by the TTL sweep
+)
+
 # Subscriber callbacks that raised (swallowed so a broken subscriber never
 # fails a query; counted so it is not invisible).
 OBS_COUNTER_NAMES = ("subscriber_errors",)
@@ -261,10 +299,16 @@ FLOAT_COUNTER_NAMES = ("scan_decode_ms", "scan_filter_ms", "fingerprint_ms",
                        "spill_read_seconds", "spill_read_wall_seconds")
 
 DECLARED_COUNTERS = (DEVICE_COUNTER_NAMES + SPILL_COUNTER_NAMES + MEMORY_COUNTER_NAMES +
+                     SERVING_COUNTER_NAMES + GATEWAY_COUNTER_NAMES +
+                     CHECKPOINT_COUNTER_NAMES +
                      OBS_COUNTER_NAMES + FLIGHT_COUNTER_NAMES + PLACEMENT_COUNTER_NAMES +
                      PORT_COUNTER_NAMES)
 
 DECLARED_GAUGES = (
+    "serve_queue_depth",       # admission queue depth (serving/session.py)
+    "result_cache_bytes",      # gateway result-cache resident payload bytes
+    "gateway_active_connections",  # live gateway client connections
+    "hbm_reserved_bytes",      # admission-controller reservations outstanding
     "hbm_bytes_resident",      # device bytes the residency manager holds
     "hbm_bytes_high_water",
     "host_bytes_tracked",      # host bytes admitted against the memory ledger

@@ -1494,3 +1494,50 @@ def test_j1_oracle_and_data_follow_the_mix(monkeypatch, tmp_path):
     dist = np.arange(200, dtype=np.float64)
     out = cs.j1_oracle(meta, dist)
     assert sum(out["n"]) == 194
+
+
+def _serve_on_the_cpu(monkeypatch):
+    """chip_smoke.py's serve phase on the CPU: the cells' config on
+    device="cpu", the kernels' plain calls counted as their launches; the
+    kernel cases and the profile need the card and are left out."""
+    from daft_tpu_torch.device.residency import manager
+
+    cs = _cpu_cells(monkeypatch)
+    monkeypatch.setattr(cs, "serve_kernel_cases", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "clear_residency", lambda: manager().clear())
+    return cs
+
+
+def test_serve_phase_on_the_cpu(monkeypatch, capsys):
+    """The serve phase at a small size on the CPU: four tenants' rounds
+    through one gateway, every answer equal to "off", prepared hits,
+    result-cache repeats, admission waits under the tight budget, the
+    typed cancel, and K1, K2, K3, K4 and K7's plain versions called."""
+    from daft_tpu_torch.device.residency import manager
+
+    cs = _serve_on_the_cpu(monkeypatch)
+    lineitem, orders, dims = _small_tpch(cs)
+    launches = cs.phase_serve(lineitem, orders, dims, "cpu", {})
+    assert all(launches[k] > 0 for k in cs.SERVE_KERNELS), launches
+    out = capsys.readouterr().out
+    for line in ("serve cold: 28 answers equal", "serve warm: 28 answers equal",
+                 "serve cached: 56 answers equal", "serve tight: 28 answers equal",
+                 "the last query cancelled with the typed error"):
+        assert line in out, line
+    assert "admission waits 0" not in out.split("serve tight:")[-1].split("\n")[0]
+    assert manager().reserved_bytes() == 0 and manager().pinned_count() == 0
+
+
+def test_serve_phase_fails_when_an_answer_differs_from_off(monkeypatch):
+    cs = _serve_on_the_cpu(monkeypatch)
+    lineitem, orders, dims = _small_tpch(cs)
+    off = cs.serve_off
+
+    def shifted(tables):
+        want, warm = off(tables)
+        want["q12"]["high_line_count"] = [v + 1 for v in want["q12"]["high_line_count"]]
+        return want, warm
+
+    monkeypatch.setattr(cs, "serve_off", shifted)
+    with pytest.raises(cs.SmokeFailure, match="q12 .*differs from the \"off\" run"):
+        cs.phase_serve(lineitem, orders, dims, "cpu", {})

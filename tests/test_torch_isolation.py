@@ -39,7 +39,11 @@
   query import none of them, nor PIL, cv2, tokenizers, soundfile or av;
 - an ingest query (a JPEG encoded and decoded, a BPE tokenizer file's
   encode, a JSON manifest and a WARC file scanned into the device stage,
-  a JSON write) imports none of them, nor PIL, tokenizers or regex.
+  a JSON write) imports none of them, nor PIL, tokenizers or regex;
+- the serving tier (serving, gateway, checkpoint, cli, io/arrow_ipc): a
+  query served over a loopback gateway (cold, from the result cache, from
+  a stage checkpoint), a ServingSession query, an LZ4 IPC stream written
+  and read back, and the CLI import none of them.
 """
 
 import datetime
@@ -980,6 +984,55 @@ def test_ingest_query_imports_no_jax_pyarrow_pil_tokenizers_or_reference():
     JAX, pyarrow, pandas, daft_tpu, PIL, cv2, tokenizers or regex
     imported."""
     proc = subprocess.run([sys.executable, "-c", _INGEST_QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+_SERVE_QUERY = """
+import os, sys, tempfile
+sys.path.insert(0, {repo!r})
+import numpy as np
+import daft_tpu_torch as dt
+from daft_tpu_torch import cli, col
+from daft_tpu_torch.checkpoint import MemoryCheckpointStore
+from daft_tpu_torch.checkpoint.stages import StageCheckpointer
+from daft_tpu_torch.gateway import GatewayClient, GatewayServer
+from daft_tpu_torch.io import arrow_ipc
+from daft_tpu_torch.serving import ServingSession
+os.environ["DAFT_TPU_CHECKPOINT_DIR"] = tempfile.mkdtemp()
+df = dt.from_pydict({{"k": np.arange(5000) % 7, "v": np.arange(5000) * 0.5,
+                      "s": np.array(["x%d" % (i % 3) for i in range(5000)], dtype=object)}})
+sql = "SELECT s, k, SUM(v) AS t FROM t GROUP BY s, k ORDER BY s, k"
+with dt.execution_config_ctx(device="cpu", device_mode="on", device_min_rows=1):
+    want = dt.sql(sql, t=df).to_pydict()
+    with GatewayServer(tables={{"t": df}}) as srv, \\
+            GatewayClient(srv.host, srv.port, tenant="iso", timeout=60) as c:
+        assert c.query(sql) == want and c.last_source == "executed"
+        assert c.query(sql) == want and c.last_source == "result_cache"
+    with GatewayServer(tables={{"t": df}}) as srv, \\
+            GatewayClient(srv.host, srv.port, tenant="iso", timeout=60) as c:
+        assert c.query(sql) == want and c.last_source == "checkpoint"
+    with ServingSession(max_concurrent=2) as sess:
+        assert sess.submit(dt.sql(sql, t=df)).to_pydict(timeout=60) == want
+    part = dt.sql(sql, t=df).collect()._result[0]
+    data = arrow_ipc.encode_stream(part.batches, part.schema, "lz4")
+    assert arrow_ipc.decode_stream(data)[0].to_pydict() == want
+    assert cli.main(["info", "--device", "cpu"]) == 0
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow", "pandas")
+             or m.startswith(("jax.", "pyarrow.", "pandas.", "daft_tpu."))
+             or m == "daft_tpu")
+print("FORBIDDEN", bad)
+"""
+
+
+def test_serving_tier_imports_no_jax_pyarrow_or_reference():
+    """A query served over a loopback gateway (executed, from the result
+    cache, from a stage checkpoint), a ServingSession query, an LZ4 IPC
+    stream and the CLI in a fresh interpreter: no JAX, pyarrow, pandas or
+    daft_tpu imported."""
+    proc = subprocess.run([sys.executable, "-c", _SERVE_QUERY.format(repo=REPO)],
                           capture_output=True, text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
