@@ -171,6 +171,24 @@ error (no phase catches its own failure):
             versions; each query's p50 and p99 latency through the wire per
             round, admission waits, prepared and result-cache hits, the
             bytes streamed and one warm round under torch.profiler;
+    dist:   the distributed workers (daft_tpu_torch/distributed/): q1 with
+            l_extendedprice's min and max at SF1 through
+            DistributedRunner(num_workers=2, n_partitions=2,
+            device_workers=2), both workers fresh subprocesses leased the
+            card: the partial DeviceGroupedAgg stages run K1, K2, K3 and K7
+            in the workers (their launches summed from the tasks' engine
+            counters; K1 or K7 at 0 fails), then the hash shuffle and the
+            final aggregate. Its keys, counts and min / max equal the
+            single-process card run and device_mode "off" bit for bit, its
+            float sums the f64 numpy oracle within rtol 1e-9. The repeat
+            counts affinity hits and leaves each worker's h2d bytes (from
+            heartbeats) flat; q12 through the runner (its device join on the
+            coordinator, then its host plan through the workers); a worker
+            killed after its map with its files lost (one respawn) and the
+            query equal; four tenants' q1 and q6 through
+            ServingSession(runner=...) equal to the single-process runs.
+            Cold and warm wall times beside the single-process run's, the
+            workers' launches and h2d bytes, each run's slowest task;
 13. topn order: the join TopN's row order on the card against the host
             path: 4,000 rows of negative int64 sums, sums past 2^53 that tie
             in f64, and float sums with +inf, NaN and a null group, each in
@@ -419,7 +437,8 @@ error (no phase catches its own failure):
    build seconds and each of its 25 exports' calls over the script), the
    {"kernels": [...]} line (each kernel's launches by path:
    every cell's counted run, the sql phase's SQL first runs, summed,
-   under "sql", and the serve phase's rounds, summed, under "serve"), the
+   under "sql", the serve phase's rounds, summed, under "serve", and the
+   dist phase's first q1 run, its workers' launches, under "dist"), the
    card line, and last the {"ok": true, "device": {...}} line.
 
 Every DataFrame runs through ``collect``, which optimizes its plan
@@ -431,7 +450,7 @@ model at its published widths with its depth uncut. It imports torch,
 numpy and the port; nothing of JAX, pyarrow or daft_tpu.
 
     python3 chip_smoke.py --phase ooc|window|obs|auto|functions|tpcds|native|temporal|nested|
-                                  multimodal|ingest|serve
+                                  multimodal|ingest|serve|dist
 
 runs phases 1-3, then that phase alone (ooc, obs and auto write lineitem's
 Parquet files themselves; auto alone computes each cell's "off" result and
@@ -9387,6 +9406,270 @@ def phase_ingest(card: str, kernel_results: dict) -> dict:
     return paths
 
 
+# ---- dist: the distributed workers ----------------------------------------------
+
+DIST_WORKERS = 2            # worker processes, both leased the card
+DIST_HEARTBEAT_S = "0.2"    # the workers' heartbeat period in this phase
+DIST_RTOL = 1e-9            # float sums against the f64 host sums
+DIST_TENANTS = 4            # the served tenants, each sending q1 and q6
+DIST_KERNELS = ("segment_sum_planes", "segment_sum_float_planes")  # K1, K7: above 0
+DIST_Q1_INTS = ("l_returnflag", "l_linestatus", "count_order", "min_price", "max_price")
+
+
+def dist_launches(trace) -> dict:
+    """The workers' kernel launches in one traced distributed run: each
+    ``launches_<kernel>`` counter of the tasks' ``engine_counters`` (the
+    workers' registry deltas over each task), summed, and by worker."""
+    from daft_tpu_torch.ops import counters
+
+    total = {k: 0 for k in counters.KERNEL_NAMES}
+    by_worker = {}
+    for ts in trace.tasks:
+        ec = dict(ts.engine_counters)
+        w = by_worker.setdefault(ts.worker_id, {})
+        for k in counters.KERNEL_NAMES:
+            n = int(ec.get(f"{CELL_KERNEL_PREFIX}{k}", 0))
+            total[k] += n
+            if n:
+                w[k] = w.get(k, 0) + n
+    return {"total": total, "by_worker": by_worker}
+
+
+def dist_task_times(trace) -> str:
+    """The slowest task's execution and queue wait of a traced run, on the
+    host's clock."""
+    tasks = list(trace.tasks) if trace is not None else []
+    if not tasks:
+        return "no worker tasks"
+    return (f"{len(tasks)} worker tasks, slowest exec {max(t.exec_s for t in tasks):.3f} s, "
+            f"longest queue wait {max(t.queue_wait_s for t in tasks):.3f} s")
+
+
+def dist_check_launches(label: str, launches: dict) -> None:
+    """A SmokeFailure unless every kernel of DIST_KERNELS ran in a worker."""
+    for k in DIST_KERNELS:
+        check(launches["total"].get(k, 0) > 0,
+              f"{label}: kernel {k} was not launched in a worker process")
+
+
+def dist_same_q1(got: dict, want: dict, oracle: dict) -> bool:
+    """q1 (with its extremes) through the workers against a single-process
+    run: keys, counts and min / max bit for bit; the float sums and means
+    within DIST_RTOL of the numpy oracle's f64 sums."""
+    import numpy as np
+
+    if list(got) != list(want):
+        return False
+    for c in DIST_Q1_INTS:
+        if [np.float64(v).tobytes() if isinstance(v, float) else v for v in got[c]] != \
+                [np.float64(v).tobytes() if isinstance(v, float) else v for v in want[c]]:
+            return False
+    for c in Q1_FLOATS:
+        if len(got[c]) != len(oracle[c]) or not np.allclose(
+                np.array(got[c], dtype=float), np.array(oracle[c], dtype=float),
+                rtol=DIST_RTOL, atol=0.0):
+            return False
+    return True
+
+
+def dist_worker_h2d(pool, after_ts: float, timeout_s: float = 30.0) -> dict:
+    """Each live worker's cumulative host-to-device bytes from its first
+    heartbeat sent after ``after_ts`` (a beat sent once the coordinator holds
+    every result postdates every upload the worker's tasks made)."""
+    out = {}
+    deadline = time.time() + timeout_s
+    while time.time() < deadline and set(out) != set(pool.workers):
+        for hb in pool.drain_heartbeats():
+            if hb.get("ts", 0.0) > after_ts and not hb.get("dead"):
+                out[hb["worker_id"]] = int(hb.get("hbm_h2d_bytes", 0))
+        time.sleep(0.05)
+    check(set(out) == set(pool.workers), f"dist: no fresh heartbeat from every worker: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def dist_env(**env):
+    """The environment the pool's workers inherit, set for one block."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dist_traced(runner, query):
+    """One traced run through ``runner`` (an ambient stats collector, so
+    every task ships its engine counters): (result, seconds, launches)."""
+    import daft_tpu_torch.runners as runners
+    from daft_tpu_torch.observability.runtime_stats import StatsCollector, set_collector
+
+    runners.set_runner(runner)
+    set_collector(StatsCollector())
+    try:
+        t0 = time.perf_counter()
+        got = query().to_pydict()
+        seconds = time.perf_counter() - t0
+    finally:
+        set_collector(None)
+        runners.set_runner(None)
+    return got, seconds, dist_launches(runner.last_trace)
+
+
+def phase_dist(lineitem, orders, card: str) -> dict:
+    """The dist phase: TPC-H q1 (with l_extendedprice's min and max) at SF1
+    through DistributedRunner(num_workers=2, n_partitions=2,
+    device_workers=2), both workers leased the card: the partial
+    DeviceGroupedAgg stages run K1, K3 and K7 in the worker processes, then
+    the hash shuffle and the final aggregate. Then the repeat (affinity hits,
+    each worker's h2d bytes flat), q12 through the runner, a worker killed
+    mid-query (its shuffle files lost, one respawn), and four tenants' q1
+    and q6 through ServingSession(runner=...). Every result is held to the
+    single-process run on the card; q1 also to device_mode "off" and the
+    numpy oracle. Returns the workers' launches of the first run."""
+    import daft_tpu_torch as dt
+    from daft_tpu_torch.distributed import DistributedRunner
+    from daft_tpu_torch.observability.metrics import registry
+
+    phase("dist")
+    clear_residency()
+    df = q1_frame(lineitem)
+    q1 = lambda: q1_query(df, extremes=True)  # noqa: E731
+    oracle = q1_oracle(lineitem, extremes=True)
+    with dt_ctx():
+        t0 = time.perf_counter()
+        want = q1().to_pydict()
+        single_cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        q1().to_pydict()
+        single_warm = time.perf_counter() - t0
+    with dt.execution_config_ctx(device_mode="off"):
+        want_off = q1().to_pydict()
+    check(dist_same_q1(want, want_off, oracle), "dist: the single-process q1 on the card "
+          "differs from device_mode off or the oracle")
+    print(f"dist: single-process q1 cold {single_cold:.3f} s, warm {single_warm:.3f} s "
+          f"[{card}]", flush=True)
+    out = {}
+    with dt_ctx(), dist_env(DAFT_TPU_HEARTBEAT_S=DIST_HEARTBEAT_S):
+        t0 = time.perf_counter()
+        r = DistributedRunner(num_workers=DIST_WORKERS, n_partitions=DIST_WORKERS,
+                              device_workers=DIST_WORKERS)
+        try:
+            pool = r._ensure_pool()
+            print(f"dist: pool of {DIST_WORKERS} leased workers up in "
+                  f"{time.perf_counter() - t0:.3f} s; each leased budget "
+                  f"{pool.workers['worker-0'].spawn_config.get('hbm_budget_bytes')} bytes",
+                  flush=True)
+            # 1. q1 through the runner, cold
+            got, cold_s, launches = dist_traced(r, q1)
+            t_first = time.time()
+            check(dist_same_q1(got, want, oracle), "dist q1: differs from the single-process "
+                  "run on the card or the oracle")
+            check(dist_same_q1(got, want_off, oracle), "dist q1: differs from device_mode off")
+            dist_check_launches("dist q1", launches)
+            h2d_first = dist_worker_h2d(pool, t_first)
+            check(all(v > 0 for v in h2d_first.values()), f"dist q1: a worker uploaded "
+                  f"nothing: {h2d_first}")
+            out = launches["total"]
+            print(f"dist q1 cold {cold_s:.3f} s (single-process cold {single_cold:.3f} s); "
+                  f"{dist_task_times(r.last_trace)}; "
+                  f"workers' launches {json.dumps(launches['by_worker'], sort_keys=True)}; "
+                  f"h2d bytes by worker {json.dumps(h2d_first, sort_keys=True)} [{card}]",
+                  flush=True)
+            # 2. the repeat: affinity hits, no upload
+            before = registry().snapshot()
+            got2, warm_s, launches2 = dist_traced(r, q1)
+            t_second = time.time()
+            diff = registry().diff(before)
+            h2d_second = dist_worker_h2d(pool, t_second)
+            check(got2 == got, "dist q1 repeat: differs from the first run")
+            check(diff.get("sched_affinity_hits", 0) > 0, f"dist q1 repeat: no affinity hit "
+                  f"({diff.get('sched_affinity_misses', 0)} misses)")
+            check(h2d_second == h2d_first, f"dist q1 repeat: a worker uploaded again: "
+                  f"{h2d_first} -> {h2d_second}")
+            dist_check_launches("dist q1 repeat", launches2)
+            print(f"dist q1 warm {warm_s:.3f} s (single-process warm {single_warm:.3f} s); "
+                  f"{dist_task_times(r.last_trace)}; "
+                  f"affinity hits {diff.get('sched_affinity_hits', 0)}, bytes avoided "
+                  f"{diff.get('sched_bytes_avoided', 0)}; h2d bytes by worker unchanged "
+                  f"{json.dumps(h2d_second, sort_keys=True)}; workers' launches "
+                  f"{json.dumps(launches2['by_worker'], sort_keys=True)} [{card}]", flush=True)
+            # 3. a join: q12, its device join run by the coordinator (a DeviceJoinAgg
+            # is not distributable), then its host plan (translated under
+            # device_mode "off") through the workers: the join shuffled on
+            # the order key, the grouped aggregate two-phase
+            df_l, df_o = q12_frames(lineitem, orders)
+            q12 = lambda: q12_query(df_l, df_o)  # noqa: E731
+            t0 = time.perf_counter()
+            want12 = q12().to_pydict()
+            single12 = time.perf_counter() - t0
+            got12, s12, _l12 = dist_traced(r, q12)
+            check(got12 == want12, "dist q12: differs from the single-process run")
+            with dt.execution_config_ctx(device_mode="off"):
+                got12h, s12h, _l12h = dist_traced(r, q12)
+            tasks12 = len(r.last_trace.tasks) if r.last_trace is not None else 0
+            check(tasks12 > 0, "dist q12 host plan: no task ran on a worker")
+            check(got12h == want12, "dist q12 host plan: differs from the single-process run")
+            print(f"dist q12 {s12:.3f} s on the coordinator's device join (single-process "
+                  f"{single12:.3f} s); its host plan through the workers {s12h:.3f} s, "
+                  f"{tasks12} worker tasks; both equal [{card}]", flush=True)
+            del df_l, df_o
+            # 4. serving: four tenants' q1 and q6 through the runner
+            dq6 = q6_frame(lineitem)
+            with dt_ctx():
+                want6 = q6_query(dq6).to_pydict()
+            t0 = time.perf_counter()
+            with dt.serving_session(max_concurrent=DIST_TENANTS, runner=r) as sess:
+                futs = [(name, sess.submit(q1() if name == "q1" else q6_query(dq6),
+                                           tenant=f"tenant-{t}"))
+                        for t in range(DIST_TENANTS) for name in ("q1", "q6")]
+                served = [(name, f.to_pydict(timeout=600)) for name, f in futs]
+            serve_s = time.perf_counter() - t0
+            for name, res in served:
+                if name == "q1":
+                    check(dist_same_q1(res, want, oracle), "dist serve: a tenant's q1 differs "
+                          "from the single-process run")
+                else:
+                    check(same_result(res, want6, ("revenue",)), "dist serve: a tenant's q6 "
+                          "differs from the single-process run")
+            print(f"dist serve: {len(served)} queries of {DIST_TENANTS} tenants in "
+                  f"{serve_s:.3f} s, equal to the single-process runs [{card}]", flush=True)
+        finally:
+            r.shutdown()
+        # 5. a worker killed mid-query: its map files lost, one respawn
+        once = tempfile.mkdtemp(prefix="daft_tpu_torch_dist_")
+        try:
+            with dist_env(DAFT_TPU_FAULT_POINT="task_sent", DAFT_TPU_FAULT_MODE="kill_lose",
+                          DAFT_TPU_FAULT_WORKER="worker-1", DAFT_TPU_FAULT_STAGE="shuffle",
+                          DAFT_TPU_FAULT_ONCE_FILE=os.path.join(once, "once"),
+                          DAFT_TPU_WORKER_RESPAWN="1"):
+                fail0 = registry().get("worker_failures_total")
+                regen0 = registry().get("shuffle_maps_regenerated_total")
+                r = DistributedRunner(num_workers=DIST_WORKERS, n_partitions=DIST_WORKERS,
+                                      device_workers=DIST_WORKERS)
+                try:
+                    got_k, kill_s, _launches = dist_traced(r, q1)
+                finally:
+                    r.shutdown()
+            failures = registry().get("worker_failures_total") - fail0
+            regen = registry().get("shuffle_maps_regenerated_total") - regen0
+            check(failures >= 1, "dist kill: no worker failure was detected")
+            check(regen >= 1, "dist kill: no lost map output was regenerated")
+            check(dist_same_q1(got_k, want, oracle), "dist kill: q1 after the kill differs "
+                  "from the single-process run")
+            print(f"dist kill: q1 {kill_s:.3f} s with worker-1 killed after its map "
+                  f"(files lost); {failures} failure, {regen} map(s) regenerated; equal "
+                  f"[{card}]", flush=True)
+        finally:
+            shutil.rmtree(once, ignore_errors=True)
+    clear_residency()
+    return out
+
+
 def phase_alone(name: str, lineitem, orders, dims, card: str, kernel_results: dict) -> dict:
     """``--phase ooc``, ``window``, ``obs``, ``auto``, ``functions``,
     ``tpcds``, ``native``, ``temporal``, ``nested``, ``multimodal``,
@@ -9411,6 +9694,8 @@ def phase_alone(name: str, lineitem, orders, dims, card: str, kernel_results: di
         return phase_ingest(card, kernel_results)
     if name == "serve":
         return {"serve": phase_serve(lineitem, orders, dims, card, kernel_results)}
+    if name == "dist":
+        return {"dist": phase_dist(lineitem, orders, card)}
     frames = scan_tables(lineitem, orders, dims)
     if name == "window":
         return phase_window(lineitem, dims, frames, card)
@@ -9461,7 +9746,7 @@ def main(argv=None) -> int:
                              "(no main path runs, so no launches are counted)")
     parser.add_argument("--phase", choices=("ooc", "window", "obs", "auto", "functions",
                                             "tpcds", "native", "temporal", "nested",
-                                            "multimodal", "ingest", "serve"),
+                                            "multimodal", "ingest", "serve", "dist"),
                         help="run the card, build, data and kernels phases, then this phase "
                              "alone: ooc (TPC-H under a host memory budget, the external "
                              "sort, the Grace joins), window (W1, W2), obs (EXPLAIN "
@@ -9489,7 +9774,9 @@ def main(argv=None) -> int:
                              "grouped stage; W1: gzipped WARC files tokenized with a BPE "
                              "file, tokens per host on the grouped stage) or serve (four "
                              "tenants' TPC-H SQL at SF1 through one gateway: cold, warm, "
-                             "result cache, a tight HBM budget, a cancel)")
+                             "result cache, a tight HBM budget, a cancel) or dist (q1 at SF1 "
+                             "through two worker processes leased the card, its repeat, "
+                             "q12, a killed worker, four served tenants)")
     parser.add_argument("--root", default=HERE,
                         help="the checkout whose daft_tpu_torch is driven (default: the "
                              "one beside this script), e.g. an unpacked parent commit to "
@@ -9565,6 +9852,7 @@ def main(argv=None) -> int:
                 cells["q5"] = q5()
             paths["sql"] = phase_sql(sql_tables, card)
             paths["serve"] = phase_serve(lineitem, orders, dims, card, kernel_results)
+            paths["dist"] = phase_dist(lineitem, orders, card)
             obs_tables = {"q1": sql_tables["q1"]["lineitem"], "q6": sql_tables["q6"]["lineitem"],
                           "q12": sql_tables["q12"], "tails": sql_tables["tails"]}
             del sql_tables

@@ -50,6 +50,7 @@ from .dataframe.dataframe import DataFrame, GroupedDataFrame, read_csv, read_jso
     read_parquet, read_text, read_warc
 from .datatype import DataType, Field, ImageMode, TimeUnit
 from .expressions.expressions import Expression, col, lit
+from .ext import Extension, ExtensionFunction, call_function, load_extension
 from .interop import from_numpy_columns
 from .plan import logical as _lp
 from .schema import Schema
@@ -133,7 +134,8 @@ def serving_session(max_concurrent=None, runner=None, prepared_cap: int = 64):
 
 
 __all__ = [
-    "DataFrame", "DataType", "ExecutionConfig", "Expression", "Field", "Func",
+    "DataFrame", "DataType", "ExecutionConfig", "Expression", "Extension",
+    "ExtensionFunction", "Field", "Func", "call_function", "load_extension",
     "GroupedDataFrame", "ImageMode", "MicroPartition", "RecordBatch", "Schema", "Series",
     "Session", "cls", "col", "current_session", "execution_config", "execution_config_ctx",
     "file", "from_files", "from_glob_path", "from_numpy_columns", "from_pydict",

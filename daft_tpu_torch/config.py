@@ -94,9 +94,19 @@ environment variables):
   once (device/residency.py ``admit``); 0 = no per-tenant cap;
 - ``shuffle_compression`` (``DAFT_TPU_SHUFFLE_COMPRESSION``, "lz4"): the
   Arrow IPC body codec of the gateway's result chunks and the stage
-  checkpoints' result files (io/arrow_ipc.py): "lz4" (LZ4_FRAME), "zstd"
-  (accepted here as the reference accepts it; the writer raises
-  NotImplementedError: the port has no zstd codec) or "none".
+  checkpoints' result files and the distributed shuffle's files
+  (io/arrow_ipc.py): "lz4" (LZ4_FRAME), "zstd" (accepted here as the
+  reference accepts it; the writer raises NotImplementedError: the port has
+  no zstd codec) or "none".
+
+The distributed tier (distributed/; the reference's knobs, defaults and
+environment variables): ``shuffle_fetch_parallelism``
+(``DAFT_TPU_SHUFFLE_FETCH_PARALLELISM``, 4) fetch threads of a reduce task's
+socket fan-in, ``shuffle_prefetch_batches`` (``DAFT_TPU_SHUFFLE_PREFETCH``,
+8) its decoded-batch queue (1 and 0: the serial path), and
+``broadcast_join_size_bytes`` (``DAFT_TPU_BROADCAST_JOIN_BYTES``, 10 MiB): a
+join's right side up to this size is joined whole by every left fragment
+instead of shuffling both sides.
 """
 
 from __future__ import annotations
@@ -159,6 +169,12 @@ class ExecutionConfig:
         default_factory=lambda: _env_int("DAFT_TPU_TENANT_BUDGET", 0))
     shuffle_compression: str = field(
         default_factory=lambda: os.environ.get("DAFT_TPU_SHUFFLE_COMPRESSION", "lz4"))
+    shuffle_fetch_parallelism: int = field(
+        default_factory=lambda: _env_int("DAFT_TPU_SHUFFLE_FETCH_PARALLELISM", 4))
+    shuffle_prefetch_batches: int = field(
+        default_factory=lambda: _env_int("DAFT_TPU_SHUFFLE_PREFETCH", 8))
+    broadcast_join_size_bytes: int = field(
+        default_factory=lambda: _env_int("DAFT_TPU_BROADCAST_JOIN_BYTES", 10 * 1024 * 1024))
 
     def __post_init__(self) -> None:
         if self.device_mode not in ("on", "off", "auto"):
@@ -208,6 +224,14 @@ class ExecutionConfig:
             raise ValueError(f"shuffle_compression must be one of 'none'/'lz4'/'zstd', got "
                              f"{self.shuffle_compression!r} "
                              f"(check DAFT_TPU_SHUFFLE_COMPRESSION)")
+        if self.shuffle_fetch_parallelism < 1:
+            raise ValueError(f"shuffle_fetch_parallelism must be >= 1, got "
+                             f"{self.shuffle_fetch_parallelism!r} "
+                             f"(check DAFT_TPU_SHUFFLE_FETCH_PARALLELISM)")
+        if self.shuffle_prefetch_batches < 0:
+            raise ValueError(f"shuffle_prefetch_batches must be >= 0 (0 disables prefetch), "
+                             f"got {self.shuffle_prefetch_batches!r} "
+                             f"(check DAFT_TPU_SHUFFLE_PREFETCH)")
         if self.max_concurrent_queries < 1:
             raise ValueError(f"max_concurrent_queries must be >= 1, got "
                              f"{self.max_concurrent_queries!r} "

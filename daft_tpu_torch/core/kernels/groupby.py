@@ -415,6 +415,12 @@ def _agg_columns(batch, aggs, group_ids: np.ndarray, g: int, ungrouped: bool = F
 
             out.append(Series.from_pylist([hll_count_distinct(s)], e.name(), out_dt))
             continue
+        if s.dtype.is_decimal() and inner.op in ("sum", "min", "max"):
+            from ..decimal import reduce as decimal_reduce
+
+            vals, valid = decimal_reduce(inner.op, s, group_ids, g)
+            out.append(Series(e.name(), out_dt, vals, valid))
+            continue
         values, validity = s.to_numpy(), s.validity_numpy()
         op = "count_distinct" if inner.op == "approx_count_distinct" else inner.op
         if op == "count_distinct":
@@ -502,6 +508,8 @@ def agg_output_dtype(op: str, child: DataType) -> DataType:
             return child if child.kind == "float32" else DataType.float64()
         if child.is_null():
             return DataType.null()
+        if child.is_decimal() and op == "sum":
+            return child
         raise ValueError(f"cannot sum dtype {child}")
     if op in ("mean", "stddev", "var", "skew"):
         return DataType.float64()

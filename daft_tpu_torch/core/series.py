@@ -27,6 +27,7 @@ embedding, a fixed-shape tensor or image), whose ``to_numpy`` is the dense
 from __future__ import annotations
 
 import datetime
+import decimal as _pydecimal
 import re
 import weakref
 from typing import Any, List, Optional, Sequence
@@ -121,6 +122,9 @@ def _infer_dtype(data: Sequence[Any]) -> DataType:
         if isinstance(v, (bytes, bytearray)):
             kinds.add("binary")
             continue
+        if isinstance(v, _pydecimal.Decimal):
+            kinds.add("decimal")
+            continue
         if isinstance(v, (bool, np.bool_)):
             kinds.add("bool")
         elif isinstance(v, (int, np.integer)):
@@ -148,6 +152,10 @@ def _infer_dtype(data: Sequence[Any]) -> DataType:
     if len(kinds) > 1:
         raise TypeError(f"mixed value kinds in one column: {sorted(kinds)}")
     kind = kinds.pop()
+    if kind == "decimal":
+        from .decimal import infer_type
+
+        return infer_type([v for v in data if v is not None])
     if kind == "list":
         return DataType.list(_infer_dtype(elems))
     if kind == "struct":
@@ -182,6 +190,8 @@ def _temporal_ticks(v, dtype: DataType) -> int:
 def _null_fill(dtype: DataType):
     if dtype.is_floating():
         return np.nan
+    if dtype.is_decimal():
+        return 0
     if dtype.kind == "python" or dtype.to_numpy() == object:
         return None
     return 0
@@ -283,6 +293,24 @@ class Series:
         # are never fingerprinted (device/residency.py stable_slot_key)
         self.held = False
 
+    _STATE = ("_name", "_dtype", "_values", "_validity", "_dict_codes", "_distinct_est",
+              "_content_fp", "_fp_pieces")
+
+    def __getstate__(self):
+        """A pickled copy (a distributed sub-plan's columns) keeps its content
+        fingerprint and its pieces' digests, but not the weak references to
+        the parts of a concatenation, and is not a held column: its device
+        planes are keyed by content in the process that reads it."""
+        state = {k: getattr(self, k) for k in self._STATE}
+        if isinstance(state["_fp_pieces"], tuple):
+            state["_fp_pieces"] = None
+        return state
+
+    def __setstate__(self, state) -> None:
+        for k in self._STATE:
+            setattr(self, k, state[k])
+        self.held = False
+
     # ---- constructors -------------------------------------------------------------
     @classmethod
     def from_pylist(cls, data: Sequence[Any], name: str = "series",
@@ -297,6 +325,11 @@ class Series:
             return cls._nested_from_pylist(data, name, dtype, validity)
         elif dtype.kind == "python":
             return cls(name, dtype, _object_array(data), validity)
+        elif dtype.is_decimal():
+            from . import decimal as _decimal
+
+            exact = [None if v is None else _pydecimal.Decimal(v) for v in data]
+            return _decimal.from_exact(name, exact, dtype)
         elif dtype.is_binary():
             conv = [None if v is None else bytes(v) for v in data]
             if dtype.kind == "fixed_size_binary" and any(
@@ -639,6 +672,10 @@ class Series:
             return temporal.ticks_to_timedeltas(self._values, valid, self._dtype.time_unit)
         if kind == "time":
             return temporal.ticks_to_times(self._values, valid, self._dtype.time_unit)
+        if kind == "decimal128":
+            from .decimal import to_pylist
+
+            return to_pylist(self._values, valid, self._dtype.params[1])
         return [v if ok else None
                 for v, ok in zip(self._values.tolist(), valid.tolist())]
 
@@ -1009,6 +1046,14 @@ class Series:
             return Series(self._name, dtype, _object_array(self.to_pylist()), self._validity)
         if self.is_nested or dtype.is_nested():
             return self._nested_cast(dtype)
+        if dtype.is_decimal():
+            from .decimal import cast_to_decimal
+
+            return cast_to_decimal(self, dtype)
+        if self._dtype.is_decimal():
+            from .decimal import cast_from_decimal
+
+            return cast_from_decimal(self, dtype)
         if self._dtype.is_binary() or dtype.is_binary():
             return self._binary_cast(dtype)
         if self._dtype.kind in ("timestamp", "duration", "time") \
@@ -1113,6 +1158,169 @@ class Series:
             raise ValueError(f"Unsupported cast from {src} to {dtype}: a value is not "
                              f"{dtype.size} bytes")
         return Series(self._name, dtype, out, valid)
+
+
+    # ---- the reference's whole-column aggregations, null handling, sorting
+    # and elementwise predicates: each a thin call into the engine's own host
+    # kernels (core/kernels/groupby.py's aggregation over one group, the
+    # expression evaluator, the sort kernel), so a Series answers as the
+    # engine answers over a one-column table
+
+    def sum(self):  # noqa: A003 - the reference's method name
+        return _column_agg(self, "sum")
+
+    def product(self):
+        return _column_agg(self, "product")
+
+    def mean(self):
+        return _column_agg(self, "mean")
+
+    def min(self):  # noqa: A003
+        return _column_agg(self, "min")
+
+    def max(self):  # noqa: A003
+        return _column_agg(self, "max")
+
+    def count(self, mode: str = "valid"):
+        return _column_agg(self, "count", mode=mode)
+
+    def count_distinct(self):
+        return _column_agg(self, "count_distinct")
+
+    def any_value(self, ignore_nulls: bool = False):
+        return _column_agg(self, "any_value", ignore_nulls=ignore_nulls)
+
+    def stddev(self, ddof: int = 0):
+        return _column_agg(self, "stddev", ddof=ddof)
+
+    def var(self, ddof: int = 0):
+        return _column_agg(self, "var", ddof=ddof)
+
+    def skew(self):
+        return _column_agg(self, "skew")
+
+    def bool_and(self):
+        return _column_agg(self, "bool_and")
+
+    def bool_or(self):
+        return _column_agg(self, "bool_or")
+
+    def agg_list(self):
+        return _column_agg(self, "list")
+
+    def agg_set(self):
+        return _column_agg(self, "set")
+
+    def agg_concat(self):
+        return _column_agg(self, "concat")
+
+    def string_agg(self, delimiter: str = ""):
+        return _column_agg(self, "string_agg", delimiter=delimiter)
+
+    def approx_count_distinct(self):
+        return _column_agg(self, "approx_count_distinct")
+
+    def approx_percentile(self, percentiles, alpha: float = 0.01):
+        return _column_agg(self, "approx_percentile", percentiles=percentiles, alpha=alpha)
+
+    def abs(self):  # noqa: A003
+        from ..expressions.expressions import col
+
+        return _column_eval(self.name, col("_0").abs(), self)
+
+    def is_null(self) -> "Series":
+        return Series(self.name, DataType.bool(), ~self.validity_numpy(),
+                      np.ones(len(self), dtype=bool))
+
+    def not_null(self) -> "Series":
+        return Series(self.name, DataType.bool(), self.validity_numpy().copy(),
+                      np.ones(len(self), dtype=bool))
+
+    def null_count(self) -> int:
+        return int(len(self) - int(self.validity_numpy().sum()))
+
+    def fill_null(self, value):
+        from ..expressions.expressions import col
+
+        return _column_eval(self.name, col("_0").fill_null(col("_1")), self, value)
+
+    def drop_nulls(self) -> "Series":
+        return self.take(np.flatnonzero(self.validity_numpy()))
+
+    def filter(self, mask) -> "Series":  # noqa: A003
+        """The rows where ``mask`` (a bool Series or array) is true; a null in
+        the mask drops its row."""
+        if isinstance(mask, Series):
+            keep = mask.to_numpy().astype(bool) & mask.validity_numpy()
+        else:
+            keep = np.asarray(mask, dtype=bool)
+        return self.take(np.flatnonzero(keep))
+
+    def argsort(self, descending: bool = False, nulls_first: Optional[bool] = None):
+        """The row order (uint64 indices); nulls last ascending and first
+        descending unless ``nulls_first`` says otherwise."""
+        from .kernels.sort import multi_argsort
+
+        if nulls_first is None:
+            nulls_first = descending
+        idx = np.asarray(multi_argsort([self], [descending], [nulls_first]), dtype=np.uint64)
+        return Series.from_numpy(idx, self.name, dtype=DataType.uint64())
+
+    def sort(self, descending: bool = False, nulls_first: Optional[bool] = None):
+        return self.take(self.argsort(descending, nulls_first).to_numpy().astype(np.int64))
+
+    def is_in(self, values):
+        from ..expressions.expressions import IsIn, col, lit
+
+        items = [lit(v) for v in values.to_pylist()]
+        return _column_eval(self.name, IsIn(col("_0"), items), self)
+
+    def between(self, lower, upper):
+        from ..expressions.expressions import col
+
+        return _column_eval(self.name, (col("_0") >= col("_1")) & (col("_0") <= col("_2")),
+                            self, lower, upper)
+
+    def eq_null_safe(self, other):
+        from ..expressions.expressions import col
+
+        return _column_eval(self.name, col("_0").eq_null_safe(col("_1")), self, other)
+
+    @staticmethod
+    def if_else(predicate, if_true, if_false):
+        """Row-wise ``if_true`` where ``predicate`` holds, else ``if_false``
+        (null where the predicate is null); named as ``if_true``."""
+        from ..expressions.expressions import col
+
+        return _column_eval(if_true.name, col("_0").if_else(col("_1"), col("_2")),
+                            predicate, if_true, if_false)
+
+
+def _column_batch(*series):
+    """A RecordBatch of ``series`` as columns _0, _1, ... (broadcasting
+    one-row operands to the longest)."""
+    from ..schema import Schema
+    from .recordbatch import RecordBatch
+
+    n = max(len(s) for s in series)
+    cols = [(s.broadcast(n) if len(s) == 1 and n != 1 else s).rename(f"_{i}")
+            for i, s in enumerate(series)]
+    return RecordBatch(Schema([c.field() for c in cols]), cols, n)
+
+
+def _column_agg(s: "Series", op: str, **params) -> "Series":
+    """``op`` over the whole column, one row, named as the column."""
+    from ..expressions.expressions import AggExpr, col
+    from .kernels.groupby import ungrouped_agg
+
+    out = ungrouped_agg(_column_batch(s), [AggExpr(op, col("_0"), params).alias("_0")])
+    return out.get_column("_0").rename(s.name)
+
+
+def _column_eval(name: str, expr, *series) -> "Series":
+    from ..expressions.eval import eval_expression
+
+    return eval_expression(_column_batch(*series), expr).rename(name)
 
 
 def _to_text(v) -> str:
@@ -1302,3 +1510,4 @@ def temporal_cast(s: "Series", dtype: DataType) -> np.ndarray:
                 raise ValueError(f"Failed to parse string: {x!r} as a scalar of type date32")
         return np.asarray(out, dtype=np.int32)
     raise refuse()
+

@@ -70,6 +70,68 @@ class DataFrame:
     def __repr__(self) -> str:
         return f"DataFrame(schema={self.schema})"
 
+    @property
+    def columns(self) -> List[Expression]:
+        """The columns as expressions (the reference's DataFrame.columns)."""
+        return [col(f.name) for f in self.schema]
+
+    def num_partitions(self) -> int:
+        """The partitions of the materialized result, 1 before it runs."""
+        if self._result is not None:
+            return len(self._result)
+        return 1
+
+    def shuffle(self, seed: Optional[int] = None) -> "DataFrame":
+        """The rows in a random order: a sort on a seeded hash of the first
+        column, as the reference shuffles."""
+        import random as _random
+
+        rng_seed = seed if seed is not None else _random.randrange(2 ** 31)
+        tmp = "__shuffle_key__"
+        keyed = self.with_column(tmp, col(self.column_names[0]).hash(seed=rng_seed)
+                                 if self.column_names else lit(0))
+        return keyed.sort(tmp).exclude(tmp)
+
+    def skip_existing(self, existing_path, key_column: Union[str, List[str]],
+                      file_format: str = "parquet") -> "DataFrame":
+        """The rows whose key is not in the output already written under
+        ``existing_path`` (a directory, a file, or a list of them): resume a
+        bulk write. Reads only the key columns there."""
+        import glob as _glob
+        import os as _os
+
+        keys = [key_column] if isinstance(key_column, str) else list(key_column)
+        paths = existing_path if isinstance(existing_path, list) else [existing_path]
+        readers = {"parquet": read_parquet, "csv": read_csv, "json": read_json}
+        if file_format not in readers:
+            raise ValueError(f"unsupported file_format {file_format!r}")
+        existing = None
+        for p in paths:
+            if _os.path.isdir(p):
+                files = sorted(_glob.glob(_os.path.join(p, f"**/*.{file_format}"),
+                                          recursive=True))
+            else:
+                files = [p] if _os.path.exists(p) else []
+            for fp in files:
+                part = readers[file_format](fp).select(*[col(k) for k in keys])
+                existing = part if existing is None else existing.concat(part)
+        if existing is None:
+            return self
+        kexprs = [col(k) for k in keys]
+        return self.join(existing.distinct(), left_on=kexprs, right_on=kexprs, how="anti")
+
+    def to_torch_map_dataset(self):
+        """A ``torch.utils.data.Dataset`` of the result's rows (dicts)."""
+        from .to_torch import DataFrameMapDataset
+
+        return DataFrameMapDataset(self)
+
+    def to_torch_iter_dataset(self):
+        """A ``torch.utils.data.IterableDataset`` streaming the result's rows."""
+        from .to_torch import DataFrameIterDataset
+
+        return DataFrameIterDataset(self)
+
     # ---- observability -----------------------------------------------------------
     def metrics(self):
         """Per-operator execution metrics of the plan as a RecordBatch
@@ -157,16 +219,21 @@ class DataFrame:
         stats = collector.finish()
         report = ("== Physical Plan ==\n" + phys.display()
                   + "\n\n== Runtime Stats ==\n" + format_stats(stats, total))
+        # a distributed runner's trace: its stages, shuffles and workers
+        trace = getattr(runner, "last_trace", None)
+        if trace is not None and trace.tasks:
+            report += "\n\n== Distributed Stages ==\n" + trace.render()
         deltas = registry().diff(reg_before)
         if deltas:
             report += "\n\n== Engine Counters ==\n" + "\n".join(
                 f"{k:<32} {v:>12g}" for k, v in sorted(deltas.items()))
         if profile:
-            from ..distributed.trace import QueryTrace
+            if trace is None:
+                from ..distributed.trace import QueryTrace
 
-            # no workers in the port: an empty trace carries the coordinator lanes
-            trace = QueryTrace("")
-            trace.started_wall = t_wall0
+                # the native runner: an empty trace carries the coordinator lanes
+                trace = QueryTrace("")
+                trace.started_wall = t_wall0
             data = trace.to_chrome_trace(coordinator_ops=stats, coordinator_spans=span_rec.drain(),
                                          total_seconds=total)
             with open(profile, "w") as f:

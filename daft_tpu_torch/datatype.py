@@ -103,7 +103,7 @@ _NUMPY_MAP = {
     "python": "object",
     "embedding": "object", "image": "object", "fixed_shape_image": "object",
     "tensor": "object", "fixed_shape_tensor": "object", "sparse_tensor": "object",
-    "file": "object",
+    "file": "object", "decimal128": "object",
 }
 
 _LOGICAL_KINDS = frozenset({"embedding", "image", "fixed_shape_image", "tensor",
@@ -168,6 +168,14 @@ class DataType:
     @classmethod
     def float64(cls) -> "DataType":
         return cls("float64")
+
+    @classmethod
+    def decimal128(cls, precision: int, scale: int) -> "DataType":
+        """DECIMAL(precision, scale), host only (core/decimal.py)."""
+        from .core.decimal import check_type
+
+        check_type(int(precision), int(scale))
+        return cls("decimal128", (int(precision), int(scale)))
 
     @classmethod
     def string(cls) -> "DataType":
@@ -290,6 +298,11 @@ class DataType:
     def is_string(self) -> bool:
         return self.kind == "string"
 
+    def is_decimal(self) -> bool:
+        """A decimal is a number to the type rules but not ``is_numeric``:
+        it has no numpy or device representation (core/decimal.py)."""
+        return self.kind == "decimal128"
+
     def is_binary(self) -> bool:
         return self.kind in ("binary", "fixed_size_binary")
 
@@ -324,7 +337,8 @@ class DataType:
         """Types with an order (datatype.py:283-287): binary is, a
         fixed-size binary and the nested types are not."""
         return (self.is_numeric() or self.is_boolean() or self.is_string()
-                or self.is_temporal() or self.kind == "binary" or self.is_null())
+                or self.is_temporal() or self.kind == "binary" or self.is_null()
+                or self.is_decimal())
 
     def is_device_compatible(self) -> bool:
         """Whether a column of this type can live on the device as one
@@ -518,6 +532,8 @@ class DataType:
             return f"Struct[{inner}]"
         if self.kind == "map":
             return f"Map[{self.params[0]}: {self.params[1]}]"
+        if self.kind == "decimal128":
+            return f"Decimal128({self.params[0]}, {self.params[1]})"
         if self.kind == "fixed_size_binary":
             return f"FixedSizeBinary({self.params[0]})"
         if self.kind == "timestamp":

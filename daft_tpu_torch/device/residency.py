@@ -243,6 +243,10 @@ class ResidencyManager:
         self._bytes = 0
         self._high_water = 0
         self._auto_budget = None
+        # budget shares held by worker pools that lease this card to their
+        # workers: token -> processes sharing it (share())
+        self._shares: Dict[int, int] = {}
+        self._share_seq = itertools.count(1)
         self._dead: list = []
         self._tl = threading.local()
         # admission control: outstanding reservations {token: (tenant, bytes)}
@@ -497,22 +501,41 @@ class ResidencyManager:
 
     def budget_bytes(self) -> int:
         """Effective budget in bytes (0 = unbounded): the configured
-        ``hbm_budget_bytes``, or 3/4 of the card's memory when that is 0."""
+        ``hbm_budget_bytes``, or 3/4 of the card's memory when that is 0,
+        divided by the most processes any held ``share()`` splits it among."""
         from ..config import execution_config
 
         b = execution_config().hbm_budget_bytes
-        if b > 0:
-            return b
         if b < 0:
             return 0
-        if self._auto_budget is None:
-            import torch
+        if b == 0:
+            if self._auto_budget is None:
+                import torch
 
-            self._auto_budget = 0
-            if torch.cuda.is_available():
-                _free, total = torch.cuda.mem_get_info()
-                self._auto_budget = (total * 3) // 4
-        return self._auto_budget
+                self._auto_budget = 0
+                if torch.cuda.is_available():
+                    _free, total = torch.cuda.mem_get_info()
+                    self._auto_budget = (total * 3) // 4
+            b = self._auto_budget
+        shares = list(self._shares.values())
+        return b // max(shares) if b > 0 and shares else b
+
+    def share(self, processes: int) -> int:
+        """Split this process's budget ``processes`` ways while the returned
+        token is held (a worker pool that leases the card to
+        ``processes - 1`` workers, each given ``budget_bytes()`` after this
+        call); entries past the smaller budget are evicted now.
+        ``unshare(token)`` restores it."""
+        with self._lock:
+            token = next(self._share_seq)
+            self._shares[token] = max(1, int(processes))
+            self._evict_over_budget()
+            self._note_bytes()
+        return token
+
+    def unshare(self, token: int) -> None:
+        with self._lock:
+            self._shares.pop(token, None)
 
     def _evict_over_budget(self) -> None:
         budget = self.budget_bytes()
@@ -573,6 +596,24 @@ class ResidencyManager:
         with self._lock:
             self._sweep_dead()
             return self._bytes
+
+    def digest(self, cap: int = 64) -> list:
+        """The residency digest a distributed worker's heartbeats carry: up
+        to ``cap`` (stable key, device bytes) pairs, most recently used
+        first, the bytes on the device the slot lives on (card bytes, or a
+        CPU device's tensor bytes: ``held_nbytes``). Only content-keyed slots
+        appear: they are the ones a repeat sub-plan rebinds, so the
+        scheduler's bytes avoided stay honest."""
+        out = []
+        with self._lock:
+            self._sweep_dead()
+            for k in reversed(self._entries):
+                e = self._entries[k]
+                if e.stable is not None:
+                    out.append((e.stable, e.held))
+                    if len(out) >= cap:
+                        break
+        return out
 
     def entry_count(self) -> int:
         with self._lock:

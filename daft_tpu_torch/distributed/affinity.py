@@ -1,12 +1,13 @@
 """Plan residency fingerprints (counterpart of daft_tpu/distributed/
-affinity.py's ``plan_fingerprint``; the rest of that module, the scheduler's
-cache-affinity scoring, waits for the distributed workers).
+affinity.py).
 
 A fingerprint is the set of content-derived slot keys a plan's device
 stages would probe in the residency manager, each with its estimated device
-bytes. The serving tier sums the bytes into a query's pin-scope estimate
-(serving/prepared.py ``estimate_pin_bytes``). Mirrored slot shapes (the
-registration sites):
+bytes. The distributed planner stamps each sub-plan task with one, and the
+scheduler (scheduler.py) steers a task to the worker whose heartbeat digest
+(device/residency.py ``digest``) holds the most of those bytes; the serving
+tier sums the bytes into a query's pin-scope estimate (serving/prepared.py
+``estimate_pin_bytes``). Mirrored slot shapes (the registration sites):
 
 - ``("col", bucket, f32, device)``: ``Series.to_device_cached`` column
   planes fed by the grouped and the ungrouped stages (ops/grouped_stage.py,

@@ -2,12 +2,14 @@
 and the Chrome trace-event export (counterpart of
 daft_tpu/distributed/trace.py, the class as plain Python).
 
-The port has no workers yet: ``explain_analyze(profile=...)`` builds an empty
-trace for the coordinator's lanes (its operators, their stall slices, and the
-engine's device, scan and spill spans) and renders it with
-``to_chrome_trace``. The task, heartbeat, shuffle and straggler records are
-data with no producer until the workers are ported; ``record_task`` takes
-the reference's task and result shapes.
+A DistributedRunner's traced query fills one: the worker pool records each
+finished task (``record_task``: its stats, shuffle volume, spans and engine
+counters from the TaskResult), the runner adds the workers' heartbeats, the
+pool notes placement and recovery totals. ``explain_analyze`` renders it
+under "Distributed Stages". With the native runner,
+``explain_analyze(profile=...)`` builds an empty trace for the
+coordinator's lanes (its operators, their stall slices, and the engine's
+device, scan and spill spans) and renders it with ``to_chrome_trace``.
 """
 
 from __future__ import annotations

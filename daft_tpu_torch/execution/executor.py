@@ -74,10 +74,13 @@ from ..core.recordbatch import RecordBatch
 from ..core.series import Series
 from ..datatype import DataType
 from ..expressions.eval import eval_expression, eval_projection
-from ..expressions.expressions import AggExpr, Alias, Expression, col, lit
+from ..expressions.expressions import AggExpr, Alias, Expression, col
 from ..observability import placement as _placement
 from ..ops import costmodel as _costmodel
 from ..plan import physical as pp
+from ..plan.agg_split import UNSPLIT_AGGS as _UNSPLIT_AGGS
+from ..plan.agg_split import agg_op as _agg_op
+from ..plan.agg_split import split_aggs_exprs as _split_aggs
 from ..schema import Schema
 from ..utils.env import env_bool
 
@@ -285,6 +288,38 @@ def _exec_impl(node: pp.PhysicalPlan) -> Iterator[MicroPartition]:
 
     if isinstance(node, pp.PhysRepartition):
         yield from _repartition(node)
+        return
+
+    if isinstance(node, pp.ShuffleWrite):
+        from ..distributed.shuffle import MapOutputWriter
+
+        out = MapOutputWriter(node.shuffle_dir, node.shuffle_id, node.map_id,
+                              node.num_partitions)
+        try:
+            for part in _exec(node.input):
+                for b in part.batches:
+                    if b.num_rows == 0:
+                        continue
+                    keys = [_full_length(eval_expression(b, e), b.num_rows) for e in node.by]
+                    for j, piece in enumerate(b.partition_by_hash(keys, node.num_partitions)):
+                        out.append(j, piece)
+        finally:
+            out.close()
+        return
+
+    if isinstance(node, pp.ShuffleRead):
+        if node.fetch_endpoints:
+            from ..distributed.fetch_server import fetch_partition
+
+            yield from fetch_partition(node.fetch_endpoints, node.shuffle_id,
+                                       node.partition_idx, node.schema,
+                                       expected_maps=node.expected_maps)
+            return
+        from ..distributed import shuffle as shf
+
+        yield from shf.read_partition(node.shuffle_dir, node.shuffle_id,
+                                      node.partition_idx, node.schema,
+                                      expected_maps=node.expected_maps)
         return
 
     if isinstance(node, pp.PhysExplode):
@@ -1956,75 +1991,6 @@ def _agg_series(f, vals: np.ndarray, valid: np.ndarray) -> Series:
     vals = np.where(valid, vals, vals.dtype.type(0))
     return Series.from_numpy(vals.astype(f.dtype.to_numpy()), f.name, dtype=f.dtype,
                              validity=valid)
-
-
-def _agg_op(e: Expression) -> str:
-    while isinstance(e, Alias):
-        e = e.child
-    return e.op if isinstance(e, AggExpr) else ""
-
-
-# aggregations that need each group's whole value set: one phase (the
-# reference's agg_split.py returns None for them)
-_UNSPLIT_AGGS = ("count_distinct", "set", "string_agg", "approx_count_distinct",
-                 "approx_percentile")
-
-
-def _split_aggs(aggs: List[Expression]):
-    """(partial, final, projection) expressions of a two-phase aggregation:
-    partials per morsel, finals over the concatenated partials, and the
-    projection that names the outputs. mean = sum / count; var, stddev and
-    skew combine sums of powers and counts, any_value, bool_and, bool_or,
-    product and concat merge with themselves, and a list's partial lists
-    concatenate, as the reference's agg_split.py:74-121 splits them."""
-    from ..datatype import DataType
-
-    partial, final, projection = [], [], []
-    for i, e in enumerate(aggs):
-        name = e.name()
-        inner = e
-        while isinstance(inner, Alias):
-            inner = inner.child
-        if not isinstance(inner, AggExpr):
-            raise ValueError(f"expected an aggregation, got {e!r}")
-        p = f"__p{i}"
-        child = inner.child
-        if inner.op == "mean":
-            partial += [AggExpr("sum", child).alias(p + "s"),
-                        AggExpr("count", child).alias(p + "c")]
-            final += [col(p + "s").sum().alias(p + "s"),
-                      col(p + "c").sum().alias(p + "c")]
-            projection.append((col(p + "s") / col(p + "c")).alias(name))
-            continue
-        if inner.op in ("stddev", "var", "skew"):
-            powers = [("s", child), ("q", child * child)]
-            if inner.op == "skew":
-                powers.append(("u", child * child * child))
-            partial += [AggExpr("sum", x).alias(p + k) for k, x in powers]
-            partial.append(AggExpr("count", child).alias(p + "c"))
-            final += [col(p + k).sum().alias(p + k) for k, _x in powers]
-            final.append(col(p + "c").sum().alias(p + "c"))
-            s, q, c = col(p + "s"), col(p + "q"), col(p + "c")
-            m = s / c
-            var = ((q / c) - m * m).clip(min=0.0)
-            if inner.op == "skew":
-                sd = var.sqrt()
-                m3 = (col(p + "u") / c) - 3 * m * (q / c) + 2 * m * m * m
-                out = (sd > 0).if_else(m3 / (sd ** 3), lit(None))
-            else:
-                ddof = inner.params.get("ddof", 0)
-                if ddof:
-                    var = (c > ddof).if_else(var * c / (c - ddof), lit(None))
-                out = var.sqrt() if inner.op == "stddev" else var
-            projection.append(out.cast(DataType.float64()).alias(name))
-            continue
-        partial.append(AggExpr(inner.op, child, dict(inner.params)).alias(p))
-        merge = "sum" if inner.op in ("sum", "count") else \
-            "concat" if inner.op == "list" else inner.op
-        final.append(AggExpr(merge, col(p), dict(inner.params) if merge == inner.op
-                             and merge != "count" else {}).alias(name))
-        projection.append(col(name))
-    return partial, final, projection
 
 
 def _agg_morsels(batches, aggs):

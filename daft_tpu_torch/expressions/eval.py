@@ -177,6 +177,8 @@ def _make(name: str, dtype: DataType, values, valid) -> Series:
 
 
 _TICKS = ("timestamp", "duration")
+# the binary ops core/decimal.py evaluates where an operand is a decimal
+_DECIMAL_OPS = ("add", "sub", "mul", "div", "eq", "neq", "lt", "le", "gt", "ge")
 
 
 def _incomparable(l: DataType, r: DataType) -> ValueError:
@@ -202,6 +204,11 @@ def _temporal_arith(op: str, l: Series, r: Series, out_dt: DataType) -> Series:
 
 
 def _binop(op: str, l: Series, r: Series, out_dt: DataType) -> Series:
+    if (l.dtype.is_decimal() or r.dtype.is_decimal()) and op in _DECIMAL_OPS \
+            and not (l.dtype.is_null() or r.dtype.is_null()):
+        from ..core.decimal import binop as decimal_binop
+
+        return decimal_binop(op, l, r, out_dt)
     lm, rm = l.validity_numpy(), r.validity_numpy()
     if op in ("add", "sub") and out_dt.kind in _TICKS and not (
             l.dtype.is_null() or r.dtype.is_null()):

@@ -22,6 +22,7 @@ ops/device_eval.py; both dispatch over these node types.
 from __future__ import annotations
 
 import datetime
+import decimal
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -87,6 +88,10 @@ class Expression:
     # ---- typing -------------------------------------------------------------------
     def to_field(self, schema: Schema) -> Field:
         raise NotImplementedError(type(self).__name__)
+
+    def get_type(self, schema: Schema) -> DataType:
+        """The expression's type over ``schema``."""
+        return self.to_field(schema).dtype
 
     # ---- operators ----------------------------------------------------------------
     def _other(self, other) -> "Expression":
@@ -588,7 +593,7 @@ class UnaryOp(Expression):
         if self.op in ("is_null", "not_null", "not"):
             return Field(f.name, DataType.bool())
         if self.op in ("neg", "abs"):
-            if not f.dtype.is_numeric():
+            if not (f.dtype.is_numeric() or f.dtype.is_decimal()):
                 raise ValueError(f"{self.op} requires numeric input, got {f.dtype}")
             return f
         raise ValueError(f"unknown unary op {self.op!r}")
@@ -1431,6 +1436,10 @@ def _infer_literal_dtype(v: Any) -> DataType:
         return DataType.string()
     if isinstance(v, (bytes, bytearray)):
         return DataType.binary()
+    if isinstance(v, decimal.Decimal):
+        from ..core.decimal import literal_type
+
+        return literal_type(v)
     if isinstance(v, datetime.datetime):
         # the reference's naming: tzname(None), which is None for a ZoneInfo
         # zone and "UTC+hh:mm" for a fixed offset
@@ -1458,7 +1467,7 @@ def _arith_result_type(op: str, l: DataType, r: DataType) -> DataType:
     if op == "add" and l.is_string() and r.is_string():
         return DataType.string()
     if op == "div":
-        if l.is_numeric() and r.is_numeric():
+        if all(t.is_numeric() or t.is_decimal() for t in (l, r)):
             return DataType.float64()
         raise ValueError(f"cannot divide {l} by {r}")
     if op == "pow":
@@ -1469,6 +1478,11 @@ def _arith_result_type(op: str, l: DataType, r: DataType) -> DataType:
         return r
     if r.is_null():
         return l
+    if l.is_decimal() or r.is_decimal():
+        # the reference's rule (expressions.py:1185-1186): the decimal operand's type
+        if not all(t.is_decimal() or t.is_numeric() for t in (l, r)):
+            raise ValueError(f"arith op {op!r} unsupported between {l} and {r}")
+        return l if l.is_decimal() else r
     if not (l.is_numeric() and r.is_numeric()):
         raise ValueError(f"arith op {op!r} unsupported between {l} and {r}")
     return _numeric_promote(l, r)

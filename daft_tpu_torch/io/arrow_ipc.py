@@ -15,6 +15,9 @@ and binary large (64-bit offsets), lists large lists, maps of ``entries``
 takes every type the port holds, 32- and 64-bit offsets alike (pyarrow's
 ``string`` and ``list`` too), time32, date64 and half floats.
 
+The reader also takes the IPC file container (pyarrow's ``new_file``): its
+magic, then the same messages, then a footer it does not need.
+
 Body compression is Arrow's BodyCompression, per buffer: an int64
 uncompressed length, -1 for a buffer stored as it is, then the bytes; an
 empty buffer stays empty. "lz4" is LZ4_FRAME (native.py's frame codec over
@@ -38,6 +41,7 @@ from . import _arrow_schema as fb
 
 CONTINUATION = b"\xff\xff\xff\xff"
 END_OF_STREAM = CONTINUATION + b"\x00\x00\x00\x00"
+FILE_MAGIC = b"ARROW1"
 _MESSAGE_SCHEMA, _MESSAGE_DICTIONARY, _MESSAGE_BATCH = 1, 2, 3
 _V5 = 4
 _LZ4_FRAME, _ZSTD = 0, 1
@@ -429,10 +433,33 @@ def _reader(source: Union[bytes, bytearray, memoryview, BinaryIO]):
     return source.read
 
 
+def _container(read):
+    """``read`` positioned at the stream's first message: a file container
+    (the ``ARROW1`` magic padded to 8 bytes, the stream's messages up to its
+    end marker, then the footer, which is not read) skips its magic; a
+    stream gets its first 8 bytes back."""
+    head = read(8)
+    if head.startswith(FILE_MAGIC):
+        return read
+    pending = [head]
+
+    def chained(n: int) -> bytes:
+        if pending:
+            first = pending.pop()
+            if len(first) >= n:
+                if len(first) > n:
+                    pending.append(first[n:])
+                return first[:n]
+            return first + read(n - len(first))
+        return read(n)
+    return chained
+
+
 def read_stream(source) -> Tuple[Schema, Iterator[RecordBatch]]:
-    """(schema, batches) of an IPC stream in ``source`` (bytes or a binary
-    file object); the batches are decoded as they are pulled."""
-    msgs = _messages(_reader(source))
+    """(schema, batches) of an IPC stream, or of the file container
+    (``FILE_MAGIC``), in ``source`` (bytes or a binary file object); the
+    batches are decoded as they are pulled."""
+    msgs = _messages(_container(_reader(source)))
     first = next(msgs, None)
     if first is None or first[0].scalar(1, "B") != _MESSAGE_SCHEMA:
         raise ValueError("an Arrow IPC stream must start with its Schema message")

@@ -390,6 +390,39 @@ class PhysWindow(_Unary):
         self.spec = spec
 
 
+class ShuffleWrite(_Unary):
+    """The root of a distributed map task: hash-partition the input stream
+    on ``by`` and write each partition's rows to the shuffle directory
+    (distributed/shuffle.py); yields nothing."""
+
+    def __init__(self, input: PhysicalPlan, shuffle_id: str, map_id: int,
+                 num_partitions: int, by: List[Expression], shuffle_dir: str,
+                 schema: Schema):
+        super().__init__(input, schema)
+        self.shuffle_id = shuffle_id
+        self.map_id = map_id
+        self.num_partitions = num_partitions
+        self.by = by
+        self.shuffle_dir = shuffle_dir
+
+
+class ShuffleRead(PhysicalPlan):
+    """The leaf of a distributed reduce task: every map's file of one
+    shuffle partition, from the shuffle directory or, with
+    ``fetch_endpoints``, over the fetch servers' sockets. ``expected_maps``
+    names the map ids that wrote rows for this partition: a missing one
+    raises ShuffleDataLost."""
+
+    def __init__(self, shuffle_id: str, partition_idx: int, shuffle_dir: str,
+                 schema: Schema, fetch_endpoints=None, expected_maps=None):
+        self.shuffle_id = shuffle_id
+        self.partition_idx = partition_idx
+        self.shuffle_dir = shuffle_dir
+        self.schema = schema
+        self.fetch_endpoints = fetch_endpoints  # [(host, port, authkey_hex)]
+        self.expected_maps = tuple(expected_maps) if expected_maps else None
+
+
 class DeviceJoinAgg(PhysicalPlan):
     """Star join + aggregate fused for the device (ops/device_join.py): the
     fact streams, each dim materializes once per run and joins as a device

@@ -8,15 +8,14 @@ through the PreparedQueryCache (optimize and translate skipped on a repeat
 shape), pass the HBM admission controller (``ResidencyManager.admit``: a
 reservation of the query's estimated pin-scope bytes that makes an
 over-budget query wait instead of evicting another's pinned planes), and run
-the cached physical plan through the executor on the configured device.
+the cached physical plan through the executor on the configured device,
+or, with ``runner=`` (a DistributedRunner), hand the prepared optimized
+plan to the runner, whose pool deals the concurrent queries' sub-plan
+tasks round-robin across its shared workers.
 Pin scopes are per thread, so concurrent queries' scopes never mix; the
 stage caches, the decision cache and the residency manager take their own
 locks; each query runs under ``span_scope(None)`` so a query profiled
 elsewhere never receives its spans, and under its own placement scope.
-
-The reference can also hand the prepared plan to a runner (its distributed
-runner); the port has no distributed runner yet, so ``runner=`` other than
-None raises (ROADMAP Queue 1, entry 3).
 
 Every query emits a ServeQueryRecord to subscribers (the dashboard's
 per-tenant hit-rate table, the tenant-labeled latency histogram, the event
@@ -123,16 +122,14 @@ class ServingSession:
     Args:
         max_concurrent: session worker threads (default
             ExecutionConfig.max_concurrent_queries).
-        runner: must be None (the port has no distributed runner yet).
+        runner: run through this Runner (a DistributedRunner) instead of the
+            in-process executor.
         prepared_cap: prepared-query cache slots (one per plan skeleton).
     """
 
     def __init__(self, max_concurrent: Optional[int] = None, runner=None,
                  prepared_cap: int = 64):
-        if runner is not None:
-            raise NotImplementedError(
-                "ServingSession(runner=...) needs the distributed runner, which the port "
-                "does not have yet (ROADMAP Queue 1, entry 3: the distributed workers)")
+        self._runner = runner
         cfg = execution_config()
         self.max_concurrent = (cfg.max_concurrent_queries if max_concurrent is None
                                else max_concurrent)
@@ -261,10 +258,14 @@ class ServingSession:
                                     tenant_budget=cfg.tenant_budget_bytes) as waited:
                 wait_s = time.perf_counter() - t_adm
                 t_exec = time.perf_counter()
-                with span_scope(None), _placement_scope(tag=fut.query_id), \
-                        _residency().observe_pins() as observed_pins:
-                    parts = self._run_plan(fut, entry)
-                entry.note_observed_pin(observed_pins())
+                if self._runner is None:
+                    with span_scope(None), _placement_scope(tag=fut.query_id), \
+                            _residency().observe_pins() as observed_pins:
+                        parts = self._run_plan(fut, entry)
+                    entry.note_observed_pin(observed_pins())
+                else:
+                    with span_scope(None), _placement_scope(tag=fut.query_id):
+                        parts = list(self._runner.run(entry.plan))
                 exec_s = time.perf_counter() - t_exec
             rows = sum(p.num_rows for p in parts)
         except BaseException as e:  # noqa: BLE001 -- the future carries it to the client
@@ -301,7 +302,7 @@ class ServingSession:
                 query_id=fut.query_id, tenant=ticket.tenant, seconds=seconds,
                 exec_seconds=exec_s, rows=rows, prepared_hit=hit, admission_wait_s=wait_s,
                 est_pin_bytes=est, error=err, admission_waited=bool(waited),
-                in_process=True))
+                in_process=self._runner is None))
         from ..observability import flight as _flight
 
         frec = _flight.recorder()

@@ -79,7 +79,9 @@ _TYPE_NAMES = {
     "TIMESTAMP": lambda: DataType.timestamp("us"),
     "BINARY": DataType.binary, "BYTES": DataType.binary,
 }
-_TYPE_NAMES_NOT_PORTED = {"DECIMAL", "NUMERIC"}
+# DECIMAL / NUMERIC's defaults when no (precision[, scale]) follows (the
+# reference's parser.py:477-484)
+DECIMAL_DEFAULT = (38, 10)
 # the fixed-length INTERVAL units, in seconds (the reference's parser.py:423)
 _INTERVAL_SECONDS = {"day": 86400.0, "week": 7 * 86400.0, "hour": 3600.0, "minute": 60.0,
                      "second": 1.0, "millisecond": 1e-3}
@@ -480,8 +482,14 @@ class Parser:
                 while not self.eat("punct", ")"):
                     self.next()
             return _TYPE_NAMES[up]()
-        if up in _TYPE_NAMES_NOT_PORTED:
-            raise _not_ported(f"the SQL type {t.value!r}")
+        if up in ("DECIMAL", "NUMERIC"):
+            prec, scale = DECIMAL_DEFAULT
+            if self.eat("punct", "("):
+                prec = int(self.expect("number").value)
+                if self.eat("punct", ","):
+                    scale = int(self.expect("number").value)
+                self.expect("punct", ")")
+            return DataType.decimal128(prec, scale)
         raise ValueError(f"unknown type {t.value!r}")
 
     def _parse_function_call(self) -> Expression:

@@ -1541,3 +1541,108 @@ def test_serve_phase_fails_when_an_answer_differs_from_off(monkeypatch):
     monkeypatch.setattr(cs, "serve_off", shifted)
     with pytest.raises(cs.SmokeFailure, match="q12 .*differs from the \"off\" run"):
         cs.phase_serve(lineitem, orders, dims, "cpu", {})
+
+
+def _dist_on_the_cpu(monkeypatch):
+    """chip_smoke.py's dist phase on the CPU: the cells' config on
+    device="cpu" (the pool hands it to its workers), the kernels' plain
+    calls counted as their launches."""
+    from daft_tpu_torch.device.residency import manager
+
+    cs = _cpu_cells(monkeypatch)
+    monkeypatch.setattr(cs, "clear_residency", lambda: manager().clear())
+    return cs
+
+
+def test_dist_phase_on_the_cpu(monkeypatch, capsys):
+    """The dist phase at a small size on the CPU: q1 through two leased
+    workers equal to the single-process, "off" and oracle runs, K1, K2, K3
+    and K7 counted in the workers, the repeat's affinity hits with each
+    worker's h2d bytes flat, q12 both ways, four served tenants, and the
+    killed worker's query equal."""
+    cs = _dist_on_the_cpu(monkeypatch)
+    lineitem, orders, _dims = _small_tpch(cs)
+    launches = cs.phase_dist(lineitem, orders, "cpu")
+    for k in ("segment_sum_planes", "segment_sum_float_planes", "segment_extreme_planes",
+              "segment_extreme_int64"):
+        assert launches[k] > 0, launches
+    out = capsys.readouterr().out
+    for line in ("dist q1 cold", "h2d bytes by worker unchanged", "dist q12",
+                 "worker tasks; both equal", "dist serve: 8 queries of 4 tenants",
+                 "1 failure, 1 map(s) regenerated; equal"):
+        assert line in out, line
+
+
+class _Stats:
+    def __init__(self, worker, counters, exec_s=0.1, queue_wait_s=0.0):
+        self.worker_id = worker
+        self.engine_counters = tuple(sorted(counters.items()))
+        self.exec_s = exec_s
+        self.queue_wait_s = queue_wait_s
+
+
+class _Trace:
+    def __init__(self, tasks):
+        self.tasks = tasks
+
+
+def test_dist_launches_sum_the_workers_counters(monkeypatch):
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    trace = _Trace([_Stats("worker-0", {"launches_segment_sum_planes": 2,
+                                        "launches_segment_sum_float_planes": 1,
+                                        "plain_segment_sum_planes": 9}),
+                    _Stats("worker-1", {"launches_segment_sum_planes": 1}),
+                    _Stats("worker-0", {})])
+    got = cs.dist_launches(trace)
+    assert got["total"]["segment_sum_planes"] == 3
+    assert got["total"]["segment_sum_float_planes"] == 1
+    assert got["by_worker"] == {"worker-0": {"segment_sum_planes": 2,
+                                             "segment_sum_float_planes": 1},
+                                "worker-1": {"segment_sum_planes": 1}}
+    assert "3 worker tasks" in cs.dist_task_times(trace)
+    cs.dist_check_launches("ok", got)
+
+
+@pytest.mark.parametrize("missing", ["segment_sum_planes", "segment_sum_float_planes"])
+def test_dist_fails_on_zero_worker_launches(monkeypatch, missing):
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    counters = {"launches_segment_sum_planes": 1, "launches_segment_sum_float_planes": 1}
+    counters[f"launches_{missing}"] = 0
+    got = cs.dist_launches(_Trace([_Stats("worker-0", counters)]))
+    with pytest.raises(cs.SmokeFailure, match=f"kernel {missing} was not launched in a worker"):
+        cs.dist_check_launches("dist q1", got)
+
+
+def test_dist_oracle_holds_ints_exactly_and_floats_to_rtol(monkeypatch):
+    """dist_same_q1: the oracle of the CPU-sized q1 equals the port's host
+    run; an integer count one off, or a float sum off by more than
+    DIST_RTOL, fails; one within it passes."""
+    import numpy as np
+
+    import daft_tpu_torch as dt
+
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as cs
+
+    lineitem, _orders, _dims = _small_tpch(cs)
+    df = cs.q1_frame(lineitem)
+    with dt.execution_config_ctx(device="cpu", device_mode="off"):
+        host = cs.q1_query(df, extremes=True).to_pydict()
+    oracle = cs.q1_oracle(lineitem, extremes=True)
+    assert cs.dist_same_q1(host, host, oracle)
+    off = {k: list(v) for k, v in host.items()}
+    off["count_order"][0] += 1
+    assert not cs.dist_same_q1(off, host, oracle)
+    near = {k: list(v) for k, v in host.items()}
+    near["sum_charge"][0] *= 1 + cs.DIST_RTOL / 10
+    assert cs.dist_same_q1(near, host, oracle)
+    far = {k: list(v) for k, v in host.items()}
+    far["sum_charge"][0] *= 1 + cs.DIST_RTOL * 10
+    assert not cs.dist_same_q1(far, host, oracle)
+    maxed = {k: list(v) for k, v in host.items()}
+    maxed["max_price"][0] = float(np.nextafter(maxed["max_price"][0], np.inf))
+    assert not cs.dist_same_q1(maxed, host, oracle)

@@ -43,7 +43,11 @@
 - the serving tier (serving, gateway, checkpoint, cli, io/arrow_ipc): a
   query served over a loopback gateway (cold, from the result cache, from
   a stage checkpoint), a ServingSession query, an LZ4 IPC stream written
-  and read back, and the CLI import none of them.
+  and read back, and the CLI import none of them;
+- the distributed tier: a grouped query through a DistributedRunner with
+  two leased worker processes, a socket-transport shuffle and a served
+  query imports none of them in the coordinator, and each worker process, asked
+  after the queries, holds none of them in its ``sys.modules``.
 """
 
 import datetime
@@ -1035,4 +1039,71 @@ def test_serving_tier_imports_no_jax_pyarrow_or_reference():
     proc = subprocess.run([sys.executable, "-c", _SERVE_QUERY.format(repo=REPO)],
                           capture_output=True, text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+_DIST_QUERY = """
+import sys
+import numpy as np
+sys.path.insert(0, {repo!r})
+import daft_tpu_torch as dt
+import daft_tpu_torch.runners as runners
+from daft_tpu_torch import col
+from daft_tpu_torch.core.micropartition import MicroPartition
+from daft_tpu_torch.distributed import DistributedRunner, SubPlanTask, WorkerAffinity
+from daft_tpu_torch.plan import physical as pp
+
+FORBIDDEN = ("jax", "pyarrow", "pandas", "daft_tpu")
+
+
+def forbidden():
+    return sorted(m for m in sys.modules
+                  if m in FORBIDDEN or m.startswith(tuple(f + "." for f in FORBIDDEN)))
+
+
+class ModulesTask:
+    filters_applied = True
+    size_bytes = None
+    source_label = "modules"
+
+    def read(self):
+        import os
+        yield MicroPartition.from_pydict({{"pid": [os.getpid()],
+                                           "bad": [",".join(forbidden())]}})
+
+
+df = dt.from_pydict({{"k": np.arange(20_000) % 9, "v": np.arange(20_000, dtype=np.float64)}})
+q = lambda: df.groupby("k").agg(col("v").sum().alias("s")).sort("k")
+with dt.execution_config_ctx(device="cpu", device_mode="on"):
+    want = q().to_pydict()
+    r = DistributedRunner(num_workers=2, n_partitions=2, device_workers=2,
+                          shuffle_transport="socket")
+    try:
+        runners.set_runner(r)
+        assert q().to_pydict() == want
+        runners.set_runner(None)
+        with dt.serving_session(max_concurrent=2, runner=r) as sess:
+            assert sess.submit(q(), tenant="a").to_pydict() == want
+        schema = MicroPartition.from_pydict({{"pid": [0], "bad": [""]}}).schema
+        plan = pp.StreamingScan([ModulesTask()], schema, None, None)
+        tasks = [SubPlanTask.from_plan(f"mods-{{w}}", plan, strategy=WorkerAffinity(w, hard=True))
+                 for w in sorted(r._pool.workers)]
+        res = r._pool.run_tasks(tasks)
+        rows = [p.to_pydict() for t in res.values() for p in t.partitions]
+        assert len({{row["pid"][0] for row in rows}}) == 2, rows
+        print("WORKERS", [row["bad"][0] for row in rows])
+    finally:
+        r.shutdown()
+print("FORBIDDEN", forbidden())
+"""
+
+
+def test_distributed_workers_import_no_jax_pyarrow_or_reference():
+    """A DistributedRunner's coordinator and both of its leased worker processes,
+    after a grouped query, a socket shuffle and a served query: no JAX,
+    pyarrow, pandas or daft_tpu in either."""
+    proc = subprocess.run([sys.executable, "-c", _DIST_QUERY.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=180, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "WORKERS ['', '']" in proc.stdout, proc.stdout
     assert "FORBIDDEN []" in proc.stdout, proc.stdout

@@ -364,10 +364,28 @@ def test_warm_repeat_observes_its_pins_on_stage_threads():
 
 
 def test_session_runner_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1, entry 3"):
-        ServingSession(max_concurrent=1, runner=object())
-    with pytest.raises(NotImplementedError):
-        dt.serving_session(runner=object())
+    """A runner is taken since the distributed workers landed: the session
+    hands it the prepared optimized plan (the workers' own cases are in
+    tests/test_torch_distributed_serving.py)."""
+    from daft_tpu_torch.runners import NativeRunner
+
+    class Recording(NativeRunner):
+        def __init__(self):
+            self.plans = []
+
+        def run(self, plan):
+            self.plans.append(plan)
+            return super().run(plan)
+
+    runner = Recording()
+    _ref_df, df = _tables(2_000)
+    with dt.execution_config_ctx(device="cpu"):
+        want = df.groupby("k").agg(col("v").sum().alias("s")).sort("k").to_pydict()
+        with dt.serving_session(max_concurrent=1, runner=runner) as sess:
+            got = sess.submit(df.groupby("k").agg(col("v").sum().alias("s")).sort("k"),
+                              tenant="a").to_pydict()
+    assert got == want
+    assert len(runner.plans) == 1
 
 
 # ---- the shared state under many threads -------------------------------------------

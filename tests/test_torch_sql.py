@@ -241,8 +241,8 @@ NOT_PORTED = [
     ("SELECT EUCLIDEAN_DISTANCE(k, k) AS m FROM df", None),
     ("SELECT TOKENIZE_DECODE(k) AS j FROM df", None),
     ("SELECT TOKENIZE_ENCODE(k) AS t FROM df", None),
-    ("SELECT CAST(a AS NUMERIC) AS t FROM df", "item 7"),
-    ("SELECT CAST(a AS DECIMAL) AS t FROM df", "item 7"),
+    ("SELECT CAST(a AS NUMERIC) AS t FROM df", None),
+    ("SELECT CAST(a AS DECIMAL) AS t FROM df", None),
     ("SELECT IMAGE_DECODE(k) AS i FROM df", None),
     ("SELECT URL_DOWNLOAD(k) AS i FROM df", None),
     ("SELECT URL_UPLOAD(k) AS v FROM df", None),
